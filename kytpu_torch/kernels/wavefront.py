@@ -1,0 +1,1664 @@
+"""The forward path-tracing megakernel (kytpu/kernels/wavefront.py).
+
+Three layers, each the counterpart of one in the JAX package:
+
+- host side: `KernelConfig`, `extract_static` (the scene as python values,
+  the same dict as the JAX package's) and `pack_tables`, which flattens it
+  into two device tables. Every scene-dependent decision that the Pallas
+  kernel builder `_make_kernel` makes at trace time (lobes present, static
+  Phong exponent, occlusion-skip rows, sphere-light inside branch, which
+  lights carry a direction-free hit pdf, ...) is a field of those tables,
+  read by the CUDA kernel at run time;
+- `trace_lanes_plain`: a plain torch transcription of the forward
+  `_make_kernel(grad=False, residual=False)` on (N,) lane tensors. CPU
+  tensors run it, and the card checks the kernel against it;
+- the wrapper (`make_cuda_tracer`, `render_lanes_cuda`, `render_cuda`),
+  which launches `csrc/wavefront_fwd.cu` on CUDA tensors.
+
+Samplers: "hash" (stateless lowbias32 streams keyed by (seed, pixel,
+sample, draw site)) is the JAX package's own. "random" on the TPU is the
+on-core PRNG, which has no counterpart; here it is the tile-keyed hash
+stream the JAX package runs under interpret (`_Rng(hw=False)`), so the port
+matches interpret mode bit for bit at the integer level, not the TPU's
+stream. Tiles are `cfg.rows * 128` consecutive lanes, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from kytpu_torch import bsdf as kbsdf
+from kytpu_torch.core import math as km
+from kytpu_torch.core import rng as krng
+from kytpu_torch.kernels.v3 import (V3, cv3, make_frame, to_local, to_world,
+                                    v3_full, v3_zeros)
+from kytpu_torch.light import lights as klights
+from kytpu_torch.scene import scene as kscene
+from kytpu_torch.scene import shapes as kshapes
+
+LANE = 128
+MAX_SURFACES = 64
+# the kernel keeps one skip bit per light in an int32 table field and one
+# hit pdf per light in a per-thread array (csrc/wavefront_fwd.cu)
+MAX_LIGHTS = 32
+
+
+@dataclass(frozen=True)
+class KernelConfig:
+    """Same fields and defaults as kytpu.kernels.wavefront.KernelConfig.
+    The port's kernel takes max_depth, rr_start, rows, nee ("all" |
+    "single"), sampler ("random" | "hash") and shadow ("parity" |
+    "robust"); the other fields belong to paths not ported yet."""
+
+    max_depth: int = 5
+    rr_start: int = 3
+    rows: int = 16
+    bwd_rows: int = 0
+    nee: str = "all"
+    sampler: str = "random"
+    shadow: str = "parity"
+    trainable_exponent: bool = False
+    cull: str = "cone"
+    sweep: str = "auto"
+
+
+def check_config(cfg: KernelConfig) -> None:
+    if cfg.sampler == "sobol":
+        raise NotImplementedError(
+            "sampler='sobol' (core/lds.py) is on the port's ROADMAP queue")
+    if cfg.trainable_exponent:
+        raise NotImplementedError(
+            "trainable_exponent belongs to the training path, ROADMAP M5")
+    if cfg.sampler not in ("random", "hash") or cfg.nee not in (
+            "all", "single") or cfg.shadow not in ("parity", "robust"):
+        raise ValueError(f"unsupported kernel config {cfg}")
+    if cfg.rows < 1 or cfg.max_depth < 0:
+        raise ValueError(f"unsupported kernel config {cfg}")
+
+
+# ---------------------------------------------------------------------------
+# host side: the scene as python values
+# ---------------------------------------------------------------------------
+
+
+def _f(x):
+    return [float(v) for v in np.asarray(x).reshape(-1)]
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _dual_basis(e1, e2):
+    """In-plane dual vectors f1, f2 with (a e1 + b e2).f1 == a etc."""
+    e11 = float(np.dot(e1, e1))
+    e22 = float(np.dot(e2, e2))
+    e12 = float(np.dot(e1, e2))
+    det = e11 * e22 - e12 * e12
+    f1 = (e22 * e1 - e12 * e2) / det
+    f2 = (e11 * e2 - e12 * e1) / det
+    return f1, f2
+
+
+def _surface_inside_ball_possible(planar, spheres, c, r):
+    """Conservative: can any scene surface point lie strictly inside the
+    ball (c, r)? If not, a sphere light's inside branch is dead. The
+    light's own coincident sphere contributes boundary points only."""
+    c = np.asarray(c, np.float64)
+    for s in planar:
+        pts = [np.asarray(s[k], np.float64) for k in ("p0", "p1", "p2", "p3")]
+        if s["kind"] == kshapes.TRI:
+            pts = pts[:3]
+        n = np.asarray(s["n"], np.float64)
+        n = n / max(np.linalg.norm(n), 1e-30)
+        if abs(np.dot(n, c - pts[0])) >= r:
+            continue
+        centroid = np.mean(pts, axis=0)
+        circum = max(np.linalg.norm(p - centroid) for p in pts)
+        if np.linalg.norm(c - centroid) < r + circum:
+            return True
+    for s in spheres:
+        ci = np.asarray(s["c"], np.float64)
+        dist = np.linalg.norm(ci - c)
+        if dist < 1e-9 and abs(s["r"] - r) < 1e-9:
+            continue
+        if abs(dist - s["r"]) < r:
+            return True
+    return False
+
+
+def extract_static(scene: kscene.Scene) -> dict:
+    """The scene as python values: the same dict that
+    kytpu.kernels.wavefront.extract_static returns for an untextured scene."""
+    g = scene.geometry
+    npg = {k: getattr(g, k).detach().cpu().numpy()
+           for k in ("pl_kind", "pl_p0", "pl_p1", "pl_p2", "pl_p3",
+                     "pl_normal", "pl_radius", "sp_center", "sp_radius")}
+    planar = []
+    for i in range(g.n_planar):
+        kind = int(npg["pl_kind"][i])
+        p0, p1, p2, p3 = (np.asarray(npg[f"pl_p{j}"][i], np.float64)
+                          for j in range(4))
+        rec = dict(kind=kind, p0=_f(p0), p1=_f(p1), p2=_f(p2), p3=_f(p3),
+                   n=_f(npg["pl_normal"][i]),
+                   radius=float(npg["pl_radius"][i]))
+        # dual bases of the 2D inclusion fast path; rects must be
+        # parallelograms for it to equal the 4-edge quad test
+        if kind == kshapes.TRI:
+            f1, f2 = _dual_basis(p1 - p0, p2 - p0)
+            rec.update(anchor=_f(p0), f1=_f(f1), f2=_f(f2), fast=True)
+        elif kind == kshapes.RECT and \
+                np.allclose(p3, p0 + p2 - p1, rtol=1e-5, atol=1e-7):
+            f1, f2 = _dual_basis(p0 - p1, p2 - p1)
+            rec.update(anchor=_f(p1), f1=_f(f1), f2=_f(f2), fast=True)
+        else:
+            rec.update(fast=False)
+        if kind == kshapes.TRI:
+            uf1, uf2 = _dual_basis(p1 - p0, p2 - p0)
+            rec.update(uv_anchor=_f(p0), uv_f1=_f(uf1), uv_f2=_f(uf2))
+        elif kind == kshapes.RECT:
+            uf1, uf2 = _dual_basis(p0 - p1, p2 - p1)
+            rec.update(uv_anchor=_f(p1), uv_f1=_f(uf1), uv_f2=_f(uf2))
+        else:
+            nn = np.asarray(rec["n"], np.float64)
+            nn = nn / np.linalg.norm(nn)
+            helper = (np.array([0.0, 1.0, 0.0]) if abs(nn[0]) > 0.99
+                      else np.array([1.0, 0.0, 0.0]))
+            tt = np.cross(nn, helper)
+            tt = tt / np.linalg.norm(tt)
+            ss = np.cross(tt, nn)
+            inv2r = 0.5 / max(rec["radius"], 1e-12)
+            rec.update(uv_anchor=_f(p0), uv_f1=_f(ss * inv2r),
+                       uv_f2=_f(tt * inv2r), uv_disk=True)
+        planar.append(rec)
+    spheres = [dict(c=_f(npg["sp_center"][i]), r=float(npg["sp_radius"][i]))
+               for i in range(g.n_sphere)]
+
+    tab = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    mats = dict(
+        kind=[int(k) for k in tab(scene.mat_kind)],
+        exponent=[float(v) for v in tab(scene.mat_exponent)],
+        eta=[float(v) for v in tab(scene.mat_eta)],
+        d_prob=[float(v) for v in tab(scene.mat_d_prob)],
+        s_prob=[float(v) for v in tab(scene.mat_s_prob)],
+        light_index=[int(v) for v in tab(scene.light_index)],
+    )
+    mk = set(mats["kind"])
+    lobes = set()
+    if kbsdf.MAT_MATTE in mk or kbsdf.MAT_PLASTIC in mk:
+        lobes.add(kbsdf.LAMBERT)
+    if kbsdf.MAT_PLASTIC in mk:
+        lobes.add(kbsdf.PHONG)
+    if kbsdf.MAT_MIRROR in mk:
+        lobes.add(kbsdf.MIRROR)
+    if kbsdf.MAT_GLASS in mk:
+        lobes.add(kbsdf.GLASS)
+    mats["lobes"] = frozenset(lobes)
+    li = scene.lights
+    lights = []
+    for i, kind in enumerate(li.kinds):
+        row = lambda name: tab(getattr(li, name))[i]  # noqa: E731
+        rec = dict(kind=int(kind), position=_f(row("position")),
+                   direction=_f(row("direction")), p0=_f(row("p0")),
+                   p1=_f(row("p1")), p2=_f(row("p2")), p3=_f(row("p3")),
+                   normal=_f(row("normal")), area=float(row("area")),
+                   center=_f(row("center")), radius=float(row("radius")))
+        if int(kind) == klights.AREA_SPHERE:
+            rec["inside_possible"] = _surface_inside_ball_possible(
+                planar, spheres, rec["center"], rec["radius"])
+        lights.append(rec)
+    # a sphere light's own shape stays in its NEE occlusion sweep under
+    # shadow="parity" (the reference's self-occlusion quirk, ky.cpp:3193)
+    occl_skip = _occl_skip_rows(planar, spheres, mats, lights)
+    return dict(planar=planar, spheres=spheres, mats=mats, lights=lights,
+                world_radius=float(tab(scene.world_radius)),
+                has_env=scene.has_env, textures=[], n_textures=0,
+                n_texels=0, n_images=0, occl_skip=occl_skip)
+
+
+def _occl_skip_rows(planar, spheres, mats, lights):
+    """Per-light sets of planar rows proven unable to occlude any of that
+    light's NEE shadow rays (kytpu's `_occl_skip_rows`): every light sample
+    lies strictly on one side of the row's plane, and every shadow-ray
+    origin (a shading point offset by RAY_OFFSET along its own normal)
+    stays on that side too. Direction and environment lights skip nothing,
+    and a light's own emitting surface is never skipped."""
+    skips = [set() for _ in lights]
+    if not lights:
+        return skips
+
+    def _poly_pts(s):
+        k = 3 if s["kind"] == kshapes.TRI else 4
+        return [np.asarray(s[f"p{j}"], np.float64) for j in range(k)]
+
+    for row, s in enumerate(planar):
+        n = np.asarray(s["n"], np.float64)
+        nl = np.linalg.norm(n)
+        if nl < 1e-12:
+            continue
+        n = n / nl
+        c = float(np.dot(n, np.asarray(s["p0"], np.float64)))
+        lo = hi = 0.0
+        for u_row, u in enumerate(planar):
+            if u_row == row:
+                continue
+            nu = np.asarray(u["n"], np.float64)
+            nu = nu / max(np.linalg.norm(nu), 1e-30)
+            exc = km.RAY_OFFSET * abs(float(np.dot(n, nu)))
+            if u["kind"] == kshapes.DISK:
+                d0 = float(np.dot(n, np.asarray(u["p0"], np.float64))) - c
+                r_in = u["radius"] * float(
+                    np.sqrt(max(0.0, 1.0 - np.dot(n, nu) ** 2)))
+                dmin, dmax = d0 - r_in, d0 + r_in
+            else:
+                ds = [float(np.dot(n, p)) - c for p in _poly_pts(u)]
+                dmin, dmax = min(ds), max(ds)
+            lo = min(lo, dmin - exc)
+            hi = max(hi, dmax + exc)
+        for sp in spheres:
+            d0 = float(np.dot(n, np.asarray(sp["c"], np.float64))) - c
+            lo = min(lo, d0 - sp["r"] - km.RAY_OFFSET)
+            hi = max(hi, d0 + sp["r"] + km.RAY_OFFSET)
+
+        for i, lt in enumerate(lights):
+            kind = lt["kind"]
+            if kind in (klights.DIRECTION, klights.ENV):
+                continue
+            if mats["light_index"][row] == i:
+                continue
+            if kind == klights.POINT:
+                q = [float(np.dot(n, np.asarray(lt["position"],
+                                                np.float64))) - c] * 2
+            elif kind == klights.AREA_RECT:
+                dq = [float(np.dot(n, np.asarray(lt[f"p{j}"], np.float64)))
+                      - c for j in range(4)]
+                q = [min(dq), max(dq)]
+            else:
+                d0 = float(np.dot(n, np.asarray(lt["center"],
+                                                np.float64))) - c
+                q = [d0 - lt["radius"], d0 + lt["radius"]]
+            if q[0] >= 1e-3 and lo >= -1e-6:
+                skips[i].add(row)
+            elif q[1] <= -1e-3 and hi <= 1e-6:
+                skips[i].add(row)
+    return skips
+
+
+def _static_exponent(mats):
+    """The one integer Phong exponent shared by every glossy surface, or
+    None (then the kernel evaluates pow with the per-row exponent)."""
+    vals = {float(v) for v in mats["exponent"] if float(v) != 0.0}
+    if len(vals) == 1:
+        e = vals.pop()
+        if e.is_integer() and 1.0 <= e <= 1e6:
+            return e
+    return None
+
+
+def _light_rows(static) -> dict:
+    """light index -> its first emitting surface row."""
+    light_row = {}
+    for m, li in enumerate(static["mats"]["light_index"]):
+        if li >= 0 and li not in light_row:
+            light_row[li] = m
+    return light_row
+
+
+def _occl_skips(static, cfg: KernelConfig):
+    """Per-light (planar rows, sphere indices) left out of the all-lights
+    shadow sweep: `_occl_skip_rows`, plus under shadow="robust" the light's
+    own emitting shape."""
+    n_pl = len(static["planar"])
+    light_row = _light_rows(static)
+    rows_out, sph_out = [], []
+    for i in range(len(static["lights"])):
+        rows = set(static["occl_skip"][i])
+        sph = set()
+        if cfg.shadow == "robust":
+            r = light_row.get(i, -1)
+            if 0 <= r < n_pl:
+                rows.add(r)
+            elif r >= n_pl:
+                sph.add(r - n_pl)
+        rows_out.append(frozenset(rows))
+        sph_out.append(frozenset(sph))
+    return rows_out, sph_out
+
+
+def _planar_consts(s):
+    """Host-folded float32 constants of one fast-path planar row: the plane
+    offset n.anchor and the dual-basis offsets f1.anchor, f2.anchor, all
+    taken in float64 from the unrounded dual basis (wavefront.py:656,
+    :863-865)."""
+    anchor = np.asarray(s["anchor"], np.float64)
+    return (_f32(np.dot(s["n"], anchor)), _f32(np.dot(s["f1"], anchor)),
+            _f32(np.dot(s["f2"], anchor)))
+
+
+def _sphere_area_f32(r: float) -> float:
+    """np.float32(4.0 * np.pi * r * r) with r an np.float32: under numpy's
+    scalar promotion every product rounds to float32 (_light_sample)."""
+    r32 = np.float32(r)
+    return float(np.float32(4.0 * np.pi) * r32 * r32)
+
+
+# ---------------------------------------------------------------------------
+# host side: the flat device tables the CUDA kernel reads
+# ---------------------------------------------------------------------------
+
+# int table: header, then per planar row, per sphere, per material row,
+# per light (offsets derived from the counts, see csrc/wavefront_fwd.cu)
+HDR_I = 16
+PL_I = 4     # kind, fast, all-lights skip bitmask, single-mode skip
+SP_I = 1     # all-lights skip bitmask
+MAT_I = 2    # material kind, light index
+LT_I = 3     # kind, inside_possible, emitting row
+# float table
+HDR_F = 4    # 2 * world_radius, then the static exponent's 1/(e+1),
+             # (e+2)/2pi and (e+1)/2pi
+PL_F = 32    # n, p0, p1, p2, p3, radius^2, anchor, f1, f2, c_n, c_1, c_2
+SP_F = 8     # c, r, r*r, 1/r
+MAT_F = 4    # exponent, eta, d_prob, s_prob
+LT_F = 28    # position, direction, p0, p1, p2, normal, area, center,
+             # radius, 4 pi r^2 (float32 products), 4 pi r^2 (float64)
+
+
+@dataclass(frozen=True)
+class SceneTables:
+    """What one kernel launch reads: the scene as python values (`static`,
+    for the plain version), its flat int32/float32 device tables, and the
+    colour tables a render may change without repacking."""
+
+    static: dict
+    f: torch.Tensor
+    i: torch.Tensor
+    diffuse: torch.Tensor     # (M, 3)
+    specular: torch.Tensor    # (M, 3)
+    emission: torch.Tensor    # (M, 3)
+    light_emit: torch.Tensor  # (max(L, 1), 3)
+    env: torch.Tensor         # (3,)
+
+    def with_colors(self, scene: kscene.Scene) -> "SceneTables":
+        return dataclasses.replace(self, **_color_tables(scene))
+
+
+def _color_tables(scene: kscene.Scene) -> dict:
+    dev = scene.device
+    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()  # noqa
+    emit = (scene.lights.emit if scene.n_lights
+            else torch.zeros((1, 3), device=dev))
+    env = (scene.env_radiance_ if scene.has_env
+           else torch.zeros(3, device=dev))
+    return dict(diffuse=f32(scene.mat_diffuse),
+                specular=f32(scene.mat_specular),
+                emission=f32(scene.emission), light_emit=f32(emit),
+                env=f32(env).reshape(3))
+
+
+def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
+    static = extract_static(scene)
+    planar, spheres = static["planar"], static["spheres"]
+    mats, lights = static["mats"], static["lights"]
+    n_pl, n_sp, M, L = len(planar), len(spheres), len(mats["kind"]), len(lights)
+    if M > MAX_SURFACES:
+        raise NotImplementedError(
+            f"{M} surfaces: scenes past {MAX_SURFACES} surfaces need the "
+            "table-driven big-scene kernels, ROADMAP M8")
+    if L > MAX_LIGHTS:
+        raise NotImplementedError(
+            f"{L} lights: the CUDA kernel takes at most {MAX_LIGHTS}; more "
+            "lights are ROADMAP item M12 of the port")
+    light_row = _light_rows(static)
+    rows_skip, sph_skip = _occl_skips(static, cfg)
+    single_skip = (frozenset.intersection(
+        *[frozenset(s) for s in static["occl_skip"]]) if L else frozenset())
+    static_exp = _static_exponent(mats)
+    env_i = next((i for i, lt in enumerate(lights)
+                  if lt["kind"] == klights.ENV), -1)
+
+    it = np.zeros(HDR_I + PL_I * n_pl + SP_I * n_sp + MAT_I * M + LT_I * L,
+                  np.int32)
+    ft = np.zeros(HDR_F + PL_F * n_pl + SP_F * n_sp + MAT_F * M + LT_F * L,
+                  np.float32)
+    lobes = mats["lobes"]
+    it[:13] = [
+        n_pl, n_sp, M, L,
+        sum(1 << k for k in lobes),
+        int(kbsdf.MAT_PLASTIC in mats["kind"]),
+        int(kbsdf.MAT_GLASS in mats["kind"]),
+        int(bool(lobes & {kbsdf.MIRROR, kbsdf.GLASS})),
+        int(static_exp) if static_exp is not None else 0,
+        env_i,
+        int(any(lt["kind"] in (klights.AREA_SPHERE, klights.ENV)
+                for lt in lights)),
+        int(_phit_lights(lights)),
+        int(cfg.nee == "single" and L > 1),
+    ]
+    ft[0] = _f32(2.0 * static["world_radius"])
+    if static_exp is not None:
+        ft[1:4] = [_f32(1.0 / (static_exp + 1.0)),
+                   _f32((static_exp + 2.0) * km.INV_2PI),
+                   _f32((static_exp + 1.0) * km.INV_2PI)]
+
+    oi, of = HDR_I, HDR_F
+    for row, s in enumerate(planar):
+        mask = _i32(sum(1 << k for k in range(L) if row in rows_skip[k]))
+        it[oi:oi + PL_I] = [s["kind"], int(bool(s.get("fast"))), mask,
+                            int(row in single_skip)]
+        rec = ft[of:of + PL_F]
+        rec[0:3] = s["n"]
+        for j in range(4):
+            rec[3 + 3 * j:6 + 3 * j] = s[f"p{j}"]
+        rec[15] = _f32(s["radius"] ** 2)
+        if s.get("fast"):
+            rec[16:19] = s["anchor"]
+            rec[19:22] = s["f1"]
+            rec[22:25] = s["f2"]
+            rec[25:28] = _planar_consts(s)
+        oi += PL_I
+        of += PL_F
+    for j, s in enumerate(spheres):
+        it[oi] = _i32(sum(1 << k for k in range(L) if j in sph_skip[k]))
+        r32 = np.float32(s["r"])
+        ft[of:of + 6] = [*s["c"], r32, r32 * r32, _f32(1.0 / s["r"])]
+        oi += SP_I
+        of += SP_F
+    for m in range(M):
+        it[oi:oi + MAT_I] = [mats["kind"][m], mats["light_index"][m]]
+        ft[of:of + MAT_F] = [mats["exponent"][m], mats["eta"][m],
+                             mats["d_prob"][m], mats["s_prob"][m]]
+        oi += MAT_I
+        of += MAT_F
+    for i, lt in enumerate(lights):
+        it[oi:oi + LT_I] = [lt["kind"], int(lt.get("inside_possible", True)),
+                            light_row.get(i, -1)]
+        ft[of:of + 25] = [
+            *lt["position"], *lt["direction"], *lt["p0"], *lt["p1"],
+            *lt["p2"], *lt["normal"], lt["area"], *lt["center"],
+            lt["radius"], _sphere_area_f32(lt["radius"]),
+            _f32(4.0 * np.pi * lt["radius"] ** 2)]
+        oi += LT_I
+        of += LT_F
+    dev = scene.device
+    return SceneTables(static=static, f=torch.from_numpy(ft).to(dev),
+                       i=torch.from_numpy(it).to(dev),
+                       **_color_tables(scene))
+
+
+def _phit_lights(lights) -> bool:
+    """Does every light give a direction-free hit pdf at sampling time
+    (`_light_sample`'s phit), so the next bounce's emission MIS reads it
+    instead of recomputing `_hit_light_pdf`?"""
+    return all(lt["kind"] != klights.AREA_RECT
+               and not (lt["kind"] == klights.AREA_SPHERE
+                        and lt.get("inside_possible", True))
+               for lt in lights)
+
+
+# ---------------------------------------------------------------------------
+# plain version: integer hashes and the lane RNG
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _u32(x) -> torch.Tensor:
+    """An int tensor's bits as uint32 values held in int64."""
+    return x.to(torch.int64) & _M32
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values in int64 -> the int32 tensor with the same bits."""
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """Wrapping 32-bit multiply (split so no int64 product overflows)."""
+    c &= _M32
+    lo = (x * (c & 0xFFFF)) & _M32
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _bits_to_unit(x: torch.Tensor) -> torch.Tensor:
+    """uint32 word -> float32 in [0, 1) from its top 24 bits."""
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _pix_hash(pid: torch.Tensor, seed) -> torch.Tensor:
+    """lowbias32 of (pixel id, seed), on uint32 words (wavefront.py:477)."""
+    x = pid ^ _mul32(seed if isinstance(seed, torch.Tensor)
+                     else torch.tensor(seed & _M32), 0x9E3779B9)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x21F0AAAD)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x735A2D97)
+    return x ^ (x >> 15)
+
+
+def _lowbias(x: torch.Tensor) -> torch.Tensor:
+    """The hash stream's finaliser (wavefront.py:574-580), with the
+    constants as written there."""
+    x = x ^ (x >> 17)
+    x = _mul32(x, -315667899)
+    x = x ^ (x >> 11)
+    x = _mul32(x, -1404298415)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 830770091)
+    return x ^ (x >> 14)
+
+
+class _Rng:
+    """The JAX package's `_Rng(hw=False)` on (N,) lanes.
+
+    "random": key = tile seed, mixed with the lane's position inside its
+    rows*128 tile. "hash" (per_lane): key = a per-lane hash of (seed,
+    pixel id, sample id). Every draw is a pure function of (key, lane,
+    draw counter), and the counter advances the same on every lane."""
+
+    def __init__(self, key: torch.Tensor, lane: torch.Tensor | None):
+        self.key = key
+        self.lane = lane
+        self.ctr = 0
+
+    def uniform(self) -> torch.Tensor:
+        self.ctr += 1
+        step = (self.ctr * 668265263) & _M32
+        if self.lane is None:
+            x = (self.key + step) & _M32
+        else:
+            x = (self.key + _mul32(self.lane, 374761393) + step) & _M32
+        return _bits_to_unit(_lowbias(x))
+
+    def uniform2(self):
+        return self.uniform(), self.uniform()
+
+
+def _single_pick(tile_seed: torch.Tensor, bounce: int, si0, L: int):
+    """nee="single": the light picked for a whole tile at one bounce
+    (wavefront.py:2213-2236); si0 is the sample index of the tile's first
+    lane under the "hash" sampler, else None."""
+    c = (tile_seed + ((bounce * 668265263) & 0x7FFFFFFF)) & _M32
+    c = c ^ (c >> 16)
+    c = _mul32(c, 0x85EBCA6B)
+    c = c ^ (c >> 13)
+    if si0 is not None:
+        c = (c + si0) & _M32
+    return (c & 0x7FFFFFFF) % L
+
+
+# ---------------------------------------------------------------------------
+# plain version: geometry
+# ---------------------------------------------------------------------------
+
+_EPS = _f32(km.SHAPE_EPSILON)
+_OFF = _f32(km.RAY_OFFSET)
+_SHADOW_EPS = _f32(km.SHADOW_EPSILON)
+_TWO_PI = _f32(km.TWO_PI)
+_INV_PI = _f32(km.INV_PI)
+_INV_2PI = _f32(km.INV_2PI)
+_ENV_PDF = _f32(1.0 / (2.0 * np.pi * np.pi))
+
+
+def _where(c, a, b):
+    """torch.where that takes python numbers on either side (float32 when
+    both are)."""
+    if isinstance(a, torch.Tensor):
+        like = a
+    elif isinstance(b, torch.Tensor):
+        like = b
+    else:
+        like = torch.empty(c.shape, dtype=torch.float32, device=c.device)
+    if not isinstance(a, torch.Tensor):
+        a = torch.full_like(like, a)
+    if not isinstance(b, torch.Tensor):
+        b = torch.full_like(like, b)
+    return torch.where(c, a, b)
+
+
+def _planar_hit(s, o: V3, d: V3):
+    """(t, inside) for one planar surface. The divisions are raw: a parallel
+    ray gives t = +-inf/nan, which every caller's `eps < t < tmax` gate
+    rejects."""
+    nrm = cv3(s["n"])
+    if s["kind"] == kshapes.DISK:
+        p0 = cv3(s["p0"])
+        t = km.div(nrm.dot(p0 - o), nrm.dot(d))
+        hp = o + d * t
+        inside = (hp - p0).length_squared() <= _f32(s["radius"] ** 2)
+        return t, inside
+    if s.get("fast"):
+        anchor = cv3(s["anchor"])
+        c_n = _planar_consts(s)[0]
+        t = km.div(c_n - nrm.dot(o), nrm.dot(d))
+        rel = o + d * t - anchor
+        a = rel.dot(cv3(s["f1"]))
+        b = rel.dot(cv3(s["f2"]))
+        if s["kind"] == kshapes.TRI:
+            inside = (a >= 0) & (b >= 0) & (a + b <= 1.0)
+        else:
+            inside = (a >= 0) & (a <= 1.0) & (b >= 0) & (b <= 1.0)
+        return t, inside
+    p0, p1 = cv3(s["p0"]), cv3(s["p1"])
+    p2, p3 = cv3(s["p2"]), cv3(s["p3"])
+    oa, ob, oc, od = p0 - o, p1 - o, p2 - o, p3 - o
+    v0d = oc.cross(ob).dot(d)
+    v1d = ob.cross(oa).dot(d)
+    v2d = oa.cross(od).dot(d)
+    v3d = od.cross(oc).dot(d)
+    if s["kind"] == kshapes.TRI:
+        inside = ((v0d < 0) & (v1d < 0) & (v3d < 0)) | \
+                 ((v0d >= 0) & (v1d >= 0) & (v2d >= 0) & (v3d >= 0))
+    else:
+        inside = ((v0d < 0) & (v1d < 0) & (v2d < 0) & (v3d < 0)) | \
+                 ((v0d >= 0) & (v1d >= 0) & (v2d >= 0) & (v3d >= 0))
+    t = km.div(nrm.dot(oa), nrm.dot(d))
+    return t, inside
+
+
+def _sphere_consts(s):
+    r = _f32(s["r"])
+    return cv3(s["c"]), r, _f32(np.float32(r) * np.float32(r))
+
+
+def _closest_hit(static, o: V3, d: V3):
+    """Closest hit over the scene -> (t, sid, valid, normal). The normal is
+    resolved once from the winning row."""
+    t_best = torch.full_like(o.x, math.inf)
+    sid = torch.full(o.x.shape, -1, dtype=torch.int32, device=o.x.device)
+    for row, s in enumerate(static["planar"]):
+        t, inside = _planar_hit(s, o, d)
+        accept = inside & (t > _EPS) & (t < t_best)
+        t_best = torch.where(accept, t, t_best)
+        sid = _where(accept, row, sid)
+    base = len(static["planar"])
+    for j, s in enumerate(static["spheres"]):
+        c, _, r2 = _sphere_consts(s)
+        oc = c - o
+        neg_b = oc.dot(d)
+        perp = oc - d * neg_b
+        discr = r2 - perp.length_squared()
+        sq = km.safe_sqrt(discr)
+        cc = oc.length_squared() - r2
+        sgn = _where(neg_b >= 0.0, 1.0, -1.0)
+        q = neg_b + sgn * sq
+        tq = cc / q
+        t1 = torch.minimum(q, tq)
+        t2 = torch.maximum(q, tq)
+        t1_ok = t1 > _EPS
+        t2_ok = t2 > _EPS
+        t = torch.where(t1_ok, t1, t2)
+        accept = (discr >= 0) & (t1_ok | t2_ok) & (t < t_best)
+        t_best = torch.where(accept, t, t_best)
+        sid = _where(accept, base + j, sid)
+    valid = sid >= 0
+
+    # normal of the winning row
+    dev = o.x.device
+    zero = torch.zeros_like(o.x)
+    idx = sid.clamp_min(0).long()
+    n_pl = len(static["planar"])
+    if n_pl:
+        nrm_tab = torch.tensor([s["n"] for s in static["planar"]],
+                               dtype=torch.float32, device=dev)
+        rect_tab = torch.tensor([s["kind"] == kshapes.RECT
+                                 for s in static["planar"]], device=dev)
+        on_pl = valid & (sid < n_pl)
+        pidx = idx.clamp_max(n_pl - 1)
+        nx = torch.where(on_pl, nrm_tab[pidx, 0], zero)
+        ny = torch.where(on_pl, nrm_tab[pidx, 1], zero)
+        nz = torch.where(on_pl, nrm_tab[pidx, 2], zero)
+        is_rect = on_pl & rect_tab[pidx]
+    else:
+        nx = ny = nz = zero
+        is_rect = torch.zeros_like(valid)
+    flip = is_rect & (nx * d.x + ny * d.y + nz * d.z > 0)
+    n_best = V3(torch.where(flip, -nx, nx), torch.where(flip, -ny, ny),
+                torch.where(flip, -nz, nz))
+    if static["spheres"]:
+        sp_tab = torch.tensor(
+            [[*map(_f32, s["c"]), _f32(1.0 / s["r"])]
+             for s in static["spheres"]], dtype=torch.float32, device=dev)
+        on_sp = sid >= base
+        sidx = (idx - base).clamp(0, len(static["spheres"]) - 1)
+        cx = torch.where(on_sp, sp_tab[sidx, 0], zero)
+        cy = torch.where(on_sp, sp_tab[sidx, 1], zero)
+        cz = torch.where(on_sp, sp_tab[sidx, 2], zero)
+        inv_r = torch.where(on_sp, sp_tab[sidx, 3], torch.ones_like(zero))
+        n_sp = V3((o.x + d.x * t_best - cx) * inv_r,
+                  (o.y + d.y * t_best - cy) * inv_r,
+                  (o.z + d.z * t_best - cz) * inv_r)
+        n_best = n_sp.where(on_sp, n_best)
+    return t_best, sid, valid, n_best
+
+
+def _sphere_occludes(neg_b, discr, tmax):
+    """Root of a sphere crossing in (eps, tmax), without the square root
+    (wavefront.py:901-916)."""
+    a_c = neg_b - _EPS
+    b_c = neg_b - tmax
+    a2 = a_c * a_c
+    b2 = b_c * b_c
+    a_pos = a_c > 0.0
+    b_neg = b_c < 0.0
+    in1 = a_pos & (discr < a2) & (b_neg | (discr > b2))
+    in2 = (a_pos | (discr > a2)) & b_neg & (discr < b2)
+    return (discr >= 0) & (in1 | in2)
+
+
+def _any_hit(static, o: V3, d: V3, tmax, skip_rows=frozenset(),
+             skip_light=None):
+    """Occlusion in (SHAPE_EPSILON, tmax) for nee="single": planar rows in
+    `skip_rows` are left out, and under shadow="robust" (`skip_light`, the
+    picked light per lane) so are the surfaces bound to that light."""
+    hit = torch.zeros_like(tmax, dtype=torch.bool)
+    n_pl = len(static["planar"])
+    li_of = static["mats"]["light_index"]
+
+    def gated(h, row):
+        if skip_light is None or li_of[row] < 0:
+            return h
+        return h & (skip_light != li_of[row])
+
+    for row, s in enumerate(static["planar"]):
+        if row in skip_rows:
+            continue
+        t, inside = _planar_hit(s, o, d)
+        hit = hit | gated(inside & (t > _EPS) & (t < tmax), row)
+    for j, s in enumerate(static["spheres"]):
+        c, _, r2 = _sphere_consts(s)
+        oc = c - o
+        neg_b = oc.dot(d)
+        perp = oc - d * neg_b
+        discr = r2 - perp.length_squared()
+        hit = hit | gated(_sphere_occludes(neg_b, discr, tmax), n_pl + j)
+    return hit
+
+
+def _any_hit_multi(static, hp: V3, n_shade: V3, rays, skips, robust=False,
+                   sphere_skips=None, nd=None):
+    """All NEE shadow rays of one vertex leave the same shading point hp
+    (offset +-RAY_OFFSET along n_shade by the sign of n.wi), so the terms
+    that depend only on (hp, n_shade) are shared by the K rays.
+    rays: [(wi, tmax)]; skips: per-ray planar rows to omit."""
+    K = len(rays)
+    if nd is None:
+        nd = [n_shade.dot(wi) for wi, _ in rays]
+    se = [_where(nd[k] < 0.0, -_OFF, _OFF) for k in range(K)]
+    if robust:
+        rays = [(rays[k][0], rays[k][1] - se[k] * nd[k]) for k in range(K)]
+    hits = [torch.zeros_like(rays[k][1], dtype=torch.bool) for k in range(K)]
+    origins = [None] * K
+    for row, s in enumerate(static["planar"]):
+        which = [k for k in range(K) if row not in skips[k]]
+        if not which:
+            continue
+        if s["kind"] == kshapes.DISK or not s.get("fast"):
+            for k in which:
+                if origins[k] is None:
+                    origins[k] = hp + n_shade * se[k]
+                t, inside = _planar_hit(s, origins[k], rays[k][0])
+                hits[k] = hits[k] | (inside & (t > _EPS) & (t < rays[k][1]))
+            continue
+        nrm = cv3(s["n"])
+        f1, f2 = cv3(s["f1"]), cv3(s["f2"])
+        c_n, c_1, c_2 = _planar_consts(s)
+        num_h = c_n - nrm.dot(hp)
+        num_n = nrm.dot(n_shade)
+        a_h = f1.dot(hp) - c_1
+        a_n = f1.dot(n_shade)
+        b_h = f2.dot(hp) - c_2
+        b_n = f2.dot(n_shade)
+        for k in which:
+            wi, tmax = rays[k]
+            num = num_h - se[k] * num_n
+            t = km.div(num, nrm.dot(wi))
+            a = (a_h + se[k] * a_n) + t * f1.dot(wi)
+            b = (b_h + se[k] * b_n) + t * f2.dot(wi)
+            if s["kind"] == kshapes.TRI:
+                inside = (a >= 0) & (b >= 0) & (a + b <= 1.0)
+            else:
+                inside = (a >= 0) & (a <= 1.0) & (b >= 0) & (b <= 1.0)
+            hits[k] = hits[k] | (inside & (t > _EPS) & (t < tmax))
+
+    off2 = _f32(km.RAY_OFFSET * km.RAY_OFFSET)
+    for j, s in enumerate(static["spheres"]):
+        which = [k for k in range(K)
+                 if sphere_skips is None or j not in sphere_skips[k]]
+        if not which:
+            continue
+        c, _, r2 = _sphere_consts(s)
+        vc = c - hp
+        vc2 = vc.length_squared()
+        vcn = vc.dot(n_shade)
+        for k in which:
+            wi, tmax = rays[k]
+            neg_b = vc.dot(wi) - se[k] * nd[k]
+            oc2 = vc2 - 2.0 * se[k] * vcn + off2
+            discr = r2 - oc2 + neg_b * neg_b
+            hits[k] = hits[k] | _sphere_occludes(neg_b, discr, tmax)
+    return hits
+
+
+def _offset_origin(p: V3, n: V3, d: V3) -> V3:
+    return p + n * _where(n.dot(d) < 0.0, -_OFF, _OFF)
+
+
+# ---------------------------------------------------------------------------
+# plain version: BSDFs and lights
+# ---------------------------------------------------------------------------
+
+
+def _ipow(x, n: int):
+    """x**n for a static integer n >= 1 by square-and-multiply."""
+    r = None
+    while n:
+        if n & 1:
+            r = x if r is None else r * x
+        n >>= 1
+        if n:
+            x = x * x
+    return r
+
+
+def _fresnel_dielectric(ci, eta):
+    ci = torch.clamp(ci, -1.0, 1.0)
+    entering = ci > 0.0
+    ei = _where(entering, 1.0, eta)
+    et = _where(entering, eta, 1.0)
+    c = torch.abs(ci)
+    si = km.safe_sqrt(1.0 - c * c)
+    st = ei / et * si
+    tir = st >= 1.0
+    ct = km.safe_sqrt(1.0 - torch.clamp_max(st, 1.0) ** 2)
+    r_par = km.safe_div(et * c - ei * ct, et * c + ei * ct)
+    r_per = km.safe_div(ei * c - et * ct, ei * c + et * ct)
+    fr = 0.5 * (r_par * r_par + r_per * r_per)
+    return _where(tir, 1.0, fr)
+
+
+def _sin_from_phi_cos(cos_phi, u):
+    """sin(2 pi u) from cos(2 pi u): sign(sin) = +1 iff u <= 0.5."""
+    s = km.safe_sqrt(1.0 - cos_phi * cos_phi)
+    return torch.where(u <= 0.5, s, -s)
+
+
+def _concentric_disk(u1, u2):
+    x = 2.0 * u1 - 1.0
+    y = 2.0 * u2 - 1.0
+    xd = torch.abs(x) > torch.abs(y)
+    r = torch.where(xd, x, y)
+    ratio = torch.where(xd, km.safe_div(y, x), km.safe_div(x, y))
+    theta = torch.where(xd, _f32(km.PI_OVER_4) * ratio,
+                        _f32(km.PI_OVER_2) - _f32(km.PI_OVER_4) * ratio)
+    deg = (x == 0.0) & (y == 0.0)
+    ct = torch.cos(theta)
+    st = km.safe_sqrt(1.0 - ct * ct)
+    st = torch.where(theta >= 0.0, st, -st)
+    px = _where(deg, 0.0, r * ct)
+    py = _where(deg, 0.0, r * st)
+    return px, py
+
+
+def _phong_pow(cos_alpha, exponent, static_exp):
+    """(cos^e, (e+2)/2pi, (e+1)/2pi): `_ipow` and host-folded factors for
+    a static exponent, pow with the per-lane exponent otherwise."""
+    if static_exp is not None:
+        return (_ipow(cos_alpha, int(static_exp)),
+                _f32((static_exp + 2.0) * km.INV_2PI),
+                _f32((static_exp + 1.0) * km.INV_2PI))
+    return (torch.pow(cos_alpha, exponent), (exponent + 2.0) * _INV_2PI,
+            (exponent + 1.0) * _INV_2PI)
+
+
+def _bsdf_sample(kind, color: V3, color2: V3, eta, exponent, wo: V3, u1, u2,
+                 lobes=frozenset((kbsdf.LAMBERT, kbsdf.MIRROR, kbsdf.GLASS,
+                                  kbsdf.PHONG)), static_exp=None):
+    """Local-frame sample of the lobes present, selected by `kind`
+    (wavefront.py:1228-1330). Returns (f, wi, pdf, delta, f_unit,
+    glass_refract)."""
+    mirror_wi = V3(-wo.x, -wo.y, wo.z)
+    zero = torch.zeros_like(u1)
+    cand = {}
+    if kbsdf.LAMBERT in lobes:
+        px, py = _concentric_disk(u1, u2)
+        lz = km.safe_sqrt(1.0 - px * px - py * py)
+        wi_lam = V3(px, py, torch.where(wo.z < 0, -lz, lz))
+        same_lam = wo.z * wi_lam.z > 0
+        f_lam = (color * _INV_PI).where(same_lam, v3_zeros(wo.x))
+        pdf_lam = _where(same_lam, torch.abs(wi_lam.z) * _INV_PI, 0.0)
+        unit_lam = _where(same_lam, _INV_PI, 0.0)
+        cand[kbsdf.LAMBERT] = (wi_lam, f_lam, pdf_lam, unit_lam)
+    if kbsdf.MIRROR in lobes:
+        abs_cos_m = torch.clamp_min(torch.abs(mirror_wi.z), 1e-12)
+        inv_m = km.div(1.0, abs_cos_m)
+        cand[kbsdf.MIRROR] = (mirror_wi, color * inv_m,
+                              torch.ones_like(u1), inv_m)
+    take_refl = None
+    if kbsdf.GLASS in lobes:
+        fr = _fresnel_dielectric(wo.z, eta)
+        take_refl = u1 < fr
+        into = wo.z > 0
+        nz = _where(into, 1.0, -1.0)
+        n_loc = V3(torch.zeros_like(nz), torch.zeros_like(nz), nz)
+        eta_ratio = _where(into, km.div(1.0, eta), eta)
+        cos_i = n_loc.dot(wo)
+        sin2_i = torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+        sin2_t = eta_ratio * eta_ratio * sin2_i
+        refr_ok = sin2_t < 1.0
+        cos_t = km.safe_sqrt(1.0 - torch.clamp_max(sin2_t, 1.0))
+        wt = (-wo) * eta_ratio + n_loc * (eta_ratio * cos_i - cos_t)
+        wi_gl = mirror_wi.where(take_refl, wt)
+        abs_cos_g = torch.clamp_min(torch.abs(wi_gl.z), 1e-12)
+        refl_unit = fr / abs_cos_g
+        refr_unit = (1.0 - fr) / abs_cos_g
+        unit_gl = torch.where(take_refl, refl_unit,
+                              _where(refr_ok, refr_unit, 0.0))
+        f_gl = (color * refl_unit).where(
+            take_refl, (color2 * refr_unit).where(refr_ok, v3_zeros(wo.x)))
+        pdf_gl = torch.where(take_refl, fr, _where(refr_ok, 1.0 - fr, 0.0))
+        cand[kbsdf.GLASS] = (wi_gl, f_gl, pdf_gl, unit_gl)
+    if kbsdf.PHONG in lobes:
+        phi = _TWO_PI * u1
+        if static_exp is not None:
+            cos_t_p = torch.pow(u2, _f32(1.0 / (static_exp + 1.0)))
+        else:
+            cos_t_p = torch.pow(u2, km.div(1.0, exponent + 1.0))
+        sin_t_p = km.safe_sqrt(1.0 - cos_t_p * cos_t_p)
+        cphi = torch.cos(phi)
+        lobe = V3(cphi * sin_t_p, _sin_from_phi_cos(cphi, u1) * sin_t_p,
+                  cos_t_p)
+        s_f, t_f, n_f = make_frame(mirror_wi)
+        wi_ph = to_world(s_f, t_f, n_f, lobe)
+        wi_ph = V3(wi_ph.x, wi_ph.y, torch.where(wo.z < 0, -wi_ph.z, wi_ph.z))
+        cos_alpha = torch.clamp_min(mirror_wi.dot(wi_ph), 0.0)
+        same_ph = wo.z * wi_ph.z > 0
+        powa, e2, e1 = _phong_pow(cos_alpha, exponent, static_exp)
+        ph_val = _where(same_ph, e2 * powa, 0.0)
+        pdf_ph = e1 * powa
+        cand[kbsdf.PHONG] = (wi_ph, color * ph_val, pdf_ph, ph_val)
+
+    order = [k for k in (kbsdf.LAMBERT, kbsdf.MIRROR, kbsdf.GLASS,
+                         kbsdf.PHONG) if k in cand]
+    wi, f, pdf, f_unit = cand[order[-1]]
+    for k in reversed(order[:-1]):
+        is_k = kind == k
+        wi_k, f_k, pdf_k, unit_k = cand[k]
+        wi = wi_k.where(is_k, wi)
+        f = f_k.where(is_k, f)
+        pdf = torch.where(is_k, pdf_k, pdf)
+        f_unit = torch.where(is_k, unit_k, f_unit)
+    false_mask = zero > 0
+    is_gls = (kind == kbsdf.GLASS) if kbsdf.GLASS in cand else false_mask
+    is_mir = (kind == kbsdf.MIRROR) if kbsdf.MIRROR in cand else false_mask
+    glass_refract = (is_gls & ~take_refl) if take_refl is not None \
+        else false_mask
+    return f, wi, pdf, is_mir | is_gls, f_unit, glass_refract
+
+
+def _eval_lobes(kind, same, wi_z, cos_alpha, exponent, lobes, static_exp):
+    """Lambert / Phong eval + pdf shared by the two eval entry points."""
+    has_lam = kbsdf.LAMBERT in lobes
+    has_ph = kbsdf.PHONG in lobes
+    zero = torch.zeros_like(wi_z)
+    if has_lam:
+        unit_lam = _where(same, _INV_PI, 0.0)
+        pdf_lam = _where(same, torch.abs(wi_z) * _INV_PI, 0.0)
+    if has_ph:
+        powa, e2, e1 = _phong_pow(torch.clamp_min(cos_alpha, 0.0), exponent,
+                                  static_exp)
+        ph = _where(same, e2 * powa, 0.0)
+        pdf_ph = e1 * powa
+    if has_lam and has_ph:
+        is_lam = kind == kbsdf.LAMBERT
+        is_ph = kind == kbsdf.PHONG
+        f_unit = torch.where(is_lam, unit_lam, _where(is_ph, ph, 0.0))
+        pdf = torch.where(is_lam, pdf_lam, _where(is_ph, pdf_ph, 0.0))
+    elif has_lam:
+        is_lam = kind == kbsdf.LAMBERT
+        f_unit = _where(is_lam, unit_lam, 0.0)
+        pdf = _where(is_lam, pdf_lam, 0.0)
+    elif has_ph:
+        is_ph = kind == kbsdf.PHONG
+        f_unit = _where(is_ph, ph, 0.0)
+        pdf = _where(is_ph, pdf_ph, 0.0)
+    else:
+        f_unit = pdf = zero
+    return pdf, f_unit
+
+
+def _bsdf_eval_pdf(kind, color: V3, exponent, wo: V3, wi: V3,
+                   lobes=frozenset((kbsdf.LAMBERT, kbsdf.PHONG)),
+                   static_exp=None):
+    """Local-frame eval + pdf of the non-delta lobes -> (f, pdf, f_unit)."""
+    wr = V3(-wo.x, -wo.y, wo.z)
+    cos_alpha = wr.dot(wi) if kbsdf.PHONG in lobes else None
+    pdf, f_unit = _eval_lobes(kind, wo.z * wi.z > 0, wi.z, cos_alpha,
+                              exponent, lobes, static_exp)
+    return color * f_unit, pdf, f_unit
+
+
+def _bsdf_eval_pdf_dots(kind, exponent, wo_z, wi_z, cos_alpha,
+                        lobes=frozenset((kbsdf.LAMBERT, kbsdf.PHONG)),
+                        static_exp=None):
+    """`_bsdf_eval_pdf` on the frame-invariant dots n.wo, n.wi and the
+    mirror dot -> (pdf, f_unit)."""
+    return _eval_lobes(kind, wo_z * wi_z > 0, wi_z, cos_alpha, exponent,
+                       lobes, static_exp)
+
+
+def _light_sample(lt, world_radius, p: V3, n_shade: V3, u1, u2, azim=None):
+    """sample_Li for light lt -> (wi, pdf, li_scalar, dist, phit); Li =
+    emit * li_scalar. phit is the light's direction-free solid-angle pdf
+    for a BSDF ray leaving p, or None where it depends on the direction
+    (wavefront.py:1441-1590)."""
+    kind = lt["kind"]
+    ones = torch.ones_like(u1)
+    zeros = torch.zeros_like(u1)
+    if kind == klights.POINT:
+        vec = cv3(lt["position"]) - p
+        d2 = torch.clamp_min(vec.length_squared(), 1e-20)
+        dist = km.sqrt(d2)
+        wi = vec * km.div(1.0, dist)
+        return wi, ones, km.div(1.0, d2), dist, zeros
+    if kind == klights.DIRECTION:
+        dr = cv3(lt["direction"])
+        wi = v3_full(u1, -dr.x, -dr.y, -dr.z)
+        dist = torch.full_like(u1, _f32(2.0 * world_radius))
+        return wi, ones, ones, dist, zeros
+    if kind == klights.AREA_RECT:
+        p0, p1, p2 = cv3(lt["p0"]), cv3(lt["p1"]), cv3(lt["p2"])
+        n_l = cv3(lt["normal"])
+        area = _f32(lt["area"])
+        lp = p1 + (p0 - p1) * u1 + (p2 - p1) * u2
+        vec = lp - p
+        d2 = torch.clamp_min(vec.length_squared(), 1e-20)
+        dist = km.sqrt(d2)
+        wi = vec * km.div(1.0, dist)
+        cos_l = n_l.dot(-wi)
+        pdf = km.safe_div(d2, torch.abs(cos_l) * area)
+        facing = cos_l > 0
+        li_s = _where(facing, 1.0, 0.0)
+        pdf = _where(facing & (pdf > 0) & torch.isfinite(pdf), pdf, 0.0)
+        return wi, pdf, li_s, dist, None
+    if kind == klights.AREA_SPHERE:
+        c, r, r2 = _sphere_consts(dict(c=lt["center"], r=lt["radius"]))
+        vec_c = c - p
+        d2c = torch.clamp_min(vec_c.length_squared(), 1e-20)
+        inv_dc = km.rsqrt(d2c)
+        dist_c = d2c * inv_dc
+        inv_d2c = inv_dc * inv_dc
+        sin2_max = torch.clamp_max(r2 * inv_d2c, 1.0)
+        cos_max = km.safe_sqrt(1.0 - sin2_max)
+        cos_t = (cos_max - 1.0) * u1 + 1.0
+        sin2 = 1.0 - cos_t * cos_t
+        tiny = sin2_max < _f32(0.00068523)
+        sin2 = torch.where(tiny, sin2_max * u1, sin2)
+        cos_t = torch.where(tiny, km.safe_sqrt(1.0 - sin2), cos_t)
+        sin_t = km.safe_sqrt(sin2)
+        if azim is None:
+            cphi = torch.cos(u2 * _TWO_PI)
+            sphi = _sin_from_phi_cos(cphi, u2)
+        else:
+            cphi, sphi = azim
+        to_c = vec_c * inv_dc
+        s_f, t_f, n_f = make_frame(to_c)
+        wi_cone = s_f * (-sin_t * cphi) + t_f * (-sin_t * sphi) \
+            + n_f * cos_t
+        depth2 = r2 - d2c * sin2
+        ds = dist_c * cos_t - km.safe_sqrt(depth2)
+        q_cone = _TWO_PI * (1.0 - cos_max)
+        pdf_cone = _where(q_cone > 0.0, km.div(1.0, q_cone), 0.0)
+        outside = d2c > r2
+        ok_cone = (depth2 > 0) & (q_cone > 0.0) & outside
+        if not lt.get("inside_possible", True):
+            li_s = _where(ok_cone, 1.0, 0.0)
+            phit = _where(outside, pdf_cone, 0.0)
+            return wi_cone, pdf_cone, li_s, ds, phit
+        inside = ~outside
+        z_u = 1.0 - 2.0 * u1
+        r_u = km.safe_sqrt(1.0 - z_u * z_u)
+        dir_u = V3(r_u * cphi, r_u * sphi, z_u)
+        lp_in = c + dir_u * r
+        vec_in = lp_in - p
+        d2_in = torch.clamp_min(vec_in.length_squared(), 1e-20)
+        inv_d_in = km.rsqrt(d2_in)
+        wi_in = vec_in * inv_d_in
+        area = _sphere_area_f32(lt["radius"])
+        pdf_in = km.safe_div(d2_in, area * torch.abs(n_shade.dot(-wi_in)))
+        pdf_in = _where(torch.isfinite(pdf_in), pdf_in, 0.0)
+        ok_in = (dir_u.dot(-wi_in) > 0) & (pdf_in > 0)
+        wi = wi_in.where(inside, wi_cone)
+        pdf = torch.where(inside, pdf_in, pdf_cone)
+        ok = torch.where(inside, ok_in, ok_cone)
+        dist = torch.where(inside, d2_in * inv_d_in, ds)
+        return wi, pdf, _where(ok, 1.0, 0.0), dist, None
+    if kind == klights.ENV:
+        # replicated reference quirk: uniform-sphere direction, angle-space
+        # pdf (ky.cpp:3029-3035)
+        z_u = 1.0 - 2.0 * u1
+        r_u = km.safe_sqrt(1.0 - z_u * z_u)
+        if azim is None:
+            cphi = torch.cos(_TWO_PI * u2)
+            sphi = _sin_from_phi_cos(cphi, u2)
+        else:
+            cphi, sphi = azim
+        wi = V3(r_u * cphi, r_u * sphi, z_u)
+        pdf = _env_pdf(wi)
+        dist = torch.full_like(u1, _f32(2.0 * world_radius))
+        return wi, pdf, ones, dist, zeros
+    raise ValueError(f"unknown light kind {kind}")
+
+
+def _env_pdf(wi: V3):
+    sin_theta = km.safe_sqrt(1.0 - wi.z * wi.z)
+    return _where(sin_theta == 0.0, 0.0,
+                  km.div(_ENV_PDF, torch.clamp_min(sin_theta, 1e-20)))
+
+
+def _sphere_cone_pdf(c: V3, r2, p: V3):
+    """(inside, uniform-cone pdf) of a sphere light seen from p."""
+    d2c = torch.clamp_min((c - p).length_squared(), 1e-20)
+    inside = d2c <= r2
+    sin2_max = torch.clamp_max(km.div(r2, d2c), 1.0)
+    cos_max = km.safe_sqrt(1.0 - sin2_max)
+    pdf_cone = km.safe_div(1.0, _TWO_PI * (1.0 - cos_max))
+    return inside, _where(torch.isfinite(pdf_cone), pdf_cone, 0.0)
+
+
+def _hit_light_pdf(lights, li_idx, o: V3, d: V3, t, nrm: V3):
+    """Solid-angle pdf of the area light the extension ray hit, from the
+    hit record: squared distance t^2, light cosine |nrm.d|."""
+    pdf = torch.zeros_like(t)
+    t2 = t * t
+    cos_l = torch.abs(nrm.dot(d))
+    for i, lt in enumerate(lights):
+        kind = lt["kind"]
+        if kind == klights.AREA_RECT:
+            pi = km.safe_div(t2, cos_l * _f32(lt["area"]))
+        elif kind == klights.AREA_SPHERE:
+            c, _, r2 = _sphere_consts(dict(c=lt["center"], r=lt["radius"]))
+            inside, pdf_cone = _sphere_cone_pdf(c, r2, o)
+            if not lt.get("inside_possible", True):
+                pi = _where(inside, 0.0, pdf_cone)
+            else:
+                area = _f32(4.0 * np.pi * lt["radius"] ** 2)
+                pi = torch.where(inside, km.safe_div(t2, cos_l * area),
+                                 pdf_cone)
+        else:
+            continue
+        pdf = torch.where(li_idx == i, pi, pdf)
+    return pdf
+
+
+def _light_pdf(lt, p: V3, n_shade: V3, wi: V3):
+    """pdf_Li of light lt along wi from p (lights.py:232-266)."""
+    kind = lt["kind"]
+    if kind in (klights.POINT, klights.DIRECTION):
+        return torch.zeros_like(wi.x)
+    if kind == klights.AREA_RECT:
+        p0, p1 = cv3(lt["p0"]), cv3(lt["p1"])
+        p2, p3 = cv3(lt["p2"]), cv3(lt["p3"])
+        n_l = cv3(lt["normal"])
+        area = _f32(lt["area"])
+        o = _offset_origin(p, n_shade, wi)
+        oa, ob, oc, od = p0 - o, p1 - o, p2 - o, p3 - o
+        v0d = oc.cross(ob).dot(wi)
+        v1d = ob.cross(oa).dot(wi)
+        v2d = oa.cross(od).dot(wi)
+        v3d = od.cross(oc).dot(wi)
+        inside = ((v0d < 0) & (v1d < 0) & (v2d < 0) & (v3d < 0)) | \
+                 ((v0d >= 0) & (v1d >= 0) & (v2d >= 0) & (v3d >= 0))
+        t = km.safe_div(n_l.dot(oa), n_l.dot(wi), math.inf)
+        hit = inside & (t > _EPS) & torch.isfinite(t)
+        hp = o + wi * t
+        d2 = (hp - p).length_squared()
+        pdf = km.safe_div(d2, torch.abs(n_l.dot(-wi)) * area)
+        return _where(hit & torch.isfinite(pdf), pdf, 0.0)
+    if kind == klights.AREA_SPHERE:
+        c, r, r2 = _sphere_consts(dict(c=lt["center"], r=lt["radius"]))
+        inside, pdf_cone = _sphere_cone_pdf(c, r2, p)
+        if not lt.get("inside_possible", True):
+            return _where(inside, 0.0, pdf_cone)
+        o = _offset_origin(p, n_shade, wi)
+        oc = c - o
+        neg_b = oc.dot(wi)
+        discr = neg_b * neg_b - oc.length_squared() + r2
+        sq = km.safe_sqrt(discr)
+        t1, t2 = neg_b - sq, neg_b + sq
+        t1_ok = t1 > _EPS
+        t2_ok = t2 > _EPS
+        t = torch.where(t1_ok, t1, t2)
+        hit = (discr >= 0) & (t1_ok | t2_ok)
+        hp = o + wi * t
+        n_hit = hp - c
+        n_hit = n_hit * km.rsqrt(torch.clamp_min(n_hit.length_squared(),
+                                                 1e-20))
+        area = _sphere_area_f32(lt["radius"])
+        pdf_in = km.safe_div((hp - p).length_squared(),
+                             torch.abs(n_hit.dot(-wi)) * area)
+        pdf_in = _where(hit & torch.isfinite(pdf_in), pdf_in, 0.0)
+        return torch.where(inside, pdf_in, pdf_cone)
+    if kind == klights.ENV:
+        return _env_pdf(wi)
+    raise ValueError(f"unknown light kind {kind}")
+
+
+# ---------------------------------------------------------------------------
+# plain version: the forward kernel body
+# ---------------------------------------------------------------------------
+
+
+def _rng_keys(cfg: KernelConfig, n: int, seed: int, si, pix, device):
+    """(rng, tile_seed per lane, si of each lane's tile head or None)."""
+    tile = cfg.rows * LANE
+    lane_ids = torch.arange(n, dtype=torch.int64, device=device)
+    tile_id = lane_ids // tile
+    tile_seed = (seed + _mul32(tile_id, 2654435761 & 0x7FFFFFFF)) & _M32
+    if cfg.sampler == "hash":
+        si_u, pix_u = _u32(si), _u32(pix)
+        lane_seed = _pix_hash(si_u, _pix_hash(pix_u, seed & _M32))
+        return _Rng(lane_seed, None), tile_seed, si_u[tile_id * tile]
+    return _Rng(tile_seed, lane_ids % tile), tile_seed, None
+
+
+def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
+                      o: torch.Tensor, d: torch.Tensor, seed: int,
+                      si: torch.Tensor | None = None,
+                      pix: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain torch transcription of the forward megakernel
+    (kytpu.kernels.wavefront._make_kernel with grad=residual=False).
+
+    o, d: (N, 3) float32 rays; seed: int; si, pix: (N,) int sample index
+    and pixel id, required by sampler="hash". Returns (N, 3) radiance.
+    Lane n sits in tile n // (cfg.rows*128), as in the JAX package."""
+    check_config(cfg)
+    if cfg.sampler == "hash" and (si is None or pix is None):
+        raise ValueError('sampler="hash" needs si and pix lane arrays')
+    static = tables.static
+    mats, lights = static["mats"], static["lights"]
+    M, L = len(mats["kind"]), len(lights)
+    world_radius = static["world_radius"]
+    lobes = mats["lobes"]
+    eval_lobes = lobes & {kbsdf.LAMBERT, kbsdf.PHONG}
+    static_exp = _static_exponent(mats)
+    has_plastic = kbsdf.MAT_PLASTIC in mats["kind"]
+    has_glass = kbsdf.MAT_GLASS in mats["kind"]
+    has_delta = bool(lobes & {kbsdf.MIRROR, kbsdf.GLASS})
+    env_i = next((i for i, lt in enumerate(lights)
+                  if lt["kind"] == klights.ENV), None)
+    occl_skips, sph_skips = _occl_skips(static, cfg)
+    robust = cfg.shadow == "robust"
+
+    n = o.shape[0]
+    dev = o.device
+    rng, tile_seed, si0 = _rng_keys(cfg, n, seed, si, pix, dev)
+
+    # per-row tables as lane gathers (the kernel reads the same values
+    # from its flat table)
+    f32t = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa
+    i64t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)  # noqa
+    kind_tab = i64t(mats["kind"])
+    li_tab = i64t(mats["light_index"])
+    exp_tab, eta_tab = f32t(mats["exponent"]), f32t(mats["eta"])
+    dprob_tab, sprob_tab = f32t(mats["d_prob"]), f32t(mats["s_prob"])
+
+    def row_of(sid, tab, fill):
+        v = tab[sid.clamp_min(0).long()]
+        return torch.where(sid >= 0, v, torch.full_like(v, fill))
+
+    def sel3(sid, tab, allowed):
+        ok = (sid >= 0) & allowed[sid.clamp_min(0).long()]
+        v = tab[sid.clamp_min(0).long()]
+        return V3(*(torch.where(ok, v[:, c], torch.zeros_like(v[:, c]))
+                    for c in range(3)))
+
+    rows_d = kind_tab != kbsdf.MAT_MIRROR
+    rows_s = kind_tab != kbsdf.MAT_MATTE
+    rows_e = li_tab >= 0
+
+    o = V3(o[:, 0].float(), o[:, 1].float(), o[:, 2].float())
+    d = V3(d[:, 0].float(), d[:, 1].float(), d[:, 2].float())
+    beta = v3_full(o.x, 1.0, 1.0, 1.0)
+    big_l = v3_zeros(o.x)
+    alive = torch.ones_like(o.x, dtype=torch.bool)
+    spec_prev = torch.zeros_like(alive)
+    pdf_prev = torch.ones_like(o.x)
+    phits_prev = None
+    env = tables.env
+
+    for bounce in range(cfg.max_depth + 1):
+        t, sid, valid, nrm = _closest_hit(static, o, d)
+        t_safe = _where(valid, t, 1.0)
+        hp = o + d * t_safe
+        wo = -d
+        facing = nrm.dot(wo) > 0.0
+        emit_v = sel3(sid, tables.emission, rows_e)
+        emit_mask = valid & facing
+        le = V3(*(_where(emit_mask, c, 0.0) for c in (emit_v.x, emit_v.y,
+                                                       emit_v.z)))
+        if bounce == 0:
+            full = True
+        elif has_delta:
+            full = spec_prev
+        else:
+            full = False
+        if full is True:
+            w_emit = torch.ones_like(o.x)
+        else:
+            li_idx = row_of(sid, li_tab, -1)
+            if phits_prev is not None:
+                pdf_l_hit = torch.zeros_like(o.x)
+                for i in range(L):
+                    pdf_l_hit = torch.where(li_idx == i, phits_prev[i],
+                                            pdf_l_hit)
+            else:
+                pdf_l_hit = _hit_light_pdf(lights, li_idx, o, d, t_safe, nrm)
+            w_emit = km.safe_div(pdf_prev, pdf_prev + pdf_l_hit)
+            if full is not False:
+                w_emit = _where(full, 1.0, w_emit)
+        wb = _where(alive, w_emit, 0.0)
+        big_l = big_l + beta * (le * wb)
+
+        if env_i is not None:
+            ones = torch.ones_like(o.x)
+            env_v = V3(env[0] * ones, env[1] * ones, env[2] * ones)
+            if full is True:
+                w_env = 1.0
+            else:
+                pdf_env = _light_pdf(lights[env_i], o, nrm, d)
+                w_env = km.safe_div(pdf_prev, pdf_prev + pdf_env)
+                if full is not False:
+                    w_env = _where(full, 1.0, w_env)
+            wenv = _where(alive & ~valid, w_env, 0.0)
+            big_l = big_l + beta * env_v * wenv
+
+        if bounce == cfg.max_depth:
+            break
+        cont = alive & valid
+
+        exponent = 0.0 if static_exp is not None \
+            else row_of(sid, exp_tab, 0.0)
+        eta = row_of(sid, eta_tab, 0.0) if has_glass else 1.0
+        diffuse = sel3(sid, tables.diffuse, rows_d)
+        specular = sel3(sid, tables.specular, rows_s)
+        mk = row_of(sid, kind_tab, 0)
+        is_matte = mk == kbsdf.MAT_MATTE
+        is_mirror = mk == kbsdf.MAT_MIRROR
+        is_glass = mk == kbsdf.MAT_GLASS
+        is_plastic = mk == kbsdf.MAT_PLASTIC
+        if has_plastic:
+            u_lobe = rng.uniform()
+            s_prob = row_of(sid, sprob_tab, 0.0)
+            d_prob = row_of(sid, dprob_tab, 0.0)
+            pick_spec = u_lobe < s_prob
+            plastic_kind = _where(pick_spec, torch.full_like(mk, kbsdf.PHONG),
+                                  kbsdf.LAMBERT)
+            inv_sp = km.div(1.0, torch.clamp_min(s_prob, 1e-12))
+            inv_dp = km.div(1.0, torch.clamp_min(d_prob, 1e-12))
+            plastic_col = (specular * inv_sp).where(pick_spec,
+                                                    diffuse * inv_dp)
+            lobe_is_phong = is_plastic & pick_spec
+            lobe_scale = _where(is_plastic,
+                                torch.where(pick_spec, inv_sp, inv_dp), 1.0)
+        else:
+            plastic_kind = torch.full_like(mk, kbsdf.LAMBERT)
+            plastic_col = diffuse
+            lobe_is_phong = torch.zeros_like(is_plastic)
+            lobe_scale = 1.0
+        kind = torch.where(
+            is_matte, torch.full_like(mk, kbsdf.LAMBERT),
+            torch.where(is_mirror, torch.full_like(mk, kbsdf.MIRROR),
+                        torch.where(is_glass, torch.full_like(mk, kbsdf.GLASS),
+                                    plastic_kind)))
+        color = diffuse.where(is_matte, specular.where(is_mirror | is_glass,
+                                                       plastic_col))
+        color2 = diffuse
+        nee_act = cont & ~(is_mirror | is_glass) if has_delta else cont
+
+        s_f, t_f, n_f = make_frame(nrm)
+        wo_l = to_local(s_f, t_f, n_f, wo)
+        wr_w = nrm * (wo_l.z * 2.0) - wo \
+            if kbsdf.PHONG in eval_lobes else None
+        col_nee_tbl = specular.where(lobe_is_phong, diffuse) \
+            if has_plastic else diffuse
+        nee_base = nee_act & ~color.is_black()
+        ld = v3_zeros(o.x)
+
+        if cfg.nee == "single" and L > 1:
+            u1, u2 = rng.uniform2()
+            pick = _single_pick(tile_seed, bounce, si0, L)
+            smps = [_light_sample(lt, world_radius, hp, nrm, u1, u2)
+                    for lt in lights]
+            sel = [pick == i for i in range(L)]
+            wi, pdf_l, li_s, dist = smps[-1][0], smps[-1][1], \
+                smps[-1][2], smps[-1][3]
+            for i in range(L - 2, -1, -1):
+                wi = smps[i][0].where(sel[i], wi)
+                pdf_l = torch.where(sel[i], smps[i][1], pdf_l)
+                li_s = torch.where(sel[i], smps[i][2], li_s)
+                dist = torch.where(sel[i], smps[i][3], dist)
+            is_delta_l = torch.zeros_like(sel[0])
+            for i, lt in enumerate(lights):
+                if klights.is_delta_light(lt["kind"]):
+                    is_delta_l = is_delta_l | sel[i]
+            emit_pick = tables.light_emit[pick.long()]
+            emit_l = V3(emit_pick[:, 0], emit_pick[:, 1], emit_pick[:, 2])
+            wi_l = to_local(s_f, t_f, n_f, wi)
+            _, pdf_b, f_unit_e = _bsdf_eval_pdf(kind, color, exponent, wo_l,
+                                                wi_l, eval_lobes, static_exp)
+            ucos = f_unit_e * torch.abs(wi_l.z)
+            w = torch.where(is_delta_l, km.safe_div(1.0, pdf_l),
+                            km.safe_div(1.0, pdf_l + pdf_b))
+            ok = nee_base & (pdf_l > 0.0)
+            tm = dist - _SHADOW_EPS
+            if robust:
+                tm = tm - _OFF * torch.abs(nrm.dot(wi))
+            occ = _any_hit(static, _offset_origin(hp, nrm, wi), wi, tm,
+                           skip_rows=frozenset.intersection(
+                               *[frozenset(s) for s in static["occl_skip"]]),
+                           skip_light=pick if robust else None)
+            okf = _where(ok & ~occ, w * _f32(L), 0.0)
+            bp = li_s * ucos * okf * lobe_scale
+            ld = col_nee_tbl * emit_l * bp
+        else:
+            u1, u2 = rng.uniform2()
+            azim = None
+            if any(lt["kind"] in (klights.AREA_SPHERE, klights.ENV)
+                   for lt in lights):
+                cphi_s = torch.cos(_TWO_PI * u2)
+                azim = (cphi_s, _sin_from_phi_cos(cphi_s, u2))
+            smps = [_light_sample(lt, world_radius, hp, nrm, u1, u2, azim)
+                    for lt in lights]
+            nds = [nrm.dot(smp[0]) for smp in smps]
+            if all(smp[4] is not None for smp in smps):
+                phits_prev = [smp[4] for smp in smps]
+            occs = _any_hit_multi(
+                static, hp, nrm,
+                [(smp[0], smp[3] - _SHADOW_EPS) for smp in smps],
+                occl_skips, robust=robust, sphere_skips=sph_skips if robust
+                else None, nd=nds)
+            for i, lt in enumerate(lights):
+                wi, pdf_l, li_s, _dist, _ = smps[i]
+                emit_l = V3(tables.light_emit[i, 0], tables.light_emit[i, 1],
+                            tables.light_emit[i, 2])
+                cos_aw = wr_w.dot(wi) if wr_w is not None \
+                    else torch.zeros_like(o.x)
+                pdf_b, f_unit_e = _bsdf_eval_pdf_dots(
+                    kind, exponent, wo_l.z, nds[i], cos_aw, eval_lobes,
+                    static_exp)
+                ucos = f_unit_e * torch.abs(nds[i])
+                if klights.is_delta_light(lt["kind"]):
+                    w = km.div(1.0, pdf_l)
+                else:
+                    w = km.div(1.0, pdf_l + pdf_b)
+                ok = nee_base & (pdf_l > 0.0)
+                okf = _where(ok & ~occs[i], w * 1.0, 0.0)
+                bp = li_s * ucos * okf * lobe_scale
+                ld = ld + col_nee_tbl * emit_l * bp
+        big_l = big_l + beta * ld
+
+        # extension sample
+        u1, u2 = rng.uniform2()
+        f_s, wi_l, pdf_s, delta_s, _f_unit, _refr = _bsdf_sample(
+            kind, color, color2, eta, exponent, wo_l, u1, u2, lobes,
+            static_exp)
+        wi_w = to_world(s_f, t_f, n_f, wi_l)
+        ok = cont & ~f_s.is_black() & (pdf_s != 0.0)
+        thr = f_s * km.safe_div(torch.abs(wi_l.z), pdf_s)
+        beta_new = beta * thr
+        # kill lanes whose throughput overflows float32
+        ok = ok & (beta_new.max_component() < math.inf)
+        if bounce > cfg.rr_start:
+            u_rr = rng.uniform()
+            q = torch.clamp_min(1.0 - beta_new.max_component(), _f32(0.05))
+            kill = u_rr < q
+            beta_new = beta_new * km.safe_div(1.0, 1.0 - q)
+            alive_n = ok & ~kill
+        else:
+            alive_n = ok
+        o = _offset_origin(hp, nrm, wi_w).where(alive_n, o)
+        d = wi_w.where(alive_n, d)
+        beta = beta_new.where(alive_n, beta)
+        if has_delta:
+            spec_prev = torch.where(alive_n, delta_s, spec_prev)
+        pdf_prev = torch.where(alive_n, pdf_s, pdf_prev)
+        alive = alive_n
+
+    return torch.stack([big_l.x, big_l.y, big_l.z], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper: CUDA tensors launch csrc/wavefront_fwd.cu, CPU tensors run
+# the plain version
+# ---------------------------------------------------------------------------
+
+# kernel launches made by this process (reset it to 0 to count a run)
+launches = 0
+
+
+def _i32(v: int) -> int:
+    return ((int(v) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix):
+    global launches
+    from kytpu_torch.kernels import build
+
+    dev = o.device
+    n = o.shape[0]
+    if o.shape != (n, 3) or d.shape != (n, 3):
+        raise ValueError(f"rays must be (N, 3), got {tuple(o.shape)} and "
+                         f"{tuple(d.shape)}")
+    for name, t in (("f", tables.f), ("i", tables.i),
+                    ("diffuse", tables.diffuse), ("d", d)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the rays on {dev}")
+    o = o.to(torch.float32).contiguous()
+    d = d.to(torch.float32).contiguous()
+    hash_ = cfg.sampler == "hash"
+    if hash_:
+        if si is None or pix is None:
+            raise ValueError('sampler="hash" needs si and pix lane arrays')
+        si = si.to(device=dev, dtype=torch.int32).contiguous()
+        pix = pix.to(device=dev, dtype=torch.int32).contiguous()
+        if si.shape != (n,) or pix.shape != (n,):
+            raise ValueError(f"si and pix must be ({n},), got "
+                             f"{tuple(si.shape)} and {tuple(pix.shape)}")
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.kytpu_wavefront_fwd(
+            tables.f.data_ptr(), tables.i.data_ptr(), tables.diffuse.data_ptr(),
+            tables.specular.data_ptr(), tables.emission.data_ptr(),
+            tables.light_emit.data_ptr(), tables.env.data_ptr(), o.data_ptr(),
+            d.data_ptr(), si.data_ptr() if hash_ else None,
+            pix.data_ptr() if hash_ else None, out.data_ptr(), n, _i32(seed),
+            cfg.max_depth, cfg.rr_start, cfg.rows, int(hash_),
+            int(cfg.shadow == "robust"), stream)
+    if err != 0:
+        raise RuntimeError(f"wavefront_fwd launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def make_cuda_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None):
+    """Lane tracer for `scene`'s geometry (kytpu's make_pallas_tracer).
+
+    Returns fn(scene, o, d, seed, si=None, pix=None) -> (N, 3) radiance.
+    The geometry tables are packed once; the colour tables are read from the
+    `scene` given at each call, so parameter updates need no new tracer.
+    CUDA tensors launch the kernel (and raise if it cannot be built or
+    launched); CPU tensors run `trace_lanes_plain`."""
+    cfg = cfg or KernelConfig()
+    check_config(cfg)
+    geo = pack_tables(scene, cfg)
+
+    def trace(scene, o, d, seed, si=None, pix=None):
+        tables = geo.with_colors(scene)
+        if o.device.type == "cuda":
+            return _launch(tables, cfg, o, d, seed, si, pix)
+        if o.device.type == "cpu":
+            return trace_lanes_plain(tables, cfg, o, d, seed, si, pix)
+        raise ValueError(f"no kernel for device {o.device}")
+
+    return trace
+
+
+def render_lanes_cuda(scene, o, d, seed: int, cfg: KernelConfig | None = None,
+                      si=None, pix=None):
+    """One-shot wrapper around make_cuda_tracer (kytpu's
+    render_lanes_pallas)."""
+    return make_cuda_tracer(scene, cfg)(scene, o, d, seed, si, pix)
+
+
+def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
+                cfg: KernelConfig | None = None, clamp: bool = True,
+                rays_per_pass: int = 1 << 22, tracer=None) -> torch.Tensor:
+    """Full-frame render through the kernel -> (H, W, 3) float32 on the
+    scene's device (kytpu's render_pallas, same passes and defaults).
+
+    Each pass traces k = min(spp, rays_per_pass // npix) samples of every
+    pixel. "random": pass p jitters the camera with
+    uniform(fold_in(key, p), (k*npix, 2)) and traces with seed + 7919*p.
+    "hash": the seed stays fixed, lane (sample s, pixel q) jitters with
+    uniform(fold_in(key, s*npix + q), (2,)) and carries (s, q) into the
+    kernel, so a frame does not depend on the pass split."""
+    cfg = cfg or KernelConfig()
+    if tracer is None:
+        tracer = make_cuda_tracer(scene, cfg)
+    dev = scene.device
+    cam = scene.camera
+    w, h = cam.width, cam.height
+    npix = w * h
+    k = max(1, min(spp, rays_per_pass // max(npix, 1)))
+    pid = torch.arange(npix, dtype=torch.int64, device=dev)
+    px0 = (pid % w).to(torch.float32).repeat(k)
+    py0 = (pid // w).to(torch.float32).repeat(k)
+    pid_k = pid.repeat(k)
+    key = krng.key(seed, dev)
+    accum = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+    s0 = p = 0
+    while s0 < spp:
+        if cfg.sampler == "hash":
+            si = p * k + torch.arange(k, dtype=torch.int64,
+                                      device=dev).repeat_interleave(npix)
+            u = krng.uniform(krng.fold_in(key, si * npix + pid_k), (2,))
+            args = (seed, _as_i32(si & _M32), pid_k.to(torch.int32))
+        else:
+            u = krng.uniform(krng.fold_in(key, p), (k * npix, 2))
+            args = (_i32(seed + 7919 * p),)
+        o, d = kscene.generate_rays(
+            cam, torch.stack([px0 + u[:, 0], py0 + u[:, 1]], dim=-1))
+        out = tracer(scene, o, d, *args)
+        accum = accum + out.reshape(k, npix, 3).sum(dim=0)
+        s0 += k
+        p += 1
+    img = km.div(accum, float(p * k)).reshape(h, w, 3)
+    return torch.clamp(img, 0.0, 1.0) if clamp else img

@@ -1,0 +1,160 @@
+"""Camera, scene container and ray generation (kytpu/scene/scene.py).
+
+A `Scene` is a frozen dataclass of tensors that all live on one device
+(`scene.device`; move it with `scene.to(device)`). The material, emission
+and light-colour tables are this system's weights: a render reads them as
+data, so new values need no new kernel. Host metadata (light kinds, the
+environment flag) are plain python values.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields, replace
+
+import numpy as np
+import torch
+
+from kytpu_torch.core import math as km
+from kytpu_torch.light.lights import Lights
+from kytpu_torch.scene import shapes as kshapes
+
+
+@dataclass(frozen=True)
+class Camera:
+    """Perspective pinhole camera (ky.cpp:1859-1906, left-handed basis);
+    right/up are pre-scaled by tan(fov/2) (and the aspect ratio)."""
+
+    position: torch.Tensor  # (3,)
+    front: torch.Tensor     # (3,) unit
+    right: torch.Tensor     # (3,) scaled
+    up: torch.Tensor        # (3,) scaled
+    width: int
+    height: int
+
+    def to(self, device) -> "Camera":
+        return replace(self, position=self.position.to(device),
+                       front=self.front.to(device),
+                       right=self.right.to(device), up=self.up.to(device))
+
+
+def make_camera(position, front, up, fov_degrees, width, height) -> Camera:
+    position = np.asarray(position, np.float32)
+    front = np.asarray(front, np.float64)
+    front = front / np.linalg.norm(front)
+    up0 = np.asarray(up, np.float64)
+    up0 = up0 / np.linalg.norm(up0)
+    tan_fov = np.tan(np.radians(fov_degrees) / 2.0)
+    aspect = width / height
+    right = np.cross(up0, front)
+    right = right / np.linalg.norm(right) * tan_fov * aspect
+    up_scaled = np.cross(front, right)
+    up_scaled = up_scaled / np.linalg.norm(up_scaled) * tan_fov
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    return Camera(position=f32(position), front=f32(front), right=f32(right),
+                  up=f32(up_scaled), width=int(width), height=int(height))
+
+
+def generate_rays(cam: Camera, p_film: torch.Tensor):
+    """p_film: (N, 2) film coordinates in [0,W)x[0,H) -> (o, d), each (N, 3).
+
+    direction = front + right*(x/W - 0.5) + up*(0.5 - y/H), normalized
+    (ky.cpp:1884-1892).
+
+    It rounds as the JAX package's jitted frame renderers do (XLA on the
+    CPU): x/W becomes x * float32(1/W), every multiply-add is fused and the
+    norm is a fused multiply-add chain. Each fused step is taken in float64
+    and rounded once to float32, so both packages trace the same rays."""
+    f32, f64 = torch.float32, torch.float64
+
+    def fma(a, b, c):   # round(a*b + c) to float32, a*b exact in float64
+        return (a.to(f64) * b.to(f64) + c.to(f64)).to(f32)
+
+    px, py = p_film[:, 0:1].to(f32), p_film[:, 1:2].to(f32)
+    sx = fma(px, torch.tensor(1.0 / cam.width, dtype=f32), torch.tensor(-0.5))
+    sy = fma(-py, torch.tensor(1.0 / cam.height, dtype=f32), torch.tensor(0.5))
+    d = fma(sy, cam.up[None], fma(sx, cam.right[None], cam.front[None]))
+    s = d[:, 0] * d[:, 0]
+    s = fma(d[:, 1], d[:, 1], s)
+    s = fma(d[:, 2], d[:, 2], s)
+    d = d / km.sqrt(s)[:, None]
+    o = cam.position[None].expand_as(d)
+    return o, d
+
+
+@dataclass(frozen=True)
+class Scene:
+    camera: Camera
+    geometry: kshapes.Geometry
+    # per-surface tables, row-aligned with the global surface index
+    mat_kind: torch.Tensor      # (M,) int32 in MAT_*
+    mat_diffuse: torch.Tensor   # (M,3)
+    mat_specular: torch.Tensor  # (M,3)
+    mat_exponent: torch.Tensor  # (M,)
+    mat_eta: torch.Tensor       # (M,)
+    mat_d_prob: torch.Tensor    # (M,) plastic lobe probabilities
+    mat_s_prob: torch.Tensor    # (M,)
+    emission: torch.Tensor      # (M,3) area-light radiance (zeros otherwise)
+    light_index: torch.Tensor   # (M,) int32 light row, -1 if none
+    lights: Lights
+    world_center: torch.Tensor  # (3,)
+    world_radius: torch.Tensor  # ()
+    has_env: bool = False
+    env_radiance_: torch.Tensor | None = None  # (3,)
+
+    @property
+    def n_lights(self) -> int:
+        return len(self.lights.kinds)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mat_diffuse.device
+
+    def to(self, device) -> "Scene":
+        kw = {}
+        for f in fields(self):
+            v = getattr(self, f.name)
+            kw[f.name] = v.to(device) if hasattr(v, "to") else v
+        return Scene(**kw)
+
+
+def scene_from_numpy(leaves) -> Scene:
+    """Port a JAX-package `Scene` fetched with `jax.device_get` (numpy
+    leaves plus its static fields) into a CPU `Scene` of this package.
+
+    Reads attributes only, so this module never imports jax."""
+    if getattr(leaves, "has_textures", False):
+        raise NotImplementedError(
+            "textured scenes are ROADMAP item M9 (textures) of the port")
+    if getattr(leaves, "accel", None) is not None:
+        raise NotImplementedError(
+            "the grid accelerator is ROADMAP item M11 of the port")
+    t = lambda a, dt=np.float32: torch.from_numpy(  # noqa: E731
+        np.array(a, dtype=dt, copy=True))
+    c = leaves.camera
+    cam = Camera(position=t(c.position), front=t(c.front), right=t(c.right),
+                 up=t(c.up), width=int(c.width), height=int(c.height))
+    g = leaves.geometry
+    geom = kshapes.Geometry(
+        pl_kind=t(g.pl_kind, np.int32), pl_p0=t(g.pl_p0), pl_p1=t(g.pl_p1),
+        pl_p2=t(g.pl_p2), pl_p3=t(g.pl_p3), pl_normal=t(g.pl_normal),
+        pl_radius=t(g.pl_radius), pl_area=t(g.pl_area),
+        sp_center=t(g.sp_center).reshape(-1, 3), sp_radius=t(g.sp_radius),
+        sp_area=t(g.sp_area))
+    li = leaves.lights
+    lights = Lights(
+        kinds=tuple(int(k) for k in li.kinds),
+        surface_ids=tuple(int(s) for s in li.surface_ids),
+        **{name: t(getattr(li, name)) for name in
+           ("emit", "position", "direction", "p0", "p1", "p2", "p3",
+            "normal", "area", "center", "radius")})
+    return Scene(
+        camera=cam, geometry=geom,
+        mat_kind=t(leaves.mat_kind, np.int32),
+        mat_diffuse=t(leaves.mat_diffuse), mat_specular=t(leaves.mat_specular),
+        mat_exponent=t(leaves.mat_exponent), mat_eta=t(leaves.mat_eta),
+        mat_d_prob=t(leaves.mat_d_prob), mat_s_prob=t(leaves.mat_s_prob),
+        emission=t(leaves.emission), light_index=t(leaves.light_index, np.int32),
+        lights=lights, world_center=t(leaves.world_center),
+        world_radius=t(leaves.world_radius), has_env=bool(leaves.has_env),
+        env_radiance_=t(leaves.env_radiance_ if leaves.env_radiance_ is not None
+                        else np.zeros(3)))
