@@ -5,8 +5,10 @@ tensor code is PyTorch; each Pallas TPU kernel on a ported path has a CUDA
 C++ counterpart under `kernels/csrc/`, built with nvcc on first use. The
 package imports torch and numpy, never jax.
 
-Ported so far: the forward render of scenes with at most 64 surfaces,
-`integrator.render.render(scene, engine="cuda")`.
+Ported so far, for scenes with at most 64 surfaces: the forward render,
+`integrator.render.render(scene, engine="cuda")`, and inverse rendering,
+`diff.inverse.make_train_step(scene, target, engine="cuda")`. Both run on
+the card unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

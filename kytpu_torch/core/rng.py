@@ -1,10 +1,12 @@
-"""Threefry-2x32 camera-jitter draws, bit-exact with jax.random (kytpu/core/rng.py).
+"""Threefry-2x32 draws, bit-exact with jax.random (kytpu/core/rng.py).
 
-The frame renderers draw camera jitter with `jax.random` under jax's
-defaults (threefry2x32 with `jax_threefry_partitionable` on). This module
-reproduces the three calls they make -- `key(seed)`, `fold_in(key, data)`
-and `uniform(key, shape)` -- on int64 tensors holding uint32 words, vectorised
-over any number of keys. A key is a `(..., 2)` int64 tensor.
+The frame renderers and the train step draw camera jitter and kernel seeds
+with `jax.random` under jax's defaults (threefry2x32 with
+`jax_threefry_partitionable` on). This module reproduces the calls they
+make -- `key(seed)`, `fold_in(key, data)`, `split(key, num)`,
+`uniform(key, shape)` and the scalar `randint(key, lo, hi)` -- on int64
+tensors holding uint32 words, vectorised over any number of keys. A key is
+a `(..., 2)` int64 tensor.
 """
 
 from __future__ import annotations
@@ -50,6 +52,32 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     data = data.to(torch.int64) & _M32
     y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(data), data)
     return torch.stack([y0, y1], dim=-1)
+
+
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """jax.random.split of one key -> (num, 2): with partitionable threefry,
+    key i is threefry of the counter (0, i), which is fold_in(k, i)."""
+    return fold_in(k, torch.arange(num, dtype=torch.int64, device=k.device))
+
+
+def randint(k: torch.Tensor, minval: int, maxval: int) -> int:
+    """jax.random.randint(k, (), minval, maxval, jnp.int32) as a python int.
+
+    jax draws 32 high and 32 low bits from the two halves of split(k) and
+    folds them into the span with uint32 arithmetic, whose products wrap
+    (for a span past 2**16 the high bits' multiplier wraps to 0)."""
+    if not -2**31 <= minval < maxval <= 2**31 - 1:
+        raise ValueError(f"int32 range [{minval}, {maxval}) expected")
+    k1, k2 = split(k, 2)
+    hi = int(random_bits(k1, 1)[0])
+    lo = int(random_bits(k2, 1)[0])
+    span = (maxval - minval) & _M32
+    mult = (2**16 % span) ** 2 & _M32
+    mult %= span
+    off = ((hi % span) * mult & _M32) + lo % span
+    off = (off & _M32) % span
+    v = (minval + off) & _M32
+    return v - (1 << 32) if v >= 1 << 31 else v
 
 
 def random_bits(k: torch.Tensor, n: int) -> torch.Tensor:

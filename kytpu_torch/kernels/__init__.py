@@ -1,7 +1,10 @@
 """Hopper kernels of the port and their plain PyTorch versions.
 
-`wavefront` holds the forward path-tracing megakernel (the counterpart of
-kytpu/kernels/wavefront.py's Pallas kernel): its host-side scene tables, the
-plain torch transcription used on CPU tensors and as the on-card reference,
-and the wrapper that launches `csrc/wavefront_fwd.cu` on CUDA tensors.
+`wavefront` holds the path-tracing megakernels (the counterparts of
+kytpu/kernels/wavefront.py's Pallas kernels): the forward K1, the residual
+forward K2 that also writes the coefficient cache, and the cache backward
+K3; their host-side scene tables; their plain torch transcriptions, used on
+CPU tensors and as the on-card reference; and the wrappers that launch
+`csrc/wavefront_fwd.cu` and `csrc/wavefront_bwd_res.cu` on CUDA tensors,
+K2 and K3 behind the torch.autograd.Function of `make_cuda_diff_tracer`.
 """

@@ -1,10 +1,15 @@
-// Forward path-tracing megakernel for NVIDIA Hopper (sm_90a).
+// Forward path-tracing megakernel for NVIDIA Hopper (sm_90a), K1 and K2.
 //
-// Replaces kytpu/kernels/wavefront.py::_make_kernel (forward: grad=False,
-// residual=False), the Pallas TPU kernel behind every render of a scene with
-// at most 64 surfaces. Its plain PyTorch transcription is
-// kytpu_torch/kernels/wavefront.py::trace_lanes_plain; this file follows it
-// statement by statement, and chip_smoke.py holds the two against each other.
+// Replaces kytpu/kernels/wavefront.py::_make_kernel with grad=False: K1
+// (residual=False), the Pallas TPU kernel behind every render of a scene with
+// at most 64 surfaces, and K2 (residual=True), the forward of every train
+// step, which also writes the coefficient cache that the backward K3
+// (wavefront_bwd_res.cu) reads. Both are one template, wavefront_fwd_kernel
+// <RESIDUAL>: K2 adds stores and nothing else, so its radiance is K1's
+// arithmetic by construction. Their plain PyTorch transcription is
+// kytpu_torch/kernels/wavefront.py::trace_lanes_plain (residual=False/True);
+// this file follows it statement by statement, and chip_smoke.py holds the
+// two against each other.
 //
 // Design. One thread per lane (128 threads a block); the whole path state --
 // ray, throughput, radiance, MIS carry -- lives in registers for all bounces,
@@ -20,12 +25,18 @@
 // loop when it dies: every random draw is a stateless hash of (key, lane,
 // draw counter), and the counter advances identically on every live lane.
 //
-// What bounds it on the H100: FP32 and SFU issue (cos, pow, sqrt, division
-// per bounce and per light) and register pressure, not memory. The design
-// keeps all state in registers and the scene in L1; the rest (per-scene
-// generated source instead of table loops, FMA contraction, wavefront
-// compaction of divergent lanes, occupancy tuning) is later work that starts
-// from a profile. It is built with --fmad=false and without fast math, so it
+// What bounds K1 on the H100: FP32 and SFU issue (cos, pow, sqrt, division
+// per bounce and per light) and register pressure, not memory. K2 adds
+// (res_n + max_depth + 1) * 4 bytes of cache stores a lane, plane-major
+// (plane k of lane i at k * n + i) so that a warp's 32 stores of one plane
+// fill one 128-byte line. The TPU kernel is straight-line and writes every
+// plane of every lane; K2's lanes leave the loop when they die, so after the
+// loop it writes the bounces a lane never reached: 0 to every float plane and
+// 0 (sid+1 of a miss, no lobe bits) to the int plane, with which K3 adds
+// nothing. The design keeps all state in registers and the scene in L1; the
+// rest (per-scene generated source instead of table loops, FMA contraction,
+// wavefront compaction of divergent lanes, occupancy tuning) is later work
+// that starts from a profile. It is built with --fmad=false and without fast math, so it
 // rounds as the plain version does: division and sqrt are IEEE, rsqrt is
 // 1.0f/sqrtf, and min/max propagate NaN as jnp.minimum/maximum and
 // torch.minimum/maximum do.
@@ -33,19 +44,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wavefront_tables.cuh"
+
 namespace {
 
-// table layout: must match kytpu_torch/kernels/wavefront.py
-constexpr int HDR_I = 16, PL_I = 4, SP_I = 1, MAT_I = 2, LT_I = 3;
-constexpr int HDR_F = 4, PL_F = 32, SP_F = 8, MAT_F = 4, LT_F = 28;
-// one skip bit per light in a uint32 mask, one hit pdf per light in phits[]
-constexpr int MAX_LIGHTS = 32;
-
-// kinds
-constexpr int TRI = 0, RECT = 1, DISK = 2;
-constexpr int LAMBERT = 0, MIRROR = 1, GLASS = 2, PHONG = 3;
-constexpr int MAT_MATTE = 0, MAT_MIRROR = 1, MAT_GLASS = 2, MAT_PLASTIC = 3;
-constexpr int L_POINT = 0, L_DIRECTION = 1, L_RECT = 2, L_SPHERE = 3, L_ENV = 4;
+using namespace kytpu;
 
 // float32 values of the package's constants
 constexpr float EPS = 1e-3f;          // SHAPE_EPSILON
@@ -423,12 +426,14 @@ __device__ void eval_dots(const Scene& S, int kind, float exponent, float wo_z, 
   }
 }
 
-// local-frame sample of the lane's lobe -> f, wi, pdf, delta
+// local-frame sample of the lane's lobe -> f, wi, pdf, delta, the lobe's
+// value per unit colour (f_unit) and whether glass refracted
 __device__ void bsdf_sample(const Scene& S, int kind, V color, V color2, float eta,
                             float exponent, V wo, float u1, float u2, V& f, V& wi,
-                            float& pdf, bool& delta) {
+                            float& pdf, bool& delta, float& f_unit, bool& refract) {
   V mirror_wi = vmk(-wo.x, -wo.y, wo.z);
   delta = false;
+  refract = false;
   if (kind == LAMBERT) {
     float px, py;
     concentric_disk(u1, u2, px, py);
@@ -437,12 +442,14 @@ __device__ void bsdf_sample(const Scene& S, int kind, V color, V color2, float e
     bool same = wo.z * wi.z > 0.f;
     f = same ? color * INV_PI_F : vmk(0.f, 0.f, 0.f);
     pdf = same ? fabsf(wi.z) * INV_PI_F : 0.f;
+    f_unit = same ? INV_PI_F : 0.f;
   } else if (kind == MIRROR) {
     float inv_m = 1.0f / jmax(fabsf(mirror_wi.z), 1e-12f);
     wi = mirror_wi;
     f = color * inv_m;
     pdf = 1.0f;
     delta = true;
+    f_unit = inv_m;
   } else if (kind == GLASS) {
     float fr = fresnel_dielectric(wo.z, eta);
     bool take_refl = u1 < fr;
@@ -464,6 +471,8 @@ __device__ void bsdf_sample(const Scene& S, int kind, V color, V color2, float e
     f = take_refl ? color * refl_unit : (refr_ok ? color2 * refr_unit : vmk(0.f, 0.f, 0.f));
     pdf = take_refl ? fr : (refr_ok ? 1.0f - fr : 0.f);
     delta = true;
+    f_unit = take_refl ? refl_unit : (refr_ok ? refr_unit : 0.f);
+    refract = !take_refl;
   } else {  // PHONG
     float phi = TWO_PI_F * u1;
     float cos_t_p = S.static_exp ? powf(u2, __ldg(S.F + 1))
@@ -482,6 +491,7 @@ __device__ void bsdf_sample(const Scene& S, int kind, V color, V color2, float e
     float ph_val = same ? e2 * powa : 0.f;
     f = color * ph_val;
     pdf = e1 * powa;
+    f_unit = ph_val;
   }
 }
 
@@ -616,18 +626,23 @@ __device__ float hit_light_pdf(const Scene& S, int li, V o, V d, float t, V nrm)
 
 // ---- the kernel --------------------------------------------------------------
 
+template <bool RESIDUAL>
 __global__ void __launch_bounds__(128)
 wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
                      const float* __restrict__ diffuse_t, const float* __restrict__ specular_t,
                      const float* __restrict__ emission_t, const float* __restrict__ light_emit_t,
                      const float* __restrict__ env_t, const float* __restrict__ o_in,
                      const float* __restrict__ d_in, const int* __restrict__ si_in,
-                     const int* __restrict__ pix_in, float* __restrict__ out, int n,
+                     const int* __restrict__ pix_in, float* __restrict__ out,
+                     float* __restrict__ resf, int* __restrict__ resi, int n,
                      int seed, int max_depth, int rr_start, int rows, int hash, int robust) {
   int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane_id >= n) return;
   Scene S;
   S.init(F, I);
+  const ResPlanes rp = res_planes(S.env_i >= 0, S.single, S.L);
+  // plane k of this lane
+  auto put = [&](int k, float v) { resf[(size_t)k * n + lane_id] = v; };
 
   const int tile = rows * 128;
   const int tile_id = lane_id / tile;
@@ -654,6 +669,7 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
   const bool single = S.single != 0;
   const bool has_phong = S.has_lobe(PHONG);
   const V zero3 = vmk(0.f, 0.f, 0.f);
+  int next_bounce = max_depth + 1;  // the first bounce this lane does not reach
 
   for (int bounce = 0; bounce <= max_depth; ++bounce) {
     float t;
@@ -681,12 +697,17 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
     }
     float wb = alive ? w_emit : 0.f;
     Lr = Lr + beta * (le * wb);
+    if (RESIDUAL) put(rp.wb(bounce), (valid && facing) ? wb : 0.f);
     if (S.env_i >= 0) {
       float w_env = full ? 1.0f : safe_div(pdf_prev, pdf_prev + env_pdf(d.z));
       float wenv = (alive && !valid) ? w_env : 0.f;
       Lr = Lr + (beta * ld3(env_t)) * wenv;
+      if (RESIDUAL) put(rp.wenv(bounce), wenv);
     }
-    if (bounce == max_depth) break;
+    if (bounce == max_depth) {
+      if (RESIDUAL) resi[(size_t)bounce * n + lane_id] = sid + 1;
+      break;
+    }
     bool cont = alive && valid;
 
     // material resolution
@@ -725,6 +746,7 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
     V col_nee = (S.has_plastic && lobe_is_phong) ? specular : diffuse;
     bool nee_base = nee_act && !is_black(color);
     V ld = zero3;
+    int pick_bits = 0;
 
     // ---- light-side NEE ----
     if (single) {
@@ -736,6 +758,7 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
       c ^= c >> 13;
       if (hash) c += si0;
       int pick = (int)((c & 0x7fffffffu) % (uint32_t)S.L);
+      pick_bits = pick << RESI_PICK_SHIFT;
       int lkind = __ldg(S.LTI + LT_I * pick);
       float cphi = 0.f, sphi = 0.f;
       if (lkind == L_SPHERE || lkind == L_ENV) {
@@ -759,6 +782,7 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
       float okf = (ok && !occ) ? w * (float)S.L : 0.f;
       float bp = ((sm.li_s * ucos) * okf) * lobe_scale;
       ld = (col_nee * emit_l) * bp;
+      if (RESIDUAL) put(rp.B(bounce, 0), bp);
     } else {
       float u1 = rng.uniform();
       float u2 = rng.uniform();
@@ -784,6 +808,7 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
         float okf = (ok && !occ) ? w * 1.0f : 0.f;
         float bp = ((sm.li_s * ucos) * okf) * lobe_scale;
         ld = ld + (col_nee * ld3(light_emit_t + 3 * i)) * bp;
+        if (RESIDUAL) put(rp.B(bounce, i), bp);
       }
     }
     Lr = Lr + beta * ld;
@@ -792,22 +817,31 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
     float u1 = rng.uniform();
     float u2 = rng.uniform();
     V f_s, wi_l;
-    float pdf_s;
-    bool delta_s;
+    float pdf_s, f_unit_s;
+    bool delta_s, refract;
     bsdf_sample(S, kind, color, diffuse, eta, exponent, wo_l, u1, u2, f_s, wi_l, pdf_s,
-                delta_s);
+                delta_s, f_unit_s, refract);
     V wi_w = to_world(s_f, t_f, nrm, wi_l);
     bool ok = cont && !is_black(f_s) && pdf_s != 0.f;
     V beta_new = beta * (f_s * safe_div(fabsf(wi_l.z), pdf_s));
     // kill lanes whose throughput overflows float32
     ok = ok && vmax(beta_new) < __int_as_float(0x7f800000);
     bool alive_n = ok;
+    float scale = 1.0f;
     if (bounce > rr_start) {
       float u_rr = rng.uniform();
       float q = jmax(1.0f - vmax(beta_new), 0.05f);
       bool kill = u_rr < q;
-      beta_new = beta_new * safe_div(1.0f, 1.0f - q);
+      scale = safe_div(1.0f, 1.0f - q);
+      beta_new = beta_new * scale;
       alive_n = ok && !kill;
+    }
+    if (RESIDUAL) {
+      float t_unit = (f_unit_s * safe_div(fabsf(wi_l.z), pdf_s)) * scale;
+      put(rp.tu(bounce), alive_n ? t_unit * lobe_scale : 0.f);
+      bool to_spec_t = is_mirror || (is_glass && !refract) || lobe_is_phong;
+      resi[(size_t)bounce * n + lane_id] = (sid + 1) + (lobe_is_phong ? RESI_PHONG : 0) +
+                                           (to_spec_t ? RESI_TO_SPEC : 0) + pick_bits;
     }
     if (alive_n) {
       o = offset_origin(hp, nrm, wi_w);
@@ -817,7 +851,21 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
       pdf_prev = pdf_s;
     }
     alive = alive_n;
-    if (!alive) break;
+    if (!alive) {
+      next_bounce = bounce + 1;
+      break;
+    }
+  }
+  if (RESIDUAL) {
+    for (int b = next_bounce; b <= max_depth; ++b) {
+      put(rp.wb(b), 0.f);
+      if (rp.env) put(rp.wenv(b), 0.f);
+      if (b < max_depth) {
+        for (int i = 0; i < rp.n_b; ++i) put(rp.B(b, i), 0.f);
+        put(rp.tu(b), 0.f);
+      }
+      resi[(size_t)b * n + lane_id] = 0;
+    }
   }
   out[3 * (size_t)lane_id] = Lr.x;
   out[3 * (size_t)lane_id + 1] = Lr.y;
@@ -826,7 +874,8 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
 
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream); returns cudaGetLastError().
+// Launch on `stream` (PyTorch's current stream); they return cudaGetLastError().
+// K1: radiance only.
 extern "C" int kytpu_wavefront_fwd(const float* F, const int* I, const float* diffuse,
                                    const float* specular, const float* emission,
                                    const float* light_emit, const float* env, const float* o,
@@ -836,9 +885,28 @@ extern "C" int kytpu_wavefront_fwd(const float* F, const int* I, const float* di
   if (n > 0) {
     const int threads = 128;
     const int blocks = (n + threads - 1) / threads;
-    wavefront_fwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        F, I, diffuse, specular, emission, light_emit, env, o, d, si, pix, out, n, seed,
-        max_depth, rr_start, rows, hash, robust);
+    wavefront_fwd_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        F, I, diffuse, specular, emission, light_emit, env, o, d, si, pix, out, nullptr,
+        nullptr, n, seed, max_depth, rr_start, rows, hash, robust);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2: radiance and the coefficient cache, resf (res_n, n) float32 and resi
+// (max_depth + 1, n) int32, plane-major.
+extern "C" int kytpu_wavefront_fwd_res(const float* F, const int* I, const float* diffuse,
+                                       const float* specular, const float* emission,
+                                       const float* light_emit, const float* env,
+                                       const float* o, const float* d, const int* si,
+                                       const int* pix, float* out, float* resf, int* resi,
+                                       int n, int seed, int max_depth, int rr_start, int rows,
+                                       int hash, int robust, void* stream) {
+  if (n > 0) {
+    const int threads = 128;
+    const int blocks = (n + threads - 1) / threads;
+    wavefront_fwd_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        F, I, diffuse, specular, emission, light_emit, env, o, d, si, pix, out, resf, resi,
+        n, seed, max_depth, rr_start, rows, hash, robust);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""The forward path-tracing megakernel (kytpu/kernels/wavefront.py).
+"""The path-tracing megakernels (kytpu/kernels/wavefront.py): the forward
+K1, the residual forward K2 and the coefficient-cache backward K3.
 
 Three layers, each the counterpart of one in the JAX package:
 
@@ -9,11 +10,16 @@ Three layers, each the counterpart of one in the JAX package:
   Phong exponent, occlusion-skip rows, sphere-light inside branch, which
   lights carry a direction-free hit pdf, ...) is a field of those tables,
   read by the CUDA kernel at run time;
-- `trace_lanes_plain`: a plain torch transcription of the forward
-  `_make_kernel(grad=False, residual=False)` on (N,) lane tensors. CPU
-  tensors run it, and the card checks the kernel against it;
-- the wrapper (`make_cuda_tracer`, `render_lanes_cuda`, `render_cuda`),
-  which launches `csrc/wavefront_fwd.cu` on CUDA tensors.
+- `trace_lanes_plain`, a plain torch transcription of the forward
+  `_make_kernel(grad=False)` on (N,) lane tensors, with residual=True also
+  writing the coefficient cache (K2), and `bwd_res_plain`, that of
+  `_make_bwd_res_kernel` (K3). CPU tensors run them, and the card checks
+  the kernels against them;
+- the wrappers (`trace_lanes`, `bwd_res`, `make_cuda_tracer`,
+  `render_lanes_cuda`, `render_cuda`, and `make_cuda_diff_tracer`, a
+  torch.autograd.Function over K2 and K3), which launch
+  `csrc/wavefront_fwd.cu` and `csrc/wavefront_bwd_res.cu` on CUDA
+  tensors.
 
 Samplers: "hash" (stateless lowbias32 streams keyed by (seed, pixel,
 sample, draw site)) is the JAX package's own. "random" on the TPU is the
@@ -51,9 +57,11 @@ MAX_LIGHTS = 32
 @dataclass(frozen=True)
 class KernelConfig:
     """Same fields and defaults as kytpu.kernels.wavefront.KernelConfig.
-    The port's kernel takes max_depth, rr_start, rows, nee ("all" |
+    The port's kernels take max_depth, rr_start, rows, nee ("all" |
     "single"), sampler ("random" | "hash") and shadow ("parity" |
-    "robust"); the other fields belong to paths not ported yet."""
+    "robust"). bwd_rows changes nothing here: K3 reads no tile (the
+    nee="single" pick comes from the cache). The other fields belong to
+    paths not ported yet."""
 
     max_depth: int = 5
     rr_start: int = 3
@@ -73,7 +81,8 @@ def check_config(cfg: KernelConfig) -> None:
             "sampler='sobol' (core/lds.py) is on the port's ROADMAP queue")
     if cfg.trainable_exponent:
         raise NotImplementedError(
-            "trainable_exponent belongs to the training path, ROADMAP M5")
+            "trainable_exponent (the exponent adjoint) comes with K4, the "
+            "replay backward, on the port's ROADMAP queue")
     if cfg.sampler not in ("random", "hash") or cfg.nee not in (
             "all", "single") or cfg.shadow not in ("parity", "robust"):
         raise ValueError(f"unsupported kernel config {cfg}")
@@ -437,7 +446,7 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
         int(any(lt["kind"] in (klights.AREA_SPHERE, klights.ENV)
                 for lt in lights)),
         int(_phit_lights(lights)),
-        int(cfg.nee == "single" and L > 1),
+        int(picks_one_light(cfg, L)),
     ]
     ft[0] = _f32(2.0 * static["world_radius"])
     if static_exp is not None:
@@ -488,6 +497,60 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     return SceneTables(static=static, f=torch.from_numpy(ft).to(dev),
                        i=torch.from_numpy(it).to(dev),
                        **_color_tables(scene))
+
+
+def picks_one_light(cfg: KernelConfig, n_lights: int) -> bool:
+    """Does NEE sample one picked light a bounce (nee="single" with more
+    than one light)? Then the cache holds one "B" plane a bounce and the
+    pick in resi bits 11-15; else one "B" plane a light. The kernels read
+    this from the table header (`pack_tables`)."""
+    return cfg.nee == "single" and n_lights > 1
+
+
+def residual_layout(static, cfg: KernelConfig):
+    """Plane order of the coefficient cache that K2 writes and K3 reads
+    (kytpu's `_residual_layout` for trainable_exponent=False and no
+    textures) -> ({tag: plane}, count). Per bounce: "wb" (hit-emission MIS
+    weight, fully masked), "wenv" (env-miss weight, env scenes), then below
+    the horizon one "B" plane per NEE light (one under nee="single": B' =
+    li_scalar * f_unit * |cos| * okf * lobe_scale) and "tu" (extension
+    throughput unit incl. lobe scale, pdf division, RR compensation and the
+    alive mask). The kernels compute the same offsets from the table header
+    (csrc/wavefront_fwd.cu `res_plane`)."""
+    check_config(cfg)
+    lights = static["lights"]
+    has_env = any(lt["kind"] == klights.ENV for lt in lights)
+    n_b = 1 if picks_one_light(cfg, len(lights)) else len(lights)
+    tags = []
+    for b in range(cfg.max_depth + 1):
+        tags.append(("wb", b))
+        if has_env:
+            tags.append(("wenv", b))
+        if b < cfg.max_depth:
+            tags.extend(("B", b, i) for i in range(n_b))
+            tags.append(("tu", b))
+    return {t: k for k, t in enumerate(tags)}, len(tags)
+
+
+def light_emit_of(scene: kscene.Scene, emission: torch.Tensor,
+                  env: torch.Tensor) -> torch.Tensor:
+    """(max(L, 1), 3) NEE light emissions derived from the traced
+    `emission` rows and `env` (kytpu's `_light_emit_of`): a light bound to
+    a surface takes that row's emission, the environment light `env`, the
+    others `scene.lights.emit`. The diff tracer reads these, not
+    `lights.emit`, so a train step never runs NEE with stale emission."""
+    if not scene.n_lights:
+        return emission.new_zeros((1, 3))
+    rows = scene.lights.surface_ids
+    idx = torch.tensor([max(r, 0) for r in rows], device=emission.device)
+    has = torch.tensor([r >= 0 for r in rows], device=emission.device)
+    emit = torch.where(has[:, None], emission[idx],
+                       scene.lights.emit.to(emission.device))
+    for i, kind in enumerate(scene.lights.kinds):
+        if kind == klights.ENV:
+            emit = emit.clone()
+            emit[i] = env
+    return emit
 
 
 def _phit_lights(lights) -> bool:
@@ -1270,13 +1333,22 @@ def _rng_keys(cfg: KernelConfig, n: int, seed: int, si, pix, device):
 def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
                       o: torch.Tensor, d: torch.Tensor, seed: int,
                       si: torch.Tensor | None = None,
-                      pix: torch.Tensor | None = None) -> torch.Tensor:
+                      pix: torch.Tensor | None = None,
+                      residual: bool = False):
     """Plain torch transcription of the forward megakernel
-    (kytpu.kernels.wavefront._make_kernel with grad=residual=False).
+    (kytpu.kernels.wavefront._make_kernel with grad=False).
 
     o, d: (N, 3) float32 rays; seed: int; si, pix: (N,) int sample index
     and pixel id, required by sampler="hash". Returns (N, 3) radiance.
-    Lane n sits in tile n // (cfg.rows*128), as in the JAX package."""
+    Lane n sits in tile n // (cfg.rows*128), as in the JAX package.
+
+    residual=True (K2) also returns the coefficient cache, (L, resf, resi):
+    resf (res_n, N) float32 in `residual_layout`'s plane order and resi
+    (max_depth+1, N) int32, sid+1 in bits 0-7, lobe_is_phong in bit 8,
+    to_spec_t in bit 9 and, under nee="single", the picked light in bits
+    11-15. A bounce a lane does not reach (it died before) has every float
+    plane 0 and resi 0; the JAX package writes the same zeros but the sid of
+    its frozen ray."""
     check_config(cfg)
     if cfg.sampler == "hash" and (si is None or pix is None):
         raise ValueError('sampler="hash" needs si and pix lane arrays')
@@ -1331,6 +1403,10 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
     pdf_prev = torch.ones_like(o.x)
     phits_prev = None
     env = tables.env
+    if residual:
+        res_ix, res_n = residual_layout(static, cfg)
+        planes = [None] * res_n
+        ints = [None] * (cfg.max_depth + 1)
 
     for bounce in range(cfg.max_depth + 1):
         t, sid, valid, nrm = _closest_hit(static, o, d)
@@ -1364,6 +1440,8 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
                 w_emit = _where(full, 1.0, w_emit)
         wb = _where(alive, w_emit, 0.0)
         big_l = big_l + beta * (le * wb)
+        if residual:
+            planes[res_ix[("wb", bounce)]] = _where(emit_mask, wb, 0.0)
 
         if env_i is not None:
             ones = torch.ones_like(o.x)
@@ -1377,8 +1455,12 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
                     w_env = _where(full, 1.0, w_env)
             wenv = _where(alive & ~valid, w_env, 0.0)
             big_l = big_l + beta * env_v * wenv
+            if residual:
+                planes[res_ix[("wenv", bounce)]] = wenv
 
         if bounce == cfg.max_depth:
+            if residual:
+                ints[bounce] = _where(alive, sid + 1, 0)
             break
         cont = alive & valid
 
@@ -1430,7 +1512,7 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
         nee_base = nee_act & ~color.is_black()
         ld = v3_zeros(o.x)
 
-        if cfg.nee == "single" and L > 1:
+        if picks_one_light(cfg, L):
             u1, u2 = rng.uniform2()
             pick = _single_pick(tile_seed, bounce, si0, L)
             smps = [_light_sample(lt, world_radius, hp, nrm, u1, u2)
@@ -1466,6 +1548,8 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
             okf = _where(ok & ~occ, w * _f32(L), 0.0)
             bp = li_s * ucos * okf * lobe_scale
             ld = col_nee_tbl * emit_l * bp
+            if residual:
+                planes[res_ix[("B", bounce, 0)]] = bp
         else:
             u1, u2 = rng.uniform2()
             azim = None
@@ -1501,11 +1585,13 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
                 okf = _where(ok & ~occs[i], w * 1.0, 0.0)
                 bp = li_s * ucos * okf * lobe_scale
                 ld = ld + col_nee_tbl * emit_l * bp
+                if residual:
+                    planes[res_ix[("B", bounce, i)]] = bp
         big_l = big_l + beta * ld
 
         # extension sample
         u1, u2 = rng.uniform2()
-        f_s, wi_l, pdf_s, delta_s, _f_unit, _refr = _bsdf_sample(
+        f_s, wi_l, pdf_s, delta_s, f_unit_s, refract = _bsdf_sample(
             kind, color, color2, eta, exponent, wo_l, u1, u2, lobes,
             static_exp)
         wi_w = to_world(s_f, t_f, n_f, wi_l)
@@ -1514,14 +1600,26 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
         beta_new = beta * thr
         # kill lanes whose throughput overflows float32
         ok = ok & (beta_new.max_component() < math.inf)
+        scale = 1.0
         if bounce > cfg.rr_start:
             u_rr = rng.uniform()
             q = torch.clamp_min(1.0 - beta_new.max_component(), _f32(0.05))
             kill = u_rr < q
-            beta_new = beta_new * km.safe_div(1.0, 1.0 - q)
+            scale = km.safe_div(1.0, 1.0 - q)
+            beta_new = beta_new * scale
             alive_n = ok & ~kill
         else:
             alive_n = ok
+        if residual:
+            t_unit = f_unit_s * km.safe_div(torch.abs(wi_l.z), pdf_s) * scale
+            planes[res_ix[("tu", bounce)]] = _where(alive_n,
+                                                    t_unit * lobe_scale, 0.0)
+            to_spec_t = is_mirror | (is_glass & ~refract) | lobe_is_phong
+            packed = (sid + 1) + lobe_is_phong.to(torch.int32) * 256 \
+                + to_spec_t.to(torch.int32) * 512
+            if picks_one_light(cfg, L):
+                packed = packed + pick.to(torch.int32) * 2048
+            ints[bounce] = _where(alive, packed, 0)
         o = _offset_origin(hp, nrm, wi_w).where(alive_n, o)
         d = wi_w.where(alive_n, d)
         beta = beta_new.where(alive_n, beta)
@@ -1530,7 +1628,170 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
         pdf_prev = torch.where(alive_n, pdf_s, pdf_prev)
         alive = alive_n
 
-    return torch.stack([big_l.x, big_l.y, big_l.z], dim=-1)
+    out = torch.stack([big_l.x, big_l.y, big_l.z], dim=-1)
+    if not residual:
+        return out
+    return out, torch.stack(planes), torch.stack(ints)
+
+
+# ---------------------------------------------------------------------------
+# plain version: the coefficient-cache backward (K3)
+# ---------------------------------------------------------------------------
+
+# K3's block and its second pass's block (csrc/wavefront_bwd_res.cu)
+BWD_THREADS = 128
+SUM_THREADS = 256
+
+
+def sum_lanes(acc: torch.Tensor) -> torch.Tensor:
+    """(N, K) per-lane adjoints -> (K,) in K3's fixed order: each block of
+    BWD_THREADS lanes sums its warps as a shuffle tree (lane i += lane
+    i + off, off = 16 .. 1) and the four warp sums as (w0 + w1) + (w2 + w3);
+    the second pass's thread t sums blocks t, t + SUM_THREADS, ... in turn,
+    then the SUM_THREADS threads reduce as a tree (off = 128 .. 1). The
+    same float additions in the same order as the kernel, so the two agree
+    to the last bit and the gradient repeats from run to run."""
+    n, k = acc.shape
+    nb = max(1, -(-n // BWD_THREADS))
+    x = acc.new_zeros((nb * BWD_THREADS, k))
+    x[:n] = acc
+    x = x.reshape(nb, BWD_THREADS // 32, 32, k)
+    for off in (16, 8, 4, 2, 1):
+        x[:, :, :off] = x[:, :, :off] + x[:, :, off:2 * off]
+    w = x[:, :, 0]
+    part = (w[:, 0] + w[:, 1]) + (w[:, 2] + w[:, 3])
+    s = acc.new_zeros((SUM_THREADS, k))
+    for j in range(0, nb, SUM_THREADS):
+        chunk = part[j:j + SUM_THREADS]
+        s[:len(chunk)] = s[:len(chunk)] + chunk
+    off = SUM_THREADS // 2
+    while off:
+        s[:off] = s[:off] + s[off:2 * off]
+        off //= 2
+    return s[0]
+
+
+def split_grads(vec: torch.Tensor, m_rows: int):
+    """K3's (9M+3,) gradient vector, dd | ds | de (each (M, 3) row-major) |
+    denv (3,), -> (dd, ds, de, denv)."""
+    m3 = 3 * m_rows
+    return (vec[:m3].reshape(m_rows, 3), vec[m3:2 * m3].reshape(m_rows, 3),
+            vec[2 * m3:3 * m3].reshape(m_rows, 3), vec[3 * m3:])
+
+
+def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
+                  big_l: torch.Tensor, resf: torch.Tensor,
+                  resi: torch.Tensor):
+    """Plain K3, the coefficient-cache backward (kytpu's
+    `_make_bwd_res_kernel`) on lane tensors: upstream gradient g and
+    radiance big_l (N, 3), the cache of K2 -> (dd, ds, de, denv) of shapes
+    (M, 3), (M, 3), (M, 3), (3,), the per-lane adjoints summed in the
+    kernel's order (`sum_lanes`).
+
+    Per bounce it reads sid and the lobe bits from resi and peels the tail
+    radiance R_{b+1} = (R_b - E_b) / T_b, with E_b and T_b rebuilt
+    bilinearly from the cached coefficients and the colour tables: no
+    intersection, no random numbers. Only adjoint-eligible rows are ever
+    added to (a mirror row's diffuse, a matte row's specular, a non-light
+    row's emission stay exactly 0), and each lane adds to one row per term,
+    in the kernel's order. The NEE emission adjoint goes to the light's
+    emitting row, or to env for the environment light; point and
+    directional lights get none. Under nee="single" the picked light is
+    read from resi bits 11-15, never recomputed."""
+    check_config(cfg)
+    static = tables.static
+    mats, lights = static["mats"], static["lights"]
+    M, L = len(mats["kind"]), len(lights)
+    res_ix, res_n = residual_layout(static, cfg)
+    if resf.shape[0] != res_n or resi.shape[0] != cfg.max_depth + 1:
+        raise ValueError(f"cache of {resf.shape[0]} float and "
+                         f"{resi.shape[0]} int planes; this scene and config "
+                         f"take {res_n} and {cfg.max_depth + 1}")
+    single = picks_one_light(cfg, L)
+    has_env = any(lt["kind"] == klights.ENV for lt in lights)
+    light_row = _light_rows(static)
+    n = g.shape[0]
+    dev = g.device
+    lanes = torch.arange(n, device=dev)
+    kind_tab = torch.tensor(mats["kind"], device=dev)
+    li_tab = torch.tensor(mats["light_index"], device=dev)
+    ok_d = kind_tab != kbsdf.MAT_MIRROR
+    ok_s = kind_tab != kbsdf.MAT_MATTE
+    ok_e = li_tab >= 0
+    acc_d = g.new_zeros((n, M, 3))
+    acc_s = g.new_zeros((n, M, 3))
+    acc_e = g.new_zeros((n, M, 3))
+    acc_env = g.new_zeros((n, 3))
+    emit_l = tables.light_emit
+    env = tables.env
+
+    def row_add(acc, ok_tab, sid, val):
+        """acc[lane, sid] += val where sid is an eligible row."""
+        sc = sid.clamp_min(0).long()
+        ok = (sid >= 0) & ok_tab[sc]
+        acc[lanes, sc] = torch.where(ok[:, None], acc[lanes, sc] + val,
+                                     acc[lanes, sc])
+
+    def sel(tab, ok_tab, sid):
+        sc = sid.clamp_min(0).long()
+        ok = (sid >= 0) & ok_tab[sc]
+        return torch.where(ok[:, None], tab[sc], torch.zeros_like(tab[sc]))
+
+    beta = torch.ones_like(g)
+    r_tail = big_l
+    for b in range(cfg.max_depth + 1):
+        ib = resi[b].to(torch.int32)
+        sid = (ib & 255) - 1
+        wb = resf[res_ix[("wb", b)]][:, None]
+        gb = g * beta
+        row_add(acc_e, ok_e, sid, gb * wb)
+        if has_env:
+            wenv = resf[res_ix[("wenv", b)]][:, None]
+            acc_env = acc_env + gb * wenv
+        if b == cfg.max_depth:
+            break
+        phong = ((ib & 256) != 0)[:, None]
+        to_spec = ((ib & 512) != 0)[:, None]
+        diff_sel = sel(tables.diffuse, ok_d, sid)
+        spec_sel = sel(tables.specular, ok_s, sid)
+        emit_sel = sel(tables.emission, ok_e, sid)
+        col_nee = torch.where(phong, spec_sel, diff_sel)
+        e_term = emit_sel * wb
+        if has_env:
+            e_term = e_term + env * wenv
+        addc = torch.zeros_like(g)
+        if single:
+            picks = [(((ib >> 11) & 31).long(), res_ix[("B", b, 0)])]
+        else:
+            picks = [(i, res_ix[("B", b, i)]) for i in range(L)]
+        for pick, k in picks:
+            bp = resf[k][:, None]
+            e_l = emit_l[pick]
+            e_term = e_term + col_nee * e_l * bp
+            add = gb * col_nee * bp
+            for i in range(L) if single else [pick]:
+                val = torch.where((pick == i)[:, None], add, 0.0) if single \
+                    else add
+                if i in light_row:
+                    acc_e[:, light_row[i]] += val
+                elif lights[i]["kind"] == klights.ENV:
+                    acc_env = acc_env + val
+            addc = addc + gb * e_l * bp
+        tu = resf[res_ix[("tu", b)]][:, None]
+        t_eff = torch.where(to_spec, spec_sel, diff_sel) * tu
+        r_next = km.safe_div(r_tail - e_term, t_eff)
+        addt = gb * r_next * tu
+        # NEE colour adjoint: to specular on phong lanes, else diffuse; the
+        # extension's: to specular where the sampled lobe read it
+        row_add(acc_d, ok_d, sid, torch.where(phong, 0.0, addc)
+                + torch.where(to_spec, 0.0, addt))
+        row_add(acc_s, ok_s, sid, torch.where(phong, addc, 0.0)
+                + torch.where(to_spec, addt, 0.0))
+        beta = beta * t_eff
+        r_tail = r_next
+    acc = torch.cat([acc_d.reshape(n, -1), acc_s.reshape(n, -1),
+                     acc_e.reshape(n, -1), acc_env], dim=1)
+    return split_grads(sum_lanes(acc), M)
 
 
 # ---------------------------------------------------------------------------
@@ -1538,16 +1799,36 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
 # the plain version
 # ---------------------------------------------------------------------------
 
-# kernel launches made by this process (reset it to 0 to count a run)
+# kernel launches made by this process (set them to 0 to count a run): K1,
+# K2 (the residual forward) and K3 (the coefficient-cache backward)
 launches = 0
+launches_res_fwd = 0
+launches_res_bwd = 0
 
 
 def _i32(v: int) -> int:
     return ((int(v) + (1 << 31)) % (1 << 32)) - (1 << 31)
 
 
-def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix):
-    global launches
+def _check_tables(tables: SceneTables, dev):
+    for name in ("f", "i", "diffuse", "specular", "emission", "light_emit",
+                 "env"):
+        t = getattr(tables, name)
+        if t.device != dev:
+            raise ValueError(f"table {name} is on {t.device}, the lanes on "
+                             f"{dev}")
+        if not t.is_contiguous() or t.dtype != (
+                torch.int32 if name == "i" else torch.float32):
+            raise ValueError(f"table {name} must be contiguous "
+                             f"{'int32' if name == 'i' else 'float32'}")
+
+
+def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
+            residual: bool = False):
+    """K1 (or K2 with residual=True) on CUDA lanes -> radiance (or
+    (radiance, resf, resi)); raises if the kernel cannot be built or
+    launched."""
+    global launches, launches_res_fwd
     from kytpu_torch.kernels import build
 
     dev = o.device
@@ -1555,10 +1836,9 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix):
     if o.shape != (n, 3) or d.shape != (n, 3):
         raise ValueError(f"rays must be (N, 3), got {tuple(o.shape)} and "
                          f"{tuple(d.shape)}")
-    for name, t in (("f", tables.f), ("i", tables.i),
-                    ("diffuse", tables.diffuse), ("d", d)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the rays on {dev}")
+    if d.device != dev:
+        raise ValueError(f"d is on {d.device}, o on {dev}")
+    _check_tables(tables, dev)
     o = o.to(torch.float32).contiguous()
     d = d.to(torch.float32).contiguous()
     hash_ = cfg.sampler == "hash"
@@ -1571,20 +1851,75 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix):
             raise ValueError(f"si and pix must be ({n},), got "
                              f"{tuple(si.shape)} and {tuple(pix.shape)}")
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.kytpu_wavefront_fwd(
-            tables.f.data_ptr(), tables.i.data_ptr(), tables.diffuse.data_ptr(),
+    args = [tables.f.data_ptr(), tables.i.data_ptr(), tables.diffuse.data_ptr(),
             tables.specular.data_ptr(), tables.emission.data_ptr(),
             tables.light_emit.data_ptr(), tables.env.data_ptr(), o.data_ptr(),
             d.data_ptr(), si.data_ptr() if hash_ else None,
-            pix.data_ptr() if hash_ else None, out.data_ptr(), n, _i32(seed),
-            cfg.max_depth, cfg.rr_start, cfg.rows, int(hash_),
-            int(cfg.shadow == "robust"), stream)
+            pix.data_ptr() if hash_ else None, out.data_ptr()]
+    if residual:
+        _, res_n = residual_layout(tables.static, cfg)
+        # every plane of every lane is written by K2 (torch.empty, not zeros)
+        resf = torch.empty((res_n, n), dtype=torch.float32, device=dev)
+        resi = torch.empty((cfg.max_depth + 1, n), dtype=torch.int32,
+                           device=dev)
+        args += [resf.data_ptr(), resi.data_ptr()]
+    lib = build.load()
+    fn = lib.kytpu_wavefront_fwd_res if residual else lib.kytpu_wavefront_fwd
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, n, _i32(seed), cfg.max_depth, cfg.rr_start, cfg.rows,
+                 int(hash_), int(cfg.shadow == "robust"), stream)
     if err != 0:
-        raise RuntimeError(f"wavefront_fwd launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"wavefront_fwd{'_res' if residual else ''} launch "
+                           f"failed: CUDA error {err}")
+    if not residual:
+        launches += 1
+        return out
+    launches_res_fwd += 1
+    return out, resf, resi
+
+
+def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
+                resi) -> torch.Tensor:
+    """K3 on CUDA lanes -> the (9M+3,) gradient vector of `split_grads`;
+    raises if the kernel cannot be built or launched."""
+    global launches_res_bwd
+    from kytpu_torch.kernels import build
+
+    dev = g.device
+    n = g.shape[0]
+    m_rows = len(tables.static["mats"]["kind"])
+    _, res_n = residual_layout(tables.static, cfg)
+    for name, t, shape, dt in (
+            ("g", g, (n, 3), torch.float32),
+            ("L", big_l, (n, 3), torch.float32),
+            ("resf", resf, (res_n, n), torch.float32),
+            ("resi", resi, (cfg.max_depth + 1, n), torch.int32)):
+        if t.device != dev or tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{name}: expected {shape} {dt} on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_tables(tables, dev)
+    g = g.contiguous()
+    big_l = big_l.contiguous()
+    resf = resf.contiguous()
+    resi = resi.contiguous()
+    k = 9 * m_rows + 3
+    nb = max(1, -(-n // BWD_THREADS))
+    partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
+    out = torch.empty((k,), dtype=torch.float32, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.kytpu_wavefront_bwd_res(
+            tables.i.data_ptr(), tables.diffuse.data_ptr(),
+            tables.specular.data_ptr(), tables.emission.data_ptr(),
+            tables.light_emit.data_ptr(), tables.env.data_ptr(), g.data_ptr(),
+            big_l.data_ptr(), resf.data_ptr(), resi.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), n, m_rows, cfg.max_depth,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"wavefront_bwd_res launch failed: CUDA error {err}")
+    launches_res_bwd += 1
     return out
 
 
@@ -1601,14 +1936,34 @@ def make_cuda_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None):
     geo = pack_tables(scene, cfg)
 
     def trace(scene, o, d, seed, si=None, pix=None):
-        tables = geo.with_colors(scene)
-        if o.device.type == "cuda":
-            return _launch(tables, cfg, o, d, seed, si, pix)
-        if o.device.type == "cpu":
-            return trace_lanes_plain(tables, cfg, o, d, seed, si, pix)
-        raise ValueError(f"no kernel for device {o.device}")
+        return trace_lanes(geo.with_colors(scene), cfg, o, d, seed, si, pix)
 
     return trace
+
+
+def _on_card(dev: torch.device) -> bool:
+    if dev.type in ("cuda", "cpu"):
+        return dev.type == "cuda"
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def trace_lanes(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
+                si=None, pix=None, residual: bool = False):
+    """K1 (K2 with residual=True, see `trace_lanes_plain` for what it
+    returns): CUDA lanes launch the kernel or raise, CPU lanes run the
+    plain version."""
+    if _on_card(o.device):
+        return _launch(tables, cfg, o, d, seed, si, pix, residual)
+    return trace_lanes_plain(tables, cfg, o, d, seed, si, pix, residual)
+
+
+def bwd_res(tables: SceneTables, cfg: KernelConfig, g, big_l, resf, resi):
+    """K3 -> (dd, ds, de, denv): CUDA lanes launch the kernel or raise, CPU
+    lanes run `bwd_res_plain`."""
+    if _on_card(g.device):
+        return split_grads(_launch_bwd(tables, cfg, g, big_l, resf, resi),
+                           len(tables.static["mats"]["kind"]))
+    return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
 
 
 def render_lanes_cuda(scene, o, d, seed: int, cfg: KernelConfig | None = None,
@@ -1616,6 +1971,94 @@ def render_lanes_cuda(scene, o, d, seed: int, cfg: KernelConfig | None = None,
     """One-shot wrapper around make_cuda_tracer (kytpu's
     render_lanes_pallas)."""
     return make_cuda_tracer(scene, cfg)(scene, o, d, seed, si, pix)
+
+
+class _DiffTables:
+    """A diff tracer's scene: the geometry tables packed once, and the
+    colour tables of each call, NEE light emissions derived from them."""
+
+    def __init__(self, scene: kscene.Scene, cfg: KernelConfig):
+        self.scene = scene
+        self.cfg = cfg
+        self.geo = pack_tables(scene, cfg)
+
+    def __call__(self, diffuse, specular, emission, env) -> SceneTables:
+        dev = self.geo.f.device
+        f32 = lambda t: t.detach().to(device=dev,  # noqa: E731
+                                      dtype=torch.float32).contiguous()
+        emission = f32(emission)
+        env = f32(env).reshape(3)
+        return dataclasses.replace(
+            self.geo, diffuse=f32(diffuse), specular=f32(specular),
+            emission=emission, env=env,
+            light_emit=light_emit_of(self.scene, emission, env).contiguous())
+
+
+class _ResidualTrace(torch.autograd.Function):
+    """The forward launches K2 and keeps its cache when a colour table needs
+    a gradient (K1 otherwise); the backward launches K3. Rays, seed and the
+    lane ids get no gradient (geometry derivatives are out of scope, as in
+    the JAX package's detached-sampling estimator)."""
+
+    @staticmethod
+    def forward(ctx, tabs, diffuse, specular, emission, env, o, d, seed, si,
+                pix):
+        tables = tabs(diffuse, specular, emission, env)
+        if not any(ctx.needs_input_grad[1:5]):
+            return trace_lanes(tables, tabs.cfg, o, d, seed, si, pix)
+        big_l, resf, resi = trace_lanes(tables, tabs.cfg, o, d, seed, si, pix,
+                                        residual=True)
+        ctx.tables = tables
+        ctx.cfg = tabs.cfg
+        ctx.save_for_backward(big_l, resf, resi)
+        return big_l
+
+    @staticmethod
+    def backward(ctx, g):
+        big_l, resf, resi = ctx.saved_tensors
+        grads = bwd_res(ctx.tables, ctx.cfg, g.to(torch.float32).contiguous(),
+                        big_l, resf, resi)
+        need = ctx.needs_input_grad
+        return (None, *(gr if need[1 + k] else None
+                        for k, gr in enumerate(grads)),
+                None, None, None, None, None)
+
+
+def make_cuda_diff_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None,
+                          backward: str = "residual"):
+    """Differentiable lane tracer (kytpu's make_pallas_diff_tracer) for
+    `scene`'s geometry.
+
+    Returns fn(diffuse, specular, emission, env, o, d, seed, si=None,
+    pix=None) -> (N, 3) radiance, a torch.autograd.Function whose gradient
+    is (d_diffuse, d_specular, d_emission, d_env) by detached sampling,
+    the NEE light-emission adjoints routed to each light's emitting
+    surface row (or to `env`) as `diff.params.set_params` ties them. `env`
+    is the (3,) environment radiance (zeros for a scene without one). NEE
+    reads light emissions derived from the traced `emission` and `env`
+    (`light_emit_of`). When a colour table requires grad the forward runs
+    K2 and keeps its coefficient cache (resf, resi) and radiance for the
+    backward, K3; otherwise it runs K1. CUDA tensors launch the kernels or
+    raise, CPU tensors run their plain versions.
+
+    backward="replay" (the path-replay backward, K4) and
+    cfg.trainable_exponent are not ported yet and raise."""
+    cfg = cfg or KernelConfig()
+    if backward == "replay":
+        raise NotImplementedError(
+            "backward='replay' is K4, the path-replay backward, on the "
+            "port's ROADMAP queue")
+    if backward != "residual":
+        raise ValueError(f"unknown backward {backward!r}")
+    check_config(cfg)
+    tabs = _DiffTables(scene, cfg)
+
+    def trace(diffuse, specular, emission, env, o, d, seed, si=None,
+              pix=None):
+        return _ResidualTrace.apply(tabs, diffuse, specular, emission, env, o,
+                                    d, seed, si, pix)
+
+    return trace
 
 
 def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,

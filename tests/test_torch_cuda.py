@@ -98,3 +98,88 @@ def test_kernel_matches_plain_on_card(cuda, scene, sampler, nee, shadow):
     assert np.isfinite(g).all()
     bad = (~np.isclose(g, r, rtol=1e-3, atol=1e-4)).any(-1).mean()
     assert bad <= 0.005, bad
+
+
+def _card_scene(name, cuda):
+    return {"veach": lambda: builders.veach_mis(64, 40),
+            "cornell_lights": lambda: builders.cornell_box(ALL_LIGHTS, 64, 64),
+            "many_lights_32": lambda: many_lights(builders, 32, 64, 40),
+            }[name]().to(cuda)
+
+
+def _card_lanes(sc, cuda, n=16384, seed=0):
+    npix = sc.camera.width * sc.camera.height
+    rng = np.random.default_rng(seed)
+    pix = np.arange(n) % npix
+    pf = np.stack([pix % sc.camera.width + rng.random(n),
+                   pix // sc.camera.width + rng.random(n)], -1)
+    o, d = generate_rays(sc.camera, torch.tensor(pf, dtype=torch.float32,
+                                                 device=cuda))
+    si = torch.tensor(np.arange(n) // npix, dtype=torch.int32, device=cuda)
+    return o, d, si, torch.tensor(pix, dtype=torch.int32, device=cuda)
+
+
+RES_CASES = [("veach", "random", "all", "parity"),
+             ("cornell_lights", "hash", "single", "robust"),
+             ("many_lights_32", "random", "single", "parity"),
+             ("many_lights_32", "hash", "all", "robust")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene, sampler, nee, shadow", RES_CASES)
+def test_residual_kernels_on_card(cuda, scene, sampler, nee, shadow):
+    """K2's radiance equals K1's bit for bit; K2's cache and K3's gradient
+    agree with their plain versions (radiance and cache: at most 0.5% of
+    lanes outside rtol=1e-3/atol=1e-4; gradient: rtol=1e-4, atol=1e-6 of the
+    table's largest entry), and K3 repeats bit for bit."""
+    sc = _card_scene(scene, cuda)
+    o, d, si, pix = _card_lanes(sc, cuda)
+    cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee,
+                           shadow=shadow)
+    tables = kwf.pack_tables(sc, cfg)
+    counts = (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd)
+    k1 = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix)
+    k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix,
+                                     residual=True)
+    g = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    grads = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
+    again = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
+    torch.cuda.synchronize()
+    assert (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 2)
+    assert torch.equal(k1, k2)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tables, cfg, o, d, 3, si, pix,
+                                                residual=True)
+    for got, ref in ((k2, ref_l), (resf.T, ref_f.T)):
+        g_, r_ = got.cpu().numpy(), ref.cpu().numpy()
+        assert np.isfinite(g_).all()
+        bad = (~np.isclose(g_, r_, rtol=1e-3, atol=1e-4)).any(-1).mean()
+        assert bad <= 0.005, bad
+    assert ((resi != ref_i).any(0).float().mean()) <= 0.005
+    ref_g = kwf.bwd_res_plain(tables, cfg, g, ref_l, ref_f, ref_i)
+    for a, b in zip(grads, ref_g):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=1e-4,
+                                   atol=1e-6 * max(1.0, np.abs(b).max()))
+
+
+@pytest.mark.cuda
+def test_train_step_on_card(cuda):
+    """Three steps of make_train_step on the card: finite losses, parameters
+    stay >= 0, and K2 and K3 launch once a step."""
+    from kytpu_torch.core import rng as krng
+    from kytpu_torch.diff.inverse import make_train_step
+    from kytpu_torch.integrator.render import render
+
+    sc = builders.cornell_box(width=32, height=32)
+    target = render(sc, spp=16, seed=2, clamp=False, device=cuda)
+    step, params, _ = make_train_step(sc, target, spp=2, kernel_sampler="hash")
+    before = (kwf.launches_res_fwd, kwf.launches_res_bwd)
+    losses = [float(step(krng.fold_in(krng.key(0), i))) for i in range(3)]
+    assert (kwf.launches_res_fwd, kwf.launches_res_bwd) == (before[0] + 3,
+                                                           before[1] + 3)
+    assert np.isfinite(losses).all()
+    assert all((p >= 0).all() and p.is_cuda for p in params.values())

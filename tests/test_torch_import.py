@@ -40,6 +40,15 @@ def test_render_on_cuda_without_a_card_raises():
         render(builders.veach_mis(8, 6), spp=1, device="cuda")
 
 
+def test_render_defaults_to_the_card():
+    """Without device= render runs on the card; with no card it raises, it
+    never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render(builders.veach_mis(8, 6), spp=1)
+
+
 def test_tracer_runs_the_plain_version_only_on_cpu_tensors():
     scene = builders.cornell_box(width=4, height=4)
     tracer = kwf.make_cuda_tracer(scene, kwf.KernelConfig(max_depth=1))
@@ -56,7 +65,7 @@ def test_tracer_runs_the_plain_version_only_on_cpu_tensors():
     (dict(engine="path"), "M7"),
     (dict(engine="bigscene"), "M8"),
     (dict(cfg=kwf.KernelConfig(sampler="sobol")), "sobol"),
-    (dict(cfg=kwf.KernelConfig(trainable_exponent=True)), "M5"),
+    (dict(cfg=kwf.KernelConfig(trainable_exponent=True)), "K4"),
 ])
 def test_unported_paths_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -1,4 +1,4 @@
-"""render(engine="cuda") on CPU tensors (the plain version) against kytpu's
+"""render(engine="cuda", device="cpu") (the plain version) against kytpu's
 render_pallas in interpret mode: same scene, seed, passes and camera jitter
 (bit-exact threefry and rays), compared pixel by pixel.
 
@@ -33,7 +33,8 @@ def test_render_matches_render_pallas(scene, sampler, max_share):
         make(jb), spp=2, seed=5, cfg=jwf.KernelConfig(**kw), clamp=False,
         rays_per_pass=1 << 10, interpret=True))
     got = render(make(tb), spp=2, seed=5, cfg=twf.KernelConfig(**kw),
-                 clamp=False, rays_per_pass=1 << 10, engine="cuda").numpy()
+                 clamp=False, rays_per_pass=1 << 10, engine="cuda",
+                 device="cpu").numpy()
     assert got.shape == ref.shape
     share = lanes_agree(got.reshape(-1, 3), ref.reshape(-1, 3), max_share)
     print(f"{scene} {sampler}: {share:.4f} of pixels outside the bound")

@@ -96,3 +96,24 @@ def test_per_lane_stream():
     for _ in range(5):
         np.testing.assert_array_equal(
             np.asarray(r.uniform((8, 128))).reshape(-1), t.uniform().numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split(seed):
+    k = jax.random.fold_in(jax.random.key(seed), 17)
+    kt = trng.fold_in(trng.key(seed), 17)
+    for num in (2, 3, 8):
+        np.testing.assert_array_equal(_words(jax.random.split(k, num)),
+                                      trng.split(kt, num).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo, hi", [(0, 2**31 - 1), (0, 10), (-5, 70000),
+                                    (-2**31, 2**31 - 1)])
+def test_randint(seed, lo, hi):
+    """The train step's kernel seed: randint(key, (), 0, 2**31 - 1, int32),
+    and other spans (below and past 2**16, the full int32 range)."""
+    for i in range(20):
+        k = jax.random.fold_in(jax.random.key(seed), i)
+        ref = int(jax.random.randint(k, (), lo, hi, jnp.int32))
+        assert trng.randint(trng.fold_in(trng.key(seed), i), lo, hi) == ref
