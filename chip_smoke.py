@@ -1,7 +1,7 @@
 """Smoke run of kytpu_torch on one NVIDIA GPU: build, check, render, train,
 time.
 
-    python3 chip_smoke.py            # about a minute on an H100
+    python3 chip_smoke.py            # about two minutes on an H100
 
 Phases, one line each (a few for phase 3):
   1. device: nvidia-smi's name and power limit, torch's device name;
@@ -9,8 +9,10 @@ Phases, one line each (a few for phase 3):
      all started together, and prints each source's nvcc time and what
      -Xptxas -v said of each kernel;
   3. kernels vs plain, on 256K camera rays at depth 5, for Veach MIS and two
-     Cornell boxes, across both samplers, both NEE modes and both shadow
-     modes: the forward megakernel K1 against its plain PyTorch version
+     Cornell boxes, across the three samplers, both NEE modes, both shadow
+     modes and both exponent modes (a trainable-exponent case on Veach's
+     four Phong planks): the forward megakernel K1 against its plain
+     PyTorch version
      (tolerance: at most 0.5% of lanes outside rtol=1e-3/atol=1e-4 per
      channel, and the means within 3 standard errors); the residual forward
      K2's radiance against K1's (bit for bit), its radiance and its cache,
@@ -19,11 +21,17 @@ Phases, one line each (a few for phase 3):
      lanes differ); the coefficient-cache backward K3 on a seeded upstream
      gradient against the plain K3 (each table within rtol=1e-4 plus 1e-6
      of its largest entry) and against itself (bit for bit, two launches);
+     the path-replay backward K4 on the same lanes and gradient against the
+     plain K4 (the same bound), against itself (bit for bit) and against
+     K3 (rtol=2e-3 plus 2e-5 of the table's largest entry, the reference's
+     bound for this cross-check); in the exponent case K2's "Bk"/"tuk"
+     planes and K3's and K4's dexp are among the checked;
   4. frames: render(veach_mis(512, 308)) and render(cornell_box 256x256) at
      64 spp through render(engine="cuda"), the main path, whose launches are
-     counted; each 64-spp frame and a 4-spp frame of each scene against the
-     same frame traced by the plain version (same seed and pass split, so
-     the same lanes: 946176 a pass for Veach, 1048576 for Cornell); then one
+     counted, and the Veach frame again with cfg sampler="sobol"; each
+     64-spp frame and a 4-spp frame of each default-sampler scene against
+     the same frame traced by the plain version (same seed and pass split,
+     so the same lanes: 946176 a pass for Veach, 1048576 for Cornell); then one
      warmed frame of each under torch.profiler: the device's busy time, the
      kernel's share of it, and the device's idle share of the median wall
      time of 5 unprofiled warmed frames;
@@ -33,7 +41,11 @@ Phases, one line each (a few for phase 3):
      lanes, loss = out.sum() / N) through make_cuda_diff_tracer: its time
      and peak memory, then K2, K3 and K1 alone under CUDA events, the plain
      K2 and K3, and the kernels against them on those 4M lanes (bounds of
-     phase 3), and each kernel's bound (`bounds`);
+     phase 3), and each kernel's bound (`bounds`); then the same workload
+     through make_cuda_diff_tracer(backward="replay"), the replay path,
+     whose launches are counted: its time and peak memory, K4 alone, the
+     plain K4, the tracer's gradient against K4's (bit for bit), K4
+     against the plain K4 and against K3 on those lanes;
   7. training, the second main path: five make_train_step(engine="cuda")
      steps on the Cornell box at its published 256x256, 4 spp, depth 3,
      kernel_sampler="hash", from the true scene with its diffuse table
@@ -47,7 +59,15 @@ Phases, one line each (a few for phase 3):
      gradient of relmse): K2's radiance against K1's on those lanes (bit
      for bit), K2 and its cache against the plain K2, K3 against the plain
      K3 on the step's own gradient (bounds of phase 3), and K3 against
-     itself (bit for bit).
+     itself (bit for bit);
+  8. glossiness training: five make_train_step steps on veach_mis(512, 308)
+     at 4 spp, depth 3, kernel_sampler="sobol", names=TRAINABLE +
+     ("mat_exponent",) with the exponent in softplus space, from the true
+     scene with its plank exponents halved, against the true scene
+     rendered at 64 spp: launches counted, ms per step, one step profiled,
+     one key; the loss must fall from step 1 to step 5 and so must the mean
+     |log e - log e_true| over the plank rows; a sixth step's own K2 and K3
+     calls against their plain versions, as in phase 7.
 The line before the last is the kernels' JSON record, the one before it
 nvidia-smi's name and power limit, and the last line is
 {"ok": true, "device": {...}}. Any failed check raises: no result is printed
@@ -68,6 +88,8 @@ import torch
 
 RTOL, ATOL, MAX_BAD_SHARE = 1e-3, 1e-4, 0.005
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6   # the latter times the table's largest entry
+# K4 against K3: the reference's bound (tests/test_kernel.py:630)
+CROSS_RTOL, CROSS_ATOL = 2e-3, 2e-5
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
 # FP32 operations/s outside the tensor cores
 HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
@@ -108,12 +130,15 @@ def compare_cache(resf, resi, ref_f, ref_i, what: str) -> float:
     return float((resf - ref_f).abs().max())
 
 
-def compare_grads(got, ref, what: str) -> float:
-    """Each of (dd, ds, de, denv) within GRAD_RTOL plus GRAD_ATOL of its
+def compare_grads(got, ref, what: str, rtol=GRAD_RTOL,
+                  atol=GRAD_ATOL) -> float:
+    """Each of (dd, ds, de, denv[, dexp]) within rtol plus atol of its
     largest entry; returns the max |err|."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{what}: {len(got)} tables, expected {len(ref)}")
     err = 0.0
-    for name, a, b in zip(("dd", "ds", "de", "denv"), got, ref):
-        tol = GRAD_RTOL * b.abs() + GRAD_ATOL * max(1.0, float(b.abs().max()))
+    for name, a, b in zip(("dd", "ds", "de", "denv", "dexp"), got, ref):
+        tol = rtol * b.abs() + atol * max(1.0, float(b.abs().max()))
         if not torch.isfinite(a).all() or ((a - b).abs() > tol).any():
             raise AssertionError(f"{what}: {name} outside the bound")
         err = max(err, float((a - b).abs().max()))
@@ -140,6 +165,22 @@ def k1_ops(static, cache, max_depth: int) -> float:
     hit = 31 * len(static["planar"]) + 33 * len(static["spheres"]) + 32
     shade = 62 + 6 + 134 * len(static["lights"]) + 90
     return float(sum(reached[:-1]) * (hit + shade) + reached[-1] * hit)
+
+
+def k4_ops(static, cache, max_depth: int) -> float:
+    """FP32 operations of K4 (csrc/wavefront_fwd.cu, MODE_REPLAY) for the
+    lanes of a run: K1's (`k1_ops`, a lower bound) plus the adjoint terms,
+    counted from the source: 9 per live lane-bounce for the hit emission,
+    and below the horizon 21 per light (emission, colour adjoints), 3 for
+    E_b and 31 for the tail peel and the extension's adjoint."""
+    n_l = len(static["lights"])
+    from kytpu_torch.kernels import wavefront as kwf
+    ix, _ = kwf.residual_layout(static, kwf.KernelConfig(max_depth=max_depth))
+    n = cache.shape[1]
+    reached = [n] + [int((cache[ix[("tu", b)]] != 0).sum())
+                     for b in range(max_depth)]
+    adj = sum(reached[:-1]) * (9 + 21 * n_l + 3 + 31) + reached[-1] * 9
+    return k1_ops(static, cache, max_depth) + float(adj)
 
 
 def k3_ops(static, cfg, n: int) -> float:
@@ -174,18 +215,21 @@ def jittered_rays(scene, n: int, seed: int):
 @contextlib.contextmanager
 def recording(kwf):
     """While the block runs, keep the arguments and (detached) result of
-    the last kwf.trace_lanes and kwf.bwd_res call (the diff tracer looks
-    both up in its module). The colour tables are copied at the call: an
-    optimizer step later updates the parameters they share storage with."""
+    the last kwf.trace_lanes, kwf.bwd_res and kwf.bwd_replay call (the diff
+    tracers look them up in their module). The colour and exponent tables
+    are copied at the call: an optimizer step later updates the parameters
+    they share storage with."""
     seen = {}
-    real = {nm: getattr(kwf, nm) for nm in ("trace_lanes", "bwd_res")}
+    real = {nm: getattr(kwf, nm) for nm in ("trace_lanes", "bwd_res",
+                                            "bwd_replay")}
 
     def wrap(nm):
         def fn(tables, *args, **kw):
             out = real[nm](tables, *args, **kw)
             seen[nm] = (dataclasses.replace(tables, **{
                 k: getattr(tables, k).clone() for k in (
-                    "diffuse", "specular", "emission", "light_emit", "env")}),
+                    "diffuse", "specular", "emission", "exponent",
+                    "light_emit", "env")}),
                 args, kw, tuple(t.detach() for t in out)
                 if isinstance(out, tuple) else out.detach())
             return out
@@ -215,9 +259,10 @@ def cuda_time_ms(fn, reps: int):
     return t0.elapsed_time(t1) / reps, out
 
 
-# device kernels by name in a profile, mangled or demangled
-K1_NAMES = ("wavefront_fwd_kernel<false>", "wavefront_fwd_kernelILb0E")
-K2_NAMES = ("wavefront_fwd_kernel<true>", "wavefront_fwd_kernelILb1E")
+# device kernels by name in a profile, mangled or demangled (K3's
+# sum_partials_kernel: no K4 runs in the profiled windows)
+K1_NAMES = ("wavefront_fwd_kernel<0,", "wavefront_fwd_kernelILi0E")
+K2_NAMES = ("wavefront_fwd_kernel<1,", "wavefront_fwd_kernelILi1E")
 K3_NAMES = ("bwd_res_kernel", "sum_partials_kernel")
 
 
@@ -248,6 +293,42 @@ def device_profile(fn, kernels: dict):
     return busy_us / 1e3, mine, len(evs)
 
 
+def check_recorded_step(kwf, seen, what: str):
+    """A train step's own K2 and K3 calls, kept by `recording`: K2's
+    radiance against K1's on the step's lanes (bit for bit), K2 and its
+    cache against the plain K2, K3 on the step's upstream gradient against
+    the plain K3 and against itself (bit for bit) -> (K2's, K3's max
+    |err|)."""
+    tabs, (scfg, so, sd, sseed, ssi, spix), kw, (k2, resf, resi) = \
+        seen["trace_lanes"]
+    if not kw.get("residual"):
+        raise AssertionError(f"the {what} did not run K2")
+    _, (_, sg, *_), _, grads = seen["bwd_res"]
+    if not torch.equal(k2, kwf.trace_lanes(tabs, scfg, so, sd, sseed, ssi,
+                                           spix)):
+        raise AssertionError(f"K2's radiance is not K1's bit for bit on a "
+                             f"{what}'s lanes")
+    if not all(torch.equal(a, b) for a, b in zip(
+            grads, kwf.bwd_res(tabs, scfg, sg, k2, resf, resi))):
+        raise AssertionError(f"K3's gradient does not repeat bit for bit on "
+                             f"a {what}")
+    ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tabs, scfg, so, sd, sseed,
+                                                ssi, spix, residual=True)
+    share, mabs, _ = compare(k2, ref_l, f"K2, a {what}")
+    cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache, a {what}")
+    gerr = compare_grads(grads, kwf.bwd_res_plain(
+        tabs, scfg, sg, ref_l, ref_f, ref_i), f"K3, a {what}")
+    print(f"{what} vs plain: {so.shape[0]} lanes, depth {scfg.max_depth}, "
+          f"{scfg.sampler}/{scfg.nee}/{scfg.shadow}"
+          f"{', trainable exponent' if scfg.trainable_exponent else ''}, "
+          f"upstream gradient of relmse: K2 radiance = K1's bit for bit, "
+          f"{share:.5f} of lanes outside vs plain (max |err| {mabs:.3g}); "
+          f"cache {resf.shape[0]}+{resi.shape[0]} planes within the bound "
+          f"(max |err| {cerr:.3g}); K3 ({len(grads)} tables) within the "
+          f"bound (max |err| {gerr:.3g}), repeats bit for bit", flush=True)
+    return max(mabs, cerr), gerr
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -261,6 +342,7 @@ def main() -> None:
 
     from kytpu_torch.core import rng as krng
     from kytpu_torch.diff.inverse import make_train_step
+    from kytpu_torch.diff.params import TRAINABLE
     from kytpu_torch.integrator.render import render
     from kytpu_torch.kernels import build
     from kytpu_torch.kernels import wavefront as kwf
@@ -268,9 +350,11 @@ def main() -> None:
 
     def reset_counts():
         kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
+        kwf.launches_replay = 0
 
     def counts():
-        return kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd
+        return (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
+                kwf.launches_replay)
 
     # 2. build
     t0 = time.perf_counter()
@@ -293,17 +377,23 @@ def main() -> None:
         "cornell_lights": builders.cornell_box(variant, width=256,
                                                height=256).to("cuda"),
     }
-    cases = [("veach", "random", "all", "parity"),
-             ("veach", "hash", "single", "robust"),
-             ("cornell", "hash", "all", "robust"),
-             ("cornell_lights", "random", "single", "parity"),
-             ("cornell_lights", "hash", "all", "parity")]
-    max_abs_err = 0.0           # K1
-    err_res = err_bwd = 0.0     # K2, K3
-    for sc_name, sampler, nee, shadow in cases:
+    cases = [("veach", "random", "all", "parity", False),
+             ("veach", "hash", "single", "robust", False),
+             ("veach", "sobol", "all", "parity", False),
+             ("veach", "random", "all", "parity", True),
+             ("cornell", "hash", "all", "robust", False),
+             ("cornell", "sobol", "single", "robust", False),
+             ("cornell_lights", "random", "single", "parity", False),
+             ("cornell_lights", "hash", "all", "parity", False)]
+    max_abs_err = 0.0                # K1
+    err_res = err_bwd = 0.0          # K2, K3
+    err_replay = 0.0                 # K4
+    for sc_name, sampler, nee, shadow, texp in cases:
         scene = scenes[sc_name]
         cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee,
-                               shadow=shadow)
+                               shadow=shadow, trainable_exponent=texp)
+        tag = f"{sc_name} {sampler}/{nee}/{shadow}" + (
+            " trainable exponent" if texp else "")
         o, d, si, pix = jittered_rays(scene, n_lanes, 11)
         tables = kwf.pack_tables(scene, cfg)
         before = kwf.launches
@@ -312,12 +402,12 @@ def main() -> None:
         if kwf.launches != before + 1:
             raise AssertionError("render_lanes_cuda did not launch the kernel")
         ref = kwf.trace_lanes_plain(tables, cfg, o, d, 77, si, pix)
-        share, mabs, mdev = compare(got, ref, f"{sc_name}/{sampler}/{nee}/{shadow}")
+        share, mabs, mdev = compare(got, ref, tag)
         max_abs_err = max(max_abs_err, mabs)
-        print(f"kernel vs plain: {sc_name} {sampler}/{nee}/{shadow}: "
+        print(f"kernel vs plain: {tag}: "
               f"{n_lanes} lanes, {share:.5f} outside rtol={RTOL}/atol={ATOL}, "
               f"max |err| {mabs:.3g}, mean within {mdev:.2f} SE", flush=True)
-        # K2 and K3 on the same lanes
+        # K2, K3 and K4 on the same lanes
         before = counts()
         k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 77, si, pix,
                                          residual=True)
@@ -325,43 +415,75 @@ def main() -> None:
                         generator=torch.Generator("cuda").manual_seed(5))
         grads = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
         again = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
+        k4 = kwf.bwd_replay(tables, cfg, o, d, 77, si, pix, g, got)
+        k4_again = kwf.bwd_replay(tables, cfg, o, d, 77, si, pix, g, got)
         torch.cuda.synchronize()
-        if counts() != (before[0], before[1] + 1, before[2] + 2):
-            raise AssertionError("trace_lanes/bwd_res did not launch K2/K3")
+        if counts() != (before[0], before[1] + 1, before[2] + 2,
+                        before[3] + 2):
+            raise AssertionError("trace_lanes/bwd_res/bwd_replay did not "
+                                 "launch K2/K3/K4")
         if not torch.equal(k2, got):
             raise AssertionError("K2's radiance is not K1's bit for bit")
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError("K3's gradient does not repeat bit for bit")
+        if not all(torch.equal(a, b) for a, b in zip(k4, k4_again)):
+            raise AssertionError("K4's gradient does not repeat bit for bit")
         ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tables, cfg, o, d, 77, si,
                                                     pix, residual=True)
-        share2, mabs2, _ = compare(k2, ref_l, f"K2 {sc_name}")
-        cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {sc_name}")
+        share2, mabs2, _ = compare(k2, ref_l, f"K2 {tag}")
+        cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {tag}")
         gerr = compare_grads(grads, kwf.bwd_res_plain(
-            tables, cfg, g, ref_l, ref_f, ref_i), f"K3 {sc_name}")
+            tables, cfg, g, ref_l, ref_f, ref_i), f"K3 {tag}")
+        rerr = compare_grads(k4, kwf.bwd_replay_plain(
+            tables, cfg, o, d, 77, si, pix, g, ref), f"K4 {tag}")
+        xerr = compare_grads(k4, grads, f"K4 vs K3 {tag}", CROSS_RTOL,
+                             CROSS_ATOL)
         err_res = max(err_res, mabs2, cerr)
         err_bwd = max(err_bwd, gerr)
-        print(f"residual kernels vs plain: {sc_name} {sampler}/{nee}/{shadow}: "
+        err_replay = max(err_replay, rerr)
+        print(f"residual kernels vs plain: {tag}: "
               f"K2 radiance = K1's bit for bit, {share2:.5f} of lanes outside "
               f"vs plain (max |err| {mabs2:.3g}); cache {resf.shape[0]}+"
               f"{resi.shape[0]} planes within the bound (max |err| "
               f"{cerr:.3g}); K3 within the bound (max |err| {gerr:.3g}), "
               f"repeats bit for bit", flush=True)
+        print(f"replay kernel vs plain: {tag}: K4 within the bound (max "
+              f"|err| {rerr:.3g}), repeats bit for bit; K4 vs K3 within "
+              f"rtol={CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| {xerr:.3g})",
+              flush=True)
+        if texp:
+            ix, _ = kwf.residual_layout(tables.static, cfg)
+            kplanes = [k for t, k in ix.items() if t[0] in ("Bk", "tuk")]
+            kerr = float((resf[kplanes] - ref_f[kplanes]).abs().max())
+            live = int((ref_f[kplanes] != 0).sum())
+            print(f"exponent: {tag}: {len(kplanes)} Bk/tuk planes "
+                  f"({live} nonzero entries) within the bound (max |err| "
+                  f"{kerr:.3g}); dexp of K3 {grads[4].tolist()}, of K4 "
+                  f"{k4[4].tolist()}", flush=True)
+            if live == 0 or not bool((grads[4] != 0).any()):
+                raise AssertionError("the exponent case exercised no "
+                                     "phong lane")
 
     # 4. frames through the main path (render, engine="cuda")
-    frame_scenes = {"veach": builders.veach_mis(512, 308),
+    veach_frame = builders.veach_mis(512, 308)
+    frame_scenes = {"veach": veach_frame,
                     "cornell": builders.cornell_box(width=256, height=256)}
+    # (scene, render's cfg) of each frame; None is render()'s default
+    frame_cases = {**{nm: (sc, None) for nm, sc in frame_scenes.items()},
+                   "veach sobol": (veach_frame,
+                                   kwf.KernelConfig(sampler="sobol"))}
     spp, seed = 64, 1234
 
-    def frame(sc, n_spp):
-        return render(sc, spp=n_spp, seed=seed, clamp=False, engine="cuda",
-                      device="cuda")
+    def frame(sc, n_spp, cfg=None):
+        return render(sc, spp=n_spp, seed=seed, cfg=cfg, clamp=False,
+                      engine="cuda", device="cuda")
 
     reset_counts()
     frames = {}
-    for nm, sc in frame_scenes.items():
+    for nm, (sc, fcfg) in frame_cases.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img = frame(sc, spp)
+        img = frame(sc, spp, fcfg)
         torch.cuda.synchronize()
         frames[nm] = (img, time.perf_counter() - t0)
     render_launches = counts()
@@ -374,16 +496,16 @@ def main() -> None:
         print(f"frame: {nm} {a.shape[1]}x{a.shape[0]} {spp} spp in {secs:.3f} s, "
               f"mean {a.mean():.5f}, clamped mean {np.clip(a, 0, 1).mean():.5f}",
               flush=True)
-    for nm, sc in frame_scenes.items():
-        # render() with its defaults, traced by the plain version instead
+    for nm, (sc, fcfg) in frame_cases.items():
+        # the same render, traced by the plain version instead
         sc = sc.to("cuda")
-        cfg = kwf.KernelConfig()
+        cfg = fcfg or kwf.KernelConfig()
         tables = kwf.pack_tables(sc, cfg)
 
         def plain(s, o, d, *args):
             return kwf.trace_lanes_plain(tables, cfg, o, d, *args)
 
-        for n_spp in (spp, 4):
+        for n_spp in ((spp, 4) if fcfg is None else (spp,)):
             got = frames[nm][0] if n_spp == spp else frame(sc, n_spp)
             ref = kwf.render_cuda(sc, spp=n_spp, seed=seed, cfg=cfg,
                                   clamp=False, rays_per_pass=1 << 20,
@@ -451,6 +573,29 @@ def main() -> None:
     fwd_bwd()
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res_grads = [t.grad.clone() for t in leaves]
+
+    # the same workload through the replay path (K1 forward, K4 backward)
+    replay_tracer = kwf.make_cuda_diff_tracer(sc, cfg, backward="replay")
+
+    def fwd_bwd_replay():
+        for t in leaves:
+            t.grad = None
+        loss = replay_tracer(*leaves, env0, o, d, 5).sum() / n_time
+        loss.backward()
+        return loss
+
+    torch.cuda.synchronize()
+    reset_counts()
+    fbr_ms, _ = cuda_time_ms(fwd_bwd_replay, 5)
+    replay_launches = counts()
+    if replay_launches[3] == 0 or replay_launches[1:3] != (0, 0):
+        raise AssertionError(f"the replay path launched K1/K2/K3/K4 "
+                             f"{replay_launches}")
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd_replay()
+    torch.cuda.synchronize()
+    peak_replay_gb = torch.cuda.max_memory_allocated() / 1e9
     k2_ms, (k2, resf, resi) = cuda_time_ms(
         lambda: kwf.trace_lanes(tables, cfg, o, d, 5, residual=True), 5)
     k1_ms, k1 = cuda_time_ms(lambda: kwf.trace_lanes(tables, cfg, o, d, 5), 5)
@@ -459,26 +604,40 @@ def main() -> None:
         lambda: kwf.bwd_res(tables, cfg, g, k2, resf, resi), 5)
     if not (torch.equal(k1, k2) and torch.equal(k1, got)):
         raise AssertionError("K2's radiance is not K1's bit for bit at 4M lanes")
-    if not all(torch.equal(a, t.grad) for a, t in zip(grads, leaves)):
+    if not all(torch.equal(a, b) for a, b in zip(grads, res_grads)):
         raise AssertionError("the diff tracer's gradient is not K3's")
+    k4_ms, k4 = cuda_time_ms(
+        lambda: kwf.bwd_replay(tables, cfg, o, d, 5, None, None, g, k1), 5)
+    if not all(torch.equal(a, t.grad) for a, t in zip(k4, leaves)):
+        raise AssertionError("the replay tracer's gradient is not K4's")
     plain_k2_ms, (ref_l, ref_f, ref_i) = cuda_time_ms(
         lambda: kwf.trace_lanes_plain(tables, cfg, o, d, 5, residual=True), 1)
     plain_k3_ms, ref_g = cuda_time_ms(
         lambda: kwf.bwd_res_plain(tables, cfg, g, ref_l, ref_f, ref_i), 1)
+    plain_k4_ms, ref_g4 = cuda_time_ms(
+        lambda: kwf.bwd_replay_plain(tables, cfg, o, d, 5, None, None, g,
+                                     ref_l), 1)
     share, mabs, _ = compare(k2, ref_l, f"K2 veach {n_time} lanes")
     cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {n_time} lanes")
     gerr = compare_grads(grads, ref_g, f"K3 veach {n_time} lanes")
+    rerr = compare_grads(k4, ref_g4, f"K4 veach {n_time} lanes")
+    xerr = compare_grads(k4, grads, f"K4 vs K3 veach {n_time} lanes",
+                         CROSS_RTOL, CROSS_ATOL)
     err_res = max(err_res, mabs, cerr)
     err_bwd = max(err_bwd, gerr)
-    del ref_l, ref_f, ref_i, ref_g
+    err_replay = max(err_replay, rerr)
+    del ref_l, ref_f, ref_i, ref_g, ref_g4
     cache_bytes = resf.numel() * 4 + resi.numel() * 4
     ray_bytes = n_time * (24 + 12)   # rays in, radiance out
     ops1 = k1_ops(tables.static, resf, cfg.max_depth)
+    ops4 = k4_ops(tables.static, resf, cfg.max_depth)
     bounds = {
         "K1": bound_ms(ray_bytes, ops1),
         "K2": bound_ms(ray_bytes + cache_bytes, ops1),
         "K3": bound_ms(cache_bytes + n_time * 24,
                        k3_ops(tables.static, cfg, n_time)),
+        # rays, g and L in; the gradient vector out is a few hundred bytes
+        "K4": bound_ms(n_time * (24 + 12 + 12), ops4),
     }
     print(f"fwd+bwd: veach depth 5, {n_time} lanes, loss = out.sum() / N "
           f"through make_cuda_diff_tracer: {fb_ms:.3f} ms, peak memory "
@@ -489,10 +648,19 @@ def main() -> None:
           f"({cache_bytes / n_time:.0f} B a lane); K2 vs plain {share:.5f} of "
           f"lanes outside (max |err| {mabs:.3g}), cache max |err| {cerr:.3g}, "
           f"K3 max |err| {gerr:.3g}; on {smi}", flush=True)
+    print(f"replay: veach depth 5, {n_time} lanes, loss = out.sum() / N "
+          f"through make_cuda_diff_tracer(backward=\"replay\"): {fbr_ms:.3f} "
+          f"ms, peak memory {peak_replay_gb:.3f} GB allocated (rays "
+          f"included; the residual path's {peak_gb:.3f} GB); launches "
+          f"K1/K2/K3/K4 {replay_launches}; K4 {k4_ms:.3f} ms, plain K4 "
+          f"{plain_k4_ms:.1f} ms; the tracer's gradient = K4's bit for bit; "
+          f"K4 vs plain max |err| {rerr:.3g}; K4 vs K3 within "
+          f"rtol={CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| {xerr:.3g}); on "
+          f"{smi}", flush=True)
     for k, (b_ms, by) in bounds.items():
-        print(f"bound: {k} {b_ms:.4f} ms by {by} (K1 ops {ops1:.4g}, cache "
-              f"{cache_bytes:.4g} B)", flush=True)
-    del k1, k2, resf, resi, grads, g, got
+        print(f"bound: {k} {b_ms:.4f} ms by {by} (K1 ops {ops1:.4g}, K4 ops "
+              f"{ops4:.4g}, cache {cache_bytes:.4g} B)", flush=True)
+    del k1, k2, resf, resi, grads, g, got, k4
 
     # 7. training through make_train_step (the second main path)
     true_sc = builders.cornell_box(width=256, height=256)
@@ -528,7 +696,7 @@ def main() -> None:
           f"{', '.join(f'{v:.6f}' for v in losses)}; mean |diffuse - true| "
           f"{err0:.5f} -> {err5:.5f}; {step_ms:.3f} ms a step (median of "
           f"steps 2-5; all: {', '.join(f'{v:.1f}' for v in walls)}); "
-          f"launches K1/K2/K3 {train_launches}", flush=True)
+          f"launches K1/K2/K3/K4 {train_launches}", flush=True)
     busy, mine, n_k = device_profile(
         lambda: step(key),
         {"K2": K2_NAMES, "K3": K3_NAMES})
@@ -541,45 +709,80 @@ def main() -> None:
     with recording(kwf) as seen:
         step(key)
         torch.cuda.synchronize()
-    tabs, (scfg, so, sd, sseed, ssi, spix), kw, (k2, resf, resi) = \
-        seen["trace_lanes"]
-    if not kw.get("residual"):
-        raise AssertionError("the train step did not run K2")
-    _, (_, sg, *_), _, grads = seen["bwd_res"]
-    if not torch.equal(k2, kwf.trace_lanes(tabs, scfg, so, sd, sseed, ssi,
-                                           spix)):
-        raise AssertionError("K2's radiance is not K1's bit for bit on a "
-                             "train step's lanes")
-    if not all(torch.equal(a, b) for a, b in zip(
-            grads, kwf.bwd_res(tabs, scfg, sg, k2, resf, resi))):
-        raise AssertionError("K3's gradient does not repeat bit for bit on a "
-                             "train step")
-    ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tabs, scfg, so, sd, sseed,
-                                                ssi, spix, residual=True)
-    share, mabs, _ = compare(k2, ref_l, "K2, a train step")
-    cerr = compare_cache(resf, resi, ref_f, ref_i, "K2 cache, a train step")
-    gerr = compare_grads(grads, kwf.bwd_res_plain(
-        tabs, scfg, sg, ref_l, ref_f, ref_i), "K3, a train step")
-    err_res = max(err_res, mabs, cerr)
-    err_bwd = max(err_bwd, gerr)
-    print(f"train step vs plain: {so.shape[0]} lanes, depth "
-          f"{scfg.max_depth}, {scfg.sampler}/{scfg.nee}/{scfg.shadow}, "
-          f"upstream gradient of relmse: K2 radiance = K1's bit for bit, "
-          f"{share:.5f} of lanes outside vs plain (max |err| {mabs:.3g}); "
-          f"cache {resf.shape[0]}+{resi.shape[0]} planes within the bound "
-          f"(max |err| {cerr:.3g}); K3 within the bound (max |err| "
-          f"{gerr:.3g}), repeats bit for bit", flush=True)
+    e2, e3 = check_recorded_step(kwf, seen, "train step")
+    err_res, err_bwd = max(err_res, e2), max(err_bwd, e3)
+
+    # 8. glossiness: the train step with the exponent trainable, on Veach
+    true_v = builders.veach_mis(512, 308)
+    names = TRAINABLE + ("mat_exponent",)
+    vcfg = kwf.KernelConfig(max_depth=3, sampler="sobol")
+    target = render(true_v, spp=64, seed=99, cfg=vcfg, clamp=False)
+    planks = true_v.mat_kind == 3   # the four Phong planks
+    e_true = true_v.mat_exponent[planks].double()
+    start = dataclasses.replace(true_v,
+                                mat_exponent=true_v.mat_exponent * 0.5)
+    step, params, _ = make_train_step(
+        start, target, spp=4, max_depth=3, kernel_sampler="sobol",
+        names=names, param_spaces={"mat_exponent": "log"})
+
+    def exp_err():
+        e = params["mat_exponent"].detach().cpu()[planks].double()
+        return float((e.log() - e_true.log()).abs().mean())
+
+    err0 = exp_err()
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(5):
+        t0 = time.perf_counter()
+        losses.append(float(step(key)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    gloss_launches = counts()
+    if gloss_launches[1] == 0 or gloss_launches[2] == 0:
+        raise AssertionError("the glossiness step launched no K2 or K3")
+    err5 = exp_err()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and err5 < err0):
+        raise AssertionError(f"the loss did not fall: {losses}, mean |log e "
+                             f"- log e_true| {err0} -> {err5}")
+    if not all(bool((p >= 0).all()) for p in params.values()):
+        raise AssertionError("a parameter went negative")
+    gstep_ms = float(np.median(walls[1:]))
+    print(f"glossiness: veach 512x308, 4 spp, depth 3, sobol, "
+          f"TRAINABLE + mat_exponent (softplus space), plank exponents "
+          f"halved: losses {', '.join(f'{v:.6f}' for v in losses)}; mean "
+          f"|log e - log e_true| over the planks {err0:.6f} -> {err5:.6f}; "
+          f"{gstep_ms:.3f} ms a step (median of steps 2-5; all: "
+          f"{', '.join(f'{v:.1f}' for v in walls)}); launches K1/K2/K3/K4 "
+          f"{gloss_launches}", flush=True)
+    busy, mine, n_k = device_profile(
+        lambda: step(key), {"K2": K2_NAMES, "K3": K3_NAMES})
+    print(f"profile: glossiness step: device busy {busy:.3f} ms in {n_k} "
+          f"kernels (idle share {1 - busy / gstep_ms:.3f} of the median "
+          f"step); K2 {mine['K2']:.3f} ms, K3 {mine['K3']:.3f} ms = "
+          f"{(mine['K2'] + mine['K3']) / busy:.3f} of device busy time",
+          flush=True)
+    with recording(kwf) as seen:
+        step(key)
+        torch.cuda.synchronize()
+    e2, e3 = check_recorded_step(kwf, seen, "glossiness step")
+    err_res, err_bwd = max(err_res, e2), max(err_bwd, e3)
 
     src = "kytpu_torch/kernels/csrc/"
     rows = [("wavefront_fwd", "wavefront_fwd.cu",
              "kytpu/kernels/wavefront.py:1760", render_launches[0],
              max_abs_err, ms, plain_ms, "K1"),
             ("wavefront_fwd_res", "wavefront_fwd.cu",
-             "kytpu/kernels/wavefront.py:3349", train_launches[1], err_res,
-             k2_ms, plain_k2_ms, "K2"),
+             "kytpu/kernels/wavefront.py:3349",
+             train_launches[1] + gloss_launches[1], err_res, k2_ms,
+             plain_k2_ms, "K2"),
             ("wavefront_bwd_res", "wavefront_bwd_res.cu",
-             "kytpu/kernels/wavefront.py:3445", train_launches[2], err_bwd,
-             k3_ms, plain_k3_ms, "K3")]
+             "kytpu/kernels/wavefront.py:3445",
+             train_launches[2] + gloss_launches[2], err_bwd, k3_ms,
+             plain_k3_ms, "K3"),
+            ("wavefront_bwd_replay", "wavefront_fwd.cu",
+             "kytpu/kernels/wavefront.py:3470", replay_launches[3],
+             err_replay, k4_ms, plain_k4_ms, "K4")]
     print(smi)
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src + f, "replaces": rp,

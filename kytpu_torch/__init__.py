@@ -7,8 +7,10 @@ package imports torch and numpy, never jax.
 
 Ported so far, for scenes with at most 64 surfaces: the forward render,
 `integrator.render.render(scene, engine="cuda")`, and inverse rendering,
-`diff.inverse.make_train_step(scene, target, engine="cuda")`. Both run on
-the card unless the caller passes device="cpu".
+`diff.inverse.make_train_step(scene, target, engine="cuda")` (the Phong
+exponents trainable too), through either backward of
+`kernels.wavefront.make_cuda_diff_tracer`, under every sampler. Both run
+on the card unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

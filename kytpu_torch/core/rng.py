@@ -4,14 +4,17 @@ The frame renderers and the train step draw camera jitter and kernel seeds
 with `jax.random` under jax's defaults (threefry2x32 with
 `jax_threefry_partitionable` on). This module reproduces the calls they
 make -- `key(seed)`, `fold_in(key, data)`, `split(key, num)`,
-`uniform(key, shape)` and the scalar `randint(key, lo, hi)` -- on int64
-tensors holding uint32 words, vectorised over any number of keys. A key is
-a `(..., 2)` int64 tensor.
+`bits(key, n)`, `uniform(key, shape)` and the scalar `randint(key, lo, hi)`
+-- on int64 tensors holding uint32 words, vectorised over any number of
+keys. A key is a `(..., 2)` int64 tensor. `uniform(keys, shape,
+sampler="sobol", index)` is kytpu's Owen-Sobol camera draw (core/lds.py).
 """
 
 from __future__ import annotations
 
 import torch
+
+from kytpu_torch.core import lds
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -69,8 +72,8 @@ def randint(k: torch.Tensor, minval: int, maxval: int) -> int:
     if not -2**31 <= minval < maxval <= 2**31 - 1:
         raise ValueError(f"int32 range [{minval}, {maxval}) expected")
     k1, k2 = split(k, 2)
-    hi = int(random_bits(k1, 1)[0])
-    lo = int(random_bits(k2, 1)[0])
+    hi = int(bits(k1, 1)[0])
+    lo = int(bits(k2, 1)[0])
     span = (maxval - minval) & _M32
     mult = (2**16 % span) ** 2 & _M32
     mult %= span
@@ -80,24 +83,43 @@ def randint(k: torch.Tensor, minval: int, maxval: int) -> int:
     return v - (1 << 32) if v >= 1 << 31 else v
 
 
-def random_bits(k: torch.Tensor, n: int) -> torch.Tensor:
-    """32-bit words: `n` per key, from the flat counters 0..n-1 (hi word 0),
-    xor of the two threefry outputs. Shape: k.shape[:-1] + (n,)."""
+def bits(k: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.random.bits(k, (n,)) as uint32 words: the flat counters 0..n-1
+    (hi word 0) under threefry, the xor of its two outputs. Shape:
+    k.shape[:-1] + (n,)."""
     ctr = torch.arange(n, dtype=torch.int64, device=k.device)
-    k0 = k[..., 0, None]
-    k1 = k[..., 1, None]
-    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(ctr), ctr)
+    y0, y1 = threefry2x32(k[..., 0, None], k[..., 1, None],
+                          torch.zeros_like(ctr), ctr)
     return y0 ^ y1
 
 
-def uniform(k: torch.Tensor, shape) -> torch.Tensor:
+def uniform(k: torch.Tensor, shape=(), sampler: str = "random",
+            index: torch.Tensor | None = None) -> torch.Tensor:
     """jax.random.uniform(k, shape) in float32 on [0, 1); `k` may carry
-    leading batch dimensions, which lead the result."""
+    leading batch dimensions, which lead the result.
+
+    sampler="sobol" with `index`, (N,) per-key sample ids, is kytpu's
+    `uniform(keys, shape, "sobol", index)`: each of the (N, 2) keys gives
+    three words (`bits(k, 3)`) that seed a shuffled Owen-scrambled Sobol
+    point of that index (core/lds.py); shape is () or (2,)."""
     shape = tuple(shape)
+    if sampler == "sobol" and index is not None:
+        seeds = bits(k, 3)
+        if shape == ():
+            return lds.owen_sobol1(index, seeds[..., 0], seeds[..., 1])
+        if shape != (2,):
+            raise ValueError(f"sobol draws take shape () or (2,), got {shape}")
+        u0, u1 = lds.owen_sobol2(index, seeds[..., 0], seeds[..., 1],
+                                 seeds[..., 2])
+        return torch.stack([u0, u1], dim=-1)
     n = 1
     for s in shape:
         n *= s
-    bits = random_bits(k, n)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    fbits = ((bits(k, n) >> 9) | 0x3F800000).to(torch.int32)
     u = fbits.view(torch.float32) - 1.0
     return torch.clamp_min(u, 0.0).reshape(k.shape[:-1] + shape)
+
+
+def uniform2(k: torch.Tensor, sampler: str = "random",
+             index: torch.Tensor | None = None) -> torch.Tensor:
+    return uniform(k, (2,), sampler, index)

@@ -7,7 +7,9 @@ the Monte Carlo estimate with respect to the material colours, emission and
 environment radiance is itself an unbiased estimate of the gradient of the
 true radiance. The forward of a step is the residual megakernel K2 and its
 backward the coefficient-cache kernel K3 (kernels/wavefront.py,
-`make_cuda_diff_tracer`).
+`make_cuda_diff_tracer`), with names=(..., "mat_exponent") too: kytpu's
+step passes no `backward=` and so stays on the residual backward, whatever
+its docstring says of the replay kernel.
 
 kytpu's `render_once`/`render_loss` (the jnp path engine) wait for ROADMAP
 item M7; its sharded step (`mesh=`) for M10.
@@ -36,7 +38,9 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
 
     `params` maps each trainable name (`diff.params.TRAINABLE` unless
     `names` says otherwise; "env_radiance_" may be added for an environment
-    scene) to a tensor in natural space on `device`. The optimizer,
+    scene, "mat_exponent" to recover Phong glossiness, which sets
+    KernelConfig(trainable_exponent=True)) to a tensor in natural space on
+    `device`. The optimizer,
     `optimizer(list_of_leaves)` (default `torch.optim.Adam` with lr=2e-2),
     runs over their encoded form (`param_spaces`, e.g. {"emission": "log"};
     see `diff.params.make_codec`), leaf tensors it owns; for a linear-space
@@ -48,8 +52,11 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
     kernel seed are drawn as kytpu draws them. The loss is returned as a
     0-dim tensor on `device`.
 
-    `kernel_sampler` is "random" (default) or "hash". The step runs on the
-    card unless device="cpu", which runs the kernels' plain versions."""
+    `kernel_sampler` is "random" (default), "hash" or "sobol"; under
+    "sobol" lane (sample s, pixel q) jitters with point s of pixel q's
+    Owen-Sobol sequence, uniform2(fold_in(key, q), "sobol", s). The step
+    runs on the card unless device="cpu", which runs the kernels' plain
+    versions."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: the sharded train step is ROADMAP item M10 "
@@ -100,7 +107,10 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
         the mean image."""
         seed = krng.randint(key, 0, 2**31 - 1)
         key = key.to(device)
-        if kcfg.sampler == "hash":
+        if kcfg.sampler == "sobol":
+            u = krng.uniform2(krng.fold_in(key, lane_pid), "sobol", lane_sid)
+            extra = (lane_sid.to(torch.int32), lane_pid.to(torch.int32))
+        elif kcfg.sampler == "hash":
             u = krng.uniform(krng.fold_in(key, lane_sid * npix + lane_pid),
                              (2,))
             extra = (lane_sid.to(torch.int32), lane_pid.to(torch.int32))
@@ -110,9 +120,11 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
         px = (lane_pid % w).to(torch.float32) + u[:, 0]
         py = (lane_pid // w).to(torch.float32) + u[:, 1]
         o, d = kscene.generate_rays(cam, torch.stack([px, py], -1))
+        # kytpu's _tracer_params order: the exponent after emission
+        exp_arg = (p["mat_exponent"],) if kcfg.trainable_exponent else ()
         out = tracer(p.get("mat_diffuse", scene.mat_diffuse),
                      p.get("mat_specular", scene.mat_specular),
-                     p.get("emission", scene.emission),
+                     p.get("emission", scene.emission), *exp_arg,
                      p.get("env_radiance_", env0), o, d, seed, *extra)
         img = out.reshape(spp, npix, 3).mean(dim=0)
         return loss_fn(img.reshape(h, w, 3), target)

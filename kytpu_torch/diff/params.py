@@ -1,7 +1,7 @@
 """Trainable-parameter views of a Scene (kytpu/diff/params.py).
 
 The differentiable leaves are the material colour tables, the surface
-emission and the environment radiance. `get_params` reads them as a dict of
+emission, the environment radiance and the Phong exponents. `get_params` reads them as a dict of
 tensors and `set_params` writes them back, keeping the two places area-light
 radiance lives (the per-surface `emission` table read at hit time and the
 light table `lights.emit` read by NEE) consistent from the single
@@ -17,9 +17,10 @@ import torch
 from kytpu_torch.scene.scene import Scene
 
 TRAINABLE = ("mat_diffuse", "mat_specular", "emission")
-# opt-in: "env_radiance_" (environment scenes) and "mat_exponent"; the
-# latter needs the exponent adjoint, which comes with K4 (ROADMAP queue
-# item 2), and the texture leaves come with textures (ROADMAP M9)
+# opt-in: "env_radiance_" (environment scenes) and "mat_exponent", whose
+# adjoint the kernels give under KernelConfig(trainable_exponent=True): K2
+# caches it in the "Bk"/"tuk" planes for K3, and K4 accumulates it while it
+# replays a path. The texture leaves come with textures (ROADMAP M9).
 _TEXTURE_LEAVES = ("tex_color_a", "tex_color_b", "tex_image")
 
 _SOFTPLUS_FLOOR = 1e-6   # zero-emission rows map to a finite theta (~-13.8)

@@ -2,9 +2,10 @@
 
 `render(scene, engine="cuda")` is the counterpart of kytpu's
 `render(scene, engine="pallas")`: the forward megakernel on the card, its
-plain PyTorch version with device="cpu". The jnp engines, the big-scene
-kernels and the other samplers are not ported yet; asking for them raises
-and names the ROADMAP item, it never re-routes.
+plain PyTorch version with device="cpu", under any of the three samplers
+(`KernelConfig.sampler`). The jnp engines and the big-scene kernels are not
+ported yet; asking for them raises and names the ROADMAP item, it never
+re-routes.
 """
 
 from __future__ import annotations

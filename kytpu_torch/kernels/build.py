@@ -113,11 +113,13 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.kytpu_wavefront_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
-        lib.kytpu_wavefront_fwd_res.argtypes = [p] * 14 + [i] * 7 + [p]
-        lib.kytpu_wavefront_bwd_res.argtypes = [p] * 12 + [i] * 3 + [p]
+        lib.kytpu_wavefront_fwd.argtypes = [p] * 13 + [i] * 7 + [p]
+        lib.kytpu_wavefront_fwd_res.argtypes = [p] * 15 + [i] * 7 + [p]
+        lib.kytpu_wavefront_bwd_res.argtypes = [p] * 12 + [i] * 4 + [p]
+        lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 16 + [i] * 8 + [p]
         for fn in (lib.kytpu_wavefront_fwd, lib.kytpu_wavefront_fwd_res,
-                   lib.kytpu_wavefront_bwd_res):
+                   lib.kytpu_wavefront_bwd_res,
+                   lib.kytpu_wavefront_bwd_replay):
             fn.restype = i
         _LIB = lib
     return _LIB

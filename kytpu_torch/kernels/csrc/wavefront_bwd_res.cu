@@ -14,17 +14,14 @@
 // the colour tables: no intersection, no random numbers. Under
 // nee="single" the light K2 picked is read from the int cache, never
 // recomputed. Each adjoint term goes to one row of a per-thread accumulator
-// of 9M+3 floats (dd, ds, de, denv), indexed at run time, so it lives in
-// local memory: 408 B a thread at Veach's M = 11, 2.3 KB at M = 64.
+// of 9M+3 floats (dd, ds, de, denv), and M more (dexp) under
+// trainable_exponent, indexed at run time, so it lives in local memory:
+// 408 B a thread at Veach's M = 11, 2.5 KB at M = 64. The exponent adjoint
+// is bilinear in the cache: the "Bk"/"tuk" planes K2 wrote weigh each NEE
+// term's and the extension's colour cotangent.
 //
-// The TPU kernel carries its accumulators across a sequential grid; blocks
-// here run in no order, so the sum over lanes is two passes in a fixed
-// order and without atomics, and the gradient repeats to the last bit: each
-// block reduces its lanes (a shuffle tree inside each warp, then
-// (w0 + w1) + (w2 + w3)) into one row of a (blocks, 9M+3) partials table;
-// sum_partials_kernel reduces each column (thread t adds rows t, t + 256, ...
-// in turn, then a shared-memory tree). sum_lanes in wavefront.py does the
-// same additions in the same order.
+// The sum over lanes is the fixed-order two-pass reduction of
+// lane_sum.cuh, shared with K4: the gradient repeats to the last bit.
 //
 // What bounds it on the H100: bytes. A lane reads the whole cache
 // ((res_n + max_depth + 1) * 4 B), g and L (24 B) once and writes nothing;
@@ -38,15 +35,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_sum.cuh"
 #include "wavefront_tables.cuh"
 
 namespace {
 
 using namespace kytpu;
 
-constexpr int THREADS = 128;       // BWD_THREADS in wavefront.py
-constexpr int SUM_THREADS = 256;   // SUM_THREADS in wavefront.py
-constexpr int MAX_COLS = 9 * MAX_SURFACES + 3;
+constexpr int THREADS = LANE_THREADS;
 
 struct V {
   float x, y, z;
@@ -59,6 +55,7 @@ __device__ __forceinline__ V operator*(V a, float s) { return V{a.x * s, a.y * s
 __device__ __forceinline__ V ld3(const float* p) { return V{__ldg(p), __ldg(p + 1), __ldg(p + 2)}; }
 __device__ __forceinline__ float safe_div(float a, float b) { return b != 0.f ? a / b : 0.f; }
 __device__ __forceinline__ V sel(bool c, V a, V b) { return c ? a : b; }
+__device__ __forceinline__ float vdot(V a, V b) { return (a.x * b.x + a.y * b.y) + a.z * b.z; }
 
 __device__ __forceinline__ void add3(float* acc, int col, V v) {
   acc[col] = acc[col] + v.x;
@@ -72,16 +69,16 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
                const float* __restrict__ light_emit_t, const float* __restrict__ env_t,
                const float* __restrict__ g_in, const float* __restrict__ l_in,
                const float* __restrict__ resf, const int* __restrict__ resi,
-               float* __restrict__ partial, int n, int max_depth) {
+               float* __restrict__ partial, int n, int K, int max_depth) {
   const int n_pl = __ldg(I), n_sp = __ldg(I + 1);
   const int M = __ldg(I + H_M), L = __ldg(I + H_L);
   const int* MATI = I + HDR_I + PL_I * n_pl + SP_I * n_sp;
   const int* LTI = MATI + MAT_I * M;
   const bool single = __ldg(I + H_SINGLE) != 0;
   const bool has_env = __ldg(I + H_ENV_I) >= 0;
-  const ResPlanes rp = res_planes(has_env, single, L);
-  const int K = 9 * M + 3;
-  const int col_d = 0, col_s = 3 * M, col_e = 6 * M, col_env = 9 * M;
+  const bool texp = __ldg(I + H_TEXP) != 0;
+  const ResPlanes rp = res_planes(has_env, single, L, texp);
+  const int col_d = 0, col_s = 3 * M, col_e = 6 * M, col_env = 9 * M, col_x = 9 * M + 3;
   const V zero3 = V{0.f, 0.f, 0.f};
 
   float acc[MAX_COLS];
@@ -125,6 +122,7 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
       V e_term = emit_sel * wb;
       if (has_env) e_term = e_term + ld3(env_t) * wenv;
       V addc = zero3;
+      float addx = 0.f;
       for (int j = 0; j < rp.n_b; ++j) {
         const int light = single ? (ib >> RESI_PICK_SHIFT) & 31 : j;
         const float bp = plane(rp.B(b, j));
@@ -138,6 +136,7 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
         else if (__ldg(LTI + LT_I * light) == L_ENV)
           add3(acc, col_env, add);
         addc = addc + (gb * e_l) * bp;
+        if (texp) addx = addx + vdot(gb * e_l, col_nee) * plane(rp.Bk(b, j));
       }
       const float tu = plane(rp.tu(b));
       const V t_eff = sel(to_spec, spec_sel, diff_sel) * tu;
@@ -147,60 +146,38 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
       const V addt = (gb * r_next) * tu;
       if (ok_d) add3(acc, col_d + 3 * sid, sel(phong, zero3, addc) + sel(to_spec, zero3, addt));
       if (ok_s) add3(acc, col_s + 3 * sid, sel(phong, addc, zero3) + sel(to_spec, addt, zero3));
+      if (texp) {
+        // "tuk" is 0 off phong lanes, whose extension read specular
+        addx = addx + vdot(gb * r_next, spec_sel) * plane(rp.tuk(b));
+        if (sid >= 0 && mk == MAT_PLASTIC) acc[col_x + sid] = acc[col_x + sid] + addx;
+      }
       beta = beta * t_eff;
       r_tail = r_next;
     }
   }
 
-  // this block's partial sums: a shuffle tree in each warp, then the warps
-  __shared__ float warp_sum[THREADS / 32][MAX_COLS];
-  const int wid = threadIdx.x / 32, lid = threadIdx.x % 32;
-  for (int k = 0; k < K; ++k) {
-    float v = acc[k];
-    for (int off = 16; off > 0; off >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, off);
-    if (lid == 0) warp_sum[wid][k] = v;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < K; k += THREADS)
-    partial[(size_t)blockIdx.x * K + k] =
-        (warp_sum[0][k] + warp_sum[1][k]) + (warp_sum[2][k] + warp_sum[3][k]);
-}
-
-// out[k] = sum over the nb rows of partial[:, k], one block a column
-__global__ void __launch_bounds__(SUM_THREADS)
-sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out, int nb, int K) {
-  __shared__ float s[SUM_THREADS];
-  const int k = blockIdx.x;
-  float v = 0.f;
-  for (int b = threadIdx.x; b < nb; b += SUM_THREADS) v = v + partial[(size_t)b * K + k];
-  s[threadIdx.x] = v;
-  __syncthreads();
-  for (int off = SUM_THREADS / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) s[threadIdx.x] = s[threadIdx.x] + s[threadIdx.x + off];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[k] = s[0];
+  block_partials(acc, K, partial);
 }
 
 }  // namespace
 
 // K3 on `stream` (PyTorch's current stream): the table adjoints as one
-// (9 * m_rows + 3,) vector dd | ds | de | denv in `out`, through the
-// (max(1, ceil(n / 128)), 9 * m_rows + 3) scratch `partial`. Returns
+// (n_cols,) vector dd | ds | de | denv [| dexp] in `out` (n_cols = 9 *
+// m_rows + 3, or 10 * m_rows + 3 under trainable_exponent), through the
+// (max(1, ceil(n / 128)), n_cols) scratch `partial`. Returns
 // cudaGetLastError().
 extern "C" int kytpu_wavefront_bwd_res(const int* I, const float* diffuse, const float* specular,
                                        const float* emission, const float* light_emit,
                                        const float* env, const float* g, const float* big_l,
                                        const float* resf, const int* resi, float* partial,
-                                       float* out, int n, int m_rows, int max_depth,
+                                       float* out, int n, int m_rows, int n_cols, int max_depth,
                                        void* stream) {
-  const int K = 9 * m_rows + 3;
+  if (m_rows > MAX_SURFACES || n_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
   const int blocks = n > 0 ? (n + THREADS - 1) / THREADS : 1;
   bwd_res_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       I, diffuse, specular, emission, light_emit, env, g, big_l, resf, resi, partial, n,
-      max_depth);
+      n_cols, max_depth);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<K, SUM_THREADS, 0, (cudaStream_t)stream>>>(partial, out, blocks, K);
-  return (int)cudaGetLastError();
+  return sum_partials(partial, out, blocks, n_cols, (cudaStream_t)stream);
 }

@@ -1,15 +1,23 @@
-// Forward path-tracing megakernel for NVIDIA Hopper (sm_90a), K1 and K2.
+// Path-tracing megakernel for NVIDIA Hopper (sm_90a): K1, K2 and K4.
 //
-// Replaces kytpu/kernels/wavefront.py::_make_kernel with grad=False: K1
+// Replaces kytpu/kernels/wavefront.py::_make_kernel: with grad=False, K1
 // (residual=False), the Pallas TPU kernel behind every render of a scene with
 // at most 64 surfaces, and K2 (residual=True), the forward of every train
 // step, which also writes the coefficient cache that the backward K3
-// (wavefront_bwd_res.cu) reads. Both are one template, wavefront_fwd_kernel
-// <RESIDUAL>: K2 adds stores and nothing else, so its radiance is K1's
-// arithmetic by construction. Their plain PyTorch transcription is
-// kytpu_torch/kernels/wavefront.py::trace_lanes_plain (residual=False/True);
-// this file follows it statement by statement, and chip_smoke.py holds the
-// two against each other.
+// (wavefront_bwd_res.cu) reads; with grad=True, K4, the path-replay backward
+// (backward="replay"), which re-traces each lane with the forward's draws,
+// peels the tail radiance R_{b+1} = (R_b - E_b) / T_b and accumulates the
+// table adjoints. All three are one template, wavefront_fwd_kernel<MODE>:
+// K2 adds stores and K4 adjoint terms and nothing else, so their draws, hits
+// and branches are K1's by construction. Their plain PyTorch transcriptions
+// are kytpu_torch/kernels/wavefront.py::trace_lanes_plain (residual=False/
+// True) and bwd_replay_plain, one body there too; this file follows it
+// statement by statement, and chip_smoke.py holds each kernel against it.
+// The samplers are "random", "hash" and "sobol" (an Owen-scrambled (0,2)
+// sequence whose per-site words sit in a __constant__ table); under
+// trainable_exponent the Phong exponents come from a per-call table, K2
+// caches the kappa-weighted "Bk"/"tuk" planes and K4 adds the exponent
+// adjoint.
 //
 // Design. One thread per lane (128 threads a block); the whole path state --
 // ray, throughput, radiance, MIS carry -- lives in registers for all bounces,
@@ -38,12 +46,22 @@
 // wavefront compaction of divergent lanes, occupancy tuning) is later work
 // that starts from a profile. It is built with --fmad=false and without fast math, so it
 // rounds as the plain version does: division and sqrt are IEEE, rsqrt is
-// 1.0f/sqrtf, and min/max propagate NaN as jnp.minimum/maximum and
+// 1.0f/sqrtf, logf and powf are CUDA's own (as torch.log and torch.pow on
+// the card), and min/max propagate NaN as jnp.minimum/maximum and
 // torch.minimum/maximum do.
+//
+// K4 keeps K1's path state and adds g, the tail radiance, the bounce's
+// colour adjoints and a per-thread row of 9M+3 (+M) adjoint columns in local
+// memory (2.5 KB at M = 64), so it spills where K1 fits in registers. What
+// bounds it: K1's FP32/SFU work plus those local read-modify-writes; its
+// bytes are K1's rays and radiance plus g. The lanes are summed by the
+// fixed-order two-pass reduction of lane_sum.cuh, as K3's are, so its
+// gradient repeats to the last bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_sum.cuh"
 #include "wavefront_tables.cuh"
 
 namespace {
@@ -130,14 +148,63 @@ __device__ __forceinline__ uint32_t lowbias(uint32_t x) {
   return x ^ (x >> 14);
 }
 
+// ---- the "sobol" sampler's word maps (wavefront.py _Rng, sobol branch) ----
+
+// Laine-Karras permutation (an Owen scramble of the reversed-bit tree)
+__device__ __forceinline__ uint32_t lk_hash(uint32_t x, uint32_t seed) {
+  x += seed;
+  x ^= x * 0x6C50B47Cu;
+  x ^= x * 0xB82F1E52u;
+  x ^= x * 0xC7AFE638u;
+  x ^= x * 0x8D22F6E6u;
+  return x;
+}
+
+// the GF(2) superset transform; bit-reversed, a (0,2) partner of the
+// radical inverse
+__device__ __forceinline__ uint32_t superset_xor(uint32_t x) {
+  x ^= (x >> 1) & 0x55555555u;
+  x ^= (x >> 2) & 0x33333333u;
+  x ^= (x >> 4) & 0x0F0F0F0Fu;
+  x ^= (x >> 8) & 0x00FF00FFu;
+  return x ^ ((x >> 16) & 0x0000FFFFu);
+}
+
+// splitmix64 words of each draw site (wavefront.py _site_seeds), filled by
+// the host: the draw counter is the same on every lane at a given draw, so
+// all lanes read one entry. A bounce draws at most 4 sites (lobe pick, NEE,
+// extension, roulette), so max_depth <= MAX_SOBOL_DEPTH.
+constexpr int MAX_SOBOL_DEPTH = 64;  // MAX_SOBOL_DEPTH in wavefront.py
+constexpr int MAX_SITES = 4 * MAX_SOBOL_DEPTH + 1;
+__constant__ uint32_t c_sites[MAX_SITES][3];
+
+enum Sampler { S_RANDOM = 0, S_HASH = 1, S_SOBOL = 2 };
+
 // _Rng(hw=False): "random" keys by tile seed + lane position in the tile,
-// "hash" by a per-lane key (lane_mix = 0)
+// "hash" by a per-lane key (mix = 0); "sobol" holds the reversed sample
+// index in key and the pixel hash in mix
 struct Rng {
-  uint32_t key, lane_mix, ctr;
+  uint32_t key, mix, ctr;
+  bool sobol;
   __device__ __forceinline__ float uniform() {
     ctr += 1;
-    uint32_t x = key + lane_mix + ctr * 668265263u;
-    return bits_to_unit(lowbias(x));
+    if (sobol) {
+      const uint32_t i = __brev(lk_hash(key, mix ^ c_sites[ctr][0]));
+      return bits_to_unit(__brev(lk_hash(i, mix ^ c_sites[ctr][1])));
+    }
+    return bits_to_unit(lowbias(key + mix + ctr * 668265263u));
+  }
+  // one 2D point: a (0,2) pair of one site under sobol, else two draws
+  __device__ __forceinline__ void uniform2(float& u1, float& u2) {
+    if (!sobol) {
+      u1 = uniform();
+      u2 = uniform();
+      return;
+    }
+    ctr += 1;
+    const uint32_t i = __brev(lk_hash(key, mix ^ c_sites[ctr][0]));
+    u1 = bits_to_unit(__brev(lk_hash(i, mix ^ c_sites[ctr][1])));
+    u2 = bits_to_unit(__brev(lk_hash(superset_xor(i), mix ^ c_sites[ctr][2])));
   }
 };
 
@@ -147,7 +214,7 @@ struct Scene {
   const float* F;
   const int* I;
   int n_pl, n_sp, M, L, lobes, has_plastic, has_glass, has_delta, static_exp,
-      env_i, any_azim, use_phits, single;
+      env_i, any_azim, use_phits, single, texp;
   const float *PLF, *SPF, *MATF, *LTF;
   const int *PLI, *SPI, *MATI, *LTI;
   __device__ void init(const float* f, const int* i) {
@@ -157,6 +224,7 @@ struct Scene {
     lobes = __ldg(i + 4); has_plastic = __ldg(i + 5); has_glass = __ldg(i + 6);
     has_delta = __ldg(i + 7); static_exp = __ldg(i + 8); env_i = __ldg(i + 9);
     any_azim = __ldg(i + 10); use_phits = __ldg(i + 11); single = __ldg(i + 12);
+    texp = __ldg(i + H_TEXP);
     PLI = i + HDR_I;
     SPI = PLI + PL_I * n_pl;
     MATI = SPI + SP_I * n_sp;
@@ -409,6 +477,12 @@ __device__ __forceinline__ void phong_pow(const Scene& S, float cos_a, float exp
   }
 }
 
+// d log f_phong / d e at a fixed direction (wavefront.py _kappa_dot): the
+// exponent adjoint's one definition, for K2's "Bk"/"tuk" planes and K4
+__device__ __forceinline__ float kappa_dot(float exponent, float cos_alpha) {
+  return safe_div(1.0f, exponent + 2.0f) + logf(jmax(cos_alpha, 1e-12f));
+}
+
 // Lambert / Phong eval on frame-invariant dots -> (pdf, f_unit)
 __device__ void eval_dots(const Scene& S, int kind, float exponent, float wo_z, float wi_z,
                           float cos_alpha, float& pdf, float& f_unit) {
@@ -626,41 +700,64 @@ __device__ float hit_light_pdf(const Scene& S, int li, V o, V d, float t, V nrm)
 
 // ---- the kernel --------------------------------------------------------------
 
-template <bool RESIDUAL>
-__global__ void __launch_bounds__(128)
-wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
-                     const float* __restrict__ diffuse_t, const float* __restrict__ specular_t,
-                     const float* __restrict__ emission_t, const float* __restrict__ light_emit_t,
-                     const float* __restrict__ env_t, const float* __restrict__ o_in,
-                     const float* __restrict__ d_in, const int* __restrict__ si_in,
-                     const int* __restrict__ pix_in, float* __restrict__ out,
-                     float* __restrict__ resf, int* __restrict__ resi, int n,
-                     int seed, int max_depth, int rr_start, int rows, int hash, int robust) {
-  int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane_id >= n) return;
-  Scene S;
-  S.init(F, I);
-  const ResPlanes rp = res_planes(S.env_i >= 0, S.single, S.L);
-  // plane k of this lane
-  auto put = [&](int k, float v) { resf[(size_t)k * n + lane_id] = v; };
+enum Mode { MODE_FWD = 0, MODE_RESIDUAL = 1, MODE_REPLAY = 2 };
 
-  const int tile = rows * 128;
+// One launch's arguments: the tables, the lanes and, by mode, the outputs
+// (K1: out, the radiance; K2: out, resf, resi; K4: g and L in, out the
+// gradient vector through the partials table `partial`).
+struct Args {
+  const float* F;
+  const int* I;
+  const float *diffuse, *specular, *emission, *exponent, *light_emit, *env, *o, *d;
+  const int *si, *pix;
+  float* out;
+  float* resf;
+  int* resi;
+  const float *g, *l_in;
+  float* partial;
+  int n, n_cols, seed, max_depth, rr_start, rows, sampler, robust;
+};
+
+__device__ __forceinline__ void add3(float* acc, int col, V v) {
+  acc[col] = acc[col] + v.x;
+  acc[col + 1] = acc[col + 1] + v.y;
+  acc[col + 2] = acc[col + 2] + v.z;
+}
+
+// One lane's path. MODE_FWD accumulates and writes its radiance (K1),
+// MODE_RESIDUAL also the coefficient cache (K2), MODE_REPLAY re-traces the
+// same path with the same draws and adds its table adjoints to acc (K4):
+// dd | ds | de (3M each) | denv (3) | dexp (M, under trainable_exponent).
+// SOBOL is a compile-time switch so that no other sampler's draws branch on
+// it.
+template <int MODE, bool SOBOL>
+__device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int lane_id,
+                                           float* acc) {
+  const int n = a.n;
+  const ResPlanes rp = res_planes(S.env_i >= 0, S.single, S.L, S.texp);
+  // plane k of this lane
+  auto put = [&](int k, float v) { a.resf[(size_t)k * n + lane_id] = v; };
+
+  const int tile = a.rows * 128;
   const int tile_id = lane_id / tile;
-  const uint32_t tile_seed = (uint32_t)seed + (uint32_t)tile_id * (2654435761u & 0x7fffffffu);
+  const uint32_t tile_seed = (uint32_t)a.seed + (uint32_t)tile_id * (2654435761u & 0x7fffffffu);
   Rng rng;
   rng.ctr = 0;
+  rng.sobol = SOBOL;
   uint32_t si0 = 0;
-  if (hash) {
-    rng.key = pix_hash((uint32_t)si_in[lane_id], pix_hash((uint32_t)pix_in[lane_id], (uint32_t)seed));
-    rng.lane_mix = 0;
-    si0 = (uint32_t)si_in[tile_id * tile];
+  if (a.sampler != S_RANDOM) {
+    const uint32_t ph = pix_hash((uint32_t)a.pix[lane_id], (uint32_t)a.seed);
+    const uint32_t si = (uint32_t)a.si[lane_id];
+    rng.key = rng.sobol ? __brev(si) : pix_hash(si, ph);
+    rng.mix = rng.sobol ? ph : 0u;
+    si0 = (uint32_t)a.si[tile_id * tile];
   } else {
     rng.key = tile_seed;
-    rng.lane_mix = (uint32_t)(lane_id - tile_id * tile) * 374761393u;
+    rng.mix = (uint32_t)(lane_id - tile_id * tile) * 374761393u;
   }
 
-  V o = ld3(o_in + 3 * (size_t)lane_id);
-  V d = ld3(d_in + 3 * (size_t)lane_id);
+  V o = ld3(a.o + 3 * (size_t)lane_id);
+  V d = ld3(a.d + 3 * (size_t)lane_id);
   V beta = vmk(1.f, 1.f, 1.f);
   V Lr = vmk(0.f, 0.f, 0.f);
   bool alive = true, spec_prev = false;
@@ -668,10 +765,19 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
   float phits[MAX_LIGHTS];
   const bool single = S.single != 0;
   const bool has_phong = S.has_lobe(PHONG);
+  const bool texp = S.texp != 0;
   const V zero3 = vmk(0.f, 0.f, 0.f);
-  int next_bounce = max_depth + 1;  // the first bounce this lane does not reach
+  int next_bounce = a.max_depth + 1;  // the first bounce this lane does not reach
+  // K4: the upstream gradient, the tail radiance and the accumulator columns
+  V g = zero3, r_tail = zero3;
+  if (MODE == MODE_REPLAY) {
+    g = ld3(a.g + 3 * (size_t)lane_id);
+    r_tail = ld3(a.l_in + 3 * (size_t)lane_id);
+  }
+  const int col_d = 0, col_s = 3 * S.M, col_e = 6 * S.M, col_env = 9 * S.M,
+            col_x = 9 * S.M + 3;
 
-  for (int bounce = 0; bounce <= max_depth; ++bounce) {
+  for (int bounce = 0; bounce <= a.max_depth; ++bounce) {
     float t;
     int sid;
     V nrm;
@@ -682,7 +788,7 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
     V wo = -d;
     bool facing = vdot(nrm, wo) > 0.f;
     int li_idx = valid ? __ldg(S.MATI + MAT_I * sid + 1) : -1;
-    V le = (valid && facing && li_idx >= 0) ? ld3(emission_t + 3 * sid) : zero3;
+    V le = (valid && facing && li_idx >= 0) ? ld3(a.emission + 3 * sid) : zero3;
 
     // emission MIS weight against the pdf of the light this ray found
     bool full = bounce == 0 || (S.has_delta && spec_prev);
@@ -696,16 +802,26 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
       w_emit = safe_div(pdf_prev, pdf_prev + pdf_l_hit);
     }
     float wb = alive ? w_emit : 0.f;
-    Lr = Lr + beta * (le * wb);
-    if (RESIDUAL) put(rp.wb(bounce), (valid && facing) ? wb : 0.f);
+    // E_b, the radiance this vertex adds before the throughput: K4 peels it
+    V e_term = le * wb;
+    Lr = Lr + beta * e_term;
+    if (MODE == MODE_RESIDUAL) put(rp.wb(bounce), (valid && facing) ? wb : 0.f);
+    V gb = zero3;
+    if (MODE == MODE_REPLAY) {
+      gb = g * beta;
+      if (valid && li_idx >= 0) add3(acc, col_e + 3 * sid, gb * ((valid && facing) ? wb : 0.f));
+    }
     if (S.env_i >= 0) {
       float w_env = full ? 1.0f : safe_div(pdf_prev, pdf_prev + env_pdf(d.z));
       float wenv = (alive && !valid) ? w_env : 0.f;
-      Lr = Lr + (beta * ld3(env_t)) * wenv;
-      if (RESIDUAL) put(rp.wenv(bounce), wenv);
+      const V env = ld3(a.env);
+      Lr = Lr + (beta * env) * wenv;
+      e_term = e_term + env * wenv;
+      if (MODE == MODE_RESIDUAL) put(rp.wenv(bounce), wenv);
+      if (MODE == MODE_REPLAY) add3(acc, col_env, gb * wenv);
     }
-    if (bounce == max_depth) {
-      if (RESIDUAL) resi[(size_t)bounce * n + lane_id] = sid + 1;
+    if (bounce == a.max_depth) {
+      if (MODE == MODE_RESIDUAL) a.resi[(size_t)bounce * n + lane_id] = sid + 1;
       break;
     }
     bool cont = alive && valid;
@@ -713,10 +829,12 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
     // material resolution
     int mk = valid ? __ldg(S.MATI + MAT_I * sid) : MAT_MATTE;
     const float* mf = S.MATF + MAT_F * (valid ? sid : 0);
-    float exponent = (S.static_exp || !valid) ? 0.f : __ldg(mf);
+    // trainable exponents: the per-call table, read on plastic rows only
+    float exponent = texp ? ((valid && mk == MAT_PLASTIC) ? __ldg(a.exponent + sid) : 0.f)
+                          : ((S.static_exp || !valid) ? 0.f : __ldg(mf));
     float eta = S.has_glass ? (valid ? __ldg(mf + 1) : 0.f) : 1.0f;
-    V diffuse = (valid && mk != MAT_MIRROR) ? ld3(diffuse_t + 3 * sid) : zero3;
-    V specular = (valid && mk != MAT_MATTE) ? ld3(specular_t + 3 * sid) : zero3;
+    V diffuse = (valid && mk != MAT_MIRROR) ? ld3(a.diffuse + 3 * sid) : zero3;
+    V specular = (valid && mk != MAT_MATTE) ? ld3(a.specular + 3 * sid) : zero3;
     bool is_matte = mk == MAT_MATTE, is_mirror = mk == MAT_MIRROR;
     bool is_glass = mk == MAT_GLASS, is_plastic = mk == MAT_PLASTIC;
     int plastic_kind = LAMBERT;
@@ -747,16 +865,37 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
     bool nee_base = nee_act && !is_black(color);
     V ld = zero3;
     int pick_bits = 0;
+    // K4: this bounce's colour and exponent adjoints, added to its row once
+    V addc_diff = zero3, addc_spec = zero3;
+    float addx = 0.f;
+    // K4: one NEE term's emission adjoint (to the light's emitting row, or
+    // to env), colour adjoint and exponent adjoint
+    auto nee_adjoint = [&](int light, float bp, float kap) {
+      const V add = (gb * col_nee) * bp;
+      const int lrow = __ldg(S.LTI + LT_I * light + 2);
+      if (lrow >= 0)
+        add3(acc, col_e + 3 * lrow, add);
+      else if (__ldg(S.LTI + LT_I * light) == L_ENV)
+        add3(acc, col_env, add);
+      const V addc = (gb * ld3(a.light_emit + 3 * light)) * bp;
+      if (S.has_plastic) {
+        addc_spec = addc_spec + (lobe_is_phong ? addc : zero3);
+        addc_diff = addc_diff + (lobe_is_phong ? zero3 : addc);
+      } else {
+        addc_diff = addc_diff + addc;
+      }
+      if (texp) addx = addx + (lobe_is_phong ? vdot(addc, col_nee) * kap : 0.f);
+    };
 
     // ---- light-side NEE ----
     if (single) {
-      float u1 = rng.uniform();
-      float u2 = rng.uniform();
+      float u1, u2;
+      rng.uniform2(u1, u2);
       uint32_t c = tile_seed + ((uint32_t)(bounce * 668265263u) & 0x7fffffffu);
       c ^= c >> 16;
       c *= 0x85EBCA6Bu;
       c ^= c >> 13;
-      if (hash) c += si0;
+      if (a.sampler != S_RANDOM) c += si0;
       int pick = (int)((c & 0x7fffffffu) % (uint32_t)S.L);
       pick_bits = pick << RESI_PICK_SHIFT;
       int lkind = __ldg(S.LTI + LT_I * pick);
@@ -766,7 +905,7 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
         sphi = sin_from_phi_cos(cphi, u2);
       }
       LSample sm = light_sample(S, pick, hp, nrm, u1, u2, cphi, sphi);
-      V emit_l = ld3(light_emit_t + 3 * pick);
+      V emit_l = ld3(a.light_emit + 3 * pick);
       V wi_l = to_local(s_f, t_f, nrm, sm.wi);
       float cos_a = vdot(vmk(-wo_l.x, -wo_l.y, wo_l.z), wi_l);
       float pdf_b, f_unit;
@@ -776,16 +915,21 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
       float w = delta_l ? safe_div(1.0f, sm.pdf) : safe_div(1.0f, sm.pdf + pdf_b);
       bool ok = nee_base && sm.pdf > 0.f;
       float tm = sm.dist - SHADOW_EPS;
-      if (robust) tm = tm - OFF * fabsf(vdot(nrm, sm.wi));
+      if (a.robust) tm = tm - OFF * fabsf(vdot(nrm, sm.wi));
       bool occ = ok && any_hit_single(S, offset_origin(hp, nrm, sm.wi), sm.wi, tm,
-                                      robust ? pick : -1);
+                                      a.robust ? pick : -1);
       float okf = (ok && !occ) ? w * (float)S.L : 0.f;
       float bp = ((sm.li_s * ucos) * okf) * lobe_scale;
       ld = (col_nee * emit_l) * bp;
-      if (RESIDUAL) put(rp.B(bounce, 0), bp);
+      const float kap = (MODE != MODE_FWD && texp) ? kappa_dot(exponent, cos_a) : 0.f;
+      if (MODE == MODE_RESIDUAL) {
+        put(rp.B(bounce, 0), bp);
+        if (texp) put(rp.Bk(bounce, 0), lobe_is_phong ? bp * kap : 0.f);
+      }
+      if (MODE == MODE_REPLAY) nee_adjoint(pick, bp, kap);
     } else {
-      float u1 = rng.uniform();
-      float u2 = rng.uniform();
+      float u1, u2;
+      rng.uniform2(u1, u2);
       float cphi = 0.f, sphi = 0.f;
       if (S.any_azim) {
         cphi = cosf(TWO_PI_F * u2);
@@ -804,18 +948,24 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
                                                              : 1.0f / (sm.pdf + pdf_b);
         bool ok = nee_base && sm.pdf > 0.f;
         bool occ = ok && any_hit_light(S, hp, nrm, sm.wi, sm.dist - SHADOW_EPS, nd, i,
-                                       robust != 0);
+                                       a.robust != 0);
         float okf = (ok && !occ) ? w * 1.0f : 0.f;
         float bp = ((sm.li_s * ucos) * okf) * lobe_scale;
-        ld = ld + (col_nee * ld3(light_emit_t + 3 * i)) * bp;
-        if (RESIDUAL) put(rp.B(bounce, i), bp);
+        ld = ld + (col_nee * ld3(a.light_emit + 3 * i)) * bp;
+        const float kap = (MODE != MODE_FWD && texp) ? kappa_dot(exponent, cos_aw) : 0.f;
+        if (MODE == MODE_RESIDUAL) {
+          put(rp.B(bounce, i), bp);
+          if (texp) put(rp.Bk(bounce, i), lobe_is_phong ? bp * kap : 0.f);
+        }
+        if (MODE == MODE_REPLAY) nee_adjoint(i, bp, kap);
       }
     }
     Lr = Lr + beta * ld;
+    e_term = e_term + ld;
 
     // ---- extension sample ----
-    float u1 = rng.uniform();
-    float u2 = rng.uniform();
+    float u1, u2;
+    rng.uniform2(u1, u2);
     V f_s, wi_l;
     float pdf_s, f_unit_s;
     bool delta_s, refract;
@@ -823,12 +973,13 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
                 delta_s, f_unit_s, refract);
     V wi_w = to_world(s_f, t_f, nrm, wi_l);
     bool ok = cont && !is_black(f_s) && pdf_s != 0.f;
-    V beta_new = beta * (f_s * safe_div(fabsf(wi_l.z), pdf_s));
+    V thr = f_s * safe_div(fabsf(wi_l.z), pdf_s);
+    V beta_new = beta * thr;
     // kill lanes whose throughput overflows float32
     ok = ok && vmax(beta_new) < __int_as_float(0x7f800000);
     bool alive_n = ok;
     float scale = 1.0f;
-    if (bounce > rr_start) {
+    if (bounce > a.rr_start) {
       float u_rr = rng.uniform();
       float q = jmax(1.0f - vmax(beta_new), 0.05f);
       bool kill = u_rr < q;
@@ -836,12 +987,34 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
       beta_new = beta_new * scale;
       alive_n = ok && !kill;
     }
-    if (RESIDUAL) {
+    bool to_spec_t = is_mirror || (is_glass && !refract) || lobe_is_phong;
+    if (MODE != MODE_FWD) {
+      // the extension's throughput per unit table colour, and its kappa
       float t_unit = (f_unit_s * safe_div(fabsf(wi_l.z), pdf_s)) * scale;
-      put(rp.tu(bounce), alive_n ? t_unit * lobe_scale : 0.f);
-      bool to_spec_t = is_mirror || (is_glass && !refract) || lobe_is_phong;
-      resi[(size_t)bounce * n + lane_id] = (sid + 1) + (lobe_is_phong ? RESI_PHONG : 0) +
-                                           (to_spec_t ? RESI_TO_SPEC : 0) + pick_bits;
+      float tu_plane = alive_n ? t_unit * lobe_scale : 0.f;
+      float kap_s = texp ? kappa_dot(exponent, vdot(vmk(-wo_l.x, -wo_l.y, wo_l.z), wi_l)) : 0.f;
+      if (MODE == MODE_RESIDUAL) {
+        put(rp.tu(bounce), tu_plane);
+        if (texp) put(rp.tuk(bounce), lobe_is_phong ? tu_plane * kap_s : 0.f);
+        a.resi[(size_t)bounce * n + lane_id] = (sid + 1) + (lobe_is_phong ? RESI_PHONG : 0) +
+                                               (to_spec_t ? RESI_TO_SPEC : 0) + pick_bits;
+      }
+      if (MODE == MODE_REPLAY) {
+        // R_{b+1} = (R_b - E_b) / T_b per channel, 0 where the path ends
+        const V t_eff = alive_n ? thr * scale : zero3;
+        const V r_next = alive_n ? vmk(safe_div(r_tail.x - e_term.x, t_eff.x),
+                                       safe_div(r_tail.y - e_term.y, t_eff.y),
+                                       safe_div(r_tail.z - e_term.z, t_eff.z))
+                                 : zero3;
+        const V addt = (gb * r_next) * tu_plane;
+        addc_spec = addc_spec + (to_spec_t ? addt : zero3);
+        addc_diff = addc_diff + (to_spec_t ? zero3 : addt);
+        if (texp) addx = addx + (lobe_is_phong ? vdot(addt, col_nee) * kap_s : 0.f);
+        if (valid && mk != MAT_MIRROR) add3(acc, col_d + 3 * sid, addc_diff);
+        if (valid && mk != MAT_MATTE) add3(acc, col_s + 3 * sid, addc_spec);
+        if (texp && valid && mk == MAT_PLASTIC) acc[col_x + sid] = acc[col_x + sid] + addx;
+        r_tail = r_next;
+      }
     }
     if (alive_n) {
       o = offset_origin(hp, nrm, wi_w);
@@ -856,57 +1029,145 @@ wavefront_fwd_kernel(const float* __restrict__ F, const int* __restrict__ I,
       break;
     }
   }
-  if (RESIDUAL) {
-    for (int b = next_bounce; b <= max_depth; ++b) {
+  if (MODE == MODE_RESIDUAL) {
+    for (int b = next_bounce; b <= a.max_depth; ++b) {
       put(rp.wb(b), 0.f);
       if (rp.env) put(rp.wenv(b), 0.f);
-      if (b < max_depth) {
-        for (int i = 0; i < rp.n_b; ++i) put(rp.B(b, i), 0.f);
+      if (b < a.max_depth) {
+        for (int i = 0; i < rp.n_b; ++i) {
+          put(rp.B(b, i), 0.f);
+          if (texp) put(rp.Bk(b, i), 0.f);
+        }
         put(rp.tu(b), 0.f);
+        if (texp) put(rp.tuk(b), 0.f);
       }
-      resi[(size_t)b * n + lane_id] = 0;
+      a.resi[(size_t)b * n + lane_id] = 0;
     }
   }
-  out[3 * (size_t)lane_id] = Lr.x;
-  out[3 * (size_t)lane_id + 1] = Lr.y;
-  out[3 * (size_t)lane_id + 2] = Lr.z;
+  if (MODE != MODE_REPLAY) {
+    a.out[3 * (size_t)lane_id] = Lr.x;
+    a.out[3 * (size_t)lane_id + 1] = Lr.y;
+    a.out[3 * (size_t)lane_id + 2] = Lr.z;
+  }
+}
+
+// K1, K2 and K4 are this one template: K2 adds the cache stores and K4 the
+// adjoint terms, so their draws, hits and branches are K1's by construction.
+template <int MODE, bool SOBOL>
+__global__ void __launch_bounds__(128) wavefront_fwd_kernel(const Args a) {
+  const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
+  Scene S;
+  S.init(a.F, a.I);
+  if constexpr (MODE == MODE_REPLAY) {
+    // per-thread adjoint row (local memory), then the fixed-order block sum
+    float acc[MAX_COLS];
+    for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
+    if (lane_id < a.n) trace_lane<MODE, SOBOL>(a, S, lane_id, acc);
+    block_partials(acc, a.n_cols, a.partial);
+  } else if (lane_id < a.n) {
+    trace_lane<MODE, SOBOL>(a, S, lane_id, nullptr);
+  }
+}
+
+// splitmix64 words of draw site ctr (wavefront.py _site_seeds)
+void site_seeds(uint64_t ctr, uint32_t out[3]) {
+  uint64_t x = ctr * 0x9E3779B97F4A7C15ull + 0x632BE59BD9B4E019ull;
+  for (int k = 0; k < 3; ++k) {
+    x += 0x9E3779B97F4A7C15ull;
+    uint64_t z = x;
+    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+    z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+    out[k] = (uint32_t)(z ^ (z >> 31));
+  }
+}
+
+// Fill the current device's site table once (the words depend on nothing
+// but the counter).
+cudaError_t upload_sites() {
+  constexpr int MAX_DEVICES = 64;
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  static uint32_t words[MAX_SITES][3];
+  for (int c = 0; c < MAX_SITES; ++c) site_seeds((uint64_t)c, words[c]);
+  err = cudaMemcpyToSymbol(c_sites, words, sizeof(words));
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+template <int MODE>
+int launch(const Args& a, void* stream) {
+  if (a.sampler == S_SOBOL) {
+    if (a.max_depth > MAX_SOBOL_DEPTH) return (int)cudaErrorInvalidValue;
+    cudaError_t err = upload_sites();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int threads = 128;
+  const int blocks = a.n > 0 ? (a.n + threads - 1) / threads : (MODE == MODE_REPLAY ? 1 : 0);
+  if (blocks > 0 && a.sampler == S_SOBOL)
+    wavefront_fwd_kernel<MODE, true><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  else if (blocks > 0)
+    wavefront_fwd_kernel<MODE, false><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || MODE != MODE_REPLAY) return (int)err;
+  return sum_partials(a.partial, a.out, blocks, a.n_cols, (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream); they return cudaGetLastError().
+// Launch on `stream` (PyTorch's current stream); they return cudaGetLastError()
+// (or cudaErrorInvalidValue for what the kernel does not take). Tables:
+// F, I (pack_tables), the (M, 3) diffuse/specular/emission, the (M,)
+// exponent, the (max(L, 1), 3) light emissions and the (3,) env; lanes: o, d
+// (n, 3), si and pix (n,) int32 (null under the "random" sampler). sampler:
+// 0 random, 1 hash, 2 sobol.
 // K1: radiance only.
 extern "C" int kytpu_wavefront_fwd(const float* F, const int* I, const float* diffuse,
                                    const float* specular, const float* emission,
-                                   const float* light_emit, const float* env, const float* o,
-                                   const float* d, const int* si, const int* pix, float* out,
-                                   int n, int seed, int max_depth, int rr_start, int rows,
-                                   int hash, int robust, void* stream) {
-  if (n > 0) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    wavefront_fwd_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        F, I, diffuse, specular, emission, light_emit, env, o, d, si, pix, out, nullptr,
-        nullptr, n, seed, max_depth, rr_start, rows, hash, robust);
-  }
-  return (int)cudaGetLastError();
+                                   const float* exponent, const float* light_emit,
+                                   const float* env, const float* o, const float* d,
+                                   const int* si, const int* pix, float* out, int n, int seed,
+                                   int max_depth, int rr_start, int rows, int sampler,
+                                   int robust, void* stream) {
+  const Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
+               out, nullptr, nullptr, nullptr, nullptr, nullptr,
+               n, 0, seed, max_depth, rr_start, rows, sampler, robust};
+  return launch<MODE_FWD>(a, stream);
 }
 
 // K2: radiance and the coefficient cache, resf (res_n, n) float32 and resi
 // (max_depth + 1, n) int32, plane-major.
 extern "C" int kytpu_wavefront_fwd_res(const float* F, const int* I, const float* diffuse,
                                        const float* specular, const float* emission,
-                                       const float* light_emit, const float* env,
-                                       const float* o, const float* d, const int* si,
-                                       const int* pix, float* out, float* resf, int* resi,
-                                       int n, int seed, int max_depth, int rr_start, int rows,
-                                       int hash, int robust, void* stream) {
-  if (n > 0) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    wavefront_fwd_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        F, I, diffuse, specular, emission, light_emit, env, o, d, si, pix, out, resf, resi,
-        n, seed, max_depth, rr_start, rows, hash, robust);
-  }
-  return (int)cudaGetLastError();
+                                       const float* exponent, const float* light_emit,
+                                       const float* env, const float* o, const float* d,
+                                       const int* si, const int* pix, float* out, float* resf,
+                                       int* resi, int n, int seed, int max_depth, int rr_start,
+                                       int rows, int sampler, int robust, void* stream) {
+  const Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
+               out, resf, resi, nullptr, nullptr, nullptr,
+               n, 0, seed, max_depth, rr_start, rows, sampler, robust};
+  return launch<MODE_RESIDUAL>(a, stream);
+}
+
+// K4: the table adjoints of upstream gradient g (n, 3) on the lanes whose
+// forward radiance is big_l (n, 3), as one (n_cols,) vector dd | ds | de |
+// denv [| dexp] in `out`, through the (max(1, ceil(n / 128)), n_cols)
+// scratch `partial`.
+extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const float* diffuse,
+                                          const float* specular, const float* emission,
+                                          const float* exponent, const float* light_emit,
+                                          const float* env, const float* o, const float* d,
+                                          const int* si, const int* pix, const float* g,
+                                          const float* big_l, float* partial, float* out,
+                                          int n, int n_cols, int seed, int max_depth,
+                                          int rr_start, int rows, int sampler, int robust,
+                                          void* stream) {
+  if (n_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
+  const Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
+               out, nullptr, nullptr, g, big_l, partial,
+               n, n_cols, seed, max_depth, rr_start, rows, sampler, robust};
+  return launch<MODE_REPLAY>(a, stream);
 }

@@ -20,26 +20,36 @@ constexpr int MAT_MATTE = 0, MAT_MIRROR = 1, MAT_GLASS = 2, MAT_PLASTIC = 3;
 constexpr int L_POINT = 0, L_DIRECTION = 1, L_RECT = 2, L_SPHERE = 3, L_ENV = 4;
 
 // int table header fields
-constexpr int H_M = 2, H_L = 3, H_ENV_I = 9, H_SINGLE = 12;
+constexpr int H_M = 2, H_L = 3, H_ENV_I = 9, H_SINGLE = 12, H_TEXP = 13;
 
 // Coefficient cache, plane-major (plane k of lane i at k * n + i). Per
 // bounce b: "wb", "wenv" (env scenes), then below the horizon n_b "B"
-// planes (one per NEE light, one under nee="single") and "tu". The int
-// cache holds one plane per bounce: sid+1 in bits 0-7, lobe_is_phong in
-// bit 8, to_spec_t in bit 9, the nee="single" pick in bits 11-15.
+// planes (one per NEE light, one under nee="single") and "tu"; under
+// trainable_exponent each "B" is followed by its "Bk" and "tu" by its
+// "tuk". The int cache holds one plane per bounce: sid+1 in bits 0-7,
+// lobe_is_phong in bit 8, to_spec_t in bit 9, the nee="single" pick in
+// bits 11-15.
 struct ResPlanes {
-  int stride, env, n_b;
+  int stride, env, n_b, texp;
   __device__ __forceinline__ int wb(int b) const { return b * stride; }
   __device__ __forceinline__ int wenv(int b) const { return b * stride + 1; }
-  __device__ __forceinline__ int B(int b, int i) const { return b * stride + 1 + env + i; }
-  __device__ __forceinline__ int tu(int b) const { return b * stride + 1 + env + n_b; }
+  __device__ __forceinline__ int B(int b, int i) const {
+    return b * stride + 1 + env + i * (1 + texp);
+  }
+  __device__ __forceinline__ int Bk(int b, int i) const { return B(b, i) + 1; }
+  __device__ __forceinline__ int tu(int b) const {
+    return b * stride + 1 + env + n_b * (1 + texp);
+  }
+  __device__ __forceinline__ int tuk(int b) const { return tu(b) + 1; }
 };
 
-__device__ __forceinline__ ResPlanes res_planes(int has_env, int single, int n_lights) {
+__device__ __forceinline__ ResPlanes res_planes(int has_env, int single, int n_lights,
+                                                int texp) {
   ResPlanes r;
   r.env = has_env ? 1 : 0;
   r.n_b = single ? 1 : n_lights;
-  r.stride = 2 + r.env + r.n_b;
+  r.texp = texp ? 1 : 0;
+  r.stride = 2 + r.env + r.n_b * (1 + r.texp) + r.texp;
   return r;
 }
 

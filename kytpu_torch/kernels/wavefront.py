@@ -1,5 +1,6 @@
 """The path-tracing megakernels (kytpu/kernels/wavefront.py): the forward
-K1, the residual forward K2 and the coefficient-cache backward K3.
+K1, the residual forward K2, the coefficient-cache backward K3 and the
+path-replay backward K4.
 
 Three layers, each the counterpart of one in the JAX package:
 
@@ -13,20 +14,30 @@ Three layers, each the counterpart of one in the JAX package:
 - `trace_lanes_plain`, a plain torch transcription of the forward
   `_make_kernel(grad=False)` on (N,) lane tensors, with residual=True also
   writing the coefficient cache (K2), and `bwd_res_plain`, that of
-  `_make_bwd_res_kernel` (K3). CPU tensors run them, and the card checks
-  the kernels against them;
-- the wrappers (`trace_lanes`, `bwd_res`, `make_cuda_tracer`,
+  `_make_bwd_res_kernel` (K3), and `bwd_replay_plain`, that of
+  `_make_kernel(grad=True)` (K4), which replays the forward's arithmetic
+  and draws. CPU tensors run them, and the card checks the kernels against
+  them;
+- the wrappers (`trace_lanes`, `bwd_res`, `bwd_replay`, `make_cuda_tracer`,
   `render_lanes_cuda`, `render_cuda`, and `make_cuda_diff_tracer`, a
-  torch.autograd.Function over K2 and K3), which launch
-  `csrc/wavefront_fwd.cu` and `csrc/wavefront_bwd_res.cu` on CUDA
-  tensors.
+  torch.autograd.Function over K2 and K3, or over K1 and K4), which launch
+  `csrc/wavefront_fwd.cu` (K1, K2, K4) and `csrc/wavefront_bwd_res.cu`
+  (K3) on CUDA tensors.
 
 Samplers: "hash" (stateless lowbias32 streams keyed by (seed, pixel,
 sample, draw site)) is the JAX package's own. "random" on the TPU is the
 on-core PRNG, which has no counterpart; here it is the tile-keyed hash
 stream the JAX package runs under interpret (`_Rng(hw=False)`), so the port
 matches interpret mode bit for bit at the integer level, not the TPU's
-stream. Tiles are `cfg.rows * 128` consecutive lanes, as in the JAX package.
+stream. "sobol" is the JAX package's hash-based Owen-scrambled (0,2)
+sequence: every draw site (the draw counter) shuffles and scrambles the
+lane's sample index with three splitmix64 words of the counter. Tiles are
+`cfg.rows * 128` consecutive lanes, as in the JAX package.
+
+cfg.trainable_exponent reads the Phong exponents from a per-call (M,)
+table (`SceneTables.exponent`, plastic rows only) instead of baking them,
+adds the kappa-weighted "Bk"/"tuk" planes to K2's cache, and gives K3 and
+K4 an exponent adjoint.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import numpy as np
 import torch
 
 from kytpu_torch import bsdf as kbsdf
+from kytpu_torch.core import lds
 from kytpu_torch.core import math as km
 from kytpu_torch.core import rng as krng
 from kytpu_torch.kernels.v3 import (V3, cv3, make_frame, to_local, to_world,
@@ -58,10 +70,10 @@ MAX_LIGHTS = 32
 class KernelConfig:
     """Same fields and defaults as kytpu.kernels.wavefront.KernelConfig.
     The port's kernels take max_depth, rr_start, rows, nee ("all" |
-    "single"), sampler ("random" | "hash") and shadow ("parity" |
-    "robust"). bwd_rows changes nothing here: K3 reads no tile (the
-    nee="single" pick comes from the cache). The other fields belong to
-    paths not ported yet."""
+    "single"), sampler ("random" | "hash" | "sobol"), shadow ("parity" |
+    "robust") and trainable_exponent. bwd_rows changes nothing here: K3
+    reads no tile (the nee="single" pick comes from the cache). cull and
+    sweep belong to the big-scene kernels, not ported yet."""
 
     max_depth: int = 5
     rr_start: int = 3
@@ -76,14 +88,7 @@ class KernelConfig:
 
 
 def check_config(cfg: KernelConfig) -> None:
-    if cfg.sampler == "sobol":
-        raise NotImplementedError(
-            "sampler='sobol' (core/lds.py) is on the port's ROADMAP queue")
-    if cfg.trainable_exponent:
-        raise NotImplementedError(
-            "trainable_exponent (the exponent adjoint) comes with K4, the "
-            "replay backward, on the port's ROADMAP queue")
-    if cfg.sampler not in ("random", "hash") or cfg.nee not in (
+    if cfg.sampler not in ("random", "hash", "sobol") or cfg.nee not in (
             "all", "single") or cfg.shadow not in ("parity", "robust"):
         raise ValueError(f"unsupported kernel config {cfg}")
     if cfg.rows < 1 or cfg.max_depth < 0:
@@ -361,7 +366,10 @@ def _sphere_area_f32(r: float) -> float:
 # ---------------------------------------------------------------------------
 
 # int table: header, then per planar row, per sphere, per material row,
-# per light (offsets derived from the counts, see csrc/wavefront_fwd.cu)
+# per light (offsets derived from the counts, see csrc/wavefront_fwd.cu).
+# Header: n_pl, n_sp, M, L, lobe bits, has_plastic, has_glass, has_delta,
+# static exponent, env light index, any azimuth, use_phits, single,
+# trainable_exponent
 HDR_I = 16
 PL_I = 4     # kind, fast, all-lights skip bitmask, single-mode skip
 SP_I = 1     # all-lights skip bitmask
@@ -381,7 +389,8 @@ LT_F = 28    # position, direction, p0, p1, p2, normal, area, center,
 class SceneTables:
     """What one kernel launch reads: the scene as python values (`static`,
     for the plain version), its flat int32/float32 device tables, and the
-    colour tables a render may change without repacking."""
+    tables a render may change without repacking. `exponent` is read only
+    under cfg.trainable_exponent, and only on plastic rows."""
 
     static: dict
     f: torch.Tensor
@@ -389,6 +398,7 @@ class SceneTables:
     diffuse: torch.Tensor     # (M, 3)
     specular: torch.Tensor    # (M, 3)
     emission: torch.Tensor    # (M, 3)
+    exponent: torch.Tensor    # (M,)
     light_emit: torch.Tensor  # (max(L, 1), 3)
     env: torch.Tensor         # (3,)
 
@@ -405,7 +415,8 @@ def _color_tables(scene: kscene.Scene) -> dict:
            else torch.zeros(3, device=dev))
     return dict(diffuse=f32(scene.mat_diffuse),
                 specular=f32(scene.mat_specular),
-                emission=f32(scene.emission), light_emit=f32(emit),
+                emission=f32(scene.emission),
+                exponent=f32(scene.mat_exponent), light_emit=f32(emit),
                 env=f32(env).reshape(3))
 
 
@@ -426,7 +437,8 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     rows_skip, sph_skip = _occl_skips(static, cfg)
     single_skip = (frozenset.intersection(
         *[frozenset(s) for s in static["occl_skip"]]) if L else frozenset())
-    static_exp = _static_exponent(mats)
+    # under trainable_exponent the exponents come from the per-call table
+    static_exp = None if cfg.trainable_exponent else _static_exponent(mats)
     env_i = next((i for i, lt in enumerate(lights)
                   if lt["kind"] == klights.ENV), -1)
 
@@ -435,7 +447,7 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     ft = np.zeros(HDR_F + PL_F * n_pl + SP_F * n_sp + MAT_F * M + LT_F * L,
                   np.float32)
     lobes = mats["lobes"]
-    it[:13] = [
+    it[:14] = [
         n_pl, n_sp, M, L,
         sum(1 << k for k in lobes),
         int(kbsdf.MAT_PLASTIC in mats["kind"]),
@@ -447,6 +459,7 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
                 for lt in lights)),
         int(_phit_lights(lights)),
         int(picks_one_light(cfg, L)),
+        int(cfg.trainable_exponent),
     ]
     ft[0] = _f32(2.0 * static["world_radius"])
     if static_exp is not None:
@@ -509,26 +522,34 @@ def picks_one_light(cfg: KernelConfig, n_lights: int) -> bool:
 
 def residual_layout(static, cfg: KernelConfig):
     """Plane order of the coefficient cache that K2 writes and K3 reads
-    (kytpu's `_residual_layout` for trainable_exponent=False and no
-    textures) -> ({tag: plane}, count). Per bounce: "wb" (hit-emission MIS
-    weight, fully masked), "wenv" (env-miss weight, env scenes), then below
-    the horizon one "B" plane per NEE light (one under nee="single": B' =
-    li_scalar * f_unit * |cos| * okf * lobe_scale) and "tu" (extension
-    throughput unit incl. lobe scale, pdf division, RR compensation and the
-    alive mask). The kernels compute the same offsets from the table header
-    (csrc/wavefront_fwd.cu `res_plane`)."""
+    (kytpu's `_residual_layout` without textures) -> ({tag: plane},
+    count). Per bounce: "wb" (hit-emission MIS weight, fully masked),
+    "wenv" (env-miss weight, env scenes), then below the horizon one "B"
+    plane per NEE light (one under nee="single": B' = li_scalar * f_unit *
+    |cos| * okf * lobe_scale) and "tu" (extension throughput unit incl.
+    lobe scale, pdf division, RR compensation and the alive mask). Under
+    cfg.trainable_exponent each "B" is followed by its "Bk" and "tu" by its
+    "tuk": the plane times kappa (`_kappa`), 0 off phong lanes. The kernels
+    compute the same offsets from the table header
+    (csrc/wavefront_tables.cuh `ResPlanes`)."""
     check_config(cfg)
     lights = static["lights"]
     has_env = any(lt["kind"] == klights.ENV for lt in lights)
     n_b = 1 if picks_one_light(cfg, len(lights)) else len(lights)
+    texp = cfg.trainable_exponent
     tags = []
     for b in range(cfg.max_depth + 1):
         tags.append(("wb", b))
         if has_env:
             tags.append(("wenv", b))
         if b < cfg.max_depth:
-            tags.extend(("B", b, i) for i in range(n_b))
+            for i in range(n_b):
+                tags.append(("B", b, i))
+                if texp:
+                    tags.append(("Bk", b, i))
             tags.append(("tu", b))
+            if texp:
+                tags.append(("tuk", b))
     return {t: k for k, t in enumerate(tags)}, len(tags)
 
 
@@ -580,12 +601,7 @@ def _as_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """Wrapping 32-bit multiply (split so no int64 product overflows)."""
-    c &= _M32
-    lo = (x * (c & 0xFFFF)) & _M32
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
+_mul32 = lds.mul32
 
 
 def _bits_to_unit(x: torch.Tensor) -> torch.Tensor:
@@ -616,20 +632,64 @@ def _lowbias(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 14)
 
 
+def _superset_xor(x: torch.Tensor) -> torch.Tensor:
+    """z_j = XOR over k >= j, j a subset of k, of x_k: the GF(2) superset
+    transform in 5 word-parallel stages (wavefront.py:451); bit-reversed, a
+    (0,2)-sequence partner of the radical inverse."""
+    x = x ^ ((x >> 1) & 0x55555555)
+    x = x ^ ((x >> 2) & 0x33333333)
+    x = x ^ ((x >> 4) & 0x0F0F0F0F)
+    x = x ^ ((x >> 8) & 0x00FF00FF)
+    return x ^ ((x >> 16) & 0x0000FFFF)
+
+
+def _site_seeds(ctr: int) -> list[int]:
+    """Three decorrelated 32-bit words for draw site `ctr`: splitmix64 of
+    the counter (wavefront.py:487)."""
+    m64 = (1 << 64) - 1
+    out = []
+    x = (ctr * 0x9E3779B97F4A7C15 + 0x632BE59BD9B4E019) & m64
+    for _ in range(3):
+        x = (x + 0x9E3779B97F4A7C15) & m64
+        z = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m64
+        out.append((z ^ (z >> 31)) & _M32)
+    return out
+
+
 class _Rng:
     """The JAX package's `_Rng(hw=False)` on (N,) lanes.
 
     "random": key = tile seed, mixed with the lane's position inside its
     rows*128 tile. "hash" (per_lane): key = a per-lane hash of (seed,
-    pixel id, sample id). Every draw is a pure function of (key, lane,
+    pixel id, sample id). "sobol" (sobol=(sample index, pixel hash)): every
+    draw shuffles and Owen-scrambles the lane's reversed sample index with
+    the words of its site; uniform2() is one point of a (0,2) pair and
+    advances the counter once. Every draw is a pure function of (key, lane,
     draw counter), and the counter advances the same on every lane."""
 
-    def __init__(self, key: torch.Tensor, lane: torch.Tensor | None):
+    def __init__(self, key: torch.Tensor | None, lane: torch.Tensor | None,
+                 sobol=None):
         self.key = key
         self.lane = lane
         self.ctr = 0
+        self.sobol = sobol is not None
+        if self.sobol:
+            si, self.ph = sobol
+            self.si_rev = lds.reverse_bits(si)
+
+    def _sobol_site(self):
+        """(shuffled index i, the site's third word, dimension 0 of i)."""
+        self.ctr += 1
+        c1, c2, c3 = _site_seeds(self.ctr)
+        i = lds.reverse_bits(lds.laine_karras(self.si_rev, self.ph ^ c1))
+        u1 = _bits_to_unit(lds.reverse_bits(lds.laine_karras(i,
+                                                             self.ph ^ c2)))
+        return i, c3, u1
 
     def uniform(self) -> torch.Tensor:
+        if self.sobol:
+            return self._sobol_site()[2]
         self.ctr += 1
         step = (self.ctr * 668265263) & _M32
         if self.lane is None:
@@ -639,13 +699,18 @@ class _Rng:
         return _bits_to_unit(_lowbias(x))
 
     def uniform2(self):
-        return self.uniform(), self.uniform()
+        if not self.sobol:
+            return self.uniform(), self.uniform()
+        i, c3, u1 = self._sobol_site()
+        u2 = _bits_to_unit(lds.reverse_bits(lds.laine_karras(
+            _superset_xor(i), self.ph ^ c3)))
+        return u1, u2
 
 
 def _single_pick(tile_seed: torch.Tensor, bounce: int, si0, L: int):
     """nee="single": the light picked for a whole tile at one bounce
     (wavefront.py:2213-2236); si0 is the sample index of the tile's first
-    lane under the "hash" sampler, else None."""
+    lane under the "hash" and "sobol" samplers, else None."""
     c = (tile_seed + ((bounce * 668265263) & 0x7FFFFFFF)) & _M32
     c = c ^ (c >> 16)
     c = _mul32(c, 0x85EBCA6B)
@@ -1323,11 +1388,56 @@ def _rng_keys(cfg: KernelConfig, n: int, seed: int, si, pix, device):
     lane_ids = torch.arange(n, dtype=torch.int64, device=device)
     tile_id = lane_ids // tile
     tile_seed = (seed + _mul32(tile_id, 2654435761 & 0x7FFFFFFF)) & _M32
-    if cfg.sampler == "hash":
+    if cfg.sampler in ("hash", "sobol"):
         si_u, pix_u = _u32(si), _u32(pix)
-        lane_seed = _pix_hash(si_u, _pix_hash(pix_u, seed & _M32))
-        return _Rng(lane_seed, None), tile_seed, si_u[tile_id * tile]
+        ph = _pix_hash(pix_u, seed & _M32)
+        rng = (_Rng(None, None, sobol=(si_u, ph)) if cfg.sampler == "sobol"
+               else _Rng(_pix_hash(si_u, ph), None))
+        return rng, tile_seed, si_u[tile_id * tile]
     return _Rng(tile_seed, lane_ids % tile), tile_seed, None
+
+
+def _kappa_dot(exponent, cos_alpha):
+    """d log f_phong / d e at a fixed direction, from the mirror dot:
+    1/(e+2) + log cos_alpha, clamped (kytpu's `_kappa_dot`). The one
+    definition behind every exponent adjoint: K2's "Bk"/"tuk" planes and
+    K4's accumulators use it. Callers mask it to phong lanes."""
+    cos_a = torch.clamp_min(cos_alpha, 1e-12)
+    return km.safe_div(1.0, exponent + 2.0) + torch.log(cos_a)
+
+
+def _kappa(exponent, wo_l: V3, wi_l: V3):
+    """`_kappa_dot` of the local mirror direction of wo_l and wi_l."""
+    return _kappa_dot(exponent, V3(-wo_l.x, -wo_l.y, wo_l.z).dot(wi_l))
+
+
+def _st(v: V3) -> torch.Tensor:
+    """V3 of (N,) planes -> (N, 3)."""
+    return torch.stack([v.x, v.y, v.z], dim=-1)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane dot of (N, 3) rows, summed as (x + y) + z."""
+    p = a * b
+    return (p[:, 0] + p[:, 1]) + p[:, 2]
+
+
+def _row_add(acc, ok_tab, sid, val):
+    """acc[lane, sid] += val where sid is a row allowed by ok_tab; acc is
+    (N, M) or (N, M, 3), val (N,) or (N, 3)."""
+    lanes = torch.arange(sid.shape[0], device=sid.device)
+    sc = sid.clamp_min(0).long()
+    ok = (sid >= 0) & ok_tab[sc]
+    if val.dim() == 2:
+        ok = ok[:, None]
+    acc[lanes, sc] = torch.where(ok, acc[lanes, sc] + val, acc[lanes, sc])
+
+
+def _where0(c, v: torch.Tensor) -> torch.Tensor:
+    """c ? v : 0 for (N,) masks and (N,) or (N, 3) values."""
+    if v.dim() == 2:
+        c = c[:, None]
+    return torch.where(c, v, torch.zeros_like(v))
 
 
 def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
@@ -1339,8 +1449,9 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
     (kytpu.kernels.wavefront._make_kernel with grad=False).
 
     o, d: (N, 3) float32 rays; seed: int; si, pix: (N,) int sample index
-    and pixel id, required by sampler="hash". Returns (N, 3) radiance.
-    Lane n sits in tile n // (cfg.rows*128), as in the JAX package.
+    and pixel id, required by the "hash" and "sobol" samplers. Returns
+    (N, 3) radiance. Lane n sits in tile n // (cfg.rows*128), as in the JAX
+    package.
 
     residual=True (K2) also returns the coefficient cache, (L, resf, resi):
     resf (res_n, N) float32 in `residual_layout`'s plane order and resi
@@ -1349,16 +1460,45 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
     11-15. A bounce a lane does not reach (it died before) has every float
     plane 0 and resi 0; the JAX package writes the same zeros but the sid of
     its frozen ray."""
+    return _trace_plain(tables, cfg, o, d, seed, si, pix,
+                        "residual" if residual else "forward")
+
+
+def bwd_replay_plain(tables: SceneTables, cfg: KernelConfig,
+                     o: torch.Tensor, d: torch.Tensor, seed: int, si, pix,
+                     g: torch.Tensor, big_l: torch.Tensor):
+    """Plain K4, the path-replay backward (kytpu's `_make_kernel` with
+    grad=True): the forward's arithmetic and random draws replayed on the
+    same lanes, with the upstream gradient g and the forward's radiance
+    big_l (N, 3) -> (dd, ds, de, denv[, dexp]) of shapes (M, 3) x 3, (3,)
+    [and (M,) under cfg.trainable_exponent].
+
+    Per bounce it peels the tail radiance R_{b+1} = (R_b - E_b) / T_b
+    (0 where the path ends), scatters the bounce's colour adjoints to its
+    row once, and sums the lanes in K3's fixed order (`sum_lanes`), so the
+    two backwards are the same sum over lanes of different per-lane
+    algebra."""
+    return _trace_plain(tables, cfg, o, d, seed, si, pix, "replay", g, big_l)
+
+
+def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
+                 si, pix, mode: str, g=None, big_l_in=None):
+    """The plain megakernel body. mode "forward" is K1, "residual" K2 and
+    "replay" K4: one body, as `wavefront_fwd_kernel<MODE>` is one template,
+    so K2 and K4 draw, hit and branch as K1 does."""
     check_config(cfg)
-    if cfg.sampler == "hash" and (si is None or pix is None):
-        raise ValueError('sampler="hash" needs si and pix lane arrays')
+    if cfg.sampler in ("hash", "sobol") and (si is None or pix is None):
+        raise ValueError(f'sampler="{cfg.sampler}" needs si and pix lane '
+                         'arrays')
+    residual, replay = mode == "residual", mode == "replay"
+    texp = cfg.trainable_exponent
     static = tables.static
     mats, lights = static["mats"], static["lights"]
     M, L = len(mats["kind"]), len(lights)
     world_radius = static["world_radius"]
     lobes = mats["lobes"]
     eval_lobes = lobes & {kbsdf.LAMBERT, kbsdf.PHONG}
-    static_exp = _static_exponent(mats)
+    static_exp = None if texp else _static_exponent(mats)
     has_plastic = kbsdf.MAT_PLASTIC in mats["kind"]
     has_glass = kbsdf.MAT_GLASS in mats["kind"]
     has_delta = bool(lobes & {kbsdf.MIRROR, kbsdf.GLASS})
@@ -1377,8 +1517,12 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
     i64t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)  # noqa
     kind_tab = i64t(mats["kind"])
     li_tab = i64t(mats["light_index"])
-    exp_tab, eta_tab = f32t(mats["exponent"]), f32t(mats["eta"])
+    eta_tab = f32t(mats["eta"])
     dprob_tab, sprob_tab = f32t(mats["d_prob"]), f32t(mats["s_prob"])
+    rows_x = kind_tab == kbsdf.MAT_PLASTIC
+    # trainable: the per-call table on plastic rows, 0 elsewhere
+    exp_tab = (torch.where(rows_x, tables.exponent.to(dev), 0.0) if texp
+               else f32t(mats["exponent"]))
 
     def row_of(sid, tab, fill):
         v = tab[sid.clamp_min(0).long()]
@@ -1407,6 +1551,14 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
         res_ix, res_n = residual_layout(static, cfg)
         planes = [None] * res_n
         ints = [None] * (cfg.max_depth + 1)
+    if replay:
+        g = g.to(dev, torch.float32)
+        r_tail = V3(*(big_l_in[:, c].to(dev, torch.float32)
+                      for c in range(3)))
+        light_row = _light_rows(static)
+        acc_d, acc_s, acc_e = (g.new_zeros((n, M, 3)) for _ in range(3))
+        acc_env = g.new_zeros((n, 3))
+        acc_x = g.new_zeros((n, M))
 
     for bounce in range(cfg.max_depth + 1):
         t, sid, valid, nrm = _closest_hit(static, o, d)
@@ -1439,9 +1591,14 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
             if full is not False:
                 w_emit = _where(full, 1.0, w_emit)
         wb = _where(alive, w_emit, 0.0)
-        big_l = big_l + beta * (le * wb)
+        e_term = le * wb
+        big_l = big_l + beta * e_term
         if residual:
             planes[res_ix[("wb", bounce)]] = _where(emit_mask, wb, 0.0)
+        if replay:
+            gb = g * _st(beta)
+            _row_add(acc_e, rows_e, sid, gb * _where(emit_mask, wb,
+                                                     0.0)[:, None])
 
         if env_i is not None:
             ones = torch.ones_like(o.x)
@@ -1455,8 +1612,11 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
                     w_env = _where(full, 1.0, w_env)
             wenv = _where(alive & ~valid, w_env, 0.0)
             big_l = big_l + beta * env_v * wenv
+            e_term = e_term + env_v * wenv
             if residual:
                 planes[res_ix[("wenv", bounce)]] = wenv
+            if replay:
+                acc_env = acc_env + gb * wenv[:, None]
 
         if bounce == cfg.max_depth:
             if residual:
@@ -1509,8 +1669,27 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
             if kbsdf.PHONG in eval_lobes else None
         col_nee_tbl = specular.where(lobe_is_phong, diffuse) \
             if has_plastic else diffuse
+        col_nee = _st(col_nee_tbl)
         nee_base = nee_act & ~color.is_black()
         ld = v3_zeros(o.x)
+        if replay:
+            # the bounce's colour adjoints, scattered to its row once
+            addc_diff = torch.zeros_like(g)
+            addc_spec = torch.zeros_like(g)
+            addx = torch.zeros_like(o.x)
+
+        def nee_adjoint(addc, kap):
+            """K4: one NEE term's colour and exponent adjoints (the caller
+            routes its emission adjoint)."""
+            nonlocal addc_diff, addc_spec, addx
+            if has_plastic:
+                addc_spec = addc_spec + _where0(lobe_is_phong, addc)
+                addc_diff = addc_diff + _where0(~lobe_is_phong, addc)
+            else:
+                addc_diff = addc_diff + addc
+            if texp:
+                addx = addx + _where0(lobe_is_phong,
+                                      _dot3(addc, col_nee) * kap)
 
         if picks_one_light(cfg, L):
             u1, u2 = rng.uniform2()
@@ -1548,8 +1727,21 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
             okf = _where(ok & ~occ, w * _f32(L), 0.0)
             bp = li_s * ucos * okf * lobe_scale
             ld = col_nee_tbl * emit_l * bp
+            kap = _kappa(exponent, wo_l, wi_l) if texp else None
             if residual:
                 planes[res_ix[("B", bounce, 0)]] = bp
+                if texp:
+                    planes[res_ix[("Bk", bounce, 0)]] = _where(
+                        lobe_is_phong, bp * kap, 0.0)
+            if replay:
+                add = gb * col_nee * bp[:, None]
+                for i in range(L):
+                    val = _where0(sel[i], add)
+                    if i in light_row:
+                        acc_e[:, light_row[i]] += val
+                    elif lights[i]["kind"] == klights.ENV:
+                        acc_env = acc_env + val
+                nee_adjoint(gb * emit_pick * bp[:, None], kap)
         else:
             u1, u2 = rng.uniform2()
             azim = None
@@ -1585,9 +1777,22 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
                 okf = _where(ok & ~occs[i], w * 1.0, 0.0)
                 bp = li_s * ucos * okf * lobe_scale
                 ld = ld + col_nee_tbl * emit_l * bp
+                kap = _kappa_dot(exponent, cos_aw) if texp else None
                 if residual:
                     planes[res_ix[("B", bounce, i)]] = bp
+                    if texp:
+                        planes[res_ix[("Bk", bounce, i)]] = _where(
+                            lobe_is_phong, bp * kap, 0.0)
+                if replay:
+                    add = gb * col_nee * bp[:, None]
+                    if i in light_row:
+                        acc_e[:, light_row[i]] += add
+                    elif lt["kind"] == klights.ENV:
+                        acc_env = acc_env + add
+                    nee_adjoint(gb * tables.light_emit[i] * bp[:, None],
+                                kap)
         big_l = big_l + beta * ld
+        e_term = e_term + ld
 
         # extension sample
         u1, u2 = rng.uniform2()
@@ -1610,16 +1815,37 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
             alive_n = ok & ~kill
         else:
             alive_n = ok
-        if residual:
+        to_spec_t = is_mirror | (is_glass & ~refract) | lobe_is_phong
+        if residual or replay:
             t_unit = f_unit_s * km.safe_div(torch.abs(wi_l.z), pdf_s) * scale
-            planes[res_ix[("tu", bounce)]] = _where(alive_n,
-                                                    t_unit * lobe_scale, 0.0)
-            to_spec_t = is_mirror | (is_glass & ~refract) | lobe_is_phong
+            tu_plane = _where(alive_n, t_unit * lobe_scale, 0.0)
+            kap_s = _kappa(exponent, wo_l, wi_l) if texp else None
+        if residual:
+            planes[res_ix[("tu", bounce)]] = tu_plane
+            if texp:
+                planes[res_ix[("tuk", bounce)]] = _where(
+                    lobe_is_phong, tu_plane * kap_s, 0.0)
             packed = (sid + 1) + lobe_is_phong.to(torch.int32) * 256 \
                 + to_spec_t.to(torch.int32) * 512
             if picks_one_light(cfg, L):
                 packed = packed + pick.to(torch.int32) * 2048
             ints[bounce] = _where(alive, packed, 0)
+        if replay:
+            # R_{b+1} = (R_b - E_b) / T_b per channel, 0 where the path ends
+            t_eff = _where0(alive_n, _st(thr * scale))
+            r_next = _where0(alive_n, km.safe_div(_st(r_tail) - _st(e_term),
+                                                  t_eff))
+            addt = gb * r_next * tu_plane[:, None]
+            addc_spec = addc_spec + _where0(to_spec_t, addt)
+            addc_diff = addc_diff + _where0(~to_spec_t, addt)
+            if texp:
+                addx = addx + _where0(lobe_is_phong,
+                                      _dot3(addt, col_nee) * kap_s)
+            _row_add(acc_d, rows_d, sid, addc_diff)
+            _row_add(acc_s, rows_s, sid, addc_spec)
+            if texp:
+                _row_add(acc_x, rows_x, sid, addx)
+            r_tail = V3(r_next[:, 0], r_next[:, 1], r_next[:, 2])
         o = _offset_origin(hp, nrm, wi_w).where(alive_n, o)
         d = wi_w.where(alive_n, d)
         beta = beta_new.where(alive_n, beta)
@@ -1628,6 +1854,10 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
         pdf_prev = torch.where(alive_n, pdf_s, pdf_prev)
         alive = alive_n
 
+    if replay:
+        acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1),
+               acc_e.reshape(n, -1), acc_env] + ([acc_x] if texp else [])
+        return split_grads(sum_lanes(torch.cat(acc, dim=1)), M)
     out = torch.stack([big_l.x, big_l.y, big_l.z], dim=-1)
     if not residual:
         return out
@@ -1672,11 +1902,13 @@ def sum_lanes(acc: torch.Tensor) -> torch.Tensor:
 
 
 def split_grads(vec: torch.Tensor, m_rows: int):
-    """K3's (9M+3,) gradient vector, dd | ds | de (each (M, 3) row-major) |
-    denv (3,), -> (dd, ds, de, denv)."""
+    """K3's and K4's gradient vector, dd | ds | de (each (M, 3) row-major)
+    | denv (3,) [| dexp (M,), under trainable_exponent: 10M+3 entries
+    instead of 9M+3], -> (dd, ds, de, denv[, dexp])."""
     m3 = 3 * m_rows
-    return (vec[:m3].reshape(m_rows, 3), vec[m3:2 * m3].reshape(m_rows, 3),
-            vec[2 * m3:3 * m3].reshape(m_rows, 3), vec[3 * m3:])
+    out = (vec[:m3].reshape(m_rows, 3), vec[m3:2 * m3].reshape(m_rows, 3),
+           vec[2 * m3:3 * m3].reshape(m_rows, 3), vec[3 * m3:3 * m3 + 3])
+    return out + ((vec[3 * m3 + 3:],) if len(vec) > 3 * m3 + 3 else ())
 
 
 def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
@@ -1684,9 +1916,10 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
                   resi: torch.Tensor):
     """Plain K3, the coefficient-cache backward (kytpu's
     `_make_bwd_res_kernel`) on lane tensors: upstream gradient g and
-    radiance big_l (N, 3), the cache of K2 -> (dd, ds, de, denv) of shapes
-    (M, 3), (M, 3), (M, 3), (3,), the per-lane adjoints summed in the
-    kernel's order (`sum_lanes`).
+    radiance big_l (N, 3), the cache of K2 -> (dd, ds, de, denv[, dexp]) of
+    shapes (M, 3), (M, 3), (M, 3), (3,)[, (M,) under
+    cfg.trainable_exponent], the per-lane adjoints summed in the kernel's
+    order (`sum_lanes`).
 
     Per bounce it reads sid and the lobe bits from resi and peels the tail
     radiance R_{b+1} = (R_b - E_b) / T_b, with E_b and T_b rebuilt
@@ -1697,7 +1930,9 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
     in the kernel's order. The NEE emission adjoint goes to the light's
     emitting row, or to env for the environment light; point and
     directional lights get none. Under nee="single" the picked light is
-    read from resi bits 11-15, never recomputed."""
+    read from resi bits 11-15, never recomputed. The exponent adjoint of a
+    plastic row is bilinear in the cache too: each "Bk" plane weighs the
+    NEE term's colour cotangent and "tuk" the extension's."""
     check_config(cfg)
     static = tables.static
     mats, lights = static["mats"], static["lights"]
@@ -1710,27 +1945,22 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
     single = picks_one_light(cfg, L)
     has_env = any(lt["kind"] == klights.ENV for lt in lights)
     light_row = _light_rows(static)
+    texp = cfg.trainable_exponent
     n = g.shape[0]
     dev = g.device
-    lanes = torch.arange(n, device=dev)
     kind_tab = torch.tensor(mats["kind"], device=dev)
     li_tab = torch.tensor(mats["light_index"], device=dev)
     ok_d = kind_tab != kbsdf.MAT_MIRROR
     ok_s = kind_tab != kbsdf.MAT_MATTE
     ok_e = li_tab >= 0
+    ok_x = kind_tab == kbsdf.MAT_PLASTIC
     acc_d = g.new_zeros((n, M, 3))
     acc_s = g.new_zeros((n, M, 3))
     acc_e = g.new_zeros((n, M, 3))
     acc_env = g.new_zeros((n, 3))
+    acc_x = g.new_zeros((n, M))
     emit_l = tables.light_emit
     env = tables.env
-
-    def row_add(acc, ok_tab, sid, val):
-        """acc[lane, sid] += val where sid is an eligible row."""
-        sc = sid.clamp_min(0).long()
-        ok = (sid >= 0) & ok_tab[sc]
-        acc[lanes, sc] = torch.where(ok[:, None], acc[lanes, sc] + val,
-                                     acc[lanes, sc])
 
     def sel(tab, ok_tab, sid):
         sc = sid.clamp_min(0).long()
@@ -1744,7 +1974,7 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         sid = (ib & 255) - 1
         wb = resf[res_ix[("wb", b)]][:, None]
         gb = g * beta
-        row_add(acc_e, ok_e, sid, gb * wb)
+        _row_add(acc_e, ok_e, sid, gb * wb)
         if has_env:
             wenv = resf[res_ix[("wenv", b)]][:, None]
             acc_env = acc_env + gb * wenv
@@ -1760,12 +1990,11 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         if has_env:
             e_term = e_term + env * wenv
         addc = torch.zeros_like(g)
-        if single:
-            picks = [(((ib >> 11) & 31).long(), res_ix[("B", b, 0)])]
-        else:
-            picks = [(i, res_ix[("B", b, i)]) for i in range(L)]
-        for pick, k in picks:
-            bp = resf[k][:, None]
+        addx = torch.zeros_like(g[:, 0])
+        picks = ([(((ib >> 11) & 31).long(), 0)] if single
+                 else [(i, i) for i in range(L)])
+        for pick, j in picks:
+            bp = resf[res_ix[("B", b, j)]][:, None]
             e_l = emit_l[pick]
             e_term = e_term + col_nee * e_l * bp
             add = gb * col_nee * bp
@@ -1777,21 +2006,29 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
                 elif lights[i]["kind"] == klights.ENV:
                     acc_env = acc_env + val
             addc = addc + gb * e_l * bp
+            if texp:
+                addx = addx + _dot3(gb * e_l, col_nee) \
+                    * resf[res_ix[("Bk", b, j)]]
         tu = resf[res_ix[("tu", b)]][:, None]
         t_eff = torch.where(to_spec, spec_sel, diff_sel) * tu
         r_next = km.safe_div(r_tail - e_term, t_eff)
         addt = gb * r_next * tu
         # NEE colour adjoint: to specular on phong lanes, else diffuse; the
         # extension's: to specular where the sampled lobe read it
-        row_add(acc_d, ok_d, sid, torch.where(phong, 0.0, addc)
-                + torch.where(to_spec, 0.0, addt))
-        row_add(acc_s, ok_s, sid, torch.where(phong, addc, 0.0)
-                + torch.where(to_spec, addt, 0.0))
+        _row_add(acc_d, ok_d, sid, torch.where(phong, 0.0, addc)
+                 + torch.where(to_spec, 0.0, addt))
+        _row_add(acc_s, ok_s, sid, torch.where(phong, addc, 0.0)
+                 + torch.where(to_spec, addt, 0.0))
+        if texp:
+            # "tuk" is 0 off phong lanes, whose extension read specular
+            addx = addx + _dot3(gb * r_next, spec_sel) \
+                * resf[res_ix[("tuk", b)]]
+            _row_add(acc_x, ok_x, sid, addx)
         beta = beta * t_eff
         r_tail = r_next
-    acc = torch.cat([acc_d.reshape(n, -1), acc_s.reshape(n, -1),
-                     acc_e.reshape(n, -1), acc_env], dim=1)
-    return split_grads(sum_lanes(acc), M)
+    acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1), acc_e.reshape(n, -1),
+           acc_env] + ([acc_x] if texp else [])
+    return split_grads(sum_lanes(torch.cat(acc, dim=1)), M)
 
 
 # ---------------------------------------------------------------------------
@@ -1800,19 +2037,29 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # kernel launches made by this process (set them to 0 to count a run): K1,
-# K2 (the residual forward) and K3 (the coefficient-cache backward)
+# K2 (the residual forward), K3 (the coefficient-cache backward) and K4
+# (the path-replay backward)
 launches = 0
 launches_res_fwd = 0
 launches_res_bwd = 0
+launches_replay = 0
+
+SAMPLERS = {"random": 0, "hash": 1, "sobol": 2}
+# the kernel keeps the sobol words of at most 4 draw sites a bounce in a
+# constant table (csrc/wavefront_fwd.cu MAX_SITES)
+MAX_SOBOL_DEPTH = 64
 
 
 def _i32(v: int) -> int:
     return ((int(v) + (1 << 31)) % (1 << 32)) - (1 << 31)
 
 
+_TABLES = ("f", "i", "diffuse", "specular", "emission", "exponent",
+           "light_emit", "env")
+
+
 def _check_tables(tables: SceneTables, dev):
-    for name in ("f", "i", "diffuse", "specular", "emission", "light_emit",
-                 "env"):
+    for name in _TABLES:
         t = getattr(tables, name)
         if t.device != dev:
             raise ValueError(f"table {name} is on {t.device}, the lanes on "
@@ -1823,14 +2070,21 @@ def _check_tables(tables: SceneTables, dev):
                              f"{'int32' if name == 'i' else 'float32'}")
 
 
-def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
-            residual: bool = False):
-    """K1 (or K2 with residual=True) on CUDA lanes -> radiance (or
-    (radiance, resf, resi)); raises if the kernel cannot be built or
-    launched."""
-    global launches, launches_res_fwd
-    from kytpu_torch.kernels import build
+def _check_lane_tensor(name, t, shape, dtype, dev):
+    if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {shape} {dtype} on {dev}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
+
+def _n_cols(tables: SceneTables, cfg: KernelConfig) -> int:
+    """Length of K3's and K4's gradient vector (`split_grads`)."""
+    m_rows = len(tables.static["mats"]["kind"])
+    return (10 if cfg.trainable_exponent else 9) * m_rows + 3
+
+
+def _lanes(tables: SceneTables, cfg: KernelConfig, o, d, si, pix):
+    """One launch's lanes, checked -> contiguous (o, d, si, pix) on o's
+    device; si and pix are None under the "random" sampler."""
     dev = o.device
     n = o.shape[0]
     if o.shape != (n, 3) or d.shape != (n, 3):
@@ -1839,23 +2093,56 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
     if d.device != dev:
         raise ValueError(f"d is on {d.device}, o on {dev}")
     _check_tables(tables, dev)
+    if cfg.sampler == "sobol" and cfg.max_depth > MAX_SOBOL_DEPTH:
+        raise ValueError(f'sampler="sobol" takes max_depth <= '
+                         f"{MAX_SOBOL_DEPTH} on the card")
     o = o.to(torch.float32).contiguous()
     d = d.to(torch.float32).contiguous()
-    hash_ = cfg.sampler == "hash"
-    if hash_:
-        if si is None or pix is None:
-            raise ValueError('sampler="hash" needs si and pix lane arrays')
-        si = si.to(device=dev, dtype=torch.int32).contiguous()
-        pix = pix.to(device=dev, dtype=torch.int32).contiguous()
-        if si.shape != (n,) or pix.shape != (n,):
-            raise ValueError(f"si and pix must be ({n},), got "
-                             f"{tuple(si.shape)} and {tuple(pix.shape)}")
+    if cfg.sampler == "random":
+        return o, d, None, None
+    if si is None or pix is None:
+        raise ValueError(f'sampler="{cfg.sampler}" needs si and pix lane '
+                         'arrays')
+    si = si.to(device=dev, dtype=torch.int32).contiguous()
+    pix = pix.to(device=dev, dtype=torch.int32).contiguous()
+    if si.shape != (n,) or pix.shape != (n,):
+        raise ValueError(f"si and pix must be ({n},), got {tuple(si.shape)} "
+                         f"and {tuple(pix.shape)}")
+    return o, d, si, pix
+
+
+def _lane_ptrs(tables: SceneTables, o, d, si, pix) -> list:
+    """The pointer arguments K1, K2 and K4 share: tables, rays, lane ids."""
+    return [getattr(tables, nm).data_ptr() for nm in _TABLES] + [
+        o.data_ptr(), d.data_ptr(), None if si is None else si.data_ptr(),
+        None if pix is None else pix.data_ptr()]
+
+
+def _cfg_args(cfg: KernelConfig, seed: int) -> list:
+    return [_i32(seed), cfg.max_depth, cfg.rr_start, cfg.rows,
+            SAMPLERS[cfg.sampler], int(cfg.shadow == "robust")]
+
+
+def _run(fn, name: str, dev, *args):
+    """fn(*args, stream) on dev's current stream; raises on a CUDA error."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
+            residual: bool = False):
+    """K1 (or K2 with residual=True) on CUDA lanes -> radiance (or
+    (radiance, resf, resi)); raises if the kernel cannot be built or
+    launched."""
+    global launches, launches_res_fwd
+    from kytpu_torch.kernels import build
+
+    o, d, si, pix = _lanes(tables, cfg, o, d, si, pix)
+    n, dev = o.shape[0], o.device
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    args = [tables.f.data_ptr(), tables.i.data_ptr(), tables.diffuse.data_ptr(),
-            tables.specular.data_ptr(), tables.emission.data_ptr(),
-            tables.light_emit.data_ptr(), tables.env.data_ptr(), o.data_ptr(),
-            d.data_ptr(), si.data_ptr() if hash_ else None,
-            pix.data_ptr() if hash_ else None, out.data_ptr()]
+    args = _lane_ptrs(tables, o, d, si, pix) + [out.data_ptr()]
     if residual:
         _, res_n = residual_layout(tables.static, cfg)
         # every plane of every lane is written by K2 (torch.empty, not zeros)
@@ -1864,14 +2151,9 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
                            device=dev)
         args += [resf.data_ptr(), resi.data_ptr()]
     lib = build.load()
-    fn = lib.kytpu_wavefront_fwd_res if residual else lib.kytpu_wavefront_fwd
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, n, _i32(seed), cfg.max_depth, cfg.rr_start, cfg.rows,
-                 int(hash_), int(cfg.shadow == "robust"), stream)
-    if err != 0:
-        raise RuntimeError(f"wavefront_fwd{'_res' if residual else ''} launch "
-                           f"failed: CUDA error {err}")
+    name = "wavefront_fwd_res" if residual else "wavefront_fwd"
+    _run(getattr(lib, "kytpu_" + name), name, dev, *args, n,
+         *_cfg_args(cfg, seed))
     if not residual:
         launches += 1
         return out
@@ -1881,8 +2163,8 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
 
 def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
                 resi) -> torch.Tensor:
-    """K3 on CUDA lanes -> the (9M+3,) gradient vector of `split_grads`;
-    raises if the kernel cannot be built or launched."""
+    """K3 on CUDA lanes -> the gradient vector of `split_grads`; raises if
+    the kernel cannot be built or launched."""
     global launches_res_bwd
     from kytpu_torch.kernels import build
 
@@ -1895,31 +2177,44 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
             ("L", big_l, (n, 3), torch.float32),
             ("resf", resf, (res_n, n), torch.float32),
             ("resi", resi, (cfg.max_depth + 1, n), torch.int32)):
-        if t.device != dev or tuple(t.shape) != shape or t.dtype != dt:
-            raise ValueError(f"{name}: expected {shape} {dt} on {dev}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        _check_lane_tensor(name, t, shape, dt, dev)
     _check_tables(tables, dev)
-    g = g.contiguous()
-    big_l = big_l.contiguous()
-    resf = resf.contiguous()
-    resi = resi.contiguous()
-    k = 9 * m_rows + 3
+    g, big_l = g.contiguous(), big_l.contiguous()
+    resf, resi = resf.contiguous(), resi.contiguous()
+    k = _n_cols(tables, cfg)
     nb = max(1, -(-n // BWD_THREADS))
     partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
     out = torch.empty((k,), dtype=torch.float32, device=dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.kytpu_wavefront_bwd_res(
-            tables.i.data_ptr(), tables.diffuse.data_ptr(),
-            tables.specular.data_ptr(), tables.emission.data_ptr(),
-            tables.light_emit.data_ptr(), tables.env.data_ptr(), g.data_ptr(),
-            big_l.data_ptr(), resf.data_ptr(), resi.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), n, m_rows, cfg.max_depth,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"wavefront_bwd_res launch failed: CUDA error {err}")
+    _run(build.load().kytpu_wavefront_bwd_res, "wavefront_bwd_res", dev,
+         tables.i.data_ptr(), tables.diffuse.data_ptr(),
+         tables.specular.data_ptr(), tables.emission.data_ptr(),
+         tables.light_emit.data_ptr(), tables.env.data_ptr(), g.data_ptr(),
+         big_l.data_ptr(), resf.data_ptr(), resi.data_ptr(),
+         partial.data_ptr(), out.data_ptr(), n, m_rows, k, cfg.max_depth)
     launches_res_bwd += 1
+    return out
+
+
+def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
+                   pix, g, big_l) -> torch.Tensor:
+    """K4 on CUDA lanes -> the gradient vector of `split_grads`; raises if
+    the kernel cannot be built or launched."""
+    global launches_replay
+    from kytpu_torch.kernels import build
+
+    o, d, si, pix = _lanes(tables, cfg, o, d, si, pix)
+    n, dev = o.shape[0], o.device
+    _check_lane_tensor("g", g, (n, 3), torch.float32, dev)
+    _check_lane_tensor("L", big_l, (n, 3), torch.float32, dev)
+    g, big_l = g.contiguous(), big_l.contiguous()
+    k = _n_cols(tables, cfg)
+    nb = max(1, -(-n // BWD_THREADS))
+    partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
+    out = torch.empty((k,), dtype=torch.float32, device=dev)
+    _run(build.load().kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", dev,
+         *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(), big_l.data_ptr(),
+         partial.data_ptr(), out.data_ptr(), n, k, *_cfg_args(cfg, seed))
+    launches_replay += 1
     return out
 
 
@@ -1927,10 +2222,10 @@ def make_cuda_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None):
     """Lane tracer for `scene`'s geometry (kytpu's make_pallas_tracer).
 
     Returns fn(scene, o, d, seed, si=None, pix=None) -> (N, 3) radiance.
-    The geometry tables are packed once; the colour tables are read from the
-    `scene` given at each call, so parameter updates need no new tracer.
-    CUDA tensors launch the kernel (and raise if it cannot be built or
-    launched); CPU tensors run `trace_lanes_plain`."""
+    The geometry tables are packed once; the colour and exponent tables are
+    read from the `scene` given at each call, so parameter updates need no
+    new tracer. CUDA tensors launch the kernel (and raise if it cannot be
+    built or launched); CPU tensors run `trace_lanes_plain`."""
     cfg = cfg or KernelConfig()
     check_config(cfg)
     geo = pack_tables(scene, cfg)
@@ -1958,12 +2253,25 @@ def trace_lanes(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
 
 
 def bwd_res(tables: SceneTables, cfg: KernelConfig, g, big_l, resf, resi):
-    """K3 -> (dd, ds, de, denv): CUDA lanes launch the kernel or raise, CPU
-    lanes run `bwd_res_plain`."""
+    """K3 -> (dd, ds, de, denv[, dexp]): CUDA lanes launch the kernel or
+    raise, CPU lanes run `bwd_res_plain`."""
     if _on_card(g.device):
         return split_grads(_launch_bwd(tables, cfg, g, big_l, resf, resi),
                            len(tables.static["mats"]["kind"]))
     return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
+
+
+def bwd_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed: int, si,
+               pix, g, big_l):
+    """K4 -> (dd, ds, de, denv[, dexp]) on the lanes (o, d, seed, si, pix)
+    that the forward traced, its radiance big_l and the upstream gradient
+    g: CUDA lanes launch the kernel or raise, CPU lanes run
+    `bwd_replay_plain`."""
+    if _on_card(o.device):
+        return split_grads(_launch_replay(tables, cfg, o, d, seed, si, pix,
+                                          g, big_l),
+                           len(tables.static["mats"]["kind"]))
+    return bwd_replay_plain(tables, cfg, o, d, seed, si, pix, g, big_l)
 
 
 def render_lanes_cuda(scene, o, d, seed: int, cfg: KernelConfig | None = None,
@@ -1975,14 +2283,16 @@ def render_lanes_cuda(scene, o, d, seed: int, cfg: KernelConfig | None = None,
 
 class _DiffTables:
     """A diff tracer's scene: the geometry tables packed once, and the
-    colour tables of each call, NEE light emissions derived from them."""
+    colour (and exponent) tables of each call, NEE light emissions derived
+    from them."""
 
     def __init__(self, scene: kscene.Scene, cfg: KernelConfig):
         self.scene = scene
         self.cfg = cfg
         self.geo = pack_tables(scene, cfg)
 
-    def __call__(self, diffuse, specular, emission, env) -> SceneTables:
+    def __call__(self, diffuse, specular, emission, env,
+                 exponent=None) -> SceneTables:
         dev = self.geo.f.device
         f32 = lambda t: t.detach().to(device=dev,  # noqa: E731
                                       dtype=torch.float32).contiguous()
@@ -1991,20 +2301,33 @@ class _DiffTables:
         return dataclasses.replace(
             self.geo, diffuse=f32(diffuse), specular=f32(specular),
             emission=emission, env=env,
+            exponent=self.geo.exponent if exponent is None else f32(exponent),
             light_emit=light_emit_of(self.scene, emission, env).contiguous())
 
 
+def _table_grads(ctx, grads):
+    """(dd, ds, de, denv[, dexp]) -> the gradients of the Functions' inputs
+    (tabs, diffuse, specular, emission, exponent, env, o, d, seed, si,
+    pix), None where no gradient was asked for."""
+    dd, ds, de, denv = grads[:4]
+    dexp = grads[4] if len(grads) > 4 else None
+    need = ctx.needs_input_grad
+    return (None, *(gr if need[1 + k] else None
+                    for k, gr in enumerate((dd, ds, de, dexp, denv))),
+            None, None, None, None, None)
+
+
 class _ResidualTrace(torch.autograd.Function):
-    """The forward launches K2 and keeps its cache when a colour table needs
-    a gradient (K1 otherwise); the backward launches K3. Rays, seed and the
+    """The forward launches K2 and keeps its cache when a table needs a
+    gradient (K1 otherwise); the backward launches K3. Rays, seed and the
     lane ids get no gradient (geometry derivatives are out of scope, as in
     the JAX package's detached-sampling estimator)."""
 
     @staticmethod
-    def forward(ctx, tabs, diffuse, specular, emission, env, o, d, seed, si,
-                pix):
-        tables = tabs(diffuse, specular, emission, env)
-        if not any(ctx.needs_input_grad[1:5]):
+    def forward(ctx, tabs, diffuse, specular, emission, exponent, env, o, d,
+                seed, si, pix):
+        tables = tabs(diffuse, specular, emission, env, exponent)
+        if not any(ctx.needs_input_grad[1:6]):
             return trace_lanes(tables, tabs.cfg, o, d, seed, si, pix)
         big_l, resf, resi = trace_lanes(tables, tabs.cfg, o, d, seed, si, pix,
                                         residual=True)
@@ -2016,12 +2339,34 @@ class _ResidualTrace(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         big_l, resf, resi = ctx.saved_tensors
-        grads = bwd_res(ctx.tables, ctx.cfg, g.to(torch.float32).contiguous(),
-                        big_l, resf, resi)
-        need = ctx.needs_input_grad
-        return (None, *(gr if need[1 + k] else None
-                        for k, gr in enumerate(grads)),
-                None, None, None, None, None)
+        return _table_grads(ctx, bwd_res(
+            ctx.tables, ctx.cfg, g.to(torch.float32).contiguous(), big_l,
+            resf, resi))
+
+
+class _ReplayTrace(torch.autograd.Function):
+    """The forward launches K1 and, when a table needs a gradient, keeps
+    the lanes and the radiance (no cache: O(1) memory a lane beyond the
+    inputs); the backward launches K4, which re-traces the lanes."""
+
+    @staticmethod
+    def forward(ctx, tabs, diffuse, specular, emission, exponent, env, o, d,
+                seed, si, pix):
+        tables = tabs(diffuse, specular, emission, env, exponent)
+        big_l = trace_lanes(tables, tabs.cfg, o, d, seed, si, pix)
+        if any(ctx.needs_input_grad[1:6]):
+            ctx.tables = tables
+            ctx.cfg = tabs.cfg
+            ctx.seed = seed
+            ctx.save_for_backward(o, d, si, pix, big_l)
+        return big_l
+
+    @staticmethod
+    def backward(ctx, g):
+        o, d, si, pix, big_l = ctx.saved_tensors
+        return _table_grads(ctx, bwd_replay(
+            ctx.tables, ctx.cfg, o, d, ctx.seed, si, pix,
+            g.to(torch.float32).contiguous(), big_l))
 
 
 def make_cuda_diff_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None,
@@ -2029,34 +2374,39 @@ def make_cuda_diff_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None,
     """Differentiable lane tracer (kytpu's make_pallas_diff_tracer) for
     `scene`'s geometry.
 
-    Returns fn(diffuse, specular, emission, env, o, d, seed, si=None,
-    pix=None) -> (N, 3) radiance, a torch.autograd.Function whose gradient
-    is (d_diffuse, d_specular, d_emission, d_env) by detached sampling,
-    the NEE light-emission adjoints routed to each light's emitting
-    surface row (or to `env`) as `diff.params.set_params` ties them. `env`
-    is the (3,) environment radiance (zeros for a scene without one). NEE
-    reads light emissions derived from the traced `emission` and `env`
-    (`light_emit_of`). When a colour table requires grad the forward runs
-    K2 and keeps its coefficient cache (resf, resi) and radiance for the
-    backward, K3; otherwise it runs K1. CUDA tensors launch the kernels or
-    raise, CPU tensors run their plain versions.
+    Returns fn(diffuse, specular, emission, [exponent,] env, o, d, seed[,
+    si, pix]) -> (N, 3) radiance, a torch.autograd.Function whose gradient
+    is (d_diffuse, d_specular, d_emission, [d_exponent,] d_env) by detached
+    sampling, the NEE light-emission adjoints routed to each light's
+    emitting surface row (or to `env`) as `diff.params.set_params` ties
+    them. `exponent` is there iff cfg.trainable_exponent (the signature is
+    keyed on the cfg alone, as kytpu's); its gradient is 0 on every row
+    but the plastic ones. `env` is the (3,) environment radiance (zeros for
+    a scene without one). NEE reads light emissions derived from the traced
+    `emission` and `env` (`light_emit_of`).
 
-    backward="replay" (the path-replay backward, K4) and
-    cfg.trainable_exponent are not ported yet and raise."""
+    backward="residual": when a table requires grad the forward runs K2
+    and keeps its coefficient cache (resf, resi) and radiance for the
+    backward, K3; otherwise it runs K1. backward="replay": the forward runs
+    K1 and keeps the lanes and radiance, the backward K4 re-traces them
+    (no cache). CUDA tensors launch the kernels or raise, CPU tensors run
+    their plain versions."""
     cfg = cfg or KernelConfig()
-    if backward == "replay":
-        raise NotImplementedError(
-            "backward='replay' is K4, the path-replay backward, on the "
-            "port's ROADMAP queue")
-    if backward != "residual":
+    fn = {"residual": _ResidualTrace, "replay": _ReplayTrace}.get(backward)
+    if fn is None:
         raise ValueError(f"unknown backward {backward!r}")
     check_config(cfg)
     tabs = _DiffTables(scene, cfg)
 
-    def trace(diffuse, specular, emission, env, o, d, seed, si=None,
-              pix=None):
-        return _ResidualTrace.apply(tabs, diffuse, specular, emission, env, o,
-                                    d, seed, si, pix)
+    def trace(diffuse, specular, emission, *rest):
+        rest = list(rest)
+        exponent = rest.pop(0) if cfg.trainable_exponent and rest else None
+        if len(rest) not in (4, 6):
+            raise TypeError("expected (env, o, d, seed[, si, pix]) after the "
+                            "tables")
+        env, o, d, seed, si, pix = rest + [None] * (6 - len(rest))
+        return fn.apply(tabs, diffuse, specular, emission, exponent, env, o,
+                        d, seed, si, pix)
 
     return trace
 
@@ -2070,9 +2420,11 @@ def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
     Each pass traces k = min(spp, rays_per_pass // npix) samples of every
     pixel. "random": pass p jitters the camera with
     uniform(fold_in(key, p), (k*npix, 2)) and traces with seed + 7919*p.
-    "hash": the seed stays fixed, lane (sample s, pixel q) jitters with
-    uniform(fold_in(key, s*npix + q), (2,)) and carries (s, q) into the
-    kernel, so a frame does not depend on the pass split."""
+    "hash" and "sobol": the seed stays fixed and lane (sample s, pixel q)
+    carries (s, q) into the kernel, so a frame does not depend on the pass
+    split; "hash" jitters with uniform(fold_in(key, s*npix + q), (2,)),
+    "sobol" with point s of pixel q's Owen-Sobol sequence,
+    uniform2(fold_in(key, q), "sobol", s)."""
     cfg = cfg or KernelConfig()
     if tracer is None:
         tracer = make_cuda_tracer(scene, cfg)
@@ -2086,13 +2438,19 @@ def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
     py0 = (pid // w).to(torch.float32).repeat(k)
     pid_k = pid.repeat(k)
     key = krng.key(seed, dev)
+    if cfg.sampler == "sobol":
+        # the camera-jitter site: a key per pixel, the same for every sample
+        cam_keys = krng.fold_in(key, pid_k)
     accum = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     s0 = p = 0
     while s0 < spp:
-        if cfg.sampler == "hash":
+        if cfg.sampler in ("hash", "sobol"):
             si = p * k + torch.arange(k, dtype=torch.int64,
                                       device=dev).repeat_interleave(npix)
-            u = krng.uniform(krng.fold_in(key, si * npix + pid_k), (2,))
+            if cfg.sampler == "sobol":
+                u = krng.uniform2(cam_keys, "sobol", si)
+            else:
+                u = krng.uniform(krng.fold_in(key, si * npix + pid_k), (2,))
             args = (seed, _as_i32(si & _M32), pid_k.to(torch.int32))
         else:
             u = krng.uniform(krng.fold_in(key, p), (k * npix, 2))

@@ -1,5 +1,6 @@
-"""The CUDA forward megakernel against its plain PyTorch version, on the
-card. Needs a CUDA device and nvcc; skipped elsewhere. Run on the card with
+"""The CUDA megakernels (K1, K2, K3, K4; every sampler, both exponent modes)
+against their plain PyTorch versions, on the card. Needs a CUDA device and
+nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 
@@ -183,3 +184,89 @@ def test_train_step_on_card(cuda):
                                                            before[1] + 3)
     assert np.isfinite(losses).all()
     assert all((p >= 0).all() and p.is_cuda for p in params.values())
+
+
+REPLAY_CASES = [("veach", "sobol", "all", "parity", True),
+                ("veach", "random", "single", "robust", False),
+                ("cornell_lights", "hash", "single", "robust", False),
+                ("cornell_lights", "sobol", "all", "parity", True),
+                ("many_lights_32", "sobol", "single", "parity", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene, sampler, nee, shadow, texp", REPLAY_CASES)
+def test_replay_and_exponent_kernels_on_card(cuda, scene, sampler, nee, shadow,
+                                              texp):
+    """The path-replay backward K4, the sobol sampler and the trainable
+    exponent through K1-K4: K1 against the plain K1 (as above), K2's cache
+    (its "Bk"/"tuk" planes included) and K3's and K4's gradients (dexp
+    included) against their plain versions (rtol=1e-4, atol=1e-6 of the
+    table's largest entry), K4 against itself (bit for bit) and against K3
+    (rtol=2e-3, atol=2e-5 of the largest entry, the reference's bound)."""
+    sc = _card_scene(scene, cuda)
+    o, d, si, pix = _card_lanes(sc, cuda)
+    cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee,
+                           shadow=shadow, trainable_exponent=texp)
+    tables = kwf.pack_tables(sc, cfg)
+    counts = (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
+              kwf.launches_replay)
+    k1 = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix)
+    k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix,
+                                     residual=True)
+    g = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    k3 = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
+    k4 = kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k1)
+    again = kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k1)
+    torch.cuda.synchronize()
+    assert (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
+            kwf.launches_replay) == (counts[0] + 1, counts[1] + 1,
+                                     counts[2] + 1, counts[3] + 2)
+    assert torch.equal(k1, k2)
+    assert len(k4) == (5 if texp else 4)
+    for a, b in zip(k4, again):
+        assert torch.equal(a, b)
+    ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tables, cfg, o, d, 3, si, pix,
+                                                residual=True)
+    for got, ref in ((k1, ref_l), (resf.T, ref_f.T)):
+        g_, r_ = got.cpu().numpy(), ref.cpu().numpy()
+        assert np.isfinite(g_).all()
+        bad = (~np.isclose(g_, r_, rtol=1e-3, atol=1e-4)).any(-1).mean()
+        assert bad <= 0.005, bad
+    assert ((resi != ref_i).any(0).float().mean()) <= 0.005
+    refs = (kwf.bwd_res_plain(tables, cfg, g, ref_l, ref_f, ref_i),
+            kwf.bwd_replay_plain(tables, cfg, o, d, 3, si, pix, g, ref_l))
+    for grads, ref_g in zip((k3, k4), refs):
+        for a, b in zip(grads, ref_g):
+            b = b.cpu().numpy()
+            np.testing.assert_allclose(a.cpu().numpy(), b, rtol=1e-4,
+                                       atol=1e-6 * max(1.0, np.abs(b).max()))
+    for a, b in zip(k4, k3):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=2e-3,
+                                   atol=2e-5 * max(1.0, np.abs(b).max()))
+
+
+@pytest.mark.cuda
+def test_replay_tracer_launches_k4(cuda):
+    """make_cuda_diff_tracer(backward="replay") on the card: K1 forward, K4
+    backward (launches counted), the gradient K4's."""
+    sc = _card_scene("veach", cuda)
+    o, d, si, pix = _card_lanes(sc, cuda)
+    cfg = kwf.KernelConfig(max_depth=5, sampler="sobol",
+                           trainable_exponent=True)
+    tracer = kwf.make_cuda_diff_tracer(sc, cfg, backward="replay")
+    leaves = [t.clone().requires_grad_() for t in (
+        sc.mat_diffuse, sc.mat_specular, sc.emission, sc.mat_exponent)]
+    env = torch.zeros(3, device=cuda)
+    before = (kwf.launches, kwf.launches_replay)
+    out = tracer(*leaves, env, o, d, 3, si, pix)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (kwf.launches, kwf.launches_replay) == (before[0] + 1,
+                                                   before[1] + 1)
+    tables = kwf._DiffTables(sc, cfg)(*leaves[:3], env, leaves[3])
+    ref = kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, torch.ones_like(out),
+                         out.detach())
+    for leaf, r in zip(leaves, ref[:3] + ref[4:]):
+        assert torch.equal(leaf.grad, r)

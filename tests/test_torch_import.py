@@ -64,8 +64,6 @@ def test_tracer_runs_the_plain_version_only_on_cpu_tensors():
     (dict(engine="fast"), "M7"),
     (dict(engine="path"), "M7"),
     (dict(engine="bigscene"), "M8"),
-    (dict(cfg=kwf.KernelConfig(sampler="sobol")), "sobol"),
-    (dict(cfg=kwf.KernelConfig(trainable_exponent=True)), "K4"),
 ])
 def test_unported_paths_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

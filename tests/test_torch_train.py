@@ -116,7 +116,6 @@ def test_hash_single_gradient_matches_finite_differences():
 @pytest.mark.parametrize("kwargs, item", [
     (dict(mesh=object()), "M10"),
     (dict(engine="jnp"), "M7"),
-    (dict(names=("mat_diffuse", "mat_exponent")), "K4"),
     (dict(names=("tex_color_a",)), "M9"),
 ])
 def test_train_step_refuses_unported(kwargs, item):
@@ -131,12 +130,6 @@ def test_train_step_refuses_big_scenes():
     with pytest.raises(NotImplementedError, match="M8"):
         tinv.make_train_step(sc, np.zeros((16, 24, 3), np.float32),
                              device="cpu")
-
-
-def test_replay_backward_raises():
-    with pytest.raises(NotImplementedError, match="K4"):
-        twf.make_cuda_diff_tracer(tb.cornell_box(width=4, height=4),
-                                  backward="replay")
 
 
 def test_train_step_defaults_to_the_card():

@@ -73,7 +73,7 @@ def trace_both(name, sampler, nee, shadow, n=2048, seed=7, max_depth=2):
     o, d, si, pix = camera_rays(jsc, n)
     tracer = jwf.make_pallas_tracer(jsc, jwf.KernelConfig(**kw),
                                     interpret=True)
-    extra = ((jnp.asarray(si), jnp.asarray(pix)) if sampler == "hash"
+    extra = ((jnp.asarray(si), jnp.asarray(pix)) if sampler != "random"
              else ())
     ref = np.asarray(tracer(jsc, jnp.asarray(o), jnp.asarray(d),
                             jnp.int32(seed), *extra))

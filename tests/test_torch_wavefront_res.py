@@ -8,7 +8,7 @@ and through `torch.autograd` of the port's `make_cuda_diff_tracer` on CPU
 tensors (the plain versions), 2048 lanes at depth 2, rows=8.
 
 Tolerances:
-- gradients: |port - kytpu| <= 1e-4 |kytpu| + 1e-6 max|kytpu| per table
+- gradients: |port - kytpu| <= 1e-4 |kytpu| + 1e-6 max(1, max|kytpu|) per table
   (float32 sums over 2048 lanes taken in another order); entries that are
   structurally zero (a mirror row's diffuse, a matte row's specular, a
   non-light row's emission, env without an environment) are exactly 0 in
@@ -37,40 +37,55 @@ from tests.test_torch_wavefront import SCENES, camera_rays
 N = 2048
 
 
-def trace_grads(name, sampler, nee, n=N, seed=7):
-    """kytpu's and the port's (radiance, (dd, ds, de, denv), resf, resi) on
-    the same lanes and upstream gradient, all numpy."""
+def trace_grads(name, sampler, nee, n=N, seed=7, shadow="parity",
+                backward="residual", texp=False, max_depth=2):
+    """kytpu's and the port's (radiance, (dd, ds, de, denv[, dexp]), resf,
+    resi) on the same lanes and upstream gradient, all numpy, through
+    `backward` (texp: cfg.trainable_exponent, the exponent a traced table).
+    resf/resi are kytpu's residuals and the port's plain K2 cache; kytpu
+    has none under backward="replay" (None there)."""
     jsc, tsc = SCENES[name](jb), SCENES[name](tb)
-    kw = dict(max_depth=2, rr_start=0, rows=8, sampler=sampler, nee=nee,
-              shadow="parity")
+    kw = dict(max_depth=max_depth, rr_start=0, rows=8, sampler=sampler,
+              nee=nee, shadow=shadow, trainable_exponent=texp)
     o, d, si, pix = camera_rays(jsc, n)
     g = np.random.default_rng(3).standard_normal((n, 3)).astype(np.float32)
     env = (np.asarray(jsc.env_radiance_, np.float32) if jsc.has_env
            else np.zeros(3, np.float32))
+    # the tracers' table order: diffuse, specular, emission, [exponent,] env
+    order = [0, 1, 2, 4, 3] if texp else [0, 1, 2, 3]
 
     tracer = jwf.make_pallas_diff_tracer(jsc, jwf.KernelConfig(**kw),
-                                         interpret=True)
-    extra = ((jnp.asarray(si), jnp.asarray(pix)) if sampler == "hash"
+                                         interpret=True, backward=backward)
+    extra = ((jnp.asarray(si), jnp.asarray(pix)) if sampler != "random"
              else ())
+    jtabs = [jsc.mat_diffuse, jsc.mat_specular, jsc.emission,
+             jnp.asarray(env), jsc.mat_exponent][:len(order)]
     out, vjp = jax.vjp(
-        lambda a, b, c, e: tracer(a, b, c, e, jnp.asarray(o), jnp.asarray(d),
-                                  jnp.int32(seed), *extra),
-        jsc.mat_diffuse, jsc.mat_specular, jsc.emission, jnp.asarray(env))
-    jgrads = [np.asarray(x) for x in vjp(jnp.asarray(g))]
-    # the custom vjp's residuals: resf (res_n, rows, 128), resi (D+1, ...)
-    res = [np.asarray(x) for x in jax.tree_util.tree_leaves(vjp)
-           if getattr(x, "ndim", 0) == 3]
-    jresf = next(x for x in res if x.dtype == np.float32)
-    jresi = next(x for x in res if x.dtype == np.int32)
-    ref = (np.asarray(out), jgrads, jresf.reshape(len(jresf), -1)[:, :n],
-           jresi.reshape(len(jresi), -1)[:, :n])
+        lambda *p: tracer(*p, jnp.asarray(o), jnp.asarray(d),
+                          jnp.int32(seed), *extra),
+        *[jtabs[k] for k in order])
+    jg = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    jgrads = [jg[order.index(k)] for k in range(len(order))]
+    jresf = jresi = None
+    if backward == "residual":
+        # the custom vjp's residuals: resf (res_n, rows, 128), resi (D+1,
+        # ...)
+        res = [np.asarray(x) for x in jax.tree_util.tree_leaves(vjp)
+               if getattr(x, "ndim", 0) == 3]
+        jresf = next(x for x in res if x.dtype == np.float32)
+        jresf = jresf.reshape(len(jresf), -1)[:, :n]
+        jresi = next(x for x in res if x.dtype == np.int32)
+        jresi = jresi.reshape(len(jresi), -1)[:, :n]
+    ref = (np.asarray(out), jgrads, jresf, jresi)
 
     cfg = twf.KernelConfig(**kw)
-    leaves = [t.clone().requires_grad_() for t in (
-        tsc.mat_diffuse, tsc.mat_specular, tsc.emission, torch.tensor(env))]
+    ttabs = [tsc.mat_diffuse, tsc.mat_specular, tsc.emission,
+             torch.tensor(env), tsc.mat_exponent][:len(order)]
+    leaves = [t.clone().requires_grad_() for t in ttabs]
     lanes = [torch.from_numpy(np.array(a)) for a in (o, d, si, pix)]
-    out_t = twf.make_cuda_diff_tracer(tsc, cfg)(*leaves, lanes[0], lanes[1],
-                                                seed, lanes[2], lanes[3])
+    out_t = twf.make_cuda_diff_tracer(tsc, cfg, backward)(
+        *[leaves[k] for k in order], lanes[0], lanes[1], seed, lanes[2],
+        lanes[3])
     out_t.backward(torch.from_numpy(g))
     tables = twf._DiffTables(tsc, cfg)(*[t.detach() for t in leaves])
     big_l, resf, resi = twf.trace_lanes_plain(tables, cfg, *lanes[:2], seed,
@@ -81,16 +96,19 @@ def trace_grads(name, sampler, nee, n=N, seed=7):
     return got, ref, jwf.extract_static(jsc)
 
 
-def grads_agree(got, ref, static):
+def grads_agree(got, ref, static, rtol=1e-4, atol=1e-6):
+    """(dd, ds, de, denv[, dexp]) within rtol plus atol of each table's
+    largest entry, and exactly 0 in both where the entry is structurally
+    zero (dexp: every row but the plastic ones)."""
     kinds = np.asarray(static["mats"]["kind"])
     light = np.asarray(static["mats"]["light_index"]) >= 0
     has_env = any(lt["kind"] == jlights.ENV for lt in static["lights"])
     structural = [kinds == jbsdf.MAT_MIRROR, kinds == jbsdf.MAT_MATTE, ~light,
-                  np.array(not has_env)]
-    for name, a, b, zero in zip(("dd", "ds", "de", "denv"), got, ref,
+                  np.array(not has_env), kinds != jbsdf.MAT_PLASTIC]
+    for name, a, b, zero in zip(("dd", "ds", "de", "denv", "dexp"), got, ref,
                                 structural):
         scale = max(1.0, float(np.abs(b).max()))
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6 * scale,
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol * scale,
                                    err_msg=name)
         assert (a[zero] == 0).all() and (b[zero] == 0).all(), name
     assert any(np.abs(a).max() > 1e-3 for a in got)   # not trivially zero
