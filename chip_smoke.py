@@ -67,11 +67,41 @@ Phases, one line each (a few for phase 3):
      rendered at 64 spp: launches counted, ms per step, one step profiled,
      one key; the loss must fall from step 1 to step 5 and so must the mean
      |log e - log e_true| over the plank rows; a sixth step's own K2 and K3
-     calls against their plain versions, as in phase 7.
+     calls against their plain versions, as in phase 7;
+  9. big scenes, past 64 surfaces, on the table-driven kernels of
+     kernels/bigscene.py: random_spheres(n=1024) (1,026 surfaces) and
+     mesh_scene(icosphere(3)) (1,282) at 256x256.
+     a. K5, K6 and K7 against their plain versions on 64K camera rays at
+        depth 3 of each scene, under each sampler, both shadow modes and
+        both exponent modes (the bounds of phase 3); K6's radiance against
+        K5's and K7 against itself, bit for bit;
+     b. K5 against K1 on the Cornell box (256K lanes, depth 5): the share
+        of lanes within 1e-3 (at least 99.5%; K5 reads each hit's Phong
+        exponent from its row, K1 folds the scene's one exponent into
+        constants), and a 16-spp frame through render(engine="bigscene");
+     c. 16-spp frames of both scenes at depth 3 through render(), the main
+        path (render routes past 64 surfaces to K5; launches counted, K1-K4
+        must stay at 0), each against the same frame through the plain K5,
+        then 5 warmed frames and one profiled: busy time, K5's share, idle
+        share;
+     d. benchmarks/run.py's K5 workload (spheres, 1M pixel-centre lanes,
+        depth 3): K5, K6 and K7 under CUDA events, the plain versions once
+        each and the kernels against them, forward+backward through
+        make_bigscene_diff_tracer (time, peak memory, its gradient K7's bit
+        for bit), and the bounds of K5 (`k5_ops`), K6 and K7;
+     e. training past 64 surfaces, the third main path: five
+        make_train_step steps on the spheres at 256x256, 4 spp, depth 3,
+        hash, from the true scene with the spheres' diffuse colours scaled
+        by 0.4, one key, against the true scene at 64 spp: launches counted
+        (K6 and K7, and K1-K4 at 0), the loss falling at every step, ms per
+        step, one step profiled, and a sixth step's own K6 and K7 calls
+        against their plain versions, as in phase 7.
 The line before the last is the kernels' JSON record, the one before it
 nvidia-smi's name and power limit, and the last line is
 {"ok": true, "device": {...}}. Any failed check raises: no result is printed
-and the exit code is not 0. It needs a CUDA device and imports no JAX.
+and the exit code is not 0, and the last line on standard error repeats the
+last line printed before the failure, so the tail of standard error alone
+says which check was running. It needs a CUDA device and imports no JAX.
 """
 
 from __future__ import annotations
@@ -82,6 +112,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -193,6 +224,39 @@ def k3_ops(static, cfg, n: int) -> float:
     return float(n * (cfg.max_depth * (45 + 27 * n_b) + 6))
 
 
+def k5_ops(tables, cache, cfg) -> float:
+    """FP32 operations (as `k1_ops` counts them) that K5 must do for the
+    lanes of a run, counted from csrc/bigscene_fwd.cu: a row of the
+    closest-hit sweep costs 39 (triangle), 38 (rect), 26 (disk) or 34
+    (sphere); a hit 32 for its normal and the emission MIS; a bounce below
+    the horizon K1's 62 + 6 + 134 a light + 90 for the shading. Of the
+    occlusion sweep only what the data surely needs is counted: each shadow
+    ray that reached its light (a nonzero "B" plane of K6's cache for these
+    lanes) tested every row, at 27 (planar), 28 (disk) or 19 (sphere) a
+    row, and a lane-bounce with such a ray computed each row's shared terms
+    once (33, 11, 13). Blocked rays are left out, so the count is a lower
+    bound. Live lane-bounces as in `k1_ops`."""
+    from kytpu_torch.kernels import bigscene as kbs
+    st = tables.static
+    n_l = len(st["lights"])
+    ix, _ = kbs.layout_of(st, cfg)
+    n = cache.shape[1]
+    reached = [n] + [int((cache[ix[("tu", b)]] != 0).sum())
+                     for b in range(cfg.max_depth)]
+    n_tri, n_rect, n_disk, n_sph = tables.counts
+    sweep = 39 * n_tri + 38 * n_rect + 26 * n_disk + 34 * n_sph + 32
+    ray_row = 27 * (n_tri + n_rect) + 28 * n_disk + 19 * n_sph
+    shared_row = 33 * (n_tri + n_rect) + 11 * n_disk + 13 * n_sph
+    rays = vertices = 0
+    for b in range(cfg.max_depth):
+        lit = torch.stack([cache[ix[("B", b, i)]] != 0 for i in range(n_l)])
+        rays += int(lit.sum())
+        vertices += int(lit.any(0).sum())
+    shade = 62 + 6 + 134 * n_l + 90
+    return float(sum(reached) * sweep + sum(reached[:-1]) * shade
+                 + rays * ray_row + vertices * shared_row)
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     """(least time in ms, what bounds it) on the H100's peaks."""
     t_b, t_o = n_bytes / HBM_BYTES_S, n_ops / FP32_OPS_S
@@ -213,15 +277,17 @@ def jittered_rays(scene, n: int, seed: int):
 
 
 @contextlib.contextmanager
-def recording(kwf):
+def recording(kmod):
     """While the block runs, keep the arguments and (detached) result of
-    the last kwf.trace_lanes, kwf.bwd_res and kwf.bwd_replay call (the diff
-    tracers look them up in their module). The colour and exponent tables
-    are copied at the call: an optimizer step later updates the parameters
-    they share storage with."""
+    the last trace_lanes, bwd_res and bwd_replay call of the kernel module
+    kmod (kernels/wavefront.py or kernels/bigscene.py: the diff tracers look
+    them up in their module). The colour and exponent tables are copied at
+    the call: an optimizer step later updates the parameters they share
+    storage with."""
     seen = {}
-    real = {nm: getattr(kwf, nm) for nm in ("trace_lanes", "bwd_res",
-                                            "bwd_replay")}
+    real = {nm: getattr(kmod, nm) for nm in ("trace_lanes", "bwd_res",
+                                             "bwd_replay")
+            if hasattr(kmod, nm)}
 
     def wrap(nm):
         def fn(tables, *args, **kw):
@@ -236,12 +302,12 @@ def recording(kwf):
         return fn
 
     for nm in real:
-        setattr(kwf, nm, wrap(nm))
+        setattr(kmod, nm, wrap(nm))
     try:
         yield seen
     finally:
         for nm, fn in real.items():
-            setattr(kwf, nm, fn)
+            setattr(kmod, nm, fn)
 
 
 def cuda_time_ms(fn, reps: int):
@@ -264,6 +330,34 @@ def cuda_time_ms(fn, reps: int):
 K1_NAMES = ("wavefront_fwd_kernel<0,", "wavefront_fwd_kernelILi0E")
 K2_NAMES = ("wavefront_fwd_kernel<1,", "wavefront_fwd_kernelILi1E")
 K3_NAMES = ("bwd_res_kernel", "sum_partials_kernel")
+K5_NAMES = ("bigscene_fwd_kernel<0,", "bigscene_fwd_kernelILi0E")
+K6_NAMES = ("bigscene_fwd_kernel<1,", "bigscene_fwd_kernelILi1E")
+K7_NAMES = ("bigscene_bwd_lanes", "bigscene_segment_sums",
+            "sum_partials_kernel")
+
+
+def once_ms(fn):
+    """(ms of one call of fn, its output), from CUDA events, not warmed:
+    for the plain versions, which take seconds at the main path's sizes."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1), out
+
+
+def pixel_centre_rays(scene, n: int):
+    """benchmarks/run.py's lanes: pixel centres, lane i at pixel i mod
+    W*H."""
+    from kytpu_torch.scene.scene import generate_rays
+    cam = scene.camera
+    pid = torch.arange(n, device="cuda") % (cam.width * cam.height)
+    pf = torch.stack([(pid % cam.width).float() + 0.5,
+                      (pid // cam.width).float() + 0.5], -1)
+    return generate_rays(cam, pf)
 
 
 def device_profile(fn, kernels: dict):
@@ -293,38 +387,42 @@ def device_profile(fn, kernels: dict):
     return busy_us / 1e3, mine, len(evs)
 
 
-def check_recorded_step(kwf, seen, what: str):
-    """A train step's own K2 and K3 calls, kept by `recording`: K2's
-    radiance against K1's on the step's lanes (bit for bit), K2 and its
-    cache against the plain K2, K3 on the step's upstream gradient against
-    the plain K3 and against itself (bit for bit) -> (K2's, K3's max
-    |err|)."""
+def check_recorded_step(kmod, seen, what: str, ks=("K1", "K2", "K3")):
+    """A train step's own residual forward and cache backward calls, kept by
+    `recording`: ks names (forward, residual forward, cache backward), K1,
+    K2 and K3 of kernels/wavefront.py or K5, K6 and K7 of
+    kernels/bigscene.py (kmod). The residual forward's radiance against the
+    forward's on the step's lanes (bit for bit), it and its cache against
+    its plain version, the backward on the step's upstream gradient against
+    its plain version and against itself (bit for bit) -> (the residual
+    forward's, the backward's max |err|)."""
+    kf, kr, kb = ks
     tabs, (scfg, so, sd, sseed, ssi, spix), kw, (k2, resf, resi) = \
         seen["trace_lanes"]
     if not kw.get("residual"):
-        raise AssertionError(f"the {what} did not run K2")
+        raise AssertionError(f"the {what} did not run {kr}")
     _, (_, sg, *_), _, grads = seen["bwd_res"]
-    if not torch.equal(k2, kwf.trace_lanes(tabs, scfg, so, sd, sseed, ssi,
-                                           spix)):
-        raise AssertionError(f"K2's radiance is not K1's bit for bit on a "
-                             f"{what}'s lanes")
+    if not torch.equal(k2, kmod.trace_lanes(tabs, scfg, so, sd, sseed, ssi,
+                                            spix)):
+        raise AssertionError(f"{kr}'s radiance is not {kf}'s bit for bit on "
+                             f"a {what}'s lanes")
     if not all(torch.equal(a, b) for a, b in zip(
-            grads, kwf.bwd_res(tabs, scfg, sg, k2, resf, resi))):
-        raise AssertionError(f"K3's gradient does not repeat bit for bit on "
-                             f"a {what}")
-    ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tabs, scfg, so, sd, sseed,
-                                                ssi, spix, residual=True)
-    share, mabs, _ = compare(k2, ref_l, f"K2, a {what}")
-    cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache, a {what}")
-    gerr = compare_grads(grads, kwf.bwd_res_plain(
-        tabs, scfg, sg, ref_l, ref_f, ref_i), f"K3, a {what}")
+            grads, kmod.bwd_res(tabs, scfg, sg, k2, resf, resi))):
+        raise AssertionError(f"{kb}'s gradient does not repeat bit for bit "
+                             f"on a {what}")
+    ref_l, ref_f, ref_i = kmod.trace_lanes_plain(tabs, scfg, so, sd, sseed,
+                                                 ssi, spix, residual=True)
+    share, mabs, _ = compare(k2, ref_l, f"{kr}, a {what}")
+    cerr = compare_cache(resf, resi, ref_f, ref_i, f"{kr} cache, a {what}")
+    gerr = compare_grads(grads, kmod.bwd_res_plain(
+        tabs, scfg, sg, ref_l, ref_f, ref_i), f"{kb}, a {what}")
     print(f"{what} vs plain: {so.shape[0]} lanes, depth {scfg.max_depth}, "
           f"{scfg.sampler}/{scfg.nee}/{scfg.shadow}"
           f"{', trainable exponent' if scfg.trainable_exponent else ''}, "
-          f"upstream gradient of relmse: K2 radiance = K1's bit for bit, "
+          f"upstream gradient of relmse: {kr} radiance = {kf}'s bit for bit, "
           f"{share:.5f} of lanes outside vs plain (max |err| {mabs:.3g}); "
           f"cache {resf.shape[0]}+{resi.shape[0]} planes within the bound "
-          f"(max |err| {cerr:.3g}); K3 ({len(grads)} tables) within the "
+          f"(max |err| {cerr:.3g}); {kb} ({len(grads)} tables) within the "
           f"bound (max |err| {gerr:.3g}), repeats bit for bit", flush=True)
     return max(mabs, cerr), gerr
 
@@ -768,6 +866,314 @@ def main() -> None:
     e2, e3 = check_recorded_step(kwf, seen, "glossiness step")
     err_res, err_bwd = max(err_res, e2), max(err_bwd, e3)
 
+    # 9. big scenes: the table-driven kernels K5, K6 and K7
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.scene import mesh
+
+    def reset_big():
+        kbs.launches = kbs.launches_res_fwd = kbs.launches_res_bwd = 0
+
+    def big_counts():
+        return (kbs.launches, kbs.launches_res_fwd, kbs.launches_res_bwd)
+
+    big = {"spheres": builders.random_spheres(n=1024, width=256, height=256),
+           "mesh": builders.mesh_scene(*mesh.icosphere(subdivisions=3),
+                                       width=256, height=256)}
+    big_cuda = {nm: sc.to("cuda") for nm, sc in big.items()}
+    for nm, sc in big.items():
+        print(f"big scene: {nm}: {int(sc.mat_kind.shape[0])} surfaces, "
+              f"{len(sc.lights.kinds)} lights, class rows (tri, rect, disk, "
+              f"sphere) {kbs.pack_big_tables(sc, kwf.KernelConfig()).counts}",
+              flush=True)
+    # 9a. each kernel against its plain version, 64K lanes, every sampler
+    err_k5 = err_k6 = err_k7 = 0.0
+    big_cases = [("spheres", "random", "parity", False),
+                 ("spheres", "hash", "robust", True),
+                 ("spheres", "sobol", "parity", False),
+                 ("mesh", "random", "robust", False),
+                 ("mesh", "hash", "parity", False),
+                 ("mesh", "sobol", "robust", True)]
+    for sc_name, sampler, shadow, texp in big_cases:
+        scene = big_cuda[sc_name]
+        cfg = kwf.KernelConfig(max_depth=3, sampler=sampler, shadow=shadow,
+                               trainable_exponent=texp)
+        tag = f"{sc_name} {sampler}/{shadow}" + (
+            " trainable exponent" if texp else "")
+        o, d, si, pix = jittered_rays(scene, 1 << 16, 13)
+        tables = kbs.pack_big_tables(scene, cfg)
+        before = big_counts()
+        k5 = kbs.trace_lanes(tables, cfg, o, d, 21, si, pix)
+        k6, resf, resi = kbs.trace_lanes(tables, cfg, o, d, 21, si, pix,
+                                         residual=True)
+        g = torch.randn(o.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+        grads = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
+        again = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
+        torch.cuda.synchronize()
+        if big_counts() != (before[0] + 1, before[1] + 1, before[2] + 2):
+            raise AssertionError("trace_lanes/bwd_res did not launch "
+                                 "K5/K6/K7")
+        if not torch.equal(k5, k6):
+            raise AssertionError(f"K6's radiance is not K5's bit for bit, {tag}")
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"K7's gradient does not repeat bit for bit, "
+                                 f"{tag}")
+        ref_l, ref_f, ref_i = kbs.trace_lanes_plain(tables, cfg, o, d, 21, si,
+                                                    pix, residual=True)
+        share, mabs, mdev = compare(k5, ref_l, f"K5 {tag}")
+        cerr = compare_cache(resf, resi, ref_f, ref_i, f"K6 cache {tag}")
+        gerr = compare_grads(grads, kbs.bwd_res_plain(
+            tables, cfg, g, ref_l, ref_f, ref_i), f"K7 {tag}")
+        err_k5, err_k6 = max(err_k5, mabs), max(err_k6, mabs, cerr)
+        err_k7 = max(err_k7, gerr)
+        extra = ""
+        if texp:
+            ix, _ = kbs.layout_of(tables.static, cfg)
+            kplanes = [k for t, k in ix.items() if t[0] in ("Bk", "tuk")]
+            live = int((ref_f[kplanes] != 0).sum())
+            if live == 0 or not bool((grads[4] != 0).any()):
+                raise AssertionError(f"{tag}: no phong lane")
+            extra = (f"; {len(kplanes)} Bk/tuk planes ({live} nonzero "
+                     f"entries), dexp on {int((grads[4] != 0).sum())} rows")
+        print(f"big kernels vs plain: {tag}: {o.shape[0]} lanes, depth 3: K5 "
+              f"{share:.5f} of lanes outside rtol={RTOL}/atol={ATOL} (max "
+              f"|err| {mabs:.3g}, mean within {mdev:.2f} SE); K6 radiance = "
+              f"K5's bit for bit, cache {resf.shape[0]}+{resi.shape[0]} planes "
+              f"within the bound (max |err| {cerr:.3g}); K7 within the bound "
+              f"(max |err| {gerr:.3g}), repeats bit for bit{extra}",
+              flush=True)
+    del k5, k6, resf, resi, ref_l, ref_f, ref_i, grads, again
+
+    # 9b. K5 against K1 where both run: the Cornell box, engine="bigscene"
+    cornell = scenes["cornell"]
+    cfg = kwf.KernelConfig(max_depth=5)
+    o, d, _, _ = jittered_rays(cornell, n_lanes, 17)
+    k1 = kwf.trace_lanes(kwf.pack_tables(cornell, cfg), cfg, o, d, 31)
+    k5 = kbs.trace_lanes(kbs.pack_big_tables(cornell, cfg), cfg, o, d, 31)
+    within = float(((k5 - k1).abs() <= 1e-3).all(-1).float().mean())
+    reset_big()
+    img_b = render(cornell, spp=16, seed=seed, clamp=False, engine="bigscene")
+    img_1 = render(cornell, spp=16, seed=seed, clamp=False, engine="cuda")
+    torch.cuda.synchronize()
+    if big_counts()[0] == 0 or not bool(torch.isfinite(img_b).all()):
+        raise AssertionError("render(engine='bigscene') did not run K5")
+    if within < 1 - MAX_BAD_SHARE:
+        raise AssertionError(f"K5 vs K1 on the Cornell box: only {within:.5f} "
+                             "of lanes within 1e-3")
+    print(f"K5 vs K1: cornell 256x256, depth 5, {n_lanes} lanes: {within:.5f} "
+          f"of lanes within 1e-3 (max |diff| {float((k5 - k1).abs().max()):.3g};"
+          f" K5 takes each hit's exponent from its row, K1 folds the one "
+          f"static exponent); 16-spp frames through render(engine="
+          f"'bigscene') and render(engine='cuda'): mean |diff| "
+          f"{float((img_b - img_1).abs().mean()):.3g}", flush=True)
+    del k1, k5, img_b, img_1
+
+    # 9c. frames of the big scenes through the main path (render, past 64
+    # surfaces: K5)
+    bcfg = kwf.KernelConfig(max_depth=3)
+    big_spp = 16
+
+    def big_frame(sc):
+        return render(sc, spp=big_spp, seed=seed, cfg=bcfg, clamp=False)
+
+    reset_counts()
+    reset_big()
+    big_frames = {}
+    for nm, sc in big.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = big_frame(sc)
+        torch.cuda.synchronize()
+        big_frames[nm] = (img, time.perf_counter() - t0)
+    big_render_launches = big_counts()
+    if big_render_launches[0] == 0 or counts() != (0, 0, 0, 0):
+        raise AssertionError(f"the big-scene frames launched K5 "
+                             f"{big_render_launches[0]} times and K1-K4 "
+                             f"{counts()}")
+    for nm, (img, secs) in big_frames.items():
+        a = img.cpu().numpy()
+        if a.shape != (256, 256, 3) or not np.isfinite(a).all() or \
+                (a < 0).any() or a.mean() <= 0:
+            raise AssertionError(f"{nm} frame: not finite, positive")
+        tables = kbs.pack_big_tables(big_cuda[nm], bcfg)
+        plain_k5 = (lambda s, o, d, *args, tables=tables:
+                    kbs.trace_lanes_plain(tables, bcfg, o, d, *args))
+        ref = kwf.render_cuda(big_cuda[nm], spp=big_spp, seed=seed, cfg=bcfg,
+                              clamp=False, rays_per_pass=1 << 20,
+                              tracer=plain_k5)
+        share, mabs, _ = compare(img.reshape(-1, 3), ref.reshape(-1, 3),
+                                 f"{nm} frame")
+        err_k5 = max(err_k5, mabs)
+        print(f"frame: {nm} 256x256 {big_spp} spp, depth 3 in {secs:.3f} s "
+              f"(cold), mean {a.mean():.5f}; against the same frame through "
+              f"the plain K5: {share:.5f} of pixels outside the bound, max "
+              f"|err| {mabs:.3g}", flush=True)
+    del ref
+    for nm, sc in big.items():
+        big_frame(sc)   # warm
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            big_frame(sc)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = float(np.median(walls))
+        busy, mine, n_k = device_profile(lambda: big_frame(sc),
+                                         {"K5": K5_NAMES})
+        print(f"profile: {nm} frame, {big_spp} spp: wall {wall:.3f} ms "
+              f"(median of 5 warmed frames: {min(walls):.3f}-"
+              f"{max(walls):.3f}); device busy {busy:.3f} ms in {n_k} kernels "
+              f"(idle share {1 - busy / wall:.3f}); bigscene_fwd "
+              f"{mine['K5']:.3f} ms = {mine['K5'] / busy:.3f} of device busy "
+              f"time, {mine['K5'] / wall:.3f} of wall", flush=True)
+
+    # 9d. benchmarks/run.py's K5 workload: 1M pixel-centre lanes, depth 3;
+    # then K6, K7 and forward+backward on the same lanes
+    sc = big_cuda["spheres"]
+    n_big = 1 << 20
+    o, d = pixel_centre_rays(sc, n_big)
+    tables = kbs.pack_big_tables(sc, bcfg)
+    tracer = kbs.make_bigscene_tracer(sc, bcfg)
+    k5_ms, k5 = cuda_time_ms(lambda: tracer(sc, o, d, 7), 3)
+    plain_k5_ms, ref = once_ms(
+        lambda: kbs.trace_lanes_plain(tables, bcfg, o, d, 7))
+    share, mabs, _ = compare(k5, ref, f"K5 spheres {n_big} lanes")
+    err_k5 = max(err_k5, mabs)
+    del ref
+    k6_ms, (k6, resf, resi) = cuda_time_ms(
+        lambda: kbs.trace_lanes(tables, bcfg, o, d, 7, residual=True), 3)
+    if not torch.equal(k5, k6):
+        raise AssertionError("K6's radiance is not K5's bit for bit at 1M "
+                             "lanes")
+    g = torch.full((n_big, 3), 1.0 / n_big, device="cuda")
+    k7_ms, grads = cuda_time_ms(
+        lambda: kbs.bwd_res(tables, bcfg, g, k6, resf, resi), 3)
+    if not all(torch.equal(a, b) for a, b in zip(
+            grads, kbs.bwd_res(tables, bcfg, g, k6, resf, resi))):
+        raise AssertionError("K7's gradient does not repeat bit for bit at "
+                             "1M lanes")
+    plain_k6_ms, (ref_l, ref_f, ref_i) = once_ms(
+        lambda: kbs.trace_lanes_plain(tables, bcfg, o, d, 7, residual=True))
+    plain_k7_ms, ref_g = once_ms(
+        lambda: kbs.bwd_res_plain(tables, bcfg, g, ref_l, ref_f, ref_i))
+    share6, mabs6, _ = compare(k6, ref_l, f"K6 spheres {n_big} lanes")
+    cerr = compare_cache(resf, resi, ref_f, ref_i, f"K6 cache {n_big} lanes")
+    gerr = compare_grads(grads, ref_g, f"K7 spheres {n_big} lanes")
+    err_k6, err_k7 = max(err_k6, mabs6, cerr), max(err_k7, gerr)
+    big_cache = resf.numel() * 4 + resi.numel() * 4
+    res_n = resf.shape[0]
+    ops5 = k5_ops(tables, resf, bcfg)
+    # the forward+backward's peak holds its own cache, not these
+    del ref_l, ref_f, ref_i, ref_g, k6, resf, resi
+    leaves = [t.clone().requires_grad_() for t in
+              (sc.mat_diffuse, sc.mat_specular, sc.emission,
+               sc.env_radiance_)]
+    big_diff = kbs.make_bigscene_diff_tracer(sc, bcfg)
+
+    def big_fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        loss = big_diff(*leaves, o, d, 7).sum() / n_big
+        loss.backward()
+        return loss
+
+    bfb_ms, _ = cuda_time_ms(big_fwd_bwd, 3)
+    torch.cuda.reset_peak_memory_stats()
+    big_fwd_bwd()
+    torch.cuda.synchronize()
+    big_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(torch.equal(a, t.grad) for a, t in zip(grads, leaves)):
+        raise AssertionError("the big-scene diff tracer's gradient is not "
+                             "K7's")
+    m_rows = int(sc.mat_kind.shape[0])
+    n_l = len(tables.static["lights"])
+    bounds["K5"] = bound_ms(n_big * (24 + 12), ops5)
+    bounds["K6"] = bound_ms(n_big * (24 + 12) + big_cache, ops5)
+    # K7 reads the cache, g and L and writes the (M, 10) tables; its
+    # arithmetic is K3's per lane-bounce
+    bounds["K7"] = bound_ms(big_cache + n_big * 24 + m_rows * 10 * 4,
+                            float(n_big * (bcfg.max_depth * (45 + 27 * n_l)
+                                           + 6)))
+    print(f"timing: spheres 1026 surfaces, depth 3, {n_big} pixel-centre "
+          f"lanes (benchmarks/run.py): K5 {k5_ms:.3f} ms "
+          f"({n_big / k5_ms / 1e3:.2f} Mrays/s), plain K5 {plain_k5_ms:.1f} "
+          f"ms; K5 vs plain {share:.5f} of lanes outside (max |err| "
+          f"{mabs:.3g}); on {smi}", flush=True)
+    print(f"big fwd+bwd: the same lanes, loss = out.sum() / N through "
+          f"make_bigscene_diff_tracer: {bfb_ms:.3f} ms, peak memory "
+          f"{big_peak_gb:.3f} GB allocated (rays included); K6 {k6_ms:.3f} "
+          f"ms, K7 {k7_ms:.3f} ms (its lane pass, the sort of the row tags "
+          f"and the sums by row); plain K6 {plain_k6_ms:.1f} ms, plain K7 "
+          f"{plain_k7_ms:.1f} ms; cache {res_n} float + "
+          f"{bcfg.max_depth + 1} int planes = {big_cache / 1e9:.4f} GB; K6 vs "
+          f"plain {share6:.5f} of lanes outside (max |err| {mabs6:.3g}), "
+          f"cache max |err| {cerr:.3g}, K7 max |err| {gerr:.3g}, repeats bit "
+          f"for bit; the tracer's gradient = K7's bit for bit; on {smi}",
+          flush=True)
+    for k in ("K5", "K6", "K7"):
+        print(f"bound: {k} {bounds[k][0]:.4f} ms by {bounds[k][1]} (K5 ops "
+              f"{ops5:.4g}, cache {big_cache:.4g} B)", flush=True)
+    del k5, grads, g, leaves, o, d
+
+    # 9e. training past 64 surfaces through make_train_step (K6, K7)
+    true_b = big["spheres"]
+    tcfg = kwf.KernelConfig(max_depth=3, sampler="hash")
+    target = render(true_b, spp=64, seed=99, cfg=tcfg, clamp=False)
+    spheres = slice(1, m_rows - 1)   # not the ground (row 0) or the light
+    dif0 = true_b.mat_diffuse.clone()
+    dif0[spheres] = dif0[spheres] * 0.4
+    start = dataclasses.replace(true_b, mat_diffuse=dif0)
+    step, params, _ = make_train_step(start, target, spp=4, max_depth=3,
+                                      kernel_sampler="hash")
+
+    def sphere_err():
+        return float((params["mat_diffuse"].detach().cpu()[spheres]
+                      - true_b.mat_diffuse[spheres]).abs().mean())
+
+    err0 = sphere_err()
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_big()
+    for i in range(5):
+        t0 = time.perf_counter()
+        losses.append(float(step(key)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    big_train_launches = big_counts()
+    if big_train_launches[1] == 0 or big_train_launches[2] == 0 or \
+            counts() != (0, 0, 0, 0):
+        raise AssertionError(f"the big-scene train step launched K5/K6/K7 "
+                             f"{big_train_launches} and K1-K4 {counts()}")
+    err5 = sphere_err()
+    if not (np.isfinite(losses).all() and np.all(np.diff(losses) < 0)
+            and err5 < err0):
+        raise AssertionError(f"the loss did not fall: {losses}, mean "
+                             f"|diffuse - true| {err0} -> {err5}")
+    if not all(bool((p >= 0).all()) for p in params.values()):
+        raise AssertionError("a parameter went negative")
+    bstep_ms = float(np.median(walls[1:]))
+    print(f"big train: spheres 1026 surfaces 256x256, 4 spp, depth 3, hash, "
+          f"the spheres' diffuse scaled by 0.4: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; mean |diffuse - true| "
+          f"over the spheres {err0:.5f} -> {err5:.5f}; {bstep_ms:.3f} ms a "
+          f"step (median of steps 2-5; all: "
+          f"{', '.join(f'{v:.1f}' for v in walls)}); launches K5/K6/K7 "
+          f"{big_train_launches}, K1-K4 {counts()}", flush=True)
+    busy, mine, n_k = device_profile(
+        lambda: step(key), {"K6": K6_NAMES, "K7": K7_NAMES})
+    print(f"profile: big train step: device busy {busy:.3f} ms in {n_k} "
+          f"kernels (idle share {1 - busy / bstep_ms:.3f} of the median "
+          f"step); K6 {mine['K6']:.3f} ms, K7 {mine['K7']:.3f} ms = "
+          f"{(mine['K6'] + mine['K7']) / busy:.3f} of device busy time",
+          flush=True)
+    with recording(kbs) as seen:
+        step(key)
+        torch.cuda.synchronize()
+    e6, e7 = check_recorded_step(kbs, seen, "big train step",
+                                 ("K5", "K6", "K7"))
+    err_k6, err_k7 = max(err_k6, e6), max(err_k7, e7)
+
     src = "kytpu_torch/kernels/csrc/"
     rows = [("wavefront_fwd", "wavefront_fwd.cu",
              "kytpu/kernels/wavefront.py:1760", render_launches[0],
@@ -782,7 +1188,16 @@ def main() -> None:
              plain_k3_ms, "K3"),
             ("wavefront_bwd_replay", "wavefront_fwd.cu",
              "kytpu/kernels/wavefront.py:3470", replay_launches[3],
-             err_replay, k4_ms, plain_k4_ms, "K4")]
+             err_replay, k4_ms, plain_k4_ms, "K4"),
+            ("bigscene_fwd", "bigscene_fwd.cu",
+             "kytpu/kernels/bigscene.py:2144", big_render_launches[0],
+             err_k5, k5_ms, plain_k5_ms, "K5"),
+            ("bigscene_fwd_res", "bigscene_fwd.cu",
+             "kytpu/kernels/bigscene.py:2361", big_train_launches[1],
+             err_k6, k6_ms, plain_k6_ms, "K6"),
+            ("bigscene_bwd_res", "bigscene_bwd_res.cu",
+             "kytpu/kernels/bigscene.py:2421", big_train_launches[2],
+             err_k7, k7_ms, plain_k7_ms, "K7")]
     print(smi)
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src + f, "replaces": rp,
@@ -795,6 +1210,31 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+class _LastLine:
+    """Standard output that remembers the last line written to it."""
+
+    def __init__(self, stream):
+        self.stream, self.last = stream, ""
+
+    def write(self, s: str) -> int:
+        lines = [ln for ln in s.splitlines() if ln.strip()]
+        if lines:
+            self.last = lines[-1]
+        return self.stream.write(s)
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+
 if __name__ == "__main__":
-    main()
+    sys.stdout = out = _LastLine(sys.stdout)
+    try:
+        main()
+    except Exception:
+        traceback.print_exc()
+        out.flush()
+        print("chip_smoke.py failed; the last line it printed: "
+              f"{out.last or '(none)'}",
+              file=sys.stderr, flush=True)
+        sys.exit(1)
     sys.stdout.flush()

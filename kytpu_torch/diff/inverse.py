@@ -13,6 +13,11 @@ its docstring says of the replay kernel.
 
 kytpu's `render_once`/`render_loss` (the jnp path engine) wait for ROADMAP
 item M7; its sharded step (`mesh=`) for M10.
+
+Past 64 surfaces the step runs the big-scene kernels instead, as kytpu's
+does: K6 forward, K7 backward (kernels/bigscene.py,
+`make_bigscene_diff_tracer`), the exponent leaf and all three samplers
+included.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from kytpu_torch.core import rng as krng
 from kytpu_torch.diff import losses as klosses
 from kytpu_torch.diff.params import TRAINABLE, get_params, make_codec, set_params
 from kytpu_torch.integrator.render import check_device
+from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import scene as kscene
 
@@ -67,11 +73,6 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
             "port")
     if engine != "cuda":
         raise ValueError(f"unknown engine {engine!r}: expected 'cuda'")
-    m_rows = int(scene.mat_kind.shape[0])
-    if m_rows > kwf.MAX_SURFACES:
-        raise NotImplementedError(
-            f"{m_rows} surfaces: training past {kwf.MAX_SURFACES} surfaces "
-            "needs the big-scene kernels, ROADMAP item M8")
     names = tuple(names or TRAINABLE)
     kcfg = kwf.KernelConfig(max_depth=max_depth,
                             trainable_exponent="mat_exponent" in names,
@@ -80,7 +81,12 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
     device = check_device(device)
     scene = scene.to(device)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
-    tracer = kwf.make_cuda_diff_tracer(scene, kcfg)
+    # scene-scale routing (kytpu's rule): past 64 surfaces the big-scene
+    # kernels K6 and K7
+    if int(scene.mat_kind.shape[0]) > kwf.MAX_SURFACES:
+        tracer = kbs.make_bigscene_diff_tracer(scene, kcfg)
+    else:
+        tracer = kwf.make_cuda_diff_tracer(scene, kcfg)
 
     encode, decode = make_codec(param_spaces)
     spaces = param_spaces or {}

@@ -117,9 +117,14 @@ def load() -> ctypes.CDLL:
         lib.kytpu_wavefront_fwd_res.argtypes = [p] * 15 + [i] * 7 + [p]
         lib.kytpu_wavefront_bwd_res.argtypes = [p] * 12 + [i] * 4 + [p]
         lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 16 + [i] * 8 + [p]
+        lib.kytpu_bigscene_fwd.argtypes = [p] * 19 + [i] * 14 + [p]
+        lib.kytpu_bigscene_bwd_res.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.kytpu_bigscene_segment_sums.argtypes = [p] * 4 + [i] * 4 + [p]
         for fn in (lib.kytpu_wavefront_fwd, lib.kytpu_wavefront_fwd_res,
                    lib.kytpu_wavefront_bwd_res,
-                   lib.kytpu_wavefront_bwd_replay):
+                   lib.kytpu_wavefront_bwd_replay, lib.kytpu_bigscene_fwd,
+                   lib.kytpu_bigscene_bwd_res,
+                   lib.kytpu_bigscene_segment_sums):
             fn.restype = i
         _LIB = lib
     return _LIB

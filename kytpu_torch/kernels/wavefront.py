@@ -72,8 +72,12 @@ class KernelConfig:
     The port's kernels take max_depth, rr_start, rows, nee ("all" |
     "single"), sampler ("random" | "hash" | "sobol"), shadow ("parity" |
     "robust") and trainable_exponent. bwd_rows changes nothing here: K3
-    reads no tile (the nee="single" pick comes from the cache). cull and
-    sweep belong to the big-scene kernels, not ported yet."""
+    reads no tile (the nee="single" pick comes from the cache). cull
+    ("off" | "cone" | "cone+nee") and sweep ("auto" | "scalar" | "mxu") are
+    read as names only: the big-scene kernels (kernels/bigscene.py) run one
+    sweep, with the scalar sweep's arithmetic, and no cone cull, which
+    kytpu's own tests pin as changing no result. The big-scene kernels
+    ignore nee: they always sample every light, as kytpu's do."""
 
     max_depth: int = 5
     rr_start: int = 3
@@ -93,6 +97,9 @@ def check_config(cfg: KernelConfig) -> None:
         raise ValueError(f"unsupported kernel config {cfg}")
     if cfg.rows < 1 or cfg.max_depth < 0:
         raise ValueError(f"unsupported kernel config {cfg}")
+    if cfg.cull not in ("off", "cone", "cone+nee") or cfg.sweep not in (
+            "auto", "scalar", "mxu"):
+        raise ValueError(f"unsupported kernel config {cfg}")
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +108,7 @@ def check_config(cfg: KernelConfig) -> None:
 
 
 def _f(x):
-    return [float(v) for v in np.asarray(x).reshape(-1)]
+    return np.asarray(x).reshape(-1).tolist()
 
 
 def _f32(x) -> float:
@@ -146,9 +153,11 @@ def _surface_inside_ball_possible(planar, spheres, c, r):
     return False
 
 
-def extract_static(scene: kscene.Scene) -> dict:
+def extract_static(scene: kscene.Scene, occl_skip: bool = True) -> dict:
     """The scene as python values: the same dict that
-    kytpu.kernels.wavefront.extract_static returns for an untextured scene."""
+    kytpu.kernels.wavefront.extract_static returns for an untextured scene.
+    occl_skip=False leaves out the per-light occlusion-skip proofs (an
+    O(rows^2) host loop that only K1's sweeps read): every set is empty."""
     g = scene.geometry
     npg = {k: getattr(g, k).detach().cpu().numpy()
            for k in ("pl_kind", "pl_p0", "pl_p1", "pl_p2", "pl_p3",
@@ -228,11 +237,12 @@ def extract_static(scene: kscene.Scene) -> dict:
         lights.append(rec)
     # a sphere light's own shape stays in its NEE occlusion sweep under
     # shadow="parity" (the reference's self-occlusion quirk, ky.cpp:3193)
-    occl_skip = _occl_skip_rows(planar, spheres, mats, lights)
+    skips = (_occl_skip_rows(planar, spheres, mats, lights) if occl_skip
+             else [set() for _ in lights])
     return dict(planar=planar, spheres=spheres, mats=mats, lights=lights,
                 world_radius=float(tab(scene.world_radius)),
                 has_env=scene.has_env, textures=[], n_textures=0,
-                n_texels=0, n_images=0, occl_skip=occl_skip)
+                n_texels=0, n_images=0, occl_skip=skips)
 
 
 def _occl_skip_rows(planar, spheres, mats, lights):
@@ -420,35 +430,29 @@ def _color_tables(scene: kscene.Scene) -> dict:
                 env=f32(env).reshape(3))
 
 
-def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
-    static = extract_static(scene)
-    planar, spheres = static["planar"], static["spheres"]
+def check_lights(n_lights: int) -> None:
+    if n_lights > MAX_LIGHTS:
+        raise NotImplementedError(
+            f"{n_lights} lights: the CUDA kernels take at most {MAX_LIGHTS}; "
+            "more lights are ROADMAP item M12 of the port")
+
+
+def pack_header(static, cfg: KernelConfig, counts, static_exp):
+    """(int, float) header tables and the light records after them, the part
+    of `pack_tables` that the light sampling and BSDF code of
+    csrc/megakernel.cuh reads. counts: (planar rows, spheres, material
+    rows) the caller's records take between the header and the lights;
+    static_exp: the one static Phong exponent, or None."""
     mats, lights = static["mats"], static["lights"]
-    n_pl, n_sp, M, L = len(planar), len(spheres), len(mats["kind"]), len(lights)
-    if M > MAX_SURFACES:
-        raise NotImplementedError(
-            f"{M} surfaces: scenes past {MAX_SURFACES} surfaces need the "
-            "table-driven big-scene kernels, ROADMAP M8")
-    if L > MAX_LIGHTS:
-        raise NotImplementedError(
-            f"{L} lights: the CUDA kernel takes at most {MAX_LIGHTS}; more "
-            "lights are ROADMAP item M12 of the port")
-    light_row = _light_rows(static)
-    rows_skip, sph_skip = _occl_skips(static, cfg)
-    single_skip = (frozenset.intersection(
-        *[frozenset(s) for s in static["occl_skip"]]) if L else frozenset())
-    # under trainable_exponent the exponents come from the per-call table
-    static_exp = None if cfg.trainable_exponent else _static_exponent(mats)
+    L = len(lights)
+    check_lights(L)
     env_i = next((i for i, lt in enumerate(lights)
                   if lt["kind"] == klights.ENV), -1)
-
-    it = np.zeros(HDR_I + PL_I * n_pl + SP_I * n_sp + MAT_I * M + LT_I * L,
-                  np.int32)
-    ft = np.zeros(HDR_F + PL_F * n_pl + SP_F * n_sp + MAT_F * M + LT_F * L,
-                  np.float32)
     lobes = mats["lobes"]
-    it[:14] = [
-        n_pl, n_sp, M, L,
+    hi = np.zeros(HDR_I, np.int32)
+    hf = np.zeros(HDR_F, np.float32)
+    hi[:14] = [
+        *counts, L,
         sum(1 << k for k in lobes),
         int(kbsdf.MAT_PLASTIC in mats["kind"]),
         int(kbsdf.MAT_GLASS in mats["kind"]),
@@ -461,12 +465,46 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
         int(picks_one_light(cfg, L)),
         int(cfg.trainable_exponent),
     ]
-    ft[0] = _f32(2.0 * static["world_radius"])
+    hf[0] = _f32(2.0 * static["world_radius"])
     if static_exp is not None:
-        ft[1:4] = [_f32(1.0 / (static_exp + 1.0)),
+        hf[1:4] = [_f32(1.0 / (static_exp + 1.0)),
                    _f32((static_exp + 2.0) * km.INV_2PI),
                    _f32((static_exp + 1.0) * km.INV_2PI)]
+    light_row = _light_rows(static)
+    li = np.zeros(LT_I * L, np.int32)
+    lf = np.zeros(LT_F * L, np.float32)
+    for i, lt in enumerate(lights):
+        li[LT_I * i:LT_I * (i + 1)] = [
+            lt["kind"], int(lt.get("inside_possible", True)),
+            light_row.get(i, -1)]
+        lf[LT_F * i:LT_F * i + 25] = [
+            *lt["position"], *lt["direction"], *lt["p0"], *lt["p1"],
+            *lt["p2"], *lt["normal"], lt["area"], *lt["center"],
+            lt["radius"], _sphere_area_f32(lt["radius"]),
+            _f32(4.0 * np.pi * lt["radius"] ** 2)]
+    return (hi, hf), (li, lf)
 
+
+def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
+    static = extract_static(scene)
+    planar, spheres = static["planar"], static["spheres"]
+    mats, lights = static["mats"], static["lights"]
+    n_pl, n_sp, M, L = len(planar), len(spheres), len(mats["kind"]), len(lights)
+    if M > MAX_SURFACES:
+        raise NotImplementedError(
+            f"{M} surfaces: K1-K4 take at most {MAX_SURFACES}; larger scenes "
+            "run on the big-scene kernels (kernels/bigscene.py)")
+    rows_skip, sph_skip = _occl_skips(static, cfg)
+    single_skip = (frozenset.intersection(
+        *[frozenset(s) for s in static["occl_skip"]]) if L else frozenset())
+    # under trainable_exponent the exponents come from the per-call table
+    static_exp = None if cfg.trainable_exponent else _static_exponent(mats)
+    (hi, hf), (li, lf) = pack_header(static, cfg, (n_pl, n_sp, M), static_exp)
+
+    it = np.concatenate([hi, np.zeros(PL_I * n_pl + SP_I * n_sp + MAT_I * M,
+                                      np.int32), li])
+    ft = np.concatenate([hf, np.zeros(PL_F * n_pl + SP_F * n_sp + MAT_F * M,
+                                      np.float32), lf])
     oi, of = HDR_I, HDR_F
     for row, s in enumerate(planar):
         mask = _i32(sum(1 << k for k in range(L) if row in rows_skip[k]))
@@ -496,16 +534,6 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
                              mats["d_prob"][m], mats["s_prob"][m]]
         oi += MAT_I
         of += MAT_F
-    for i, lt in enumerate(lights):
-        it[oi:oi + LT_I] = [lt["kind"], int(lt.get("inside_possible", True)),
-                            light_row.get(i, -1)]
-        ft[of:of + 25] = [
-            *lt["position"], *lt["direction"], *lt["p0"], *lt["p1"],
-            *lt["p2"], *lt["normal"], lt["area"], *lt["center"],
-            lt["radius"], _sphere_area_f32(lt["radius"]),
-            _f32(4.0 * np.pi * lt["radius"] ** 2)]
-        oi += LT_I
-        of += LT_F
     dev = scene.device
     return SceneTables(static=static, f=torch.from_numpy(ft).to(dev),
                        i=torch.from_numpy(it).to(dev),
@@ -2085,6 +2113,12 @@ def _n_cols(tables: SceneTables, cfg: KernelConfig) -> int:
 def _lanes(tables: SceneTables, cfg: KernelConfig, o, d, si, pix):
     """One launch's lanes, checked -> contiguous (o, d, si, pix) on o's
     device; si and pix are None under the "random" sampler."""
+    _check_tables(tables, o.device)
+    return _lanes_checked(o, d, si, pix, cfg)
+
+
+def _lanes_checked(o, d, si, pix, cfg: KernelConfig):
+    """`_lanes` without the tables: the rays and lane ids of a launch."""
     dev = o.device
     n = o.shape[0]
     if o.shape != (n, 3) or d.shape != (n, 3):
@@ -2092,7 +2126,6 @@ def _lanes(tables: SceneTables, cfg: KernelConfig, o, d, si, pix):
                          f"{tuple(d.shape)}")
     if d.device != dev:
         raise ValueError(f"d is on {d.device}, o on {dev}")
-    _check_tables(tables, dev)
     if cfg.sampler == "sobol" and cfg.max_depth > MAX_SOBOL_DEPTH:
         raise ValueError(f'sampler="sobol" takes max_depth <= '
                          f"{MAX_SOBOL_DEPTH} on the card")
@@ -2284,15 +2317,17 @@ def render_lanes_cuda(scene, o, d, seed: int, cfg: KernelConfig | None = None,
 class _DiffTables:
     """A diff tracer's scene: the geometry tables packed once, and the
     colour (and exponent) tables of each call, NEE light emissions derived
-    from them."""
+    from them; and the kernels the autograd Functions run on them (looked
+    up in this module at each call, so a caller may wrap them)."""
 
     def __init__(self, scene: kscene.Scene, cfg: KernelConfig):
         self.scene = scene
         self.cfg = cfg
-        self.geo = pack_tables(scene, cfg)
+        self.geo = self.pack(scene, cfg)
 
-    def __call__(self, diffuse, specular, emission, env,
-                 exponent=None) -> SceneTables:
+    pack = staticmethod(pack_tables)
+
+    def __call__(self, diffuse, specular, emission, env, exponent=None):
         dev = self.geo.f.device
         f32 = lambda t: t.detach().to(device=dev,  # noqa: E731
                                       dtype=torch.float32).contiguous()
@@ -2303,6 +2338,16 @@ class _DiffTables:
             emission=emission, env=env,
             exponent=self.geo.exponent if exponent is None else f32(exponent),
             light_emit=light_emit_of(self.scene, emission, env).contiguous())
+
+    def trace(self, tables, o, d, seed, si, pix, residual=False):
+        return trace_lanes(tables, self.cfg, o, d, seed, si, pix,
+                           residual=residual)
+
+    def bwd_res(self, tables, g, big_l, resf, resi):
+        return bwd_res(tables, self.cfg, g, big_l, resf, resi)
+
+    def bwd_replay(self, tables, o, d, seed, si, pix, g, big_l):
+        return bwd_replay(tables, self.cfg, o, d, seed, si, pix, g, big_l)
 
 
 def _table_grads(ctx, grads):
@@ -2318,30 +2363,30 @@ def _table_grads(ctx, grads):
 
 
 class _ResidualTrace(torch.autograd.Function):
-    """The forward launches K2 and keeps its cache when a table needs a
-    gradient (K1 otherwise); the backward launches K3. Rays, seed and the
-    lane ids get no gradient (geometry derivatives are out of scope, as in
-    the JAX package's detached-sampling estimator)."""
+    """The forward launches the residual forward (K2, or the big-scene K6)
+    and keeps its cache when a table needs a gradient (K1 or K5 otherwise);
+    the backward launches the cache backward (K3 or K7): `tabs` says which.
+    Rays, seed and the lane ids get no gradient (geometry derivatives are
+    out of scope, as in the JAX package's detached-sampling estimator)."""
 
     @staticmethod
     def forward(ctx, tabs, diffuse, specular, emission, exponent, env, o, d,
                 seed, si, pix):
         tables = tabs(diffuse, specular, emission, env, exponent)
         if not any(ctx.needs_input_grad[1:6]):
-            return trace_lanes(tables, tabs.cfg, o, d, seed, si, pix)
-        big_l, resf, resi = trace_lanes(tables, tabs.cfg, o, d, seed, si, pix,
-                                        residual=True)
+            return tabs.trace(tables, o, d, seed, si, pix)
+        big_l, resf, resi = tabs.trace(tables, o, d, seed, si, pix,
+                                       residual=True)
         ctx.tables = tables
-        ctx.cfg = tabs.cfg
+        ctx.tabs = tabs
         ctx.save_for_backward(big_l, resf, resi)
         return big_l
 
     @staticmethod
     def backward(ctx, g):
         big_l, resf, resi = ctx.saved_tensors
-        return _table_grads(ctx, bwd_res(
-            ctx.tables, ctx.cfg, g.to(torch.float32).contiguous(), big_l,
-            resf, resi))
+        return _table_grads(ctx, ctx.tabs.bwd_res(
+            ctx.tables, g.to(torch.float32).contiguous(), big_l, resf, resi))
 
 
 class _ReplayTrace(torch.autograd.Function):
@@ -2353,10 +2398,10 @@ class _ReplayTrace(torch.autograd.Function):
     def forward(ctx, tabs, diffuse, specular, emission, exponent, env, o, d,
                 seed, si, pix):
         tables = tabs(diffuse, specular, emission, env, exponent)
-        big_l = trace_lanes(tables, tabs.cfg, o, d, seed, si, pix)
+        big_l = tabs.trace(tables, o, d, seed, si, pix)
         if any(ctx.needs_input_grad[1:6]):
             ctx.tables = tables
-            ctx.cfg = tabs.cfg
+            ctx.tabs = tabs
             ctx.seed = seed
             ctx.save_for_backward(o, d, si, pix, big_l)
         return big_l
@@ -2364,9 +2409,27 @@ class _ReplayTrace(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         o, d, si, pix, big_l = ctx.saved_tensors
-        return _table_grads(ctx, bwd_replay(
-            ctx.tables, ctx.cfg, o, d, ctx.seed, si, pix,
+        return _table_grads(ctx, ctx.tabs.bwd_replay(
+            ctx.tables, o, d, ctx.seed, si, pix,
             g.to(torch.float32).contiguous(), big_l))
+
+
+def diff_tracer(tabs: _DiffTables, fn):
+    """fn(diffuse, specular, emission, [exponent,] env, o, d, seed[, si,
+    pix]) over the autograd Function `fn` and the tables `tabs`; the
+    exponent is there iff tabs.cfg.trainable_exponent."""
+    def trace(diffuse, specular, emission, *rest):
+        rest = list(rest)
+        exponent = (rest.pop(0) if tabs.cfg.trainable_exponent and rest
+                    else None)
+        if len(rest) not in (4, 6):
+            raise TypeError("expected (env, o, d, seed[, si, pix]) after the "
+                            "tables")
+        env, o, d, seed, si, pix = rest + [None] * (6 - len(rest))
+        return fn.apply(tabs, diffuse, specular, emission, exponent, env, o,
+                        d, seed, si, pix)
+
+    return trace
 
 
 def make_cuda_diff_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None,
@@ -2396,19 +2459,7 @@ def make_cuda_diff_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None,
     if fn is None:
         raise ValueError(f"unknown backward {backward!r}")
     check_config(cfg)
-    tabs = _DiffTables(scene, cfg)
-
-    def trace(diffuse, specular, emission, *rest):
-        rest = list(rest)
-        exponent = rest.pop(0) if cfg.trainable_exponent and rest else None
-        if len(rest) not in (4, 6):
-            raise TypeError("expected (env, o, d, seed[, si, pix]) after the "
-                            "tables")
-        env, o, d, seed, si, pix = rest + [None] * (6 - len(rest))
-        return fn.apply(tabs, diffuse, specular, emission, exponent, env, o,
-                        d, seed, si, pix)
-
-    return trace
+    return diff_tracer(_DiffTables(scene, cfg), fn)
 
 
 def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,

@@ -1,6 +1,6 @@
-"""The CUDA megakernels (K1, K2, K3, K4; every sampler, both exponent modes)
-against their plain PyTorch versions, on the card. Needs a CUDA device and
-nvcc; skipped elsewhere. Run on the card with
+"""The CUDA megakernels (K1-K4 and the big-scene K5-K7; every sampler, both
+exponent modes) against their plain PyTorch versions, on the card. Needs a
+CUDA device and nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 
@@ -270,3 +270,83 @@ def test_replay_tracer_launches_k4(cuda):
                          out.detach())
     for leaf, r in zip(leaves, ref[:3] + ref[4:]):
         assert torch.equal(leaf.grad, r)
+
+
+BIG_CASES = [("spheres", "random", "parity", False),
+             ("spheres", "hash", "robust", True),
+             ("mesh", "sobol", "parity", True),
+             ("mesh", "hash", "robust", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene, sampler, shadow, texp", BIG_CASES)
+def test_bigscene_kernels_on_card(cuda, scene, sampler, shadow, texp):
+    """The big-scene kernels K5, K6 and K7 against their plain versions
+    (radiance and cache: at most 0.5% of lanes outside rtol=1e-3/atol=1e-4;
+    gradient: rtol=1e-4, atol=1e-6 of the table's largest entry), K6's
+    radiance K5's bit for bit, and K7 repeating bit for bit."""
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.scene import mesh
+
+    sc = (builders.random_spheres(n=80, width=64, height=64)
+          if scene == "spheres"
+          else builders.mesh_scene(*mesh.icosphere(2), width=64, height=64)
+          ).to(cuda)
+    o, d, si, pix = _card_lanes(sc, cuda)
+    cfg = kwf.KernelConfig(max_depth=3, sampler=sampler, shadow=shadow,
+                           trainable_exponent=texp)
+    tables = kbs.pack_big_tables(sc, cfg)
+    counts = (kbs.launches, kbs.launches_res_fwd, kbs.launches_res_bwd)
+    k5 = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix)
+    k6, resf, resi = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix,
+                                     residual=True)
+    g = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    grads = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
+    again = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
+    torch.cuda.synchronize()
+    assert (kbs.launches, kbs.launches_res_fwd, kbs.launches_res_bwd) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 2)
+    assert torch.equal(k5, k6)
+    assert len(grads) == (5 if texp else 4)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    ref_l, ref_f, ref_i = kbs.trace_lanes_plain(tables, cfg, o, d, 3, si,
+                                                pix, residual=True)
+    for got, ref in ((k6, ref_l), (resf.T, ref_f.T)):
+        g_, r_ = got.cpu().numpy(), ref.cpu().numpy()
+        assert np.isfinite(g_).all()
+        bad = (~np.isclose(g_, r_, rtol=1e-3, atol=1e-4)).any(-1).mean()
+        assert bad <= 0.005, bad
+    assert ((resi != ref_i).any(0).float().mean()) <= 0.005
+    for a, b in zip(grads, kbs.bwd_res_plain(tables, cfg, g, ref_l, ref_f,
+                                             ref_i)):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=1e-4,
+                                   atol=1e-6 * max(1.0, np.abs(b).max()))
+
+
+@pytest.mark.cuda
+def test_bigscene_entry_points_on_card(cuda):
+    """render() and make_train_step() past 64 surfaces launch K5, and K6
+    and K7, on the card, and not K1-K4."""
+    from kytpu_torch.core import rng as krng
+    from kytpu_torch.diff.inverse import make_train_step
+    from kytpu_torch.integrator.render import render
+    from kytpu_torch.kernels import bigscene as kbs
+
+    sc = builders.random_spheres(n=80, width=32, height=32)
+    small = (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
+             kwf.launches_replay)
+    before = kbs.launches
+    target = render(sc, spp=4, seed=2, clamp=False, device=cuda)
+    assert kbs.launches == before + 1 and bool(torch.isfinite(target).all())
+    step, params, _ = make_train_step(sc, target, spp=2, max_depth=2,
+                                      kernel_sampler="hash")
+    before = (kbs.launches_res_fwd, kbs.launches_res_bwd)
+    losses = [float(step(krng.fold_in(krng.key(0), i))) for i in range(2)]
+    assert (kbs.launches_res_fwd, kbs.launches_res_bwd) == (before[0] + 2,
+                                                           before[1] + 2)
+    assert small == (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
+                     kwf.launches_replay)
+    assert np.isfinite(losses).all()

@@ -63,7 +63,6 @@ def test_tracer_runs_the_plain_version_only_on_cpu_tensors():
     (dict(engine="jnp"), "M7"),
     (dict(engine="fast"), "M7"),
     (dict(engine="path"), "M7"),
-    (dict(engine="bigscene"), "M8"),
 ])
 def test_unported_paths_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
