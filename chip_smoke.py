@@ -1,7 +1,7 @@
 """Smoke run of kytpu_torch on one NVIDIA GPU: build, check, render, train,
 time.
 
-    python3 chip_smoke.py            # about two minutes on an H100
+    python3 chip_smoke.py            # a few minutes on an H100
 
 Phases, one line each (a few for phase 3):
   1. device: nvidia-smi's name and power limit, torch's device name;
@@ -71,10 +71,11 @@ Phases, one line each (a few for phase 3):
   9. big scenes, past 64 surfaces, on the table-driven kernels of
      kernels/bigscene.py: random_spheres(n=1024) (1,026 surfaces) and
      mesh_scene(icosphere(3)) (1,282) at 256x256.
-     a. K5, K6 and K7 against their plain versions on 64K camera rays at
-        depth 3 of each scene, under each sampler, both shadow modes and
-        both exponent modes (the bounds of phase 3); K6's radiance against
-        K5's and K7 against itself, bit for bit;
+     a. K5, K6, K7 and the path-replay backward K8 against their plain
+        versions on 64K camera rays at depth 3 of each scene, under each
+        sampler, both shadow modes and both exponent modes (the bounds of
+        phase 3); K6's radiance against K5's, K7 and K8 against themselves,
+        bit for bit; K8 against K7 (the bound of K4 against K3);
      b. K5 against K1 on the Cornell box (256K lanes, depth 5): the share
         of lanes within 1e-3 (at least 99.5%; K5 reads each hit's Phong
         exponent from its row, K1 folds the scene's one exponent into
@@ -85,10 +86,13 @@ Phases, one line each (a few for phase 3):
         then 5 warmed frames and one profiled: busy time, K5's share, idle
         share;
      d. benchmarks/run.py's K5 workload (spheres, 1M pixel-centre lanes,
-        depth 3): K5, K6 and K7 under CUDA events, the plain versions once
-        each and the kernels against them, forward+backward through
+        depth 3): K5, K6, K7 and K8 under CUDA events, the plain versions
+        once each and the kernels against them, forward+backward through
         make_bigscene_diff_tracer (time, peak memory, its gradient K7's bit
-        for bit), and the bounds of K5 (`k5_ops`), K6 and K7;
+        for bit) and through make_bigscene_diff_tracer(backward="replay"),
+        the replay path, whose launches are counted (K5 and K8: time, peak
+        memory, its gradient K8's bit for bit), and the bounds of K5
+        (`k5_ops`), K6, K7 and K8 (`k8_ops`);
      e. training past 64 surfaces, the third main path: five
         make_train_step steps on the spheres at 256x256, 4 spp, depth 3,
         hash, from the true scene with the spheres' diffuse colours scaled
@@ -96,6 +100,28 @@ Phases, one line each (a few for phase 3):
         (K6 and K7, and K1-K4 at 0), the loss falling at every step, ms per
         step, one step profiled, and a sixth step's own K6 and K7 calls
         against their plain versions, as in phase 7.
+ 10. textures through K1-K4 (kytpu's checker floor and back-wall images):
+     a. the textured K1, K2, K3 and K4 against their plain versions on 64K
+        camera rays at depth 5 of 256x256 Cornell boxes with a checker
+        floor, an 8x8 back-wall atlas (kytpu's select-chain route) and a
+        16x16 one (its separable route), across samplers, NEE and shadow
+        modes and both exponent modes (the bounds of phase 3; K2 against
+        K1, K3 and K4 against themselves, bit for bit; K4 against K3);
+     b. kytpu's textured render (cli/render.py textured: Cornell 512x512,
+        a checker floor and a 32x32 painted back wall) at 64 spp through
+        render(), the main path, launches counted; a 4-spp frame against
+        the plain K1, 5 warmed frames and one profiled;
+     c. texture recovery, a main path: five make_train_step(names=
+        ("tex_image",)) steps on Cornell 256x256 with a 16x16 back wall,
+        from a flat 0.5 grey, 4 spp, depth 3, hash, one key, against the
+        true scene at 64 spp: launches counted (K2, K3), the loss and the
+        mean |texel - truth| falling, ms per step, one step profiled, a
+        sixth step's own K2 and K3 against their plain versions;
+     d. five checker-colour steps (names=("tex_color_a", "tex_color_b"),
+        from 0.4 of the true colours): the loss falling, as in c;
+     e. the textured replay path: make_cuda_diff_tracer(backward=
+        "replay") on 1M lanes of the 16x16 scene, launches counted (K1,
+        K4), its gradient (texels included) K4's bit for bit, K4's time.
 The line before the last is the kernels' JSON record, the one before it
 nvidia-smi's name and power limit, and the last line is
 {"ok": true, "device": {...}}. Any failed check raises: no result is printed
@@ -163,15 +189,15 @@ def compare_cache(resf, resi, ref_f, ref_i, what: str) -> float:
 
 def compare_grads(got, ref, what: str, rtol=GRAD_RTOL,
                   atol=GRAD_ATOL) -> float:
-    """Each of (dd, ds, de, denv[, dexp]) within rtol plus atol of its
-    largest entry; returns the max |err|."""
+    """Each table (dd, ds, de, denv[, dexp][, dta, dtb][, dti]) within rtol
+    plus atol of its largest entry; returns the max |err|."""
     if len(got) != len(ref):
         raise AssertionError(f"{what}: {len(got)} tables, expected {len(ref)}")
     err = 0.0
-    for name, a, b in zip(("dd", "ds", "de", "denv", "dexp"), got, ref):
+    for k, (a, b) in enumerate(zip(got, ref)):
         tol = rtol * b.abs() + atol * max(1.0, float(b.abs().max()))
         if not torch.isfinite(a).all() or ((a - b).abs() > tol).any():
-            raise AssertionError(f"{what}: {name} outside the bound")
+            raise AssertionError(f"{what}: table {k} outside the bound")
         err = max(err, float((a - b).abs().max()))
     return err
 
@@ -257,6 +283,36 @@ def k5_ops(tables, cache, cfg) -> float:
                  + rays * ray_row + vertices * shared_row)
 
 
+def k8_ops(tables, cache, cfg) -> float:
+    """FP32 operations of K8 (csrc/bigscene_fwd.cu, MODE_REPLAY) for the
+    lanes of a run: K5's (`k5_ops`, a lower bound) plus the adjoint terms,
+    counted from the source: 9 per live lane-bounce for the hit emission's
+    adjoint and E_b, 12 more where the scene has an environment light, and
+    below the horizon 21 per light (the emission and colour adjoints), 3 for
+    E_b and 31 for the tail peel and the extension's adjoint. Live
+    lane-bounces as in `k1_ops`, from K6's cache of the same lanes."""
+    from kytpu_torch.kernels import bigscene as kbs
+    st = tables.static
+    n_l = len(st["lights"])
+    ix, _ = kbs.layout_of(st, cfg)
+    reached = [cache.shape[1]] + [int((cache[ix[("tu", b)]] != 0).sum())
+                                  for b in range(cfg.max_depth)]
+    env = 12 if ("wenv", 0) in ix else 0
+    adj = sum(reached) * (9 + env) + sum(reached[:-1]) * (21 * n_l + 3 + 31)
+    return k5_ops(tables, cache, cfg) + float(adj)
+
+
+def demo_texture(n: int = 16) -> np.ndarray:
+    """kytpu's (n, n, 3) texture-recovery pattern (kytpu/cli/inverse.py
+    `demo_texture`, which imports jax): an RGB gradient and a yellow
+    ring."""
+    y, x = np.mgrid[0:n, 0:n] / max(n - 1, 1)
+    img = np.stack([x, y, 1.0 - 0.5 * (x + y)], -1)
+    r = np.hypot(x - 0.5, y - 0.5)
+    img[np.abs(r - 0.3) < 0.08] = (0.9, 0.9, 0.1)
+    return img.astype(np.float32)
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     """(least time in ms, what bounds it) on the H100's peaks."""
     t_b, t_o = n_bytes / HBM_BYTES_S, n_ops / FP32_OPS_S
@@ -281,9 +337,9 @@ def recording(kmod):
     """While the block runs, keep the arguments and (detached) result of
     the last trace_lanes, bwd_res and bwd_replay call of the kernel module
     kmod (kernels/wavefront.py or kernels/bigscene.py: the diff tracers look
-    them up in their module). The colour and exponent tables are copied at
-    the call: an optimizer step later updates the parameters they share
-    storage with."""
+    them up in their module). The colour, exponent and texture tables are
+    copied at the call: an optimizer step later updates the parameters they
+    share storage with."""
     seen = {}
     real = {nm: getattr(kmod, nm) for nm in ("trace_lanes", "bwd_res",
                                              "bwd_replay")
@@ -295,7 +351,8 @@ def recording(kmod):
             seen[nm] = (dataclasses.replace(tables, **{
                 k: getattr(tables, k).clone() for k in (
                     "diffuse", "specular", "emission", "exponent",
-                    "light_emit", "env")}),
+                    "light_emit", "env", "texa", "texb", "timg")
+                if hasattr(tables, k)}),
                 args, kw, tuple(t.detach() for t in out)
                 if isinstance(out, tuple) else out.detach())
             return out
@@ -334,6 +391,8 @@ K5_NAMES = ("bigscene_fwd_kernel<0,", "bigscene_fwd_kernelILi0E")
 K6_NAMES = ("bigscene_fwd_kernel<1,", "bigscene_fwd_kernelILi1E")
 K7_NAMES = ("bigscene_bwd_lanes", "bigscene_segment_sums",
             "sum_partials_kernel")
+K8_NAMES = ("bigscene_fwd_kernel<2,", "bigscene_fwd_kernelILi2E",
+            "bigscene_segment_sums", "sum_partials_kernel")
 
 
 def once_ms(fn):
@@ -872,9 +931,11 @@ def main() -> None:
 
     def reset_big():
         kbs.launches = kbs.launches_res_fwd = kbs.launches_res_bwd = 0
+        kbs.launches_replay = 0
 
     def big_counts():
-        return (kbs.launches, kbs.launches_res_fwd, kbs.launches_res_bwd)
+        return (kbs.launches, kbs.launches_res_fwd, kbs.launches_res_bwd,
+                kbs.launches_replay)
 
     big = {"spheres": builders.random_spheres(n=1024, width=256, height=256),
            "mesh": builders.mesh_scene(*mesh.icosphere(subdivisions=3),
@@ -886,7 +947,7 @@ def main() -> None:
               f"sphere) {kbs.pack_big_tables(sc, kwf.KernelConfig()).counts}",
               flush=True)
     # 9a. each kernel against its plain version, 64K lanes, every sampler
-    err_k5 = err_k6 = err_k7 = 0.0
+    err_k5 = err_k6 = err_k7 = err_k8 = 0.0
     big_cases = [("spheres", "random", "parity", False),
                  ("spheres", "hash", "robust", True),
                  ("spheres", "sobol", "parity", False),
@@ -909,10 +970,16 @@ def main() -> None:
                         generator=torch.Generator("cuda").manual_seed(5))
         grads = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
         again = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
+        k8 = kbs.bwd_replay(tables, cfg, o, d, 21, si, pix, g, k5)
+        k8_again = kbs.bwd_replay(tables, cfg, o, d, 21, si, pix, g, k5)
         torch.cuda.synchronize()
-        if big_counts() != (before[0] + 1, before[1] + 1, before[2] + 2):
-            raise AssertionError("trace_lanes/bwd_res did not launch "
-                                 "K5/K6/K7")
+        if big_counts() != (before[0] + 1, before[1] + 1, before[2] + 2,
+                            before[3] + 2):
+            raise AssertionError("trace_lanes/bwd_res/bwd_replay did not "
+                                 "launch K5/K6/K7/K8")
+        if not all(torch.equal(a, b) for a, b in zip(k8, k8_again)):
+            raise AssertionError(f"K8's gradient does not repeat bit for bit, "
+                                 f"{tag}")
         if not torch.equal(k5, k6):
             raise AssertionError(f"K6's radiance is not K5's bit for bit, {tag}")
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
@@ -924,8 +991,12 @@ def main() -> None:
         cerr = compare_cache(resf, resi, ref_f, ref_i, f"K6 cache {tag}")
         gerr = compare_grads(grads, kbs.bwd_res_plain(
             tables, cfg, g, ref_l, ref_f, ref_i), f"K7 {tag}")
+        rerr = compare_grads(k8, kbs.sums_plain(tables, cfg, *kbs.bwd_replay_plain(
+            tables, cfg, o, d, 21, si, pix, g, k5)), f"K8 {tag}")
+        xerr = compare_grads(k8, grads, f"K8 vs K7 {tag}", CROSS_RTOL,
+                             CROSS_ATOL)
         err_k5, err_k6 = max(err_k5, mabs), max(err_k6, mabs, cerr)
-        err_k7 = max(err_k7, gerr)
+        err_k7, err_k8 = max(err_k7, gerr), max(err_k8, rerr)
         extra = ""
         if texp:
             ix, _ = kbs.layout_of(tables.static, cfg)
@@ -940,9 +1011,11 @@ def main() -> None:
               f"|err| {mabs:.3g}, mean within {mdev:.2f} SE); K6 radiance = "
               f"K5's bit for bit, cache {resf.shape[0]}+{resi.shape[0]} planes "
               f"within the bound (max |err| {cerr:.3g}); K7 within the bound "
-              f"(max |err| {gerr:.3g}), repeats bit for bit{extra}",
-              flush=True)
-    del k5, k6, resf, resi, ref_l, ref_f, ref_i, grads, again
+              f"(max |err| {gerr:.3g}), repeats bit for bit; K8 within the "
+              f"bound (max |err| {rerr:.3g}), repeats bit for bit, vs K7 "
+              f"within rtol={CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| "
+              f"{xerr:.3g}){extra}", flush=True)
+    del k5, k6, resf, resi, ref_l, ref_f, ref_i, grads, again, k8, k8_again
 
     # 9b. K5 against K1 where both run: the Cornell box, engine="bigscene"
     cornell = scenes["cornell"]
@@ -986,7 +1059,8 @@ def main() -> None:
         torch.cuda.synchronize()
         big_frames[nm] = (img, time.perf_counter() - t0)
     big_render_launches = big_counts()
-    if big_render_launches[0] == 0 or counts() != (0, 0, 0, 0):
+    if big_render_launches[0] == 0 or big_render_launches[1:] != (0, 0, 0) \
+            or counts() != (0, 0, 0, 0):
         raise AssertionError(f"the big-scene frames launched K5 "
                              f"{big_render_launches[0]} times and K1-K4 "
                              f"{counts()}")
@@ -1064,6 +1138,7 @@ def main() -> None:
     big_cache = resf.numel() * 4 + resi.numel() * 4
     res_n = resf.shape[0]
     ops5 = k5_ops(tables, resf, bcfg)
+    ops8 = k8_ops(tables, resf, bcfg)
     # the forward+backward's peak holds its own cache, not these
     del ref_l, ref_f, ref_i, ref_g, k6, resf, resi
     leaves = [t.clone().requires_grad_() for t in
@@ -1086,6 +1161,46 @@ def main() -> None:
     if not all(torch.equal(a, t.grad) for a, t in zip(grads, leaves)):
         raise AssertionError("the big-scene diff tracer's gradient is not "
                              "K7's")
+    # K8, the replay backward, on the same lanes and gradient, and the
+    # replay path: K5 forward, K8 backward
+    k8_ms, k8 = cuda_time_ms(
+        lambda: kbs.bwd_replay(tables, bcfg, o, d, 7, None, None, g, k5), 3)
+    if not all(torch.equal(a, b) for a, b in zip(
+            k8, kbs.bwd_replay(tables, bcfg, o, d, 7, None, None, g, k5))):
+        raise AssertionError("K8's gradient does not repeat bit for bit at "
+                             "1M lanes")
+    plain_k8_ms, ref_g8 = once_ms(lambda: kbs.sums_plain(
+        tables, bcfg, *kbs.bwd_replay_plain(tables, bcfg, o, d, 7, None, None,
+                                            g, k5)))
+    rerr8 = compare_grads(k8, ref_g8, f"K8 spheres {n_big} lanes")
+    xerr8 = compare_grads(k8, grads, f"K8 vs K7 spheres {n_big} lanes",
+                          CROSS_RTOL, CROSS_ATOL)
+    err_k8 = max(err_k8, rerr8)
+    del ref_g8
+    big_replay = kbs.make_bigscene_diff_tracer(sc, bcfg, backward="replay")
+
+    def big_fwd_bwd_replay():
+        for t in leaves:
+            t.grad = None
+        loss = big_replay(*leaves, o, d, 7).sum() / n_big
+        loss.backward()
+        return loss
+
+    torch.cuda.synchronize()
+    reset_big()
+    bfr_ms, _ = cuda_time_ms(big_fwd_bwd_replay, 3)
+    big_replay_launches = big_counts()
+    if big_replay_launches[0] == 0 or big_replay_launches[3] == 0 or \
+            big_replay_launches[1:3] != (0, 0):
+        raise AssertionError(f"the big-scene replay path launched K5/K6/K7/K8 "
+                             f"{big_replay_launches}")
+    torch.cuda.reset_peak_memory_stats()
+    big_fwd_bwd_replay()
+    torch.cuda.synchronize()
+    big_replay_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(torch.equal(a, t.grad) for a, t in zip(k8, leaves)):
+        raise AssertionError("the big-scene replay tracer's gradient is not "
+                             "K8's")
     m_rows = int(sc.mat_kind.shape[0])
     n_l = len(tables.static["lights"])
     bounds["K5"] = bound_ms(n_big * (24 + 12), ops5)
@@ -1095,6 +1210,12 @@ def main() -> None:
     bounds["K7"] = bound_ms(big_cache + n_big * 24 + m_rows * 10 * 4,
                             float(n_big * (bcfg.max_depth * (45 + 27 * n_l)
                                            + 6)))
+    # K8 reads the rays, g and L; it writes the row-tagged planes and their
+    # row tags (which the sums read back) and the (M, 9) tables
+    PB = 9
+    bounds["K8"] = bound_ms(
+        n_big * (24 + 12 + 12 + 4 * (PB * bcfg.max_depth + 3)
+                 + 4 * (bcfg.max_depth + 1)) + m_rows * PB * 4, ops8)
     print(f"timing: spheres 1026 surfaces, depth 3, {n_big} pixel-centre "
           f"lanes (benchmarks/run.py): K5 {k5_ms:.3f} ms "
           f"({n_big / k5_ms / 1e3:.2f} Mrays/s), plain K5 {plain_k5_ms:.1f} "
@@ -1111,10 +1232,21 @@ def main() -> None:
           f"cache max |err| {cerr:.3g}, K7 max |err| {gerr:.3g}, repeats bit "
           f"for bit; the tracer's gradient = K7's bit for bit; on {smi}",
           flush=True)
-    for k in ("K5", "K6", "K7"):
+    print(f"big replay: the same lanes and loss through make_bigscene_diff_"
+          f"tracer(backward=\"replay\"): {bfr_ms:.3f} ms, peak memory "
+          f"{big_replay_peak_gb:.3f} GB allocated (the residual path's "
+          f"{big_peak_gb:.3f} GB); launches K5/K6/K7/K8 {big_replay_launches}; "
+          f"K8 {k8_ms:.3f} ms (the replay kernel, the sort of the row tags "
+          f"and the sums by row), plain K8 {plain_k8_ms:.1f} ms; the "
+          f"tracer's gradient = K8's bit for bit; K8 vs plain max |err| "
+          f"{rerr8:.3g}, repeats bit for bit; K8 vs K7 within rtol="
+          f"{CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| {xerr8:.3g}); on {smi}",
+          flush=True)
+    for k in ("K5", "K6", "K7", "K8"):
         print(f"bound: {k} {bounds[k][0]:.4f} ms by {bounds[k][1]} (K5 ops "
-              f"{ops5:.4g}, cache {big_cache:.4g} B)", flush=True)
-    del k5, grads, g, leaves, o, d
+              f"{ops5:.4g}, K8 ops {ops8:.4g}, cache {big_cache:.4g} B)",
+              flush=True)
+    del k5, grads, g, leaves, o, d, k8
 
     # 9e. training past 64 surfaces through make_train_step (K6, K7)
     true_b = big["spheres"]
@@ -1142,7 +1274,7 @@ def main() -> None:
         walls.append((time.perf_counter() - t0) * 1e3)
     big_train_launches = big_counts()
     if big_train_launches[1] == 0 or big_train_launches[2] == 0 or \
-            counts() != (0, 0, 0, 0):
+            big_train_launches[3] != 0 or counts() != (0, 0, 0, 0):
         raise AssertionError(f"the big-scene train step launched K5/K6/K7 "
                              f"{big_train_launches} and K1-K4 {counts()}")
     err5 = sphere_err()
@@ -1174,21 +1306,243 @@ def main() -> None:
                                  ("K5", "K6", "K7"))
     err_k6, err_k7 = max(err_k6, e6), max(err_k7, e7)
 
+    # 10. textures through K1-K4: kytpu's checker floor and back-wall images
+    from kytpu_torch.diff.params import get_params, set_params
+    rng = np.random.default_rng(4)
+    tex_scenes = {
+        "checker": builders.cornell_box(width=256, height=256,
+                                        floor_checker=True),
+        "select": builders.cornell_box(width=256, height=256, back_image=rng
+                                       .uniform(0.1, 0.9, (8, 8, 3))
+                                       .astype(np.float32)),
+        "separable": builders.cornell_box(width=256, height=256,
+                                          floor_checker=True,
+                                          back_image=demo_texture(16))}
+    # 10a. each textured kernel against its plain version, 64K lanes
+    tex_cases = [("checker", "random", "all", "parity", False),
+                 ("select", "hash", "all", "robust", True),
+                 ("separable", "sobol", "single", "parity", False),
+                 ("separable", "hash", "all", "parity", True)]
+    for sc_name, sampler, nee, shadow, texp in tex_cases:
+        scene = tex_scenes[sc_name].to("cuda")
+        cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee,
+                               shadow=shadow, trainable_exponent=texp)
+        tag = f"textured {sc_name} {sampler}/{nee}/{shadow}" + (
+            " trainable exponent" if texp else "")
+        o, d, si, pix = jittered_rays(scene, 1 << 16, 19)
+        tables = kwf.pack_tables(scene, cfg)
+        before = counts()
+        k1 = kwf.trace_lanes(tables, cfg, o, d, 41, si, pix)
+        k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 41, si, pix,
+                                         residual=True)
+        g = torch.randn(o.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+        k3 = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
+        k4 = kwf.bwd_replay(tables, cfg, o, d, 41, si, pix, g, k1)
+        torch.cuda.synchronize()
+        if counts() != (before[0] + 1, before[1] + 1, before[2] + 1,
+                        before[3] + 1):
+            raise AssertionError(f"{tag}: K1-K4 did not launch")
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"{tag}: K2's radiance is not K1's")
+        for nm, got, again in (
+                ("K3", k3, kwf.bwd_res(tables, cfg, g, k2, resf, resi)),
+                ("K4", k4, kwf.bwd_replay(tables, cfg, o, d, 41, si, pix, g,
+                                          k1))):
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{tag}: {nm} does not repeat")
+        ref1 = kwf.trace_lanes_plain(tables, cfg, o, d, 41, si, pix)
+        ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tables, cfg, o, d, 41, si,
+                                                    pix, residual=True)
+        share, mabs, _ = compare(k1, ref1, f"K1 {tag}")
+        cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {tag}")
+        gerr = compare_grads(k3, kwf.bwd_res_plain(tables, cfg, g, ref_l,
+                                                   ref_f, ref_i), f"K3 {tag}")
+        rerr = compare_grads(k4, kwf.bwd_replay_plain(
+            tables, cfg, o, d, 41, si, pix, g, ref1), f"K4 {tag}")
+        xerr = compare_grads(k4, k3, f"K4 vs K3 {tag}", CROSS_RTOL,
+                             CROSS_ATOL)
+        max_abs_err = max(max_abs_err, mabs)
+        err_res, err_bwd = max(err_res, cerr), max(err_bwd, gerr)
+        err_replay = max(err_replay, rerr)
+        tex = [float(t.abs().max()) for t in k3[4 + texp:]]
+        print(f"textured kernels vs plain: {tag}: {o.shape[0]} lanes, depth "
+              f"5: K1 {share:.5f} of lanes outside (max |err| {mabs:.3g}); K2 "
+              f"radiance = K1's bit for bit, cache {resf.shape[0]}+"
+              f"{resi.shape[0]} planes (max |err| {cerr:.3g}); K3 (max |err| "
+              f"{gerr:.3g}) and K4 (max |err| {rerr:.3g}) within the bound, "
+              f"repeat bit for bit; K4 vs K3 within rtol={CROSS_RTOL}/atol="
+              f"{CROSS_ATOL} (max |diff| {xerr:.3g}); largest texture "
+              f"adjoints (dta, dtb[, dti]) {', '.join(f'{v:.3g}' for v in tex)}",
+              flush=True)
+        if not any(v > 0 for v in tex):
+            raise AssertionError(f"{tag}: no texture adjoint")
+    del k1, k2, k3, k4, resf, resi, ref1, ref_l, ref_f, ref_i
+
+    # 10b. kytpu's textured render: Cornell 512x512, a checker floor and a
+    # 32x32 painted back wall, 64 spp through render() (the main path: K1)
+    tex_frame = builders.cornell_box(builders.DEFAULT_SCENE, 512, 512,
+                                     floor_checker=True,
+                                     back_image=demo_texture(32))
+
+    def tframe(n_spp):
+        return render(tex_frame, spp=n_spp, seed=seed, clamp=False)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = tframe(spp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tex_render_launches = counts()
+    a = img.cpu().numpy()
+    if tex_render_launches[0] == 0 or tex_render_launches[1:] != (0, 0, 0) \
+            or a.shape != (512, 512, 3) or not np.isfinite(a).all() \
+            or (a < 0).any():
+        raise AssertionError(f"textured frame: launches {tex_render_launches}")
+    tcfg = kwf.KernelConfig()
+    tex_tables = kwf.pack_tables(tex_frame.to("cuda"), tcfg)
+    ref = kwf.render_cuda(
+        tex_frame.to("cuda"), spp=4, seed=seed, cfg=tcfg, clamp=False,
+        rays_per_pass=1 << 20,
+        tracer=lambda s, o, d, *args: kwf.trace_lanes_plain(
+            tex_tables, tcfg, o, d, *args))
+    share, mabs, _ = compare(tframe(4).reshape(-1, 3), ref.reshape(-1, 3),
+                             "textured 4-spp frame")
+    max_abs_err = max(max_abs_err, mabs)
+    del ref
+    tframe(spp)   # warm
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tframe(spp)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(walls))
+    busy, mine, n_k = device_profile(lambda: tframe(spp), {"K1": K1_NAMES})
+    print(f"textured frame: cornell 512x512, checker floor, 32x32 back wall, "
+          f"{spp} spp in {secs:.3f} s (cold), mean {a.mean():.5f}; launches "
+          f"K1/K2/K3/K4 {tex_render_launches}; the 4-spp frame against the "
+          f"plain K1: {share:.5f} of pixels outside the bound, max |err| "
+          f"{mabs:.3g}", flush=True)
+    print(f"profile: textured frame {spp} spp: wall {wall:.3f} ms (median of "
+          f"5 warmed frames: {min(walls):.3f}-{max(walls):.3f}); device busy "
+          f"{busy:.3f} ms in {n_k} kernels (idle share {1 - busy / wall:.3f});"
+          f" wavefront_fwd {mine['K1']:.3f} ms = {mine['K1'] / busy:.3f} of "
+          f"device busy time, {mine['K1'] / wall:.3f} of wall; on {smi}",
+          flush=True)
+
+    # 10c, 10d. texture recovery: five steps of the texels of a 16x16 back
+    # wall from a flat 0.5 grey, then five of the checker colours from 0.4
+    # of the truth; Cornell 256x256, 4 spp, depth 3, hash, one key
+    tex_train = {}
+    for what, names, true_sc in (
+            ("texels", ("tex_image",), tex_scenes["separable"]),
+            ("checker", ("tex_color_a", "tex_color_b"),
+             tex_scenes["checker"])):
+        tcfg = kwf.KernelConfig(max_depth=3, sampler="hash")
+        target = render(true_sc, spp=64, seed=99, cfg=tcfg, clamp=False)
+        true_p = get_params(true_sc, names)
+        start = set_params(true_sc, {
+            n: (torch.full_like(v, 0.5) if n == "tex_image" else v * 0.4)
+            for n, v in true_p.items()})
+        step, params, _ = make_train_step(start, target, spp=4, max_depth=3,
+                                          kernel_sampler="hash", names=names)
+
+        def tex_err():
+            return sum(float((params[n].detach().cpu() - true_p[n])
+                             .abs().mean()) for n in names)
+
+        err0 = tex_err()
+        losses, walls = [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        for i in range(5):
+            t0 = time.perf_counter()
+            losses.append(float(step(key)))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        tl = counts()
+        err5 = tex_err()
+        # the texels' error must fall; the checker colours' loss
+        if tl[1] == 0 or tl[2] == 0 or not (
+                np.isfinite(losses).all() and losses[-1] < losses[0]
+                and (err5 < err0 or what == "checker")):
+            raise AssertionError(f"{what} recovery: losses {losses}, error "
+                                 f"{err0} -> {err5}, launches {tl}")
+        tstep_ms = float(np.median(walls[1:]))
+        busy, mine, n_k = device_profile(lambda: step(key),
+                                         {"K2": K2_NAMES, "K3": K3_NAMES})
+        print(f"texture train: {what} ({', '.join(names)}), cornell "
+              f"256x256, 4 spp, depth 3, hash: losses "
+              f"{', '.join(f'{v:.6f}' for v in losses)}; mean |texture - "
+              f"true| {err0:.5f} -> {err5:.5f}; {tstep_ms:.3f} ms a step "
+              f"(median of steps 2-5; all: "
+              f"{', '.join(f'{v:.1f}' for v in walls)}); launches K1/K2/K3/K4 "
+              f"{tl}; profile: device busy {busy:.3f} ms in {n_k} kernels "
+              f"(idle share {1 - busy / tstep_ms:.3f}), K2 {mine['K2']:.3f} "
+              f"ms, K3 {mine['K3']:.3f} ms", flush=True)
+        with recording(kwf) as seen:
+            step(key)
+            torch.cuda.synchronize()
+        e2, e3 = check_recorded_step(kwf, seen, f"{what} train step")
+        err_res, err_bwd = max(err_res, e2), max(err_bwd, e3)
+        tex_train[what] = tl
+
+    # 10e. the textured replay path: make_cuda_diff_tracer(backward=
+    # "replay") on the texel scene, 1M lanes at depth 3, its gradient K4's
+    scene = tex_scenes["separable"].to("cuda")
+    rcfg = kwf.KernelConfig(max_depth=3)
+    o, d, _, _ = jittered_rays(scene, 1 << 20, 23)
+    tx = scene.textures
+    leaves = [t.clone().requires_grad_() for t in (
+        scene.mat_diffuse, scene.mat_specular, scene.emission, tx.color_a,
+        tx.color_b, tx.image)]
+    env0 = torch.zeros(3, device="cuda")
+    tex_replay = kwf.make_cuda_diff_tracer(scene, rcfg, backward="replay")
+    reset_counts()
+    out = tex_replay(*leaves, env0, o, d, 13)
+    (out.sum() / out.shape[0]).backward()
+    torch.cuda.synchronize()
+    tex_replay_launches = counts()
+    if tex_replay_launches != (1, 0, 0, 1):
+        raise AssertionError(f"the textured replay path launched K1-K4 "
+                             f"{tex_replay_launches}")
+    tabs = kwf.pack_tables(scene, rcfg)
+    g = torch.full_like(out, 1.0 / out.shape[0])
+    k4 = kwf.bwd_replay(tabs, rcfg, o, d, 13, None, None, g, out.detach())
+    if not all(torch.equal(t.grad.reshape(a.shape), a)
+               for t, a in zip(leaves, k4[:3] + k4[4:])):
+        raise AssertionError("the textured replay tracer's gradient is not "
+                             "K4's")
+    k4_tex_ms, _ = cuda_time_ms(lambda: kwf.bwd_replay(
+        tabs, rcfg, o, d, 13, None, None, g, out.detach()), 3)
+    print(f"textured replay: cornell 256x256 with a 16x16 back wall and a "
+          f"checker floor, {o.shape[0]} lanes, depth 3, through "
+          f"make_cuda_diff_tracer(backward=\"replay\"): launches K1/K2/K3/K4 "
+          f"{tex_replay_launches}, the tracer's gradient = K4's bit for bit "
+          f"(dti max {float(k4[-1].abs().max()):.3g}); K4 {k4_tex_ms:.3f} ms",
+          flush=True)
+    del o, d, out, leaves, k4, g
+
     src = "kytpu_torch/kernels/csrc/"
+    tex_steps = [sum(tl[k] for tl in tex_train.values()) for k in (1, 2)]
     rows = [("wavefront_fwd", "wavefront_fwd.cu",
-             "kytpu/kernels/wavefront.py:1760", render_launches[0],
-             max_abs_err, ms, plain_ms, "K1"),
+             "kytpu/kernels/wavefront.py:1760",
+             render_launches[0] + tex_render_launches[0], max_abs_err, ms,
+             plain_ms, "K1"),
             ("wavefront_fwd_res", "wavefront_fwd.cu",
              "kytpu/kernels/wavefront.py:3349",
-             train_launches[1] + gloss_launches[1], err_res, k2_ms,
-             plain_k2_ms, "K2"),
+             train_launches[1] + gloss_launches[1] + tex_steps[0], err_res,
+             k2_ms, plain_k2_ms, "K2"),
             ("wavefront_bwd_res", "wavefront_bwd_res.cu",
              "kytpu/kernels/wavefront.py:3445",
-             train_launches[2] + gloss_launches[2], err_bwd, k3_ms,
-             plain_k3_ms, "K3"),
+             train_launches[2] + gloss_launches[2] + tex_steps[1], err_bwd,
+             k3_ms, plain_k3_ms, "K3"),
             ("wavefront_bwd_replay", "wavefront_fwd.cu",
-             "kytpu/kernels/wavefront.py:3470", replay_launches[3],
-             err_replay, k4_ms, plain_k4_ms, "K4"),
+             "kytpu/kernels/wavefront.py:3470",
+             replay_launches[3] + tex_replay_launches[3], err_replay, k4_ms,
+             plain_k4_ms, "K4"),
             ("bigscene_fwd", "bigscene_fwd.cu",
              "kytpu/kernels/bigscene.py:2144", big_render_launches[0],
              err_k5, k5_ms, plain_k5_ms, "K5"),
@@ -1197,7 +1551,10 @@ def main() -> None:
              err_k6, k6_ms, plain_k6_ms, "K6"),
             ("bigscene_bwd_res", "bigscene_bwd_res.cu",
              "kytpu/kernels/bigscene.py:2421", big_train_launches[2],
-             err_k7, k7_ms, plain_k7_ms, "K7")]
+             err_k7, k7_ms, plain_k7_ms, "K7"),
+            ("bigscene_bwd_replay", "bigscene_fwd.cu",
+             "kytpu/kernels/bigscene.py:2445", big_replay_launches[3],
+             err_k8, k8_ms, plain_k8_ms, "K8")]
     print(smi)
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src + f, "replaces": rp,

@@ -17,7 +17,13 @@ item M7; its sharded step (`mesh=`) for M10.
 Past 64 surfaces the step runs the big-scene kernels instead, as kytpu's
 does: K6 forward, K7 backward (kernels/bigscene.py,
 `make_bigscene_diff_tracer`), the exponent leaf and all three samplers
-included.
+included; a textured scene past 64 surfaces raises (the texture columns of
+K5-K8 are ROADMAP item M9b).
+
+On a textured scene (at most 64 surfaces) the kernels evaluate the
+textures, and names=("tex_image",) or ("tex_color_a", "tex_color_b")
+recover an image texture's texels or a checker's colours: K3 routes a
+textured row's diffuse adjoint to its texture.
 """
 
 from __future__ import annotations
@@ -45,8 +51,9 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
     `params` maps each trainable name (`diff.params.TRAINABLE` unless
     `names` says otherwise; "env_radiance_" may be added for an environment
     scene, "mat_exponent" to recover Phong glossiness, which sets
-    KernelConfig(trainable_exponent=True)) to a tensor in natural space on
-    `device`. The optimizer,
+    KernelConfig(trainable_exponent=True), and "tex_color_a",
+    "tex_color_b", "tex_image" on a textured scene) to a tensor in natural
+    space on `device`. The optimizer,
     `optimizer(list_of_leaves)` (default `torch.optim.Adam` with lr=2e-2),
     runs over their encoded form (`param_spaces`, e.g. {"emission": "log"};
     see `diff.params.make_codec`), leaf tensors it owns; for a linear-space
@@ -87,6 +94,12 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
         tracer = kbs.make_bigscene_diff_tracer(scene, kcfg)
     else:
         tracer = kwf.make_cuda_diff_tracer(scene, kcfg)
+    for n, there in (("tex_color_a", tracer.tabs.textured),
+                     ("tex_color_b", tracer.tabs.textured),
+                     ("tex_image", tracer.tabs.has_img)):
+        if n in names and not there:
+            raise ValueError(f"{n}: no surface of the scene reads such a "
+                             "texture")
 
     encode, decode = make_codec(param_spaces)
     spaces = param_spaces or {}
@@ -126,11 +139,18 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
         px = (lane_pid % w).to(torch.float32) + u[:, 0]
         py = (lane_pid // w).to(torch.float32) + u[:, 1]
         o, d = kscene.generate_rays(cam, torch.stack([px, py], -1))
-        # kytpu's _tracer_params order: the exponent after emission
+        # kytpu's _tracer_params order: the exponent after emission, then
+        # the texture tables
         exp_arg = (p["mat_exponent"],) if kcfg.trainable_exponent else ()
+        tex_arg = ()
+        if tracer.tabs.textured:
+            tex_arg = (p.get("tex_color_a", scene.textures.color_a),
+                       p.get("tex_color_b", scene.textures.color_b))
+        if tracer.tabs.has_img:
+            tex_arg += (p.get("tex_image", scene.textures.image),)
         out = tracer(p.get("mat_diffuse", scene.mat_diffuse),
                      p.get("mat_specular", scene.mat_specular),
-                     p.get("emission", scene.emission), *exp_arg,
+                     p.get("emission", scene.emission), *exp_arg, *tex_arg,
                      p.get("env_radiance_", env0), o, d, seed, *extra)
         img = out.reshape(spp, npix, 3).mean(dim=0)
         return loss_fn(img.reshape(h, w, 3), target)

@@ -1,11 +1,12 @@
 """Trainable-parameter views of a Scene (kytpu/diff/params.py).
 
 The differentiable leaves are the material colour tables, the surface
-emission, the environment radiance and the Phong exponents. `get_params` reads them as a dict of
-tensors and `set_params` writes them back, keeping the two places area-light
-radiance lives (the per-surface `emission` table read at hit time and the
-light table `lights.emit` read by NEE) consistent from the single
-"emission" parameter.
+emission, the environment radiance, the Phong exponents and the texture
+tables. `get_params` reads them as a dict of tensors and `set_params`
+writes them back, keeping the two places area-light radiance lives (the
+per-surface `emission` table read at hit time and the light table
+`lights.emit` read by NEE) consistent from the single "emission"
+parameter.
 """
 
 from __future__ import annotations
@@ -20,18 +21,13 @@ TRAINABLE = ("mat_diffuse", "mat_specular", "emission")
 # opt-in: "env_radiance_" (environment scenes) and "mat_exponent", whose
 # adjoint the kernels give under KernelConfig(trainable_exponent=True): K2
 # caches it in the "Bk"/"tuk" planes for K3, and K4 accumulates it while it
-# replays a path. The texture leaves come with textures (ROADMAP M9).
-_TEXTURE_LEAVES = ("tex_color_a", "tex_color_b", "tex_image")
+# replays a path. Textured scenes: "tex_color_a" / "tex_color_b" (the
+# checker colours) and "tex_image" (the texel atlas; bilinear lookup is
+# linear in the texels, so the per-texel gradients are exact).
+_TEX_ALIASES = {"tex_color_a": "color_a", "tex_color_b": "color_b",
+                "tex_image": "image"}
 
 _SOFTPLUS_FLOOR = 1e-6   # zero-emission rows map to a finite theta (~-13.8)
-
-
-def _check_names(names) -> None:
-    for n in names:
-        if n in _TEXTURE_LEAVES:
-            raise NotImplementedError(
-                f"{n}: texture parameters are ROADMAP item M9 (textures) of "
-                "the port")
 
 
 def make_codec(param_spaces: dict | None):
@@ -67,13 +63,16 @@ def make_codec(param_spaces: dict | None):
 
 
 def get_params(scene: Scene, names=TRAINABLE) -> dict:
-    _check_names(names)
-    return {n: getattr(scene, n) for n in names}
+    return {n: (getattr(scene.textures, _TEX_ALIASES[n]) if n in _TEX_ALIASES
+                else getattr(scene, n)) for n in names}
 
 
 def set_params(scene: Scene, params: dict) -> Scene:
-    _check_names(params)
     updates = dict(params)
+    tex = {leaf: updates.pop(name) for name, leaf in _TEX_ALIASES.items()
+           if name in updates}
+    if tex:
+        updates["textures"] = dataclasses.replace(scene.textures, **tex)
     if "emission" in updates:
         em = updates["emission"]
         lights = scene.lights

@@ -1,5 +1,6 @@
-"""A/B timing of the forward megakernel K1 between this checkout and another
-one of the port, on one card, in one run.
+"""A/B timing of the forward megakernel K1, and of a frame around it,
+between this checkout and another one of the port, on one card, in one
+run.
 
     git archive <commit> | tar -x -C _archive/parent
     python -m kytpu_torch.kernels.ab_k1 _archive/parent
@@ -9,8 +10,10 @@ lanes of chip_smoke.py's phase 5) in each checkout in turn, in the order
 other, this, this, other, each in its own process that builds that
 checkout's kernels. Each run prints the ms of 3 rounds of 5 warmed launches
 (CUDA events) and the sum of the radiance, which must agree between the
-checkouts when the change keeps K1's arithmetic. The card's name and power
-limit come first. Needs a CUDA device; the other checkout needs
+checkouts when the change keeps K1's arithmetic, then the wall time of a
+Cornell box 256x256 frame at 64 spp through `render()` (the median of 5
+warmed frames, host code included). The card's name and power limit come
+first. Needs a CUDA device; the other checkout needs
 `kytpu_torch.kernels.wavefront.make_cuda_tracer` (PR 1 on).
 """
 
@@ -23,7 +26,8 @@ import sys
 from pathlib import Path
 
 _RUN = r"""
-import json, numpy as np, torch
+import json, time, numpy as np, torch
+from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
 from kytpu_torch.scene.scene import generate_rays
@@ -48,7 +52,17 @@ for _ in range(3):
     t1.record()
     torch.cuda.synchronize()
     ms.append(t0.elapsed_time(t1) / 5)
-print(json.dumps({"ms": ms, "sum": float(out.double().sum())}))
+cb = builders.cornell_box(width=256, height=256)
+render(cb, spp=64)
+walls = []
+for _ in range(5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render(cb, spp=64)
+    torch.cuda.synchronize()
+    walls.append((time.perf_counter() - t0) * 1e3)
+print(json.dumps({"ms": ms, "sum": float(out.double().sum()),
+                  "frame_ms": float(np.median(walls))}))
 """
 
 
@@ -71,7 +85,8 @@ def main(other: str) -> None:
         r = run(roots[tag])
         sums.add(r["sum"])
         print(f"{tag} ({roots[tag]}): K1 ms "
-              f"{', '.join(f'{t:.3f}' for t in r['ms'])}; sum {r['sum']!r}",
+              f"{', '.join(f'{t:.3f}' for t in r['ms'])}; sum {r['sum']!r}; "
+              f"Cornell 64-spp frame {r['frame_ms']:.3f} ms",
               flush=True)
     print("radiance sums agree" if len(sums) == 1
           else f"radiance sums differ: {sorted(sums)}")

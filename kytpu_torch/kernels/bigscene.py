@@ -1,6 +1,7 @@
 """The table-driven big-scene megakernels (kytpu/kernels/bigscene.py): the
-forward K5, the residual forward K6 and the cache backward K7, for scenes
-past 64 surfaces, where K1-K4 (kernels/wavefront.py) stop.
+forward K5, the residual forward K6, the cache backward K7 and the
+path-replay backward K8, for scenes past 64 surfaces, where K1-K4
+(kernels/wavefront.py) stop.
 
 Three layers, each the counterpart of one in the JAX package:
 
@@ -11,16 +12,18 @@ Three layers, each the counterpart of one in the JAX package:
   class tables, the material rows and the lights (kernels/wavefront.py's
   header and light records, so csrc/megakernel.cuh's light and BSDF code
   reads them unchanged) on the device;
-- `trace_lanes_plain` (K5, and K6 with residual=True) and `bwd_res_plain`
-  (K7 with the segment sum by row that follows it), plain torch
-  transcriptions of `_make_kernel(grad=False[, residual=True])` and
-  `_make_res_bwd_kernel`. The sweeps test every surface of a class at once,
-  as (lanes x rows) tensors in chunks. CPU tensors run them, and the card
-  checks the kernels against them;
-- the wrappers (`trace_lanes`, `bwd_res`, `make_bigscene_tracer`,
-  `make_bigscene_diff_tracer`, `render_bigscene`), which launch
-  `csrc/bigscene_fwd.cu` (K5, K6) and `csrc/bigscene_bwd_res.cu` (K7) on
-  CUDA tensors.
+- `trace_lanes_plain` (K5, and K6 with residual=True), `bwd_replay_plain`
+  (K8, one body with them in `_trace_plain`) and `bwd_res_plain` (K7),
+  plain torch transcriptions of `_make_kernel(grad=False[,
+  residual=True])`, `_make_kernel(grad=True)` and `_make_res_bwd_kernel`,
+  with the segment sums by row that finish K7 and K8 (`sums_plain`). The
+  sweeps test every surface of a class at once, as (lanes x rows) tensors
+  in chunks. CPU tensors run them, and the card checks the kernels against
+  them;
+- the wrappers (`trace_lanes`, `bwd_res`, `bwd_replay`,
+  `make_bigscene_tracer`, `make_bigscene_diff_tracer`, `render_bigscene`),
+  which launch `csrc/bigscene_fwd.cu` (K5, K6, K8) and
+  `csrc/bigscene_bwd_res.cu` (K7, and the sums by row) on CUDA tensors.
 
 Semantics, as kytpu's table kernel: the closest hit sweeps tri -> rect ->
 disk -> sphere, rows in table order, accepting strictly nearer hits (the
@@ -31,8 +34,8 @@ read) with one occlusion sweep a bounce; under shadow="robust" each light's
 shadow ray skips the light's own emitting surface. kytpu's default past 64
 surfaces is its matmul sweep (cfg.sweep="auto"), about an ulp away from
 the scalar sweep that the port runs for every cfg.sweep; the cone cull
-(cfg.cull) changes no result in kytpu and is not run. No textures (ROADMAP
-item M9).
+(cfg.cull) changes no result in kytpu and is not run. No textures yet
+(ROADMAP item M9b).
 """
 
 from __future__ import annotations
@@ -135,9 +138,15 @@ def extract_tables(scene):
     to 8, cols) float32, global row of each table row (int32, padded with
     0), per-8-row-block bounding spheres). Rows of a class are sorted by
     the Morton code of their bound centres (a stable sort). Raises
-    NotImplementedError for a rect that is not a parallelogram (a textured
-    scene cannot be built in the port yet: ROADMAP item M9)."""
+    NotImplementedError for a rect that is not a parallelogram and for a
+    textured scene (the texture columns of K5-K8 are ROADMAP item M9b)."""
     static = kwf.extract_static(scene, occl_skip=False)
+    if static["textures"]:
+        raise NotImplementedError(
+            "a textured scene past 64 surfaces: the big-scene kernels K5-K8 "
+            "do not evaluate textures yet (ROADMAP item M9b: textures in "
+            "K5-K8); K1-K4 take textured scenes of at most "
+            f"{kwf.MAX_SURFACES} surfaces")
     tris, rects, disks = [], [], []
     tri_rows, rect_rows, disk_rows = [], [], []
     tri_b, rect_b, disk_b = [], [], []   # per-entry (center, radius)
@@ -559,6 +568,30 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
     K6 writes it; kytpu's straight-line kernel keeps tracing the lane's
     frozen ray there and writes that hit's colours and row, with zero
     coefficients, so its backward adds nothing for it either."""
+    return _trace_plain(tables, cfg, o, d, seed, si, pix,
+                        "residual" if residual else "forward")
+
+
+def bwd_replay_plain(tables: BigTables, cfg: kwf.KernelConfig,
+                     o: torch.Tensor, d: torch.Tensor, seed: int, si, pix,
+                     g: torch.Tensor, big_l: torch.Tensor):
+    """Plain K8, the big-scene path-replay backward (kytpu's `_make_kernel`
+    with grad=True): the forward's lanes re-traced with the same draws, the
+    upstream gradient g and the forward's radiance big_l (N, 3) -> the
+    per-lane products of `bwd_lanes_plain` and a row-tag plane: (dout
+    (PB*max_depth + 3, N) float32, acc (N, 3 + 3L) float32, tags
+    (max_depth+1, N) int32, the hit's row + 1, 0 on a miss or a bounce the
+    lane does not reach). Per bounce it peels the tail radiance
+    R_{b+1} = (R_b - E_b) / T_b (0 where the path ends); `sums_plain`
+    finishes it as K7's sums by row do."""
+    return _trace_plain(tables, cfg, o, d, seed, si, pix, "replay", g, big_l)
+
+
+def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
+                 si, pix, mode: str, g=None, big_l_in=None):
+    """The plain table-kernel body. mode "forward" is K5, "residual" K6 and
+    "replay" K8: one body, as `bigscene_fwd_kernel<MODE>` is one template,
+    so K6 and K8 draw, hit and branch as K5 does."""
     kwf.check_config(cfg)
     if cfg.sampler in ("hash", "sobol") and (si is None or pix is None):
         raise ValueError(f'sampler="{cfg.sampler}" needs si and pix lane '
@@ -577,6 +610,7 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
     # per light, the global row of its first emitting surface, or None
     own = [kwf._light_rows(static).get(i) for i in range(L)]
     texp = cfg.trainable_exponent
+    residual, replay = mode == "residual", mode == "replay"
 
     n = o.shape[0]
     dev = o.device
@@ -608,6 +642,16 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
         res_ix, res_n = layout_of(static, cfg)
         planes = [None] * res_n
         ints = [None] * (cfg.max_depth + 1)
+    if replay:
+        g = V3(*(g[:, c].to(dev, torch.float32) for c in range(3)))
+        r_tail = V3(*(big_l_in[:, c].to(dev, torch.float32)
+                      for c in range(3)))
+        acc_env = v3_full(o.x, 0.0, 0.0, 0.0)
+        acc_le = [v3_full(o.x, 0.0, 0.0, 0.0) for _ in range(L)]
+        dplanes, tags = [], []
+
+    def where3(c, v: V3, other=0.0) -> V3:
+        return V3(*(kwf._where(c, a, other) for a in (v.x, v.y, v.z)))
 
     for bounce in range(cfg.max_depth + 1):
         # dead lanes are not swept: they get a miss, so every term and cache
@@ -644,7 +688,14 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
             if full is not False:
                 w_emit = kwf._where(full, 1.0, w_emit)
         wb = kwf._where(alive, w_emit, 0.0)
-        big_l = big_l + beta * (le * wb)
+        e_term = le * wb
+        big_l = big_l + beta * e_term
+        if replay:
+            # the hit emission's adjoint, and the bounce's row tag
+            gb = g * beta
+            de_b = gb * kwf._where(emit_mask, wb, 0.0)
+            tags.append(kwf._where(valid, (grow + 1).to(torch.int32),
+                                   0).to(torch.int32))
         if residual:
             planes[res_ix[("wb", bounce)]] = kwf._where(emit_mask, wb, 0.0)
             for c, v in enumerate((emi.x, emi.y, emi.z)):
@@ -661,10 +712,15 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
                     w_env = kwf._where(full, 1.0, w_env)
             wenv = kwf._where(alive & ~valid, w_env, 0.0)
             big_l = big_l + beta * env_v * wenv
+            e_term = e_term + env_v * wenv
             if residual:
                 planes[res_ix[("wenv", bounce)]] = wenv
+            if replay:
+                acc_env = acc_env + gb * wenv
 
         if bounce == cfg.max_depth:
+            if replay:
+                dplanes.extend([de_b.x, de_b.y, de_b.z])
             if residual:
                 ints[bounce] = kwf._where(valid, (grow + 1).to(torch.int32),
                                           0).to(torch.int32)
@@ -743,6 +799,11 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
                 w = km.safe_div(1.0, pdf_l + pdf_b)
             ok = nee_base & (pdf_l > 0.0) & (li_s != 0.0) & (ucos != 0.0)
             terms.append((ok, w, ucos, cos_aw))
+        if replay:
+            # the bounce's colour and exponent adjoints, all of its hit row
+            zero = torch.zeros_like(o.x)
+            addc_diff = addc_spec = V3(zero, zero, zero)
+            addx = zero
         need = torch.zeros_like(alive)
         for ok, *_ in terms:
             need = need | ok
@@ -757,6 +818,16 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
             okf = kwf._where(ok & ~occs[i], w, 0.0)
             bp = li_s * ucos * okf * lobe_scale
             ld = ld + col_nee * emit_l * bp
+            if replay:
+                acc_le[i] = acc_le[i] + gb * col_nee * bp
+                addc = gb * emit_l * bp
+                addc_spec = addc_spec + where3(lobe_is_phong, addc)
+                addc_diff = addc_diff + where3(~lobe_is_phong, addc)
+                if texp:
+                    addx = addx + kwf._where(
+                        lobe_is_phong,
+                        addc.dot(col_nee) * kwf._kappa_dot(exponent, cos_aw),
+                        0.0)
             if residual:
                 planes[res_ix[("B", bounce, i)]] = bp
                 if texp:
@@ -764,6 +835,7 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
                         lobe_is_phong, bp * kwf._kappa_dot(exponent, cos_aw),
                         0.0)
         big_l = big_l + beta * ld
+        e_term = e_term + ld
 
         # extension sample
         u1, u2 = rng.uniform2()
@@ -785,6 +857,25 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
             alive_n = ok & ~kill
         else:
             alive_n = ok
+        to_spec = is_mirror | (is_glass & ~refract) | lobe_is_phong
+        if replay:
+            # R_{b+1} = (R_b - E_b) / T_b per channel, 0 where the path ends
+            t_eff = where3(alive_n, thr * scale)
+            r_next = where3(alive_n, V3(*(km.safe_div(a - b, c) for a, b, c in (
+                (r_tail.x, e_term.x, t_eff.x), (r_tail.y, e_term.y, t_eff.y),
+                (r_tail.z, e_term.z, t_eff.z)))))
+            t_unit = f_unit_s * km.safe_div(torch.abs(wi_l.z), pdf_s) * scale
+            addt = gb * r_next * kwf._where(alive_n, t_unit * lobe_scale, 0.0)
+            addc_spec = addc_spec + where3(to_spec, addt)
+            addc_diff = addc_diff + where3(~to_spec, addt)
+            if texp:
+                addx = addx + kwf._where(
+                    lobe_is_phong,
+                    addt.dot(col_nee) * kwf._kappa(exponent, wo_l, wi_l), 0.0)
+            dplanes.extend([addc_diff.x, addc_diff.y, addc_diff.z,
+                            addc_spec.x, addc_spec.y, addc_spec.z,
+                            de_b.x, de_b.y, de_b.z] + ([addx] if texp else []))
+            r_tail = r_next
         if residual:
             t_unit = f_unit_s * km.safe_div(torch.abs(wi_l.z), pdf_s) * scale
             tu_plane = kwf._where(alive_n, t_unit * lobe_scale, 0.0)
@@ -797,7 +888,6 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
                 planes[res_ix[("dif", bounce, c)]] = v
             for c, v in enumerate((specular.x, specular.y, specular.z)):
                 planes[res_ix[("spc", bounce, c)]] = v
-            to_spec = is_mirror | (is_glass & ~refract) | lobe_is_phong
             ints[bounce] = (kwf._where(valid, (grow + 1).to(torch.int32), 0)
                             + lobe_is_phong.to(torch.int32) * RESI_PHONG
                             + to_spec.to(torch.int32) * RESI_TO_SPEC
@@ -810,6 +900,12 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
         pdf_prev = torch.where(alive_n, pdf_s, pdf_prev)
         alive = alive_n
 
+    if replay:
+        acc = [acc_env.x, acc_env.y, acc_env.z]
+        for v in acc_le:
+            acc.extend([v.x, v.y, v.z])
+        return torch.stack(dplanes), torch.stack(acc, dim=-1), \
+            torch.stack(tags)
     out = torch.stack([big_l.x, big_l.y, big_l.z], dim=-1)
     if not residual:
         return out
@@ -819,10 +915,6 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
 # ---------------------------------------------------------------------------
 # plain version: the cache backward (K7) and the sums by row
 # ---------------------------------------------------------------------------
-
-# threads of csrc/bigscene_bwd_res.cu's segment-sum block
-SEG_THREADS = 512
-
 
 def _per_bounce(cfg: kwf.KernelConfig) -> int:
     """Adjoint planes a bounce below the horizon: dd, ds, de [, dexp]."""
@@ -927,57 +1019,14 @@ def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
 
 
 def sort_rows(resi: torch.Tensor, m_rows: int):
-    """The entries (bounce b, lane i), numbered b * N + i, sorted by the row
-    they are tagged with (a stable sort of integer keys: each row's entries
-    stay in bounce, then lane order) -> (perm, starts): row m's entries are
-    perm[starts[m]:starts[m + 1]], row 0 being the misses and dead lanes."""
-    ids = (resi & RESI_ROW_MASK).reshape(-1).long()
-    _, perm = torch.sort(ids, stable=True)
-    counts = torch.bincount(ids, minlength=m_rows + 1)
-    starts = torch.zeros(m_rows + 2, dtype=torch.int64, device=ids.device)
-    starts[1:] = torch.cumsum(counts, 0)
-    return perm, starts
+    """`kwf.sort_tags` of the row tags in bits 0-19 of resi (K6's int cache,
+    or K8's tag planes): row m's entries are perm[starts[m]:starts[m + 1]],
+    row 0 being the misses and dead lanes."""
+    return kwf.sort_tags(resi & RESI_ROW_MASK, m_rows)
 
 
-def _entry_values(dout, ent, n: int, B: int, PB: int):
-    """The PB adjoint columns of entries `ent` (any shape): dout's planes
-    PB*b .. PB*b+PB-1 at lane i below the horizon; at the horizon 0, except
-    de (columns 6-8) from its three planes."""
-    b = ent // n
-    lane = ent - b * n
-    col = torch.arange(PB, device=dout.device)
-    plane = torch.where(b[..., None] < B, PB * b[..., None] + col,
-                        PB * B + (col - 6).clamp(0, 2))
-    v = dout[plane, lane[..., None]]
-    keep = (b[..., None] < B) | ((col >= 6) & (col < 9))
-    return torch.where(keep, v, torch.zeros_like(v))
-
-
-def segment_sums_plain(dout, perm, starts, n: int, B: int, PB: int):
-    """(M, PB) sums by row, in the segment-sum kernel's order: for each row
-    m >= 1, thread t of a SEG_THREADS block adds the row's sorted entries t,
-    t + SEG_THREADS, ... in turn (from 0.0), then the threads reduce as a
-    tree (off = SEG_THREADS/2 .. 1). The same float additions in the same
-    order as csrc/bigscene_bwd_res.cu."""
-    T = SEG_THREADS
-    M = len(starts) - 2
-    lens = (starts[2:] - starts[1:-1])
-    acc = dout.new_zeros((M, T, PB))
-    tid = torch.arange(T, device=dout.device)
-    max_len = int(lens.max()) if M else 0
-    for s0 in range(0, max_len, T):
-        rows = (lens > s0).nonzero().reshape(-1)
-        pos = starts[1 + rows][:, None] + s0 + tid
-        valid = (s0 + tid) < lens[rows][:, None]
-        ent = perm[pos.clamp_max(len(perm) - 1)]
-        vals = _entry_values(dout, ent, n, B, PB)
-        acc[rows] = acc[rows] + torch.where(valid[..., None], vals,
-                                            torch.zeros_like(vals))
-    off = T // 2
-    while off:
-        acc[:, :off] = acc[:, :off] + acc[:, off:2 * off]
-        off //= 2
-    return acc[:, 0]
+# the sums by row of K7 and K8 (and of K3's and K4's texel entries)
+segment_sums_plain = kwf.segment_sums_plain
 
 
 def _assemble(tables: BigTables, cfg: kwf.KernelConfig, seg, lane_sums):
@@ -1013,10 +1062,18 @@ def bwd_res_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
     adjoints over lanes in K3's order (`kwf.sum_lanes`), so the gradient
     repeats bit for bit and equals the kernel's."""
     kwf.check_config(cfg)
-    M = len(tables.static["mats"]["kind"])
     dout, acc = bwd_lanes_plain(tables, cfg, g, big_l, resf, resi)
-    perm, starts = sort_rows(resi, M)
-    seg = segment_sums_plain(dout, perm, starts, g.shape[0], cfg.max_depth,
+    return sums_plain(tables, cfg, dout, acc, resi)
+
+
+def sums_plain(tables: BigTables, cfg: kwf.KernelConfig, dout, acc, tags):
+    """The sums that finish K7 and K8, plain: the row-tagged planes dout
+    summed by the rows `tags` hold (`sort_rows`, `segment_sums_plain`), the
+    (N, 3 + 3L) lane accumulators over lanes in K3's order
+    (`kwf.sum_lanes`) -> (dd, ds, de, denv[, dexp]) (`_assemble`)."""
+    M = len(tables.static["mats"]["kind"])
+    perm, starts = sort_rows(tags, M)
+    seg = segment_sums_plain(dout, perm, starts, dout.shape[1], cfg.max_depth,
                              _per_bounce(cfg))
     return _assemble(tables, cfg, seg, kwf.sum_lanes(acc))
 
@@ -1027,11 +1084,12 @@ def bwd_res_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
 # ---------------------------------------------------------------------------
 
 # kernel launches made by this process (set them to 0 to count a run): K5,
-# K6 (the residual forward) and K7 (the cache backward, with its sums by
-# row and over lanes)
+# K6 (the residual forward), K7 (the cache backward) and K8 (the path-replay
+# backward), the last two with their sums by row and over lanes
 launches = 0
 launches_res_fwd = 0
 launches_res_bwd = 0
+launches_replay = 0
 
 _TABLES = ("f", "i", "geo", "rows", "mat_i", "mat_f", "diffuse", "specular",
            "emission", "exponent", "light_emit", "env")
@@ -1096,7 +1154,6 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
     n = g.shape[0]
     static = tables.static
     L = len(static["lights"])
-    M = len(static["mats"]["kind"])
     res_ix, res_n = layout_of(static, cfg)
     has_env = ("wenv", 0) in res_ix
     B, PB = cfg.max_depth, _per_bounce(cfg)
@@ -1121,13 +1178,61 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
              resi.data_ptr(), dout.data_ptr(), partial.data_ptr(),
              lane_sums.data_ptr(), n, L, int(has_env), B,
              int(cfg.trainable_exponent))
-    perm, starts = sort_rows(resi, M)
+    launches_res_bwd += 1
+    return _sums(lib, tables, cfg, dout, resi, lane_sums)
+
+
+def _sums(lib, tables: BigTables, cfg: kwf.KernelConfig, dout, tags,
+          lane_sums):
+    """K7's and K8's sums by row on the card: the stable sort of the row
+    tags (integer keys; torch.sort moves no floats), then the segment-sum
+    kernel -> (dd, ds, de, denv[, dexp]) with the lane sums (`_assemble`)."""
+    n, dev = dout.shape[1], dout.device
+    M = len(tables.static["mats"]["kind"])
+    B, PB = cfg.max_depth, _per_bounce(cfg)
+    perm, starts = sort_rows(tags, M)
     seg = torch.empty((M, PB), dtype=torch.float32, device=dev)
     kwf._run(lib.kytpu_bigscene_segment_sums, "bigscene_segment_sums", dev,
              dout.data_ptr(), perm.data_ptr(), starts.data_ptr(),
              seg.data_ptr(), n, M, B, PB)
-    launches_res_bwd += 1
     return _assemble(tables, cfg, seg, lane_sums)
+
+
+def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
+                   pix, g, big_l):
+    """K8 on CUDA lanes: the replay kernel (row-tagged adjoint planes, row
+    tags, the lane sums of the env and light-emission adjoints), then the
+    sums by row -> (dd, ds, de, denv[, dexp]); raises if a kernel cannot be
+    built or launched."""
+    global launches_replay
+    from kytpu_torch.kernels import build
+
+    kwf.check_config(cfg)
+    o, d, si, pix = kwf._lanes_checked(o, d, si, pix, cfg)
+    n, dev = o.shape[0], o.device
+    kwf._check_lane_tensor("g", g, (n, 3), torch.float32, dev)
+    kwf._check_lane_tensor("L", big_l, (n, 3), torch.float32, dev)
+    _check_tables(tables, dev)
+    g, big_l = g.contiguous(), big_l.contiguous()
+    lib = build.load()
+    B, PB = cfg.max_depth, _per_bounce(cfg)
+    k = 3 + 3 * len(tables.static["lights"])
+    nb = max(1, -(-n // kwf.BWD_THREADS))
+    # every plane and tag of every lane is written by K8
+    dout = torch.empty((PB * B + 3, n), dtype=torch.float32, device=dev)
+    tags = torch.empty((B + 1, n), dtype=torch.int32, device=dev)
+    partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
+    lane_sums = torch.empty((k,), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    kwf._run(lib.kytpu_bigscene_bwd_replay, "bigscene_bwd_replay", dev,
+             *[getattr(tables, nm).data_ptr() for nm in _TABLES],
+             o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), g.data_ptr(),
+             big_l.data_ptr(), dout.data_ptr(), tags.data_ptr(),
+             partial.data_ptr(), lane_sums.data_ptr(), n, k, *tables.counts,
+             len(tables.static["mats"]["kind"]), *kwf._cfg_args(cfg, seed),
+             int(cfg.trainable_exponent))
+    launches_replay += 1
+    return _sums(lib, tables, cfg, dout, tags, lane_sums)
 
 
 def trace_lanes(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
@@ -1148,6 +1253,18 @@ def bwd_res(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf, resi):
     return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
 
 
+def bwd_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int, si,
+               pix, g, big_l):
+    """K8 -> (dd, ds, de, denv[, dexp]) on the lanes (o, d, seed, si, pix)
+    that the forward traced, its radiance big_l and the upstream gradient g,
+    with K7's conventions: CUDA lanes launch the kernels or raise, CPU lanes
+    run `bwd_replay_plain` and `sums_plain`."""
+    if kwf._on_card(o.device):
+        return _launch_replay(tables, cfg, o, d, seed, si, pix, g, big_l)
+    return sums_plain(tables, cfg, *bwd_replay_plain(
+        tables, cfg, o, d, seed, si, pix, g, big_l))
+
+
 def make_bigscene_tracer(scene: kscene.Scene,
                          cfg: kwf.KernelConfig | None = None):
     """Lane tracer over `scene`'s class tables (kytpu's
@@ -1166,8 +1283,8 @@ def make_bigscene_tracer(scene: kscene.Scene,
 
 
 class _BigDiffTables(kwf._DiffTables):
-    """The diff tracer's tables for the big-scene kernels: K6 forward, K7
-    backward (looked up in this module at each call)."""
+    """The diff tracer's tables for the big-scene kernels: K5 or K6
+    forward, K7 or K8 backward (looked up in this module at each call)."""
 
     pack = staticmethod(pack_big_tables)
 
@@ -1178,6 +1295,9 @@ class _BigDiffTables(kwf._DiffTables):
     def bwd_res(self, tables, g, big_l, resf, resi):
         return bwd_res(tables, self.cfg, g, big_l, resf, resi)
 
+    def bwd_replay(self, tables, o, d, seed, si, pix, g, big_l):
+        return bwd_replay(tables, self.cfg, o, d, seed, si, pix, g, big_l)
+
 
 def make_bigscene_diff_tracer(scene: kscene.Scene,
                               cfg: kwf.KernelConfig | None = None,
@@ -1187,20 +1307,19 @@ def make_bigscene_diff_tracer(scene: kscene.Scene,
     Returns fn(diffuse, specular, emission, [exponent,] env, o, d, seed[,
     si, pix]) -> (N, 3) radiance, a torch.autograd.Function: when a table
     needs a gradient the forward runs K6 and keeps its cache, the backward
-    runs K7 (`bwd_res`); otherwise the forward runs K5. The gradient is
-    (d_diffuse, d_specular, d_emission, [d_exponent,] d_env) by detached
-    sampling, with kytpu's big-scene conventions (`bwd_res_plain`).
-    backward="replay", kytpu's path-replay backward K8, is not ported yet
-    (ROADMAP queue item 1, K8)."""
+    runs K7 (`bwd_res`); otherwise the forward runs K5. backward="replay":
+    the forward runs K5 and keeps the lanes and radiance, the backward K8
+    (`bwd_replay`) re-traces them (no cache). The gradient is (d_diffuse,
+    d_specular, d_emission, [d_exponent,] d_env) by detached sampling, with
+    kytpu's big-scene conventions (`bwd_res_plain`) under either
+    backward."""
     cfg = cfg or kwf.KernelConfig()
-    if backward == "replay":
-        raise NotImplementedError(
-            'backward="replay": the big-scene path-replay backward K8 is '
-            "ROADMAP item K8 (queue item 1) of the port")
-    if backward != "residual":
+    fn = {"residual": kwf._ResidualTrace,
+          "replay": kwf._ReplayTrace}.get(backward)
+    if fn is None:
         raise ValueError(f"unknown backward {backward!r}")
     kwf.check_config(cfg)
-    return kwf.diff_tracer(_BigDiffTables(scene, cfg), kwf._ResidualTrace)
+    return kwf.diff_tracer(_BigDiffTables(scene, cfg), fn)
 
 
 def render_bigscene(scene: kscene.Scene, spp: int = 16, seed: int = 1234,

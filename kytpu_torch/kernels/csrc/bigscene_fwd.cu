@@ -1,17 +1,22 @@
-// The table-driven big-scene megakernel for NVIDIA Hopper (sm_90a): K5 and
-// K6.
+// The table-driven big-scene megakernel for NVIDIA Hopper (sm_90a): K5, K6
+// and K8.
 //
-// Replaces kytpu/kernels/bigscene.py::_make_kernel with grad=False: K5
+// Replaces kytpu/kernels/bigscene.py::_make_kernel: with grad=False, K5
 // (residual=False), the Pallas TPU kernel behind every render of a scene
 // past 64 surfaces, and K6 (residual=True), the forward of every train step
 // on such a scene, which also writes the coefficient cache of
-// bigscene.py::_bigres_layout that K7 (bigscene_bwd_res.cu) reads. Both are
-// one template, bigscene_fwd_kernel<MODE, SOBOL>, as K1 and K2 are: K6 adds
-// stores and nothing else. Their plain PyTorch transcription is
-// kytpu_torch/kernels/bigscene.py::trace_lanes_plain; this file follows it
-// statement by statement, and chip_smoke.py holds the two against each
-// other. The light sampling, BSDFs, RNG and vector maths are K1's
-// (megakernel.cuh), reading a header and light records packed as K1's are.
+// bigscene.py::_bigres_layout that K7 (bigscene_bwd_res.cu) reads; with
+// grad=True, K8, the path-replay backward (backward="replay"), which
+// re-traces each lane with the forward's draws and peels the tail radiance
+// R_{b+1} = (R_b - E_b) / T_b. All three are one template,
+// bigscene_fwd_kernel<MODE, SOBOL>, as K1, K2 and K4 are: K6 adds stores and
+// K8 adjoint terms and nothing else, so their draws, hits and branches are
+// K5's by construction. Their plain PyTorch transcription is
+// kytpu_torch/kernels/bigscene.py::_trace_plain (trace_lanes_plain,
+// bwd_replay_plain); this file follows it statement by statement, and
+// chip_smoke.py holds the two against each other. The light sampling,
+// BSDFs, RNG and vector maths are K1's (megakernel.cuh), reading a header
+// and light records packed as K1's are.
 //
 // Design. One thread runs one lane's whole path (128 threads a block); the
 // path state lives in registers. The geometry is one table per shape class
@@ -37,10 +42,23 @@
 // with --fmad=false and without fast math, so it rounds as the plain
 // version does. Simple first: shared-memory table staging, a per-warp cull
 // and the light loop unrolled for small L are later work.
+//
+// K8 keeps K5's path state and adds g, the tail radiance and the bounce's
+// colour adjoints. As K7 does, it writes each bounce's adjoints tagged with
+// the row it hit (PB planes a bounce, dd ds de [dexp], then the horizon's
+// de; the row tags in a (max_depth + 1, n) int plane, 0 for a miss or a
+// bounce the lane does not reach), and its env and light-emission adjoints
+// (3 + 3L columns, local memory) go through lane_sum.cuh's fixed-order block
+// sums. The host then sorts the tags stably and runs K7's segment sums
+// (bigscene_bwd_res.cu): no float atomics, the gradient repeats to the last
+// bit. What bounds it: K5's FP32 issue plus the adjoint terms; its bytes
+// are K5's plus g and L in and (PB * max_depth + 3) * 4 + (max_depth + 1) *
+// 4 B a lane out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_sum.cuh"
 #include "megakernel.cuh"
 
 namespace {
@@ -61,6 +79,12 @@ struct BigArgs {
   int* resi;
   int n, n_tri, n_rect, n_disk, n_sph, M, seed, max_depth, rr_start, rows_per_tile,
       sampler, robust, texp;
+  // K8: g and L in; the row-tagged planes, the row tags, the lane sums out
+  const float *g, *l_in;
+  float* dout;
+  int* tags;
+  float *partial, *lane_sums;
+  int n_cols;
 };
 
 constexpr int PG = 12, DG = 8, SG = 4;  // columns of the class tables
@@ -257,13 +281,16 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Shadow* s
   return need & ~open;
 }
 
-enum Mode { MODE_FWD = 0, MODE_RESIDUAL = 1 };
+enum Mode { MODE_FWD = 0, MODE_RESIDUAL = 1, MODE_REPLAY = 2 };
 
 // One lane's path: MODE_FWD writes its radiance (K5), MODE_RESIDUAL also
-// the coefficient cache (K6). SOBOL is a compile-time switch, as in K1.
+// the coefficient cache (K6), MODE_REPLAY re-traces the same path with the
+// same draws and writes its row-tagged adjoints, adding its env (0-2) and
+// per-light emission (3 + 3i ..) adjoints to acc (K8). SOBOL is a
+// compile-time switch, as in K1.
 template <int MODE, bool SOBOL>
 __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, const Tables& T,
-                                           int lane_id) {
+                                           int lane_id, float* acc) {
   const int n = a.n;
   const int L = S.L;
   const bool texp = a.texp != 0;
@@ -273,6 +300,9 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
   rp.texp = texp ? 1 : 0;
   rp.stride = 11 + rp.env + L * (1 + rp.texp) + rp.texp;
   auto put = [&](int k, float v) { a.resf[(size_t)k * n + lane_id] = v; };
+  // K8: adjoint plane k of this lane, PB planes a bounce below the horizon
+  const int PB = texp ? 10 : 9;
+  auto dput = [&](int k, float v) { a.dout[(size_t)k * n + lane_id] = v; };
 
   const int tile = a.rows_per_tile * 128;
   const int tile_id = lane_id / tile;
@@ -301,6 +331,12 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
   const bool has_phong = S.has_lobe(PHONG);
   const V zero3 = vmk(0.f, 0.f, 0.f);
   int next_bounce = a.max_depth + 1;  // the first bounce this lane does not reach
+  // K8: the upstream gradient and the tail radiance
+  V g = zero3, r_tail = zero3;
+  if (MODE == MODE_REPLAY) {
+    g = ld3(a.g + 3 * (size_t)lane_id);
+    r_tail = ld3(a.l_in + 3 * (size_t)lane_id);
+  }
 
   for (int bounce = 0; bounce <= a.max_depth; ++bounce) {
     float t;
@@ -330,7 +366,15 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
       w_emit = safe_div(pdf_prev, pdf_prev + pdf_l_hit);
     }
     const float wb = alive ? w_emit : 0.f;
-    Lr = Lr + beta * ((emit_mask ? emi : zero3) * wb);
+    // E_b, the radiance this vertex adds before the throughput: K8 peels it
+    V e_term = (emit_mask ? emi : zero3) * wb;
+    Lr = Lr + beta * e_term;
+    V gb = zero3, de_b = zero3;
+    if (MODE == MODE_REPLAY) {
+      gb = g * beta;
+      de_b = gb * (emit_mask ? wb : 0.f);
+      a.tags[(size_t)bounce * n + lane_id] = valid ? grow + 1 : 0;
+    }
     if (MODE == MODE_RESIDUAL) {
       put(rp.wb(bounce), emit_mask ? wb : 0.f);
       put(rp.emi(bounce, 0), emi.x);
@@ -340,11 +384,21 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
     if (S.env_i >= 0) {
       const float w_env = full ? 1.0f : safe_div(pdf_prev, pdf_prev + env_pdf(d.z));
       const float wenv = (alive && !valid) ? w_env : 0.f;
-      Lr = Lr + (beta * ld3(a.env)) * wenv;
+      const V env = ld3(a.env);
+      Lr = Lr + (beta * env) * wenv;
       if (MODE == MODE_RESIDUAL) put(rp.wenv(bounce), wenv);
+      if (MODE == MODE_REPLAY) {
+        e_term = e_term + env * wenv;
+        add3(acc, 0, gb * wenv);
+      }
     }
     if (bounce == a.max_depth) {
       if (MODE == MODE_RESIDUAL) a.resi[(size_t)bounce * n + lane_id] = grow + 1;
+      if (MODE == MODE_REPLAY) {
+        dput(PB * bounce, de_b.x);
+        dput(PB * bounce + 1, de_b.y);
+        dput(PB * bounce + 2, de_b.z);
+      }
       break;
     }
     const bool cont = alive && valid;
@@ -420,16 +474,29 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
     }
     const uint32_t lit = want ? want & ~occluded_tables(T, hp, nrm, sh, want) : 0u;
     V ld = zero3;
+    // K8: this bounce's colour and exponent adjoints, all of its hit row
+    V addc_diff = zero3, addc_spec = zero3;
+    float addx = 0.f;
     for (int i = 0; i < L; ++i) {
       const float okf = ((lit >> i) & 1u) ? wl[i] : 0.f;
       const float bp = (lu[i] * okf) * lobe_scale;
-      ld = ld + (col_nee * ld3(a.light_emit + 3 * i)) * bp;
+      const V emit_l = ld3(a.light_emit + 3 * i);
+      ld = ld + (col_nee * emit_l) * bp;
       if (MODE == MODE_RESIDUAL) {
         put(rp.B(bounce, i), bp);
         if (texp) put(rp.Bk(bounce, i), lobe_is_phong ? bp * kappa_dot(exponent, caw[i]) : 0.f);
       }
+      if (MODE == MODE_REPLAY) {
+        add3(acc, 3 + 3 * i, (gb * col_nee) * bp);
+        const V addc = (gb * emit_l) * bp;
+        addc_spec = addc_spec + (lobe_is_phong ? addc : zero3);
+        addc_diff = addc_diff + (lobe_is_phong ? zero3 : addc);
+        if (texp)
+          addx = addx + (lobe_is_phong ? vdot(addc, col_nee) * kappa_dot(exponent, caw[i]) : 0.f);
+      }
     }
     Lr = Lr + beta * ld;
+    e_term = e_term + ld;
 
     // ---- extension sample ----
     rng.uniform2(u1, u2);
@@ -454,6 +521,36 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
       beta_new = beta_new * scale;
       alive_n = ok && !kill;
     }
+    const bool to_spec = is_mirror || (is_glass && !refract) || lobe_is_phong;
+    if (MODE == MODE_REPLAY) {
+      // R_{b+1} = (R_b - E_b) / T_b per channel, 0 where the path ends
+      const V t_eff = alive_n ? thr * scale : zero3;
+      const V r_next = alive_n ? vmk(safe_div(r_tail.x - e_term.x, t_eff.x),
+                                     safe_div(r_tail.y - e_term.y, t_eff.y),
+                                     safe_div(r_tail.z - e_term.z, t_eff.z))
+                               : zero3;
+      const float t_unit = (f_unit_s * safe_div(fabsf(wi_l.z), pdf_s)) * scale;
+      const V addt = (gb * r_next) * (alive_n ? t_unit * lobe_scale : 0.f);
+      addc_spec = addc_spec + (to_spec ? addt : zero3);
+      addc_diff = addc_diff + (to_spec ? zero3 : addt);
+      if (texp)
+        addx = addx + (lobe_is_phong ? vdot(addt, col_nee) *
+                                           kappa_dot(exponent, vdot(vmk(-wo_l.x, -wo_l.y, wo_l.z),
+                                                                    wi_l))
+                                     : 0.f);
+      const int p = PB * bounce;
+      dput(p, addc_diff.x);
+      dput(p + 1, addc_diff.y);
+      dput(p + 2, addc_diff.z);
+      dput(p + 3, addc_spec.x);
+      dput(p + 4, addc_spec.y);
+      dput(p + 5, addc_spec.z);
+      dput(p + 6, de_b.x);
+      dput(p + 7, de_b.y);
+      dput(p + 8, de_b.z);
+      if (texp) dput(p + 9, addx);
+      r_tail = r_next;
+    }
     if (MODE == MODE_RESIDUAL) {
       const float t_unit = (f_unit_s * safe_div(fabsf(wi_l.z), pdf_s)) * scale;
       const float tu_plane = alive_n ? t_unit * lobe_scale : 0.f;
@@ -468,7 +565,6 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
       put(rp.spc(bounce, 0), specular.x);
       put(rp.spc(bounce, 1), specular.y);
       put(rp.spc(bounce, 2), specular.z);
-      const bool to_spec = is_mirror || (is_glass && !refract) || lobe_is_phong;
       a.resi[(size_t)bounce * n + lane_id] =
           (grow + 1) + (lobe_is_phong ? RES_PHONG : 0) + (to_spec ? RES_TO_SPEC : 0);
     }
@@ -506,20 +602,38 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
       a.resi[(size_t)b * n + lane_id] = 0;
     }
   }
+  if (MODE == MODE_REPLAY) {
+    // the bounces a dead lane never reached: tag 0, every plane 0
+    for (int b = next_bounce; b <= a.max_depth; ++b) {
+      const int np = b < a.max_depth ? PB : 3;
+      for (int k = 0; k < np; ++k) dput(PB * b + k, 0.f);
+      a.tags[(size_t)b * n + lane_id] = 0;
+    }
+    return;
+  }
   a.out[3 * (size_t)lane_id] = Lr.x;
   a.out[3 * (size_t)lane_id + 1] = Lr.y;
   a.out[3 * (size_t)lane_id + 2] = Lr.z;
 }
 
+// K5, K6 and K8 are this one template: K6 adds the cache stores and K8 the
+// adjoint terms, so their draws, hits and branches are K5's by construction.
 template <int MODE, bool SOBOL>
 __global__ void __launch_bounds__(128) bigscene_fwd_kernel(const BigArgs a) {
   const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane_id >= a.n) return;
   Scene S;
   S.init(a.F, a.I);
   Tables T;
   T.init(a);
-  trace_lane<MODE, SOBOL>(a, S, T, lane_id);
+  if constexpr (MODE == MODE_REPLAY) {
+    // per-thread env and light-emission adjoints, then the fixed-order block sum
+    float acc[3 + 3 * MAX_LIGHTS];
+    for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
+    if (lane_id < a.n) trace_lane<MODE, SOBOL>(a, S, T, lane_id, acc);
+    block_partials(acc, a.n_cols, a.partial);
+  } else if (lane_id < a.n) {
+    trace_lane<MODE, SOBOL>(a, S, T, lane_id, nullptr);
+  }
 }
 
 template <int MODE>
@@ -530,12 +644,14 @@ int launch(const BigArgs& a, void* stream) {
     if (err != cudaSuccess) return (int)err;
   }
   const int threads = 128;
-  const int blocks = (a.n + threads - 1) / threads;
+  const int blocks = a.n > 0 ? (a.n + threads - 1) / threads : (MODE == MODE_REPLAY ? 1 : 0);
   if (blocks > 0 && a.sampler == S_SOBOL)
     bigscene_fwd_kernel<MODE, true><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   else if (blocks > 0)
     bigscene_fwd_kernel<MODE, false><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || MODE != MODE_REPLAY) return (int)err;
+  return sum_partials(a.partial, a.lane_sums, blocks, a.n_cols, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -563,4 +679,28 @@ extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo
                   light_emit, env, o, d, si, pix, out, resf, resi, n, n_tri, n_rect, n_disk,
                   n_sph, M, seed, max_depth, rr_start, rows_per_tile, sampler, robust, texp};
   return residual ? launch<MODE_RESIDUAL>(a, stream) : launch<MODE_FWD>(a, stream);
+}
+
+// K8 on `stream` (PyTorch's current stream): the tables and lanes of
+// kytpu_bigscene_fwd, the upstream gradient g (n, 3) and the forward's
+// radiance big_l (n, 3) -> the row-tagged adjoint planes dout ((PB *
+// max_depth + 3), n), their row tags (max_depth + 1, n) and, through the
+// (max(1, ceil(n / 128)), n_cols) scratch `partial`, the (n_cols = 3 + 3L,)
+// lane sums of the env and light-emission adjoints. Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for what it does not take).
+extern "C" int kytpu_bigscene_bwd_replay(
+    const float* F, const int* I, const float* geo, const int* rows, const int* mat_i,
+    const float* mat_f, const float* diffuse, const float* specular, const float* emission,
+    const float* exponent, const float* light_emit, const float* env, const float* o,
+    const float* d, const int* si, const int* pix, const float* g, const float* big_l,
+    float* dout, int* tags, float* partial, float* lane_sums, int n, int n_cols, int n_tri,
+    int n_rect, int n_disk, int n_sph, int M, int seed, int max_depth, int rr_start,
+    int rows_per_tile, int sampler, int robust, int texp, void* stream) {
+  if (n_cols > 3 + 3 * MAX_LIGHTS || n_cols < 3) return (int)cudaErrorInvalidValue;
+  const BigArgs a{F,         I,         geo,   rows,     mat_i,  mat_f,   diffuse, specular,
+                  emission,  exponent,  light_emit, env,  o,      d,       si,      pix,
+                  nullptr,   nullptr,   nullptr, n,       n_tri,  n_rect,  n_disk,  n_sph,
+                  M,         seed,      max_depth, rr_start, rows_per_tile, sampler, robust,
+                  texp,      g,         big_l, dout,     tags,   partial, lane_sums, n_cols};
+  return launch<MODE_REPLAY>(a, stream);
 }

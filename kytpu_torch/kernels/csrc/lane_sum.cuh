@@ -22,8 +22,8 @@ namespace kytpu {
 
 constexpr int LANE_THREADS = 128;  // BWD_THREADS in wavefront.py
 constexpr int SUM_THREADS = 256;   // SUM_THREADS in wavefront.py
-// dd, ds, de (3M each), denv (3), dexp (M)
-constexpr int MAX_COLS = 10 * MAX_SURFACES + 3;
+// dd, ds, de (3M each), denv (3), dexp (M), dta, dtb (3T each)
+constexpr int MAX_COLS = 10 * MAX_SURFACES + 3 + 6 * MAX_TEXTURES;
 
 // this block's partial sums of acc[0..K) into row blockIdx.x of `partial`;
 // every thread of the block must call it

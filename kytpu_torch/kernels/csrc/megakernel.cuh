@@ -4,8 +4,9 @@
 // min/max, the integer hashes and the lane RNG of the three samplers (the
 // "sobol" site words in a __constant__ table, one copy per source), the
 // scene header and light tables of kernels/wavefront.py::pack_tables
-// (`Scene`), the sphere occlusion root test, shading frames, the BSDFs and
-// the light sampling. Each is a transcription of a function of
+// (`Scene`), the sphere occlusion root test, shading frames, the BSDFs,
+// the light sampling and the texture lookups at a hit (the bilinear fetch
+// itself is texture.cuh's). Each is a transcription of a function of
 // kytpu_torch/kernels/wavefront.py's plain version, whose arithmetic the
 // kernels keep to the last bit (they are built with --fmad=false and
 // without fast math).
@@ -14,6 +15,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "texture.cuh"
 #include "wavefront_tables.cuh"
 
 // Everything here has internal linkage: each source that includes the
@@ -51,6 +53,12 @@ __device__ __forceinline__ V vcross(V a, V b) {
 }
 __device__ __forceinline__ bool is_black(V a) { return a.x <= 0.f && a.y <= 0.f && a.z <= 0.f; }
 __device__ __forceinline__ V ld3(const float* p) { return V{__ldg(p), __ldg(p + 1), __ldg(p + 2)}; }
+// acc[col .. col + 2] += v (the replay backwards' per-thread accumulators)
+__device__ __forceinline__ void add3(float* acc, int col, V v) {
+  acc[col] = acc[col] + v.x;
+  acc[col + 1] = acc[col + 1] + v.y;
+  acc[col + 2] = acc[col + 2] + v.z;
+}
 
 // NaN-propagating min / max (fminf/fmaxf drop NaN)
 __device__ __forceinline__ float jmax(float a, float b) {
@@ -168,9 +176,9 @@ struct Scene {
   const float* F;
   const int* I;
   int n_pl, n_sp, M, L, lobes, has_plastic, has_glass, has_delta, static_exp,
-      env_i, any_azim, use_phits, single, texp;
-  const float *PLF, *SPF, *MATF, *LTF;
-  const int *PLI, *SPI, *MATI, *LTI;
+      env_i, any_azim, use_phits, single, texp, n_trec, n_tex, has_img;
+  const float *PLF, *SPF, *MATF, *LTF, *TXF;
+  const int *PLI, *SPI, *MATI, *LTI, *TXI;
   __device__ void init(const float* f, const int* i) {
     F = f;
     I = i;
@@ -179,14 +187,19 @@ struct Scene {
     has_delta = __ldg(i + 7); static_exp = __ldg(i + 8); env_i = __ldg(i + 9);
     any_azim = __ldg(i + 10); use_phits = __ldg(i + 11); single = __ldg(i + 12);
     texp = __ldg(i + H_TEXP);
+    n_trec = __ldg(i + H_TREC);
+    n_tex = __ldg(i + H_TEX);
+    has_img = __ldg(i + H_IMG);
     PLI = i + HDR_I;
     SPI = PLI + PL_I * n_pl;
     MATI = SPI + SP_I * n_sp;
     LTI = MATI + MAT_I * M;
+    TXI = LTI + LT_I * L;
     PLF = f + HDR_F;
     SPF = PLF + PL_F * n_pl;
     MATF = SPF + SP_F * n_sp;
     LTF = MATF + MAT_F * M;
+    TXF = LTF + LT_F * L;
   }
   __device__ __forceinline__ bool has_lobe(int k) const { return (lobes >> k) & 1; }
 };
@@ -217,6 +230,51 @@ __device__ __forceinline__ V to_local(V s, V t, V n, V w) {
 }
 __device__ __forceinline__ V to_world(V s, V t, V n, V w) {
   return (s * w.x + t * w.y) + n * w.z;
+}
+
+// ---- textures (wavefront.py _uv, _checker_even, _image_xy) -------------------
+
+// (u, v) of hit hp on texture record rec's planar row: the baked anchor and
+// dual basis, folding zero constants as kytpu's V3.dot does
+__device__ __forceinline__ void tex_uv(const Scene& S, int rec, V hp, float& u, float& v) {
+  const float* tf = S.TXF + TX_F * rec;
+  const V rel = hp - ld3(tf);
+  u = cdot(ld3(tf + 3), rel);
+  v = cdot(ld3(tf + 6), rel);
+  if (__ldg(tf + 9) != 0.f) {  // a disk's frame coordinates
+    u = u + 0.5f;
+    v = v + 0.5f;
+  }
+}
+
+// the checker's "even"-cell mask at hp
+__device__ __forceinline__ bool checker_even(const Scene& S, int rec, V hp) {
+  float u, v;
+  tex_uv(S, rec, hp, u, v);
+  const float* tf = S.TXF + TX_F * rec;
+  const int pu = (int)floorf(u * __ldg(tf + 10)), pv = (int)floorf(v * __ldg(tf + 11));
+  return ((pu + pv) & 1) == 0;
+}
+
+// continuous texel coordinates of hp on an image row, in [-0.5, dim - 0.5)
+__device__ __forceinline__ void image_xy(const Scene& S, int rec, V hp, float& x, float& y) {
+  float u, v;
+  tex_uv(S, rec, hp, u, v);
+  const float* tf = S.TXF + TX_F * rec;
+  const int* ti = S.TXI + TX_I * rec;
+  const float su = u * __ldg(tf + 10), sv = v * __ldg(tf + 11);
+  x = (su - floorf(su)) * (float)__ldg(ti + 3) - 0.5f;
+  y = (sv - floorf(sv)) * (float)__ldg(ti + 4) - 0.5f;
+}
+
+// the taps and colour of image record rec at texel coordinates (x, y)
+__device__ __forceinline__ V image_lookup(const Scene& S, int rec, float x, float y,
+                                          const float* timg, Taps& taps) {
+  const int* ti = S.TXI + TX_I * rec;
+  taps = image_taps(__ldg(ti + 2), __ldg(ti + 3), __ldg(ti + 4), x, y);
+  float c[3];
+  image_color(taps, __ldg(ti + 5) != 0, timg, c);
+  return vmk(c[0], c[1], c[2]);
 }
 
 // ---- BSDFs -----------------------------------------------------------------

@@ -23,6 +23,14 @@
 // The sum over lanes is the fixed-order two-pass reduction of
 // lane_sum.cuh, shared with K4: the gradient repeats to the last bit.
 //
+// On a textured scene (TEX, a compile-time switch) a textured row's diffuse
+// is its texture's value, rebuilt from the cache: a checker's colour by the
+// parity K2 stored in bit 10 of the int plane, an image's bilinear value at
+// the texel coordinates of the "tx"/"ty" planes (texture.cuh). The row's
+// diffuse adjoint goes to the texture, as in K4: a checker's to 6 more
+// accumulator columns a texture, an image's as four texel-tagged entries a
+// bounce that the host sums by texel in a fixed order.
+//
 // What bounds it on the H100: bytes. A lane reads the whole cache
 // ((res_n + max_depth + 1) * 4 B), g and L (24 B) once and writes nothing;
 // the arithmetic is a few dozen FP32 operations per bounce. The cache is
@@ -36,6 +44,7 @@
 #include <stdint.h>
 
 #include "lane_sum.cuh"
+#include "texture.cuh"
 #include "wavefront_tables.cuh"
 
 namespace {
@@ -63,22 +72,34 @@ __device__ __forceinline__ void add3(float* acc, int col, V v) {
   acc[col + 2] = acc[col + 2] + v.z;
 }
 
+// the textures K3 reads: the int table's texture records, the checker
+// colours and the atlas; out, the texel entries and their tags
+struct Tex {
+  const float *texa, *texb, *timg;
+  float* dout;
+  int* tags;
+};
+
+template <bool TEX>
 __global__ void __launch_bounds__(THREADS)
 bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
                const float* __restrict__ specular_t, const float* __restrict__ emission_t,
                const float* __restrict__ light_emit_t, const float* __restrict__ env_t,
                const float* __restrict__ g_in, const float* __restrict__ l_in,
                const float* __restrict__ resf, const int* __restrict__ resi,
-               float* __restrict__ partial, int n, int K, int max_depth) {
+               float* __restrict__ partial, int n, int K, int max_depth, const Tex tx) {
   const int n_pl = __ldg(I), n_sp = __ldg(I + 1);
   const int M = __ldg(I + H_M), L = __ldg(I + H_L);
   const int* MATI = I + HDR_I + PL_I * n_pl + SP_I * n_sp;
   const int* LTI = MATI + MAT_I * M;
+  const int* TXI = LTI + LT_I * L;
   const bool single = __ldg(I + H_SINGLE) != 0;
   const bool has_env = __ldg(I + H_ENV_I) >= 0;
   const bool texp = __ldg(I + H_TEXP) != 0;
-  const ResPlanes rp = res_planes(has_env, single, L, texp);
+  const bool has_img = TEX && __ldg(I + H_IMG) != 0;
+  const ResPlanes rp = res_planes(has_env, single, L, texp, has_img);
   const int col_d = 0, col_s = 3 * M, col_e = 6 * M, col_env = 9 * M, col_x = 9 * M + 3;
+  const int col_ta = col_x + (texp ? M : 0), col_tb = col_ta + 3 * __ldg(I + H_TEX);
   const V zero3 = V{0.f, 0.f, 0.f};
 
   float acc[MAX_COLS];
@@ -115,7 +136,22 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
 
       const bool phong = (ib & RESI_PHONG) != 0;
       const bool to_spec = (ib & RESI_TO_SPEC) != 0;
-      const V diff_sel = ok_d ? ld3(diffuse_t + 3 * sid) : zero3;
+      V diff_sel = ok_d ? ld3(diffuse_t + 3 * sid) : zero3;
+      // a textured row's diffuse, rebuilt from the parity bit or "tx"/"ty"
+      const int trec = (TEX && sid >= 0) ? __ldg(MATI + MAT_I * sid + 2) : -1;
+      const bool tex_img = trec >= 0 && __ldg(TXI + TX_I * trec) != 0;
+      const bool tex_even = (ib & RESI_EVEN) != 0;
+      Taps taps;
+      if (trec >= 0 && tex_img) {
+        const int* ti = TXI + TX_I * trec;
+        taps = image_taps(__ldg(ti + 2), __ldg(ti + 3), __ldg(ti + 4), plane(rp.tx(b)),
+                          plane(rp.ty(b)));
+        float c[3];
+        image_color(taps, __ldg(ti + 5) != 0, tx.timg, c);
+        diff_sel = V{c[0], c[1], c[2]};
+      } else if (trec >= 0) {
+        diff_sel = ld3((tex_even ? tx.texa : tx.texb) + 3 * __ldg(TXI + TX_I * trec + 1));
+      }
       const V spec_sel = ok_s ? ld3(specular_t + 3 * sid) : zero3;
       const V emit_sel = ok_e ? ld3(emission_t + 3 * sid) : zero3;
       const V col_nee = sel(phong, spec_sel, diff_sel);
@@ -144,7 +180,26 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
                          safe_div(r_tail.y - e_term.y, t_eff.y),
                          safe_div(r_tail.z - e_term.z, t_eff.z)};
       const V addt = (gb * r_next) * tu;
-      if (ok_d) add3(acc, col_d + 3 * sid, sel(phong, zero3, addc) + sel(to_spec, zero3, addt));
+      V addc_diff = sel(phong, zero3, addc) + sel(to_spec, zero3, addt);
+      if (TEX) {
+        // a textured row's diffuse adjoint goes to its texture
+        if (trec >= 0 && !tex_img)
+          add3(acc, (tex_even ? col_ta : col_tb) + 3 * __ldg(TXI + TX_I * trec + 1), addc_diff);
+        if (has_img) {
+          const bool sep = tex_img && __ldg(TXI + TX_I * trec + 5) != 0;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const bool ok = tex_img && taps.t[s] >= 0;
+            const size_t j = 4 * (size_t)b + s;
+            tx.tags[j * n + lane] = ok ? taps.t[s] + 1 : 0;
+            tx.dout[(3 * j) * n + lane] = ok ? texel_entry(taps, sep, s, addc_diff.x) : 0.f;
+            tx.dout[(3 * j + 1) * n + lane] = ok ? texel_entry(taps, sep, s, addc_diff.y) : 0.f;
+            tx.dout[(3 * j + 2) * n + lane] = ok ? texel_entry(taps, sep, s, addc_diff.z) : 0.f;
+          }
+        }
+        if (trec >= 0) addc_diff = zero3;
+      }
+      if (ok_d) add3(acc, col_d + 3 * sid, addc_diff);
       if (ok_s) add3(acc, col_s + 3 * sid, sel(phong, addc, zero3) + sel(to_spec, addt, zero3));
       if (texp) {
         // "tuk" is 0 off phong lanes, whose extension read specular
@@ -162,21 +217,32 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
 }  // namespace
 
 // K3 on `stream` (PyTorch's current stream): the table adjoints as one
-// (n_cols,) vector dd | ds | de | denv [| dexp] in `out` (n_cols = 9 *
-// m_rows + 3, or 10 * m_rows + 3 under trainable_exponent), through the
-// (max(1, ceil(n / 128)), n_cols) scratch `partial`. Returns
+// (n_cols,) vector dd | ds | de | denv [| dexp] [| dta | dtb] in `out`
+// (n_cols = 9 * m_rows + 3, m_rows more under trainable_exponent, 6 a
+// texture on a textured scene), through the (max(1, ceil(n / 128)), n_cols)
+// scratch `partial`; where the scene has image textures (textured: it has
+// texture records), the texel entries tex_dout (12 max_depth, n) and their
+// tags tex_tags (4 max_depth, n), as K4 writes them. Returns
 // cudaGetLastError().
 extern "C" int kytpu_wavefront_bwd_res(const int* I, const float* diffuse, const float* specular,
                                        const float* emission, const float* light_emit,
-                                       const float* env, const float* g, const float* big_l,
+                                       const float* env, const float* texa, const float* texb,
+                                       const float* timg, const float* g, const float* big_l,
                                        const float* resf, const int* resi, float* partial,
-                                       float* out, int n, int m_rows, int n_cols, int max_depth,
+                                       float* out, float* tex_dout, int* tex_tags, int n,
+                                       int m_rows, int n_cols, int max_depth, int textured,
                                        void* stream) {
   if (m_rows > MAX_SURFACES || n_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
   const int blocks = n > 0 ? (n + THREADS - 1) / THREADS : 1;
-  bwd_res_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      I, diffuse, specular, emission, light_emit, env, g, big_l, resf, resi, partial, n,
-      n_cols, max_depth);
+  const Tex tx{texa, texb, timg, tex_dout, tex_tags};
+  if (textured)
+    bwd_res_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        I, diffuse, specular, emission, light_emit, env, g, big_l, resf, resi, partial, n,
+        n_cols, max_depth, tx);
+  else
+    bwd_res_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        I, diffuse, specular, emission, light_emit, env, g, big_l, resf, resi, partial, n,
+        n_cols, max_depth, tx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return sum_partials(partial, out, blocks, n_cols, (cudaStream_t)stream);

@@ -7,12 +7,13 @@
 // (wavefront_bwd_res.cu) reads; with grad=True, K4, the path-replay backward
 // (backward="replay"), which re-traces each lane with the forward's draws,
 // peels the tail radiance R_{b+1} = (R_b - E_b) / T_b and accumulates the
-// table adjoints. All three are one template, wavefront_fwd_kernel<MODE>:
-// K2 adds stores and K4 adjoint terms and nothing else, so their draws, hits
-// and branches are K1's by construction. Their plain PyTorch transcriptions
-// are kytpu_torch/kernels/wavefront.py::trace_lanes_plain (residual=False/
-// True) and bwd_replay_plain, one body there too; this file follows it
-// statement by statement, and chip_smoke.py holds each kernel against it.
+// table adjoints. All three are one template, wavefront_fwd_kernel<MODE,
+// SOBOL, TEX>: K2 adds stores and K4 adjoint terms and nothing else, so their
+// draws, hits and branches are K1's by construction. Their plain PyTorch
+// transcriptions are kytpu_torch/kernels/wavefront.py::trace_lanes_plain
+// (residual=False/True) and bwd_replay_plain, one body there too; this file
+// follows it statement by statement, and chip_smoke.py holds each kernel
+// against it.
 // The samplers are "random", "hash" and "sobol" (an Owen-scrambled (0,2)
 // sequence whose per-site words sit in a __constant__ table); under
 // trainable_exponent the Phong exponents come from a per-call table, K2
@@ -232,25 +233,24 @@ struct Args {
   const float *g, *l_in;
   float* partial;
   int n, n_cols, seed, max_depth, rr_start, rows, sampler, robust;
+  // textures: the checker colours, the texel atlas; K4's texel entries
+  const float *texa, *texb, *timg;
+  float* tex_dout;
+  int* tex_tags;
 };
-
-__device__ __forceinline__ void add3(float* acc, int col, V v) {
-  acc[col] = acc[col] + v.x;
-  acc[col + 1] = acc[col + 1] + v.y;
-  acc[col + 2] = acc[col + 2] + v.z;
-}
 
 // One lane's path. MODE_FWD accumulates and writes its radiance (K1),
 // MODE_RESIDUAL also the coefficient cache (K2), MODE_REPLAY re-traces the
 // same path with the same draws and adds its table adjoints to acc (K4):
-// dd | ds | de (3M each) | denv (3) | dexp (M, under trainable_exponent).
-// SOBOL is a compile-time switch so that no other sampler's draws branch on
-// it.
-template <int MODE, bool SOBOL>
+// dd | ds | de (3M each) | denv (3) | dexp (M, under trainable_exponent) |
+// dta | dtb (3T each, textured scenes). SOBOL and TEX are compile-time
+// switches so that no other sampler's draws and no untextured scene branch
+// on them.
+template <int MODE, bool SOBOL, bool TEX>
 __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int lane_id,
                                            float* acc) {
   const int n = a.n;
-  const ResPlanes rp = res_planes(S.env_i >= 0, S.single, S.L, S.texp);
+  const ResPlanes rp = res_planes(S.env_i >= 0, S.single, S.L, S.texp, TEX && S.has_img);
   // plane k of this lane
   auto put = [&](int k, float v) { a.resf[(size_t)k * n + lane_id] = v; };
 
@@ -291,7 +291,16 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
     r_tail = ld3(a.l_in + 3 * (size_t)lane_id);
   }
   const int col_d = 0, col_s = 3 * S.M, col_e = 6 * S.M, col_env = 9 * S.M,
-            col_x = 9 * S.M + 3;
+            col_x = 9 * S.M + 3, col_ta = col_x + (S.texp ? S.M : 0),
+            col_tb = col_ta + 3 * S.n_tex;
+  // K4: texel entry (slot s of bounce b) of this lane
+  auto tex_put = [&](int b, int s, int tag, V v) {
+    const size_t j = 4 * (size_t)b + s;
+    a.tex_tags[j * n + lane_id] = tag;
+    a.tex_dout[(3 * j) * n + lane_id] = v.x;
+    a.tex_dout[(3 * j + 1) * n + lane_id] = v.y;
+    a.tex_dout[(3 * j + 2) * n + lane_id] = v.z;
+  };
 
   for (int bounce = 0; bounce <= a.max_depth; ++bounce) {
     float t;
@@ -350,6 +359,25 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
                           : ((S.static_exp || !valid) ? 0.f : __ldg(mf));
     float eta = S.has_glass ? (valid ? __ldg(mf + 1) : 0.f) : 1.0f;
     V diffuse = (valid && mk != MAT_MIRROR) ? ld3(a.diffuse + 3 * sid) : zero3;
+    // a textured row's diffuse is its texture's value at the hit
+    int trec = -1;
+    bool tex_even = false, tex_img = false;
+    float tex_x = 0.f, tex_y = 0.f;
+    Taps taps;
+    if (TEX && valid) {
+      trec = __ldg(S.MATI + MAT_I * sid + 2);
+      if (trec >= 0) {
+        const int* ti = S.TXI + TX_I * trec;
+        tex_img = __ldg(ti) != 0;
+        if (tex_img) {
+          image_xy(S, trec, hp, tex_x, tex_y);
+          diffuse = image_lookup(S, trec, tex_x, tex_y, a.timg, taps);
+        } else {
+          tex_even = checker_even(S, trec, hp);
+          diffuse = ld3((tex_even ? a.texa : a.texb) + 3 * __ldg(ti + 1));
+        }
+      }
+    }
     V specular = (valid && mk != MAT_MATTE) ? ld3(a.specular + 3 * sid) : zero3;
     bool is_matte = mk == MAT_MATTE, is_mirror = mk == MAT_MIRROR;
     bool is_glass = mk == MAT_GLASS, is_plastic = mk == MAT_PLASTIC;
@@ -513,7 +541,12 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
         put(rp.tu(bounce), tu_plane);
         if (texp) put(rp.tuk(bounce), lobe_is_phong ? tu_plane * kap_s : 0.f);
         a.resi[(size_t)bounce * n + lane_id] = (sid + 1) + (lobe_is_phong ? RESI_PHONG : 0) +
-                                               (to_spec_t ? RESI_TO_SPEC : 0) + pick_bits;
+                                               (to_spec_t ? RESI_TO_SPEC : 0) + pick_bits +
+                                               (trec >= 0 && !tex_img && tex_even ? RESI_EVEN : 0);
+        if (rp.img) {
+          put(rp.tx(bounce), tex_img ? tex_x : 0.f);
+          put(rp.ty(bounce), tex_img ? tex_y : 0.f);
+        }
       }
       if (MODE == MODE_REPLAY) {
         // R_{b+1} = (R_b - E_b) / T_b per channel, 0 where the path ends
@@ -526,6 +559,26 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
         addc_spec = addc_spec + (to_spec_t ? addt : zero3);
         addc_diff = addc_diff + (to_spec_t ? zero3 : addt);
         if (texp) addx = addx + (lobe_is_phong ? vdot(addt, col_nee) * kap_s : 0.f);
+        if (TEX) {
+          // a textured row's diffuse adjoint goes to its texture
+          const bool on_img = trec >= 0 && tex_img;
+          if (trec >= 0 && !tex_img)
+            add3(acc, (tex_even ? col_ta : col_tb) + 3 * __ldg(S.TXI + TX_I * trec + 1),
+                 addc_diff);
+          if (S.has_img) {
+            const bool sep = on_img && __ldg(S.TXI + TX_I * trec + 5) != 0;
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              const bool ok = on_img && taps.t[s] >= 0;
+              tex_put(bounce, s, ok ? taps.t[s] + 1 : 0,
+                      ok ? vmk(texel_entry(taps, sep, s, addc_diff.x),
+                               texel_entry(taps, sep, s, addc_diff.y),
+                               texel_entry(taps, sep, s, addc_diff.z))
+                         : zero3);
+            }
+          }
+          if (trec >= 0) addc_diff = zero3;
+        }
         if (valid && mk != MAT_MIRROR) add3(acc, col_d + 3 * sid, addc_diff);
         if (valid && mk != MAT_MATTE) add3(acc, col_s + 3 * sid, addc_spec);
         if (texp && valid && mk == MAT_PLASTIC) acc[col_x + sid] = acc[col_x + sid] + addx;
@@ -556,9 +609,18 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
         }
         put(rp.tu(b), 0.f);
         if (texp) put(rp.tuk(b), 0.f);
+        if (rp.img) {
+          put(rp.tx(b), 0.f);
+          put(rp.ty(b), 0.f);
+        }
       }
       a.resi[(size_t)b * n + lane_id] = 0;
     }
+  }
+  if (MODE == MODE_REPLAY && TEX && S.has_img) {
+    // the texel entries of the bounces a dead lane never reached: tag 0
+    for (int b = next_bounce; b < a.max_depth; ++b)
+      for (int s = 0; s < 4; ++s) tex_put(b, s, 0, zero3);
   }
   if (MODE != MODE_REPLAY) {
     a.out[3 * (size_t)lane_id] = Lr.x;
@@ -569,7 +631,7 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
 
 // K1, K2 and K4 are this one template: K2 adds the cache stores and K4 the
 // adjoint terms, so their draws, hits and branches are K1's by construction.
-template <int MODE, bool SOBOL>
+template <int MODE, bool SOBOL, bool TEX>
 __global__ void __launch_bounds__(128) wavefront_fwd_kernel(const Args a) {
   const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
   Scene S;
@@ -578,15 +640,25 @@ __global__ void __launch_bounds__(128) wavefront_fwd_kernel(const Args a) {
     // per-thread adjoint row (local memory), then the fixed-order block sum
     float acc[MAX_COLS];
     for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
-    if (lane_id < a.n) trace_lane<MODE, SOBOL>(a, S, lane_id, acc);
+    if (lane_id < a.n) trace_lane<MODE, SOBOL, TEX>(a, S, lane_id, acc);
     block_partials(acc, a.n_cols, a.partial);
   } else if (lane_id < a.n) {
-    trace_lane<MODE, SOBOL>(a, S, lane_id, nullptr);
+    trace_lane<MODE, SOBOL, TEX>(a, S, lane_id, nullptr);
   }
 }
 
+template <int MODE, bool TEX>
+void launch_kernel(const Args& a, int blocks, void* stream) {
+  if (a.sampler == S_SOBOL)
+    wavefront_fwd_kernel<MODE, true, TEX><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+  else
+    wavefront_fwd_kernel<MODE, false, TEX><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+}
+
+// textured: the scene has texture records (texa, texb and timg are then its
+// tables, and K4 writes texel entries where it has image textures)
 template <int MODE>
-int launch(const Args& a, void* stream) {
+int launch(const Args& a, int textured, void* stream) {
   if (a.sampler == S_SOBOL) {
     if (a.max_depth > MAX_SOBOL_DEPTH) return (int)cudaErrorInvalidValue;
     cudaError_t err = upload_sites();
@@ -594,10 +666,10 @@ int launch(const Args& a, void* stream) {
   }
   const int threads = 128;
   const int blocks = a.n > 0 ? (a.n + threads - 1) / threads : (MODE == MODE_REPLAY ? 1 : 0);
-  if (blocks > 0 && a.sampler == S_SOBOL)
-    wavefront_fwd_kernel<MODE, true><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  if (blocks > 0 && textured)
+    launch_kernel<MODE, true>(a, blocks, stream);
   else if (blocks > 0)
-    wavefront_fwd_kernel<MODE, false><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+    launch_kernel<MODE, false>(a, blocks, stream);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || MODE != MODE_REPLAY) return (int)err;
   return sum_partials(a.partial, a.out, blocks, a.n_cols, (cudaStream_t)stream);
@@ -608,21 +680,25 @@ int launch(const Args& a, void* stream) {
 // Launch on `stream` (PyTorch's current stream); they return cudaGetLastError()
 // (or cudaErrorInvalidValue for what the kernel does not take). Tables:
 // F, I (pack_tables), the (M, 3) diffuse/specular/emission, the (M,)
-// exponent, the (max(L, 1), 3) light emissions and the (3,) env; lanes: o, d
-// (n, 3), si and pix (n,) int32 (null under the "random" sampler). sampler:
-// 0 random, 1 hash, 2 sobol.
+// exponent, the (max(L, 1), 3) light emissions, the (3,) env and the
+// texture tables texa, texb (T, 3) and timg (texels, 3) (one zero row each
+// in an untextured scene; textured: the scene has texture records); lanes:
+// o, d (n, 3), si and pix (n,) int32 (null under the "random" sampler).
+// sampler: 0 random, 1 hash, 2 sobol.
 // K1: radiance only.
 extern "C" int kytpu_wavefront_fwd(const float* F, const int* I, const float* diffuse,
                                    const float* specular, const float* emission,
                                    const float* exponent, const float* light_emit,
-                                   const float* env, const float* o, const float* d,
+                                   const float* env, const float* texa, const float* texb,
+                                   const float* timg, const float* o, const float* d,
                                    const int* si, const int* pix, float* out, int n, int seed,
                                    int max_depth, int rr_start, int rows, int sampler,
-                                   int robust, void* stream) {
+                                   int robust, int textured, void* stream) {
   const Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
                out, nullptr, nullptr, nullptr, nullptr, nullptr,
-               n, 0, seed, max_depth, rr_start, rows, sampler, robust};
-  return launch<MODE_FWD>(a, stream);
+               n, 0, seed, max_depth, rr_start, rows, sampler, robust,
+               texa, texb, timg, nullptr, nullptr};
+  return launch<MODE_FWD>(a, textured, stream);
 }
 
 // K2: radiance and the coefficient cache, resf (res_n, n) float32 and resi
@@ -630,32 +706,40 @@ extern "C" int kytpu_wavefront_fwd(const float* F, const int* I, const float* di
 extern "C" int kytpu_wavefront_fwd_res(const float* F, const int* I, const float* diffuse,
                                        const float* specular, const float* emission,
                                        const float* exponent, const float* light_emit,
-                                       const float* env, const float* o, const float* d,
+                                       const float* env, const float* texa, const float* texb,
+                                       const float* timg, const float* o, const float* d,
                                        const int* si, const int* pix, float* out, float* resf,
                                        int* resi, int n, int seed, int max_depth, int rr_start,
-                                       int rows, int sampler, int robust, void* stream) {
+                                       int rows, int sampler, int robust, int textured,
+                                       void* stream) {
   const Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
                out, resf, resi, nullptr, nullptr, nullptr,
-               n, 0, seed, max_depth, rr_start, rows, sampler, robust};
-  return launch<MODE_RESIDUAL>(a, stream);
+               n, 0, seed, max_depth, rr_start, rows, sampler, robust,
+               texa, texb, timg, nullptr, nullptr};
+  return launch<MODE_RESIDUAL>(a, textured, stream);
 }
 
 // K4: the table adjoints of upstream gradient g (n, 3) on the lanes whose
 // forward radiance is big_l (n, 3), as one (n_cols,) vector dd | ds | de |
-// denv [| dexp] in `out`, through the (max(1, ceil(n / 128)), n_cols)
-// scratch `partial`.
+// denv [| dexp] [| dta | dtb] in `out`, through the (max(1, ceil(n / 128)),
+// n_cols) scratch `partial`; where the scene has image textures, the texel
+// entries tex_dout (12 max_depth, n) and their tags tex_tags (4 max_depth,
+// n): slot s of bounce b is entry plane 4b + s.
 extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const float* diffuse,
                                           const float* specular, const float* emission,
                                           const float* exponent, const float* light_emit,
-                                          const float* env, const float* o, const float* d,
-                                          const int* si, const int* pix, const float* g,
-                                          const float* big_l, float* partial, float* out,
-                                          int n, int n_cols, int seed, int max_depth,
-                                          int rr_start, int rows, int sampler, int robust,
+                                          const float* env, const float* texa,
+                                          const float* texb, const float* timg, const float* o,
+                                          const float* d, const int* si, const int* pix,
+                                          const float* g, const float* big_l, float* partial,
+                                          float* out, float* tex_dout, int* tex_tags, int n,
+                                          int n_cols, int seed, int max_depth, int rr_start,
+                                          int rows, int sampler, int robust, int textured,
                                           void* stream) {
   if (n_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
   const Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
                out, nullptr, nullptr, g, big_l, partial,
-               n, n_cols, seed, max_depth, rr_start, rows, sampler, robust};
-  return launch<MODE_REPLAY>(a, stream);
+               n, n_cols, seed, max_depth, rr_start, rows, sampler, robust,
+               texa, texb, timg, tex_dout, tex_tags};
+  return launch<MODE_REPLAY>(a, textured, stream);
 }

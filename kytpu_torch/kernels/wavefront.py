@@ -58,9 +58,13 @@ from kytpu_torch.kernels.v3 import (V3, cv3, make_frame, to_local, to_world,
 from kytpu_torch.light import lights as klights
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.scene import shapes as kshapes
+from kytpu_torch.scene import texture as ktex
 
 LANE = 128
 MAX_SURFACES = 64
+# K3 and K4 keep 6 checker-adjoint columns a texture in a thread
+# (csrc/lane_sum.cuh MAX_COLS)
+MAX_TEXTURES = 64
 # the kernel keeps one skip bit per light in an int32 table field and one
 # hit pdf per light in a per-thread array (csrc/wavefront_fwd.cu)
 MAX_LIGHTS = 32
@@ -155,9 +159,10 @@ def _surface_inside_ball_possible(planar, spheres, c, r):
 
 def extract_static(scene: kscene.Scene, occl_skip: bool = True) -> dict:
     """The scene as python values: the same dict that
-    kytpu.kernels.wavefront.extract_static returns for an untextured scene.
-    occl_skip=False leaves out the per-light occlusion-skip proofs (an
-    O(rows^2) host loop that only K1's sweeps read): every set is empty."""
+    kytpu.kernels.wavefront.extract_static returns, texture records
+    included. occl_skip=False leaves out the per-light occlusion-skip proofs
+    (an O(rows^2) host loop that only K1's sweeps read): every set is
+    empty."""
     g = scene.geometry
     npg = {k: getattr(g, k).detach().cpu().numpy()
            for k in ("pl_kind", "pl_p0", "pl_p1", "pl_p2", "pl_p3",
@@ -239,10 +244,82 @@ def extract_static(scene: kscene.Scene, occl_skip: bool = True) -> dict:
     # shadow="parity" (the reference's self-occlusion quirk, ky.cpp:3193)
     skips = (_occl_skip_rows(planar, spheres, mats, lights) if occl_skip
              else [set() for _ in lights])
+    # texture bindings: one record a textured row. Image rows carry the
+    # atlas geometry; "sep" marks the atlases that kytpu fetches with its
+    # separable matmul route (past the select chain's 64 texels, or a side
+    # that is not a power of two), whose addition order the port keeps
+    textures, n_textures, n_texels = [], 0, 0
+    if scene.has_textures:
+        tx = scene.textures
+        n_textures = tx.n_textures
+        tex_id, tscale = tab(scene.tex_id), tab(tx.scale)
+        tkind, timg_idx = tab(tx.kind), tab(tx.image_index)
+        ti_n, th, tw = (int(v) for v in tx.image.shape[:3])
+        n_texels = ti_n * th * tw
+        for m, ti in enumerate(int(v) for v in tex_id):
+            if ti < 0:
+                continue
+            rec = dict(row=m, tex=ti,
+                       kind=("image" if int(tkind[ti]) == ktex.IMAGE
+                             else "checker"),
+                       scale=(float(tscale[ti, 0]), float(tscale[ti, 1])))
+            if rec["kind"] == "image":
+                sep = (th * tw > KERNEL_MAX_TEXELS or (th & (th - 1)) != 0
+                       or (tw & (tw - 1)) != 0)
+                rec.update(img=int(timg_idx[ti]), tw=tw, th=th, sep=sep)
+            textures.append(rec)
+    n_images = (int(scene.textures.image.shape[0])
+                if any(r["kind"] == "image" for r in textures) else 0)
     return dict(planar=planar, spheres=spheres, mats=mats, lights=lights,
                 world_radius=float(tab(scene.world_radius)),
-                has_env=scene.has_env, textures=[], n_textures=0,
-                n_texels=0, n_images=0, occl_skip=skips)
+                has_env=scene.has_env, textures=textures,
+                n_textures=n_textures, n_texels=n_texels, n_images=n_images,
+                occl_skip=skips)
+
+
+def _n_tex(static) -> int:
+    """The textures whose checker adjoints K3 and K4 keep: all of a
+    textured scene's, none of another's."""
+    return static["n_textures"] if static["textures"] else 0
+
+
+def _has_img(static) -> bool:
+    """Whether a row of the scene reads an image texture."""
+    return static["n_images"] > 0
+
+
+# kytpu's in-kernel texture limits: its select-chain fetch takes atlases of
+# at most 64 texels with power-of-two sides, its separable fetch any atlas
+# of at most 256 x 256 texels an image. The port fetches every atlas with
+# one four-tap gather and keeps each route's addition order.
+KERNEL_MAX_TEXELS = 64
+KERNEL_SEP_MAX_TEXELS = 256 * 256
+
+
+def kernel_texture_support(scene: kscene.Scene):
+    """None if the kernels evaluate this scene's textures (checkers, or
+    images of at most KERNEL_SEP_MAX_TEXELS texels, on planar surfaces),
+    else the reason (kytpu's `_kernel_texture_support`)."""
+    if not scene.has_textures:
+        return None
+    tex_id = scene.tex_id.tolist()
+    kinds = scene.textures.kind.tolist()
+    n_planar = scene.geometry.n_planar
+    for m, ti in enumerate(tex_id):
+        if ti < 0:
+            continue
+        if kinds[ti] == ktex.IMAGE:
+            th, tw = scene.textures.image.shape[1:3]
+            if th * tw > KERNEL_SEP_MAX_TEXELS:
+                return (f"the kernels fetch image textures of at most "
+                        f"{KERNEL_SEP_MAX_TEXELS} texels ({th}x{tw} given), "
+                        "as kytpu's megakernel does; larger images need the "
+                        "jnp engines (ROADMAP item M7)")
+        if m >= n_planar:
+            return ("the kernels evaluate textures on planar surfaces only, "
+                    "as kytpu's megakernel does; sphere UV textures need the "
+                    "jnp engines (ROADMAP item M7)")
+    return None
 
 
 def _occl_skip_rows(planar, spheres, mats, lights):
@@ -376,15 +453,17 @@ def _sphere_area_f32(r: float) -> float:
 # ---------------------------------------------------------------------------
 
 # int table: header, then per planar row, per sphere, per material row,
-# per light (offsets derived from the counts, see csrc/wavefront_fwd.cu).
-# Header: n_pl, n_sp, M, L, lobe bits, has_plastic, has_glass, has_delta,
-# static exponent, env light index, any azimuth, use_phits, single,
-# trainable_exponent
-HDR_I = 16
+# per light, per texture record (offsets derived from the counts, see
+# csrc/megakernel.cuh `Scene`). Header: n_pl, n_sp, M, L, lobe bits,
+# has_plastic, has_glass, has_delta, static exponent, env light index, any
+# azimuth, use_phits, single, trainable_exponent, texture records, textures,
+# image textures
+HDR_I = 17
 PL_I = 4     # kind, fast, all-lights skip bitmask, single-mode skip
 SP_I = 1     # all-lights skip bitmask
-MAT_I = 2    # material kind, light index
+MAT_I = 3    # material kind, light index, texture record (-1: none)
 LT_I = 3     # kind, inside_possible, emitting row
+TX_I = 6     # kind (0 checker, 1 image), texture, image, width, height, sep
 # float table
 HDR_F = 4    # 2 * world_radius, then the static exponent's 1/(e+1),
              # (e+2)/2pi and (e+1)/2pi
@@ -393,6 +472,7 @@ SP_F = 8     # c, r, r*r, 1/r
 MAT_F = 4    # exponent, eta, d_prob, s_prob
 LT_F = 28    # position, direction, p0, p1, p2, normal, area, center,
              # radius, 4 pi r^2 (float32 products), 4 pi r^2 (float64)
+TX_F = 12    # uv anchor, uv dual basis 1, 2, disk flag, uv scale (2)
 
 
 @dataclass(frozen=True)
@@ -400,7 +480,9 @@ class SceneTables:
     """What one kernel launch reads: the scene as python values (`static`,
     for the plain version), its flat int32/float32 device tables, and the
     tables a render may change without repacking. `exponent` is read only
-    under cfg.trainable_exponent, and only on plastic rows."""
+    under cfg.trainable_exponent, and only on plastic rows; texa, texb and
+    timg only on textured rows (one zero row each in an untextured
+    scene)."""
 
     static: dict
     f: torch.Tensor
@@ -411,9 +493,13 @@ class SceneTables:
     exponent: torch.Tensor    # (M,)
     light_emit: torch.Tensor  # (max(L, 1), 3)
     env: torch.Tensor         # (3,)
+    texa: torch.Tensor        # (max(T, 1), 3) checker "even" colours
+    texb: torch.Tensor        # (max(T, 1), 3) checker "odd" colours
+    timg: torch.Tensor        # (max(Ti H W, 1), 3) the texel atlas
 
     def with_colors(self, scene: kscene.Scene) -> "SceneTables":
-        return dataclasses.replace(self, **_color_tables(scene))
+        return dataclasses.replace(self, **_color_tables(scene),
+                                   **_texture_tables(scene))
 
 
 def _color_tables(scene: kscene.Scene) -> dict:
@@ -428,6 +514,26 @@ def _color_tables(scene: kscene.Scene) -> dict:
                 emission=f32(scene.emission),
                 exponent=f32(scene.mat_exponent), light_emit=f32(emit),
                 env=f32(env).reshape(3))
+
+
+def _texture_tables(scene: kscene.Scene, texa=None, texb=None,
+                    timg=None) -> dict:
+    """The texture tables a launch reads (`SceneTables` texa, texb, timg),
+    from the scene's textures or the given leaves; one zero row each where
+    the scene has none, so every pointer is valid."""
+    tx = scene.textures if scene.has_textures else None
+    dev = scene.device
+
+    def tab(v, name):
+        if v is None and tx is not None:
+            v = getattr(tx, name)
+        if v is None or not v.numel():
+            return torch.zeros((1, 3), dtype=torch.float32, device=dev)
+        return v.detach().to(device=dev, dtype=torch.float32).reshape(
+            -1, 3).contiguous()
+
+    return dict(texa=tab(texa, "color_a"), texb=tab(texb, "color_b"),
+                timg=tab(timg, "image"))
 
 
 def check_lights(n_lights: int) -> None:
@@ -451,7 +557,7 @@ def pack_header(static, cfg: KernelConfig, counts, static_exp):
     lobes = mats["lobes"]
     hi = np.zeros(HDR_I, np.int32)
     hf = np.zeros(HDR_F, np.float32)
-    hi[:14] = [
+    hi[:] = [
         *counts, L,
         sum(1 << k for k in lobes),
         int(kbsdf.MAT_PLASTIC in mats["kind"]),
@@ -464,6 +570,9 @@ def pack_header(static, cfg: KernelConfig, counts, static_exp):
         int(_phit_lights(lights)),
         int(picks_one_light(cfg, L)),
         int(cfg.trainable_exponent),
+        len(static["textures"]),
+        _n_tex(static),
+        int(_has_img(static)),
     ]
     hf[0] = _f32(2.0 * static["world_radius"])
     if static_exp is not None:
@@ -486,6 +595,9 @@ def pack_header(static, cfg: KernelConfig, counts, static_exp):
 
 
 def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
+    tex_err = kernel_texture_support(scene)
+    if tex_err:
+        raise NotImplementedError(tex_err)
     static = extract_static(scene)
     planar, spheres = static["planar"], static["spheres"]
     mats, lights = static["mats"], static["lights"]
@@ -494,6 +606,10 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
         raise NotImplementedError(
             f"{M} surfaces: K1-K4 take at most {MAX_SURFACES}; larger scenes "
             "run on the big-scene kernels (kernels/bigscene.py)")
+    if static["n_textures"] > MAX_TEXTURES:
+        raise NotImplementedError(
+            f"{static['n_textures']} textures: K3 and K4 keep the checker "
+            f"adjoints of at most {MAX_TEXTURES} in a thread")
     rows_skip, sph_skip = _occl_skips(static, cfg)
     single_skip = (frozenset.intersection(
         *[frozenset(s) for s in static["occl_skip"]]) if L else frozenset())
@@ -528,16 +644,30 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
         ft[of:of + 6] = [*s["c"], r32, r32 * r32, _f32(1.0 / s["r"])]
         oi += SP_I
         of += SP_F
+    rec_of_row = {r["row"]: k for k, r in enumerate(static["textures"])}
     for m in range(M):
-        it[oi:oi + MAT_I] = [mats["kind"][m], mats["light_index"][m]]
+        it[oi:oi + MAT_I] = [mats["kind"][m], mats["light_index"][m],
+                             rec_of_row.get(m, -1)]
         ft[of:of + MAT_F] = [mats["exponent"][m], mats["eta"][m],
                              mats["d_prob"][m], mats["s_prob"][m]]
         oi += MAT_I
         of += MAT_F
+    # the texture records after the lights
+    ti = np.zeros(TX_I * len(static["textures"]), np.int32)
+    tf = np.zeros(TX_F * len(static["textures"]), np.float32)
+    for k, r in enumerate(static["textures"]):
+        s = planar[r["row"]]
+        ti[TX_I * k:TX_I * (k + 1)] = [
+            int(r["kind"] == "image"), r["tex"], r.get("img", 0),
+            r.get("tw", 0), r.get("th", 0), int(r.get("sep", False))]
+        tf[TX_F * k:TX_F * (k + 1)] = [
+            *s["uv_anchor"], *s["uv_f1"], *s["uv_f2"],
+            float(bool(s.get("uv_disk"))), *r["scale"]]
     dev = scene.device
-    return SceneTables(static=static, f=torch.from_numpy(ft).to(dev),
-                       i=torch.from_numpy(it).to(dev),
-                       **_color_tables(scene))
+    return SceneTables(static=static,
+                       f=torch.from_numpy(np.concatenate([ft, tf])).to(dev),
+                       i=torch.from_numpy(np.concatenate([it, ti])).to(dev),
+                       **_color_tables(scene), **_texture_tables(scene))
 
 
 def picks_one_light(cfg: KernelConfig, n_lights: int) -> bool:
@@ -550,19 +680,22 @@ def picks_one_light(cfg: KernelConfig, n_lights: int) -> bool:
 
 def residual_layout(static, cfg: KernelConfig):
     """Plane order of the coefficient cache that K2 writes and K3 reads
-    (kytpu's `_residual_layout` without textures) -> ({tag: plane},
-    count). Per bounce: "wb" (hit-emission MIS weight, fully masked),
-    "wenv" (env-miss weight, env scenes), then below the horizon one "B"
-    plane per NEE light (one under nee="single": B' = li_scalar * f_unit *
-    |cos| * okf * lobe_scale) and "tu" (extension throughput unit incl.
-    lobe scale, pdf division, RR compensation and the alive mask). Under
-    cfg.trainable_exponent each "B" is followed by its "Bk" and "tu" by its
-    "tuk": the plane times kappa (`_kappa`), 0 off phong lanes. The kernels
+    (kytpu's `_residual_layout`) -> ({tag: plane}, count). Per bounce: "wb"
+    (hit-emission MIS weight, fully masked), "wenv" (env-miss weight, env
+    scenes), then below the horizon one "B" plane per NEE light (one under
+    nee="single": B' = li_scalar * f_unit * |cos| * okf * lobe_scale) and
+    "tu" (extension throughput unit incl. lobe scale, pdf division, RR
+    compensation and the alive mask). Under cfg.trainable_exponent each "B"
+    is followed by its "Bk" and "tu" by its "tuk": the plane times kappa
+    (`_kappa`), 0 off phong lanes. A scene with image textures adds "tx" and
+    "ty": the continuous texel coordinates of the hit on its image row (0
+    elsewhere), from which K3 rebuilds the bilinear taps. The kernels
     compute the same offsets from the table header
     (csrc/wavefront_tables.cuh `ResPlanes`)."""
     check_config(cfg)
     lights = static["lights"]
     has_env = any(lt["kind"] == klights.ENV for lt in lights)
+    has_img = _has_img(static)
     n_b = 1 if picks_one_light(cfg, len(lights)) else len(lights)
     texp = cfg.trainable_exponent
     tags = []
@@ -578,6 +711,9 @@ def residual_layout(static, cfg: KernelConfig):
             tags.append(("tu", b))
             if texp:
                 tags.append(("tuk", b))
+            if has_img:
+                tags.append(("tx", b))
+                tags.append(("ty", b))
     return {t: k for k, t in enumerate(tags)}, len(tags)
 
 
@@ -1406,6 +1542,174 @@ def _light_pdf(lt, p: V3, n_shade: V3, wi: V3):
 
 
 # ---------------------------------------------------------------------------
+# plain version: textures (kytpu's wavefront.py:946-1175)
+# ---------------------------------------------------------------------------
+
+
+def _uv(static, rec, hp: V3):
+    """(u, v) of hit hp on a textured planar row, from the baked anchor and
+    dual basis (disks: frame coordinates shifted by 0.5)."""
+    s = static["planar"][rec["row"]]
+    rel = hp - cv3(s["uv_anchor"])
+    u, v = rel.dot(cv3(s["uv_f1"])), rel.dot(cv3(s["uv_f2"]))
+    if s.get("uv_disk"):
+        u, v = u + 0.5, v + 0.5
+    return u, v
+
+
+def _checker_even(static, rec, hp: V3):
+    """The checker's "even"-cell mask at hp (`_checker_parity`)."""
+    u, v = _uv(static, rec, hp)
+    pu = torch.floor(u * _f32(rec["scale"][0])).to(torch.int32)
+    pv = torch.floor(v * _f32(rec["scale"][1])).to(torch.int32)
+    return ((pu + pv) & 1) == 0
+
+
+def _image_xy(static, rec, hp: V3):
+    """Continuous texel coordinates (x, y) of hp on an image row, in
+    [-0.5, dim - 0.5) (`_image_uv_xy`): what K2 caches as "tx", "ty"."""
+    u, v = _uv(static, rec, hp)
+    su = u * _f32(rec["scale"][0])
+    sv = v * _f32(rec["scale"][1])
+    x = (su - torch.floor(su)) * float(rec["tw"]) - 0.5
+    y = (sv - torch.floor(sv)) * float(rec["th"]) - 0.5
+    return x, y
+
+
+def _image_taps(rec, x, y):
+    """The bilinear taps of texel coordinates (x, y) on an image row, as the
+    kernels list them (csrc/megakernel.cuh `image_taps`): four slots in
+    ascending texel order, slot 2a + b the a-th lowest row and the b-th
+    lowest column; a tap that coincides with another (a side of 1 texel) is
+    merged into the first slot, the others left unused. Each slot: (texel
+    index into the flattened atlas, -1 if unused; the select chain's weight,
+    kytpu's per-texel sum of tap weights in tap order; the separable
+    route's row and column weights). The tap indices and the weights are
+    kytpu's (`_image_taps_from_xy`, `_image_sep_axes`)."""
+    tw, th = rec["tw"], rec["th"]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    xi0, yi0 = x0.to(torch.int64), y0.to(torch.int64)
+    xi0 = torch.where(xi0 < 0, tw - 1, xi0)
+    yi0 = torch.where(yi0 < 0, th - 1, yi0)
+    xi1 = torch.where(xi0 + 1 >= tw, 0, xi0 + 1)
+    yi1 = torch.where(yi0 + 1 >= th, 0, yi0 + 1)
+    a = (1.0 - fx, fx)
+    b = (1.0 - fy, fy)
+    xd, yd = xi0 == xi1, yi0 == yi1
+
+    def wt(r, c):   # tap (row r, column c): kytpu's (1-fx)(1-fy), fx(1-fy) ..
+        return a[c] * b[r]
+
+    both = ((wt(0, 0) + wt(0, 1)) + wt(1, 0)) + wt(1, 1)
+    c_hi_first = ~xd & (xi1 < xi0)   # the lower column is tap column 1
+    r_hi_first = ~yd & (yi1 < yi0)
+    base = rec["img"] * th * tw
+    slots = []
+    for ra in (0, 1):
+        r = r_hi_first if ra == 0 else ~r_hi_first
+        for cb in (0, 1):
+            c = c_hi_first if cb == 0 else ~c_hi_first
+            ok = (~yd if ra else torch.ones_like(yd)) & (
+                ~xd if cb else torch.ones_like(xd))
+            w_rc = torch.where(r, torch.where(c, wt(1, 1), wt(1, 0)),
+                               torch.where(c, wt(0, 1), wt(0, 0)))
+            w_x = torch.where(r, wt(1, 0) + wt(1, 1), wt(0, 0) + wt(0, 1))
+            w_y = torch.where(c, wt(0, 1) + wt(1, 1), wt(0, 0) + wt(1, 0))
+            w = torch.where(xd & yd, both, torch.where(
+                xd, w_x, torch.where(yd, w_y, w_rc)))
+            wr = torch.where(yd, b[0] + b[1], torch.where(r, b[1], b[0]))
+            wc = torch.where(xd, a[0] + a[1], torch.where(c, a[1], a[0]))
+            idx = base + torch.where(r, yi1, yi0) * tw + torch.where(
+                c, xi1, xi0)
+            slots.append((torch.where(ok, idx, -1), w, wr, wc))
+    return slots
+
+
+def _image_color(rec, slots, timg) -> V3:
+    """The bilinear colour of an image row in the addition order of the
+    route kytpu takes for its atlas: the select chain adds the texels in
+    texel order, the separable route each row's two columns, then the
+    rows."""
+    def texel(idx):
+        return timg[idx.clamp_min(0)]
+
+    if not rec.get("sep"):
+        col = torch.zeros((slots[0][0].shape[0], 3), device=timg.device)
+        for idx, w, _, _ in slots:
+            col = col + _where0(idx >= 0, texel(idx) * w[:, None])
+        return V3(col[:, 0], col[:, 1], col[:, 2])
+    rows = []
+    for ra in (0, 1):
+        (i0, _, wr, wc0), (i1, _, _, wc1) = slots[2 * ra], slots[2 * ra + 1]
+        rs = texel(i0) * wc0[:, None] + _where0(i1 >= 0,
+                                                texel(i1) * wc1[:, None])
+        rows.append(_where0(i0 >= 0, rs * wr[:, None]))
+    col = rows[0] + rows[1]
+    return V3(col[:, 0], col[:, 1], col[:, 2])
+
+
+def _texel_entries(rec, slots, adj: torch.Tensor, onrow):
+    """K3's and K4's texel-tagged adjoint entries of one bounce: per slot
+    (the value (N, 3), the tag: texel + 1, or 0 off the row or for an unused
+    slot). The select chain's value is adj * w, the separable route's
+    (w_row * adj) * w_col, as kytpu's scatters form them."""
+    out = []
+    for idx, w, wr, wc in slots:
+        tag = torch.where(onrow & (idx >= 0), idx + 1, 0).to(torch.int32)
+        val = (adj * w[:, None] if not rec.get("sep")
+               else (wr[:, None] * adj) * wc[:, None])
+        out.append((_where0(tag > 0, val), tag))
+    return out
+
+
+def _textures_at(static, tables, sid, hp: V3, diffuse: V3):
+    """The textured rows' diffuse at hit hp (`_apply_textures`) -> (the
+    diffuse, [(rec, onrow, checker even mask or None, image (x, y) or None,
+    image slots or None)]), the hits kept for the cache and the adjoints."""
+    hits = []
+    for rec in static["textures"]:
+        onrow = sid == rec["row"]
+        if rec["kind"] == "image":
+            x, y = _image_xy(static, rec, hp)
+            slots = _image_taps(rec, x, y)
+            col = _image_color(rec, slots, tables.timg)
+            hits.append((rec, onrow, None, (x, y), slots))
+        else:
+            even = _checker_even(static, rec, hp)
+            t = rec["tex"]
+            ca, cb = tables.texa[t], tables.texb[t]
+            col = V3(*(torch.where(even, ca[c], cb[c]) for c in range(3)))
+            hits.append((rec, onrow, even, None, None))
+        diffuse = col.where(onrow, diffuse)
+    return diffuse, hits
+
+
+def _route_textures(hits, addc_diff, acc_ta, acc_tb, entries):
+    """The diffuse-value adjoint of a textured row goes to its texture:
+    a checker's to color_a or color_b by the hit's parity (per-lane
+    accumulators acc_ta, acc_tb (N, T, 3)), an image's to the four taps
+    (appended to `entries` as 4 slots a bounce); the row's diffuse-table
+    share is zeroed. -> the remaining diffuse adjoint (N, 3)."""
+    slot_entries = None
+    for rec, onrow, even, _, slots in hits:
+        if even is not None:
+            t = rec["tex"]
+            acc_ta[:, t] += _where0(onrow & even, addc_diff)
+            acc_tb[:, t] += _where0(onrow & ~even, addc_diff)
+        else:
+            ent = _texel_entries(rec, slots, addc_diff, onrow)
+            slot_entries = ent if slot_entries is None else [
+                (torch.where((t1 > 0)[:, None], v1, v0),
+                 torch.where(t1 > 0, t1, t0))
+                for (v0, t0), (v1, t1) in zip(slot_entries, ent)]
+        addc_diff = _where0(~onrow, addc_diff)
+    if entries is not None and slot_entries is not None:
+        entries.extend(slot_entries)
+    return addc_diff
+
+
+# ---------------------------------------------------------------------------
 # plain version: the forward kernel body
 # ---------------------------------------------------------------------------
 
@@ -1534,6 +1838,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                   if lt["kind"] == klights.ENV), None)
     occl_skips, sph_skips = _occl_skips(static, cfg)
     robust = cfg.shadow == "robust"
+    textured, has_img = bool(static["textures"]), _has_img(static)
 
     n = o.shape[0]
     dev = o.device
@@ -1587,6 +1892,9 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
         acc_d, acc_s, acc_e = (g.new_zeros((n, M, 3)) for _ in range(3))
         acc_env = g.new_zeros((n, 3))
         acc_x = g.new_zeros((n, M))
+        T = _n_tex(static)
+        acc_ta, acc_tb = g.new_zeros((n, T, 3)), g.new_zeros((n, T, 3))
+        entries = [] if has_img else None
 
     for bounce in range(cfg.max_depth + 1):
         t, sid, valid, nrm = _closest_hit(static, o, d)
@@ -1656,6 +1964,12 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             else row_of(sid, exp_tab, 0.0)
         eta = row_of(sid, eta_tab, 0.0) if has_glass else 1.0
         diffuse = sel3(sid, tables.diffuse, rows_d)
+        if textured:
+            diffuse, tex_hits = _textures_at(static, tables, sid, hp,
+                                             diffuse)
+            # the live lanes' textured hits, for the cache and the adjoints
+            tex_hits = [(rec, onrow & alive, *rest)
+                        for rec, onrow, *rest in tex_hits]
         specular = sel3(sid, tables.specular, rows_s)
         mk = row_of(sid, kind_tab, 0)
         is_matte = mk == kbsdf.MAT_MATTE
@@ -1857,6 +2171,17 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                 + to_spec_t.to(torch.int32) * 512
             if picks_one_light(cfg, L):
                 packed = packed + pick.to(torch.int32) * 2048
+            if has_img:
+                tx = ty = torch.zeros_like(o.x)
+            for rec, onrow, even, xy, _ in tex_hits if textured else ():
+                if even is not None:   # the checker parity in bit 10
+                    packed = packed + (onrow & even).to(torch.int32) * 1024
+                else:
+                    tx = torch.where(onrow, xy[0], tx)
+                    ty = torch.where(onrow, xy[1], ty)
+            if has_img:
+                planes[res_ix[("tx", bounce)]] = tx
+                planes[res_ix[("ty", bounce)]] = ty
             ints[bounce] = _where(alive, packed, 0)
         if replay:
             # R_{b+1} = (R_b - E_b) / T_b per channel, 0 where the path ends
@@ -1869,6 +2194,9 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             if texp:
                 addx = addx + _where0(lobe_is_phong,
                                       _dot3(addt, col_nee) * kap_s)
+            if textured:
+                addc_diff = _route_textures(tex_hits, addc_diff, acc_ta,
+                                            acc_tb, entries)
             _row_add(acc_d, rows_d, sid, addc_diff)
             _row_add(acc_s, rows_s, sid, addc_spec)
             if texp:
@@ -1884,8 +2212,13 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
 
     if replay:
         acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1),
-               acc_e.reshape(n, -1), acc_env] + ([acc_x] if texp else [])
-        return split_grads(sum_lanes(torch.cat(acc, dim=1)), M)
+               acc_e.reshape(n, -1), acc_env] + ([acc_x] if texp else []) \
+            + ([acc_ta.reshape(n, -1), acc_tb.reshape(n, -1)] if textured
+               else [])
+        grads = split_grads(sum_lanes(torch.cat(acc, dim=1)), M, texp, T)
+        if not has_img:
+            return grads
+        return grads + (texel_sums_plain(static, entries, n),)
     out = torch.stack([big_l.x, big_l.y, big_l.z], dim=-1)
     if not residual:
         return out
@@ -1929,14 +2262,102 @@ def sum_lanes(acc: torch.Tensor) -> torch.Tensor:
     return s[0]
 
 
-def split_grads(vec: torch.Tensor, m_rows: int):
+def split_grads(vec: torch.Tensor, m_rows: int, texp: bool = False,
+                n_tex: int = 0):
     """K3's and K4's gradient vector, dd | ds | de (each (M, 3) row-major)
-    | denv (3,) [| dexp (M,), under trainable_exponent: 10M+3 entries
-    instead of 9M+3], -> (dd, ds, de, denv[, dexp])."""
+    | denv (3,) [| dexp (M,), under trainable_exponent] [| dta | dtb (each
+    (T, 3)), the checker adjoints of a textured scene's T textures] ->
+    (dd, ds, de, denv[, dexp][, dta, dtb])."""
     m3 = 3 * m_rows
     out = (vec[:m3].reshape(m_rows, 3), vec[m3:2 * m3].reshape(m_rows, 3),
            vec[2 * m3:3 * m3].reshape(m_rows, 3), vec[3 * m3:3 * m3 + 3])
-    return out + ((vec[3 * m3 + 3:],) if len(vec) > 3 * m3 + 3 else ())
+    k = 3 * m3 + 3
+    if texp:
+        out += (vec[k:k + m_rows],)
+        k += m_rows
+    if n_tex:
+        out += (vec[k:k + 3 * n_tex].reshape(n_tex, 3),
+                vec[k + 3 * n_tex:k + 6 * n_tex].reshape(n_tex, 3))
+    return out
+
+
+# threads of the segment-sum block (csrc/bigscene_bwd_res.cu)
+SEG_THREADS = 512
+
+
+def sort_tags(tags: torch.Tensor, m_rows: int):
+    """The entries (plane j, lane i) of (J, N) integer tags, numbered
+    j * N + i, sorted by tag (a stable sort of integer keys: each tag's
+    entries stay in plane, then lane order) -> (perm, starts): tag m's
+    entries are perm[starts[m]:starts[m + 1]], tag 0 the entries that go
+    nowhere. K7 and K8 tag by row + 1, K3's and K4's texel entries by
+    texel + 1."""
+    ids = tags.reshape(-1).long()
+    _, perm = torch.sort(ids, stable=True)
+    counts = torch.bincount(ids, minlength=m_rows + 1)
+    starts = torch.zeros(m_rows + 2, dtype=torch.int64, device=ids.device)
+    starts[1:] = torch.cumsum(counts, 0)
+    return perm, starts
+
+
+def _entry_values(dout, ent, n: int, B: int, PB: int):
+    """The PB adjoint columns of entries `ent` (any shape): dout's planes
+    PB*b .. PB*b+PB-1 at lane i for b < B; for b = B (K7's and K8's
+    horizon) 0, except de (columns 6-8) from its three planes."""
+    b = ent // n
+    lane = ent - b * n
+    col = torch.arange(PB, device=dout.device)
+    plane = torch.where(b[..., None] < B, PB * b[..., None] + col,
+                        PB * B + (col - 6).clamp(0, 2))
+    v = dout[plane, lane[..., None]]
+    keep = (b[..., None] < B) | ((col >= 6) & (col < 9))
+    return torch.where(keep, v, torch.zeros_like(v))
+
+
+def segment_sums_plain(dout, perm, starts, n: int, B: int, PB: int):
+    """(M, PB) sums by tag, in the segment-sum kernel's order: for each tag
+    m >= 1, thread t of a SEG_THREADS block adds the tag's sorted entries
+    t, t + SEG_THREADS, ... in turn (from 0.0), then the threads reduce as
+    a tree (off = SEG_THREADS/2 .. 1). The same float additions in the same
+    order as csrc/bigscene_bwd_res.cu."""
+    T = SEG_THREADS
+    M = len(starts) - 2
+    lens = (starts[2:] - starts[1:-1])
+    acc = dout.new_zeros((M, T, PB))
+    tid = torch.arange(T, device=dout.device)
+    max_len = int(lens.max()) if M else 0
+    for s0 in range(0, max_len, T):
+        rows = (lens > s0).nonzero().reshape(-1)
+        pos = starts[1 + rows][:, None] + s0 + tid
+        valid = (s0 + tid) < lens[rows][:, None]
+        ent = perm[pos.clamp_max(len(perm) - 1)]
+        vals = _entry_values(dout, ent, n, B, PB)
+        acc[rows] = acc[rows] + torch.where(valid[..., None], vals,
+                                            torch.zeros_like(vals))
+    off = T // 2
+    while off:
+        acc[:, :off] = acc[:, :off] + acc[:, off:2 * off]
+        off //= 2
+    return acc[:, 0]
+
+
+def _texel_shape(static) -> tuple:
+    rec = next(r for r in static["textures"] if r["kind"] == "image")
+    return (static["n_texels"] // (rec["th"] * rec["tw"]), rec["th"],
+            rec["tw"], 3)
+
+
+def texel_sums_plain(static, entries, n: int) -> torch.Tensor:
+    """The texel-tagged entries of K3 or K4 (4 slots a bounce below the
+    horizon, each ((N, 3) values, (N,) tags)) summed by texel in the
+    segment-sum kernel's order -> the (Ti, H, W, 3) atlas gradient."""
+    J = len(entries)
+    dout = torch.stack([v for v, _ in entries]).permute(0, 2, 1).reshape(
+        3 * J, n)
+    perm, starts = sort_tags(torch.stack([t for _, t in entries]),
+                             static["n_texels"])
+    return segment_sums_plain(dout, perm, starts, n, J, 3).reshape(
+        _texel_shape(static))
 
 
 def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
@@ -1960,7 +2381,11 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
     directional lights get none. Under nee="single" the picked light is
     read from resi bits 11-15, never recomputed. The exponent adjoint of a
     plastic row is bilinear in the cache too: each "Bk" plane weighs the
-    NEE term's colour cotangent and "tuk" the extension's."""
+    NEE term's colour cotangent and "tuk" the extension's. A textured row's
+    diffuse is its texture's value, rebuilt from the checker parity (resi
+    bit 10) or the "tx"/"ty" planes, and its diffuse adjoint goes to the
+    texture ([dta, dtb] after dexp; the atlas gradient dti last, summed by
+    texel as `texel_sums_plain` does)."""
     check_config(cfg)
     static = tables.static
     mats, lights = static["mats"], static["lights"]
@@ -1987,6 +2412,10 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
     acc_e = g.new_zeros((n, M, 3))
     acc_env = g.new_zeros((n, 3))
     acc_x = g.new_zeros((n, M))
+    textured, has_img = bool(static["textures"]), _has_img(static)
+    T = _n_tex(static)
+    acc_ta, acc_tb = g.new_zeros((n, T, 3)), g.new_zeros((n, T, 3))
+    entries = [] if has_img else None
     emit_l = tables.light_emit
     env = tables.env
 
@@ -2011,6 +2440,20 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         phong = ((ib & 256) != 0)[:, None]
         to_spec = ((ib & 512) != 0)[:, None]
         diff_sel = sel(tables.diffuse, ok_d, sid)
+        tex_hits = []
+        for rec in static["textures"]:
+            onrow = sid == rec["row"]
+            if rec["kind"] == "image":
+                slots = _image_taps(rec, resf[res_ix[("tx", b)]],
+                                    resf[res_ix[("ty", b)]])
+                col = _st(_image_color(rec, slots, tables.timg))
+                tex_hits.append((rec, onrow, None, None, slots))
+            else:
+                even = (ib & 1024) != 0
+                col = torch.where(even[:, None], tables.texa[rec["tex"]],
+                                  tables.texb[rec["tex"]])
+                tex_hits.append((rec, onrow, even, None, None))
+            diff_sel = torch.where(onrow[:, None], col, diff_sel)
         spec_sel = sel(tables.specular, ok_s, sid)
         emit_sel = sel(tables.emission, ok_e, sid)
         col_nee = torch.where(phong, spec_sel, diff_sel)
@@ -2043,8 +2486,12 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         addt = gb * r_next * tu
         # NEE colour adjoint: to specular on phong lanes, else diffuse; the
         # extension's: to specular where the sampled lobe read it
-        _row_add(acc_d, ok_d, sid, torch.where(phong, 0.0, addc)
-                 + torch.where(to_spec, 0.0, addt))
+        addc_diff = torch.where(phong, 0.0, addc) + torch.where(to_spec, 0.0,
+                                                                addt)
+        if textured:
+            addc_diff = _route_textures(tex_hits, addc_diff, acc_ta, acc_tb,
+                                        entries)
+        _row_add(acc_d, ok_d, sid, addc_diff)
         _row_add(acc_s, ok_s, sid, torch.where(phong, addc, 0.0)
                  + torch.where(to_spec, addt, 0.0))
         if texp:
@@ -2055,8 +2502,12 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         beta = beta * t_eff
         r_tail = r_next
     acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1), acc_e.reshape(n, -1),
-           acc_env] + ([acc_x] if texp else [])
-    return split_grads(sum_lanes(torch.cat(acc, dim=1)), M)
+           acc_env] + ([acc_x] if texp else []) + (
+        [acc_ta.reshape(n, -1), acc_tb.reshape(n, -1)] if textured else [])
+    grads = split_grads(sum_lanes(torch.cat(acc, dim=1)), M, texp, T)
+    if not has_img:
+        return grads
+    return grads + (texel_sums_plain(static, entries, n),)
 
 
 # ---------------------------------------------------------------------------
@@ -2083,7 +2534,7 @@ def _i32(v: int) -> int:
 
 
 _TABLES = ("f", "i", "diffuse", "specular", "emission", "exponent",
-           "light_emit", "env")
+           "light_emit", "env", "texa", "texb", "timg")
 
 
 def _check_tables(tables: SceneTables, dev):
@@ -2107,7 +2558,38 @@ def _check_lane_tensor(name, t, shape, dtype, dev):
 def _n_cols(tables: SceneTables, cfg: KernelConfig) -> int:
     """Length of K3's and K4's gradient vector (`split_grads`)."""
     m_rows = len(tables.static["mats"]["kind"])
-    return (10 if cfg.trainable_exponent else 9) * m_rows + 3
+    return ((10 if cfg.trainable_exponent else 9) * m_rows + 3
+            + 6 * _n_tex(tables.static))
+
+
+def _texel_outputs(tables: SceneTables, cfg: KernelConfig, n: int, dev):
+    """K3's and K4's texel entries (12 max_depth, n) and tags (4 max_depth,
+    n) where the scene has image textures, else (None, None)."""
+    if not _has_img(tables.static):
+        return None, None
+    J = 4 * cfg.max_depth
+    return (torch.empty((3 * J, n), dtype=torch.float32, device=dev),
+            torch.empty((J, n), dtype=torch.int32, device=dev))
+
+
+def _grads_of(lib, tables: SceneTables, cfg: KernelConfig, vec, tex_dout,
+              tex_tags, n: int):
+    """K3's or K4's outputs on the card -> (dd, ds, de, denv[, dexp][, dta,
+    dtb][, dti]): the gradient vector split, and the texel entries sorted
+    by tag (a stable integer sort) and summed by texel in a fixed order by
+    the segment-sum kernel (`texel_sums_plain` is the plain version)."""
+    static = tables.static
+    grads = split_grads(vec, len(static["mats"]["kind"]),
+                        cfg.trainable_exponent, _n_tex(static))
+    if tex_tags is None:
+        return grads
+    n_texels = static["n_texels"]
+    perm, starts = sort_tags(tex_tags, n_texels)
+    seg = torch.empty((n_texels, 3), dtype=torch.float32, device=vec.device)
+    _run(lib.kytpu_bigscene_segment_sums, "segment_sums", vec.device,
+         tex_dout.data_ptr(), perm.data_ptr(), starts.data_ptr(),
+         seg.data_ptr(), n, n_texels, tex_tags.shape[0], 3)
+    return grads + (seg.reshape(_texel_shape(static)),)
 
 
 def _lanes(tables: SceneTables, cfg: KernelConfig, o, d, si, pix):
@@ -2186,7 +2668,7 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
     lib = build.load()
     name = "wavefront_fwd_res" if residual else "wavefront_fwd"
     _run(getattr(lib, "kytpu_" + name), name, dev, *args, n,
-         *_cfg_args(cfg, seed))
+         *_cfg_args(cfg, seed), int(bool(tables.static["textures"])))
     if not residual:
         launches += 1
         return out
@@ -2195,9 +2677,9 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
 
 
 def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
-                resi) -> torch.Tensor:
-    """K3 on CUDA lanes -> the gradient vector of `split_grads`; raises if
-    the kernel cannot be built or launched."""
+                resi):
+    """K3 on CUDA lanes -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]);
+    raises if a kernel cannot be built or launched."""
     global launches_res_bwd
     from kytpu_torch.kernels import build
 
@@ -2218,20 +2700,26 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
     nb = max(1, -(-n // BWD_THREADS))
     partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
     out = torch.empty((k,), dtype=torch.float32, device=dev)
-    _run(build.load().kytpu_wavefront_bwd_res, "wavefront_bwd_res", dev,
+    tex_dout, tex_tags = _texel_outputs(tables, cfg, n, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = build.load()
+    _run(lib.kytpu_wavefront_bwd_res, "wavefront_bwd_res", dev,
          tables.i.data_ptr(), tables.diffuse.data_ptr(),
          tables.specular.data_ptr(), tables.emission.data_ptr(),
-         tables.light_emit.data_ptr(), tables.env.data_ptr(), g.data_ptr(),
-         big_l.data_ptr(), resf.data_ptr(), resi.data_ptr(),
-         partial.data_ptr(), out.data_ptr(), n, m_rows, k, cfg.max_depth)
+         tables.light_emit.data_ptr(), tables.env.data_ptr(),
+         tables.texa.data_ptr(), tables.texb.data_ptr(),
+         tables.timg.data_ptr(), g.data_ptr(), big_l.data_ptr(),
+         resf.data_ptr(), resi.data_ptr(), partial.data_ptr(),
+         out.data_ptr(), ptr(tex_dout), ptr(tex_tags), n, m_rows, k,
+         cfg.max_depth, int(bool(tables.static["textures"])))
     launches_res_bwd += 1
-    return out
+    return _grads_of(lib, tables, cfg, out, tex_dout, tex_tags, n)
 
 
 def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
-                   pix, g, big_l) -> torch.Tensor:
-    """K4 on CUDA lanes -> the gradient vector of `split_grads`; raises if
-    the kernel cannot be built or launched."""
+                   pix, g, big_l):
+    """K4 on CUDA lanes -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]);
+    raises if a kernel cannot be built or launched."""
     global launches_replay
     from kytpu_torch.kernels import build
 
@@ -2244,11 +2732,15 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
     nb = max(1, -(-n // BWD_THREADS))
     partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
     out = torch.empty((k,), dtype=torch.float32, device=dev)
-    _run(build.load().kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", dev,
+    tex_dout, tex_tags = _texel_outputs(tables, cfg, n, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = build.load()
+    _run(lib.kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", dev,
          *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(), big_l.data_ptr(),
-         partial.data_ptr(), out.data_ptr(), n, k, *_cfg_args(cfg, seed))
+         partial.data_ptr(), out.data_ptr(), ptr(tex_dout), ptr(tex_tags), n,
+         k, *_cfg_args(cfg, seed), int(bool(tables.static["textures"])))
     launches_replay += 1
-    return out
+    return _grads_of(lib, tables, cfg, out, tex_dout, tex_tags, n)
 
 
 def make_cuda_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None):
@@ -2286,24 +2778,21 @@ def trace_lanes(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
 
 
 def bwd_res(tables: SceneTables, cfg: KernelConfig, g, big_l, resf, resi):
-    """K3 -> (dd, ds, de, denv[, dexp]): CUDA lanes launch the kernel or
-    raise, CPU lanes run `bwd_res_plain`."""
+    """K3 -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]): CUDA lanes
+    launch the kernels or raise, CPU lanes run `bwd_res_plain`."""
     if _on_card(g.device):
-        return split_grads(_launch_bwd(tables, cfg, g, big_l, resf, resi),
-                           len(tables.static["mats"]["kind"]))
+        return _launch_bwd(tables, cfg, g, big_l, resf, resi)
     return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
 
 
 def bwd_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed: int, si,
                pix, g, big_l):
-    """K4 -> (dd, ds, de, denv[, dexp]) on the lanes (o, d, seed, si, pix)
-    that the forward traced, its radiance big_l and the upstream gradient
-    g: CUDA lanes launch the kernel or raise, CPU lanes run
-    `bwd_replay_plain`."""
+    """K4 -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]) on the lanes (o,
+    d, seed, si, pix) that the forward traced, its radiance big_l and the
+    upstream gradient g: CUDA lanes launch the kernels or raise, CPU lanes
+    run `bwd_replay_plain`."""
     if _on_card(o.device):
-        return split_grads(_launch_replay(tables, cfg, o, d, seed, si, pix,
-                                          g, big_l),
-                           len(tables.static["mats"]["kind"]))
+        return _launch_replay(tables, cfg, o, d, seed, si, pix, g, big_l)
     return bwd_replay_plain(tables, cfg, o, d, seed, si, pix, g, big_l)
 
 
@@ -2316,28 +2805,42 @@ def render_lanes_cuda(scene, o, d, seed: int, cfg: KernelConfig | None = None,
 
 class _DiffTables:
     """A diff tracer's scene: the geometry tables packed once, and the
-    colour (and exponent) tables of each call, NEE light emissions derived
-    from them; and the kernels the autograd Functions run on them (looked
-    up in this module at each call, so a caller may wrap them)."""
+    colour (exponent, texture) tables of each call, NEE light emissions
+    derived from them; and the kernels the autograd Functions run on them
+    (looked up in this module at each call, so a caller may wrap them)."""
 
     def __init__(self, scene: kscene.Scene, cfg: KernelConfig):
         self.scene = scene
         self.cfg = cfg
         self.geo = self.pack(scene, cfg)
+        static = self.geo.static
+        self.textured = bool(static["textures"])
+        self.has_img = _has_img(static)
 
     pack = staticmethod(pack_tables)
 
-    def __call__(self, diffuse, specular, emission, env, exponent=None):
+    def __call__(self, diffuse, specular, emission, env, exponent=None,
+                 texa=None, texb=None, timg=None):
         dev = self.geo.f.device
         f32 = lambda t: t.detach().to(device=dev,  # noqa: E731
                                       dtype=torch.float32).contiguous()
         emission = f32(emission)
         env = f32(env).reshape(3)
+        tex = (_texture_tables(self.scene, texa, texb, timg) if self.textured
+               else {})
         return dataclasses.replace(
             self.geo, diffuse=f32(diffuse), specular=f32(specular),
             emission=emission, env=env,
             exponent=self.geo.exponent if exponent is None else f32(exponent),
-            light_emit=light_emit_of(self.scene, emission, env).contiguous())
+            light_emit=light_emit_of(self.scene, emission, env).contiguous(),
+            **tex)
+
+    def grad_names(self) -> tuple:
+        """The names of the backwards' outputs, in order."""
+        return (("dd", "ds", "de", "denv")
+                + (("dexp",) if self.cfg.trainable_exponent else ())
+                + (("dta", "dtb") if self.textured else ())
+                + (("dti",) if self.has_img else ()))
 
     def trace(self, tables, o, d, seed, si, pix, residual=False):
         return trace_lanes(tables, self.cfg, o, d, seed, si, pix,
@@ -2350,16 +2853,28 @@ class _DiffTables:
         return bwd_replay(tables, self.cfg, o, d, seed, si, pix, g, big_l)
 
 
+# the Functions' table inputs after `tabs`, and the gradient of each
+_INPUT_GRADS = ("dd", "ds", "de", "dexp", "dta", "dtb", "dti", "denv")
+
+
 def _table_grads(ctx, grads):
-    """(dd, ds, de, denv[, dexp]) -> the gradients of the Functions' inputs
-    (tabs, diffuse, specular, emission, exponent, env, o, d, seed, si,
-    pix), None where no gradient was asked for."""
-    dd, ds, de, denv = grads[:4]
-    dexp = grads[4] if len(grads) > 4 else None
+    """The backwards' outputs (`_DiffTables.grad_names`) -> the gradients
+    of the Functions' inputs (tabs, diffuse, specular, emission, exponent,
+    texa, texb, timg, env, o, d, seed, si, pix), None where no gradient
+    was asked for; the atlas gradient in the shape of the timg given."""
+    got = dict(zip(ctx.tabs.grad_names(), grads))
+    if "dti" in got:
+        got["dti"] = got["dti"].reshape(ctx.timg_shape)
     need = ctx.needs_input_grad
-    return (None, *(gr if need[1 + k] else None
-                    for k, gr in enumerate((dd, ds, de, dexp, denv))),
+    return (None, *(got.get(nm) if need[1 + k] else None
+                    for k, nm in enumerate(_INPUT_GRADS)),
             None, None, None, None, None)
+
+
+def _keep(ctx, tabs, tables, timg):
+    ctx.tables = tables
+    ctx.tabs = tabs
+    ctx.timg_shape = None if timg is None else timg.shape
 
 
 class _ResidualTrace(torch.autograd.Function):
@@ -2370,15 +2885,15 @@ class _ResidualTrace(torch.autograd.Function):
     out of scope, as in the JAX package's detached-sampling estimator)."""
 
     @staticmethod
-    def forward(ctx, tabs, diffuse, specular, emission, exponent, env, o, d,
-                seed, si, pix):
-        tables = tabs(diffuse, specular, emission, env, exponent)
-        if not any(ctx.needs_input_grad[1:6]):
+    def forward(ctx, tabs, diffuse, specular, emission, exponent, texa, texb,
+                timg, env, o, d, seed, si, pix):
+        tables = tabs(diffuse, specular, emission, env, exponent, texa, texb,
+                      timg)
+        if not any(ctx.needs_input_grad[1:9]):
             return tabs.trace(tables, o, d, seed, si, pix)
         big_l, resf, resi = tabs.trace(tables, o, d, seed, si, pix,
                                        residual=True)
-        ctx.tables = tables
-        ctx.tabs = tabs
+        _keep(ctx, tabs, tables, timg)
         ctx.save_for_backward(big_l, resf, resi)
         return big_l
 
@@ -2395,13 +2910,13 @@ class _ReplayTrace(torch.autograd.Function):
     inputs); the backward launches K4, which re-traces the lanes."""
 
     @staticmethod
-    def forward(ctx, tabs, diffuse, specular, emission, exponent, env, o, d,
-                seed, si, pix):
-        tables = tabs(diffuse, specular, emission, env, exponent)
+    def forward(ctx, tabs, diffuse, specular, emission, exponent, texa, texb,
+                timg, env, o, d, seed, si, pix):
+        tables = tabs(diffuse, specular, emission, env, exponent, texa, texb,
+                      timg)
         big_l = tabs.trace(tables, o, d, seed, si, pix)
-        if any(ctx.needs_input_grad[1:6]):
-            ctx.tables = tables
-            ctx.tabs = tabs
+        if any(ctx.needs_input_grad[1:9]):
+            _keep(ctx, tabs, tables, timg)
             ctx.seed = seed
             ctx.save_for_backward(o, d, si, pix, big_l)
         return big_l
@@ -2415,20 +2930,29 @@ class _ReplayTrace(torch.autograd.Function):
 
 
 def diff_tracer(tabs: _DiffTables, fn):
-    """fn(diffuse, specular, emission, [exponent,] env, o, d, seed[, si,
-    pix]) over the autograd Function `fn` and the tables `tabs`; the
-    exponent is there iff tabs.cfg.trainable_exponent."""
+    """fn(diffuse, specular, emission, [exponent,] [texa, texb,] [timg,]
+    env, o, d, seed[, si, pix]) over the autograd Function `fn` and the
+    tables `tabs` (kytpu's public argument order): the exponent is there
+    iff tabs.cfg.trainable_exponent, the checker colours texa, texb (T, 3)
+    iff the scene has texture records, the atlas timg (Ti, H, W, 3) iff it
+    has image textures."""
     def trace(diffuse, specular, emission, *rest):
         rest = list(rest)
         exponent = (rest.pop(0) if tabs.cfg.trainable_exponent and rest
                     else None)
+        texa = texb = timg = None
+        if tabs.textured and len(rest) > 1:
+            texa, texb = rest.pop(0), rest.pop(0)
+        if tabs.has_img and rest:
+            timg = rest.pop(0)
         if len(rest) not in (4, 6):
             raise TypeError("expected (env, o, d, seed[, si, pix]) after the "
                             "tables")
         env, o, d, seed, si, pix = rest + [None] * (6 - len(rest))
-        return fn.apply(tabs, diffuse, specular, emission, exponent, env, o,
-                        d, seed, si, pix)
+        return fn.apply(tabs, diffuse, specular, emission, exponent, texa,
+                        texb, timg, env, o, d, seed, si, pix)
 
+    trace.tabs = tabs
     return trace
 
 
@@ -2437,16 +2961,21 @@ def make_cuda_diff_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None,
     """Differentiable lane tracer (kytpu's make_pallas_diff_tracer) for
     `scene`'s geometry.
 
-    Returns fn(diffuse, specular, emission, [exponent,] env, o, d, seed[,
-    si, pix]) -> (N, 3) radiance, a torch.autograd.Function whose gradient
-    is (d_diffuse, d_specular, d_emission, [d_exponent,] d_env) by detached
-    sampling, the NEE light-emission adjoints routed to each light's
-    emitting surface row (or to `env`) as `diff.params.set_params` ties
-    them. `exponent` is there iff cfg.trainable_exponent (the signature is
-    keyed on the cfg alone, as kytpu's); its gradient is 0 on every row
-    but the plastic ones. `env` is the (3,) environment radiance (zeros for
-    a scene without one). NEE reads light emissions derived from the traced
-    `emission` and `env` (`light_emit_of`).
+    Returns fn(diffuse, specular, emission, [exponent,] [texa, texb,]
+    [timg,] env, o, d, seed[, si, pix]) -> (N, 3) radiance, a
+    torch.autograd.Function whose gradient is (d_diffuse, d_specular,
+    d_emission, [d_exponent,] [d_texa, d_texb,] [d_timg,] d_env) by
+    detached sampling, the NEE light-emission adjoints routed to each
+    light's emitting surface row (or to `env`) as `diff.params.set_params`
+    ties them. `exponent` is there iff cfg.trainable_exponent (the signature
+    is keyed on the cfg alone, as kytpu's); its gradient is 0 on every row
+    but the plastic ones. texa, texb (T, 3), the checker colours, are there
+    iff the scene has textured rows, timg (Ti, H, W, 3), the texel atlas,
+    iff it has image textures; a textured row's diffuse adjoint goes to its
+    texture (its diffuse-table gradient is 0). `env` is the (3,)
+    environment radiance (zeros for a scene without one). NEE reads light
+    emissions derived from the traced `emission` and `env`
+    (`light_emit_of`).
 
     backward="residual": when a table requires grad the forward runs K2
     and keeps its coefficient cache (resf, resi) and radiance for the

@@ -23,6 +23,7 @@ from kytpu_torch.core import math as km
 from kytpu_torch.light import lights as klights
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.scene import shapes as kshapes
+from kytpu_torch.scene import texture as ktex
 
 # cornell_box_enum_t flags (ky.cpp:3121-3145)
 LIGHT_AREA = "light_area"
@@ -35,8 +36,6 @@ SMALL_MIRROR_SPHERE = "small_mirror_sphere"
 SMALL_GLASS_SPHERE = "small_glass_sphere"
 BOTH_SMALL_SPHERES = frozenset({SMALL_MIRROR_SPHERE, SMALL_GLASS_SPHERE})
 DEFAULT_SCENE = BOTH_SMALL_SPHERES | {LIGHT_AREA}
-
-_TEXTURES = "textures are ROADMAP item M9 (textures) of the port"
 
 
 def _f32(v) -> torch.Tensor:
@@ -58,11 +57,26 @@ class _SceneAssembler:
         self._emission = []
         self._light_of_surface = []
         self._lights = []
+        self._textures = []   # dicts for scene/texture.build
+
+    def add_checker(self, color_a, color_b, scale=(1.0, 1.0)) -> int:
+        """A procedural checkerboard; returns the texture slot to pass as
+        `texture=` to a material. Its colours are trainable leaves."""
+        self._textures.append(dict(kind=ktex.CHECKER, color_a=color_a,
+                                   color_b=color_b, scale=scale))
+        return len(self._textures) - 1
+
+    def add_image_texture(self, image, scale=(1.0, 1.0)) -> int:
+        """An (H, W, 3) image texture, wrap-addressed bilinear; its texels
+        are trainable leaves. All images of a scene share a resolution."""
+        self._textures.append(dict(kind=ktex.IMAGE, image=image,
+                                   scale=scale))
+        return len(self._textures) - 1
 
     @staticmethod
-    def matte(color):
+    def matte(color, texture: int = -1):
         return dict(kind=kbsdf.MAT_MATTE, diffuse=color, specular=_full(0.0),
-                    exponent=0.0, eta=1.0)
+                    exponent=0.0, eta=1.0, texture=texture)
 
     @staticmethod
     def mirror(color):
@@ -77,9 +91,10 @@ class _SceneAssembler:
                     exponent=0.0, eta=eta)
 
     @staticmethod
-    def plastic(diffuse, specular, shininess):
+    def plastic(diffuse, specular, shininess, texture: int = -1):
         return dict(kind=kbsdf.MAT_PLASTIC, diffuse=diffuse,
-                    specular=specular, exponent=shininess, eta=1.0)
+                    specular=specular, exponent=shininess, eta=1.0,
+                    texture=texture)
 
     def surface(self, shape_handle: int, material: dict, emission=None,
                 light_slot: int | None = None):
@@ -128,6 +143,10 @@ class _SceneAssembler:
             dtype=torch.int32)
         center, radius = self.geo.bounding_sphere()
         env = [lt for lt in self._lights if lt["kind"] == klights.ENV]
+        # texture binding (the plastic lobe probabilities stay those of the
+        # base diffuse, as kytpu's)
+        tex_id = torch.tensor([row(i).get("texture", -1)
+                               for i in range(n_surf)], dtype=torch.int32)
         return kscene.Scene(
             camera=camera, geometry=geometry, mat_kind=mat_kind,
             mat_diffuse=mat_diffuse, mat_specular=mat_specular,
@@ -136,7 +155,9 @@ class _SceneAssembler:
             light_index=light_index, lights=self._freeze_lights(surf_ids),
             world_center=_f32(center), world_radius=_f32(radius),
             has_env=bool(env),
-            env_radiance_=_f32(env[0]["emit"]) if env else _full(0.0))
+            env_radiance_=_f32(env[0]["emit"]) if env else _full(0.0),
+            has_textures=bool(self._textures), tex_id=tex_id,
+            textures=ktex.build(self._textures))
 
     def _freeze_lights(self, surf_ids) -> klights.Lights:
         z3 = np.zeros(3, np.float32)
@@ -180,9 +201,10 @@ def cornell_box(flags=DEFAULT_SCENE, width: int = 256, height: int = 256,
     """The Cornell box (ky.cpp:3240-3432). `flags` is a set of the LIGHT_*
     and *_SPHERE strings above; `overrides` maps 'white', 'red', 'green',
     'blue', 'glossy_diffuse', 'glossy_specular', 'light_radiance',
-    'env_radiance', 'point_intensity' or 'dir_irradiance' to a colour."""
-    if floor_checker or back_image is not None:
-        raise NotImplementedError(_TEXTURES)
+    'env_radiance', 'point_intensity' or 'dir_irradiance' to a colour (and
+    'checker_a', 'checker_b' with floor_checker). floor_checker swaps the
+    glossy floor for a checkered matte; back_image pastes an (H, W, 3)
+    image texture on the back wall (the texture-recovery target)."""
     flags = frozenset(flags)
     ov = overrides or {}
     if LARGE_MIRROR_SPHERE in flags and LARGE_GLASS_SPHERE in flags:
@@ -204,6 +226,14 @@ def cornell_box(flags=DEFAULT_SCENE, width: int = 256, height: int = 256,
                          ov.get("glossy_specular", _full(0.7)), 90.0)
     m_mirror = a.mirror(_full(1.0))
     m_glass = a.glass(1.6)
+    if floor_checker:
+        checker = a.add_checker(ov.get("checker_a", _full(0.73)),
+                                ov.get("checker_b", _full(0.18)),
+                                scale=(6.0, 6.0))
+        m_glossy = a.matte(_full(0.73), texture=checker)
+    if back_image is not None:
+        tex = a.add_image_texture(back_image)
+        m_blue = a.matte(_full(0.5), texture=tex)
 
     cb = np.array([
         [-1.27029, -1.30455, -1.28002],

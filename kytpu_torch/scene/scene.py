@@ -17,6 +17,7 @@ import torch
 from kytpu_torch.core import math as km
 from kytpu_torch.light.lights import Lights
 from kytpu_torch.scene import shapes as kshapes
+from kytpu_torch.scene import texture as ktex
 
 
 @dataclass(frozen=True)
@@ -100,6 +101,11 @@ class Scene:
     world_radius: torch.Tensor  # ()
     has_env: bool = False
     env_radiance_: torch.Tensor | None = None  # (3,)
+    # textures: tex_id (M,) int32 is each surface's texture row, -1 for
+    # none; the kernels read them on planar rows only
+    has_textures: bool = False
+    tex_id: torch.Tensor | None = None
+    textures: ktex.Textures | None = None
 
     @property
     def n_lights(self) -> int:
@@ -119,12 +125,10 @@ class Scene:
 
 def scene_from_numpy(leaves) -> Scene:
     """Port a JAX-package `Scene` fetched with `jax.device_get` (numpy
-    leaves plus its static fields) into a CPU `Scene` of this package.
+    leaves plus its static fields, textures included) into a CPU `Scene`
+    of this package.
 
     Reads attributes only, so this module never imports jax."""
-    if getattr(leaves, "has_textures", False):
-        raise NotImplementedError(
-            "textured scenes are ROADMAP item M9 (textures) of the port")
     if getattr(leaves, "accel", None) is not None:
         raise NotImplementedError(
             "the grid accelerator is ROADMAP item M11 of the port")
@@ -147,6 +151,14 @@ def scene_from_numpy(leaves) -> Scene:
         **{name: t(getattr(li, name)) for name in
            ("emit", "position", "direction", "p0", "p1", "p2", "p3",
             "normal", "area", "center", "radius")})
+    tex = None
+    if getattr(leaves, "textures", None) is not None:
+        tx = leaves.textures
+        tex = ktex.Textures(
+            kind=t(tx.kind, np.int32), color_a=t(tx.color_a).reshape(-1, 3),
+            color_b=t(tx.color_b).reshape(-1, 3),
+            scale=t(tx.scale).reshape(-1, 2),
+            image_index=t(tx.image_index, np.int32), image=t(tx.image))
     return Scene(
         camera=cam, geometry=geom,
         mat_kind=t(leaves.mat_kind, np.int32),
@@ -157,4 +169,8 @@ def scene_from_numpy(leaves) -> Scene:
         lights=lights, world_center=t(leaves.world_center),
         world_radius=t(leaves.world_radius), has_env=bool(leaves.has_env),
         env_radiance_=t(leaves.env_radiance_ if leaves.env_radiance_ is not None
-                        else np.zeros(3)))
+                        else np.zeros(3)),
+        has_textures=bool(getattr(leaves, "has_textures", False)),
+        tex_id=(t(leaves.tex_id, np.int32)
+                if getattr(leaves, "tex_id", None) is not None else None),
+        textures=tex)

@@ -9,7 +9,7 @@ plain versions' routing and algebra on the CPU (kernels/bigscene.py).
 - routing: render() and make_train_step() past 64 surfaces take the
   big-scene tracers, engine="bigscene" works at any size, and what the
   tables cannot take raises (textures, non-parallelogram rects, more than
-  32 lights, the replay backward K8);
+  32 lights, textures: ROADMAP item M9b);
 - the plain K5 against the plain K1 on scenes both take (kytpu's own
   bound: different sweep arithmetic, so within 1e-3, test_bigscene.py:129);
 - the plain K7 against central finite differences of the plain K5 (step
@@ -164,7 +164,8 @@ def test_train_step_routes_past_64_surfaces(monkeypatch):
 
 
 def test_scenes_the_tables_do_not_take_raise():
-    # a textured scene past 64 surfaces (kytpu's, ported): textures are M9
+    # a textured scene past 64 surfaces (kytpu's, ported): the texture
+    # columns of the big-scene kernels are M9b
     a = jb._SceneAssembler()
     tex = a.add_checker(jnp.full(3, 0.2), jnp.full(3, 0.8))
     a.surface(a.geo.add_rectangle((-9, 0, -9), (-9, 0, 9), (9, 0, 9),
@@ -176,8 +177,12 @@ def test_scenes_the_tables_do_not_take_raise():
     a.add_light(kind=jb.klights.ENV, emit=jnp.ones(3))
     cam = jb.kscene.make_camera((0, 3, 9), (0, -0.3, -1), (0, 1, 0), 50.0,
                                 8, 8)
-    with pytest.raises(NotImplementedError, match="M9"):
-        scene_from_numpy(jax.device_get(a.build(cam)))
+    tex_sc = scene_from_numpy(jax.device_get(a.build(cam)))
+    with pytest.raises(NotImplementedError, match="M9b"):
+        render(tex_sc, spp=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="M9b"):
+        tinv.make_train_step(tex_sc, np.zeros((8, 8, 3), np.float32),
+                             device="cpu", names=("tex_color_a",))
     # a rect that is not a parallelogram, past 64 surfaces
     b = tb._SceneAssembler()
     b.surface(b.geo.add_rectangle((-9, 0, -9), (-9, 0, 9), (9, 0, 9),
@@ -194,9 +199,6 @@ def test_scenes_the_tables_do_not_take_raise():
     # more lights than the kernels take: 71 surfaces, 70 lights
     with pytest.raises(NotImplementedError, match="M12"):
         render(many_lights(tb, 70), spp=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="K8"):
-        kbs.make_bigscene_diff_tracer(tb.cornell_box(width=4, height=4),
-                                      backward="replay")
 
 
 def _lanes(sc, n, seed=0):

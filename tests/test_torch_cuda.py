@@ -350,3 +350,100 @@ def test_bigscene_entry_points_on_card(cuda):
     assert small == (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
                      kwf.launches_replay)
     assert np.isfinite(losses).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler, shadow, texp", [("random", "parity", False),
+                                                   ("hash", "robust", True),
+                                                   ("sobol", "parity", False)])
+def test_bigscene_replay_on_card(cuda, sampler, shadow, texp):
+    """K8, the big-scene path-replay backward: equal to the plain K8 and
+    its sums (max |err| 0), repeating bit for bit, within the reference's
+    2e-3 bound of K7 (rtol=2e-3, atol=2e-5 of the table's largest entry);
+    the replay diff tracer launches K5 and K8 and gives K8's gradient."""
+    from kytpu_torch.kernels import bigscene as kbs
+
+    sc = builders.random_spheres(n=80, width=64, height=64).to(cuda)
+    o, d, si, pix = _card_lanes(sc, cuda)
+    cfg = kwf.KernelConfig(max_depth=3, sampler=sampler, shadow=shadow,
+                           trainable_exponent=texp)
+    tables = kbs.pack_big_tables(sc, cfg)
+    k5 = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix)
+    g = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    before = kbs.launches_replay
+    k8 = kbs.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k5)
+    again = kbs.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k5)
+    torch.cuda.synchronize()
+    assert kbs.launches_replay == before + 2
+    ref = kbs.sums_plain(tables, cfg, *kbs.bwd_replay_plain(
+        tables, cfg, o, d, 3, si, pix, g, k5))
+    k6, resf, resi = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix,
+                                     residual=True)
+    k7 = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
+    assert len(k8) == (5 if texp else 4)
+    for a, b, r, c in zip(k8, again, ref, k7):
+        assert torch.equal(a, b) and torch.equal(a, r)
+        c = c.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), c, rtol=2e-3,
+                                   atol=2e-5 * max(1.0, np.abs(c).max()))
+    leaves = [t.clone().requires_grad_() for t in (
+        tables.diffuse, tables.specular, tables.emission)]
+    tracer = kbs.make_bigscene_diff_tracer(sc, cfg, backward="replay")
+    counts = (kbs.launches, kbs.launches_res_fwd, kbs.launches_replay)
+    exp = (tables.exponent,) if texp else ()
+    out = tracer(*leaves, *exp, tables.env, o, d, 3, si, pix)
+    out.backward(g)
+    assert (kbs.launches, kbs.launches_res_fwd, kbs.launches_replay) == (
+        counts[0] + 1, counts[1], counts[2] + 1)
+    for leaf, a in zip(leaves, k8):
+        assert torch.equal(leaf.grad, a)
+
+
+TEX_IMAGES = {"checker": None, "select": (8, 8), "separable": (16, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(TEX_IMAGES))
+@pytest.mark.parametrize("sampler, texp", [("hash", False), ("sobol", True)])
+def test_textured_kernels_on_card(cuda, route, sampler, texp):
+    """K1-K4 with their texture branches against their plain versions on
+    textured Cornell boxes (the checker floor; an 8x8 atlas, kytpu's select
+    chain; a 16x16 one, its separable route): equal to the last bit, K2's
+    radiance K1's, K3 and K4 repeating bit for bit, and K4 within the
+    reference's 2e-3 bound of K3."""
+    shape = TEX_IMAGES[route]
+    img = (None if shape is None else np.random.default_rng(2).uniform(
+        0.1, 0.9, shape + (3,)).astype(np.float32))
+    sc = builders.cornell_box(width=64, height=64, floor_checker=img is None,
+                              back_image=img).to(cuda)
+    o, d, si, pix = _card_lanes(sc, cuda)
+    cfg = kwf.KernelConfig(max_depth=5, sampler=sampler,
+                           trainable_exponent=texp)
+    tables = kwf.pack_tables(sc, cfg)
+    k1 = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix)
+    k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix,
+                                     residual=True)
+    g = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    k3 = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
+    k4 = kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k1)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)
+    ref1 = kwf.trace_lanes_plain(tables, cfg, o, d, 3, si, pix)
+    ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tables, cfg, o, d, 3, si, pix,
+                                                residual=True)
+    assert torch.equal(k1, ref1) and torch.equal(resf, ref_f) and \
+        torch.equal(resi, ref_i)
+    refs = (kwf.bwd_res_plain(tables, cfg, g, ref_l, ref_f, ref_i),
+            kwf.bwd_replay_plain(tables, cfg, o, d, 3, si, pix, g, ref1))
+    again = (kwf.bwd_res(tables, cfg, g, k2, resf, resi),
+             kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k1))
+    assert len(k3) == 4 + texp + 2 + (img is not None)
+    for got, ref, rep in zip((k3, k4), refs, again):
+        for a, b, c in zip(got, ref, rep):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b in zip(k4, k3):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=2e-3,
+                                   atol=2e-5 * max(1.0, np.abs(b).max()))

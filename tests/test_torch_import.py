@@ -67,10 +67,3 @@ def test_tracer_runs_the_plain_version_only_on_cpu_tensors():
 def test_unported_paths_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         render(builders.cornell_box(width=4, height=4), spp=1, **kwargs)
-
-
-@pytest.mark.parametrize("kwargs", [dict(floor_checker=True),
-                                    dict(back_image=[[[0.5, 0.5, 0.5]]])])
-def test_textures_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="M9"):
-        builders.cornell_box(width=4, height=4, **kwargs)

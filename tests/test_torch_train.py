@@ -116,7 +116,6 @@ def test_hash_single_gradient_matches_finite_differences():
 @pytest.mark.parametrize("kwargs, item", [
     (dict(mesh=object()), "M10"),
     (dict(engine="jnp"), "M7"),
-    (dict(names=("tex_color_a",)), "M9"),
 ])
 def test_train_step_refuses_unported(kwargs, item):
     sc = tb.cornell_box(width=4, height=4)
