@@ -45,7 +45,9 @@ Phases, one line each (a few for phase 3):
      through make_cuda_diff_tracer(backward="replay"), the replay path,
      whose launches are counted: its time and peak memory, K4 alone, the
      plain K4, the tracer's gradient against K4's (bit for bit), K4
-     against the plain K4 and against K3 on those lanes;
+     against the plain K4 and against K3 on those lanes; and K3 and K4 on
+     the row-tagged route forced (kernels/wavefront.py DENSE_MAX_ROWS 0),
+     timed beside the dense ones and held to them (bounds of phase 3);
   7. training, the second main path: five make_train_step(engine="cuda")
      steps on the Cornell box at its published 256x256, 4 spp, depth 3,
      kernel_sampler="hash", from the true scene with its diffuse table
@@ -122,6 +124,35 @@ Phases, one line each (a few for phase 3):
      e. the textured replay path: make_cuda_diff_tracer(backward=
         "replay") on 1M lanes of the 16x16 scene, launches counted (K1,
         K4), its gradient (texels included) K4's bit for bit, K4's time.
+ 11. past 64 surfaces on every route kytpu takes: random_spheres(1024)'s
+     spheres, light and sky with a textured ground, a 16x16-cell checker
+     or an 8x8 atlas (the table kernels take them: K5-K8 with textures) or
+     a 16x16 atlas (a separable one, which the tables refuse: K1-K4).
+     a. the textured K5, K6, K7 and K8 against their plain versions on 64K
+        camera rays at depth 3, under each sampler, both shadow modes and
+        both exponent modes (the bounds of phase 3; K6 against K5, K7 and
+        K8 against themselves bit for bit, K8 against K7, the texture
+        adjoints live); the textured K5 against K1 on a Cornell box with a
+        checker floor and an 8x8 back wall (as 9b);
+     b. a 16-spp frame of the checker scene through render(), the main
+        path: launches counted (K5 only), against the plain K5's frame,
+        then 5 warmed frames and one profiled;
+     c. five checker-colour steps (names=("tex_color_a", "tex_color_b"),
+        from 0.4 of the true colours) on it: launches counted (K6, K7), the
+        loss falling, a sixth step's own K6 and K7 against their plain
+        versions;
+     d. on the 16x16-atlas scene, K1-K4: a 16-spp frame through render()
+        (launches counted, K5 at 0), five texel steps (K2, K3), a sixth
+        step's own K2 and K3 against their plain versions; the row-tagged
+        K3 and K4 against their plain versions and each other on 64K
+        lanes, and on the untextured twin against K7 (d_emission on the
+        emissive rows), rows above 255 live; K1-K4 timed at the 1M
+        pixel-centre lanes with their bounds, the plain K1, K3 and K4 once,
+        and the replay path (K1 + K4) through make_cuda_diff_tracer, its
+        launches counted; then the textured K5, K7 and K8 at the checker
+        scene's 1M lanes, the plain K5 and K8 once, and the textured replay
+        path (K5 + K8), its launches counted;
+     e. a smallpt frame through render() (K1), launches counted.
 The line before the last is the kernels' JSON record, the one before it
 nvidia-smi's name and power limit, and the last line is
 {"ok": true, "device": {...}}. Any failed check raises: no result is printed
@@ -767,6 +798,25 @@ def main() -> None:
         lambda: kwf.bwd_replay(tables, cfg, o, d, 5, None, None, g, k1), 5)
     if not all(torch.equal(a, t.grad) for a, t in zip(k4, leaves)):
         raise AssertionError("the replay tracer's gradient is not K4's")
+    # the row-tagged K3 and K4 (the route past 64 surfaces) forced on the
+    # same lanes: what the dense route saves at Veach's rows
+    kwf.DENSE_MAX_ROWS = 0
+    try:
+        k3t_ms, k3t = cuda_time_ms(
+            lambda: kwf.bwd_res(tables, cfg, g, k2, resf, resi), 5)
+        k4t_ms, k4t = cuda_time_ms(
+            lambda: kwf.bwd_replay(tables, cfg, o, d, 5, None, None, g, k1), 5)
+    finally:
+        kwf.DENSE_MAX_ROWS = 64
+    terr = max(compare_grads(k3t, grads, f"tagged K3 vs K3 veach {n_time} "
+                             "lanes"),
+               compare_grads(k4t, k4, f"tagged K4 vs K4 veach {n_time} lanes"))
+    del k3t, k4t
+    print(f"row-tagged route forced: veach depth 5, {n_time} lanes: K3 "
+          f"{k3t_ms:.3f} ms against the dense K3's {k3_ms:.3f} ms, K4 "
+          f"{k4t_ms:.3f} ms against the dense K4's {k4_ms:.3f} ms (with the "
+          f"sorts and sums by row); tagged vs dense max |diff| {terr:.3g}; on "
+          f"{smi}", flush=True)
     plain_k2_ms, (ref_l, ref_f, ref_i) = cuda_time_ms(
         lambda: kwf.trace_lanes_plain(tables, cfg, o, d, 5, residual=True), 1)
     plain_k3_ms, ref_g = cuda_time_ms(
@@ -1210,12 +1260,10 @@ def main() -> None:
     bounds["K7"] = bound_ms(big_cache + n_big * 24 + m_rows * 10 * 4,
                             float(n_big * (bcfg.max_depth * (45 + 27 * n_l)
                                            + 6)))
-    # K8 reads the rays, g and L; it writes the row-tagged planes and their
-    # row tags (which the sums read back) and the (M, 9) tables
+    # K8 reads the rays, g and L and writes the (M, 9) tables (its row-tagged
+    # planes are its own scratch, not the function's bytes)
     PB = 9
-    bounds["K8"] = bound_ms(
-        n_big * (24 + 12 + 12 + 4 * (PB * bcfg.max_depth + 3)
-                 + 4 * (bcfg.max_depth + 1)) + m_rows * PB * 4, ops8)
+    bounds["K8"] = bound_ms(n_big * (24 + 12 + 12) + m_rows * PB * 4, ops8)
     print(f"timing: spheres 1026 surfaces, depth 3, {n_big} pixel-centre "
           f"lanes (benchmarks/run.py): K5 {k5_ms:.3f} ms "
           f"({n_big / k5_ms / 1e3:.2f} Mrays/s), plain K5 {plain_k5_ms:.1f} "
@@ -1525,36 +1573,517 @@ def main() -> None:
           flush=True)
     del o, d, out, leaves, k4, g
 
+    # 11. past 64 surfaces on every route (kytpu's rule): the textured
+    # table kernels K5-K8, K1-K4 on a scene the tables refuse, smallpt
+    from kytpu_torch.scene import texture as ktex
+
+    def ground_textured(sc, tex):
+        """sc with texture `tex` on its ground, row 0 (random_spheres'
+        ground rect)."""
+        tid = torch.full((int(sc.mat_kind.shape[0]),), -1, dtype=torch.int32)
+        tid[0] = 0
+        return dataclasses.replace(sc, has_textures=True, tex_id=tid,
+                                   textures=ktex.build([tex]))
+
+    rng = np.random.default_rng(6)
+    spheres_b = big["spheres"]
+    past64 = {
+        "checker": ground_textured(spheres_b, dict(
+            kind=ktex.CHECKER, color_a=np.float32([0.85, 0.3, 0.25]),
+            color_b=np.float32([0.2, 0.7, 0.35]), scale=(16.0, 16.0))),
+        "select": ground_textured(spheres_b, dict(
+            kind=ktex.IMAGE, image=rng.uniform(0.1, 0.9, (8, 8, 3)).astype(
+                np.float32), scale=(4.0, 4.0))),
+        "separable": ground_textured(spheres_b, dict(
+            kind=ktex.IMAGE, image=demo_texture(16), scale=(4.0, 4.0)))}
+    for nm, sc in past64.items():
+        try:
+            kbs.extract_tables(sc)
+            route = "K5-K8 (TEX)"
+        except NotImplementedError as e:
+            route = f"K1-K4 (the tables refuse it: {e})"
+        print(f"past 64: spheres 1026 surfaces with a {nm} ground: routes to "
+              f"{route}", flush=True)
+    p64_cuda = {nm: sc.to("cuda") for nm, sc in past64.items()}
+
+    # 11a. the textured K5-K8 against their plain versions, 64K lanes
+    tex_big_cases = [("checker", "random", "parity", False),
+                     ("checker", "sobol", "robust", True),
+                     ("select", "hash", "robust", False),
+                     ("select", "sobol", "parity", True)]
+    for sc_name, sampler, shadow, texp in tex_big_cases:
+        scene = p64_cuda[sc_name]
+        cfg = kwf.KernelConfig(max_depth=3, sampler=sampler, shadow=shadow,
+                               trainable_exponent=texp)
+        tag = f"textured spheres {sc_name} {sampler}/{shadow}" + (
+            " trainable exponent" if texp else "")
+        o, d, si, pix = jittered_rays(scene, 1 << 16, 29)
+        tables = kbs.pack_big_tables(scene, cfg)
+        before = big_counts()
+        k5 = kbs.trace_lanes(tables, cfg, o, d, 43, si, pix)
+        k6, resf, resi = kbs.trace_lanes(tables, cfg, o, d, 43, si, pix,
+                                         residual=True)
+        g = torch.randn(o.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(7))
+        k7 = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
+        k8 = kbs.bwd_replay(tables, cfg, o, d, 43, si, pix, g, k5)
+        torch.cuda.synchronize()
+        if big_counts() != (before[0] + 1, before[1] + 1, before[2] + 1,
+                            before[3] + 1):
+            raise AssertionError(f"{tag}: K5-K8 did not launch")
+        if not torch.equal(k5, k6):
+            raise AssertionError(f"{tag}: K6's radiance is not K5's")
+        for nm, got, again in (
+                ("K7", k7, kbs.bwd_res(tables, cfg, g, k6, resf, resi)),
+                ("K8", k8, kbs.bwd_replay(tables, cfg, o, d, 43, si, pix, g,
+                                          k5))):
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{tag}: {nm} does not repeat")
+        ref_l, ref_f, ref_i = kbs.trace_lanes_plain(tables, cfg, o, d, 43, si,
+                                                    pix, residual=True)
+        share, mabs, _ = compare(k5, ref_l, f"K5 {tag}")
+        cerr = compare_cache(resf, resi, ref_f, ref_i, f"K6 cache {tag}")
+        gerr = compare_grads(k7, kbs.bwd_res_plain(tables, cfg, g, ref_l,
+                                                   ref_f, ref_i), f"K7 {tag}")
+        rerr = compare_grads(k8, kbs.sums_plain(tables, cfg, *kbs.bwd_replay_plain(
+            tables, cfg, o, d, 43, si, pix, g, k5)), f"K8 {tag}")
+        xerr = compare_grads(k8, k7, f"K8 vs K7 {tag}", CROSS_RTOL,
+                             CROSS_ATOL)
+        err_k5, err_k6 = max(err_k5, mabs), max(err_k6, mabs, cerr)
+        err_k7, err_k8 = max(err_k7, gerr), max(err_k8, rerr)
+        tex = [float(t.abs().max()) for t in k7[4 + texp:]]
+        # a checker's colours, or an atlas's texels
+        if not (min(tex) if sc_name == "checker" else tex[-1]) > 0:
+            raise AssertionError(f"{tag}: no texture adjoint {tex}")
+        print(f"textured big kernels vs plain: {tag}: {o.shape[0]} lanes, "
+              f"depth 3: K5 {share:.5f} of lanes outside (max |err| "
+              f"{mabs:.3g}); K6 radiance = K5's bit for bit, cache "
+              f"{resf.shape[0]}+{resi.shape[0]} planes (max |err| {cerr:.3g});"
+              f" K7 (max |err| {gerr:.3g}) and K8 (max |err| {rerr:.3g}) "
+              f"within the bound, repeat bit for bit; K8 vs K7 within rtol="
+              f"{CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| {xerr:.3g}); "
+              f"largest texture adjoints (dta, dtb[, dti]) "
+              f"{', '.join(f'{v:.3g}' for v in tex)}", flush=True)
+    del k5, k6, k7, k8, resf, resi, ref_l, ref_f, ref_i
+    # the textured K5 against K1 on the textured Cornell box
+    tcorn = builders.cornell_box(width=256, height=256, floor_checker=True,
+                                 back_image=rng.uniform(0.1, 0.9, (8, 8, 3))
+                                 .astype(np.float32)).to("cuda")
+    cfg = kwf.KernelConfig(max_depth=5)
+    o, d, _, _ = jittered_rays(tcorn, n_lanes, 31)
+    k1 = kwf.trace_lanes(kwf.pack_tables(tcorn, cfg), cfg, o, d, 37)
+    k5 = kbs.trace_lanes(kbs.pack_big_tables(tcorn, cfg), cfg, o, d, 37)
+    within = float(((k5 - k1).abs() <= 1e-3).all(-1).float().mean())
+    if within < 1 - MAX_BAD_SHARE:
+        raise AssertionError(f"textured K5 vs K1: only {within:.5f} of lanes "
+                             "within 1e-3")
+    print(f"textured K5 vs K1: cornell 256x256 with a checker floor and an "
+          f"8x8 back wall, depth 5, {n_lanes} lanes: {within:.5f} of lanes "
+          f"within 1e-3 (max |diff| {float((k5 - k1).abs().max()):.3g})",
+          flush=True)
+    del k1, k5
+
+    # 11b. a 16-spp textured frame past 64 surfaces through render(): K5
+    reset_counts()
+    reset_big()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render(past64["checker"], spp=big_spp, seed=seed, cfg=bcfg,
+                 clamp=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tex_big_launches = big_counts()
+    if tex_big_launches[0] == 0 or tex_big_launches[1:] != (0, 0, 0) or \
+            counts() != (0, 0, 0, 0):
+        raise AssertionError(f"the textured big frame launched K5-K8 "
+                             f"{tex_big_launches} and K1-K4 {counts()}")
+    tables = kbs.pack_big_tables(p64_cuda["checker"], bcfg)
+    ref = kwf.render_cuda(p64_cuda["checker"], spp=big_spp, seed=seed,
+                          cfg=bcfg, clamp=False, rays_per_pass=1 << 20,
+                          tracer=lambda s, o, d, *args: kbs.trace_lanes_plain(
+                              tables, bcfg, o, d, *args))
+    share, mabs, _ = compare(img.reshape(-1, 3), ref.reshape(-1, 3),
+                             "textured big frame")
+    err_k5 = max(err_k5, mabs)
+    print(f"frame: spheres with a checker ground 256x256 {big_spp} spp, depth "
+          f"3 in {secs:.3f} s (cold), mean {float(img.mean()):.5f}; launches "
+          f"K5/K6/K7/K8 {tex_big_launches}, K1-K4 {counts()}; against the "
+          f"same frame through the plain K5: {share:.5f} of pixels outside "
+          f"the bound, max |err| {mabs:.3g}", flush=True)
+    del img, ref
+
+    def tex_big_frame():
+        return render(past64["checker"], spp=big_spp, seed=seed, cfg=bcfg,
+                      clamp=False)
+
+    tex_big_frame()   # warm
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tex_big_frame()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(walls))
+    busy, mine, n_k = device_profile(tex_big_frame, {"K5": K5_NAMES})
+    print(f"profile: textured spheres frame, {big_spp} spp: wall {wall:.3f} ms "
+          f"(median of 5 warmed frames: {min(walls):.3f}-{max(walls):.3f}); "
+          f"device busy {busy:.3f} ms in {n_k} kernels (idle share "
+          f"{1 - busy / wall:.3f}); bigscene_fwd {mine['K5']:.3f} ms = "
+          f"{mine['K5'] / busy:.3f} of device busy time", flush=True)
+
+    # 11c. checker-colour recovery past 64 surfaces: K6, K7 with TEX
+    names = ("tex_color_a", "tex_color_b")
+    tcfg = kwf.KernelConfig(max_depth=3, sampler="hash")
+    target = render(past64["checker"], spp=64, seed=99, cfg=tcfg,
+                    clamp=False)
+    true_p = get_params(past64["checker"], names)
+    start = set_params(past64["checker"],
+                       {n: v * 0.4 for n, v in true_p.items()})
+    step, params, _ = make_train_step(start, target, spp=4, max_depth=3,
+                                      kernel_sampler="hash", names=names)
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_big()
+    for i in range(5):
+        t0 = time.perf_counter()
+        losses.append(float(step(key)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    tex_big_train = big_counts()
+    if tex_big_train[1] == 0 or tex_big_train[2] == 0 or \
+            tex_big_train[3] != 0 or counts() != (0, 0, 0, 0) or not (
+                np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"textured big train: losses {losses}, launches "
+                             f"K5-K8 {tex_big_train}, K1-K4 {counts()}")
+    tb_ms = float(np.median(walls[1:]))
+    print(f"textured big train: {', '.join(names)} on the checker-ground "
+          f"spheres 256x256, 4 spp, depth 3, hash, from 0.4 of the true "
+          f"colours: losses {', '.join(f'{v:.6f}' for v in losses)}; "
+          f"{tb_ms:.3f} ms a step (median of steps 2-5); launches K5/K6/K7/K8 "
+          f"{tex_big_train}, K1-K4 {counts()}", flush=True)
+    with recording(kbs) as seen:
+        step(key)
+        torch.cuda.synchronize()
+    e6, e7 = check_recorded_step(kbs, seen, "textured big train step",
+                                 ("K5", "K6", "K7"))
+    err_k6, err_k7 = max(err_k6, e6), max(err_k7, e7)
+
+    # 11d. K1-K4 past 64 surfaces: the 16x16 atlas on the ground (a
+    # separable atlas, which the tables refuse)
+    sep = past64["separable"]
+    reset_counts()
+    reset_big()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render(sep, spp=big_spp, seed=seed, cfg=bcfg, clamp=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sep_render_launches = counts()
+    if sep_render_launches[0] == 0 or sep_render_launches[1:] != (0, 0, 0) \
+            or big_counts() != (0, 0, 0, 0) or \
+            not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"the 16x16-ground frame launched K1-K4 "
+                             f"{sep_render_launches} and K5-K8 {big_counts()}")
+    print(f"frame: spheres with a 16x16 ground atlas 256x256 {big_spp} spp, "
+          f"depth 3 in {secs:.3f} s (cold), mean {float(img.mean()):.5f}; "
+          f"launches K1/K2/K3/K4 {sep_render_launches}, K5-K8 {big_counts()}",
+          flush=True)
+    del img
+    names = ("tex_image",)
+    target = render(sep, spp=64, seed=99, cfg=tcfg, clamp=False)
+    true_p = get_params(sep, names)
+    start = set_params(sep, {"tex_image": torch.full_like(
+        true_p["tex_image"], 0.5)})
+    step, params, _ = make_train_step(start, target, spp=4, max_depth=3,
+                                      kernel_sampler="hash", names=names)
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_big()
+    for i in range(5):
+        t0 = time.perf_counter()
+        losses.append(float(step(key)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    sep_train = counts()
+    if sep_train[1] == 0 or sep_train[2] == 0 or big_counts() != (
+            0, 0, 0, 0) or not (np.isfinite(losses).all()
+                                and losses[-1] < losses[0]):
+        raise AssertionError(f"16x16-ground train: losses {losses}, launches "
+                             f"K1-K4 {sep_train}, K5-K8 {big_counts()}")
+    print(f"train past 64 on K2/K3: texels of the 16x16 ground from a flat "
+          f"0.5 grey, 256x256, 4 spp, depth 3, hash: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; "
+          f"{float(np.median(walls[1:])):.3f} ms a step (median of steps "
+          f"2-5); launches K1/K2/K3/K4 {sep_train}, K5-K8 {big_counts()}",
+          flush=True)
+    with recording(kwf) as seen:
+        step(key)
+        torch.cuda.synchronize()
+    e2, e3 = check_recorded_step(kwf, seen, "16x16-ground train step")
+    err_res, err_bwd = max(err_res, e2), max(err_bwd, e3)
+    # the row-tagged K3 and K4 against their plain versions, 64K lanes,
+    # and against K7 on the untextured twin (random_spheres(1024))
+    for sc_name, scene in (("16x16 ground", p64_cuda["separable"]),
+                           ("untextured twin", big_cuda["spheres"])):
+        cfg = kwf.KernelConfig(max_depth=3, sampler="hash",
+                               trainable_exponent=True)
+        tag = f"row-tagged K3/K4, spheres {sc_name}, hash, trainable exponent"
+        o, d, si, pix = jittered_rays(scene, 1 << 16, 37)
+        tables = kwf.pack_tables(scene, cfg)
+        if not kwf.row_tagged(tables.static):
+            raise AssertionError(f"{tag}: not on the row-tagged route")
+        k1 = kwf.trace_lanes(tables, cfg, o, d, 47, si, pix)
+        k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 47, si, pix,
+                                         residual=True)
+        g = torch.randn(o.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(9))
+        k3 = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
+        k4 = kwf.bwd_replay(tables, cfg, o, d, 47, si, pix, g, k1)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"{tag}: K2's radiance is not K1's")
+        for nm, got, again in (
+                ("K3", k3, kwf.bwd_res(tables, cfg, g, k2, resf, resi)),
+                ("K4", k4, kwf.bwd_replay(tables, cfg, o, d, 47, si, pix, g,
+                                          k1))):
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{tag}: {nm} does not repeat")
+        ref1 = kwf.trace_lanes_plain(tables, cfg, o, d, 47, si, pix)
+        ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tables, cfg, o, d, 47, si,
+                                                    pix, residual=True)
+        share, mabs, _ = compare(k1, ref1, f"K1 {tag}")
+        cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {tag}")
+        gerr = compare_grads(k3, kwf.bwd_res_plain(tables, cfg, g, ref_l,
+                                                   ref_f, ref_i), f"K3 {tag}")
+        rerr = compare_grads(k4, kwf.bwd_replay_plain(
+            tables, cfg, o, d, 47, si, pix, g, ref1), f"K4 {tag}")
+        xerr = compare_grads(k4, k3, f"K4 vs K3 {tag}", CROSS_RTOL,
+                             CROSS_ATOL)
+        max_abs_err = max(max_abs_err, mabs)
+        err_res, err_bwd = max(err_res, cerr), max(err_bwd, gerr)
+        err_replay = max(err_replay, rerr)
+        rows = kwf.unpack_row(resi) - 1
+        live_high = int((k3[0][256:].abs().sum(-1) > 0).sum())
+        if int(rows.max()) <= 255 or live_high == 0:
+            raise AssertionError(f"{tag}: no live row above 255")
+        extra = ""
+        if sc_name == "untextured twin":
+            btables = kbs.pack_big_tables(scene, cfg)
+            k6, bresf, bresi = kbs.trace_lanes(btables, cfg, o, d, 47, si,
+                                               pix, residual=True)
+            k7 = kbs.bwd_res(btables, cfg, g, k6, bresf, bresi)
+            emissive = scene.emission.sum(-1) > 0
+            k7e = (*k7[:2], k7[2] * emissive[:, None], *k7[3:])
+            k3e = (*k3[:2], k3[2] * emissive[:, None], *k3[3:])
+            k4e = (*k4[:2], k4[2] * emissive[:, None], *k4[3:])
+            x37 = compare_grads(k3e, k7e, f"K3 vs K7 {tag}", CROSS_RTOL,
+                                CROSS_ATOL)
+            x47 = compare_grads(k4e, k7e, f"K4 vs K7 {tag}", CROSS_RTOL,
+                                CROSS_ATOL)
+            extra = (f"; against K7 on the same lanes (d_emission on the "
+                     f"emissive rows): K3 max |diff| {x37:.3g}, K4 {x47:.3g}")
+        print(f"{tag}: {o.shape[0]} lanes, depth 3: K1 {share:.5f} of lanes "
+              f"outside (max |err| {mabs:.3g}); K2 = K1 bit for bit, cache "
+              f"(max |err| {cerr:.3g}), rows up to {int(rows.max())}; K3 (max "
+              f"|err| {gerr:.3g}) and K4 (max |err| {rerr:.3g}) within the "
+              f"bound, repeat bit for bit; K4 vs K3 max |diff| {xerr:.3g}; "
+              f"{live_high} live rows above 255{extra}", flush=True)
+    del k1, k2, k3, k4, resf, resi, ref1, ref_l, ref_f, ref_i, k6, k7
+    # K1-K4 at the spheres' 1M pixel-centre lanes, 16x16 ground, depth 3
+    scene = p64_cuda["separable"]
+    o, d = pixel_centre_rays(scene, n_big)
+    t0 = time.perf_counter()
+    tables = kwf.pack_tables(scene, bcfg)   # the occlusion-skip proofs too
+    pack_s = time.perf_counter() - t0
+    p_k1_ms, k1 = cuda_time_ms(lambda: kwf.trace_lanes(tables, bcfg, o, d, 7),
+                               3)
+    p_k2_ms, (k2, resf, resi) = cuda_time_ms(
+        lambda: kwf.trace_lanes(tables, bcfg, o, d, 7, residual=True), 3)
+    g = torch.full((n_big, 3), 1.0 / n_big, device="cuda")
+    p_k3_ms, k3 = cuda_time_ms(
+        lambda: kwf.bwd_res(tables, bcfg, g, k2, resf, resi), 3)
+    p_k4_ms, k4 = cuda_time_ms(
+        lambda: kwf.bwd_replay(tables, bcfg, o, d, 7, None, None, g, k1), 3)
+    xerr = compare_grads(k4, k3, "K4 vs K3 1M lanes past 64", CROSS_RTOL,
+                         CROSS_ATOL)
+    # the plain versions once, and the replay path (K1 + K4) through
+    # make_cuda_diff_tracer, its launches counted
+    p_plain = {}
+    p_plain["K1"], ref = once_ms(
+        lambda: kwf.trace_lanes_plain(tables, bcfg, o, d, 7))
+    _, mabs, _ = compare(k1, ref, "K1 1M lanes past 64")
+    max_abs_err = max(max_abs_err, mabs)
+    p_plain["K3"], ref = once_ms(
+        lambda: kwf.bwd_res_plain(tables, bcfg, g, k2, resf, resi))
+    err_bwd = max(err_bwd, compare_grads(k3, ref, "K3 1M lanes past 64"))
+    p_plain["K4"], ref = once_ms(lambda: kwf.bwd_replay_plain(
+        tables, bcfg, o, d, 7, None, None, g, k1))
+    err_replay = max(err_replay, compare_grads(k4, ref,
+                                               "K4 1M lanes past 64"))
+    del ref
+    tx = scene.textures
+    leaves = [t.clone().requires_grad_() for t in (
+        scene.mat_diffuse, scene.mat_specular, scene.emission, tx.color_a,
+        tx.color_b, tx.image)]
+    p64_replay = kwf.make_cuda_diff_tracer(scene, bcfg, backward="replay")
+    reset_counts()
+    reset_big()
+    (p64_replay(*leaves, scene.env_radiance_, o, d, 7).sum()
+     / n_big).backward()
+    torch.cuda.synchronize()
+    p64_replay_launches = counts()
+    if p64_replay_launches != (1, 0, 0, 1) or big_counts() != (0, 0, 0, 0) \
+            or not all(torch.equal(t.grad.reshape(a.shape), a)
+                       for t, a in zip(leaves, k4[:3] + k4[4:])):
+        raise AssertionError(f"the replay path past 64 launched K1-K4 "
+                             f"{p64_replay_launches} and K5-K8 {big_counts()},"
+                             f" or its gradient is not K4's")
+    del leaves
+    p_cache = resf.numel() * 4 + resi.numel() * 4
+    ops1 = k1_ops(tables.static, resf, bcfg.max_depth)
+    ops4 = k4_ops(tables.static, resf, bcfg.max_depth)
+    m_rows = len(tables.static["mats"]["kind"])
+    # as K7's and K8's: K3 reads the cache, g and L, K4 the rays, g and L;
+    # both write the (M, 9) tables (the row-tagged planes and texel entries
+    # are their own scratch, not the function's bytes)
+    p64_bounds = {
+        "K1": bound_ms(n_big * (24 + 12), ops1),
+        "K2": bound_ms(n_big * (24 + 12) + p_cache, ops1),
+        "K3": bound_ms(p_cache + n_big * 24 + m_rows * 9 * 4,
+                       k3_ops(tables.static, bcfg, n_big)),
+        "K4": bound_ms(n_big * (24 + 12 + 12) + m_rows * 9 * 4, ops4)}
+    print(f"timing past 64 on K1-K4: spheres 1026 surfaces, 16x16 ground "
+          f"atlas, depth 3, {n_big} pixel-centre lanes: K1 {p_k1_ms:.3f} ms, "
+          f"K2 {p_k2_ms:.3f} ms, K3 {p_k3_ms:.3f} ms and K4 {p_k4_ms:.3f} ms "
+          f"(row-tagged, with the sorts and sums by row and texel); plain K1 "
+          f"{p_plain['K1']:.1f} ms, plain K3 {p_plain['K3']:.1f} ms, plain "
+          f"K4 {p_plain['K4']:.1f} ms, the kernels within the bounds of "
+          f"phase 3; K4 vs K3 max |diff| {xerr:.3g}; the replay path "
+          f"(make_cuda_diff_tracer(backward='replay')) launched K1/K2/K3/K4 "
+          f"{p64_replay_launches}, its gradient K4's bit for bit; "
+          f"pack_tables {pack_s * 1e3:.1f} ms on the host; on {smi}",
+          flush=True)
+    for k, (t, by) in p64_bounds.items():
+        print(f"bound past 64: {k} {t:.4f} ms by {by} (K1 ops {ops1:.4g}, K4 "
+              f"ops {ops4:.4g}, cache {p_cache:.4g} B)", flush=True)
+    del k1, k2, k3, k4, resf, resi, g, o, d
+
+    # the textured K5, K7 and K8 at the 1M pixel-centre lanes (checker
+    # ground), with the plain versions once and the replay path (K5 + K8)
+    scene = p64_cuda["checker"]
+    o, d = pixel_centre_rays(scene, n_big)
+    tables = kbs.pack_big_tables(scene, bcfg)
+    t_k5_ms, k5 = cuda_time_ms(lambda: kbs.trace_lanes(tables, bcfg, o, d, 7),
+                               3)
+    k6, resf, resi = kbs.trace_lanes(tables, bcfg, o, d, 7, residual=True)
+    g = torch.full((n_big, 3), 1.0 / n_big, device="cuda")
+    t_k7_ms, k7 = cuda_time_ms(
+        lambda: kbs.bwd_res(tables, bcfg, g, k6, resf, resi), 3)
+    t_k8_ms, k8 = cuda_time_ms(
+        lambda: kbs.bwd_replay(tables, bcfg, o, d, 7, None, None, g, k5), 3)
+    t_plain = {}
+    t_plain["K5"], ref = once_ms(
+        lambda: kbs.trace_lanes_plain(tables, bcfg, o, d, 7))
+    _, mabs, _ = compare(k5, ref, "textured K5 1M lanes")
+    err_k5 = max(err_k5, mabs)
+    t_plain["K8"], ref = once_ms(lambda: kbs.sums_plain(
+        tables, bcfg, *kbs.bwd_replay_plain(tables, bcfg, o, d, 7, None, None,
+                                            g, k5)))
+    err_k8 = max(err_k8, compare_grads(k8, ref, "textured K8 1M lanes"))
+    xerr = compare_grads(k8, k7, "textured K8 vs K7 1M lanes", CROSS_RTOL,
+                         CROSS_ATOL)
+    del ref
+    tx = scene.textures
+    leaves = [t.clone().requires_grad_() for t in (
+        scene.mat_diffuse, scene.mat_specular, scene.emission, tx.color_a,
+        tx.color_b)]
+    tex_replay = kbs.make_bigscene_diff_tracer(scene, bcfg, backward="replay")
+    reset_counts()
+    reset_big()
+    (tex_replay(*leaves, scene.env_radiance_, o, d, 7).sum()
+     / n_big).backward()
+    torch.cuda.synchronize()
+    tex_big_replay = big_counts()
+    if tex_big_replay != (1, 0, 0, 1) or counts() != (0, 0, 0, 0) or \
+            not all(torch.equal(t.grad, a)
+                    for t, a in zip(leaves, k8[:3] + k8[4:])):
+        raise AssertionError(f"the textured big replay path launched K5-K8 "
+                             f"{tex_big_replay} and K1-K4 {counts()}, or its "
+                             f"gradient is not K8's")
+    ops5t = k5_ops(tables, resf, bcfg)
+    ops8t = k8_ops(tables, resf, bcfg)
+    t_cache = resf.numel() * 4 + resi.numel() * 4
+    PB = 9
+    tex_bounds = {
+        "K5": bound_ms(n_big * (24 + 12), ops5t),
+        "K7": bound_ms(t_cache + n_big * 24 + m_rows * PB * 4, float(
+            n_big * (bcfg.max_depth * (45 + 27 * len(tables.static["lights"]))
+                     + 6))),
+        "K8": bound_ms(n_big * (24 + 12 + 12) + m_rows * PB * 4, ops8t)}
+    print(f"timing textured past 64: spheres 1026 surfaces, checker ground, "
+          f"depth 3, {n_big} pixel-centre lanes: K5 {t_k5_ms:.3f} ms, K7 "
+          f"{t_k7_ms:.3f} ms, K8 {t_k8_ms:.3f} ms (K7 and K8 with their sorts "
+          f"and sums by row); plain K5 {t_plain['K5']:.1f} ms, plain K8 "
+          f"{t_plain['K8']:.1f} ms, the kernels within the bounds of phase 3;"
+          f" K8 vs K7 max |diff| {xerr:.3g}; the replay path launched "
+          f"K5/K6/K7/K8 {tex_big_replay}, its gradient K8's bit for bit; on "
+          f"{smi}", flush=True)
+    for k, (t, by) in tex_bounds.items():
+        print(f"bound textured: {k} {t:.4f} ms by {by} (K5 ops {ops5t:.4g}, "
+              f"K8 ops {ops8t:.4g}, cache {t_cache:.4g} B)", flush=True)
+    del k5, k6, k7, k8, resf, resi, g, o, d, leaves
+
+    # 11e. a smallpt frame through render() (K1)
+    reset_counts()
+    img = render(builders.smallpt(256, 256), spp=16, seed=seed, clamp=False)
+    torch.cuda.synchronize()
+    smallpt_launches = counts()
+    a = img.cpu().numpy()
+    if smallpt_launches[0] == 0 or not np.isfinite(a).all() or (a < 0).any() \
+            or a.mean() <= 0:
+        raise AssertionError(f"smallpt frame: launches {smallpt_launches}, "
+                             f"mean {a.mean()}")
+    print(f"frame: smallpt 256x256 16 spp through render(): mean "
+          f"{a.mean():.5f}, launches K1/K2/K3/K4 {smallpt_launches}",
+          flush=True)
+    del img
+
     src = "kytpu_torch/kernels/csrc/"
     tex_steps = [sum(tl[k] for tl in tex_train.values()) for k in (1, 2)]
     rows = [("wavefront_fwd", "wavefront_fwd.cu",
              "kytpu/kernels/wavefront.py:1760",
-             render_launches[0] + tex_render_launches[0], max_abs_err, ms,
-             plain_ms, "K1"),
+             render_launches[0] + tex_render_launches[0]
+             + sep_render_launches[0] + smallpt_launches[0]
+             + p64_replay_launches[0], max_abs_err, ms, plain_ms, "K1"),
             ("wavefront_fwd_res", "wavefront_fwd.cu",
              "kytpu/kernels/wavefront.py:3349",
-             train_launches[1] + gloss_launches[1] + tex_steps[0], err_res,
-             k2_ms, plain_k2_ms, "K2"),
+             train_launches[1] + gloss_launches[1] + tex_steps[0]
+             + sep_train[1], err_res, k2_ms, plain_k2_ms, "K2"),
             ("wavefront_bwd_res", "wavefront_bwd_res.cu",
              "kytpu/kernels/wavefront.py:3445",
-             train_launches[2] + gloss_launches[2] + tex_steps[1], err_bwd,
-             k3_ms, plain_k3_ms, "K3"),
+             train_launches[2] + gloss_launches[2] + tex_steps[1]
+             + sep_train[2], err_bwd, k3_ms, plain_k3_ms, "K3"),
             ("wavefront_bwd_replay", "wavefront_fwd.cu",
              "kytpu/kernels/wavefront.py:3470",
-             replay_launches[3] + tex_replay_launches[3], err_replay, k4_ms,
-             plain_k4_ms, "K4"),
+             replay_launches[3] + tex_replay_launches[3]
+             + p64_replay_launches[3], err_replay, k4_ms, plain_k4_ms, "K4"),
             ("bigscene_fwd", "bigscene_fwd.cu",
-             "kytpu/kernels/bigscene.py:2144", big_render_launches[0],
+             "kytpu/kernels/bigscene.py:2144",
+             big_render_launches[0] + tex_big_launches[0] + tex_big_replay[0],
              err_k5, k5_ms, plain_k5_ms, "K5"),
             ("bigscene_fwd_res", "bigscene_fwd.cu",
-             "kytpu/kernels/bigscene.py:2361", big_train_launches[1],
-             err_k6, k6_ms, plain_k6_ms, "K6"),
+             "kytpu/kernels/bigscene.py:2361",
+             big_train_launches[1] + tex_big_train[1], err_k6, k6_ms,
+             plain_k6_ms, "K6"),
             ("bigscene_bwd_res", "bigscene_bwd_res.cu",
-             "kytpu/kernels/bigscene.py:2421", big_train_launches[2],
-             err_k7, k7_ms, plain_k7_ms, "K7"),
+             "kytpu/kernels/bigscene.py:2421",
+             big_train_launches[2] + tex_big_train[2], err_k7, k7_ms,
+             plain_k7_ms, "K7"),
             ("bigscene_bwd_replay", "bigscene_fwd.cu",
-             "kytpu/kernels/bigscene.py:2445", big_replay_launches[3],
-             err_k8, k8_ms, plain_k8_ms, "K8")]
+             "kytpu/kernels/bigscene.py:2445",
+             big_replay_launches[3] + tex_big_replay[3], err_k8, k8_ms,
+             plain_k8_ms, "K8")]
     print(smi)
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src + f, "replaces": rp,

@@ -14,16 +14,17 @@ its docstring says of the replay kernel.
 kytpu's `render_once`/`render_loss` (the jnp path engine) wait for ROADMAP
 item M7; its sharded step (`mesh=`) for M10.
 
-Past 64 surfaces the step runs the big-scene kernels instead, as kytpu's
-does: K6 forward, K7 backward (kernels/bigscene.py,
-`make_bigscene_diff_tracer`), the exponent leaf and all three samplers
-included; a textured scene past 64 surfaces raises (the texture columns of
-K5-K8 are ROADMAP item M9b).
+Past 64 surfaces the step runs the big-scene kernels instead where their
+tables take the scene, as kytpu's does: K6 forward, K7 backward
+(kernels/bigscene.py, `make_bigscene_diff_tracer`), the exponent and
+texture leaves and all three samplers included; a scene the tables do not
+take (a rect that is not a parallelogram, an atlas past their select
+chain) trains on K2 and K3 at any size.
 
-On a textured scene (at most 64 surfaces) the kernels evaluate the
-textures, and names=("tex_image",) or ("tex_color_a", "tex_color_b")
-recover an image texture's texels or a checker's colours: K3 routes a
-textured row's diffuse adjoint to its texture.
+On a textured scene the kernels evaluate the textures, and
+names=("tex_image",) or ("tex_color_a", "tex_color_b") recover an image
+texture's texels or a checker's colours: K3 and K7 route a textured row's
+diffuse adjoint to its texture.
 """
 
 from __future__ import annotations
@@ -89,11 +90,11 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
     scene = scene.to(device)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
     # scene-scale routing (kytpu's rule): past 64 surfaces the big-scene
-    # kernels K6 and K7
-    if int(scene.mat_kind.shape[0]) > kwf.MAX_SURFACES:
-        tracer = kbs.make_bigscene_diff_tracer(scene, kcfg)
-    else:
-        tracer = kwf.make_cuda_diff_tracer(scene, kcfg)
+    # kernels K6 and K7 where their tables take the scene, else K2 and K3
+    extracted = kbs.table_route(scene)
+    tracer = (kwf.make_cuda_diff_tracer(scene, kcfg) if extracted is None
+              else kbs.make_bigscene_diff_tracer(scene, kcfg,
+                                                 extracted=extracted))
     for n, there in (("tex_color_a", tracer.tabs.textured),
                      ("tex_color_b", tracer.tabs.textured),
                      ("tex_image", tracer.tabs.has_img)):

@@ -4,12 +4,12 @@
 `render(scene, engine="pallas")`: the forward megakernel K1 on the card, its
 plain PyTorch version with device="cpu", under any of the three samplers
 (`KernelConfig.sampler`). Past 64 surfaces it runs the table-driven
-big-scene kernel K5 (kernels/bigscene.py), as kytpu re-routes to its own,
-and `engine="bigscene"` runs K5 at any size. A scene past 64 surfaces that
-the big-scene tables do not take (a rect that is not a parallelogram)
-raises and says why: K1, which would take it, stops at 64 surfaces. The jnp
-engines are not ported yet; asking for them raises and names the ROADMAP
-item.
+big-scene kernel K5 (kernels/bigscene.py) where its tables take the scene,
+and K1 where they do not (a rect that is not a parallelogram, an atlas
+past their select chain), as kytpu routes between its two kernels;
+`engine="bigscene"` runs K5 at any size and raises, with kytpu's reason,
+for what its tables do not take. The jnp engines are not ported yet;
+asking for them raises and names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,9 +30,9 @@ def render(scene, spp: int = 16, seed: int = 1234,
     KernelConfig(), what kytpu's render(engine="pallas") runs by default.
     `clamp` reproduces the reference's per-pixel clamp01-of-the-mean
     (ky.cpp:3726); disable it for HDR output. engine="cuda" runs K1, or K5
-    past 64 surfaces; engine="bigscene" runs K5. Both split the frame into
-    passes of `rays_per_pass` lanes, whose seeds the "random" sampler
-    depends on."""
+    past 64 surfaces where the big-scene tables take the scene;
+    engine="bigscene" runs K5. Both split the frame into passes of
+    `rays_per_pass` lanes, whose seeds the "random" sampler depends on."""
     if engine in ("jnp", "fast", "path"):
         raise NotImplementedError(
             f"engine={engine!r}: the jnp engines are ROADMAP item M7 of "
@@ -42,12 +42,16 @@ def render(scene, spp: int = 16, seed: int = 1234,
                          "'bigscene'")
     cfg = cfg or kwf.KernelConfig()
     kwf.check_config(cfg)
-    if engine == "cuda" and int(scene.mat_kind.shape[0]) > kwf.MAX_SURFACES:
-        engine = "bigscene"   # its tables raise for what they do not take
+    # kytpu's rule: past 64 surfaces the table kernel where its tables take
+    # the scene, else the baked one (K1)
+    extracted = kbs.table_route(scene) if engine == "cuda" else None
+    if extracted is not None:
+        engine = "bigscene"
     scene = scene.to(check_device(device))
     if engine == "bigscene":
         return kbs.render_bigscene(scene, spp=spp, seed=seed, cfg=cfg,
-                                   clamp=clamp, rays_per_pass=rays_per_pass)
+                                   clamp=clamp, rays_per_pass=rays_per_pass,
+                                   extracted=extracted)
     return kwf.render_cuda(scene, spp=spp, seed=seed, cfg=cfg, clamp=clamp,
                            rays_per_pass=rays_per_pass)
 

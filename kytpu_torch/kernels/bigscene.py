@@ -34,8 +34,13 @@ read) with one occlusion sweep a bounce; under shadow="robust" each light's
 shadow ray skips the light's own emitting surface. kytpu's default past 64
 surfaces is its matmul sweep (cfg.sweep="auto"), about an ulp away from
 the scalar sweep that the port runs for every cfg.sweep; the cone cull
-(cfg.cull) changes no result in kytpu and is not run. No textures yet
-(ROADMAP item M9b).
+(cfg.cull) changes no result in kytpu and is not run. Textures as kytpu's
+table kernel evaluates them: checkers and atlases of its select chain (at
+most 64 texels, power-of-two sides) on planar rows, found by the hit's
+global row; K6 caches the textured diffuse, the checker parity (bit 22 of
+the int plane) and the texel coordinates ("tx", "ty"), and K7 and K8 route
+a textured row's diffuse adjoint to its texture (kernels/wavefront.py
+`_textures_at`, `_route_textures`).
 """
 
 from __future__ import annotations
@@ -72,9 +77,10 @@ SG_CX, SG_CY, SG_CZ, SG_R = range(4)
 SPHERE_GEO_COLS = 4
 GEO_COLS = {"tri": PLANAR_GEO_COLS, "rect": PLANAR_GEO_COLS,
             "disk": DISK_GEO_COLS, "sphere": SPHERE_GEO_COLS}
-# resi: sid+1 in bits 0-19, lobe_is_phong in bit 20, to_spec in bit 21
+# resi: sid+1 in bits 0-19, lobe_is_phong in bit 20, to_spec in bit 21, the
+# checker parity of a textured row in bit 22
 RESI_ROW_MASK = (1 << 20) - 1
-RESI_PHONG, RESI_TO_SPEC = 1 << 20, 1 << 21
+RESI_PHONG, RESI_TO_SPEC, RESI_EVEN = 1 << 20, 1 << 21, 1 << 22
 
 # ---------------------------------------------------------------------------
 # host side: the class tables
@@ -138,15 +144,20 @@ def extract_tables(scene):
     to 8, cols) float32, global row of each table row (int32, padded with
     0), per-8-row-block bounding spheres). Rows of a class are sorted by
     the Morton code of their bound centres (a stable sort). Raises
-    NotImplementedError for a rect that is not a parallelogram and for a
-    textured scene (the texture columns of K5-K8 are ROADMAP item M9b)."""
+    NotImplementedError, as kytpu's does, for what the tables do not take:
+    a texture the kernels do not evaluate (`kwf.kernel_texture_support`),
+    an atlas past the select chain (over 64 texels, or a side that is not a
+    power of two) and a rect that is not a parallelogram; render() and
+    make_train_step() run such a scene on K1-K4."""
+    err = kwf.kernel_texture_support(scene)
+    if err:
+        raise NotImplementedError(err)
     static = kwf.extract_static(scene, occl_skip=False)
-    if static["textures"]:
+    if any(r.get("sep") for r in static["textures"]):
         raise NotImplementedError(
-            "a textured scene past 64 surfaces: the big-scene kernels K5-K8 "
-            "do not evaluate textures yet (ROADMAP item M9b: textures in "
-            "K5-K8); K1-K4 take textured scenes of at most "
-            f"{kwf.MAX_SURFACES} surfaces")
+            "the table kernel's in-kernel image fetch is the select chain "
+            f"(<= {kwf.KERNEL_MAX_TEXELS} pow2 texels); larger / non-pow2 "
+            "atlases run on K1-K4 (kernels/wavefront.py)")
     tris, rects, disks = [], [], []
     tri_rows, rect_rows, disk_rows = [], [], []
     tri_b, rect_b, disk_b = [], [], []   # per-entry (center, radius)
@@ -168,9 +179,9 @@ def extract_tables(scene):
         if not s.get("fast"):
             raise NotImplementedError(
                 f"surface {row} is a rect that is not a parallelogram: the "
-                "big-scene kernels take triangles, parallelogram rects, "
-                "disks and spheres. K1, which takes any rect, runs scenes "
-                f"of at most {kwf.MAX_SURFACES} surfaces (ROADMAP section 4)")
+                "table-driven kernel supports triangles, parallelogram "
+                "rectangles, disks and spheres (K1-K4, kernels/wavefront.py, "
+                "take any rect)")
         n = np.asarray(s["n"], np.float64)
         anchor = np.asarray(s["anchor"], np.float64)
         f1 = np.asarray(s["f1"], np.float64)
@@ -230,24 +241,42 @@ def extract_tables(scene):
     return static, tables
 
 
+def table_route(scene):
+    """kytpu's routing rule for render(engine="cuda") and make_train_step:
+    past `kwf.TABLE_ROUTE_SURFACES` surfaces, `extract_tables(scene)` where
+    the table kernels K5-K8 take the scene; else None, the baked kernels
+    K1-K4 (which take any surface count). Only the tables' refusal is
+    caught."""
+    if int(scene.mat_kind.shape[0]) <= kwf.TABLE_ROUTE_SURFACES:
+        return None
+    try:
+        return extract_tables(scene)
+    except NotImplementedError:
+        return None
+
+
 def layout_of(static, cfg: kwf.KernelConfig):
     """`bigres_layout` of a scene's static dict: the environment planes are
-    there iff one of its lights is the environment, as the kernels read
-    it."""
+    there iff one of its lights is the environment, the texel planes iff a
+    row reads an image texture, as the kernels read them."""
     return bigres_layout(cfg, len(static["lights"]),
                          any(lt["kind"] == klights.ENV
-                             for lt in static["lights"]))
+                             for lt in static["lights"]),
+                         kwf._has_img(static))
 
 
-def bigres_layout(cfg: kwf.KernelConfig, n_lights: int, has_env: bool):
-    """Plane order of K6's coefficient cache (kytpu's `_bigres_layout`
-    without textures) -> ({tag: plane}, count). Per bounce: "wb" (hit
-    emission MIS weight, fully masked), "wenv" (env scenes), the hit's
-    emission "emi" (3 planes); below the horizon one "B" per NEE light ("Bk"
-    after each under trainable_exponent), "tu" ("tuk"), and the hit's
-    colours "dif", "spc" (3 planes each): at thousands of rows the backward
-    cannot re-read them by row, so the forward caches the values.
-    csrc/bigscene_fwd.cu `BigRes` computes the same offsets."""
+def bigres_layout(cfg: kwf.KernelConfig, n_lights: int, has_env: bool,
+                  has_img: bool = False):
+    """Plane order of K6's coefficient cache (kytpu's `_bigres_layout`) ->
+    ({tag: plane}, count). Per bounce: "wb" (hit emission MIS weight, fully
+    masked), "wenv" (env scenes), the hit's emission "emi" (3 planes);
+    below the horizon one "B" per NEE light ("Bk" after each under
+    trainable_exponent), "tu" ("tuk"), and the hit's colours "dif" (the
+    textured value on a textured row), "spc" (3 planes each): at thousands
+    of rows the backward cannot re-read them by row, so the forward caches
+    the values; then on image scenes the hit's texel coordinates "tx",
+    "ty" on its image row (0 elsewhere). csrc/bigscene_fwd.cu `BigRes`
+    computes the same offsets."""
     texp = cfg.trainable_exponent
     tags = []
     for b in range(cfg.max_depth + 1):
@@ -268,6 +297,9 @@ def bigres_layout(cfg: kwf.KernelConfig, n_lights: int, has_env: bool):
                 tags.append(("dif", b, c))
             for c in range(3):
                 tags.append(("spc", b, c))
+            if has_img:
+                tags.append(("tx", b))
+                tags.append(("ty", b))
     return {t: i for i, t in enumerate(tags)}, len(tags)
 
 
@@ -276,11 +308,13 @@ class BigTables:
     """What one big-scene launch reads. geo: the class tables' real rows
     (no padding), tri | rect | disk | sphere, each row-major with its
     class's column count, one float32 tensor; rows: the global surface row
-    of each, one int32 tensor; counts: rows per class. f, i: the header and
-    light records of kernels/wavefront.py's tables with no geometry
-    records; mat_i (M, 2) int32: material kind, light index; mat_f (M, 4)
-    float32: eta, d_prob, s_prob, 0. Then the tables a render may change
-    without repacking."""
+    of each, one int32 tensor; counts: rows per class. f, i: the header,
+    light and texture records of kernels/wavefront.py's tables with no
+    geometry records; mat_i (M, 2) int32: material kind, light index;
+    tex_rec (M,) int32: each row's texture record (-1: none), read only by
+    the textured instantiations; mat_f (M, 4) float32: eta, d_prob, s_prob,
+    0. Then the tables a render may change without repacking (texa, texb,
+    timg: one zero row each in an untextured scene)."""
 
     static: dict
     counts: tuple
@@ -289,6 +323,7 @@ class BigTables:
     f: torch.Tensor
     i: torch.Tensor
     mat_i: torch.Tensor
+    tex_rec: torch.Tensor
     mat_f: torch.Tensor
     diffuse: torch.Tensor     # (M, 3)
     specular: torch.Tensor    # (M, 3)
@@ -296,9 +331,13 @@ class BigTables:
     exponent: torch.Tensor    # (M,)
     light_emit: torch.Tensor  # (max(L, 1), 3)
     env: torch.Tensor         # (3,)
+    texa: torch.Tensor        # (max(T, 1), 3) checker "even" colours
+    texb: torch.Tensor        # (max(T, 1), 3) checker "odd" colours
+    timg: torch.Tensor        # (max(Ti H W, 1), 3) the texel atlas
 
     def with_colors(self, scene: kscene.Scene) -> "BigTables":
-        return dataclasses.replace(self, **kwf._color_tables(scene))
+        return dataclasses.replace(self, **kwf._color_tables(scene),
+                                   **kwf._texture_tables(scene))
 
     def cls(self, name: str):
         """(geometry (R, cols), global rows (R,)) of one class."""
@@ -310,8 +349,12 @@ class BigTables:
             r, GEO_COLS[name]), self.rows[r0:r0 + r])
 
 
-def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig) -> BigTables:
-    static, tables = extract_tables(scene)
+def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig,
+                    extracted=None) -> BigTables:
+    """The launch tables of `scene`; extracted: `extract_tables(scene)`
+    where the caller has it."""
+    static, tables = extracted or extract_tables(scene)
+    kwf.check_textures(static)
     counts = tuple(static["n_real"][k] for k in CLASSES)
     geo = np.concatenate([tables[k][0][:c].reshape(-1)
                           for k, c in zip(CLASSES, counts)]
@@ -326,16 +369,19 @@ def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig) -> BigTables:
     mats = static["mats"]
     mat_i = np.stack([np.asarray(mats["kind"], np.int32),
                       np.asarray(mats["light_index"], np.int32)], -1)
+    tex_rec = np.asarray(kwf.texture_record_of_row(static), np.int32)
     mat_f = np.stack([np.asarray(mats["eta"], np.float32),
                       np.asarray(mats["d_prob"], np.float32),
                       np.asarray(mats["s_prob"], np.float32),
                       np.zeros(len(mats["kind"]), np.float32)], -1)
+    ti, tf = kwf.texture_records(static)
     dev = scene.device
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     return BigTables(static=static, counts=counts, geo=t(geo), rows=t(rows),
-                     f=t(np.concatenate([hf, lf])),
-                     i=t(np.concatenate([hi, li])), mat_i=t(mat_i),
-                     mat_f=t(mat_f), **kwf._color_tables(scene))
+                     f=t(np.concatenate([hf, lf, tf])),
+                     i=t(np.concatenate([hi, li, ti])), mat_i=t(mat_i),
+                     tex_rec=t(tex_rec), mat_f=t(mat_f), **kwf._color_tables(scene),
+                     **kwf._texture_tables(scene))
 
 
 # ---------------------------------------------------------------------------
@@ -563,7 +609,8 @@ def trace_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig,
     pixel id, required by the "hash" and "sobol" samplers. Returns (N, 3)
     radiance. residual=True (K6) also returns the cache (resf (res_n, N)
     float32 in `bigres_layout`'s plane order, resi (max_depth+1, N) int32:
-    row+1 in bits 0-19, lobe_is_phong in bit 20, to_spec in bit 21). A
+    row+1 in bits 0-19, lobe_is_phong in bit 20, to_spec in bit 21, the
+    checker parity of a textured row in bit 22). A
     bounce a lane does not reach (it died before) has every plane 0, as
     K6 writes it; kytpu's straight-line kernel keeps tracing the lane's
     frozen ray there and writes that hit's colours and row, with zero
@@ -579,11 +626,11 @@ def bwd_replay_plain(tables: BigTables, cfg: kwf.KernelConfig,
     with grad=True): the forward's lanes re-traced with the same draws, the
     upstream gradient g and the forward's radiance big_l (N, 3) -> the
     per-lane products of `bwd_lanes_plain` and a row-tag plane: (dout
-    (PB*max_depth + 3, N) float32, acc (N, 3 + 3L) float32, tags
+    (PB*max_depth + 3, N) float32, acc (N, 3 + 3L + 6T) float32, tags
     (max_depth+1, N) int32, the hit's row + 1, 0 on a miss or a bounce the
-    lane does not reach). Per bounce it peels the tail radiance
-    R_{b+1} = (R_b - E_b) / T_b (0 where the path ends); `sums_plain`
-    finishes it as K7's sums by row do."""
+    lane does not reach[, the texel entries of an image scene]). Per
+    bounce it peels the tail radiance R_{b+1} = (R_b - E_b) / T_b (0 where
+    the path ends); `sums_plain` finishes it as K7's sums by row do."""
     return _trace_plain(tables, cfg, o, d, seed, si, pix, "replay", g, big_l)
 
 
@@ -611,6 +658,7 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
     own = [kwf._light_rows(static).get(i) for i in range(L)]
     texp = cfg.trainable_exponent
     residual, replay = mode == "residual", mode == "replay"
+    textured, has_img = bool(static["textures"]), kwf._has_img(static)
 
     n = o.shape[0]
     dev = o.device
@@ -649,6 +697,9 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
         acc_env = v3_full(o.x, 0.0, 0.0, 0.0)
         acc_le = [v3_full(o.x, 0.0, 0.0, 0.0) for _ in range(L)]
         dplanes, tags = [], []
+        T = kwf._n_tex(static)
+        acc_ta, acc_tb = o.x.new_zeros((n, T, 3)), o.x.new_zeros((n, T, 3))
+        entries = [] if has_img else None
 
     def where3(c, v: V3, other=0.0) -> V3:
         return V3(*(kwf._where(c, a, other) for a in (v.x, v.y, v.z)))
@@ -728,6 +779,12 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
         cont = alive & valid
 
         diffuse = row3(grow, tables.diffuse)
+        if textured:
+            # a textured row's diffuse is its texture's value at the hit
+            diffuse, tex_hits = kwf._textures_at(static, tables, grow, hp,
+                                                 diffuse)
+            tex_hits = [(rec, onrow & alive, *rest)
+                        for rec, onrow, *rest in tex_hits]
         specular = row3(grow, tables.specular)
         exponent = row_of(grow, tables.exponent, 0.0)
         eta = row_of(grow, eta_tab, 0.0)
@@ -872,6 +929,11 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
                 addx = addx + kwf._where(
                     lobe_is_phong,
                     addt.dot(col_nee) * kwf._kappa(exponent, wo_l, wi_l), 0.0)
+            if textured:
+                # a textured row's diffuse adjoint goes to its texture
+                addc_diff = V3(*kwf._route_textures(
+                    tex_hits, kwf._st(addc_diff), acc_ta, acc_tb,
+                    entries).unbind(1))
             dplanes.extend([addc_diff.x, addc_diff.y, addc_diff.z,
                             addc_spec.x, addc_spec.y, addc_spec.z,
                             de_b.x, de_b.y, de_b.z] + ([addx] if texp else []))
@@ -888,10 +950,22 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
                 planes[res_ix[("dif", bounce, c)]] = v
             for c, v in enumerate((specular.x, specular.y, specular.z)):
                 planes[res_ix[("spc", bounce, c)]] = v
-            ints[bounce] = (kwf._where(valid, (grow + 1).to(torch.int32), 0)
-                            + lobe_is_phong.to(torch.int32) * RESI_PHONG
-                            + to_spec.to(torch.int32) * RESI_TO_SPEC
-                            ).to(torch.int32)
+            packed = (kwf._where(valid, (grow + 1).to(torch.int32), 0)
+                      + lobe_is_phong.to(torch.int32) * RESI_PHONG
+                      + to_spec.to(torch.int32) * RESI_TO_SPEC)
+            if has_img:
+                tx = ty = torch.zeros_like(o.x)
+            for rec, onrow, even, xy, _ in tex_hits if textured else ():
+                if even is not None:   # the checker parity in bit 22
+                    packed = packed + (onrow & even).to(torch.int32) \
+                        * RESI_EVEN
+                else:
+                    tx = torch.where(onrow, xy[0], tx)
+                    ty = torch.where(onrow, xy[1], ty)
+            if has_img:
+                planes[res_ix[("tx", bounce)]] = tx
+                planes[res_ix[("ty", bounce)]] = ty
+            ints[bounce] = packed.to(torch.int32)
         o = kwf._offset_origin(hp, nrm, wi_w).where(alive_n, o)
         d = wi_w.where(alive_n, d)
         beta = beta_new.where(alive_n, beta)
@@ -904,8 +978,10 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
         acc = [acc_env.x, acc_env.y, acc_env.z]
         for v in acc_le:
             acc.extend([v.x, v.y, v.z])
-        return torch.stack(dplanes), torch.stack(acc, dim=-1), \
-            torch.stack(tags)
+        acc = torch.cat([torch.stack(acc, dim=-1), acc_ta.reshape(n, -1),
+                         acc_tb.reshape(n, -1)], dim=1)
+        return (torch.stack(dplanes), acc, torch.stack(tags)) + (
+            (entries,) if has_img else ())
     out = torch.stack([big_l.x, big_l.y, big_l.z], dim=-1)
     if not residual:
         return out
@@ -916,21 +992,21 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
 # plain version: the cache backward (K7) and the sums by row
 # ---------------------------------------------------------------------------
 
-def _per_bounce(cfg: kwf.KernelConfig) -> int:
-    """Adjoint planes a bounce below the horizon: dd, ds, de [, dexp]."""
-    return 10 if cfg.trainable_exponent else 9
+_per_bounce = kwf.per_bounce
 
 
 def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
                     resf, resi):
     """K7's per-lane cache algebra (kytpu's `_make_res_bwd_kernel`) ->
-    (dout (PB*max_depth + 3, N) float32, acc (N, 3 + 3L) float32): per
-    bounce below the horizon the row-tagged adjoint planes dd, ds, de [,
-    dexp] of the lane's hit, then the horizon's de; acc holds each lane's
-    env and per-light emission adjoints. Walks the bounces forward carrying
-    the throughput and the tail radiance R_{b+1} = (R_b - E_b) / T_b; every
-    term is bilinear in a cached coefficient, a cached colour and a light
-    emission."""
+    (dout (PB*max_depth + 3, N) float32, acc (N, 3 + 3L + 6T) float32[,
+    the texel entries of an image scene]): per bounce below the horizon the
+    row-tagged adjoint planes dd, ds, de [, dexp] of the lane's hit, then
+    the horizon's de; acc holds each lane's env, per-light emission and
+    checker adjoints. Walks the bounces forward carrying the throughput and
+    the tail radiance R_{b+1} = (R_b - E_b) / T_b; every term is bilinear
+    in a cached coefficient, a cached colour and a light emission. A
+    textured row's diffuse adjoint goes to its texture, by the parity bit
+    or the taps of the "tx"/"ty" planes, and its row-tagged share is 0."""
     static = tables.static
     L = len(static["lights"])
     res_ix, res_n = layout_of(static, cfg)
@@ -956,6 +1032,11 @@ def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
     acc_le = [V3(zero, zero, zero) for _ in range(L)]
     env = tables.env
     dplanes = []
+    textured, has_img = bool(static["textures"]), kwf._has_img(static)
+    n = g.x.shape[0]
+    T = kwf._n_tex(static)
+    acc_ta, acc_tb = g.x.new_zeros((n, T, 3)), g.x.new_zeros((n, T, 3))
+    entries = [] if has_img else None
     for b in range(B + 1):
         wb = rf(("wb", b))
         emi = rf3("emi", b)
@@ -1007,6 +1088,20 @@ def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
             # tuk is 0 off phong lanes, whose extension read the specular
             addx = addx + (gb.x * r_next.x * spc.x + gb.y * r_next.y * spc.y
                            + gb.z * r_next.z * spc.z) * rf(("tuk", b))
+        if textured:
+            # the textured row's diffuse adjoint goes to its texture
+            row1 = ib & RESI_ROW_MASK
+            even = (ib & RESI_EVEN) != 0
+            hits = []
+            for rec in static["textures"]:
+                onrow = row1 == rec["row"] + 1
+                if rec["kind"] == "image":
+                    hits.append((rec, onrow, None, None, kwf._image_taps(
+                        rec, rf(("tx", b)), rf(("ty", b)))))
+                else:
+                    hits.append((rec, onrow, even, None, None))
+            addc_diff = V3(*kwf._route_textures(
+                hits, kwf._st(addc_diff), acc_ta, acc_tb, entries).unbind(1))
         dplanes.extend([addc_diff.x, addc_diff.y, addc_diff.z,
                         addc_spec.x, addc_spec.y, addc_spec.z,
                         de_b.x, de_b.y, de_b.z] + ([addx] if texp else []))
@@ -1015,7 +1110,9 @@ def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
     acc = [acc_env.x, acc_env.y, acc_env.z]
     for v in acc_le:
         acc.extend([v.x, v.y, v.z])
-    return torch.stack(dplanes), torch.stack(acc, dim=-1)
+    acc = torch.cat([torch.stack(acc, dim=-1), acc_ta.reshape(n, -1),
+                     acc_tb.reshape(n, -1)], dim=1)
+    return (torch.stack(dplanes), acc) + ((entries,) if has_img else ())
 
 
 def sort_rows(resi: torch.Tensor, m_rows: int):
@@ -1030,52 +1127,54 @@ segment_sums_plain = kwf.segment_sums_plain
 
 
 def _assemble(tables: BigTables, cfg: kwf.KernelConfig, seg, lane_sums):
-    """(M, PB) row sums and the (3 + 3L,) env / light-emission lane sums ->
-    (dd, ds, de, denv[, dexp]): each light's NEE emission adjoint goes to
-    the row of the surface bound to it, or to env for the environment
-    light (kytpu's `_bwd`); point and directional lights get none."""
+    """(M, PB) row sums and the (3 + 3L + 6T,) env / light-emission /
+    checker lane sums -> (dd, ds, de, denv[, dexp][, dta, dtb])
+    (`kwf.tagged_grads`): each light's NEE emission adjoint goes to the row
+    of the surface bound to it, or to env for the environment light
+    (kytpu's `_bwd`); point and directional lights get none."""
     static = tables.static
-    dd, ds, de = seg[:, 0:3], seg[:, 3:6], seg[:, 6:9].clone()
-    denv = lane_sums[0:3]
-    rows = static.get("light_surface_rows", ())
-    for i, lt in enumerate(static["lights"]):
-        dle = lane_sums[3 + 3 * i:6 + 3 * i]
-        r = rows[i] if i < len(rows) else -1
-        if r >= 0:
-            de[r] = de[r] + dle
-        elif lt["kind"] == klights.ENV:
-            denv = denv + dle
-    out = (dd, ds, de, denv)
-    return out + ((seg[:, 9],) if cfg.trainable_exponent else ())
+    rows = {i: r for i, r in enumerate(static.get("light_surface_rows", ()))
+            if r >= 0}
+    return kwf.tagged_grads(static, cfg, seg, lane_sums, rows)
 
 
 def bwd_res_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
                   resi):
     """Plain K7 with the sums that follow it: upstream gradient g and
-    radiance big_l (N, 3), K6's cache -> (dd, ds, de, denv[, dexp]) of
-    shapes (M, 3) x 3, (3,) [and (M,) under cfg.trainable_exponent].
+    radiance big_l (N, 3), K6's cache -> (dd, ds, de, denv[, dexp][, dta,
+    dtb][, dti]) of shapes (M, 3) x 3, (3,) [, (M,) under
+    cfg.trainable_exponent][, (T, 3) x 2 on a textured scene][, the atlas
+    gradient on an image scene].
 
     Every row gets the linear coefficient of its terms (kytpu's big-scene
     semantics: a non-emitting row's emission gradient is not zeroed, as K3
     does). The row-tagged planes are summed by row in a fixed order
-    (`sort_rows`, `segment_sums_plain`) and the env and light-emission
-    adjoints over lanes in K3's order (`kwf.sum_lanes`), so the gradient
-    repeats bit for bit and equals the kernel's."""
+    (`sort_rows`, `segment_sums_plain`), the texel entries by texel, and
+    the env, light-emission and checker adjoints over lanes in K3's order
+    (`kwf.sum_lanes`), so the gradient repeats bit for bit and equals the
+    kernel's."""
     kwf.check_config(cfg)
-    dout, acc = bwd_lanes_plain(tables, cfg, g, big_l, resf, resi)
-    return sums_plain(tables, cfg, dout, acc, resi)
+    dout, acc, *entries = bwd_lanes_plain(tables, cfg, g, big_l, resf, resi)
+    return sums_plain(tables, cfg, dout, acc, resi, *entries)
 
 
-def sums_plain(tables: BigTables, cfg: kwf.KernelConfig, dout, acc, tags):
+def sums_plain(tables: BigTables, cfg: kwf.KernelConfig, dout, acc, tags,
+               entries=None):
     """The sums that finish K7 and K8, plain: the row-tagged planes dout
     summed by the rows `tags` hold (`sort_rows`, `segment_sums_plain`), the
-    (N, 3 + 3L) lane accumulators over lanes in K3's order
-    (`kwf.sum_lanes`) -> (dd, ds, de, denv[, dexp]) (`_assemble`)."""
+    (N, 3 + 3L + 6T) lane accumulators over lanes in K3's order
+    (`kwf.sum_lanes`) -> (dd, ds, de, denv[, dexp][, dta, dtb])
+    (`_assemble`), and the texel entries of an image scene summed by texel
+    (`kwf.texel_sums_plain`) -> [, dti]."""
     M = len(tables.static["mats"]["kind"])
     perm, starts = sort_rows(tags, M)
     seg = segment_sums_plain(dout, perm, starts, dout.shape[1], cfg.max_depth,
                              _per_bounce(cfg))
-    return _assemble(tables, cfg, seg, kwf.sum_lanes(acc))
+    grads = _assemble(tables, cfg, seg, kwf.sum_lanes(acc))
+    if entries is None:
+        return grads
+    return grads + (kwf.texel_sums_plain(tables.static, entries,
+                                         dout.shape[1]),)
 
 
 # ---------------------------------------------------------------------------
@@ -1092,19 +1191,31 @@ launches_res_bwd = 0
 launches_replay = 0
 
 _TABLES = ("f", "i", "geo", "rows", "mat_i", "mat_f", "diffuse", "specular",
-           "emission", "exponent", "light_emit", "env")
+           "emission", "exponent", "light_emit", "env", "texa", "texb", "timg",
+           "tex_rec")
 
 
 def _check_tables(tables: BigTables, dev):
     for name in _TABLES:
         t = getattr(tables, name)
-        want = (torch.int32 if name in ("i", "rows", "mat_i")
+        want = (torch.int32 if name in ("i", "rows", "mat_i", "tex_rec")
                 else torch.float32)
         if t.device != dev:
             raise ValueError(f"table {name} is on {t.device}, the lanes on "
                              f"{dev}")
         if not t.is_contiguous() or t.dtype != want:
             raise ValueError(f"table {name} must be contiguous {want}")
+
+
+def _n_cols(tables: BigTables) -> int:
+    """K7's and K8's lane-summed columns: env | the lights' emission | dta |
+    dtb."""
+    static = tables.static
+    return 3 + 3 * len(static["lights"]) + 6 * kwf._n_tex(static)
+
+
+def _textured(tables: BigTables) -> int:
+    return int(bool(tables.static["textures"]))
 
 
 def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
@@ -1133,7 +1244,7 @@ def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
              o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), out.data_ptr(),
              ptr(resf), ptr(resi), n, *tables.counts,
              len(tables.static["mats"]["kind"]), *kwf._cfg_args(cfg, seed),
-             int(cfg.trainable_exponent), int(residual))
+             int(cfg.trainable_exponent), int(residual), _textured(tables))
     if not residual:
         launches += 1
         return out
@@ -1145,8 +1256,8 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
                 resi):
     """K7 on CUDA lanes: the per-lane kernel, the stable sort of the row
     tags (integer keys; torch.sort moves no floats), the segment sums by row
-    and the lane sums -> (dd, ds, de, denv[, dexp]); raises if a kernel
-    cannot be built or launched."""
+    (and by texel) and the lane sums -> (dd, ds, de, denv[, dexp][, dta,
+    dtb][, dti]); raises if a kernel cannot be built or launched."""
     global launches_res_bwd
     from kytpu_torch.kernels import build
 
@@ -1167,43 +1278,49 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
     g, big_l = g.contiguous(), big_l.contiguous()
     resf, resi = resf.contiguous(), resi.contiguous()
     lib = build.load()
-    k = 3 + 3 * L
+    k = _n_cols(tables)
     nb = max(1, -(-n // kwf.BWD_THREADS))
     dout = torch.empty((PB * B + 3, n), dtype=torch.float32, device=dev)
     partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
     lane_sums = torch.empty((k,), dtype=torch.float32, device=dev)
+    tex = kwf._texel_outputs(tables, cfg, n, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     kwf._run(lib.kytpu_bigscene_bwd_res, "bigscene_bwd_res", dev,
+             tables.i.data_ptr(), tables.tex_rec.data_ptr(),
              tables.light_emit.data_ptr(), tables.env.data_ptr(),
              g.data_ptr(), big_l.data_ptr(), resf.data_ptr(),
              resi.data_ptr(), dout.data_ptr(), partial.data_ptr(),
-             lane_sums.data_ptr(), n, L, int(has_env), B,
-             int(cfg.trainable_exponent))
+             lane_sums.data_ptr(), *map(ptr, tex), n, L, int(has_env), B,
+             int(cfg.trainable_exponent), k, _textured(tables))
     launches_res_bwd += 1
-    return _sums(lib, tables, cfg, dout, resi, lane_sums)
+    return _sums(lib, tables, cfg, dout, resi, lane_sums, tex)
 
 
 def _sums(lib, tables: BigTables, cfg: kwf.KernelConfig, dout, tags,
-          lane_sums):
-    """K7's and K8's sums by row on the card: the stable sort of the row
-    tags (integer keys; torch.sort moves no floats), then the segment-sum
-    kernel -> (dd, ds, de, denv[, dexp]) with the lane sums (`_assemble`)."""
-    n, dev = dout.shape[1], dout.device
-    M = len(tables.static["mats"]["kind"])
-    B, PB = cfg.max_depth, _per_bounce(cfg)
-    perm, starts = sort_rows(tags, M)
-    seg = torch.empty((M, PB), dtype=torch.float32, device=dev)
-    kwf._run(lib.kytpu_bigscene_segment_sums, "bigscene_segment_sums", dev,
-             dout.data_ptr(), perm.data_ptr(), starts.data_ptr(),
-             seg.data_ptr(), n, M, B, PB)
-    return _assemble(tables, cfg, seg, lane_sums)
+          lane_sums, tex):
+    """K7's and K8's sums on the card: the stable sort of the row tags
+    (integer keys; torch.sort moves no floats), then the segment-sum kernel
+    -> (dd, ds, de, denv[, dexp][, dta, dtb]) with the lane sums
+    (`_assemble`), and the texel entries tex (planes, tags) summed by texel
+    on an image scene [, dti]."""
+    static = tables.static
+    M = len(static["mats"]["kind"])
+    grads = _assemble(tables, cfg, kwf.segment_sums(
+        lib, dout, tags & RESI_ROW_MASK, M, cfg.max_depth, _per_bounce(cfg)),
+        lane_sums)
+    if tex[1] is None:
+        return grads
+    seg = kwf.segment_sums(lib, *tex, static["n_texels"], tex[1].shape[0], 3)
+    return grads + (seg.reshape(kwf._texel_shape(static)),)
 
 
 def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
                    pix, g, big_l):
     """K8 on CUDA lanes: the replay kernel (row-tagged adjoint planes, row
-    tags, the lane sums of the env and light-emission adjoints), then the
-    sums by row -> (dd, ds, de, denv[, dexp]); raises if a kernel cannot be
-    built or launched."""
+    tags, texel entries on an image scene, the lane sums of the env,
+    light-emission and checker adjoints), then the sums by row (and texel)
+    -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]); raises if a kernel
+    cannot be built or launched."""
     global launches_replay
     from kytpu_torch.kernels import build
 
@@ -1216,23 +1333,25 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
     g, big_l = g.contiguous(), big_l.contiguous()
     lib = build.load()
     B, PB = cfg.max_depth, _per_bounce(cfg)
-    k = 3 + 3 * len(tables.static["lights"])
+    k = _n_cols(tables)
     nb = max(1, -(-n // kwf.BWD_THREADS))
     # every plane and tag of every lane is written by K8
     dout = torch.empty((PB * B + 3, n), dtype=torch.float32, device=dev)
     tags = torch.empty((B + 1, n), dtype=torch.int32, device=dev)
     partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
     lane_sums = torch.empty((k,), dtype=torch.float32, device=dev)
+    tex = kwf._texel_outputs(tables, cfg, n, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     kwf._run(lib.kytpu_bigscene_bwd_replay, "bigscene_bwd_replay", dev,
              *[getattr(tables, nm).data_ptr() for nm in _TABLES],
              o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), g.data_ptr(),
              big_l.data_ptr(), dout.data_ptr(), tags.data_ptr(),
-             partial.data_ptr(), lane_sums.data_ptr(), n, k, *tables.counts,
-             len(tables.static["mats"]["kind"]), *kwf._cfg_args(cfg, seed),
-             int(cfg.trainable_exponent))
+             partial.data_ptr(), lane_sums.data_ptr(), *map(ptr, tex), n, k,
+             *tables.counts, len(tables.static["mats"]["kind"]),
+             *kwf._cfg_args(cfg, seed), int(cfg.trainable_exponent),
+             _textured(tables))
     launches_replay += 1
-    return _sums(lib, tables, cfg, dout, tags, lane_sums)
+    return _sums(lib, tables, cfg, dout, tags, lane_sums, tex)
 
 
 def trace_lanes(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
@@ -1266,15 +1385,18 @@ def bwd_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int, si,
 
 
 def make_bigscene_tracer(scene: kscene.Scene,
-                         cfg: kwf.KernelConfig | None = None):
+                         cfg: kwf.KernelConfig | None = None,
+                         extracted=None):
     """Lane tracer over `scene`'s class tables (kytpu's
     make_bigscene_tracer). Returns fn(scene, o, d, seed, si=None, pix=None)
-    -> (N, 3) radiance; the colour and exponent tables are read from the
-    `scene` given at each call. CUDA tensors launch K5 (and raise if it
-    cannot be built or launched); CPU tensors run `trace_lanes_plain`."""
+    -> (N, 3) radiance; the colour, exponent and texture tables are read
+    from the `scene` given at each call. CUDA tensors launch K5 (and raise
+    if it cannot be built or launched); CPU tensors run
+    `trace_lanes_plain`. extracted: `extract_tables(scene)` where the caller
+    has it."""
     cfg = cfg or kwf.KernelConfig()
     kwf.check_config(cfg)
-    geo = pack_big_tables(scene, cfg)
+    geo = pack_big_tables(scene, cfg, extracted)
 
     def trace(scene, o, d, seed, si=None, pix=None):
         return trace_lanes(geo.with_colors(scene), cfg, o, d, seed, si, pix)
@@ -1286,7 +1408,12 @@ class _BigDiffTables(kwf._DiffTables):
     """The diff tracer's tables for the big-scene kernels: K5 or K6
     forward, K7 or K8 backward (looked up in this module at each call)."""
 
-    pack = staticmethod(pack_big_tables)
+    def __init__(self, scene, cfg, extracted=None):
+        self.extracted = extracted
+        super().__init__(scene, cfg)
+
+    def pack(self, scene, cfg):
+        return pack_big_tables(scene, cfg, self.extracted)
 
     def trace(self, tables, o, d, seed, si, pix, residual=False):
         return trace_lanes(tables, self.cfg, o, d, seed, si, pix,
@@ -1301,34 +1428,40 @@ class _BigDiffTables(kwf._DiffTables):
 
 def make_bigscene_diff_tracer(scene: kscene.Scene,
                               cfg: kwf.KernelConfig | None = None,
-                              backward: str = "residual"):
+                              backward: str = "residual", extracted=None):
     """Differentiable big-scene tracer (kytpu's make_bigscene_diff_tracer).
 
-    Returns fn(diffuse, specular, emission, [exponent,] env, o, d, seed[,
-    si, pix]) -> (N, 3) radiance, a torch.autograd.Function: when a table
-    needs a gradient the forward runs K6 and keeps its cache, the backward
-    runs K7 (`bwd_res`); otherwise the forward runs K5. backward="replay":
-    the forward runs K5 and keeps the lanes and radiance, the backward K8
-    (`bwd_replay`) re-traces them (no cache). The gradient is (d_diffuse,
-    d_specular, d_emission, [d_exponent,] d_env) by detached sampling, with
-    kytpu's big-scene conventions (`bwd_res_plain`) under either
-    backward."""
+    Returns fn(diffuse, specular, emission, [exponent,] [texa, texb,]
+    [timg,] env, o, d, seed[, si, pix]) -> (N, 3) radiance (kytpu's
+    argument order: the exponent iff cfg.trainable_exponent, the checker
+    colours iff the scene has texture records, the atlas iff it has image
+    textures), a torch.autograd.Function: when a table needs a gradient the
+    forward runs K6 and keeps its cache, the backward runs K7 (`bwd_res`);
+    otherwise the forward runs K5. backward="replay": the forward runs K5
+    and keeps the lanes and radiance, the backward K8 (`bwd_replay`)
+    re-traces them (no cache). The gradient is (d_diffuse, d_specular,
+    d_emission, [d_exponent,] [d_texa, d_texb,] [d_timg,] d_env) by
+    detached sampling, with kytpu's big-scene conventions (`bwd_res_plain`)
+    under either backward; a textured row's diffuse gradient is 0, its
+    adjoint going to the texture. extracted: `extract_tables(scene)` where
+    the caller has it."""
     cfg = cfg or kwf.KernelConfig()
     fn = {"residual": kwf._ResidualTrace,
           "replay": kwf._ReplayTrace}.get(backward)
     if fn is None:
         raise ValueError(f"unknown backward {backward!r}")
     kwf.check_config(cfg)
-    return kwf.diff_tracer(_BigDiffTables(scene, cfg), fn)
+    return kwf.diff_tracer(_BigDiffTables(scene, cfg, extracted), fn)
 
 
 def render_bigscene(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
                     cfg: kwf.KernelConfig | None = None, clamp: bool = True,
-                    rays_per_pass: int = 1 << 22) -> torch.Tensor:
+                    rays_per_pass: int = 1 << 22,
+                    extracted=None) -> torch.Tensor:
     """Full-frame render through K5 -> (H, W, 3) on the scene's device
     (kytpu's render_bigscene: `render_cuda` with the big-scene tracer, the
     same passes and defaults)."""
     cfg = cfg or kwf.KernelConfig()
     return kwf.render_cuda(scene, spp=spp, seed=seed, cfg=cfg, clamp=clamp,
                            rays_per_pass=rays_per_pass,
-                           tracer=make_bigscene_tracer(scene, cfg))
+                           tracer=make_bigscene_tracer(scene, cfg, extracted))

@@ -26,6 +26,15 @@
 // ... in sorted order, then a shared-memory tree. No float atomics: the
 // gradient repeats to the last bit and equals the plain version's.
 //
+// Textures (TEX, a compile-time switch): a textured row's diffuse adjoint
+// goes to its texture, as in kytpu's kernel: the row comes from the cache,
+// its texture record from the (M,) tex_rec table; a checker's adjoint to 6
+// more lane columns a texture by the parity bit 22 of the int plane, an
+// atlas's to the four taps rebuilt from the "tx"/"ty" planes (texture.cuh),
+// as texel-tagged entries summed by texel by the segment sums; its
+// row-tagged diffuse share is 0. The cached "dif" is already the textured
+// value, so no texture table is read.
+//
 // What bounds it on the H100: bytes. The cache ((res_n + max_depth + 1) * 4
 // B a lane), g and L are read once; the row-tagged planes ((PB * max_depth +
 // 3) * 4 B a lane) are written and read back once more by the segment sums,
@@ -36,6 +45,7 @@
 #include <stdint.h>
 
 #include "lane_sum.cuh"
+#include "texture.cuh"
 
 namespace {
 
@@ -44,7 +54,8 @@ using namespace kytpu;
 constexpr int THREADS = LANE_THREADS;
 constexpr int SEG_THREADS = 512;  // SEG_THREADS in bigscene.py
 constexpr int MAX_PB = 10;        // dd, ds, de, dexp
-constexpr int RES_PHONG = 1 << 20, RES_TO_SPEC = 1 << 21;
+constexpr int RES_PHONG = 1 << 20, RES_TO_SPEC = 1 << 21, RES_EVEN = 1 << 22,
+              RES_ROW_MASK = (1 << 20) - 1;
 
 struct V {
   float x, y, z;
@@ -60,7 +71,7 @@ __device__ __forceinline__ V sel(bool c, V a, V b) { return c ? a : b; }
 
 // K6's cache planes (bigscene.py::bigres_layout, bigscene_fwd.cu BigRes)
 struct BigRes {
-  int stride, env, L, texp;
+  int stride, env, L, texp, img;
   __device__ __forceinline__ int wb(int b) const { return b * stride; }
   __device__ __forceinline__ int wenv(int b) const { return b * stride + 1; }
   __device__ __forceinline__ int emi(int b, int c) const { return b * stride + 1 + env + c; }
@@ -72,24 +83,47 @@ struct BigRes {
   __device__ __forceinline__ int tuk(int b) const { return tu(b) + 1; }
   __device__ __forceinline__ int dif(int b, int c) const { return tu(b) + 1 + texp + c; }
   __device__ __forceinline__ int spc(int b, int c) const { return tu(b) + 4 + texp + c; }
+  __device__ __forceinline__ int tx(int b) const { return tu(b) + 7 + texp; }
+  __device__ __forceinline__ int ty(int b) const { return tx(b) + 1; }
 };
 
+__device__ __forceinline__ void add3(float* acc, int col, V v) {
+  acc[col] = acc[col] + v.x;
+  acc[col + 1] = acc[col + 1] + v.y;
+  acc[col + 2] = acc[col + 2] + v.z;
+}
+
+// the textures K7 reads: the int table (header, lights, texture records),
+// each row's texture record (-1: none); out, the texel entries and their tags
+struct Tex {
+  const int *I, *tex_rec;
+  float* dout;
+  int* tags;
+};
+
+template <bool TEX>
 __global__ void __launch_bounds__(THREADS)
 bigscene_bwd_lanes(const float* __restrict__ light_emit, const float* __restrict__ env_t,
                    const float* __restrict__ g_in, const float* __restrict__ l_in,
                    const float* __restrict__ resf, const int* __restrict__ resi,
                    float* __restrict__ dout, float* __restrict__ partial, int n, int L,
-                   int has_env, int max_depth, int texp) {
+                   int has_env, int max_depth, int texp, int K, const Tex tx) {
+  // the big-scene tables' header counts no planar, sphere or material
+  // records: the texture records follow the lights
+  const int* TXI = tx.I + HDR_I + LT_I * L;
+  const bool has_img = TEX && __ldg(tx.I + H_IMG) != 0;
   BigRes rp;
   rp.env = has_env ? 1 : 0;
   rp.L = L;
   rp.texp = texp ? 1 : 0;
-  rp.stride = 11 + rp.env + L * (1 + rp.texp) + rp.texp;
+  rp.img = has_img ? 1 : 0;
+  rp.stride = 11 + rp.env + L * (1 + rp.texp) + rp.texp + 2 * rp.img;
   const int PB = texp ? 10 : 9;
-  const int K = 3 + 3 * L;
+  const int col_ta = 3 + 3 * L, col_tb = col_ta + 3 * (TEX ? __ldg(tx.I + H_TEX) : 0);
   const V zero3 = V{0.f, 0.f, 0.f};
-  // this lane's env (0-2) and per-light emission (3 + 3i ..) adjoints
-  float acc[3 + 3 * MAX_LIGHTS];
+  // this lane's env (0-2), per-light emission (3 + 3i ..) and checker
+  // (3 + 3L ..) adjoints
+  float acc[TEX ? ROW_COLS : 3 + 3 * MAX_LIGHTS];
   for (int k = 0; k < K; ++k) acc[k] = 0.f;
 
   const int lane = blockIdx.x * THREADS + threadIdx.x;
@@ -155,6 +189,32 @@ bigscene_bwd_lanes(const float* __restrict__ light_emit, const float* __restrict
         // "tuk" is 0 off phong lanes, whose extension read the specular
         addx = addx + (((gb.x * r_next.x) * spc.x + (gb.y * r_next.y) * spc.y) +
                        (gb.z * r_next.z) * spc.z) * plane(rp.tuk(b));
+      if (TEX) {
+        // a textured row's diffuse adjoint goes to its texture
+        const int row1 = ib & RES_ROW_MASK;
+        const int trec = row1 > 0 ? __ldg(tx.tex_rec + row1 - 1) : -1;
+        const int* ti = TXI + TX_I * (trec >= 0 ? trec : 0);
+        const bool tex_img = trec >= 0 && __ldg(ti) != 0;
+        if (trec >= 0 && !tex_img)
+          add3(acc, ((ib & RES_EVEN) ? col_ta : col_tb) + 3 * __ldg(ti + 1), addc_diff);
+        if (has_img) {
+          Taps taps;
+          if (tex_img)
+            taps = image_taps(__ldg(ti + 2), __ldg(ti + 3), __ldg(ti + 4), plane(rp.tx(b)),
+                              plane(rp.ty(b)));
+          const bool sep = tex_img && __ldg(ti + 5) != 0;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const bool ok = tex_img && taps.t[s] >= 0;
+            const size_t j = 4 * (size_t)b + s;
+            tx.tags[j * n + lane] = ok ? taps.t[s] + 1 : 0;
+            tx.dout[(3 * j) * n + lane] = ok ? texel_entry(taps, sep, s, addc_diff.x) : 0.f;
+            tx.dout[(3 * j + 1) * n + lane] = ok ? texel_entry(taps, sep, s, addc_diff.y) : 0.f;
+            tx.dout[(3 * j + 2) * n + lane] = ok ? texel_entry(taps, sep, s, addc_diff.z) : 0.f;
+          }
+        }
+        if (trec >= 0) addc_diff = zero3;
+      }
       put(PB * b, addc_diff.x);
       put(PB * b + 1, addc_diff.y);
       put(PB * b + 2, addc_diff.z);
@@ -211,20 +271,34 @@ bigscene_segment_sums(const float* __restrict__ dout, const int64_t* __restrict_
 
 // K7's per-lane pass on `stream` (PyTorch's current stream): the row-tagged
 // adjoint planes dout ((PB * max_depth + 3), n) and, through the (max(1,
-// ceil(n / 128)), 3 + 3L) scratch `partial`, the (3 + 3L,) lane sums of the
-// env and light-emission adjoints in `lane_sums`. Returns cudaGetLastError()
-// (or cudaErrorInvalidValue for what it does not take).
-extern "C" int kytpu_bigscene_bwd_res(const float* light_emit, const float* env, const float* g,
-                                      const float* big_l, const float* resf, const int* resi,
-                                      float* dout, float* partial, float* lane_sums, int n, int L,
-                                      int has_env, int max_depth, int texp, void* stream) {
-  if (L > MAX_LIGHTS || L < 0) return (int)cudaErrorInvalidValue;
+// ceil(n / 128)), n_cols) scratch `partial`, the (n_cols = 3 + 3L [+ 6T],)
+// lane sums of the env, light-emission [and checker] adjoints in
+// `lane_sums`; on a textured scene (I: the header, light and texture
+// records, tex_rec (M,)) an image scene's texel entries tex_dout (12
+// max_depth, n) and tags tex_tags (4 max_depth, n). Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for what it does not take).
+extern "C" int kytpu_bigscene_bwd_res(const int* I, const int* tex_rec, const float* light_emit,
+                                      const float* env, const float* g, const float* big_l,
+                                      const float* resf, const int* resi, float* dout,
+                                      float* partial, float* lane_sums, float* tex_dout,
+                                      int* tex_tags, int n, int L, int has_env, int max_depth,
+                                      int texp, int n_cols, int textured, void* stream) {
+  if (L > MAX_LIGHTS || L < 0 || n_cols < 3 + 3 * L ||
+      n_cols > (textured ? ROW_COLS : 3 + 3 * MAX_LIGHTS))
+    return (int)cudaErrorInvalidValue;
   const int blocks = n > 0 ? (n + THREADS - 1) / THREADS : 1;
-  bigscene_bwd_lanes<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      light_emit, env, g, big_l, resf, resi, dout, partial, n, L, has_env, max_depth, texp);
+  const Tex tx{I, tex_rec, tex_dout, tex_tags};
+  if (textured)
+    bigscene_bwd_lanes<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        light_emit, env, g, big_l, resf, resi, dout, partial, n, L, has_env, max_depth, texp,
+        n_cols, tx);
+  else
+    bigscene_bwd_lanes<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        light_emit, env, g, big_l, resf, resi, dout, partial, n, L, has_env, max_depth, texp,
+        n_cols, tx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return sum_partials(partial, lane_sums, blocks, 3 + 3 * L, (cudaStream_t)stream);
+  return sum_partials(partial, lane_sums, blocks, n_cols, (cudaStream_t)stream);
 }
 
 // The sums by row: for each row m = 1 .. M, its entries perm[starts[m] ..

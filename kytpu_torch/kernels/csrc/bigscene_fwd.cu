@@ -9,7 +9,7 @@
 // grad=True, K8, the path-replay backward (backward="replay"), which
 // re-traces each lane with the forward's draws and peels the tail radiance
 // R_{b+1} = (R_b - E_b) / T_b. All three are one template,
-// bigscene_fwd_kernel<MODE, SOBOL>, as K1, K2 and K4 are: K6 adds stores and
+// bigscene_fwd_kernel<MODE, SOBOL, TEX>, as K1, K2 and K4 are: K6 adds stores and
 // K8 adjoint terms and nothing else, so their draws, hits and branches are
 // K5's by construction. Their plain PyTorch transcription is
 // kytpu_torch/kernels/bigscene.py::_trace_plain (trace_lanes_plain,
@@ -54,6 +54,19 @@
 // bit. What bounds it: K5's FP32 issue plus the adjoint terms; its bytes
 // are K5's plus g and L in and (PB * max_depth + 3) * 4 + (max_depth + 1) *
 // 4 B a lane out.
+//
+// Textures (TEX, a compile-time switch: an untextured scene runs the
+// TEX=false instantiation, which loads no texture field). As in kytpu's
+// table kernel, a textured row is found by the hit's global row (tex_rec,
+// an (M,) table of its own into K1's texture records, appended after the
+// lights, read only under TEX): its diffuse is the checker colour of the
+// hit's cell or the four-tap gather of texture.cuh in the select chain's
+// addition order. K6 caches that diffuse in "dif", the
+// checker parity in bit 22 of the int plane and the texel coordinates in
+// "tx"/"ty"; K8 routes the row's diffuse adjoint to the texture (6 lane
+// columns a checker, 4 texel-tagged entries a bounce for an atlas, summed
+// by texel by the segment-sum kernel) and writes 0 to its row-tagged
+// diffuse share. No atomics: the texture gradients repeat bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,6 +98,12 @@ struct BigArgs {
   int* tags;
   float *partial, *lane_sums;
   int n_cols;
+  // textures: the checker colours, the atlas and each row's texture record
+  // (-1: none); K8's texel entries
+  const float *texa, *texb, *timg;
+  const int* tex_rec;
+  float* tex_dout;
+  int* tex_tags;
 };
 
 constexpr int PG = 12, DG = 8, SG = 4;  // columns of the class tables
@@ -108,9 +127,10 @@ struct Tables {
 };
 
 // K6's cache planes (bigscene.py::bigres_layout). Per bounce b: wb, [wenv],
-// emi x3; below the horizon then L x (B [Bk]), tu [tuk], dif x3, spc x3
+// emi x3; below the horizon then L x (B [Bk]), tu [tuk], dif x3, spc x3,
+// [tx, ty] (image scenes)
 struct BigRes {
-  int stride, env, L, texp;
+  int stride, env, L, texp, img;
   __device__ __forceinline__ int wb(int b) const { return b * stride; }
   __device__ __forceinline__ int wenv(int b) const { return b * stride + 1; }
   __device__ __forceinline__ int emi(int b, int c) const { return b * stride + 1 + env + c; }
@@ -122,9 +142,11 @@ struct BigRes {
   __device__ __forceinline__ int tuk(int b) const { return tu(b) + 1; }
   __device__ __forceinline__ int dif(int b, int c) const { return tu(b) + 1 + texp + c; }
   __device__ __forceinline__ int spc(int b, int c) const { return tu(b) + 4 + texp + c; }
+  __device__ __forceinline__ int tx(int b) const { return tu(b) + 7 + texp; }
+  __device__ __forceinline__ int ty(int b) const { return tx(b) + 1; }
 };
 
-constexpr int RES_PHONG = 1 << 20, RES_TO_SPEC = 1 << 21;
+constexpr int RES_PHONG = 1 << 20, RES_TO_SPEC = 1 << 21, RES_EVEN = 1 << 22;
 
 __device__ __forceinline__ bool planar_inside(float a, float b, bool tri) {
   if (tri) return a >= 0.f && b >= 0.f && a + b <= 1.0f;
@@ -286,9 +308,9 @@ enum Mode { MODE_FWD = 0, MODE_RESIDUAL = 1, MODE_REPLAY = 2 };
 // One lane's path: MODE_FWD writes its radiance (K5), MODE_RESIDUAL also
 // the coefficient cache (K6), MODE_REPLAY re-traces the same path with the
 // same draws and writes its row-tagged adjoints, adding its env (0-2) and
-// per-light emission (3 + 3i ..) adjoints to acc (K8). SOBOL is a
-// compile-time switch, as in K1.
-template <int MODE, bool SOBOL>
+// per-light emission (3 + 3i ..) adjoints to acc, then the checker ones
+// (3 + 3L ..) (K8). SOBOL and TEX are compile-time switches, as in K1.
+template <int MODE, bool SOBOL, bool TEX>
 __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, const Tables& T,
                                            int lane_id, float* acc) {
   const int n = a.n;
@@ -298,8 +320,18 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
   rp.env = S.env_i >= 0 ? 1 : 0;
   rp.L = L;
   rp.texp = texp ? 1 : 0;
-  rp.stride = 11 + rp.env + L * (1 + rp.texp) + rp.texp;
+  rp.img = (TEX && S.has_img) ? 1 : 0;
+  rp.stride = 11 + rp.env + L * (1 + rp.texp) + rp.texp + 2 * rp.img;
   auto put = [&](int k, float v) { a.resf[(size_t)k * n + lane_id] = v; };
+  // K8: the checker columns, and texel entry (slot s of bounce b)
+  const int col_ta = 3 + 3 * L, col_tb = col_ta + 3 * S.n_tex;
+  auto tex_put = [&](int b, int s, int tag, V v) {
+    const size_t j = 4 * (size_t)b + s;
+    a.tex_tags[j * n + lane_id] = tag;
+    a.tex_dout[(3 * j) * n + lane_id] = v.x;
+    a.tex_dout[(3 * j + 1) * n + lane_id] = v.y;
+    a.tex_dout[(3 * j + 2) * n + lane_id] = v.z;
+  };
   // K8: adjoint plane k of this lane, PB planes a bounce below the horizon
   const int PB = texp ? 10 : 9;
   auto dput = [&](int k, float v) { a.dout[(size_t)k * n + lane_id] = v; };
@@ -407,7 +439,26 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
     const int mk = valid ? __ldg(a.mat_i + 2 * grow) : MAT_MATTE;
     const float exponent = valid ? __ldg(a.exponent + grow) : 0.f;
     const float eta = valid ? __ldg(a.mat_f + 4 * grow) : 0.f;
-    const V diffuse = valid ? ld3(a.diffuse + 3 * grow) : zero3;
+    V diffuse = valid ? ld3(a.diffuse + 3 * grow) : zero3;
+    // a textured row's diffuse is its texture's value at the hit
+    int trec = -1;
+    bool tex_even = false, tex_img = false;
+    float tex_x = 0.f, tex_y = 0.f;
+    Taps taps;
+    if (TEX && valid) {
+      trec = __ldg(a.tex_rec + grow);
+      if (trec >= 0) {
+        const int* ti = S.TXI + TX_I * trec;
+        tex_img = __ldg(ti) != 0;
+        if (tex_img) {
+          image_xy(S, trec, hp, tex_x, tex_y);
+          diffuse = image_lookup(S, trec, tex_x, tex_y, a.timg, taps);
+        } else {
+          tex_even = checker_even(S, trec, hp);
+          diffuse = ld3((tex_even ? a.texa : a.texb) + 3 * __ldg(ti + 1));
+        }
+      }
+    }
     const V specular = valid ? ld3(a.specular + 3 * grow) : zero3;
     const bool is_matte = mk == MAT_MATTE, is_mirror = mk == MAT_MIRROR;
     const bool is_glass = mk == MAT_GLASS, is_plastic = mk == MAT_PLASTIC;
@@ -538,6 +589,25 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
                                            kappa_dot(exponent, vdot(vmk(-wo_l.x, -wo_l.y, wo_l.z),
                                                                     wi_l))
                                      : 0.f);
+      if (TEX) {
+        // a textured row's diffuse adjoint goes to its texture
+        const bool on_img = trec >= 0 && tex_img;
+        if (trec >= 0 && !tex_img)
+          add3(acc, (tex_even ? col_ta : col_tb) + 3 * __ldg(S.TXI + TX_I * trec + 1), addc_diff);
+        if (S.has_img) {
+          const bool sep = on_img && __ldg(S.TXI + TX_I * trec + 5) != 0;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const bool ok_t = on_img && taps.t[s] >= 0;
+            tex_put(bounce, s, ok_t ? taps.t[s] + 1 : 0,
+                    ok_t ? vmk(texel_entry(taps, sep, s, addc_diff.x),
+                               texel_entry(taps, sep, s, addc_diff.y),
+                               texel_entry(taps, sep, s, addc_diff.z))
+                         : zero3);
+          }
+        }
+        if (trec >= 0) addc_diff = zero3;
+      }
       const int p = PB * bounce;
       dput(p, addc_diff.x);
       dput(p + 1, addc_diff.y);
@@ -566,7 +636,12 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
       put(rp.spc(bounce, 1), specular.y);
       put(rp.spc(bounce, 2), specular.z);
       a.resi[(size_t)bounce * n + lane_id] =
-          (grow + 1) + (lobe_is_phong ? RES_PHONG : 0) + (to_spec ? RES_TO_SPEC : 0);
+          (grow + 1) + (lobe_is_phong ? RES_PHONG : 0) + (to_spec ? RES_TO_SPEC : 0) +
+          (trec >= 0 && !tex_img && tex_even ? RES_EVEN : 0);
+      if (rp.img) {
+        put(rp.tx(bounce), tex_img ? tex_x : 0.f);
+        put(rp.ty(bounce), tex_img ? tex_y : 0.f);
+      }
     }
     if (alive_n) {
       o = offset_origin(hp, nrm, wi_w);
@@ -598,6 +673,10 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
           put(rp.dif(b, c), 0.f);
           put(rp.spc(b, c), 0.f);
         }
+        if (rp.img) {
+          put(rp.tx(b), 0.f);
+          put(rp.ty(b), 0.f);
+        }
       }
       a.resi[(size_t)b * n + lane_id] = 0;
     }
@@ -608,6 +687,8 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
       const int np = b < a.max_depth ? PB : 3;
       for (int k = 0; k < np; ++k) dput(PB * b + k, 0.f);
       a.tags[(size_t)b * n + lane_id] = 0;
+      if (TEX && S.has_img && b < a.max_depth)
+        for (int s = 0; s < 4; ++s) tex_put(b, s, 0, zero3);
     }
     return;
   }
@@ -618,7 +699,7 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
 
 // K5, K6 and K8 are this one template: K6 adds the cache stores and K8 the
 // adjoint terms, so their draws, hits and branches are K5's by construction.
-template <int MODE, bool SOBOL>
+template <int MODE, bool SOBOL, bool TEX>
 __global__ void __launch_bounds__(128) bigscene_fwd_kernel(const BigArgs a) {
   const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
   Scene S;
@@ -626,18 +707,29 @@ __global__ void __launch_bounds__(128) bigscene_fwd_kernel(const BigArgs a) {
   Tables T;
   T.init(a);
   if constexpr (MODE == MODE_REPLAY) {
-    // per-thread env and light-emission adjoints, then the fixed-order block sum
-    float acc[3 + 3 * MAX_LIGHTS];
+    // per-thread env, light-emission (and checker) adjoints, then the
+    // fixed-order block sum
+    float acc[TEX ? ROW_COLS : 3 + 3 * MAX_LIGHTS];
     for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
-    if (lane_id < a.n) trace_lane<MODE, SOBOL>(a, S, T, lane_id, acc);
+    if (lane_id < a.n) trace_lane<MODE, SOBOL, TEX>(a, S, T, lane_id, acc);
     block_partials(acc, a.n_cols, a.partial);
   } else if (lane_id < a.n) {
-    trace_lane<MODE, SOBOL>(a, S, T, lane_id, nullptr);
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, lane_id, nullptr);
   }
 }
 
+template <int MODE, bool TEX>
+void launch_kernel(const BigArgs& a, int blocks, void* stream) {
+  if (a.sampler == S_SOBOL)
+    bigscene_fwd_kernel<MODE, true, TEX><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+  else
+    bigscene_fwd_kernel<MODE, false, TEX><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+}
+
+// textured: the scene has texture records (texa, texb and timg are then its
+// tables, and K8 writes texel entries where it has image textures)
 template <int MODE>
-int launch(const BigArgs& a, void* stream) {
+int launch(const BigArgs& a, int textured, void* stream) {
   if (a.sampler == S_SOBOL) {
     if (a.max_depth > MAX_SOBOL_DEPTH) return (int)cudaErrorInvalidValue;
     cudaError_t err = upload_sites();
@@ -645,10 +737,10 @@ int launch(const BigArgs& a, void* stream) {
   }
   const int threads = 128;
   const int blocks = a.n > 0 ? (a.n + threads - 1) / threads : (MODE == MODE_REPLAY ? 1 : 0);
-  if (blocks > 0 && a.sampler == S_SOBOL)
-    bigscene_fwd_kernel<MODE, true><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  if (blocks > 0 && textured)
+    launch_kernel<MODE, true>(a, blocks, stream);
   else if (blocks > 0)
-    bigscene_fwd_kernel<MODE, false><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+    launch_kernel<MODE, false>(a, blocks, stream);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || MODE != MODE_REPLAY) return (int)err;
   return sum_partials(a.partial, a.lane_sums, blocks, a.n_cols, (cudaStream_t)stream);
@@ -662,7 +754,9 @@ int launch(const BigArgs& a, void* stream) {
 // and rows (the class tables' rows and their global rows; n_tri, n_rect,
 // n_disk, n_sph of each), mat_i (M, 2), mat_f (M, 4), the (M, 3)
 // diffuse/specular/emission, the (M,) exponent, the (max(L, 1), 3) light
-// emissions and the (3,) env; lanes: o, d (n, 3), si and pix (n,) int32
+// emissions, the (3,) env, the texture tables texa, texb (T, 3) and timg
+// (texels, 3) (one zero row each in an untextured scene) and tex_rec (M,)
+// (textured: the scene has texture records); lanes: o, d (n, 3), si and pix (n,) int32
 // (null under the "random" sampler); out (n, 3), and under residual resf
 // (res_n, n) and resi (max_depth + 1, n), plane-major. sampler: 0 random, 1
 // hash, 2 sobol.
@@ -670,37 +764,52 @@ extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo
                                   const int* mat_i, const float* mat_f, const float* diffuse,
                                   const float* specular, const float* emission,
                                   const float* exponent, const float* light_emit,
-                                  const float* env, const float* o, const float* d, const int* si,
-                                  const int* pix, float* out, float* resf, int* resi, int n,
-                                  int n_tri, int n_rect, int n_disk, int n_sph, int M, int seed,
-                                  int max_depth, int rr_start, int rows_per_tile, int sampler,
-                                  int robust, int texp, int residual, void* stream) {
-  const BigArgs a{F, I, geo, rows, mat_i, mat_f, diffuse, specular, emission, exponent,
-                  light_emit, env, o, d, si, pix, out, resf, resi, n, n_tri, n_rect, n_disk,
-                  n_sph, M, seed, max_depth, rr_start, rows_per_tile, sampler, robust, texp};
-  return residual ? launch<MODE_RESIDUAL>(a, stream) : launch<MODE_FWD>(a, stream);
+                                  const float* env, const float* texa, const float* texb,
+                                  const float* timg, const int* tex_rec, const float* o,
+                                  const float* d,
+                                  const int* si, const int* pix, float* out, float* resf,
+                                  int* resi, int n, int n_tri, int n_rect, int n_disk, int n_sph,
+                                  int M, int seed, int max_depth, int rr_start,
+                                  int rows_per_tile, int sampler, int robust, int texp,
+                                  int residual, int textured, void* stream) {
+  const BigArgs a{F,       I,          geo,    rows,     mat_i,  mat_f,         diffuse,
+                  specular, emission,  exponent, light_emit, env, o,           d,
+                  si,      pix,        out,    resf,     resi,   n,             n_tri,
+                  n_rect,  n_disk,     n_sph,  M,        seed,   max_depth,     rr_start,
+                  rows_per_tile, sampler, robust, texp,   nullptr, nullptr,     nullptr,
+                  nullptr, nullptr,    nullptr, 0,       texa,   texb,          timg,
+                  tex_rec, nullptr,    nullptr};
+  return residual ? launch<MODE_RESIDUAL>(a, textured, stream)
+                  : launch<MODE_FWD>(a, textured, stream);
 }
 
 // K8 on `stream` (PyTorch's current stream): the tables and lanes of
 // kytpu_bigscene_fwd, the upstream gradient g (n, 3) and the forward's
 // radiance big_l (n, 3) -> the row-tagged adjoint planes dout ((PB *
 // max_depth + 3), n), their row tags (max_depth + 1, n) and, through the
-// (max(1, ceil(n / 128)), n_cols) scratch `partial`, the (n_cols = 3 + 3L,)
-// lane sums of the env and light-emission adjoints. Returns
+// (max(1, ceil(n / 128)), n_cols) scratch `partial`, the (n_cols = 3 + 3L
+// [+ 6T],) lane sums of the env, light-emission [and checker] adjoints, and
+// on an image scene the texel entries tex_dout (12 max_depth, n) and their
+// tags tex_tags (4 max_depth, n), as K4 writes them. Returns
 // cudaGetLastError() (or cudaErrorInvalidValue for what it does not take).
 extern "C" int kytpu_bigscene_bwd_replay(
     const float* F, const int* I, const float* geo, const int* rows, const int* mat_i,
     const float* mat_f, const float* diffuse, const float* specular, const float* emission,
-    const float* exponent, const float* light_emit, const float* env, const float* o,
-    const float* d, const int* si, const int* pix, const float* g, const float* big_l,
-    float* dout, int* tags, float* partial, float* lane_sums, int n, int n_cols, int n_tri,
-    int n_rect, int n_disk, int n_sph, int M, int seed, int max_depth, int rr_start,
-    int rows_per_tile, int sampler, int robust, int texp, void* stream) {
-  if (n_cols > 3 + 3 * MAX_LIGHTS || n_cols < 3) return (int)cudaErrorInvalidValue;
-  const BigArgs a{F,         I,         geo,   rows,     mat_i,  mat_f,   diffuse, specular,
-                  emission,  exponent,  light_emit, env,  o,      d,       si,      pix,
-                  nullptr,   nullptr,   nullptr, n,       n_tri,  n_rect,  n_disk,  n_sph,
-                  M,         seed,      max_depth, rr_start, rows_per_tile, sampler, robust,
-                  texp,      g,         big_l, dout,     tags,   partial, lane_sums, n_cols};
-  return launch<MODE_REPLAY>(a, stream);
+    const float* exponent, const float* light_emit, const float* env, const float* texa,
+    const float* texb, const float* timg, const int* tex_rec, const float* o, const float* d,
+    const int* si,
+    const int* pix, const float* g, const float* big_l, float* dout, int* tags, float* partial,
+    float* lane_sums, float* tex_dout, int* tex_tags, int n, int n_cols, int n_tri, int n_rect,
+    int n_disk, int n_sph, int M, int seed, int max_depth, int rr_start, int rows_per_tile,
+    int sampler, int robust, int texp, int textured, void* stream) {
+  if (n_cols > (textured ? ROW_COLS : 3 + 3 * MAX_LIGHTS) || n_cols < 3)
+    return (int)cudaErrorInvalidValue;
+  const BigArgs a{F,       I,          geo,    rows,     mat_i,  mat_f,         diffuse,
+                  specular, emission,  exponent, light_emit, env, o,           d,
+                  si,      pix,        nullptr, nullptr, nullptr, n,            n_tri,
+                  n_rect,  n_disk,     n_sph,  M,        seed,   max_depth,     rr_start,
+                  rows_per_tile, sampler, robust, texp,   g,      big_l,         dout,
+                  tags,    partial,    lane_sums, n_cols, texa,  texb,          timg,
+                  tex_rec, tex_dout,   tex_tags};
+  return launch<MODE_REPLAY>(a, textured, stream);
 }

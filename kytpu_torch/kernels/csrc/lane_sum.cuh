@@ -1,5 +1,6 @@
-// The fixed-order sum over lanes that the two backwards share, K3
-// (wavefront_bwd_res.cu) and K4 (wavefront_fwd.cu, MODE_REPLAY).
+// The fixed-order sum over lanes that the backwards share: K3
+// (wavefront_bwd_res.cu), K4 (wavefront_fwd.cu, MODE_REPLAY), K7
+// (bigscene_bwd_res.cu) and K8 (bigscene_fwd.cu, MODE_REPLAY).
 //
 // The TPU kernels carry their per-lane accumulators across a sequential
 // grid; blocks here run in no order, so the sum is two passes in a fixed
@@ -22,8 +23,13 @@ namespace kytpu {
 
 constexpr int LANE_THREADS = 128;  // BWD_THREADS in wavefront.py
 constexpr int SUM_THREADS = 256;   // SUM_THREADS in wavefront.py
-// dd, ds, de (3M each), denv (3), dexp (M), dta, dtb (3T each)
-constexpr int MAX_COLS = 10 * MAX_SURFACES + 3 + 6 * MAX_TEXTURES;
+// K3's and K4's dense row: dd, ds, de (3M each), denv (3), dexp (M), dta,
+// dtb (3T each)
+constexpr int MAX_COLS = 10 * DENSE_MAX_ROWS + 3 + 6 * MAX_TEXTURES;
+// the row-tagged backwards' lane columns (K3 and K4 past DENSE_MAX_ROWS
+// surfaces, K7, K8): denv (3), each light's emission (3L), dta, dtb (3T
+// each)
+constexpr int ROW_COLS = 3 + 3 * MAX_LIGHTS + 6 * MAX_TEXTURES;
 
 // this block's partial sums of acc[0..K) into row blockIdx.x of `partial`;
 // every thread of the block must call it

@@ -23,6 +23,15 @@
 // The sum over lanes is the fixed-order two-pass reduction of
 // lane_sum.cuh, shared with K4: the gradient repeats to the last bit.
 //
+// Past DENSE_MAX_ROWS surfaces (ROWTAG, a compile-time switch) a dense row
+// of 9M+3 columns does not fit a thread. As K7 does, each bounce's adjoints
+// of its hit row go to row-tagged planes (dd, ds, de [, dexp], the horizon's
+// de) with a row-tag plane (the row + 1 read from the cache, 0 for a miss);
+// the per-thread row keeps denv, each light's emission and the checker
+// adjoints, and the host sorts the tags and sums the planes by row in a
+// fixed order (bigscene_bwd_res.cu's segment sums). The row field of the
+// int cache is 23 bits wide (pack_row), so rows past 255 decode whole.
+//
 // On a textured scene (TEX, a compile-time switch) a textured row's diffuse
 // is its texture's value, rebuilt from the cache: a checker's colour by the
 // parity K2 stored in bit 10 of the int plane, an image's bilinear value at
@@ -52,6 +61,7 @@ namespace {
 using namespace kytpu;
 
 constexpr int THREADS = LANE_THREADS;
+static_assert(DENSE_MAX_ROWS < 255, "the dense route decodes rows from 8 bits");
 
 struct V {
   float x, y, z;
@@ -80,14 +90,21 @@ struct Tex {
   int* tags;
 };
 
-template <bool TEX>
+// ROWTAG: the row-tagged planes and their tags out
+struct Rows {
+  float* dout;
+  int* tags;
+};
+
+template <bool TEX, bool ROWTAG>
 __global__ void __launch_bounds__(THREADS)
 bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
                const float* __restrict__ specular_t, const float* __restrict__ emission_t,
                const float* __restrict__ light_emit_t, const float* __restrict__ env_t,
                const float* __restrict__ g_in, const float* __restrict__ l_in,
                const float* __restrict__ resf, const int* __restrict__ resi,
-               float* __restrict__ partial, int n, int K, int max_depth, const Tex tx) {
+               float* __restrict__ partial, int n, int K, int max_depth, const Tex tx,
+               const Rows rw) {
   const int n_pl = __ldg(I), n_sp = __ldg(I + 1);
   const int M = __ldg(I + H_M), L = __ldg(I + H_L);
   const int* MATI = I + HDR_I + PL_I * n_pl + SP_I * n_sp;
@@ -98,11 +115,16 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
   const bool texp = __ldg(I + H_TEXP) != 0;
   const bool has_img = TEX && __ldg(I + H_IMG) != 0;
   const ResPlanes rp = res_planes(has_env, single, L, texp, has_img);
-  const int col_d = 0, col_s = 3 * M, col_e = 6 * M, col_env = 9 * M, col_x = 9 * M + 3;
-  const int col_ta = col_x + (texp ? M : 0), col_tb = col_ta + 3 * __ldg(I + H_TEX);
+  // the per-thread row: dd | ds | de | denv | dexp | dta | dtb, or under
+  // ROWTAG denv | each light's emission | dta | dtb
+  const int col_d = 0, col_s = 3 * M, col_e = 6 * M, col_env = ROWTAG ? 0 : 9 * M,
+            col_x = 9 * M + 3;
+  const int col_ta = ROWTAG ? 3 + 3 * L : col_x + (texp ? M : 0),
+            col_tb = col_ta + 3 * __ldg(I + H_TEX);
   const V zero3 = V{0.f, 0.f, 0.f};
+  const int PB = texp ? 10 : 9;
 
-  float acc[MAX_COLS];
+  float acc[ROWTAG ? ROW_COLS : MAX_COLS];
   for (int k = 0; k < K; ++k) acc[k] = 0.f;
 
   const int lane = blockIdx.x * THREADS + threadIdx.x;
@@ -111,9 +133,17 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
     V r_tail = ld3(l_in + 3 * (size_t)lane);
     V beta = V{1.f, 1.f, 1.f};
     auto plane = [&](int k) { return resf[(size_t)k * n + lane]; };
+    // ROWTAG: plane k of this lane's row-tagged adjoints
+    auto put3 = [&](int k, V v) {
+      rw.dout[(size_t)k * n + lane] = v.x;
+      rw.dout[(size_t)(k + 1) * n + lane] = v.y;
+      rw.dout[(size_t)(k + 2) * n + lane] = v.z;
+    };
     for (int b = 0; b <= max_depth; ++b) {
       const int ib = resi[(size_t)b * n + lane];
-      const int sid = (ib & 255) - 1;
+      // the dense route's rows fit the field's low 8 bits (DENSE_MAX_ROWS <
+      // 255), where the high part is 0: it decodes them as kytpu does
+      const int sid = (ROWTAG ? unpack_row(ib) : (ib & 255)) - 1;
       const float wb = plane(rp.wb(b));
       const V gb = g * beta;
       int mk = MAT_MATTE, li = -1;
@@ -126,13 +156,22 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
       const bool ok_d = sid >= 0 && mk != MAT_MIRROR;
       const bool ok_s = sid >= 0 && mk != MAT_MATTE;
       const bool ok_e = sid >= 0 && li >= 0;
-      if (ok_e) add3(acc, col_e + 3 * sid, gb * wb);
+      V de_b = zero3;
+      if constexpr (ROWTAG) {
+        if (ok_e) de_b = gb * wb;
+        rw.tags[(size_t)b * n + lane] = sid + 1;
+      } else {
+        if (ok_e) add3(acc, col_e + 3 * sid, gb * wb);
+      }
       float wenv = 0.f;
       if (has_env) {
         wenv = plane(rp.wenv(b));
         add3(acc, col_env, gb * wenv);
       }
-      if (b == max_depth) break;
+      if (b == max_depth) {
+        if constexpr (ROWTAG) put3(PB * b, de_b);
+        break;
+      }
 
       const bool phong = (ib & RESI_PHONG) != 0;
       const bool to_spec = (ib & RESI_TO_SPEC) != 0;
@@ -166,11 +205,16 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
         e_term = e_term + (col_nee * e_l) * bp;
         const V add = (gb * col_nee) * bp;
         // the NEE emission adjoint: to the light's emitting row, or to env
-        const int lrow = __ldg(LTI + LT_I * light + 2);
-        if (lrow >= 0)
-          add3(acc, col_e + 3 * lrow, add);
-        else if (__ldg(LTI + LT_I * light) == L_ENV)
-          add3(acc, col_env, add);
+        // (under ROWTAG to the light's column, routed by the host)
+        if constexpr (ROWTAG) {
+          add3(acc, 3 + 3 * light, add);
+        } else {
+          const int lrow = __ldg(LTI + LT_I * light + 2);
+          if (lrow >= 0)
+            add3(acc, col_e + 3 * lrow, add);
+          else if (__ldg(LTI + LT_I * light) == L_ENV)
+            add3(acc, col_env, add);
+        }
         addc = addc + (gb * e_l) * bp;
         if (texp) addx = addx + vdot(gb * e_l, col_nee) * plane(rp.Bk(b, j));
       }
@@ -199,12 +243,22 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
         }
         if (trec >= 0) addc_diff = zero3;
       }
-      if (ok_d) add3(acc, col_d + 3 * sid, addc_diff);
-      if (ok_s) add3(acc, col_s + 3 * sid, sel(phong, addc, zero3) + sel(to_spec, addt, zero3));
-      if (texp) {
+      if constexpr (ROWTAG) {
         // "tuk" is 0 off phong lanes, whose extension read specular
-        addx = addx + vdot(gb * r_next, spec_sel) * plane(rp.tuk(b));
-        if (sid >= 0 && mk == MAT_PLASTIC) acc[col_x + sid] = acc[col_x + sid] + addx;
+        if (texp) addx = addx + vdot(gb * r_next, spec_sel) * plane(rp.tuk(b));
+        const int p = PB * b;
+        put3(p, ok_d ? addc_diff : zero3);
+        put3(p + 3, ok_s ? sel(phong, addc, zero3) + sel(to_spec, addt, zero3) : zero3);
+        put3(p + 6, de_b);
+        if (texp) rw.dout[(size_t)(p + 9) * n + lane] = (sid >= 0 && mk == MAT_PLASTIC) ? addx : 0.f;
+      } else {
+        if (ok_d) add3(acc, col_d + 3 * sid, addc_diff);
+        if (ok_s) add3(acc, col_s + 3 * sid, sel(phong, addc, zero3) + sel(to_spec, addt, zero3));
+        if (texp) {
+          // "tuk" is 0 off phong lanes, whose extension read specular
+          addx = addx + vdot(gb * r_next, spec_sel) * plane(rp.tuk(b));
+          if (sid >= 0 && mk == MAT_PLASTIC) acc[col_x + sid] = acc[col_x + sid] + addx;
+        }
       }
       beta = beta * t_eff;
       r_tail = r_next;
@@ -222,27 +276,38 @@ bwd_res_kernel(const int* __restrict__ I, const float* __restrict__ diffuse_t,
 // texture on a textured scene), through the (max(1, ceil(n / 128)), n_cols)
 // scratch `partial`; where the scene has image textures (textured: it has
 // texture records), the texel entries tex_dout (12 max_depth, n) and their
-// tags tex_tags (4 max_depth, n), as K4 writes them. Returns
+// tags tex_tags (4 max_depth, n), as K4 writes them. Past DENSE_MAX_ROWS
+// surfaces (row_tags not null) `out` holds denv | each light's emission |
+// dta | dtb, and the hit rows' adjoints are row_dout ((PB max_depth + 3), n)
+// with their tags row_tags (max_depth + 1, n), as K7 writes them. Returns
 // cudaGetLastError().
 extern "C" int kytpu_wavefront_bwd_res(const int* I, const float* diffuse, const float* specular,
                                        const float* emission, const float* light_emit,
                                        const float* env, const float* texa, const float* texb,
                                        const float* timg, const float* g, const float* big_l,
                                        const float* resf, const int* resi, float* partial,
-                                       float* out, float* tex_dout, int* tex_tags, int n,
-                                       int m_rows, int n_cols, int max_depth, int textured,
-                                       void* stream) {
-  if (m_rows > MAX_SURFACES || n_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
+                                       float* out, float* tex_dout, int* tex_tags,
+                                       float* row_dout, int* row_tags, int n, int m_rows,
+                                       int n_cols, int max_depth, int textured, void* stream) {
+  const bool rowtag = row_tags != nullptr;
+  if ((!rowtag && m_rows > DENSE_MAX_ROWS) || n_cols > (rowtag ? ROW_COLS : MAX_COLS))
+    return (int)cudaErrorInvalidValue;
   const int blocks = n > 0 ? (n + THREADS - 1) / THREADS : 1;
   const Tex tx{texa, texb, timg, tex_dout, tex_tags};
-  if (textured)
-    bwd_res_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        I, diffuse, specular, emission, light_emit, env, g, big_l, resf, resi, partial, n,
-        n_cols, max_depth, tx);
+  const Rows rw{row_dout, row_tags};
+#define KYTPU_K3(TEX_, ROWTAG_)                                                                 \
+  bwd_res_kernel<TEX_, ROWTAG_><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(                  \
+      I, diffuse, specular, emission, light_emit, env, g, big_l, resf, resi, partial, n, n_cols, \
+      max_depth, tx, rw)
+  if (rowtag && textured)
+    KYTPU_K3(true, true);
+  else if (rowtag)
+    KYTPU_K3(false, true);
+  else if (textured)
+    KYTPU_K3(true, false);
   else
-    bwd_res_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        I, diffuse, specular, emission, light_emit, env, g, big_l, resf, resi, partial, n,
-        n_cols, max_depth, tx);
+    KYTPU_K3(false, false);
+#undef KYTPU_K3
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return sum_partials(partial, out, blocks, n_cols, (cudaStream_t)stream);

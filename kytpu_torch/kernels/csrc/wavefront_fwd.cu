@@ -2,14 +2,15 @@
 //
 // Replaces kytpu/kernels/wavefront.py::_make_kernel: with grad=False, K1
 // (residual=False), the Pallas TPU kernel behind every render of a scene with
-// at most 64 surfaces, and K2 (residual=True), the forward of every train
-// step, which also writes the coefficient cache that the backward K3
-// (wavefront_bwd_res.cu) reads; with grad=True, K4, the path-replay backward
-// (backward="replay"), which re-traces each lane with the forward's draws,
-// peels the tail radiance R_{b+1} = (R_b - E_b) / T_b and accumulates the
-// table adjoints. All three are one template, wavefront_fwd_kernel<MODE,
-// SOBOL, TEX>: K2 adds stores and K4 adjoint terms and nothing else, so their
-// draws, hits and branches are K1's by construction. Their plain PyTorch
+// at most 64 surfaces (and of a larger one the big-scene tables refuse), and
+// K2 (residual=True), the forward of every train step, which also writes the
+// coefficient cache that the backward K3 (wavefront_bwd_res.cu) reads; with
+// grad=True, K4, the path-replay backward (backward="replay"), which
+// re-traces each lane with the forward's draws, peels the tail radiance
+// R_{b+1} = (R_b - E_b) / T_b and accumulates the table adjoints. All three
+// are one template, wavefront_fwd_kernel<MODE, SOBOL, TEX, ROWTAG>: K2 adds
+// stores and K4 adjoint terms and nothing else, so their draws, hits and
+// branches are K1's by construction. Their plain PyTorch
 // transcriptions are kytpu_torch/kernels/wavefront.py::trace_lanes_plain
 // (residual=False/True) and bwd_replay_plain, one body there too; this file
 // follows it statement by statement, and chip_smoke.py holds each kernel
@@ -57,7 +58,13 @@
 // bounds it: K1's FP32/SFU work plus those local read-modify-writes; its
 // bytes are K1's rays and radiance plus g. The lanes are summed by the
 // fixed-order two-pass reduction of lane_sum.cuh, as K3's are, so its
-// gradient repeats to the last bit.
+// gradient repeats to the last bit. Past DENSE_MAX_ROWS surfaces (ROWTAG, a
+// compile-time switch) the dense row would not fit a thread: as K8 does,
+// each bounce's adjoints of its hit row are written as row-tagged planes
+// (dd, ds, de [, dexp], the horizon's de) with a row-tag plane, and only the
+// env, per-light emission and checker adjoints stay in the per-thread row;
+// the host sorts the tags and bigscene_bwd_res.cu's segment sums add them
+// by row in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -237,16 +244,21 @@ struct Args {
   const float *texa, *texb, *timg;
   float* tex_dout;
   int* tex_tags;
+  // K4 past DENSE_MAX_ROWS surfaces: the row-tagged planes and their tags
+  float* row_dout;
+  int* row_tags;
 };
 
 // One lane's path. MODE_FWD accumulates and writes its radiance (K1),
 // MODE_RESIDUAL also the coefficient cache (K2), MODE_REPLAY re-traces the
 // same path with the same draws and adds its table adjoints to acc (K4):
 // dd | ds | de (3M each) | denv (3) | dexp (M, under trainable_exponent) |
-// dta | dtb (3T each, textured scenes). SOBOL and TEX are compile-time
-// switches so that no other sampler's draws and no untextured scene branch
-// on them.
-template <int MODE, bool SOBOL, bool TEX>
+// dta | dtb (3T each, textured scenes); under ROWTAG (past DENSE_MAX_ROWS
+// surfaces) acc holds denv (3) | each light's emission (3L) | dta | dtb and
+// the hit rows' adjoints go to the row-tagged planes. SOBOL, TEX and ROWTAG
+// are compile-time switches so that no other sampler's draws, no
+// untextured scene and no dense backward branch on them.
+template <int MODE, bool SOBOL, bool TEX, bool ROWTAG>
 __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int lane_id,
                                            float* acc) {
   const int n = a.n;
@@ -290,9 +302,17 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
     g = ld3(a.g + 3 * (size_t)lane_id);
     r_tail = ld3(a.l_in + 3 * (size_t)lane_id);
   }
-  const int col_d = 0, col_s = 3 * S.M, col_e = 6 * S.M, col_env = 9 * S.M,
-            col_x = 9 * S.M + 3, col_ta = col_x + (S.texp ? S.M : 0),
+  const int col_d = 0, col_s = 3 * S.M, col_e = 6 * S.M, col_env = ROWTAG ? 0 : 9 * S.M,
+            col_x = 9 * S.M + 3,
+            col_ta = ROWTAG ? 3 + 3 * S.L : col_x + (S.texp ? S.M : 0),
             col_tb = col_ta + 3 * S.n_tex;
+  // K4 under ROWTAG: plane k of this lane's row-tagged adjoints, PB a bounce
+  const int PB = S.texp ? 10 : 9;
+  auto row_put3 = [&](int k, V v) {
+    a.row_dout[(size_t)k * n + lane_id] = v.x;
+    a.row_dout[(size_t)(k + 1) * n + lane_id] = v.y;
+    a.row_dout[(size_t)(k + 2) * n + lane_id] = v.z;
+  };
   // K4: texel entry (slot s of bounce b) of this lane
   auto tex_put = [&](int b, int s, int tag, V v) {
     const size_t j = 4 * (size_t)b + s;
@@ -331,10 +351,15 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
     V e_term = le * wb;
     Lr = Lr + beta * e_term;
     if (MODE == MODE_RESIDUAL) put(rp.wb(bounce), (valid && facing) ? wb : 0.f);
-    V gb = zero3;
+    V gb = zero3, de_b = zero3;
     if (MODE == MODE_REPLAY) {
       gb = g * beta;
-      if (valid && li_idx >= 0) add3(acc, col_e + 3 * sid, gb * ((valid && facing) ? wb : 0.f));
+      if constexpr (ROWTAG) {
+        if (valid && li_idx >= 0) de_b = gb * ((valid && facing) ? wb : 0.f);
+        a.row_tags[(size_t)bounce * n + lane_id] = valid ? sid + 1 : 0;
+      } else {
+        if (valid && li_idx >= 0) add3(acc, col_e + 3 * sid, gb * ((valid && facing) ? wb : 0.f));
+      }
     }
     if (S.env_i >= 0) {
       float w_env = full ? 1.0f : safe_div(pdf_prev, pdf_prev + env_pdf(d.z));
@@ -346,7 +371,8 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
       if (MODE == MODE_REPLAY) add3(acc, col_env, gb * wenv);
     }
     if (bounce == a.max_depth) {
-      if (MODE == MODE_RESIDUAL) a.resi[(size_t)bounce * n + lane_id] = sid + 1;
+      if (MODE == MODE_RESIDUAL) a.resi[(size_t)bounce * n + lane_id] = pack_row(sid + 1);
+      if constexpr (MODE == MODE_REPLAY && ROWTAG) row_put3(PB * bounce, de_b);
       break;
     }
     bool cont = alive && valid;
@@ -416,11 +442,15 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
     // to env), colour adjoint and exponent adjoint
     auto nee_adjoint = [&](int light, float bp, float kap) {
       const V add = (gb * col_nee) * bp;
-      const int lrow = __ldg(S.LTI + LT_I * light + 2);
-      if (lrow >= 0)
-        add3(acc, col_e + 3 * lrow, add);
-      else if (__ldg(S.LTI + LT_I * light) == L_ENV)
-        add3(acc, col_env, add);
+      if constexpr (ROWTAG) {
+        add3(acc, 3 + 3 * light, add);
+      } else {
+        const int lrow = __ldg(S.LTI + LT_I * light + 2);
+        if (lrow >= 0)
+          add3(acc, col_e + 3 * lrow, add);
+        else if (__ldg(S.LTI + LT_I * light) == L_ENV)
+          add3(acc, col_env, add);
+      }
       const V addc = (gb * ld3(a.light_emit + 3 * light)) * bp;
       if (S.has_plastic) {
         addc_spec = addc_spec + (lobe_is_phong ? addc : zero3);
@@ -540,7 +570,7 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
       if (MODE == MODE_RESIDUAL) {
         put(rp.tu(bounce), tu_plane);
         if (texp) put(rp.tuk(bounce), lobe_is_phong ? tu_plane * kap_s : 0.f);
-        a.resi[(size_t)bounce * n + lane_id] = (sid + 1) + (lobe_is_phong ? RESI_PHONG : 0) +
+        a.resi[(size_t)bounce * n + lane_id] = pack_row(sid + 1) + (lobe_is_phong ? RESI_PHONG : 0) +
                                                (to_spec_t ? RESI_TO_SPEC : 0) + pick_bits +
                                                (trec >= 0 && !tex_img && tex_even ? RESI_EVEN : 0);
         if (rp.img) {
@@ -579,9 +609,19 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
           }
           if (trec >= 0) addc_diff = zero3;
         }
-        if (valid && mk != MAT_MIRROR) add3(acc, col_d + 3 * sid, addc_diff);
-        if (valid && mk != MAT_MATTE) add3(acc, col_s + 3 * sid, addc_spec);
-        if (texp && valid && mk == MAT_PLASTIC) acc[col_x + sid] = acc[col_x + sid] + addx;
+        if constexpr (ROWTAG) {
+          const int p = PB * bounce;
+          row_put3(p, (valid && mk != MAT_MIRROR) ? addc_diff : zero3);
+          row_put3(p + 3, (valid && mk != MAT_MATTE) ? addc_spec : zero3);
+          row_put3(p + 6, de_b);
+          if (texp)
+            a.row_dout[(size_t)(p + 9) * n + lane_id] =
+                (valid && mk == MAT_PLASTIC) ? addx : 0.f;
+        } else {
+          if (valid && mk != MAT_MIRROR) add3(acc, col_d + 3 * sid, addc_diff);
+          if (valid && mk != MAT_MATTE) add3(acc, col_s + 3 * sid, addc_spec);
+          if (texp && valid && mk == MAT_PLASTIC) acc[col_x + sid] = acc[col_x + sid] + addx;
+        }
         r_tail = r_next;
       }
     }
@@ -622,6 +662,18 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
     for (int b = next_bounce; b < a.max_depth; ++b)
       for (int s = 0; s < 4; ++s) tex_put(b, s, 0, zero3);
   }
+  if constexpr (MODE == MODE_REPLAY && ROWTAG) {
+    // the row-tagged planes of the bounces a dead lane never reached: tag 0
+    for (int b = next_bounce; b <= a.max_depth; ++b) {
+      row_put3(PB * b, zero3);
+      if (b < a.max_depth) {
+        row_put3(PB * b + 3, zero3);
+        row_put3(PB * b + 6, zero3);
+        if (texp) a.row_dout[(size_t)(PB * b + 9) * n + lane_id] = 0.f;
+      }
+      a.row_tags[(size_t)b * n + lane_id] = 0;
+    }
+  }
   if (MODE != MODE_REPLAY) {
     a.out[3 * (size_t)lane_id] = Lr.x;
     a.out[3 * (size_t)lane_id + 1] = Lr.y;
@@ -631,32 +683,33 @@ __device__ __forceinline__ void trace_lane(const Args& a, const Scene& S, int la
 
 // K1, K2 and K4 are this one template: K2 adds the cache stores and K4 the
 // adjoint terms, so their draws, hits and branches are K1's by construction.
-template <int MODE, bool SOBOL, bool TEX>
+template <int MODE, bool SOBOL, bool TEX, bool ROWTAG>
 __global__ void __launch_bounds__(128) wavefront_fwd_kernel(const Args a) {
   const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
   Scene S;
   S.init(a.F, a.I);
   if constexpr (MODE == MODE_REPLAY) {
     // per-thread adjoint row (local memory), then the fixed-order block sum
-    float acc[MAX_COLS];
+    float acc[ROWTAG ? ROW_COLS : MAX_COLS];
     for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
-    if (lane_id < a.n) trace_lane<MODE, SOBOL, TEX>(a, S, lane_id, acc);
+    if (lane_id < a.n) trace_lane<MODE, SOBOL, TEX, ROWTAG>(a, S, lane_id, acc);
     block_partials(acc, a.n_cols, a.partial);
   } else if (lane_id < a.n) {
-    trace_lane<MODE, SOBOL, TEX>(a, S, lane_id, nullptr);
+    trace_lane<MODE, SOBOL, TEX, ROWTAG>(a, S, lane_id, nullptr);
   }
 }
 
-template <int MODE, bool TEX>
+template <int MODE, bool TEX, bool ROWTAG>
 void launch_kernel(const Args& a, int blocks, void* stream) {
   if (a.sampler == S_SOBOL)
-    wavefront_fwd_kernel<MODE, true, TEX><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+    wavefront_fwd_kernel<MODE, true, TEX, ROWTAG><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
   else
-    wavefront_fwd_kernel<MODE, false, TEX><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+    wavefront_fwd_kernel<MODE, false, TEX, ROWTAG><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
 }
 
 // textured: the scene has texture records (texa, texb and timg are then its
-// tables, and K4 writes texel entries where it has image textures)
+// tables, and K4 writes texel entries where it has image textures); K4
+// writes row-tagged planes where a.row_tags is given
 template <int MODE>
 int launch(const Args& a, int textured, void* stream) {
   if (a.sampler == S_SOBOL) {
@@ -666,10 +719,19 @@ int launch(const Args& a, int textured, void* stream) {
   }
   const int threads = 128;
   const int blocks = a.n > 0 ? (a.n + threads - 1) / threads : (MODE == MODE_REPLAY ? 1 : 0);
-  if (blocks > 0 && textured)
-    launch_kernel<MODE, true>(a, blocks, stream);
-  else if (blocks > 0)
-    launch_kernel<MODE, false>(a, blocks, stream);
+  const bool rowtag = MODE == MODE_REPLAY && a.row_tags != nullptr;
+  if (blocks > 0 && rowtag) {
+    if constexpr (MODE == MODE_REPLAY) {
+      if (textured)
+        launch_kernel<MODE, true, true>(a, blocks, stream);
+      else
+        launch_kernel<MODE, false, true>(a, blocks, stream);
+    }
+  } else if (blocks > 0 && textured) {
+    launch_kernel<MODE, true, false>(a, blocks, stream);
+  } else if (blocks > 0) {
+    launch_kernel<MODE, false, false>(a, blocks, stream);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || MODE != MODE_REPLAY) return (int)err;
   return sum_partials(a.partial, a.out, blocks, a.n_cols, (cudaStream_t)stream);
@@ -697,7 +759,7 @@ extern "C" int kytpu_wavefront_fwd(const float* F, const int* I, const float* di
   const Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
                out, nullptr, nullptr, nullptr, nullptr, nullptr,
                n, 0, seed, max_depth, rr_start, rows, sampler, robust,
-               texa, texb, timg, nullptr, nullptr};
+               texa, texb, timg, nullptr, nullptr, nullptr, nullptr};
   return launch<MODE_FWD>(a, textured, stream);
 }
 
@@ -715,7 +777,7 @@ extern "C" int kytpu_wavefront_fwd_res(const float* F, const int* I, const float
   const Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
                out, resf, resi, nullptr, nullptr, nullptr,
                n, 0, seed, max_depth, rr_start, rows, sampler, robust,
-               texa, texb, timg, nullptr, nullptr};
+               texa, texb, timg, nullptr, nullptr, nullptr, nullptr};
   return launch<MODE_RESIDUAL>(a, textured, stream);
 }
 
@@ -724,7 +786,10 @@ extern "C" int kytpu_wavefront_fwd_res(const float* F, const int* I, const float
 // denv [| dexp] [| dta | dtb] in `out`, through the (max(1, ceil(n / 128)),
 // n_cols) scratch `partial`; where the scene has image textures, the texel
 // entries tex_dout (12 max_depth, n) and their tags tex_tags (4 max_depth,
-// n): slot s of bounce b is entry plane 4b + s.
+// n): slot s of bounce b is entry plane 4b + s. Past DENSE_MAX_ROWS
+// surfaces (row_tags not null) `out` holds denv | each light's emission |
+// dta | dtb, and the hit rows' adjoints are row_dout ((PB max_depth + 3), n)
+// with their tags row_tags (max_depth + 1, n), as K8 writes them.
 extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const float* diffuse,
                                           const float* specular, const float* emission,
                                           const float* exponent, const float* light_emit,
@@ -732,14 +797,14 @@ extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const fl
                                           const float* texb, const float* timg, const float* o,
                                           const float* d, const int* si, const int* pix,
                                           const float* g, const float* big_l, float* partial,
-                                          float* out, float* tex_dout, int* tex_tags, int n,
-                                          int n_cols, int seed, int max_depth, int rr_start,
-                                          int rows, int sampler, int robust, int textured,
-                                          void* stream) {
-  if (n_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
+                                          float* out, float* tex_dout, int* tex_tags,
+                                          float* row_dout, int* row_tags, int n, int n_cols,
+                                          int seed, int max_depth, int rr_start, int rows,
+                                          int sampler, int robust, int textured, void* stream) {
+  if (n_cols > (row_tags ? ROW_COLS : MAX_COLS)) return (int)cudaErrorInvalidValue;
   const Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
                out, nullptr, nullptr, g, big_l, partial,
                n, n_cols, seed, max_depth, rr_start, rows, sampler, robust,
-               texa, texb, timg, tex_dout, tex_tags};
+               texa, texb, timg, tex_dout, tex_tags, row_dout, row_tags};
   return launch<MODE_REPLAY>(a, textured, stream);
 }

@@ -4,6 +4,8 @@
 // (wavefront.py::residual_layout) that K2 writes and K3 reads.
 #pragma once
 
+#include <cuda_runtime.h>
+
 namespace kytpu {
 
 // table layout: must match kytpu_torch/kernels/wavefront.py
@@ -11,7 +13,10 @@ constexpr int HDR_I = 17, PL_I = 4, SP_I = 1, MAT_I = 3, LT_I = 3, TX_I = 6;
 constexpr int HDR_F = 4, PL_F = 32, SP_F = 8, MAT_F = 4, LT_F = 28, TX_F = 12;
 // one skip bit per light in a uint32 mask, one hit pdf per light in phits[]
 constexpr int MAX_LIGHTS = 32;
-constexpr int MAX_SURFACES = 64;
+// K3 and K4 keep a dense row of adjoint columns a thread for scenes of at
+// most this many surfaces, and write row-tagged entries past it
+// (DENSE_MAX_ROWS in wavefront.py)
+constexpr int DENSE_MAX_ROWS = 64;
 // K3 and K4 keep 6 checker-adjoint columns a texture in a thread
 constexpr int MAX_TEXTURES = 64;
 
@@ -30,9 +35,9 @@ constexpr int H_M = 2, H_L = 3, H_ENV_I = 9, H_SINGLE = 12, H_TEXP = 13, H_TREC 
 // planes (one per NEE light, one under nee="single") and "tu"; under
 // trainable_exponent each "B" is followed by its "Bk" and "tu" by its
 // "tuk"; with image textures "tx", "ty" follow. The int cache holds one
-// plane per bounce: sid+1 in bits 0-7, lobe_is_phong in bit 8, to_spec_t
-// in bit 9, the checker parity in bit 10, the nee="single" pick in bits
-// 11-15.
+// plane per bounce: sid+1 in bits 0-7 and 16-30 (pack_row), lobe_is_phong
+// in bit 8, to_spec_t in bit 9, the checker parity in bit 10, the
+// nee="single" pick in bits 11-15.
 struct ResPlanes {
   int stride, env, n_b, texp, img;
   __device__ __forceinline__ int wb(int b) const { return b * stride; }
@@ -62,5 +67,11 @@ __device__ __forceinline__ ResPlanes res_planes(int has_env, int single, int n_l
 
 constexpr int RESI_PHONG = 1 << 8, RESI_TO_SPEC = 1 << 9, RESI_EVEN = 1 << 10,
               RESI_PICK_SHIFT = 11;
+
+// the int cache's row field (wavefront.py pack_row, unpack_row): r1 = row
+// + 1 in bits 0-7, as kytpu writes it, and its high part in bits 16-30, so
+// a scene past 254 surfaces does not run into the lobe bits
+__host__ __device__ __forceinline__ int pack_row(int r1) { return (r1 & 255) | ((r1 >> 8) << 16); }
+__host__ __device__ __forceinline__ int unpack_row(int ib) { return (ib & 255) | ((ib >> 16) << 8); }
 
 }  // namespace kytpu

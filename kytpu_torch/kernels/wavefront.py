@@ -38,6 +38,12 @@ cfg.trainable_exponent reads the Phong exponents from a per-call (M,)
 table (`SceneTables.exponent`, plastic rows only) instead of baking them,
 adds the kappa-weighted "Bk"/"tuk" planes to K2's cache, and gives K3 and
 K4 an exponent adjoint.
+
+K1-K4 take any surface count, as kytpu's baked kernels do: render() and
+make_train_step() run them past 64 surfaces on the scenes the big-scene
+tables refuse. There K3 and K4 write row-tagged adjoint entries summed by
+row, as K7 and K8 do (`row_tagged`, DENSE_MAX_ROWS), and K2's int cache
+keeps the row in 23 bits (`pack_row`).
 """
 
 from __future__ import annotations
@@ -61,9 +67,16 @@ from kytpu_torch.scene import shapes as kshapes
 from kytpu_torch.scene import texture as ktex
 
 LANE = 128
-MAX_SURFACES = 64
+# past this many surfaces render() and make_train_step() run a scene on the
+# table kernels K5-K8 where their tables take it, as kytpu routes (K1-K4
+# take any surface count)
+TABLE_ROUTE_SURFACES = 64
+# K3 and K4 sum a scene of at most this many surfaces in a dense row of
+# adjoint columns a thread (csrc/lane_sum.cuh MAX_COLS), and a larger one
+# as row-tagged entries summed by row, as K7 and K8 do (`row_tagged`)
+DENSE_MAX_ROWS = 64
 # K3 and K4 keep 6 checker-adjoint columns a texture in a thread
-# (csrc/lane_sum.cuh MAX_COLS)
+# (csrc/lane_sum.cuh MAX_COLS, ROW_COLS)
 MAX_TEXTURES = 64
 # the kernel keeps one skip bit per light in an int32 table field and one
 # hit pdf per light in a per-thread array (csrc/wavefront_fwd.cu)
@@ -543,6 +556,32 @@ def check_lights(n_lights: int) -> None:
             "more lights are ROADMAP item M12 of the port")
 
 
+def check_textures(static) -> None:
+    if static["n_textures"] > MAX_TEXTURES:
+        raise NotImplementedError(
+            f"{static['n_textures']} textures: the backwards keep the "
+            f"checker adjoints of at most {MAX_TEXTURES} in a thread (ROADMAP "
+            "section 3)")
+
+
+def row_tagged(static) -> bool:
+    """Do K3 and K4 write row-tagged entries (past DENSE_MAX_ROWS
+    surfaces) instead of a dense row of adjoint columns a thread?"""
+    return len(static["mats"]["kind"]) > DENSE_MAX_ROWS
+
+
+def pack_row(r1):
+    """The row field of K2's int cache plane: r1 = row + 1 (0 on a miss) in
+    bits 0-7 as kytpu writes it, and past 255 its high part in bits 16-30,
+    above the lobe (8, 9), parity (10) and pick (11-15) bits."""
+    return (r1 & 255) | ((r1 >> 8) << 16)
+
+
+def unpack_row(ib):
+    """row + 1 of a K2 int cache entry (`pack_row`)."""
+    return (ib & 255) | ((ib >> 16) << 8)
+
+
 def pack_header(static, cfg: KernelConfig, counts, static_exp):
     """(int, float) header tables and the light records after them, the part
     of `pack_tables` that the light sampling and BSDF code of
@@ -602,14 +641,7 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     planar, spheres = static["planar"], static["spheres"]
     mats, lights = static["mats"], static["lights"]
     n_pl, n_sp, M, L = len(planar), len(spheres), len(mats["kind"]), len(lights)
-    if M > MAX_SURFACES:
-        raise NotImplementedError(
-            f"{M} surfaces: K1-K4 take at most {MAX_SURFACES}; larger scenes "
-            "run on the big-scene kernels (kernels/bigscene.py)")
-    if static["n_textures"] > MAX_TEXTURES:
-        raise NotImplementedError(
-            f"{static['n_textures']} textures: K3 and K4 keep the checker "
-            f"adjoints of at most {MAX_TEXTURES} in a thread")
+    check_textures(static)
     rows_skip, sph_skip = _occl_skips(static, cfg)
     single_skip = (frozenset.intersection(
         *[frozenset(s) for s in static["occl_skip"]]) if L else frozenset())
@@ -644,30 +676,45 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
         ft[of:of + 6] = [*s["c"], r32, r32 * r32, _f32(1.0 / s["r"])]
         oi += SP_I
         of += SP_F
-    rec_of_row = {r["row"]: k for k, r in enumerate(static["textures"])}
+    rec_of_row = texture_record_of_row(static)
     for m in range(M):
         it[oi:oi + MAT_I] = [mats["kind"][m], mats["light_index"][m],
-                             rec_of_row.get(m, -1)]
+                             rec_of_row[m]]
         ft[of:of + MAT_F] = [mats["exponent"][m], mats["eta"][m],
                              mats["d_prob"][m], mats["s_prob"][m]]
         oi += MAT_I
         of += MAT_F
-    # the texture records after the lights
+    ti, tf = texture_records(static)
+    dev = scene.device
+    return SceneTables(static=static,
+                       f=torch.from_numpy(np.concatenate([ft, tf])).to(dev),
+                       i=torch.from_numpy(np.concatenate([it, ti])).to(dev),
+                       **_color_tables(scene), **_texture_tables(scene))
+
+
+def texture_record_of_row(static) -> list:
+    """Each surface row's texture record (`texture_records`), -1 for
+    none."""
+    rec = {r["row"]: k for k, r in enumerate(static["textures"])}
+    return [rec.get(m, -1) for m in range(len(static["mats"]["kind"]))]
+
+
+def texture_records(static):
+    """(int, float) texture records, one a textured row, that follow the
+    light records in the tables (csrc/megakernel.cuh `Scene` TXI, TXF):
+    kind, texture, image, width, height, separable route; the row's uv
+    anchor and dual basis, disk flag, uv scale."""
     ti = np.zeros(TX_I * len(static["textures"]), np.int32)
     tf = np.zeros(TX_F * len(static["textures"]), np.float32)
     for k, r in enumerate(static["textures"]):
-        s = planar[r["row"]]
+        s = static["planar"][r["row"]]
         ti[TX_I * k:TX_I * (k + 1)] = [
             int(r["kind"] == "image"), r["tex"], r.get("img", 0),
             r.get("tw", 0), r.get("th", 0), int(r.get("sep", False))]
         tf[TX_F * k:TX_F * (k + 1)] = [
             *s["uv_anchor"], *s["uv_f1"], *s["uv_f2"],
             float(bool(s.get("uv_disk"))), *r["scale"]]
-    dev = scene.device
-    return SceneTables(static=static,
-                       f=torch.from_numpy(np.concatenate([ft, tf])).to(dev),
-                       i=torch.from_numpy(np.concatenate([it, ti])).to(dev),
-                       **_color_tables(scene), **_texture_tables(scene))
+    return ti, tf
 
 
 def picks_one_light(cfg: KernelConfig, n_lights: int) -> bool:
@@ -691,7 +738,11 @@ def residual_layout(static, cfg: KernelConfig):
     "ty": the continuous texel coordinates of the hit on its image row (0
     elsewhere), from which K3 rebuilds the bilinear taps. The kernels
     compute the same offsets from the table header
-    (csrc/wavefront_tables.cuh `ResPlanes`)."""
+    (csrc/wavefront_tables.cuh `ResPlanes`). The int cache holds one plane
+    a bounce: row + 1 in bits 0-7 and 16-30 (`pack_row`; kytpu keeps it in
+    bits 0-7 alone, which a scene of 255 or more surfaces overflows into
+    the lobe bits), lobe_is_phong in bit 8, to_spec in bit 9, the checker
+    parity in bit 10 and the nee="single" pick in bits 11-15."""
     check_config(cfg)
     lights = static["lights"]
     has_env = any(lt["kind"] == klights.ENV for lt in lights)
@@ -1772,6 +1823,24 @@ def _where0(c, v: torch.Tensor) -> torch.Tensor:
     return torch.where(c, v, torch.zeros_like(v))
 
 
+def _eligible(ok_tab, sid):
+    """(N,) mask: the lane hit a row that ok_tab allows (False on a miss)."""
+    return (sid >= 0) & ok_tab[sid.clamp_min(0).long()]
+
+
+def _tagged_planes(dif, spc, de, dexp, sid) -> list:
+    """One bounce's row-tagged adjoint planes in K7's order, dd, ds, de[,
+    dexp], from (ok_tab, value) pairs: a share is 0 where the hit row may
+    not take it, the rows that `_row_add` leaves untouched."""
+    out = []
+    for ok_tab, v in (dif, spc):
+        out.extend(_where0(_eligible(ok_tab, sid), v).unbind(1))
+    out.extend(de.unbind(1))
+    if dexp is not None:
+        out.append(_where0(_eligible(dexp[0], sid), dexp[1]))
+    return out
+
+
 def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
                       o: torch.Tensor, d: torch.Tensor, seed: int,
                       si: torch.Tensor | None = None,
@@ -1787,11 +1856,9 @@ def trace_lanes_plain(tables: SceneTables, cfg: KernelConfig,
 
     residual=True (K2) also returns the coefficient cache, (L, resf, resi):
     resf (res_n, N) float32 in `residual_layout`'s plane order and resi
-    (max_depth+1, N) int32, sid+1 in bits 0-7, lobe_is_phong in bit 8,
-    to_spec_t in bit 9 and, under nee="single", the picked light in bits
-    11-15. A bounce a lane does not reach (it died before) has every float
-    plane 0 and resi 0; the JAX package writes the same zeros but the sid of
-    its frozen ray."""
+    (max_depth+1, N) int32 as `residual_layout` packs it. A bounce a lane
+    does not reach (it died before) has every float plane 0 and resi 0; the
+    JAX package writes the same zeros but the sid of its frozen ray."""
     return _trace_plain(tables, cfg, o, d, seed, si, pix,
                         "residual" if residual else "forward")
 
@@ -1809,7 +1876,9 @@ def bwd_replay_plain(tables: SceneTables, cfg: KernelConfig,
     (0 where the path ends), scatters the bounce's colour adjoints to its
     row once, and sums the lanes in K3's fixed order (`sum_lanes`), so the
     two backwards are the same sum over lanes of different per-lane
-    algebra."""
+    algebra. Past DENSE_MAX_ROWS surfaces (`row_tagged`) each bounce's
+    adjoints are row-tagged entries instead, summed by row as K7's are
+    (`tagged_grads`)."""
     return _trace_plain(tables, cfg, o, d, seed, si, pix, "replay", g, big_l)
 
 
@@ -1889,9 +1958,16 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
         r_tail = V3(*(big_l_in[:, c].to(dev, torch.float32)
                       for c in range(3)))
         light_row = _light_rows(static)
-        acc_d, acc_s, acc_e = (g.new_zeros((n, M, 3)) for _ in range(3))
+        tagged = row_tagged(static)
+        if tagged:
+            # per bounce the hit row's adjoint planes and its tag; the NEE
+            # emission adjoints per light, over lanes
+            acc_le = g.new_zeros((n, L, 3))
+            dplanes, tags = [], []
+        else:
+            acc_d, acc_s, acc_e = (g.new_zeros((n, M, 3)) for _ in range(3))
+            acc_x = g.new_zeros((n, M))
         acc_env = g.new_zeros((n, 3))
-        acc_x = g.new_zeros((n, M))
         T = _n_tex(static)
         acc_ta, acc_tb = g.new_zeros((n, T, 3)), g.new_zeros((n, T, 3))
         entries = [] if has_img else None
@@ -1933,8 +2009,12 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             planes[res_ix[("wb", bounce)]] = _where(emit_mask, wb, 0.0)
         if replay:
             gb = g * _st(beta)
-            _row_add(acc_e, rows_e, sid, gb * _where(emit_mask, wb,
-                                                     0.0)[:, None])
+            de_b = gb * _where(emit_mask, wb, 0.0)[:, None]
+            if tagged:
+                de_b = _where0(_eligible(rows_e, sid), de_b)
+                tags.append(_where(alive & valid, sid + 1, 0))
+            else:
+                _row_add(acc_e, rows_e, sid, de_b)
 
         if env_i is not None:
             ones = torch.ones_like(o.x)
@@ -1956,7 +2036,9 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
 
         if bounce == cfg.max_depth:
             if residual:
-                ints[bounce] = _where(alive, sid + 1, 0)
+                ints[bounce] = _where(alive, pack_row(sid + 1), 0)
+            if replay and tagged:
+                dplanes.extend(de_b.unbind(1))
             break
         cont = alive & valid
 
@@ -2079,7 +2161,9 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                 add = gb * col_nee * bp[:, None]
                 for i in range(L):
                     val = _where0(sel[i], add)
-                    if i in light_row:
+                    if tagged:
+                        acc_le[:, i] += val
+                    elif i in light_row:
                         acc_e[:, light_row[i]] += val
                     elif lights[i]["kind"] == klights.ENV:
                         acc_env = acc_env + val
@@ -2127,7 +2211,9 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                             lobe_is_phong, bp * kap, 0.0)
                 if replay:
                     add = gb * col_nee * bp[:, None]
-                    if i in light_row:
+                    if tagged:
+                        acc_le[:, i] += add
+                    elif i in light_row:
                         acc_e[:, light_row[i]] += add
                     elif lt["kind"] == klights.ENV:
                         acc_env = acc_env + add
@@ -2167,7 +2253,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             if texp:
                 planes[res_ix[("tuk", bounce)]] = _where(
                     lobe_is_phong, tu_plane * kap_s, 0.0)
-            packed = (sid + 1) + lobe_is_phong.to(torch.int32) * 256 \
+            packed = pack_row(sid + 1) + lobe_is_phong.to(torch.int32) * 256 \
                 + to_spec_t.to(torch.int32) * 512
             if picks_one_light(cfg, L):
                 packed = packed + pick.to(torch.int32) * 2048
@@ -2197,10 +2283,15 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             if textured:
                 addc_diff = _route_textures(tex_hits, addc_diff, acc_ta,
                                             acc_tb, entries)
-            _row_add(acc_d, rows_d, sid, addc_diff)
-            _row_add(acc_s, rows_s, sid, addc_spec)
-            if texp:
-                _row_add(acc_x, rows_x, sid, addx)
+            if tagged:
+                dplanes.extend(_tagged_planes(
+                    (rows_d, addc_diff), (rows_s, addc_spec), de_b,
+                    (rows_x, addx) if texp else None, sid))
+            else:
+                _row_add(acc_d, rows_d, sid, addc_diff)
+                _row_add(acc_s, rows_s, sid, addc_spec)
+                if texp:
+                    _row_add(acc_x, rows_x, sid, addx)
             r_tail = V3(r_next[:, 0], r_next[:, 1], r_next[:, 2])
         o = _offset_origin(hp, nrm, wi_w).where(alive_n, o)
         d = wi_w.where(alive_n, d)
@@ -2211,11 +2302,19 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
         alive = alive_n
 
     if replay:
-        acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1),
-               acc_e.reshape(n, -1), acc_env] + ([acc_x] if texp else []) \
-            + ([acc_ta.reshape(n, -1), acc_tb.reshape(n, -1)] if textured
-               else [])
-        grads = split_grads(sum_lanes(torch.cat(acc, dim=1)), M, texp, T)
+        tex_acc = ([acc_ta.reshape(n, -1), acc_tb.reshape(n, -1)]
+                   if textured else [])
+        if tagged:
+            grads = tagged_grads(
+                static, cfg, row_sums_plain(torch.stack(dplanes),
+                                            torch.stack(tags), M, cfg),
+                sum_lanes(torch.cat([acc_env, acc_le.reshape(n, -1)]
+                                    + tex_acc, dim=1)))
+        else:
+            acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1),
+                   acc_e.reshape(n, -1), acc_env] + (
+                [acc_x] if texp else []) + tex_acc
+            grads = split_grads(sum_lanes(torch.cat(acc, dim=1)), M, texp, T)
         if not has_img:
             return grads
         return grads + (texel_sums_plain(static, entries, n),)
@@ -2341,6 +2440,49 @@ def segment_sums_plain(dout, perm, starts, n: int, B: int, PB: int):
     return acc[:, 0]
 
 
+def per_bounce(cfg: KernelConfig) -> int:
+    """Row-tagged adjoint planes a bounce below the horizon: dd, ds, de [,
+    dexp]."""
+    return 10 if cfg.trainable_exponent else 9
+
+
+def row_sums_plain(dout, tags, m_rows: int, cfg: KernelConfig):
+    """Row-tagged planes dout (PB*max_depth + 3, N) summed by the row tags
+    (max_depth + 1, N) (row + 1, 0 for none) in the segment-sum kernel's
+    order -> (M, PB)."""
+    perm, starts = sort_tags(tags, m_rows)
+    return segment_sums_plain(dout, perm, starts, dout.shape[1],
+                              cfg.max_depth, per_bounce(cfg))
+
+
+def tagged_grads(static, cfg: KernelConfig, seg, lane_sums,
+                 light_rows: dict | None = None) -> tuple:
+    """(M, PB) row sums and the lane sums env (3) | per-light emission (3L)
+    [| dta | dtb (3T each)] -> (dd, ds, de, denv[, dexp][, dta, dtb]), the
+    tables of `split_grads`: each light's NEE emission adjoint goes to its
+    emitting row (`light_rows`, default `_light_rows`), or to env for the
+    environment light; point and directional lights get none. K3 and K4
+    past DENSE_MAX_ROWS surfaces, K7 and K8."""
+    L = len(static["lights"])
+    rows = _light_rows(static) if light_rows is None else light_rows
+    dd, ds, de = seg[:, 0:3], seg[:, 3:6], seg[:, 6:9].clone()
+    denv = lane_sums[0:3]
+    for i, lt in enumerate(static["lights"]):
+        dle = lane_sums[3 + 3 * i:6 + 3 * i]
+        if i in rows:
+            de[rows[i]] = de[rows[i]] + dle
+        elif lt["kind"] == klights.ENV:
+            denv = denv + dle
+    out = (dd, ds, de, denv) + ((seg[:, 9],) if cfg.trainable_exponent
+                                else ())
+    T = _n_tex(static)
+    if T:
+        k = 3 + 3 * L
+        out += (lane_sums[k:k + 3 * T].reshape(T, 3),
+                lane_sums[k + 3 * T:k + 6 * T].reshape(T, 3))
+    return out
+
+
 def _texel_shape(static) -> tuple:
     rec = next(r for r in static["textures"] if r["kind"] == "image")
     return (static["n_texels"] // (rec["th"] * rec["tw"]), rec["th"],
@@ -2385,7 +2527,10 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
     diffuse is its texture's value, rebuilt from the checker parity (resi
     bit 10) or the "tx"/"ty" planes, and its diffuse adjoint goes to the
     texture ([dta, dtb] after dexp; the atlas gradient dti last, summed by
-    texel as `texel_sums_plain` does)."""
+    texel as `texel_sums_plain` does). Past DENSE_MAX_ROWS surfaces
+    (`row_tagged`) each bounce's adjoints of its hit row are row-tagged
+    entries, summed by row in a fixed order (`row_sums_plain`,
+    `tagged_grads`), as K7's are."""
     check_config(cfg)
     static = tables.static
     mats, lights = static["mats"], static["lights"]
@@ -2407,11 +2552,16 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
     ok_s = kind_tab != kbsdf.MAT_MATTE
     ok_e = li_tab >= 0
     ok_x = kind_tab == kbsdf.MAT_PLASTIC
-    acc_d = g.new_zeros((n, M, 3))
-    acc_s = g.new_zeros((n, M, 3))
-    acc_e = g.new_zeros((n, M, 3))
+    tagged = row_tagged(static)
+    if tagged:
+        acc_le = g.new_zeros((n, L, 3))
+        dplanes, tags = [], []
+    else:
+        acc_d = g.new_zeros((n, M, 3))
+        acc_s = g.new_zeros((n, M, 3))
+        acc_e = g.new_zeros((n, M, 3))
+        acc_x = g.new_zeros((n, M))
     acc_env = g.new_zeros((n, 3))
-    acc_x = g.new_zeros((n, M))
     textured, has_img = bool(static["textures"]), _has_img(static)
     T = _n_tex(static)
     acc_ta, acc_tb = g.new_zeros((n, T, 3)), g.new_zeros((n, T, 3))
@@ -2428,14 +2578,20 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
     r_tail = big_l
     for b in range(cfg.max_depth + 1):
         ib = resi[b].to(torch.int32)
-        sid = (ib & 255) - 1
+        sid = unpack_row(ib) - 1
         wb = resf[res_ix[("wb", b)]][:, None]
         gb = g * beta
-        _row_add(acc_e, ok_e, sid, gb * wb)
+        if tagged:
+            de_b = _where0(_eligible(ok_e, sid), gb * wb)
+            tags.append(sid + 1)
+        else:
+            _row_add(acc_e, ok_e, sid, gb * wb)
         if has_env:
             wenv = resf[res_ix[("wenv", b)]][:, None]
             acc_env = acc_env + gb * wenv
         if b == cfg.max_depth:
+            if tagged:
+                dplanes.extend(de_b.unbind(1))
             break
         phong = ((ib & 256) != 0)[:, None]
         to_spec = ((ib & 512) != 0)[:, None]
@@ -2472,7 +2628,9 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
             for i in range(L) if single else [pick]:
                 val = torch.where((pick == i)[:, None], add, 0.0) if single \
                     else add
-                if i in light_row:
+                if tagged:
+                    acc_le[:, i] += val
+                elif i in light_row:
                     acc_e[:, light_row[i]] += val
                 elif lights[i]["kind"] == klights.ENV:
                     acc_env = acc_env + val
@@ -2491,20 +2649,36 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         if textured:
             addc_diff = _route_textures(tex_hits, addc_diff, acc_ta, acc_tb,
                                         entries)
-        _row_add(acc_d, ok_d, sid, addc_diff)
-        _row_add(acc_s, ok_s, sid, torch.where(phong, addc, 0.0)
-                 + torch.where(to_spec, addt, 0.0))
+        addc_spec = torch.where(phong, addc, 0.0) \
+            + torch.where(to_spec, addt, 0.0)
         if texp:
             # "tuk" is 0 off phong lanes, whose extension read specular
             addx = addx + _dot3(gb * r_next, spec_sel) \
                 * resf[res_ix[("tuk", b)]]
-            _row_add(acc_x, ok_x, sid, addx)
+        if tagged:
+            dplanes.extend(_tagged_planes(
+                (ok_d, addc_diff), (ok_s, addc_spec), de_b,
+                (ok_x, addx) if texp else None, sid))
+        else:
+            _row_add(acc_d, ok_d, sid, addc_diff)
+            _row_add(acc_s, ok_s, sid, addc_spec)
+            if texp:
+                _row_add(acc_x, ok_x, sid, addx)
         beta = beta * t_eff
         r_tail = r_next
-    acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1), acc_e.reshape(n, -1),
-           acc_env] + ([acc_x] if texp else []) + (
-        [acc_ta.reshape(n, -1), acc_tb.reshape(n, -1)] if textured else [])
-    grads = split_grads(sum_lanes(torch.cat(acc, dim=1)), M, texp, T)
+    tex_acc = ([acc_ta.reshape(n, -1), acc_tb.reshape(n, -1)] if textured
+               else [])
+    if tagged:
+        grads = tagged_grads(
+            static, cfg, row_sums_plain(torch.stack(dplanes),
+                                        torch.stack(tags), M, cfg),
+            sum_lanes(torch.cat([acc_env, acc_le.reshape(n, -1)] + tex_acc,
+                                dim=1)))
+    else:
+        acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1),
+               acc_e.reshape(n, -1), acc_env] + ([acc_x] if texp else []) \
+            + tex_acc
+        grads = split_grads(sum_lanes(torch.cat(acc, dim=1)), M, texp, T)
     if not has_img:
         return grads
     return grads + (texel_sums_plain(static, entries, n),)
@@ -2556,10 +2730,26 @@ def _check_lane_tensor(name, t, shape, dtype, dev):
 
 
 def _n_cols(tables: SceneTables, cfg: KernelConfig) -> int:
-    """Length of K3's and K4's gradient vector (`split_grads`)."""
-    m_rows = len(tables.static["mats"]["kind"])
+    """Length of K3's and K4's lane-summed vector: the dense gradient
+    vector (`split_grads`), or past DENSE_MAX_ROWS surfaces env | the
+    lights' emission | dta | dtb (`tagged_grads`)."""
+    static = tables.static
+    if row_tagged(static):
+        return 3 + 3 * len(static["lights"]) + 6 * _n_tex(static)
+    m_rows = len(static["mats"]["kind"])
     return ((10 if cfg.trainable_exponent else 9) * m_rows + 3
-            + 6 * _n_tex(tables.static))
+            + 6 * _n_tex(static))
+
+
+def _row_outputs(tables: SceneTables, cfg: KernelConfig, n: int, dev):
+    """K3's and K4's row-tagged planes (PB max_depth + 3, n) and row tags
+    (max_depth + 1, n) past DENSE_MAX_ROWS surfaces, else (None, None)."""
+    if not row_tagged(tables.static):
+        return None, None
+    B = cfg.max_depth
+    return (torch.empty((per_bounce(cfg) * B + 3, n), dtype=torch.float32,
+                        device=dev),
+            torch.empty((B + 1, n), dtype=torch.int32, device=dev))
 
 
 def _texel_outputs(tables: SceneTables, cfg: KernelConfig, n: int, dev):
@@ -2572,23 +2762,37 @@ def _texel_outputs(tables: SceneTables, cfg: KernelConfig, n: int, dev):
             torch.empty((J, n), dtype=torch.int32, device=dev))
 
 
-def _grads_of(lib, tables: SceneTables, cfg: KernelConfig, vec, tex_dout,
-              tex_tags, n: int):
+def segment_sums(lib, dout, tags, m_tags: int, n_planes: int, n_cols: int):
+    """Tagged entries summed by tag on the card: the stable integer sort of
+    the (n_planes, n) tags (torch.sort moves no floats), then the
+    segment-sum kernel of csrc/bigscene_bwd_res.cu -> (m_tags, n_cols), in
+    `segment_sums_plain`'s order."""
+    perm, starts = sort_tags(tags, m_tags)
+    seg = torch.empty((m_tags, n_cols), dtype=torch.float32,
+                      device=dout.device)
+    _run(lib.kytpu_bigscene_segment_sums, "segment_sums", dout.device,
+         dout.data_ptr(), perm.data_ptr(), starts.data_ptr(),
+         seg.data_ptr(), dout.shape[1], m_tags, n_planes, n_cols)
+    return seg
+
+
+def _grads_of(lib, tables: SceneTables, cfg: KernelConfig, vec, tex, rows):
     """K3's or K4's outputs on the card -> (dd, ds, de, denv[, dexp][, dta,
-    dtb][, dti]): the gradient vector split, and the texel entries sorted
-    by tag (a stable integer sort) and summed by texel in a fixed order by
-    the segment-sum kernel (`texel_sums_plain` is the plain version)."""
+    dtb][, dti]): the lane-summed vector split (`split_grads`), or past
+    DENSE_MAX_ROWS surfaces the row-tagged planes summed by row with it
+    (`tagged_grads`); the texel entries summed by texel. tex, rows: (the
+    planes, their tags), or (None, None)."""
     static = tables.static
-    grads = split_grads(vec, len(static["mats"]["kind"]),
-                        cfg.trainable_exponent, _n_tex(static))
-    if tex_tags is None:
+    if rows[1] is None:
+        grads = split_grads(vec, len(static["mats"]["kind"]),
+                            cfg.trainable_exponent, _n_tex(static))
+    else:
+        grads = tagged_grads(static, cfg, segment_sums(
+            lib, *rows, len(static["mats"]["kind"]), cfg.max_depth,
+            per_bounce(cfg)), vec)
+    if tex[1] is None:
         return grads
-    n_texels = static["n_texels"]
-    perm, starts = sort_tags(tex_tags, n_texels)
-    seg = torch.empty((n_texels, 3), dtype=torch.float32, device=vec.device)
-    _run(lib.kytpu_bigscene_segment_sums, "segment_sums", vec.device,
-         tex_dout.data_ptr(), perm.data_ptr(), starts.data_ptr(),
-         seg.data_ptr(), n, n_texels, tex_tags.shape[0], 3)
+    seg = segment_sums(lib, *tex, static["n_texels"], tex[1].shape[0], 3)
     return grads + (seg.reshape(_texel_shape(static)),)
 
 
@@ -2700,7 +2904,8 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
     nb = max(1, -(-n // BWD_THREADS))
     partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
     out = torch.empty((k,), dtype=torch.float32, device=dev)
-    tex_dout, tex_tags = _texel_outputs(tables, cfg, n, dev)
+    tex = _texel_outputs(tables, cfg, n, dev)
+    rows = _row_outputs(tables, cfg, n, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = build.load()
     _run(lib.kytpu_wavefront_bwd_res, "wavefront_bwd_res", dev,
@@ -2710,10 +2915,10 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
          tables.texa.data_ptr(), tables.texb.data_ptr(),
          tables.timg.data_ptr(), g.data_ptr(), big_l.data_ptr(),
          resf.data_ptr(), resi.data_ptr(), partial.data_ptr(),
-         out.data_ptr(), ptr(tex_dout), ptr(tex_tags), n, m_rows, k,
+         out.data_ptr(), *map(ptr, tex), *map(ptr, rows), n, m_rows, k,
          cfg.max_depth, int(bool(tables.static["textures"])))
     launches_res_bwd += 1
-    return _grads_of(lib, tables, cfg, out, tex_dout, tex_tags, n)
+    return _grads_of(lib, tables, cfg, out, tex, rows)
 
 
 def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
@@ -2732,15 +2937,16 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
     nb = max(1, -(-n // BWD_THREADS))
     partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
     out = torch.empty((k,), dtype=torch.float32, device=dev)
-    tex_dout, tex_tags = _texel_outputs(tables, cfg, n, dev)
+    tex = _texel_outputs(tables, cfg, n, dev)
+    rows = _row_outputs(tables, cfg, n, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = build.load()
     _run(lib.kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", dev,
          *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(), big_l.data_ptr(),
-         partial.data_ptr(), out.data_ptr(), ptr(tex_dout), ptr(tex_tags), n,
-         k, *_cfg_args(cfg, seed), int(bool(tables.static["textures"])))
+         partial.data_ptr(), out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
+         n, k, *_cfg_args(cfg, seed), int(bool(tables.static["textures"])))
     launches_replay += 1
-    return _grads_of(lib, tables, cfg, out, tex_dout, tex_tags, n)
+    return _grads_of(lib, tables, cfg, out, tex, rows)
 
 
 def make_cuda_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None):

@@ -6,10 +6,12 @@ plain versions' routing and algebra on the CPU (kernels/bigscene.py).
 - extract_tables (Morton order, block bounds, global rows, table_of_row)
   and the cache layout: equal to kytpu's on random spheres, an icosphere
   mesh and the Cornell box;
-- routing: render() and make_train_step() past 64 surfaces take the
-  big-scene tracers, engine="bigscene" works at any size, and what the
-  tables cannot take raises (textures, non-parallelogram rects, more than
-  32 lights, textures: ROADMAP item M9b);
+- routing, kytpu's rule: render() and make_train_step() past 64 surfaces
+  take the big-scene tracers where the tables take the scene (textured
+  ones included) and K1-K4 where they do not (a rect that is not a
+  parallelogram, an atlas past their select chain), each scene routed as
+  kytpu's `extract_tables` decides; engine="bigscene" works at any size
+  and raises for what the tables do not take; more than 32 lights raise;
 - the plain K5 against the plain K1 on scenes both take (kytpu's own
   bound: different sweep arithmetic, so within 1e-3, test_bigscene.py:129);
 - the plain K7 against central finite differences of the plain K5 (step
@@ -19,7 +21,6 @@ plain versions' routing and algebra on the CPU (kernels/bigscene.py).
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,13 +28,15 @@ import torch
 from kytpu.kernels import bigscene as jbs
 from kytpu.scene import builders as jb
 from kytpu.scene import mesh as jm
+from kytpu_torch.core import rng as trng
 from kytpu_torch.diff import inverse as tinv
 from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene import mesh as tm
-from kytpu_torch.scene.scene import generate_rays, scene_from_numpy
+from kytpu_torch.scene.scene import generate_rays
+from tests.test_torch_bigscene_texture_train import checker_scene
 from tests.test_torch_cuda import many_lights
 
 SCENE_FIELDS = ("mat_kind", "mat_diffuse", "mat_specular", "mat_exponent",
@@ -164,41 +167,74 @@ def test_train_step_routes_past_64_surfaces(monkeypatch):
 
 
 def test_scenes_the_tables_do_not_take_raise():
-    # a textured scene past 64 surfaces (kytpu's, ported): the texture
-    # columns of the big-scene kernels are M9b
-    a = jb._SceneAssembler()
-    tex = a.add_checker(jnp.full(3, 0.2), jnp.full(3, 0.8))
-    a.surface(a.geo.add_rectangle((-9, 0, -9), (-9, 0, 9), (9, 0, 9),
-                                  (9, 0, -9)),
-              a.matte(jnp.full(3, 0.5), texture=tex))
-    for k in range(70):
-        a.surface(a.geo.add_sphere((k % 10 - 5.0, 0.3, k // 10 - 3.0), 0.2),
-                  a.matte(jnp.full(3, 0.5)))
-    a.add_light(kind=jb.klights.ENV, emit=jnp.ones(3))
-    cam = jb.kscene.make_camera((0, 3, 9), (0, -0.3, -1), (0, 1, 0), 50.0,
-                                8, 8)
-    tex_sc = scene_from_numpy(jax.device_get(a.build(cam)))
-    with pytest.raises(NotImplementedError, match="M9b"):
-        render(tex_sc, spp=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="M9b"):
-        tinv.make_train_step(tex_sc, np.zeros((8, 8, 3), np.float32),
-                             device="cpu", names=("tex_color_a",))
-    # a rect that is not a parallelogram, past 64 surfaces
-    b = tb._SceneAssembler()
-    b.surface(b.geo.add_rectangle((-9, 0, -9), (-9, 0, 9), (9, 0, 9),
-                                  (5, 0, -9)), b.matte(tb._full(0.5)))
-    for k in range(70):
-        b.surface(b.geo.add_sphere((k % 10 - 5.0, 0.3, k // 10 - 3.0), 0.2),
-                  b.matte(tb._full(0.5)))
-    b.add_light(kind=tb.klights.ENV, emit=tb._full(1.0))
-    sc = b.build(tb.kscene.make_camera((0, 3, 9), (0, -0.3, -1), (0, 1, 0),
-                                       50.0, 8, 8))
-    for engine in ("cuda", "bigscene"):
-        with pytest.raises(NotImplementedError, match="parallelogram"):
-            render(sc, spp=1, engine=engine, device="cpu")
+    """Scenes past 64 surfaces that the port refused before the table
+    kernels took textures and K1-K4 took any surface count: they render
+    and train now, on the route kytpu takes. What still raises: a rect that
+    is not a parallelogram under engine="bigscene", and more lights than
+    the kernels take."""
+    # a textured scene past 64 surfaces (kytpu's): the textured table kernels
+    tex_sc = checker_scene(tb)
+    img = render(tex_sc, spp=1, seed=5, device="cpu")
+    ref = kbs.render_bigscene(tex_sc, spp=1, seed=5, rays_per_pass=1 << 20)
+    np.testing.assert_array_equal(img.numpy(), ref.numpy())
+    step, params, _ = tinv.make_train_step(
+        tex_sc, np.zeros((8, 8, 3), np.float32), spp=1, max_depth=1,
+        device="cpu", names=("tex_color_a",))
+    assert set(params) == {"tex_color_a"}
+    assert np.isfinite(float(step(trng.key(0))))
+    # a rect that is not a parallelogram, past 64 surfaces: K1
+    sc = checker_scene(tb, ground="plain", parallelogram=False)
+    img = render(sc, spp=1, seed=5, device="cpu")
+    ref = kwf.render_cuda(sc, spp=1, seed=5, rays_per_pass=1 << 20)
+    np.testing.assert_array_equal(img.numpy(), ref.numpy())
+    assert float(img.mean()) > 0
+    with pytest.raises(NotImplementedError, match="parallelogram"):
+        render(sc, spp=1, engine="bigscene", device="cpu")
     # more lights than the kernels take: 71 surfaces, 70 lights
     with pytest.raises(NotImplementedError, match="M12"):
         render(many_lights(tb, 70), spp=1, device="cpu")
+
+
+ROUTES = {   # scene -> (kytpu's kernel family, and so the port's)
+    "cornell_textured": lambda b: b.cornell_box(width=8, height=8,
+                                                floor_checker=True),
+    "spheres": lambda b: b.random_spheres(n=80, width=8, height=8),
+    "checker_past_64": lambda b: checker_scene(b),
+    "atlas16_past_64": lambda b: checker_scene(b, image=_IMG16),
+    "rect_past_64": lambda b: checker_scene(b, ground="plain",
+                                            parallelogram=False),
+}
+_IMG16 = np.random.default_rng(5).uniform(0.1, 0.9, (16, 16, 3)).astype(
+    np.float32)
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_routing_matches_kytpu(name, monkeypatch):
+    """render() and make_train_step() pick the kernel family kytpu's rule
+    picks: the table kernels past 64 surfaces where kytpu's
+    `extract_tables` takes the scene, else the baked ones (K1-K4)."""
+    jsc, tsc = ROUTES[name](jb), ROUTES[name](tb)
+    try:
+        jbs.extract_tables(jsc)
+        tables = int(jsc.mat_kind.shape[0]) > 64
+    except NotImplementedError:
+        tables = False
+    seen = []
+    for mod, nm in ((kbs, "make_bigscene_diff_tracer"),
+                    (kwf, "make_cuda_diff_tracer"),
+                    (kbs, "render_bigscene"), (kwf, "render_cuda")):
+        real = getattr(mod, nm)
+        monkeypatch.setattr(mod, nm, lambda *a, real=real, nm=nm, **k: (
+            seen.append(nm), real(*a, **k))[1])
+    render(tsc, spp=1, cfg=kwf.KernelConfig(max_depth=1), device="cpu")
+    names = (("tex_color_a", "tex_color_b") if tsc.has_textures
+             else ("mat_diffuse",))
+    tinv.make_train_step(tsc, np.zeros((8, 8, 3), np.float32), max_depth=1,
+                         device="cpu", names=names)
+    # render_bigscene runs its passes through render_cuda with K5's tracer
+    assert seen == (["render_bigscene", "render_cuda",
+                     "make_bigscene_diff_tracer"] if tables
+                    else ["render_cuda", "make_cuda_diff_tracer"])
 
 
 def _lanes(sc, n, seed=0):

@@ -1,4 +1,5 @@
-"""The CUDA megakernels (K1-K4 and the big-scene K5-K7; every sampler, both
+"""The CUDA megakernels (K1-K4, with the row-tagged backwards past 64
+surfaces, and the big-scene K5-K8, with textures; every sampler, both
 exponent modes) against their plain PyTorch versions, on the card. Needs a
 CUDA device and nvcc; skipped elsewhere. Run on the card with
 
@@ -447,3 +448,89 @@ def test_textured_kernels_on_card(cuda, route, sampler, texp):
         b = b.cpu().numpy()
         np.testing.assert_allclose(a.cpu().numpy(), b, rtol=2e-3,
                                    atol=2e-5 * max(1.0, np.abs(b).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler, texp", [("random", False), ("hash", True)])
+def test_textured_bigscene_kernels_on_card(cuda, sampler, texp):
+    """K5-K8 with their texture branches (a checker floor and an 8x8 atlas,
+    through the big-scene tables) against their plain versions: equal to
+    the last bit, K6's radiance K5's, K7 and K8 repeating bit for bit, K8
+    within the reference's 2e-3 bound of K7, the texture adjoints live."""
+    from kytpu_torch.kernels import bigscene as kbs
+
+    img = np.random.default_rng(2).uniform(0.1, 0.9, (8, 8, 3)).astype(
+        np.float32)
+    sc = builders.cornell_box(width=64, height=64, floor_checker=True,
+                              back_image=img).to(cuda)
+    o, d, si, pix = _card_lanes(sc, cuda, n=4096)
+    cfg = kwf.KernelConfig(max_depth=3, sampler=sampler,
+                           trainable_exponent=texp)
+    tables = kbs.pack_big_tables(sc, cfg)
+    k5 = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix)
+    k6, resf, resi = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix,
+                                     residual=True)
+    g = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    k7 = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
+    k8 = kbs.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k5)
+    torch.cuda.synchronize()
+    assert torch.equal(k5, k6)
+    ref_l, ref_f, ref_i = kbs.trace_lanes_plain(tables, cfg, o, d, 3, si,
+                                                pix, residual=True)
+    assert torch.equal(k5, ref_l) and torch.equal(resf, ref_f) and \
+        torch.equal(resi, ref_i)
+    refs = (kbs.bwd_res_plain(tables, cfg, g, ref_l, ref_f, ref_i),
+            kbs.sums_plain(tables, cfg, *kbs.bwd_replay_plain(
+                tables, cfg, o, d, 3, si, pix, g, k5)))
+    again = (kbs.bwd_res(tables, cfg, g, k6, resf, resi),
+             kbs.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k5))
+    assert len(k7) == 4 + texp + 3
+    for got, ref, rep in zip((k7, k8), refs, again):
+        for a, b, c in zip(got, ref, rep):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b in zip(k8, k7):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=2e-3,
+                                   atol=2e-5 * max(1.0, np.abs(b).max()))
+    assert all(float(t.abs().max()) > 0 for t in k7[-3:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cornell_forced", "spheres300"])
+def test_row_tagged_backwards_on_card(cuda, scene, monkeypatch):
+    """K3 and K4 on their row-tagged route (past 64 surfaces, or forced on
+    the Cornell box) against their plain versions: equal to the last bit,
+    repeating bit for bit, K4 within the reference's 2e-3 bound of K3; past
+    255 surfaces the rows above 255 are live."""
+    if scene == "cornell_forced":
+        monkeypatch.setattr(kwf, "DENSE_MAX_ROWS", 0)
+        sc = builders.cornell_box(width=64, height=64).to(cuda)
+    else:
+        sc = builders.random_spheres(n=300, width=64, height=64).to(cuda)
+    o, d, si, pix = _card_lanes(sc, cuda, n=4096)
+    cfg = kwf.KernelConfig(max_depth=3, sampler="hash",
+                           trainable_exponent=True)
+    tables = kwf.pack_tables(sc, cfg)
+    assert kwf.row_tagged(tables.static)
+    k1 = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix)
+    k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix,
+                                     residual=True)
+    g = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    k3 = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
+    k4 = kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k1)
+    refs = (kwf.bwd_res_plain(tables, cfg, g, k2, resf, resi),
+            kwf.bwd_replay_plain(tables, cfg, o, d, 3, si, pix, g, k1))
+    again = (kwf.bwd_res(tables, cfg, g, k2, resf, resi),
+             kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k1))
+    for got, ref, rep in zip((k3, k4), refs, again):
+        for a, b, c in zip(got, ref, rep):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b in zip(k4, k3):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=2e-3,
+                                   atol=2e-5 * max(1.0, np.abs(b).max()))
+    if scene == "spheres300":
+        assert int((kwf.unpack_row(resi) - 1).max()) > 255
+        assert bool((k3[0][256:].abs().sum(-1) > 0).any())

@@ -20,9 +20,9 @@ four-tap gather and keeps each route's addition order
   test_torch_wavefront.py: at most 0.5% of lanes outside rtol=1e-3 /
   atol=1e-4 and the means within 3 standard errors
   (test_torch_texture_select.py: the 8x8 atlas);
-- refusals, as kytpu's: a texture bound to a sphere, an atlas past 65,536
-  texels, and a textured scene past 64 surfaces (the big-scene kernels'
-  texture columns: ROADMAP item M9b).
+- refusals, as kytpu's: a texture bound to a sphere and an atlas past
+  65,536 texels; a textured scene past 64 surfaces, refused before the
+  big-scene kernels took textures, renders and trains through them.
 """
 
 import jax
@@ -34,6 +34,7 @@ import torch
 from kytpu.kernels import wavefront as jwf
 from kytpu.scene import builders as jb
 from kytpu.scene import texture as jtex
+from kytpu_torch.core import rng as trng
 from kytpu_torch.diff import inverse as tinv
 from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import bigscene as kbs
@@ -161,7 +162,7 @@ def test_unsupported_textures_raise():
     tsc = tb.cornell_box(width=4, height=4, back_image=big)
     with pytest.raises(NotImplementedError, match="65536"):
         render(tsc, spp=1, device="cpu")
-    # a textured scene past 64 surfaces: ROADMAP item M9b
+    # a textured scene past 64 surfaces: the textured big-scene kernels
     a = tb._SceneAssembler()
     tex = a.add_image_texture(IMG4)
     a.surface(a.geo.add_rectangle((-9, 0, -9), (-9, 0, 9), (9, 0, 9),
@@ -173,14 +174,16 @@ def test_unsupported_textures_raise():
     a.add_light(kind=tb.klights.ENV, emit=tb._full(1.0))
     sc = a.build(tb.kscene.make_camera((0, 3, 9), (0, -0.3, -1), (0, 1, 0),
                                        50.0, 4, 4))
-    for engine in ("cuda", "bigscene"):
-        with pytest.raises(NotImplementedError, match="M9b"):
-            render(sc, spp=1, engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match="M9b"):
-        kbs.make_bigscene_diff_tracer(sc, backward="replay")
-    with pytest.raises(NotImplementedError, match="M9b"):
-        tinv.make_train_step(sc, np.zeros((4, 4, 3), np.float32),
-                             device="cpu", names=("tex_image",))
+    frames = [render(sc, spp=1, engine=engine, device="cpu")
+              for engine in ("cuda", "bigscene")]
+    assert torch.equal(*frames) and float(frames[0].mean()) > 0
+    tracer = kbs.make_bigscene_diff_tracer(sc, backward="replay")
+    assert tracer.tabs.has_img and isinstance(tracer.tabs, kbs._BigDiffTables)
+    step, params, _ = tinv.make_train_step(
+        sc, np.zeros((4, 4, 3), np.float32), spp=1, max_depth=1,
+        device="cpu", names=("tex_image",))
+    assert np.isfinite(float(step(trng.key(0))))
+    assert params["tex_image"].shape == (1, 4, 4, 3)
     # a texture leaf the scene does not read
     with pytest.raises(ValueError, match="tex_image"):
         tinv.make_train_step(cornell(tb, "checker", 4, 4),
