@@ -11,14 +11,17 @@ Phases, one line each (a few for phase 3):
   3. kernels vs plain, on 256K camera rays at depth 5, for Veach MIS and two
      Cornell boxes, across the three samplers, both NEE modes, both shadow
      modes and both exponent modes (a trainable-exponent case on Veach's
-     four Phong planks): the forward megakernel K1 against its plain
-     PyTorch version
-     (tolerance: at most 0.5% of lanes outside rtol=1e-3/atol=1e-4 per
-     channel, and the means within 3 standard errors); the residual forward
-     K2's radiance against K1's (bit for bit), its radiance and its cache,
-     plane by plane, against the plain K2 (each plane: at most 0.5% of
-     lanes outside rtol=1e-3/atol=1e-4; the int planes: at most 0.5% of
-     lanes differ); the coefficient-cache backward K3 on a seeded upstream
+     four Phong planks), with the scene's tables staged in shared memory
+     and, on a Veach and a Cornell case, read from device memory
+     (kernels/wavefront.py STAGE_BUDGET 0 forces that route): the forward
+     megakernel K1 against its plain PyTorch version (bit for bit; and
+     the tolerance the other kernels are held to: at most 0.5% of lanes
+     outside rtol=1e-3/atol=1e-4 per channel, and the means within 3
+     standard errors); the residual forward K2's radiance against K1's (bit
+     for bit), its radiance and its cache against the plain K2 (bit for
+     bit, and plane by plane: each plane at most 0.5% of lanes outside
+     rtol=1e-3/atol=1e-4; the int planes: at most 0.5% of lanes differ);
+     the coefficient-cache backward K3 on a seeded upstream
      gradient against the plain K3 (each table within rtol=1e-4 plus 1e-6
      of its largest entry) and against itself (bit for bit, two launches);
      the path-replay backward K4 on the same lanes and gradient against the
@@ -36,12 +39,17 @@ Phases, one line each (a few for phase 3):
      kernel's share of it, and the device's idle share of the median wall
      time of 5 unprofiled warmed frames;
   5. timing: Veach forward at 4M lanes, depth 5, CUDA events, kernel and
-     plain, and the two outputs compared;
+     plain, and the two outputs compared (bit for bit);
   6. forward+backward: bench.py's workload (Veach 512x308, depth 5, 4M
      lanes, loss = out.sum() / N) through make_cuda_diff_tracer: its time
      and peak memory, then K2, K3 and K1 alone under CUDA events, the plain
      K2 and K3, and the kernels against them on those 4M lanes (bounds of
-     phase 3), and each kernel's bound (`bounds`); then the same workload
+     phase 3; K2 and its cache bit for bit), and each kernel's bound
+     (`bounds`; `k1_ops` counts the shadow sweeps the data surely needs);
+     K1 and K2 again with the tables read from device memory (timed, bit
+     for bit the staged route's); the SIMT share of K1 and K2 on those
+     lanes from K2's cache (`simt_share`), one lane a thread against
+     dead-lane refill; then the same workload
      through make_cuda_diff_tracer(backward="replay"), the replay path,
      whose launches are counted: its time and peak memory, K4 alone, the
      plain K4, the tracer's gradient against K4's (bit for bit), K4
@@ -107,8 +115,9 @@ Phases, one line each (a few for phase 3):
         camera rays at depth 5 of 256x256 Cornell boxes with a checker
         floor, an 8x8 back-wall atlas (kytpu's select-chain route) and a
         16x16 one (its separable route), across samplers, NEE and shadow
-        modes and both exponent modes (the bounds of phase 3; K2 against
-        K1, K3 and K4 against themselves, bit for bit; K4 against K3);
+        modes and both exponent modes (the bounds of phase 3; K1 and K2
+        against their plain versions, K2 against K1, K3 and K4 against
+        themselves, bit for bit; K4 against K3);
      b. kytpu's textured render (cli/render.py textured: Cornell 512x512,
         a checker floor and a 32x32 painted back wall) at 64 spp through
         render(), the main path, launches counted; a 4-spp frame against
@@ -143,16 +152,19 @@ Phases, one line each (a few for phase 3):
         versions;
      d. on the 16x16-atlas scene, K1-K4: a 16-spp frame through render()
         (launches counted, K5 at 0), five texel steps (K2, K3), a sixth
-        step's own K2 and K3 against their plain versions; the row-tagged
-        K3 and K4 against their plain versions and each other on 64K
-        lanes, and on the untextured twin against K7 (d_emission on the
-        emissive rows), rows above 255 live; K1-K4 timed at the 1M
+        step's own K2 and K3 against their plain versions; K1 and K2 (the
+        tables past STAGE_BUDGET, read from device memory) against their
+        plain versions bit for bit, the row-tagged K3 and K4 against their
+        plain versions and each other on 64K lanes, and on the untextured
+        twin against K7 (d_emission on the emissive rows), rows above 255
+        live; K1-K4 timed at the 1M
         pixel-centre lanes with their bounds, the plain K1, K3 and K4 once,
         and the replay path (K1 + K4) through make_cuda_diff_tracer, its
         launches counted; then the textured K5, K7 and K8 at the checker
         scene's 1M lanes, the plain K5 and K8 once, and the textured replay
         path (K5 + K8), its launches counted;
-     e. a smallpt frame through render() (K1), launches counted.
+     e. a smallpt frame through render() (K1), launches counted, and K1
+        and K2 against their plain versions bit for bit on 64K lanes.
 The line before the last is the kernels' JSON record, the one before it
 nvidia-smi's name and power limit, and the last line is
 {"ok": true, "device": {...}}. Any failed check raises: no result is printed
@@ -218,6 +230,17 @@ def compare_cache(resf, resi, ref_f, ref_i, what: str) -> float:
     return float((resf - ref_f).abs().max())
 
 
+def same_bits(got, ref, what: str) -> None:
+    """K1's radiance, or K2's (radiance, resf, resi), against the plain
+    version's on the same lanes, to the last bit."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: output {k} differs from the plain "
+                                 f"version's in {int((a != b).sum())} entries")
+
+
 def compare_grads(got, ref, what: str, rtol=GRAD_RTOL,
                   atol=GRAD_ATOL) -> float:
     """Each table (dd, ds, de, denv[, dexp][, dta, dtb][, dti]) within rtol
@@ -233,7 +256,7 @@ def compare_grads(got, ref, what: str, rtol=GRAD_RTOL,
     return err
 
 
-def k1_ops(static, cache, max_depth: int) -> float:
+def k1_ops(static, cache, cfg) -> float:
     """FP32 operations (add, sub, mul, div, sqrt, min/max, one per
     transcendental call) that K1 must do for the lanes of a run, counted
     from csrc/wavefront_fwd.cu for a scene of fast-path planar rows and
@@ -241,34 +264,91 @@ def k1_ops(static, cache, max_depth: int) -> float:
     or 33 (sphere), 32 per hit for the normal and the emission MIS; below
     the horizon 62 for the frame and material, 6 for the shared azimuth,
     134 per light for its sample and BSDF evaluation, 90 for the BSDF
-    sample and the extension. The shadow sweeps are not counted: how far
-    each goes depends on the data, so the count stays a lower bound. Live
-    lane-bounces come from K2's cache of the same lanes: a lane reaches
-    bounce b > 0 iff its "tu" plane at b - 1 is not 0."""
+    sample and the extension. Of the nee="all" shadow sweeps only what the
+    data surely needs is counted, as `k5_ops` counts it: each shadow ray
+    that reached its light (a nonzero "B" plane of K2's cache for these
+    lanes) tested every row whose skip bit for its light is clear, at 27 (a
+    fast planar row), 34 (any other planar row) or 19 (a sphere) a row, and
+    a lane-bounce with such a ray computed the shared terms of each row
+    that some light does not skip once (33 a fast planar row, 13 a sphere).
+    Blocked rays stop early and are left out, and the nee="single" sweep is
+    not counted, so the count is a lower bound. Live lane-bounces come from
+    K2's cache of the same lanes: a lane reaches bounce b > 0 iff its "tu"
+    plane at b - 1 is not 0."""
     from kytpu_torch.kernels import wavefront as kwf
-    ix, _ = kwf.residual_layout(static, kwf.KernelConfig(max_depth=max_depth))
+    from kytpu_torch.scene import shapes as kshapes
+    ix, _ = kwf.residual_layout(static, cfg)
     n = cache.shape[1]
     reached = [n] + [int((cache[ix[("tu", b)]] != 0).sum())
-                     for b in range(max_depth)]
-    hit = 31 * len(static["planar"]) + 33 * len(static["spheres"]) + 32
-    shade = 62 + 6 + 134 * len(static["lights"]) + 90
-    return float(sum(reached[:-1]) * (hit + shade) + reached[-1] * hit)
+                     for b in range(cfg.max_depth)]
+    planar, n_sp, n_l = static["planar"], len(static["spheres"]), len(
+        static["lights"])
+    hit = 31 * len(planar) + 33 * n_sp + 32
+    shade = 62 + 6 + 134 * n_l + 90
+    ops = float(sum(reached[:-1]) * (hit + shade) + reached[-1] * hit)
+    if kwf.picks_one_light(cfg, n_l) or not n_l:
+        return ops
+    rows_skip, sph_skip = kwf._occl_skips(static, cfg)
+    fast = [s["kind"] != kshapes.DISK and bool(s.get("fast"))
+            for s in planar]
+    ray_row = [sum(27 if fast[r] else 34 for r in range(len(planar))
+                   if r not in rows_skip[i]) + 19 * (n_sp - len(sph_skip[i]))
+               for i in range(n_l)]
+    shared_row = (33 * sum(1 for r in range(len(planar)) if fast[r] and any(
+        r not in rows_skip[i] for i in range(n_l)))
+        + 13 * sum(1 for j in range(n_sp) if any(
+            j not in sph_skip[i] for i in range(n_l))))
+    for b in range(cfg.max_depth):
+        lit = torch.stack([cache[ix[("B", b, i)]] != 0 for i in range(n_l)])
+        ops += sum(ray_row[i] * int(lit[i].sum()) for i in range(n_l))
+        ops += shared_row * int(lit.any(0).sum())
+    return ops
 
 
-def k4_ops(static, cache, max_depth: int) -> float:
+def k4_ops(static, cache, cfg) -> float:
     """FP32 operations of K4 (csrc/wavefront_fwd.cu, MODE_REPLAY) for the
-    lanes of a run: K1's (`k1_ops`, a lower bound) plus the adjoint terms,
-    counted from the source: 9 per live lane-bounce for the hit emission,
-    and below the horizon 21 per light (emission, colour adjoints), 3 for
-    E_b and 31 for the tail peel and the extension's adjoint."""
+    lanes of a run: K1's (`k1_ops`, a lower bound, the shadow sweeps the
+    data surely needs included) plus the adjoint terms, counted from the
+    source: 9 per live lane-bounce for the hit emission, and below the
+    horizon 21 per light (emission, colour adjoints), 3 for E_b and 31 for
+    the tail peel and the extension's adjoint."""
     n_l = len(static["lights"])
     from kytpu_torch.kernels import wavefront as kwf
-    ix, _ = kwf.residual_layout(static, kwf.KernelConfig(max_depth=max_depth))
+    ix, _ = kwf.residual_layout(static, cfg)
     n = cache.shape[1]
     reached = [n] + [int((cache[ix[("tu", b)]] != 0).sum())
-                     for b in range(max_depth)]
+                     for b in range(cfg.max_depth)]
     adj = sum(reached[:-1]) * (9 + 21 * n_l + 3 + 31) + reached[-1] * 9
-    return k1_ops(static, cache, max_depth) + float(adj)
+    return k1_ops(static, cache, cfg) + float(adj)
+
+
+def simt_share(static, cache, cfg, chunk: int) -> tuple:
+    """SIMT efficiency of K1 and K2 on the lanes of K2's cache: the
+    lane-bounces (a lane traces bounce 0 and each b > 0 whose "tu" plane
+    at b - 1 is not 0) over 32 x each warp's iterations, one lane a thread
+    (a warp of 32 consecutive lanes runs its longest path) and with
+    dead-lane refill (a warp's chunk of `chunk` lanes handed to its 32
+    slots in order as they free, as csrc/wavefront_fwd.cu does) ->
+    (lane-bounces, before, after)."""
+    from kytpu_torch.kernels import wavefront as kwf
+    ix, _ = kwf.residual_layout(static, cfg)
+    n = cache.shape[1]
+    iters = torch.ones(n, dtype=torch.int64, device=cache.device)
+    for b in range(cfg.max_depth):
+        iters += (cache[ix[("tu", b)]] != 0).long()
+    iters = iters.cpu().numpy()
+    total = int(iters.sum())
+    pad = -n % chunk
+    lanes = np.concatenate([iters, np.zeros(pad, np.int64)])
+    before = 32 * int(lanes.reshape(-1, 32).max(1).sum())
+    lanes = lanes.reshape(-1, chunk)
+    free = lanes[:, :32].copy()
+    rows = np.arange(len(lanes))
+    for j in range(32, chunk):
+        s = free.argmin(1)
+        free[rows, s] += lanes[:, j]
+    after = 32 * int(free.max(1).sum())
+    return total, total / before, total / after
 
 
 def k3_ops(static, cfg, n: int) -> float:
@@ -535,6 +615,7 @@ def main() -> None:
     from kytpu_torch.kernels import build
     from kytpu_torch.kernels import wavefront as kwf
     from kytpu_torch.scene import builders
+    STAGE_BUDGET = kwf.STAGE_BUDGET
 
     def reset_counts():
         kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
@@ -565,25 +646,33 @@ def main() -> None:
         "cornell_lights": builders.cornell_box(variant, width=256,
                                                height=256).to("cuda"),
     }
-    cases = [("veach", "random", "all", "parity", False),
-             ("veach", "hash", "single", "robust", False),
-             ("veach", "sobol", "all", "parity", False),
-             ("veach", "random", "all", "parity", True),
-             ("cornell", "hash", "all", "robust", False),
-             ("cornell", "sobol", "single", "robust", False),
-             ("cornell_lights", "random", "single", "parity", False),
-             ("cornell_lights", "hash", "all", "parity", False)]
+    # the last field: the tables' route in K1, K2 and K4 (staged in shared
+    # memory, or read from device memory: STAGE_BUDGET 0 forces the latter)
+    cases = [("veach", "random", "all", "parity", False, "shared"),
+             ("veach", "hash", "single", "robust", False, "shared"),
+             ("veach", "sobol", "all", "parity", False, "shared"),
+             ("veach", "random", "all", "parity", True, "shared"),
+             ("veach", "hash", "all", "robust", True, "device"),
+             ("cornell", "hash", "all", "robust", False, "shared"),
+             ("cornell", "sobol", "single", "robust", False, "shared"),
+             ("cornell", "random", "all", "parity", False, "device"),
+             ("cornell_lights", "random", "single", "parity", False,
+              "shared"),
+             ("cornell_lights", "hash", "all", "parity", False, "shared")]
     max_abs_err = 0.0                # K1
     err_res = err_bwd = 0.0          # K2, K3
     err_replay = 0.0                 # K4
-    for sc_name, sampler, nee, shadow, texp in cases:
+    for sc_name, sampler, nee, shadow, texp, route in cases:
         scene = scenes[sc_name]
         cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee,
                                shadow=shadow, trainable_exponent=texp)
         tag = f"{sc_name} {sampler}/{nee}/{shadow}" + (
-            " trainable exponent" if texp else "")
+            " trainable exponent" if texp else "") + f", tables in {route} memory"
         o, d, si, pix = jittered_rays(scene, n_lanes, 11)
+        kwf.STAGE_BUDGET = STAGE_BUDGET if route == "shared" else 0
         tables = kwf.pack_tables(scene, cfg)
+        if (tables.stage_bytes > 0) != (route == "shared"):
+            raise AssertionError(f"{tag}: the tables take the other route")
         before = kwf.launches
         got = kwf.render_lanes_cuda(scene, o, d, 77, cfg, si, pix)
         torch.cuda.synchronize()
@@ -591,10 +680,12 @@ def main() -> None:
             raise AssertionError("render_lanes_cuda did not launch the kernel")
         ref = kwf.trace_lanes_plain(tables, cfg, o, d, 77, si, pix)
         share, mabs, mdev = compare(got, ref, tag)
+        same_bits(got, ref, f"K1 {tag}")
         max_abs_err = max(max_abs_err, mabs)
         print(f"kernel vs plain: {tag}: "
               f"{n_lanes} lanes, {share:.5f} outside rtol={RTOL}/atol={ATOL}, "
-              f"max |err| {mabs:.3g}, mean within {mdev:.2f} SE", flush=True)
+              f"max |err| {mabs:.3g}, mean within {mdev:.2f} SE; K1 = plain "
+              f"bit for bit", flush=True)
         # K2, K3 and K4 on the same lanes
         before = counts()
         k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 77, si, pix,
@@ -620,6 +711,7 @@ def main() -> None:
                                                     pix, residual=True)
         share2, mabs2, _ = compare(k2, ref_l, f"K2 {tag}")
         cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {tag}")
+        same_bits((k2, resf, resi), (ref_l, ref_f, ref_i), f"K2 {tag}")
         gerr = compare_grads(grads, kwf.bwd_res_plain(
             tables, cfg, g, ref_l, ref_f, ref_i), f"K3 {tag}")
         rerr = compare_grads(k4, kwf.bwd_replay_plain(
@@ -629,7 +721,8 @@ def main() -> None:
         err_res = max(err_res, mabs2, cerr)
         err_bwd = max(err_bwd, gerr)
         err_replay = max(err_replay, rerr)
-        print(f"residual kernels vs plain: {tag}: "
+        print(f"residual kernels vs plain: {tag}: K2 radiance and cache = "
+              f"plain bit for bit; "
               f"K2 radiance = K1's bit for bit, {share2:.5f} of lanes outside "
               f"vs plain (max |err| {mabs2:.3g}); cache {resf.shape[0]}+"
               f"{resi.shape[0]} planes within the bound (max |err| "
@@ -651,6 +744,8 @@ def main() -> None:
             if live == 0 or not bool((grads[4] != 0).any()):
                 raise AssertionError("the exponent case exercised no "
                                      "phong lane")
+
+    kwf.STAGE_BUDGET = STAGE_BUDGET
 
     # 4. frames through the main path (render, engine="cuda")
     veach_frame = builders.veach_mis(512, 308)
@@ -734,12 +829,13 @@ def main() -> None:
     plain_ms, ref = cuda_time_ms(
         lambda: kwf.trace_lanes_plain(tables, cfg, o, d, 5), 1)
     share, mabs, mdev = compare(got, ref, f"veach {n_time} lanes")
+    same_bits(got, ref, f"K1 veach {n_time} lanes")
     max_abs_err = max(max_abs_err, mabs)
     print(f"timing: veach fwd depth 5, {n_time} lanes: kernel {ms:.3f} ms "
           f"({n_time / ms / 1e3:.1f} Mrays/s), plain {plain_ms:.1f} ms "
           f"({n_time / plain_ms / 1e3:.2f} Mrays/s) on {smi}; "
-          f"{share:.5f} of lanes outside the bound, max |err| {mabs:.3g}",
-          flush=True)
+          f"{share:.5f} of lanes outside the bound, max |err| {mabs:.3g}, "
+          f"K1 = plain bit for bit", flush=True)
 
     del ref
 
@@ -826,6 +922,8 @@ def main() -> None:
                                      ref_l), 1)
     share, mabs, _ = compare(k2, ref_l, f"K2 veach {n_time} lanes")
     cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {n_time} lanes")
+    same_bits((k2, resf, resi), (ref_l, ref_f, ref_i),
+              f"K2 veach {n_time} lanes")
     gerr = compare_grads(grads, ref_g, f"K3 veach {n_time} lanes")
     rerr = compare_grads(k4, ref_g4, f"K4 veach {n_time} lanes")
     xerr = compare_grads(k4, grads, f"K4 vs K3 veach {n_time} lanes",
@@ -836,8 +934,8 @@ def main() -> None:
     del ref_l, ref_f, ref_i, ref_g, ref_g4
     cache_bytes = resf.numel() * 4 + resi.numel() * 4
     ray_bytes = n_time * (24 + 12)   # rays in, radiance out
-    ops1 = k1_ops(tables.static, resf, cfg.max_depth)
-    ops4 = k4_ops(tables.static, resf, cfg.max_depth)
+    ops1 = k1_ops(tables.static, resf, cfg)
+    ops4 = k4_ops(tables.static, resf, cfg)
     bounds = {
         "K1": bound_ms(ray_bytes, ops1),
         "K2": bound_ms(ray_bytes + cache_bytes, ops1),
@@ -867,6 +965,31 @@ def main() -> None:
     for k, (b_ms, by) in bounds.items():
         print(f"bound: {k} {b_ms:.4f} ms by {by} (K1 ops {ops1:.4g}, K4 ops "
               f"{ops4:.4g}, cache {cache_bytes:.4g} B)", flush=True)
+    # the tables read from device memory instead of staged in shared memory
+    # (the route of tables past STAGE_BUDGET), on the same lanes
+    kwf.STAGE_BUDGET = 0
+    try:
+        dk1_ms, dk1 = cuda_time_ms(
+            lambda: kwf.trace_lanes(tables, cfg, o, d, 5), 5)
+        dk2_ms, dk2 = cuda_time_ms(
+            lambda: kwf.trace_lanes(tables, cfg, o, d, 5, residual=True), 5)
+    finally:
+        kwf.STAGE_BUDGET = STAGE_BUDGET
+    same_bits(dk1, k1, "K1, tables in device memory")
+    same_bits(dk2, (k2, resf, resi), "K2, tables in device memory")
+    del dk1, dk2
+    print(f"tables in device memory: veach depth 5, {n_time} lanes: K1 "
+          f"{dk1_ms:.3f} ms, K2 {dk2_ms:.3f} ms, against {k1_ms:.3f} and "
+          f"{k2_ms:.3f} ms with the tables ({tables.stage_bytes} B) staged in "
+          f"shared memory; the same bits; on {smi}", flush=True)
+    chunk = kwf.refill_chunk(tables, cfg, n_time, residual=True)
+    lane_bounces, simt_before, simt_after = simt_share(tables.static, resf,
+                                                       cfg, chunk)
+    print(f"SIMT: veach depth 5, {n_time} lanes, from K2's cache: "
+          f"{lane_bounces} lane-bounces over 32 x the warps' iterations: "
+          f"{simt_before:.4f} one lane a thread (a warp runs its longest "
+          f"path), {simt_after:.4f} with dead-lane refill ({chunk} lanes a "
+          f"warp)", flush=True)
     del k1, k2, resf, resi, grads, g, got, k4
 
     # 7. training through make_train_step (the second main path)
@@ -1404,6 +1527,8 @@ def main() -> None:
                                                     pix, residual=True)
         share, mabs, _ = compare(k1, ref1, f"K1 {tag}")
         cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {tag}")
+        same_bits(k1, ref1, f"K1 {tag}")
+        same_bits((k2, resf, resi), (ref_l, ref_f, ref_i), f"K2 {tag}")
         gerr = compare_grads(k3, kwf.bwd_res_plain(tables, cfg, g, ref_l,
                                                    ref_f, ref_i), f"K3 {tag}")
         rerr = compare_grads(k4, kwf.bwd_replay_plain(
@@ -1415,7 +1540,8 @@ def main() -> None:
         err_replay = max(err_replay, rerr)
         tex = [float(t.abs().max()) for t in k3[4 + texp:]]
         print(f"textured kernels vs plain: {tag}: {o.shape[0]} lanes, depth "
-              f"5: K1 {share:.5f} of lanes outside (max |err| {mabs:.3g}); K2 "
+              f"5: K1 and K2 (radiance, cache) = plain bit for bit; "
+              f"K1 {share:.5f} of lanes outside (max |err| {mabs:.3g}); K2 "
               f"radiance = K1's bit for bit, cache {resf.shape[0]}+"
               f"{resi.shape[0]} planes (max |err| {cerr:.3g}); K3 (max |err| "
               f"{gerr:.3g}) and K4 (max |err| {rerr:.3g}) within the bound, "
@@ -1854,6 +1980,11 @@ def main() -> None:
                                                     pix, residual=True)
         share, mabs, _ = compare(k1, ref1, f"K1 {tag}")
         cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {tag}")
+        if tables.stage_bytes:
+            raise AssertionError(f"{tag}: the tables were staged")
+        same_bits(k1, ref1, f"K1 {tag}, tables in device memory")
+        same_bits((k2, resf, resi), (ref_l, ref_f, ref_i),
+                  f"K2 {tag}, tables in device memory")
         gerr = compare_grads(k3, kwf.bwd_res_plain(tables, cfg, g, ref_l,
                                                    ref_f, ref_i), f"K3 {tag}")
         rerr = compare_grads(k4, kwf.bwd_replay_plain(
@@ -1883,7 +2014,9 @@ def main() -> None:
                                 CROSS_ATOL)
             extra = (f"; against K7 on the same lanes (d_emission on the "
                      f"emissive rows): K3 max |diff| {x37:.3g}, K4 {x47:.3g}")
-        print(f"{tag}: {o.shape[0]} lanes, depth 3: K1 {share:.5f} of lanes "
+        print(f"{tag}: {o.shape[0]} lanes, depth 3, tables in device memory "
+              f"({len(tables.static['mats']['kind'])} rows): K1 and K2 "
+              f"(radiance, cache) = plain bit for bit; K1 {share:.5f} of lanes "
               f"outside (max |err| {mabs:.3g}); K2 = K1 bit for bit, cache "
               f"(max |err| {cerr:.3g}), rows up to {int(rows.max())}; K3 (max "
               f"|err| {gerr:.3g}) and K4 (max |err| {rerr:.3g}) within the "
@@ -1913,6 +2046,7 @@ def main() -> None:
     p_plain["K1"], ref = once_ms(
         lambda: kwf.trace_lanes_plain(tables, bcfg, o, d, 7))
     _, mabs, _ = compare(k1, ref, "K1 1M lanes past 64")
+    same_bits(k1, ref, "K1 1M lanes past 64")
     max_abs_err = max(max_abs_err, mabs)
     p_plain["K3"], ref = once_ms(
         lambda: kwf.bwd_res_plain(tables, bcfg, g, k2, resf, resi))
@@ -1941,8 +2075,8 @@ def main() -> None:
                              f" or its gradient is not K4's")
     del leaves
     p_cache = resf.numel() * 4 + resi.numel() * 4
-    ops1 = k1_ops(tables.static, resf, bcfg.max_depth)
-    ops4 = k4_ops(tables.static, resf, bcfg.max_depth)
+    ops1 = k1_ops(tables.static, resf, bcfg)
+    ops4 = k4_ops(tables.static, resf, bcfg)
     m_rows = len(tables.static["mats"]["kind"])
     # as K7's and K8's: K3 reads the cache, g and L, K4 the rays, g and L;
     # both write the (M, 9) tables (the row-tagged planes and texel entries
@@ -2044,10 +2178,22 @@ def main() -> None:
             or a.mean() <= 0:
         raise AssertionError(f"smallpt frame: launches {smallpt_launches}, "
                              f"mean {a.mean()}")
+    spt = builders.smallpt(256, 256).to("cuda")
+    cfg = kwf.KernelConfig(max_depth=5, sampler="hash")
+    o, d, si, pix = jittered_rays(spt, 1 << 16, 53)
+    tables = kwf.pack_tables(spt, cfg)
+    k1 = kwf.trace_lanes(tables, cfg, o, d, 59, si, pix)
+    k2 = kwf.trace_lanes(tables, cfg, o, d, 59, si, pix, residual=True)
+    same_bits(k1, kwf.trace_lanes_plain(tables, cfg, o, d, 59, si, pix),
+              "K1 smallpt")
+    same_bits(k2, kwf.trace_lanes_plain(tables, cfg, o, d, 59, si, pix,
+                                        residual=True), "K2 smallpt")
     print(f"frame: smallpt 256x256 16 spp through render(): mean "
-          f"{a.mean():.5f}, launches K1/K2/K3/K4 {smallpt_launches}",
+          f"{a.mean():.5f}, launches K1/K2/K3/K4 {smallpt_launches}; K1 and "
+          f"K2 (radiance, cache) = plain bit for bit on {o.shape[0]} lanes, "
+          f"depth 5, hash (tables in shared memory: {tables.stage_bytes} B)",
           flush=True)
-    del img
+    del img, k1, k2
 
     src = "kytpu_torch/kernels/csrc/"
     tex_steps = [sum(tl[k] for tl in tex_train.values()) for k in (1, 2)]

@@ -134,8 +134,9 @@ __device__ __forceinline__ uint32_t superset_xor(uint32_t x) {
 
 // splitmix64 words of each draw site (wavefront.py _site_seeds), filled by
 // the host: the draw counter is the same on every lane at a given draw, so
-// all lanes read one entry. A bounce draws at most 4 sites (lobe pick, NEE,
-// extension, roulette), so max_depth <= MAX_SOBOL_DEPTH.
+// the lanes of a warp read one entry (a few where K1 and K2 refill a warp
+// with lanes at other bounces). A bounce draws at most 4 sites (lobe pick,
+// NEE, extension, roulette), so max_depth <= MAX_SOBOL_DEPTH.
 constexpr int MAX_SOBOL_DEPTH = 64;  // MAX_SOBOL_DEPTH in wavefront.py
 constexpr int MAX_SITES = 4 * MAX_SOBOL_DEPTH + 1;
 __constant__ uint32_t c_sites[MAX_SITES][3];
@@ -172,24 +173,34 @@ struct Rng {
 
 // ---- scene tables ----------------------------------------------------------
 
-struct Scene {
+// The tables of pack_tables. SH: they were staged in the block's shared
+// memory (K1, K2 and K4 on a scene whose tables fit the budget), so they are
+// read with plain loads; else they stay in device memory and are read
+// through __ldg. Code that may meet either reads them through ldf/ldi/ld3f.
+template <bool SH>
+struct SceneT {
   const float* F;
   const int* I;
   int n_pl, n_sp, M, L, lobes, has_plastic, has_glass, has_delta, static_exp,
       env_i, any_azim, use_phits, single, texp, n_trec, n_tex, has_img;
   const float *PLF, *SPF, *MATF, *LTF, *TXF;
   const int *PLI, *SPI, *MATI, *LTI, *TXI;
+  __device__ __forceinline__ float ldf(const float* p) const { return SH ? *p : __ldg(p); }
+  __device__ __forceinline__ int ldi(const int* p) const { return SH ? *p : __ldg(p); }
+  __device__ __forceinline__ V ld3f(const float* p) const {
+    return V{ldf(p), ldf(p + 1), ldf(p + 2)};
+  }
   __device__ void init(const float* f, const int* i) {
     F = f;
     I = i;
-    n_pl = __ldg(i + 0); n_sp = __ldg(i + 1); M = __ldg(i + 2); L = __ldg(i + 3);
-    lobes = __ldg(i + 4); has_plastic = __ldg(i + 5); has_glass = __ldg(i + 6);
-    has_delta = __ldg(i + 7); static_exp = __ldg(i + 8); env_i = __ldg(i + 9);
-    any_azim = __ldg(i + 10); use_phits = __ldg(i + 11); single = __ldg(i + 12);
-    texp = __ldg(i + H_TEXP);
-    n_trec = __ldg(i + H_TREC);
-    n_tex = __ldg(i + H_TEX);
-    has_img = __ldg(i + H_IMG);
+    n_pl = ldi(i + 0); n_sp = ldi(i + 1); M = ldi(i + 2); L = ldi(i + 3);
+    lobes = ldi(i + 4); has_plastic = ldi(i + 5); has_glass = ldi(i + 6);
+    has_delta = ldi(i + 7); static_exp = ldi(i + 8); env_i = ldi(i + 9);
+    any_azim = ldi(i + 10); use_phits = ldi(i + 11); single = ldi(i + 12);
+    texp = ldi(i + H_TEXP);
+    n_trec = ldi(i + H_TREC);
+    n_tex = ldi(i + H_TEX);
+    has_img = ldi(i + H_IMG);
     PLI = i + HDR_I;
     SPI = PLI + PL_I * n_pl;
     MATI = SPI + SP_I * n_sp;
@@ -203,6 +214,7 @@ struct Scene {
   }
   __device__ __forceinline__ bool has_lobe(int k) const { return (lobes >> k) & 1; }
 };
+using Scene = SceneT<false>;
 
 // root of a sphere crossing in (eps, tmax), square-root free
 __device__ __forceinline__ bool sphere_occludes(float neg_b, float discr, float tmax) {
@@ -236,44 +248,48 @@ __device__ __forceinline__ V to_world(V s, V t, V n, V w) {
 
 // (u, v) of hit hp on texture record rec's planar row: the baked anchor and
 // dual basis, folding zero constants as kytpu's V3.dot does
-__device__ __forceinline__ void tex_uv(const Scene& S, int rec, V hp, float& u, float& v) {
+template <class SC>
+__device__ __forceinline__ void tex_uv(const SC& S, int rec, V hp, float& u, float& v) {
   const float* tf = S.TXF + TX_F * rec;
-  const V rel = hp - ld3(tf);
-  u = cdot(ld3(tf + 3), rel);
-  v = cdot(ld3(tf + 6), rel);
-  if (__ldg(tf + 9) != 0.f) {  // a disk's frame coordinates
+  const V rel = hp - S.ld3f(tf);
+  u = cdot(S.ld3f(tf + 3), rel);
+  v = cdot(S.ld3f(tf + 6), rel);
+  if (S.ldf(tf + 9) != 0.f) {  // a disk's frame coordinates
     u = u + 0.5f;
     v = v + 0.5f;
   }
 }
 
 // the checker's "even"-cell mask at hp
-__device__ __forceinline__ bool checker_even(const Scene& S, int rec, V hp) {
+template <class SC>
+__device__ __forceinline__ bool checker_even(const SC& S, int rec, V hp) {
   float u, v;
   tex_uv(S, rec, hp, u, v);
   const float* tf = S.TXF + TX_F * rec;
-  const int pu = (int)floorf(u * __ldg(tf + 10)), pv = (int)floorf(v * __ldg(tf + 11));
+  const int pu = (int)floorf(u * S.ldf(tf + 10)), pv = (int)floorf(v * S.ldf(tf + 11));
   return ((pu + pv) & 1) == 0;
 }
 
 // continuous texel coordinates of hp on an image row, in [-0.5, dim - 0.5)
-__device__ __forceinline__ void image_xy(const Scene& S, int rec, V hp, float& x, float& y) {
+template <class SC>
+__device__ __forceinline__ void image_xy(const SC& S, int rec, V hp, float& x, float& y) {
   float u, v;
   tex_uv(S, rec, hp, u, v);
   const float* tf = S.TXF + TX_F * rec;
   const int* ti = S.TXI + TX_I * rec;
-  const float su = u * __ldg(tf + 10), sv = v * __ldg(tf + 11);
-  x = (su - floorf(su)) * (float)__ldg(ti + 3) - 0.5f;
-  y = (sv - floorf(sv)) * (float)__ldg(ti + 4) - 0.5f;
+  const float su = u * S.ldf(tf + 10), sv = v * S.ldf(tf + 11);
+  x = (su - floorf(su)) * (float)S.ldi(ti + 3) - 0.5f;
+  y = (sv - floorf(sv)) * (float)S.ldi(ti + 4) - 0.5f;
 }
 
 // the taps and colour of image record rec at texel coordinates (x, y)
-__device__ __forceinline__ V image_lookup(const Scene& S, int rec, float x, float y,
+template <class SC>
+__device__ __forceinline__ V image_lookup(const SC& S, int rec, float x, float y,
                                           const float* timg, Taps& taps) {
   const int* ti = S.TXI + TX_I * rec;
-  taps = image_taps(__ldg(ti + 2), __ldg(ti + 3), __ldg(ti + 4), x, y);
+  taps = image_taps(S.ldi(ti + 2), S.ldi(ti + 3), S.ldi(ti + 4), x, y);
   float c[3];
-  image_color(taps, __ldg(ti + 5) != 0, timg, c);
+  image_color(taps, S.ldi(ti + 5) != 0, timg, c);
   return vmk(c[0], c[1], c[2]);
 }
 
@@ -328,12 +344,13 @@ __device__ __forceinline__ float ipow(float x, int n) {
 }
 
 // (cos^e, (e+2)/2pi, (e+1)/2pi)
-__device__ __forceinline__ void phong_pow(const Scene& S, float cos_a, float exponent,
+template <class SC>
+__device__ __forceinline__ void phong_pow(const SC& S, float cos_a, float exponent,
                                           float& powa, float& e2, float& e1) {
   if (S.static_exp) {
     powa = ipow(cos_a, S.static_exp);
-    e2 = __ldg(S.F + 2);
-    e1 = __ldg(S.F + 3);
+    e2 = S.ldf(S.F + 2);
+    e1 = S.ldf(S.F + 3);
   } else {
     powa = powf(cos_a, exponent);
     e2 = (exponent + 2.0f) * INV_2PI_F;
@@ -348,7 +365,8 @@ __device__ __forceinline__ float kappa_dot(float exponent, float cos_alpha) {
 }
 
 // Lambert / Phong eval on frame-invariant dots -> (pdf, f_unit)
-__device__ void eval_dots(const Scene& S, int kind, float exponent, float wo_z, float wi_z,
+template <class SC>
+__device__ void eval_dots(const SC& S, int kind, float exponent, float wo_z, float wi_z,
                           float cos_alpha, float& pdf, float& f_unit) {
   bool same = wo_z * wi_z > 0.f;
   pdf = 0.f;
@@ -366,7 +384,8 @@ __device__ void eval_dots(const Scene& S, int kind, float exponent, float wo_z, 
 
 // local-frame sample of the lane's lobe -> f, wi, pdf, delta, the lobe's
 // value per unit colour (f_unit) and whether glass refracted
-__device__ void bsdf_sample(const Scene& S, int kind, V color, V color2, float eta,
+template <class SC>
+__device__ void bsdf_sample(const SC& S, int kind, V color, V color2, float eta,
                             float exponent, V wo, float u1, float u2, V& f, V& wi,
                             float& pdf, bool& delta, float& f_unit, bool& refract) {
   V mirror_wi = vmk(-wo.x, -wo.y, wo.z);
@@ -413,7 +432,7 @@ __device__ void bsdf_sample(const Scene& S, int kind, V color, V color2, float e
     refract = !take_refl;
   } else {  // PHONG
     float phi = TWO_PI_F * u1;
-    float cos_t_p = S.static_exp ? powf(u2, __ldg(S.F + 1))
+    float cos_t_p = S.static_exp ? powf(u2, S.ldf(S.F + 1))
                                  : powf(u2, 1.0f / (exponent + 1.0f));
     float sin_t_p = safe_sqrt(1.0f - cos_t_p * cos_t_p);
     float cphi = cosf(phi);
@@ -446,27 +465,28 @@ __device__ __forceinline__ float env_pdf(float wz) {
 }
 
 // sample_Li of light i from p (_light_sample); cphi/sphi: cos/sin(2 pi u2)
-__device__ LSample light_sample(const Scene& S, int i, V p, V n_shade, float u1, float u2,
+template <class SC>
+__device__ LSample light_sample(const SC& S, int i, V p, V n_shade, float u1, float u2,
                                 float cphi, float sphi) {
   const float* lf = S.LTF + LT_F * i;
-  int kind = __ldg(S.LTI + LT_I * i);
+  int kind = S.ldi(S.LTI + LT_I * i);
   LSample r;
   r.phit = 0.f;
   if (kind == L_POINT) {
-    V vec = ld3(lf) - p;
+    V vec = S.ld3f(lf) - p;
     float d2 = jmax(vdot(vec, vec), 1e-20f);
     r.dist = sqrtf(d2);
     r.wi = vec * (1.0f / r.dist);
     r.pdf = 1.0f;
     r.li_s = 1.0f / d2;
   } else if (kind == L_DIRECTION) {
-    r.wi = -ld3(lf + 3);
+    r.wi = -S.ld3f(lf + 3);
     r.pdf = 1.0f;
     r.li_s = 1.0f;
-    r.dist = __ldg(S.F);
+    r.dist = S.ldf(S.F);
   } else if (kind == L_RECT) {
-    V p0 = ld3(lf + 6), p1 = ld3(lf + 9), p2 = ld3(lf + 12), n_l = ld3(lf + 15);
-    float area = __ldg(lf + 18);
+    V p0 = S.ld3f(lf + 6), p1 = S.ld3f(lf + 9), p2 = S.ld3f(lf + 12), n_l = S.ld3f(lf + 15);
+    float area = S.ldf(lf + 18);
     V lp = (p1 + (p0 - p1) * u1) + (p2 - p1) * u2;
     V vec = lp - p;
     float d2 = jmax(vdot(vec, vec), 1e-20f);
@@ -478,8 +498,8 @@ __device__ LSample light_sample(const Scene& S, int i, V p, V n_shade, float u1,
     r.li_s = facing ? 1.0f : 0.f;
     r.pdf = (facing && pdf > 0.f && isfinite(pdf)) ? pdf : 0.f;
   } else if (kind == L_SPHERE) {
-    V c = ld3(lf + 19);
-    float rad = __ldg(lf + 22);
+    V c = S.ld3f(lf + 19);
+    float rad = S.ldf(lf + 22);
     float r2 = rad * rad;
     V vec_c = c - p;
     float d2c = jmax(vdot(vec_c, vec_c), 1e-20f);
@@ -506,7 +526,7 @@ __device__ LSample light_sample(const Scene& S, int i, V p, V n_shade, float u1,
     float pdf_cone = q_cone > 0.f ? 1.0f / q_cone : 0.f;
     bool outside = d2c > r2;
     bool ok_cone = depth2 > 0.f && q_cone > 0.f && outside;
-    if (!__ldg(S.LTI + LT_I * i + 1)) {
+    if (!S.ldi(S.LTI + LT_I * i + 1)) {
       r.wi = wi_cone;
       r.pdf = pdf_cone;
       r.li_s = ok_cone ? 1.0f : 0.f;
@@ -522,7 +542,7 @@ __device__ LSample light_sample(const Scene& S, int i, V p, V n_shade, float u1,
     float d2_in = jmax(vdot(vec_in, vec_in), 1e-20f);
     float inv_d_in = rsqrt_(d2_in);
     V wi_in = vec_in * inv_d_in;
-    float pdf_in = safe_div(d2_in, __ldg(lf + 23) * fabsf(vdot(n_shade, -wi_in)));
+    float pdf_in = safe_div(d2_in, S.ldf(lf + 23) * fabsf(vdot(n_shade, -wi_in)));
     pdf_in = isfinite(pdf_in) ? pdf_in : 0.f;
     bool ok_in = vdot(dir_u, -wi_in) > 0.f && pdf_in > 0.f;
     bool inside = !outside;
@@ -536,30 +556,53 @@ __device__ LSample light_sample(const Scene& S, int i, V p, V n_shade, float u1,
     r.wi = vmk(r_u * cphi, r_u * sphi, z_u);
     r.pdf = env_pdf(r.wi.z);
     r.li_s = 1.0f;
-    r.dist = __ldg(S.F);
+    r.dist = S.ldf(S.F);
   }
   return r;
 }
 
+// light_sample's phit of light i from p, recomputed from p alone: the cone
+// pdf of a sphere light that p cannot be inside (0 where p is), 0 for every
+// other light. The same operations in the same order, so the same bits: K1,
+// K2 and K4 keep the previous vertex instead of a per-light array.
+template <class SC>
+__device__ __forceinline__ float light_phit(const SC& S, int i, V p) {
+  if (S.ldi(S.LTI + LT_I * i) != L_SPHERE || S.ldi(S.LTI + LT_I * i + 1)) return 0.f;
+  const float* lf = S.LTF + LT_F * i;
+  const V c = S.ld3f(lf + 19);
+  const float rad = S.ldf(lf + 22);
+  const float r2 = rad * rad;
+  const V vec_c = c - p;
+  const float d2c = jmax(vdot(vec_c, vec_c), 1e-20f);
+  const float inv_dc = rsqrt_(d2c);
+  const float inv_d2c = inv_dc * inv_dc;
+  const float sin2_max = jmin(r2 * inv_d2c, 1.0f);
+  const float cos_max = safe_sqrt(1.0f - sin2_max);
+  const float q_cone = TWO_PI_F * (1.0f - cos_max);
+  const float pdf_cone = q_cone > 0.f ? 1.0f / q_cone : 0.f;
+  return d2c > r2 ? pdf_cone : 0.f;
+}
+
 // solid-angle pdf of light li (an area light the ray from o hit at t)
-__device__ float hit_light_pdf(const Scene& S, int li, V o, V d, float t, V nrm) {
+template <class SC>
+__device__ float hit_light_pdf(const SC& S, int li, V o, V d, float t, V nrm) {
   const float* lf = S.LTF + LT_F * li;
-  int kind = __ldg(S.LTI + LT_I * li);
+  int kind = S.ldi(S.LTI + LT_I * li);
   float t2 = t * t;
   float cos_l = fabsf(vdot(nrm, d));
-  if (kind == L_RECT) return safe_div(t2, cos_l * __ldg(lf + 18));
+  if (kind == L_RECT) return safe_div(t2, cos_l * S.ldf(lf + 18));
   if (kind != L_SPHERE) return 0.f;
-  float rad = __ldg(lf + 22);
+  float rad = S.ldf(lf + 22);
   float r2 = rad * rad;
-  V vc = ld3(lf + 19) - o;
+  V vc = S.ld3f(lf + 19) - o;
   float d2c = jmax(vdot(vc, vc), 1e-20f);
   bool inside = d2c <= r2;
   float sin2_max = jmin(r2 / d2c, 1.0f);
   float cos_max = safe_sqrt(1.0f - sin2_max);
   float pdf_cone = safe_div(1.0f, TWO_PI_F * (1.0f - cos_max));
   pdf_cone = isfinite(pdf_cone) ? pdf_cone : 0.f;
-  if (!__ldg(S.LTI + LT_I * li + 1)) return inside ? 0.f : pdf_cone;
-  return inside ? safe_div(t2, cos_l * __ldg(lf + 24)) : pdf_cone;
+  if (!S.ldi(S.LTI + LT_I * li + 1)) return inside ? 0.f : pdf_cone;
+  return inside ? safe_div(t2, cos_l * S.ldf(lf + 24)) : pdf_cone;
 }
 
 // splitmix64 words of draw site ctr (wavefront.py _site_seeds)

@@ -78,9 +78,23 @@ DENSE_MAX_ROWS = 64
 # K3 and K4 keep 6 checker-adjoint columns a texture in a thread
 # (csrc/lane_sum.cuh MAX_COLS, ROW_COLS)
 MAX_TEXTURES = 64
-# the kernel keeps one skip bit per light in an int32 table field and one
-# hit pdf per light in a per-thread array (csrc/wavefront_fwd.cu)
+# the kernels keep one skip bit per light in an int32 table field
+# (csrc/wavefront_fwd.cu) and per-light arrays (csrc/bigscene_fwd.cu)
 MAX_LIGHTS = 32
+# K1, K2 and K4 stage a scene's tables in a block's shared memory up to
+# this many bytes (csrc/wavefront_fwd.cu STAGE_BUDGET): the most a block
+# takes without opting in; larger tables stay in device memory
+STAGE_BUDGET = 48 * 1024
+# K1, K2 and K4 sample, sweep and accumulate the nee="all" shadow rays of a
+# vertex in chunks of at most NEE_CHUNK lights (csrc/wavefront_fwd.cu)
+NEE_CHUNK = 8
+# K1 and K2 refill the threads of dead lanes with the next lanes of their
+# warp's chunk on scenes of at most this many surfaces. Past it the
+# occlusion sweeps run over hundreds of rows and end at each ray's first
+# occluder, and a refilled warp's lanes, from all over the frame, end them
+# far apart: random_spheres(1024) with a 16x16 ground atlas took 33.1 ms
+# with refill and 23.4 without (K1, 1M lanes, depth 3, H100).
+REFILL_MAX_ROWS = 64
 
 
 @dataclass(frozen=True)
@@ -513,6 +527,21 @@ class SceneTables:
     def with_colors(self, scene: kscene.Scene) -> "SceneTables":
         return dataclasses.replace(self, **_color_tables(scene),
                                    **_texture_tables(scene))
+
+    @property
+    def stage_bytes(self) -> int:
+        """Bytes of the tables K1, K2 and K4 copy into a block's shared
+        memory (csrc/wavefront_fwd.cu `stage_scene`): f, i, the colour,
+        emission, exponent, light and env tables and, in a textured scene,
+        texa and texb; 0 where they pass STAGE_BUDGET and the kernels read
+        them from device memory. Veach's and Cornell's take about 2.6 KB;
+        random_spheres(1024) with a 16x16 ground atlas (1,026 surfaces, the
+        largest scene that reaches K1) about 107 KB."""
+        names = ("f", "i", "diffuse", "specular", "emission", "exponent",
+                 "light_emit", "env") + (
+                     ("texa", "texb") if self.static["textures"] else ())
+        n = 4 * sum(getattr(self, nm).numel() for nm in names)
+        return n if n <= STAGE_BUDGET else 0
 
 
 def _color_tables(scene: kscene.Scene) -> dict:
@@ -2842,6 +2871,33 @@ def _cfg_args(cfg: KernelConfig, seed: int) -> list:
             SAMPLERS[cfg.sampler], int(cfg.shadow == "robust")]
 
 
+def _scene_args(tables: SceneTables, cfg: KernelConfig) -> list:
+    """K1's, K2's and K4's last arguments: whether the scene is textured,
+    the bytes of the tables a block stages in shared memory, the shadow
+    rays a chunk of the nee="all" light loop holds (0 under nee="single"),
+    and whether K1 and K2 refill dead lanes (`REFILL_MAX_ROWS`)."""
+    n_l = len(tables.static["lights"])
+    rays = 0 if picks_one_light(cfg, n_l) else min(n_l, NEE_CHUNK)
+    refill = len(tables.static["mats"]["kind"]) <= REFILL_MAX_ROWS
+    return [int(bool(tables.static["textures"])), tables.stage_bytes, rays,
+            int(refill)]
+
+
+def refill_chunk(tables: SceneTables, cfg: KernelConfig, n: int,
+                 residual: bool = False) -> int:
+    """The lanes a warp of K1 (K2 with residual=True) owns in a launch of n
+    lanes of these tables on the current card: its 32 threads trace them in
+    turn, a thread taking the chunk's next lane when its lane ends
+    (dead-lane refill, csrc/wavefront_fwd.cu `refill_chunk`)."""
+    from kytpu_torch.kernels import build
+
+    chunk = build.load().kytpu_wavefront_chunk(
+        int(residual), n, SAMPLERS[cfg.sampler], *_scene_args(tables, cfg))
+    if chunk < 0:
+        raise RuntimeError("kytpu_wavefront_chunk failed")
+    return chunk
+
+
 def _run(fn, name: str, dev, *args):
     """fn(*args, stream) on dev's current stream; raises on a CUDA error."""
     with torch.cuda.device(dev):
@@ -2872,7 +2928,7 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
     lib = build.load()
     name = "wavefront_fwd_res" if residual else "wavefront_fwd"
     _run(getattr(lib, "kytpu_" + name), name, dev, *args, n,
-         *_cfg_args(cfg, seed), int(bool(tables.static["textures"])))
+         *_cfg_args(cfg, seed), *_scene_args(tables, cfg))
     if not residual:
         launches += 1
         return out
@@ -2944,7 +3000,7 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
     _run(lib.kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", dev,
          *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(), big_l.data_ptr(),
          partial.data_ptr(), out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
-         n, k, *_cfg_args(cfg, seed), int(bool(tables.static["textures"])))
+         n, k, *_cfg_args(cfg, seed), *_scene_args(tables, cfg))
     launches_replay += 1
     return _grads_of(lib, tables, cfg, out, tex, rows)
 
