@@ -85,7 +85,11 @@ Phases, one line each (a few for phase 3):
         versions on 64K camera rays at depth 3 of each scene, under each
         sampler, both shadow modes and both exponent modes (the bounds of
         phase 3); K6's radiance against K5's, K7 and K8 against themselves,
-        bit for bit; K8 against K7 (the bound of K4 against K3);
+        bit for bit; K8 against K7 (the bound of K4 against K3); K5, K6 and
+        K8 under the default cull against the same build with cull="off",
+        bit for bit (`same_as_cull_off`), and the pass rates of the
+        superblocks and blocks by lane and by warp (`cull_counts`, from the
+        plain K6's rays, which the gates above use);
      b. K5 against K1 on the Cornell box (256K lanes, depth 5): the share
         of lanes within 1e-3 (at least 99.5%; K5 reads each hit's Phong
         exponent from its row, K1 folds the scene's one exponent into
@@ -101,8 +105,13 @@ Phases, one line each (a few for phase 3):
         make_bigscene_diff_tracer (time, peak memory, its gradient K7's bit
         for bit) and through make_bigscene_diff_tracer(backward="replay"),
         the replay path, whose launches are counted (K5 and K8: time, peak
-        memory, its gradient K8's bit for bit), and the bounds of K5
-        (`k5_ops`), K6, K7 and K8 (`k8_ops`);
+        memory, its gradient K8's bit for bit), and the bounds of K5, K6, K7
+        and K8; K5, K6 and K8 with cull="off" timed and held to the culled
+        launches bit for bit; the culled bound (`cull_counts`: the work of
+        each sweep culled by the lane's own rays, counted from the plain
+        K6's rays) beside the full-sweep one (`k5_ops`, `k8_ops`), and the
+        pass rates of the blocks by a lane and by a warp; the mesh's K5 at
+        its 1M pixel-centre lanes, culled and not, with its culled bound;
      e. training past 64 surfaces, the third main path: five
         make_train_step steps on the spheres at 256x256, 4 spp, depth 3,
         hash, from the true scene with the spheres' diffuse colours scaled
@@ -141,7 +150,9 @@ Phases, one line each (a few for phase 3):
         camera rays at depth 3, under each sampler, both shadow modes and
         both exponent modes (the bounds of phase 3; K6 against K5, K7 and
         K8 against themselves bit for bit, K8 against K7, the texture
-        adjoints live); the textured K5 against K1 on a Cornell box with a
+        adjoints live; K5, K6 and K8 against cull="off" bit for bit, and
+        the pass rates of the blocks as in 9a); the
+        textured K5 against K1 on a Cornell box with a
         checker floor and an 8x8 back wall (as 9b);
      b. a 16-spp frame of the checker scene through render(), the main
         path: launches counted (K5 only), against the plain K5's frame,
@@ -162,7 +173,9 @@ Phases, one line each (a few for phase 3):
         and the replay path (K1 + K4) through make_cuda_diff_tracer, its
         launches counted; then the textured K5, K7 and K8 at the checker
         scene's 1M lanes, the plain K5 and K8 once, and the textured replay
-        path (K5 + K8), its launches counted;
+        path (K5 + K8), its launches counted; K5, K6 and K8 there against
+        cull="off" bit for bit, the culled and full-sweep bounds and the
+        blocks' pass rates;
      e. a smallpt frame through render() (K1), launches counted, and K1
         and K2 against their plain versions bit for bit on 64K lanes.
 The line before the last is the kernels' JSON record, the one before it
@@ -413,6 +426,177 @@ def k8_ops(tables, cache, cfg) -> float:
     return k5_ops(tables, cache, cfg) + float(adj)
 
 
+# FP32 operations of csrc/bigscene_fwd.cu's cull, counted from the source:
+# a closest-hit block test (`block_meets`), a ray's slack (`cull_slack`), a
+# shadow ray's block test with its offset origin
+BLOCK_TEST_OPS, SLACK_OPS, SHADOW_BLOCK_OPS = 25, 14, 32
+
+
+def same_as_cull_off(tables, cfg, lanes, g, got, tag: str) -> None:
+    """K5's radiance, K6's (radiance, resf, resi) and K8's gradient `got`
+    under cfg.cull against the same build's launches with cull "off", to
+    the last bit (the cull skips only blocks no lane's ray can meet)."""
+    from kytpu_torch.kernels import bigscene as kbs
+    off = dataclasses.replace(cfg, cull="off")
+    o, d, seed, si, pix = lanes
+    k5, k6, k8 = got
+    same_bits(k5, kbs.trace_lanes(tables, off, o, d, seed, si, pix),
+              f"K5 with cull={cfg.cull!r} against cull='off', {tag}")
+    same_bits(k6, kbs.trace_lanes(tables, off, o, d, seed, si, pix,
+                                  residual=True),
+              f"K6 with cull={cfg.cull!r} against cull='off', {tag}")
+    same_bits(tuple(k8), tuple(kbs.bwd_replay(tables, off, o, d, seed, si,
+                                              pix, g, k5)),
+              f"K8 with cull={cfg.cull!r} against cull='off', {tag}")
+
+
+def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
+    """What the cull leaves of K5's work on these lanes, from the rays that
+    the plain K6 traces (kbs._closest_hit and kbs._occluded wrapped while it
+    runs): "ops", the FP32 operations of `k5_ops` with each sweep culled by
+    the lane's own rays (the strictest cull: a lane-bounce tests every
+    superblock bound, the block bounds of the superblocks its ray meets over
+    [0, t], t its hit, and the rows of the blocks it meets; a shadow ray
+    that reached its light likewise over [0, tmax]; the shared terms of the
+    blocks one of a vertex's rays meets); and the pass rates of the
+    superblocks and of the blocks (both over all of them), by a lane's rays
+    and by a warp of 32 lanes in lane order, for the closest-hit ("hit")
+    and the occlusion ("occ") sweeps (a warp at its lanes' hits: the
+    kernel's running t_best can only pass more); "plain", the plain K6's
+    (radiance, resf, resi)."""
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels.v3 import V3
+    st = tables.static
+    n_l = len(st["lights"])
+    ix, _ = kbs.layout_of(st, cfg)
+    dev = tables.bnd.device
+    rows_b, c_hit, c_ray, c_shared, sb_of = [], [], [], [], []
+    n_sup = 0
+    for c, (h, r, sh) in zip(tables.counts, (
+            (39, 27, 33), (38, 27, 33), (26, 28, 11), (34, 19, 13))):
+        nb_c = -(-c // kbs.UNROLL)
+        for b in range(nb_c):
+            rows_b.append(min(kbs.UNROLL, c - b * kbs.UNROLL))
+            c_hit.append(h)
+            c_ray.append(r)
+            c_shared.append(sh)
+            sb_of.append(n_sup + b // kbs.SUPER)
+        n_sup += -(-nb_c // kbs.SUPER)
+    nb = len(rows_b)
+    bnd, sup = tables.bnd[:nb], tables.bnd[nb:]
+    f64 = dict(dtype=torch.float64, device=dev)
+    rows_b = torch.tensor(rows_b, **f64)
+    w_hit = rows_b * torch.tensor(c_hit, **f64)
+    w_ray = rows_b * torch.tensor(c_ray, **f64)
+    w_sh = rows_b * torch.tensor(c_shared, **f64)
+    sb_of = torch.tensor(sb_of, dtype=torch.long, device=dev)
+    per_sup = torch.bincount(sb_of, minlength=n_sup).double()
+    n = o.shape[0]
+    step = max(32, (1 << 22) // max(nb, 1) // 32 * 32)
+    stats = {k: 0.0 for k in ("ops", "hit_sup", "hit_sup_w", "hit_blk",
+                              "hit_blk_w", "hit_n", "hit_w_n", "occ_sup",
+                              "occ_sup_w", "occ_blk", "occ_blk_w", "occ_n",
+                              "occ_w_n")}
+    occ_rays = []
+    real_hit, real_occ = kbs._closest_hit, kbs._occluded
+
+    def sub(v, li):
+        return V3(v.x[li], v.y[li], v.z[li])
+
+    def passes(oo, dd, t1):
+        """(superblock, block within a passed superblock) passes."""
+        slack, inv = kbs.cull_slack_plain(oo, dd)
+        oks = kbs.block_meets_plain(sup, oo, dd, inv, t1, slack)
+        okb = kbs.block_meets_plain(bnd, oo, dd, inv, t1, slack) & oks[:, sb_of]
+        return oks, okb
+
+    def warp_any(lanes, ok):
+        w = torch.zeros((n // 32 + 1, ok.shape[1]), dtype=torch.int32,
+                        device=dev)
+        w.index_add_(0, lanes // 32, ok.int())
+        return float((w > 0).sum())
+
+    def tally(kind, lanes, oks, okb):
+        stats[f"{kind}_sup"] += float(oks.sum())
+        stats[f"{kind}_blk"] += float(okb.sum())
+        stats[f"{kind}_sup_w"] += warp_any(lanes, oks)
+        stats[f"{kind}_blk_w"] += warp_any(lanes, okb)
+        stats[f"{kind}_n"] += len(lanes)
+        stats[f"{kind}_w_n"] += float(torch.unique(lanes // 32).numel())
+
+    def hit(bt, o_, d_, live):
+        t, cls, trow = real_hit(bt, o_, d_, live)
+        idx = live.nonzero().reshape(-1)
+        for c0 in range(0, len(idx), step):
+            li = idx[c0:c0 + step]
+            oks, okb = passes(sub(o_, li), sub(d_, li), t[li])
+            stats["ops"] += float((okb.double() @ w_hit).sum()
+                                  + (oks.double() @ per_sup).sum()
+                                  * BLOCK_TEST_OPS) + len(li) * (
+                BLOCK_TEST_OPS * n_sup + SLACK_OPS + 32)
+            tally("hit", li, oks, okb)
+        return t, cls, trow
+
+    def occ(bt, hp, ns, rays, need, robust, own):
+        hits = real_occ(bt, hp, ns, rays, need, robust, own)
+        idx = need.nonzero().reshape(-1)
+        per_ray = []
+        for wi, tmax in rays:
+            nd = ns.dot(wi)
+            se = torch.where(nd < 0, -kbs._OFF, kbs._OFF)
+            tm = tmax - se * nd if robust else tmax
+            oks = torch.zeros((len(idx), n_sup), dtype=torch.bool, device=dev)
+            okb = torch.zeros((len(idx), nb), dtype=torch.bool, device=dev)
+            for c0 in range(0, len(idx), step):
+                li = idx[c0:c0 + step]
+                oks[c0:c0 + step], okb[c0:c0 + step] = passes(
+                    sub(hp, li) + sub(ns, li) * se[li], sub(wi, li), tm[li])
+            per_ray.append((oks, okb))
+        occ_rays.append((idx, per_ray))
+        return hits
+
+    kbs._closest_hit, kbs._occluded = hit, occ
+    try:
+        plain = kbs.trace_lanes_plain(tables, cfg, o, d, seed, si, pix,
+                                      residual=True)
+        resf = plain[1]
+    finally:
+        kbs._closest_hit, kbs._occluded = real_hit, real_occ
+    # only the shadow rays that reached their light (a nonzero "B" plane)
+    for b, (idx, per_ray) in enumerate(occ_rays):
+        reached = [resf[ix[("B", b, i)]][idx] != 0 for i in range(n_l)]
+        union = torch.zeros((len(idx), nb), dtype=torch.bool, device=dev)
+        for r, (oks, okb) in zip(reached, per_ray):
+            union |= okb & r[:, None]
+            stats["ops"] += float((okb[r].double() @ w_ray).sum()
+                                  + (oks[r].double() @ per_sup).sum()
+                                  * SHADOW_BLOCK_OPS) + int(r.sum()) * (
+                SHADOW_BLOCK_OPS * n_sup + SLACK_OPS + 6)
+            tally("occ", idx[r], oks[r], okb[r])
+        stats["ops"] += float((union.double() @ w_sh).sum())
+    n_b = [n] + [int((resf[ix[("tu", b)]] != 0).sum())
+                 for b in range(cfg.max_depth)]
+    stats["ops"] += sum(n_b[:-1]) * (62 + 6 + 134 * n_l + 90)
+    out = {"ops": stats["ops"], "blocks": nb, "supers": n_sup,
+           "plain": plain}
+    for kind in ("hit", "occ"):
+        for lvl, cnt in (("sup", n_sup), ("blk", nb)):
+            out[f"{kind}_{lvl}"] = stats[f"{kind}_{lvl}"] / max(
+                1.0, stats[f"{kind}_n"] * cnt)
+            out[f"{kind}_{lvl}_warp"] = stats[f"{kind}_{lvl}_w"] / max(
+                1.0, stats[f"{kind}_w_n"] * cnt)
+    return out
+
+
+def pass_rates(c: dict) -> str:
+    """`cull_counts`' pass rates as words."""
+    return ", ".join(
+        f"{what} superblocks {c[f'{k}_sup']:.4f} a lane, "
+        f"{c[f'{k}_sup_warp']:.4f} a warp, blocks {c[f'{k}_blk']:.4f} a lane,"
+        f" {c[f'{k}_blk_warp']:.4f} a warp"
+        for k, what in (("hit", "closest hit:"), ("occ", "occlusion:")))
+
+
 def demo_texture(n: int = 16) -> np.ndarray:
     """kytpu's (n, n, 3) texture-recovery pattern (kytpu/cli/inverse.py
     `demo_texture`, which imports jax): an RGB gradient and a yellow
@@ -539,6 +723,7 @@ def device_profile(fn, kernels: dict):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profiler_warm()
         fn()
         torch.cuda.synchronize()
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
@@ -555,6 +740,33 @@ def device_profile(fn, kernels: dict):
         if ms == 0:
             raise AssertionError(f"the profile shows no {k} kernel")
     return busy_us / 1e3, mine, len(evs)
+
+
+def profiler_warm() -> None:
+    """One small kernel, waited for, at the start of a profiled window: the
+    trace showed no record of the first kernel launched in a window (K7's
+    lane pass, K8's replay kernel), so that one is this."""
+    torch.zeros(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+
+
+def kernel_split(fn, top: int = 6) -> str:
+    """fn's device time under torch.profiler, by device kernel, the longest
+    first (names cut to 60 characters)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiler_warm()
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    parts = sorted(by.items(), key=lambda kv: -kv[1])
+    return (f"{sum(by.values()):.3f} ms in {len(by)} kernels: " + "; ".join(
+        f"{nm[:60]} {ms:.3f} ms" for nm, ms in parts[:top]))
 
 
 def check_recorded_step(kmod, seen, what: str, ks=("K1", "K2", "K3")):
@@ -1158,8 +1370,10 @@ def main() -> None:
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError(f"K7's gradient does not repeat bit for bit, "
                                  f"{tag}")
-        ref_l, ref_f, ref_i = kbs.trace_lanes_plain(tables, cfg, o, d, 21, si,
-                                                    pix, residual=True)
+        same_as_cull_off(tables, cfg, (o, d, 21, si, pix), g,
+                         (k5, (k6, resf, resi), k8), tag)
+        cull = cull_counts(tables, cfg, o, d, 21, si, pix)
+        ref_l, ref_f, ref_i = cull["plain"]
         share, mabs, mdev = compare(k5, ref_l, f"K5 {tag}")
         cerr = compare_cache(resf, resi, ref_f, ref_i, f"K6 cache {tag}")
         gerr = compare_grads(grads, kbs.bwd_res_plain(
@@ -1183,12 +1397,15 @@ def main() -> None:
               f"{share:.5f} of lanes outside rtol={RTOL}/atol={ATOL} (max "
               f"|err| {mabs:.3g}, mean within {mdev:.2f} SE); K6 radiance = "
               f"K5's bit for bit, cache {resf.shape[0]}+{resi.shape[0]} planes "
-              f"within the bound (max |err| {cerr:.3g}); K7 within the bound "
+              f"within the bound (max |err| {cerr:.3g}); K5, K6 and K8 with "
+              f"cull={cfg.cull!r} = cull='off' bit for bit; K7 within the bound "
               f"(max |err| {gerr:.3g}), repeats bit for bit; K8 within the "
               f"bound (max |err| {rerr:.3g}), repeats bit for bit, vs K7 "
               f"within rtol={CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| "
-              f"{xerr:.3g}){extra}", flush=True)
+              f"{xerr:.3g}){extra}; pass rates {pass_rates(cull)}",
+              flush=True)
     del k5, k6, resf, resi, ref_l, ref_f, ref_i, grads, again, k8, k8_again
+    del cull
 
     # 9b. K5 against K1 where both run: the Cornell box, engine="bigscene"
     cornell = scenes["cornell"]
@@ -1300,6 +1517,18 @@ def main() -> None:
             grads, kbs.bwd_res(tables, bcfg, g, k6, resf, resi))):
         raise AssertionError("K7's gradient does not repeat bit for bit at "
                              "1M lanes")
+    # the same build with the cull off: timed, and equal to the last bit
+    off = dataclasses.replace(bcfg, cull="off")
+    k5_off_ms, k5_off = cuda_time_ms(
+        lambda: kbs.trace_lanes(tables, off, o, d, 7), 3)
+    same_bits(k5, k5_off, "K5 against cull='off' at 1M lanes")
+    k6_off_ms, k6_off = cuda_time_ms(
+        lambda: kbs.trace_lanes(tables, off, o, d, 7, residual=True), 3)
+    same_bits((k6, resf, resi), k6_off, "K6 against cull='off' at 1M lanes")
+    del k5_off, k6_off
+    # where K7's time goes: its device kernels, the longest first
+    k7_split = kernel_split(lambda: kbs.bwd_res(tables, bcfg, g, k6, resf,
+                                                resi))
     plain_k6_ms, (ref_l, ref_f, ref_i) = once_ms(
         lambda: kbs.trace_lanes_plain(tables, bcfg, o, d, 7, residual=True))
     plain_k7_ms, ref_g = once_ms(
@@ -1312,6 +1541,11 @@ def main() -> None:
     res_n = resf.shape[0]
     ops5 = k5_ops(tables, resf, bcfg)
     ops8 = k8_ops(tables, resf, bcfg)
+    # the culled count: K5's work with each sweep culled by the lane's own
+    # rays; K8 adds its adjoint terms to it
+    cull = cull_counts(tables, bcfg, o, d, 7)
+    del cull["plain"]   # the peaks below hold their own cache, not this
+    ops5c, ops8c = cull["ops"], cull["ops"] + (ops8 - ops5)
     # the forward+backward's peak holds its own cache, not these
     del ref_l, ref_f, ref_i, ref_g, k6, resf, resi
     leaves = [t.clone().requires_grad_() for t in
@@ -1346,10 +1580,17 @@ def main() -> None:
         tables, bcfg, *kbs.bwd_replay_plain(tables, bcfg, o, d, 7, None, None,
                                             g, k5)))
     rerr8 = compare_grads(k8, ref_g8, f"K8 spheres {n_big} lanes")
+    k8_off_ms, k8_off = cuda_time_ms(
+        lambda: kbs.bwd_replay(tables, off, o, d, 7, None, None, g, k5), 3)
+    same_bits(tuple(k8), tuple(k8_off), "K8 against cull='off' at 1M lanes")
+    del k8_off
     xerr8 = compare_grads(k8, grads, f"K8 vs K7 spheres {n_big} lanes",
                           CROSS_RTOL, CROSS_ATOL)
     err_k8 = max(err_k8, rerr8)
     del ref_g8
+    k8_split = kernel_split(lambda: kbs.bwd_replay(tables, bcfg, o, d, 7,
+                                                   None, None, g, k5))
+    print(f"profile: K7 {k7_split}; K8 {k8_split}", flush=True)
     big_replay = kbs.make_bigscene_diff_tracer(sc, bcfg, backward="replay")
 
     def big_fwd_bwd_replay():
@@ -1376,8 +1617,10 @@ def main() -> None:
                              "K8's")
     m_rows = int(sc.mat_kind.shape[0])
     n_l = len(tables.static["lights"])
-    bounds["K5"] = bound_ms(n_big * (24 + 12), ops5)
-    bounds["K6"] = bound_ms(n_big * (24 + 12) + big_cache, ops5)
+    bounds["K5"] = bound_ms(n_big * (24 + 12), ops5c)
+    bounds["K6"] = bound_ms(n_big * (24 + 12) + big_cache, ops5c)
+    full_bounds = {"K5": bound_ms(n_big * (24 + 12), ops5),
+                   "K6": bound_ms(n_big * (24 + 12) + big_cache, ops5)}
     # K7 reads the cache, g and L and writes the (M, 10) tables; its
     # arithmetic is K3's per lane-bounce
     bounds["K7"] = bound_ms(big_cache + n_big * 24 + m_rows * 10 * 4,
@@ -1386,7 +1629,22 @@ def main() -> None:
     # K8 reads the rays, g and L and writes the (M, 9) tables (its row-tagged
     # planes are its own scratch, not the function's bytes)
     PB = 9
-    bounds["K8"] = bound_ms(n_big * (24 + 12 + 12) + m_rows * PB * 4, ops8)
+    bounds["K8"] = bound_ms(n_big * (24 + 12 + 12) + m_rows * PB * 4, ops8c)
+    full_bounds["K8"] = bound_ms(n_big * (24 + 12 + 12) + m_rows * PB * 4,
+                                 ops8)
+    # the mesh's K5 on its 1M pixel-centre lanes, culled and not
+    msc = big_cuda["mesh"]
+    mo, md = pixel_centre_rays(msc, n_big)
+    mtab = kbs.pack_big_tables(msc, bcfg)
+    mk5_ms, mk5 = cuda_time_ms(lambda: kbs.trace_lanes(mtab, bcfg, mo, md, 7),
+                               3)
+    mk5_off_ms, mk5_off = cuda_time_ms(
+        lambda: kbs.trace_lanes(mtab, off, mo, md, 7), 3)
+    same_bits(mk5, mk5_off, "mesh K5 against cull='off' at 1M lanes")
+    mcull = cull_counts(mtab, bcfg, mo, md, 7)
+    del mcull["plain"]
+    m_bound = bound_ms(n_big * (24 + 12), mcull["ops"])
+    del mk5, mk5_off, mo, md
     print(f"timing: spheres 1026 surfaces, depth 3, {n_big} pixel-centre "
           f"lanes (benchmarks/run.py): K5 {k5_ms:.3f} ms "
           f"({n_big / k5_ms / 1e3:.2f} Mrays/s), plain K5 {plain_k5_ms:.1f} "
@@ -1413,10 +1671,26 @@ def main() -> None:
           f"{rerr8:.3g}, repeats bit for bit; K8 vs K7 within rtol="
           f"{CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| {xerr8:.3g}); on {smi}",
           flush=True)
+    print(f"cull: spheres {n_big} lanes: "
+          f"with cull={bcfg.cull!r} K5 {k5_ms:.3f} ms, K6 {k6_ms:.3f} ms, K8 "
+          f"{k8_ms:.3f} ms; the same build with cull='off' K5 {k5_off_ms:.3f}"
+          f" ms, K6 {k6_off_ms:.3f} ms, K8 {k8_off_ms:.3f} ms, equal to the "
+          f"last bit; pass rates (from the plain run's rays, over "
+          f"{cull['supers']} superblocks and {cull['blocks']} blocks): "
+          f"{pass_rates(cull)}; on {smi}", flush=True)
+    print(f"cull: mesh (1282 surfaces) {n_big} pixel-centre lanes, depth 3: "
+          f"K5 {mk5_ms:.3f} ms, cull='off' {mk5_off_ms:.3f} ms, equal to "
+          f"the last bit; culled bound {m_bound[0]:.4f} ms by {m_bound[1]} "
+          f"(ops {mcull['ops']:.4g}); pass rates (over {mcull['supers']} "
+          f"superblocks, {mcull['blocks']} blocks): {pass_rates(mcull)}",
+          flush=True)
     for k in ("K5", "K6", "K7", "K8"):
-        print(f"bound: {k} {bounds[k][0]:.4f} ms by {bounds[k][1]} (K5 ops "
-              f"{ops5:.4g}, K8 ops {ops8:.4g}, cache {big_cache:.4g} B)",
-              flush=True)
+        full = (f", full sweep {full_bounds[k][0]:.4f} ms by "
+                f"{full_bounds[k][1]}" if k in full_bounds else "")
+        print(f"bound: {k} {bounds[k][0]:.4f} ms by {bounds[k][1]} (culled K5 "
+              f"ops {ops5c:.4g}, K8 ops {ops8c:.4g}; full-sweep K5 ops "
+              f"{ops5:.4g}, K8 ops {ops8:.4g}; cache {big_cache:.4g} B"
+              f"{full})", flush=True)
     del k5, grads, g, leaves, o, d, k8
 
     # 9e. training past 64 surfaces through make_train_step (K6, K7)
@@ -1765,8 +2039,10 @@ def main() -> None:
                                           k5))):
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{tag}: {nm} does not repeat")
-        ref_l, ref_f, ref_i = kbs.trace_lanes_plain(tables, cfg, o, d, 43, si,
-                                                    pix, residual=True)
+        same_as_cull_off(tables, cfg, (o, d, 43, si, pix), g,
+                         (k5, (k6, resf, resi), k8), tag)
+        cull = cull_counts(tables, cfg, o, d, 43, si, pix)
+        ref_l, ref_f, ref_i = cull["plain"]
         share, mabs, _ = compare(k5, ref_l, f"K5 {tag}")
         cerr = compare_cache(resf, resi, ref_f, ref_i, f"K6 cache {tag}")
         gerr = compare_grads(k7, kbs.bwd_res_plain(tables, cfg, g, ref_l,
@@ -1788,9 +2064,11 @@ def main() -> None:
               f" K7 (max |err| {gerr:.3g}) and K8 (max |err| {rerr:.3g}) "
               f"within the bound, repeat bit for bit; K8 vs K7 within rtol="
               f"{CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| {xerr:.3g}); "
-              f"largest texture adjoints (dta, dtb[, dti]) "
-              f"{', '.join(f'{v:.3g}' for v in tex)}", flush=True)
-    del k5, k6, k7, k8, resf, resi, ref_l, ref_f, ref_i
+              f"K5, K6 and K8 with cull={cfg.cull!r} = cull='off' bit for "
+              f"bit; largest texture adjoints (dta, dtb[, dti]) "
+              f"{', '.join(f'{v:.3g}' for v in tex)}; pass rates "
+              f"{pass_rates(cull)}", flush=True)
+    del k5, k6, k7, k8, resf, resi, ref_l, ref_f, ref_i, cull
     # the textured K5 against K1 on the textured Cornell box
     tcorn = builders.cornell_box(width=256, height=256, floor_checker=True,
                                  back_image=rng.uniform(0.1, 0.9, (8, 8, 3))
@@ -2145,10 +2423,18 @@ def main() -> None:
         raise AssertionError(f"the textured big replay path launched K5-K8 "
                              f"{tex_big_replay} and K1-K4 {counts()}, or its "
                              f"gradient is not K8's")
+    same_as_cull_off(tables, bcfg, (o, d, 7, None, None), g,
+                     (k5, (k6, resf, resi), k8), "textured spheres 1M lanes")
     ops5t = k5_ops(tables, resf, bcfg)
     ops8t = k8_ops(tables, resf, bcfg)
+    tcull = cull_counts(tables, bcfg, o, d, 7)
+    del tcull["plain"]
     t_cache = resf.numel() * 4 + resi.numel() * 4
     PB = 9
+    tex_full = {"K5": bound_ms(n_big * (24 + 12), ops5t),
+                "K8": bound_ms(n_big * (24 + 12 + 12) + m_rows * PB * 4,
+                               ops8t)}
+    ops5t, ops8t = tcull["ops"], tcull["ops"] + (ops8t - ops5t)
     tex_bounds = {
         "K5": bound_ms(n_big * (24 + 12), ops5t),
         "K7": bound_ms(t_cache + n_big * 24 + m_rows * PB * 4, float(
@@ -2163,9 +2449,14 @@ def main() -> None:
           f" K8 vs K7 max |diff| {xerr:.3g}; the replay path launched "
           f"K5/K6/K7/K8 {tex_big_replay}, its gradient K8's bit for bit; on "
           f"{smi}", flush=True)
+    print(f"cull textured: K5, K6 and K8 = cull='off' bit for bit at 1M "
+          f"lanes; pass rates {pass_rates(tcull)}", flush=True)
     for k, (t, by) in tex_bounds.items():
-        print(f"bound textured: {k} {t:.4f} ms by {by} (K5 ops {ops5t:.4g}, "
-              f"K8 ops {ops8t:.4g}, cache {t_cache:.4g} B)", flush=True)
+        full = (f", full sweep {tex_full[k][0]:.4f} ms by {tex_full[k][1]}"
+                if k in tex_full else "")
+        print(f"bound textured: {k} {t:.4f} ms by {by} (culled K5 ops "
+              f"{ops5t:.4g}, K8 ops {ops8t:.4g}, cache {t_cache:.4g} B{full})",
+              flush=True)
     del k5, k6, k7, k8, resf, resi, g, o, d, leaves
 
     # 11e. a smallpt frame through render() (K1)

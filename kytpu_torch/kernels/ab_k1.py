@@ -1,6 +1,6 @@
-"""A/B timing of the forward megakernels K1 and K5, the residual forward
-K2, the replay backward K4 and a frame around K1, between this checkout
-and other ones of the port, on one card, in one run.
+"""A/B timing of the forward megakernels K1 and K5, the residual forwards
+K2 and K6, the replay backwards K4 and K8 and a frame around K1, between
+this checkout and other ones of the port, on one card, in one run.
 
     git archive <commit> | tar -x -C _archive/parent
     python -m kytpu_torch.kernels.ab_k1 _archive/parent [_archive/other ...]
@@ -25,7 +25,9 @@ Cornell box 256x256 frame at 64 spp through `render()` (the median of 5
 warmed frames, host code included), then the ms of 3 rounds of 3 warmed
 launches of the untextured big-scene forward K5 on random_spheres(1024) at
 depth 3 over its 1M pixel-centre lanes (chip_smoke.py's phase 9d) and that
-radiance's sum, then the same of K1 and K4 on those lanes of the scene
+radiance's sum, then the same of its residual forward K6 (and its cache's
+sum) and of its replay backward K8 (upstream gradient 1/N; its gradient's
+sum), then the same of K1 and K4 on those lanes of the scene
 with a 16x16 ground atlas (1,026 surfaces, its tables in device memory,
 K4 row-tagged; chip_smoke.py's phase 11d). The card's name and power
 limit come first, each checkout's K1/K2/K4 registers, stack and spills
@@ -162,6 +164,36 @@ for _ in range(3):
     t1.record()
     torch.cuda.synchronize()
     k5_ms.append(t0.elapsed_time(t1) / 3)
+btab = kbs.pack_big_tables(big, bcfg)
+res = kbs.trace_lanes(btab, bcfg, bo, bd, 7, residual=True)
+del res
+k6_ms = []
+for _ in range(3):
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(3):
+        res = kbs.trace_lanes(btab, bcfg, bo, bd, 7, residual=True)
+        del res
+    t1.record()
+    torch.cuda.synchronize()
+    k6_ms.append(t0.elapsed_time(t1) / 3)
+_, bresf, bresi = kbs.trace_lanes(btab, bcfg, bo, bd, 7, residual=True)
+k6_sum = float(bresf.double().sum()) + float(bresi.double().sum())
+del bresf, bresi
+gb1 = torch.full((nb, 3), 1.0 / nb, device="cuda")
+k8 = kbs.bwd_replay(btab, bcfg, bo, bd, 7, None, None, gb1, bout)
+k8_ms = []
+for _ in range(3):
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(3):
+        k8 = kbs.bwd_replay(btab, bcfg, bo, bd, 7, None, None, gb1, bout)
+    t1.record()
+    torch.cuda.synchronize()
+    k8_ms.append(t0.elapsed_time(t1) / 3)
+k8_sum = sum(float(t.double().sum()) for t in k8)
 import dataclasses
 from kytpu_torch.scene import texture as ktex
 tid = torch.full((int(big.mat_kind.shape[0]),), -1, dtype=torch.int32)
@@ -203,7 +235,9 @@ print(json.dumps({"ms": ms, "sum": float(out.double().sum()),
                   "frame_ms": float(np.median(walls)), "k2_ms": k2_ms,
                   "k2_sum": k2_sum,
                   "k5_ms": k5_ms,
-                  "k5_sum": float(bout.double().sum())}))
+                  "k5_sum": float(bout.double().sum()),
+                  "k6_ms": k6_ms, "k6_sum": k6_sum,
+                  "k8_ms": k8_ms, "k8_sum": k8_sum}))
 """
 
 
@@ -218,13 +252,15 @@ def run(root: Path) -> dict:
 
 def ptxas_lines(report: str) -> list[str]:
     """-Xptxas -v's registers, stack and spills of each K1/K2/K4
-    instantiation, wavefront_fwd_kernel<MODE, SOBOL, TEX, ROWTAG[, SH]>."""
+    instantiation, wavefront_fwd_kernel<MODE, SOBOL, TEX, ROWTAG[, SH]>, and
+    each K5/K6/K8 one, bigscene_fwd_kernel<MODE, SOBOL, TEX>."""
     lines, name, frame = [], None, ""
     for ln in report.splitlines():
-        m = re.search(r"wavefront_fwd_kernelI((?:L[ib]\d+E)+)E", ln)
+        m = re.search(r"(wavefront|bigscene)_fwd_kernelI((?:L[ib]\d+E)+)E",
+                      ln)
         if "Compiling entry" in ln:
-            name = ("<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(1)))
-                    + ">") if m else None
+            name = (m.group(1) + "<" + ",".join(
+                re.findall(r"L[ib](\d+)E", m.group(2))) + ">") if m else None
         elif name and "stack frame" in ln:
             frame = ln.split(":", 1)[-1].strip()
         elif name and "Used" in ln:
@@ -236,7 +272,7 @@ def ptxas_lines(report: str) -> list[str]:
 
 def prebuild(roots) -> None:
     """Build every checkout's kernels at once, one process each, and print
-    each one's K1/K2/K4 registers, stack and spills."""
+    each one's K1/K2/K4 and K5/K6/K8 registers, stack and spills."""
     procs = [subprocess.Popen(
         [sys.executable, "-m", "kytpu_torch.kernels.build"], cwd=root,
         env=dict(os.environ, PYTHONPATH=str(root)), stdout=subprocess.PIPE,
@@ -263,7 +299,7 @@ def main(others: list[str]) -> None:
     for root in order:
         r = run(root)
         sums.add((r["sum"], r["k2_sum"], r["k4_sum"], r["k5_sum"],
-                  r["p64_sum"]))
+                  r["p64_sum"], r["k6_sum"], r["k8_sum"]))
         seen.setdefault(root, []).append(r)
         print(f"{root}: K1 ms "
               f"{', '.join(f'{t:.3f}' for t in r['ms'])}; sum {r['sum']!r}; "
@@ -275,7 +311,11 @@ def main(others: list[str]) -> None:
               f"{r['step_dev_ms']:.3f}, host {r['step_host_ms']:.3f} a call); "
               f"Cornell 64-spp frame {r['frame_ms']:.3f} "
               f"ms; K5 ms {', '.join(f'{t:.3f}' for t in r['k5_ms'])}; sum "
-              f"{r['k5_sum']!r}; K1 past 64 ms "
+              f"{r['k5_sum']!r}; K6 ms "
+              f"{', '.join(f'{t:.3f}' for t in r['k6_ms'])}; cache sum "
+              f"{r['k6_sum']!r}; K8 ms "
+              f"{', '.join(f'{t:.3f}' for t in r['k8_ms'])}; gradient sum "
+              f"{r['k8_sum']!r}; K1 past 64 ms "
               f"{', '.join(f'{t:.3f}' for t in r['p64_ms'])}; sum "
               f"{r['p64_sum']!r}; K4 past 64 ms "
               f"{', '.join(f'{t:.3f}' for t in r['p64_k4_ms'])}", flush=True)
@@ -283,7 +323,9 @@ def main(others: list[str]) -> None:
         mean = lambda k: sum(sum(r[k]) / len(r[k]) for r in rs) / len(rs)  # noqa
         print(f"mean {root.name}: K1 {mean('ms'):.3f} ms, K2 "
               f"{mean('k2_ms'):.3f} ms, K4 {mean('k4_ms'):.3f} ms, K2 at a "
-              f"train step's lanes {mean('step_ms'):.3f} ms, K5 {mean('k5_ms'):.3f} ms, K1 past 64 "
+              f"train step's lanes {mean('step_ms'):.3f} ms, K5 "
+              f"{mean('k5_ms'):.3f} ms, K6 {mean('k6_ms'):.3f} ms, K8 "
+              f"{mean('k8_ms'):.3f} ms, K1 past 64 "
               f"{mean('p64_ms'):.3f} ms, K4 past 64 {mean('p64_k4_ms'):.3f} "
               f"ms, frame "
               f"{sum(r['frame_ms'] for r in rs) / len(rs):.3f} ms", flush=True)

@@ -33,8 +33,16 @@ row whatever its light binding; NEE samples every light (cfg.nee is not
 read) with one occlusion sweep a bounce; under shadow="robust" each light's
 shadow ray skips the light's own emitting surface. kytpu's default past 64
 surfaces is its matmul sweep (cfg.sweep="auto"), about an ulp away from
-the scalar sweep that the port runs for every cfg.sweep; the cone cull
-(cfg.cull) changes no result in kytpu and is not run. Textures as kytpu's
+the scalar sweep that the port runs for every cfg.sweep. cfg.cull: kytpu
+skips the 8-row blocks that a tile's ray cone cannot meet, on its primary
+sweep ("cone") and on compact lights' shadow sweeps ("cone+nee"), where its
+rays are coherent; on the card "cone" and "cone+nee" cull every sweep, each
+lane testing its own rays against the padded bounding spheres of 8
+consecutive blocks and of each block (`cull_bounds`, `block_meets_plain`)
+and a warp skipping what no lane meets, since a per-lane test does not fall apart on incoherent rays as a
+per-tile cone does; "off" sweeps every row. The cull is exact-conservative:
+the results are the full sweep's to the last bit, so the plain versions
+sweep every row whatever cfg.cull says. Textures as kytpu's
 table kernel evaluates them: checkers and atlases of its select chain (at
 most 64 texels, power-of-two sides) on planar rows, found by the hit's
 global row; K6 caches the textured diffuse, the checker parity (bit 22 of
@@ -116,8 +124,8 @@ def _morton3(points: np.ndarray, lo: np.ndarray, hi: np.ndarray):
 def _block_bounds(centers, radii):
     """Per-UNROLL-block bounding spheres of (already sorted, unpadded)
     per-entry bounds -> (n_blocks, 4) [cx cy cz r]; blocks made entirely of
-    padding get r = -1. kytpu's cone cull reads them; the port keeps them
-    in the tables for parity and a later per-warp cull."""
+    padding get r = -1, as kytpu's (its cone cull reads them);
+    `cull_bounds` pads them for the kernels' per-lane cull."""
     n = len(radii)
     npad = ((n + UNROLL - 1) // UNROLL) * UNROLL if n else 0
     out = np.zeros((npad // UNROLL if npad else 0, 4), np.float32)
@@ -303,6 +311,86 @@ def bigres_layout(cfg: kwf.KernelConfig, n_lights: int, has_env: bool,
     return {t: i for i, t in enumerate(tags)}, len(tags)
 
 
+# csrc/bigscene_fwd.cu's cull pad: a block's bounding radius grows by
+# CULL_PAD of its centre's and radius's size, and each lane adds CULL_PAD
+# of its ray origin's size (`cull_slack_plain`)
+CULL_PAD = 2.0 ** -12
+# blocks a superblock of the cull (SUPER_BLOCKS in csrc/bigscene_fwd.cu)
+SUPER = 8
+
+
+def _padded(c, r) -> np.ndarray:
+    """(n, 4) float32 [c R] of float64 centres and radii, R = r + CULL_PAD
+    * (|cx| + |cy| + |cz| + r) rounded up to a float32."""
+    r = r + CULL_PAD * (np.abs(c).sum(-1) + r)
+    r32 = r.astype(np.float32)
+    r32 = np.where(r32 < r, np.nextafter(r32, np.float32(np.inf)), r32)
+    return np.concatenate([c.astype(np.float32), r32[:, None]], -1)
+
+
+def cull_bounds(tables) -> np.ndarray:
+    """The kernels' cull bounds of `extract_tables`' tables, one (blocks +
+    superblocks, 4) float32 array [cx cy cz R]: each class's 8-row block
+    bounds (kytpu's `_block_bounds`, r * 1.0001 + 1e-6), tri | rect | disk
+    | sphere, then each class's superblock bounds, a sphere around SUPER
+    consecutive block bounds.
+
+    Each R adds CULL_PAD * (|cx| + |cy| + |cz| + r) to r and is rounded up
+    to a float32. Why that is enough: a row test accepts a point off its
+    surface only by the rounding of a few dozen float32 operations on the
+    ray's origin, the row's constants and t |d|, each at most |o| + |c| + r
+    in size (a hit inside a block is no farther than that from the origin);
+    the block test (`block_meets_plain`) rounds as much again. That is some
+    tens of ulps of |o| + |c| + r. CULL_PAD, 2^-12, is 2^11 ulps of that
+    size, the bound's share here and the origin's added by each lane: at
+    the spheres' |x|, |z| <= 35.2 it is about 0.02, a few percent of a
+    block's radius, so the pad costs little cull. A superblock's sphere
+    holds its blocks' padded spheres whole (float64, then the same pad)."""
+    blocks, supers = [], []
+    for k in CLASSES:
+        b = np.asarray(tables[k][2], np.float64).reshape(-1, 4)
+        pb = _padded(b[:, :3], b[:, 3])
+        blocks.append(pb)
+        for s0 in range(0, len(pb), SUPER):
+            g = pb[s0:s0 + SUPER].astype(np.float64)
+            lo = (g[:, :3] - g[:, 3:]).min(0)
+            hi = (g[:, :3] + g[:, 3:]).max(0)
+            c = (lo + hi) * 0.5
+            r = np.max(np.linalg.norm(g[:, :3] - c, axis=-1) + g[:, 3])
+            supers.append(_padded(c[None], np.array([r])))
+    return np.concatenate(blocks + supers + [np.zeros((0, 4), np.float32)])
+
+
+def cull_slack_plain(o: V3, d: V3):
+    """csrc/bigscene_fwd.cu `cull_slack`: (a ray's slack, 1 / |d|^2); the
+    slack is CULL_PAD * |o|_1, or inf (every block passes) where the ray,
+    |d|^2 or its inverse is not finite or |d|^2 is 0."""
+    dd = d.dot(d)
+    inv = km.div(1.0, dd)
+    s = kwf._f32(CULL_PAD) * ((torch.abs(o.x) + torch.abs(o.y))
+                             + torch.abs(o.z))
+    ok = torch.isfinite(s) & torch.isfinite(dd) & torch.isfinite(inv) \
+        & (dd > 0)
+    return torch.where(ok, s, torch.full_like(s, math.inf)), inv
+
+
+def block_meets_plain(bnd: torch.Tensor, o: V3, d: V3, inv, t1, slack):
+    """csrc/bigscene_fwd.cu `block_meets`, the kernels' per-lane block test,
+    on (C,) rays against (B, 4) bounds -> (C, B): can o + t d, t in [0,
+    t1], come within R + slack of the block's centre? The closest point's
+    t is clamped to the segment; a NaN passes."""
+    col = lambda x: x.reshape(-1, 1)  # noqa: E731
+    v = V3(bnd[:, 0] - col(o.x), bnd[:, 1] - col(o.y), bnd[:, 2] - col(o.z))
+    dc = V3(col(d.x), col(d.y), col(d.z))
+    tc = v.dot(dc) * col(inv)
+    tc = torch.where(tc < 0, torch.zeros_like(tc), tc)
+    t1 = col(t1).expand_as(tc)
+    tc = torch.where(tc > t1, t1, tc)
+    p = v - dc * tc
+    rl = bnd[:, 3] + col(slack)
+    return ~(p.dot(p) > rl * rl)
+
+
 @dataclass(frozen=True)
 class BigTables:
     """What one big-scene launch reads. geo: the class tables' real rows
@@ -313,8 +401,9 @@ class BigTables:
     geometry records; mat_i (M, 2) int32: material kind, light index;
     tex_rec (M,) int32: each row's texture record (-1: none), read only by
     the textured instantiations; mat_f (M, 4) float32: eta, d_prob, s_prob,
-    0. Then the tables a render may change without repacking (texa, texb,
-    timg: one zero row each in an untextured scene)."""
+    0; bnd (blocks + superblocks, 4) float32: `cull_bounds`. Then the
+    tables a render may change without repacking (texa, texb, timg: one
+    zero row each in an untextured scene)."""
 
     static: dict
     counts: tuple
@@ -325,6 +414,7 @@ class BigTables:
     mat_i: torch.Tensor
     tex_rec: torch.Tensor
     mat_f: torch.Tensor
+    bnd: torch.Tensor
     diffuse: torch.Tensor     # (M, 3)
     specular: torch.Tensor    # (M, 3)
     emission: torch.Tensor    # (M, 3)
@@ -380,7 +470,8 @@ def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig,
     return BigTables(static=static, counts=counts, geo=t(geo), rows=t(rows),
                      f=t(np.concatenate([hf, lf, tf])),
                      i=t(np.concatenate([hi, li, ti])), mat_i=t(mat_i),
-                     tex_rec=t(tex_rec), mat_f=t(mat_f), **kwf._color_tables(scene),
+                     tex_rec=t(tex_rec), mat_f=t(mat_f),
+                     bnd=t(cull_bounds(tables)), **kwf._color_tables(scene),
                      **kwf._texture_tables(scene))
 
 
@@ -1192,7 +1283,7 @@ launches_replay = 0
 
 _TABLES = ("f", "i", "geo", "rows", "mat_i", "mat_f", "diffuse", "specular",
            "emission", "exponent", "light_emit", "env", "texa", "texb", "timg",
-           "tex_rec")
+           "tex_rec", "bnd")
 
 
 def _check_tables(tables: BigTables, dev):
@@ -1216,6 +1307,13 @@ def _n_cols(tables: BigTables) -> int:
 
 def _textured(tables: BigTables) -> int:
     return int(bool(tables.static["textures"]))
+
+
+def _cull_args(tables: BigTables, cfg: kwf.KernelConfig) -> list:
+    """K5's, K6's and K8's last arguments: whether to cull, and the shadow
+    rays a chunk of the light loop holds."""
+    return [int(cfg.cull != "off"),
+            min(len(tables.static["lights"]), kwf.NEE_CHUNK)]
 
 
 def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
@@ -1244,7 +1342,8 @@ def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
              o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), out.data_ptr(),
              ptr(resf), ptr(resi), n, *tables.counts,
              len(tables.static["mats"]["kind"]), *kwf._cfg_args(cfg, seed),
-             int(cfg.trainable_exponent), int(residual), _textured(tables))
+             int(cfg.trainable_exponent), int(residual), _textured(tables),
+             *_cull_args(tables, cfg))
     if not residual:
         launches += 1
         return out
@@ -1349,7 +1448,7 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
              partial.data_ptr(), lane_sums.data_ptr(), *map(ptr, tex), n, k,
              *tables.counts, len(tables.static["mats"]["kind"]),
              *kwf._cfg_args(cfg, seed), int(cfg.trainable_exponent),
-             _textured(tables))
+             _textured(tables), *_cull_args(tables, cfg))
     launches_replay += 1
     return _sums(lib, tables, cfg, dout, tags, lane_sums, tex)
 

@@ -118,10 +118,10 @@ def load() -> ctypes.CDLL:
         lib.kytpu_wavefront_bwd_res.argtypes = [p] * 19 + [i] * 5 + [p]
         lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 23 + [i] * 12 + [p]
         lib.kytpu_wavefront_chunk.argtypes = [i] * 7
-        lib.kytpu_bigscene_fwd.argtypes = [p] * 23 + [i] * 15 + [p]
+        lib.kytpu_bigscene_fwd.argtypes = [p] * 24 + [i] * 17 + [p]
         lib.kytpu_bigscene_bwd_res.argtypes = [p] * 13 + [i] * 7 + [p]
         lib.kytpu_bigscene_segment_sums.argtypes = [p] * 4 + [i] * 4 + [p]
-        lib.kytpu_bigscene_bwd_replay.argtypes = [p] * 28 + [i] * 15 + [p]
+        lib.kytpu_bigscene_bwd_replay.argtypes = [p] * 29 + [i] * 17 + [p]
         for fn in (lib.kytpu_wavefront_fwd, lib.kytpu_wavefront_fwd_res,
                    lib.kytpu_wavefront_bwd_res,
                    lib.kytpu_wavefront_bwd_replay, lib.kytpu_wavefront_chunk,

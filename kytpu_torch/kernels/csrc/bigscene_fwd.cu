@@ -18,30 +18,61 @@
 // BSDFs, RNG and vector maths are K1's (megakernel.cuh), reading a header
 // and light records packed as K1's are.
 //
-// Design. One thread runs one lane's whole path (128 threads a block); the
-// path state lives in registers. The geometry is one table per shape class
-// (tri, rect: 12 floats a row; disk: 8; sphere: 4), rows in Morton order,
-// read through __ldg: every lane of a warp reads the same row at the same
-// step, so each read is one broadcast. The closest-hit sweep carries only
-// (t, class, table row); the material is gathered by the hit's global row
-// after the sweep (the TPU carries 16 material columns through a select per
-// surface because its vector unit has no per-lane gather; the card does
-// not need that). The NEE occlusion is one sweep a bounce that tests the
-// shadow ray of every light still unblocked on each row, and a lane leaves
-// the sweep once every ray is blocked. A lane leaves the bounce loop when
-// it dies, in place of the TPU's whole-tile dead skip; every random draw is
-// a stateless hash of (key, lane, draw counter), as in K1. kytpu's cone
-// cull changes no result (its tests pin that) and is not run here; its
-// matmul sweep is about an ulp from the scalar sweep this file transcribes.
+// Design (PR 8's redesign; PERF.md has each step's times). One thread
+// runs one lane's whole path (128 threads a block), lanes in pixel order;
+// the path state lives in registers. The geometry is one table per shape
+// class (tri, rect: 12 floats a row; disk: 8; sphere: 4), rows in Morton
+// order, read through __ldg: every lane of a warp reads the same row at the
+// same step, so each read is one broadcast. The closest-hit sweep carries
+// only (t, class, table row); the material is gathered by the hit's global
+// row after the sweep. Every random draw is a stateless hash of (key, lane,
+// draw counter), as in K1.
 //
-// What bounds K5 on the H100: FP32 issue of the sweeps, about 25-35
-// operations per row and ray, (1 + L) rays a bounce, against a few bytes a
-// lane of memory traffic (24 B of ray in, 12 B of radiance out; the tables,
-// 48 B a row, stay in L1/L2). K6 adds (res_n + max_depth + 1) * 4 bytes of
+// 1. The block cull at the warp, on every sweep. Each class's rows come in
+//    blocks of 8 (kbs.extract_tables sorts them by Morton code), and each
+//    block has a bounding sphere, padded so that no row test's rounding can
+//    reach past it (kbs.cull_bounds; each lane adds CULL_PAD of its
+//    origin's size, `cull_slack`). Before a block's rows, each lane tests
+//    its own ray over [0, t_best] (closest hit) or each of its open shadow
+//    rays over [0, tmax] from the offset origin (occlusion) against the
+//    block's sphere, and the warp skips the rows only when no lane's ray
+//    can meet it (__any_sync over the lanes in the sweep). A lane whose ray
+//    is not finite passes every block. The rows are visited in the same
+//    order and a skipped block holds no row that any lane would have taken,
+//    so the results are those of the full sweep to the last bit; cull = 0
+//    (cfg.cull="off") sweeps every row. kytpu culls per tile with a ray cone,
+//    and only where its rays are coherent; a per-lane test does not fall
+//    apart on incoherent rays, so here every sweep is culled. The votes
+//    need the lanes that reach them: every thread of a warp stays in the
+//    bounce loop until the warp's last lane ends (a finished lane with a
+//    false `live`), the closest sweep's mask is the ballot of the live
+//    lanes, the occlusion sweep's that of the lanes with a shadow ray, and
+//    a sweep's lanes leave it together.
+// 2. The shadow rays out of local memory. The lights are sampled, swept and
+//    accumulated in chunks of min(L, NEE_CHUNK), as K1 does: each shadow
+//    ray's direction, tmax, n.wi, NEE factors, 1 / |wi|^2 and cull slack
+//    sit in this thread's column of a shared-memory block (`Rays`), and the
+//    next bounce's hit pdf of a sphere light is recomputed from the previous
+//    vertex (light_phit), which replaces a per-light array. A ray's
+//    occlusion is a boolean and the sums keep light order: the bits do not
+//    change.
+// 3. Superblocks: a bound around each SUPER_BLOCKS consecutive blocks is
+//    tested first, the same way, and its blocks' bounds only where a lane
+//    meets it: a warp tests about 74 bounds a sweep on random_spheres(1024)
+//    in place of 130 (K5 23% faster). Staging the bounds or the rows in
+//    shared memory gained nothing measurable (the reads are warp-uniform
+//    broadcasts that L1 serves), and neither did forcing 4, 5 or 6 blocks
+//    an SM with __launch_bounds__: the compiler's own register choice (72
+//    for K5 and K6, 96 for K8, with a few hundred bytes of spills) runs
+//    fastest.
+//
+// What bounds K5 on the H100: FP32 issue of the sweeps (about 25-35
+// operations per row and ray, a similar count per block test), against a
+// few bytes a lane of memory traffic (24 B of ray in, 12 B of radiance out;
+// the tables stay in L1/L2). K6 adds (res_n + max_depth + 1) * 4 bytes of
 // cache stores a lane, plane-major (plane k of lane i at k * n + i). Built
 // with --fmad=false and without fast math, so it rounds as the plain
-// version does. Simple first: shared-memory table staging, a per-warp cull
-// and the light loop unrolled for small L are later work.
+// version does.
 //
 // K8 keeps K5's path state and adds g, the tail radiance and the bounce's
 // colour adjoints. As K7 does, it writes each bounce's adjoints tagged with
@@ -104,17 +135,40 @@ struct BigArgs {
   const int* tex_rec;
   float* tex_dout;
   int* tex_tags;
+  // step 1: each class's 8-row block bounds (cx, cy, cz, padded r), tri |
+  // rect | disk | sphere, then each class's bounds of 8 blocks, and whether
+  // to cull; step 2: the shadow rays a chunk holds
+  const float4* bnd;
+  int cull, nee_rays;
 };
 
 constexpr int PG = 12, DG = 8, SG = 4;  // columns of the class tables
+constexpr int BLOCK_ROWS = 8;           // rows a cull block (kbs.UNROLL)
+constexpr int SUPER_BLOCKS = 8;         // blocks a superblock (kbs.SUPER)
+// lights sampled, swept and accumulated together at most (step 2),
+// NEE_CHUNK in wavefront.py
+constexpr int NEE_CHUNK = 8;
+constexpr int THREADS = 128;
+// a lane's share of the cull pad: CULL_PAD times the size of its ray's
+// origin (CULL_PAD in bigscene.py)
+constexpr float CULL_PAD = 1.0f / 4096.0f;
 
-// the class tables' bases
+__device__ __forceinline__ int blocks_of(int rows) { return (rows + BLOCK_ROWS - 1) / BLOCK_ROWS; }
+__device__ __forceinline__ int supers_of(int rows) {
+  return (blocks_of(rows) + SUPER_BLOCKS - 1) / SUPER_BLOCKS;
+}
+
+// the class tables' bases and their block and superblock bounds
 struct Tables {
   const float *tri, *rect, *disk, *sph;
   const int *tri_r, *rect_r, *disk_r, *sph_r;
+  const float4 *tri_b, *rect_b, *disk_b, *sph_b;
+  const float4 *tri_s, *rect_s, *disk_s, *sph_s;
   int n_tri, n_rect, n_disk, n_sph;
+  bool cull;
   __device__ void init(const BigArgs& a) {
     n_tri = a.n_tri; n_rect = a.n_rect; n_disk = a.n_disk; n_sph = a.n_sph;
+    cull = a.cull != 0;
     tri = a.geo;
     rect = tri + PG * n_tri;
     disk = rect + PG * n_rect;
@@ -123,8 +177,45 @@ struct Tables {
     rect_r = tri_r + n_tri;
     disk_r = rect_r + n_rect;
     sph_r = disk_r + n_disk;
+    tri_b = a.bnd;
+    rect_b = tri_b + blocks_of(n_tri);
+    disk_b = rect_b + blocks_of(n_rect);
+    sph_b = disk_b + blocks_of(n_disk);
+    tri_s = sph_b + blocks_of(n_sph);
+    rect_s = tri_s + supers_of(n_tri);
+    disk_s = rect_s + supers_of(n_rect);
+    sph_s = disk_s + supers_of(n_disk);
   }
 };
+
+// A ray's cull slack, and 1 / |d|^2 in inv: CULL_PAD of its origin's size,
+// or infinity (the ray passes every block) when the ray or 1 / |d|^2 is
+// not finite (kbs.cull_slack_plain)
+__device__ __forceinline__ float cull_slack(V o, V d, float& inv) {
+  const float dd = vdot(d, d);
+  inv = 1.0f / dd;
+  const float s = CULL_PAD * ((fabsf(o.x) + fabsf(o.y)) + fabsf(o.z));
+  return (isfinite(s) && isfinite(dd) && isfinite(inv) && dd > 0.f) ? s : __int_as_float(0x7f800000);
+}
+
+// Can the segment o + t d, t in [0, t1], come within b.w + slack of the
+// block's centre (kbs.block_meets_plain)? The closest point's t clamped to
+// the segment; a NaN anywhere passes.
+__device__ __forceinline__ bool block_meets(float4 b, V o, V d, float inv_dd, float t1,
+                                            float slack) {
+  const V v = vmk(b.x - o.x, b.y - o.y, b.z - o.z);
+  float tc = vdot(v, d) * inv_dd;
+  tc = tc < 0.f ? 0.f : tc;
+  tc = tc > t1 ? t1 : tc;
+  const V p = v - d * tc;
+  const float rl = b.w + slack;
+  return !(vdot(p, p) > rl * rl);
+}
+
+__device__ __forceinline__ bool planar_inside(float a, float b, bool tri) {
+  if (tri) return a >= 0.f && b >= 0.f && a + b <= 1.0f;
+  return a >= 0.f && a <= 1.0f && b >= 0.f && b <= 1.0f;
+}
 
 // K6's cache planes (bigscene.py::bigres_layout). Per bounce b: wb, [wenv],
 // emi x3; below the horizon then L x (B [Bk]), tu [tuk], dif x3, spc x3,
@@ -148,66 +239,88 @@ struct BigRes {
 
 constexpr int RES_PHONG = 1 << 20, RES_TO_SPEC = 1 << 21, RES_EVEN = 1 << 22;
 
-__device__ __forceinline__ bool planar_inside(float a, float b, bool tri) {
-  if (tri) return a >= 0.f && b >= 0.f && a + b <= 1.0f;
-  return a >= 0.f && a <= 1.0f && b >= 0.f && b <= 1.0f;
-}
-
 // closest hit -> t, class (0 tri, 1 rect, 2 disk, 3 sphere; -1 on a miss)
-// and table row; strict t < t_best, so the first of equal rows wins
-__device__ void closest_tables(const Tables& T, V o, V d, float& t_best, int& cls, int& trow) {
+// and table row; strict t < t_best, so the first of equal rows wins. Every
+// lane of `mask` (the live lanes of the warp) calls it; a superblock's
+// blocks, and a block's rows, are skipped when no lane's ray can meet its
+// bound over [0, t_best].
+__device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& t_best, int& cls,
+                               int& trow) {
   t_best = __int_as_float(0x7f800000);
   cls = -1;
   trow = -1;
+  float inv_dd = 0.f, slack = 0.f;
+  if (T.cull) slack = cull_slack(o, d, inv_dd);
+  auto skip = [&](const float4* b) {
+    return T.cull && !__any_sync(mask, block_meets(__ldg(b), o, d, inv_dd, t_best, slack));
+  };
+  // body(blk) for each block of a class of nr rows that a lane's ray may meet
+  auto for_blocks = [&](const float4* sup, const float4* bnd, int nr, auto&& body) {
+    for (int sb = 0; sb < supers_of(nr); ++sb) {
+      if (skip(sup + sb)) continue;
+      const int b1 = min(blocks_of(nr), (sb + 1) * SUPER_BLOCKS);
+      for (int blk = sb * SUPER_BLOCKS; blk < b1; ++blk)
+        if (!skip(bnd + blk)) body(blk);
+    }
+  };
   for (int k = 0; k < 2; ++k) {
     const float* tab = k == 0 ? T.tri : T.rect;
     const int nr = k == 0 ? T.n_tri : T.n_rect;
-    for (int s = 0; s < nr; ++s) {
-      const float* P = tab + PG * s;
+    for_blocks(k == 0 ? T.tri_s : T.rect_s, k == 0 ? T.tri_b : T.rect_b, nr, [&](int blk) {
+      const int s1 = min(nr, (blk + 1) * BLOCK_ROWS);
+      for (int s = blk * BLOCK_ROWS; s < s1; ++s) {
+        const float* P = tab + PG * s;
+        const V n = ld3(P);
+        const float t = (__ldg(P + 3) - vdot(n, o)) / vdot(n, d);
+        const V f1 = ld3(P + 4), f2 = ld3(P + 8);
+        const float a = (vdot(f1, o) - __ldg(P + 7)) + t * vdot(f1, d);
+        const float b = (vdot(f2, o) - __ldg(P + 11)) + t * vdot(f2, d);
+        if (planar_inside(a, b, k == 0) && t > EPS && t < t_best) {
+          t_best = t;
+          cls = k;
+          trow = s;
+        }
+      }
+    });
+  }
+  for_blocks(T.disk_s, T.disk_b, T.n_disk, [&](int blk) {
+    const int s1 = min(T.n_disk, (blk + 1) * BLOCK_ROWS);
+    for (int s = blk * BLOCK_ROWS; s < s1; ++s) {
+      const float* P = T.disk + DG * s;
       const V n = ld3(P);
       const float t = (__ldg(P + 3) - vdot(n, o)) / vdot(n, d);
-      const V f1 = ld3(P + 4), f2 = ld3(P + 8);
-      const float a = (vdot(f1, o) - __ldg(P + 7)) + t * vdot(f1, d);
-      const float b = (vdot(f2, o) - __ldg(P + 11)) + t * vdot(f2, d);
-      if (planar_inside(a, b, k == 0) && t > EPS && t < t_best) {
+      const V rel = (o + d * t) - ld3(P + 4);
+      if (vdot(rel, rel) <= __ldg(P + 7) && t > EPS && t < t_best) {
         t_best = t;
-        cls = k;
+        cls = 2;
         trow = s;
       }
     }
-  }
-  for (int s = 0; s < T.n_disk; ++s) {
-    const float* P = T.disk + DG * s;
-    const V n = ld3(P);
-    const float t = (__ldg(P + 3) - vdot(n, o)) / vdot(n, d);
-    const V rel = (o + d * t) - ld3(P + 4);
-    if (vdot(rel, rel) <= __ldg(P + 7) && t > EPS && t < t_best) {
-      t_best = t;
-      cls = 2;
-      trow = s;
+  });
+  for_blocks(T.sph_s, T.sph_b, T.n_sph, [&](int blk) {
+    const int s1 = min(T.n_sph, (blk + 1) * BLOCK_ROWS);
+    for (int s = blk * BLOCK_ROWS; s < s1; ++s) {
+      const float* P = T.sph + SG * s;
+      const float r = __ldg(P + 3);
+      const V oc = ld3(P) - o;
+      const float neg_b = vdot(oc, d);
+      const V perp = oc - d * neg_b;
+      const float discr = r * r - vdot(perp, perp);
+      const float cc = vdot(oc, oc) - r * r;
+      const float sq = safe_sqrt(discr);
+      const float sgn = neg_b >= 0.f ? 1.0f : -1.0f;
+      const float q = neg_b + sgn * sq;
+      const float tq = cc / q;
+      const float t1 = jmin(q, tq), t2 = jmax(q, tq);
+      const bool t1_ok = t1 > EPS;
+      const float t = t1_ok ? t1 : t2;
+      if (discr >= 0.f && r > 0.f && (t1_ok || t2 > EPS) && t < t_best) {
+        t_best = t;
+        cls = 3;
+        trow = s;
+      }
     }
-  }
-  for (int s = 0; s < T.n_sph; ++s) {
-    const float* P = T.sph + SG * s;
-    const float r = __ldg(P + 3);
-    const V oc = ld3(P) - o;
-    const float neg_b = vdot(oc, d);
-    const V perp = oc - d * neg_b;
-    const float discr = r * r - vdot(perp, perp);
-    const float cc = vdot(oc, oc) - r * r;
-    const float sq = safe_sqrt(discr);
-    const float sgn = neg_b >= 0.f ? 1.0f : -1.0f;
-    const float q = neg_b + sgn * sq;
-    const float tq = cc / q;
-    const float t1 = jmin(q, tq), t2 = jmax(q, tq);
-    const bool t1_ok = t1 > EPS;
-    const float t = t1_ok ? t1 : t2;
-    if (discr >= 0.f && r > 0.f && (t1_ok || t2 > EPS) && t < t_best) {
-      t_best = t;
-      cls = 3;
-      trow = s;
-    }
-  }
+  });
 }
 
 // the global row and normal of a hit (a rect's turned toward the ray)
@@ -229,24 +342,60 @@ __device__ void hit_record(const Tables& T, int cls, int trow, V o, V d, float t
   }
 }
 
-// one shadow ray of NEE: direction, tmax, origin offset and n.wi
-struct Shadow {
-  V wi;
-  float tmax, se, nd;
-  int own;  // the global row it skips (robust shadows), or -1
+// The shadow rays of one vertex, lights i0 .. i0 + chunk - 1 (step 2): each
+// leaves hp offset by se = +-OFF along n_shade (the sign of nd = n_shade .
+// wi) up to tmax; val and wgt are its NEE factors, iww 1 / |wi|^2 and slk
+// its cull slack. They live in this thread's column of a shared-memory
+// block, field f of ray k at p[(k * FIELDS + f) * THREADS] (the block's
+// threads side by side: no bank conflicts).
+struct Rays {
+  enum { WX, WY, WZ, TMAX, ND, VAL, WGT, IWW, SLK, FIELDS };
+  float* p;
+  int chunk;
+  __device__ __forceinline__ float& at(int f, int k) const { return p[(k * FIELDS + f) * THREADS]; }
+  __device__ __forceinline__ V wi(int k) const { return vmk(at(WX, k), at(WY, k), at(WZ, k)); }
+  __device__ __forceinline__ float se(int k) const { return at(ND, k) < 0.f ? -OFF : OFF; }
 };
 
-// One occlusion sweep for the shadow rays `sh` whose bit is set in `need`
-// -> the bits of the blocked ones (bigscene.py::_occluded). The terms of
-// (hp, n_shade) are shared by the rays; a lane leaves once every ray is
-// blocked.
-__device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Shadow* sh, uint32_t need) {
+// One occlusion sweep for the rays of R whose bit is set in `need` -> the
+// bits of the blocked ones (bigscene.py::_occluded). The terms of (hp,
+// n_shade) are shared by the rays. Every lane of `mask` (those with a ray
+// to sweep) calls it; a superblock's blocks, and a block's rows, are tested
+// only for the rays that can meet its bound, and skipped when no lane has
+// one; the lanes leave together once every ray of every lane is blocked.
+// lti: under robust shadows the light records of the chunk's first light,
+// whose field 2 is the emitting row that the light's ray skips (-1: none);
+// else null.
+__device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, uint32_t need,
+                                    uint32_t mask, const int* lti) {
   uint32_t open = need;
-  for (int k = 0; k < 2 && open; ++k) {
-    const float* tab = k == 0 ? T.tri : T.rect;
-    const int* rws = k == 0 ? T.tri_r : T.rect_r;
-    const int nr = k == 0 ? T.n_tri : T.n_rect;
-    for (int s = 0; s < nr && open; ++s) {
+  // -> the rays of `cand` that can meet bound *b (all of them without the
+  // cull); any: whether a lane of the warp has one
+  auto rays_of = [&](const float4* b, uint32_t cand, bool& any) -> uint32_t {
+    if (!T.cull) {
+      any = true;
+      return cand;
+    }
+    const float4 bb = __ldg(b);
+    uint32_t m = 0;
+    for (uint32_t q = cand; q; q &= q - 1) {
+      const int j = __ffs(q) - 1;
+      if (block_meets(bb, hp + ns * R.se(j), R.wi(j), R.at(R.IWW, j), R.at(R.TMAX, j),
+                      R.at(R.SLK, j)))
+        m |= 1u << j;
+    }
+    any = __any_sync(mask, m != 0);
+    return m;
+  };
+  auto own_ok = [&](const int* rws, int s, int j) {
+    const int own = lti ? __ldg(lti + LT_I * j + 2) : -1;
+    return own < 0 || __ldg(rws + s) != own;
+  };
+  // the rows of block blk of a class for the rays in `test`, while open
+  auto planar_rows = [&](const float* tab, const int* rws, int nr, int blk, bool tri,
+                         uint32_t test) {
+    const int s1 = min(nr, (blk + 1) * BLOCK_ROWS);
+    for (int s = blk * BLOCK_ROWS; s < s1 && (test & open); ++s) {
       const float* P = tab + PG * s;
       const V n = ld3(P), f1 = ld3(P + 4), f2 = ld3(P + 8);
       const float num_h = __ldg(P + 3) - vdot(n, hp);
@@ -255,51 +404,81 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Shadow* s
       const float a_n = vdot(f1, ns);
       const float b_h = vdot(f2, hp) - __ldg(P + 11);
       const float b_n = vdot(f2, ns);
-      for (uint32_t m = open; m; m &= m - 1) {
+      for (uint32_t m = test & open; m; m &= m - 1) {
         const int j = __ffs(m) - 1;
-        const Shadow& r = sh[j];
-        const float t = (num_h - r.se * num_n) / vdot(n, r.wi);
-        const float a = (a_h + r.se * a_n) + t * vdot(f1, r.wi);
-        const float b = (b_h + r.se * b_n) + t * vdot(f2, r.wi);
-        if (planar_inside(a, b, k == 0) && t > EPS && t < r.tmax &&
-            (r.own < 0 || __ldg(rws + s) != r.own))
+        const V wi = R.wi(j);
+        const float se = R.se(j);
+        const float t = (num_h - se * num_n) / vdot(n, wi);
+        const float a = (a_h + se * a_n) + t * vdot(f1, wi);
+        const float b = (b_h + se * b_n) + t * vdot(f2, wi);
+        if (planar_inside(a, b, tri) && t > EPS && t < R.at(R.TMAX, j) && own_ok(rws, s, j))
           open &= ~(1u << j);
       }
     }
-  }
-  for (int s = 0; s < T.n_disk && open; ++s) {
-    const float* P = T.disk + DG * s;
-    const V n = ld3(P), p0 = ld3(P + 4);
-    const float num_h = __ldg(P + 3) - vdot(n, hp);
-    const float num_n = vdot(n, ns);
-    const float r2 = __ldg(P + 7);
-    for (uint32_t m = open; m; m &= m - 1) {
-      const int j = __ffs(m) - 1;
-      const Shadow& r = sh[j];
-      const float t = (num_h - r.se * num_n) / vdot(n, r.wi);
-      const V rel = ((hp + ns * r.se) + r.wi * t) - p0;
-      if (vdot(rel, rel) <= r2 && t > EPS && t < r.tmax &&
-          (r.own < 0 || __ldg(T.disk_r + s) != r.own))
-        open &= ~(1u << j);
+  };
+  auto disk_rows = [&](int blk, uint32_t test) {
+    const int s1 = min(T.n_disk, (blk + 1) * BLOCK_ROWS);
+    for (int s = blk * BLOCK_ROWS; s < s1 && (test & open); ++s) {
+      const float* P = T.disk + DG * s;
+      const V n = ld3(P), p0 = ld3(P + 4);
+      const float num_h = __ldg(P + 3) - vdot(n, hp);
+      const float num_n = vdot(n, ns);
+      const float r2 = __ldg(P + 7);
+      for (uint32_t m = test & open; m; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        const V wi = R.wi(j);
+        const float se = R.se(j);
+        const float t = (num_h - se * num_n) / vdot(n, wi);
+        const V rel = ((hp + ns * se) + wi * t) - p0;
+        if (vdot(rel, rel) <= r2 && t > EPS && t < R.at(R.TMAX, j) && own_ok(T.disk_r, s, j))
+          open &= ~(1u << j);
+      }
     }
-  }
-  for (int s = 0; s < T.n_sph && open; ++s) {
-    const float* P = T.sph + SG * s;
-    const float rad = __ldg(P + 3);
-    const V vc = ld3(P) - hp;
-    const float vc2 = vdot(vc, vc);
-    const float vcn = vdot(vc, ns);
-    for (uint32_t m = open; m; m &= m - 1) {
-      const int j = __ffs(m) - 1;
-      const Shadow& r = sh[j];
-      const float neg_b = vdot(vc, r.wi) - r.se * r.nd;
-      const float oc2 = (vc2 - (2.0f * r.se) * vcn) + OFF2;
-      const float discr = (rad * rad - oc2) + neg_b * neg_b;
-      if (sphere_occludes(neg_b, discr, r.tmax) && rad > 0.f &&
-          (r.own < 0 || __ldg(T.sph_r + s) != r.own))
-        open &= ~(1u << j);
+  };
+  auto sphere_rows = [&](int blk, uint32_t test) {
+    const int s1 = min(T.n_sph, (blk + 1) * BLOCK_ROWS);
+    for (int s = blk * BLOCK_ROWS; s < s1 && (test & open); ++s) {
+      const float* P = T.sph + SG * s;
+      const float rad = __ldg(P + 3);
+      const V vc = ld3(P) - hp;
+      const float vc2 = vdot(vc, vc);
+      const float vcn = vdot(vc, ns);
+      for (uint32_t m = test & open; m; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        const float se = R.se(j);
+        const float neg_b = vdot(vc, R.wi(j)) - se * R.at(R.ND, j);
+        const float oc2 = (vc2 - (2.0f * se) * vcn) + OFF2;
+        const float discr = (rad * rad - oc2) + neg_b * neg_b;
+        if (sphere_occludes(neg_b, discr, R.at(R.TMAX, j)) && rad > 0.f && own_ok(T.sph_r, s, j))
+          open &= ~(1u << j);
+      }
     }
-  }
+  };
+  // class c (0 tri, 1 rect, 2 disk, 3 sphere), superblock by superblock;
+  // false once no lane of the warp has an open ray
+  auto sweep = [&](int c, const float4* sup, const float4* bnd, int nr) {
+    for (int sb = 0; sb < supers_of(nr); ++sb) {
+      if (!__any_sync(mask, open != 0)) return false;
+      bool any;
+      const uint32_t sup_test = rays_of(sup + sb, open, any);
+      if (!any) continue;
+      const int b1 = min(blocks_of(nr), (sb + 1) * SUPER_BLOCKS);
+      for (int blk = sb * SUPER_BLOCKS; blk < b1; ++blk) {
+        const uint32_t test = rays_of(bnd + blk, sup_test & open, any);
+        if (!any) continue;
+        if (c < 2)
+          planar_rows(c == 0 ? T.tri : T.rect, c == 0 ? T.tri_r : T.rect_r, nr, blk, c == 0, test);
+        else if (c == 2)
+          disk_rows(blk, test);
+        else
+          sphere_rows(blk, test);
+      }
+    }
+    return true;
+  };
+  if (sweep(0, T.tri_s, T.tri_b, T.n_tri) && sweep(1, T.rect_s, T.rect_b, T.n_rect) &&
+      sweep(2, T.disk_s, T.disk_b, T.n_disk))
+    sweep(3, T.sph_s, T.sph_b, T.n_sph);
   return need & ~open;
 }
 
@@ -310,9 +489,11 @@ enum Mode { MODE_FWD = 0, MODE_RESIDUAL = 1, MODE_REPLAY = 2 };
 // same draws and writes its row-tagged adjoints, adding its env (0-2) and
 // per-light emission (3 + 3i ..) adjoints to acc, then the checker ones
 // (3 + 3L ..) (K8). SOBOL and TEX are compile-time switches, as in K1.
+// Every thread of the warp calls it (step 1: the sweeps' votes); `in`:
+// lane_id < a.n, else the thread traces nothing and writes nothing.
 template <int MODE, bool SOBOL, bool TEX>
 __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, const Tables& T,
-                                           int lane_id, float* acc) {
+                                           const Rays& R, int lane_id, bool in, float* acc) {
   const int n = a.n;
   const int L = S.L;
   const bool texp = a.texp != 0;
@@ -342,7 +523,7 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
   Rng rng;
   rng.ctr = 0;
   rng.sobol = SOBOL;
-  if (a.sampler != S_RANDOM) {
+  if (a.sampler != S_RANDOM && in) {
     const uint32_t ph = pix_hash((uint32_t)a.pix[lane_id], (uint32_t)a.seed);
     const uint32_t si = (uint32_t)a.si[lane_id];
     rng.key = rng.sobol ? __brev(si) : pix_hash(si, ph);
@@ -352,29 +533,30 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
     rng.mix = (uint32_t)(lane_id - tile_id * tile) * 374761393u;
   }
 
-  V o = ld3(a.o + 3 * (size_t)lane_id);
-  V d = ld3(a.d + 3 * (size_t)lane_id);
+  const V zero3 = vmk(0.f, 0.f, 0.f);
+  V o = in ? ld3(a.o + 3 * (size_t)lane_id) : zero3;
+  V d = in ? ld3(a.d + 3 * (size_t)lane_id) : zero3;
   V beta = vmk(1.f, 1.f, 1.f);
   V Lr = vmk(0.f, 0.f, 0.f);
   bool alive = true, spec_prev = false;
   float pdf_prev = 1.0f;
-  float phits[MAX_LIGHTS];
-  Shadow sh[MAX_LIGHTS];
+  V hp_prev = zero3;  // the previous vertex (light_phit)
   const bool has_phong = S.has_lobe(PHONG);
-  const V zero3 = vmk(0.f, 0.f, 0.f);
   int next_bounce = a.max_depth + 1;  // the first bounce this lane does not reach
   // K8: the upstream gradient and the tail radiance
   V g = zero3, r_tail = zero3;
-  if (MODE == MODE_REPLAY) {
+  if (MODE == MODE_REPLAY && in) {
     g = ld3(a.g + 3 * (size_t)lane_id);
     r_tail = ld3(a.l_in + 3 * (size_t)lane_id);
   }
 
-  for (int bounce = 0; bounce <= a.max_depth; ++bounce) {
+  // one bounce of a live lane -> whether the lane goes on; `mask`: the
+  // warp's live lanes, which all run it
+  auto step = [&](int bounce, uint32_t mask) -> bool {
     float t;
     int cls, trow, grow;
     V nrm;
-    closest_tables(T, o, d, t, cls, trow);
+    closest_tables(T, o, d, mask, t, cls, trow);
     hit_record(T, cls, trow, o, d, t, grow, nrm);
     const bool valid = cls >= 0;
     const float t_safe = valid ? t : 1.0f;
@@ -392,7 +574,7 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
     if (!full) {
       float pdf_l_hit;
       if (S.use_phits)
-        pdf_l_hit = li_idx >= 0 ? phits[li_idx] : 0.f;
+        pdf_l_hit = li_idx >= 0 ? light_phit(S, li_idx, hp_prev) : 0.f;
       else
         pdf_l_hit = li_idx >= 0 ? hit_light_pdf(S, li_idx, o, d, t_safe, nrm) : 0.f;
       w_emit = safe_div(pdf_prev, pdf_prev + pdf_l_hit);
@@ -431,7 +613,7 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
         dput(PB * bounce + 1, de_b.y);
         dput(PB * bounce + 2, de_b.z);
       }
-      break;
+      return false;
     }
     const bool cont = alive && valid;
 
@@ -489,7 +671,9 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
     const V col_nee = (S.has_plastic && lobe_is_phong) ? specular : diffuse;
     const bool nee_base = nee_act && !is_black(color);
 
-    // ---- NEE: every light, one occlusion sweep for their shadow rays ----
+    // ---- NEE: every light, in chunks of R.chunk lights: sample, one
+    // occlusion sweep for the chunk's shadow rays, accumulate in light
+    // order (step 2) ----
     float u1, u2;
     rng.uniform2(u1, u2);
     float cphi = 0.f, sphi = 0.f;
@@ -497,53 +681,67 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
       cphi = cosf(TWO_PI_F * u2);
       sphi = sin_from_phi_cos(cphi, u2);
     }
-    // per light: its shadow ray and its NEE factors li_s * ucos, the MIS
-    // weight and the mirror dot (for the kappa plane)
-    float lu[MAX_LIGHTS], wl[MAX_LIGHTS], caw[MAX_LIGHTS];
-    uint32_t want = 0;
-    for (int i = 0; i < L; ++i) {
-      const LSample sm = light_sample(S, i, hp, nrm, u1, u2, cphi, sphi);
-      phits[i] = sm.phit;
-      const float nd = vdot(nrm, sm.wi);
-      const float cos_aw = has_phong ? vdot(wr_w, sm.wi) : 0.f;
-      float pdf_b, f_unit;
-      eval_dots(S, kind, exponent, wo_l.z, nd, cos_aw, pdf_b, f_unit);
-      const float ucos = f_unit * fabsf(nd);
-      const int lkind = __ldg(S.LTI + LT_I * i);
-      wl[i] = (lkind == L_POINT || lkind == L_DIRECTION) ? safe_div(1.0f, sm.pdf)
-                                                          : safe_div(1.0f, sm.pdf + pdf_b);
-      lu[i] = sm.li_s * ucos;
-      caw[i] = cos_aw;
-      if (nee_base && sm.pdf > 0.f && sm.li_s != 0.f && ucos != 0.f) want |= 1u << i;
-      Shadow& r = sh[i];
-      r.wi = sm.wi;
-      r.nd = nd;
-      r.se = nd < 0.f ? -OFF : OFF;
-      r.tmax = sm.dist - SHADOW_EPS;
-      if (a.robust) r.tmax = r.tmax - r.se * nd;
-      r.own = a.robust ? __ldg(S.LTI + LT_I * i + 2) : -1;
-    }
-    const uint32_t lit = want ? want & ~occluded_tables(T, hp, nrm, sh, want) : 0u;
     V ld = zero3;
     // K8: this bounce's colour and exponent adjoints, all of its hit row
     V addc_diff = zero3, addc_spec = zero3;
     float addx = 0.f;
-    for (int i = 0; i < L; ++i) {
-      const float okf = ((lit >> i) & 1u) ? wl[i] : 0.f;
-      const float bp = (lu[i] * okf) * lobe_scale;
-      const V emit_l = ld3(a.light_emit + 3 * i);
-      ld = ld + (col_nee * emit_l) * bp;
-      if (MODE == MODE_RESIDUAL) {
-        put(rp.B(bounce, i), bp);
-        if (texp) put(rp.Bk(bounce, i), lobe_is_phong ? bp * kappa_dot(exponent, caw[i]) : 0.f);
+    for (int i0 = 0; i0 < L; i0 += R.chunk) {
+      const int nk = min(R.chunk, L - i0);
+      // each light's shadow ray and its NEE factors li_s * ucos and MIS
+      // weight
+      uint32_t want = 0;
+      for (int k = 0; k < nk; ++k) {
+        const int i = i0 + k;
+        const LSample sm = light_sample(S, i, hp, nrm, u1, u2, cphi, sphi);
+        const float nd = vdot(nrm, sm.wi);
+        const float cos_aw = has_phong ? vdot(wr_w, sm.wi) : 0.f;
+        float pdf_b, f_unit;
+        eval_dots(S, kind, exponent, wo_l.z, nd, cos_aw, pdf_b, f_unit);
+        const float ucos = f_unit * fabsf(nd);
+        const int lkind = __ldg(S.LTI + LT_I * i);
+        R.at(R.WGT, k) = (lkind == L_POINT || lkind == L_DIRECTION)
+                             ? safe_div(1.0f, sm.pdf)
+                             : safe_div(1.0f, sm.pdf + pdf_b);
+        R.at(R.VAL, k) = sm.li_s * ucos;
+        if (nee_base && sm.pdf > 0.f && sm.li_s != 0.f && ucos != 0.f) want |= 1u << k;
+        const float se = nd < 0.f ? -OFF : OFF;
+        float tmax = sm.dist - SHADOW_EPS;
+        if (a.robust) tmax = tmax - se * nd;
+        R.at(R.WX, k) = sm.wi.x;
+        R.at(R.WY, k) = sm.wi.y;
+        R.at(R.WZ, k) = sm.wi.z;
+        R.at(R.TMAX, k) = tmax;
+        R.at(R.ND, k) = nd;
+        if (T.cull) {
+          float iww;
+          R.at(R.SLK, k) = cull_slack(hp + nrm * se, sm.wi, iww);
+          R.at(R.IWW, k) = iww;
+        }
       }
-      if (MODE == MODE_REPLAY) {
-        add3(acc, 3 + 3 * i, (gb * col_nee) * bp);
-        const V addc = (gb * emit_l) * bp;
-        addc_spec = addc_spec + (lobe_is_phong ? addc : zero3);
-        addc_diff = addc_diff + (lobe_is_phong ? zero3 : addc);
-        if (texp)
-          addx = addx + (lobe_is_phong ? vdot(addc, col_nee) * kappa_dot(exponent, caw[i]) : 0.f);
+      const uint32_t omask = __ballot_sync(mask, want != 0);
+      const uint32_t lit =
+          want ? want & ~occluded_tables(T, hp, nrm, R, want, omask,
+                                         a.robust ? S.LTI + LT_I * i0 : nullptr)
+               : 0u;
+      for (int k = 0; k < nk; ++k) {
+        const int i = i0 + k;
+        const float okf = ((lit >> k) & 1u) ? R.at(R.WGT, k) : 0.f;
+        const float bp = (R.at(R.VAL, k) * okf) * lobe_scale;
+        const V emit_l = ld3(a.light_emit + 3 * i);
+        ld = ld + (col_nee * emit_l) * bp;
+        const float caw = has_phong ? vdot(wr_w, R.wi(k)) : 0.f;
+        if (MODE == MODE_RESIDUAL) {
+          put(rp.B(bounce, i), bp);
+          if (texp) put(rp.Bk(bounce, i), lobe_is_phong ? bp * kappa_dot(exponent, caw) : 0.f);
+        }
+        if (MODE == MODE_REPLAY) {
+          add3(acc, 3 + 3 * i, (gb * col_nee) * bp);
+          const V addc = (gb * emit_l) * bp;
+          addc_spec = addc_spec + (lobe_is_phong ? addc : zero3);
+          addc_diff = addc_diff + (lobe_is_phong ? zero3 : addc);
+          if (texp)
+            addx = addx + (lobe_is_phong ? vdot(addc, col_nee) * kappa_dot(exponent, caw) : 0.f);
+        }
       }
     }
     Lr = Lr + beta * ld;
@@ -649,13 +847,21 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
       beta = beta_new;
       if (S.has_delta) spec_prev = delta_s;
       pdf_prev = pdf_s;
+      hp_prev = hp;
     }
     alive = alive_n;
-    if (!alive) {
-      next_bounce = bounce + 1;
-      break;
-    }
+    if (!alive) next_bounce = bounce + 1;
+    return alive;
+  };
+
+  // the warp's threads stay in the loop until its last lane ends (step 1)
+  bool live = in;
+  for (int bounce = 0; bounce <= a.max_depth; ++bounce) {
+    const uint32_t mask = __ballot_sync(0xffffffffu, live);
+    if (!mask) break;
+    if (live) live = step(bounce, mask);
   }
+  if (!in) return;
   if (MODE == MODE_RESIDUAL) {
     // the bounces a dead lane never reached: every plane 0 (K7 adds nothing)
     for (int b = next_bounce; b <= a.max_depth; ++b) {
@@ -699,49 +905,55 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
 
 // K5, K6 and K8 are this one template: K6 adds the cache stores and K8 the
 // adjoint terms, so their draws, hits and branches are K5's by construction.
+// Dynamic shared memory: the shadow rays' block (step 2).
 template <int MODE, bool SOBOL, bool TEX>
-__global__ void __launch_bounds__(128) bigscene_fwd_kernel(const BigArgs a) {
+__global__ void __launch_bounds__(THREADS) bigscene_fwd_kernel(const BigArgs a) {
+  extern __shared__ float4 smem4[];
   const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = lane_id < a.n;
   Scene S;
   S.init(a.F, a.I);
   Tables T;
   T.init(a);
+  const Rays R{(float*)smem4 + threadIdx.x, a.nee_rays};
   if constexpr (MODE == MODE_REPLAY) {
     // per-thread env, light-emission (and checker) adjoints, then the
     // fixed-order block sum
     float acc[TEX ? ROW_COLS : 3 + 3 * MAX_LIGHTS];
     for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
-    if (lane_id < a.n) trace_lane<MODE, SOBOL, TEX>(a, S, T, lane_id, acc);
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, acc);
     block_partials(acc, a.n_cols, a.partial);
-  } else if (lane_id < a.n) {
-    trace_lane<MODE, SOBOL, TEX>(a, S, T, lane_id, nullptr);
+  } else {
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, nullptr);
   }
 }
 
 template <int MODE, bool TEX>
-void launch_kernel(const BigArgs& a, int blocks, void* stream) {
+void launch_kernel(const BigArgs& a, int blocks, int smem, void* stream) {
   if (a.sampler == S_SOBOL)
-    bigscene_fwd_kernel<MODE, true, TEX><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+    bigscene_fwd_kernel<MODE, true, TEX><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
   else
-    bigscene_fwd_kernel<MODE, false, TEX><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+    bigscene_fwd_kernel<MODE, false, TEX><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
 }
 
 // textured: the scene has texture records (texa, texb and timg are then its
 // tables, and K8 writes texel entries where it has image textures)
 template <int MODE>
-int launch(const BigArgs& a, int textured, void* stream) {
+int launch(BigArgs& a, int textured, void* stream) {
   if (a.sampler == S_SOBOL) {
     if (a.max_depth > MAX_SOBOL_DEPTH) return (int)cudaErrorInvalidValue;
     cudaError_t err = upload_sites();
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
-  const int threads = 128;
-  const int blocks = a.n > 0 ? (a.n + threads - 1) / threads : (MODE == MODE_REPLAY ? 1 : 0);
+  if (a.nee_rays < 0 || a.nee_rays > NEE_CHUNK) return (int)cudaErrorInvalidValue;
+  // at most 36 KB: no opt-in past 48 KB
+  const int smem = 4 * Rays::FIELDS * a.nee_rays * THREADS;
+  const int blocks = a.n > 0 ? (a.n + THREADS - 1) / THREADS : (MODE == MODE_REPLAY ? 1 : 0);
   if (blocks > 0 && textured)
-    launch_kernel<MODE, true>(a, blocks, stream);
+    launch_kernel<MODE, true>(a, blocks, smem, stream);
   else if (blocks > 0)
-    launch_kernel<MODE, false>(a, blocks, stream);
-  cudaError_t err = cudaGetLastError();
+    launch_kernel<MODE, false>(a, blocks, smem, stream);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || MODE != MODE_REPLAY) return (int)err;
   return sum_partials(a.partial, a.lane_sums, blocks, a.n_cols, (cudaStream_t)stream);
 }
@@ -755,30 +967,35 @@ int launch(const BigArgs& a, int textured, void* stream) {
 // n_disk, n_sph of each), mat_i (M, 2), mat_f (M, 4), the (M, 3)
 // diffuse/specular/emission, the (M,) exponent, the (max(L, 1), 3) light
 // emissions, the (3,) env, the texture tables texa, texb (T, 3) and timg
-// (texels, 3) (one zero row each in an untextured scene) and tex_rec (M,)
-// (textured: the scene has texture records); lanes: o, d (n, 3), si and pix (n,) int32
-// (null under the "random" sampler); out (n, 3), and under residual resf
-// (res_n, n) and resi (max_depth + 1, n), plane-major. sampler: 0 random, 1
-// hash, 2 sobol.
+// (texels, 3) (one zero row each in an untextured scene), tex_rec (M,) and
+// bnd, each class's 8-row block bounds (kbs.cull_bounds: ceil(rows / 8)
+// float4s a class, tri | rect | disk | sphere) (textured: the scene has
+// texture records); lanes: o, d (n, 3), si and pix (n,) int32 (null under
+// the "random" sampler); out (n, 3), and under residual resf (res_n, n) and
+// resi (max_depth + 1, n), plane-major. sampler: 0 random, 1 hash, 2 sobol;
+// cull: skip the blocks no lane's ray meets (1) or sweep every row (0);
+// nee_rays: min(L, NEE_CHUNK).
 extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo, const int* rows,
                                   const int* mat_i, const float* mat_f, const float* diffuse,
                                   const float* specular, const float* emission,
                                   const float* exponent, const float* light_emit,
                                   const float* env, const float* texa, const float* texb,
-                                  const float* timg, const int* tex_rec, const float* o,
-                                  const float* d,
-                                  const int* si, const int* pix, float* out, float* resf,
-                                  int* resi, int n, int n_tri, int n_rect, int n_disk, int n_sph,
-                                  int M, int seed, int max_depth, int rr_start,
-                                  int rows_per_tile, int sampler, int robust, int texp,
-                                  int residual, int textured, void* stream) {
-  const BigArgs a{F,       I,          geo,    rows,     mat_i,  mat_f,         diffuse,
-                  specular, emission,  exponent, light_emit, env, o,           d,
-                  si,      pix,        out,    resf,     resi,   n,             n_tri,
-                  n_rect,  n_disk,     n_sph,  M,        seed,   max_depth,     rr_start,
-                  rows_per_tile, sampler, robust, texp,   nullptr, nullptr,     nullptr,
-                  nullptr, nullptr,    nullptr, 0,       texa,   texb,          timg,
-                  tex_rec, nullptr,    nullptr};
+                                  const float* timg, const int* tex_rec, const float* bnd,
+                                  const float* o, const float* d, const int* si, const int* pix,
+                                  float* out, float* resf, int* resi, int n, int n_tri,
+                                  int n_rect, int n_disk, int n_sph, int M, int seed,
+                                  int max_depth, int rr_start, int rows_per_tile, int sampler,
+                                  int robust, int texp, int residual, int textured, int cull,
+                                  int nee_rays, void* stream) {
+  BigArgs a{};
+  a.F = F; a.I = I; a.geo = geo; a.rows = rows; a.mat_i = mat_i; a.mat_f = mat_f;
+  a.diffuse = diffuse; a.specular = specular; a.emission = emission; a.exponent = exponent;
+  a.light_emit = light_emit; a.env = env; a.texa = texa; a.texb = texb; a.timg = timg;
+  a.tex_rec = tex_rec; a.bnd = (const float4*)bnd;
+  a.o = o; a.d = d; a.si = si; a.pix = pix; a.out = out; a.resf = resf; a.resi = resi;
+  a.n = n; a.n_tri = n_tri; a.n_rect = n_rect; a.n_disk = n_disk; a.n_sph = n_sph; a.M = M;
+  a.seed = seed; a.max_depth = max_depth; a.rr_start = rr_start; a.rows_per_tile = rows_per_tile;
+  a.sampler = sampler; a.robust = robust; a.texp = texp; a.cull = cull; a.nee_rays = nee_rays;
   return residual ? launch<MODE_RESIDUAL>(a, textured, stream)
                   : launch<MODE_FWD>(a, textured, stream);
 }
@@ -796,20 +1013,25 @@ extern "C" int kytpu_bigscene_bwd_replay(
     const float* F, const int* I, const float* geo, const int* rows, const int* mat_i,
     const float* mat_f, const float* diffuse, const float* specular, const float* emission,
     const float* exponent, const float* light_emit, const float* env, const float* texa,
-    const float* texb, const float* timg, const int* tex_rec, const float* o, const float* d,
-    const int* si,
-    const int* pix, const float* g, const float* big_l, float* dout, int* tags, float* partial,
-    float* lane_sums, float* tex_dout, int* tex_tags, int n, int n_cols, int n_tri, int n_rect,
-    int n_disk, int n_sph, int M, int seed, int max_depth, int rr_start, int rows_per_tile,
-    int sampler, int robust, int texp, int textured, void* stream) {
+    const float* texb, const float* timg, const int* tex_rec, const float* bnd, const float* o,
+    const float* d, const int* si, const int* pix, const float* g, const float* big_l,
+    float* dout, int* tags, float* partial, float* lane_sums, float* tex_dout, int* tex_tags,
+    int n, int n_cols, int n_tri, int n_rect, int n_disk, int n_sph, int M, int seed,
+    int max_depth, int rr_start, int rows_per_tile, int sampler, int robust, int texp,
+    int textured, int cull, int nee_rays, void* stream) {
   if (n_cols > (textured ? ROW_COLS : 3 + 3 * MAX_LIGHTS) || n_cols < 3)
     return (int)cudaErrorInvalidValue;
-  const BigArgs a{F,       I,          geo,    rows,     mat_i,  mat_f,         diffuse,
-                  specular, emission,  exponent, light_emit, env, o,           d,
-                  si,      pix,        nullptr, nullptr, nullptr, n,            n_tri,
-                  n_rect,  n_disk,     n_sph,  M,        seed,   max_depth,     rr_start,
-                  rows_per_tile, sampler, robust, texp,   g,      big_l,         dout,
-                  tags,    partial,    lane_sums, n_cols, texa,  texb,          timg,
-                  tex_rec, tex_dout,   tex_tags};
+  BigArgs a{};
+  a.F = F; a.I = I; a.geo = geo; a.rows = rows; a.mat_i = mat_i; a.mat_f = mat_f;
+  a.diffuse = diffuse; a.specular = specular; a.emission = emission; a.exponent = exponent;
+  a.light_emit = light_emit; a.env = env; a.texa = texa; a.texb = texb; a.timg = timg;
+  a.tex_rec = tex_rec; a.bnd = (const float4*)bnd;
+  a.o = o; a.d = d; a.si = si; a.pix = pix;
+  a.g = g; a.l_in = big_l; a.dout = dout; a.tags = tags; a.partial = partial;
+  a.lane_sums = lane_sums; a.tex_dout = tex_dout; a.tex_tags = tex_tags;
+  a.n = n; a.n_cols = n_cols; a.n_tri = n_tri; a.n_rect = n_rect; a.n_disk = n_disk;
+  a.n_sph = n_sph; a.M = M; a.seed = seed; a.max_depth = max_depth; a.rr_start = rr_start;
+  a.rows_per_tile = rows_per_tile; a.sampler = sampler; a.robust = robust; a.texp = texp;
+  a.cull = cull; a.nee_rays = nee_rays;
   return launch<MODE_REPLAY>(a, textured, stream);
 }

@@ -104,11 +104,15 @@ class KernelConfig:
     "single"), sampler ("random" | "hash" | "sobol"), shadow ("parity" |
     "robust") and trainable_exponent. bwd_rows changes nothing here: K3
     reads no tile (the nee="single" pick comes from the cache). cull
-    ("off" | "cone" | "cone+nee") and sweep ("auto" | "scalar" | "mxu") are
-    read as names only: the big-scene kernels (kernels/bigscene.py) run one
-    sweep, with the scalar sweep's arithmetic, and no cone cull, which
-    kytpu's own tests pin as changing no result. The big-scene kernels
-    ignore nee: they always sample every light, as kytpu's do."""
+    ("off" | "cone" | "cone+nee") is read by the big-scene kernels
+    (kernels/bigscene.py): "cone" and "cone+nee" skip, on every sweep, the
+    8-row blocks that no lane of a warp can meet, a per-lane test that,
+    unlike kytpu's per-tile cone, keeps culling on incoherent rays; "off"
+    sweeps every row; the results are the same to the last bit. K1-K4 do
+    not read it, as kytpu's baked kernel does not. sweep ("auto" |
+    "scalar" | "mxu") is read as a name only: the big-scene kernels run the
+    scalar sweep's arithmetic. The big-scene kernels ignore nee: they
+    always sample every light, as kytpu's do."""
 
     max_depth: int = 5
     rr_start: int = 3

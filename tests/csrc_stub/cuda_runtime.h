@@ -5,8 +5,9 @@
 // the lane bodies use have host definitions, and the runtime calls succeed
 // and do nothing (the test strips the <<<...>>> launch configurations and
 // never calls the extern "C" launchers). blockDim is 1 and threadIdx 0, so
-// a block-cooperative loop runs whole on the one thread. The warp built-ins
-// abort: a lane harness emulates the warp itself.
+// a block-cooperative loop runs whole on the one thread. The votes treat
+// the calling thread as a warp of one (a lane harness that needs more
+// emulates the warp itself); the shuffle aborts.
 #pragma once
 
 #include <math.h>
@@ -54,8 +55,8 @@ inline uint32_t __brev(uint32_t x) {
 inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 inline int __ffs(uint32_t x) { return __builtin_ffs(x); }
 inline void __syncthreads() {}
-inline uint32_t __ballot_sync(uint32_t, bool) { abort(); }
-inline bool __any_sync(uint32_t, bool) { abort(); }
+inline uint32_t __ballot_sync(uint32_t mask, bool pred) { return pred ? mask & 1u : 0u; }
+inline bool __any_sync(uint32_t mask, bool pred) { return pred && (mask & 1u); }
 inline float __shfl_down_sync(uint32_t, float, int) { abort(); }
 
 typedef int cudaError_t;

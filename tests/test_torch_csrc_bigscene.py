@@ -1,0 +1,355 @@
+"""The big-scene lane body of K5, K6 and K8 (csrc/bigscene_fwd.cu
+`trace_lane`, with its block cull) compiled with g++ and run on the CPU:
+against the plain versions `trace_lanes_plain` and `bwd_replay_plain`, and
+culled against the same build with the cull off.
+
+The source compiles on the host as in tests/test_torch_csrc_lane.py
+(tests/csrc_stub/cuda_runtime.h, the <<<...>>> launch configurations
+stripped, the dynamic shared-memory array a static one, -ffp-contract=off).
+The stub's votes treat each lane as a warp of one, so each lane skips every
+block that its own rays cannot meet: the strictest cull the kernel can run.
+A harness runs the lanes one after another, each with the shadow-ray
+column of thread 0.
+
+Tolerances:
+- culled against the cull off: every output equal bit for bit (one build,
+  one host libm: a skipped block that held a row some lane would take
+  changes that lane);
+- against the plain versions, the plain-vs-kytpu bound
+  (tests/test_torch_wavefront.py): at most 0.5% of lanes outside
+  rtol=1e-3, atol=1e-4 in any channel or plane (the host's cosf, powf and
+  logf differ from torch's in the last bits, and a 1-ulp difference can
+  flip a branch), the radiance's means within 3 standard errors; the row
+  tags and int planes of at most 0.5% of lanes differ.
+
+A quarter of the lanes graze the sphere that sets a block's bounding
+radius, at the bound itself, so a block bound without its pad loses rows
+that the row tests take (the culled run then differs from the cull off).
+"""
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import wavefront as kwf
+from kytpu_torch.scene import builders, mesh
+from kytpu_torch.scene.scene import generate_rays
+
+CSRC = Path(kbs.__file__).resolve().parent / "csrc"
+STUB = Path(__file__).resolve().parent / "csrc_stub"
+
+HARNESS = r"""
+#include "bigscene_fwd.cu"
+
+#include <cstdio>
+#include <cstdlib>
+#include <string>
+#include <vector>
+
+namespace {
+
+std::string dir;
+
+template <class T>
+std::vector<T> load(const char* name) {
+  FILE* f = fopen((dir + "/" + name).c_str(), "rb");
+  if (!f) { fprintf(stderr, "no %s\n", name); exit(2); }
+  fseek(f, 0, SEEK_END);
+  const long bytes = ftell(f);
+  fseek(f, 0, SEEK_SET);
+  std::vector<T> v(bytes / sizeof(T) + 4);
+  if (fread(v.data(), 1, bytes, f) != (size_t)bytes) exit(2);
+  fclose(f);
+  return v;
+}
+
+template <class T>
+void save(const char* name, const std::vector<T>& v) {
+  FILE* f = fopen((dir + "/" + name).c_str(), "wb");
+  fwrite(v.data(), sizeof(T), v.size(), f);
+  fclose(f);
+}
+
+// every lane in turn, as thread 0 of a warp of one; acc: K8's lane columns
+template <int MODE, bool SOBOL, bool TEX>
+void run(const BigArgs& a, std::vector<float>& acc) {
+  static float rays[Rays::FIELDS * NEE_CHUNK * THREADS];
+  Scene S;
+  S.init(a.F, a.I);
+  Tables T;
+  T.init(a);
+  const Rays R{rays, a.nee_rays};
+  for (int i = 0; i < a.n; ++i) {
+    float* row = acc.data() + (size_t)i * a.n_cols;
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, i, true, MODE == MODE_REPLAY ? row : nullptr);
+  }
+}
+
+template <int MODE, bool SOBOL>
+void run_tex(const BigArgs& a, bool tex, std::vector<float>& acc) {
+  if (tex) run<MODE, SOBOL, true>(a, acc);
+  else run<MODE, SOBOL, false>(a, acc);
+}
+
+template <int MODE>
+void run_sobol(const BigArgs& a, bool tex, std::vector<float>& acc) {
+  if (a.sampler == S_SOBOL) run_tex<MODE, true>(a, tex, acc);
+  else run_tex<MODE, false>(a, tex, acc);
+}
+
+}  // namespace
+
+// bigscene DIR MODE TEXTURED CULL N N_TRI N_RECT N_DISK N_SPH M SEED
+//          MAX_DEPTH RR_START ROWS SAMPLER ROBUST TEXP RES_N NEE_RAYS N_COLS
+//          IMG
+int main(int argc, char** argv) {
+  if (argc != 22) return 2;
+  dir = argv[1];
+  const int mode = atoi(argv[2]), textured = atoi(argv[3]);
+  BigArgs a{};
+  a.cull = atoi(argv[4]);
+  a.n = atoi(argv[5]);
+  a.n_tri = atoi(argv[6]); a.n_rect = atoi(argv[7]); a.n_disk = atoi(argv[8]);
+  a.n_sph = atoi(argv[9]); a.M = atoi(argv[10]); a.seed = atoi(argv[11]);
+  a.max_depth = atoi(argv[12]); a.rr_start = atoi(argv[13]); a.rows_per_tile = atoi(argv[14]);
+  a.sampler = atoi(argv[15]); a.robust = atoi(argv[16]); a.texp = atoi(argv[17]);
+  const int res_n = atoi(argv[18]);
+  a.nee_rays = atoi(argv[19]);
+  a.n_cols = atoi(argv[20]);
+  const int img = atoi(argv[21]);
+  const auto F = load<float>("f"), geo = load<float>("geo"), mat_f = load<float>("mat_f"),
+             diffuse = load<float>("diffuse"), specular = load<float>("specular"),
+             emission = load<float>("emission"), exponent = load<float>("exponent"),
+             light_emit = load<float>("light_emit"), env = load<float>("env"),
+             texa = load<float>("texa"), texb = load<float>("texb"), timg = load<float>("timg"),
+             bnd = load<float>("bnd"), o = load<float>("o"), d = load<float>("d"),
+             g = load<float>("g"), l_in = load<float>("l_in");
+  const auto I = load<int>("i"), rows = load<int>("rows"), mat_i = load<int>("mat_i"),
+             tex_rec = load<int>("tex_rec"), si = load<int>("si"), pix = load<int>("pix");
+  a.F = F.data(); a.I = I.data(); a.geo = geo.data(); a.rows = rows.data();
+  a.mat_i = mat_i.data(); a.mat_f = mat_f.data(); a.diffuse = diffuse.data();
+  a.specular = specular.data(); a.emission = emission.data(); a.exponent = exponent.data();
+  a.light_emit = light_emit.data(); a.env = env.data(); a.texa = texa.data();
+  a.texb = texb.data(); a.timg = timg.data(); a.tex_rec = tex_rec.data();
+  a.bnd = (const float4*)bnd.data(); a.o = o.data(); a.d = d.data(); a.si = si.data();
+  a.pix = pix.data(); a.g = g.data(); a.l_in = l_in.data();
+  const size_t n = a.n, B = a.max_depth, PB = a.texp ? 10 : 9;
+  std::vector<float> out(3 * n, -1.f), resf(res_n * n, -1.f), dout((PB * B + 3) * n, -1.f),
+      acc(n * (a.n_cols > 0 ? a.n_cols : 1), 0.f), tex_dout(12 * B * n, -1.f);
+  std::vector<int> resi((B + 1) * n, -1), tags((B + 1) * n, -1), tex_tags(4 * B * n, -1);
+  a.out = out.data(); a.resf = resf.data(); a.resi = resi.data(); a.dout = dout.data();
+  a.tags = tags.data(); a.tex_dout = tex_dout.data(); a.tex_tags = tex_tags.data();
+  if (a.sampler == S_SOBOL) upload_sites();
+  if (mode == MODE_FWD) run_sobol<MODE_FWD>(a, textured, acc);
+  else if (mode == MODE_RESIDUAL) run_sobol<MODE_RESIDUAL>(a, textured, acc);
+  else run_sobol<MODE_REPLAY>(a, textured, acc);
+  if (mode != MODE_REPLAY) save("out", out);
+  if (mode == MODE_RESIDUAL) {
+    save("resf", resf);
+    save("resi", resi);
+  }
+  if (mode == MODE_REPLAY) {
+    save("dout", dout);
+    save("tags", tags);
+    save("acc", acc);
+    if (img) {
+      save("tex_dout", tex_dout);
+      save("tex_tags", tex_tags);
+    }
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def big_exe(tmp_path_factory):
+    """The harness built from csrc/bigscene_fwd.cu; skips without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the CUDA lane body on the host")
+    build = tmp_path_factory.mktemp("csrc_bigscene")
+    for src in CSRC.glob("*.cu*"):
+        text = re.sub(r"<<<[^>]*>>>", "", src.read_text())
+        text = text.replace("extern __shared__ float4 smem4[];",
+                            "static float4 smem4[1 << 14];")
+        (build / src.name).write_text(text)
+    (build / "harness.cpp").write_text(HARNESS)
+    exe = build / "bigscene"
+    res = subprocess.run(
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-w", "-I", str(STUB),
+         "-I", str(build), "-o", str(exe), str(build / "harness.cpp")],
+        capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return exe
+
+
+IMG8 = np.random.default_rng(2).uniform(0.1, 0.9, (8, 8, 3)).astype(
+    np.float32)
+
+
+def _scene(name):
+    return {
+        "spheres": lambda: builders.random_spheres(n=96, width=24, height=16),
+        "mesh": lambda: builders.mesh_scene(*mesh.icosphere(subdivisions=2),
+                                            width=24, height=16),
+        "textured": lambda: builders.cornell_box(
+            width=24, height=16, floor_checker=True, back_image=IMG8),
+    }[name]()
+
+
+def _grazing(tables, n, rng):
+    """n rays, each tangent to the sphere that sets its block's bounding
+    radius, at the block's bound (without its pad): the row test and the
+    unpadded block test both sit at their rounding edge there."""
+    static, tabs = tables
+    geo, _, bnd = tabs["sphere"]
+    o, d = [], []
+    for b in range(len(bnd)):
+        rows = geo[b * kbs.UNROLL:(b + 1) * kbs.UNROLL].astype(np.float64)
+        rows = rows[rows[:, 3] > 0]
+        if not len(rows):
+            continue
+        c = bnd[b, :3].astype(np.float64)
+        far = np.linalg.norm(rows[:, :3] - c, axis=-1) + rows[:, 3]
+        s = rows[int(np.argmax(far))]
+        u = s[:3] - c
+        if np.linalg.norm(u) < 1e-6 * s[3]:   # one sphere: any side
+            u = rng.normal(size=3)
+        u = u / np.linalg.norm(u)
+        p = s[:3] + u * s[3]
+        w = np.cross(u, rng.normal(size=3))
+        w = w / np.linalg.norm(w)
+        o.append(p - w * rng.uniform(2.0, 6.0))
+        d.append(w)
+    o, d = np.asarray(o), np.asarray(d)
+    k = rng.integers(0, len(o), n)
+    return o[k].astype(np.float32), d[k].astype(np.float32)
+
+
+def _lanes(scene, extracted, n, graze, seed=1):
+    w, h = scene.camera.width, scene.camera.height
+    rng = np.random.default_rng(seed)
+    pix = (np.arange(n) % (w * h)).astype(np.int32)
+    pf = np.stack([pix % w + rng.random(n), pix // w + rng.random(n)],
+                  -1).astype(np.float32)
+    o, d = generate_rays(scene.camera, torch.from_numpy(pf))
+    o, d = o.numpy().copy(), d.numpy().copy()
+    if graze:
+        o[:graze], d[:graze] = _grazing(extracted, graze, rng)
+    si = (np.arange(n) // (w * h) + 3).astype(np.int32)
+    return (torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(si),
+            torch.from_numpy(pix))
+
+
+def _share_off(got, ref, what, max_share=0.005):
+    got = np.asarray(got, np.float64).reshape(len(got), -1)
+    ref = np.asarray(ref, np.float64).reshape(len(ref), -1)
+    assert np.isfinite(got).all() and np.isfinite(ref).all(), what
+    share = (~np.isclose(got, ref, rtol=1e-3, atol=1e-4)).any(-1).mean()
+    assert share <= max_share, (what, share)
+
+
+def _means_agree(got, ref, what):
+    se = ref.std(0) / np.sqrt(len(ref)) + 1e-12
+    assert (np.abs(got.mean(0) - ref.mean(0)) <= 3 * se).all(), what
+
+
+def _run(exe, path, mode, cull, tables, cfg, n, seed, res_n, n_cols):
+    st = tables.static
+    res = subprocess.run(
+        [str(exe), str(path), str(mode), str(int(bool(st["textures"]))),
+         str(cull), str(n), *map(str, tables.counts),
+         str(len(st["mats"]["kind"])), str(seed), str(cfg.max_depth),
+         str(cfg.rr_start), str(cfg.rows), str(kwf.SAMPLERS[cfg.sampler]),
+         str(int(cfg.shadow == "robust")), str(int(cfg.trainable_exponent)),
+         str(res_n), str(kbs._cull_args(tables, cfg)[1]), str(n_cols),
+         str(int(kwf._has_img(st)))], capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+    names = {0: ("out",), 1: ("out", "resf", "resi"),
+             2: ("dout", "tags", "acc") + (
+                 ("tex_dout", "tex_tags") if kwf._has_img(st) else ())}[mode]
+    return {nm: np.fromfile(path / nm, np.int32 if nm in (
+        "resi", "tags", "tex_tags") else np.float32) for nm in names}
+
+
+# scene, sampler, shadow, trainable exponent, depth: each sampler and both
+# shadow modes on each scene kind, a textured table scene (checker floor,
+# 8x8 atlas: K8's texel entries)
+CASES = [
+    ("spheres", "random", "parity", False, 3),
+    ("spheres", "hash", "robust", True, 3),
+    ("spheres", "sobol", "parity", False, 2),
+    ("mesh", "random", "robust", False, 2),
+    ("mesh", "hash", "parity", False, 3),
+    ("mesh", "sobol", "robust", True, 2),
+    ("textured", "hash", "parity", False, 3),
+    ("textured", "sobol", "robust", False, 2),
+]
+
+
+@pytest.mark.parametrize("scene, sampler, shadow, texp, depth", CASES)
+def test_culled_lane_body_matches_plain(big_exe, tmp_path, scene, sampler,
+                                        shadow, texp, depth):
+    sc = _scene(scene)
+    cfg = kwf.KernelConfig(max_depth=depth, rr_start=1, rows=2,
+                           sampler=sampler, shadow=shadow,
+                           trainable_exponent=texp)
+    n, seed = 2048, 11
+    extracted = kbs.extract_tables(sc)
+    tables = kbs.pack_big_tables(sc, cfg, extracted)
+    graze = n // 4 if tables.counts[3] else 0
+    o, d, si, pix = _lanes(sc, extracted, n, graze)
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(n, 3)).astype(np.float32))
+    ref_l, ref_f, ref_i = kbs.trace_lanes_plain(tables, cfg, o, d, seed, si,
+                                                pix, residual=True)
+    for nm in kbs._TABLES:
+        getattr(tables, nm).numpy().tofile(tmp_path / nm)
+    for nm, t in (("o", o), ("d", d), ("si", si), ("pix", pix), ("g", g),
+                  ("l_in", ref_l)):
+        t.contiguous().numpy().tofile(tmp_path / nm)
+    _, res_n = kbs.layout_of(tables.static, cfg)
+    n_cols = kbs._n_cols(tables)
+    runs = {(mode, cull): _run(big_exe, tmp_path, mode, cull, tables, cfg, n,
+                               seed, res_n, n_cols)
+            for mode in (0, 1, 2) for cull in (1, 0)}
+    for mode in (0, 1, 2):
+        for nm, got in runs[(mode, 1)].items():
+            np.testing.assert_array_equal(
+                got, runs[(mode, 0)][nm],
+                err_msg=f"mode {mode} {nm}: culled != cull off")
+    np.testing.assert_array_equal(runs[(0, 1)]["out"], runs[(1, 1)]["out"])
+
+    # K5 and K6 against the plain K6
+    got = runs[(1, 1)]["out"].reshape(n, 3)
+    _share_off(got, ref_l.numpy(), "radiance")
+    _means_agree(got, ref_l.numpy(), "radiance")
+    resf = runs[(1, 1)]["resf"].reshape(res_n, n)
+    resi = runs[(1, 1)]["resi"].reshape(-1, n)
+    _share_off(resf.T, ref_f.numpy().T, "cache planes")
+    assert (resi != ref_i.numpy()).any(0).mean() <= 0.005
+
+    # K8's row-tagged planes, tags and lane columns against the plain K8
+    ref = kbs.bwd_replay_plain(tables, cfg, o, d, seed, si, pix, g, ref_l)
+    r8 = runs[(2, 1)]
+    PB = 10 if texp else 9
+    dout = r8["dout"].reshape(PB * depth + 3, n)
+    tags = r8["tags"].reshape(depth + 1, n)
+    _share_off(dout.T, ref[0].numpy().T, "K8 planes")
+    _share_off(r8["acc"].reshape(n, n_cols), ref[1].numpy(), "K8 lane columns")
+    assert (tags != ref[2].numpy()).any(0).mean() <= 0.005
+    if kwf._has_img(tables.static):
+        assert (r8["tex_tags"].reshape(-1, n) != 0).any()
+    if texp:
+        ix, _ = kbs.layout_of(tables.static, cfg)
+        kplanes = [k for t, k in ix.items() if t[0] in ("Bk", "tuk")]
+        assert (ref_f.numpy()[kplanes] != 0).any()
+    if graze:
+        assert np.isfinite(got[:graze]).all()

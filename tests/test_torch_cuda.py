@@ -401,6 +401,40 @@ def test_bigscene_replay_on_card(cuda, sampler, shadow, texp):
         assert torch.equal(leaf.grad, a)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene, sampler, shadow", [
+    ("spheres", "hash", "robust"), ("mesh", "sobol", "parity")])
+def test_bigscene_cull_matches_off_on_card(cuda, scene, sampler, shadow):
+    """K5, K6 and K8 with the block cull (cfg.cull "cone", the default)
+    equal to the same kernels with cull="off", to the last bit: the cull
+    skips only blocks that no lane's ray can meet."""
+    import dataclasses
+
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.scene import mesh
+
+    sc = (builders.random_spheres(n=300, width=64, height=64)
+          if scene == "spheres"
+          else builders.mesh_scene(*mesh.icosphere(2), width=64, height=64)
+          ).to(cuda)
+    o, d, si, pix = _card_lanes(sc, cuda)
+    cfg = kwf.KernelConfig(max_depth=3, sampler=sampler, shadow=shadow)
+    off = dataclasses.replace(cfg, cull="off")
+    tables = kbs.pack_big_tables(sc, cfg)
+    g = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(2),
+                    device=cuda)
+    k5 = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix)
+    assert torch.equal(k5, kbs.trace_lanes(tables, off, o, d, 3, si, pix))
+    for a, b in zip(kbs.trace_lanes(tables, cfg, o, d, 3, si, pix,
+                                    residual=True),
+                    kbs.trace_lanes(tables, off, o, d, 3, si, pix,
+                                    residual=True)):
+        assert torch.equal(a, b)
+    for a, b in zip(kbs.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k5),
+                    kbs.bwd_replay(tables, off, o, d, 3, si, pix, g, k5)):
+        assert torch.equal(a, b)
+
+
 TEX_IMAGES = {"checker": None, "select": (8, 8), "separable": (16, 16)}
 
 
