@@ -7,7 +7,8 @@ Phases, one line each (a few for phase 3):
   1. device: nvidia-smi's name and power limit, torch's device name;
   2. build: compiles each kytpu_torch/kernels/csrc/*.cu with its own nvcc,
      all started together, and prints each source's nvcc time and what
-     -Xptxas -v said of each kernel;
+     -Xptxas -v said of each kernel, then K1's to K4's registers, stack and
+     spills, instantiation by instantiation;
   3. kernels vs plain, on 256K camera rays at depth 5, for Veach MIS and two
      Cornell boxes, across the three samplers, both NEE modes, both shadow
      modes and both exponent modes (a trainable-exponent case on Veach's
@@ -28,7 +29,15 @@ Phases, one line each (a few for phase 3):
      plain K4 (the same bound), against itself (bit for bit) and against
      K3 (rtol=2e-3 plus 2e-5 of the table's largest entry, the reference's
      bound for this cross-check); in the exponent case K2's "Bk"/"tuk"
-     planes and K3's and K4's dexp are among the checked;
+     planes and K3's and K4's dexp are among the checked. K3 and K4 run
+     there on both accumulator routes (kernels/wavefront.py acc_route: a
+     column of a shared block, and a row in local memory, which
+     ACC_BUDGET 0 forces), each against its
+     plain version and itself as above, and the two routes against each
+     other bit for bit; K4 in 32-lane chunks (no refill) at these 262K
+     lanes. Then K2, K3 and K4 on a 32-light scene (tests/test_torch_cuda.py
+     many_lights, 199 kept columns: past ACC_BUDGET, so the local route),
+     against their plain versions and each other as above;
   4. frames: render(veach_mis(512, 308)) and render(cornell_box 256x256) at
      64 spp through render(engine="cuda"), the main path, whose launches are
      counted, and the Veach frame again with cfg sampler="sobol"; each
@@ -51,11 +60,13 @@ Phases, one line each (a few for phase 3):
      lanes from K2's cache (`simt_share`), one lane a thread against
      dead-lane refill; then the same workload
      through make_cuda_diff_tracer(backward="replay"), the replay path,
-     whose launches are counted: its time and peak memory, K4 alone, the
-     plain K4, the tracer's gradient against K4's (bit for bit), K4
-     against the plain K4 and against K3 on those lanes; and K3 and K4 on
-     the row-tagged route forced (kernels/wavefront.py DENSE_MAX_ROWS 0),
-     timed beside the dense ones and held to them (bounds of phase 3);
+     whose launches are counted: its time and peak memory, K4 alone (its
+     refilled chunk printed), the plain K4, the tracer's gradient against
+     K4's (bit for bit), K4 against the plain K4 and against K3 on those
+     lanes; K3 and K4 on both accumulator routes, timed and held to each
+     other bit for bit; and K3 and K4 on the row-tagged route forced
+     (kernels/wavefront.py DENSE_MAX_ROWS 0), timed beside the dense ones
+     and held to them (bounds of phase 3);
   7. training, the second main path: five make_train_step(engine="cuda")
      steps on the Cornell box at its published 256x256, 4 spp, depth 3,
      kernel_sampler="hash", from the true scene with its diffuse table
@@ -678,10 +689,10 @@ def cuda_time_ms(fn, reps: int):
 
 
 # device kernels by name in a profile, mangled or demangled (K3's
-# sum_partials_kernel: no K4 runs in the profiled windows)
+# sum_cols_kernel: no K4 runs in the profiled windows)
 K1_NAMES = ("wavefront_fwd_kernel<0,", "wavefront_fwd_kernelILi0E")
 K2_NAMES = ("wavefront_fwd_kernel<1,", "wavefront_fwd_kernelILi1E")
-K3_NAMES = ("bwd_res_kernel", "sum_partials_kernel")
+K3_NAMES = ("bwd_res_kernel", "sum_cols_kernel")
 K5_NAMES = ("bigscene_fwd_kernel<0,", "bigscene_fwd_kernelILi0E")
 K6_NAMES = ("bigscene_fwd_kernel<1,", "bigscene_fwd_kernelILi1E")
 K7_NAMES = ("bigscene_bwd_lanes", "bigscene_segment_sums",
@@ -827,7 +838,21 @@ def main() -> None:
     from kytpu_torch.kernels import build
     from kytpu_torch.kernels import wavefront as kwf
     from kytpu_torch.scene import builders
-    STAGE_BUDGET = kwf.STAGE_BUDGET
+    STAGE_BUDGET, ACC_BUDGET = kwf.STAGE_BUDGET, kwf.ACC_BUDGET
+
+    def on_route(route: str, fn):
+        """fn() with K3's and K4's dense rows on accumulator route `route`
+        where they fit it (kernels/wavefront.py acc_route: ACC_BUDGET 0
+        forces "local")."""
+        kwf.ACC_BUDGET = ACC_BUDGET if route == "shared" else 0
+        try:
+            return fn()
+        finally:
+            kwf.ACC_BUDGET = ACC_BUDGET
+
+    def same_grads(got, ref, what: str) -> None:
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"{what}: not the same bits")
 
     def reset_counts():
         kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
@@ -847,6 +872,10 @@ def main() -> None:
           f"each source's nvcc -c, all started together: {each})", flush=True)
     for line in build.ptxas_report.splitlines():
         print(f"build: {line}", flush=True)
+    from kytpu_torch.kernels.ab_k1 import ptxas_lines
+    for line in ptxas_lines(build.ptxas_report):
+        if line.startswith(("wavefront", "bwd_res")):
+            print(f"ptxas: {line}", flush=True)
 
     # 3. kernel vs plain on the card
     n_lanes = 262144
@@ -924,15 +953,52 @@ def main() -> None:
         share2, mabs2, _ = compare(k2, ref_l, f"K2 {tag}")
         cerr = compare_cache(resf, resi, ref_f, ref_i, f"K2 cache {tag}")
         same_bits((k2, resf, resi), (ref_l, ref_f, ref_i), f"K2 {tag}")
-        gerr = compare_grads(grads, kwf.bwd_res_plain(
-            tables, cfg, g, ref_l, ref_f, ref_i), f"K3 {tag}")
-        rerr = compare_grads(k4, kwf.bwd_replay_plain(
-            tables, cfg, o, d, 77, si, pix, g, ref), f"K4 {tag}")
+        ref3 = kwf.bwd_res_plain(tables, cfg, g, ref_l, ref_f, ref_i)
+        ref4 = kwf.bwd_replay_plain(tables, cfg, o, d, 77, si, pix, g, ref)
+        gerr = compare_grads(grads, ref3, f"K3 {tag}")
+        rerr = compare_grads(k4, ref4, f"K4 {tag}")
         xerr = compare_grads(k4, grads, f"K4 vs K3 {tag}", CROSS_RTOL,
                              CROSS_ATOL)
         err_res = max(err_res, mabs2, cerr)
         err_bwd = max(err_bwd, gerr)
         err_replay = max(err_replay, rerr)
+        # each accumulator route, and K4's chunk at these lanes
+        by_route, errs = {}, []
+        for route in kwf.ACC_ROUTES:
+            if on_route(route, lambda: (kwf.acc_route(tables, cfg),
+                                        kwf.acc_route(tables, cfg, True))) \
+                    != (route, route):
+                raise AssertionError(f"{tag}: not on the {route} route")
+            r3, r3b, r4, r4b = on_route(route, lambda: (
+                kwf.bwd_res(tables, cfg, g, k2, resf, resi),
+                kwf.bwd_res(tables, cfg, g, k2, resf, resi),
+                kwf.bwd_replay(tables, cfg, o, d, 77, si, pix, g, got),
+                kwf.bwd_replay(tables, cfg, o, d, 77, si, pix, g, got)))
+            same_grads(r3b, r3, f"K3 {route} route {tag} again")
+            same_grads(r4b, r4, f"K4 {route} route {tag} again")
+            errs.append(max(compare_grads(r3, ref3, f"K3 {route} {tag}"),
+                            compare_grads(r4, ref4, f"K4 {route} {tag}")))
+            by_route[route] = (r3, r4)
+        for k in (0, 1):
+            same_grads(by_route["shared"][k], by_route["local"][k],
+                       f"K{k + 3} shared vs local route {tag}")
+        same_grads(grads, by_route[kwf.acc_route(tables, cfg)][0],
+                   f"K3 {tag}: its route's")
+        same_grads(k4, by_route[kwf.acc_route(tables, cfg, True)][1],
+                   f"K4 {tag}: its route's")
+        chunk4 = kwf.refill_chunk(tables, cfg, n_lanes, replay=True)
+        if chunk4 != 32:
+            raise AssertionError(f"K4 refills at {n_lanes} lanes: {chunk4}")
+        print(f"accumulator routes: {tag}: K3 and K4 on both routes "
+              f"({kwf._row_cols(tables, cfg)} of {kwf._n_cols(tables, cfg)} "
+              f"columns kept; a K3 block {kwf.acc_bytes(tables, cfg)} B and "
+              f"a K4 block {kwf.acc_bytes(tables, cfg, True)} B of shared "
+              f"memory on the shared one) within the bound of the plain "
+              f"versions (max |err| {', '.join(f'{e:.3g}' for e in errs)}), "
+              f"each repeats bit for bit, local = shared bit for bit; K3 on "
+              f"{kwf.acc_route(tables, cfg)}, K4 on "
+              f"{kwf.acc_route(tables, cfg, True)}; K4 in {chunk4}-lane "
+              f"chunks", flush=True)
         print(f"residual kernels vs plain: {tag}: K2 radiance and cache = "
               f"plain bit for bit; "
               f"K2 radiance = K1's bit for bit, {share2:.5f} of lanes outside "
@@ -958,6 +1024,51 @@ def main() -> None:
                                      "phong lane")
 
     kwf.STAGE_BUDGET = STAGE_BUDGET
+
+    # 3b. past ACC_BUDGET: 32 lights, 300 columns a row
+    from tests.test_torch_cuda import many_lights
+    sc32 = many_lights(builders, 32, 512, 512).to("cuda")
+    for sampler, nee in (("hash", "all"), ("sobol", "single")):
+        cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee)
+        tag = f"32 lights {sampler}/{nee}"
+        o, d, si, pix = jittered_rays(sc32, n_lanes, 13)
+        tables = kwf.pack_tables(sc32, cfg)
+        if on_route("shared", lambda: (kwf.acc_route(tables, cfg),
+                                       kwf.acc_route(tables, cfg, True))) \
+                != ("local", "local"):
+            raise AssertionError(f"{tag}: the shared route fits")
+        k1 = kwf.trace_lanes(tables, cfg, o, d, 31, si, pix)
+        k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 31, si, pix,
+                                         residual=True)
+        g = torch.randn(o.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(6))
+        grads = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
+        k4 = kwf.bwd_replay(tables, cfg, o, d, 31, si, pix, g, k1)
+        ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tables, cfg, o, d, 31, si,
+                                                    pix, residual=True)
+        same_bits((k2, resf, resi), (ref_l, ref_f, ref_i), f"K2 {tag}")
+        ref3 = kwf.bwd_res_plain(tables, cfg, g, ref_l, ref_f, ref_i)
+        ref4 = kwf.bwd_replay_plain(tables, cfg, o, d, 31, si, pix, g, ref_l)
+        same_grads(kwf.bwd_res(tables, cfg, g, k2, resf, resi), grads,
+                   f"K3 {tag} again")
+        same_grads(kwf.bwd_replay(tables, cfg, o, d, 31, si, pix, g, k1), k4,
+                   f"K4 {tag} again")
+        errs = [(compare_grads(grads, ref3, f"K3 {tag}"),
+                 compare_grads(k4, ref4, f"K4 {tag}"))]
+        xerr = compare_grads(k4, grads, f"K4 vs K3 {tag}", CROSS_RTOL,
+                             CROSS_ATOL)
+        err_bwd = max(err_bwd, *(e3 for e3, _ in errs))
+        err_replay = max(err_replay, *(e4 for _, e4 in errs))
+        print(f"accumulator routes: {tag}, {n_lanes} lanes, depth 5 "
+              f"({kwf._row_cols(tables, cfg)} of {kwf._n_cols(tables, cfg)} "
+              f"columns kept, a K4 block "
+              f"{kwf.acc_bytes(tables, cfg, replay=True)} B on the shared "
+              f"route): K3 and K4 on the {kwf.acc_route(tables, cfg)} and "
+              f"{kwf.acc_route(tables, cfg, True)} routes within the bound "
+              f"(max |err| {errs[0][0]:.3g} and {errs[0][1]:.3g}), each "
+              f"repeats bit for bit; K4 vs K3 max |diff| {xerr:.3g}",
+              flush=True)
+    del sc32, k1, k2, resf, resi, g, grads, k4, ref_l, ref_f, ref_i
 
     # 4. frames through the main path (render, engine="cuda")
     veach_frame = builders.veach_mis(512, 308)
@@ -1106,6 +1217,33 @@ def main() -> None:
         lambda: kwf.bwd_replay(tables, cfg, o, d, 5, None, None, g, k1), 5)
     if not all(torch.equal(a, t.grad) for a, t in zip(k4, leaves)):
         raise AssertionError("the replay tracer's gradient is not K4's")
+    chunk4 = kwf.refill_chunk(tables, cfg, n_time, replay=True)
+    if chunk4 <= 32:
+        raise AssertionError(f"K4 does not refill at {n_time} lanes")
+    # each accumulator route on the same lanes
+    route_ms, by_route = {}, {}
+    for route in kwf.ACC_ROUTES:
+        t3, r3 = on_route(route, lambda: cuda_time_ms(
+            lambda: kwf.bwd_res(tables, cfg, g, k2, resf, resi), 5))
+        t4, r4 = on_route(route, lambda: cuda_time_ms(
+            lambda: kwf.bwd_replay(tables, cfg, o, d, 5, None, None, g, k1),
+            5))
+        route_ms[route], by_route[route] = (t3, t4), (r3, r4)
+    for k in (0, 1):
+        for route, got_r in by_route.items():
+            same_grads(got_r[k], (grads, k4)[k],
+                       f"K{k + 3} {route} route veach {n_time} lanes")
+    del by_route
+    print(f"accumulator routes: veach depth 5, {n_time} lanes "
+          f"({kwf._row_cols(tables, cfg)} of {kwf._n_cols(tables, cfg)} "
+          f"columns kept): "
+          + "; ".join(f"{r}: K3 {t3:.3f} ms, K4 {t4:.3f} ms"
+                      for r, (t3, t4) in route_ms.items())
+          + f" (a shared K3 block {kwf.acc_bytes(tables, cfg)} B, a K4 block "
+          f"{kwf.acc_bytes(tables, cfg, True)} B); K3 on "
+          f"{kwf.acc_route(tables, cfg)}, K4 on "
+          f"{kwf.acc_route(tables, cfg, True)} ({chunk4}-lane chunks); the "
+          f"same bits on both routes; on {smi}", flush=True)
     # the row-tagged K3 and K4 (the route past 64 surfaces) forced on the
     # same lanes: what the dense route saves at Veach's rows
     kwf.DENSE_MAX_ROWS = 0

@@ -1,6 +1,7 @@
 """A/B timing of the forward megakernels K1 and K5, the residual forwards
-K2 and K6, the replay backwards K4 and K8 and a frame around K1, between
-this checkout and other ones of the port, on one card, in one run.
+K2 and K6, the cache backward K3, the replay backwards K4 and K8 and a
+frame around K1, between this checkout and other ones of the port, on one
+card, in one run.
 
     git archive <commit> | tar -x -C _archive/parent
     python -m kytpu_torch.kernels.ab_k1 _archive/parent [_archive/other ...]
@@ -15,12 +16,13 @@ in its own process. Each run prints the ms of 3 rounds of 5 warmed launches
 checkouts when the change keeps K1's arithmetic, then the ms of 3 rounds
 of 5 launches of K2 on the same lanes (the 0.70 GB cache of each launch
 freed before the next) and the sum of its cache, then the ms of 3 rounds
-of 5 launches of the replay backward K4 on those lanes (upstream gradient
-1/N) and the sum of its gradient, then the ms of 3 rounds of 10 launches
-of K2 at a train step's lanes (Cornell 256x256, 4 jittered samples a
-pixel, depth 3, "hash": 262,144 lanes), with the kernel's device time a
-launch (torch.profiler) and the host's time a call (10 calls, not
-synchronised), then the wall time of a
+of 5 launches of the cache backward K3 on that cache and of the replay
+backward K4 on those lanes (upstream gradient 1/N) and the sums of their
+gradients, then the ms of 3 rounds of 10 launches of K2 at a train step's
+lanes (Cornell 256x256, 4 jittered samples a pixel, depth 3, "hash":
+262,144 lanes), with the kernel's device time a launch (torch.profiler)
+and the host's time a call (10 calls, not synchronised), and of K3 on its
+cache (upstream gradient 1/N), then the wall time of a
 Cornell box 256x256 frame at 64 spp through `render()` (the median of 5
 warmed frames, host code included), then the ms of 3 rounds of 3 warmed
 launches of the untextured big-scene forward K5 on random_spheres(1024) at
@@ -30,8 +32,8 @@ sum) and of its replay backward K8 (upstream gradient 1/N; its gradient's
 sum), then the same of K1 and K4 on those lanes of the scene
 with a 16x16 ground atlas (1,026 surfaces, its tables in device memory,
 K4 row-tagged; chip_smoke.py's phase 11d). The card's name and power
-limit come first, each checkout's K1/K2/K4 registers, stack and spills
-next, and a summary of each checkout's mean times last. Needs a CUDA device; the other
+limit come first, each checkout's K1-K4 registers, stack and spills next,
+and a summary of each checkout's mean times last. Needs a CUDA device; the other
 checkouts need `kytpu_torch.kernels.bigscene.make_bigscene_tracer`.
 """
 
@@ -85,8 +87,20 @@ for _ in range(3):
     k2_ms.append(t0.elapsed_time(t1) / 5)
 _, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 5, residual=True)
 k2_sum = float(resf.double().sum()) + float(resi.double().sum())
-del resf, resi
 g = torch.full((n, 3), 1.0 / n, device="cuda")
+k3 = kwf.bwd_res(tables, cfg, g, out, resf, resi)
+k3_ms = []
+for _ in range(3):
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(5):
+        k3 = kwf.bwd_res(tables, cfg, g, out, resf, resi)
+    t1.record()
+    torch.cuda.synchronize()
+    k3_ms.append(t0.elapsed_time(t1) / 5)
+k3_sum = sum(float(t.double().sum()) for t in k3)
+del resf, resi
 k4_ms = []
 for _ in range(3):
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -136,6 +150,18 @@ for _ in range(10):
     res = kwf.trace_lanes(ctab, ccfg, co, cd, 5, csi, cpix, residual=True)
 step_host_ms = (time.perf_counter() - h0) * 100
 torch.cuda.synchronize()
+cg = torch.full((cn, 3), 1.0 / cn, device="cuda")
+step_k3_ms = []
+for _ in range(3):
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(10):
+        k3 = kwf.bwd_res(ctab, ccfg, cg, *res)
+    t1.record()
+    torch.cuda.synchronize()
+    step_k3_ms.append(t0.elapsed_time(t1) / 10)
+k3_sum += sum(float(t.double().sum()) for t in k3)
 del res
 render(cb, spp=64)
 walls = []
@@ -230,6 +256,8 @@ k4_sum += sum(float(t.double().sum()) for t in p4)
 print(json.dumps({"ms": ms, "sum": float(out.double().sum()),
                   "p64_k4_ms": p64_k4_ms, "step_ms": step_ms,
                   "step_dev_ms": step_dev_ms, "step_host_ms": step_host_ms,
+                  "k3_ms": k3_ms, "k3_sum": k3_sum,
+                  "step_k3_ms": step_k3_ms,
                   "k4_ms": k4_ms, "k4_sum": k4_sum,
                   "p64_ms": p64_ms, "p64_sum": float(pout.double().sum()),
                   "frame_ms": float(np.median(walls)), "k2_ms": k2_ms,
@@ -252,12 +280,14 @@ def run(root: Path) -> dict:
 
 def ptxas_lines(report: str) -> list[str]:
     """-Xptxas -v's registers, stack and spills of each K1/K2/K4
-    instantiation, wavefront_fwd_kernel<MODE, SOBOL, TEX, ROWTAG[, SH]>, and
-    each K5/K6/K8 one, bigscene_fwd_kernel<MODE, SOBOL, TEX>."""
+    instantiation, wavefront_fwd_kernel<MODE, SOBOL, TEX, ROWTAG[, SH[,
+    SHACC]]>, each K3 one, bwd_res_kernel<TEX, ROWTAG[, SHACC]>, and each
+    K5/K6/K8 one, bigscene_fwd_kernel<MODE, SOBOL, TEX>."""
     lines, name, frame = [], None, ""
     for ln in report.splitlines():
-        m = re.search(r"(wavefront|bigscene)_fwd_kernelI((?:L[ib]\d+E)+)E",
-                      ln)
+        m = re.search(
+            r"(wavefront_fwd|bwd_res|bigscene_fwd)_kernelI((?:L[ib]\d+E)+)E",
+            ln)
         if "Compiling entry" in ln:
             name = (m.group(1) + "<" + ",".join(
                 re.findall(r"L[ib](\d+)E", m.group(2))) + ">") if m else None
@@ -298,17 +328,21 @@ def main(others: list[str]) -> None:
     sums, seen = set(), {}
     for root in order:
         r = run(root)
-        sums.add((r["sum"], r["k2_sum"], r["k4_sum"], r["k5_sum"],
-                  r["p64_sum"], r["k6_sum"], r["k8_sum"]))
+        sums.add((r["sum"], r["k2_sum"], r["k5_sum"], r["p64_sum"],
+                  r["k6_sum"], r["k8_sum"]))
         seen.setdefault(root, []).append(r)
         print(f"{root}: K1 ms "
               f"{', '.join(f'{t:.3f}' for t in r['ms'])}; sum {r['sum']!r}; "
               f"K2 ms {', '.join(f'{t:.3f}' for t in r['k2_ms'])}; cache sum "
-              f"{r['k2_sum']!r}; K4 ms "
+              f"{r['k2_sum']!r}; K3 ms "
+              f"{', '.join(f'{t:.3f}' for t in r['k3_ms'])}; gradient sum "
+              f"{r['k3_sum']!r}; K4 ms "
               f"{', '.join(f'{t:.3f}' for t in r['k4_ms'])}; gradient sum "
               f"{r['k4_sum']!r}; K2 at a train step's lanes ms "
               f"{', '.join(f'{t:.3f}' for t in r['step_ms'])} (device "
               f"{r['step_dev_ms']:.3f}, host {r['step_host_ms']:.3f} a call); "
+              f"K3 there ms "
+              f"{', '.join(f'{t:.3f}' for t in r['step_k3_ms'])}; "
               f"Cornell 64-spp frame {r['frame_ms']:.3f} "
               f"ms; K5 ms {', '.join(f'{t:.3f}' for t in r['k5_ms'])}; sum "
               f"{r['k5_sum']!r}; K6 ms "
@@ -322,15 +356,23 @@ def main(others: list[str]) -> None:
     for root, rs in seen.items():
         mean = lambda k: sum(sum(r[k]) / len(r[k]) for r in rs) / len(rs)  # noqa
         print(f"mean {root.name}: K1 {mean('ms'):.3f} ms, K2 "
-              f"{mean('k2_ms'):.3f} ms, K4 {mean('k4_ms'):.3f} ms, K2 at a "
-              f"train step's lanes {mean('step_ms'):.3f} ms, K5 "
+              f"{mean('k2_ms'):.3f} ms, K3 {mean('k3_ms'):.3f} ms, K4 "
+              f"{mean('k4_ms'):.3f} ms, K2 at a train step's lanes "
+              f"{mean('step_ms'):.3f} ms, K3 there {mean('step_k3_ms'):.3f} "
+              f"ms, K5 "
               f"{mean('k5_ms'):.3f} ms, K6 {mean('k6_ms'):.3f} ms, K8 "
               f"{mean('k8_ms'):.3f} ms, K1 past 64 "
               f"{mean('p64_ms'):.3f} ms, K4 past 64 {mean('p64_k4_ms'):.3f} "
               f"ms, frame "
               f"{sum(r['frame_ms'] for r in rs) / len(rs):.3f} ms", flush=True)
-    print("radiance, cache and gradient sums agree" if len(sums) == 1
+    print("radiance, cache and K5-K8 gradient sums agree" if len(sums) == 1
           else f"sums differ: {sorted(sums)}")
+    # a change of K3's or K4's order of additions moves their sums' last
+    # bits: printed, not held
+    for root, rs in seen.items():
+        print(f"gradient sums {root.name}: K3 "
+              f"{sorted({r['k3_sum'] for r in rs})}, K4 "
+              f"{sorted({r['k4_sum'] for r in rs})}", flush=True)
 
 
 if __name__ == "__main__":

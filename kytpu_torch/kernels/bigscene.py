@@ -1241,7 +1241,7 @@ def bwd_res_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
     semantics: a non-emitting row's emission gradient is not zeroed, as K3
     does). The row-tagged planes are summed by row in a fixed order
     (`sort_rows`, `segment_sums_plain`), the texel entries by texel, and
-    the env, light-emission and checker adjoints over lanes in K3's order
+    the env, light-emission and checker adjoints over lanes in K7's order
     (`kwf.sum_lanes`), so the gradient repeats bit for bit and equals the
     kernel's."""
     kwf.check_config(cfg)
@@ -1253,7 +1253,7 @@ def sums_plain(tables: BigTables, cfg: kwf.KernelConfig, dout, acc, tags,
                entries=None):
     """The sums that finish K7 and K8, plain: the row-tagged planes dout
     summed by the rows `tags` hold (`sort_rows`, `segment_sums_plain`), the
-    (N, 3 + 3L + 6T) lane accumulators over lanes in K3's order
+    (N, 3 + 3L + 6T) lane accumulators over lanes in K7's order
     (`kwf.sum_lanes`) -> (dd, ds, de, denv[, dexp][, dta, dtb])
     (`_assemble`), and the texel entries of an image scene summed by texel
     (`kwf.texel_sums_plain`) -> [, dti]."""

@@ -115,8 +115,8 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.kytpu_wavefront_fwd.argtypes = [p] * 16 + [i] * 11 + [p]
         lib.kytpu_wavefront_fwd_res.argtypes = [p] * 18 + [i] * 11 + [p]
-        lib.kytpu_wavefront_bwd_res.argtypes = [p] * 19 + [i] * 5 + [p]
-        lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 23 + [i] * 12 + [p]
+        lib.kytpu_wavefront_bwd_res.argtypes = [p] * 20 + [i] * 7 + [p]
+        lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 24 + [i] * 15 + [p]
         lib.kytpu_wavefront_chunk.argtypes = [i] * 7
         lib.kytpu_bigscene_fwd.argtypes = [p] * 24 + [i] * 17 + [p]
         lib.kytpu_bigscene_bwd_res.argtypes = [p] * 13 + [i] * 7 + [p]

@@ -57,28 +57,31 @@
 //    has one shadow ray a vertex and keeps its sweep. The next bounce's hit
 //    pdf of a sphere light (light_phit) is recomputed from the previous
 //    vertex, which replaces a per-light array in local memory.
-// 3. Dead-lane refill (K1 and K2). Each warp owns a contiguous chunk of
-//    lanes; a thread (a slot) traces one lane a bounce at a time, and when
-//    slots finish their lanes they take the chunk's next lanes in slot order
-//    (__ballot_sync / __popc, no atomics), so the slot-to-lane map is fixed
-//    and a warp no longer idles on dead lanes while its longest path runs.
-//    The bounce, the Rng counter, the MIS carry and the previous vertex are
-//    per-slot state; the tile seed and si0 still come from the lane index,
-//    and K2 stores plane-major by lane index, as before. A chunk holds the
-//    lanes that spread a launch over MIN_WAVES waves of the warps the SMs
-//    hold (refill_chunk, from the occupancy calculator), at most 32 *
-//    REFILL: 512 lanes at Veach's 4M, where fewer, longer waves leave more
-//    of the card idle at the end, and 32 (no refill) at a train step's
-//    262K. The host turns refill off past REFILL_MAX_ROWS surfaces
-//    (wavefront.py): there the occlusion sweeps run over hundreds of rows,
-//    each ray ends its sweep at its first occluder, and a refilled warp
-//    holds lanes from all over the frame, which end theirs far apart.
+// 3. Dead-lane refill (K1, K2 and K4). Each warp owns a contiguous chunk
+//    of lanes; a thread (a slot) traces one lane a bounce at a time, and
+//    when slots finish their lanes they take the chunk's next lanes in slot
+//    order (__ballot_sync / __popc, no atomics), so the slot-to-lane map is
+//    fixed and a warp no longer idles on dead lanes while its longest path
+//    runs. The bounce, the Rng counter, the MIS carry and the previous
+//    vertex (K4: g and the tail radiance) are per-slot state; the tile seed
+//    and si0 still come from the lane index, and K2 stores plane-major by
+//    lane index, as before. A chunk holds the lanes that spread a launch
+//    over MIN_WAVES waves of the warps the SMs hold (refill_chunk: for K1
+//    and K2 from the occupancy calculator, for K4 at min_blocks_of blocks
+//    an SM, so that its slot-to-lane map, and with it its sums' order, is
+//    the same on both accumulator routes), at most 32 * REFILL: 512 lanes
+//    at Veach's 4M, where fewer, longer waves leave more of the card idle
+//    at the end, and 32 (no refill) at a train step's 262K. The host turns
+//    refill off past REFILL_MAX_ROWS surfaces (wavefront.py): there the
+//    occlusion sweeps run over hundreds of rows, each ray ends its sweep at
+//    its first occluder, and a refilled warp holds lanes from all over the
+//    frame, which end theirs far apart.
 // 4. Registers and occupancy: K1, K2 and K4 are bound to 4 blocks of 128
 //    threads an SM (128 registers a thread; K1 lost 10-15% at 3 blocks,
-//    blocks of 256 threads fit only one block an SM). K4 keeps one thread
-//    per lane: its fixed-order block sums (lane_sum.cuh) depend on which
-//    thread holds which lane. It runs the same lane body, so it takes steps
-//    1 and 2 and branches as K1 does.
+//    blocks of 256 threads fit only one block an SM, and K4 on its shared
+//    accumulator route was 8% slower at 3, where the compiler took up to
+//    159 registers). K4 runs the same lane body, so it takes steps 1-3 and
+//    branches as K1 does.
 //
 // The JAX package folds exact 0/+-1 geometry constants out of its dot
 // products at trace time (kernels/v3.py); cdot() does the same at run time,
@@ -95,18 +98,30 @@
 // and torch.minimum/maximum do.
 //
 // K4 keeps K1's path state and adds g, the tail radiance, the bounce's
-// colour adjoints and a per-thread row of 9M+3 (+M) adjoint columns in local
-// memory (2.5 KB at M = 64), so it spills where K1 fits in registers. What
-// bounds it: K1's FP32/SFU work plus those local read-modify-writes; its
-// bytes are K1's rays and radiance plus g. The lanes are summed by the
-// fixed-order two-pass reduction of lane_sum.cuh, as K3's are, so its
-// gradient repeats to the last bit. Past DENSE_MAX_ROWS surfaces (ROWTAG, a
-// compile-time switch) the dense row would not fit a thread: as K8 does,
-// each bounce's adjoints of its hit row are written as row-tagged planes
-// (dd, ds, de [, dexp], the horizon's de) with a row-tag plane, and only the
-// env, per-light emission and checker adjoints stay in the per-thread row;
-// the host sorts the tags and bigscene_bwd_res.cu's segment sums add them
-// by row in a fixed order. Later work (each from a measurement): per-scene
+// colour adjoints and a per-slot adjoint row, which each lane the slot
+// traces adds to in turn. The row keeps the columns a lane can add to
+// (wavefront.py acc_columns, through the column map `cmap`: 64 of Veach's
+// 102), as K3's does, and is the slot's column of the block's accumulator
+// in dynamic shared memory, after the staged tables and the shadow rays
+// (ACC_SHARED, lane_sum.cuh's ColAcc: column k of thread t at k * 128 + t,
+// conflict-free whatever rows a warp's lanes hit) where the block stays
+// within ACC_BUDGET (wavefront.py acc_route): 53 KB at Veach, four blocks
+// an SM (at 73 KB, every column kept, three blocks: no faster than the
+// local row). A larger row (32 lights' 199 kept columns) stays in local
+// memory (ACC_LOCAL, RowAcc). What bounds it: K1's FP32/SFU work plus the
+// adjoint terms; its bytes are K1's rays and radiance plus g. The block's
+// slots are summed by column in one fixed order on both routes
+// (lane_sum.cuh), as K3's lanes are, so its gradient repeats to the last
+// bit and does not depend on the route; the order depends on which slot
+// traced which lane (step 3), so with refill it is not the plain
+// version's, which sums lane by lane in K3's order (wavefront.py
+// sum_kept); without refill (32-lane chunks) the two orders are one. Past
+// DENSE_MAX_ROWS surfaces (ROWTAG, a compile-time switch) the dense row
+// would not fit a thread: as K8 does, each bounce's adjoints of its hit row
+// are written as row-tagged planes (dd, ds, de [, dexp], the horizon's de)
+// with a row-tag plane, and only the env, per-light emission and checker
+// adjoints stay in the local row; the host sorts the tags and
+// bigscene_bwd_res.cu's segment sums add them by row in a fixed order. Later work (each from a measurement): per-scene
 // generated source instead of table loops, FMA contraction (it changes the
 // bits the plain version fixes).
 
@@ -351,7 +366,8 @@ struct Args {
   int* resi;
   const float *g, *l_in;
   float* partial;
-  int n, n_cols, seed, max_depth, rr_start, rows, sampler, robust;
+  // K4: the columns of a row, and of the gradient vector out
+  int n, n_cols, n_out, seed, max_depth, rr_start, rows, sampler, robust;
   // textures: the checker colours, the texel atlas; K4's texel entries
   const float *texa, *texb, *timg;
   float* tex_dout;
@@ -359,13 +375,17 @@ struct Args {
   // K4 past DENSE_MAX_ROWS surfaces: the row-tagged planes and their tags
   float* row_dout;
   int* row_tags;
-  // K1 and K2: lanes a warp owns (a multiple of 32)
+  // lanes a warp owns (a multiple of 32)
   int chunk;
   // words of the staged tables in dynamic shared memory, and the lights a
   // shadow-ray chunk holds (its block follows the tables; 0 under
-  // nee="single"); K1 and K2: whether slots refill (else a warp owns 32
-  // lanes, one a thread)
-  int stage_words, nee_rays, refill;
+  // nee="single"); whether slots refill (else a warp owns 32 lanes, one a
+  // thread); K4: its accumulator route (an AccRoute; the shared route's
+  // block follows the shadow rays'), and the blocks its partials table
+  // holds
+  int stage_words, nee_rays, refill, acc_route, n_blocks;
+  // K4: each column of the gradient vector's column in a row (lane_sum.cuh)
+  const int* cmap;
 };
 
 // One lane's path state, kept by the thread that traces it: everything that
@@ -418,17 +438,27 @@ __device__ __forceinline__ void lane_start(const Args& a, int id, Lane& L) {
 // horizon); L.bounce is then the first bounce it did not reach. MODE_FWD
 // accumulates the radiance (K1), MODE_RESIDUAL also writes the coefficient
 // cache (K2), MODE_REPLAY re-traces the same path with the same draws and
-// adds its table adjoints to acc (K4): dd | ds | de (3M each) | denv (3) |
+// adds its table adjoints to acc (K4; a RowAcc or ColAcc view of the slot's
+// row, lane_sum.cuh): dd | ds | de (3M each) | denv (3) |
 // dexp (M, under trainable_exponent) | dta | dtb (3T each, textured
 // scenes); under ROWTAG (past DENSE_MAX_ROWS surfaces) acc holds denv (3) |
 // each light's emission (3L) | dta | dtb and the hit rows' adjoints go to
 // the row-tagged planes. SOBOL, TEX and ROWTAG are compile-time switches so
 // that no other sampler's draws, no untextured scene and no dense backward
 // branch on them.
-template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH>
+// K4: v to columns col .. col + 2 of the accumulator view (lane_sum.cuh)
+template <class A>
+__device__ __forceinline__ void acc_add3(const A& acc, int col, V v) {
+  float* q = acc.at(col);
+  q[0] = q[0] + v.x;
+  q[A::STRIDE] = q[A::STRIDE] + v.y;
+  q[2 * A::STRIDE] = q[2 * A::STRIDE] + v.z;
+}
+
+template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, class A>
 __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
                                             const ResPlanes& rp, const ShadowRays& R, Lane& L,
-                                            float* acc) {
+                                            A acc) {
   const int n = a.n;
   const int lane_id = L.id;
   const int bounce = L.bounce;
@@ -497,7 +527,7 @@ __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
       if (valid && li_idx >= 0) de_b = gb * ((valid && facing) ? wb : 0.f);
       a.row_tags[(size_t)bounce * n + lane_id] = valid ? sid + 1 : 0;
     } else {
-      if (valid && li_idx >= 0) add3(acc, col_e + 3 * sid, gb * ((valid && facing) ? wb : 0.f));
+      if (valid && li_idx >= 0) acc_add3(acc, col_e + 3 * sid, gb * ((valid && facing) ? wb : 0.f));
     }
   }
   if (S.env_i >= 0) {
@@ -507,7 +537,7 @@ __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
     L.Lr = L.Lr + (beta * env) * wenv;
     e_term = e_term + env * wenv;
     if (MODE == MODE_RESIDUAL) put(rp.wenv(bounce), wenv);
-    if (MODE == MODE_REPLAY) add3(acc, col_env, gb * wenv);
+    if (MODE == MODE_REPLAY) acc_add3(acc, col_env, gb * wenv);
   }
   if (bounce == a.max_depth) {
     if (MODE == MODE_RESIDUAL) a.resi[(size_t)bounce * n + lane_id] = pack_row(sid + 1);
@@ -582,13 +612,13 @@ __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
   auto nee_adjoint = [&](int light, float bp, float kap) {
     const V add = (gb * col_nee) * bp;
     if constexpr (ROWTAG) {
-      add3(acc, 3 + 3 * light, add);
+      acc_add3(acc, 3 + 3 * light, add);
     } else {
       const int lrow = S.ldi(S.LTI + LT_I * light + 2);
       if (lrow >= 0)
-        add3(acc, col_e + 3 * lrow, add);
+        acc_add3(acc, col_e + 3 * lrow, add);
       else if (S.ldi(S.LTI + LT_I * light) == L_ENV)
-        add3(acc, col_env, add);
+        acc_add3(acc, col_env, add);
     }
     const V addc = (gb * S.ld3f(S.light_emit + 3 * light)) * bp;
     if (S.has_plastic) {
@@ -752,7 +782,7 @@ __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
         // a textured row's diffuse adjoint goes to its texture
         const bool on_img = trec >= 0 && tex_img;
         if (trec >= 0 && !tex_img)
-          add3(acc, (tex_even ? col_ta : col_tb) + 3 * S.ldi(S.TXI + TX_I * trec + 1), addc_diff);
+          acc_add3(acc, (tex_even ? col_ta : col_tb) + 3 * S.ldi(S.TXI + TX_I * trec + 1), addc_diff);
         if (S.has_img) {
           const bool sep = on_img && S.ldi(S.TXI + TX_I * trec + 5) != 0;
 #pragma unroll
@@ -774,9 +804,12 @@ __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
         row_put3(p + 6, de_b);
         if (texp) a.row_dout[(size_t)(p + 9) * n + lane_id] = (valid && mk == MAT_PLASTIC) ? addx : 0.f;
       } else {
-        if (valid && mk != MAT_MIRROR) add3(acc, col_d + 3 * sid, addc_diff);
-        if (valid && mk != MAT_MATTE) add3(acc, col_s + 3 * sid, addc_spec);
-        if (texp && valid && mk == MAT_PLASTIC) acc[col_x + sid] = acc[col_x + sid] + addx;
+        if (valid && mk != MAT_MIRROR) acc_add3(acc, col_d + 3 * sid, addc_diff);
+        if (valid && mk != MAT_MATTE) acc_add3(acc, col_s + 3 * sid, addc_spec);
+        if (texp && valid && mk == MAT_PLASTIC) {
+          float* q = acc.at(col_x + sid);
+          *q = *q + addx;
+        }
       }
       L.r_tail = r_next;
     }
@@ -900,52 +933,63 @@ __device__ __forceinline__ KScene<SH> stage_scene(const Args& a, float* smem) {
   return S;
 }
 
-// K1 and K2: each warp traces its chunk of lanes [base, base + a.chunk),
-// a slot taking the next lane in order when its lane ends (step 3).
-template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH>
+// Each warp traces its chunk of lanes [base, base + a.chunk), a slot taking
+// the next lane in order when its lane ends (step 3); K4 adds each lane's
+// adjoints to its slot's row `acc`.
+template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, class A>
+__device__ __forceinline__ void trace_chunk(const Args& a, const KScene<SH>& S,
+                                            const ResPlanes& rp, const ShadowRays& R, A acc) {
+  // acc: K4's view of this slot's row
+  const int slot = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long base = (long long)warp * a.chunk;
+  const long long end = min(base + a.chunk, (long long)a.n);
+  long long next = base + 32;  // the chunk's next lane to hand out
+  Lane L;
+  bool active = base + slot < end;
+  if (active) lane_start<MODE, SOBOL>(a, (int)(base + slot), L);
+  while (__any_sync(0xffffffffu, active)) {
+    bool done = false;
+    if (active) {
+      done = lane_bounce<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R, L, acc);
+      if (done) lane_finish<MODE, TEX, ROWTAG, SH>(a, S, rp, L);
+    }
+    const uint32_t ended = __ballot_sync(0xffffffffu, done);
+    if (done) {
+      const long long id = next + __popc(ended & ((1u << slot) - 1u));
+      active = id < end;
+      if (active) lane_start<MODE, SOBOL>(a, (int)id, L);
+    }
+    next += __popc(ended);
+  }
+}
+
+// K1, K2 and K4. K4 (MODE_REPLAY): each slot's row is zeroed, takes the
+// adjoints of every lane the slot traces, and the block's rows are summed by
+// column into the partials table (lane_sum.cuh); ACC (an AccRoute): each
+// row a local array, or a column of the block's accumulator in dynamic
+// shared memory.
+template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, int ACC>
 __global__ void __launch_bounds__(threads_of<MODE>(), min_blocks_of<MODE>())
     wavefront_fwd_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   const KScene<SH> S = stage_scene<SH, TEX>(a, (float*)smem4);
   const ResPlanes rp = res_planes(S.env_i >= 0, S.single, S.L, S.texp, TEX && S.has_img);
-  const ShadowRays R{(float*)smem4 + a.stage_words + threadIdx.x, a.nee_rays};
-  if constexpr (MODE == MODE_REPLAY) {
-    // one lane a thread: a per-thread adjoint row (local memory), then the
-    // fixed-order block sum
-    const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
-    float acc[ROWTAG ? ROW_COLS : MAX_COLS];
-    for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
-    if (lane_id < a.n) {
-      Lane L;
-      lane_start<MODE, SOBOL>(a, lane_id, L);
-      while (!lane_bounce<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R, L, acc)) {
-      }
-      lane_finish<MODE, TEX, ROWTAG, SH>(a, S, rp, L);
-    }
-    block_partials(acc, a.n_cols, a.partial);
+  float* rays = (float*)smem4 + a.stage_words;
+  const ShadowRays R{rays + threadIdx.x, a.nee_rays};
+  if constexpr (MODE != MODE_REPLAY) {
+    trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R, RowAcc{nullptr, nullptr});
+  } else if constexpr (ACC == ACC_SHARED) {
+    float* cols = rays + ShadowRays::FIELDS * a.nee_rays * RAY_STRIDE;
+    for (int k = 0; k < a.n_cols; ++k) cols[k * RAY_STRIDE + threadIdx.x] = 0.f;
+    trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R,
+                                              ColAcc{cols + threadIdx.x, a.cmap});
+    block_col_sums(cols, a.n_cols, a.partial, a.n_blocks);
   } else {
-    const int slot = threadIdx.x & 31;
-    const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    const long long base = (long long)warp * a.chunk;
-    const long long end = min(base + a.chunk, (long long)a.n);
-    long long next = base + 32;  // the chunk's next lane to hand out
-    Lane L;
-    bool active = base + slot < end;
-    if (active) lane_start<MODE, SOBOL>(a, (int)(base + slot), L);
-    while (__any_sync(0xffffffffu, active)) {
-      bool done = false;
-      if (active) {
-        done = lane_bounce<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R, L, nullptr);
-        if (done) lane_finish<MODE, TEX, ROWTAG, SH>(a, S, rp, L);
-      }
-      const uint32_t ended = __ballot_sync(0xffffffffu, done);
-      if (done) {
-        const long long id = next + __popc(ended & ((1u << slot) - 1u));
-        active = id < end;
-        if (active) lane_start<MODE, SOBOL>(a, (int)id, L);
-      }
-      next += __popc(ended);
-    }
+    float row[ROWTAG ? ROW_COLS : MAX_ROW];
+    for (int k = 0; k < a.n_cols; ++k) row[k] = 0.f;
+    trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R, RowAcc{row, a.cmap});
+    block_row_sums(row, a.n_cols, a.partial, a.n_blocks);
   }
 }
 
@@ -961,10 +1005,9 @@ int sm_count(int dev) {
   return v;
 }
 
-// K1 and K2: the lanes a warp owns, a multiple of 32: as many as spread n
-// lanes over MIN_WAVES waves of the warps the SMs hold (`per_sm` blocks
-// each, from the occupancy calculator), at most 32 * REFILL, and 32 (one
-// lane a thread) without refill
+// The lanes a warp owns, a multiple of 32: as many as spread n lanes over
+// MIN_WAVES waves of the warps the SMs hold (`per_sm` blocks each), at most
+// 32 * REFILL, and 32 (one lane a thread) without refill
 int refill_chunk(long long n, int per_sm, int sms, int threads, bool refill) {
   if (!refill) return 32;
   const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms * (threads / 32);
@@ -998,49 +1041,77 @@ cudaError_t prepare(Cache& c, K k, int dev, int threads, int smem, int& per_sm) 
   return err;
 }
 
-// dynamic shared memory: the staged tables, then the shadow rays' block.
-// chunk_only: set a.chunk and launch nothing.
-template <int MODE, bool TEX, bool ROWTAG, bool SH>
+// dynamic shared memory: the staged tables, then the shadow rays' block,
+// then (K4 on a shared-memory route) the accumulator's. chunk_only: set
+// a.chunk and a.n_blocks and launch nothing.
+template <int MODE, bool TEX, bool ROWTAG, bool SH, int ACC>
 cudaError_t launch_kernel(Args& a, bool chunk_only, void* stream) {
   static Cache cache[2];  // this instantiation's kernels: sobol or not
   const bool sobol = a.sampler == S_SOBOL;
-  auto k = sobol ? wavefront_fwd_kernel<MODE, true, TEX, ROWTAG, SH>
-                 : wavefront_fwd_kernel<MODE, false, TEX, ROWTAG, SH>;
+  auto k = sobol ? wavefront_fwd_kernel<MODE, true, TEX, ROWTAG, SH, ACC>
+                 : wavefront_fwd_kernel<MODE, false, TEX, ROWTAG, SH, ACC>;
   constexpr int threads = threads_of<MODE>();
-  const int smem = 4 * (a.stage_words + ShadowRays::FIELDS * a.nee_rays * threads);
+  const long long words = (long long)a.stage_words + ShadowRays::FIELDS * a.nee_rays * threads +
+                          (ACC == ACC_SHARED ? (long long)a.n_cols * threads : 0);
+  if (4 * words > MAX_SMEM) return cudaErrorInvalidValue;
+  const int smem = (int)(4 * words);
   int dev = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = prepare(cache[sobol], k, dev, threads, smem, per_sm);
   if (err != cudaSuccess) return err;
-  int blocks;
   if (MODE == MODE_REPLAY) {
-    blocks = a.n > 0 ? (a.n + threads - 1) / threads : 1;
+    // K4's chunk from its launch bound, not its occupancy: the same on both
+    // accumulator routes (step 3)
+    per_sm = min_blocks_of<MODE>();
   } else {
-    a.chunk = refill_chunk(a.n, per_sm, sm_count(dev), threads, a.refill != 0);
-    const long long warps = ((long long)a.n + a.chunk - 1) / a.chunk;
-    blocks = (int)((warps + threads / 32 - 1) / (threads / 32));
+    err = prepare(cache[sobol], k, dev, threads, smem, per_sm);
+    if (err != cudaSuccess) return err;
   }
-  if (chunk_only || blocks == 0) return cudaSuccess;
-  k<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
-  if (MODE != MODE_REPLAY) return cudaSuccess;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return (cudaError_t)sum_partials(a.partial, a.out, blocks, a.n_cols, (cudaStream_t)stream);
+  a.chunk = refill_chunk(a.n, per_sm, sm_count(dev), threads, a.refill != 0);
+  const long long warps = ((long long)a.n + a.chunk - 1) / a.chunk;
+  int blocks = (int)((warps + threads / 32 - 1) / (threads / 32));
+  // K4 launches one block at least, which writes the partials of no lanes
+  if (MODE == MODE_REPLAY && blocks < 1) blocks = 1;
+  if (chunk_only) {
+    a.n_blocks = blocks;
+    return cudaSuccess;
+  }
+  if (MODE == MODE_REPLAY) {
+    if (a.n_blocks != blocks) return cudaErrorInvalidValue;
+    err = prepare(cache[sobol], k, dev, threads, smem, per_sm);
+    if (err != cudaSuccess) return err;
+    k<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return (cudaError_t)sum_cols(a.partial, a.out, a.n_blocks, a.cmap,
+                                 a.row_tags ? a.n_cols : a.n_cols - 1, a.n_out,
+                                 (cudaStream_t)stream);
+  }
+  if (blocks > 0) k<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
+  return cudaSuccess;
 }
 
+template <int MODE, bool TEX, bool ROWTAG, int ACC>
+cudaError_t launch_acc(Args& a, bool chunk_only, void* stream) {
+  if (a.stage_words > 0) return launch_kernel<MODE, TEX, ROWTAG, true, ACC>(a, chunk_only, stream);
+  return launch_kernel<MODE, TEX, ROWTAG, false, ACC>(a, chunk_only, stream);
+}
+
+// K4's dense rows on a.acc_route; K1, K2 and the row-tagged K4 have local
+// rows (K1 and K2 none) only
 template <int MODE, bool TEX, bool ROWTAG>
 cudaError_t launch_route(Args& a, bool chunk_only, void* stream) {
-  if (a.stage_words > 0) return launch_kernel<MODE, TEX, ROWTAG, true>(a, chunk_only, stream);
-  return launch_kernel<MODE, TEX, ROWTAG, false>(a, chunk_only, stream);
+  if constexpr (MODE == MODE_REPLAY && !ROWTAG)
+    if (a.acc_route == ACC_SHARED) return launch_acc<MODE, TEX, ROWTAG, ACC_SHARED>(a, chunk_only, stream);
+  return launch_acc<MODE, TEX, ROWTAG, ACC_LOCAL>(a, chunk_only, stream);
 }
 
 // textured: the scene has texture records (texa, texb and timg are then its
 // tables, and K4 writes texel entries where it has image textures); K4
 // writes row-tagged planes where a.row_tags is given; stage_bytes: the
 // tables' bytes to stage in shared memory, 0 to read them from device
-// memory; nee_rays: min(L, NEE_CHUNK), 0 under nee="single"; refill: K1
-// and K2 refill dead lanes' slots; chunk_only: set a.chunk (K1, K2) and
-// launch nothing
+// memory; nee_rays: min(L, NEE_CHUNK), 0 under nee="single"; refill: slots
+// refill with the chunk's next lanes; chunk_only: set a.chunk and
+// a.n_blocks and launch nothing
 template <int MODE>
 int launch(Args& a, int textured, int stage_bytes, int nee_rays, int refill, void* stream,
            bool chunk_only = false) {
@@ -1055,7 +1126,7 @@ int launch(Args& a, int textured, int stage_bytes, int nee_rays, int refill, voi
   a.stage_words = stage_bytes / 4;
   a.nee_rays = nee_rays;
   a.refill = refill;
-  if (MODE != MODE_REPLAY && a.n == 0) return (int)cudaSuccess;
+  if (MODE != MODE_REPLAY && a.n == 0 && !chunk_only) return (int)cudaSuccess;
   cudaError_t err = cudaSuccess;
   if (MODE == MODE_REPLAY && a.row_tags != nullptr) {
     if constexpr (MODE == MODE_REPLAY)
@@ -1096,8 +1167,8 @@ extern "C" int kytpu_wavefront_fwd(const float* F, const int* I, const float* di
                                    int refill, void* stream) {
   Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
          out, nullptr, nullptr, nullptr, nullptr, nullptr,
-         n, 0, seed, max_depth, rr_start, rows, sampler, robust,
-         texa, texb, timg, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0};
+         n, 0, 0, seed, max_depth, rr_start, rows, sampler, robust,
+         texa, texb, timg, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, 0};
   return launch<MODE_FWD>(a, textured, stage_bytes, nee_rays, refill, stream);
 }
 
@@ -1115,20 +1186,27 @@ extern "C" int kytpu_wavefront_fwd_res(const float* F, const int* I, const float
                                        void* stream) {
   Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
          out, resf, resi, nullptr, nullptr, nullptr,
-         n, 0, seed, max_depth, rr_start, rows, sampler, robust,
-         texa, texb, timg, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0};
+         n, 0, 0, seed, max_depth, rr_start, rows, sampler, robust,
+         texa, texb, timg, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, 0};
   return launch<MODE_RESIDUAL>(a, textured, stage_bytes, nee_rays, refill, stream);
 }
 
 // K4: the table adjoints of upstream gradient g (n, 3) on the lanes whose
-// forward radiance is big_l (n, 3), as one (n_cols,) vector dd | ds | de |
-// denv [| dexp] [| dta | dtb] in `out`, through the (max(1, ceil(n / 128)),
-// n_cols) scratch `partial`; where the scene has image textures, the texel
-// entries tex_dout (12 max_depth, n) and their tags tex_tags (4 max_depth,
-// n): slot s of bounce b is entry plane 4b + s. Past DENSE_MAX_ROWS
-// surfaces (row_tags not null) `out` holds denv | each light's emission |
-// dta | dtb, and the hit rows' adjoints are row_dout ((PB max_depth + 3), n)
-// with their tags row_tags (max_depth + 1, n), as K8 writes them.
+// forward radiance is big_l (n, 3), as one (n_out,) vector dd | ds | de |
+// denv [| dexp] [| dta | dtb] in `out`, through the column-major (n_cols,
+// n_blocks) scratch `partial` (n_blocks: kytpu_wavefront_chunk's, the
+// launch's blocks); where the scene has image textures, the texel entries
+// tex_dout (12 max_depth, n) and their tags tex_tags (4 max_depth, n):
+// slot s of bounce b is entry plane 4b + s. A row: n_cols columns, the
+// gradient vector's column c at column cmap[c] (wavefront.py acc_map), and
+// on the dense route a last one that no lane adds to;
+// acc_route (an AccRoute): the dense rows in local memory, or as columns of
+// the block's accumulator in shared memory after the tables and the shadow
+// rays (n_cols * 512 bytes a block). Past DENSE_MAX_ROWS
+// surfaces (row_tags not null; local rows) `out` holds denv | each light's
+// emission | dta | dtb, and the hit rows' adjoints are row_dout ((PB
+// max_depth + 3), n) with their tags row_tags (max_depth + 1, n), as K8
+// writes them.
 extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const float* diffuse,
                                           const float* specular, const float* emission,
                                           const float* exponent, const float* light_emit,
@@ -1137,29 +1215,36 @@ extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const fl
                                           const float* d, const int* si, const int* pix,
                                           const float* g, const float* big_l, float* partial,
                                           float* out, float* tex_dout, int* tex_tags,
-                                          float* row_dout, int* row_tags, int n, int n_cols,
+                                          float* row_dout, int* row_tags, const int* cmap, int n,
+                                          int n_cols, int n_out,
                                           int seed, int max_depth, int rr_start, int rows,
                                           int sampler, int robust, int textured,
                                           int stage_bytes, int nee_rays, int refill,
-                                          void* stream) {
-  if (n_cols > (row_tags ? ROW_COLS : MAX_COLS)) return (int)cudaErrorInvalidValue;
+                                          int acc_route, int n_blocks, void* stream) {
+  if (n_cols > (row_tags ? ROW_COLS : MAX_ROW) || acc_route < ACC_LOCAL ||
+      acc_route > ACC_SHARED || (acc_route != ACC_LOCAL && row_tags))
+    return (int)cudaErrorInvalidValue;
   Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
          out, nullptr, nullptr, g, big_l, partial,
-         n, n_cols, seed, max_depth, rr_start, rows, sampler, robust,
-         texa, texb, timg, tex_dout, tex_tags, row_dout, row_tags, 0, 0, 0, 0};
+         n, n_cols, n_out, seed, max_depth, rr_start, rows, sampler, robust,
+         texa, texb, timg, tex_dout, tex_tags, row_dout, row_tags, 0, 0, 0, 0,
+         acc_route, n_blocks, cmap};
   return launch<MODE_REPLAY>(a, textured, stage_bytes, nee_rays, refill, stream);
 }
 
-// The lanes a warp of K1 (residual 0) or K2 (residual 1) owns in a launch
-// of n lanes with these arguments on the current device, or -1 with a
-// CUDA error; nothing is launched.
-extern "C" int kytpu_wavefront_chunk(int residual, int n, int sampler, int textured,
-                                     int stage_bytes, int nee_rays, int refill) {
+// The lanes a warp of K1 (mode 0), K2 (1) or K4 (2) owns in a launch of n
+// lanes with these arguments on the current device, or -1 with a CUDA
+// error (K4's launch has max(1, ceil(n / (4 * chunk))) blocks). Nothing is
+// launched.
+extern "C" int kytpu_wavefront_chunk(int mode, int n, int sampler, int textured, int stage_bytes,
+                                     int nee_rays, int refill) {
   Args a{};
   a.n = n;
   a.sampler = sampler;
   const int err =
-      residual ? launch<MODE_RESIDUAL>(a, textured, stage_bytes, nee_rays, refill, nullptr, true)
-               : launch<MODE_FWD>(a, textured, stage_bytes, nee_rays, refill, nullptr, true);
+      mode == 2 ? launch<MODE_REPLAY>(a, textured, stage_bytes, nee_rays, refill, nullptr, true)
+      : mode == 1
+          ? launch<MODE_RESIDUAL>(a, textured, stage_bytes, nee_rays, refill, nullptr, true)
+          : launch<MODE_FWD>(a, textured, stage_bytes, nee_rays, refill, nullptr, true);
   return err ? -1 : a.chunk;
 }

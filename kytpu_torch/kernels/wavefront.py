@@ -88,13 +88,25 @@ STAGE_BUDGET = 48 * 1024
 # K1, K2 and K4 sample, sweep and accumulate the nee="all" shadow rays of a
 # vertex in chunks of at most NEE_CHUNK lights (csrc/wavefront_fwd.cu)
 NEE_CHUNK = 8
-# K1 and K2 refill the threads of dead lanes with the next lanes of their
-# warp's chunk on scenes of at most this many surfaces. Past it the
+# K1, K2 and K4 refill the threads of dead lanes with the next lanes of
+# their warp's chunk on scenes of at most this many surfaces. Past it the
 # occlusion sweeps run over hundreds of rows and end at each ray's first
 # occluder, and a refilled warp's lanes, from all over the frame, end them
 # far apart: random_spheres(1024) with a 16x16 ground atlas took 33.1 ms
 # with refill and 23.4 without (K1, 1M lanes, depth 3, H100).
 REFILL_MAX_ROWS = 64
+# K3's and K4's routes for a dense adjoint row (csrc/lane_sum.cuh AccRoute):
+# "shared", a column a thread of the block's accumulator in dynamic shared
+# memory, where the block's dynamic shared memory (K4: with its staged
+# tables and shadow rays, `acc_bytes`) stays within ACC_BUDGET bytes, and
+# "local", each thread's row in local memory, past it (PERF.md §6: at
+# Veach's 4M lanes K3 1.21 ms shared against 1.76 local, K4 7.04 against
+# 7.74, NVIDIA H100). ACC_BUDGET 0 forces "local".
+ACC_ROUTES = ("local", "shared")
+ACC_BUDGET = 80 * 1024
+# floats a shadow ray holds in K1's, K2's and K4's shared memory
+# (csrc/wavefront_fwd.cu ShadowRays::FIELDS)
+RAY_FIELDS = 7
 
 
 @dataclass(frozen=True)
@@ -527,6 +539,10 @@ class SceneTables:
     texa: torch.Tensor        # (max(T, 1), 3) checker "even" colours
     texb: torch.Tensor        # (max(T, 1), 3) checker "odd" colours
     timg: torch.Tensor        # (max(Ti H W, 1), 3) the texel atlas
+    # K3's and K4's column maps (`acc_map`), by (trainable exponent,
+    # row-tagged); shared with the tables' colour variants
+    acc_maps: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
 
     def with_colors(self, scene: kscene.Scene) -> "SceneTables":
         return dataclasses.replace(self, **_color_tables(scene),
@@ -1907,7 +1923,7 @@ def bwd_replay_plain(tables: SceneTables, cfg: KernelConfig,
 
     Per bounce it peels the tail radiance R_{b+1} = (R_b - E_b) / T_b
     (0 where the path ends), scatters the bounce's colour adjoints to its
-    row once, and sums the lanes in K3's fixed order (`sum_lanes`), so the
+    row once, and sums the lanes in K3's fixed order (`sum_kept`), so the
     two backwards are the same sum over lanes of different per-lane
     algebra. Past DENSE_MAX_ROWS surfaces (`row_tagged`) each bounce's
     adjoints are row-tagged entries instead, summed by row as K7's are
@@ -2341,13 +2357,14 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             grads = tagged_grads(
                 static, cfg, row_sums_plain(torch.stack(dplanes),
                                             torch.stack(tags), M, cfg),
-                sum_lanes(torch.cat([acc_env, acc_le.reshape(n, -1)]
-                                    + tex_acc, dim=1)))
+                sum_kept(tables, cfg, torch.cat(
+                    [acc_env, acc_le.reshape(n, -1)] + tex_acc, dim=1)))
         else:
             acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1),
                    acc_e.reshape(n, -1), acc_env] + (
                 [acc_x] if texp else []) + tex_acc
-            grads = split_grads(sum_lanes(torch.cat(acc, dim=1)), M, texp, T)
+            grads = split_grads(sum_kept(tables, cfg, torch.cat(acc, dim=1)),
+                                M, texp, T)
         if not has_img:
             return grads
         return grads + (texel_sums_plain(static, entries, n),)
@@ -2361,19 +2378,34 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
 # plain version: the coefficient-cache backward (K3)
 # ---------------------------------------------------------------------------
 
-# K3's block and its second pass's block (csrc/wavefront_bwd_res.cu)
+# the backwards' blocks and their second pass's block (csrc/lane_sum.cuh)
 BWD_THREADS = 128
 SUM_THREADS = 256
 
 
+def _sum_blocks(part: torch.Tensor) -> torch.Tensor:
+    """The second pass of `sum_lanes` and `sum_columns`: (blocks, K) block
+    partials -> (K,). Thread t of a SUM_THREADS block sums blocks t, t +
+    SUM_THREADS, ... in turn, then the threads reduce as a tree (off = 128
+    .. 1)."""
+    s = part.new_zeros((SUM_THREADS, part.shape[1]))
+    for j in range(0, len(part), SUM_THREADS):
+        chunk = part[j:j + SUM_THREADS]
+        s[:len(chunk)] = s[:len(chunk)] + chunk
+    off = SUM_THREADS // 2
+    while off:
+        s[:off] = s[:off] + s[off:2 * off]
+        off //= 2
+    return s[0]
+
+
 def sum_lanes(acc: torch.Tensor) -> torch.Tensor:
-    """(N, K) per-lane adjoints -> (K,) in K3's fixed order: each block of
-    BWD_THREADS lanes sums its warps as a shuffle tree (lane i += lane
-    i + off, off = 16 .. 1) and the four warp sums as (w0 + w1) + (w2 + w3);
-    the second pass's thread t sums blocks t, t + SUM_THREADS, ... in turn,
-    then the SUM_THREADS threads reduce as a tree (off = 128 .. 1). The
-    same float additions in the same order as the kernel, so the two agree
-    to the last bit and the gradient repeats from run to run."""
+    """(N, K) per-lane adjoints -> (K,) in K7's and K8's fixed order: each
+    block of BWD_THREADS lanes sums its warps as a shuffle tree (lane i +=
+    lane i + off, off = 16 .. 1) and the four warp sums as (w0 + w1) + (w2
+    + w3); then `_sum_blocks`. The same float additions in the same order
+    as the kernels, so the two agree to the last bit and the gradient
+    repeats from run to run."""
     n, k = acc.shape
     nb = max(1, -(-n // BWD_THREADS))
     x = acc.new_zeros((nb * BWD_THREADS, k))
@@ -2382,16 +2414,31 @@ def sum_lanes(acc: torch.Tensor) -> torch.Tensor:
     for off in (16, 8, 4, 2, 1):
         x[:, :, :off] = x[:, :, :off] + x[:, :, off:2 * off]
     w = x[:, :, 0]
-    part = (w[:, 0] + w[:, 1]) + (w[:, 2] + w[:, 3])
-    s = acc.new_zeros((SUM_THREADS, k))
-    for j in range(0, nb, SUM_THREADS):
-        chunk = part[j:j + SUM_THREADS]
-        s[:len(chunk)] = s[:len(chunk)] + chunk
-    off = SUM_THREADS // 2
-    while off:
-        s[:off] = s[:off] + s[off:2 * off]
-        off //= 2
-    return s[0]
+    return _sum_blocks((w[:, 0] + w[:, 1]) + (w[:, 2] + w[:, 3]))
+
+
+def sum_columns(acc: torch.Tensor) -> torch.Tensor:
+    """(N, K) per-lane adjoints -> (K,) in K3's fixed order, and K4's where
+    its slots do not refill (32-lane chunks): lane i of each block of
+    BWD_THREADS lanes is thread i's row; the block sums column c as four
+    chains, one a warp of 32 threads, each in thread order from thread c %
+    32 on, wrapping round (csrc/lane_sum.cuh: a warp then reads 32 banks),
+    adds them as (q0 + q1) + (q2 + q3), and then `_sum_blocks`. The same
+    float additions in the same order as K3, so the two agree to the last
+    bit and the gradient repeats from run to run."""
+    n, k = acc.shape
+    nb = max(1, -(-n // BWD_THREADS))
+    x = acc.new_zeros((nb, BWD_THREADS, k))
+    x.view(-1, k)[:n] = acc
+    x = x.reshape(nb, BWD_THREADS // 32, 32, k)
+    step = torch.arange(32, device=acc.device)[:, None]
+    # step i of column c adds thread (c + i) % 32 of the warp
+    order = (step + torch.arange(k, device=acc.device)) % 32
+    x = torch.gather(x, 2, order.expand(nb, BWD_THREADS // 32, -1, -1))
+    q = x[:, :, 0]
+    for i in range(1, 32):
+        q = q + x[:, :, i]
+    return _sum_blocks((q[:, 0] + q[:, 1]) + (q[:, 2] + q[:, 3]))
 
 
 def split_grads(vec: torch.Tensor, m_rows: int, texp: bool = False,
@@ -2543,7 +2590,7 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
     radiance big_l (N, 3), the cache of K2 -> (dd, ds, de, denv[, dexp]) of
     shapes (M, 3), (M, 3), (M, 3), (3,)[, (M,) under
     cfg.trainable_exponent], the per-lane adjoints summed in the kernel's
-    order (`sum_lanes`).
+    order (`sum_kept`).
 
     Per bounce it reads sid and the lobe bits from resi and peels the tail
     radiance R_{b+1} = (R_b - E_b) / T_b, with E_b and T_b rebuilt
@@ -2705,13 +2752,14 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         grads = tagged_grads(
             static, cfg, row_sums_plain(torch.stack(dplanes),
                                         torch.stack(tags), M, cfg),
-            sum_lanes(torch.cat([acc_env, acc_le.reshape(n, -1)] + tex_acc,
-                                dim=1)))
+            sum_kept(tables, cfg, torch.cat(
+                [acc_env, acc_le.reshape(n, -1)] + tex_acc, dim=1)))
     else:
         acc = [acc_d.reshape(n, -1), acc_s.reshape(n, -1),
                acc_e.reshape(n, -1), acc_env] + ([acc_x] if texp else []) \
             + tex_acc
-        grads = split_grads(sum_lanes(torch.cat(acc, dim=1)), M, texp, T)
+        grads = split_grads(sum_kept(tables, cfg, torch.cat(acc, dim=1)), M,
+                            texp, T)
     if not has_img:
         return grads
     return grads + (texel_sums_plain(static, entries, n),)
@@ -2772,6 +2820,102 @@ def _n_cols(tables: SceneTables, cfg: KernelConfig) -> int:
     m_rows = len(static["mats"]["kind"])
     return ((10 if cfg.trainable_exponent else 9) * m_rows + 3
             + 6 * _n_tex(static))
+
+
+def acc_columns(static, cfg: KernelConfig) -> np.ndarray:
+    """The columns of the dense gradient vector (`split_grads`' layout)
+    that a lane of K3 or K4 can add to, ascending: a row's diffuse unless
+    it is a mirror, its specular unless it is matte, its emission where it
+    belongs to a light, env, a plastic row's exponent under
+    trainable_exponent, the checker colours."""
+    mats = static["mats"]
+    kind = np.asarray(mats["kind"])
+    light = np.asarray(mats["light_index"])
+    M, T = len(kind), _n_tex(static)
+
+    def rows(ok):
+        return (3 * np.nonzero(ok)[0][:, None] + np.arange(3)).ravel()
+
+    cols = [rows(kind != kbsdf.MAT_MIRROR),
+            3 * M + rows(kind != kbsdf.MAT_MATTE), 6 * M + rows(light >= 0),
+            9 * M + np.arange(3)]
+    k = 9 * M + 3
+    if cfg.trainable_exponent:
+        cols.append(k + np.nonzero(kind == kbsdf.MAT_PLASTIC)[0])
+        k += M
+    cols.append(k + np.arange(6 * T))
+    return np.concatenate(cols)
+
+
+def _acc_layout(tables: SceneTables, cfg: KernelConfig):
+    """(`acc_map`, the kept columns or None on the row-tagged route), on
+    the tables' device, cached on the tables."""
+    key = (cfg.trainable_exponent, row_tagged(tables.static))
+    if key not in tables.acc_maps:
+        n, dev = _n_cols(tables, cfg), tables.i.device
+        if key[1]:
+            cmap, keep = np.arange(n), None
+        else:
+            keep = acc_columns(tables.static, cfg)
+            cmap = np.full(n, len(keep))
+            cmap[keep] = np.arange(len(keep))
+            keep = torch.from_numpy(keep).to(dev)
+        tables.acc_maps[key] = (
+            torch.from_numpy(cmap.astype(np.int32)).to(dev), keep)
+    return tables.acc_maps[key]
+
+
+def acc_map(tables: SceneTables, cfg: KernelConfig) -> torch.Tensor:
+    """K3's and K4's column map, (`_n_cols`,) int32 on the tables' device:
+    each column of the lane-summed vector -> its column in a lane's row
+    (csrc/lane_sum.cuh). The dense route keeps the `acc_columns` in order
+    and sends the others to the row's last column, which no lane adds to;
+    the row-tagged route keeps every column."""
+    return _acc_layout(tables, cfg)[0]
+
+
+def _row_cols(tables: SceneTables, cfg: KernelConfig) -> int:
+    """Columns of a lane's row in K3 and K4: the kept ones and, on the
+    dense route, the last one no lane adds to."""
+    keep = _acc_layout(tables, cfg)[1]
+    return _n_cols(tables, cfg) if keep is None else len(keep) + 1
+
+
+def sum_kept(tables: SceneTables, cfg: KernelConfig,
+             acc: torch.Tensor) -> torch.Tensor:
+    """(N, `_n_cols`) per-lane adjoints -> the lane-summed vector in K3's
+    order: the kept columns summed by `sum_columns` as the kernels' rows
+    hold them, 0 in the others (which no lane adds to)."""
+    keep = _acc_layout(tables, cfg)[1]
+    if keep is None:
+        return sum_columns(acc)
+    keep = keep.to(acc.device)
+    vec = acc.new_zeros(acc.shape[1])
+    vec[keep] = sum_columns(acc[:, keep])
+    return vec
+
+
+def acc_bytes(tables: SceneTables, cfg: KernelConfig,
+              replay: bool = False) -> int:
+    """The dynamic shared memory of a K3 block (K4 with replay=True) on the
+    shared accumulator route: a column of `_row_cols` floats a thread, and
+    K4's staged tables and shadow rays before it."""
+    b = 4 * BWD_THREADS * _row_cols(tables, cfg)
+    if replay:
+        rays = _scene_args(tables, cfg)[2]
+        b += tables.stage_bytes + 4 * RAY_FIELDS * BWD_THREADS * rays
+    return b
+
+
+def acc_route(tables: SceneTables, cfg: KernelConfig,
+              replay: bool = False) -> str:
+    """K3's (K4's with replay=True) accumulator route: "shared" where the
+    dense row's block fits ACC_BUDGET (`acc_bytes`), else "local"; the
+    row-tagged route (`row_tagged`) keeps local rows."""
+    if row_tagged(tables.static) or acc_bytes(tables, cfg,
+                                              replay) > ACC_BUDGET:
+        return "local"
+    return "shared"
 
 
 def _row_outputs(tables: SceneTables, cfg: KernelConfig, n: int, dev):
@@ -2879,7 +3023,7 @@ def _scene_args(tables: SceneTables, cfg: KernelConfig) -> list:
     """K1's, K2's and K4's last arguments: whether the scene is textured,
     the bytes of the tables a block stages in shared memory, the shadow
     rays a chunk of the nee="all" light loop holds (0 under nee="single"),
-    and whether K1 and K2 refill dead lanes (`REFILL_MAX_ROWS`)."""
+    and whether K1, K2 and K4 refill dead lanes (`REFILL_MAX_ROWS`)."""
     n_l = len(tables.static["lights"])
     rays = 0 if picks_one_light(cfg, n_l) else min(n_l, NEE_CHUNK)
     refill = len(tables.static["mats"]["kind"]) <= REFILL_MAX_ROWS
@@ -2888,15 +3032,17 @@ def _scene_args(tables: SceneTables, cfg: KernelConfig) -> list:
 
 
 def refill_chunk(tables: SceneTables, cfg: KernelConfig, n: int,
-                 residual: bool = False) -> int:
-    """The lanes a warp of K1 (K2 with residual=True) owns in a launch of n
-    lanes of these tables on the current card: its 32 threads trace them in
-    turn, a thread taking the chunk's next lane when its lane ends
-    (dead-lane refill, csrc/wavefront_fwd.cu `refill_chunk`)."""
+                 residual: bool = False, replay: bool = False) -> int:
+    """The lanes a warp of K1 (K2 with residual=True, K4 with replay=True)
+    owns in a launch of n lanes of these tables on the current card: its 32
+    threads trace them in turn, a thread taking the chunk's next lane when
+    its lane ends (dead-lane refill, csrc/wavefront_fwd.cu
+    `refill_chunk`)."""
     from kytpu_torch.kernels import build
 
     chunk = build.load().kytpu_wavefront_chunk(
-        int(residual), n, SAMPLERS[cfg.sampler], *_scene_args(tables, cfg))
+        2 if replay else int(residual), n, SAMPLERS[cfg.sampler],
+        *_scene_args(tables, cfg))
     if chunk < 0:
         raise RuntimeError("kytpu_wavefront_chunk failed")
     return chunk
@@ -2960,10 +3106,10 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
     _check_tables(tables, dev)
     g, big_l = g.contiguous(), big_l.contiguous()
     resf, resi = resf.contiguous(), resi.contiguous()
-    k = _n_cols(tables, cfg)
+    k, k_out = _row_cols(tables, cfg), _n_cols(tables, cfg)
     nb = max(1, -(-n // BWD_THREADS))
-    partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
-    out = torch.empty((k,), dtype=torch.float32, device=dev)
+    partial = torch.empty((k, nb), dtype=torch.float32, device=dev)
+    out = torch.empty((k_out,), dtype=torch.float32, device=dev)
     tex = _texel_outputs(tables, cfg, n, dev)
     rows = _row_outputs(tables, cfg, n, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -2975,8 +3121,10 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
          tables.texa.data_ptr(), tables.texb.data_ptr(),
          tables.timg.data_ptr(), g.data_ptr(), big_l.data_ptr(),
          resf.data_ptr(), resi.data_ptr(), partial.data_ptr(),
-         out.data_ptr(), *map(ptr, tex), *map(ptr, rows), n, m_rows, k,
-         cfg.max_depth, int(bool(tables.static["textures"])))
+         out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
+         acc_map(tables, cfg).data_ptr(), n, m_rows, k, k_out, cfg.max_depth,
+         int(bool(tables.static["textures"])),
+         ACC_ROUTES.index(acc_route(tables, cfg)))
     launches_res_bwd += 1
     return _grads_of(lib, tables, cfg, out, tex, rows)
 
@@ -2993,10 +3141,13 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
     _check_lane_tensor("g", g, (n, 3), torch.float32, dev)
     _check_lane_tensor("L", big_l, (n, 3), torch.float32, dev)
     g, big_l = g.contiguous(), big_l.contiguous()
-    k = _n_cols(tables, cfg)
-    nb = max(1, -(-n // BWD_THREADS))
-    partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
-    out = torch.empty((k,), dtype=torch.float32, device=dev)
+    k, k_out = _row_cols(tables, cfg), _n_cols(tables, cfg)
+    # the launch's blocks: 4 warps each, a warp's chunk of lanes apiece
+    with torch.cuda.device(dev):
+        chunk = refill_chunk(tables, cfg, n, replay=True)
+    nb = max(1, -(-n // (chunk * BWD_THREADS // 32)))
+    partial = torch.empty((k, nb), dtype=torch.float32, device=dev)
+    out = torch.empty((k_out,), dtype=torch.float32, device=dev)
     tex = _texel_outputs(tables, cfg, n, dev)
     rows = _row_outputs(tables, cfg, n, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -3004,7 +3155,9 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
     _run(lib.kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", dev,
          *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(), big_l.data_ptr(),
          partial.data_ptr(), out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
-         n, k, *_cfg_args(cfg, seed), *_scene_args(tables, cfg))
+         acc_map(tables, cfg).data_ptr(), n, k, k_out, *_cfg_args(cfg, seed),
+         *_scene_args(tables, cfg),
+         ACC_ROUTES.index(acc_route(tables, cfg, replay=True)), nb)
     launches_replay += 1
     return _grads_of(lib, tables, cfg, out, tex, rows)
 

@@ -36,7 +36,8 @@ struct float4 {
 struct uint3 {
   unsigned x, y, z;
 };
-static const uint3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0}, blockDim = {1, 1, 1};
+static const uint3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0}, blockDim = {1, 1, 1},
+                   gridDim = {1, 1, 1};
 
 template <class T>
 inline T __ldg(const T* p) { return *p; }

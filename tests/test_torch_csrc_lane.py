@@ -89,7 +89,8 @@ void run(const Args& a) {
     while (any) {
       bool done[32];
       for (int s = 0; s < 32; ++s) {
-        done[s] = active[s] && lane_bounce<MODE, SOBOL, TEX, false, SH>(a, S, rp, R, L[s], nullptr);
+        done[s] = active[s] && lane_bounce<MODE, SOBOL, TEX, false, SH>(a, S, rp, R, L[s],
+                                                                           RowAcc{nullptr});
         if (done[s]) lane_finish<MODE, TEX, false, SH>(a, S, rp, L[s]);
       }
       int k = 0;
