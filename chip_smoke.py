@@ -123,6 +123,13 @@ Phases, one line each (a few for phase 3):
         K6's rays) beside the full-sweep one (`k5_ops`, `k8_ops`), and the
         pass rates of the blocks by a lane and by a warp; the mesh's K5 at
         its 1M pixel-centre lanes, culled and not, with its culled bound;
+        the sums by tag (csrc/tag_sums.cu) on the row tags and planes K7 and
+        K8 write there (`recorded_tag_sets`, `check_tag_sums`): the card's
+        int32 radix sort against torch.sort(stable=True), perm and starts
+        to the last index, the split segment sums against
+        segment_sums_plain and themselves bit for bit, both timed beside
+        their plain versions, one torch.sort and their bounds; K7's and
+        K8's device time by kernel;
      e. training past 64 surfaces, the third main path: five
         make_train_step steps on the spheres at 256x256, 4 spp, depth 3,
         hash, from the true scene with the spheres' diffuse colours scaled
@@ -181,16 +188,20 @@ Phases, one line each (a few for phase 3):
         twin against K7 (d_emission on the emissive rows), rows above 255
         live; K1-K4 timed at the 1M
         pixel-centre lanes with their bounds, the plain K1, K3 and K4 once,
-        and the replay path (K1 + K4) through make_cuda_diff_tracer, its
-        launches counted; then the textured K5, K7 and K8 at the checker
+        the row-tagged K3 on its shared and its local accumulator route
+        (the same bits, both timed) and by device kernel, the sums by tag
+        of K3's and K4's rows and texels as in 9d, and the replay path (K1
+        + K4) through make_cuda_diff_tracer, its launches counted; then the textured K5, K7 and K8 at the checker
         scene's 1M lanes, the plain K5 and K8 once, and the textured replay
         path (K5 + K8), its launches counted; K5, K6 and K8 there against
         cull="off" bit for bit, the culled and full-sweep bounds and the
         blocks' pass rates;
      e. a smallpt frame through render() (K1), launches counted, and K1
         and K2 against their plain versions bit for bit on 64K lanes.
-The line before the last is the kernels' JSON record, the one before it
-nvidia-smi's name and power limit, and the last line is
+The line before the last is the kernels' JSON record (K1-K8, the tag
+sort and the segment sums; each main path that sums by tag must launch
+both), the one before it nvidia-smi's name and power limit, and the last
+line is
 {"ok": true, "device": {...}}. Any failed check raises: no result is printed
 and the exit code is not 0, and the last line on standard error repeats the
 last line printed before the failure, so the tail of standard error alone
@@ -692,13 +703,17 @@ def cuda_time_ms(fn, reps: int):
 # sum_cols_kernel: no K4 runs in the profiled windows)
 K1_NAMES = ("wavefront_fwd_kernel<0,", "wavefront_fwd_kernelILi0E")
 K2_NAMES = ("wavefront_fwd_kernel<1,", "wavefront_fwd_kernelILi1E")
-K3_NAMES = ("bwd_res_kernel", "sum_cols_kernel")
+# the sums by tag (csrc/tag_sums.cu) that finish the row-tagged backwards
+TAG_NAMES = ("tag_hist_kernel", "scan_reduce_kernel", "scan_top_kernel",
+             "scan_down_kernel", "tag_scatter_kernel", "tag_starts_kernel",
+             "tag_bounds_kernel", "seg_pieces_kernel", "seg_piece_kernel",
+             "seg_finish_kernel")
+K3_NAMES = ("bwd_res_kernel", "sum_cols_kernel") + TAG_NAMES
 K5_NAMES = ("bigscene_fwd_kernel<0,", "bigscene_fwd_kernelILi0E")
 K6_NAMES = ("bigscene_fwd_kernel<1,", "bigscene_fwd_kernelILi1E")
-K7_NAMES = ("bigscene_bwd_lanes", "bigscene_segment_sums",
-            "sum_partials_kernel")
+K7_NAMES = ("bigscene_bwd_lanes", "sum_partials_kernel") + TAG_NAMES
 K8_NAMES = ("bigscene_fwd_kernel<2,", "bigscene_fwd_kernelILi2E",
-            "bigscene_segment_sums", "sum_partials_kernel")
+            "sum_partials_kernel") + TAG_NAMES
 
 
 def once_ms(fn):
@@ -737,7 +752,8 @@ def device_profile(fn, kernels: dict):
         profiler_warm()
         fn()
         torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and WARM_NAME not in e.name),
                  key=lambda e: e.time_range.start)
     busy_us, end = 0.0, float("-inf")
     for e in evs:
@@ -753,11 +769,20 @@ def device_profile(fn, kernels: dict):
     return busy_us / 1e3, mine, len(evs)
 
 
+# profiler_warm's kernels, dropped from every profile: no measured path
+# runs digamma
+WARM_NAME = "digamma"
+
+
 def profiler_warm() -> None:
-    """One small kernel, waited for, at the start of a profiled window: the
-    trace showed no record of the first kernel launched in a window (K7's
-    lane pass, K8's replay kernel), so that one is this."""
-    torch.zeros(1, device="cuda").add_(1)
+    """Small kernels, waited for, at the start of a profiled window: the
+    trace kept no record of a window's first kernels (early in a run the
+    first, K7's lane pass or K8's replay kernel; late in a run the first
+    four, the row-tagged K3's lane kernel among them, while a new process
+    kept them all), so those are these, 16 of them."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(16):
+        x.digamma_()
     torch.cuda.synchronize()
 
 
@@ -773,11 +798,98 @@ def kernel_split(fn, top: int = 6) -> str:
         torch.cuda.synchronize()
     by = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and WARM_NAME not in e.name:
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     parts = sorted(by.items(), key=lambda kv: -kv[1])
     return (f"{sum(by.values()):.3f} ms in {len(by)} kernels: " + "; ".join(
         f"{nm[:60]} {ms:.3f} ms" for nm, ms in parts[:top]))
+
+
+def recorded_tag_sets(fn) -> list:
+    """fn() with kernels/wavefront.py's segment_sums recorded: the (dout,
+    tags, m_tags, n_planes, n_cols, mask) of each call (copies), the tagged
+    entries that K3, K4, K7 and K8 sum by row or texel."""
+    from kytpu_torch.kernels import wavefront as kwf
+    seen, real = [], kwf.segment_sums
+
+    def rec(dout, tags, m_tags, n_planes, n_cols, mask=-1):
+        seen.append((dout.clone(), tags.clone(), m_tags, n_planes, n_cols,
+                     mask))
+        return real(dout, tags, m_tags, n_planes, n_cols, mask)
+
+    kwf.segment_sums = rec
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        kwf.segment_sums = real
+    return seen
+
+
+def check_tag_sums(sets, what: str) -> list:
+    """Each recorded set (`recorded_tag_sets`): the card's tag sort against
+    torch.sort(stable=True) (kernels/wavefront.py sort_tags), perm and
+    starts to the last index, the split segment sums against
+    segment_sums_plain and against themselves, bit for bit; then the sort,
+    its plain version, one torch.sort and the sums timed, the plain sums
+    once, and the bounds: the sort reads each key once and writes perm and
+    starts, the sums read each tagged entry's values and its place in perm
+    and write the (M, PB) table -> a dict a set."""
+    from kytpu_torch.kernels import wavefront as kwf
+    out = []
+    for dout, tags, m, B, PB, mask in sets:
+        tag = (f"{what}: {tags.numel()} entries of {m + 1} tags"
+               f"{' (row mask)' if mask != -1 else ''}, {PB} columns")
+        perm, starts = kwf.tag_sort(tags, m, mask)
+        rp, rs = kwf.sort_tags(tags, m, mask)
+        if perm.dtype != torch.int32 or starts.dtype != torch.int32:
+            raise AssertionError(f"tag sort {tag}: not int32")
+        if not (torch.equal(perm.long(), rp) and torch.equal(starts.long(),
+                                                             rs)):
+            raise AssertionError(f"tag sort {tag}: not torch.sort's order")
+        n = dout.shape[1]
+        seg = kwf.seg_sums(dout, perm, starts, n, B, PB)
+        same_bits(seg, kwf.segment_sums_plain(dout, rp, rs, n, B, PB),
+                  f"segment sums {tag} against segment_sums_plain")
+        same_bits(kwf.seg_sums(dout, perm, starts, n, B, PB), seg,
+                  f"segment sums {tag} again")
+        keys = (tags & mask).reshape(-1)
+        sort_ms, _ = cuda_time_ms(lambda: kwf.tag_sort(tags, m, mask), 5)
+        plain_sort_ms, _ = cuda_time_ms(lambda: kwf.sort_tags(tags, m, mask),
+                                        5)
+        lib_sort_ms, _ = cuda_time_ms(lambda: torch.sort(keys, stable=True),
+                                      5)
+        seg_ms, _ = cuda_time_ms(
+            lambda: kwf.seg_sums(dout, perm, starts, n, B, PB), 5)
+        plain_seg_ms, _ = once_ms(
+            lambda: kwf.segment_sums_plain(dout, rp, rs, n, B, PB))
+        E = tags.numel()
+        tagged = E - int(rs[1])
+        # K7's and K8's horizon entries carry de alone (3 of PB columns)
+        horizon = int((tags[B] & mask).ne(0).sum()) if tags.shape[0] > B \
+            else 0
+        values = tagged * PB - horizon * (PB - 3)
+        pieces = int(((rs[2:] - rs[1:-1] + kwf.SEG_PIECE - 1)
+                      // kwf.SEG_PIECE).sum())
+        out.append(dict(
+            tag=tag, sort_ms=sort_ms, plain_sort_ms=plain_sort_ms,
+            lib_sort_ms=lib_sort_ms, seg_ms=seg_ms, plain_seg_ms=plain_seg_ms,
+            sort_bound=bound_ms(4 * (2 * E + m + 2), 0.0),
+            seg_bound=bound_ms(4 * (values + tagged + m + 2 + m * PB),
+                               float(values)),
+            longest=int((rs[2:] - rs[1:-1]).max()) if m else 0,
+            pieces=pieces))
+        print(f"tag sums: {tag} ({tagged} tagged, the longest tag "
+              f"{out[-1]['longest']} entries, {pieces} pieces of "
+              f"{kwf.SEG_PIECE}): the card's sort = torch.sort(stable=True)'s "
+              f"perm and starts, int32; the split sums = segment_sums_plain "
+              f"bit for bit, repeat; sort {sort_ms:.3f} ms (plain "
+              f"{plain_sort_ms:.3f}, one torch.sort {lib_sort_ms:.3f}), sums "
+              f"{seg_ms:.3f} ms (plain {plain_seg_ms:.1f}); bounds "
+              f"{out[-1]['sort_bound'][0]:.4f} ms by "
+              f"{out[-1]['sort_bound'][1]} and {out[-1]['seg_bound'][0]:.4f} ms "
+              f"by {out[-1]['seg_bound'][1]}", flush=True)
+    return out
 
 
 def check_recorded_step(kmod, seen, what: str, ks=("K1", "K2", "K3")):
@@ -856,7 +968,21 @@ def main() -> None:
 
     def reset_counts():
         kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
-        kwf.launches_replay = 0
+        kwf.launches_replay = kwf.launches_sort = kwf.launches_seg = 0
+
+    # the tag sort's and the segment sums' launches on the main paths
+    main_tags = [0, 0]
+
+    def take_tags(what: str, need: bool = True) -> None:
+        """Add the tag sort's and segment sums' launches since the last
+        reset (`reset_counts`, `reset_big`) to the main paths' counts; a
+        path that sums by tag (need) must have launched both."""
+        if need and (kwf.launches_sort == 0 or kwf.launches_seg == 0):
+            raise AssertionError(f"{what}: the tag sort and segment sums "
+                                 f"launched {kwf.launches_sort} and "
+                                 f"{kwf.launches_seg} times")
+        main_tags[0] += kwf.launches_sort
+        main_tags[1] += kwf.launches_seg
 
     def counts():
         return (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
@@ -1454,7 +1580,7 @@ def main() -> None:
 
     def reset_big():
         kbs.launches = kbs.launches_res_fwd = kbs.launches_res_bwd = 0
-        kbs.launches_replay = 0
+        kbs.launches_replay = kwf.launches_sort = kwf.launches_seg = 0
 
     def big_counts():
         return (kbs.launches, kbs.launches_res_fwd, kbs.launches_res_bwd,
@@ -1666,7 +1792,12 @@ def main() -> None:
     del k5_off, k6_off
     # where K7's time goes: its device kernels, the longest first
     k7_split = kernel_split(lambda: kbs.bwd_res(tables, bcfg, g, k6, resf,
-                                                resi))
+                                                resi), top=8)
+    # the sums by tag on K7's row tags and planes at these lanes: the card's
+    # sort and split sums against their plain versions, timed
+    tag_k7 = check_tag_sums(recorded_tag_sets(
+        lambda: kbs.bwd_res(tables, bcfg, g, k6, resf, resi)),
+        f"K7's rows, spheres {n_big} lanes")
     plain_k6_ms, (ref_l, ref_f, ref_i) = once_ms(
         lambda: kbs.trace_lanes_plain(tables, bcfg, o, d, 7, residual=True))
     plain_k7_ms, ref_g = once_ms(
@@ -1727,7 +1858,10 @@ def main() -> None:
     err_k8 = max(err_k8, rerr8)
     del ref_g8
     k8_split = kernel_split(lambda: kbs.bwd_replay(tables, bcfg, o, d, 7,
-                                                   None, None, g, k5))
+                                                   None, None, g, k5), top=8)
+    tag_k8 = check_tag_sums(recorded_tag_sets(
+        lambda: kbs.bwd_replay(tables, bcfg, o, d, 7, None, None, g, k5)),
+        f"K8's rows, spheres {n_big} lanes")
     print(f"profile: K7 {k7_split}; K8 {k8_split}", flush=True)
     big_replay = kbs.make_bigscene_diff_tracer(sc, bcfg, backward="replay")
 
@@ -1742,6 +1876,7 @@ def main() -> None:
     reset_big()
     bfr_ms, _ = cuda_time_ms(big_fwd_bwd_replay, 3)
     big_replay_launches = big_counts()
+    take_tags("the big-scene replay path")
     if big_replay_launches[0] == 0 or big_replay_launches[3] == 0 or \
             big_replay_launches[1:3] != (0, 0):
         raise AssertionError(f"the big-scene replay path launched K5/K6/K7/K8 "
@@ -1856,6 +1991,7 @@ def main() -> None:
         losses.append(float(step(key)))
         walls.append((time.perf_counter() - t0) * 1e3)
     big_train_launches = big_counts()
+    take_tags("the big-scene train step")
     if big_train_launches[1] == 0 or big_train_launches[2] == 0 or \
             big_train_launches[3] != 0 or counts() != (0, 0, 0, 0):
         raise AssertionError(f"the big-scene train step launched K5/K6/K7 "
@@ -2049,6 +2185,7 @@ def main() -> None:
             losses.append(float(step(key)))
             walls.append((time.perf_counter() - t0) * 1e3)
         tl = counts()
+        take_tags(f"{what} recovery", need=what == "texels")
         err5 = tex_err()
         # the texels' error must fall; the checker colours' loss
         if tl[1] == 0 or tl[2] == 0 or not (
@@ -2091,6 +2228,7 @@ def main() -> None:
     (out.sum() / out.shape[0]).backward()
     torch.cuda.synchronize()
     tex_replay_launches = counts()
+    take_tags("the textured replay path")
     if tex_replay_launches != (1, 0, 0, 1):
         raise AssertionError(f"the textured replay path launched K1-K4 "
                              f"{tex_replay_launches}")
@@ -2293,6 +2431,7 @@ def main() -> None:
         losses.append(float(step(key)))
         walls.append((time.perf_counter() - t0) * 1e3)
     tex_big_train = big_counts()
+    take_tags("the textured big-scene train step")
     if tex_big_train[1] == 0 or tex_big_train[2] == 0 or \
             tex_big_train[3] != 0 or counts() != (0, 0, 0, 0) or not (
                 np.isfinite(losses).all() and losses[-1] < losses[0]):
@@ -2348,6 +2487,7 @@ def main() -> None:
         losses.append(float(step(key)))
         walls.append((time.perf_counter() - t0) * 1e3)
     sep_train = counts()
+    take_tags("the 16x16-ground train step")
     if sep_train[1] == 0 or sep_train[2] == 0 or big_counts() != (
             0, 0, 0, 0) or not (np.isfinite(losses).all()
                                 and losses[-1] < losses[0]):
@@ -2456,6 +2596,28 @@ def main() -> None:
         lambda: kwf.bwd_replay(tables, bcfg, o, d, 7, None, None, g, k1), 3)
     xerr = compare_grads(k4, k3, "K4 vs K3 1M lanes past 64", CROSS_RTOL,
                          CROSS_ATOL)
+    # the row-tagged K3 on its shared route and on the local one: the same
+    # bits; the sorts and sums by row and texel of K3 and K4 against their
+    # plain versions; K3 by device kernel
+    if kwf.acc_route(tables, bcfg) != "shared":
+        raise AssertionError("the row-tagged K3 is not on the shared route")
+    p_k3_local_ms, k3_local = on_route("local", lambda: cuda_time_ms(
+        lambda: kwf.bwd_res(tables, bcfg, g, k2, resf, resi), 3))
+    same_grads(k3_local, k3, "the row-tagged K3, local vs shared route, 1M "
+               "lanes past 64")
+    del k3_local
+    p3_split = kernel_split(lambda: kwf.bwd_res(tables, bcfg, g, k2, resf,
+                                                resi), top=10)
+    tag_p64 = check_tag_sums(recorded_tag_sets(
+        lambda: kwf.bwd_res(tables, bcfg, g, k2, resf, resi)),
+        f"the row-tagged K3's rows and texels, 16x16 ground, {n_big} lanes")
+    tag_p64 += check_tag_sums(recorded_tag_sets(
+        lambda: kwf.bwd_replay(tables, bcfg, o, d, 7, None, None, g, k1)),
+        f"the row-tagged K4's rows and texels, 16x16 ground, {n_big} lanes")
+    acc_b = kwf.acc_bytes(tables, bcfg)
+    print(f"profile: the row-tagged K3 (shared route, {acc_b} B a block; "
+          f"local route {p_k3_local_ms:.3f} ms, the same bits) {p3_split}",
+          flush=True)
     # the plain versions once, and the replay path (K1 + K4) through
     # make_cuda_diff_tracer, its launches counted
     p_plain = {}
@@ -2483,6 +2645,7 @@ def main() -> None:
      / n_big).backward()
     torch.cuda.synchronize()
     p64_replay_launches = counts()
+    take_tags("the replay path past 64")
     if p64_replay_launches != (1, 0, 0, 1) or big_counts() != (0, 0, 0, 0) \
             or not all(torch.equal(t.grad.reshape(a.shape), a)
                        for t, a in zip(leaves, k4[:3] + k4[4:])):
@@ -2555,6 +2718,7 @@ def main() -> None:
      / n_big).backward()
     torch.cuda.synchronize()
     tex_big_replay = big_counts()
+    take_tags("the textured big-scene replay path")
     if tex_big_replay != (1, 0, 0, 1) or counts() != (0, 0, 0, 0) or \
             not all(torch.equal(t.grad, a)
                     for t, a in zip(leaves, k8[:3] + k8[4:])):
@@ -2659,12 +2823,30 @@ def main() -> None:
              "kytpu/kernels/bigscene.py:2445",
              big_replay_launches[3] + tex_big_replay[3], err_k8, k8_ms,
              plain_k8_ms, "K8")]
+    # the sums by tag that finish K7 (and K8, K3 and K4 past 64 surfaces,
+    # and every texel sum), timed on K7's row tags at the spheres' 1M lanes;
+    # each equals its plain version to the last bit (check_tag_sums)
+    if main_tags[0] == 0 or main_tags[1] == 0:
+        raise AssertionError(f"the main paths launched the tag sort and the "
+                             f"segment sums {main_tags} times")
+    t7 = tag_k7[0]
+    bounds["tag_sort"], bounds["segment_sums"] = (t7["sort_bound"],
+                                                  t7["seg_bound"])
+    rows += [("tag_sort", "tag_sums.cu", "kytpu/kernels/bigscene.py:2480",
+              main_tags[0], 0.0, t7["sort_ms"], t7["plain_sort_ms"],
+              "tag_sort"),
+             ("segment_sums", "tag_sums.cu", "kytpu/kernels/bigscene.py:2480",
+              main_tags[1], 0.0, t7["seg_ms"], t7["plain_seg_ms"],
+              "segment_sums")]
+    # one torch.sort(stable=True) of the keys gives the sort's perm; no one
+    # library call sums the planes by tag in this layout
+    library = {"tag_sort": t7["lib_sort_ms"]}
     print(smi)
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src + f, "replaces": rp,
          "launches": nl, "max_abs_err": err, "ms": t, "plain_ms": pt,
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": None}
+         "library_ms": library.get(k)}
         for nm, f, rp, nl, err, t, pt, k in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,7 +1,7 @@
 """A/B timing of the forward megakernels K1 and K5, the residual forwards
-K2 and K6, the cache backward K3, the replay backwards K4 and K8 and a
-frame around K1, between this checkout and other ones of the port, on one
-card, in one run.
+K2 and K6, the cache backwards K3 and K7, the replay backwards K4 and K8
+and a frame around K1, between this checkout and other ones of the port,
+on one card, in one run.
 
     git archive <commit> | tar -x -C _archive/parent
     python -m kytpu_torch.kernels.ab_k1 _archive/parent [_archive/other ...]
@@ -31,7 +31,13 @@ radiance's sum, then the same of its residual forward K6 (and its cache's
 sum) and of its replay backward K8 (upstream gradient 1/N; its gradient's
 sum), then the same of K1 and K4 on those lanes of the scene
 with a 16x16 ground atlas (1,026 surfaces, its tables in device memory,
-K4 row-tagged; chip_smoke.py's phase 11d). The card's name and power
+K4 row-tagged; chip_smoke.py's phase 11d); and the same of K7 on K6's
+cache of the spheres' lanes and of the row-tagged K3 on K2's cache of the
+16x16 twin (the sums of their gradients), the device time of K7, K8 and
+the row-tagged K3 and K4 by kernel (torch.profiler, one call after a warm
+one), and the peak memory of the spheres' fwd+bwd through
+make_bigscene_diff_tracer, residual (K6 + K7) and replay (K5 + K8), above
+what was allocated before it. The card's name and power
 limit come first, each checkout's K1-K4 registers, stack and spills next,
 and a summary of each checkout's mean times last. Needs a CUDA device; the other
 checkouts need `kytpu_torch.kernels.bigscene.make_bigscene_tracer`.
@@ -48,6 +54,29 @@ from pathlib import Path
 
 _RUN = r"""
 import json, time, numpy as np, torch
+
+
+# fn's device time under torch.profiler, ms by device kernel (names cut to
+# 48 characters), after one warm call
+def by_kernel(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            nm = e.name[:48]
+            by[nm] = by.get(nm, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by
+
+
 from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
@@ -220,6 +249,39 @@ for _ in range(3):
     torch.cuda.synchronize()
     k8_ms.append(t0.elapsed_time(t1) / 3)
 k8_sum = sum(float(t.double().sum()) for t in k8)
+_, bresf, bresi = kbs.trace_lanes(btab, bcfg, bo, bd, 7, residual=True)
+k7 = kbs.bwd_res(btab, bcfg, gb1, bout, bresf, bresi)
+k7_ms = []
+for _ in range(3):
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(3):
+        k7 = kbs.bwd_res(btab, bcfg, gb1, bout, bresf, bresi)
+    t1.record()
+    torch.cuda.synchronize()
+    k7_ms.append(t0.elapsed_time(t1) / 3)
+k7_sum = sum(float(t.double().sum()) for t in k7)
+split = {"K7": by_kernel(lambda: kbs.bwd_res(btab, bcfg, gb1, bout, bresf,
+                                             bresi)),
+         "K8": by_kernel(lambda: kbs.bwd_replay(btab, bcfg, bo, bd, 7, None,
+                                                None, gb1, bout))}
+del bresf, bresi, k7, k8
+# the peak memory of the big-scene fwd+bwd, residual (K6 + K7) and replay
+# (K5 + K8), loss = out.sum() / N
+leaves = [t.clone().requires_grad_() for t in
+          (big.mat_diffuse, big.mat_specular, big.emission, big.env_radiance_)]
+peak = {}
+for bwd in ("residual", "replay"):
+    diff = kbs.make_bigscene_diff_tracer(big, bcfg, backward=bwd)
+    (diff(*leaves, bo, bd, 7).sum() / nb).backward()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (diff(*leaves, bo, bd, 7).sum() / nb).backward()
+    torch.cuda.synchronize()
+    peak[bwd] = torch.cuda.max_memory_allocated() - base
+del leaves, diff
 import dataclasses
 from kytpu_torch.scene import texture as ktex
 tid = torch.full((int(big.mat_kind.shape[0]),), -1, dtype=torch.int32)
@@ -253,7 +315,27 @@ for _ in range(3):
     torch.cuda.synchronize()
     p64_k4_ms.append(t0.elapsed_time(t1) / 3)
 k4_sum += sum(float(t.double().sum()) for t in p4)
-print(json.dumps({"ms": ms, "sum": float(out.double().sum()),
+split["K4 past 64"] = by_kernel(lambda: kwf.bwd_replay(ptab, bcfg, bo, bd, 7,
+                                                       None, None, gb, pout))
+del p4
+_, presf, presi = kwf.trace_lanes(ptab, bcfg, bo, bd, 7, residual=True)
+p3 = kwf.bwd_res(ptab, bcfg, gb, pout, presf, presi)
+p64_k3_ms = []
+for _ in range(3):
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(3):
+        p3 = kwf.bwd_res(ptab, bcfg, gb, pout, presf, presi)
+    t1.record()
+    torch.cuda.synchronize()
+    p64_k3_ms.append(t0.elapsed_time(t1) / 3)
+k3_sum_p64 = sum(float(t.double().sum()) for t in p3)
+split["K3 past 64"] = by_kernel(lambda: kwf.bwd_res(ptab, bcfg, gb, pout,
+                                                    presf, presi))
+print(json.dumps({"k7_ms": k7_ms, "k7_sum": k7_sum, "p64_k3_ms": p64_k3_ms,
+                  "k3_sum_p64": k3_sum_p64, "split": split, "peak": peak,
+                  "ms": ms, "sum": float(out.double().sum()),
                   "p64_k4_ms": p64_k4_ms, "step_ms": step_ms,
                   "step_dev_ms": step_dev_ms, "step_host_ms": step_host_ms,
                   "k3_ms": k3_ms, "k3_sum": k3_sum,
@@ -329,7 +411,7 @@ def main(others: list[str]) -> None:
     for root in order:
         r = run(root)
         sums.add((r["sum"], r["k2_sum"], r["k5_sum"], r["p64_sum"],
-                  r["k6_sum"], r["k8_sum"]))
+                  r["k6_sum"]))
         seen.setdefault(root, []).append(r)
         print(f"{root}: K1 ms "
               f"{', '.join(f'{t:.3f}' for t in r['ms'])}; sum {r['sum']!r}; "
@@ -352,7 +434,15 @@ def main(others: list[str]) -> None:
               f"{r['k8_sum']!r}; K1 past 64 ms "
               f"{', '.join(f'{t:.3f}' for t in r['p64_ms'])}; sum "
               f"{r['p64_sum']!r}; K4 past 64 ms "
-              f"{', '.join(f'{t:.3f}' for t in r['p64_k4_ms'])}", flush=True)
+              f"{', '.join(f'{t:.3f}' for t in r['p64_k4_ms'])}; K7 ms "
+              f"{', '.join(f'{t:.3f}' for t in r['k7_ms'])}; K3 past 64 ms "
+              f"{', '.join(f'{t:.3f}' for t in r['p64_k3_ms'])}; fwd+bwd peak "
+              f"over its base: residual {r['peak']['residual']} B, replay "
+              f"{r['peak']['replay']} B", flush=True)
+        for k, by in r["split"].items():
+            print(f"  {k} by device kernel: {sum(by.values()):.3f} ms: "
+                  + "; ".join(f"{nm} {ms:.3f}" for nm, ms in sorted(
+                      by.items(), key=lambda kv: -kv[1])), flush=True)
     for root, rs in seen.items():
         mean = lambda k: sum(sum(r[k]) / len(r[k]) for r in rs) / len(rs)  # noqa
         print(f"mean {root.name}: K1 {mean('ms'):.3f} ms, K2 "
@@ -363,16 +453,18 @@ def main(others: list[str]) -> None:
               f"{mean('k5_ms'):.3f} ms, K6 {mean('k6_ms'):.3f} ms, K8 "
               f"{mean('k8_ms'):.3f} ms, K1 past 64 "
               f"{mean('p64_ms'):.3f} ms, K4 past 64 {mean('p64_k4_ms'):.3f} "
-              f"ms, frame "
+              f"ms, K7 {mean('k7_ms'):.3f} ms, K3 past 64 "
+              f"{mean('p64_k3_ms'):.3f} ms, frame "
               f"{sum(r['frame_ms'] for r in rs) / len(rs):.3f} ms", flush=True)
-    print("radiance, cache and K5-K8 gradient sums agree" if len(sums) == 1
+    print("radiance and cache sums agree" if len(sums) == 1
           else f"sums differ: {sorted(sums)}")
-    # a change of K3's or K4's order of additions moves their sums' last
+    # a change of a backward's order of additions moves its sums' last
     # bits: printed, not held
     for root, rs in seen.items():
-        print(f"gradient sums {root.name}: K3 "
-              f"{sorted({r['k3_sum'] for r in rs})}, K4 "
-              f"{sorted({r['k4_sum'] for r in rs})}", flush=True)
+        print(f"gradient sums {root.name}: " + ", ".join(
+            f"{k} {sorted({r[key] for r in rs})}" for k, key in (
+                ("K3", "k3_sum"), ("K4", "k4_sum"), ("K7", "k7_sum"),
+                ("K8", "k8_sum"), ("K3 past 64", "k3_sum_p64"))), flush=True)
 
 
 if __name__ == "__main__":

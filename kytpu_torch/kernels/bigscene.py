@@ -22,8 +22,9 @@ Three layers, each the counterpart of one in the JAX package:
   them;
 - the wrappers (`trace_lanes`, `bwd_res`, `bwd_replay`,
   `make_bigscene_tracer`, `make_bigscene_diff_tracer`, `render_bigscene`),
-  which launch `csrc/bigscene_fwd.cu` (K5, K6, K8) and
-  `csrc/bigscene_bwd_res.cu` (K7, and the sums by row) on CUDA tensors.
+  which launch `csrc/bigscene_fwd.cu` (K5, K6, K8),
+  `csrc/bigscene_bwd_res.cu` (K7) and `csrc/tag_sums.cu` (the sort of the
+  row tags and the sums by row) on CUDA tensors.
 
 Semantics, as kytpu's table kernel: the closest hit sweeps tri -> rect ->
 disk -> sphere, rows in table order, accepting strictly nearer hits (the
@@ -1210,7 +1211,7 @@ def sort_rows(resi: torch.Tensor, m_rows: int):
     """`kwf.sort_tags` of the row tags in bits 0-19 of resi (K6's int cache,
     or K8's tag planes): row m's entries are perm[starts[m]:starts[m + 1]],
     row 0 being the misses and dead lanes."""
-    return kwf.sort_tags(resi & RESI_ROW_MASK, m_rows)
+    return kwf.sort_tags(resi, m_rows, RESI_ROW_MASK)
 
 
 # the sums by row of K7 and K8 (and of K3's and K4's texel entries)
@@ -1269,8 +1270,9 @@ def sums_plain(tables: BigTables, cfg: kwf.KernelConfig, dout, acc, tags,
 
 
 # ---------------------------------------------------------------------------
-# the wrappers: CUDA tensors launch csrc/bigscene_fwd.cu and
-# csrc/bigscene_bwd_res.cu, CPU tensors run the plain versions
+# the wrappers: CUDA tensors launch csrc/bigscene_fwd.cu,
+# csrc/bigscene_bwd_res.cu and csrc/tag_sums.cu, CPU tensors run the plain
+# versions
 # ---------------------------------------------------------------------------
 
 # kernel launches made by this process (set them to 0 to count a run): K5,
@@ -1353,9 +1355,9 @@ def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
 
 def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
                 resi):
-    """K7 on CUDA lanes: the per-lane kernel, the stable sort of the row
-    tags (integer keys; torch.sort moves no floats), the segment sums by row
-    (and by texel) and the lane sums -> (dd, ds, de, denv[, dexp][, dta,
+    """K7 on CUDA lanes: the per-lane kernel, the stable int32 sort of the
+    row tags and the segment sums by row (and by texel) of
+    csrc/tag_sums.cu, and the lane sums -> (dd, ds, de, denv[, dexp][, dta,
     dtb][, dti]); raises if a kernel cannot be built or launched."""
     global launches_res_bwd
     from kytpu_torch.kernels import build
@@ -1392,24 +1394,25 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
              lane_sums.data_ptr(), *map(ptr, tex), n, L, int(has_env), B,
              int(cfg.trainable_exponent), k, _textured(tables))
     launches_res_bwd += 1
-    return _sums(lib, tables, cfg, dout, resi, lane_sums, tex)
+    return _sums(tables, cfg, dout, resi, lane_sums, tex)
 
 
-def _sums(lib, tables: BigTables, cfg: kwf.KernelConfig, dout, tags,
-          lane_sums, tex):
-    """K7's and K8's sums on the card: the stable sort of the row tags
-    (integer keys; torch.sort moves no floats), then the segment-sum kernel
-    -> (dd, ds, de, denv[, dexp][, dta, dtb]) with the lane sums
-    (`_assemble`), and the texel entries tex (planes, tags) summed by texel
-    on an image scene [, dti]."""
+def _sums(tables: BigTables, cfg: kwf.KernelConfig, dout, tags, lane_sums,
+          tex):
+    """K7's and K8's sums on the card: the row tags (bits 0-19 of the int
+    planes) sorted and the row-tagged planes summed by row
+    (`kwf.segment_sums`: csrc/tag_sums.cu's kernels) -> (dd, ds, de,
+    denv[, dexp][, dta, dtb]) with the lane sums (`_assemble`), and the
+    texel entries tex (planes, tags) summed by texel on an image scene [,
+    dti]."""
     static = tables.static
     M = len(static["mats"]["kind"])
     grads = _assemble(tables, cfg, kwf.segment_sums(
-        lib, dout, tags & RESI_ROW_MASK, M, cfg.max_depth, _per_bounce(cfg)),
+        dout, tags, M, cfg.max_depth, _per_bounce(cfg), RESI_ROW_MASK),
         lane_sums)
     if tex[1] is None:
         return grads
-    seg = kwf.segment_sums(lib, *tex, static["n_texels"], tex[1].shape[0], 3)
+    seg = kwf.segment_sums(*tex, static["n_texels"], tex[1].shape[0], 3)
     return grads + (seg.reshape(kwf._texel_shape(static)),)
 
 
@@ -1450,7 +1453,7 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
              *kwf._cfg_args(cfg, seed), int(cfg.trainable_exponent),
              _textured(tables), *_cull_args(tables, cfg))
     launches_replay += 1
-    return _sums(lib, tables, cfg, dout, tags, lane_sums, tex)
+    return _sums(tables, cfg, dout, tags, lane_sums, tex)
 
 
 def trace_lanes(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,

@@ -120,14 +120,18 @@ def load() -> ctypes.CDLL:
         lib.kytpu_wavefront_chunk.argtypes = [i] * 7
         lib.kytpu_bigscene_fwd.argtypes = [p] * 24 + [i] * 17 + [p]
         lib.kytpu_bigscene_bwd_res.argtypes = [p] * 13 + [i] * 7 + [p]
-        lib.kytpu_bigscene_segment_sums.argtypes = [p] * 4 + [i] * 4 + [p]
+        q = ctypes.c_longlong
+        lib.kytpu_tag_sort_scratch.argtypes = [i, i]
+        lib.kytpu_tag_sort_scratch.restype = q
+        lib.kytpu_tag_sort.argtypes = [p, i, i, i, p, p, p, q, p]
+        lib.kytpu_segment_sums.argtypes = [p] * 5 + [q, p] + [i] * 5 + [p]
         lib.kytpu_bigscene_bwd_replay.argtypes = [p] * 29 + [i] * 17 + [p]
         for fn in (lib.kytpu_wavefront_fwd, lib.kytpu_wavefront_fwd_res,
                    lib.kytpu_wavefront_bwd_res,
                    lib.kytpu_wavefront_bwd_replay, lib.kytpu_wavefront_chunk,
                    lib.kytpu_bigscene_fwd,
                    lib.kytpu_bigscene_bwd_res,
-                   lib.kytpu_bigscene_segment_sums,
+                   lib.kytpu_tag_sort, lib.kytpu_segment_sums,
                    lib.kytpu_bigscene_bwd_replay):
             fn.restype = i
         _LIB = lib

@@ -1,10 +1,9 @@
-// The big-scene coefficient-cache backward for NVIDIA Hopper (sm_90a), K7,
-// and the fixed-order sums by row that follow it.
+// The big-scene coefficient-cache backward for NVIDIA Hopper (sm_90a), K7.
 //
 // Replaces kytpu/kernels/bigscene.py::_make_res_bwd_kernel, the Pallas TPU
 // kernel behind the backward of every train step on a scene past 64
-// surfaces, together with the segment sum by row and the light-emission
-// routing that follow the call in bigscene.py::_bwd. Its plain PyTorch
+// surfaces; the segment sum by row that follows the call in
+// bigscene.py::_bwd is tag_sums.cu's. Its plain PyTorch
 // transcription is kytpu_torch/kernels/bigscene.py::bwd_res_plain
 // (bwd_lanes_plain, sort_rows, segment_sums_plain, kwf.sum_lanes); this file
 // follows it statement by statement, and chip_smoke.py holds the two against
@@ -20,11 +19,10 @@
 // row it hit: PB planes a bounce (dd, ds, de [, dexp]) and the horizon's
 // de, plane-major. Its env and light-emission adjoints (3 + 3L columns) are
 // summed over lanes by lane_sum.cuh's two passes, as K3's are. The host
-// then sorts the (bounce, lane) entries by row tag with a stable integer
-// sort (no float moves), and bigscene_segment_sums gives each row one block
-// of SEG_THREADS threads: thread t adds the row's entries t, t + SEG_THREADS,
-// ... in sorted order, then a shared-memory tree. No float atomics: the
-// gradient repeats to the last bit and equals the plain version's.
+// then sums the (bounce, lane) entries by row tag in a fixed order
+// (tag_sums.cu: a stable int32 radix sort of the tags, then segment sums
+// in pieces of fixed length). No float atomics: the gradient repeats to the
+// last bit and equals the plain version's.
 //
 // Textures (TEX, a compile-time switch): a textured row's diffuse adjoint
 // goes to its texture, as in kytpu's kernel: the row comes from the cache,
@@ -37,8 +35,8 @@
 //
 // What bounds it on the H100: bytes. The cache ((res_n + max_depth + 1) * 4
 // B a lane), g and L are read once; the row-tagged planes ((PB * max_depth +
-// 3) * 4 B a lane) are written and read back once more by the segment sums,
-// whose longest row (the ground of a big scene) is one block's serial work.
+// 3) * 4 B a lane) are written and read back once more by the segment sums
+// (tag_sums.cu).
 // Built with --fmad=false and without fast math, as the forward is.
 
 #include <cuda_runtime.h>
@@ -52,8 +50,6 @@ namespace {
 using namespace kytpu;
 
 constexpr int THREADS = LANE_THREADS;
-constexpr int SEG_THREADS = 512;  // SEG_THREADS in bigscene.py
-constexpr int MAX_PB = 10;        // dd, ds, de, dexp
 constexpr int RES_PHONG = 1 << 20, RES_TO_SPEC = 1 << 21, RES_EVEN = 1 << 22,
               RES_ROW_MASK = (1 << 20) - 1;
 
@@ -232,41 +228,6 @@ bigscene_bwd_lanes(const float* __restrict__ light_emit, const float* __restrict
   block_partials(acc, K, partial);
 }
 
-// out[m - 1, c] = the sum of column c over row m's entries, m = 1 .. M, in
-// sorted order (bigscene.py::segment_sums_plain). Entry e = b * n + i is
-// bounce b of lane i: its columns are dout's planes PB*b .. PB*b+PB-1 below
-// the horizon, and at the horizon 0 except de (columns 6-8).
-__global__ void __launch_bounds__(SEG_THREADS)
-bigscene_segment_sums(const float* __restrict__ dout, const int64_t* __restrict__ perm,
-                      const int64_t* __restrict__ starts, float* __restrict__ out, int n,
-                      int B, int PB) {
-  __shared__ float s[SEG_THREADS];
-  const int m = blockIdx.x + 1;
-  const int64_t e0 = starts[m], e1 = starts[m + 1];
-  float a[MAX_PB];
-  for (int c = 0; c < MAX_PB; ++c) a[c] = 0.f;
-  for (int64_t j = e0 + threadIdx.x; j < e1; j += SEG_THREADS) {
-    const int64_t e = perm[j];
-    const int64_t b = e / n;
-    const int64_t lane = e - b * n;
-    if (b < B) {
-      for (int c = 0; c < PB; ++c) a[c] = a[c] + dout[(size_t)(PB * b + c) * n + lane];
-    } else {
-      for (int c = 6; c < 9; ++c) a[c] = a[c] + dout[(size_t)(PB * B + c - 6) * n + lane];
-    }
-  }
-  for (int c = 0; c < PB; ++c) {
-    s[threadIdx.x] = a[c];
-    __syncthreads();
-    for (int off = SEG_THREADS / 2; off > 0; off >>= 1) {
-      if (threadIdx.x < off) s[threadIdx.x] = s[threadIdx.x] + s[threadIdx.x + off];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) out[(size_t)blockIdx.x * PB + c] = s[0];
-    __syncthreads();
-  }
-}
-
 }  // namespace
 
 // K7's per-lane pass on `stream` (PyTorch's current stream): the row-tagged
@@ -299,17 +260,4 @@ extern "C" int kytpu_bigscene_bwd_res(const int* I, const int* tex_rec, const fl
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return sum_partials(partial, lane_sums, blocks, n_cols, (cudaStream_t)stream);
-}
-
-// The sums by row: for each row m = 1 .. M, its entries perm[starts[m] ..
-// starts[m + 1]) of the stable sort of the row tags -> out (M, PB). Returns
-// cudaGetLastError().
-extern "C" int kytpu_bigscene_segment_sums(const float* dout, const int64_t* perm,
-                                           const int64_t* starts, float* out, int n, int M, int B,
-                                           int PB, void* stream) {
-  if (PB > MAX_PB || M < 0) return (int)cudaErrorInvalidValue;
-  if (M > 0)
-    bigscene_segment_sums<<<M, SEG_THREADS, 0, (cudaStream_t)stream>>>(dout, perm, starts, out, n,
-                                                                        B, PB);
-  return (int)cudaGetLastError();
 }

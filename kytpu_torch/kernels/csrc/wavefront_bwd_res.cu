@@ -44,9 +44,10 @@
 // of its hit row go to row-tagged planes (dd, ds, de [, dexp], the horizon's
 // de) with a row-tag plane (the row + 1 read from the cache, 0 for a miss);
 // the per-thread row keeps denv, each light's emission and the checker
-// adjoints, and the host sorts the tags and sums the planes by row in a
-// fixed order (bigscene_bwd_res.cu's segment sums). The row field of the
-// int cache is 23 bits wide (pack_row), so rows past 255 decode whole.
+// adjoints (3 + 3L + 6T columns: 6 on a one-light scene, 3 KB a block), on
+// the same two routes as the dense row, and the host sorts the tags and
+// sums the planes by row in a fixed order (tag_sums.cu). The row field of
+// the int cache is 23 bits wide (pack_row), so rows past 255 decode whole.
 //
 // On a textured scene (TEX, a compile-time switch) a textured row's diffuse
 // is its texture's value, rebuilt from the cache: a checker's colour by the
@@ -368,7 +369,7 @@ cudaError_t launch_k3(K k, SmemLimit* lim, int blocks, int smem, const BwdArgs& 
 // lane adds to; acc_route (an AccRoute): each lane's row
 // in local memory, or a column of the block's accumulator in shared memory
 // (n_cols * 512 bytes a block). Past DENSE_MAX_ROWS surfaces (row_tags not
-// null; local rows only) `out`
+// null) `out`
 // holds denv | each light's emission | dta | dtb, and the hit rows'
 // adjoints are row_dout ((PB max_depth + 3), n) with their tags row_tags
 // (max_depth + 1, n), as K7 writes them. Returns cudaGetLastError().
@@ -384,16 +385,20 @@ extern "C" int kytpu_wavefront_bwd_res(const int* I, const float* diffuse, const
   const bool rowtag = row_tags != nullptr;
   const int smem = acc_route == ACC_SHARED ? 4 * n_cols * THREADS : 0;
   if ((!rowtag && m_rows > DENSE_MAX_ROWS) || n_cols > (rowtag ? ROW_COLS : MAX_ROW) ||
-      acc_route < ACC_LOCAL || acc_route > ACC_SHARED || (acc_route != ACC_LOCAL && rowtag) ||
-      smem > MAX_SMEM)
+      acc_route < ACC_LOCAL || acc_route > ACC_SHARED || smem > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   const int blocks = n > 0 ? (n + THREADS - 1) / THREADS : 1;
   const BwdArgs a{I, diffuse, specular, emission, light_emit, env, g, big_l, resf, resi, n, n_cols,
                   max_depth, cmap, Tex{texa, texb, timg, tex_dout, tex_tags},
                   Rows{row_dout, row_tags}};
-  static SmemLimit lim[2];
+  static SmemLimit lim[4];
   cudaError_t err;
-  if (acc_route == ACC_SHARED)
+  if (acc_route == ACC_SHARED && rowtag)
+    err = textured ? launch_k3(bwd_res_kernel<true, true, ACC_SHARED>, &lim[3], blocks, smem, a,
+                               partial, stream)
+                   : launch_k3(bwd_res_kernel<false, true, ACC_SHARED>, &lim[2], blocks, smem,
+                               a, partial, stream);
+  else if (acc_route == ACC_SHARED)
     err = textured ? launch_k3(bwd_res_kernel<true, false, ACC_SHARED>, &lim[1], blocks, smem, a,
                                partial, stream)
                    : launch_k3(bwd_res_kernel<false, false, ACC_SHARED>, &lim[0], blocks, smem,

@@ -2460,18 +2460,23 @@ def split_grads(vec: torch.Tensor, m_rows: int, texp: bool = False,
     return out
 
 
-# threads of the segment-sum block (csrc/bigscene_bwd_res.cu)
+# the segment sums' block and piece (csrc/tag_sums.cu SEG_THREADS, SEG_PIECE):
+# a block sums SEG_PIECE sorted entries of one tag, and a tag's pieces are
+# added in order
 SEG_THREADS = 512
+SEG_PIECE = 4096
 
 
-def sort_tags(tags: torch.Tensor, m_rows: int):
+def sort_tags(tags: torch.Tensor, m_rows: int, mask: int = -1):
     """The entries (plane j, lane i) of (J, N) integer tags, numbered
-    j * N + i, sorted by tag (a stable sort of integer keys: each tag's
-    entries stay in plane, then lane order) -> (perm, starts): tag m's
+    j * N + i, sorted by tag & mask (a stable sort of integer keys: each
+    tag's entries stay in plane, then lane order) -> (perm, starts): tag m's
     entries are perm[starts[m]:starts[m + 1]], tag 0 the entries that go
-    nowhere. K7 and K8 tag by row + 1, K3's and K4's texel entries by
-    texel + 1."""
-    ids = tags.reshape(-1).long()
+    nowhere. K7 and K8 tag by row + 1 (bits 0-19 of the int plane), K3's
+    and K4's texel entries by texel + 1. The plain version of `tag_sort`'s
+    kernel: torch.sort(stable=True), whose permutation the kernel gives to
+    the last index."""
+    ids = tags.reshape(-1).long() & mask
     _, perm = torch.sort(ids, stable=True)
     counts = torch.bincount(ids, minlength=m_rows + 1)
     starts = torch.zeros(m_rows + 2, dtype=torch.int64, device=ids.device)
@@ -2493,22 +2498,45 @@ def _entry_values(dout, ent, n: int, B: int, PB: int):
     return torch.where(keep, v, torch.zeros_like(v))
 
 
+def seg_pieces(starts):
+    """The segment sums' pieces of the sorted entries (csrc/tag_sums.cu):
+    tag m >= 1's entries cut into pieces of SEG_PIECE -> (piece_start (M +
+    1,): tag m's pieces start at piece_start[m - 1], piece_start[M] the
+    pieces in all; each piece's first sorted place and length)."""
+    S = SEG_PIECE
+    starts = starts.long()
+    lens = starts[2:] - starts[1:-1]
+    n_pc = (lens + S - 1) // S
+    piece_start = torch.zeros(len(lens) + 1, dtype=torch.int64,
+                              device=starts.device)
+    piece_start[1:] = torch.cumsum(n_pc, 0)
+    tag = torch.repeat_interleave(torch.arange(len(lens), device=starts.device),
+                                  n_pc)
+    first = starts[1 + tag] + (torch.arange(len(tag), device=starts.device)
+                               - piece_start[tag]) * S
+    return piece_start, first, torch.minimum(first + S, starts[2 + tag]) - first
+
+
 def segment_sums_plain(dout, perm, starts, n: int, B: int, PB: int):
-    """(M, PB) sums by tag, in the segment-sum kernel's order: for each tag
-    m >= 1, thread t of a SEG_THREADS block adds the tag's sorted entries
-    t, t + SEG_THREADS, ... in turn (from 0.0), then the threads reduce as
-    a tree (off = SEG_THREADS/2 .. 1). The same float additions in the same
-    order as csrc/bigscene_bwd_res.cu."""
+    """(M, PB) sums by tag, in the segment-sum kernels' order: each tag's
+    sorted entries (m >= 1) cut into pieces of SEG_PIECE (`seg_pieces`); in
+    each piece, thread t of a SEG_THREADS block adds its entries t, t +
+    SEG_THREADS, ... in turn (from 0.0), then the threads reduce as a tree
+    (off = SEG_THREADS/2 .. 1); then each tag's pieces are added in order
+    from 0.0. The same float additions in the same order as
+    csrc/tag_sums.cu."""
     T = SEG_THREADS
     M = len(starts) - 2
-    lens = (starts[2:] - starts[1:-1])
-    acc = dout.new_zeros((M, T, PB))
+    piece_start, first, plen = seg_pieces(starts)
+    perm = perm.long()
+    acc = dout.new_zeros((len(first), T, PB))
     tid = torch.arange(T, device=dout.device)
-    max_len = int(lens.max()) if M else 0
-    for s0 in range(0, max_len, T):
-        rows = (lens > s0).nonzero().reshape(-1)
-        pos = starts[1 + rows][:, None] + s0 + tid
-        valid = (s0 + tid) < lens[rows][:, None]
+    for s0 in range(0, SEG_PIECE, T):
+        rows = (plen > s0).nonzero().reshape(-1)
+        if not len(rows):
+            break
+        pos = first[rows][:, None] + s0 + tid
+        valid = (s0 + tid) < plen[rows][:, None]
         ent = perm[pos.clamp_max(len(perm) - 1)]
         vals = _entry_values(dout, ent, n, B, PB)
         acc[rows] = acc[rows] + torch.where(valid[..., None], vals,
@@ -2517,7 +2545,13 @@ def segment_sums_plain(dout, perm, starts, n: int, B: int, PB: int):
     while off:
         acc[:, :off] = acc[:, :off] + acc[:, off:2 * off]
         off //= 2
-    return acc[:, 0]
+    part = acc[:, 0]
+    n_pc = piece_start[1:] - piece_start[:-1]
+    out = dout.new_zeros((M, PB))
+    for j in range(int(n_pc.max()) if M else 0):
+        rows = (n_pc > j).nonzero().reshape(-1)
+        out[rows] = out[rows] + part[piece_start[rows] + j]
+    return out
 
 
 def per_bounce(cfg: KernelConfig) -> int:
@@ -2528,7 +2562,7 @@ def per_bounce(cfg: KernelConfig) -> int:
 
 def row_sums_plain(dout, tags, m_rows: int, cfg: KernelConfig):
     """Row-tagged planes dout (PB*max_depth + 3, N) summed by the row tags
-    (max_depth + 1, N) (row + 1, 0 for none) in the segment-sum kernel's
+    (max_depth + 1, N) (row + 1, 0 for none) in the segment-sum kernels'
     order -> (M, PB)."""
     perm, starts = sort_tags(tags, m_rows)
     return segment_sums_plain(dout, perm, starts, dout.shape[1],
@@ -2572,7 +2606,7 @@ def _texel_shape(static) -> tuple:
 def texel_sums_plain(static, entries, n: int) -> torch.Tensor:
     """The texel-tagged entries of K3 or K4 (4 slots a bounce below the
     horizon, each ((N, 3) values, (N,) tags)) summed by texel in the
-    segment-sum kernel's order -> the (Ti, H, W, 3) atlas gradient."""
+    segment-sum kernels' order -> the (Ti, H, W, 3) atlas gradient."""
     J = len(entries)
     dout = torch.stack([v for v, _ in entries]).permute(0, 2, 1).reshape(
         3 * J, n)
@@ -2772,11 +2806,14 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
 
 # kernel launches made by this process (set them to 0 to count a run): K1,
 # K2 (the residual forward), K3 (the coefficient-cache backward) and K4
-# (the path-replay backward)
+# (the path-replay backward); the tag sort and the segment sums
+# (csrc/tag_sums.cu) that K3, K4, K7 and K8 end in
 launches = 0
 launches_res_fwd = 0
 launches_res_bwd = 0
 launches_replay = 0
+launches_sort = 0
+launches_seg = 0
 
 SAMPLERS = {"random": 0, "hash": 1, "sobol": 2}
 # the kernel keeps the sobol words of at most 4 draw sites a bounce in a
@@ -2910,10 +2947,10 @@ def acc_bytes(tables: SceneTables, cfg: KernelConfig,
 def acc_route(tables: SceneTables, cfg: KernelConfig,
               replay: bool = False) -> str:
     """K3's (K4's with replay=True) accumulator route: "shared" where the
-    dense row's block fits ACC_BUDGET (`acc_bytes`), else "local"; the
-    row-tagged route (`row_tagged`) keeps local rows."""
-    if row_tagged(tables.static) or acc_bytes(tables, cfg,
-                                              replay) > ACC_BUDGET:
+    row's block fits ACC_BUDGET (`acc_bytes`), else "local"; K4 past
+    DENSE_MAX_ROWS surfaces (`row_tagged`) keeps local rows."""
+    if (replay and row_tagged(tables.static)) or acc_bytes(
+            tables, cfg, replay) > ACC_BUDGET:
         return "local"
     return "shared"
 
@@ -2939,21 +2976,71 @@ def _texel_outputs(tables: SceneTables, cfg: KernelConfig, n: int, dev):
             torch.empty((J, n), dtype=torch.int32, device=dev))
 
 
-def segment_sums(lib, dout, tags, m_tags: int, n_planes: int, n_cols: int):
-    """Tagged entries summed by tag on the card: the stable integer sort of
-    the (n_planes, n) tags (torch.sort moves no floats), then the
-    segment-sum kernel of csrc/bigscene_bwd_res.cu -> (m_tags, n_cols), in
-    `segment_sums_plain`'s order."""
-    perm, starts = sort_tags(tags, m_tags)
-    seg = torch.empty((m_tags, n_cols), dtype=torch.float32,
-                      device=dout.device)
-    _run(lib.kytpu_bigscene_segment_sums, "segment_sums", dout.device,
+def tag_sort(tags: torch.Tensor, m_tags: int, mask: int = -1):
+    """`sort_tags`' stable sort of the int32 tags & mask, each in [0,
+    m_tags]: CUDA tags launch csrc/tag_sums.cu's radix sort -> (perm, starts)
+    int32, or raise; CPU tags run `sort_tags`."""
+    global launches_sort
+    from kytpu_torch.kernels import build
+
+    if not _on_card(tags.device):
+        return sort_tags(tags, m_tags, mask)
+    if tags.dtype != torch.int32:
+        raise ValueError(f"tags must be int32, got {tags.dtype}")
+    tags = tags.contiguous()
+    dev, E = tags.device, tags.numel()
+    lib = build.load()
+    perm = torch.empty((E,), dtype=torch.int32, device=dev)
+    starts = torch.empty((m_tags + 2,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((max(1, lib.kytpu_tag_sort_scratch(E, m_tags)),),
+                          dtype=torch.int32, device=dev)
+    _run(lib.kytpu_tag_sort, "tag_sort", dev, tags.data_ptr(), mask, E,
+         m_tags, perm.data_ptr(), starts.data_ptr(), scratch.data_ptr(),
+         scratch.numel())
+    launches_sort += 1
+    return perm, starts
+
+
+def seg_sums(dout, perm, starts, n: int, B: int, PB: int):
+    """`segment_sums_plain`'s (M, PB) sums by tag of the entries of dout's
+    planes: CUDA tensors (int32 perm and starts from `tag_sort`) launch
+    csrc/tag_sums.cu's segment sums, the same bits, or raise; CPU tensors
+    run `segment_sums_plain`."""
+    global launches_seg
+    from kytpu_torch.kernels import build
+
+    if not _on_card(dout.device):
+        return segment_sums_plain(dout, perm, starts, n, B, PB)
+    for name, t, dt in (("dout", dout, torch.float32),
+                        ("perm", perm, torch.int32),
+                        ("starts", starts, torch.int32)):
+        if t.dtype != dt or t.device != dout.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dt} on "
+                             f"{dout.device}")
+    dev, E, M = dout.device, perm.numel(), len(starts) - 2
+    pieces = -(-E // SEG_PIECE) + M
+    piece_start = torch.empty((M + 1,), dtype=torch.int32, device=dev)
+    part = torch.empty((max(1, pieces), PB), dtype=torch.float32, device=dev)
+    out = torch.empty((M, PB), dtype=torch.float32, device=dev)
+    _run(build.load().kytpu_segment_sums, "segment_sums", dev,
          dout.data_ptr(), perm.data_ptr(), starts.data_ptr(),
-         seg.data_ptr(), dout.shape[1], m_tags, n_planes, n_cols)
-    return seg
+         piece_start.data_ptr(), part.data_ptr(), max(1, pieces),
+         out.data_ptr(), n, E, M, B, PB)
+    launches_seg += 1
+    return out
 
 
-def _grads_of(lib, tables: SceneTables, cfg: KernelConfig, vec, tex, rows):
+def segment_sums(dout, tags, m_tags: int, n_planes: int, n_cols: int,
+                 mask: int = -1):
+    """Tagged entries summed by tag & mask: the stable sort of the
+    (n_planes [+ 1], n) tags (`tag_sort`), then the segment sums
+    (`seg_sums`) -> (m_tags, n_cols), in `segment_sums_plain`'s order; on
+    the card, kernels only."""
+    perm, starts = tag_sort(tags, m_tags, mask)
+    return seg_sums(dout, perm, starts, dout.shape[1], n_planes, n_cols)
+
+
+def _grads_of(tables: SceneTables, cfg: KernelConfig, vec, tex, rows):
     """K3's or K4's outputs on the card -> (dd, ds, de, denv[, dexp][, dta,
     dtb][, dti]): the lane-summed vector split (`split_grads`), or past
     DENSE_MAX_ROWS surfaces the row-tagged planes summed by row with it
@@ -2965,11 +3052,11 @@ def _grads_of(lib, tables: SceneTables, cfg: KernelConfig, vec, tex, rows):
                             cfg.trainable_exponent, _n_tex(static))
     else:
         grads = tagged_grads(static, cfg, segment_sums(
-            lib, *rows, len(static["mats"]["kind"]), cfg.max_depth,
+            *rows, len(static["mats"]["kind"]), cfg.max_depth,
             per_bounce(cfg)), vec)
     if tex[1] is None:
         return grads
-    seg = segment_sums(lib, *tex, static["n_texels"], tex[1].shape[0], 3)
+    seg = segment_sums(*tex, static["n_texels"], tex[1].shape[0], 3)
     return grads + (seg.reshape(_texel_shape(static)),)
 
 
@@ -3126,7 +3213,7 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
          int(bool(tables.static["textures"])),
          ACC_ROUTES.index(acc_route(tables, cfg)))
     launches_res_bwd += 1
-    return _grads_of(lib, tables, cfg, out, tex, rows)
+    return _grads_of(tables, cfg, out, tex, rows)
 
 
 def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
@@ -3159,7 +3246,7 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
          *_scene_args(tables, cfg),
          ACC_ROUTES.index(acc_route(tables, cfg, replay=True)), nb)
     launches_replay += 1
-    return _grads_of(lib, tables, cfg, out, tex, rows)
+    return _grads_of(tables, cfg, out, tex, rows)
 
 
 def make_cuda_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None):

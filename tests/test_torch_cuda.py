@@ -561,6 +561,11 @@ def test_row_tagged_backwards_on_card(cuda, scene, monkeypatch):
     for got, ref, rep in zip((k3, k4), refs, again):
         for a, b, c in zip(got, ref, rep):
             assert torch.equal(a, b) and torch.equal(a, c)
+    # K3's lane row in a shared block and in local memory: the same bits
+    assert kwf.acc_route(tables, cfg) == "shared"
+    monkeypatch.setattr(kwf, "ACC_BUDGET", 0)
+    for a, b in zip(kwf.bwd_res(tables, cfg, g, k2, resf, resi), k3):
+        assert torch.equal(a, b)
     for a, b in zip(k4, k3):
         b = b.cpu().numpy()
         np.testing.assert_allclose(a.cpu().numpy(), b, rtol=2e-3,
@@ -568,3 +573,29 @@ def test_row_tagged_backwards_on_card(cuda, scene, monkeypatch):
     if scene == "spheres300":
         assert int((kwf.unpack_row(resi) - 1).max()) > 255
         assert bool((k3[0][256:].abs().sum(-1) > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zeros", "ground", "rows", "texels",
+                                  "ragged"])
+def test_tag_sort_and_sums_on_card(cuda, kind):
+    """csrc/tag_sums.cu: the int32 radix sort gives torch.sort(stable=
+    True)'s perm and starts to the last index, and the split segment sums
+    equal segment_sums_plain bit for bit and repeat."""
+    from tests.test_torch_tag_sums import tag_set
+    tags, m_tags, mask, _ = tag_set(kind)
+    tags = torch.from_numpy(tags).to(cuda)
+    perm, starts = kwf.tag_sort(tags, m_tags, mask)
+    want_perm, want_starts = kwf.sort_tags(tags, m_tags, mask)
+    assert perm.dtype == starts.dtype == torch.int32
+    assert torch.equal(perm.long(), want_perm)
+    assert torch.equal(starts.long(), want_starts)
+    J, n = tags.shape
+    B, PB = (J, 3) if kind == "texels" else (J - 1, 9)
+    planes = PB * J if PB == 3 else PB * B + 3
+    dout = torch.randn((planes, n), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(2))
+    got = kwf.seg_sums(dout, perm, starts, n, B, PB)
+    assert torch.equal(got, kwf.segment_sums_plain(dout, want_perm,
+                                                   want_starts, n, B, PB))
+    assert torch.equal(got, kwf.seg_sums(dout, perm, starts, n, B, PB))
