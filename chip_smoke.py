@@ -198,6 +198,28 @@ Phases, one line each (a few for phase 3):
         blocks' pass rates;
      e. a smallpt frame through render() (K1), launches counted, and K1
         and K2 against their plain versions bit for bit on 64K lanes.
+  12. the jnp engines (integrator/path.py, integrator/fast.py: torch code,
+     no kernel of their own; `jnp_engines`) and their autograd train step,
+     at full width:
+     a. kytpu's README example, Cornell 256x256, PathConfig(strategy=
+        "both_mis"), depth 5, at 16 of its 64 spp through
+        render(engine="jnp"): the first and the median of 3 warmed walls,
+        one profiled frame's device busy time, kernel count and idle share,
+        the peak memory;
+     b. the fast engine against K1 (render(engine="cuda")), Cornell 256x256
+        at 64 spp each, clamped: the mean |difference| of the two frames
+        downsampled to 4x4 must be under kytpu's 0.03
+        (tests/test_kernel.py:175-188);
+     c. the card against the CPU: trace_lanes on a 32x32 Veach region, 2
+        spp, path both_mis, depth 3, lane by lane, and render_region's
+        pixels, each held to the bounds of phase 3;
+     d. rates: Veach 512x308 fast at 16 spp, the AOV normal frame at 4 spp
+        (benchmarks/run.py:185-190) and random_spheres(1024) fast at 1M
+        lanes, depth 3 (:99-131), with their peak memory;
+     e. five make_train_step(engine="jnp") steps on Cornell 64x64, 4 spp,
+        depth 3, against render_once's 2-spp target (key 7,
+        benchmarks/run.py:192-207): ms a step, one step profiled, the loss
+        and the parameters finite.
 The line before the last is the kernels' JSON record (K1-K8, the tag
 sort and the segment sums; each main path that sums by tag must launch
 both), the one before it nvidia-smi's name and power limit, and the last
@@ -930,6 +952,178 @@ def check_recorded_step(kmod, seen, what: str, ks=("K1", "K2", "K3")):
           f"(max |err| {cerr:.3g}); {kb} ({len(grads)} tables) within the "
           f"bound (max |err| {gerr:.3g}), repeats bit for bit", flush=True)
     return max(mabs, cerr), gerr
+
+
+def jnp_engines() -> None:
+    """Phase 12: kytpu's default render path, the jnp engines
+    (integrator/path.py, integrator/fast.py, plain torch code, no kernel of
+    their own) and their autograd train step, on the card at full width.
+    Each step prints one line; any failed check raises."""
+    from kytpu_torch.core import rng as krng
+    from kytpu_torch.diff import inverse as kinv
+    from kytpu_torch.integrator.fast import FastConfig
+    from kytpu_torch.integrator.path import PathConfig
+    from kytpu_torch.integrator.render import (render, render_aov,
+                                               render_region, trace_lanes)
+    from kytpu_torch.scene import builders
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def peak_of(fn):
+        """(fn's output, ms, peak device bytes while it ran)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, out = timed(fn)
+        return out, ms, torch.cuda.max_memory_allocated()
+
+    def finite_image(img, shape, what):
+        a = img.detach().cpu().numpy()
+        if a.shape != shape or not np.isfinite(a).all() or (a < 0).any() \
+                or a.mean() <= 0:
+            raise AssertionError(f"{what}: shape {a.shape}, not finite, "
+                                 "negative or black")
+        return a
+
+    # (a) kytpu's README example (README.md:80-91) at 16 of its 64 spp
+    cornell = builders.cornell_box(width=256, height=256)
+    cfg_a = PathConfig(strategy="both_mis")
+
+    def frame_a():
+        return render(cornell, spp=16, seed=1234, cfg=cfg_a, engine="jnp",
+                      clamp=False)
+
+    img, first, peak = peak_of(frame_a)
+    a = finite_image(img, (256, 256, 3), "README frame")
+    walls = [timed(frame_a)[0] for _ in range(3)]
+    wall = float(np.median(walls))
+    busy, _, n_k = device_profile(frame_a, {})
+    print(f"jnp engines (a): kytpu's README example, Cornell 256x256 "
+          f"PathConfig(strategy='both_mis'), depth 5, 16 of its 64 spp (one "
+          f"pass of {256 * 256 * 16} lanes) through render(engine='jnp'): "
+          f"first frame {first:.1f} ms, wall {wall:.1f} ms (median of 3 "
+          f"warmed frames: {min(walls):.1f}-{max(walls):.1f}), device busy "
+          f"{busy:.1f} ms in {n_k} kernels (idle share "
+          f"{1 - busy / wall:.3f}), peak memory {peak} B; mean "
+          f"{a.mean():.5f}", flush=True)
+
+    # (b) the fast engine against K1 (kytpu's tests/test_kernel.py:175-188,
+    # there at 16x16: both clamped, each downsampled to 4x4)
+    ms_fast, fast64 = timed(lambda: render(cornell, spp=64, seed=5,
+                                           cfg=FastConfig(), engine="jnp"))
+    ms_k1, k164 = timed(lambda: render(cornell, spp=64, seed=3,
+                                       engine="cuda"))
+    f64 = finite_image(fast64, (256, 256, 3), "fast 64-spp frame")
+    k64 = finite_image(k164, (256, 256, 3), "K1 64-spp frame")
+
+    def down(x, n):
+        return x.reshape(n, 256 // n, n, 256 // n, 3).mean(axis=(1, 3))
+
+    err4 = float(np.abs(down(f64, 4) - down(k64, 4)).mean())
+    err64 = float(np.abs(down(f64, 64) - down(k64, 64)).mean())
+    if not err4 < 0.03:
+        raise AssertionError(f"fast engine vs K1: {err4} >= 0.03")
+    print(f"jnp engines (b): Cornell 256x256, 64 spp, depth 5, clamped: the "
+          f"fast engine ({ms_fast:.1f} ms, 4 passes) against K1 through "
+          f"render(engine='cuda') ({ms_k1:.1f} ms): mean |difference| of the "
+          f"4x4-downsampled frames {err4:.5f} (< 0.03), of 64x64 "
+          f"downsamplings {err64:.5f}", flush=True)
+
+    # (c) the card against the CPU on a 32x32 Veach region, lane by lane
+    veach = builders.veach_mis(512, 308)
+    cfg_c = PathConfig(max_depth=3)
+    x0, y0, side = 240, 138, 32
+    lanes = {}
+    for dev in ("cuda", "cpu"):
+        sc = veach.to(dev)
+        ys, xs = torch.meshgrid(torch.arange(y0, y0 + side, device=dev),
+                                torch.arange(x0, x0 + side, device=dev),
+                                indexing="ij")
+        pid = (ys * 512 + xs).reshape(-1).repeat(2)
+        sid = torch.arange(2, device=dev).repeat_interleave(side * side)
+        lanes[dev] = trace_lanes(sc, krng.key(9, dev), (pid % 512).float(),
+                                 (pid // 512).float(), pid, sid, cfg_c,
+                                 "path", None)
+    share, mabs, _ = compare(lanes["cuda"], lanes["cpu"],
+                             "jnp path on the card vs the CPU")
+    reg = {dev: render_region(veach, x0, y0, x0 + side, y0 + side, spp=2,
+                              seed=9, cfg=cfg_c, clamp=False, device=dev)
+           for dev in ("cuda", "cpu")}
+    rshare, rmabs, _ = compare(reg["cuda"].reshape(-1, 3),
+                               reg["cpu"].reshape(-1, 3),
+                               "render_region on the card vs the CPU")
+    print(f"jnp engines (c): Veach 32x32 region at ({x0}, {y0}), path "
+          f"both_mis, depth 3, 2 spp: the card against the CPU, "
+          f"{lanes['cuda'].shape[0]} lanes, {share:.5f} outside rtol 1e-3/"
+          f"atol 1e-4 (max |err| {mabs:.3g}); render_region's pixels "
+          f"{rshare:.5f} outside (max |err| {rmabs:.3g})", flush=True)
+
+    # (d) rays a second (benchmarks/run.py:185-190, :99-131)
+    n_v = 512 * 308 * 16
+    render(veach, spp=16, seed=2, cfg=FastConfig(), engine="jnp")
+    img, ms_v, peak_v = peak_of(lambda: render(veach, spp=16, seed=3,
+                                               cfg=FastConfig(),
+                                               engine="jnp"))
+    finite_image(img, (308, 512, 3), "Veach fast frame")
+    render_aov(veach, "normal", spp=4, seed=1)
+    ms_aov, aov = timed(lambda: render_aov(veach, "normal", spp=4, seed=2))
+    if not torch.isfinite(aov).all() or aov.abs().max() > 1.0 + 1e-6:
+        raise AssertionError("AOV normal frame: not finite unit normals")
+    spheres = builders.random_spheres(n=1024, width=256, height=256).to(
+        "cuda")
+    n_s = 1 << 20
+    pid = torch.arange(n_s, device="cuda") % (256 * 256)
+    sid = torch.zeros_like(pid)
+
+    def spheres_fast(i):
+        return trace_lanes(spheres, krng.fold_in(krng.key(1, "cuda"), i),
+                           (pid % 256).float(), (pid // 256).float(), pid,
+                           sid, FastConfig(max_depth=3), "fast", None)
+
+    spheres_fast(0)
+    out, ms_s, peak_s = peak_of(lambda: spheres_fast(1))
+    if not torch.isfinite(out).all() or out.mean() <= 0:
+        raise AssertionError("spheres fast lanes: not finite or black")
+    print(f"jnp engines (d): Veach 512x308 fast, 16 spp, depth 5, "
+          f"{n_v / ms_v / 1e3:.2f} Mrays/s ({ms_v:.1f} ms, peak {peak_v} B); "
+          f"the AOV normal frame at 4 spp {512 * 308 * 4 / ms_aov / 1e3:.2f} "
+          f"Mrays/s ({ms_aov:.1f} ms); random_spheres(1024) "
+          f"({spheres.geometry.n_surfaces} surfaces) fast, {n_s} lanes, "
+          f"depth 3, {n_s / ms_s / 1e3:.2f} Mrays/s ({ms_s:.1f} ms, peak "
+          f"{peak_s} B)", flush=True)
+    del out, spheres
+
+    # (e) five autograd train steps (benchmarks/run.py:192-207's cell,
+    # through engine="jnp")
+    scene_i = builders.cornell_box(width=64, height=64).to("cuda")
+    cfg_i = PathConfig(max_depth=3)
+    target = kinv.render_once(scene_i, krng.key(7), 2, cfg_i).detach()
+    start = dataclasses.replace(scene_i,
+                                mat_diffuse=scene_i.mat_diffuse * 0.4)
+    step, params, _ = kinv.make_train_step(start, target, spp=4, cfg=cfg_i,
+                                           engine="jnp")
+    key = krng.key(0)
+    steps, losses = [], []
+    for i in range(5):
+        ms, loss = timed(lambda: step(krng.fold_in(key, i)))
+        steps.append(ms)
+        losses.append(float(loss))
+    if not np.isfinite(losses).all() or not all(
+            torch.isfinite(p).all() for p in params.values()):
+        raise AssertionError(f"jnp train steps: loss {losses} or a "
+                             "parameter not finite")
+    busy_s, _, n_ks = device_profile(lambda: step(krng.fold_in(key, 5)), {})
+    step_ms = float(np.median(steps[1:]))
+    print(f"jnp engines (e): make_train_step(engine='jnp'), Cornell 64x64, "
+          f"4 spp, depth 3, target render_once(2 spp, key 7), diffuse x 0.4 "
+          f"at the start: {step_ms:.1f} ms a step (median of steps 2-5; the "
+          f"first {steps[0]:.1f}), one step's device busy {busy_s:.1f} ms in "
+          f"{n_ks} kernels (idle share {1 - busy_s / step_ms:.3f}); losses "
+          + ", ".join(f"{v:.5f}" for v in losses), flush=True)
 
 
 def main() -> None:
@@ -2787,6 +2981,9 @@ def main() -> None:
           f"depth 5, hash (tables in shared memory: {tables.stage_bytes} B)",
           flush=True)
     del img, k1, k2
+
+    # 12. the jnp engines and their train step (no kernel of their own)
+    jnp_engines()
 
     src = "kytpu_torch/kernels/csrc/"
     tex_steps = [sum(tl[k] for tl in tex_train.values()) for k in (1, 2)]

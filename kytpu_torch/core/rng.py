@@ -93,16 +93,51 @@ def bits(k: torch.Tensor, n: int) -> torch.Tensor:
     return y0 ^ y1
 
 
+def root_key(seed: int, device=None) -> torch.Tensor:
+    return key(seed, device)
+
+
+def sample_keys(k: torch.Tensor, pixel_ids: torch.Tensor,
+                sample_id) -> torch.Tensor:
+    """One key a ray: fold the sample id, then each pixel id, into k."""
+    return fold_in(fold_in(k, sample_id), pixel_ids)
+
+
+def bounce_key(keys: torch.Tensor, bounce) -> torch.Tensor:
+    """The per-bounce keys of per-ray keys (N, 2)."""
+    return fold_in(keys, bounce)
+
+
+def split_channels(keys: torch.Tensor, n: int) -> tuple:
+    """jax.random.split(k, n) of each of the (N, 2) keys -> n (N, 2) key
+    tensors, one a purpose (key i of a split is fold_in(k, i))."""
+    return tuple(fold_in(keys, i) for i in range(n))
+
+
+def stratum_grid(spp: int) -> tuple[int, int]:
+    """Largest near-square (a, b) with a*b <= spp: the camera strata grid
+    (ky.cpp:978)."""
+    a = int(spp ** 0.5)
+    while a > 1 and spp % a:
+        a -= 1
+    return a, spp // a
+
+
 def uniform(k: torch.Tensor, shape=(), sampler: str = "random",
             index: torch.Tensor | None = None) -> torch.Tensor:
     """jax.random.uniform(k, shape) in float32 on [0, 1); `k` may carry
     leading batch dimensions, which lead the result.
 
-    sampler="sobol" with `index`, (N,) per-key sample ids, is kytpu's
-    `uniform(keys, shape, "sobol", index)`: each of the (N, 2) keys gives
-    three words (`bits(k, 3)`) that seed a shuffled Owen-scrambled Sobol
-    point of that index (core/lds.py); shape is () or (2,)."""
+    sampler="debug" draws the constant 0.5 (the reference's
+    debug_sampler_t, ky.cpp:922-947). sampler="sobol" with `index`, (N,)
+    per-key sample ids, is kytpu's `uniform(keys, shape, "sobol", index)`:
+    each of the (N, 2) keys gives three words (`bits(k, 3)`) that seed a
+    shuffled Owen-scrambled Sobol point of that index (core/lds.py); shape
+    is () or (2,)."""
     shape = tuple(shape)
+    if sampler == "debug":
+        return torch.full(k.shape[:-1] + shape, 0.5, dtype=torch.float32,
+                          device=k.device)
     if sampler == "sobol" and index is not None:
         seeds = bits(k, 3)
         if shape == ():

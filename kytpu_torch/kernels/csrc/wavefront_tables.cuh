@@ -11,7 +11,8 @@ namespace kytpu {
 // table layout: must match kytpu_torch/kernels/wavefront.py
 constexpr int HDR_I = 17, PL_I = 4, SP_I = 1, MAT_I = 3, LT_I = 3, TX_I = 6;
 constexpr int HDR_F = 4, PL_F = 32, SP_F = 8, MAT_F = 4, LT_F = 28, TX_F = 12;
-// one skip bit per light in a uint32 mask, one hit pdf per light in phits[]
+// one skip bit per light in a uint32 mask (the hit pdf of a light is
+// recomputed from the previous vertex, light_phit)
 constexpr int MAX_LIGHTS = 32;
 // K3 and K4 keep a dense row of adjoint columns a thread for scenes of at
 // most this many surfaces, and write row-tagged entries past it

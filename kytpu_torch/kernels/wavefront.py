@@ -79,7 +79,9 @@ DENSE_MAX_ROWS = 64
 # (csrc/lane_sum.cuh MAX_COLS, ROW_COLS)
 MAX_TEXTURES = 64
 # the kernels keep one skip bit per light in an int32 table field
-# (csrc/wavefront_fwd.cu) and per-light arrays (csrc/bigscene_fwd.cu)
+# (csrc/wavefront_fwd.cu) and the light-emission adjoints of every light in
+# a thread's accumulator row (K7 and K8: csrc/bigscene_bwd_res.cu,
+# csrc/bigscene_fwd.cu; K3 and K4 past 64 surfaces: csrc/lane_sum.cuh)
 MAX_LIGHTS = 32
 # K1, K2 and K4 stage a scene's tables in a block's shared memory up to
 # this many bytes (csrc/wavefront_fwd.cu STAGE_BUDGET): the most a block
@@ -356,12 +358,12 @@ def kernel_texture_support(scene: kscene.Scene):
             if th * tw > KERNEL_SEP_MAX_TEXELS:
                 return (f"the kernels fetch image textures of at most "
                         f"{KERNEL_SEP_MAX_TEXELS} texels ({th}x{tw} given), "
-                        "as kytpu's megakernel does; larger images need the "
-                        "jnp engines (ROADMAP item M7)")
+                        "as kytpu's megakernel does; render larger images "
+                        "with engine='jnp'")
         if m >= n_planar:
             return ("the kernels evaluate textures on planar surfaces only, "
-                    "as kytpu's megakernel does; sphere UV textures need the "
-                    "jnp engines (ROADMAP item M7)")
+                    "as kytpu's megakernel does; render sphere UV textures "
+                    "with engine='jnp'")
     return None
 
 
@@ -610,7 +612,7 @@ def check_textures(static) -> None:
         raise NotImplementedError(
             f"{static['n_textures']} textures: the backwards keep the "
             f"checker adjoints of at most {MAX_TEXTURES} in a thread (ROADMAP "
-            "section 3)")
+            "queue 2, item 2)")
 
 
 def row_tagged(static) -> bool:

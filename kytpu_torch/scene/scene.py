@@ -115,6 +115,24 @@ class Scene:
     def device(self) -> torch.device:
         return self.mat_diffuse.device
 
+    def diffuse_at(self, sid: torch.Tensor, uv: torch.Tensor):
+        """Per-lane diffuse / transmission colour: the mat_diffuse row, or
+        the bound texture's value where the row has one."""
+        base = km.gather(self.mat_diffuse, sid)
+        if not self.has_textures:
+            return base
+        tid = self.tex_id[sid.long()]
+        tv = ktex.eval_texture(self.textures, torch.clamp_min(tid, 0), uv)
+        return torch.where((tid >= 0)[:, None], tv, base)
+
+    def env_radiance(self, n: int) -> torch.Tensor:
+        """Environment radiance for n rays, 0 where the scene has no
+        environment light (`scene_t::environment_lighting`,
+        ky.cpp:3231-3237)."""
+        if self.has_env:
+            return self.env_radiance_[None].expand(n, 3)
+        return torch.zeros((n, 3), dtype=torch.float32, device=self.device)
+
     def to(self, device) -> "Scene":
         kw = {}
         for f in fields(self):
@@ -174,3 +192,79 @@ def scene_from_numpy(leaves) -> Scene:
         tex_id=(t(leaves.tex_id, np.int32)
                 if getattr(leaves, "tex_id", None) is not None else None),
         textures=tex)
+
+
+# ---------------------------------------------------------------------------
+# intersection and material binding (the jnp engines')
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Hit:
+    """Batched surface interactions (the reference's isect_t,
+    ky.cpp:642-692). Every field is defined on every lane; `valid` masks
+    the real hits, and a miss carries row 0's gathers, which the callers
+    mask out."""
+
+    t: torch.Tensor            # (N,)
+    valid: torch.Tensor        # (N,) bool
+    position: torch.Tensor     # (N,3)
+    normal: torch.Tensor       # (N,3) the shapes' orientation rules applied
+    wo: torch.Tensor           # (N,3) = -ray direction
+    sid: torch.Tensor          # (N,) int32 global surface row
+    emission: torch.Tensor     # (N,3) one-sided emitted radiance towards wo
+    light_index: torch.Tensor  # (N,) int32 light of the hit surface, -1
+    uv: torch.Tensor           # (N,2) texture coords (0 when untextured)
+
+
+def intersect(scene: Scene, o, d, tmax=None) -> Hit:
+    """The closest hit over the whole scene and its material and light
+    binding."""
+    n = o.shape[0]
+    if tmax is None:
+        tmax = torch.full((n,), km.INF, dtype=o.dtype, device=o.device)
+    t, sid, valid = kshapes.closest_hit(scene.geometry, o, d, tmax)
+    t_safe = torch.where(valid, t, torch.ones_like(t))
+    position = o + t_safe[:, None] * d
+    normal = kshapes.surface_normal(scene.geometry, sid, position, d)
+    wo = -d
+    # one-sided emission towards wo under the (possibly flipped) hit normal,
+    # as area_light_t::areal_radiance binds it (ky.cpp:2957-2960, 3084)
+    facing = km.dot(normal, wo) > 0.0
+    radiance = km.gather(scene.emission, sid)
+    emission = torch.where((valid & facing)[:, None], radiance,
+                           torch.zeros_like(radiance))
+    light_index = torch.where(valid, scene.light_index[sid.long()], -1)
+    if scene.has_textures:
+        uv = kshapes.surface_uv(scene.geometry, sid, position)
+    else:
+        uv = torch.zeros((n, 2), dtype=o.dtype, device=o.device)
+    return Hit(t=t, valid=valid, position=position, normal=normal, wo=wo,
+               sid=sid, emission=emission, light_index=light_index, uv=uv)
+
+
+def occluded(scene: Scene, position, normal, direction, dist):
+    """Shadow rays from surface points (ky.cpp:3187-3206): an offset
+    origin, tmax = dist - 2e-3.
+
+    The reference's quirk, kept for pixel parity: `dist` is measured from
+    the unoffset shading point while the ray starts at the offset origin
+    (ky.cpp:614, 3193), so a sampled light's own surface re-enters the
+    window where RAY_OFFSET cos(theta) > 2e-3. shadow="robust" takes
+    `occluded_from` instead."""
+    o = kshapes.offset_ray_origin(position, normal, direction)
+    return kshapes.any_hit(scene.geometry, o, direction,
+                           dist - km.SHADOW_EPSILON)
+
+
+def occluded_from(scene: Scene, o, direction, tmax, skip_row=None):
+    """Shadow rays with the caller's origin and tmax (the robust shadow
+    mode: tmax from the offset origin, and the sampled light's own surface
+    row left out by skip_row)."""
+    return kshapes.any_hit(scene.geometry, o, direction, tmax, skip_row)
+
+
+def spawn_ray(position, normal, direction):
+    """The offset origin of a continuation ray (isect_t::spawn_ray,
+    ky.cpp:665-668)."""
+    return kshapes.offset_ray_origin(position, normal, direction)

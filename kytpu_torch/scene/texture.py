@@ -9,9 +9,11 @@ values, so both are trainable leaves of inverse rendering (diff/params.py).
 UV conventions (kytpu's shapes.surface_uv): a rectangle's u runs along
 p0 - p1 and v along p2 - p1, a triangle's (u, v) are its barycentrics
 (b1, b2) over (p0, p1, p2), a disk's are its frame coordinates mapped to
-[0, 1]^2. Addressing wraps: uv is scaled by the texture's tiling, then its
-fraction is taken. The kernels evaluate textures on planar surfaces only
-(kernels/wavefront.py `_kernel_texture_support`).
+[0, 1]^2, a sphere's are u = phi / 2 pi and v = theta / pi (z up).
+Addressing wraps: uv is scaled by the texture's tiling, then its fraction
+is taken. The kernels evaluate textures on planar surfaces only, and image
+textures of at most 65,536 texels (kernels/wavefront.py
+`kernel_texture_support`); the jnp engines evaluate any.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
+
+from kytpu_torch.core import math as km
 
 CHECKER = 0
 IMAGE = 1
@@ -101,20 +105,27 @@ def _bilinear(atlas, img_idx, st):
     xi0 = torch.remainder(x0.long(), w)
     yi0 = torch.remainder(y0.long(), h)
     xi1, yi1 = torch.remainder(xi0 + 1, w), torch.remainder(yi0 + 1, h)
-    img_idx = img_idx.long()
-    top = atlas[img_idx, yi0, xi0] * (1.0 - fx) + atlas[img_idx, yi0, xi1] * fx
-    bot = atlas[img_idx, yi1, xi0] * (1.0 - fx) + atlas[img_idx, yi1, xi1] * fx
+    flat = atlas.reshape(-1, 3)
+    base = img_idx.long() * h
+
+    def texel(yi, xi):
+        return km.gather(flat, (base + yi) * w + xi)
+
+    top = texel(yi0, xi0) * (1.0 - fx) + texel(yi0, xi1) * fx
+    bot = texel(yi1, xi0) * (1.0 - fx) + texel(yi1, xi1) * fx
     return top * (1.0 - fy) + bot * fy
 
 
 def eval_texture(tex: Textures, tid, uv):
-    """The textures `tid` (N,) (valid rows) at uv (N, 2) -> (N, 3): the
-    plain reference of a lookup."""
+    """The textures `tid` (N,) (valid rows) at uv (N, 2) -> (N, 3): the jnp
+    engines' lookup, and the plain reference of the kernels' (any shape,
+    spheres included, and any atlas size)."""
     tid = tid.long()
     st = uv * tex.scale[tid]
     ij = torch.floor(st).to(torch.int32)
     even = ((ij[:, 0] + ij[:, 1]) & 1) == 0
-    out = torch.where(even[:, None], tex.color_a[tid], tex.color_b[tid])
+    out = torch.where(even[:, None], km.gather(tex.color_a, tid),
+                      km.gather(tex.color_b, tid))
     if tex.image.shape[0]:
         img_idx = tex.image_index[tid].clamp(0, tex.image.shape[0] - 1)
         img = _bilinear(tex.image, img_idx, st)

@@ -8,6 +8,9 @@ import sys
 import pytest
 import torch
 
+from kytpu_torch.core import rng
+from kytpu_torch.diff import inverse
+from kytpu_torch.integrator import path
 from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
@@ -59,11 +62,42 @@ def test_tracer_runs_the_plain_version_only_on_cpu_tensors():
         tracer(scene, o.to("meta"), d.to("meta"), 1)
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(engine="jnp"), "M7"),
-    (dict(engine="fast"), "M7"),
-    (dict(engine="path"), "M7"),
-])
-def test_unported_paths_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        render(builders.cornell_box(width=4, height=4), spp=1, **kwargs)
+@pytest.mark.parametrize("engine", ["jnp", "fast", "path"])
+def test_jnp_engines_run_on_the_cpu(engine):
+    img = render(builders.cornell_box(width=4, height=4), spp=2,
+                 engine=engine, device="cpu")
+    assert img.shape == (4, 4, 3) and img.device.type == "cpu"
+    assert torch.isfinite(img).all() and img.mean() > 0
+
+
+@pytest.mark.parametrize("kwargs", [dict(engine="pallas"),
+                                    dict(engine="jnp", mode="volume")])
+def test_unknown_engine_or_mode_raises(kwargs):
+    with pytest.raises(ValueError, match="unknown"):
+        render(builders.cornell_box(width=4, height=4), spp=1, device="cpu",
+               **kwargs)
+
+
+@pytest.mark.parametrize("call", ["render", "render_aov", "render_region",
+                                  "debug_pixel", "render_once",
+                                  "make_train_step"])
+def test_jnp_entry_points_default_to_the_card(call):
+    """The jnp engines' entry points run on the card unless device="cpu";
+    with no card they raise, they never fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib
+    r = importlib.import_module("kytpu_torch.integrator.render")
+    sc = builders.cornell_box(width=4, height=4)
+    calls = {
+        "render": lambda: r.render(sc, spp=1, engine="jnp"),
+        "render_aov": lambda: r.render_aov(sc, "normal", spp=1),
+        "render_region": lambda: r.render_region(sc, 0, 0, 2, 2, spp=1),
+        "debug_pixel": lambda: r.debug_pixel(sc, 1, 1, spp=1),
+        "render_once": lambda: inverse.render_once(
+            sc, rng.key(0), 1, path.PathConfig()),
+        "make_train_step": lambda: inverse.make_train_step(
+            sc, torch.zeros(4, 4, 3), engine="jnp"),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[call]()

@@ -117,3 +117,31 @@ def test_randint(seed, lo, hi):
         k = jax.random.fold_in(jax.random.key(seed), i)
         ref = int(jax.random.randint(k, (), lo, hi, jnp.int32))
         assert trng.randint(trng.fold_in(trng.key(seed), i), lo, hi) == ref
+
+
+@pytest.mark.parametrize("sampler", ["random", "sobol", "debug"])
+def test_jnp_engine_draws(sampler):
+    """kytpu/core/rng.py's per-ray plumbing of the jnp engines, bit for
+    bit: sample_keys, bounce_key, split_channels (jax.random.split under
+    vmap), the per-key uniform and uniform2 draws of each sampler."""
+    from kytpu.core import rng as jr
+    pix = np.arange(777, dtype=np.int32) * 13
+    si = (np.arange(777) % 5).astype(np.int32)
+    jk = jr.sample_keys(jax.random.key(31), jnp.asarray(pix), 4)
+    tk = trng.sample_keys(trng.key(31), torch.from_numpy(pix).long(), 4)
+    np.testing.assert_array_equal(_words(jk), tk.numpy())
+    jk, tk = jr.bounce_key(jk, 2), trng.bounce_key(tk, 2)
+    np.testing.assert_array_equal(_words(jk), tk.numpy())
+    jparts, tparts = jr.split_channels(jk, 5), trng.split_channels(tk, 5)
+    index = si if sampler == "sobol" else None
+    tindex = torch.from_numpy(si).long() if index is not None else None
+    for a, b in zip(jparts, tparts):
+        np.testing.assert_array_equal(_words(a), b.numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jr.uniform(a, (), sampler, index)),
+            trng.uniform(b, (), sampler, tindex).numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jr.uniform2(a, sampler, index)),
+            trng.uniform2(b, sampler, tindex).numpy())
+    for spp in (1, 2, 6, 9, 16, 17):
+        assert trng.stratum_grid(spp) == jr.stratum_grid(spp)

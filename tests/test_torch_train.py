@@ -1,6 +1,6 @@
 """The port's training path on the CPU: make_train_step against kytpu's, the
-hash/single gradient against finite differences, and the entry points that
-refuse what is not ported.
+hash/single gradient against finite differences, the entry points that
+refuse what is not ported, and the jnp engines' step on the CPU.
 
 Train step: three steps of make_train_step (Cornell 8x8, spp 2, depth 2,
 kernel_sampler="hash", Adam lr 2e-2; all parameters linear, and emission
@@ -115,13 +115,30 @@ def test_hash_single_gradient_matches_finite_differences():
 
 @pytest.mark.parametrize("kwargs, item", [
     (dict(mesh=object()), "M10"),
-    (dict(engine="jnp"), "M7"),
 ])
 def test_train_step_refuses_unported(kwargs, item):
     sc = tb.cornell_box(width=4, height=4)
     with pytest.raises(NotImplementedError, match=item):
         tinv.make_train_step(sc, np.zeros((4, 4, 3), np.float32),
                              device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("engine", ["jnp", "fast", "path"])
+def test_train_step_jnp_engines_run_on_the_cpu(engine):
+    sc = tb.cornell_box(width=4, height=4)
+    step, params, _ = tinv.make_train_step(
+        sc, np.full((4, 4, 3), 0.5, np.float32), spp=1, engine=engine,
+        device="cpu")
+    loss = step(trng.key(1))
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
+    assert all(torch.isfinite(p).all() for p in params.values())
+
+
+def test_train_step_unknown_engine_raises():
+    with pytest.raises(ValueError, match="unknown engine"):
+        tinv.make_train_step(tb.cornell_box(width=4, height=4),
+                             np.zeros((4, 4, 3), np.float32), engine="pallas",
+                             device="cpu")
 
 
 def test_train_step_refuses_big_scenes():
