@@ -30,10 +30,11 @@ Phases, one line each (a few for phase 3):
      K3 (rtol=2e-3 plus 2e-5 of the table's largest entry, the reference's
      bound for this cross-check); in the exponent case K2's "Bk"/"tuk"
      planes and K3's and K4's dexp are among the checked. K3 and K4 run
-     there on both accumulator routes (kernels/wavefront.py acc_route: a
-     column of a shared block, and a row in local memory, which
-     ACC_BUDGET 0 forces), each against its
-     plain version and itself as above, and the two routes against each
+     there on every accumulator route (kernels/wavefront.py acc_route: a
+     column of a shared block, a row in local memory, which ACC_BUDGET 0
+     forces, and the shared block's layout in device memory, which a
+     local row of no room forces), each against its
+     plain version and itself as above, and the routes against each
      other bit for bit; K4 in 32-lane chunks (no refill) at these 262K
      lanes. Then K2, K3 and K4 on a 32-light scene (tests/test_torch_cuda.py
      many_lights, 199 kept columns: past ACC_BUDGET, so the local route),
@@ -63,7 +64,7 @@ Phases, one line each (a few for phase 3):
      whose launches are counted: its time and peak memory, K4 alone (its
      refilled chunk printed), the plain K4, the tracer's gradient against
      K4's (bit for bit), K4 against the plain K4 and against K3 on those
-     lanes; K3 and K4 on both accumulator routes, timed and held to each
+     lanes; K3 and K4 on every accumulator route, timed and held to each
      other bit for bit; and K3 and K4 on the row-tagged route forced
      (kernels/wavefront.py DENSE_MAX_ROWS 0), timed beside the dense ones
      and held to them (bounds of phase 3);
@@ -220,6 +221,35 @@ Phases, one line each (a few for phase 3):
         depth 3, against render_once's 2-spp target (key 7,
         benchmarks/run.py:192-207): ms a step, one step profiled, the loss
         and the parameters finite.
+  13. past the caps and distribution:
+     a. past 32 lights and 64 textures (`past_the_caps`): K1-K4 on
+        many_lights (its copy here) with 32, 33 and 64 lights (34 and 65
+        surfaces at 33 and 64: the dense and the row-tagged backwards) at
+        512x512, 1M jittered lanes, depth 3, under hash/all/robust (timed)
+        and random/single/parity, against their plain versions with the
+        bounds of phase 3 (K1 and K2 with their cache bit for bit, K3 and
+        K4 repeating bit for bit, K4 against K3); K5-K8 the same way past
+        64 surfaces with 32, 33 and 64 lights (K7's and K8's rows past 32
+        lights in device memory) and against cull="off" bit for bit; a
+        scene of 65 checker textures and 33 lights (100 surfaces) through
+        K5-K8 and K1-K4 (the row-tagged K3 and K4 on their device-memory
+        route); then the main paths past the caps, launches counted: 16-spp
+        frames through render() at 33 lights (K1) and 64 (K5), three train
+        steps on each (K2/K3, K6/K7) and three checker-colour steps on the
+        65-texture scene (K6/K7); each kernel's ms at 32, 33 and 64 lights;
+     b. distribution (`distribution`): on a world-size-1 NCCL group, a 1x1
+        mesh: render_sharded_pallas of Veach 512x308 at 64 spp (K1, 8
+        samples a pass) and of random_spheres(1024) 256x256 at 16 spp
+        (K5), each render()'s frame bit for bit, launches counted, their
+        walls beside render()'s and the collectives' share of a frame
+        (`collective_clock`); five sharded Cornell 256x256 kernel steps (4
+        spp, depth 3, hash; K2/K3 counted) and five jnp steps at 64x64, the
+        unsharded steps bit for bit; then two gloo ranks spawned on
+        cuda:0 (NCCL refuses two ranks of one communicator on one card),
+        meshes (2, 1) and (1, 2): the Veach frame within 2e-5 of the
+        one-rank frame, one kernel step within rtol 1e-5 (loss) and atol
+        1e-5 (parameters) of the unsharded step, each rank's wall and
+        collectives' share.
 The line before the last is the kernels' JSON record (K1-K8, the tag
 sort and the segment sums; each main path that sums by tag must launch
 both), the one before it nvidia-smi's name and power limit, and the last
@@ -235,6 +265,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -954,6 +985,621 @@ def check_recorded_step(kmod, seen, what: str, ks=("K1", "K2", "K3")):
     return max(mabs, cerr), gerr
 
 
+def many_lights(b, n_lights: int, width: int = 24, height: int = 16,
+                n_checkers: int = 0, extra_spheres: int = 0):
+    """tests/test_torch_cuda.py's many_lights, kept here so that this script
+    needs nothing of the tests: a matte floor (or n_checkers quads, each
+    with a checker texture of its own) and a glossy back wall lit by a point
+    light and n_lights - 1 small sphere lights in a row, extra_spheres
+    matte spheres in front of them."""
+    A = b._SceneAssembler
+    a = A()
+    g = a.geo
+    if n_checkers:
+        k = int(np.ceil(np.sqrt(n_checkers)))
+        step = 20.0 / k
+        for t in range(n_checkers):
+            x0, z0 = -10 + step * (t % k), -10 + step * (t // k)
+            x1, z1 = x0 + step, z0 + step
+            c = 0.2 + 0.6 * ((np.arange(3) + t) % 3) / 2
+            tex = a.add_checker(np.float32(c), np.float32(1.0 - c),
+                                scale=(2.0, 2.0))
+            a.surface(g.add_rectangle((x0, -2, z1), (x0, -2, z0),
+                                      (x1, -2, z0), (x1, -2, z1),
+                                      flip_normal=True),
+                      A.matte(np.full(3, 0.5, np.float32), texture=tex))
+    else:
+        a.surface(g.add_rectangle((-10, -2, 10), (-10, -2, -10),
+                                  (10, -2, -10), (10, -2, 10),
+                                  flip_normal=True),
+                  A.matte(np.full(3, 0.5, np.float32)))
+    for k in range(extra_spheres):
+        c = (-4.5 + 9.0 * k / max(extra_spheres - 1, 1), -1.5, -1.0)
+        a.surface(g.add_sphere(c, 0.2),
+                  A.matte(np.float32([0.3 + 0.4 * (k % 2), 0.5, 0.4])))
+    a.surface(g.add_rectangle((-10, -10, 3), (-10, 10, 3), (10, 10, 3),
+                              (10, -10, 3), flip_normal=True),
+              A.plastic(np.float32([0.1, 0.1, 0.15]), np.ones(3, np.float32),
+                        100.0))
+    a.add_light(kind=b.klights.POINT, emit=np.full(3, 5.0, np.float32),
+                position=np.float32([0.0, 3.0, -2.0]))
+    n_sph = n_lights - 1
+    for k in range(n_sph):
+        c = (-4.5 + 9.0 * k / max(n_sph - 1, 1), 1.0 + 0.25 * (k % 3), 0.0)
+        r = 0.05 + 0.03 * (k % 5)
+        emit = np.full(3, 40.0 / (1 + k % 4), np.float32)
+        slot = a.add_light(kind=b.klights.AREA_SPHERE, emit=emit,
+                           center=np.asarray(c), radius=r)
+        a._lights[slot]["surface_handle"] = a.surface(
+            g.add_sphere(c, r), A.matte(np.zeros(3, np.float32)),
+            emission=emit, light_slot=slot)
+    cam = b.kscene.make_camera(position=(0.0, 1.0, -8.0),
+                               front=(0.0, -0.2, 1.0), up=(0.0, 1.0, 0.0),
+                               fov_degrees=50.0, width=width, height=height)
+    return a.build(cam)
+
+
+def past_the_caps(smi: str) -> dict:
+    """Phase 13a: K1-K8 past 32 lights and 64 textures. Returns each
+    kernel's launches on this phase's main paths, its max |err| against its
+    plain version and its ms at 33 and 64 lights."""
+    from kytpu_torch.core import rng as krng
+    from kytpu_torch.diff.inverse import make_train_step
+    from kytpu_torch.integrator.render import render
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels import wavefront as kwf
+    from kytpu_torch.scene import builders
+
+    n = 1 << 20
+    errs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")}
+    ms = {}
+
+    def wf_case(scene, cfg, tag, timed):
+        """K1-K4 on n jittered lanes of `scene` against their plain
+        versions (K1, K2 bit for bit; K3, K4 within the gradient bound, K4
+        against K3 within the reference's, each repeating bit for bit);
+        -> {kernel: ms} where `timed`."""
+        o, d, si, pix = jittered_rays(scene, n, 17)
+        tables = kwf.pack_tables(scene, cfg)
+        g = torch.randn(o.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(8))
+        reps = 3 if timed else 0
+        run = (lambda f: cuda_time_ms(f, reps)) if timed else (
+            lambda f: (0.0, f()))
+        t1, k1 = run(lambda: kwf.trace_lanes(tables, cfg, o, d, 41, si, pix))
+        t2, (k2, resf, resi) = run(lambda: kwf.trace_lanes(
+            tables, cfg, o, d, 41, si, pix, residual=True))
+        t3, k3 = run(lambda: kwf.bwd_res(tables, cfg, g, k2, resf, resi))
+        t4, k4 = run(lambda: kwf.bwd_replay(tables, cfg, o, d, 41, si, pix,
+                                            g, k1))
+        times = {"K1": t1, "K2": t2, "K3": t3, "K4": t4}
+        ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tables, cfg, o, d, 41,
+                                                    si, pix, residual=True)
+        same_bits(k1, ref_l, f"K1 {tag}")
+        same_bits((k2, resf, resi), (ref_l, ref_f, ref_i), f"K2 {tag}")
+        _, mabs, _ = compare(k1, ref_l, f"K1 {tag}")
+        errs["K1"] = max(errs["K1"], mabs)
+        errs["K2"] = max(errs["K2"], mabs)
+        if not all(torch.equal(a, b) for a, b in zip(
+                kwf.bwd_res(tables, cfg, g, k2, resf, resi), k3)):
+            raise AssertionError(f"K3 {tag}: does not repeat bit for bit")
+        if not all(torch.equal(a, b) for a, b in zip(kwf.bwd_replay(
+                tables, cfg, o, d, 41, si, pix, g, k1), k4)):
+            raise AssertionError(f"K4 {tag}: does not repeat bit for bit")
+        ref3 = kwf.bwd_res_plain(tables, cfg, g, ref_l, ref_f, ref_i)
+        del ref_f, ref_i
+        ref4 = kwf.bwd_replay_plain(tables, cfg, o, d, 41, si, pix, g, ref_l)
+        e3 = compare_grads(k3, ref3, f"K3 {tag}")
+        e4 = compare_grads(k4, ref4, f"K4 {tag}")
+        xerr = compare_grads(k4, k3, f"K4 vs K3 {tag}", CROSS_RTOL,
+                             CROSS_ATOL)
+        errs["K3"], errs["K4"] = max(errs["K3"], e3), max(errs["K4"], e4)
+        print(f"past the caps: {tag}, {n} lanes, depth {cfg.max_depth}: K1 "
+              f"and K2 (radiance, cache {resf.shape[0]}+{resi.shape[0]} "
+              f"planes) = plain bit for bit; K3 (route "
+              f"{kwf.acc_route(tables, cfg)}, {kwf._row_cols(tables, cfg)} "
+              f"columns) and K4 (route {kwf.acc_route(tables, cfg, True)}) "
+              f"within the bound (max |err| {e3:.3g}, {e4:.3g}), each repeats "
+              f"bit for bit, K4 vs K3 max |diff| {xerr:.3g}"
+              + (f"; K1 {t1:.3f} ms, K2 {t2:.3f}, K3 {t3:.3f}, K4 {t4:.3f} "
+                 f"on {smi}" if timed else ""), flush=True)
+        return times
+
+    def big_case(scene, cfg, tag, timed):
+        """K5-K8 on n jittered lanes against their plain versions (the
+        bounds of phase 9a) and against cull="off" bit for bit."""
+        o, d, si, pix = jittered_rays(scene, n, 19)
+        tables = kbs.pack_big_tables(scene, cfg)
+        g = torch.randn(o.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(9))
+        reps = 3 if timed else 0
+        run = (lambda f: cuda_time_ms(f, reps)) if timed else (
+            lambda f: (0.0, f()))
+        t5, k5 = run(lambda: kbs.trace_lanes(tables, cfg, o, d, 43, si, pix))
+        t6, (k6, resf, resi) = run(lambda: kbs.trace_lanes(
+            tables, cfg, o, d, 43, si, pix, residual=True))
+        t7, k7 = run(lambda: kbs.bwd_res(tables, cfg, g, k6, resf, resi))
+        t8, k8 = run(lambda: kbs.bwd_replay(tables, cfg, o, d, 43, si, pix,
+                                            g, k5))
+        if not torch.equal(k5, k6):
+            raise AssertionError(f"K6 {tag}: its radiance is not K5's")
+        for nm, f, ref in (
+                ("K7", lambda: kbs.bwd_res(tables, cfg, g, k6, resf, resi),
+                 k7),
+                ("K8", lambda: kbs.bwd_replay(tables, cfg, o, d, 43, si, pix,
+                                              g, k5), k8)):
+            if not all(torch.equal(a, b) for a, b in zip(f(), ref)):
+                raise AssertionError(f"{nm} {tag}: does not repeat bit for "
+                                     "bit")
+        same_as_cull_off(tables, cfg, (o, d, 43, si, pix), g,
+                         (k5, (k6, resf, resi), k8), tag)
+        ref_l, ref_f, ref_i = kbs.trace_lanes_plain(tables, cfg, o, d, 43, si,
+                                                    pix, residual=True)
+        _, mabs, _ = compare(k5, ref_l, f"K5 {tag}")
+        cerr = compare_cache(resf, resi, ref_f, ref_i, f"K6 cache {tag}")
+        e7 = compare_grads(k7, kbs.bwd_res_plain(tables, cfg, g, ref_l, ref_f,
+                                                 ref_i), f"K7 {tag}")
+        del ref_f, ref_i
+        e8 = compare_grads(k8, kbs.sums_plain(tables, cfg, *kbs.bwd_replay_plain(
+            tables, cfg, o, d, 43, si, pix, g, k5)), f"K8 {tag}")
+        xerr = compare_grads(k8, k7, f"K8 vs K7 {tag}", CROSS_RTOL,
+                             CROSS_ATOL)
+        errs["K5"] = max(errs["K5"], mabs)
+        errs["K6"] = max(errs["K6"], mabs, cerr)
+        errs["K7"], errs["K8"] = max(errs["K7"], e7), max(errs["K8"], e8)
+        wide = kbs._n_cols(tables) > kwf.local_row_cols(
+            bool(tables.static["textures"]))
+        print(f"past the caps: {tag}, {n} lanes, depth {cfg.max_depth}: K5 "
+              f"within the bound (max |err| {mabs:.3g}), K6 = K5 bit for "
+              f"bit, its cache within the bound (max |err| {cerr:.3g}); K5, "
+              f"K6 and K8 = cull='off' bit for bit; K7 and K8 ("
+              f"{kbs._n_cols(tables)} lane columns, "
+              f"{'in device memory' if wide else 'local rows'}) within the "
+              f"bound (max |err| {e7:.3g}, {e8:.3g}), each repeats bit for "
+              f"bit, K8 vs K7 max |diff| {xerr:.3g}"
+              + (f"; K5 {t5:.3f} ms, K6 {t6:.3f}, K7 {t7:.3f}, K8 {t8:.3f} on "
+                 f"{smi}" if timed else ""), flush=True)
+        return {"K5": t5, "K6": t6, "K7": t7, "K8": t8}
+
+    # 13a-i. K1-K4 at 32, 33 and 64 lights (512x512, 1M lanes, depth 3),
+    # timed at hash/all/robust
+    for L in (32, 33, 64):
+        sc = many_lights(builders, L, 512, 512).to("cuda")
+        for k, (sampler, nee, shadow) in enumerate((
+                ("hash", "all", "robust"), ("random", "single", "parity"))):
+            cfg = kwf.KernelConfig(max_depth=3, sampler=sampler, nee=nee,
+                                   shadow=shadow)
+            t = wf_case(sc, cfg, f"{L} lights ({int(sc.mat_kind.shape[0])} "
+                        f"surfaces) {sampler}/{nee}/{shadow}", k == 0)
+            if k == 0:
+                ms[L] = t
+        torch.cuda.empty_cache()
+    # 13a-ii. past 64 surfaces with 33 and 64 lights: K5-K8 (and K1-K4 on
+    # the row-tagged route at 64 lights, above); timed at hash/robust
+    for L, extra in ((33, 40), (64, 0)):
+        sc = many_lights(builders, L, 512, 512, extra_spheres=extra).to("cuda")
+        for k, (sampler, shadow) in enumerate((("hash", "robust"),
+                                               ("random", "parity"))):
+            cfg = kwf.KernelConfig(max_depth=3, sampler=sampler, shadow=shadow)
+            t = big_case(sc, cfg, f"{L} lights, {int(sc.mat_kind.shape[0])} "
+                         f"surfaces, {sampler}/{shadow}", k == 0)
+            if k == 0:
+                ms.setdefault(L, {}).update(t)
+        torch.cuda.empty_cache()
+    # the big kernels at 32 lights past 64 surfaces, for the times beside
+    sc = many_lights(builders, 32, 512, 512, extra_spheres=40).to("cuda")
+    ms[32].update(big_case(sc, kwf.KernelConfig(max_depth=3, sampler="hash",
+                                                shadow="robust"),
+                           "32 lights, 73 surfaces, hash/robust", True))
+    # 13a-iii. 65 checker textures and 33 lights (100 surfaces: K5-K8 with
+    # textures, and K1-K4 on the row-tagged route, their rows in device
+    # memory)
+    sc = many_lights(builders, 33, 512, 512, n_checkers=65).to("cuda")
+    for sampler, shadow in (("hash", "robust"), ("sobol", "parity")):
+        cfg = kwf.KernelConfig(max_depth=3, sampler=sampler, shadow=shadow)
+        tag = f"65 checker textures, 33 lights, {sampler}/{shadow}"
+        big_case(sc, cfg, tag, False)
+        wf_case(sc, cfg, tag, False)
+    torch.cuda.empty_cache()
+
+    # 13a-iv. the main paths past the caps, launches counted: a 64-light
+    # frame through render() (K5 past 64 surfaces) and a 33-light one (K1),
+    # and train steps on each (K6 + K7, K2 + K3) and on the 65-texture
+    # scene's checker colours (K6 + K7 with textures)
+    def reset():
+        kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
+        kwf.launches_replay = kwf.launches_sort = kwf.launches_seg = 0
+        kbs.launches = kbs.launches_res_fwd = kbs.launches_res_bwd = 0
+        kbs.launches_replay = 0
+
+    def read():
+        return {"K1": kwf.launches, "K2": kwf.launches_res_fwd,
+                "K3": kwf.launches_res_bwd, "K4": kwf.launches_replay,
+                "K5": kbs.launches, "K6": kbs.launches_res_fwd,
+                "K7": kbs.launches_res_bwd, "K8": kbs.launches_replay,
+                "tag_sort": kwf.launches_sort,
+                "segment_sums": kwf.launches_seg}
+
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for L, extra in ((33, 0), (64, 0)):
+        sc = many_lights(builders, L, 256, 256, extra_spheres=extra)
+        reset()
+        img = render(sc, spp=16, seed=3, clamp=False)
+        torch.cuda.synchronize()
+        got = read()
+        want = "K5" if int(sc.mat_kind.shape[0]) > 64 else "K1"
+        if got[want] == 0 or not bool(torch.isfinite(img).all()) or \
+                float(img.mean()) <= 0:
+            raise AssertionError(f"{L}-light frame: launches {got}")
+        add(got)
+        true = sc.to("cuda")
+        target = render(true, spp=64, seed=4, clamp=False)
+        start = dataclasses.replace(true, mat_diffuse=true.mat_diffuse * 0.4)
+        step, params, _ = make_train_step(start, target, spp=4, max_depth=3,
+                                          kernel_sampler="hash")
+        reset()
+        losses = [float(step(krng.key(11))) for _ in range(3)]
+        torch.cuda.synchronize()
+        got = read()
+        pair = ("K6", "K7") if want == "K5" else ("K2", "K3")
+        if not (got[pair[0]] == 3 and got[pair[1]] == 3) or not all(
+                np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{L}-light steps: launches {got}, losses "
+                                 f"{losses}")
+        add(got)
+        print(f"past the caps: main paths at {L} lights "
+              f"({int(sc.mat_kind.shape[0])} surfaces): a 256x256 16-spp "
+              f"frame through render() ({want}), mean {float(img.mean()):.5f};"
+              f" three train steps ({'/'.join(pair)}), loss "
+              f"{' -> '.join(f'{x:.5f}' for x in losses)}", flush=True)
+    sc = many_lights(builders, 33, 256, 256, n_checkers=65)
+    true = sc.to("cuda")
+    target = render(true, spp=64, seed=4, clamp=False)
+    tx = true.textures
+    start = dataclasses.replace(true, textures=dataclasses.replace(
+        tx, color_a=tx.color_a * 0.4, color_b=tx.color_b * 0.4))
+    step, params, _ = make_train_step(start, target, spp=4, max_depth=3,
+                                      kernel_sampler="hash",
+                                      names=("tex_color_a", "tex_color_b"))
+    reset()
+    losses = [float(step(krng.key(12))) for _ in range(3)]
+    torch.cuda.synchronize()
+    got = read()
+    if got["K6"] != 3 or got["K7"] != 3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"65-texture steps: launches {got}, losses "
+                             f"{losses}")
+    add(got)
+    print(f"past the caps: main path, 65 checker textures and 33 lights "
+          f"(100 surfaces): three checker-colour steps (K6/K7), loss "
+          f"{' -> '.join(f'{x:.5f}' for x in losses)}", flush=True)
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"):
+        print(f"past the caps: {k} ms at 32 / 33 / 64 lights: "
+              + " / ".join(f"{ms[L][k]:.3f}" for L in (32, 33, 64))
+              + f" (K1-K4: many_lights 512x512, 1M lanes, depth 3, hash/all/"
+                f"robust, 35 and 66 surfaces at 33 and 64; K5-K8: past 64 "
+                f"surfaces, hash/robust) on {smi}", flush=True)
+    return {"launches": launches, "errs": errs, "ms": ms}
+
+
+# 13b's sizes: kytpu's Veach frame and Cornell step, the spheres' frame
+DIST_VEACH = (512, 308, 64)
+DIST_SPHERES = (1024, 256, 256, 16)
+DIST_STEPS = 5
+
+
+@contextlib.contextmanager
+def collective_clock(out: list):
+    """While the block runs, every torch.distributed all_reduce and
+    all_gather synchronises the card before and after itself and adds its
+    host seconds to out[0]: the collectives' share of a (separately
+    timed, unclocked) wall."""
+    import torch.distributed as dist
+    real = {nm: getattr(dist, nm) for nm in ("all_reduce", "all_gather")}
+
+    def clocked(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            out[0] += time.perf_counter() - t0
+            return r
+        return run
+
+    for nm, fn in real.items():
+        setattr(dist, nm, clocked(fn))
+    try:
+        yield out
+    finally:
+        for nm, fn in real.items():
+            setattr(dist, nm, fn)
+
+
+def wall_ms(fn, reps: int = 3):
+    """(median host ms of reps warmed calls of fn ending in a synchronise,
+    fn's last output)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts)), out
+
+
+def dist_scenes():
+    """13b's scenes and configurations: (Veach, its render kwargs), (the
+    spheres, theirs), the Cornell step's (true scene, start, target
+    kwargs)."""
+    from kytpu_torch.kernels import wavefront as kwf
+    from kytpu_torch.scene import builders
+    vw, vh, vspp = DIST_VEACH
+    cfg = kwf.KernelConfig(sampler="hash")
+    veach = builders.veach_mis(vw, vh)
+    # 8 samples a pass: the passes trace the frame's 64 samples exactly
+    vkw = dict(spp=vspp, seed=5, cfg=cfg, rays_per_pass=vw * vh * 8)
+    n, sw, sh, sspp = DIST_SPHERES
+    spheres = builders.random_spheres(n=n, width=sw, height=sh)
+    skw = dict(spp=sspp, seed=6, cfg=dataclasses.replace(cfg, max_depth=3))
+    return (veach, vkw), (spheres, skw)
+
+
+def step_inputs(engine: str):
+    """The Cornell step of 13b: (start scene, target, make_train_step
+    kwargs): the kernel step at 256x256, 4 spp, depth 3, hash; the jnp one
+    at 64x64."""
+    from kytpu_torch.core import rng as krng
+    from kytpu_torch.diff.inverse import render_once
+    from kytpu_torch.integrator.path import PathConfig
+    from kytpu_torch.integrator.render import render
+    from kytpu_torch.scene import builders
+    side = 256 if engine == "cuda" else 64
+    true = builders.cornell_box(width=side, height=side).to("cuda")
+    start = dataclasses.replace(true, mat_diffuse=true.mat_diffuse * 0.4)
+    cfg = PathConfig(max_depth=3)
+    if engine == "cuda":
+        target = render(true, spp=64, seed=4, clamp=False)
+        kw = dict(spp=4, cfg=cfg, kernel_sampler="hash")
+    else:
+        target = render_once(true, krng.key(7), 2, cfg).detach()
+        kw = dict(spp=4, cfg=cfg, engine="jnp")
+    return start, target, kw
+
+
+def run_steps(step, params, n: int = DIST_STEPS):
+    """n steps of one key -> (losses, the parameters after them)."""
+    from kytpu_torch.core import rng as krng
+    losses = [step(krng.key(21)) for _ in range(n)]
+    torch.cuda.synchronize()
+    return ([float(x) for x in losses],
+            {k: v.detach().clone() for k, v in params.items()})
+
+
+def _dist_rank(rank: int, world: int, init_file: str, out_dir: str,
+               shape: tuple) -> None:
+    """One of 13b's two gloo ranks on cuda:0: the Veach frame and one
+    Cornell kernel step on a `shape` mesh, saved for the parent."""
+    from kytpu_torch.diff.inverse import make_train_step
+    from kytpu_torch.dist import make_mesh, multihost
+    from kytpu_torch.dist.shard import render_sharded_pallas
+    multihost.initialize(f"file://{init_file}", world, rank, backend="gloo",
+                         device="cuda:0")
+    try:
+        mesh = make_mesh(shape=shape, device="cuda:0")
+        (veach, kw), _ = dist_scenes()
+        kw = dict(kw)
+        cfg = kw.pop("cfg")
+
+        def frame():
+            return render_sharded_pallas(veach, mesh, kernel_cfg=cfg, **kw)
+
+        wall, img = wall_ms(frame)
+        coll = [0.0]
+        with collective_clock(coll):
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            clocked = time.perf_counter() - t0
+        start, target, skw = step_inputs("cuda")
+        step, params, _ = make_train_step(start, target, mesh=mesh, **skw)
+        t0 = time.perf_counter()
+        losses, after = run_steps(step, params, 1)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        torch.save({"img": img.cpu(), "wall": wall,
+                    "share": coll[0] / clocked, "losses": losses,
+                    "params": {k: v.cpu() for k, v in after.items()},
+                    "step_ms": step_ms},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def distribution(smi: str) -> dict:
+    """Phase 13b: the sharded render and train step (kytpu_torch/dist) on
+    the card. Returns the kernels' launches on its main paths."""
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from kytpu_torch.diff.inverse import make_train_step
+    from kytpu_torch.dist import make_mesh, multihost
+    from kytpu_torch.dist.shard import render_sharded_pallas
+    from kytpu_torch.integrator.render import render
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels import wavefront as kwf
+
+    launches = {}
+
+    def reset():
+        kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
+        kwf.launches_replay = kwf.launches_sort = kwf.launches_seg = 0
+        kbs.launches = kbs.launches_res_fwd = kbs.launches_res_bwd = 0
+        kbs.launches_replay = 0
+
+    def add():
+        got = {"K1": kwf.launches, "K2": kwf.launches_res_fwd,
+               "K3": kwf.launches_res_bwd, "K5": kbs.launches,
+               "K6": kbs.launches_res_fwd, "K7": kbs.launches_res_bwd}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return got
+
+    (veach, vkw), (spheres, skw) = dist_scenes()
+    veach, spheres = veach.to("cuda"), spheres.to("cuda")
+    # 13b-i. a world-size-1 NCCL group, a 1x1 mesh
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    multihost.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(shape=(1, 1))
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"the card's group runs {backend}")
+        rows = []
+        for what, sc, kw in (("veach 512x308, 64 spp (K1)", veach, vkw),
+                             ("random_spheres(1024) 256x256, 16 spp (K5)",
+                              spheres, skw)):
+            kw = dict(kw)
+            cfg = kw.pop("cfg")
+            one_ms, ref = wall_ms(lambda: render(sc, clamp=False, cfg=cfg,
+                                                 **kw))
+            reset()
+            img = render_sharded_pallas(sc, mesh, kernel_cfg=cfg, clamp=False,
+                                        **kw)
+            torch.cuda.synchronize()
+            got = add()
+            if not torch.equal(img, ref):
+                raise AssertionError(f"{what}: the 1x1 mesh's frame is not "
+                                     f"render()'s bit for bit")
+            k = "K5" if "K5" in what else "K1"
+            if got[k] == 0:
+                raise AssertionError(f"{what}: {k} launched no time")
+            sh_ms, _ = wall_ms(lambda: render_sharded_pallas(
+                sc, mesh, kernel_cfg=cfg, clamp=False, **kw))
+            coll = [0.0]
+            with collective_clock(coll):
+                t0 = time.perf_counter()
+                render_sharded_pallas(sc, mesh, kernel_cfg=cfg, clamp=False,
+                                      **kw)
+                torch.cuda.synchronize()
+                clocked = time.perf_counter() - t0
+            rows.append(f"{what}: {sh_ms:.3f} ms on the 1x1 NCCL mesh "
+                        f"against {one_ms:.3f} ms through render(), the "
+                        f"frame render()'s bit for bit; the collectives "
+                        f"{coll[0] / clocked:.4f} of a clocked frame")
+        for r in rows:
+            print(f"distribution: {r}; on {smi}", flush=True)
+        for engine in ("cuda", "jnp"):
+            start, target, kw = step_inputs(engine)
+            runs = []
+            for _ in range(2):   # does the unsharded step repeat its bits?
+                s_u, p_u, _ = make_train_step(start, target, **kw)
+                t0 = time.perf_counter()
+                runs.append(run_steps(s_u, p_u))
+                one_ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+            (ref_l, ref_p), (_, again_p) = runs
+            repeats = all(torch.equal(again_p[k], ref_p[k]) for k in ref_p)
+            s_m, p_m, _ = make_train_step(start, target, mesh=mesh, **kw)
+            reset()
+            t0 = time.perf_counter()
+            got_l, got_p = run_steps(s_m, p_m)
+            ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+            got = add()
+            same = got_l == ref_l and all(torch.equal(got_p[k], ref_p[k])
+                                          for k in ref_p)
+            perr = max(float((got_p[k] - ref_p[k]).abs().max())
+                       for k in ref_p)
+            # the kernel step repeats its bits, so its 1x1 mesh must give
+            # them; the jnp step's autograd adds with atomics on the card
+            # (its index backward), so there kytpu's bounds hold it
+            if (repeats and not same) or not np.allclose(
+                    got_l, ref_l, rtol=1e-5, atol=0) or perr > 1e-5:
+                raise AssertionError(f"{engine} step: the 1x1 mesh's steps "
+                                     f"are not the unsharded ones: {got_l} "
+                                     f"against {ref_l}, parameters {perr:.3g}"
+                                     f" apart (the unsharded step repeats "
+                                     f"its bits: {repeats})")
+            if engine == "cuda" and (got["K2"] != DIST_STEPS
+                                     or got["K3"] != DIST_STEPS):
+                raise AssertionError(f"the sharded kernel step launched "
+                                     f"{got}")
+            if not got_l[-1] < got_l[0]:
+                raise AssertionError(f"{engine} step: the loss did not fall "
+                                     f"{got_l}")
+            what = ("Cornell 256x256, 4 spp, depth 3, hash" if engine == "cuda"
+                    else "Cornell 64x64, 4 spp, depth 3")
+            print(f"distribution: {engine} step on the 1x1 NCCL mesh "
+                  f"({what}): {DIST_STEPS} steps "
+                  + ("= the unsharded steps bit for bit" if same else
+                     f"within rtol 1e-5 (loss) and atol 1e-5 (parameters, "
+                     f"max |diff| {perr:.3g}) of the unsharded steps, which "
+                     f"{'repeat' if repeats else 'do not repeat'} their own "
+                     f"bits")
+                  + f", loss {' -> '.join(f'{x:.5f}' for x in got_l)}, "
+                  f"{ms:.3f} ms a step against {one_ms:.3f} unsharded; on "
+                  f"{smi}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # 13b-ii. two gloo ranks on cuda:0, meshes (2, 1) and (1, 2), against
+    # the one-rank frame and one unsharded kernel step (kytpu's bounds)
+    vkw1 = dict(vkw)
+    cfg = vkw1.pop("cfg")
+    one_ms, one = wall_ms(lambda: render(veach, cfg=cfg, **vkw1))
+    one = one.cpu()
+    start, target, kw = step_inputs("cuda")
+    s_u, p_u, _ = make_train_step(start, target, **kw)
+    ref_l, ref_p = run_steps(s_u, p_u, 1)
+    for shape in ((2, 1), (1, 2)):
+        with tempfile.TemporaryDirectory() as d:
+            mp.start_processes(_dist_rank, args=(2, os.path.join(d, "init"),
+                                                 d, shape),
+                               nprocs=2, join=True, start_method="spawn")
+            res = [torch.load(os.path.join(d, f"rank{r}.pt"))
+                   for r in range(2)]
+        errs = []
+        for r, x in enumerate(res):
+            err = float((x["img"] - one).abs().max())
+            perr = max(float((x["params"][k] - ref_p[k].cpu()).abs().max())
+                       for k in ref_p)
+            errs.append((err, perr))
+            if err > 2e-5 or perr > 1e-5 or not np.isclose(
+                    x["losses"][0], ref_l[0], rtol=1e-5, atol=0):
+                raise AssertionError(
+                    f"{shape} mesh rank {r}: the Veach frame {err:.3g} from "
+                    f"the one-rank frame (2e-5), the step's parameters "
+                    f"{perr:.3g} from the unsharded step's (1e-5), loss "
+                    f"{x['losses'][0]} against {ref_l[0]} (rtol 1e-5)")
+        if not all(torch.equal(res[0]["params"][k], res[1]["params"][k])
+                   for k in ref_p):
+            raise AssertionError(f"{shape} mesh: the ranks' parameters differ")
+        print(f"distribution: two gloo ranks on cuda:0, a {shape} mesh: the "
+              f"Veach 512x308 64-spp frame (K1) within 2e-5 of the one-rank "
+              f"frame (max |diff| {max(e for e, _ in errs):.3g}), "
+              f"{res[0]['wall']:.3f} and {res[1]['wall']:.3f} ms a rank "
+              f"against {one_ms:.3f} ms on one rank, the collectives "
+              f"{res[0]['share']:.4f} and {res[1]['share']:.4f} of a clocked "
+              f"frame; a Cornell 256x256 kernel step within rtol 1e-5 "
+              f"(loss) and atol 1e-5 (parameters, max |diff| "
+              f"{max(p for _, p in errs):.3g}) of the unsharded step, "
+              f"{res[0]['step_ms']:.3f} ms on rank 0 (its first, with the "
+              f"tracer's set-up), both ranks the same parameters; on {smi}",
+              flush=True)
+    return {"launches": launches}
+
+
 def jnp_engines() -> None:
     """Phase 12: kytpu's default render path, the jnp engines
     (integrator/path.py, integrator/fast.py, plain torch code, no kernel of
@@ -1146,15 +1792,20 @@ def main() -> None:
     from kytpu_torch.scene import builders
     STAGE_BUDGET, ACC_BUDGET = kwf.STAGE_BUDGET, kwf.ACC_BUDGET
 
+    ROOM = kwf.DENSE_ROW_COLS, kwf.TAGGED_ROW_COLS
+
     def on_route(route: str, fn):
         """fn() with K3's and K4's dense rows on accumulator route `route`
         where they fit it (kernels/wavefront.py acc_route: ACC_BUDGET 0
-        forces "local")."""
+        forces "local", and no room in the local array "device")."""
         kwf.ACC_BUDGET = ACC_BUDGET if route == "shared" else 0
+        if route == "device":
+            kwf.DENSE_ROW_COLS = kwf.TAGGED_ROW_COLS = 0
         try:
             return fn()
         finally:
             kwf.ACC_BUDGET = ACC_BUDGET
+            kwf.DENSE_ROW_COLS, kwf.TAGGED_ROW_COLS = ROOM
 
     def same_grads(got, ref, what: str) -> None:
         if not all(torch.equal(a, b) for a, b in zip(got, ref)):
@@ -1302,6 +1953,8 @@ def main() -> None:
         for k in (0, 1):
             same_grads(by_route["shared"][k], by_route["local"][k],
                        f"K{k + 3} shared vs local route {tag}")
+            same_grads(by_route["device"][k], by_route["local"][k],
+                       f"K{k + 3} device vs local route {tag}")
         same_grads(grads, by_route[kwf.acc_route(tables, cfg)][0],
                    f"K3 {tag}: its route's")
         same_grads(k4, by_route[kwf.acc_route(tables, cfg, True)][1],
@@ -1309,13 +1962,14 @@ def main() -> None:
         chunk4 = kwf.refill_chunk(tables, cfg, n_lanes, replay=True)
         if chunk4 != 32:
             raise AssertionError(f"K4 refills at {n_lanes} lanes: {chunk4}")
-        print(f"accumulator routes: {tag}: K3 and K4 on both routes "
+        print(f"accumulator routes: {tag}: K3 and K4 on every route "
               f"({kwf._row_cols(tables, cfg)} of {kwf._n_cols(tables, cfg)} "
               f"columns kept; a K3 block {kwf.acc_bytes(tables, cfg)} B and "
               f"a K4 block {kwf.acc_bytes(tables, cfg, True)} B of shared "
               f"memory on the shared one) within the bound of the plain "
               f"versions (max |err| {', '.join(f'{e:.3g}' for e in errs)}), "
-              f"each repeats bit for bit, local = shared bit for bit; K3 on "
+              f"each repeats bit for bit, local = shared = device bit for "
+              f"bit; K3 on "
               f"{kwf.acc_route(tables, cfg)}, K4 on "
               f"{kwf.acc_route(tables, cfg, True)}; K4 in {chunk4}-lane "
               f"chunks", flush=True)
@@ -1346,7 +2000,6 @@ def main() -> None:
     kwf.STAGE_BUDGET = STAGE_BUDGET
 
     # 3b. past ACC_BUDGET: 32 lights, 300 columns a row
-    from tests.test_torch_cuda import many_lights
     sc32 = many_lights(builders, 32, 512, 512).to("cuda")
     for sampler, nee in (("hash", "all"), ("sobol", "single")):
         cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee)
@@ -1563,7 +2216,7 @@ def main() -> None:
           f"{kwf.acc_bytes(tables, cfg, True)} B); K3 on "
           f"{kwf.acc_route(tables, cfg)}, K4 on "
           f"{kwf.acc_route(tables, cfg, True)} ({chunk4}-lane chunks); the "
-          f"same bits on both routes; on {smi}", flush=True)
+          f"same bits on every route; on {smi}", flush=True)
     # the row-tagged K3 and K4 (the route past 64 surfaces) forced on the
     # same lanes: what the dense route saves at Veach's rows
     kwf.DENSE_MAX_ROWS = 0
@@ -2985,6 +3638,10 @@ def main() -> None:
     # 12. the jnp engines and their train step (no kernel of their own)
     jnp_engines()
 
+    # 13. past 32 lights and 64 textures, then distribution
+    caps = past_the_caps(smi)
+    sharded = distribution(smi)
+
     src = "kytpu_torch/kernels/csrc/"
     tex_steps = [sum(tl[k] for tl in tex_train.values()) for k in (1, 2)]
     rows = [("wavefront_fwd", "wavefront_fwd.cu",
@@ -3020,6 +3677,13 @@ def main() -> None:
              "kytpu/kernels/bigscene.py:2445",
              big_replay_launches[3] + tex_big_replay[3], err_k8, k8_ms,
              plain_k8_ms, "K8")]
+    # phase 13's main paths and checks
+    extra = {k: caps["launches"].get(k, 0) + sharded["launches"].get(k, 0)
+             for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")}
+    rows = [(nm, f, rp, nl + extra[k], max(err, caps["errs"][k]), t, pt, k)
+            for nm, f, rp, nl, err, t, pt, k in rows]
+    main_tags[0] += caps["launches"].get("tag_sort", 0)
+    main_tags[1] += caps["launches"].get("segment_sums", 0)
     # the sums by tag that finish K7 (and K8, K3 and K4 past 64 surfaces,
     # and every texel sum), timed on K7's row tags at the spheres' 1M lanes;
     # each equals its plain version to the last bit (check_tag_sums)

@@ -15,8 +15,8 @@ step passes no `backward=` and so stays on the residual backward, whatever
 its docstring says of the replay kernel. engine="jnp" ("fast" and "path"
 are its aliases; the cfg's type picks the integrator) renders through the
 torch engines (`render_once`, integrator/render.py `trace_lanes`) and takes
-the gradient by torch autograd. kytpu's sharded step (`mesh=`) waits for
-ROADMAP item M10.
+the gradient by torch autograd. `mesh=` shards either step over a
+("tile", "spp") process mesh (kytpu_torch/dist), as kytpu's does.
 
 Past 64 surfaces the step runs the big-scene kernels instead where their
 tables take the scene, as kytpu's does: K6 forward, K7 backward
@@ -35,10 +35,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kytpu_torch.core import rng as krng
 from kytpu_torch.diff import losses as klosses
 from kytpu_torch.diff.params import TRAINABLE, get_params, make_codec, set_params
+from kytpu_torch.dist import shard as kshard
 from kytpu_torch.integrator import path as kpath
 from kytpu_torch.integrator.render import (JNP_ENGINES, check_device,
                                            trace_lanes)
@@ -81,23 +83,71 @@ def render_loss(params: dict, scene, target, key, spp: int, cfg,
                                scene.device), target)
 
 
+def _mesh_lanes(mesh, w: int, h: int, spp: int, target):
+    """Under a mesh: (this rank's pixel ids (p_loc,), its sample ids
+    (s_loc,), its strip of the target (p_loc, 3)); kytpu's step asks that
+    the tiles split the pixels and the spp axis the samples."""
+    npix = w * h
+    if npix % mesh.shape["tile"] or spp % mesh.shape["spp"]:
+        raise ValueError(f"pixels {npix} / spp {spp} not divisible by mesh "
+                         f"{mesh.shape}")
+    pid, p0, _ = kshard.strip_of(mesh, npix)
+    return (pid, kshard.slice_of(mesh, 0, spp),
+            target.reshape(-1, 3)[p0:p0 + pid.shape[0]])
+
+
+def _jnp_mesh_loss(scene, target, spp: int, cfg, loss_fn, mesh):
+    """The jnp engines' loss of (params, key) on this rank of a mesh
+    (kytpu's _sharded_loss): its strip's samples summed in sample order,
+    summed over its tile's ranks (`kshard.sum_over`), scaled by
+    float32(1 / spp) as render_once scales, and the loss of the strip
+    against the target's; on a 1x1 mesh render_loss's value to the bit."""
+    w, h = scene.camera.width, scene.camera.height
+    pid, sid, target_strip = _mesh_lanes(mesh, w, h, spp, target)
+    s_loc, p_loc = sid.shape[0], pid.shape[0]
+    lane_pid = pid.repeat(s_loc)
+    lane_sid = sid.repeat_interleave(p_loc)
+    px, py = (lane_pid % w).float(), (lane_pid // w).float()
+    scale = float(np.float32(1.0 / spp))
+
+    def loss_of(p: dict, key: torch.Tensor) -> torch.Tensor:
+        out = trace_lanes(set_params(scene, p), key.to(scene.device), px, py,
+                          lane_pid, lane_sid, cfg, "path",
+                          None).reshape(s_loc, p_loc, 3)
+        acc = out[0]
+        for s in range(1, s_loc):
+            acc = acc + out[s]
+        return loss_fn(kshard.sum_over(acc, mesh.spp_group) * scale,
+                       target_strip)
+
+    return loss_of
+
+
 def _kernel_loss(scene, target, spp: int, max_depth: int, loss_fn, names,
-                 kernel_sampler):
+                 kernel_sampler, mesh=None):
     """engine="cuda"'s loss of (params, key): kytpu's trace_block over all
     spp x npix lanes through the diff tracer (K2 and K3, or K6 and K7 past
     64 surfaces where the big-scene tables take the scene), then the loss
-    of the mean image."""
+    of the mean image. Under a mesh, this rank's strip times its sample
+    slice: the mean of its samples times s_loc / spp (1.0 on a 1x1 mesh),
+    summed over its tile's ranks (`kshard.sum_over`), and the loss of the
+    strip against the target's."""
     kcfg = kwf.KernelConfig(max_depth=max_depth,
                             trainable_exponent="mat_exponent" in names,
                             sampler=kernel_sampler or "random")
     kwf.check_config(kcfg)
     device = scene.device
-    # scene-scale routing (kytpu's rule): past 64 surfaces the big-scene
-    # kernels K6 and K7 where their tables take the scene, else K2 and K3
-    extracted = kbs.table_route(scene)
-    tracer = (kwf.make_cuda_diff_tracer(scene, kcfg) if extracted is None
-              else kbs.make_bigscene_diff_tracer(scene, kcfg,
-                                                 extracted=extracted))
+    # scene-scale routing (kytpu's rule, kytpu/diff/inverse.py): past 64
+    # surfaces the big-scene kernels K6 and K7 unless building their tracer
+    # refuses the scene, then K2 and K3
+    tracer = None
+    if int(scene.mat_kind.shape[0]) > kwf.TABLE_ROUTE_SURFACES:
+        try:
+            tracer = kbs.make_bigscene_diff_tracer(scene, kcfg)
+        except NotImplementedError:
+            tracer = None
+    if tracer is None:
+        tracer = kwf.make_cuda_diff_tracer(scene, kcfg)
     for n, there in (("tex_color_a", tracer.tabs.textured),
                      ("tex_color_b", tracer.tabs.textured),
                      ("tex_image", tracer.tabs.has_img)):
@@ -109,8 +159,14 @@ def _kernel_loss(scene, target, spp: int, max_depth: int, loss_fn, names,
     npix = w * h
     env0 = (scene.env_radiance_ if scene.has_env
             else torch.zeros(3, device=device))
-    lane_pid = torch.arange(npix, device=device).repeat(spp)
-    lane_sid = torch.arange(spp, device=device).repeat_interleave(npix)
+    if mesh is None:
+        pid, sid = (torch.arange(npix, device=device),
+                    torch.arange(spp, device=device))
+    else:
+        pid, sid, target = _mesh_lanes(mesh, w, h, spp, target)
+    s_loc, p_loc = sid.shape[0], pid.shape[0]
+    lane_pid = pid.repeat(s_loc)
+    lane_sid = sid.repeat_interleave(p_loc)
 
     def loss_of(p: dict, key: torch.Tensor) -> torch.Tensor:
         seed = krng.randint(key, 0, 2**31 - 1)
@@ -141,8 +197,11 @@ def _kernel_loss(scene, target, spp: int, max_depth: int, loss_fn, names,
                      p.get("mat_specular", scene.mat_specular),
                      p.get("emission", scene.emission), *exp_arg, *tex_arg,
                      p.get("env_radiance_", env0), o, d, seed, *extra)
-        img = out.reshape(spp, npix, 3).mean(dim=0)
-        return loss_fn(img.reshape(h, w, 3), target)
+        if mesh is None:
+            img = out.reshape(spp, npix, 3).mean(dim=0)
+            return loss_fn(img.reshape(h, w, 3), target)
+        part = out.reshape(s_loc, p_loc, 3).mean(dim=0) * (s_loc / spp)
+        return loss_fn(kshard.sum_over(part, mesh.spp_group), target)
 
     return loss_of
 
@@ -183,22 +242,39 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
     max_depth) by default: engine="cuda" reads its max_depth, the jnp
     engines ("jnp", or its aliases "fast" and "path") render through it
     (`render_loss`; a FastConfig selects the fast engine), and their step
-    differentiates by torch autograd."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the sharded train step is ROADMAP item M10 "
-            "(distribution) of the port")
+    differentiates by torch autograd.
+
+    `mesh` (a `dist.mesh.Mesh`, every rank of its group calling this and
+    each step in turn) shards the step over ("tile", "spp") as kytpu's
+    does: each rank renders its strip of pixels times its slice of the
+    samples on the mesh's device, its tile's ranks sum their images (one
+    all_reduce, whose backward is the identity), the loss is the mean
+    over tiles of each tile's loss on its strip, the parameter gradients
+    are summed over every rank once and divided by the tiles, and every
+    rank takes the same optimizer step on the same replicated parameters.
+    engine="cuda" then needs kernel_sampler "hash" (its default under a
+    mesh) or "sobol", whose lanes do not depend on the decomposition. On
+    a 1x1 mesh the step is the unsharded one to the bit."""
     if engine not in ("cuda",) + JNP_ENGINES:
         raise ValueError(f"unknown engine {engine!r}: expected one of "
                          f"{('cuda',) + JNP_ENGINES}")
     cfg = cfg or kpath.PathConfig(max_depth=max_depth)
     names = tuple(names or TRAINABLE)
-    device = check_device(device)
+    device = mesh.device if mesh is not None else check_device(device)
     scene = scene.to(device)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
     if engine == "cuda":
+        if mesh is not None:
+            kernel_sampler = kernel_sampler or "hash"
+            if kernel_sampler not in ("hash", "sobol"):
+                raise ValueError(
+                    "the sharded kernel step needs a decomposition-"
+                    f"invariant sampler ('hash' or 'sobol'); got "
+                    f"{kernel_sampler!r}")
         loss_of = _kernel_loss(scene, target, spp, cfg.max_depth, loss_fn,
-                               names, kernel_sampler)
+                               names, kernel_sampler, mesh)
+    elif mesh is not None:
+        loss_of = _jnp_mesh_loss(scene, target, spp, cfg, loss_fn, mesh)
     else:
         def loss_of(p: dict, key: torch.Tensor) -> torch.Tensor:
             return render_loss(p, scene, target, key, spp, cfg, loss_fn)
@@ -219,6 +295,8 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
         optimizer.zero_grad(set_to_none=True)
         loss = loss_of(decode(theta), key)
         loss.backward()
+        if mesh is not None:
+            loss = _mesh_reduce(mesh, theta, loss)
         optimizer.step()
         with torch.no_grad():
             for n, th in theta.items():
@@ -229,6 +307,22 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
         return loss.detach()
 
     return step, params, optimizer
+
+
+def _mesh_reduce(mesh, theta: dict, loss: torch.Tensor) -> torch.Tensor:
+    """After this rank's backward: each leaf's gradient summed over every
+    rank and divided by the tiles (kytpu's pmean over "tile" of the tile
+    losses), so every rank holds the same gradient; -> the mean of the
+    tile losses."""
+    n_tile = mesh.shape["tile"]
+    for th in theta.values():
+        if th.grad is None:
+            th.grad = torch.zeros_like(th)
+        dist.all_reduce(th.grad)
+        th.grad.div_(n_tile)
+    loss = loss.detach().clone()
+    dist.all_reduce(loss, group=mesh.tile_group)
+    return loss.div_(n_tile)
 
 
 def recover(scene, target, n_steps: int = 100, seed: int = 0,

@@ -445,7 +445,6 @@ def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig,
     """The launch tables of `scene`; extracted: `extract_tables(scene)`
     where the caller has it."""
     static, tables = extracted or extract_tables(scene)
-    kwf.check_textures(static)
     counts = tuple(static["n_real"][k] for k in CLASSES)
     geo = np.concatenate([tables[k][0][:c].reshape(-1)
                           for k, c in zip(CLASSES, counts)]
@@ -1307,6 +1306,16 @@ def _n_cols(tables: BigTables) -> int:
     return 3 + 3 * len(static["lights"]) + 6 * kwf._n_tex(static)
 
 
+def _wide(tables: BigTables, k: int, nb: int, dev):
+    """K7's and K8's rows in device memory, (nb, k, 128) float32, where
+    their k columns pass the kernels' local row (`kwf.local_row_cols`: past
+    32 lights or 64 textures), else None."""
+    if k <= kwf.local_row_cols(bool(tables.static["textures"])):
+        return None
+    return torch.empty((nb, k, kwf.BWD_THREADS), dtype=torch.float32,
+                       device=dev)
+
+
 def _textured(tables: BigTables) -> int:
     return int(bool(tables.static["textures"]))
 
@@ -1392,7 +1401,8 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
              g.data_ptr(), big_l.data_ptr(), resf.data_ptr(),
              resi.data_ptr(), dout.data_ptr(), partial.data_ptr(),
              lane_sums.data_ptr(), *map(ptr, tex), n, L, int(has_env), B,
-             int(cfg.trainable_exponent), k, _textured(tables))
+             int(cfg.trainable_exponent), k, _textured(tables),
+             ptr(_wide(tables, k, nb, dev)))
     launches_res_bwd += 1
     return _sums(tables, cfg, dout, resi, lane_sums, tex)
 
@@ -1451,7 +1461,8 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
              partial.data_ptr(), lane_sums.data_ptr(), *map(ptr, tex), n, k,
              *tables.counts, len(tables.static["mats"]["kind"]),
              *kwf._cfg_args(cfg, seed), int(cfg.trainable_exponent),
-             _textured(tables), *_cull_args(tables, cfg))
+             _textured(tables), *_cull_args(tables, cfg),
+             ptr(_wide(tables, k, nb, dev)))
     launches_replay += 1
     return _sums(tables, cfg, dout, tags, lane_sums, tex)
 

@@ -115,17 +115,17 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.kytpu_wavefront_fwd.argtypes = [p] * 16 + [i] * 11 + [p]
         lib.kytpu_wavefront_fwd_res.argtypes = [p] * 18 + [i] * 11 + [p]
-        lib.kytpu_wavefront_bwd_res.argtypes = [p] * 20 + [i] * 7 + [p]
-        lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 24 + [i] * 15 + [p]
+        lib.kytpu_wavefront_bwd_res.argtypes = [p] * 21 + [i] * 7 + [p]
+        lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 25 + [i] * 15 + [p]
         lib.kytpu_wavefront_chunk.argtypes = [i] * 7
         lib.kytpu_bigscene_fwd.argtypes = [p] * 24 + [i] * 17 + [p]
-        lib.kytpu_bigscene_bwd_res.argtypes = [p] * 13 + [i] * 7 + [p]
+        lib.kytpu_bigscene_bwd_res.argtypes = [p] * 13 + [i] * 7 + [p, p]
         q = ctypes.c_longlong
         lib.kytpu_tag_sort_scratch.argtypes = [i, i]
         lib.kytpu_tag_sort_scratch.restype = q
         lib.kytpu_tag_sort.argtypes = [p, i, i, i, p, p, p, q, p]
         lib.kytpu_segment_sums.argtypes = [p] * 5 + [q, p] + [i] * 5 + [p]
-        lib.kytpu_bigscene_bwd_replay.argtypes = [p] * 29 + [i] * 17 + [p]
+        lib.kytpu_bigscene_bwd_replay.argtypes = [p] * 29 + [i] * 17 + [p, p]
         for fn in (lib.kytpu_wavefront_fwd, lib.kytpu_wavefront_fwd_res,
                    lib.kytpu_wavefront_bwd_res,
                    lib.kytpu_wavefront_bwd_replay, lib.kytpu_wavefront_chunk,

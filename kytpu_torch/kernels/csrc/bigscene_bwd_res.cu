@@ -18,7 +18,10 @@
 // thread, so, as on the TPU, each lane writes its adjoints tagged with the
 // row it hit: PB planes a bounce (dd, ds, de [, dexp]) and the horizon's
 // de, plane-major. Its env and light-emission adjoints (3 + 3L columns) are
-// summed over lanes by lane_sum.cuh's two passes, as K3's are. The host
+// summed over lanes by lane_sum.cuh's two passes, as K3's are; past the
+// local row's ROW_LIGHTS lights (or ROW_TEXTURES textures) the row is a
+// column of the block's accumulator in device memory (WIDE), summed in the
+// same order. The host
 // then sums the (bounce, lane) entries by row tag in a fixed order
 // (tag_sums.cu: a stable int32 radix sort of the tags, then segment sums
 // in pieces of fixed length). No float atomics: the gradient repeats to the
@@ -83,7 +86,8 @@ struct BigRes {
   __device__ __forceinline__ int ty(int b) const { return tx(b) + 1; }
 };
 
-__device__ __forceinline__ void add3(float* acc, int col, V v) {
+template <class ACC>
+__device__ __forceinline__ void add3(ACC& acc, int col, V v) {
   acc[col] = acc[col] + v.x;
   acc[col + 1] = acc[col + 1] + v.y;
   acc[col + 2] = acc[col + 2] + v.z;
@@ -97,13 +101,19 @@ struct Tex {
   int* tags;
 };
 
+// the local row: env, each light's emission [, the checker adjoints]
 template <bool TEX>
+constexpr int LOCAL_COLS = TEX ? ROW_COLS : 3 + 3 * ROW_LIGHTS;
+
+// one lane's adjoints; acc: a local row, or past it (WIDE) this thread's
+// column of the block's accumulator in the device-memory scratch `wide`
+template <bool TEX, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 bigscene_bwd_lanes(const float* __restrict__ light_emit, const float* __restrict__ env_t,
                    const float* __restrict__ g_in, const float* __restrict__ l_in,
                    const float* __restrict__ resf, const int* __restrict__ resi,
                    float* __restrict__ dout, float* __restrict__ partial, int n, int L,
-                   int has_env, int max_depth, int texp, int K, const Tex tx) {
+                   int has_env, int max_depth, int texp, int K, const Tex tx, float* wide) {
   // the big-scene tables' header counts no planar, sphere or material
   // records: the texture records follow the lights
   const int* TXI = tx.I + HDR_I + LT_I * L;
@@ -117,12 +127,11 @@ bigscene_bwd_lanes(const float* __restrict__ light_emit, const float* __restrict
   const int PB = texp ? 10 : 9;
   const int col_ta = 3 + 3 * L, col_tb = col_ta + 3 * (TEX ? __ldg(tx.I + H_TEX) : 0);
   const V zero3 = V{0.f, 0.f, 0.f};
+  const int lane = blockIdx.x * THREADS + threadIdx.x;
   // this lane's env (0-2), per-light emission (3 + 3i ..) and checker
   // (3 + 3L ..) adjoints
-  float acc[TEX ? ROW_COLS : 3 + 3 * MAX_LIGHTS];
+  auto body = [&](auto& acc) {
   for (int k = 0; k < K; ++k) acc[k] = 0.f;
-
-  const int lane = blockIdx.x * THREADS + threadIdx.x;
   if (lane < n) {
     const V g = ld3(g_in + 3 * (size_t)lane);
     V r_tail = ld3(l_in + 3 * (size_t)lane);
@@ -226,6 +235,14 @@ bigscene_bwd_lanes(const float* __restrict__ light_emit, const float* __restrict
     }
   }
   block_partials(acc, K, partial);
+  };
+  if constexpr (WIDE) {
+    WideAcc acc{wide + (size_t)blockIdx.x * K * THREADS + threadIdx.x};
+    body(acc);
+  } else {
+    float acc[LOCAL_COLS<TEX>];
+    body(acc);
+  }
 }
 
 }  // namespace
@@ -236,27 +253,36 @@ bigscene_bwd_lanes(const float* __restrict__ light_emit, const float* __restrict
 // lane sums of the env, light-emission [and checker] adjoints in
 // `lane_sums`; on a textured scene (I: the header, light and texture
 // records, tex_rec (M,)) an image scene's texel entries tex_dout (12
-// max_depth, n) and tags tex_tags (4 max_depth, n). Returns
+// max_depth, n) and tags tex_tags (4 max_depth, n); wide: null, or for
+// more columns than the local row holds (past ROW_LIGHTS lights or
+// ROW_TEXTURES textures) a (blocks, n_cols, 128) scratch that holds the rows
+// in device memory. Returns
 // cudaGetLastError() (or cudaErrorInvalidValue for what it does not take).
 extern "C" int kytpu_bigscene_bwd_res(const int* I, const int* tex_rec, const float* light_emit,
                                       const float* env, const float* g, const float* big_l,
                                       const float* resf, const int* resi, float* dout,
                                       float* partial, float* lane_sums, float* tex_dout,
                                       int* tex_tags, int n, int L, int has_env, int max_depth,
-                                      int texp, int n_cols, int textured, void* stream) {
-  if (L > MAX_LIGHTS || L < 0 || n_cols < 3 + 3 * L ||
-      n_cols > (textured ? ROW_COLS : 3 + 3 * MAX_LIGHTS))
+                                      int texp, int n_cols, int textured, float* wide,
+                                      void* stream) {
+  if (L < 0 || n_cols < 3 + 3 * L ||
+      (!wide && n_cols > (textured ? LOCAL_COLS<true> : LOCAL_COLS<false>)))
     return (int)cudaErrorInvalidValue;
   const int blocks = n > 0 ? (n + THREADS - 1) / THREADS : 1;
   const Tex tx{I, tex_rec, tex_dout, tex_tags};
-  if (textured)
-    bigscene_bwd_lanes<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        light_emit, env, g, big_l, resf, resi, dout, partial, n, L, has_env, max_depth, texp,
-        n_cols, tx);
+  auto go = [&](auto k) {
+    k<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(light_emit, env, g, big_l, resf, resi, dout,
+                                                   partial, n, L, has_env, max_depth, texp,
+                                                   n_cols, tx, wide);
+  };
+  if (textured && wide)
+    go(bigscene_bwd_lanes<true, true>);
+  else if (textured)
+    go(bigscene_bwd_lanes<true, false>);
+  else if (wide)
+    go(bigscene_bwd_lanes<false, true>);
   else
-    bigscene_bwd_lanes<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        light_emit, env, g, big_l, resf, resi, dout, partial, n, L, has_env, max_depth, texp,
-        n_cols, tx);
+    go(bigscene_bwd_lanes<false, false>);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return sum_partials(partial, lane_sums, blocks, n_cols, (cudaStream_t)stream);

@@ -79,8 +79,9 @@
 // the row it hit (PB planes a bounce, dd ds de [dexp], then the horizon's
 // de; the row tags in a (max_depth + 1, n) int plane, 0 for a miss or a
 // bounce the lane does not reach), and its env and light-emission adjoints
-// (3 + 3L columns, local memory) go through lane_sum.cuh's fixed-order block
-// sums. The host then sorts the tags stably and runs K7's segment sums
+// (3 + 3L columns, local memory; past ROW_LIGHTS lights or ROW_TEXTURES
+// textures a column of the block's accumulator in device memory, WIDE) go
+// through lane_sum.cuh's fixed-order block sums. The host then sorts the tags stably and runs K7's segment sums
 // (bigscene_bwd_res.cu): no float atomics, the gradient repeats to the last
 // bit. What bounds it: K5's FP32 issue plus the adjoint terms; its bytes
 // are K5's plus g and L in and (PB * max_depth + 3) * 4 + (max_depth + 1) *
@@ -140,7 +141,21 @@ struct BigArgs {
   // to cull; step 2: the shadow rays a chunk holds
   const float4* bnd;
   int cull, nee_rays;
+  // K8 past its local row (LOCAL_COLS): the blocks' accumulators in device
+  // memory, n_cols * THREADS floats a block; else null
+  float* wide;
 };
+
+// K8's local row: env, each light's emission [, the checker adjoints]
+template <bool TEX>
+constexpr int LOCAL_COLS = TEX ? ROW_COLS : 3 + 3 * ROW_LIGHTS;
+
+// v to columns col .. col + 2 of a row in device memory (lane_sum.cuh)
+__device__ __forceinline__ void add3(const WideAcc& acc, int col, V v) {
+  acc[col] = acc[col] + v.x;
+  acc[col + 1] = acc[col + 1] + v.y;
+  acc[col + 2] = acc[col + 2] + v.z;
+}
 
 constexpr int PG = 12, DG = 8, SG = 4;  // columns of the class tables
 constexpr int BLOCK_ROWS = 8;           // rows a cull block (kbs.UNROLL)
@@ -488,12 +503,14 @@ enum Mode { MODE_FWD = 0, MODE_RESIDUAL = 1, MODE_REPLAY = 2 };
 // the coefficient cache (K6), MODE_REPLAY re-traces the same path with the
 // same draws and writes its row-tagged adjoints, adding its env (0-2) and
 // per-light emission (3 + 3i ..) adjoints to acc, then the checker ones
-// (3 + 3L ..) (K8). SOBOL and TEX are compile-time switches, as in K1.
+// (3 + 3L ..) (K8); acc: a local row (float*), or past it this thread's
+// column of the block's accumulator in device memory (WideAcc). SOBOL and
+// TEX are compile-time switches, as in K1.
 // Every thread of the warp calls it (step 1: the sweeps' votes); `in`:
 // lane_id < a.n, else the thread traces nothing and writes nothing.
-template <int MODE, bool SOBOL, bool TEX>
+template <int MODE, bool SOBOL, bool TEX, class ACC = float*>
 __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, const Tables& T,
-                                           const Rays& R, int lane_id, bool in, float* acc) {
+                                           const Rays& R, int lane_id, bool in, ACC acc) {
   const int n = a.n;
   const int L = S.L;
   const bool texp = a.texp != 0;
@@ -906,7 +923,7 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
 // K5, K6 and K8 are this one template: K6 adds the cache stores and K8 the
 // adjoint terms, so their draws, hits and branches are K5's by construction.
 // Dynamic shared memory: the shadow rays' block (step 2).
-template <int MODE, bool SOBOL, bool TEX>
+template <int MODE, bool SOBOL, bool TEX, bool WIDE>
 __global__ void __launch_bounds__(THREADS) bigscene_fwd_kernel(const BigArgs a) {
   extern __shared__ float4 smem4[];
   const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
@@ -916,24 +933,40 @@ __global__ void __launch_bounds__(THREADS) bigscene_fwd_kernel(const BigArgs a) 
   Tables T;
   T.init(a);
   const Rays R{(float*)smem4 + threadIdx.x, a.nee_rays};
-  if constexpr (MODE == MODE_REPLAY) {
+  if constexpr (MODE == MODE_REPLAY && WIDE) {
+    // a row past the local array (past ROW_LIGHTS lights or ROW_TEXTURES
+    // textures): this thread's column of the block's accumulator in device
+    // memory, summed in the same order
+    const WideAcc acc{a.wide + (size_t)blockIdx.x * a.n_cols * THREADS + threadIdx.x};
+    for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, acc);
+    block_partials(acc, a.n_cols, a.partial);
+  } else if constexpr (MODE == MODE_REPLAY) {
     // per-thread env, light-emission (and checker) adjoints, then the
     // fixed-order block sum
-    float acc[TEX ? ROW_COLS : 3 + 3 * MAX_LIGHTS];
+    float acc[LOCAL_COLS<TEX>];
     for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
     trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, acc);
     block_partials(acc, a.n_cols, a.partial);
   } else {
-    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, nullptr);
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, static_cast<float*>(nullptr));
   }
 }
 
+template <int MODE, bool TEX, bool WIDE>
+void launch_sampler(const BigArgs& a, int blocks, int smem, void* stream) {
+  if (a.sampler == S_SOBOL)
+    bigscene_fwd_kernel<MODE, true, TEX, WIDE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
+  else
+    bigscene_fwd_kernel<MODE, false, TEX, WIDE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
+}
+
+// K8's rows past the local array (a.wide) only
 template <int MODE, bool TEX>
 void launch_kernel(const BigArgs& a, int blocks, int smem, void* stream) {
-  if (a.sampler == S_SOBOL)
-    bigscene_fwd_kernel<MODE, true, TEX><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
-  else
-    bigscene_fwd_kernel<MODE, false, TEX><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
+  if constexpr (MODE == MODE_REPLAY)
+    if (a.wide) return launch_sampler<MODE, TEX, true>(a, blocks, smem, stream);
+  launch_sampler<MODE, TEX, false>(a, blocks, smem, stream);
 }
 
 // textured: the scene has texture records (texa, texb and timg are then its
@@ -1007,7 +1040,10 @@ extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo
 // (max(1, ceil(n / 128)), n_cols) scratch `partial`, the (n_cols = 3 + 3L
 // [+ 6T],) lane sums of the env, light-emission [and checker] adjoints, and
 // on an image scene the texel entries tex_dout (12 max_depth, n) and their
-// tags tex_tags (4 max_depth, n), as K4 writes them. Returns
+// tags tex_tags (4 max_depth, n), as K4 writes them; wide: null, or, for
+// more columns than the local row holds (past ROW_LIGHTS lights or
+// ROW_TEXTURES textures), a (blocks, n_cols, 128) scratch for the rows in
+// device memory. Returns
 // cudaGetLastError() (or cudaErrorInvalidValue for what it does not take).
 extern "C" int kytpu_bigscene_bwd_replay(
     const float* F, const int* I, const float* geo, const int* rows, const int* mat_i,
@@ -1018,8 +1054,8 @@ extern "C" int kytpu_bigscene_bwd_replay(
     float* dout, int* tags, float* partial, float* lane_sums, float* tex_dout, int* tex_tags,
     int n, int n_cols, int n_tri, int n_rect, int n_disk, int n_sph, int M, int seed,
     int max_depth, int rr_start, int rows_per_tile, int sampler, int robust, int texp,
-    int textured, int cull, int nee_rays, void* stream) {
-  if (n_cols > (textured ? ROW_COLS : 3 + 3 * MAX_LIGHTS) || n_cols < 3)
+    int textured, int cull, int nee_rays, float* wide, void* stream) {
+  if ((!wide && n_cols > (textured ? LOCAL_COLS<true> : LOCAL_COLS<false>)) || n_cols < 3)
     return (int)cudaErrorInvalidValue;
   BigArgs a{};
   a.F = F; a.I = I; a.geo = geo; a.rows = rows; a.mat_i = mat_i; a.mat_f = mat_f;
@@ -1032,6 +1068,6 @@ extern "C" int kytpu_bigscene_bwd_replay(
   a.n = n; a.n_cols = n_cols; a.n_tri = n_tri; a.n_rect = n_rect; a.n_disk = n_disk;
   a.n_sph = n_sph; a.M = M; a.seed = seed; a.max_depth = max_depth; a.rr_start = rr_start;
   a.rows_per_tile = rows_per_tile; a.sampler = sampler; a.robust = robust; a.texp = texp;
-  a.cull = cull; a.nee_rays = nee_rays;
+  a.cull = cull; a.nee_rays = nee_rays; a.wide = wide;
   return launch<MODE_REPLAY>(a, textured, stream);
 }

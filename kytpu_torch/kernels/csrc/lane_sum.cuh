@@ -42,16 +42,21 @@ constexpr int SUM_THREADS = 256;   // SUM_THREADS in wavefront.py
 constexpr int MAX_SMEM = 227 * 1024;
 // K3's and K4's dense row: dd, ds, de (3M each), denv (3), dexp (M), dta,
 // dtb (3T each)
-constexpr int MAX_COLS = 10 * DENSE_MAX_ROWS + 3 + 6 * MAX_TEXTURES;
+constexpr int MAX_COLS = 10 * DENSE_MAX_ROWS + 3 + 6 * ROW_TEXTURES;
 // a dense row's columns at most: the kept ones and the one no lane adds to
 constexpr int MAX_ROW = MAX_COLS + 1;
-// the row-tagged backwards' lane columns (K3 and K4 past DENSE_MAX_ROWS
+// the row-tagged backwards' local rows (K3 and K4 past DENSE_MAX_ROWS
 // surfaces, K7, K8): denv (3), each light's emission (3L), dta, dtb (3T
-// each)
-constexpr int ROW_COLS = 3 + 3 * MAX_LIGHTS + 6 * MAX_TEXTURES;
+// each), for up to ROW_LIGHTS lights and ROW_TEXTURES textures; a scene
+// with more columns keeps its rows in device memory (ACC_DEVICE, WideAcc)
+constexpr int ROW_COLS = 3 + 3 * ROW_LIGHTS + 6 * ROW_TEXTURES;
 
-// K3's and K4's accumulator routes (wavefront.py ACC_ROUTES)
-enum AccRoute { ACC_LOCAL = 0, ACC_SHARED = 1 };
+// K3's and K4's accumulator routes (wavefront.py ACC_ROUTES). ACC_DEVICE,
+// for a row longer than the local array (past ROW_LIGHTS lights or
+// ROW_TEXTURES textures): the block's (K, LANE_THREADS) accumulator laid out
+// as the shared route's, in a device-memory scratch of its own a block, so
+// the columns are summed in the same order as on the other two routes.
+enum AccRoute { ACC_LOCAL = 0, ACC_SHARED = 1, ACC_DEVICE = 2 };
 
 // K3's and K4's views of a thread's adjoint row. The kernels name a column
 // by its place in the gradient vector (wavefront.py split_grads); `cmap`
@@ -161,21 +166,42 @@ static inline int sum_cols(const float* partial, float* out, int nb, const int* 
   return (int)cudaGetLastError();
 }
 
-// K7's and K8's first pass:
-// this block's partial sums of acc[0..K) into row blockIdx.x of `partial`;
-// every thread of the block must call it
-static __device__ __forceinline__ void block_partials(const float* acc, int K, float* partial) {
-  __shared__ float warp_sum[LANE_THREADS / 32][MAX_COLS];
-  const int wid = threadIdx.x / 32, lid = threadIdx.x % 32;
-  for (int k = 0; k < K; ++k) {
-    float v = acc[k];
-    for (int off = 16; off > 0; off >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, off);
-    if (lid == 0) warp_sum[wid][k] = v;
+// K7's and K8's lane row: acc[k] of a local array (float*), or, past the
+// local array (WIDE), column k of this thread in the block's slice of a
+// device-memory scratch, column k of thread t at k * LANE_THREADS + t
+struct WideAcc {
+  float* p;  // the block's slice plus threadIdx.x
+  __device__ __forceinline__ float& operator[](int k) const {
+    return p[(size_t)k * LANE_THREADS];
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < K; k += LANE_THREADS)
-    partial[(size_t)blockIdx.x * K + k] =
-        (warp_sum[0][k] + warp_sum[1][k]) + (warp_sum[2][k] + warp_sum[3][k]);
+};
+
+// the columns block_partials passes through shared memory at a time: 4 KB,
+// so that K8's 36 KB of shadow rays (8 lights a chunk) and its static
+// shared memory stay within the 48 KB a block takes without opting in
+constexpr int PARTIAL_COLS = 256;
+
+// K7's and K8's first pass:
+// this block's partial sums of acc[0..K) into row blockIdx.x of `partial`,
+// PARTIAL_COLS columns at a time (each column's additions do not depend on
+// the split); every thread of the block must call it
+template <class ACC>
+static __device__ __forceinline__ void block_partials(const ACC& acc, int K, float* partial) {
+  __shared__ float warp_sum[LANE_THREADS / 32][PARTIAL_COLS];
+  const int wid = threadIdx.x / 32, lid = threadIdx.x % 32;
+  for (int k0 = 0; k0 < K; k0 += PARTIAL_COLS) {
+    const int k1 = K - k0 < PARTIAL_COLS ? K : k0 + PARTIAL_COLS;
+    if (k0 > 0) __syncthreads();
+    for (int k = k0; k < k1; ++k) {
+      float v = acc[k];
+      for (int off = 16; off > 0; off >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, off);
+      if (lid == 0) warp_sum[wid][k - k0] = v;
+    }
+    __syncthreads();
+    for (int k = k0 + threadIdx.x; k < k1; k += LANE_THREADS)
+      partial[(size_t)blockIdx.x * K + k] = (warp_sum[0][k - k0] + warp_sum[1][k - k0]) +
+                                            (warp_sum[2][k - k0] + warp_sum[3][k - k0]);
+  }
 }
 
 // out[k] = sum over the nb rows of partial[:, k], one block a column

@@ -185,6 +185,10 @@ struct SceneT {
       env_i, any_azim, use_phits, single, texp, n_trec, n_tex, has_img;
   const float *PLF, *SPF, *MATF, *LTF, *TXF;
   const int *PLI, *SPI, *MATI, *LTI, *TXI;
+  // occlusion-skip words of lights 32.. (wavefront_tables.cuh MASK_LIGHTS):
+  // word g >= 1 of planar row r at XMI[(g - 1) * (n_pl + n_sp) + r], of
+  // sphere j at XMI[(g - 1) * (n_pl + n_sp) + n_pl + j]
+  const int* XMI;
   __device__ __forceinline__ float ldf(const float* p) const { return SH ? *p : __ldg(p); }
   __device__ __forceinline__ int ldi(const int* p) const { return SH ? *p : __ldg(p); }
   __device__ __forceinline__ V ld3f(const float* p) const {
@@ -206,6 +210,7 @@ struct SceneT {
     MATI = SPI + SP_I * n_sp;
     LTI = MATI + MAT_I * M;
     TXI = LTI + LT_I * L;
+    XMI = TXI + TX_I * n_trec;
     PLF = f + HDR_F;
     SPF = PLF + PL_F * n_pl;
     MATF = SPF + SP_F * n_sp;

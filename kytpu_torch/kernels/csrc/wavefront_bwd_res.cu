@@ -48,6 +48,11 @@
 // the same two routes as the dense row, and the host sorts the tags and
 // sums the planes by row in a fixed order (tag_sums.cu). The row field of
 // the int cache is 23 bits wide (pack_row), so rows past 255 decode whole.
+// A row that outgrows its local array (past ROW_LIGHTS lights or
+// ROW_TEXTURES textures; kytpu takes any number) and the shared budget is
+// the shared route's block in a device-memory scratch of its own
+// (ACC_DEVICE), summed in the same order. Past PICK_LIGHTS lights the
+// nee="single" pick is read from its own int plane.
 //
 // On a textured scene (TEX, a compile-time switch) a textured row's diffuse
 // is its texture's value, rebuilt from the cache: a checker's colour by the
@@ -125,6 +130,8 @@ struct BwdArgs {
   const int* cmap;
   Tex tx;
   Rows rw;
+  // ACC_DEVICE: the blocks' accumulators, K * THREADS floats a block
+  float* wide;
 };
 
 // K3's lane body: lane `lane`'s adjoints added to its row `acc` (a RowAcc
@@ -234,7 +241,10 @@ __device__ __forceinline__ void bwd_lane(const BwdArgs& a, int lane, A acc) {
     V addc = zero3;
     float addx = 0.f;
     for (int j = 0; j < rp.n_b; ++j) {
-      const int light = single ? (ib >> RESI_PICK_SHIFT) & 31 : j;
+      const int light = !single ? j
+                        : L <= PICK_LIGHTS
+                            ? (ib >> RESI_PICK_SHIFT) & 31
+                            : __ldg(resi + (size_t)(max_depth + 1 + b) * n + lane);
       const float bp = plane(rp.B(b, j));
       const V e_l = ld3(light_emit_t + 3 * light);
       e_term = e_term + (col_nee * e_l) * bp;
@@ -305,13 +315,13 @@ __device__ __forceinline__ void bwd_lane(const BwdArgs& a, int lane, A acc) {
 
 // K3: one lane a thread; the block's rows summed by column (ACC, an
 // AccRoute: each thread's row in local memory, or a column of the block's
-// accumulator in dynamic shared memory)
+// accumulator in dynamic shared memory or in device memory)
 template <bool TEX, bool ROWTAG, int ACC>
 __global__ void __launch_bounds__(THREADS) bwd_res_kernel(const BwdArgs a, float* partial) {
   extern __shared__ float4 smem4[];
   const int lane = blockIdx.x * THREADS + threadIdx.x;
-  if constexpr (ACC == ACC_SHARED) {
-    float* cols = (float*)smem4;
+  if constexpr (ACC != ACC_LOCAL) {
+    float* cols = ACC == ACC_SHARED ? (float*)smem4 : a.wide + (size_t)blockIdx.x * a.K * THREADS;
     for (int k = 0; k < a.K; ++k) cols[k * THREADS + threadIdx.x] = 0.f;
     if (lane < a.n) bwd_lane<TEX, ROWTAG>(a, lane, ColAcc{cols + threadIdx.x, a.cmap});
     block_col_sums(cols, a.K, partial, gridDim.x);
@@ -368,7 +378,9 @@ cudaError_t launch_k3(K k, SmemLimit* lim, int blocks, int smem, const BwdArgs& 
 // cmap[c] (wavefront.py acc_map), and on the dense route a last one that no
 // lane adds to; acc_route (an AccRoute): each lane's row
 // in local memory, or a column of the block's accumulator in shared memory
-// (n_cols * 512 bytes a block). Past DENSE_MAX_ROWS surfaces (row_tags not
+// (n_cols * 512 bytes a block), or that accumulator in the device-memory
+// scratch `wide` (n_cols * 128 floats a block; ACC_DEVICE, where the row
+// passes the local array). Past DENSE_MAX_ROWS surfaces (row_tags not
 // null) `out`
 // holds denv | each light's emission | dta | dtb, and the hit rows'
 // adjoints are row_dout ((PB max_depth + 3), n) with their tags row_tags
@@ -378,19 +390,21 @@ extern "C" int kytpu_wavefront_bwd_res(const int* I, const float* diffuse, const
                                        const float* env, const float* texa, const float* texb,
                                        const float* timg, const float* g, const float* big_l,
                                        const float* resf, const int* resi, float* partial,
-                                       float* out, float* tex_dout, int* tex_tags,
+                                       float* wide, float* out, float* tex_dout, int* tex_tags,
                                        float* row_dout, int* row_tags, const int* cmap, int n,
                                        int m_rows, int n_cols, int n_out, int max_depth,
                                        int textured, int acc_route, void* stream) {
   const bool rowtag = row_tags != nullptr;
   const int smem = acc_route == ACC_SHARED ? 4 * n_cols * THREADS : 0;
-  if ((!rowtag && m_rows > DENSE_MAX_ROWS) || n_cols > (rowtag ? ROW_COLS : MAX_ROW) ||
-      acc_route < ACC_LOCAL || acc_route > ACC_SHARED || smem > MAX_SMEM)
+  if ((!rowtag && m_rows > DENSE_MAX_ROWS) ||
+      (acc_route == ACC_LOCAL && n_cols > (rowtag ? ROW_COLS : MAX_ROW)) ||
+      (acc_route == ACC_DEVICE && !wide) || acc_route < ACC_LOCAL || acc_route > ACC_DEVICE ||
+      smem > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   const int blocks = n > 0 ? (n + THREADS - 1) / THREADS : 1;
   const BwdArgs a{I, diffuse, specular, emission, light_emit, env, g, big_l, resf, resi, n, n_cols,
                   max_depth, cmap, Tex{texa, texb, timg, tex_dout, tex_tags},
-                  Rows{row_dout, row_tags}};
+                  Rows{row_dout, row_tags}, wide};
   static SmemLimit lim[4];
   cudaError_t err;
   if (acc_route == ACC_SHARED && rowtag)
@@ -403,6 +417,16 @@ extern "C" int kytpu_wavefront_bwd_res(const int* I, const float* diffuse, const
                                partial, stream)
                    : launch_k3(bwd_res_kernel<false, false, ACC_SHARED>, &lim[0], blocks, smem,
                                a, partial, stream);
+  else if (acc_route == ACC_DEVICE && rowtag)
+    err = textured ? launch_k3(bwd_res_kernel<true, true, ACC_DEVICE>, nullptr, blocks, 0, a,
+                               partial, stream)
+                   : launch_k3(bwd_res_kernel<false, true, ACC_DEVICE>, nullptr, blocks, 0, a,
+                               partial, stream);
+  else if (acc_route == ACC_DEVICE)
+    err = textured ? launch_k3(bwd_res_kernel<true, false, ACC_DEVICE>, nullptr, blocks, 0, a,
+                               partial, stream)
+                   : launch_k3(bwd_res_kernel<false, false, ACC_DEVICE>, nullptr, blocks, 0, a,
+                               partial, stream);
   else if (rowtag)
     err = textured ? launch_k3(bwd_res_kernel<true, true, ACC_LOCAL>, nullptr, blocks, 0, a,
                                partial, stream)

@@ -108,7 +108,9 @@
 // within ACC_BUDGET (wavefront.py acc_route): 53 KB at Veach, four blocks
 // an SM (at 73 KB, every column kept, three blocks: no faster than the
 // local row). A larger row (32 lights' 199 kept columns) stays in local
-// memory (ACC_LOCAL, RowAcc). What bounds it: K1's FP32/SFU work plus the
+// memory (ACC_LOCAL, RowAcc), and a row past that local array (past
+// ROW_LIGHTS lights or ROW_TEXTURES textures on the row-tagged route) is
+// the shared route's block in device memory (ACC_DEVICE). What bounds it: K1's FP32/SFU work plus the
 // adjoint terms; its bytes are K1's rays and radiance plus g. The block's
 // slots are summed by column in one fixed order on both routes
 // (lane_sum.cuh), as K3's lanes are, so its gradient repeats to the last
@@ -276,6 +278,7 @@ __device__ bool any_hit_single(const SC& S, V o, V d, float tmax, int gate_light
 // sweep.
 constexpr int RAY_STRIDE = 128;
 static_assert(FWD_THREADS == RAY_STRIDE && LANE_THREADS == RAY_STRIDE, "one column a thread");
+static_assert(MASK_LIGHTS % NEE_CHUNK == 0, "a chunk's lights in one skip word");
 struct ShadowRays {
   enum { WX, WY, WZ, TMAX, ND, VAL, WGT, FIELDS };
   float* p;
@@ -290,13 +293,23 @@ struct ShadowRays {
 // bits of those that no row occludes. Each row's terms that depend only on
 // (hp, n_shade) are computed once; a ray is tested on a row only while it is
 // unoccluded and its skip bit for that row is clear, and the sweep stops
-// when no ray is left: each ray's boolean is any_hit's.
+// when no ray is left: each ray's boolean is any_hit's. The chunk's lights
+// i0 .. i0 + chunk - 1 lie in one skip word (NEE_CHUNK divides
+// MASK_LIGHTS): lights 0-31 in the records' own field, later ones in the
+// words after the texture records (SceneT::XMI), a planar row's at
+// pm[pstride * row] and a sphere's at sm[sstride * j] either way.
 template <class SC>
 __device__ __forceinline__ uint32_t shadow_sweep(const SC& S, V hp, V ns, const ShadowRays& R,
                                                  uint32_t pend, int i0) {
+  const int g = i0 / MASK_LIGHTS;  // the chunk's skip word
+  const int* xm = S.XMI + (g > 0 ? g - 1 : 0) * (S.n_pl + S.n_sp);
+  const int* pm = g ? xm : S.PLI + 2;
+  const int* sm = g ? xm + S.n_pl : S.SPI;
+  const int pstride = g ? 1 : PL_I, sstride = g ? 1 : SP_I;
+  const int sh = i0 % MASK_LIGHTS;
   for (int row = 0; row < S.n_pl && pend; ++row) {
     const int* pi = S.PLI + PL_I * row;
-    const uint32_t test = pend & ~((uint32_t)S.ldi(pi + 2) >> i0);
+    const uint32_t test = pend & ~((uint32_t)S.ldi(pm + pstride * row) >> sh);
     if (!test) continue;
     const int kind = S.ldi(pi), fast = S.ldi(pi + 1);
     const float* P = S.PLF + PL_F * row;
@@ -331,7 +344,7 @@ __device__ __forceinline__ uint32_t shadow_sweep(const SC& S, V hp, V ns, const 
     }
   }
   for (int j = 0; j < S.n_sp && pend; ++j) {
-    const uint32_t test = pend & ~((uint32_t)S.ldi(S.SPI + SP_I * j) >> i0);
+    const uint32_t test = pend & ~((uint32_t)S.ldi(sm + sstride * j) >> sh);
     if (!test) continue;
     const float* sp = S.SPF + SP_F * j;
     const V vc = S.ld3f(sp) - hp;
@@ -386,6 +399,9 @@ struct Args {
   int stage_words, nee_rays, refill, acc_route, n_blocks;
   // K4: each column of the gradient vector's column in a row (lane_sum.cuh)
   const int* cmap;
+  // K4 on ACC_DEVICE: the blocks' accumulators, n_cols * LANE_THREADS
+  // floats a block
+  float* wide;
 };
 
 // One lane's path state, kept by the thread that traces it: everything that
@@ -640,7 +656,10 @@ __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
     c ^= c >> 13;
     if (a.sampler != S_RANDOM) c += L.si0;
     int pick = (int)((c & 0x7fffffffu) % (uint32_t)S.L);
-    pick_bits = pick << RESI_PICK_SHIFT;
+    if (S.L <= PICK_LIGHTS)
+      pick_bits = pick << RESI_PICK_SHIFT;
+    else if (MODE == MODE_RESIDUAL)
+      a.resi[(size_t)(a.max_depth + 1 + bounce) * n + lane_id] = pick;
     int lkind = S.ldi(S.LTI + LT_I * pick);
     float cphi = 0.f, sphi = 0.f;
     if (lkind == L_SPHERE || lkind == L_ENV) {
@@ -849,6 +868,8 @@ __device__ __forceinline__ void lane_finish(const Args& a, const KScene<SH>& S, 
         }
       }
       a.resi[(size_t)b * n + lane_id] = 0;
+      if (S.single && S.L > PICK_LIGHTS && b < a.max_depth)
+        a.resi[(size_t)(a.max_depth + 1 + b) * n + lane_id] = 0;
     }
   }
   if (MODE == MODE_REPLAY && TEX && S.has_img) {
@@ -902,7 +923,9 @@ __device__ __forceinline__ KScene<SH> stage_scene(const Args& a, float* smem) {
     const int n_pl = __ldg(I), n_sp = __ldg(I + 1), M = __ldg(I + H_M), L = __ldg(I + H_L),
               n_trec = __ldg(I + H_TREC), n_tex = __ldg(I + H_TEX);
     const int nf = HDR_F + PL_F * n_pl + SP_F * n_sp + MAT_F * M + LT_F * L + TX_F * n_trec;
-    const int ni = HDR_I + PL_I * n_pl + SP_I * n_sp + MAT_I * M + LT_I * L + TX_I * n_trec;
+    const int words = (L + MASK_LIGHTS - 1) / MASK_LIGHTS;  // skip words a row
+    const int ni = HDR_I + PL_I * n_pl + SP_I * n_sp + MAT_I * M + LT_I * L + TX_I * n_trec +
+                   (words > 1 ? (words - 1) * (n_pl + n_sp) : 0);
     const int nl = 3 * (L > 1 ? L : 1), nt = 3 * (n_tex > 1 ? n_tex : 1);
     float* p = smem;
     auto take = [&](const float* src, int cnt) {
@@ -968,7 +991,7 @@ __device__ __forceinline__ void trace_chunk(const Args& a, const KScene<SH>& S,
 // adjoints of every lane the slot traces, and the block's rows are summed by
 // column into the partials table (lane_sum.cuh); ACC (an AccRoute): each
 // row a local array, or a column of the block's accumulator in dynamic
-// shared memory.
+// shared memory or in device memory (a row past the local array).
 template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, int ACC>
 __global__ void __launch_bounds__(threads_of<MODE>(), min_blocks_of<MODE>())
     wavefront_fwd_kernel(const Args a) {
@@ -979,8 +1002,9 @@ __global__ void __launch_bounds__(threads_of<MODE>(), min_blocks_of<MODE>())
   const ShadowRays R{rays + threadIdx.x, a.nee_rays};
   if constexpr (MODE != MODE_REPLAY) {
     trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R, RowAcc{nullptr, nullptr});
-  } else if constexpr (ACC == ACC_SHARED) {
-    float* cols = rays + ShadowRays::FIELDS * a.nee_rays * RAY_STRIDE;
+  } else if constexpr (ACC != ACC_LOCAL) {
+    float* cols = ACC == ACC_SHARED ? rays + ShadowRays::FIELDS * a.nee_rays * RAY_STRIDE
+                                    : a.wide + (size_t)blockIdx.x * a.n_cols * RAY_STRIDE;
     for (int k = 0; k < a.n_cols; ++k) cols[k * RAY_STRIDE + threadIdx.x] = 0.f;
     trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R,
                                               ColAcc{cols + threadIdx.x, a.cmap});
@@ -1096,12 +1120,14 @@ cudaError_t launch_acc(Args& a, bool chunk_only, void* stream) {
   return launch_kernel<MODE, TEX, ROWTAG, false, ACC>(a, chunk_only, stream);
 }
 
-// K4's dense rows on a.acc_route; K1, K2 and the row-tagged K4 have local
-// rows (K1 and K2 none) only
+// K4's rows on a.acc_route (the row-tagged K4: local or device); K1 and K2
+// have none
 template <int MODE, bool TEX, bool ROWTAG>
 cudaError_t launch_route(Args& a, bool chunk_only, void* stream) {
   if constexpr (MODE == MODE_REPLAY && !ROWTAG)
     if (a.acc_route == ACC_SHARED) return launch_acc<MODE, TEX, ROWTAG, ACC_SHARED>(a, chunk_only, stream);
+  if constexpr (MODE == MODE_REPLAY)
+    if (a.acc_route == ACC_DEVICE) return launch_acc<MODE, TEX, ROWTAG, ACC_DEVICE>(a, chunk_only, stream);
   return launch_acc<MODE, TEX, ROWTAG, ACC_LOCAL>(a, chunk_only, stream);
 }
 
@@ -1202,8 +1228,10 @@ extern "C" int kytpu_wavefront_fwd_res(const float* F, const int* I, const float
 // on the dense route a last one that no lane adds to;
 // acc_route (an AccRoute): the dense rows in local memory, or as columns of
 // the block's accumulator in shared memory after the tables and the shadow
-// rays (n_cols * 512 bytes a block). Past DENSE_MAX_ROWS
-// surfaces (row_tags not null; local rows) `out` holds denv | each light's
+// rays (n_cols * 512 bytes a block), or, for a row past the local array,
+// that accumulator in the device-memory scratch `wide` (n_cols * 128 floats
+// a block; ACC_DEVICE). Past DENSE_MAX_ROWS surfaces (row_tags not null;
+// local or device rows) `out` holds denv | each light's
 // emission | dta | dtb, and the hit rows' adjoints are row_dout ((PB
 // max_depth + 3), n) with their tags row_tags (max_depth + 1, n), as K8
 // writes them.
@@ -1214,21 +1242,22 @@ extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const fl
                                           const float* texb, const float* timg, const float* o,
                                           const float* d, const int* si, const int* pix,
                                           const float* g, const float* big_l, float* partial,
-                                          float* out, float* tex_dout, int* tex_tags,
+                                          float* wide, float* out, float* tex_dout, int* tex_tags,
                                           float* row_dout, int* row_tags, const int* cmap, int n,
                                           int n_cols, int n_out,
                                           int seed, int max_depth, int rr_start, int rows,
                                           int sampler, int robust, int textured,
                                           int stage_bytes, int nee_rays, int refill,
                                           int acc_route, int n_blocks, void* stream) {
-  if (n_cols > (row_tags ? ROW_COLS : MAX_ROW) || acc_route < ACC_LOCAL ||
-      acc_route > ACC_SHARED || (acc_route != ACC_LOCAL && row_tags))
+  if ((acc_route == ACC_LOCAL && n_cols > (row_tags ? ROW_COLS : MAX_ROW)) ||
+      acc_route < ACC_LOCAL || acc_route > ACC_DEVICE ||
+      (acc_route == ACC_SHARED && row_tags) || (acc_route == ACC_DEVICE && !wide))
     return (int)cudaErrorInvalidValue;
   Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
          out, nullptr, nullptr, g, big_l, partial,
          n, n_cols, n_out, seed, max_depth, rr_start, rows, sampler, robust,
          texa, texb, timg, tex_dout, tex_tags, row_dout, row_tags, 0, 0, 0, 0,
-         acc_route, n_blocks, cmap};
+         acc_route, n_blocks, cmap, wide};
   return launch<MODE_REPLAY>(a, textured, stage_bytes, nee_rays, refill, stream);
 }
 

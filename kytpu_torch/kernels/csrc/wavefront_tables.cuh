@@ -11,15 +11,30 @@ namespace kytpu {
 // table layout: must match kytpu_torch/kernels/wavefront.py
 constexpr int HDR_I = 17, PL_I = 4, SP_I = 1, MAT_I = 3, LT_I = 3, TX_I = 6;
 constexpr int HDR_F = 4, PL_F = 32, SP_F = 8, MAT_F = 4, LT_F = 28, TX_F = 12;
-// one skip bit per light in a uint32 mask (the hit pdf of a light is
-// recomputed from the previous vertex, light_phit)
-constexpr int MAX_LIGHTS = 32;
+// The occlusion-skip bits of a planar row or a sphere: one bit a light in
+// uint32 words of MASK_LIGHTS lights. Word 0 (lights 0-31) is the record's
+// own field; a scene of more lights appends words 1.. after the texture
+// records, word g of every planar row, then of every sphere, group after
+// group (SceneT::XMI, wavefront.py pack_tables). The hit pdf of a light is
+// recomputed from the previous vertex (light_phit), so nothing else holds
+// a slot a light.
+constexpr int MASK_LIGHTS = 32;
+// the nee="single" pick in bits 11-15 of K2's int plane holds lights 0-31;
+// past PICK_LIGHTS lights the pick has an int plane a bounce of its own,
+// after the max_depth + 1 row planes (wavefront.py int_planes)
+constexpr int PICK_LIGHTS = 32;
+// the room for per-light emission adjoints (3 a light) in a thread's local
+// row on the row-tagged backwards (lane_sum.cuh ROW_COLS); a scene that
+// needs more columns takes the device-memory route (ACC_DEVICE, K7's and
+// K8's WIDE)
+constexpr int ROW_LIGHTS = 32;
 // K3 and K4 keep a dense row of adjoint columns a thread for scenes of at
 // most this many surfaces, and write row-tagged entries past it
 // (DENSE_MAX_ROWS in wavefront.py)
 constexpr int DENSE_MAX_ROWS = 64;
-// K3 and K4 keep 6 checker-adjoint columns a texture in a thread
-constexpr int MAX_TEXTURES = 64;
+// the room for checker adjoints (6 columns a texture) in a thread's local
+// row (lane_sum.cuh MAX_COLS, ROW_COLS); past it, as past ROW_LIGHTS
+constexpr int ROW_TEXTURES = 64;
 
 // kinds
 constexpr int TRI = 0, RECT = 1, DISK = 2;
@@ -38,7 +53,8 @@ constexpr int H_M = 2, H_L = 3, H_ENV_I = 9, H_SINGLE = 12, H_TEXP = 13, H_TREC 
 // "tuk"; with image textures "tx", "ty" follow. The int cache holds one
 // plane per bounce: sid+1 in bits 0-7 and 16-30 (pack_row), lobe_is_phong
 // in bit 8, to_spec_t in bit 9, the checker parity in bit 10, the
-// nee="single" pick in bits 11-15.
+// nee="single" pick in bits 11-15 (past PICK_LIGHTS lights: in int plane
+// max_depth + 1 + b).
 struct ResPlanes {
   int stride, env, n_b, texp, img;
   __device__ __forceinline__ int wb(int b) const { return b * stride; }

@@ -75,14 +75,21 @@ TABLE_ROUTE_SURFACES = 64
 # adjoint columns a thread (csrc/lane_sum.cuh MAX_COLS), and a larger one
 # as row-tagged entries summed by row, as K7 and K8 do (`row_tagged`)
 DENSE_MAX_ROWS = 64
-# K3 and K4 keep 6 checker-adjoint columns a texture in a thread
-# (csrc/lane_sum.cuh MAX_COLS, ROW_COLS)
-MAX_TEXTURES = 64
-# the kernels keep one skip bit per light in an int32 table field
-# (csrc/wavefront_fwd.cu) and the light-emission adjoints of every light in
-# a thread's accumulator row (K7 and K8: csrc/bigscene_bwd_res.cu,
-# csrc/bigscene_fwd.cu; K3 and K4 past 64 surfaces: csrc/lane_sum.cuh)
-MAX_LIGHTS = 32
+# the lights one uint32 skip word of the tables holds, a bit a light
+# (csrc/wavefront_tables.cuh MASK_LIGHTS): a record's own field holds lights
+# 0-31, and a scene of more lights appends the words of lights 32.. after
+# the texture records (`pack_tables`)
+MASK_LIGHTS = 32
+# the lights the nee="single" pick in bits 11-15 of K2's int cache holds;
+# past it the pick has an int plane a bounce of its own (`int_planes`)
+PICK_LIGHTS = 32
+# the room of the backwards' local rows (csrc/lane_sum.cuh MAX_ROW,
+# ROW_COLS): 3 emission columns a light for 32 lights and 6 checker columns
+# a texture for 64 textures; a longer row takes the "device" accumulator
+# route (K3, K4) or the device-memory rows of K7 and K8 (`local_row_cols`)
+ROW_LIGHTS, ROW_TEXTURES = 32, 64
+DENSE_ROW_COLS = 10 * DENSE_MAX_ROWS + 3 + 6 * ROW_TEXTURES + 1
+TAGGED_ROW_COLS = 3 + 3 * ROW_LIGHTS + 6 * ROW_TEXTURES
 # K1, K2 and K4 stage a scene's tables in a block's shared memory up to
 # this many bytes (csrc/wavefront_fwd.cu STAGE_BUDGET): the most a block
 # takes without opting in; larger tables stay in device memory
@@ -103,8 +110,10 @@ REFILL_MAX_ROWS = 64
 # tables and shadow rays, `acc_bytes`) stays within ACC_BUDGET bytes, and
 # "local", each thread's row in local memory, past it (PERF.md §6: at
 # Veach's 4M lanes K3 1.21 ms shared against 1.76 local, K4 7.04 against
-# 7.74, NVIDIA H100). ACC_BUDGET 0 forces "local".
-ACC_ROUTES = ("local", "shared")
+# 7.74, NVIDIA H100). ACC_BUDGET 0 forces "local". "device": a row past the
+# local array (`DENSE_ROW_COLS`, `TAGGED_ROW_COLS`) is the shared route's
+# block in a device-memory scratch, summed in the same order.
+ACC_ROUTES = ("local", "shared", "device")
 ACC_BUDGET = 80 * 1024
 # floats a shadow ray holds in K1's, K2's and K4's shared memory
 # (csrc/wavefront_fwd.cu ShadowRays::FIELDS)
@@ -600,21 +609,6 @@ def _texture_tables(scene: kscene.Scene, texa=None, texb=None,
                 timg=tab(timg, "image"))
 
 
-def check_lights(n_lights: int) -> None:
-    if n_lights > MAX_LIGHTS:
-        raise NotImplementedError(
-            f"{n_lights} lights: the CUDA kernels take at most {MAX_LIGHTS}; "
-            "more lights are ROADMAP item M12 of the port")
-
-
-def check_textures(static) -> None:
-    if static["n_textures"] > MAX_TEXTURES:
-        raise NotImplementedError(
-            f"{static['n_textures']} textures: the backwards keep the "
-            f"checker adjoints of at most {MAX_TEXTURES} in a thread (ROADMAP "
-            "queue 2, item 2)")
-
-
 def row_tagged(static) -> bool:
     """Do K3 and K4 write row-tagged entries (past DENSE_MAX_ROWS
     surfaces) instead of a dense row of adjoint columns a thread?"""
@@ -641,7 +635,6 @@ def pack_header(static, cfg: KernelConfig, counts, static_exp):
     static_exp: the one static Phong exponent, or None."""
     mats, lights = static["mats"], static["lights"]
     L = len(lights)
-    check_lights(L)
     env_i = next((i for i, lt in enumerate(lights)
                   if lt["kind"] == klights.ENV), -1)
     lobes = mats["lobes"]
@@ -692,7 +685,6 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     planar, spheres = static["planar"], static["spheres"]
     mats, lights = static["mats"], static["lights"]
     n_pl, n_sp, M, L = len(planar), len(spheres), len(mats["kind"]), len(lights)
-    check_textures(static)
     rows_skip, sph_skip = _occl_skips(static, cfg)
     single_skip = (frozenset.intersection(
         *[frozenset(s) for s in static["occl_skip"]]) if L else frozenset())
@@ -705,10 +697,13 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     ft = np.concatenate([hf, np.zeros(PL_F * n_pl + SP_F * n_sp + MAT_F * M,
                                       np.float32), lf])
     oi, of = HDR_I, HDR_F
+    # the skip words of each planar row, then of each sphere: word 0 in the
+    # record, words 1.. after the texture records
+    words = [_skip_words(rows_skip, row, L) for row in range(n_pl)] + [
+        _skip_words(sph_skip, j, L) for j in range(n_sp)]
     for row, s in enumerate(planar):
-        mask = _i32(sum(1 << k for k in range(L) if row in rows_skip[k]))
-        it[oi:oi + PL_I] = [s["kind"], int(bool(s.get("fast"))), mask,
-                            int(row in single_skip)]
+        it[oi:oi + PL_I] = [s["kind"], int(bool(s.get("fast"))),
+                            words[row][0], int(row in single_skip)]
         rec = ft[of:of + PL_F]
         rec[0:3] = s["n"]
         for j in range(4):
@@ -722,7 +717,7 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
         oi += PL_I
         of += PL_F
     for j, s in enumerate(spheres):
-        it[oi] = _i32(sum(1 << k for k in range(L) if j in sph_skip[k]))
+        it[oi] = words[n_pl + j][0]
         r32 = np.float32(s["r"])
         ft[of:of + 6] = [*s["c"], r32, r32 * r32, _f32(1.0 / s["r"])]
         oi += SP_I
@@ -736,11 +731,23 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
         oi += MAT_I
         of += MAT_F
     ti, tf = texture_records(static)
+    xm = np.asarray([w[g] for g in range(1, -(-L // MASK_LIGHTS))
+                     for w in words], np.int32)
     dev = scene.device
     return SceneTables(static=static,
                        f=torch.from_numpy(np.concatenate([ft, tf])).to(dev),
-                       i=torch.from_numpy(np.concatenate([it, ti])).to(dev),
+                       i=torch.from_numpy(np.concatenate([it, ti, xm])).to(dev),
                        **_color_tables(scene), **_texture_tables(scene))
+
+
+def _skip_words(skips, row: int, n_lights: int) -> list:
+    """The skip bits of `row` (a planar row or a sphere) as int32 words of
+    MASK_LIGHTS lights: bit k of word g set where light 32 g + k may skip
+    the row (`skips`: a set of rows a light)."""
+    return [_i32(sum(1 << (k - g) for k in range(g, min(g + MASK_LIGHTS,
+                                                          n_lights))
+                     if row in skips[k]))
+            for g in range(0, max(n_lights, 1), MASK_LIGHTS)]
 
 
 def texture_record_of_row(static) -> list:
@@ -771,9 +778,24 @@ def texture_records(static):
 def picks_one_light(cfg: KernelConfig, n_lights: int) -> bool:
     """Does NEE sample one picked light a bounce (nee="single" with more
     than one light)? Then the cache holds one "B" plane a bounce and the
-    pick in resi bits 11-15; else one "B" plane a light. The kernels read
+    pick in resi bits 11-15 (past PICK_LIGHTS lights in a plane of its own,
+    `int_planes`); else one "B" plane a light. The kernels read
     this from the table header (`pack_tables`)."""
     return cfg.nee == "single" and n_lights > 1
+
+
+def pick_plane(cfg: KernelConfig, n_lights: int) -> bool:
+    """Does K2 keep the nee="single" pick in an int plane of its own (past
+    PICK_LIGHTS lights, which its 5 bits hold), not in resi bits 11-15?"""
+    return picks_one_light(cfg, n_lights) and n_lights > PICK_LIGHTS
+
+
+def int_planes(static, cfg: KernelConfig) -> int:
+    """K2's int cache planes: one a bounce (`residual_layout`), then, where
+    `pick_plane`, the pick of each bounce below the horizon (plane
+    max_depth + 1 + b)."""
+    return cfg.max_depth + 1 + (
+        cfg.max_depth if pick_plane(cfg, len(static["lights"])) else 0)
 
 
 def residual_layout(static, cfg: KernelConfig):
@@ -2003,7 +2025,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
     if residual:
         res_ix, res_n = residual_layout(static, cfg)
         planes = [None] * res_n
-        ints = [None] * (cfg.max_depth + 1)
+        ints = [None] * int_planes(static, cfg)
     if replay:
         g = g.to(dev, torch.float32)
         r_tail = V3(*(big_l_in[:, c].to(dev, torch.float32)
@@ -2306,7 +2328,10 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                     lobe_is_phong, tu_plane * kap_s, 0.0)
             packed = pack_row(sid + 1) + lobe_is_phong.to(torch.int32) * 256 \
                 + to_spec_t.to(torch.int32) * 512
-            if picks_one_light(cfg, L):
+            if pick_plane(cfg, L):
+                ints[cfg.max_depth + 1 + bounce] = _where(
+                    alive, pick.to(torch.int32), 0)
+            elif picks_one_light(cfg, L):
                 packed = packed + pick.to(torch.int32) * 2048
             if has_img:
                 tx = ty = torch.zeros_like(o.x)
@@ -2652,10 +2677,11 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
     mats, lights = static["mats"], static["lights"]
     M, L = len(mats["kind"]), len(lights)
     res_ix, res_n = residual_layout(static, cfg)
-    if resf.shape[0] != res_n or resi.shape[0] != cfg.max_depth + 1:
+    n_int = int_planes(static, cfg)
+    if resf.shape[0] != res_n or resi.shape[0] != n_int:
         raise ValueError(f"cache of {resf.shape[0]} float and "
                          f"{resi.shape[0]} int planes; this scene and config "
-                         f"take {res_n} and {cfg.max_depth + 1}")
+                         f"take {res_n} and {n_int}")
     single = picks_one_light(cfg, L)
     has_env = any(lt["kind"] == klights.ENV for lt in lights)
     light_row = _light_rows(static)
@@ -2734,8 +2760,12 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
             e_term = e_term + env * wenv
         addc = torch.zeros_like(g)
         addx = torch.zeros_like(g[:, 0])
-        picks = ([(((ib >> 11) & 31).long(), 0)] if single
-                 else [(i, i) for i in range(L)])
+        if not single:
+            picks = [(i, i) for i in range(L)]
+        elif pick_plane(cfg, L):
+            picks = [(resi[cfg.max_depth + 1 + b].long(), 0)]
+        else:
+            picks = [(((ib >> 11) & 31).long(), 0)]
         for pick, j in picks:
             bp = resf[res_ix[("B", b, j)]][:, None]
             e_l = emit_l[pick]
@@ -2950,11 +2980,32 @@ def acc_route(tables: SceneTables, cfg: KernelConfig,
               replay: bool = False) -> str:
     """K3's (K4's with replay=True) accumulator route: "shared" where the
     row's block fits ACC_BUDGET (`acc_bytes`), else "local"; K4 past
-    DENSE_MAX_ROWS surfaces (`row_tagged`) keeps local rows."""
-    if (replay and row_tagged(tables.static)) or acc_bytes(
-            tables, cfg, replay) > ACC_BUDGET:
-        return "local"
-    return "shared"
+    DENSE_MAX_ROWS surfaces (`row_tagged`) keeps local rows; a row past
+    the local array (`DENSE_ROW_COLS`, `TAGGED_ROW_COLS`: past 32 lights or
+    64 textures) that is not "shared" goes to "device"."""
+    tagged = row_tagged(tables.static)
+    if not (replay and tagged) and acc_bytes(tables, cfg,
+                                             replay) <= ACC_BUDGET:
+        return "shared"
+    room = TAGGED_ROW_COLS if tagged else DENSE_ROW_COLS
+    return "local" if _row_cols(tables, cfg) <= room else "device"
+
+
+def local_row_cols(textured: bool) -> int:
+    """The columns of K7's and K8's local rows (env, the lights' emission
+    [, the checker adjoints]: csrc/bigscene_bwd_res.cu LOCAL_COLS); a
+    longer row is kept in device memory."""
+    return 3 + 3 * ROW_LIGHTS + (6 * ROW_TEXTURES if textured else 0)
+
+
+def _wide(tables: SceneTables, cfg: KernelConfig, route: str, nb: int,
+          dev):
+    """K3's and K4's accumulators on the "device" route, (nb, row columns,
+    BWD_THREADS) float32, else None."""
+    if route != "device":
+        return None
+    return torch.empty((nb, _row_cols(tables, cfg), BWD_THREADS),
+                       dtype=torch.float32, device=dev)
 
 
 def _row_outputs(tables: SceneTables, cfg: KernelConfig, n: int, dev):
@@ -3161,8 +3212,8 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
         _, res_n = residual_layout(tables.static, cfg)
         # every plane of every lane is written by K2 (torch.empty, not zeros)
         resf = torch.empty((res_n, n), dtype=torch.float32, device=dev)
-        resi = torch.empty((cfg.max_depth + 1, n), dtype=torch.int32,
-                           device=dev)
+        resi = torch.empty((int_planes(tables.static, cfg), n),
+                           dtype=torch.int32, device=dev)
         args += [resf.data_ptr(), resi.data_ptr()]
     lib = build.load()
     name = "wavefront_fwd_res" if residual else "wavefront_fwd"
@@ -3190,7 +3241,8 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
             ("g", g, (n, 3), torch.float32),
             ("L", big_l, (n, 3), torch.float32),
             ("resf", resf, (res_n, n), torch.float32),
-            ("resi", resi, (cfg.max_depth + 1, n), torch.int32)):
+            ("resi", resi, (int_planes(tables.static, cfg), n),
+             torch.int32)):
         _check_lane_tensor(name, t, shape, dt, dev)
     _check_tables(tables, dev)
     g, big_l = g.contiguous(), big_l.contiguous()
@@ -3201,6 +3253,7 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
     out = torch.empty((k_out,), dtype=torch.float32, device=dev)
     tex = _texel_outputs(tables, cfg, n, dev)
     rows = _row_outputs(tables, cfg, n, dev)
+    route = acc_route(tables, cfg)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = build.load()
     _run(lib.kytpu_wavefront_bwd_res, "wavefront_bwd_res", dev,
@@ -3210,10 +3263,10 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
          tables.texa.data_ptr(), tables.texb.data_ptr(),
          tables.timg.data_ptr(), g.data_ptr(), big_l.data_ptr(),
          resf.data_ptr(), resi.data_ptr(), partial.data_ptr(),
+         ptr(_wide(tables, cfg, route, nb, dev)),
          out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
          acc_map(tables, cfg).data_ptr(), n, m_rows, k, k_out, cfg.max_depth,
-         int(bool(tables.static["textures"])),
-         ACC_ROUTES.index(acc_route(tables, cfg)))
+         int(bool(tables.static["textures"])), ACC_ROUTES.index(route))
     launches_res_bwd += 1
     return _grads_of(tables, cfg, out, tex, rows)
 
@@ -3239,14 +3292,15 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
     out = torch.empty((k_out,), dtype=torch.float32, device=dev)
     tex = _texel_outputs(tables, cfg, n, dev)
     rows = _row_outputs(tables, cfg, n, dev)
+    route = acc_route(tables, cfg, replay=True)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = build.load()
     _run(lib.kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", dev,
          *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(), big_l.data_ptr(),
-         partial.data_ptr(), out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
+         partial.data_ptr(), ptr(_wide(tables, cfg, route, nb, dev)),
+         out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
          acc_map(tables, cfg).data_ptr(), n, k, k_out, *_cfg_args(cfg, seed),
-         *_scene_args(tables, cfg),
-         ACC_ROUTES.index(acc_route(tables, cfg, replay=True)), nb)
+         *_scene_args(tables, cfg), ACC_ROUTES.index(route), nb)
     launches_replay += 1
     return _grads_of(tables, cfg, out, tex, rows)
 

@@ -169,9 +169,9 @@ def test_train_step_routes_past_64_surfaces(monkeypatch):
 def test_scenes_the_tables_do_not_take_raise():
     """Scenes past 64 surfaces that the port refused before the table
     kernels took textures and K1-K4 took any surface count: they render
-    and train now, on the route kytpu takes. What still raises: a rect that
-    is not a parallelogram under engine="bigscene", and more lights than
-    the kernels take."""
+    and train now, on the route kytpu takes, past 32 lights too. What
+    still raises: a rect that is not a parallelogram under
+    engine="bigscene"."""
     # a textured scene past 64 surfaces (kytpu's): the textured table kernels
     tex_sc = checker_scene(tb)
     img = render(tex_sc, spp=1, seed=5, device="cpu")
@@ -190,9 +190,12 @@ def test_scenes_the_tables_do_not_take_raise():
     assert float(img.mean()) > 0
     with pytest.raises(NotImplementedError, match="parallelogram"):
         render(sc, spp=1, engine="bigscene", device="cpu")
-    # more lights than the kernels take: 71 surfaces, 70 lights
-    with pytest.raises(NotImplementedError, match="M12"):
-        render(many_lights(tb, 70), spp=1, device="cpu")
+    # past 32 lights: 71 surfaces, 70 lights render on K5 (kytpu's route)
+    sc = many_lights(tb, 70, 12, 8)
+    img = render(sc, spp=1, seed=5, device="cpu")
+    ref = kbs.render_bigscene(sc, spp=1, seed=5, rays_per_pass=1 << 20)
+    np.testing.assert_array_equal(img.numpy(), ref.numpy())
+    assert float(img.mean()) > 0
 
 
 ROUTES = {   # scene -> (kytpu's kernel family, and so the port's)
@@ -219,20 +222,22 @@ def test_routing_matches_kytpu(name, monkeypatch):
         tables = int(jsc.mat_kind.shape[0]) > 64
     except NotImplementedError:
         tables = False
+    # the builders that returned (make_train_step, as kytpu's, tries the
+    # table kernels' tracer past 64 surfaces and takes K2/K3 on a refusal)
     seen = []
     for mod, nm in ((kbs, "make_bigscene_diff_tracer"),
                     (kwf, "make_cuda_diff_tracer"),
                     (kbs, "render_bigscene"), (kwf, "render_cuda")):
         real = getattr(mod, nm)
         monkeypatch.setattr(mod, nm, lambda *a, real=real, nm=nm, **k: (
-            seen.append(nm), real(*a, **k))[1])
+            real(*a, **k), seen.append(nm))[0])
     render(tsc, spp=1, cfg=kwf.KernelConfig(max_depth=1), device="cpu")
     names = (("tex_color_a", "tex_color_b") if tsc.has_textures
              else ("mat_diffuse",))
     tinv.make_train_step(tsc, np.zeros((8, 8, 3), np.float32), max_depth=1,
                          device="cpu", names=names)
     # render_bigscene runs its passes through render_cuda with K5's tracer
-    assert seen == (["render_bigscene", "render_cuda",
+    assert seen == (["render_cuda", "render_bigscene",
                      "make_bigscene_diff_tracer"] if tables
                     else ["render_cuda", "make_cuda_diff_tracer"])
 

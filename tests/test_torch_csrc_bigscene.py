@@ -40,6 +40,7 @@ from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders, mesh
 from kytpu_torch.scene.scene import generate_rays
+from tests.test_torch_cuda import many_lights
 
 CSRC = Path(kbs.__file__).resolve().parent / "csrc"
 STUB = Path(__file__).resolve().parent / "csrc_stub"
@@ -201,6 +202,7 @@ def _scene(name):
                                             width=24, height=16),
         "textured": lambda: builders.cornell_box(
             width=24, height=16, floor_checker=True, back_image=IMG8),
+        "many_lights33": lambda: many_lights(builders, 33),
     }[name]()
 
 
@@ -281,7 +283,8 @@ def _run(exe, path, mode, cull, tables, cfg, n, seed, res_n, n_cols):
 
 # scene, sampler, shadow, trainable exponent, depth: each sampler and both
 # shadow modes on each scene kind, a textured table scene (checker floor,
-# 8x8 atlas: K8's texel entries)
+# 8x8 atlas: K8's texel entries), 33 lights (102 lane columns, past the
+# kernel's local row)
 CASES = [
     ("spheres", "random", "parity", False, 3),
     ("spheres", "hash", "robust", True, 3),
@@ -291,6 +294,7 @@ CASES = [
     ("mesh", "sobol", "robust", True, 2),
     ("textured", "hash", "parity", False, 3),
     ("textured", "sobol", "robust", False, 2),
+    ("many_lights33", "hash", "robust", False, 2),
 ]
 
 

@@ -200,7 +200,8 @@ def bwd_exe(tmp_path_factory):
 
 # scene, sampler, nee, trainable exponent, row-tagged route forced
 # (DENSE_MAX_ROWS 0): both samplers with a cache, both NEE modes, the
-# exponent adjoint, a checker floor and an image wall, the row-tagged route
+# exponent adjoint, a checker floor and an image wall, the row-tagged route,
+# 33 lights (the nee="single" pick in its own int plane; 102 lane columns)
 CASES = [
     ("veach", "hash", "all", False, False),
     ("veach", "sobol", "all", True, False),
@@ -210,6 +211,8 @@ CASES = [
     ("textured", "sobol", "single", True, False),
     ("veach", "hash", "all", True, True),
     ("textured", "hash", "all", False, True),
+    ("many_lights33", "sobol", "single", False, False),
+    ("many_lights33", "hash", "all", False, True),
 ]
 
 

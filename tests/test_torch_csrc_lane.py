@@ -156,7 +156,8 @@ int main(int argc, char** argv) {
   a.env = env.data(); a.texa = texa.data(); a.texb = texb.data(); a.timg = timg.data();
   a.o = o.data(); a.d = d.data(); a.si = si.data(); a.pix = pix.data();
   std::vector<float> out(3 * (size_t)a.n, -1.f), resf((size_t)res_n * a.n, -1.f);
-  std::vector<int> resi((size_t)(a.max_depth + 1) * a.n, -1);
+  // the row planes and, past 32 lights under nee="single", the pick planes
+  std::vector<int> resi((size_t)(2 * a.max_depth + 1) * a.n, -1);
   a.out = out.data();
   a.resf = resf.data();
   a.resi = resi.data();
@@ -205,6 +206,8 @@ def _scene(name):
             {builders.LARGE_GLASS_SPHERE, builders.LIGHT_POINT,
              builders.LIGHT_DIRECTION, builders.LIGHT_ENVIRONMENT}, 24, 16),
         "many_lights": lambda: many_lights(builders, 11),
+        "many_lights33": lambda: many_lights(builders, 33),
+        "many_lights64": lambda: many_lights(builders, 64, 12, 8),
         "textured": lambda: builders.cornell_box(
             width=24, height=16, floor_checker=True, back_image=tex),
     }[name]()
@@ -234,7 +237,8 @@ def _agree(got, ref, what, max_share=0.005):
 # scene, sampler, nee, shadow, trainable exponent, K2, staged in shared
 # memory, lanes a warp: every sampler but "random" (the card tests hold
 # it), both NEE, shadow and exponent modes, both table routes, textures, a
-# light chunk past NEE_CHUNK (11 lights) and refilled warps
+# light chunk past NEE_CHUNK (11 lights), refilled warps, and past the 32
+# lights of one skip word and of the pick bits (33 and 64 lights)
 CASES = [
     ("veach", "hash", "all", "parity", False, False, True, 128),
     ("veach", "hash", "all", "robust", False, True, False, 96),
@@ -245,6 +249,9 @@ CASES = [
     ("cornell_lights", "hash", "all", "parity", False, True, True, 256),
     ("many_lights", "hash", "all", "robust", False, True, False, 128),
     ("many_lights", "sobol", "all", "parity", False, False, True, 256),
+    ("many_lights33", "hash", "all", "robust", False, True, True, 128),
+    ("many_lights33", "sobol", "single", "parity", False, True, False, 64),
+    ("many_lights64", "hash", "all", "parity", False, True, False, 256),
     ("textured", "hash", "all", "parity", False, True, True, 128),
     ("textured", "sobol", "single", "robust", False, False, False, 96),
 ]
@@ -285,6 +292,7 @@ def test_lane_body_matches_plain(lane_exe, tmp_path, scene, sampler, nee,
     _agree(got, ref_l, "radiance")
     resf = np.fromfile(tmp_path / "resf", np.float32).reshape(res_n, n)
     resi = np.fromfile(tmp_path / "resi", np.int32).reshape(-1, n)
+    resi = resi[:kwf.int_planes(tables.static, cfg)]
     assert np.isfinite(resf).all()
     bad = ~np.isclose(resf, ref_f, rtol=1e-3, atol=1e-4)
     assert bad.mean(1).max() <= 0.005, bad.mean(1)

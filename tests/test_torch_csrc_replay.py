@@ -202,7 +202,8 @@ def replay_exe(tmp_path_factory):
 # and Cornell under hash and sobol, both NEE, shadow and exponent modes,
 # both table routes, refilled chunks of 128-256 lanes (4-8 lanes a slot)
 # and 32-lane ones, textures (a checker floor, an image wall), a light
-# chunk past NEE_CHUNK, the row-tagged route
+# chunk past NEE_CHUNK, the row-tagged route, 33 lights (a second skip
+# word; 102 row-tagged lane columns)
 CASES = [
     ("veach", "hash", "all", "parity", False, True, 128, False),
     ("veach", "sobol", "all", "robust", True, True, 256, False),
@@ -212,6 +213,8 @@ CASES = [
     ("textured", "sobol", "all", "parity", False, True, 128, False),
     ("many_lights", "hash", "all", "parity", False, True, 128, False),
     ("veach", "sobol", "all", "parity", False, True, 128, True),
+    ("many_lights33", "hash", "all", "parity", False, True, 128, False),
+    ("many_lights33", "sobol", "all", "robust", False, False, 32, True),
 ]
 
 

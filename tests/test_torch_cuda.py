@@ -19,18 +19,40 @@ ALL_LIGHTS = {builders.LARGE_GLASS_SPHERE, builders.LIGHT_POINT,
               builders.LIGHT_DIRECTION, builders.LIGHT_ENVIRONMENT}
 
 
-def many_lights(b, n_lights: int, width: int = 24, height: int = 16):
+def many_lights(b, n_lights: int, width: int = 24, height: int = 16,
+                n_checkers: int = 0, extra_spheres: int = 0):
     """A matte floor and a glossy back wall lit by a point light and
     n_lights - 1 small sphere lights in a row, built with the builders
     module `b` (kytpu's or the port's, which share the assembler's API).
     The last sphere is light n_lights - 1, so at 32 lights its skip bit is
-    the table's sign bit."""
+    the table's sign bit. n_checkers > 0 tiles the floor with that many
+    quads, each with a checker texture of its own; extra_spheres adds a
+    row of matte spheres in front of the lights (to pass 64 surfaces)."""
     A = b._SceneAssembler
     a = A()
     g = a.geo
-    a.surface(g.add_rectangle((-10, -2, 10), (-10, -2, -10), (10, -2, -10),
-                              (10, -2, 10), flip_normal=True),
-              A.matte(np.full(3, 0.5, np.float32)))
+    if n_checkers:
+        k = int(np.ceil(np.sqrt(n_checkers)))
+        step = 20.0 / k
+        for t in range(n_checkers):
+            x0, z0 = -10 + step * (t % k), -10 + step * (t // k)
+            x1, z1 = x0 + step, z0 + step
+            c = 0.2 + 0.6 * ((np.arange(3) + t) % 3) / 2
+            tex = a.add_checker(np.float32(c), np.float32(1.0 - c),
+                                scale=(2.0, 2.0))
+            a.surface(g.add_rectangle((x0, -2, z1), (x0, -2, z0),
+                                      (x1, -2, z0), (x1, -2, z1),
+                                      flip_normal=True),
+                      A.matte(np.full(3, 0.5, np.float32), texture=tex))
+    else:
+        a.surface(g.add_rectangle((-10, -2, 10), (-10, -2, -10),
+                                  (10, -2, -10), (10, -2, 10),
+                                  flip_normal=True),
+                  A.matte(np.full(3, 0.5, np.float32)))
+    for k in range(extra_spheres):
+        c = (-4.5 + 9.0 * k / max(extra_spheres - 1, 1), -1.5, -1.0)
+        a.surface(g.add_sphere(c, 0.2),
+                  A.matte(np.float32([0.3 + 0.4 * (k % 2), 0.5, 0.4])))
     a.surface(g.add_rectangle((-10, -10, 3), (-10, 10, 3), (10, 10, 3),
                               (10, -10, 3), flip_normal=True),
               A.plastic(np.float32([0.1, 0.1, 0.15]), np.ones(3, np.float32),

@@ -36,6 +36,43 @@ def test_package_never_imports_jax():
     assert int(res.stdout.strip()) >= 15   # every module was imported
 
 
+def test_dist_and_utils_import_without_jax_or_a_card():
+    """kytpu_torch.dist.* and kytpu_torch.utils.* import in a process that
+    sees no card and has no jax, and the distributed entry points still
+    default to the card."""
+    code = (
+        "import sys, tempfile, torch\n"
+        "sys.modules['jax'] = None\n"
+        "import kytpu_torch.dist, kytpu_torch.dist.mesh, "
+        "kytpu_torch.dist.shard, kytpu_torch.dist.multihost, "
+        "kytpu_torch.dist.elastic, kytpu_torch.dist.dryrun, "
+        "kytpu_torch.utils.checkpoint\n"
+        "assert not torch.cuda.is_available()\n"
+        "from kytpu_torch.dist import make_mesh, multihost\n"
+        "for f in (lambda: multihost.initialize('file://' + tempfile.mktemp(),"
+        " 1, 0),):\n"
+        "    try:\n"
+        "        f()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('initialize ran without a card')\n"
+        "multihost.initialize('file://' + tempfile.mktemp(), 1, 0, "
+        "device='cpu')\n"
+        "try:\n"
+        "    make_mesh()\n"
+        "except RuntimeError as e:\n"
+        "    assert 'CUDA' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('make_mesh took the CPU')\n"
+        "assert make_mesh(device='cpu').shape == {'tile': 1, 'spp': 1}\n"
+        "torch.distributed.destroy_process_group()\n")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_render_on_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -1,6 +1,7 @@
 """The port's training path on the CPU: make_train_step against kytpu's, the
-hash/single gradient against finite differences, the entry points that
-refuse what is not ported, and the jnp engines' step on the CPU.
+hash/single gradient against finite differences, the sharded step on a 1x1
+mesh and past 32 lights, the entry points' refusals, and the jnp engines'
+step on the CPU.
 
 Train step: three steps of make_train_step (Cornell 8x8, spp 2, depth 2,
 kernel_sampler="hash", Adam lr 2e-2; all parameters linear, and emission
@@ -33,6 +34,7 @@ from kytpu.scene import builders as jb
 from kytpu_torch.core import rng as trng
 from kytpu_torch.diff import inverse as tinv
 from kytpu_torch.diff import params as tparams
+from kytpu_torch.integrator import path as tpath
 from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.scene import builders as tb
@@ -114,13 +116,34 @@ def test_hash_single_gradient_matches_finite_differences():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(mesh=object()), "M10"),
+    (dict(mesh=(1, 1)), "M10"),
 ])
-def test_train_step_refuses_unported(kwargs, item):
+def test_train_step_refuses_unported(kwargs, item, tmp_path):
+    """What was refused is ported: item M10's sharded step (`mesh=`) on a
+    1x1 mesh of a world-size-1 gloo group is the unsharded step to the bit,
+    on both engines, over two steps."""
+    from kytpu_torch.dist import make_mesh, multihost
+
+    assert item == "M10"
     sc = tb.cornell_box(width=4, height=4)
-    with pytest.raises(NotImplementedError, match=item):
-        tinv.make_train_step(sc, np.zeros((4, 4, 3), np.float32),
-                             device="cpu", **kwargs)
+    target = np.full((4, 4, 3), 0.5, np.float32)
+    multihost.initialize(f"file://{tmp_path / 'init'}", 1, 0, device="cpu")
+    try:
+        mesh = make_mesh(shape=kwargs["mesh"], device="cpu")
+        for engine in ("cuda", "jnp"):
+            kw = dict(spp=2, max_depth=2, engine=engine,
+                      kernel_sampler="hash" if engine == "cuda" else None)
+            s_m, p_m, _ = tinv.make_train_step(sc, target, mesh=mesh, **kw)
+            s_u, p_u, _ = tinv.make_train_step(sc, target, device="cpu", **kw)
+            for i in range(2):
+                assert torch.equal(s_m(trng.key(i)), s_u(trng.key(i)))
+                for k in p_u:
+                    assert torch.equal(p_m[k], p_u[k]), (engine, k)
+        with pytest.raises(ValueError, match="invariant sampler"):
+            tinv.make_train_step(sc, target, mesh=mesh,
+                                 kernel_sampler="random")
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 @pytest.mark.parametrize("engine", ["jnp", "fast", "path"])
@@ -141,13 +164,27 @@ def test_train_step_unknown_engine_raises():
                              device="cpu")
 
 
-def test_train_step_refuses_big_scenes():
-    """Past 64 surfaces the step takes the big-scene kernels, which share
-    K1's cap of 32 lights: 65 surfaces and 64 lights raise, naming M12."""
-    sc = many_lights(tb, 64)   # 65 surfaces
-    with pytest.raises(NotImplementedError, match="M12"):
-        tinv.make_train_step(sc, np.zeros((16, 24, 3), np.float32),
-                             device="cpu")
+def test_train_step_refuses_big_scenes(monkeypatch):
+    """Past 64 surfaces and 32 lights the step trains as kytpu routes it:
+    64 lights on 65 surfaces take the big-scene kernels K6 and K7 (their
+    plain versions here), and the loss falls."""
+    sc = many_lights(tb, 64, 8, 6)   # 65 surfaces
+    calls = []
+    real = tinv.kbs.make_bigscene_diff_tracer
+    monkeypatch.setattr(tinv.kbs, "make_bigscene_diff_tracer",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(tinv.kwf, "make_cuda_diff_tracer",
+                        lambda *a, **k: pytest.fail("routed to K2/K3"))
+    target = tinv.render_once(sc, trng.key(3), 2, tpath.PathConfig(
+        max_depth=2), device="cpu").detach()
+    start = dataclasses.replace(sc, mat_diffuse=sc.mat_diffuse * 0.4)
+    step, params, _ = tinv.make_train_step(start, target, spp=1,
+                                           max_depth=2,
+                                           kernel_sampler="hash",
+                                           device="cpu")
+    losses = [float(step(trng.key(5))) for _ in range(2)]
+    assert calls == [1]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
 
 def test_train_step_defaults_to_the_card():

@@ -37,6 +37,7 @@ SCENES = {
     "cornell": lambda b: b.cornell_box(width=24, height=16),
     "cornell_lights": lambda b: b.cornell_box(ALL_LIGHTS, 24, 16),
     "many_lights": lambda b: many_lights(b, 9),
+    "many_lights33": lambda b: many_lights(b, 33),
 }
 
 

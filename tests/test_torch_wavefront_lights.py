@@ -1,7 +1,7 @@
 """`trace_lanes_plain` against kytpu's interpreted K1 (tolerance as in
 test_torch_wavefront.py) in the sampler/NEE/shadow pairs that file leaves
-out, and on a scene with 9 lights; and the packed tables at the kernel's
-light limit.
+out, and on a scene with 9 lights; and the packed tables at 32 lights, the
+lights one skip word holds, and past them.
 
 The 9-light scene runs nee="all" at depth 1, which is enough to reach both
 per-light stores the kernel sizes by its light limit: bounce 0 samples
@@ -36,16 +36,36 @@ def test_pack_tables_at_the_light_limit():
     """32 lights pack: under shadow="robust" the last sphere light's own
     sphere carries bit 31, stored as the int32 sign bit the kernel reads
     as uint32; and every light reuses its sampled hit pdf (a phits slot)."""
-    scene = many_lights(tb, twf.MAX_LIGHTS, 8, 8)
+    scene = many_lights(tb, twf.MASK_LIGHTS, 8, 8)
     t = twf.pack_tables(scene, twf.KernelConfig(shadow="robust"))
     i = t.i.numpy()
     n_pl, n_sp, _, L = (int(v) for v in i[:4])
-    assert L == twf.MAX_LIGHTS and i[11] == 1
+    assert L == twf.MASK_LIGHTS and i[11] == 1
     masks = i[twf.HDR_I + twf.PL_I * n_pl:][:n_sp].view(np.uint32)
     np.testing.assert_array_equal(masks, [1 << k for k in range(1, L)])
 
 
 def test_pack_tables_past_the_light_limit_names_its_item():
-    scene = many_lights(tb, twf.MAX_LIGHTS + 1, 8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item M12"):
-        twf.pack_tables(scene, twf.KernelConfig())
+    """33 lights pack with a second skip word a row: lights 0-31 in the
+    records' own field, light 32 in the words appended after the texture
+    records (planar rows, then spheres), which a scene of at most 32
+    lights does not have."""
+    scene = many_lights(tb, twf.MASK_LIGHTS + 1, 8, 8)
+    cfg = twf.KernelConfig(shadow="robust")
+    t = twf.pack_tables(scene, cfg)
+    i = t.i.numpy()
+    n_pl, n_sp, _, L = (int(v) for v in i[:4])
+    assert L == twf.MASK_LIGHTS + 1
+    masks = i[twf.HDR_I + twf.PL_I * n_pl:][:n_sp].view(np.uint32)
+    np.testing.assert_array_equal(
+        masks, [1 << k for k in range(1, twf.MASK_LIGHTS)] + [0])
+    word1 = i[-(n_pl + n_sp):].view(np.uint32)
+    rows_skip, sph_skip = twf._occl_skips(t.static, cfg)
+    np.testing.assert_array_equal(
+        word1, [int(r in rows_skip[32]) for r in range(n_pl)]
+        + [int(j in sph_skip[32]) for j in range(n_sp)])
+    assert word1[-1] == 1
+    # 32 lights: no appended words
+    t32 = twf.pack_tables(many_lights(tb, twf.MASK_LIGHTS, 8, 8), cfg)
+    assert t.i.numel() - t32.i.numel() == (
+        twf.LT_I + twf.SP_I + twf.MAT_I + n_pl + n_sp)
