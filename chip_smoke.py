@@ -250,6 +250,30 @@ Phases, one line each (a few for phase 3):
         one-rank frame, one kernel step within rtol 1e-5 (loss) and atol
         1e-5 (parameters) of the unsharded step, each rank's wall and
         collectives' share.
+  14. the entry points users start from (`entry_points`):
+     a. the render CLI (kytpu_torch/cli/render.py) in-process at each
+        subcommand's default size: single with --engine pallas (K1) and jnp,
+        trimesh with --engine pallas (K5 on the 2,304-face torus) and jnp,
+        spheres, mis, debug, textured, integrators, strategies and scenes,
+        the main path, K1's and K5's launches counted: each run's wall,
+        the file it wrote and validate_radiance of its image; single's
+        pallas image against render(engine="cuda") bit for bit; K1 and
+        K5 against their plain versions on the last pass each pallas run
+        gave them (its tables, lanes and seeds), their errors in the
+        kernels' line;
+     b. the inverse CLI at its defaults (32x32, 4 spp, 60 steps, depth
+        3), albedo and texture modes: ms a step, the losses at steps 0
+        and 59 and the errors it prints;
+     c. the grid (scene/accel.py) against the sweep on
+        random_spheres(1024), 1M pixel-centre and 1M random rays: closest
+        and any hits by tests/test_torch_accel.py's rule (the pixel-centre
+        any-hit rays start where they enter the grid's box, so that at
+        tmax 0.5 and 3 they traverse it), Mrays/s of each with the DDA's
+        step count, and a 256x256 fast-mode frame through each (atol 1e-4
+        on more than 99.9% of values);
+     d. the native encoder built into a temporary directory, its BMP and
+        HDR of the single frame against numpy's bytes, and write_image's
+        time through each.
 The line before the last is the kernels' JSON record (K1-K8, the tag
 sort and the segment sums; each main path that sums by tag must launch
 both), the one before it nvidia-smi's name and power limit, and the last
@@ -670,17 +694,6 @@ def pass_rates(c: dict) -> str:
         f"{c[f'{k}_sup_warp']:.4f} a warp, blocks {c[f'{k}_blk']:.4f} a lane,"
         f" {c[f'{k}_blk_warp']:.4f} a warp"
         for k, what in (("hit", "closest hit:"), ("occ", "occlusion:")))
-
-
-def demo_texture(n: int = 16) -> np.ndarray:
-    """kytpu's (n, n, 3) texture-recovery pattern (kytpu/cli/inverse.py
-    `demo_texture`, which imports jax): an RGB gradient and a yellow
-    ring."""
-    y, x = np.mgrid[0:n, 0:n] / max(n - 1, 1)
-    img = np.stack([x, y, 1.0 - 0.5 * (x + y)], -1)
-    r = np.hypot(x - 0.5, y - 0.5)
-    img[np.abs(r - 0.3) < 0.08] = (0.9, 0.9, 0.1)
-    return img.astype(np.float32)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -1772,6 +1785,243 @@ def jnp_engines() -> None:
           + ", ".join(f"{v:.5f}" for v in losses), flush=True)
 
 
+# phase 14's sizes: the grid against the sweep (14c)
+GRID_SPHERES, GRID_RAYS, GRID_FRAME = 1024, 1 << 20, 256
+# the runs of 14a, in order: (subcommand, its arguments past the
+# defaults); the three strategy-matrix subcommands last
+CLI_RUNS = [("single", ["--engine", "pallas"]), ("single", []),
+            ("trimesh", ["--engine", "pallas"]), ("trimesh", []),
+            ("spheres", []), ("mis", []), ("debug", []), ("textured", []),
+            ("integrators", []), ("strategies", []), ("scenes", [])]
+
+
+def entry_points(smi: str) -> dict:
+    """Phase 14: the entry points users start from (kytpu_torch/cli, film,
+    native, scene/accel.py) on the card. Returns the kernels' launches on
+    its main path (the render CLI's K1 and K5) and its numbers."""
+    import contextlib as ctx
+    import io as sio
+    import tempfile
+
+    from kytpu_torch.cli import inverse as cinv
+    from kytpu_torch.cli import render as cli
+    from kytpu_torch.film import io as fio
+    from kytpu_torch.integrator.fast import FastConfig
+    from kytpu_torch.integrator.render import render
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels import wavefront as kwf
+    from kytpu_torch.native import build as nbuild
+    from kytpu_torch.native import film_io as nfilm
+    from kytpu_torch.scene import accel as kaccel
+    from kytpu_torch.scene import builders
+    from kytpu_torch.scene import shapes as kshapes
+    from kytpu_torch.utils.checks import validate_radiance
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    tmp = tempfile.TemporaryDirectory()
+    out = {}
+    # 14a. the render CLI at each subcommand's default size, launches
+    # counted
+    kwf.launches = kbs.launches = 0
+    t_phase = time.perf_counter()
+    images, passes = {}, {}
+    for cmd, extra in CLI_RUNS:
+        tag = " ".join([cmd] + extra)
+        path = os.path.join(tmp.name, f"{cmd}{len(images)}.bmp")
+        text = sio.StringIO()
+        with ctx.redirect_stdout(text), recording(kwf) as k1_seen, \
+                recording(kbs) as k5_seen:
+            ms, img = sync_ms(lambda: cli.main([cmd, *extra, "--out",
+                                                path]))
+        # the last pass of each kernel the run launched, kept for 14a's
+        # check against the plain versions
+        passes[tag] = {k: seen["trace_lanes"] for k, seen in
+                       (("K1", k1_seen), ("K5", k5_seen))
+                       if "trace_lanes" in seen}
+        validate_radiance(img, tag)
+        size0, spp0 = cli.DEFAULTS[cmd]
+        said = " | ".join(ln for ln in text.getvalue().splitlines()
+                          if not ln.startswith("wrote"))
+        print(f"entry points: cli.render {tag} ({size0}, {spp0} spp): "
+              f"{ms:.1f} ms wall, {os.path.getsize(path)} B to "
+              f"{os.path.basename(path)}, image {tuple(img.shape)} finite "
+              f"and >= 0; it said: {said}", flush=True)
+        images[tag] = img
+    phase_s = time.perf_counter() - t_phase
+    launches = {"K1": kwf.launches, "K5": kbs.launches}
+    if launches["K1"] == 0 or launches["K5"] == 0:
+        raise AssertionError(f"the render CLI launched K1 and K5 "
+                             f"{launches} times")
+    args = cli.parser().parse_args(["single", "--engine", "pallas"])
+    ref = render(cli.single_scene(args.size), spp=args.spp, seed=args.seed,
+                 cfg=cli.single_config(args), engine="cuda")
+    same_bits(images["single --engine pallas"], ref,
+              "single --engine pallas against render(engine='cuda')")
+    print(f"entry points: the render CLI's {len(CLI_RUNS)} runs in "
+          f"{phase_s:.1f} s, launches K1 {launches['K1']}, K5 "
+          f"{launches['K5']}; single --engine pallas = render(engine="
+          f"'cuda') bit for bit; on {smi}", flush=True)
+    out["cli_s"] = phase_s
+    # K1 and K5 against their plain versions on a pass of the CLI's own:
+    # the tables, lanes and seeds the pallas runs gave them
+    kernel_errs = {}
+    for tag, k, kmod in (("single --engine pallas", "K1", kwf),
+                         ("trimesh --engine pallas", "K5", kbs)):
+        if k not in passes[tag]:
+            raise AssertionError(f"cli.render {tag} did not launch {k}")
+        tabs, (kcfg, *lanes), kw, got = passes[tag][k]
+        p_ms, ref = once_ms(lambda: kmod.trace_lanes_plain(tabs, kcfg, *lanes,
+                                                           **kw))
+        share, kernel_errs[k], _ = compare(got, ref,
+                                           f"{k} on cli.render {tag}")
+        print(f"entry points: {k} vs plain on a pass of cli.render {tag}: "
+              f"{got.shape[0]} lanes, depth {kcfg.max_depth}, "
+              f"{kcfg.sampler} sampler, {share:.5f} of lanes outside the "
+              f"bound (max |err| {kernel_errs[k]:.3g}); the plain version "
+              f"{p_ms:.1f} ms", flush=True)
+        del ref
+    passes.clear()
+
+    # 14b. the inverse CLI at its defaults, albedo and texture modes
+    for mode in ("albedo", "texture"):
+        text = sio.StringIO()
+        with ctx.redirect_stdout(text):
+            res = cinv.main(["--mode", mode])
+        steps = len(res["losses"])
+        ms = res["timer"].phases["optimize"] / steps * 1e3
+        errs = [ln for ln in text.getvalue().splitlines()
+                if "mean abs error" in ln]
+        if not np.isfinite(res["losses"]).all() or not errs:
+            raise AssertionError(f"inverse {mode}: losses {res['losses']}")
+        print(f"entry points: cli.inverse --mode {mode} (32x32, 4 spp, "
+              f"{steps} steps, depth 3): {ms:.2f} ms a step, loss "
+              f"{res['losses'][0]:.6f} at step 0, {res['losses'][-1]:.6f} "
+              f"at step {steps - 1}; {'; '.join(errs)}", flush=True)
+        out[f"inverse_{mode}_ms"] = ms
+
+    # 14c. the grid against the sweep, random_spheres(1024): pixel-centre
+    # rays and random rays through the scene's box
+    sc = builders.random_spheres(GRID_SPHERES, GRID_FRAME, GRID_FRAME,
+                                 accel="grid").to("cuda")
+    geom, grid = sc.geometry, sc.accel
+    rng = np.random.default_rng(61)
+    half = float(sc.world_radius)
+    o_r = torch.from_numpy(rng.uniform(-half, half, (GRID_RAYS, 3)).astype(
+        np.float32)).cuda()
+    d_r = torch.from_numpy(rng.normal(size=(GRID_RAYS, 3)).astype(
+        np.float32)).cuda()
+    d_r = d_r / d_r.norm(dim=1, keepdim=True)
+    o_c, d_c = pixel_centre_rays(sc, GRID_RAYS)
+    inf = torch.full((GRID_RAYS,), float("inf"), device="cuda")
+    for rays, (o, d) in (("pixel-centre", (o_c, d_c)),
+                         ("random", (o_r, d_r))):
+        g_ms, (gt, gs, gh, steps) = cuda_time_ms(
+            lambda: kaccel.traverse(grid, geom, o, d, inf, True), 3)
+        s_ms, (st, ss, sv) = cuda_time_ms(
+            lambda: kshapes.closest_hit(geom, o, d, inf), 3)
+        gv = torch.isfinite(gt)
+        if not torch.equal(gv, sv):
+            raise AssertionError(f"grid {rays}: valid differs on "
+                                 f"{int((gv != sv).sum())} rays")
+        if not torch.allclose(gt[sv], st[sv], rtol=1e-5, atol=0):
+            raise AssertionError(f"grid {rays}: t beyond rtol 1e-5")
+        same = float((gs[sv] == ss[sv]).float().mean())
+        if same <= 0.999:
+            raise AssertionError(f"grid {rays}: rows equal on {same}")
+        shares = []
+        if rays == "pixel-centre":
+            # from the camera no ray reaches the grid by t 0.5 or 3: the
+            # any-hit rays start where each ray enters the grid's box
+            t_in, _, meets = kaccel._enter_grid(grid, o, d)
+            o = torch.where(meets[:, None], o + t_in[:, None] * d, o)
+        for tm in (0.5, 3.0, float("inf")):
+            tmax = torch.full((GRID_RAYS,), tm, device="cuda")
+            a_ms, a = cuda_time_ms(
+                lambda: kaccel.traverse(grid, geom, o, d, tmax, False), 1)
+            sa_ms, b = cuda_time_ms(
+                lambda: kshapes.any_hit(geom, o, d, tmax), 1)
+            share = float((a[2] == b).float().mean())
+            if share <= 0.999 or a[3] == 0:
+                raise AssertionError(f"grid {rays}: any-hit equal on {share} "
+                                     f"at tmax {tm}, {a[3]} DDA steps")
+            shares.append(f"tmax {tm}: {share:.6f} equal, grid {a_ms:.3f} "
+                          f"ms ({a[3]} DDA steps), sweep {sa_ms:.3f} ms")
+        print(f"entry points: grid vs sweep, random_spheres({GRID_SPHERES})"
+              f" ({geom.n_surfaces} surfaces, grid {grid.dims}, "
+              f"{grid.cell_sp.shape[1]} sphere slots a cell), {GRID_RAYS} "
+              f"{rays} rays: closest hit grid {g_ms:.3f} ms = "
+              f"{GRID_RAYS / g_ms / 1e3:.2f} Mrays/s ({steps} DDA steps), "
+              f"sweep {s_ms:.3f} ms = {GRID_RAYS / s_ms / 1e3:.2f} Mrays/s; "
+              f"valid equal, t within rtol 1e-5, rows equal on {same:.6f} "
+              f"of hits; any hit: {'; '.join(shares)}; on {smi}", flush=True)
+        out[f"grid_{rays}"] = (GRID_RAYS / g_ms / 1e3,
+                               GRID_RAYS / s_ms / 1e3, steps)
+    del o_r, d_r, o_c, d_c
+    fcfg = FastConfig(max_depth=3)
+    sweep_sc = builders.random_spheres(GRID_SPHERES, GRID_FRAME, GRID_FRAME)
+    g_ms, g_img = sync_ms(lambda: render(sc, spp=4, cfg=fcfg, engine="jnp",
+                                         clamp=False))
+    s_ms, s_img = sync_ms(lambda: render(sweep_sc, spp=4, cfg=fcfg,
+                                         engine="jnp", clamp=False))
+    validate_radiance(g_img, "grid frame")
+    close = float(torch.isclose(g_img, s_img, rtol=0, atol=1e-4)
+                  .float().mean())
+    if close <= 0.999:
+        raise AssertionError(f"grid frame: {close} of values within 1e-4 "
+                             "of the sweep's")
+    print(f"entry points: a {GRID_FRAME}x{GRID_FRAME} fast-mode frame of "
+          f"random_spheres({GRID_SPHERES}), 4 spp, depth 3: grid "
+          f"{g_ms:.1f} ms, sweep {s_ms:.1f} ms (first calls, each "
+          f"synchronised); {close:.6f} of values within atol 1e-4; on {smi}",
+          flush=True)
+    out["grid_frame_ms"], out["sweep_frame_ms"] = g_ms, s_ms
+    del g_img, s_img
+
+    # 14d. the native encoder, built into the phase's temporary directory
+    # (the checkout's kytpu_torch/_build/ stays as it was), against numpy's
+    # bytes and time on the single frame
+    t0 = time.perf_counter()
+    lib = nbuild.build(verbose=False, out_dir=tmp.name)
+    build_s = time.perf_counter() - t0
+    enc = nfilm.load(lib)
+    frame = images["single --engine pallas"]
+    saved = fio._native
+    walls = {}
+    try:
+        for ext in ("bmp", "hdr"):
+            for which, native in (("numpy", None), ("native", enc)):
+                fio._native = native
+                path = os.path.join(tmp.name, f"{which}.{ext}")
+                ts = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fio.write_image(path, frame)
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                walls[ext, which] = (float(np.median(ts)),
+                                     open(path, "rb").read())
+            if walls[ext, "numpy"][1] != walls[ext, "native"][1]:
+                raise AssertionError(f"native {ext}: not numpy's bytes")
+    finally:
+        fio._native = saved
+    print(f"entry points: the native encoder built in {build_s:.2f} s; its "
+          f"BMP and HDR of the {frame.shape[1]}x{frame.shape[0]} single "
+          "frame = numpy's bytes; write_image (median of 5, the frame on the "
+          "card): " + ", ".join(
+              f"{ext} numpy {walls[ext, 'numpy'][0]:.2f} ms, native "
+              f"{walls[ext, 'native'][0]:.2f} ms" for ext in ("bmp", "hdr"))
+          + f"; on {smi}", flush=True)
+    out["write_ms"] = {f"{ext} {w}": v[0] for (ext, w), v in walls.items()}
+    tmp.cleanup()
+    out["launches"], out["errs"] = launches, kernel_errs
+    return out
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -1783,6 +2033,7 @@ def main() -> None:
     print(f"device: {smi} | torch: {name}, {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
+    from kytpu_torch.cli.inverse import demo_texture
     from kytpu_torch.core import rng as krng
     from kytpu_torch.diff.inverse import make_train_step
     from kytpu_torch.diff.params import TRAINABLE
@@ -3642,6 +3893,10 @@ def main() -> None:
     caps = past_the_caps(smi)
     sharded = distribution(smi)
 
+    # 14. the entry points: the render and inverse CLIs, the grid, the
+    # native encoder
+    entry = entry_points(smi)
+
     src = "kytpu_torch/kernels/csrc/"
     tex_steps = [sum(tl[k] for tl in tex_train.values()) for k in (1, 2)]
     rows = [("wavefront_fwd", "wavefront_fwd.cu",
@@ -3677,10 +3932,12 @@ def main() -> None:
              "kytpu/kernels/bigscene.py:2445",
              big_replay_launches[3] + tex_big_replay[3], err_k8, k8_ms,
              plain_k8_ms, "K8")]
-    # phase 13's main paths and checks
+    # phase 13's and 14's main paths and checks
     extra = {k: caps["launches"].get(k, 0) + sharded["launches"].get(k, 0)
+             + entry["launches"].get(k, 0)
              for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")}
-    rows = [(nm, f, rp, nl + extra[k], max(err, caps["errs"][k]), t, pt, k)
+    rows = [(nm, f, rp, nl + extra[k], max(err, caps["errs"][k],
+                                          entry["errs"].get(k, 0.0)), t, pt, k)
             for nm, f, rp, nl, err, t, pt, k in rows]
     main_tags[0] += caps["launches"].get("tag_sort", 0)
     main_tags[1] += caps["launches"].get("segment_sums", 0)

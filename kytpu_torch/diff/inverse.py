@@ -38,12 +38,12 @@ import torch
 import torch.distributed as dist
 
 from kytpu_torch.core import rng as krng
+from kytpu_torch.core.device import check_device
 from kytpu_torch.diff import losses as klosses
 from kytpu_torch.diff.params import TRAINABLE, get_params, make_codec, set_params
 from kytpu_torch.dist import shard as kshard
 from kytpu_torch.integrator import path as kpath
-from kytpu_torch.integrator.render import (JNP_ENGINES, check_device,
-                                           trace_lanes)
+from kytpu_torch.integrator.render import JNP_ENGINES, trace_lanes
 from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import scene as kscene

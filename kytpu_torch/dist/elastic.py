@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 
 from kytpu_torch.integrator import path as kpath
-from kytpu_torch.integrator.render import check_device, render_region
+from kytpu_torch.core.device import check_device
+from kytpu_torch.integrator.render import render_region
 from kytpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 

@@ -26,6 +26,7 @@ from kytpu_torch import bsdf as kbsdf
 from kytpu_torch.core import math as km
 from kytpu_torch.core import rng as krng
 from kytpu_torch.light import lights as klights
+from kytpu_torch.scene import accel as kaccel
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.scene import shapes as kshapes
 
@@ -182,15 +183,21 @@ def li_path_fast(scene, o, d, keys, cfg: FastConfig, index=None):
                 d_from = o_i if cfg.shadow == "robust" else hit.position
                 sh_t.append(km.distance(d_from, ls.position)
                             - km.SHADOW_EPSILON)
-            skip = None
+            oc_o, oc_d = torch.cat(sh_o), torch.cat(sh_d)
+            oc_t = torch.cat(sh_t)
             if cfg.shadow == "robust":
                 # each light's lanes leave its own emitting surface out
                 skip = torch.cat([torch.full((n,), scene.lights.surface_ids[i],
                                              dtype=torch.int32, device=dev)
                                   for i in range(L)])
-            occ = kshapes.any_hit(scene.geometry, torch.cat(sh_o),
-                                  torch.cat(sh_d), torch.cat(sh_t),
-                                  skip_row=skip).reshape(L, n)
+                occ = kshapes.any_hit(scene.geometry, oc_o, oc_d, oc_t,
+                                      skip_row=skip)
+            elif scene.accel is not None:
+                occ = kaccel.grid_any_hit(scene.accel, scene.geometry, oc_o,
+                                          oc_d, oc_t)
+            else:
+                occ = kshapes.any_hit(scene.geometry, oc_o, oc_d, oc_t)
+            occ = occ.reshape(L, n)
             ld = torch.zeros((n, 3), dtype=o.dtype, device=dev)
             for i, (ok, c) in enumerate(contribs):
                 ld = ld + torch.where((ok & ~occ[i])[:, None], c,

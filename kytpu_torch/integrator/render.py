@@ -34,6 +34,7 @@ import torch
 
 from kytpu_torch.core import math as km
 from kytpu_torch.core import rng as krng
+from kytpu_torch.core.device import check_device
 from kytpu_torch.integrator import fast as kfast
 from kytpu_torch.integrator import path as kpath
 from kytpu_torch.kernels import bigscene as kbs
@@ -240,14 +241,3 @@ def debug_pixel(scene, x: int, y: int, **kw) -> torch.Tensor:
     """One pixel re-rendered (integrator_t::debug_pixel,
     ky.cpp:3773-3787) -> (3,)."""
     return render_region(scene, x, y, x + 1, y + 1, **kw)[0, 0]
-
-
-def check_device(device) -> torch.device:
-    """torch.device(device); raises for "cuda" when torch sees no card (the
-    port's entry points never fall back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={str(device)!r} asked for, but torch sees "
-                           "no CUDA device (pass device='cpu' for the plain "
-                           "version on the CPU)")
-    return device

@@ -22,6 +22,7 @@ import torch
 from kytpu_torch import bsdf as kbsdf
 from kytpu_torch.core import math as km
 from kytpu_torch.light import lights as klights
+from kytpu_torch.scene import accel as kaccel
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.scene import shapes as kshapes
 from kytpu_torch.scene import texture as ktex
@@ -108,7 +109,13 @@ class _SceneAssembler:
         self._lights.append(kw)
         return len(self._lights) - 1
 
-    def build(self, camera: kscene.Camera) -> kscene.Scene:
+    def build(self, camera: kscene.Camera,
+              accel: str | None = "auto") -> kscene.Scene:
+        """accel: "grid" bakes the uniform-grid accelerator
+        (scene/accel.py) into the scene; "auto" (the default) and None
+        give none, so the jnp engines sweep every surface, as kytpu's
+        "auto" resolves (chip_smoke.py phase 14c times the two on the
+        card)."""
         geometry, surf_ids = self.geo.build()
         n_surf = geometry.n_surfaces
         order = np.argsort(surf_ids)   # assembler order -> row order
@@ -158,7 +165,8 @@ class _SceneAssembler:
             has_env=bool(env),
             env_radiance_=_f32(env[0]["emit"]) if env else _full(0.0),
             has_textures=bool(self._textures), tex_id=tex_id,
-            textures=ktex.build(self._textures))
+            textures=ktex.build(self._textures),
+            accel=kaccel.build_grid(geometry) if accel == "grid" else None)
 
     def _freeze_lights(self, surf_ids) -> klights.Lights:
         z3 = np.zeros(3, np.float32)
@@ -418,14 +426,14 @@ def smallpt(width: int = 256, height: int = 256,
 
 
 def random_spheres(n: int = 100, width: int = 256, height: int = 256,
-                   seed: int = 0) -> kscene.Scene:
+                   seed: int = 0, accel: str | None = "auto") -> kscene.Scene:
     """kytpu's scene-scale stress scene: `n` spheres on a ground plane,
     drawn from np.random.default_rng(seed) in kytpu's order, so both
     packages build bit-identical tables. Layout: a ground rectangle that
     grows with n, `n` non-overlapping spheres (70% matte, 15% mirror, 10%
     glass, 5% glossy plastic), one sphere area light overhead and a dim sky
-    environment light. (kytpu's `accel=` is the grid accelerator, ROADMAP
-    item M11; the port has none.)"""
+    environment light. `accel` is `_SceneAssembler.build`'s: "grid" bakes
+    the uniform grid for the jnp engines."""
     rng = np.random.default_rng(seed)
     m = _SceneAssembler
     a = _SceneAssembler()
@@ -475,18 +483,20 @@ def random_spheres(n: int = 100, width: int = 256, height: int = 256,
     cam = kscene.make_camera(
         position=(0.0, 0.58 * half, 1.83 * half), front=(0.0, -0.28, -1.0),
         up=(0.0, 1.0, 0.0), fov_degrees=55.0, width=width, height=height)
-    return a.build(cam)
+    return a.build(cam, accel=accel)
 
 
 def mesh_scene(verts, faces, material: dict | None = None,
                width: int = 256, height: int = 256, ground: bool = True,
-               light_scale: float = 1.0) -> kscene.Scene:
+               light_scale: float = 1.0,
+               accel: str | None = "auto") -> kscene.Scene:
     """A triangle mesh on a ground plane under a sphere light and a dim sky
     (kytpu's `mesh_scene`). (verts, faces) come from `scene/mesh.py` or any
     (V, 3)/(F, 3) pair with outward CCW winding; each face becomes one
     one-sided triangle surface row, and degenerate (zero-area) faces are
     dropped. `material` is one of the assembler's material dicts (default
-    a glossy plastic). The camera frames the mesh bounds."""
+    a glossy plastic). The camera frames the mesh bounds. `accel` is
+    `_SceneAssembler.build`'s."""
     verts = np.asarray(verts, np.float64)
     faces = np.asarray(faces, np.int64).reshape(-1, 3)
     if faces.size == 0:
@@ -539,4 +549,4 @@ def mesh_scene(verts, faces, material: dict | None = None,
         position=(c[0], c[1] + 0.45 * extent, c[2] + 1.35 * extent),
         front=(0.0, -0.3, -1.0), up=(0.0, 1.0, 0.0),
         fov_degrees=45.0, width=width, height=height)
-    return a.build(cam)
+    return a.build(cam, accel=accel)

@@ -16,6 +16,7 @@ import torch
 
 from kytpu_torch.core import math as km
 from kytpu_torch.light.lights import Lights
+from kytpu_torch.scene import accel as kaccel
 from kytpu_torch.scene import shapes as kshapes
 from kytpu_torch.scene import texture as ktex
 
@@ -106,6 +107,10 @@ class Scene:
     has_textures: bool = False
     tex_id: torch.Tensor | None = None
     textures: ktex.Textures | None = None
+    # the optional uniform-grid accelerator (scene/accel.py): where set,
+    # the jnp engines' closest-hit and occlusion queries run its DDA in
+    # place of the O(N) sweep
+    accel: kaccel.Grid | None = None
 
     @property
     def n_lights(self) -> int:
@@ -147,9 +152,6 @@ def scene_from_numpy(leaves) -> Scene:
     of this package.
 
     Reads attributes only, so this module never imports jax."""
-    if getattr(leaves, "accel", None) is not None:
-        raise NotImplementedError(
-            "the grid accelerator is ROADMAP item M11 of the port")
     t = lambda a, dt=np.float32: torch.from_numpy(  # noqa: E731
         np.array(a, dtype=dt, copy=True))
     c = leaves.camera
@@ -191,7 +193,9 @@ def scene_from_numpy(leaves) -> Scene:
         has_textures=bool(getattr(leaves, "has_textures", False)),
         tex_id=(t(leaves.tex_id, np.int32)
                 if getattr(leaves, "tex_id", None) is not None else None),
-        textures=tex)
+        textures=tex,
+        accel=(kaccel.grid_from_numpy(leaves.accel)
+               if getattr(leaves, "accel", None) is not None else None))
 
 
 # ---------------------------------------------------------------------------
@@ -218,12 +222,16 @@ class Hit:
 
 
 def intersect(scene: Scene, o, d, tmax=None) -> Hit:
-    """The closest hit over the whole scene and its material and light
-    binding."""
+    """The closest hit over the whole scene (through the grid where the
+    scene has one) and its material and light binding."""
     n = o.shape[0]
     if tmax is None:
         tmax = torch.full((n,), km.INF, dtype=o.dtype, device=o.device)
-    t, sid, valid = kshapes.closest_hit(scene.geometry, o, d, tmax)
+    if scene.accel is not None:
+        t, sid, valid = kaccel.grid_closest_hit(scene.accel, scene.geometry,
+                                                o, d, tmax)
+    else:
+        t, sid, valid = kshapes.closest_hit(scene.geometry, o, d, tmax)
     t_safe = torch.where(valid, t, torch.ones_like(t))
     position = o + t_safe[:, None] * d
     normal = kshapes.surface_normal(scene.geometry, sid, position, d)
@@ -253,14 +261,21 @@ def occluded(scene: Scene, position, normal, direction, dist):
     window where RAY_OFFSET cos(theta) > 2e-3. shadow="robust" takes
     `occluded_from` instead."""
     o = kshapes.offset_ray_origin(position, normal, direction)
-    return kshapes.any_hit(scene.geometry, o, direction,
-                           dist - km.SHADOW_EPSILON)
+    tmax = dist - km.SHADOW_EPSILON
+    if scene.accel is not None:
+        return kaccel.grid_any_hit(scene.accel, scene.geometry, o, direction,
+                                   tmax)
+    return kshapes.any_hit(scene.geometry, o, direction, tmax)
 
 
 def occluded_from(scene: Scene, o, direction, tmax, skip_row=None):
     """Shadow rays with the caller's origin and tmax (the robust shadow
     mode: tmax from the offset origin, and the sampled light's own surface
-    row left out by skip_row)."""
+    row left out by skip_row). The grid has no row exclusion, so a query
+    with skip_row sweeps, as kytpu's does."""
+    if skip_row is None and scene.accel is not None:
+        return kaccel.grid_any_hit(scene.accel, scene.geometry, o, direction,
+                                   tmax)
     return kshapes.any_hit(scene.geometry, o, direction, tmax, skip_row)
 
 
