@@ -181,14 +181,19 @@ Phases, one line each (a few for phase 3):
         loss falling, a sixth step's own K6 and K7 against their plain
         versions;
      d. on the 16x16-atlas scene, K1-K4: a 16-spp frame through render()
-        (launches counted, K5 at 0), five texel steps (K2, K3), a sixth
-        step's own K2 and K3 against their plain versions; K1 and K2 (the
-        tables past STAGE_BUDGET, read from device memory) against their
-        plain versions bit for bit, the row-tagged K3 and K4 against their
-        plain versions and each other on 64K lanes, and on the untextured
-        twin against K7 (d_emission on the emissive rows), rows above 255
-        live; K1-K4 timed at the 1M
-        pixel-centre lanes with their bounds, the plain K1, K3 and K4 once,
+        (launches counted, K5 at 0; its cold and warm walls), five texel
+        steps (K2, K3), a sixth step's own K2 and K3 against their plain
+        versions; K1, K2 and K4 on their culled sweeps (past
+        REFILL_MAX_ROWS surfaces: the tables in device memory, blocks of
+        rows culled at the warp) against cull="off" bit for bit
+        (`same_as_cull_off_wf`), K1 and K2 against their plain versions
+        bit for bit, the row-tagged K3 and K4 against their plain versions
+        and each other on 64K lanes, and on the untextured twin against K7
+        (d_emission on the emissive rows), rows above 255 live; K1-K4
+        timed at the 1M pixel-centre lanes, K1, K2 and K4 culled and with
+        cull="off" in turn (the same bits), with their culled and
+        full-sweep bounds and the blocks' pass rates (`wf_cull_counts`),
+        the plain K1, K3 and K4 once,
         the row-tagged K3 on its shared and its local accumulator route
         (the same bits, both timed) and by device kernel, the sums by tag
         of K3's and K4's rows and texels as in 9d, and the replay path (K1
@@ -253,7 +258,8 @@ Phases, one line each (a few for phase 3):
   14. the entry points users start from (`entry_points`):
      a. the render CLI (kytpu_torch/cli/render.py) in-process at each
         subcommand's default size: single with --engine pallas (K1) and jnp,
-        trimesh with --engine pallas (K5 on the 2,304-face torus) and jnp,
+        trimesh with --engine pallas (K5 on the 2,304-face torus) and jnp
+        (at 6 of its 24 spp),
         spheres, mis, debug, textured, integrators, strategies and scenes,
         the main path, K1's and K5's launches counted: each run's wall,
         the file it wrote and validate_radiance of its image; single's
@@ -272,8 +278,10 @@ Phases, one line each (a few for phase 3):
         step count, and a 256x256 fast-mode frame through each (atol 1e-4
         on more than 99.9% of values);
      d. the native encoder built into a temporary directory, its BMP and
-        HDR of the single frame against numpy's bytes, and write_image's
-        time through each.
+        HDR of the single frame against numpy's bytes, and the time of
+        each: write_image's HDR through the encoder and through numpy, and
+        BMP through numpy (write_image's only BMP route) and the encoder's
+        own write_bmp.
 The line before the last is the kernels' JSON record (K1-K8, the tag
 sort and the segment sums; each main path that sums by tag must launch
 both), the one before it nvidia-smi's name and power limit, and the last
@@ -549,6 +557,59 @@ def same_as_cull_off(tables, cfg, lanes, g, got, tag: str) -> None:
               f"K8 with cull={cfg.cull!r} against cull='off', {tag}")
 
 
+class CullTally:
+    """The lane-by-lane pass counts of `cull_counts` and `wf_cull_counts`:
+    the (blocks + superblocks, 4) bounds `bnd` of nb blocks, each block's
+    superblock `sb_of`; superblocks and blocks passed by a lane's rays and
+    by a warp of 32 lanes in lane order, for the closest-hit ("hit") and
+    the occlusion ("occ") sweeps, and the FP32 operations counted in
+    "ops"."""
+
+    def __init__(self, bnd, nb: int, sb_of, n_sup: int, n: int):
+        self.bnd, self.sup, self.sb_of = bnd[:nb], bnd[nb:], sb_of
+        self.nb, self.n_sup, self.n = nb, n_sup, n
+        self.stats = {k: 0.0 for k in (
+            "ops", "hit_sup", "hit_sup_w", "hit_blk", "hit_blk_w", "hit_n",
+            "hit_w_n", "occ_sup", "occ_sup_w", "occ_blk", "occ_blk_w",
+            "occ_n", "occ_w_n")}
+
+    def passes(self, oo, dd, t1):
+        """(superblock, block within a passed superblock) passes."""
+        from kytpu_torch.kernels import bigscene as kbs
+        slack, inv = kbs.cull_slack_plain(oo, dd)
+        oks = kbs.block_meets_plain(self.sup, oo, dd, inv, t1, slack)
+        okb = kbs.block_meets_plain(self.bnd, oo, dd, inv, t1, slack) \
+            & oks[:, self.sb_of]
+        return oks, okb
+
+    def warp_any(self, lanes, ok):
+        w = torch.zeros((self.n // 32 + 1, ok.shape[1]), dtype=torch.int32,
+                        device=ok.device)
+        w.index_add_(0, lanes // 32, ok.int())
+        return float((w > 0).sum())
+
+    def tally(self, kind, lanes, oks, okb):
+        st = self.stats
+        st[f"{kind}_sup"] += float(oks.sum())
+        st[f"{kind}_blk"] += float(okb.sum())
+        st[f"{kind}_sup_w"] += self.warp_any(lanes, oks)
+        st[f"{kind}_blk_w"] += self.warp_any(lanes, okb)
+        st[f"{kind}_n"] += len(lanes)
+        st[f"{kind}_w_n"] += float(torch.unique(lanes // 32).numel())
+
+    def result(self, plain) -> dict:
+        st = self.stats
+        out = {"ops": st["ops"], "blocks": self.nb, "supers": self.n_sup,
+               "plain": plain}
+        for kind in ("hit", "occ"):
+            for lvl, cnt in (("sup", self.n_sup), ("blk", self.nb)):
+                out[f"{kind}_{lvl}"] = st[f"{kind}_{lvl}"] / max(
+                    1.0, st[f"{kind}_n"] * cnt)
+                out[f"{kind}_{lvl}_warp"] = st[f"{kind}_{lvl}_w"] / max(
+                    1.0, st[f"{kind}_w_n"] * cnt)
+        return out
+
+
 def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
     """What the cull leaves of K5's work on these lanes, from the rays that
     the plain K6 traces (kbs._closest_hit and kbs._occluded wrapped while it
@@ -582,7 +643,6 @@ def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
             sb_of.append(n_sup + b // kbs.SUPER)
         n_sup += -(-nb_c // kbs.SUPER)
     nb = len(rows_b)
-    bnd, sup = tables.bnd[:nb], tables.bnd[nb:]
     f64 = dict(dtype=torch.float64, device=dev)
     rows_b = torch.tensor(rows_b, **f64)
     w_hit = rows_b * torch.tensor(c_hit, **f64)
@@ -592,36 +652,13 @@ def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
     per_sup = torch.bincount(sb_of, minlength=n_sup).double()
     n = o.shape[0]
     step = max(32, (1 << 22) // max(nb, 1) // 32 * 32)
-    stats = {k: 0.0 for k in ("ops", "hit_sup", "hit_sup_w", "hit_blk",
-                              "hit_blk_w", "hit_n", "hit_w_n", "occ_sup",
-                              "occ_sup_w", "occ_blk", "occ_blk_w", "occ_n",
-                              "occ_w_n")}
+    ct = CullTally(tables.bnd, nb, sb_of, n_sup, n)
+    stats, passes, tally = ct.stats, ct.passes, ct.tally
     occ_rays = []
     real_hit, real_occ = kbs._closest_hit, kbs._occluded
 
     def sub(v, li):
         return V3(v.x[li], v.y[li], v.z[li])
-
-    def passes(oo, dd, t1):
-        """(superblock, block within a passed superblock) passes."""
-        slack, inv = kbs.cull_slack_plain(oo, dd)
-        oks = kbs.block_meets_plain(sup, oo, dd, inv, t1, slack)
-        okb = kbs.block_meets_plain(bnd, oo, dd, inv, t1, slack) & oks[:, sb_of]
-        return oks, okb
-
-    def warp_any(lanes, ok):
-        w = torch.zeros((n // 32 + 1, ok.shape[1]), dtype=torch.int32,
-                        device=dev)
-        w.index_add_(0, lanes // 32, ok.int())
-        return float((w > 0).sum())
-
-    def tally(kind, lanes, oks, okb):
-        stats[f"{kind}_sup"] += float(oks.sum())
-        stats[f"{kind}_blk"] += float(okb.sum())
-        stats[f"{kind}_sup_w"] += warp_any(lanes, oks)
-        stats[f"{kind}_blk_w"] += warp_any(lanes, okb)
-        stats[f"{kind}_n"] += len(lanes)
-        stats[f"{kind}_w_n"] += float(torch.unique(lanes // 32).numel())
 
     def hit(bt, o_, d_, live):
         t, cls, trow = real_hit(bt, o_, d_, live)
@@ -676,15 +713,153 @@ def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
     n_b = [n] + [int((resf[ix[("tu", b)]] != 0).sum())
                  for b in range(cfg.max_depth)]
     stats["ops"] += sum(n_b[:-1]) * (62 + 6 + 134 * n_l + 90)
-    out = {"ops": stats["ops"], "blocks": nb, "supers": n_sup,
-           "plain": plain}
-    for kind in ("hit", "occ"):
-        for lvl, cnt in (("sup", n_sup), ("blk", nb)):
-            out[f"{kind}_{lvl}"] = stats[f"{kind}_{lvl}"] / max(
-                1.0, stats[f"{kind}_n"] * cnt)
-            out[f"{kind}_{lvl}_warp"] = stats[f"{kind}_{lvl}_w"] / max(
-                1.0, stats[f"{kind}_w_n"] * cnt)
-    return out
+    return ct.result(plain)
+
+
+def same_as_cull_off_wf(tables, cfg, lanes, g, got, tag: str) -> None:
+    """K1's radiance, K2's (radiance, resf, resi) and K4's gradient `got`
+    past REFILL_MAX_ROWS surfaces under cfg.cull against the same build's
+    launches with cull "off", which sweeps every row in the visit order, to
+    the last bit (`same_as_cull_off`'s sibling for csrc/wavefront_fwd.cu's
+    step 5)."""
+    from kytpu_torch.kernels import wavefront as kwf
+    if tables.vis is None:
+        raise AssertionError(f"{tag}: not on the culled route")
+    off = dataclasses.replace(cfg, cull="off")
+    o, d, seed, si, pix = lanes
+    k1, k2, k4 = got
+    same_bits(k1, kwf.trace_lanes(tables, off, o, d, seed, si, pix),
+              f"K1 with cull={cfg.cull!r} against cull='off', {tag}")
+    same_bits(k2, kwf.trace_lanes(tables, off, o, d, seed, si, pix,
+                                  residual=True),
+              f"K2 with cull={cfg.cull!r} against cull='off', {tag}")
+    same_bits(tuple(k4), tuple(kwf.bwd_replay(tables, off, o, d, seed, si,
+                                              pix, g, k1)),
+              f"K4 with cull={cfg.cull!r} against cull='off', {tag}")
+
+
+def wf_cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
+    """`cull_counts` for K1 past REFILL_MAX_ROWS surfaces
+    (csrc/wavefront_fwd.cu step 5), from the rays that the plain K2 traces
+    (kwf._closest_hit and kwf._any_hit_multi wrapped while it runs; the
+    lanes that reach a bounce and the shadow rays that reach their light
+    from its cache): "ops", the FP32 operations of `k1_ops` with each sweep
+    culled by the lane's own rays (a lane-bounce tests every superblock
+    bound, the block bounds of the superblocks its ray meets over [0, t], t
+    its hit, and the rows of the blocks it meets, at `k1_ops`' costs a row;
+    a shadow ray that reached its light likewise over [0, tmax] from its
+    offset origin, the rows whose skip bit for its light is clear; the
+    shared terms of the rows of the blocks one of a vertex's rays meets);
+    the pass rates of the superblocks and blocks by a lane's rays and by a
+    warp of 32 consecutive lanes (a warp's lanes without refill), as
+    `cull_counts` gives them; "plain", the plain K2's (radiance, resf,
+    resi). nee="all" only, as `k1_ops` counts it."""
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels import wavefront as kwf
+    from kytpu_torch.kernels.v3 import V3
+    from kytpu_torch.scene import shapes as kshapes
+    st = tables.static
+    planar, n_l = st["planar"], len(st["lights"])
+    n_pl, n_sp = len(planar), len(st["spheres"])
+    ix, _ = kwf.residual_layout(st, cfg)
+    dev = tables.bnd.device
+    rows_skip, sph_skip = kwf._occl_skips(st, cfg)
+    vis = tables.vis.cpu().numpy()
+    # each block's rows at k1_ops' costs: closest hit, a shadow ray of
+    # light i (its skip bits), the shared terms
+    fast = [s["kind"] != kshapes.DISK and bool(s.get("fast")) for s in planar]
+    w_hit, w_ray, w_sh, sb_of = [], [], [], []
+    n_sup = 0
+    for nr, off, is_pl in ((n_pl, 0, True), (n_sp, n_pl, False)):
+        nb_c = -(-nr // kbs.UNROLL)
+        for b in range(nb_c):
+            rs = vis[off + b * kbs.UNROLL:off + min(nr, (b + 1) * kbs.UNROLL)]
+            skip = [rows_skip[i] if is_pl else sph_skip[i]
+                    for i in range(n_l)]
+            ray_cost = [(27 if fast[r] else 34) if is_pl else 19 for r in rs]
+            w_hit.append((31 if is_pl else 33) * len(rs))
+            w_ray.append([sum(c for r, c in zip(rs, ray_cost)
+                              if r not in skip[i]) for i in range(n_l)])
+            w_sh.append(sum((33 if fast[r] else 0) if is_pl else 13
+                            for r in rs
+                            if any(r not in skip[i] for i in range(n_l))))
+            sb_of.append(n_sup + b // kbs.SUPER)
+        n_sup += -(-nb_c // kbs.SUPER)
+    nb = len(w_hit)
+    f64 = dict(dtype=torch.float64, device=dev)
+    w_hit = torch.tensor(w_hit, **f64)
+    w_ray = torch.tensor(w_ray, **f64).reshape(nb, n_l)
+    w_sh = torch.tensor(w_sh, **f64)
+    sb_of = torch.tensor(sb_of, dtype=torch.long, device=dev)
+    per_sup = torch.bincount(sb_of, minlength=n_sup).double()
+    n = o.shape[0]
+    step = max(32, (1 << 22) // max(nb, 1) // 32 * 32)
+    ct = CullTally(tables.bnd, nb, sb_of, n_sup, n)
+    stats, passes, tally = ct.stats, ct.passes, ct.tally
+    hits, occs = [], []
+    real_hit, real_occ = kwf._closest_hit, kwf._any_hit_multi
+
+    def sub(v, li):
+        return V3(v.x[li], v.y[li], v.z[li])
+
+    def hit(static, o_, d_):
+        out = real_hit(static, o_, d_)
+        hits.append((o_, d_, out[0]))
+        return out
+
+    def occ(static, hp, ns, rays, skips, robust=False, sphere_skips=None,
+            nd=None):
+        out = real_occ(static, hp, ns, rays, skips, robust=robust,
+                       sphere_skips=sphere_skips, nd=nd)
+        occs.append((hp, ns, rays, robust))
+        return out
+
+    kwf._closest_hit, kwf._any_hit_multi = hit, occ
+    try:
+        plain = kwf.trace_lanes_plain(tables, cfg, o, d, seed, si, pix,
+                                      residual=True)
+    finally:
+        kwf._closest_hit, kwf._any_hit_multi = real_hit, real_occ
+    resf = plain[1]
+    live = [torch.ones(n, dtype=torch.bool, device=dev)] + [
+        resf[ix[("tu", b)]] != 0 for b in range(cfg.max_depth)]
+    for b, (o_, d_, t) in enumerate(hits):
+        idx = live[b].nonzero().reshape(-1)
+        for c0 in range(0, len(idx), step):
+            li = idx[c0:c0 + step]
+            oks, okb = passes(sub(o_, li), sub(d_, li), t[li])
+            stats["ops"] += float((okb.double() @ w_hit).sum()
+                                  + (oks.double() @ per_sup).sum()
+                                  * BLOCK_TEST_OPS) + len(li) * (
+                BLOCK_TEST_OPS * n_sup + SLACK_OPS + 32)
+            tally("hit", li, oks, okb)
+    # only the shadow rays that reached their light (a nonzero "B" plane)
+    for b, (hp, ns, rays, robust) in enumerate(occs):
+        reached = [resf[ix[("B", b, i)]] != 0 for i in range(n_l)]
+        idx = torch.stack(reached).any(0).nonzero().reshape(-1)
+        for c0 in range(0, len(idx), step):
+            li = idx[c0:c0 + step]
+            union = torch.zeros((len(li), nb), dtype=torch.bool, device=dev)
+            for i, (wi, tmax) in enumerate(rays):
+                r = reached[i][li]
+                if not bool(r.any()):
+                    continue
+                lr = li[r]
+                wr = sub(wi, lr)
+                nd = sub(ns, lr).dot(wr)
+                se = torch.where(nd < 0, -kwf._OFF, kwf._OFF)
+                tm = tmax[lr] - se * nd if robust else tmax[lr]
+                oks, okb = passes(sub(hp, lr) + sub(ns, lr) * se, wr, tm)
+                union[r] |= okb
+                stats["ops"] += float((okb.double() @ w_ray[:, i]).sum()
+                                      + (oks.double() @ per_sup).sum()
+                                      * SHADOW_BLOCK_OPS) + len(lr) * (
+                    SHADOW_BLOCK_OPS * n_sup + SLACK_OPS + 6)
+                tally("occ", lr, oks, okb)
+            stats["ops"] += float((union.double() @ w_sh).sum())
+    n_b = [int(v.sum()) for v in live]
+    stats["ops"] += sum(n_b[:-1]) * (62 + 6 + 134 * n_l + 90)
+    return ct.result(plain)
 
 
 def pass_rates(c: dict) -> str:
@@ -1788,9 +1963,11 @@ def jnp_engines() -> None:
 # phase 14's sizes: the grid against the sweep (14c)
 GRID_SPHERES, GRID_RAYS, GRID_FRAME = 1024, 1 << 20, 256
 # the runs of 14a, in order: (subcommand, its arguments past the
-# defaults); the three strategy-matrix subcommands last
+# defaults); the three strategy-matrix subcommands last. The trimesh run on
+# the jnp engine takes a quarter of its default 24 spp: at 24 it took 68.5
+# s, the longest run of chip_smoke (PERF.md section 4)
 CLI_RUNS = [("single", ["--engine", "pallas"]), ("single", []),
-            ("trimesh", ["--engine", "pallas"]), ("trimesh", []),
+            ("trimesh", ["--engine", "pallas"]), ("trimesh", ["--spp", "6"]),
             ("spheres", []), ("mis", []), ("debug", []), ("textured", []),
             ("integrators", []), ("strategies", []), ("scenes", [])]
 
@@ -1806,6 +1983,7 @@ def entry_points(smi: str) -> dict:
     from kytpu_torch.cli import inverse as cinv
     from kytpu_torch.cli import render as cli
     from kytpu_torch.film import io as fio
+    from kytpu_torch.film.film import to_numpy
     from kytpu_torch.integrator.fast import FastConfig
     from kytpu_torch.integrator.render import render
     from kytpu_torch.kernels import bigscene as kbs
@@ -1846,6 +2024,8 @@ def entry_points(smi: str) -> dict:
                        if "trace_lanes" in seen}
         validate_radiance(img, tag)
         size0, spp0 = cli.DEFAULTS[cmd]
+        if "--spp" in extra:
+            spp0 = int(extra[extra.index("--spp") + 1])
         said = " | ".join(ln for ln in text.getvalue().splitlines()
                           if not ln.startswith("wrote"))
         print(f"entry points: cli.render {tag} ({size0}, {spp0} spp): "
@@ -1998,10 +2178,14 @@ def entry_points(smi: str) -> dict:
             for which, native in (("numpy", None), ("native", enc)):
                 fio._native = native
                 path = os.path.join(tmp.name, f"{which}.{ext}")
+                # write_image writes BMP through numpy; the encoder's BMP
+                # is timed by itself
+                write = (lambda p, im: enc.write_bmp(p, to_numpy(im))) if (
+                    ext, which) == ("bmp", "native") else fio.write_image
                 ts = []
                 for _ in range(5):
                     t0 = time.perf_counter()
-                    fio.write_image(path, frame)
+                    write(path, frame)
                     ts.append((time.perf_counter() - t0) * 1e3)
                 walls[ext, which] = (float(np.median(ts)),
                                      open(path, "rb").read())
@@ -2011,11 +2195,12 @@ def entry_points(smi: str) -> dict:
         fio._native = saved
     print(f"entry points: the native encoder built in {build_s:.2f} s; its "
           f"BMP and HDR of the {frame.shape[1]}x{frame.shape[0]} single "
-          "frame = numpy's bytes; write_image (median of 5, the frame on the "
-          "card): " + ", ".join(
-              f"{ext} numpy {walls[ext, 'numpy'][0]:.2f} ms, native "
-              f"{walls[ext, 'native'][0]:.2f} ms" for ext in ("bmp", "hdr"))
-          + f"; on {smi}", flush=True)
+          "frame = numpy's bytes; median of 5, the frame on the card: "
+          f"write_image's BMP (numpy) {walls['bmp', 'numpy'][0]:.2f} ms, the "
+          f"encoder's write_bmp (not dispatched) "
+          f"{walls['bmp', 'native'][0]:.2f} ms; write_image's HDR numpy "
+          f"{walls['hdr', 'numpy'][0]:.2f} ms, native "
+          f"{walls['hdr', 'native'][0]:.2f} ms; on {smi}", flush=True)
     out["write_ms"] = {f"{ext} {w}": v[0] for (ext, w), v in walls.items()}
     tmp.cleanup()
     out["launches"], out["errs"] = launches, kernel_errs
@@ -3564,9 +3749,17 @@ def main() -> None:
             not bool(torch.isfinite(img).all()):
         raise AssertionError(f"the 16x16-ground frame launched K1-K4 "
                              f"{sep_render_launches} and K5-K8 {big_counts()}")
+    sep_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(sep, spp=big_spp, seed=seed, cfg=bcfg, clamp=False)
+        torch.cuda.synchronize()
+        sep_walls.append((time.perf_counter() - t0) * 1e3)
     print(f"frame: spheres with a 16x16 ground atlas 256x256 {big_spp} spp, "
-          f"depth 3 in {secs:.3f} s (cold), mean {float(img.mean()):.5f}; "
-          f"launches K1/K2/K3/K4 {sep_render_launches}, K5-K8 {big_counts()}",
+          f"depth 3 in {secs:.3f} s (cold), {float(np.median(sep_walls)):.3f} "
+          f"ms warm (median of 3), mean {float(img.mean()):.5f}; launches "
+          f"K1/K2/K3/K4 {sep_render_launches}, K5-K8 {big_counts()}",
           flush=True)
     del img
     names = ("tex_image",)
@@ -3629,6 +3822,9 @@ def main() -> None:
                                           k1))):
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{tag}: {nm} does not repeat")
+        same_as_cull_off_wf(tables, cfg, (o, d, 47, si, pix), g,
+                            (k1, (k2, resf, resi), k4),
+                            f"spheres {sc_name}, {o.shape[0]} lanes")
         ref1 = kwf.trace_lanes_plain(tables, cfg, o, d, 47, si, pix)
         ref_l, ref_f, ref_i = kwf.trace_lanes_plain(tables, cfg, o, d, 47, si,
                                                     pix, residual=True)
@@ -3669,7 +3865,8 @@ def main() -> None:
             extra = (f"; against K7 on the same lanes (d_emission on the "
                      f"emissive rows): K3 max |diff| {x37:.3g}, K4 {x47:.3g}")
         print(f"{tag}: {o.shape[0]} lanes, depth 3, tables in device memory "
-              f"({len(tables.static['mats']['kind'])} rows): K1 and K2 "
+              f"({len(tables.static['mats']['kind'])} rows), culled: K1, K2 "
+              f"and K4 = cull 'off' bit for bit; K1 and K2 "
               f"(radiance, cache) = plain bit for bit; K1 {share:.5f} of lanes "
               f"outside (max |err| {mabs:.3g}); K2 = K1 bit for bit, cache "
               f"(max |err| {cerr:.3g}), rows up to {int(rows.max())}; K3 (max "
@@ -3683,15 +3880,28 @@ def main() -> None:
     t0 = time.perf_counter()
     tables = kwf.pack_tables(scene, bcfg)   # the occlusion-skip proofs too
     pack_s = time.perf_counter() - t0
+    # K1, K2 and K4 culled (bcfg.cull "cone") and with cull "off", which
+    # sweeps every row (step 5 of csrc/wavefront_fwd.cu), in turn
+    ocfg = dataclasses.replace(bcfg, cull="off")
     p_k1_ms, k1 = cuda_time_ms(lambda: kwf.trace_lanes(tables, bcfg, o, d, 7),
                                3)
+    p_off_ms = {"K1": cuda_time_ms(
+        lambda: kwf.trace_lanes(tables, ocfg, o, d, 7), 3)[0]}
     p_k2_ms, (k2, resf, resi) = cuda_time_ms(
         lambda: kwf.trace_lanes(tables, bcfg, o, d, 7, residual=True), 3)
+    p_off_ms["K2"] = cuda_time_ms(
+        lambda: kwf.trace_lanes(tables, ocfg, o, d, 7, residual=True), 3)[0]
     g = torch.full((n_big, 3), 1.0 / n_big, device="cuda")
     p_k3_ms, k3 = cuda_time_ms(
         lambda: kwf.bwd_res(tables, bcfg, g, k2, resf, resi), 3)
     p_k4_ms, k4 = cuda_time_ms(
         lambda: kwf.bwd_replay(tables, bcfg, o, d, 7, None, None, g, k1), 3)
+    p_off_ms["K4"] = cuda_time_ms(
+        lambda: kwf.bwd_replay(tables, ocfg, o, d, 7, None, None, g, k1),
+        3)[0]
+    same_as_cull_off_wf(tables, bcfg, (o, d, 7, None, None), g,
+                        (k1, (k2, resf, resi), k4),
+                        f"16x16 ground, {n_big} lanes")
     xerr = compare_grads(k4, k3, "K4 vs K3 1M lanes past 64", CROSS_RTOL,
                          CROSS_ATOL)
     # the row-tagged K3 on its shared route and on the local one: the same
@@ -3755,19 +3965,32 @@ def main() -> None:
     ops1 = k1_ops(tables.static, resf, bcfg)
     ops4 = k4_ops(tables.static, resf, bcfg)
     m_rows = len(tables.static["mats"]["kind"])
+    # the culled count from the lanes' own rays (the plain K2 equals K2 to
+    # the last bit here, checked above)
+    pcull = wf_cull_counts(tables, bcfg, o, d, 7)
+    same_bits(pcull.pop("plain"), (k2, resf, resi),
+              "the plain K2 of wf_cull_counts against K2, 1M lanes past 64")
+    c_ops1, c_ops4 = pcull["ops"], pcull["ops"] + (ops4 - ops1)
     # as K7's and K8's: K3 reads the cache, g and L, K4 the rays, g and L;
     # both write the (M, 9) tables (the row-tagged planes and texel entries
     # are their own scratch, not the function's bytes)
-    p64_bounds = {
+    p64_full = {
         "K1": bound_ms(n_big * (24 + 12), ops1),
         "K2": bound_ms(n_big * (24 + 12) + p_cache, ops1),
+        "K4": bound_ms(n_big * (24 + 12 + 12) + m_rows * 9 * 4, ops4)}
+    p64_bounds = {
+        "K1": bound_ms(n_big * (24 + 12), c_ops1),
+        "K2": bound_ms(n_big * (24 + 12) + p_cache, c_ops1),
         "K3": bound_ms(p_cache + n_big * 24 + m_rows * 9 * 4,
                        k3_ops(tables.static, bcfg, n_big)),
-        "K4": bound_ms(n_big * (24 + 12 + 12) + m_rows * 9 * 4, ops4)}
+        "K4": bound_ms(n_big * (24 + 12 + 12) + m_rows * 9 * 4, c_ops4)}
     print(f"timing past 64 on K1-K4: spheres 1026 surfaces, 16x16 ground "
           f"atlas, depth 3, {n_big} pixel-centre lanes: K1 {p_k1_ms:.3f} ms, "
           f"K2 {p_k2_ms:.3f} ms, K3 {p_k3_ms:.3f} ms and K4 {p_k4_ms:.3f} ms "
-          f"(row-tagged, with the sorts and sums by row and texel); plain K1 "
+          f"(row-tagged, with the sorts and sums by row and texel), culled; "
+          f"with cull 'off' K1 {p_off_ms['K1']:.3f} ms, K2 "
+          f"{p_off_ms['K2']:.3f} ms, K4 {p_off_ms['K4']:.3f} ms, the same "
+          f"bits; plain K1 "
           f"{p_plain['K1']:.1f} ms, plain K3 {p_plain['K3']:.1f} ms, plain "
           f"K4 {p_plain['K4']:.1f} ms, the kernels within the bounds of "
           f"phase 3; K4 vs K3 max |diff| {xerr:.3g}; the replay path "
@@ -3775,9 +3998,16 @@ def main() -> None:
           f"{p64_replay_launches}, its gradient K4's bit for bit; "
           f"pack_tables {pack_s * 1e3:.1f} ms on the host; on {smi}",
           flush=True)
+    print(f"cull past 64: K1, K2 and K4 = cull='off' bit for bit at 1M "
+          f"lanes; {pcull['blocks']} blocks, {pcull['supers']} superblocks; "
+          f"pass rates {pass_rates(pcull)}", flush=True)
     for k, (t, by) in p64_bounds.items():
-        print(f"bound past 64: {k} {t:.4f} ms by {by} (K1 ops {ops1:.4g}, K4 "
-              f"ops {ops4:.4g}, cache {p_cache:.4g} B)", flush=True)
+        full = (f", full sweep {p64_full[k][0]:.4f} ms by {p64_full[k][1]}"
+                if k in p64_full else "")
+        print(f"bound past 64: {k} {t:.4f} ms by {by} (culled K1 ops "
+              f"{c_ops1:.4g}, K4 ops {c_ops4:.4g}; full sweep K1 ops "
+              f"{ops1:.4g}, K4 ops {ops4:.4g}; cache {p_cache:.4g} B{full})",
+              flush=True)
     del k1, k2, k3, k4, resf, resi, g, o, d
 
     # the textured K5, K7 and K8 at the 1M pixel-centre lanes (checker

@@ -6,9 +6,12 @@ Reference parity: store_ppm_impl (ky.cpp:1646-1659), store_bmp_impl
 (H, W, 3) float32 array or a tensor on any device and writes the bytes
 kytpu's writer writes for the same image. Encoding is numpy on the host.
 Where the optional C++ encoder (kytpu_torch/native, `python -m
-kytpu_torch.native.build`) has been built, the BMP and HDR writers hand
-the image to it, as kytpu's do: host-side code with the same bytes, not a
-stand-in for a device kernel.
+kytpu_torch.native.build`) has been built, the HDR writer hands the image
+to it, as kytpu's does: host-side code with the same bytes, not a
+stand-in for a device kernel. The BMP writer stays on numpy: the
+encoder's BMP, the same bytes, was slower (1024x1024 frame, 81.47 and
+83.34 ms against numpy's 72.91 and 54.90, PERF.md), where its HDR is
+about 4x numpy's speed.
 """
 
 from __future__ import annotations
@@ -50,9 +53,6 @@ def write_bmp(path: str, img) -> str:
     bytes, BGR order."""
     img = to_numpy(img)
     h, w, _ = img.shape
-    if _native is not None:
-        _native.write_bmp(path, img)
-        return path
     bgr = gamma_encode(img)[::-1, :, ::-1]  # bottom-up rows, BGR channels
     pad = (-w * 3) % 4
     body = np.zeros((h, w * 3 + pad), np.uint8)

@@ -29,8 +29,8 @@ launches of the untextured big-scene forward K5 on random_spheres(1024) at
 depth 3 over its 1M pixel-centre lanes (chip_smoke.py's phase 9d) and that
 radiance's sum, then the same of its residual forward K6 (and its cache's
 sum) and of its replay backward K8 (upstream gradient 1/N; its gradient's
-sum), then the same of K1 and K4 on those lanes of the scene
-with a 16x16 ground atlas (1,026 surfaces, its tables in device memory,
+sum), then the same of K1, K2 (its cache's sum) and K4 on those lanes of
+the scene with a 16x16 ground atlas (1,026 surfaces, the culled sweeps,
 K4 row-tagged; chip_smoke.py's phase 11d); and the same of K7 on K6's
 cache of the spheres' lanes and of the row-tagged K3 on K2's cache of the
 16x16 twin (the sums of their gradients), the device time of K7, K8 and
@@ -318,7 +318,19 @@ k4_sum += sum(float(t.double().sum()) for t in p4)
 split["K4 past 64"] = by_kernel(lambda: kwf.bwd_replay(ptab, bcfg, bo, bd, 7,
                                                        None, None, gb, pout))
 del p4
+p64_k2_ms = []
+for _ in range(3):
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(3):
+        p2 = kwf.trace_lanes(ptab, bcfg, bo, bd, 7, residual=True)
+        del p2
+    t1.record()
+    torch.cuda.synchronize()
+    p64_k2_ms.append(t0.elapsed_time(t1) / 3)
 _, presf, presi = kwf.trace_lanes(ptab, bcfg, bo, bd, 7, residual=True)
+p64_k2_sum = float(presf.double().sum()) + float(presi.double().sum())
 p3 = kwf.bwd_res(ptab, bcfg, gb, pout, presf, presi)
 p64_k3_ms = []
 for _ in range(3):
@@ -337,6 +349,7 @@ print(json.dumps({"k7_ms": k7_ms, "k7_sum": k7_sum, "p64_k3_ms": p64_k3_ms,
                   "k3_sum_p64": k3_sum_p64, "split": split, "peak": peak,
                   "ms": ms, "sum": float(out.double().sum()),
                   "p64_k4_ms": p64_k4_ms, "step_ms": step_ms,
+                  "p64_k2_ms": p64_k2_ms, "p64_k2_sum": p64_k2_sum,
                   "step_dev_ms": step_dev_ms, "step_host_ms": step_host_ms,
                   "k3_ms": k3_ms, "k3_sum": k3_sum,
                   "step_k3_ms": step_k3_ms,
@@ -411,7 +424,7 @@ def main(others: list[str]) -> None:
     for root in order:
         r = run(root)
         sums.add((r["sum"], r["k2_sum"], r["k5_sum"], r["p64_sum"],
-                  r["k6_sum"]))
+                  r["k6_sum"], r["p64_k2_sum"]))
         seen.setdefault(root, []).append(r)
         print(f"{root}: K1 ms "
               f"{', '.join(f'{t:.3f}' for t in r['ms'])}; sum {r['sum']!r}; "
@@ -433,7 +446,9 @@ def main(others: list[str]) -> None:
               f"{', '.join(f'{t:.3f}' for t in r['k8_ms'])}; gradient sum "
               f"{r['k8_sum']!r}; K1 past 64 ms "
               f"{', '.join(f'{t:.3f}' for t in r['p64_ms'])}; sum "
-              f"{r['p64_sum']!r}; K4 past 64 ms "
+              f"{r['p64_sum']!r}; K2 past 64 ms "
+              f"{', '.join(f'{t:.3f}' for t in r['p64_k2_ms'])}; cache sum "
+              f"{r['p64_k2_sum']!r}; K4 past 64 ms "
               f"{', '.join(f'{t:.3f}' for t in r['p64_k4_ms'])}; K7 ms "
               f"{', '.join(f'{t:.3f}' for t in r['k7_ms'])}; K3 past 64 ms "
               f"{', '.join(f'{t:.3f}' for t in r['p64_k3_ms'])}; fwd+bwd peak "
@@ -452,7 +467,8 @@ def main(others: list[str]) -> None:
               f"ms, K5 "
               f"{mean('k5_ms'):.3f} ms, K6 {mean('k6_ms'):.3f} ms, K8 "
               f"{mean('k8_ms'):.3f} ms, K1 past 64 "
-              f"{mean('p64_ms'):.3f} ms, K4 past 64 {mean('p64_k4_ms'):.3f} "
+              f"{mean('p64_ms'):.3f} ms, K2 past 64 {mean('p64_k2_ms'):.3f} "
+              f"ms, K4 past 64 {mean('p64_k4_ms'):.3f} "
               f"ms, K7 {mean('k7_ms'):.3f} ms, K3 past 64 "
               f"{mean('p64_k3_ms'):.3f} ms, frame "
               f"{sum(r['frame_ms'] for r in rs) / len(rs):.3f} ms", flush=True)

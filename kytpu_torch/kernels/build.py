@@ -113,10 +113,12 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.kytpu_wavefront_fwd.argtypes = [p] * 16 + [i] * 11 + [p]
-        lib.kytpu_wavefront_fwd_res.argtypes = [p] * 18 + [i] * 11 + [p]
+        lib.kytpu_wavefront_fwd.argtypes = [p] * 16 + [i] * 11 + [p, p, i, p]
+        lib.kytpu_wavefront_fwd_res.argtypes = [p] * 18 + [i] * 11 + [p, p, i,
+                                                                      p]
         lib.kytpu_wavefront_bwd_res.argtypes = [p] * 21 + [i] * 7 + [p]
-        lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 25 + [i] * 15 + [p]
+        lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 25 + [i] * 15 + [
+            p, p, i, p]
         lib.kytpu_wavefront_chunk.argtypes = [i] * 7
         lib.kytpu_bigscene_fwd.argtypes = [p] * 24 + [i] * 17 + [p]
         lib.kytpu_bigscene_bwd_res.argtypes = [p] * 13 + [i] * 7 + [p, p]

@@ -32,12 +32,13 @@
 //    blocks of 8 (kbs.extract_tables sorts them by Morton code), and each
 //    block has a bounding sphere, padded so that no row test's rounding can
 //    reach past it (kbs.cull_bounds; each lane adds CULL_PAD of its
-//    origin's size, `cull_slack`). Before a block's rows, each lane tests
-//    its own ray over [0, t_best] (closest hit) or each of its open shadow
-//    rays over [0, tmax] from the offset origin (occlusion) against the
-//    block's sphere, and the warp skips the rows only when no lane's ray
-//    can meet it (__any_sync over the lanes in the sweep). A lane whose ray
-//    is not finite passes every block. The rows are visited in the same
+//    origin's size, `cull_slack`; both tests are megakernel.cuh's, which K1,
+//    K2 and K4 cull with past REFILL_MAX_ROWS surfaces). Before a block's
+//    rows, each lane tests its own ray over [0, t_best] (closest hit) or
+//    each of its open shadow rays over [0, tmax] from the offset origin
+//    (occlusion) against the block's sphere, and the warp skips the rows
+//    only when no lane's ray can meet it (__any_sync over the lanes in the
+//    sweep). A lane whose ray is not finite passes every block. The rows are visited in the same
 //    order and a skipped block holds no row that any lane would have taken,
 //    so the results are those of the full sweep to the last bit; cull = 0
 //    (cfg.cull="off") sweeps every row. kytpu culls per tile with a ray cone,
@@ -158,20 +159,10 @@ __device__ __forceinline__ void add3(const WideAcc& acc, int col, V v) {
 }
 
 constexpr int PG = 12, DG = 8, SG = 4;  // columns of the class tables
-constexpr int BLOCK_ROWS = 8;           // rows a cull block (kbs.UNROLL)
-constexpr int SUPER_BLOCKS = 8;         // blocks a superblock (kbs.SUPER)
 // lights sampled, swept and accumulated together at most (step 2),
 // NEE_CHUNK in wavefront.py
 constexpr int NEE_CHUNK = 8;
 constexpr int THREADS = 128;
-// a lane's share of the cull pad: CULL_PAD times the size of its ray's
-// origin (CULL_PAD in bigscene.py)
-constexpr float CULL_PAD = 1.0f / 4096.0f;
-
-__device__ __forceinline__ int blocks_of(int rows) { return (rows + BLOCK_ROWS - 1) / BLOCK_ROWS; }
-__device__ __forceinline__ int supers_of(int rows) {
-  return (blocks_of(rows) + SUPER_BLOCKS - 1) / SUPER_BLOCKS;
-}
 
 // the class tables' bases and their block and superblock bounds
 struct Tables {
@@ -202,30 +193,6 @@ struct Tables {
     sph_s = disk_s + supers_of(n_disk);
   }
 };
-
-// A ray's cull slack, and 1 / |d|^2 in inv: CULL_PAD of its origin's size,
-// or infinity (the ray passes every block) when the ray or 1 / |d|^2 is
-// not finite (kbs.cull_slack_plain)
-__device__ __forceinline__ float cull_slack(V o, V d, float& inv) {
-  const float dd = vdot(d, d);
-  inv = 1.0f / dd;
-  const float s = CULL_PAD * ((fabsf(o.x) + fabsf(o.y)) + fabsf(o.z));
-  return (isfinite(s) && isfinite(dd) && isfinite(inv) && dd > 0.f) ? s : __int_as_float(0x7f800000);
-}
-
-// Can the segment o + t d, t in [0, t1], come within b.w + slack of the
-// block's centre (kbs.block_meets_plain)? The closest point's t clamped to
-// the segment; a NaN anywhere passes.
-__device__ __forceinline__ bool block_meets(float4 b, V o, V d, float inv_dd, float t1,
-                                            float slack) {
-  const V v = vmk(b.x - o.x, b.y - o.y, b.z - o.z);
-  float tc = vdot(v, d) * inv_dd;
-  tc = tc < 0.f ? 0.f : tc;
-  tc = tc > t1 ? t1 : tc;
-  const V p = v - d * tc;
-  const float rl = b.w + slack;
-  return !(vdot(p, p) > rl * rl);
-}
 
 __device__ __forceinline__ bool planar_inside(float a, float b, bool tri) {
   if (tri) return a >= 0.f && b >= 0.f && a + b <= 1.0f;

@@ -4,9 +4,10 @@
 // min/max, the integer hashes and the lane RNG of the three samplers (the
 // "sobol" site words in a __constant__ table, one copy per source), the
 // scene header and light tables of kernels/wavefront.py::pack_tables
-// (`Scene`), the sphere occlusion root test, shading frames, the BSDFs,
-// the light sampling and the texture lookups at a hit (the bilinear fetch
-// itself is texture.cuh's). Each is a transcription of a function of
+// (`Scene`), the sphere occlusion root test, the block cull's ray test
+// (`block_meets`, `cull_slack`), shading frames, the BSDFs, the light
+// sampling and the texture lookups at a hit (the bilinear fetch itself is
+// texture.cuh's). Each is a transcription of a function of
 // kytpu_torch/kernels/wavefront.py's plain version, whose arithmetic the
 // kernels keep to the last bit (they are built with --fmad=false and
 // without fast math).
@@ -229,6 +230,44 @@ __device__ __forceinline__ bool sphere_occludes(float neg_b, float discr, float 
   bool in1 = a_pos && (discr < a2) && (b_neg || (discr > b2));
   bool in2 = (a_pos || (discr > a2)) && b_neg && (discr < b2);
   return discr >= 0.f && (in1 || in2);
+}
+
+// ---- the block cull: the sweeps of K5, K6, K8 (bigscene_fwd.cu step 1) and,
+// past REFILL_MAX_ROWS surfaces, of K1, K2, K4 (wavefront_fwd.cu step 5) ----
+
+constexpr int BLOCK_ROWS = 8;    // rows a cull block (kbs.UNROLL)
+constexpr int SUPER_BLOCKS = 8;  // blocks a superblock (kbs.SUPER)
+// a lane's share of the cull pad: CULL_PAD times the size of its ray's
+// origin (CULL_PAD in bigscene.py)
+constexpr float CULL_PAD = 1.0f / 4096.0f;
+
+__device__ __forceinline__ int blocks_of(int rows) { return (rows + BLOCK_ROWS - 1) / BLOCK_ROWS; }
+__device__ __forceinline__ int supers_of(int rows) {
+  return (blocks_of(rows) + SUPER_BLOCKS - 1) / SUPER_BLOCKS;
+}
+
+// A ray's cull slack, and 1 / |d|^2 in inv: CULL_PAD of its origin's size,
+// or infinity (the ray passes every block) when the ray or 1 / |d|^2 is
+// not finite (kbs.cull_slack_plain)
+__device__ __forceinline__ float cull_slack(V o, V d, float& inv) {
+  const float dd = vdot(d, d);
+  inv = 1.0f / dd;
+  const float s = CULL_PAD * ((fabsf(o.x) + fabsf(o.y)) + fabsf(o.z));
+  return (isfinite(s) && isfinite(dd) && isfinite(inv) && dd > 0.f) ? s : __int_as_float(0x7f800000);
+}
+
+// Can the segment o + t d, t in [0, t1], come within b.w + slack of the
+// block's centre (kbs.block_meets_plain)? The closest point's t clamped to
+// the segment; a NaN anywhere passes.
+__device__ __forceinline__ bool block_meets(float4 b, V o, V d, float inv_dd, float t1,
+                                            float slack) {
+  const V v = vmk(b.x - o.x, b.y - o.y, b.z - o.z);
+  float tc = vdot(v, d) * inv_dd;
+  tc = tc < 0.f ? 0.f : tc;
+  tc = tc > t1 ? t1 : tc;
+  const V p = v - d * tc;
+  const float rl = b.w + slack;
+  return !(vdot(p, p) > rl * rl);
 }
 
 __device__ __forceinline__ V offset_origin(V p, V n, V d) {

@@ -72,8 +72,8 @@
 //    the same on both accumulator routes), at most 32 * REFILL: 512 lanes
 //    at Veach's 4M, where fewer, longer waves leave more of the card idle
 //    at the end, and 32 (no refill) at a train step's 262K. The host turns
-//    refill off past REFILL_MAX_ROWS surfaces (wavefront.py): there the
-//    occlusion sweeps run over hundreds of rows, each ray ends its sweep at
+//    refill off past REFILL_MAX_ROWS surfaces (wavefront.py; step 5): there
+//    the occlusion sweeps run over hundreds of rows, each ray ends its sweep at
 //    its first occluder, and a refilled warp holds lanes from all over the
 //    frame, which end theirs far apart.
 // 4. Registers and occupancy: K1, K2 and K4 are bound to 4 blocks of 128
@@ -82,6 +82,39 @@
 //    accumulator route was 8% slower at 3, where the compiler took up to
 //    159 registers). K4 runs the same lane body, so it takes steps 1-3 and
 //    branches as K1 does.
+// 5. Past REFILL_MAX_ROWS surfaces (CULL, a compile-time switch; the host
+//    passes the tables of wavefront.py cull_tables): no staging, no refill,
+//    and the sweeps cull blocks of rows at the warp, as K5's do
+//    (bigscene_fwd.cu step 1, `block_meets` and `cull_slack` of
+//    megakernel.cuh). Each class, planar rows then spheres, is visited in
+//    the Morton order of its rows' bound centres, in blocks of 8 rows and
+//    superblocks of 8 blocks, each with a padded bounding sphere; the
+//    scene's row indices (sid) stay, so the materials, the skip words and
+//    K4's row tags read as before. Before a superblock, and then before
+//    each of its blocks, each lane tests its own ray over [0, t_best]
+//    (closest_culled), each of its open shadow rays over [0, tmax] from
+//    the offset origin (shadow_sweep_culled), or its nee="single" ray
+//    (any_hit_culled), and the warp skips the rows when no lane can meet
+//    the bound (__any_sync over the lanes in the sweep); inside a block
+//    the skip words and the robust light gate apply row by row. A skipped
+//    block holds no row a lane would take, occlusion is a boolean, and the
+//    closest hit is the least (t, sid), the scene order's first row at the
+//    least t whatever the visit order: the bits are those of the full
+//    sweep, and cull "off" (Cull::on false) sweeps every row in the visit
+//    order with the same bits. The votes need every lane of the sweep:
+//    every thread stays in trace_chunk's loop until the warp's last lane
+//    ends, the closest sweep's mask is the ballot of the lanes still
+//    tracing (without refill they share the bounce), the occlusion sweep's
+//    that of the lanes with an open shadow ray, and a sweep's lanes leave
+//    it together. The culled kernels take 8 blocks an SM (K1, K2: 64
+//    registers, a few hundred bytes of spills) and K4 6 (80 registers):
+//    more warps hide the latency of the bound and row reads, which step 4's
+//    128 registers did not need (random_spheres(1024) with a 16x16 ground
+//    atlas, 1M lanes, depth 3: K1 5.56 ms at 4 blocks, 4.64 at 8; K2 6.10,
+//    5.09; K4 6.92 at 4, 6.39 at 8, 6.30 at 6; ab runs on an NVIDIA H100
+//    80GB HBM3, 700 W, PERF.md). At 64 surfaces or fewer nothing of this
+//    is compiled in: the CULL = false instantiations are the kernels of
+//    steps 1-4.
 //
 // The JAX package folds exact 0/+-1 geometry constants out of its dot
 // products at trace time (kernels/v3.py); cdot() does the same at run time,
@@ -152,16 +185,32 @@ constexpr int FWD_THREADS = 128;
 template <int MODE>
 constexpr int threads_of() { return MODE == MODE_REPLAY ? LANE_THREADS : FWD_THREADS; }
 // blocks an SM that the compiler must leave registers for (step 4): 16
-// warps an SM, 128 registers a thread
-template <int MODE>
-constexpr int min_blocks_of() { return 16 * 32 / threads_of<MODE>(); }
+// warps an SM, 128 registers a thread; on the culled sweeps (step 5) K1's
+// and K2's CULL_BLOCKS_FWD, K4's CULL_BLOCKS_REPLAY
+constexpr int CULL_BLOCKS_FWD = 8, CULL_BLOCKS_REPLAY = 6;
+template <int MODE, bool CULL = false>
+constexpr int min_blocks_of() {
+  return !CULL ? 16 * 32 / threads_of<MODE>()
+               : MODE == MODE_REPLAY ? CULL_BLOCKS_REPLAY : CULL_BLOCKS_FWD;
+}
 
 // K1, K2 and K4's view of the scene: pack_tables' tables and the colour,
 // emission, exponent, light and texture tables, in shared memory (SH) or in
 // device memory
+// Past REFILL_MAX_ROWS surfaces (CULL, step 5): each class's visit order,
+// planar rows then spheres, and the padded bounds of its 8-row blocks and of
+// its superblocks (wavefront.py cull_tables), in device memory; on: cfg.cull
+// is not "off"
+struct Cull {
+  const int *pl, *sp;
+  const float4 *pl_b, *sp_b, *pl_s, *sp_s;
+  bool on;
+};
+
 template <bool SH>
 struct KScene : SceneT<SH> {
   const float *diffuse, *specular, *emission, *exponent, *light_emit, *env, *texa, *texb;
+  Cull C;  // CULL only
 };
 
 // ---- geometry --------------------------------------------------------------
@@ -202,6 +251,44 @@ __device__ bool planar_hit(const SC& S, const float* P, int kind, int fast, V o,
   return inside;
 }
 
+// sphere j's nearest crossing past EPS -> whether the ray takes it, and its t
+template <class SC>
+__device__ __forceinline__ bool sphere_hit(const SC& S, int j, V o, V d, float& t) {
+  const float* sp = S.SPF + SP_F * j;
+  float r2 = S.ldf(sp + 4);
+  V oc = S.ld3f(sp) - o;
+  float neg_b = vdot(oc, d);
+  V perp = oc - d * neg_b;
+  float discr = r2 - vdot(perp, perp);
+  float sq = safe_sqrt(discr);
+  float cc = vdot(oc, oc) - r2;
+  float sgn = neg_b >= 0.f ? 1.0f : -1.0f;
+  float q = neg_b + sgn * sq;
+  float tq = cc / q;
+  float t1 = jmin(q, tq), t2 = jmax(q, tq);
+  bool t1_ok = t1 > EPS, t2_ok = t2 > EPS;
+  t = t1_ok ? t1 : t2;
+  return discr >= 0.f && (t1_ok || t2_ok);
+}
+
+// the normal of row sid (-1: none) hit at t_best
+template <class SC>
+__device__ __forceinline__ V hit_normal(const SC& S, V o, V d, float t_best, int sid) {
+  V nrm = vmk(0.f, 0.f, 0.f);
+  if (sid >= 0 && sid < S.n_pl) {
+    nrm = S.ld3f(S.PLF + PL_F * sid);
+    if (S.ldi(S.PLI + PL_I * sid) == RECT && (nrm.x * d.x + nrm.y * d.y) + nrm.z * d.z > 0.f)
+      nrm = -nrm;
+  } else if (sid >= S.n_pl) {
+    const float* sp = S.SPF + SP_F * (sid - S.n_pl);
+    float inv_r = S.ldf(sp + 5);
+    nrm = vmk((o.x + d.x * t_best - S.ldf(sp)) * inv_r,
+              (o.y + d.y * t_best - S.ldf(sp + 1)) * inv_r,
+              (o.z + d.z * t_best - S.ldf(sp + 2)) * inv_r);
+  }
+  return nrm;
+}
+
 // closest hit -> t, sid (-1 on a miss) and the winner's normal
 template <class SC>
 __device__ void closest_hit(const SC& S, V o, V d, float& t_best, int& sid, V& nrm) {
@@ -214,57 +301,44 @@ __device__ void closest_hit(const SC& S, V o, V d, float& t_best, int& sid, V& n
     if (inside && t > EPS && t < t_best) { t_best = t; sid = row; }
   }
   for (int j = 0; j < S.n_sp; ++j) {
-    const float* sp = S.SPF + SP_F * j;
-    float r2 = S.ldf(sp + 4);
-    V oc = S.ld3f(sp) - o;
-    float neg_b = vdot(oc, d);
-    V perp = oc - d * neg_b;
-    float discr = r2 - vdot(perp, perp);
-    float sq = safe_sqrt(discr);
-    float cc = vdot(oc, oc) - r2;
-    float sgn = neg_b >= 0.f ? 1.0f : -1.0f;
-    float q = neg_b + sgn * sq;
-    float tq = cc / q;
-    float t1 = jmin(q, tq), t2 = jmax(q, tq);
-    bool t1_ok = t1 > EPS, t2_ok = t2 > EPS;
-    float t = t1_ok ? t1 : t2;
-    if (discr >= 0.f && (t1_ok || t2_ok) && t < t_best) { t_best = t; sid = S.n_pl + j; }
+    float t;
+    if (sphere_hit(S, j, o, d, t) && t < t_best) { t_best = t; sid = S.n_pl + j; }
   }
-  nrm = vmk(0.f, 0.f, 0.f);
-  if (sid >= 0 && sid < S.n_pl) {
-    nrm = S.ld3f(S.PLF + PL_F * sid);
-    if (S.ldi(S.PLI + PL_I * sid) == RECT && (nrm.x * d.x + nrm.y * d.y) + nrm.z * d.z > 0.f)
-      nrm = -nrm;
-  } else if (sid >= S.n_pl) {
-    const float* sp = S.SPF + SP_F * (sid - S.n_pl);
-    float inv_r = S.ldf(sp + 5);
-    nrm = vmk((o.x + d.x * t_best - S.ldf(sp)) * inv_r,
-              (o.y + d.y * t_best - S.ldf(sp + 1)) * inv_r,
-              (o.z + d.z * t_best - S.ldf(sp + 2)) * inv_r);
-  }
+  nrm = hit_normal(S, o, d, t_best, sid);
 }
 
-// nee="single" occlusion (_any_hit): rows skippable for every light are left
-// out; under shadow="robust" so are the surfaces bound to the picked light
+// nee="single" occlusion of one row (_any_hit): rows skippable for every
+// light are left out; under shadow="robust" so are the surfaces bound to
+// the picked light
+template <class SC>
+__device__ __forceinline__ bool planar_occludes(const SC& S, int row, V o, V d, float tmax,
+                                                int gate_light) {
+  const int* pi = S.PLI + PL_I * row;
+  if (S.ldi(pi + 3)) return false;
+  if (gate_light >= 0 && S.ldi(S.MATI + MAT_I * row + 1) == gate_light) return false;
+  float t;
+  bool inside = planar_hit(S, S.PLF + PL_F * row, S.ldi(pi), S.ldi(pi + 1), o, d, t);
+  return inside && t > EPS && t < tmax;
+}
+
+template <class SC>
+__device__ __forceinline__ bool sphere_blocks(const SC& S, int j, V o, V d, float tmax,
+                                              int gate_light) {
+  if (gate_light >= 0 && S.ldi(S.MATI + MAT_I * (S.n_pl + j) + 1) == gate_light) return false;
+  const float* sp = S.SPF + SP_F * j;
+  V oc = S.ld3f(sp) - o;
+  float neg_b = vdot(oc, d);
+  V perp = oc - d * neg_b;
+  float discr = S.ldf(sp + 4) - vdot(perp, perp);
+  return sphere_occludes(neg_b, discr, tmax);
+}
+
 template <class SC>
 __device__ bool any_hit_single(const SC& S, V o, V d, float tmax, int gate_light) {
-  for (int row = 0; row < S.n_pl; ++row) {
-    const int* pi = S.PLI + PL_I * row;
-    if (S.ldi(pi + 3)) continue;
-    if (gate_light >= 0 && S.ldi(S.MATI + MAT_I * row + 1) == gate_light) continue;
-    float t;
-    bool inside = planar_hit(S, S.PLF + PL_F * row, S.ldi(pi), S.ldi(pi + 1), o, d, t);
-    if (inside && t > EPS && t < tmax) return true;
-  }
-  for (int j = 0; j < S.n_sp; ++j) {
-    if (gate_light >= 0 && S.ldi(S.MATI + MAT_I * (S.n_pl + j) + 1) == gate_light) continue;
-    const float* sp = S.SPF + SP_F * j;
-    V oc = S.ld3f(sp) - o;
-    float neg_b = vdot(oc, d);
-    V perp = oc - d * neg_b;
-    float discr = S.ldf(sp + 4) - vdot(perp, perp);
-    if (sphere_occludes(neg_b, discr, tmax)) return true;
-  }
+  for (int row = 0; row < S.n_pl; ++row)
+    if (planar_occludes(S, row, o, d, tmax, gate_light)) return true;
+  for (int j = 0; j < S.n_sp; ++j)
+    if (sphere_blocks(S, j, o, d, tmax, gate_light)) return true;
   return false;
 }
 
@@ -281,10 +355,15 @@ static_assert(FWD_THREADS == RAY_STRIDE && LANE_THREADS == RAY_STRIDE, "one colu
 static_assert(MASK_LIGHTS % NEE_CHUNK == 0, "a chunk's lights in one skip word");
 struct ShadowRays {
   enum { WX, WY, WZ, TMAX, ND, VAL, WGT, FIELDS };
+  // CULL: 1 / |wi|^2 and the cull slack of each ray, after the chunk's rays
+  enum { IWW, SLK, CULL_FIELDS };
   float* p;
   int chunk;
   __device__ __forceinline__ float& at(int f, int k) const {
     return p[(k * FIELDS + f) * RAY_STRIDE];
+  }
+  __device__ __forceinline__ float& cull(int f, int k) const {
+    return p[(chunk * FIELDS + k * CULL_FIELDS + f) * RAY_STRIDE];
   }
   __device__ __forceinline__ V wi(int k) const { return vmk(at(WX, k), at(WY, k), at(WZ, k)); }
 };
@@ -298,69 +377,226 @@ struct ShadowRays {
 // MASK_LIGHTS): lights 0-31 in the records' own field, later ones in the
 // words after the texture records (SceneT::XMI), a planar row's at
 // pm[pstride * row] and a sphere's at sm[sstride * j] either way.
+// The skip words of the chunk of lights i0 .. (shadow_sweep): a planar
+// row's at pm[pstride * row], a sphere's at sm[sstride * j], the chunk's
+// bits from bit sh
+struct SkipWords {
+  const int *pm, *sm;
+  int pstride, sstride, sh;
+};
+
+template <class SC>
+__device__ __forceinline__ SkipWords skip_words(const SC& S, int i0) {
+  const int g = i0 / MASK_LIGHTS;  // the chunk's skip word
+  const int* xm = S.XMI + (g > 0 ? g - 1 : 0) * (S.n_pl + S.n_sp);
+  return SkipWords{g ? xm : S.PLI + 2, g ? xm + S.n_pl : S.SPI, g ? 1 : PL_I, g ? 1 : SP_I,
+                   i0 % MASK_LIGHTS};
+}
+
+// planar row `row` against the rays of `cand` whose skip bit for it is
+// clear: the rays it occludes are cleared from pend
+template <class SC>
+__device__ __forceinline__ void shadow_planar(const SC& S, const SkipWords& W, V hp, V ns,
+                                              const ShadowRays& R, int row, uint32_t cand,
+                                              uint32_t& pend) {
+  const int* pi = S.PLI + PL_I * row;
+  const uint32_t test = cand & ~((uint32_t)S.ldi(W.pm + W.pstride * row) >> W.sh);
+  if (!test) return;
+  const int kind = S.ldi(pi), fast = S.ldi(pi + 1);
+  const float* P = S.PLF + PL_F * row;
+  if (kind == DISK || !fast) {
+    for (uint32_t m = test; m; m &= m - 1) {
+      const int k = __ffs(m) - 1;
+      const float se = R.at(R.ND, k) < 0.f ? -OFF : OFF;
+      float t;
+      const bool inside = planar_hit(S, P, kind, fast, hp + ns * se, R.wi(k), t);
+      if (inside && t > EPS && t < R.at(R.TMAX, k)) pend &= ~(1u << k);
+    }
+    return;
+  }
+  const V n = S.ld3f(P), f1 = S.ld3f(P + 19), f2 = S.ld3f(P + 22);
+  const float num_h = S.ldf(P + 25) - cdot(n, hp);
+  const float num_n = cdot(n, ns);
+  const float a_h = cdot(f1, hp) - S.ldf(P + 26);
+  const float a_n = cdot(f1, ns);
+  const float b_h = cdot(f2, hp) - S.ldf(P + 27);
+  const float b_n = cdot(f2, ns);
+  for (uint32_t m = test; m; m &= m - 1) {
+    const int k = __ffs(m) - 1;
+    const V wi = R.wi(k);
+    const float se = R.at(R.ND, k) < 0.f ? -OFF : OFF;
+    const float num = num_h - se * num_n;
+    const float t = num / cdot(n, wi);
+    const float a = (a_h + se * a_n) + t * cdot(f1, wi);
+    const float b = (b_h + se * b_n) + t * cdot(f2, wi);
+    const bool inside = kind == TRI ? (a >= 0.f && b >= 0.f && a + b <= 1.0f)
+                                    : (a >= 0.f && a <= 1.0f && b >= 0.f && b <= 1.0f);
+    if (inside && t > EPS && t < R.at(R.TMAX, k)) pend &= ~(1u << k);
+  }
+}
+
+// sphere j, as shadow_planar
+template <class SC>
+__device__ __forceinline__ void shadow_sphere(const SC& S, const SkipWords& W, V hp, V ns,
+                                              const ShadowRays& R, int j, uint32_t cand,
+                                              uint32_t& pend) {
+  const uint32_t test = cand & ~((uint32_t)S.ldi(W.sm + W.sstride * j) >> W.sh);
+  if (!test) return;
+  const float* sp = S.SPF + SP_F * j;
+  const V vc = S.ld3f(sp) - hp;
+  const float vc2 = vdot(vc, vc);
+  const float vcn = vdot(vc, ns);
+  const float r2 = S.ldf(sp + 4);
+  for (uint32_t m = test; m; m &= m - 1) {
+    const int k = __ffs(m) - 1;
+    const float nd = R.at(R.ND, k);
+    const float se = nd < 0.f ? -OFF : OFF;
+    const float neg_b = vdot(vc, R.wi(k)) - se * nd;
+    const float oc2 = (vc2 - (2.0f * se) * vcn) + OFF2;
+    const float discr = (r2 - oc2) + neg_b * neg_b;
+    if (sphere_occludes(neg_b, discr, R.at(R.TMAX, k))) pend &= ~(1u << k);
+  }
+}
+
 template <class SC>
 __device__ __forceinline__ uint32_t shadow_sweep(const SC& S, V hp, V ns, const ShadowRays& R,
                                                  uint32_t pend, int i0) {
-  const int g = i0 / MASK_LIGHTS;  // the chunk's skip word
-  const int* xm = S.XMI + (g > 0 ? g - 1 : 0) * (S.n_pl + S.n_sp);
-  const int* pm = g ? xm : S.PLI + 2;
-  const int* sm = g ? xm + S.n_pl : S.SPI;
-  const int pstride = g ? 1 : PL_I, sstride = g ? 1 : SP_I;
-  const int sh = i0 % MASK_LIGHTS;
-  for (int row = 0; row < S.n_pl && pend; ++row) {
-    const int* pi = S.PLI + PL_I * row;
-    const uint32_t test = pend & ~((uint32_t)S.ldi(pm + pstride * row) >> sh);
-    if (!test) continue;
-    const int kind = S.ldi(pi), fast = S.ldi(pi + 1);
-    const float* P = S.PLF + PL_F * row;
-    if (kind == DISK || !fast) {
-      for (uint32_t m = test; m; m &= m - 1) {
-        const int k = __ffs(m) - 1;
-        const float se = R.at(R.ND, k) < 0.f ? -OFF : OFF;
-        float t;
-        const bool inside = planar_hit(S, P, kind, fast, hp + ns * se, R.wi(k), t);
-        if (inside && t > EPS && t < R.at(R.TMAX, k)) pend &= ~(1u << k);
+  const SkipWords W = skip_words(S, i0);
+  for (int row = 0; row < S.n_pl && pend; ++row) shadow_planar(S, W, hp, ns, R, row, pend, pend);
+  for (int j = 0; j < S.n_sp && pend; ++j) shadow_sphere(S, W, hp, ns, R, j, pend, pend);
+  return pend;
+}
+
+// ---- the block cull past REFILL_MAX_ROWS surfaces (step 5) -----------------
+
+// body(s) for each visit slot s of a class of nr rows whose superblock and
+// block the warp visits, until it returns false for the block: open()
+// before each superblock (false: the sweep ends), visit_sup(bound) for a
+// superblock's bound, visit_blk(bound) for each of its blocks'
+template <class Open, class VisitSup, class VisitBlk, class Body>
+__device__ __forceinline__ void for_visited(const float4* sup, const float4* bnd, int nr,
+                                            Open&& open, VisitSup&& visit_sup,
+                                            VisitBlk&& visit_blk, Body&& body) {
+  for (int sb = 0; sb < supers_of(nr); ++sb) {
+    if (!open()) return;
+    if (!visit_sup(sup + sb)) continue;
+    const int b1 = min(blocks_of(nr), (sb + 1) * SUPER_BLOCKS);
+    for (int blk = sb * SUPER_BLOCKS; blk < b1; ++blk) {
+      if (!visit_blk(bnd + blk)) continue;
+      const int s1 = min(nr, (blk + 1) * BLOCK_ROWS);
+      for (int s = blk * BLOCK_ROWS; s < s1 && body(s); ++s) {
       }
-      continue;
     }
-    const V n = S.ld3f(P), f1 = S.ld3f(P + 19), f2 = S.ld3f(P + 22);
-    const float num_h = S.ldf(P + 25) - cdot(n, hp);
-    const float num_n = cdot(n, ns);
-    const float a_h = cdot(f1, hp) - S.ldf(P + 26);
-    const float a_n = cdot(f1, ns);
-    const float b_h = cdot(f2, hp) - S.ldf(P + 27);
-    const float b_n = cdot(f2, ns);
-    for (uint32_t m = test; m; m &= m - 1) {
-      const int k = __ffs(m) - 1;
-      const V wi = R.wi(k);
+  }
+}
+
+// closest_hit over the visit order, every lane of `mask` (the warp's live
+// lanes) calling it: a superblock's blocks, and a block's rows, are skipped
+// when no lane's ray can meet its bound over [0, t_best]. The winner is the
+// least (t, sid), the scene order's first row at the least t, whatever the
+// order of the visit.
+template <class SC>
+__device__ void closest_culled(const SC& S, V o, V d, uint32_t mask, float& t_best, int& sid,
+                               V& nrm) {
+  const Cull& C = S.C;
+  t_best = __int_as_float(0x7f800000);
+  sid = -1;
+  float inv_dd = 0.f, slack = 0.f;
+  if (C.on) slack = cull_slack(o, d, inv_dd);
+  auto open = [] { return true; };
+  auto visit = [&](const float4* b) {
+    return !C.on || __any_sync(mask, block_meets(__ldg(b), o, d, inv_dd, t_best, slack));
+  };
+  auto take = [&](float t, int row) {
+    if (t < t_best || (t == t_best && row < sid)) {
+      t_best = t;
+      sid = row;
+    }
+  };
+  for_visited(C.pl_s, C.pl_b, S.n_pl, open, visit, visit, [&](int s) {
+    const int row = __ldg(C.pl + s);
+    const int* pi = S.PLI + PL_I * row;
+    float t;
+    if (planar_hit(S, S.PLF + PL_F * row, S.ldi(pi), S.ldi(pi + 1), o, d, t) && t > EPS)
+      take(t, row);
+    return true;
+  });
+  for_visited(C.sp_s, C.sp_b, S.n_sp, open, visit, visit, [&](int s) {
+    const int j = __ldg(C.sp + s);
+    float t;
+    if (sphere_hit(S, j, o, d, t)) take(t, S.n_pl + j);
+    return true;
+  });
+  nrm = hit_normal(S, o, d, t_best, sid);
+}
+
+// any_hit_single over the visit order, every lane of `mask` (those with a
+// shadow ray) calling it: a bound is visited while a lane whose ray is still
+// open meets it over [0, tmax], and the lanes leave together
+template <class SC>
+__device__ bool any_hit_culled(const SC& S, V o, V d, float tmax, int gate_light,
+                               uint32_t mask) {
+  const Cull& C = S.C;
+  bool hit = false, mine = false;  // mine: this lane's ray meets the last bound
+  float inv_dd = 0.f, slack = 0.f;
+  if (C.on) slack = cull_slack(o, d, inv_dd);
+  auto open = [&] { return C.on ? __any_sync(mask, !hit) : !hit; };
+  auto visit = [&](const float4* b) {
+    mine = !hit && (!C.on || block_meets(__ldg(b), o, d, inv_dd, tmax, slack));
+    return C.on ? __any_sync(mask, mine) : mine;
+  };
+  for_visited(C.pl_s, C.pl_b, S.n_pl, open, visit, visit, [&](int s) {
+    if (mine) hit = planar_occludes(S, __ldg(C.pl + s), o, d, tmax, gate_light);
+    return mine && !hit;
+  });
+  for_visited(C.sp_s, C.sp_b, S.n_sp, open, visit, visit, [&](int s) {
+    if (mine) hit = sphere_blocks(S, __ldg(C.sp + s), o, d, tmax, gate_light);
+    return mine && !hit;
+  });
+  return hit;
+}
+
+// shadow_sweep over the visit order, every lane of `mask` (those with rays
+// in pend) calling it: a bound is tested for each ray still pending that
+// may meet it over [0, tmax] from its offset origin, visited while a lane
+// has one, and the lanes leave together once no ray of the warp is pending
+template <class SC>
+__device__ uint32_t shadow_sweep_culled(const SC& S, V hp, V ns, const ShadowRays& R,
+                                        uint32_t pend, int i0, uint32_t mask) {
+  const Cull& C = S.C;
+  const SkipWords W = skip_words(S, i0);
+  // the pending rays that meet the superblock, and its block, being visited
+  uint32_t sup = 0, mine = 0;
+  auto open = [&] { return C.on ? __any_sync(mask, pend != 0) : pend != 0; };
+  auto rays_of = [&](const float4* b, uint32_t cand) {
+    if (!C.on) return cand;
+    const float4 bb = __ldg(b);
+    uint32_t m = 0;
+    for (uint32_t q = cand; q; q &= q - 1) {
+      const int k = __ffs(q) - 1;
       const float se = R.at(R.ND, k) < 0.f ? -OFF : OFF;
-      const float num = num_h - se * num_n;
-      const float t = num / cdot(n, wi);
-      const float a = (a_h + se * a_n) + t * cdot(f1, wi);
-      const float b = (b_h + se * b_n) + t * cdot(f2, wi);
-      const bool inside = kind == TRI ? (a >= 0.f && b >= 0.f && a + b <= 1.0f)
-                                      : (a >= 0.f && a <= 1.0f && b >= 0.f && b <= 1.0f);
-      if (inside && t > EPS && t < R.at(R.TMAX, k)) pend &= ~(1u << k);
+      if (block_meets(bb, hp + ns * se, R.wi(k), R.cull(R.IWW, k), R.at(R.TMAX, k),
+                      R.cull(R.SLK, k)))
+        m |= 1u << k;
     }
-  }
-  for (int j = 0; j < S.n_sp && pend; ++j) {
-    const uint32_t test = pend & ~((uint32_t)S.ldi(sm + sstride * j) >> sh);
-    if (!test) continue;
-    const float* sp = S.SPF + SP_F * j;
-    const V vc = S.ld3f(sp) - hp;
-    const float vc2 = vdot(vc, vc);
-    const float vcn = vdot(vc, ns);
-    const float r2 = S.ldf(sp + 4);
-    for (uint32_t m = test; m; m &= m - 1) {
-      const int k = __ffs(m) - 1;
-      const float nd = R.at(R.ND, k);
-      const float se = nd < 0.f ? -OFF : OFF;
-      const float neg_b = vdot(vc, R.wi(k)) - se * nd;
-      const float oc2 = (vc2 - (2.0f * se) * vcn) + OFF2;
-      const float discr = (r2 - oc2) + neg_b * neg_b;
-      if (sphere_occludes(neg_b, discr, R.at(R.TMAX, k))) pend &= ~(1u << k);
-    }
-  }
+    return m;
+  };
+  auto visit_sup = [&](const float4* b) {
+    sup = rays_of(b, pend);
+    return C.on ? __any_sync(mask, sup != 0) : sup != 0;
+  };
+  auto visit_blk = [&](const float4* b) {
+    mine = rays_of(b, sup & pend);
+    return C.on ? __any_sync(mask, mine != 0) : mine != 0;
+  };
+  for_visited(C.pl_s, C.pl_b, S.n_pl, open, visit_sup, visit_blk, [&](int s) {
+    if (mine & pend) shadow_planar(S, W, hp, ns, R, __ldg(C.pl + s), mine & pend, pend);
+    return (mine & pend) != 0;
+  });
+  for_visited(C.sp_s, C.sp_b, S.n_sp, open, visit_sup, visit_blk, [&](int s) {
+    if (mine & pend) shadow_sphere(S, W, hp, ns, R, __ldg(C.sp + s), mine & pend, pend);
+    return (mine & pend) != 0;
+  });
   return pend;
 }
 
@@ -402,6 +638,11 @@ struct Args {
   // K4 on ACC_DEVICE: the blocks' accumulators, n_cols * LANE_THREADS
   // floats a block
   float* wide;
+  // past REFILL_MAX_ROWS surfaces: the visit order and the cull bounds
+  // (Cull), else null; and whether to cull
+  const int* vis;
+  const float4* bnd;
+  int cull;
 };
 
 // One lane's path state, kept by the thread that traces it: everything that
@@ -471,10 +712,10 @@ __device__ __forceinline__ void acc_add3(const A& acc, int col, V v) {
   q[2 * A::STRIDE] = q[2 * A::STRIDE] + v.z;
 }
 
-template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, class A>
+template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, bool CULL = false, class A>
 __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
                                             const ResPlanes& rp, const ShadowRays& R, Lane& L,
-                                            A acc) {
+                                            A acc, uint32_t mask = 0xffffffffu) {
   const int n = a.n;
   const int lane_id = L.id;
   const int bounce = L.bounce;
@@ -511,7 +752,10 @@ __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
   float t;
   int sid;
   V nrm;
-  closest_hit(S, o, d, t, sid, nrm);
+  if constexpr (CULL)
+    closest_culled(S, o, d, mask, t, sid, nrm);
+  else
+    closest_hit(S, o, d, t, sid, nrm);
   bool valid = sid >= 0;
   float t_safe = valid ? t : 1.0f;
   V hp = o + d * t_safe;
@@ -678,8 +922,15 @@ __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
     bool ok = nee_base && sm.pdf > 0.f;
     float tm = sm.dist - SHADOW_EPS;
     if (a.robust) tm = tm - OFF * fabsf(vdot(nrm, sm.wi));
-    bool occ = ok && any_hit_single(S, offset_origin(hp, nrm, sm.wi), sm.wi, tm,
-                                    a.robust ? pick : -1);
+    bool occ;
+    if constexpr (CULL) {
+      const uint32_t omask = __ballot_sync(mask, ok);
+      occ = ok && any_hit_culled(S, offset_origin(hp, nrm, sm.wi), sm.wi, tm,
+                                 a.robust ? pick : -1, omask);
+    } else {
+      occ = ok && any_hit_single(S, offset_origin(hp, nrm, sm.wi), sm.wi, tm,
+                                 a.robust ? pick : -1);
+    }
     float okf = (ok && !occ) ? w * (float)S.L : 0.f;
     float bp = ((sm.li_s * ucos) * okf) * lobe_scale;
     ld = (col_nee * emit_l) * bp;
@@ -722,9 +973,20 @@ __device__ __forceinline__ bool lane_bounce(const Args& a, const KScene<SH>& S,
         R.at(R.ND, k) = nd;
         R.at(R.VAL, k) = sm.li_s * ucos;
         R.at(R.WGT, k) = w;
+        if constexpr (CULL) {
+          float iww;
+          R.cull(R.SLK, k) = cull_slack(hp + nrm * (nd < 0.f ? -OFF : OFF), sm.wi, iww);
+          R.cull(R.IWW, k) = iww;
+        }
       }
       // 2. one sweep of the rows for every live ray
-      const uint32_t clear = shadow_sweep(S, hp, nrm, R, live, i0);
+      uint32_t clear;
+      if constexpr (CULL) {
+        const uint32_t omask = __ballot_sync(mask, live != 0);
+        clear = live ? shadow_sweep_culled(S, hp, nrm, R, live, i0, omask) : 0u;
+      } else {
+        clear = shadow_sweep(S, hp, nrm, R, live, i0);
+      }
       // 3. accumulate in light order
       for (int k = 0; k < nk; ++k) {
         const int i = i0 + k;
@@ -909,15 +1171,27 @@ __device__ __forceinline__ void stage_copy(T* dst, const T* src, int n) {
 }
 
 // The block's view of the scene: under SH its tables copied into `smem` once
-// (every thread of the block must call it), else the tables in device memory.
-template <bool SH, bool TEX>
+// (every thread of the block must call it), else the tables in device memory,
+// with (CULL) the cull's visit order and bounds.
+template <bool SH, bool TEX, bool CULL = false>
 __device__ __forceinline__ KScene<SH> stage_scene(const Args& a, float* smem) {
+  static_assert(!(SH && CULL), "the cull reads the tables from device memory");
   KScene<SH> S;
   if constexpr (!SH) {
     S.init(a.F, a.I);
     S.diffuse = a.diffuse; S.specular = a.specular; S.emission = a.emission;
     S.exponent = a.exponent; S.light_emit = a.light_emit; S.env = a.env;
     S.texa = a.texa; S.texb = a.texb;
+    if constexpr (CULL) {
+      Cull& C = S.C;
+      C.pl = a.vis;
+      C.sp = a.vis + S.n_pl;
+      C.pl_b = a.bnd;
+      C.sp_b = C.pl_b + blocks_of(S.n_pl);
+      C.pl_s = C.sp_b + blocks_of(S.n_sp);
+      C.sp_s = C.pl_s + supers_of(S.n_pl);
+      C.on = a.cull != 0;
+    }
   } else {
     const int* I = a.I;
     const int n_pl = __ldg(I), n_sp = __ldg(I + 1), M = __ldg(I + H_M), L = __ldg(I + H_L),
@@ -958,8 +1232,10 @@ __device__ __forceinline__ KScene<SH> stage_scene(const Args& a, float* smem) {
 
 // Each warp traces its chunk of lanes [base, base + a.chunk), a slot taking
 // the next lane in order when its lane ends (step 3); K4 adds each lane's
-// adjoints to its slot's row `acc`.
-template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, class A>
+// adjoints to its slot's row `acc`. CULL (no refill, a lane a thread): every
+// thread stays in the loop until the warp's last lane ends, and the lanes
+// still tracing pass their ballot to the sweeps' votes (step 5).
+template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, bool CULL, class A>
 __device__ __forceinline__ void trace_chunk(const Args& a, const KScene<SH>& S,
                                             const ResPlanes& rp, const ShadowRays& R, A acc) {
   // acc: K4's view of this slot's row
@@ -973,7 +1249,13 @@ __device__ __forceinline__ void trace_chunk(const Args& a, const KScene<SH>& S,
   if (active) lane_start<MODE, SOBOL>(a, (int)(base + slot), L);
   while (__any_sync(0xffffffffu, active)) {
     bool done = false;
-    if (active) {
+    if constexpr (CULL) {
+      const uint32_t mask = __ballot_sync(0xffffffffu, active);
+      if (active) {
+        done = lane_bounce<MODE, SOBOL, TEX, ROWTAG, SH, CULL>(a, S, rp, R, L, acc, mask);
+        if (done) lane_finish<MODE, TEX, ROWTAG, SH>(a, S, rp, L);
+      }
+    } else if (active) {
       done = lane_bounce<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R, L, acc);
       if (done) lane_finish<MODE, TEX, ROWTAG, SH>(a, S, rp, L);
     }
@@ -992,27 +1274,28 @@ __device__ __forceinline__ void trace_chunk(const Args& a, const KScene<SH>& S,
 // column into the partials table (lane_sum.cuh); ACC (an AccRoute): each
 // row a local array, or a column of the block's accumulator in dynamic
 // shared memory or in device memory (a row past the local array).
-template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, int ACC>
-__global__ void __launch_bounds__(threads_of<MODE>(), min_blocks_of<MODE>())
+template <int MODE, bool SOBOL, bool TEX, bool ROWTAG, bool SH, int ACC, bool CULL>
+__global__ void __launch_bounds__(threads_of<MODE>(), min_blocks_of<MODE, CULL>())
     wavefront_fwd_kernel(const Args a) {
   extern __shared__ float4 smem4[];
-  const KScene<SH> S = stage_scene<SH, TEX>(a, (float*)smem4);
+  const KScene<SH> S = stage_scene<SH, TEX, CULL>(a, (float*)smem4);
   const ResPlanes rp = res_planes(S.env_i >= 0, S.single, S.L, S.texp, TEX && S.has_img);
   float* rays = (float*)smem4 + a.stage_words;
   const ShadowRays R{rays + threadIdx.x, a.nee_rays};
   if constexpr (MODE != MODE_REPLAY) {
-    trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R, RowAcc{nullptr, nullptr});
+    trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH, CULL>(a, S, rp, R, RowAcc{nullptr, nullptr});
   } else if constexpr (ACC != ACC_LOCAL) {
-    float* cols = ACC == ACC_SHARED ? rays + ShadowRays::FIELDS * a.nee_rays * RAY_STRIDE
+    constexpr int fields = ShadowRays::FIELDS + (CULL ? ShadowRays::CULL_FIELDS : 0);
+    float* cols = ACC == ACC_SHARED ? rays + fields * a.nee_rays * RAY_STRIDE
                                     : a.wide + (size_t)blockIdx.x * a.n_cols * RAY_STRIDE;
     for (int k = 0; k < a.n_cols; ++k) cols[k * RAY_STRIDE + threadIdx.x] = 0.f;
-    trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R,
-                                              ColAcc{cols + threadIdx.x, a.cmap});
+    trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH, CULL>(a, S, rp, R,
+                                                    ColAcc{cols + threadIdx.x, a.cmap});
     block_col_sums(cols, a.n_cols, a.partial, a.n_blocks);
   } else {
     float row[ROWTAG ? ROW_COLS : MAX_ROW];
     for (int k = 0; k < a.n_cols; ++k) row[k] = 0.f;
-    trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH>(a, S, rp, R, RowAcc{row, a.cmap});
+    trace_chunk<MODE, SOBOL, TEX, ROWTAG, SH, CULL>(a, S, rp, R, RowAcc{row, a.cmap});
     block_row_sums(row, a.n_cols, a.partial, a.n_blocks);
   }
 }
@@ -1068,14 +1351,15 @@ cudaError_t prepare(Cache& c, K k, int dev, int threads, int smem, int& per_sm) 
 // dynamic shared memory: the staged tables, then the shadow rays' block,
 // then (K4 on a shared-memory route) the accumulator's. chunk_only: set
 // a.chunk and a.n_blocks and launch nothing.
-template <int MODE, bool TEX, bool ROWTAG, bool SH, int ACC>
+template <int MODE, bool TEX, bool ROWTAG, bool SH, int ACC, bool CULL = false>
 cudaError_t launch_kernel(Args& a, bool chunk_only, void* stream) {
   static Cache cache[2];  // this instantiation's kernels: sobol or not
   const bool sobol = a.sampler == S_SOBOL;
-  auto k = sobol ? wavefront_fwd_kernel<MODE, true, TEX, ROWTAG, SH, ACC>
-                 : wavefront_fwd_kernel<MODE, false, TEX, ROWTAG, SH, ACC>;
+  auto k = sobol ? wavefront_fwd_kernel<MODE, true, TEX, ROWTAG, SH, ACC, CULL>
+                 : wavefront_fwd_kernel<MODE, false, TEX, ROWTAG, SH, ACC, CULL>;
   constexpr int threads = threads_of<MODE>();
-  const long long words = (long long)a.stage_words + ShadowRays::FIELDS * a.nee_rays * threads +
+  constexpr int fields = ShadowRays::FIELDS + (CULL ? ShadowRays::CULL_FIELDS : 0);
+  const long long words = (long long)a.stage_words + fields * a.nee_rays * threads +
                           (ACC == ACC_SHARED ? (long long)a.n_cols * threads : 0);
   if (4 * words > MAX_SMEM) return cudaErrorInvalidValue;
   const int smem = (int)(4 * words);
@@ -1114,8 +1398,16 @@ cudaError_t launch_kernel(Args& a, bool chunk_only, void* stream) {
   return cudaSuccess;
 }
 
+// past REFILL_MAX_ROWS surfaces (a.vis given: the tables in device memory, no
+// refill) the culled sweeps of step 5; K4 there only row-tagged
 template <int MODE, bool TEX, bool ROWTAG, int ACC>
 cudaError_t launch_acc(Args& a, bool chunk_only, void* stream) {
+  if (a.vis != nullptr) {
+    if (a.stage_words > 0 || a.refill || a.bnd == nullptr || (MODE == MODE_REPLAY && !ROWTAG))
+      return cudaErrorInvalidValue;
+    if constexpr (MODE != MODE_REPLAY || ROWTAG)
+      return launch_kernel<MODE, TEX, ROWTAG, false, ACC, true>(a, chunk_only, stream);
+  }
   if (a.stage_words > 0) return launch_kernel<MODE, TEX, ROWTAG, true, ACC>(a, chunk_only, stream);
   return launch_kernel<MODE, TEX, ROWTAG, false, ACC>(a, chunk_only, stream);
 }
@@ -1180,7 +1472,11 @@ int launch(Args& a, int textured, int stage_bytes, int nee_rays, int refill, voi
 // STAGE_BUDGET, or 0 to read them from device memory; nee_rays: the
 // shadow rays a chunk of the nee="all" light loop holds, min(L, NEE_CHUNK)
 // (0 under nee="single"); refill: K1 and K2 refill the slots of dead lanes
-// (wavefront.py REFILL_MAX_ROWS).
+// (wavefront.py REFILL_MAX_ROWS); vis, bnd: past REFILL_MAX_ROWS surfaces
+// the cull's visit order (int32, planar rows then spheres) and its (blocks +
+// superblocks, 4) float32 bounds (wavefront.py cull_tables), which take the
+// culled sweeps of step 5 (with stage_bytes and refill 0), else null; cull:
+// whether they skip blocks (cfg.cull is not "off").
 // K1: radiance only.
 extern "C" int kytpu_wavefront_fwd(const float* F, const int* I, const float* diffuse,
                                    const float* specular, const float* emission,
@@ -1190,11 +1486,15 @@ extern "C" int kytpu_wavefront_fwd(const float* F, const int* I, const float* di
                                    const int* si, const int* pix, float* out, int n, int seed,
                                    int max_depth, int rr_start, int rows, int sampler,
                                    int robust, int textured, int stage_bytes, int nee_rays,
-                                   int refill, void* stream) {
+                                   int refill, const int* vis, const float* bnd, int cull,
+                                   void* stream) {
   Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
          out, nullptr, nullptr, nullptr, nullptr, nullptr,
          n, 0, 0, seed, max_depth, rr_start, rows, sampler, robust,
          texa, texb, timg, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, 0};
+  a.vis = vis;
+  a.bnd = (const float4*)bnd;
+  a.cull = cull;
   return launch<MODE_FWD>(a, textured, stage_bytes, nee_rays, refill, stream);
 }
 
@@ -1209,11 +1509,15 @@ extern "C" int kytpu_wavefront_fwd_res(const float* F, const int* I, const float
                                        int* resi, int n, int seed, int max_depth, int rr_start,
                                        int rows, int sampler, int robust, int textured,
                                        int stage_bytes, int nee_rays, int refill,
+                                       const int* vis, const float* bnd, int cull,
                                        void* stream) {
   Args a{F, I, diffuse, specular, emission, exponent, light_emit, env, o, d, si, pix,
          out, resf, resi, nullptr, nullptr, nullptr,
          n, 0, 0, seed, max_depth, rr_start, rows, sampler, robust,
          texa, texb, timg, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, 0};
+  a.vis = vis;
+  a.bnd = (const float4*)bnd;
+  a.cull = cull;
   return launch<MODE_RESIDUAL>(a, textured, stage_bytes, nee_rays, refill, stream);
 }
 
@@ -1234,7 +1538,8 @@ extern "C" int kytpu_wavefront_fwd_res(const float* F, const int* I, const float
 // local or device rows) `out` holds denv | each light's
 // emission | dta | dtb, and the hit rows' adjoints are row_dout ((PB
 // max_depth + 3), n) with their tags row_tags (max_depth + 1, n), as K8
-// writes them.
+// writes them; vis, bnd, cull as K1's (past REFILL_MAX_ROWS surfaces K4 is
+// row-tagged: vis then needs row_tags).
 extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const float* diffuse,
                                           const float* specular, const float* emission,
                                           const float* exponent, const float* light_emit,
@@ -1248,7 +1553,8 @@ extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const fl
                                           int seed, int max_depth, int rr_start, int rows,
                                           int sampler, int robust, int textured,
                                           int stage_bytes, int nee_rays, int refill,
-                                          int acc_route, int n_blocks, void* stream) {
+                                          int acc_route, int n_blocks, const int* vis,
+                                          const float* bnd, int cull, void* stream) {
   if ((acc_route == ACC_LOCAL && n_cols > (row_tags ? ROW_COLS : MAX_ROW)) ||
       acc_route < ACC_LOCAL || acc_route > ACC_DEVICE ||
       (acc_route == ACC_SHARED && row_tags) || (acc_route == ACC_DEVICE && !wide))
@@ -1257,7 +1563,7 @@ extern "C" int kytpu_wavefront_bwd_replay(const float* F, const int* I, const fl
          out, nullptr, nullptr, g, big_l, partial,
          n, n_cols, n_out, seed, max_depth, rr_start, rows, sampler, robust,
          texa, texb, timg, tex_dout, tex_tags, row_dout, row_tags, 0, 0, 0, 0,
-         acc_route, n_blocks, cmap, wide};
+         acc_route, n_blocks, cmap, wide, vis, (const float4*)bnd, cull};
   return launch<MODE_REPLAY>(a, textured, stage_bytes, nee_rays, refill, stream);
 }
 

@@ -42,8 +42,10 @@ K4 an exponent adjoint.
 K1-K4 take any surface count, as kytpu's baked kernels do: render() and
 make_train_step() run them past 64 surfaces on the scenes the big-scene
 tables refuse. There K3 and K4 write row-tagged adjoint entries summed by
-row, as K7 and K8 do (`row_tagged`, DENSE_MAX_ROWS), and K2's int cache
-keeps the row in 23 bits (`pack_row`).
+row, as K7 and K8 do (`row_tagged`, DENSE_MAX_ROWS), K2's int cache
+keeps the row in 23 bits (`pack_row`), and past REFILL_MAX_ROWS surfaces
+K1, K2 and K4 cull blocks of Morton-ordered rows at the warp under
+cfg.cull, as K5-K8 do (`cull_tables`), with the full sweep's bits.
 """
 
 from __future__ import annotations
@@ -102,7 +104,9 @@ NEE_CHUNK = 8
 # occlusion sweeps run over hundreds of rows and end at each ray's first
 # occluder, and a refilled warp's lanes, from all over the frame, end them
 # far apart: random_spheres(1024) with a 16x16 ground atlas took 33.1 ms
-# with refill and 23.4 without (K1, 1M lanes, depth 3, H100).
+# with refill and 23.4 without (K1, 1M lanes, depth 3, H100). Past it the
+# kernels read the tables from device memory and cull blocks of rows at
+# the warp, as K5-K8 do (`cull_tables`, csrc/wavefront_fwd.cu step 5).
 REFILL_MAX_ROWS = 64
 # K3's and K4's routes for a dense adjoint row (csrc/lane_sum.cuh AccRoute):
 # "shared", a column a thread of the block's accumulator in dynamic shared
@@ -128,11 +132,12 @@ class KernelConfig:
     "robust") and trainable_exponent. bwd_rows changes nothing here: K3
     reads no tile (the nee="single" pick comes from the cache). cull
     ("off" | "cone" | "cone+nee") is read by the big-scene kernels
-    (kernels/bigscene.py): "cone" and "cone+nee" skip, on every sweep, the
-    8-row blocks that no lane of a warp can meet, a per-lane test that,
-    unlike kytpu's per-tile cone, keeps culling on incoherent rays; "off"
-    sweeps every row; the results are the same to the last bit. K1-K4 do
-    not read it, as kytpu's baked kernel does not. sweep ("auto" |
+    (kernels/bigscene.py) and by K1, K2 and K4 past REFILL_MAX_ROWS
+    surfaces: "cone" and "cone+nee" skip, on every sweep, the 8-row blocks
+    that no lane of a warp can meet, a per-lane test that, unlike kytpu's
+    per-tile cone, keeps culling on incoherent rays; "off" sweeps every row;
+    the results are the same to the last bit. K1-K4 at 64 surfaces or
+    fewer do not read it, as kytpu's baked kernel does not. sweep ("auto" |
     "scalar" | "mxu") is read as a name only: the big-scene kernels run the
     scalar sweep's arithmetic. The big-scene kernels ignore nee: they
     always sample every light, as kytpu's do."""
@@ -550,6 +555,10 @@ class SceneTables:
     texa: torch.Tensor        # (max(T, 1), 3) checker "even" colours
     texb: torch.Tensor        # (max(T, 1), 3) checker "odd" colours
     timg: torch.Tensor        # (max(Ti H W, 1), 3) the texel atlas
+    # past REFILL_MAX_ROWS surfaces the cull's visit order (int32) and
+    # bounds (float32 (blocks + superblocks, 4), `cull_tables`), else None
+    vis: torch.Tensor | None = None
+    bnd: torch.Tensor | None = None
     # K3's and K4's column maps (`acc_map`), by (trainable exponent,
     # row-tagged); shared with the tables' colour variants
     acc_maps: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -564,10 +573,13 @@ class SceneTables:
         """Bytes of the tables K1, K2 and K4 copy into a block's shared
         memory (csrc/wavefront_fwd.cu `stage_scene`): f, i, the colour,
         emission, exponent, light and env tables and, in a textured scene,
-        texa and texb; 0 where they pass STAGE_BUDGET and the kernels read
+        texa and texb; 0 where they pass STAGE_BUDGET, or past
+        REFILL_MAX_ROWS surfaces (the culled sweeps), and the kernels read
         them from device memory. Veach's and Cornell's take about 2.6 KB;
         random_spheres(1024) with a 16x16 ground atlas (1,026 surfaces, the
         largest scene that reaches K1) about 107 KB."""
+        if self.vis is not None:
+            return 0
         names = ("f", "i", "diffuse", "specular", "emission", "exponent",
                  "light_emit", "env") + (
                      ("texa", "texb") if self.static["textures"] else ())
@@ -734,10 +746,94 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     xm = np.asarray([w[g] for g in range(1, -(-L // MASK_LIGHTS))
                      for w in words], np.int32)
     dev = scene.device
+    cull = {}
+    if M > REFILL_MAX_ROWS:
+        vis, bnd = cull_tables(static)
+        cull = dict(vis=torch.from_numpy(vis).to(dev),
+                    bnd=torch.from_numpy(bnd).to(dev))
     return SceneTables(static=static,
                        f=torch.from_numpy(np.concatenate([ft, tf])).to(dev),
                        i=torch.from_numpy(np.concatenate([it, ti, xm])).to(dev),
-                       **_color_tables(scene), **_texture_tables(scene))
+                       **_color_tables(scene), **_texture_tables(scene),
+                       **cull)
+
+
+def row_bounds(static):
+    """Each surface row's bounding sphere, planar rows then spheres, as
+    float64 (centres (R, 3), radii (R,)): a triangle's or a parallelogram's
+    around its vertices and a disk's around its centre (as
+    `kbs.extract_tables` bounds them), a sphere itself. A rect that is not
+    a parallelogram takes an infinite radius: its row test (`_planar_hit`'s
+    edge signs) tests the ray's line, not the point it accepts, whose t
+    comes from the plane alone, and nothing bounds how far the rounding of
+    a ray nearly in that plane puts the point from the rect."""
+    cs, rs = [], []
+    for s in static["planar"]:
+        if s["kind"] == kshapes.DISK:
+            cs.append(np.asarray(s["p0"], np.float64))
+            rs.append(float(s["radius"]))
+            continue
+        v = np.asarray([s[f"p{j}"] for j in range(
+            3 if s["kind"] == kshapes.TRI else 4)], np.float64)
+        c = (v.min(axis=0) + v.max(axis=0)) * 0.5
+        cs.append(c)
+        rs.append(float(np.max(np.linalg.norm(v - c, axis=-1)))
+                  if s.get("fast") else math.inf)
+    for s in static["spheres"]:
+        cs.append(np.asarray(s["c"], np.float64))
+        rs.append(float(s["r"]))
+    return np.asarray(cs, np.float64).reshape(-1, 3), np.asarray(rs,
+                                                                 np.float64)
+
+
+def cull_tables(static):
+    """The culled sweeps' tables past REFILL_MAX_ROWS surfaces
+    (csrc/wavefront_fwd.cu step 5) -> (vis, bnd). vis (int32): each class's
+    visit order, the planar rows (their rows) then the spheres (their index
+    among the spheres), each a stable sort by the Morton code of the row's
+    bound centre (`row_bounds`) over the box of all centres, as
+    `kbs.extract_tables` orders its classes; the scene's rows keep their
+    indices (`sid`), which the materials, the skip words and the row tags
+    are keyed by. bnd (float32, (blocks + superblocks, 4)): the bounds of
+    each class's 8-row blocks in the visit order, planar then sphere, then
+    of each class's superblocks of 8 blocks, padded as `kbs.cull_bounds`
+    pads K5's; a block or superblock that holds a row of infinite radius
+    is (0, 0, 0, inf) and passes every ray.
+
+    Why the pad holds for K1's rows: a parallelogram's, triangle's or
+    disk's test accepts a hit only where the point it computes, o + t d,
+    lies inside the row, and a sphere's only where the ray crosses it, up
+    to the rounding of a few dozen float32 operations of the size of the
+    origin, the row and t |d| (`kbs.cull_bounds`' argument, unchanged);
+    the ground, one huge row, is a class or a block of its own in
+    random_spheres and its pad grows with its radius. The one test that
+    does not look at the point it accepts, a rect that is not a
+    parallelogram's, has no finite bound (`row_bounds`)."""
+    from kytpu_torch.kernels import bigscene as kbs
+
+    cs, rs = row_bounds(static)
+    n_pl = len(static["planar"])
+    lo, hi = ((cs.min(axis=0), cs.max(axis=0)) if len(cs)
+              else (np.zeros(3), np.zeros(3)))
+    vis, blocks = [], {}
+    for name, sl in (("tri", slice(0, n_pl)), ("sphere", slice(n_pl, None))):
+        c, r = cs[sl], rs[sl]
+        order = (np.argsort(np.asarray(kbs._morton3(c, lo, hi)),
+                            kind="stable") if len(c) > 1
+                 else np.arange(len(c)))
+        vis.append(order.astype(np.int32))
+        c, r = c[order], r[order]
+        inf = ~np.isfinite(r)
+        b = kbs._block_bounds(c, np.where(inf, 0.0, r)).reshape(-1, 4)
+        b[np.add.reduceat(inf, np.arange(0, len(r), kbs.UNROLL)) > 0
+          if len(r) else np.zeros(0, bool)] = [0.0, 0.0, 0.0, math.inf]
+        blocks[name] = (None, None, b)
+    empty = (None, None, np.zeros((0, 4)))
+    with np.errstate(invalid="ignore"):   # an unbounded superblock's centre
+        bnd = kbs.cull_bounds({k: blocks.get(k, empty) for k in kbs.CLASSES})
+    bnd[~np.isfinite(bnd).all(axis=1)] = [0.0, 0.0, 0.0, np.inf]
+    return (np.concatenate(vis + [np.zeros(0, np.int32)]),
+            np.ascontiguousarray(bnd, np.float32))
 
 
 def _skip_words(skips, row: int, n_lights: int) -> list:
@@ -2862,15 +2958,14 @@ _TABLES = ("f", "i", "diffuse", "specular", "emission", "exponent",
 
 
 def _check_tables(tables: SceneTables, dev):
-    for name in _TABLES:
+    for name in _TABLES + (("vis", "bnd") if tables.vis is not None else ()):
         t = getattr(tables, name)
         if t.device != dev:
             raise ValueError(f"table {name} is on {t.device}, the lanes on "
                              f"{dev}")
-        if not t.is_contiguous() or t.dtype != (
-                torch.int32 if name == "i" else torch.float32):
-            raise ValueError(f"table {name} must be contiguous "
-                             f"{'int32' if name == 'i' else 'float32'}")
+        want = torch.int32 if name in ("i", "vis") else torch.float32
+        if not t.is_contiguous() or t.dtype != want:
+            raise ValueError(f"table {name} must be contiguous {want}")
 
 
 def _check_lane_tensor(name, t, shape, dtype, dev):
@@ -3171,6 +3266,16 @@ def _scene_args(tables: SceneTables, cfg: KernelConfig) -> list:
             int(refill)]
 
 
+def _cull_args(tables: SceneTables, cfg: KernelConfig) -> list:
+    """K1's, K2's and K4's cull arguments: past REFILL_MAX_ROWS surfaces
+    the visit order, the bounds (`cull_tables`) and whether to cull
+    (cfg.cull not "off"), else (null, null, 0)."""
+    if tables.vis is None:
+        return [None, None, 0]
+    return [tables.vis.data_ptr(), tables.bnd.data_ptr(),
+            int(cfg.cull != "off")]
+
+
 def refill_chunk(tables: SceneTables, cfg: KernelConfig, n: int,
                  residual: bool = False, replay: bool = False) -> int:
     """The lanes a warp of K1 (K2 with residual=True, K4 with replay=True)
@@ -3218,7 +3323,8 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
     lib = build.load()
     name = "wavefront_fwd_res" if residual else "wavefront_fwd"
     _run(getattr(lib, "kytpu_" + name), name, dev, *args, n,
-         *_cfg_args(cfg, seed), *_scene_args(tables, cfg))
+         *_cfg_args(cfg, seed), *_scene_args(tables, cfg),
+         *_cull_args(tables, cfg))
     if not residual:
         launches += 1
         return out
@@ -3300,7 +3406,8 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
          partial.data_ptr(), ptr(_wide(tables, cfg, route, nb, dev)),
          out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
          acc_map(tables, cfg).data_ptr(), n, k, k_out, *_cfg_args(cfg, seed),
-         *_scene_args(tables, cfg), ACC_ROUTES.index(route), nb)
+         *_scene_args(tables, cfg), ACC_ROUTES.index(route), nb,
+         *_cull_args(tables, cfg))
     launches_replay += 1
     return _grads_of(tables, cfg, out, tex, rows)
 

@@ -7,7 +7,12 @@
 // never calls the extern "C" launchers). blockDim is 1 and threadIdx 0, so
 // a block-cooperative loop runs whole on the one thread. The votes treat
 // the calling thread as a warp of one (a lane harness that needs more
-// emulates the warp itself); the shuffle aborts.
+// emulates the warp itself); the shuffle aborts. With KYTPU_WARP_EMU
+// defined, a harness runs a warp as 32 host threads instead: each sets its
+// own threadIdx and blockIdx (blockDim is 32, a block a warp) and
+// `warp_emu` to the warp's WarpVotes, and the votes are barriers of the
+// threads in their mask, each thread waiting until every thread of the
+// mask has cast its vote, as the card's warps vote.
 #pragma once
 
 #include <math.h>
@@ -18,6 +23,11 @@
 
 #include <algorithm>
 #include <cmath>
+#ifdef KYTPU_WARP_EMU
+#include <condition_variable>
+#include <map>
+#include <mutex>
+#endif
 
 #define __global__
 #define __device__
@@ -36,8 +46,13 @@ struct float4 {
 struct uint3 {
   unsigned x, y, z;
 };
+#ifdef KYTPU_WARP_EMU
+static thread_local uint3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0};
+static const uint3 blockDim = {32, 1, 1}, gridDim = {1, 1, 1};
+#else
 static const uint3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0}, blockDim = {1, 1, 1},
                    gridDim = {1, 1, 1};
+#endif
 
 template <class T>
 inline T __ldg(const T* p) { return *p; }
@@ -56,8 +71,44 @@ inline uint32_t __brev(uint32_t x) {
 inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 inline int __ffs(uint32_t x) { return __builtin_ffs(x); }
 inline void __syncthreads() {}
+#ifdef KYTPU_WARP_EMU
+// One emulated warp's votes: the threads of `mask` meet at a barrier of
+// their own, which returns the ballot of their predicates
+struct WarpVotes {
+  struct Round {
+    int arrived = 0;
+    unsigned gen = 0;
+    uint32_t ballot = 0, result = 0;
+  };
+  std::mutex m;
+  std::condition_variable cv;
+  std::map<uint32_t, Round> rounds;
+  uint32_t vote(uint32_t mask, bool pred) {
+    const uint32_t bit = 1u << (threadIdx.x & 31);
+    if (!(mask & bit)) abort();  // a thread votes only in its own mask
+    std::unique_lock<std::mutex> lk(m);
+    Round& r = rounds[mask];
+    const unsigned gen = r.gen;
+    if (pred) r.ballot |= bit;
+    if (++r.arrived == __builtin_popcount(mask)) {
+      r.result = r.ballot;
+      r.ballot = 0;
+      r.arrived = 0;
+      ++r.gen;
+      cv.notify_all();
+    } else {
+      cv.wait(lk, [&] { return r.gen != gen; });
+    }
+    return r.result;
+  }
+};
+static thread_local WarpVotes* warp_emu = nullptr;
+inline uint32_t __ballot_sync(uint32_t mask, bool pred) { return warp_emu->vote(mask, pred); }
+inline bool __any_sync(uint32_t mask, bool pred) { return warp_emu->vote(mask, pred) != 0; }
+#else
 inline uint32_t __ballot_sync(uint32_t mask, bool pred) { return pred ? mask & 1u : 0u; }
 inline bool __any_sync(uint32_t mask, bool pred) { return pred && (mask & 1u); }
+#endif
 inline float __shfl_down_sync(uint32_t, float, int) { abort(); }
 
 typedef int cudaError_t;
