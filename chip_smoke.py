@@ -282,9 +282,27 @@ Phases, one line each (a few for phase 3):
         each: write_image's HDR through the encoder and through numpy, and
         BMP through numpy (write_image's only BMP route) and the encoder's
         own write_bmp.
+  15. the last entry points (`last_entry_points`):
+     a. `python -m kytpu_torch.bench` in a process of its own, as a user
+        runs it: exactly one JSON line of kytpu's four keys, the metric
+        [cuda_residual], a value > 0 and within 0.8-1.25x of 4,194,304 /
+        phase 6's residual fwd+bwd ms, printed beside it;
+     b. bench.main() in-process, the main path: K2 and K3 launched once a
+        fwd+bwd (73 each), K1 and K4 not at all;
+     c. bench's replay rate (K1 + K4, 73 launches each, counted) and the
+        jnp fast engine's (torch autograd, no kernel; at 1M lanes), with
+        the jnp run's peak memory;
+     d. examples/nanopt at 256x256, 16 spp on the card, and at 64x64, 4 spp
+        on the card against the CPU: the means within 1e-3, 99% of pixels
+        within 2e-2;
+     e. the parity tools without the reference binary: render_kytpu at
+        1024x1024, 4 spp, seeds 1234 and 977 (the jnp path engine), their
+        walls and compare_reference's noise floor between them.
 The line before the last is the kernels' JSON record (K1-K8, the tag
 sort and the segment sums; each main path that sums by tag must launch
-both), the one before it nvidia-smi's name and power limit, and the last
+both; the segment sums' library time is one index_add_ of the same
+entries by tag, and phase 9d also times segment_reduce of the sorted
+ones), the one before it nvidia-smi's name and power limit, and the last
 line is
 {"ok": true, "device": {...}}. Any failed check raises: no result is printed
 and the exit code is not 0, and the last line on standard error repeats the
@@ -1104,6 +1122,26 @@ def check_tag_sums(sets, what: str) -> list:
             lambda: kwf.seg_sums(dout, perm, starts, n, B, PB), 5)
         plain_seg_ms, _ = once_ms(
             lambda: kwf.segment_sums_plain(dout, rp, rs, n, B, PB))
+        # the library calls that sum the same entries by tag: index_add_
+        # on the unsorted entries (float atomics), segment_reduce on the
+        # sorted ones; each within 1e-3 of the table's largest entry
+        ids = keys.long()
+        vals = kwf._entry_values(dout, torch.arange(ids.numel(),
+                                                    device=ids.device),
+                                 n, B, PB)
+        lib_seg_ms, by_add = cuda_time_ms(lambda: torch.zeros(
+            (m + 1, PB), device=ids.device).index_add_(0, ids, vals), 5)
+        sorted_vals, lengths = vals[rp], rs[1:] - rs[:-1]
+        # timed once: it takes 0.28-0.82 s a call on these sets
+        red_ms, by_red = once_ms(lambda: torch.segment_reduce(
+            sorted_vals, "sum", lengths=lengths, axis=0))
+        top = float(seg.abs().max()) if seg.numel() else 0.0
+        for lib, got in (("index_add_", by_add), ("segment_reduce", by_red)):
+            err = float((got[1:] - seg).abs().max()) if seg.numel() else 0.0
+            if not err <= 1e-3 * max(top, 1e-30):
+                raise AssertionError(f"{lib} {tag}: {err:.3g} from the "
+                                     f"segment sums (largest {top:.3g})")
+        del vals, sorted_vals, by_add, by_red
         E = tags.numel()
         tagged = E - int(rs[1])
         # K7's and K8's horizon entries carry de alone (3 of PB columns)
@@ -1115,6 +1153,7 @@ def check_tag_sums(sets, what: str) -> list:
         out.append(dict(
             tag=tag, sort_ms=sort_ms, plain_sort_ms=plain_sort_ms,
             lib_sort_ms=lib_sort_ms, seg_ms=seg_ms, plain_seg_ms=plain_seg_ms,
+            lib_seg_ms=lib_seg_ms, red_ms=red_ms,
             sort_bound=bound_ms(4 * (2 * E + m + 2), 0.0),
             seg_bound=bound_ms(4 * (values + tagged + m + 2 + m * PB),
                                float(values)),
@@ -1126,7 +1165,10 @@ def check_tag_sums(sets, what: str) -> list:
               f"perm and starts, int32; the split sums = segment_sums_plain "
               f"bit for bit, repeat; sort {sort_ms:.3f} ms (plain "
               f"{plain_sort_ms:.3f}, one torch.sort {lib_sort_ms:.3f}), sums "
-              f"{seg_ms:.3f} ms (plain {plain_seg_ms:.1f}); bounds "
+              f"{seg_ms:.3f} ms (plain {plain_seg_ms:.1f}), sort + sums "
+              f"{sort_ms + seg_ms:.3f} ms against one index_add_ "
+              f"{lib_seg_ms:.3f} ms (segment_reduce of the sorted entries "
+              f"{red_ms:.3f}); bounds "
               f"{out[-1]['sort_bound'][0]:.4f} ms by "
               f"{out[-1]['sort_bound'][1]} and {out[-1]['seg_bound'][0]:.4f} ms "
               f"by {out[-1]['seg_bound'][1]}", flush=True)
@@ -2205,6 +2247,153 @@ def entry_points(smi: str) -> dict:
     tmp.cleanup()
     out["launches"], out["errs"] = launches, kernel_errs
     return out
+
+
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+# nanopt on the card against the CPU (64x64, 4 spp): the means within
+# 1e-3, 99% of pixels within 2e-2 (a last-bit tie sends a path another way)
+NANO_MEAN, NANO_PIX, NANO_SHARE = 1e-3, 2e-2, 0.99
+PARITY_SIZE, PARITY_SPP = 1024, 4
+
+
+def last_entry_points(smi: str, fb_ms: float) -> dict:
+    """Phase 15: kytpu's last entry points on the card: `python -m
+    kytpu_torch.bench` (K2 + K3) as a user runs it, then in-process with
+    its launches counted, its replay rate (K1 + K4) and the jnp fast
+    engine's; nanopt on the card against the CPU; the parity tools' half
+    that needs no reference binary. fb_ms: phase 6's residual fwd+bwd of
+    the same 4M lanes. Returns the kernels' launches on its main paths."""
+    import contextlib as ctx
+    import io as sio
+    import tempfile
+
+    from kytpu_torch import bench
+    from kytpu_torch.examples import nanopt
+    from kytpu_torch.kernels import wavefront as kwf
+    from kytpu_torch.scene import builders
+    from kytpu_torch.tools import compare_reference, parity_ci
+
+    def counts():
+        return (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
+                kwf.launches_replay)
+
+    def reset():
+        kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
+        kwf.launches_replay = 0
+
+    # 15a. the headline as a user runs it, in its own process
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "kytpu_torch.bench"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    bench_s = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"python -m kytpu_torch.bench: exit "
+                             f"{res.returncode}, {len(lines)} lines; "
+                             f"{res.stderr[-2000:]}")
+    rec = json.loads(lines[0])
+    metric = "veach_mis_fwd_bwd_rays_per_s_per_chip[cuda_residual]"
+    if list(rec) != BENCH_KEYS or rec["metric"] != metric or \
+            not rec["value"] > 0 or rec["unit"] != "rays/s":
+        raise AssertionError(f"python -m kytpu_torch.bench printed {rec}")
+    events = bench.LANES / (fb_ms / 1e3)
+    ratio = rec["value"] / events
+    print(f"bench: python -m kytpu_torch.bench ({bench_s:.1f} s) printed "
+          f"{lines[0]}; phase 6's residual fwd+bwd {fb_ms:.3f} ms gives "
+          f"{bench.LANES} / {fb_ms:.3f} ms = {events:.1f} rays/s, bench "
+          f"{ratio:.4f}x that; on {smi}", flush=True)
+    if not 0.8 <= ratio <= 1.25:
+        raise AssertionError(f"bench's rate is {ratio:.4f}x phase 6's")
+
+    # 15b. the same entry in-process, launches counted: K2 and K3 only
+    veach = builders.veach_mis(width=bench.W, height=bench.H)
+    runs = 1 + bench.SMALL[0] + bench.BIG[0]
+    reset()
+    with ctx.redirect_stdout(sio.StringIO()) as buf:
+        rec_in = bench.main()
+    torch.cuda.synchronize()
+    res_launches = counts()
+    if res_launches != (0, runs, runs, 0) or \
+            list(json.loads(buf.getvalue())) != BENCH_KEYS:
+        raise AssertionError(f"bench.main() launched K1/K2/K3/K4 "
+                             f"{res_launches} (want (0, {runs}, {runs}, 0))"
+                             f" or printed {buf.getvalue()!r}")
+
+    # 15c. the replay rate (K1 + K4) and the jnp fast engine's
+    reset()
+    replay_rate, _ = bench._bench_kernel(veach, backward="replay")
+    torch.cuda.synchronize()
+    replay_launches = counts()
+    if replay_launches != (runs, 0, 0, runs):
+        raise AssertionError(f"the replay bench launched K1/K2/K3/K4 "
+                             f"{replay_launches}")
+    jnp_lanes = 1 << 20
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    jnp_rate, _ = bench._bench_jnp(veach, lanes=jnp_lanes)
+    torch.cuda.synchronize()
+    if counts() != (0, 0, 0, 0):
+        raise AssertionError(f"the jnp bench launched kernels {counts()}")
+    jnp_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"bench: Veach 512x308, depth 5, fwd+bwd, marginal over "
+          f"{bench.BIG[0] - bench.SMALL[0]} launches: residual (K2 + K3, "
+          f"in-process, K2/K3 launched {runs} times each) "
+          f"{rec_in['value']:.1f} rays/s, replay (K1 + K4) "
+          f"{replay_rate:.1f} rays/s ({bench.LANES} lanes); the jnp fast "
+          f"engine (torch autograd, no kernel) {jnp_rate:.1f} rays/s at "
+          f"{jnp_lanes} lanes over 6 launches, peak {jnp_peak:.3f} GB; on "
+          f"{smi}", flush=True)
+
+    # 15d. nanopt: the example on the card, and the card against the CPU
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ctx.redirect_stdout(sio.StringIO()):
+        img = nanopt.main(16, device="cuda",
+                          out=os.path.join(tmp.name, "nanopt.ppm"))
+    nano_s = time.perf_counter() - t0
+    if img.shape != (256, 256, 3) or not np.isfinite(img).all() or \
+            not img.mean() > 0:
+        raise AssertionError(f"nanopt 256x256: {img.shape}, {img.mean()}")
+    with ctx.redirect_stdout(sio.StringIO()):
+        on_card = nanopt.main(4, 64, 64, device="cuda",
+                              out=os.path.join(tmp.name, "card.ppm"))
+        on_cpu = nanopt.main(4, 64, 64, device="cpu",
+                             out=os.path.join(tmp.name, "cpu.ppm"))
+    dmean = abs(float(on_card.mean()) - float(on_cpu.mean()))
+    within = float((np.abs(on_card - on_cpu).max(-1) <= NANO_PIX).mean())
+    print(f"nanopt: 256x256 16 spp on the card in {nano_s:.2f} s (mean "
+          f"{img.mean():.5f}); 64x64 4 spp, the card against the CPU: means "
+          f"{on_card.mean():.6f} and {on_cpu.mean():.6f}, {within:.5f} of "
+          f"pixels within {NANO_PIX}", flush=True)
+    if not (dmean <= NANO_MEAN and within >= NANO_SHARE):
+        raise AssertionError(f"nanopt card vs CPU: means {dmean:.3g} apart,"
+                             f" {within:.4f} of pixels within {NANO_PIX}")
+
+    # 15e. the parity gate's half that needs no reference binary: the
+    # port's two seeds at the reference's size and their noise floor
+    walls = []
+    paths = []
+    for seed in (1234, 977):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths.append(parity_ci.render_kytpu(
+            PARITY_SPP, seed, os.path.join(tmp.name, f"parity_{seed}.bmp"),
+            PARITY_SIZE, PARITY_SIZE))
+        walls.append(time.perf_counter() - t0)
+    with ctx.redirect_stdout(sio.StringIO()) as buf:
+        floor = float(compare_reference.main(*paths, 8))
+    if not 0 < floor < 0.1:
+        raise AssertionError(f"parity noise floor {floor}")
+    print(f"parity tools: render_kytpu {PARITY_SIZE}^2, {PARITY_SPP} spp, "
+          f"the jnp path engine, seeds 1234 and 977 in "
+          f"{walls[0]:.2f} and {walls[1]:.2f} s; noise floor "
+          f"{buf.getvalue().strip()}; no gate (the reference binary is not "
+          f"built here)", flush=True)
+    tmp.cleanup()
+    return {"launches": {"K1": replay_launches[0], "K2": res_launches[1],
+                         "K3": res_launches[2], "K4": replay_launches[3]}}
 
 
 def main() -> None:
@@ -3934,6 +4123,9 @@ def main() -> None:
     _, mabs, _ = compare(k1, ref, "K1 1M lanes past 64")
     same_bits(k1, ref, "K1 1M lanes past 64")
     max_abs_err = max(max_abs_err, mabs)
+    p_plain["K2"], ref = once_ms(lambda: kwf.trace_lanes_plain(
+        tables, bcfg, o, d, 7, residual=True))
+    same_bits((k2, resf, resi), ref, "K2 1M lanes past 64")
     p_plain["K3"], ref = once_ms(
         lambda: kwf.bwd_res_plain(tables, bcfg, g, k2, resf, resi))
     err_bwd = max(err_bwd, compare_grads(k3, ref, "K3 1M lanes past 64"))
@@ -3991,7 +4183,8 @@ def main() -> None:
           f"with cull 'off' K1 {p_off_ms['K1']:.3f} ms, K2 "
           f"{p_off_ms['K2']:.3f} ms, K4 {p_off_ms['K4']:.3f} ms, the same "
           f"bits; plain K1 "
-          f"{p_plain['K1']:.1f} ms, plain K3 {p_plain['K3']:.1f} ms, plain "
+          f"{p_plain['K1']:.1f} ms, plain K2 {p_plain['K2']:.1f} ms, plain "
+          f"K3 {p_plain['K3']:.1f} ms, plain "
           f"K4 {p_plain['K4']:.1f} ms, the kernels within the bounds of "
           f"phase 3; K4 vs K3 max |diff| {xerr:.3g}; the replay path "
           f"(make_cuda_diff_tracer(backward='replay')) launched K1/K2/K3/K4 "
@@ -4127,6 +4320,9 @@ def main() -> None:
     # native encoder
     entry = entry_points(smi)
 
+    # 15. the last entry points: bench, nanopt, the parity tools
+    last = last_entry_points(smi, fb_ms)
+
     src = "kytpu_torch/kernels/csrc/"
     tex_steps = [sum(tl[k] for tl in tex_train.values()) for k in (1, 2)]
     rows = [("wavefront_fwd", "wavefront_fwd.cu",
@@ -4162,9 +4358,9 @@ def main() -> None:
              "kytpu/kernels/bigscene.py:2445",
              big_replay_launches[3] + tex_big_replay[3], err_k8, k8_ms,
              plain_k8_ms, "K8")]
-    # phase 13's and 14's main paths and checks
+    # phase 13's, 14's and 15's main paths and checks
     extra = {k: caps["launches"].get(k, 0) + sharded["launches"].get(k, 0)
-             + entry["launches"].get(k, 0)
+             + entry["launches"].get(k, 0) + last["launches"].get(k, 0)
              for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")}
     rows = [(nm, f, rp, nl + extra[k], max(err, caps["errs"][k],
                                           entry["errs"].get(k, 0.0)), t, pt, k)
@@ -4186,9 +4382,10 @@ def main() -> None:
              ("segment_sums", "tag_sums.cu", "kytpu/kernels/bigscene.py:2480",
               main_tags[1], 0.0, t7["seg_ms"], t7["plain_seg_ms"],
               "segment_sums")]
-    # one torch.sort(stable=True) of the keys gives the sort's perm; no one
-    # library call sums the planes by tag in this layout
-    library = {"tag_sort": t7["lib_sort_ms"]}
+    # one torch.sort(stable=True) of the keys gives the sort's perm; one
+    # index_add_ of the entries' values by tag gives the sums
+    library = {"tag_sort": t7["lib_sort_ms"],
+               "segment_sums": t7["lib_seg_ms"]}
     print(smi)
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src + f, "replaces": rp,

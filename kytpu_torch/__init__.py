@@ -15,7 +15,10 @@ sampler; and kytpu's default render path, the jnp engines
 plain torch code differentiated by autograd; the entry points users start
 from, `python -m kytpu_torch.cli.render` and `python -m
 kytpu_torch.cli.inverse`, with the image writers (film/), the grid
-accelerator (scene/accel.py), profiling, checks and finite differences.
+accelerator (scene/accel.py), profiling, checks and finite differences;
+and the headline benchmark `python -m kytpu_torch.bench`, the nanopt
+teaching example (examples/) and the parity tools against the compiled
+reference (tools/).
 All run on the card unless the caller passes device="cpu" (`--device cpu`
 on the command lines).
 """

@@ -378,14 +378,15 @@ def cull_slack_plain(o: V3, d: V3):
 def block_meets_plain(bnd: torch.Tensor, o: V3, d: V3, inv, t1, slack):
     """csrc/bigscene_fwd.cu `block_meets`, the kernels' per-lane block test,
     on (C,) rays against (B, 4) bounds -> (C, B): can o + t d, t in [0,
-    t1], come within R + slack of the block's centre? The closest point's
-    t is clamped to the segment; a NaN passes."""
+    t1], come within R + slack of the block's centre? t1 is (C,), a ray's
+    for every block, or (C, B), one a pair. The closest point's t is
+    clamped to the segment; a NaN passes."""
     col = lambda x: x.reshape(-1, 1)  # noqa: E731
     v = V3(bnd[:, 0] - col(o.x), bnd[:, 1] - col(o.y), bnd[:, 2] - col(o.z))
     dc = V3(col(d.x), col(d.y), col(d.z))
     tc = v.dot(dc) * col(inv)
     tc = torch.where(tc < 0, torch.zeros_like(tc), tc)
-    t1 = col(t1).expand_as(tc)
+    t1 = (t1 if t1.dim() == 2 else col(t1)).expand_as(tc)
     tc = torch.where(tc > t1, t1, tc)
     p = v - dc * tc
     rl = bnd[:, 3] + col(slack)

@@ -37,6 +37,7 @@ from kytpu_torch.scene.scene import scene_from_numpy
 from tests.test_torch_scene import assert_same_tables
 from tests.test_torch_shapes import _agree_but_triangle
 from tests.torch_jnp import jrender, port_cfg, trender
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 N = 4096
 SCENES = {

@@ -24,6 +24,7 @@ from kytpu.scene import scene as jscene
 from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 W = H = 32
 

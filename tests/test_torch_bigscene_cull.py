@@ -5,8 +5,9 @@ superblock around it, that holds a row the full sweep's row tests hit or
 find occluding.
 
 The rows are tested by the plain sweeps' own row tests
-(`kbs._closest_class`, `kbs._occluded_class`), block by block. A block (and
-its superblock) that one of them hits must pass for that ray over [0, t], t
+(`kbs._closest_class`, `kbs._occluded_class`), a class's blocks in a few
+batched calls. A block (and its superblock) that one of them hits must
+pass for that ray over [0, t], t
 the nearest hit in the block (tighter than the kernels' running t_best), or
 over [0, tmax] for a shadow ray from its offset origin. Adversarial rays: rays that graze each
 sphere's silhouette within a few ulps of its radius from near and far,
@@ -16,6 +17,7 @@ random_spheres(1024) (its ground spans |x|, |z| <= 35.2, where an ulp is
 about 4e-6) and an icosphere mesh; a NaN or inf ray passes every block.
 """
 
+import math
 import zlib
 
 import numpy as np
@@ -26,6 +28,7 @@ from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.kernels.v3 import V3
 from kytpu_torch.scene import builders, mesh
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 _SCENES = {}
 
@@ -50,19 +53,47 @@ def _col(v: V3) -> V3:
 
 
 def _blocks(tables):
-    """(class name, its table, its rows, [(block, its bound and its
-    superblock's bound (1, 4) in bnd)])."""
+    """(class name, its table, its rows, the bounds (blocks, 2, 4) of each
+    block and of its superblock, in bnd)."""
     nb = [-(-c // kbs.UNROLL) for c in tables.counts]
     sup = sum(nb)
     for k, name in enumerate(kbs.CLASSES):
         G, rows = tables.cls(name)
-        off = sum(nb[:k])
-        yield name, G, rows, [
-            (b, torch.cat([tables.bnd[off + b:off + b + 1],
-                           tables.bnd[sup + b // kbs.SUPER:
-                                      sup + b // kbs.SUPER + 1]]))
-            for b in range(nb[k])]
+        b = torch.arange(nb[k])
+        yield name, G, rows, torch.stack(
+            [tables.bnd[sum(nb[:k]) + b], tables.bnd[sup + b // kbs.SUPER]], 1)
         sup += -(-nb[k] // kbs.SUPER)
+
+
+def _chunks(n_rays: int, n_blocks: int):
+    """Slices of blocks whose (ray, row) pairs fit 2M elements a tensor."""
+    step = max(1, (1 << 21) // (n_rays * kbs.UNROLL))
+    return [slice(b0, min(n_blocks, b0 + step))
+            for b0 in range(0, n_blocks, step)]
+
+
+def _by_block(x: torch.Tensor, n_blocks: int, fill) -> torch.Tensor:
+    """(C, R) values of consecutive rows -> (C, blocks, UNROLL), the last
+    block padded with `fill`."""
+    pad = n_blocks * kbs.UNROLL - x.shape[1]
+    x = torch.cat([x, x.new_full((x.shape[0], pad), fill)], 1)
+    return x.view(x.shape[0], n_blocks, kbs.UNROLL)
+
+
+def meets(bb: torch.Tensor, o: V3, d: V3, inv, t1, slack) -> torch.Tensor:
+    """`kbs.block_meets_plain` of each ray against each block of bb (blocks,
+    2, 4) and that block's superblock, over [0, t1]: t1 (C,) or (C, blocks)
+    -> (C, blocks), both bounds met."""
+    if t1.dim() == 2:
+        t1 = t1.repeat_interleave(2, dim=1)
+    return kbs.block_meets_plain(bb.reshape(-1, 4), o, d, inv, t1,
+                                 slack).view(len(o.x), -1, 2).all(-1)
+
+
+def _first_bad(ok, hit):
+    """(first block where a hit ray's bound fails, how many rays fail)."""
+    bad = hit & ~ok
+    return int(bad.any(0).nonzero()[0]), int(bad.sum())
 
 
 def _unit(a):
@@ -138,16 +169,16 @@ def test_closest_hit_rows_pass_their_block(scene, family):
     o, d = _v3(o_np), _v3(d_np)
     slack, inv = kbs.cull_slack_plain(o, d)
     checked = 0
-    for name, G, _, blocks in _blocks(tables):
-        for b, bnd in blocks:
-            t = kbs._closest_class(name, G[b * kbs.UNROLL:(b + 1) * kbs.UNROLL],
-                                   _col(o), _col(d))
-            t_hit = t.min(dim=1).values
+    for name, G, _, bb in _blocks(tables):
+        for sl in _chunks(len(o.x), len(bb)):
+            n_b = sl.stop - sl.start
+            t = kbs._closest_class(
+                name, G[sl.start * kbs.UNROLL:sl.stop * kbs.UNROLL], _col(o),
+                _col(d))
+            t_hit = _by_block(t, n_b, math.inf).min(2).values
             hit = torch.isfinite(t_hit)
-            if not hit.any():
-                continue
-            ok = kbs.block_meets_plain(bnd, o, d, inv, t_hit, slack).all(1)
-            assert bool(ok[hit].all()), (name, b, int((~ok & hit).sum()))
+            ok = meets(bb[sl], o, d, inv, t_hit, slack)
+            assert bool(ok[hit].all()), (name, sl.start, _first_bad(ok, hit))
             checked += int(hit.sum())
     assert checked > 100
 
@@ -185,17 +216,21 @@ def test_occluding_rows_pass_their_block(scene, robust):
     o_k = hp_t + ns_t * se
     slack, inv = kbs.cull_slack_plain(o_k, wi_t)
     own = [int(tables.rows[0])] if robust else [None]
+    # (C, 1, 1) rays: `_occluded_class`'s any() over its rows then keeps
+    # each row's mask, (C, R)
+    col2 = lambda v: V3(v.x[:, None, None], v.y[:, None, None],  # noqa: E731
+                        v.z[:, None, None])
+    ray = [(col2(wi_t), tm[:, None, None], se[:, None, None],
+            nd[:, None, None])]
     checked = 0
-    for cname, Gc, rows, blocks in _blocks(tables):
-        for b, bnd in blocks:
-            sl = slice(b * kbs.UNROLL, (b + 1) * kbs.UNROLL)
-            hit = kbs._occluded_class(
-                cname, Gc[sl], rows[sl], _col(hp_t), _col(ns_t),
-                [(_col(wi_t), tm[:, None], se[:, None], nd[:, None])], own)[0]
-            if not hit.any():
-                continue
-            ok = kbs.block_meets_plain(bnd, o_k, wi_t, inv, tm, slack).all(1)
-            assert bool(ok[hit].all()), (cname, b, int((~ok & hit).sum()))
+    for cname, Gc, rows, bb in _blocks(tables):
+        for sl in _chunks(len(hp_t.x), len(bb)):
+            r = slice(sl.start * kbs.UNROLL, sl.stop * kbs.UNROLL)
+            hit = kbs._occluded_class(cname, Gc[r], rows[r], col2(hp_t),
+                                      col2(ns_t), ray, own)[0]
+            hit = _by_block(hit, sl.stop - sl.start, False).any(2)
+            ok = meets(bb[sl], o_k, wi_t, inv, tm, slack)
+            assert bool(ok[hit].all()), (cname, sl.start, _first_bad(ok, hit))
             checked += int(hit.sum())
     assert checked > 100
 

@@ -36,6 +36,7 @@ from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_bigscene import camera_lanes, spheres
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 RTOL, ATOL = 2e-3, 2e-5
 

@@ -13,6 +13,7 @@ from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_bigscene_replay import check_against_kytpu
 from tests.test_torch_bigscene_tables import _lanes
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_k8_matches_kytpu_random_robust():

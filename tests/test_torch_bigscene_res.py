@@ -35,6 +35,7 @@ from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_bigscene import camera_lanes, lanes_agree, spheres
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def vjp_both(sampler, shadow, texp, depth=2, n=1024, seed=5):

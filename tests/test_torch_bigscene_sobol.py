@@ -7,6 +7,7 @@ Setup and the lane bound as in test_torch_bigscene.py."""
 import numpy as np
 
 from tests.test_torch_bigscene import lanes_agree, trace_both
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_k5_sobol_lanes_match_kytpu():

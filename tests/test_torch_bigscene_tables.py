@@ -38,6 +38,7 @@ from kytpu_torch.scene import mesh as tm
 from kytpu_torch.scene.scene import generate_rays
 from tests.test_torch_bigscene_texture_train import checker_scene
 from tests.test_torch_cuda import many_lights
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 SCENE_FIELDS = ("mat_kind", "mat_diffuse", "mat_specular", "mat_exponent",
                 "mat_eta", "mat_d_prob", "mat_s_prob", "emission",

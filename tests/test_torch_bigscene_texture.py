@@ -29,6 +29,7 @@ from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_wavefront import camera_rays, lanes_agree
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 IMG8 = np.linspace(0, 1, 8 * 8 * 3, dtype=np.float32).reshape(8, 8, 3)
 IMG16 = np.random.default_rng(2).uniform(0.1, 0.9, (16, 16, 3)).astype(

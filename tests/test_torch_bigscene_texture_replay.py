@@ -9,6 +9,7 @@ between its two backwards)."""
 import numpy as np
 
 from tests.test_torch_bigscene_texture_grad import close, grads_both, port_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_textured_k8_matches_kytpu_and_k7():

@@ -21,6 +21,7 @@ from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_bigscene_texture_grad import IMG4, close
 from tests.test_torch_wavefront import camera_rays
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_exponent_and_texture_gradients_match_kytpu():

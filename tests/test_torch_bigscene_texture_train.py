@@ -25,6 +25,7 @@ from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 NAMES = ("tex_color_a", "tex_color_b")
 

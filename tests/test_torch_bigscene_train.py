@@ -27,6 +27,7 @@ from kytpu_torch.diff import params as tparams
 from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.scene import builders as tb
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_big_scene_train_steps_match_kytpu(monkeypatch):

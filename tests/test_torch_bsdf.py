@@ -31,6 +31,7 @@ from kytpu.core import math as jm
 from kytpu_torch import bsdf as tbsdf
 from kytpu_torch.core import frame as tframe
 from kytpu_torch.core import math as tm
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 N = 512
 RTOL, ATOL = 1e-5, 1e-7

@@ -37,6 +37,7 @@ from kytpu_torch.kernels.wavefront import KernelConfig
 from kytpu_torch.scene import builders as tb
 from kytpu_torch.utils import load_checkpoint
 from kytpu_torch.utils.checks import validate_radiance
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 SMALL = ["--spp", "1", "--depth", "1", "--device", "cpu"]
 # each subcommand at a small size -> (its arguments, the written image's (H, W))

@@ -29,6 +29,7 @@ import torch
 
 from kytpu_torch.kernels import wavefront as kwf
 from tests.test_torch_csrc_lane import _lanes, _scene
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 CSRC = Path(kwf.__file__).resolve().parent / "csrc"
 STUB = Path(__file__).resolve().parent / "csrc_stub"

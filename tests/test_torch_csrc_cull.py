@@ -47,6 +47,7 @@ from kytpu_torch.scene import builders
 from tests.test_torch_csrc_bwd import build_harness, outputs
 from tests.test_torch_csrc_lane import _agree, _lanes
 from tests.test_torch_cull_bounds import _one_row, ground_atlas, trapezoids
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 HARNESS = r"""
 #define KYTPU_WARP_EMU

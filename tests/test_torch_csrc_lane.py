@@ -32,6 +32,7 @@ from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
 from kytpu_torch.scene.scene import generate_rays
 from tests.test_torch_cuda import many_lights
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 CSRC = Path(kwf.__file__).resolve().parent / "csrc"
 STUB = Path(__file__).resolve().parent / "csrc_stub"

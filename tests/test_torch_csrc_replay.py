@@ -44,6 +44,7 @@ from kytpu_torch.kernels import wavefront as kwf
 from tests.test_torch_csrc_bwd import (build_harness, check_grads, grads_of,
                                        outputs, write_tables)
 from tests.test_torch_csrc_lane import _lanes, _scene
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 HARNESS = r"""
 #include "wavefront_fwd.cu"

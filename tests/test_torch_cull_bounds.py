@@ -39,6 +39,7 @@ from kytpu_torch.scene import shapes as kshapes
 from kytpu_torch.scene import texture as ktex
 from tests.test_torch_bigscene_cull import (_grazing, _ground_plane,
                                             _inside, _perp, _unit, _v3)
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def ground_atlas(sc, n: int = 16):

@@ -38,6 +38,7 @@ from kytpu_torch.dist import multihost as tmh
 from kytpu_torch.dist import shard as tshard
 from kytpu_torch.integrator.render import render
 from tests import torch_dist_worker as wk
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4

@@ -20,6 +20,7 @@ from kytpu_torch.integrator.render import render
 from kytpu_torch.scene import builders
 from kytpu_torch.utils.checkpoint import (CheckpointMismatchError,
                                           load_checkpoint, save_checkpoint)
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 CFG = PathConfig(max_depth=2)
 

@@ -42,6 +42,7 @@ from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene.scene import generate_rays
 from tests.test_torch_wavefront import SCENES, camera_rays
 from tests.test_torch_wavefront_res import grads_agree, trace_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _lanes(name, n=2048):

@@ -7,6 +7,7 @@ test_torch_exponent.py."""
 import numpy as np
 
 from tests.test_torch_wavefront_res import grads_agree, trace_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_replay_gradients_match_kytpu():

@@ -18,6 +18,7 @@ from kytpu_torch.film import film as tfilm
 from kytpu_torch.film import io as tio
 from kytpu_torch.native import build as tbuild
 from kytpu_torch.native import film_io as tnative
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 # (H, W) of the seeded images: odd widths pad BMP rows, 1x1 the smallest
 SHAPES = [(5, 7), (9, 16), (1, 1)]

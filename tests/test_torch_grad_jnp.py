@@ -38,6 +38,7 @@ from kytpu_torch.diff import params as tparams
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_render_jnp import _textured_sphere
 from tests.torch_jnp import port_cfg, trender
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 TEX = ("tex_color_a", "tex_color_b", "tex_image")
 CASES = {

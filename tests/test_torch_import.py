@@ -14,6 +14,7 @@ from kytpu_torch.integrator import path
 from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -179,3 +180,30 @@ def test_no_module_refuses_as_roadmap_item_m11():
             if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 with open(os.path.join(d, f)) as fh:
                     assert "ROADMAP item M11" not in fh.read(), f
+
+
+def test_last_entry_points_import_without_jax_or_a_card():
+    """bench, the nanopt example and the parity tools import in a process
+    that sees no card and has no jax, and none of them imports kytpu; the
+    entry points that run default to the card."""
+    code = (
+        "import sys, torch\n"
+        "sys.modules['jax'] = None\n"
+        "import kytpu_torch.bench as b, kytpu_torch.examples.nanopt as n, "
+        "kytpu_torch.tools.compare_reference, kytpu_torch.tools.parity_ci\n"
+        "assert not torch.cuda.is_available()\n"
+        "bad = sorted(k for k, m in sys.modules.items() if m is not None "
+        "and k.split('.')[0] in ('jax', 'kytpu'))\n"
+        "assert not bad, bad\n"
+        "for f in (lambda: b.main(lanes=64, max_depth=1), "
+        "lambda: n.main(1, 4, 4, out='/dev/null')):\n"
+        "    try:\n"
+        "        f()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('ran without a card')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

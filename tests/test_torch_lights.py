@@ -21,6 +21,7 @@ from kytpu.light import lights as jl
 from kytpu.scene import builders as jb
 from kytpu_torch.light import lights as tl
 from kytpu_torch.scene import builders as tb
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 N = 512
 RTOL, ATOL = 1e-4, 1e-6

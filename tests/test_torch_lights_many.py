@@ -40,6 +40,7 @@ from kytpu_torch.scene import builders as tb
 from tests.test_torch_bigscene import camera_lanes, lanes_agree
 from tests.test_torch_cuda import many_lights
 from tests.test_torch_wavefront import trace_both
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 CROSS_RTOL, CROSS_ATOL = 2e-3, 2e-5
 

@@ -9,6 +9,7 @@ sampler only (ROADMAP section 3), so this is the sampler that compares."""
 
 from tests.test_torch_wavefront_res import cache_agrees, grads_agree, \
     trace_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_k2_k3_past_32_lights_match_kytpu():

@@ -12,6 +12,7 @@ import numpy as np
 from kytpu_torch.kernels import bigscene as kbs
 from tests.test_torch_bigscene import lanes_agree
 from tests.test_torch_lights_many import big_vjp
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_big_kernels_past_the_caps_match_kytpu():

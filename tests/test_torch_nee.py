@@ -26,6 +26,7 @@ from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene import scene as tscene
 from tests.torch_jnp import lanes_agree
 from tests.test_torch_wavefront import camera_rays
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 W, H, N = 24, 16, 1536
 

@@ -17,6 +17,7 @@ from kytpu.integrator.path import PathConfig
 from kytpu.scene import builders as jb
 from kytpu_torch.scene import builders as tb
 from tests.torch_jnp import lanes_agree, trace_pair
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 SCENES = {
     "cornell": lambda b: b.cornell_box(width=16, height=16),

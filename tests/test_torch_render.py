@@ -18,6 +18,7 @@ from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_wavefront import lanes_agree
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 @pytest.mark.parametrize("scene, sampler, max_share", [

@@ -22,6 +22,7 @@ from kytpu_torch.integrator import path as tpath
 from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.scene import builders as tb
 from tests.torch_jnp import jrender, lanes_agree, port_cfg, trender
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 _RNG = np.random.default_rng(8)
 IMG = _RNG.uniform(0.1, 0.9, (8, 8, 3)).astype(np.float32)

@@ -31,6 +31,7 @@ from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene.scene import generate_rays
 from tests.test_torch_wavefront import SCENES, camera_rays
 from tests.test_torch_wavefront_res import grads_agree, trace_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 # the all-lights box is in test_torch_replay_lights.py, Veach under
 # hash/all/robust in test_torch_replay_veach.py (one file each, so that the

@@ -8,6 +8,7 @@ import pytest
 
 from tests.test_torch_replay import replay_radiance_agrees
 from tests.test_torch_wavefront_res import grads_agree, trace_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 CASES = [("random", "all"), ("random", "single")]
 

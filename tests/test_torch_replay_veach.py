@@ -17,6 +17,7 @@ tier may take.
 import numpy as np
 
 from tests.test_torch_wavefront_res import grads_agree, trace_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_replay_matches_kytpu_veach():

@@ -10,6 +10,7 @@ import torch
 from kytpu.kernels import wavefront as jwf
 from kytpu_torch.core import rng as trng
 from kytpu_torch.kernels import wavefront as twf
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 SEEDS = [0, 1234, -5, 2**31 - 1]
 

@@ -34,6 +34,7 @@ from kytpu_torch.scene import builders as tb
 from tests.test_torch_bigscene_tables import _lanes
 from tests.test_torch_wavefront import SCENES, camera_rays
 from tests.test_torch_wavefront_res import N, grads_agree, trace_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 IMG8 = np.random.default_rng(4).uniform(0.1, 0.9, (8, 8, 3)).astype(
     np.float32)

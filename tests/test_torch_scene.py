@@ -15,6 +15,7 @@ from kytpu.scene import scene as jscene
 from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene import scene as tscene
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 ALL_LIGHTS = {jb.LARGE_GLASS_SPHERE, jb.LIGHT_POINT, jb.LIGHT_DIRECTION,
               jb.LIGHT_ENVIRONMENT}

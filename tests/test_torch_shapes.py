@@ -32,6 +32,7 @@ from kytpu.scene import shapes as jshapes
 from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene import scene as tscene
 from kytpu_torch.scene import shapes as tshapes
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 N = 2048
 

@@ -18,6 +18,7 @@ from kytpu_torch.scene import builders as tb
 from tests.test_torch_bigscene_tables import (GEO_FIELDS, LIGHT_FIELDS,
                                               SCENE_FIELDS)
 from tests.test_torch_wavefront import camera_rays, lanes_agree
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_smallpt_tables_match_kytpu():

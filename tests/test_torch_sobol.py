@@ -39,6 +39,7 @@ from kytpu_torch.scene import builders as tb
 from tests.test_torch_wavefront import lanes_agree, trace_both
 from tests.test_torch_wavefront_res import cache_agrees, grads_agree, \
     trace_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _u32(n, seed):

@@ -12,6 +12,7 @@ import torch
 from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 # csrc/tag_sums.cu's tile (threads x items) and widest digit

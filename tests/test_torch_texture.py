@@ -43,6 +43,7 @@ from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene import texture as ttex
 from kytpu_torch.scene.scene import scene_from_numpy
 from tests.test_torch_wavefront import camera_rays, lanes_agree
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 _RNG = np.random.default_rng(4)
 IMG4 = _RNG.uniform(0.1, 0.9, (4, 4, 3)).astype(np.float32)

@@ -14,6 +14,7 @@ f |cos| / pdf, the cache backward colour * tu)."""
 import numpy as np
 
 from tests.test_torch_texture_res import grads_agree, tex_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def check_replay(name, depth=2):

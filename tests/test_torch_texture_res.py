@@ -35,6 +35,7 @@ from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_texture import cornell
 from tests.test_torch_wavefront import camera_rays
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 RTOL, ATOL = 1e-4, 1e-5
 

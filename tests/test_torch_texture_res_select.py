@@ -14,6 +14,7 @@ from kytpu_torch.scene import builders as tb
 from tests.test_torch_texture import IMG4
 from tests.test_torch_texture_res import check
 from tests.test_torch_bigscene_tables import _lanes
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_textured_k2_k3_match_kytpu_select_chain():

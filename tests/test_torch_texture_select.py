@@ -4,6 +4,7 @@ test_torch_texture.py."""
 
 from tests.test_torch_texture import trace_both
 from tests.test_torch_wavefront import lanes_agree
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_textured_k1_matches_kytpu_select_chain():

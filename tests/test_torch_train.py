@@ -40,6 +40,7 @@ from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene.scene import generate_rays
 from tests.test_torch_cuda import ALL_LIGHTS, many_lights
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 @pytest.mark.parametrize("spaces", [None, {"emission": "log"}],

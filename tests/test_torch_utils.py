@@ -22,6 +22,7 @@ from kytpu_torch.integrator.path import PathConfig
 from kytpu_torch.scene import builders as tb
 from kytpu_torch.utils import checks as tchecks
 from kytpu_torch.utils import profiling as tprof
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_timer_report_matches_kytpu():

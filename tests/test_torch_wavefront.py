@@ -28,6 +28,7 @@ from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.kernels.v3 import V3 as TV3
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_cuda import many_lights
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 N = 4096
 ALL_LIGHTS = {jb.LARGE_GLASS_SPHERE, jb.LIGHT_POINT, jb.LIGHT_DIRECTION,

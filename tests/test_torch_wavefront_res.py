@@ -33,6 +33,7 @@ from kytpu.scene import builders as jb
 from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_wavefront import SCENES, camera_rays
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 N = 2048
 

@@ -8,6 +8,7 @@ import pytest
 
 from tests.test_torch_wavefront_res import CASES, cache_agrees, grads_agree, \
     trace_grads
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
 @pytest.fixture(scope="module", params=CASES, ids=["-".join(c) for c in CASES])

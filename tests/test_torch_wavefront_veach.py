@@ -14,6 +14,7 @@ share is within the 0.5% bound.
 import pytest
 
 from tests.test_torch_wavefront import lanes_agree, trace_both
+import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 PARITY_SHARE = 0.015
 
