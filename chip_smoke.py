@@ -324,6 +324,8 @@ import traceback
 import numpy as np
 import torch
 
+from kytpu_torch.utils import profiling as kprof
+
 RTOL, ATOL, MAX_BAD_SHARE = 1e-3, 1e-4, 0.005
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6   # the latter times the table's largest entry
 # K4 against K3: the reference's bound (tests/test_kernel.py:630)
@@ -1436,19 +1438,13 @@ def past_the_caps(smi: str) -> dict:
     # frame through render() (K5 past 64 surfaces) and a 33-light one (K1),
     # and train steps on each (K6 + K7, K2 + K3) and on the 65-texture
     # scene's checker colours (K6 + K7 with textures)
-    def reset():
-        kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
-        kwf.launches_replay = kwf.launches_sort = kwf.launches_seg = 0
-        kbs.launches = kbs.launches_res_fwd = kbs.launches_res_bwd = 0
-        kbs.launches_replay = 0
-
     def read():
-        return {"K1": kwf.launches, "K2": kwf.launches_res_fwd,
-                "K3": kwf.launches_res_bwd, "K4": kwf.launches_replay,
-                "K5": kbs.launches, "K6": kbs.launches_res_fwd,
-                "K7": kbs.launches_res_bwd, "K8": kbs.launches_replay,
-                "tag_sort": kwf.launches_sort,
-                "segment_sums": kwf.launches_seg}
+        return {"K1": kprof.launches("k1"), "K2": kprof.launches("k2"),
+                "K3": kprof.launches("k3"), "K4": kprof.launches("k4"),
+                "K5": kprof.launches("k5"), "K6": kprof.launches("k6"),
+                "K7": kprof.launches("k7"), "K8": kprof.launches("k8"),
+                "tag_sort": kprof.launches("tag_sort"),
+                "segment_sums": kprof.launches("segment_sums")}
 
     launches = {}
 
@@ -1458,7 +1454,7 @@ def past_the_caps(smi: str) -> dict:
 
     for L, extra in ((33, 0), (64, 0)):
         sc = many_lights(builders, L, 256, 256, extra_spheres=extra)
-        reset()
+        kprof.reset()
         img = render(sc, spp=16, seed=3, clamp=False)
         torch.cuda.synchronize()
         got = read()
@@ -1472,7 +1468,7 @@ def past_the_caps(smi: str) -> dict:
         start = dataclasses.replace(true, mat_diffuse=true.mat_diffuse * 0.4)
         step, params, _ = make_train_step(start, target, spp=4, max_depth=3,
                                           kernel_sampler="hash")
-        reset()
+        kprof.reset()
         losses = [float(step(krng.key(11))) for _ in range(3)]
         torch.cuda.synchronize()
         got = read()
@@ -1496,7 +1492,7 @@ def past_the_caps(smi: str) -> dict:
     step, params, _ = make_train_step(start, target, spp=4, max_depth=3,
                                       kernel_sampler="hash",
                                       names=("tex_color_a", "tex_color_b"))
-    reset()
+    kprof.reset()
     losses = [float(step(krng.key(12))) for _ in range(3)]
     torch.cuda.synchronize()
     got = read()
@@ -1670,16 +1666,10 @@ def distribution(smi: str) -> dict:
 
     launches = {}
 
-    def reset():
-        kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
-        kwf.launches_replay = kwf.launches_sort = kwf.launches_seg = 0
-        kbs.launches = kbs.launches_res_fwd = kbs.launches_res_bwd = 0
-        kbs.launches_replay = 0
-
     def add():
-        got = {"K1": kwf.launches, "K2": kwf.launches_res_fwd,
-               "K3": kwf.launches_res_bwd, "K5": kbs.launches,
-               "K6": kbs.launches_res_fwd, "K7": kbs.launches_res_bwd}
+        got = {"K1": kprof.launches("k1"), "K2": kprof.launches("k2"),
+               "K3": kprof.launches("k3"), "K5": kprof.launches("k5"),
+               "K6": kprof.launches("k6"), "K7": kprof.launches("k7")}
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         return got
@@ -1705,7 +1695,7 @@ def distribution(smi: str) -> dict:
             cfg = kw.pop("cfg")
             one_ms, ref = wall_ms(lambda: render(sc, clamp=False, cfg=cfg,
                                                  **kw))
-            reset()
+            kprof.reset()
             img = render_sharded_pallas(sc, mesh, kernel_cfg=cfg, clamp=False,
                                         **kw)
             torch.cuda.synchronize()
@@ -1742,7 +1732,7 @@ def distribution(smi: str) -> dict:
             (ref_l, ref_p), (_, again_p) = runs
             repeats = all(torch.equal(again_p[k], ref_p[k]) for k in ref_p)
             s_m, p_m, _ = make_train_step(start, target, mesh=mesh, **kw)
-            reset()
+            kprof.reset()
             t0 = time.perf_counter()
             got_l, got_p = run_steps(s_m, p_m)
             ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
@@ -2048,7 +2038,7 @@ def entry_points(smi: str) -> dict:
     out = {}
     # 14a. the render CLI at each subcommand's default size, launches
     # counted
-    kwf.launches = kbs.launches = 0
+    kprof.reset("k1", "k5")
     t_phase = time.perf_counter()
     images, passes = {}, {}
     for cmd, extra in CLI_RUNS:
@@ -2076,7 +2066,7 @@ def entry_points(smi: str) -> dict:
               f"and >= 0; it said: {said}", flush=True)
         images[tag] = img
     phase_s = time.perf_counter() - t_phase
-    launches = {"K1": kwf.launches, "K5": kbs.launches}
+    launches = {"K1": kprof.launches("k1"), "K5": kprof.launches("k5")}
     if launches["K1"] == 0 or launches["K5"] == 0:
         raise AssertionError(f"the render CLI launched K1 and K5 "
                              f"{launches} times")
@@ -2274,12 +2264,10 @@ def last_entry_points(smi: str, fb_ms: float) -> dict:
     from kytpu_torch.tools import compare_reference, parity_ci
 
     def counts():
-        return (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
-                kwf.launches_replay)
+        return tuple(map(kprof.launches, ("k1", "k2", "k3", "k4")))
 
     def reset():
-        kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
-        kwf.launches_replay = 0
+        kprof.reset("k1", "k2", "k3", "k4")
 
     # 15a. the headline as a user runs it, in its own process
     t0 = time.perf_counter()
@@ -2437,8 +2425,7 @@ def main() -> None:
             raise AssertionError(f"{what}: not the same bits")
 
     def reset_counts():
-        kwf.launches = kwf.launches_res_fwd = kwf.launches_res_bwd = 0
-        kwf.launches_replay = kwf.launches_sort = kwf.launches_seg = 0
+        kprof.reset("k1", "k2", "k3", "k4", "tag_sort", "segment_sums")
 
     # the tag sort's and the segment sums' launches on the main paths
     main_tags = [0, 0]
@@ -2447,16 +2434,16 @@ def main() -> None:
         """Add the tag sort's and segment sums' launches since the last
         reset (`reset_counts`, `reset_big`) to the main paths' counts; a
         path that sums by tag (need) must have launched both."""
-        if need and (kwf.launches_sort == 0 or kwf.launches_seg == 0):
+        n_sort = kprof.launches("tag_sort")
+        n_seg = kprof.launches("segment_sums")
+        if need and (n_sort == 0 or n_seg == 0):
             raise AssertionError(f"{what}: the tag sort and segment sums "
-                                 f"launched {kwf.launches_sort} and "
-                                 f"{kwf.launches_seg} times")
-        main_tags[0] += kwf.launches_sort
-        main_tags[1] += kwf.launches_seg
+                                 f"launched {n_sort} and {n_seg} times")
+        main_tags[0] += n_sort
+        main_tags[1] += n_seg
 
     def counts():
-        return (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
-                kwf.launches_replay)
+        return tuple(map(kprof.launches, ("k1", "k2", "k3", "k4")))
 
     # 2. build
     t0 = time.perf_counter()
@@ -2510,10 +2497,10 @@ def main() -> None:
         tables = kwf.pack_tables(scene, cfg)
         if (tables.stage_bytes > 0) != (route == "shared"):
             raise AssertionError(f"{tag}: the tables take the other route")
-        before = kwf.launches
+        before = kprof.launches("k1")
         got = kwf.render_lanes_cuda(scene, o, d, 77, cfg, si, pix)
         torch.cuda.synchronize()
-        if kwf.launches != before + 1:
+        if kprof.launches("k1") != before + 1:
             raise AssertionError("render_lanes_cuda did not launch the kernel")
         ref = kwf.trace_lanes_plain(tables, cfg, o, d, 77, si, pix)
         share, mabs, mdev = compare(got, ref, tag)
@@ -3051,12 +3038,10 @@ def main() -> None:
     from kytpu_torch.scene import mesh
 
     def reset_big():
-        kbs.launches = kbs.launches_res_fwd = kbs.launches_res_bwd = 0
-        kbs.launches_replay = kwf.launches_sort = kwf.launches_seg = 0
+        kprof.reset("k5", "k6", "k7", "k8", "tag_sort", "segment_sums")
 
     def big_counts():
-        return (kbs.launches, kbs.launches_res_fwd, kbs.launches_res_bwd,
-                kbs.launches_replay)
+        return tuple(map(kprof.launches, ("k5", "k6", "k7", "k8")))
 
     big = {"spheres": builders.random_spheres(n=1024, width=256, height=256),
            "mesh": builders.mesh_scene(*mesh.icosphere(subdivisions=3),

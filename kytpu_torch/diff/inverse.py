@@ -47,6 +47,7 @@ from kytpu_torch.integrator.render import JNP_ENGINES, trace_lanes
 from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import scene as kscene
+from kytpu_torch.utils import profiling as kprof
 
 
 def _lane_ids(w: int, h: int, spp: int, device):
@@ -169,21 +170,23 @@ def _kernel_loss(scene, target, spp: int, max_depth: int, loss_fn, names,
     lane_sid = sid.repeat_interleave(p_loc)
 
     def loss_of(p: dict, key: torch.Tensor) -> torch.Tensor:
-        seed = krng.randint(key, 0, 2**31 - 1)
-        key = key.to(device)
-        if kcfg.sampler == "sobol":
-            u = krng.uniform2(krng.fold_in(key, lane_pid), "sobol", lane_sid)
-            extra = (lane_sid.to(torch.int32), lane_pid.to(torch.int32))
-        elif kcfg.sampler == "hash":
-            u = krng.uniform(krng.fold_in(key, lane_sid * npix + lane_pid),
-                             (2,))
-            extra = (lane_sid.to(torch.int32), lane_pid.to(torch.int32))
-        else:
-            u = krng.uniform(key, (spp * npix, 2))
-            extra = ()
-        px = (lane_pid % w).to(torch.float32) + u[:, 0]
-        py = (lane_pid // w).to(torch.float32) + u[:, 1]
-        o, d = kscene.generate_rays(cam, torch.stack([px, py], -1))
+        with kprof.span("kytpu::rays"):
+            seed = krng.randint(key, 0, 2**31 - 1)
+            key = key.to(device)
+            if kcfg.sampler == "sobol":
+                u = krng.uniform2(krng.fold_in(key, lane_pid), "sobol",
+                                  lane_sid)
+                extra = (lane_sid.to(torch.int32), lane_pid.to(torch.int32))
+            elif kcfg.sampler == "hash":
+                u = krng.uniform(krng.fold_in(key, lane_sid * npix
+                                              + lane_pid), (2,))
+                extra = (lane_sid.to(torch.int32), lane_pid.to(torch.int32))
+            else:
+                u = krng.uniform(key, (spp * npix, 2))
+                extra = ()
+            px = (lane_pid % w).to(torch.float32) + u[:, 0]
+            py = (lane_pid // w).to(torch.float32) + u[:, 1]
+            o, d = kscene.generate_rays(cam, torch.stack([px, py], -1))
         # kytpu's _tracer_params order: the exponent after emission, then
         # the texture tables
         exp_arg = (p["mat_exponent"],) if kcfg.trainable_exponent else ()
@@ -292,19 +295,22 @@ def make_train_step(scene, target, spp: int = 4, max_depth: int = 3,
         optimizer = optimizer(list(theta.values()))
 
     def step(key: torch.Tensor) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_of(decode(theta), key)
-        loss.backward()
-        if mesh is not None:
-            loss = _mesh_reduce(mesh, theta, loss)
-        optimizer.step()
-        with torch.no_grad():
-            for n, th in theta.items():
-                p = torch.clamp_min(decode({n: th})[n], 0.0)
-                if th is not params[n]:
-                    th.copy_(encode({n: p})[n])
-                params[n].copy_(p)
-        return loss.detach()
+        with kprof.span("kytpu::train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_of(decode(theta), key)
+            with kprof.span("kytpu::autograd.backward"):
+                loss.backward()
+            if mesh is not None:
+                loss = _mesh_reduce(mesh, theta, loss)
+            with kprof.span("kytpu::optim.step"):
+                optimizer.step()
+                with torch.no_grad():
+                    for n, th in theta.items():
+                        p = torch.clamp_min(decode({n: th})[n], 0.0)
+                        if th is not params[n]:
+                            th.copy_(encode({n: p})[n])
+                        params[n].copy_(p)
+            return loss.detach()
 
     return step, params, optimizer
 

@@ -40,6 +40,7 @@ from kytpu_torch.integrator import path as kpath
 from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import scene as kscene
+from kytpu_torch.utils import profiling as kprof
 
 JNP_ENGINES = ("jnp", "fast", "path")
 KERNEL_ENGINES = ("cuda", "bigscene")
@@ -133,6 +134,7 @@ def _kernel_config(cfg):
         shadow=cfg.shadow)
 
 
+@kprof.spanned("kytpu::render.frame")
 def render(scene, spp: int = 16, seed: int = 1234, cfg=None,
            clamp: bool = True, rays_per_pass: int = 1 << 20,
            engine: str = "cuda", device="cuda", mode: str = "path",

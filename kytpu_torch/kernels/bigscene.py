@@ -68,6 +68,7 @@ from kytpu_torch.kernels.v3 import V3, make_frame, to_local, to_world, v3_full
 from kytpu_torch.light import lights as klights
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.scene import shapes as kshapes
+from kytpu_torch.utils import profiling as kprof
 
 LANE = 128
 UNROLL = 8
@@ -145,6 +146,7 @@ def _block_bounds(centers, radii):
     return out
 
 
+@kprof.spanned("kytpu::tables.pack")
 def extract_tables(scene):
     """Host-side extraction (kytpu's `extract_tables`) -> (static, tables):
     static is kernels/wavefront.py's `extract_static` dict (without K1's
@@ -427,6 +429,7 @@ class BigTables:
     texb: torch.Tensor        # (max(T, 1), 3) checker "odd" colours
     timg: torch.Tensor        # (max(Ti H W, 1), 3) the texel atlas
 
+    @kprof.spanned("kytpu::tables.colors")
     def with_colors(self, scene: kscene.Scene) -> "BigTables":
         return dataclasses.replace(self, **kwf._color_tables(scene),
                                    **kwf._texture_tables(scene))
@@ -441,6 +444,7 @@ class BigTables:
             r, GEO_COLS[name]), self.rows[r0:r0 + r])
 
 
+@kprof.spanned("kytpu::tables.pack")
 def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig,
                     extracted=None) -> BigTables:
     """The launch tables of `scene`; extracted: `extract_tables(scene)`
@@ -1275,14 +1279,6 @@ def sums_plain(tables: BigTables, cfg: kwf.KernelConfig, dout, acc, tags,
 # versions
 # ---------------------------------------------------------------------------
 
-# kernel launches made by this process (set them to 0 to count a run): K5,
-# K6 (the residual forward), K7 (the cache backward) and K8 (the path-replay
-# backward), the last two with their sums by row and over lanes
-launches = 0
-launches_res_fwd = 0
-launches_res_bwd = 0
-launches_replay = 0
-
 _TABLES = ("f", "i", "geo", "rows", "mat_i", "mat_f", "diffuse", "specular",
            "emission", "exponent", "light_emit", "env", "texa", "texb", "timg",
            "tex_rec", "bnd")
@@ -1333,7 +1329,6 @@ def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
     """K5 (or K6 with residual=True) on CUDA lanes -> radiance (or
     (radiance, resf, resi)); raises if the kernel cannot be built or
     launched."""
-    global launches, launches_res_fwd
     from kytpu_torch.kernels import build
 
     kwf.check_config(cfg)
@@ -1349,18 +1344,15 @@ def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
         resi = torch.empty((cfg.max_depth + 1, n), dtype=torch.int32,
                            device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kwf._run(build.load().kytpu_bigscene_fwd, "bigscene_fwd", dev,
+    kwf._run(build.load().kytpu_bigscene_fwd, "bigscene_fwd",
+             "k6" if residual else "k5", dev,
              *[getattr(tables, nm).data_ptr() for nm in _TABLES],
              o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), out.data_ptr(),
              ptr(resf), ptr(resi), n, *tables.counts,
              len(tables.static["mats"]["kind"]), *kwf._cfg_args(cfg, seed),
              int(cfg.trainable_exponent), int(residual), _textured(tables),
              *_cull_args(tables, cfg))
-    if not residual:
-        launches += 1
-        return out
-    launches_res_fwd += 1
-    return out, resf, resi
+    return (out, resf, resi) if residual else out
 
 
 def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
@@ -1369,7 +1361,6 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
     row tags and the segment sums by row (and by texel) of
     csrc/tag_sums.cu, and the lane sums -> (dd, ds, de, denv[, dexp][, dta,
     dtb][, dti]); raises if a kernel cannot be built or launched."""
-    global launches_res_bwd
     from kytpu_torch.kernels import build
 
     dev = g.device
@@ -1396,7 +1387,7 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
     lane_sums = torch.empty((k,), dtype=torch.float32, device=dev)
     tex = kwf._texel_outputs(tables, cfg, n, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kwf._run(lib.kytpu_bigscene_bwd_res, "bigscene_bwd_res", dev,
+    kwf._run(lib.kytpu_bigscene_bwd_res, "bigscene_bwd_res", "k7", dev,
              tables.i.data_ptr(), tables.tex_rec.data_ptr(),
              tables.light_emit.data_ptr(), tables.env.data_ptr(),
              g.data_ptr(), big_l.data_ptr(), resf.data_ptr(),
@@ -1404,7 +1395,6 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
              lane_sums.data_ptr(), *map(ptr, tex), n, L, int(has_env), B,
              int(cfg.trainable_exponent), k, _textured(tables),
              ptr(_wide(tables, k, nb, dev)))
-    launches_res_bwd += 1
     return _sums(tables, cfg, dout, resi, lane_sums, tex)
 
 
@@ -1434,7 +1424,6 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
     light-emission and checker adjoints), then the sums by row (and texel)
     -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]); raises if a kernel
     cannot be built or launched."""
-    global launches_replay
     from kytpu_torch.kernels import build
 
     kwf.check_config(cfg)
@@ -1455,8 +1444,8 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
     lane_sums = torch.empty((k,), dtype=torch.float32, device=dev)
     tex = kwf._texel_outputs(tables, cfg, n, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kwf._run(lib.kytpu_bigscene_bwd_replay, "bigscene_bwd_replay", dev,
-             *[getattr(tables, nm).data_ptr() for nm in _TABLES],
+    kwf._run(lib.kytpu_bigscene_bwd_replay, "bigscene_bwd_replay", "k8",
+             dev, *[getattr(tables, nm).data_ptr() for nm in _TABLES],
              o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), g.data_ptr(),
              big_l.data_ptr(), dout.data_ptr(), tags.data_ptr(),
              partial.data_ptr(), lane_sums.data_ptr(), *map(ptr, tex), n, k,
@@ -1464,7 +1453,6 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
              *kwf._cfg_args(cfg, seed), int(cfg.trainable_exponent),
              _textured(tables), *_cull_args(tables, cfg),
              ptr(_wide(tables, k, nb, dev)))
-    launches_replay += 1
     return _sums(tables, cfg, dout, tags, lane_sums, tex)
 
 
@@ -1473,17 +1461,19 @@ def trace_lanes(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
     """K5 (K6 with residual=True; see `trace_lanes_plain` for what it
     returns): CUDA lanes launch the kernel or raise, CPU lanes run the
     plain version."""
-    if kwf._on_card(o.device):
-        return _launch(tables, cfg, o, d, seed, si, pix, residual)
-    return trace_lanes_plain(tables, cfg, o, d, seed, si, pix, residual)
+    with kprof.kernel("k6" if residual else "k5"):
+        if kwf._on_card(o.device):
+            return _launch(tables, cfg, o, d, seed, si, pix, residual)
+        return trace_lanes_plain(tables, cfg, o, d, seed, si, pix, residual)
 
 
 def bwd_res(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf, resi):
     """K7 -> (dd, ds, de, denv[, dexp]): CUDA lanes launch the kernels or
     raise, CPU lanes run `bwd_res_plain`."""
-    if kwf._on_card(g.device):
-        return _launch_bwd(tables, cfg, g, big_l, resf, resi)
-    return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
+    with kprof.kernel("k7"):
+        if kwf._on_card(g.device):
+            return _launch_bwd(tables, cfg, g, big_l, resf, resi)
+        return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
 
 
 def bwd_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int, si,
@@ -1492,10 +1482,12 @@ def bwd_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int, si,
     that the forward traced, its radiance big_l and the upstream gradient g,
     with K7's conventions: CUDA lanes launch the kernels or raise, CPU lanes
     run `bwd_replay_plain` and `sums_plain`."""
-    if kwf._on_card(o.device):
-        return _launch_replay(tables, cfg, o, d, seed, si, pix, g, big_l)
-    return sums_plain(tables, cfg, *bwd_replay_plain(
-        tables, cfg, o, d, seed, si, pix, g, big_l))
+    with kprof.kernel("k8"):
+        if kwf._on_card(o.device):
+            return _launch_replay(tables, cfg, o, d, seed, si, pix, g,
+                                  big_l)
+        return sums_plain(tables, cfg, *bwd_replay_plain(
+            tables, cfg, o, d, seed, si, pix, g, big_l))
 
 
 def make_bigscene_tracer(scene: kscene.Scene,

@@ -67,6 +67,7 @@ from kytpu_torch.light import lights as klights
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.scene import shapes as kshapes
 from kytpu_torch.scene import texture as ktex
+from kytpu_torch.utils import profiling as kprof
 
 LANE = 128
 # past this many surfaces render() and make_train_step() run a scene on the
@@ -564,6 +565,7 @@ class SceneTables:
     acc_maps: dict = dataclasses.field(default_factory=dict, repr=False,
                                        compare=False)
 
+    @kprof.spanned("kytpu::tables.colors")
     def with_colors(self, scene: kscene.Scene) -> "SceneTables":
         return dataclasses.replace(self, **_color_tables(scene),
                                    **_texture_tables(scene))
@@ -689,6 +691,7 @@ def pack_header(static, cfg: KernelConfig, counts, static_exp):
     return (hi, hf), (li, lf)
 
 
+@kprof.spanned("kytpu::tables.pack")
 def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     tex_err = kernel_texture_support(scene)
     if tex_err:
@@ -2932,17 +2935,6 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
 # the plain version
 # ---------------------------------------------------------------------------
 
-# kernel launches made by this process (set them to 0 to count a run): K1,
-# K2 (the residual forward), K3 (the coefficient-cache backward) and K4
-# (the path-replay backward); the tag sort and the segment sums
-# (csrc/tag_sums.cu) that K3, K4, K7 and K8 end in
-launches = 0
-launches_res_fwd = 0
-launches_res_bwd = 0
-launches_replay = 0
-launches_sort = 0
-launches_seg = 0
-
 SAMPLERS = {"random": 0, "hash": 1, "sobol": 2}
 # the kernel keeps the sobol words of at most 4 draw sites a bounce in a
 # constant table (csrc/wavefront_fwd.cu MAX_SITES)
@@ -3128,11 +3120,16 @@ def tag_sort(tags: torch.Tensor, m_tags: int, mask: int = -1):
     """`sort_tags`' stable sort of the int32 tags & mask, each in [0,
     m_tags]: CUDA tags launch csrc/tag_sums.cu's radix sort -> (perm, starts)
     int32, or raise; CPU tags run `sort_tags`."""
-    global launches_sort
+    with kprof.kernel("tag_sort"):
+        if not _on_card(tags.device):
+            return sort_tags(tags, m_tags, mask)
+        return _launch_sort(tags, m_tags, mask)
+
+
+def _launch_sort(tags: torch.Tensor, m_tags: int, mask: int):
+    """`tag_sort` on CUDA tags."""
     from kytpu_torch.kernels import build
 
-    if not _on_card(tags.device):
-        return sort_tags(tags, m_tags, mask)
     if tags.dtype != torch.int32:
         raise ValueError(f"tags must be int32, got {tags.dtype}")
     tags = tags.contiguous()
@@ -3142,10 +3139,9 @@ def tag_sort(tags: torch.Tensor, m_tags: int, mask: int = -1):
     starts = torch.empty((m_tags + 2,), dtype=torch.int32, device=dev)
     scratch = torch.empty((max(1, lib.kytpu_tag_sort_scratch(E, m_tags)),),
                           dtype=torch.int32, device=dev)
-    _run(lib.kytpu_tag_sort, "tag_sort", dev, tags.data_ptr(), mask, E,
-         m_tags, perm.data_ptr(), starts.data_ptr(), scratch.data_ptr(),
-         scratch.numel())
-    launches_sort += 1
+    _run(lib.kytpu_tag_sort, "tag_sort", "tag_sort", dev, tags.data_ptr(),
+         mask, E, m_tags, perm.data_ptr(), starts.data_ptr(),
+         scratch.data_ptr(), scratch.numel())
     return perm, starts
 
 
@@ -3154,11 +3150,16 @@ def seg_sums(dout, perm, starts, n: int, B: int, PB: int):
     planes: CUDA tensors (int32 perm and starts from `tag_sort`) launch
     csrc/tag_sums.cu's segment sums, the same bits, or raise; CPU tensors
     run `segment_sums_plain`."""
-    global launches_seg
+    with kprof.kernel("segment_sums"):
+        if not _on_card(dout.device):
+            return segment_sums_plain(dout, perm, starts, n, B, PB)
+        return _launch_seg(dout, perm, starts, n, B, PB)
+
+
+def _launch_seg(dout, perm, starts, n: int, B: int, PB: int):
+    """`seg_sums` on CUDA tensors."""
     from kytpu_torch.kernels import build
 
-    if not _on_card(dout.device):
-        return segment_sums_plain(dout, perm, starts, n, B, PB)
     for name, t, dt in (("dout", dout, torch.float32),
                         ("perm", perm, torch.int32),
                         ("starts", starts, torch.int32)):
@@ -3170,11 +3171,10 @@ def seg_sums(dout, perm, starts, n: int, B: int, PB: int):
     piece_start = torch.empty((M + 1,), dtype=torch.int32, device=dev)
     part = torch.empty((max(1, pieces), PB), dtype=torch.float32, device=dev)
     out = torch.empty((M, PB), dtype=torch.float32, device=dev)
-    _run(build.load().kytpu_segment_sums, "segment_sums", dev,
-         dout.data_ptr(), perm.data_ptr(), starts.data_ptr(),
+    _run(build.load().kytpu_segment_sums, "segment_sums", "segment_sums",
+         dev, dout.data_ptr(), perm.data_ptr(), starts.data_ptr(),
          piece_start.data_ptr(), part.data_ptr(), max(1, pieces),
          out.data_ptr(), n, E, M, B, PB)
-    launches_seg += 1
     return out
 
 
@@ -3293,12 +3293,15 @@ def refill_chunk(tables: SceneTables, cfg: KernelConfig, n: int,
     return chunk
 
 
-def _run(fn, name: str, dev, *args):
-    """fn(*args, stream) on dev's current stream; raises on a CUDA error."""
-    with torch.cuda.device(dev):
+def _run(fn, name: str, kernel: str, dev, *args):
+    """fn(*args, stream) on dev's current stream, in the span
+    `kytpu::launch.<kernel>`; raises on a CUDA error, else counts the
+    launch of `kernel` (k1 ... k8, tag_sort, segment_sums)."""
+    with torch.cuda.device(dev), kprof.span(f"kytpu::launch.{kernel}"):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    kprof.launched(kernel)
 
 
 def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
@@ -3306,7 +3309,6 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
     """K1 (or K2 with residual=True) on CUDA lanes -> radiance (or
     (radiance, resf, resi)); raises if the kernel cannot be built or
     launched."""
-    global launches, launches_res_fwd
     from kytpu_torch.kernels import build
 
     o, d, si, pix = _lanes(tables, cfg, o, d, si, pix)
@@ -3322,21 +3324,16 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
         args += [resf.data_ptr(), resi.data_ptr()]
     lib = build.load()
     name = "wavefront_fwd_res" if residual else "wavefront_fwd"
-    _run(getattr(lib, "kytpu_" + name), name, dev, *args, n,
-         *_cfg_args(cfg, seed), *_scene_args(tables, cfg),
+    _run(getattr(lib, "kytpu_" + name), name, "k2" if residual else "k1",
+         dev, *args, n, *_cfg_args(cfg, seed), *_scene_args(tables, cfg),
          *_cull_args(tables, cfg))
-    if not residual:
-        launches += 1
-        return out
-    launches_res_fwd += 1
-    return out, resf, resi
+    return (out, resf, resi) if residual else out
 
 
 def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
                 resi):
     """K3 on CUDA lanes -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]);
     raises if a kernel cannot be built or launched."""
-    global launches_res_bwd
     from kytpu_torch.kernels import build
 
     dev = g.device
@@ -3362,7 +3359,7 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
     route = acc_route(tables, cfg)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = build.load()
-    _run(lib.kytpu_wavefront_bwd_res, "wavefront_bwd_res", dev,
+    _run(lib.kytpu_wavefront_bwd_res, "wavefront_bwd_res", "k3", dev,
          tables.i.data_ptr(), tables.diffuse.data_ptr(),
          tables.specular.data_ptr(), tables.emission.data_ptr(),
          tables.light_emit.data_ptr(), tables.env.data_ptr(),
@@ -3373,7 +3370,6 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
          out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
          acc_map(tables, cfg).data_ptr(), n, m_rows, k, k_out, cfg.max_depth,
          int(bool(tables.static["textures"])), ACC_ROUTES.index(route))
-    launches_res_bwd += 1
     return _grads_of(tables, cfg, out, tex, rows)
 
 
@@ -3381,7 +3377,6 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
                    pix, g, big_l):
     """K4 on CUDA lanes -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]);
     raises if a kernel cannot be built or launched."""
-    global launches_replay
     from kytpu_torch.kernels import build
 
     o, d, si, pix = _lanes(tables, cfg, o, d, si, pix)
@@ -3401,14 +3396,14 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
     route = acc_route(tables, cfg, replay=True)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = build.load()
-    _run(lib.kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", dev,
-         *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(), big_l.data_ptr(),
-         partial.data_ptr(), ptr(_wide(tables, cfg, route, nb, dev)),
+    _run(lib.kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", "k4",
+         dev, *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(),
+         big_l.data_ptr(), partial.data_ptr(),
+         ptr(_wide(tables, cfg, route, nb, dev)),
          out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
          acc_map(tables, cfg).data_ptr(), n, k, k_out, *_cfg_args(cfg, seed),
          *_scene_args(tables, cfg), ACC_ROUTES.index(route), nb,
          *_cull_args(tables, cfg))
-    launches_replay += 1
     return _grads_of(tables, cfg, out, tex, rows)
 
 
@@ -3441,17 +3436,19 @@ def trace_lanes(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
     """K1 (K2 with residual=True, see `trace_lanes_plain` for what it
     returns): CUDA lanes launch the kernel or raise, CPU lanes run the
     plain version."""
-    if _on_card(o.device):
-        return _launch(tables, cfg, o, d, seed, si, pix, residual)
-    return trace_lanes_plain(tables, cfg, o, d, seed, si, pix, residual)
+    with kprof.kernel("k2" if residual else "k1"):
+        if _on_card(o.device):
+            return _launch(tables, cfg, o, d, seed, si, pix, residual)
+        return trace_lanes_plain(tables, cfg, o, d, seed, si, pix, residual)
 
 
 def bwd_res(tables: SceneTables, cfg: KernelConfig, g, big_l, resf, resi):
     """K3 -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]): CUDA lanes
     launch the kernels or raise, CPU lanes run `bwd_res_plain`."""
-    if _on_card(g.device):
-        return _launch_bwd(tables, cfg, g, big_l, resf, resi)
-    return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
+    with kprof.kernel("k3"):
+        if _on_card(g.device):
+            return _launch_bwd(tables, cfg, g, big_l, resf, resi)
+        return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
 
 
 def bwd_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed: int, si,
@@ -3460,9 +3457,10 @@ def bwd_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed: int, si,
     d, seed, si, pix) that the forward traced, its radiance big_l and the
     upstream gradient g: CUDA lanes launch the kernels or raise, CPU lanes
     run `bwd_replay_plain`."""
-    if _on_card(o.device):
-        return _launch_replay(tables, cfg, o, d, seed, si, pix, g, big_l)
-    return bwd_replay_plain(tables, cfg, o, d, seed, si, pix, g, big_l)
+    with kprof.kernel("k4"):
+        if _on_card(o.device):
+            return _launch_replay(tables, cfg, o, d, seed, si, pix, g, big_l)
+        return bwd_replay_plain(tables, cfg, o, d, seed, si, pix, g, big_l)
 
 
 def render_lanes_cuda(scene, o, d, seed: int, cfg: KernelConfig | None = None,
@@ -3488,6 +3486,7 @@ class _DiffTables:
 
     pack = staticmethod(pack_tables)
 
+    @kprof.spanned("kytpu::tables.colors")
     def __call__(self, diffuse, specular, emission, env, exponent=None,
                  texa=None, texb=None, timg=None):
         dev = self.geo.f.device
@@ -3693,21 +3692,25 @@ def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
     accum = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     s0 = p = 0
     while s0 < spp:
-        if cfg.sampler in ("hash", "sobol"):
-            si = p * k + torch.arange(k, dtype=torch.int64,
-                                      device=dev).repeat_interleave(npix)
-            if cfg.sampler == "sobol":
-                u = krng.uniform2(cam_keys, "sobol", si)
-            else:
-                u = krng.uniform(krng.fold_in(key, si * npix + pid_k), (2,))
-            args = (seed, _as_i32(si & _M32), pid_k.to(torch.int32))
-        else:
-            u = krng.uniform(krng.fold_in(key, p), (k * npix, 2))
-            args = (_i32(seed + 7919 * p),)
-        o, d = kscene.generate_rays(
-            cam, torch.stack([px0 + u[:, 0], py0 + u[:, 1]], dim=-1))
-        out = tracer(scene, o, d, *args)
-        accum = accum + out.reshape(k, npix, 3).sum(dim=0)
+        with kprof.span("kytpu::pass"):
+            with kprof.span("kytpu::rays"):
+                if cfg.sampler in ("hash", "sobol"):
+                    si = p * k + torch.arange(
+                        k, dtype=torch.int64, device=dev).repeat_interleave(
+                            npix)
+                    if cfg.sampler == "sobol":
+                        u = krng.uniform2(cam_keys, "sobol", si)
+                    else:
+                        u = krng.uniform(
+                            krng.fold_in(key, si * npix + pid_k), (2,))
+                    args = (seed, _as_i32(si & _M32), pid_k.to(torch.int32))
+                else:
+                    u = krng.uniform(krng.fold_in(key, p), (k * npix, 2))
+                    args = (_i32(seed + 7919 * p),)
+                o, d = kscene.generate_rays(
+                    cam, torch.stack([px0 + u[:, 0], py0 + u[:, 1]], dim=-1))
+            out = tracer(scene, o, d, *args)
+            accum = accum + out.reshape(k, npix, 3).sum(dim=0)
         s0 += k
         p += 1
     img = km.div(accum, float(p * k)).reshape(h, w, 3)

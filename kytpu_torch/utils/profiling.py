@@ -1,20 +1,199 @@
-"""Observability: wall-clock phase timing, rays/s counters, device traces
+"""Observability: spans and counters at the port's layer boundaries,
+wall-clock phase timing, rays/s counters, device traces
 (kytpu/utils/profiling.py).
+
+`span(name)` marks a layer boundary (`kytpu::<layer>`). It records only
+while torch.profiler records (`trace_to`, or any `torch.profiler.profile`);
+otherwise it costs one flag check. A recorded span keeps its name, its
+parent, its call (the outermost span it runs under), its host interval,
+the device interval of a pair of CUDA events on the current stream
+(resolved when read), the synchronising CUDA operations run directly under
+it (counted by the outermost span, through torch's sync debug mode, a
+prototype that may miss some), and opens
+`torch.profiler.record_function(name)`, so the profiler's trace shows it
+over the device's operations. `spans()` returns the records of
+the current or last profiled window: the store is cleared at the first
+outermost span recorded after a span that ran unrecorded.
+
+`counters` holds `kernel.<k>.launches` (k1 ... k8, tag_sort,
+segment_sums), always on: `launched(k)` adds one where a kernel was
+launched on the card and returned no error (a CPU plain version launches
+nothing), `launches(k)` reads it and `reset(*kernels)` sets it to 0. The
+launch itself runs in the span `kytpu::launch.<k>`, nested in the span
+`kytpu::kernel.<k>` of the dispatch wrapper that chose it (`kernel(k)`),
+so the launch span's device interval is the kernel's alone and the
+wrapper's also holds the host's preparation of its arguments.
 
 `RenderTimer` accumulates per-phase wall time and ray counts (the
 reference's `timing_seconds` and per-row progress printf, ky.cpp:156-163,
-3703); `trace_to` wraps a block in a torch.profiler trace, written as a
-Chrome trace (chrome://tracing, Perfetto) into a directory.
+3703), each phase a span `kytpu::cli.<phase>`; `trace_to` wraps a block in
+a torch.profiler trace, written as a Chrome trace (chrome://tracing,
+Perfetto) into a directory.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import torch
+
+# true while torch.profiler records (on this thread, and on the autograd
+# threads of a backward started from it)
+_recording = torch._C._autograd._profiler_enabled
+record_function = torch.profiler.record_function
+_OFF = contextlib.nullcontext()
+# torch's message for each synchronising CUDA operation under sync debug
+# mode "warn"
+_SYNC = "called a synchronizing CUDA operation"
+
+counters: dict = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    counters[name] = counters.get(name, 0) + n
+
+
+def launched(kernel: str) -> None:
+    """Count one launch of `kernel` on the card."""
+    count(f"kernel.{kernel}.launches")
+
+
+def launches(kernel: str) -> int:
+    """`kernel.<kernel>.launches` (k1 ... k8, tag_sort, segment_sums)."""
+    return counters.get(f"kernel.{kernel}.launches", 0)
+
+
+def reset(*kernels: str) -> None:
+    """Set the launch counts of `kernels` (of every kernel where none is
+    named) to 0."""
+    for name in list(counters):
+        if name.startswith("kernel.") and name.endswith(".launches") and (
+                not kernels or name.split(".")[1] in kernels):
+            del counters[name]
+
+
+@dataclass
+class SpanRecord:
+    name: str
+    parent: int | None    # index in spans() of the enclosing span
+    call: int             # index in spans() of the outermost one
+    start_ns: int         # host, time.perf_counter_ns()
+    end_ns: int = 0
+    syncs: int = 0        # synchronising CUDA operations directly under it
+    events: tuple | None = field(default=None, repr=False)
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-6
+
+    @property
+    def device_ms(self) -> float | None:
+        """Milliseconds between the span's two CUDA events on its stream
+        (waits for the second); None where CUDA was not initialized."""
+        if self.events is None:
+            return None
+        begin, end = self.events
+        end.synchronize()
+        return begin.elapsed_time(end)
+
+
+_store: list = []     # SpanRecord of the current or last profiled window
+_open: list = []      # indices in _store of the open spans, innermost last
+_stale = False        # a span ran unrecorded since the store was written
+
+
+def spans() -> list:
+    """The span records of the current or last profiled window."""
+    return list(_store)
+
+
+def _count_sync(message, category, filename, lineno, file=None, line=None,
+                shown=None):
+    if str(message).startswith(_SYNC):
+        if _open:
+            _store[_open[-1]].syncs += 1
+    else:
+        shown(message, category, filename, lineno, file, line)
+
+
+class _Span:
+    __slots__ = ("name", "rf", "sync", "mode")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.sync = None
+
+    def __enter__(self):
+        global _stale
+        outer = not _open
+        if outer and _stale:
+            _store.clear()
+            _stale = False
+        i = len(_store)
+        rec = SpanRecord(self.name, None if outer else _open[-1],
+                         i if outer else _open[0], time.perf_counter_ns())
+        _store.append(rec)
+        _open.append(i)
+        self.rf = record_function(self.name)
+        self.rf.__enter__()
+        if torch.cuda.is_initialized():
+            if outer:
+                self.sync = warnings.catch_warnings()
+                self.sync.__enter__()
+                warnings.filterwarnings("always", message=_SYNC)
+                warnings.showwarning = functools.partial(
+                    _count_sync, shown=warnings.showwarning)
+                self.mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        return rec
+
+    def __exit__(self, *exc):
+        rec = _store[_open[-1]]
+        if rec.events is not None:
+            rec.events[1].record()
+        if self.sync is not None:
+            torch.cuda.set_sync_debug_mode(self.mode)
+            self.sync.__exit__(None, None, None)
+        self.rf.__exit__(*exc)
+        rec.end_ns = time.perf_counter_ns()
+        _open.pop()
+        return False
+
+
+def span(name: str):
+    """A context manager marking the layer boundary `name`: recorded (see
+    the module's docstring) only while torch.profiler records."""
+    global _stale
+    if _recording():
+        return _Span(name)
+    if not _open:
+        _stale = True
+    return _OFF
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return inner
+    return wrap
+
+
+def kernel(k: str):
+    """The span `kytpu::kernel.<k>` of a kernel's dispatch wrapper (the
+    plain version's run on the CPU too)."""
+    return span(f"kytpu::kernel.{k}")
 
 
 @dataclass
@@ -31,7 +210,8 @@ class RenderTimer:
     def phase(self, name: str, rays: int = 0):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"kytpu::cli.{name}"):
+                yield
         finally:
             if torch.cuda.is_initialized():
                 torch.cuda.synchronize()

@@ -14,6 +14,7 @@ import torch
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
 from kytpu_torch.scene.scene import generate_rays
+from kytpu_torch.utils import profiling as kprof
 
 ALL_LIGHTS = {builders.LARGE_GLASS_SPHERE, builders.LIGHT_POINT,
               builders.LIGHT_DIRECTION, builders.LIGHT_ENVIRONMENT}
@@ -75,6 +76,11 @@ def many_lights(b, n_lights: int, width: int = 24, height: int = 16,
     return a.build(cam)
 
 
+def launched(*kernels):
+    """The launch counters of `kernels` (k1 ... k8)."""
+    return tuple(kprof.launches(k) for k in kernels)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -112,10 +118,10 @@ def test_kernel_matches_plain_on_card(cuda, scene, sampler, nee, shadow):
     pix = torch.tensor(pix, dtype=torch.int32, device=cuda)
     cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee,
                            shadow=shadow)
-    before = kwf.launches
+    before = kprof.launches("k1")
     got = kwf.render_lanes_cuda(sc, o, d, 3, cfg, si, pix)
     torch.cuda.synchronize()
-    assert kwf.launches == before + 1
+    assert kprof.launches("k1") == before + 1
     ref = kwf.trace_lanes_plain(kwf.pack_tables(sc, cfg), cfg, o, d, 3, si,
                                 pix)
     g, r = got.cpu().numpy(), ref.cpu().numpy()
@@ -161,7 +167,7 @@ def test_residual_kernels_on_card(cuda, scene, sampler, nee, shadow):
     cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee,
                            shadow=shadow)
     tables = kwf.pack_tables(sc, cfg)
-    counts = (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd)
+    counts = launched("k1", "k2", "k3")
     k1 = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix)
     k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix,
                                      residual=True)
@@ -170,7 +176,7 @@ def test_residual_kernels_on_card(cuda, scene, sampler, nee, shadow):
     grads = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
     again = kwf.bwd_res(tables, cfg, g, k2, resf, resi)
     torch.cuda.synchronize()
-    assert (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd) == (
+    assert launched("k1", "k2", "k3") == (
         counts[0] + 1, counts[1] + 1, counts[2] + 2)
     assert torch.equal(k1, k2)
     for a, b in zip(grads, again):
@@ -201,10 +207,9 @@ def test_train_step_on_card(cuda):
     sc = builders.cornell_box(width=32, height=32)
     target = render(sc, spp=16, seed=2, clamp=False, device=cuda)
     step, params, _ = make_train_step(sc, target, spp=2, kernel_sampler="hash")
-    before = (kwf.launches_res_fwd, kwf.launches_res_bwd)
+    before = launched("k2", "k3")
     losses = [float(step(krng.fold_in(krng.key(0), i))) for i in range(3)]
-    assert (kwf.launches_res_fwd, kwf.launches_res_bwd) == (before[0] + 3,
-                                                           before[1] + 3)
+    assert launched("k2", "k3") == (before[0] + 3, before[1] + 3)
     assert np.isfinite(losses).all()
     assert all((p >= 0).all() and p.is_cuda for p in params.values())
 
@@ -231,8 +236,7 @@ def test_replay_and_exponent_kernels_on_card(cuda, scene, sampler, nee, shadow,
     cfg = kwf.KernelConfig(max_depth=5, sampler=sampler, nee=nee,
                            shadow=shadow, trainable_exponent=texp)
     tables = kwf.pack_tables(sc, cfg)
-    counts = (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
-              kwf.launches_replay)
+    counts = launched("k1", "k2", "k3", "k4")
     k1 = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix)
     k2, resf, resi = kwf.trace_lanes(tables, cfg, o, d, 3, si, pix,
                                      residual=True)
@@ -242,9 +246,8 @@ def test_replay_and_exponent_kernels_on_card(cuda, scene, sampler, nee, shadow,
     k4 = kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k1)
     again = kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k1)
     torch.cuda.synchronize()
-    assert (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
-            kwf.launches_replay) == (counts[0] + 1, counts[1] + 1,
-                                     counts[2] + 1, counts[3] + 2)
+    assert launched("k1", "k2", "k3", "k4") == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + 2)
     assert torch.equal(k1, k2)
     assert len(k4) == (5 if texp else 4)
     for a, b in zip(k4, again):
@@ -282,12 +285,11 @@ def test_replay_tracer_launches_k4(cuda):
     leaves = [t.clone().requires_grad_() for t in (
         sc.mat_diffuse, sc.mat_specular, sc.emission, sc.mat_exponent)]
     env = torch.zeros(3, device=cuda)
-    before = (kwf.launches, kwf.launches_replay)
+    before = launched("k1", "k4")
     out = tracer(*leaves, env, o, d, 3, si, pix)
     out.sum().backward()
     torch.cuda.synchronize()
-    assert (kwf.launches, kwf.launches_replay) == (before[0] + 1,
-                                                   before[1] + 1)
+    assert launched("k1", "k4") == (before[0] + 1, before[1] + 1)
     tables = kwf._DiffTables(sc, cfg)(*leaves[:3], env, leaves[3])
     ref = kwf.bwd_replay(tables, cfg, o, d, 3, si, pix, torch.ones_like(out),
                          out.detach())
@@ -319,7 +321,7 @@ def test_bigscene_kernels_on_card(cuda, scene, sampler, shadow, texp):
     cfg = kwf.KernelConfig(max_depth=3, sampler=sampler, shadow=shadow,
                            trainable_exponent=texp)
     tables = kbs.pack_big_tables(sc, cfg)
-    counts = (kbs.launches, kbs.launches_res_fwd, kbs.launches_res_bwd)
+    counts = launched("k5", "k6", "k7")
     k5 = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix)
     k6, resf, resi = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix,
                                      residual=True)
@@ -328,7 +330,7 @@ def test_bigscene_kernels_on_card(cuda, scene, sampler, shadow, texp):
     grads = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
     again = kbs.bwd_res(tables, cfg, g, k6, resf, resi)
     torch.cuda.synchronize()
-    assert (kbs.launches, kbs.launches_res_fwd, kbs.launches_res_bwd) == (
+    assert launched("k5", "k6", "k7") == (
         counts[0] + 1, counts[1] + 1, counts[2] + 2)
     assert torch.equal(k5, k6)
     assert len(grads) == (5 if texp else 4)
@@ -359,19 +361,17 @@ def test_bigscene_entry_points_on_card(cuda):
     from kytpu_torch.kernels import bigscene as kbs
 
     sc = builders.random_spheres(n=80, width=32, height=32)
-    small = (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
-             kwf.launches_replay)
-    before = kbs.launches
+    small = launched("k1", "k2", "k3", "k4")
+    before = kprof.launches("k5")
     target = render(sc, spp=4, seed=2, clamp=False, device=cuda)
-    assert kbs.launches == before + 1 and bool(torch.isfinite(target).all())
+    assert kprof.launches("k5") == before + 1
+    assert bool(torch.isfinite(target).all())
     step, params, _ = make_train_step(sc, target, spp=2, max_depth=2,
                                       kernel_sampler="hash")
-    before = (kbs.launches_res_fwd, kbs.launches_res_bwd)
+    before = launched("k6", "k7")
     losses = [float(step(krng.fold_in(krng.key(0), i))) for i in range(2)]
-    assert (kbs.launches_res_fwd, kbs.launches_res_bwd) == (before[0] + 2,
-                                                           before[1] + 2)
-    assert small == (kwf.launches, kwf.launches_res_fwd, kwf.launches_res_bwd,
-                     kwf.launches_replay)
+    assert launched("k6", "k7") == (before[0] + 2, before[1] + 2)
+    assert small == launched("k1", "k2", "k3", "k4")
     assert np.isfinite(losses).all()
 
 
@@ -394,11 +394,11 @@ def test_bigscene_replay_on_card(cuda, sampler, shadow, texp):
     k5 = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix)
     g = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(1),
                     device=cuda)
-    before = kbs.launches_replay
+    before = kprof.launches("k8")
     k8 = kbs.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k5)
     again = kbs.bwd_replay(tables, cfg, o, d, 3, si, pix, g, k5)
     torch.cuda.synchronize()
-    assert kbs.launches_replay == before + 2
+    assert kprof.launches("k8") == before + 2
     ref = kbs.sums_plain(tables, cfg, *kbs.bwd_replay_plain(
         tables, cfg, o, d, 3, si, pix, g, k5))
     k6, resf, resi = kbs.trace_lanes(tables, cfg, o, d, 3, si, pix,
@@ -413,11 +413,11 @@ def test_bigscene_replay_on_card(cuda, sampler, shadow, texp):
     leaves = [t.clone().requires_grad_() for t in (
         tables.diffuse, tables.specular, tables.emission)]
     tracer = kbs.make_bigscene_diff_tracer(sc, cfg, backward="replay")
-    counts = (kbs.launches, kbs.launches_res_fwd, kbs.launches_replay)
+    counts = launched("k5", "k6", "k8")
     exp = (tables.exponent,) if texp else ()
     out = tracer(*leaves, *exp, tables.env, o, d, 3, si, pix)
     out.backward(g)
-    assert (kbs.launches, kbs.launches_res_fwd, kbs.launches_replay) == (
+    assert launched("k5", "k6", "k8") == (
         counts[0] + 1, counts[1], counts[2] + 1)
     for leaf, a in zip(leaves, k8):
         assert torch.equal(leaf.grad, a)
