@@ -38,10 +38,16 @@ Phases, one line each (a few for phase 3):
      other bit for bit; K4 in 32-lane chunks (no refill) at these 262K
      lanes. Then K2, K3 and K4 on a 32-light scene (tests/test_torch_cuda.py
      many_lights, 199 kept columns: past ACC_BUDGET, so the local route),
-     against their plain versions and each other as above;
+     against their plain versions and each other as above; then the
+     camera-rays kernel (csrc/camera_rays.cu, kernels/camera.py) against its
+     plain chain on Veach's camera, bit for bit, under "random" and "hash"
+     (sample base 6) at the train step's 10,092,544 lanes, a frame pass's
+     946,176 and 946,253 (not a multiple of the block), one launch each, and
+     both timed under "random" at the first two counts;
   4. frames: render(veach_mis(512, 308)) and render(cornell_box 256x256) at
      64 spp through render(engine="cuda"), the main path, whose launches are
-     counted, and the Veach frame again with cfg sampler="sobol"; each
+     counted (the rays kernel once a pass, none under "sobol"), and the
+     Veach frame again with cfg sampler="sobol"; each
      64-spp frame and a 4-spp frame of each default-sampler scene against
      the same frame traced by the plain version (same seed and pass split,
      so the same lanes: 946176 a pass for Veach, 1048576 for Cornell); then one
@@ -72,7 +78,7 @@ Phases, one line each (a few for phase 3):
      steps on the Cornell box at its published 256x256, 4 spp, depth 3,
      kernel_sampler="hash", from the true scene with its diffuse table
      scaled by 0.4, against the true scene rendered at 64 spp: launches
-     counted, ms per step, one step profiled. All five steps take one key,
+     counted (the rays kernel once a step), ms per step, one step profiled. All five steps take one key,
      so each lowers the same estimator: the loss must fall at every step
      and the diffuse table must move towards the truth (with a new key a
      step, the loss also carries each key's Monte Carlo noise, which on
@@ -299,7 +305,8 @@ Phases, one line each (a few for phase 3):
         1024x1024, 4 spp, seeds 1234 and 977 (the jnp path engine), their
         walls and compare_reference's noise floor between them.
 The line before the last is the kernels' JSON record (K1-K8, the tag
-sort and the segment sums; each main path that sums by tag must launch
+sort, the segment sums and the camera rays, whose launches are phases 4's
+and 7's; each main path that sums by tag must launch
 both; the segment sums' library time is one index_add_ of the same
 entries by tag, and phase 9d also times segment_reduce of the sorted
 ones), the one before it nvidia-smi's name and power limit, and the last
@@ -333,6 +340,8 @@ CROSS_RTOL, CROSS_ATOL = 2e-3, 2e-5
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
 # FP32 operations/s outside the tensor cores
 HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
+# int32 operations/s: 132 SMs x 64 int32 lanes x 1.98 GHz
+INT32_OPS_S = 132 * 64 * 1.98e9
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, what: str):
@@ -2655,6 +2664,46 @@ def main() -> None:
               flush=True)
     del sc32, k1, k2, resf, resi, g, grads, k4, ref_l, ref_f, ref_i
 
+    # 3c. the camera jitter and rays kernel against its plain chain
+    from kytpu_torch.kernels import camera as kcam
+    rays_cam = builders.veach_mis(512, 308).to("cuda").camera
+    rays_npix = 512 * 308
+    rays_words = krng.words(krng.fold_in(krng.key(2**31 + 3), 7))
+    rays_n = {"train": rays_npix * 64, "pass": rays_npix * 6}
+    for mode, base in (("random", 0), ("hash", 6)):
+        for n in (rays_n["train"], rays_n["pass"], rays_n["pass"] + 77):
+            before = kprof.launches("rays")
+            _, d = kcam.lane_rays(rays_cam, rays_words, n, rays_npix, mode,
+                                  base)
+            torch.cuda.synchronize()
+            if kprof.launches("rays") != before + 1:
+                raise AssertionError(f"rays {mode} {n}: not one launch")
+            _, ref = kcam.lane_rays_plain(rays_cam, rays_words, n, rays_npix,
+                                          mode, base)
+            same_bits(d.view(torch.int32), ref.view(torch.int32),
+                      f"rays {mode} {n} lanes")
+    del d, ref
+    rays_ms, rays_plain_ms = {}, {}
+    for what, n in rays_n.items():
+        rays_ms[what], _ = cuda_time_ms(lambda: kcam.lane_rays(
+            rays_cam, rays_words, n, rays_npix, "random"), 20)
+        rays_plain_ms[what], _ = cuda_time_ms(lambda: kcam.lane_rays_plain(
+            rays_cam, rays_words, n, rays_npix, "random"), 3)
+    # two Threefry blocks a lane of about 80 int32 operations each; a lane
+    # reads nothing and writes 12 bytes
+    rays_bound = bound_ms(12 * rays_n["train"], 0.0)
+    rays_ops_ms = 2 * 80 * rays_n["train"] / INT32_OPS_S * 1e3
+    if rays_ops_ms >= rays_bound[0]:
+        rays_bound = (rays_ops_ms, "int32 operations")
+    print(f"rays: the camera-rays kernel = its plain chain bit for bit "
+          f"(random; hash at sample base 6) at {rays_n['train']}, "
+          f"{rays_n['pass']} and {rays_n['pass'] + 77} lanes, one launch "
+          f"each; random: {rays_ms['train']:.4f} ms at the train step's "
+          f"lanes (plain {rays_plain_ms['train']:.3f}), "
+          f"{rays_ms['pass']:.4f} ms at a frame pass's (plain "
+          f"{rays_plain_ms['pass']:.3f}); bound {rays_bound[0]:.4f} ms by "
+          f"{rays_bound[1]} at the train step's", flush=True)
+
     # 4. frames through the main path (render, engine="cuda")
     veach_frame = builders.veach_mis(512, 308)
     frame_scenes = {"veach": veach_frame,
@@ -2670,6 +2719,7 @@ def main() -> None:
                       engine="cuda", device="cuda")
 
     reset_counts()
+    kprof.reset("rays")
     frames = {}
     for nm, (sc, fcfg) in frame_cases.items():
         torch.cuda.synchronize()
@@ -2680,6 +2730,11 @@ def main() -> None:
     render_launches = counts()
     if render_launches[0] == 0:
         raise AssertionError("the main path launched no kernel")
+    # one rays launch a pass: Veach 11 passes, Cornell 4, none under sobol
+    main_rays = kprof.launches("rays")
+    if main_rays != 11 + 4:
+        raise AssertionError(f"the frames launched the rays kernel "
+                             f"{main_rays} times, not 15")
     for nm, (img, secs) in frames.items():
         a = img.cpu().numpy()
         if a.shape[-1] != 3 or not np.isfinite(a).all() or (a < 0).any():
@@ -2941,6 +2996,7 @@ def main() -> None:
     losses, walls = [], []
     torch.cuda.synchronize()
     reset_counts()
+    kprof.reset("rays")
     for i in range(5):
         t0 = time.perf_counter()
         losses.append(float(step(key)))
@@ -2948,6 +3004,10 @@ def main() -> None:
     train_launches = counts()
     if train_launches[1] == 0 or train_launches[2] == 0:
         raise AssertionError("the train step launched no K2 or K3")
+    if kprof.launches("rays") != 5:
+        raise AssertionError(f"five train steps launched the rays kernel "
+                             f"{kprof.launches('rays')} times")
+    main_rays += 5
     err5 = float((params["mat_diffuse"].detach().cpu()
                   - true_sc.mat_diffuse).abs().mean())
     if not (np.isfinite(losses).all() and np.all(np.diff(losses) < 0)
@@ -4371,6 +4431,12 @@ def main() -> None:
     # index_add_ of the entries' values by tag gives the sums
     library = {"tag_sort": t7["lib_sort_ms"],
                "segment_sums": t7["lib_seg_ms"]}
+    # the camera rays, timed at the train step's 10M lanes; one PyTorch
+    # call computing the same function there is none
+    bounds["rays"] = rays_bound
+    rows.append(("camera_rays", "camera_rays.cu",
+                 "none (jax.random and XLA on the TPU)", main_rays, 0.0,
+                 rays_ms["train"], rays_plain_ms["train"], "rays"))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src + f, "replaces": rp,

@@ -8,9 +8,16 @@ make -- `key(seed)`, `fold_in(key, data)`, `split(key, num)`,
 -- on int64 tensors holding uint32 words, vectorised over any number of
 keys. A key is a `(..., 2)` int64 tensor. `uniform(keys, shape,
 sampler="sobol", index)` is kytpu's Owen-Sobol camera draw (core/lds.py).
+
+A key's words can also stay on the host as a pair of python ints
+(`words(key)`): `threefry2x32` takes ints as well as tensors, and
+`fold_in_words` and `randint_words` are `fold_in` and `randint` on such a
+pair, with the same bits and no device work.
 """
 
 from __future__ import annotations
+
+import operator
 
 import torch
 
@@ -25,8 +32,8 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 
 
 def threefry2x32(k0, k1, x0, x1):
-    """The Threefry-2x32 block (20 rounds) on uint32 words in int64 tensors.
-    Returns the two output words."""
+    """The Threefry-2x32 block (20 rounds) on uint32 words in int64 tensors
+    or python ints. Returns the two output words."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -57,6 +64,18 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def words(k: torch.Tensor) -> tuple[int, int]:
+    """A key's two uint32 words as python ints: one read of the key (a
+    sync where it lies on the card, nothing on the host)."""
+    k0, k1 = k.tolist()
+    return k0, k1
+
+
+def fold_in_words(k: tuple[int, int], data: int) -> tuple[int, int]:
+    """`fold_in` on a key's words and an int datum (wrapped to uint32)."""
+    return threefry2x32(k[0], k[1], 0, int(data) & _M32)
+
+
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """jax.random.split of one key -> (num, 2): with partitionable threefry,
     key i is threefry of the counter (0, i), which is fold_in(k, i)."""
@@ -69,11 +88,29 @@ def randint(k: torch.Tensor, minval: int, maxval: int) -> int:
     jax draws 32 high and 32 low bits from the two halves of split(k) and
     folds them into the span with uint32 arithmetic, whose products wrap
     (for a span past 2**16 the high bits' multiplier wraps to 0)."""
+    _check_range(minval, maxval)
+    k1, k2 = split(k, 2)
+    return _fold_span(int(bits(k1, 1)[0]), int(bits(k2, 1)[0]), minval,
+                      maxval)
+
+
+def randint_words(k: tuple[int, int], minval: int, maxval: int) -> int:
+    """`randint` on a key's words: the same int, from threefry on ints."""
+    _check_range(minval, maxval)
+    (a0, a1), (b0, b1) = fold_in_words(k, 0), fold_in_words(k, 1)
+    # bits(split(k)[i], 1): counter 0 under each half
+    hi = operator.xor(*threefry2x32(a0, a1, 0, 0))
+    lo = operator.xor(*threefry2x32(b0, b1, 0, 0))
+    return _fold_span(hi, lo, minval, maxval)
+
+
+def _check_range(minval: int, maxval: int) -> None:
     if not -2**31 <= minval < maxval <= 2**31 - 1:
         raise ValueError(f"int32 range [{minval}, {maxval}) expected")
-    k1, k2 = split(k, 2)
-    hi = int(bits(k1, 1)[0])
-    lo = int(bits(k2, 1)[0])
+
+
+def _fold_span(hi: int, lo: int, minval: int, maxval: int) -> int:
+    """randint's fold of the high and low words into [minval, maxval)."""
     span = (maxval - minval) & _M32
     mult = (2**16 % span) ** 2 & _M32
     mult %= span

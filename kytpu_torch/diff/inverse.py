@@ -45,6 +45,7 @@ from kytpu_torch.dist import shard as kshard
 from kytpu_torch.integrator import path as kpath
 from kytpu_torch.integrator.render import JNP_ENGINES, trace_lanes
 from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import camera as kcam
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.utils import profiling as kprof
@@ -166,27 +167,34 @@ def _kernel_loss(scene, target, spp: int, max_depth: int, loss_fn, names,
     else:
         pid, sid, target = _mesh_lanes(mesh, w, h, spp, target)
     s_loc, p_loc = sid.shape[0], pid.shape[0]
-    lane_pid = pid.repeat(s_loc)
-    lane_sid = sid.repeat_interleave(p_loc)
+    # unsharded "random" and "hash" lanes are the whole film, pid.repeat
+    # (spp): their jitter and rays are one launch (kernels/camera.py)
+    on_film = mesh is None and kcfg.sampler in kcam.MODES
+    if kcfg.sampler != "random" or mesh is not None:
+        lane_pid = pid.repeat(s_loc)
+        lane_sid = sid.repeat_interleave(p_loc)
 
     def loss_of(p: dict, key: torch.Tensor) -> torch.Tensor:
         with kprof.span("kytpu::rays"):
-            seed = krng.randint(key, 0, 2**31 - 1)
-            key = key.to(device)
-            if kcfg.sampler == "sobol":
-                u = krng.uniform2(krng.fold_in(key, lane_pid), "sobol",
-                                  lane_sid)
+            words = krng.words(key)
+            seed = krng.randint_words(words, 0, 2**31 - 1)
+            extra = ()
+            if kcfg.sampler != "random":
                 extra = (lane_sid.to(torch.int32), lane_pid.to(torch.int32))
-            elif kcfg.sampler == "hash":
-                u = krng.uniform(krng.fold_in(key, lane_sid * npix
-                                              + lane_pid), (2,))
-                extra = (lane_sid.to(torch.int32), lane_pid.to(torch.int32))
+            if on_film:
+                o, d = kcam.lane_rays(cam, words, spp * npix, npix,
+                                      kcfg.sampler)
             else:
-                u = krng.uniform(key, (spp * npix, 2))
-                extra = ()
-            px = (lane_pid % w).to(torch.float32) + u[:, 0]
-            py = (lane_pid // w).to(torch.float32) + u[:, 1]
-            o, d = kscene.generate_rays(cam, torch.stack([px, py], -1))
+                key = key.to(device)
+                if kcfg.sampler == "sobol":
+                    u = krng.uniform2(krng.fold_in(key, lane_pid), "sobol",
+                                      lane_sid)
+                else:
+                    u = krng.uniform(krng.fold_in(key, lane_sid * npix
+                                                  + lane_pid), (2,))
+                px = (lane_pid % w).to(torch.float32) + u[:, 0]
+                py = (lane_pid // w).to(torch.float32) + u[:, 1]
+                o, d = kscene.generate_rays(cam, torch.stack([px, py], -1))
         # kytpu's _tracer_params order: the exponent after emission, then
         # the texture tables
         exp_arg = (p["mat_exponent"],) if kcfg.trainable_exponent else ()

@@ -108,7 +108,8 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use. Pointers and the stream are
-    c_void_p, ints c_int."""
+    c_void_p, ints c_int (c_uint32 for the rays' key words), floats
+    c_float."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
@@ -128,13 +129,15 @@ def load() -> ctypes.CDLL:
         lib.kytpu_tag_sort.argtypes = [p, i, i, i, p, p, p, q, p]
         lib.kytpu_segment_sums.argtypes = [p] * 5 + [q, p] + [i] * 5 + [p]
         lib.kytpu_bigscene_bwd_replay.argtypes = [p] * 29 + [i] * 17 + [p, p]
+        lib.kytpu_camera_rays.argtypes = [p] + [i] * 4 + [
+            ctypes.c_uint32] * 3 + [ctypes.c_float] * 11 + [p]
         for fn in (lib.kytpu_wavefront_fwd, lib.kytpu_wavefront_fwd_res,
                    lib.kytpu_wavefront_bwd_res,
                    lib.kytpu_wavefront_bwd_replay, lib.kytpu_wavefront_chunk,
                    lib.kytpu_bigscene_fwd,
                    lib.kytpu_bigscene_bwd_res,
                    lib.kytpu_tag_sort, lib.kytpu_segment_sums,
-                   lib.kytpu_bigscene_bwd_replay):
+                   lib.kytpu_bigscene_bwd_replay, lib.kytpu_camera_rays):
             fn.restype = i
         _LIB = lib
     return _LIB

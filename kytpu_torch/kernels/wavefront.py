@@ -61,6 +61,7 @@ from kytpu_torch import bsdf as kbsdf
 from kytpu_torch.core import lds
 from kytpu_torch.core import math as km
 from kytpu_torch.core import rng as krng
+from kytpu_torch.kernels import camera as kcam
 from kytpu_torch.kernels.v3 import (V3, cv3, make_frame, to_local, to_world,
                                     v3_full, v3_zeros)
 from kytpu_torch.light import lights as klights
@@ -3296,7 +3297,7 @@ def refill_chunk(tables: SceneTables, cfg: KernelConfig, n: int,
 def _run(fn, name: str, kernel: str, dev, *args):
     """fn(*args, stream) on dev's current stream, in the span
     `kytpu::launch.<kernel>`; raises on a CUDA error, else counts the
-    launch of `kernel` (k1 ... k8, tag_sort, segment_sums)."""
+    launch of `kernel` (k1 ... k8, tag_sort, segment_sums, rays)."""
     with torch.cuda.device(dev), kprof.span(f"kytpu::launch.{kernel}"):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -3681,14 +3682,17 @@ def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
     w, h = cam.width, cam.height
     npix = w * h
     k = max(1, min(spp, rays_per_pass // max(npix, 1)))
-    pid = torch.arange(npix, dtype=torch.int64, device=dev)
-    px0 = (pid % w).to(torch.float32).repeat(k)
-    py0 = (pid // w).to(torch.float32).repeat(k)
-    pid_k = pid.repeat(k)
-    key = krng.key(seed, dev)
+    # the key's words, krng.key(seed), stay on the host: "random" and
+    # "hash" draw from them with one launch a pass (kernels/camera.py)
+    key = (0, seed & _M32)
+    if cfg.sampler in ("hash", "sobol"):
+        pid = torch.arange(npix, dtype=torch.int64, device=dev)
+        pid_k = pid.repeat(k)
     if cfg.sampler == "sobol":
+        px0 = (pid % w).to(torch.float32).repeat(k)
+        py0 = (pid // w).to(torch.float32).repeat(k)
         # the camera-jitter site: a key per pixel, the same for every sample
-        cam_keys = krng.fold_in(key, pid_k)
+        cam_keys = krng.fold_in(krng.key(seed, dev), pid_k)
     accum = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     s0 = p = 0
     while s0 < spp:
@@ -3700,15 +3704,16 @@ def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
                             npix)
                     if cfg.sampler == "sobol":
                         u = krng.uniform2(cam_keys, "sobol", si)
+                        o, d = kscene.generate_rays(cam, torch.stack(
+                            [px0 + u[:, 0], py0 + u[:, 1]], dim=-1))
                     else:
-                        u = krng.uniform(
-                            krng.fold_in(key, si * npix + pid_k), (2,))
+                        o, d = kcam.lane_rays(cam, key, k * npix, npix,
+                                              "hash", p * k)
                     args = (seed, _as_i32(si & _M32), pid_k.to(torch.int32))
                 else:
-                    u = krng.uniform(krng.fold_in(key, p), (k * npix, 2))
+                    o, d = kcam.lane_rays(cam, krng.fold_in_words(key, p),
+                                          k * npix, npix, "random")
                     args = (_i32(seed + 7919 * p),)
-                o, d = kscene.generate_rays(
-                    cam, torch.stack([px0 + u[:, 0], py0 + u[:, 1]], dim=-1))
             out = tracer(scene, o, d, *args)
             accum = accum + out.reshape(k, npix, 3).sum(dim=0)
         s0 += k

@@ -33,10 +33,29 @@ class Camera:
     width: int
     height: int
 
+    def __post_init__(self):
+        # front, right and up as nine python floats (not a field: the
+        # tables mirror kytpu's), read where the camera is made on the host
+        # and kept by `to`, so the rays kernel takes them as arguments with
+        # no read from the card
+        object.__setattr__(self, "_basis", self._read_basis()
+                           if self.front.device.type == "cpu" else None)
+
+    def _read_basis(self) -> tuple:
+        return tuple(torch.cat([self.front, self.right, self.up]).tolist())
+
     def to(self, device) -> "Camera":
-        return replace(self, position=self.position.to(device),
-                       front=self.front.to(device),
-                       right=self.right.to(device), up=self.up.to(device))
+        cam = replace(self, position=self.position.to(device),
+                      front=self.front.to(device),
+                      right=self.right.to(device), up=self.up.to(device))
+        if cam._basis is None:
+            object.__setattr__(cam, "_basis", self._basis)
+        return cam
+
+    def host_basis(self) -> tuple:
+        """front, right and up as nine python floats: kept from the host,
+        or read from the card (one sync) for a camera made there."""
+        return self._basis if self._basis is not None else self._read_basis()
 
 
 def make_camera(position, front, up, fov_degrees, width, height) -> Camera:

@@ -16,13 +16,14 @@ the current or last profiled window: the store is cleared at the first
 outermost span recorded after a span that ran unrecorded.
 
 `counters` holds `kernel.<k>.launches` (k1 ... k8, tag_sort,
-segment_sums), always on: `launched(k)` adds one where a kernel was
+segment_sums, rays), always on: `launched(k)` adds one where a kernel was
 launched on the card and returned no error (a CPU plain version launches
 nothing), `launches(k)` reads it and `reset(*kernels)` sets it to 0. The
 launch itself runs in the span `kytpu::launch.<k>`, nested in the span
 `kytpu::kernel.<k>` of the dispatch wrapper that chose it (`kernel(k)`),
 so the launch span's device interval is the kernel's alone and the
-wrapper's also holds the host's preparation of its arguments.
+wrapper's also holds the host's preparation of its arguments; the camera
+rays' launch nests directly in `kytpu::rays`.
 
 `RenderTimer` accumulates per-phase wall time and ray counts (the
 reference's `timing_seconds` and per-row progress printf, ky.cpp:156-163,
@@ -64,7 +65,8 @@ def launched(kernel: str) -> None:
 
 
 def launches(kernel: str) -> int:
-    """`kernel.<kernel>.launches` (k1 ... k8, tag_sort, segment_sums)."""
+    """`kernel.<kernel>.launches` (k1 ... k8, tag_sort, segment_sums,
+    rays)."""
     return counters.get(f"kernel.{kernel}.launches", 0)
 
 

@@ -61,6 +61,15 @@ inline float __int_as_float(int i) {
   memcpy(&f, &i, 4);
   return f;
 }
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+// the high word of (hi:lo) << (shift & 31)
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t shift) {
+  return (uint32_t)(((((uint64_t)hi << 32) | lo) << (shift & 31)) >> 32);
+}
 inline uint32_t __brev(uint32_t x) {
   x = ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
   x = ((x >> 2) & 0x33333333u) | ((x & 0x33333333u) << 2);

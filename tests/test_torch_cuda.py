@@ -621,3 +621,57 @@ def test_tag_sort_and_sums_on_card(cuda, kind):
     assert torch.equal(got, kwf.segment_sums_plain(dout, want_perm,
                                                    want_starts, n, B, PB))
     assert torch.equal(got, kwf.seg_sums(dout, perm, starts, n, B, PB))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["random", "hash"])
+@pytest.mark.parametrize("n", [10_092_544, 946_176, 946_176 + 77])
+def test_camera_rays_kernel_on_card(cuda, mode, n):
+    """csrc/camera_rays.cu: the kernel's rays equal the plain chain's run on
+    the card, bit for bit, at the train step's lanes (Veach 512x308, 64
+    spp), a frame pass's (6 spp) and a count that is not a multiple of the
+    block; "hash" at sample base 6 (a frame's second pass). One launch,
+    counted."""
+    from kytpu_torch.core import rng as krng
+    from kytpu_torch.kernels import camera as kcam
+
+    cam = builders.veach_mis(512, 308).to(cuda).camera
+    npix = 512 * 308
+    words = krng.words(krng.fold_in(krng.key(2**31 + 11), 5))
+    base = 6 if mode == "hash" else 0
+    before = kprof.launches("rays")
+    o, d = kcam.lane_rays(cam, words, n, npix, mode, base)
+    torch.cuda.synchronize()
+    assert kprof.launches("rays") == before + 1
+    want_o, want_d = kcam.lane_rays_plain(cam, words, n, npix, mode, base)
+    assert d.shape == (n, 3) and d.dtype == torch.float32
+    assert torch.equal(o, want_o)
+    assert torch.equal(d.view(torch.int32), want_d.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_camera_rays_launches_on_card(cuda):
+    """kernel.rays.launches: one a frame pass (11 a frame of Veach 512x308
+    at 64 spp, 1M lanes a pass) and one a train step under "random" and
+    "hash"; the sobol sampler launches none."""
+    from kytpu_torch.core import rng as krng
+    from kytpu_torch.diff.inverse import make_train_step
+    from kytpu_torch.integrator.render import render
+
+    veach = builders.veach_mis(512, 308)
+    kprof.reset("rays")
+    render(veach, spp=64, seed=3, rays_per_pass=1 << 20, device=cuda)
+    assert kprof.launches("rays") == 11
+    kprof.reset("rays")
+    render(veach, spp=8, seed=3, cfg=kwf.KernelConfig(sampler="sobol"),
+           device=cuda)
+    assert kprof.launches("rays") == 0
+    sc = builders.cornell_box(width=32, height=32)
+    target = render(sc, spp=4, seed=2, clamp=False, device=cuda)
+    for sampler, per_step in (("random", 1), ("hash", 1), ("sobol", 0)):
+        step, _, _ = make_train_step(sc, target, spp=2,
+                                     kernel_sampler=sampler)
+        kprof.reset("rays")
+        for i in range(3):
+            step(krng.fold_in(krng.key(0), i))
+        assert kprof.launches("rays") == 3 * per_step, sampler

@@ -1,5 +1,8 @@
 """kytpu_torch's random numbers against kytpu's, bit for bit: threefry
-camera jitter (jax.random under its defaults) and the kernel's int32 hashes."""
+camera jitter (jax.random under its defaults) and the kernel's int32 hashes;
+the python-int threefry on key words kept on the host against the tensor
+one, and the camera-rays kernel's plain version against the chains it
+replaced."""
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +13,7 @@ import torch
 from kytpu.kernels import wavefront as jwf
 from kytpu_torch.core import rng as trng
 from kytpu_torch.kernels import wavefront as twf
+from kytpu_torch.scene.scene import generate_rays
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 SEEDS = [0, 1234, -5, 2**31 - 1]
@@ -146,3 +150,93 @@ def test_jnp_engine_draws(sampler):
             trng.uniform2(b, sampler, tindex).numpy())
     for spp in (1, 2, 6, 9, 16, 17):
         assert trng.stratum_grid(spp) == jr.stratum_grid(spp)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 + 5, 2**32 - 1, -9])
+def test_int_threefry_fold_in_randint(seed):
+    """The python-int threefry2x32, fold_in_words and randint_words, on key
+    words that stay on the host, equal the tensor versions to the bit,
+    words and data past 2**31 included."""
+    w = np.random.default_rng(seed & 0xFFFF).integers(
+        0, 2**32, (64, 4), dtype=np.uint64).astype(np.int64)
+    w[0] = [2**32 - 1, 2**31, 0, 2**32 - 1]
+    t = torch.from_numpy(w)
+    y0, y1 = trng.threefry2x32(t[:, 0], t[:, 1], t[:, 2], t[:, 3])
+    for row, a, b in zip(w.tolist(), y0.tolist(), y1.tolist()):
+        assert trng.threefry2x32(*row) == (a, b)
+    k = trng.fold_in(trng.key(seed), 11)
+    words = trng.words(k)
+    assert words == tuple(k.tolist())
+    for data in (0, 1, 7919, 2**31 - 1, 2**31, 2**32 - 1, 2**40 + 3, -3):
+        assert trng.fold_in_words(words, data) == tuple(
+            trng.fold_in(k, data).tolist())
+    for lo, hi in ((0, 2**31 - 1), (0, 10), (-5, 70000),
+                   (-2**31, 2**31 - 1)):
+        assert trng.randint_words(words, lo, hi) == trng.randint(k, lo, hi)
+
+
+def _loss_rays_as_it_stood(cam, key, spp, sampler):
+    """diff/inverse.py _kernel_loss's unsharded jitter and rays before
+    kernels/camera.py."""
+    w = cam.width
+    npix = w * cam.height
+    lane_pid = torch.arange(npix).repeat(spp)
+    lane_sid = torch.arange(spp).repeat_interleave(npix)
+    if sampler == "hash":
+        u = trng.uniform(trng.fold_in(key, lane_sid * npix + lane_pid), (2,))
+    else:
+        u = trng.uniform(key, (spp * npix, 2))
+    px = (lane_pid % w).to(torch.float32) + u[:, 0]
+    py = (lane_pid // w).to(torch.float32) + u[:, 1]
+    return generate_rays(cam, torch.stack([px, py], -1))
+
+
+def _pass_rays_as_it_stood(cam, seed, k, p, sampler):
+    """kernels/wavefront.py render_cuda's jitter and rays of pass p before
+    kernels/camera.py."""
+    w = cam.width
+    npix = w * cam.height
+    pid = torch.arange(npix, dtype=torch.int64)
+    px0 = (pid % w).to(torch.float32).repeat(k)
+    py0 = (pid // w).to(torch.float32).repeat(k)
+    pid_k = pid.repeat(k)
+    key = trng.key(seed)
+    if sampler == "hash":
+        si = p * k + torch.arange(k, dtype=torch.int64).repeat_interleave(
+            npix)
+        u = trng.uniform(trng.fold_in(key, si * npix + pid_k), (2,))
+    else:
+        u = trng.uniform(trng.fold_in(key, p), (k * npix, 2))
+    return generate_rays(
+        cam, torch.stack([px0 + u[:, 0], py0 + u[:, 1]], dim=-1))
+
+
+@pytest.mark.parametrize("sampler", ["random", "hash"])
+@pytest.mark.parametrize("seed", [0, 2**31 + 7, -5])
+def test_lane_rays_plain_matches_the_sites(sampler, seed):
+    """kernels/camera.py lane_rays' plain version, on the CPU, against the
+    two sites' chains as they stood, to the bit: the train step's lanes
+    under a step key, and frame passes p = 3 and one whose sample base
+    times npix wraps past 2**32, on an odd film (7 x 5)."""
+    from kytpu_torch.kernels import camera as kcam
+    from kytpu_torch.scene import builders
+    from kytpu_torch.utils import profiling as kprof
+
+    cam = builders.veach_mis(7, 5).camera
+    npix, spp, k = 35, 3, 4
+    before = kprof.launches("rays")
+    key = trng.fold_in(trng.key(seed), 9)
+    got = kcam.lane_rays(cam, trng.words(key), spp * npix, npix, sampler)
+    want = _loss_rays_as_it_stood(cam, key, spp, sampler)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    root = (0, seed & 0xFFFFFFFF)
+    for p in (3, 40_000_000):
+        if sampler == "hash":
+            got = kcam.lane_rays(cam, root, k * npix, npix, "hash", p * k)
+        else:
+            got = kcam.lane_rays(cam, trng.fold_in_words(root, p), k * npix,
+                                 npix, "random")
+        want = _pass_rays_as_it_stood(cam, seed, k, p, sampler)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the CPU's plain version launches nothing
+    assert kprof.launches("rays") == before
