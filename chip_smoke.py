@@ -304,6 +304,16 @@ Phases, one line each (a few for phase 3):
      e. the parity tools without the reference binary: render_kytpu at
         1024x1024, 4 spp, seeds 1234 and 977 (the jnp path engine), their
         walls and compare_reference's noise floor between them.
+  16. SPD's sphereflake (`sphereflake`; builders.spd_balls, 7,382
+     surfaces, 512x512, 4 spp, depth 5, the benchmark's
+     spd_balls.table_train4 step), run alone by `python3 chip_smoke.py
+     sphereflake`: three make_train_step(engine="cuda") steps, K6 and K7
+     launched and K2 and K3 not; the step's own K6 and K7 on its first 64K
+     lanes against their plain versions (the bounds of phase 3, and
+     whether bit for bit), K6 culled against cull="off" bit for bit, K6's
+     row counter (kernel.k6.rows, .sweeps, read in a profiled
+     launch) equal to `swept_counts`, the kernel's votes worked out from
+     the plain K6's rays; K6 and K7 timed at the step's 1,048,576 lanes.
 The line before the last is the kernels' JSON record (K1-K8, the tag
 sort, the segment sums and the camera rays, whose launches are phases 4's
 and 7's; each main path that sums by tag must launch
@@ -322,6 +332,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -702,8 +713,11 @@ def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
             tally("hit", li, oks, okb)
         return t, cls, trow
 
-    def occ(bt, hp, ns, rays, need, robust, own):
-        hits = real_occ(bt, hp, ns, rays, need, robust, own)
+    def occ(bt, hp, ns, rays, wants, robust, own):
+        hits = real_occ(bt, hp, ns, rays, wants, robust, own)
+        need = torch.zeros_like(hp.x, dtype=torch.bool)
+        for w in wants:
+            need = need | w
         idx = need.nonzero().reshape(-1)
         per_ray = []
         for wi, tmax in rays:
@@ -743,6 +757,146 @@ def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
                  for b in range(cfg.max_depth)]
     stats["ops"] += sum(n_b[:-1]) * (62 + 6 + 134 * n_l + 90)
     return ct.result(plain)
+
+
+def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
+                 warp: int = 32) -> tuple:
+    """(rows, sweeps): what csrc/bigscene_fwd.cu's row counter adds on these
+    lanes (`kernel.<k>.rows`, `.sweeps`), worked out from the rays
+    the plain K6 traces (kbs._closest_hit and kbs._occluded wrapped while
+    it runs) with the kernel's votes: lanes in warps of `warp` in lane
+    order (1: the host build's warps of one), each sweep's lanes the live
+    ones (closest hit) or those with a wanted shadow ray in the chunk of
+    NEE_CHUNK lights (occlusion); a warp enters a superblock and a block
+    where one of its lanes' rays meets its bound (`block_meets_plain`) at
+    that point of the sweep (the closest hit's running t_best, each shadow
+    ray while it is open), and an occlusion sweep ends once no lane of the
+    warp has an open ray at a superblock's start. rows: the rows of each
+    block entered, times the warp's lanes in the sweep; sweeps: the lanes
+    in each sweep."""
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels import wavefront as kwf
+    from kytpu_torch.kernels.v3 import V3
+    cull = cfg.cull != "off"
+    counts = tables.counts
+    nbs = [-(-c // kbs.UNROLL) for c in counts]
+    nss = [-(-b // kbs.SUPER) for b in nbs]
+    b0 = [sum(nbs[:k]) for k in range(4)]
+    s0 = [sum(nbs) + sum(nss[:k]) for k in range(4)]
+    bnd = tables.bnd
+    tot = {"rows": 0, "sweeps": 0}
+
+    def sub(v, li):
+        return V3(v.x[li], v.y[li], v.z[li])
+
+    def col(v):
+        return V3(v.x[:, None], v.y[:, None], v.z[:, None])
+
+    def warp_any(m):
+        """(N,) lane mask -> (N,) whether a lane of the lane's warp is set."""
+        n = m.shape[0]
+        w = torch.zeros(n // warp + 1, dtype=torch.int32, device=m.device)
+        w.index_add_(0, torch.arange(n, device=m.device) // warp, m.int())
+        return (w > 0)[torch.arange(n, device=m.device) // warp]
+
+    def meets(k, o_, d_, inv, t1, slack):
+        return kbs.block_meets_plain(bnd[k:k + 1], o_, d_, inv, t1,
+                                     slack)[:, 0]
+
+    def rows_of(c, blk):
+        return min(counts[c], (blk + 1) * kbs.UNROLL) - blk * kbs.UNROLL
+
+    real_hit, real_occ = kbs._closest_hit, kbs._occluded
+
+    def hit(bt, o_, d_, live):
+        tot["sweeps"] += int(live.sum())
+        slack, inv = kbs.cull_slack_plain(o_, d_)
+        t_best = torch.full_like(o_.x, math.inf)
+        for c, name in enumerate(kbs.CLASSES):
+            G, _ = bt.cls(name)
+            for sb in range(nss[c]):
+                wsup = live if not cull else warp_any(
+                    meets(s0[c] + sb, o_, d_, inv, t_best, slack) & live)
+                for blk in range(sb * kbs.SUPER,
+                                 min(nbs[c], (sb + 1) * kbs.SUPER)):
+                    m = wsup & live
+                    if cull:
+                        m = m & warp_any(meets(b0[c] + blk, o_, d_, inv,
+                                               t_best, slack) & live)
+                    li = m.nonzero().reshape(-1)
+                    if not len(li):
+                        continue
+                    r = rows_of(c, blk)
+                    tot["rows"] += r * len(li)
+                    rows = G[blk * kbs.UNROLL:blk * kbs.UNROLL + r]
+                    tmin = kbs._closest_class(name, rows, col(sub(o_, li)),
+                                              col(sub(d_, li))).min(1)[0]
+                    t_best[li] = torch.minimum(tmin, t_best[li])
+        return real_hit(bt, o_, d_, live)
+
+    def occ(bt, hp, ns, rays, wants, robust, own):
+        for i0 in range(0, len(rays), kwf.NEE_CHUNK):
+            chunk = list(range(i0, min(len(rays), i0 + kwf.NEE_CHUNK)))
+            need = torch.zeros_like(hp.x, dtype=torch.bool)
+            for k in chunk:
+                need = need | wants[k]
+            tot["sweeps"] += int(need.sum())
+            rs = []
+            for k in chunk:
+                wi, tmax = rays[k]
+                nd = ns.dot(wi)
+                se = torch.where(nd < 0, -kbs._OFF, kbs._OFF)
+                og = hp + ns * se
+                slack, inv = kbs.cull_slack_plain(og, wi)
+                rs.append((wi, tmax - se * nd if robust else tmax, se, nd,
+                           og, slack, inv,
+                           own[k] if robust else None))
+            open_ = torch.stack([wants[k] for k in chunk], 1)
+            running = need.clone()
+            for c, name in enumerate(kbs.CLASSES):
+                G, grows = bt.cls(name)
+                for sb in range(nss[c]):
+                    running = running & warp_any(open_.any(1) & need)
+                    if cull:
+                        sup = open_ & torch.stack(
+                            [meets(s0[c] + sb, r[4], r[0], r[6], r[1], r[5])
+                             for r in rs], 1)
+                        w_sup = warp_any(sup.any(1) & need) & running
+                    else:
+                        sup, w_sup = open_, running
+                    for blk in range(sb * kbs.SUPER,
+                                     min(nbs[c], (sb + 1) * kbs.SUPER)):
+                        test = sup & open_
+                        if cull:
+                            test = test & torch.stack(
+                                [meets(b0[c] + blk, r[4], r[0], r[6], r[1],
+                                       r[5]) for r in rs], 1)
+                            w_blk = warp_any(test.any(1) & need) & w_sup
+                        else:
+                            w_blk = w_sup
+                        li = (w_blk & need).nonzero().reshape(-1)
+                        if not len(li):
+                            continue
+                        r = rows_of(c, blk)
+                        tot["rows"] += r * len(li)
+                        sl = slice(blk * kbs.UNROLL, blk * kbs.UNROLL + r)
+                        crays = [(col(sub(q[0], li)), q[1][li, None],
+                                  q[2][li, None], q[3][li, None])
+                                 for q in rs]
+                        hits = kbs._occluded_class(
+                            name, G[sl], grows[sl], col(sub(hp, li)),
+                            col(sub(ns, li)), crays, [q[7] for q in rs])
+                        blocked = torch.stack(hits, 1) & test[li]
+                        open_[li] = open_[li] & ~blocked
+        return real_occ(bt, hp, ns, rays, wants, robust, own)
+
+    kbs._closest_hit, kbs._occluded = hit, occ
+    try:
+        kbs.trace_lanes_plain(tables, cfg, o, d, seed, si, pix,
+                              residual=True)
+    finally:
+        kbs._closest_hit, kbs._occluded = real_hit, real_occ
+    return tot["rows"], tot["sweeps"]
 
 
 def same_as_cull_off_wf(tables, cfg, lanes, g, got, tag: str) -> None:
@@ -4368,6 +4522,9 @@ def main() -> None:
     # 15. the last entry points: bench, nanopt, the parity tools
     last = last_entry_points(smi, fb_ms)
 
+    # 16. the sphereflake at its published size
+    sphereflake(smi)
+
     src = "kytpu_torch/kernels/csrc/"
     tex_steps = [sum(tl[k] for tl in tex_train.values()) for k in (1, 2)]
     rows = [("wavefront_fwd", "wavefront_fwd.cu",
@@ -4449,6 +4606,107 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def sphereflake(smi: str) -> None:
+    """Phase 16: SPD's sphereflake (builders.spd_balls(), 7,382 surfaces)
+    at its published 512x512 through make_train_step(engine="cuda") at its
+    default 4 spp, depth 5, names ("mat_diffuse", "mat_specular",
+    "env_radiance_"), the benchmark's spd_balls.table_train4 step: the
+    launches of three steps (K6 and K7 only), the step's own K6 and K7
+    calls on their first 64K lanes against the plain versions (the bounds
+    of phase 3, and whether bit for bit), K6 culled against cull="off" bit
+    for bit, the row counter of a recorded K6 launch against
+    `swept_counts` to the count, and K6 and K7 (with the sort and sums)
+    timed at the step's 1,048,576 lanes under CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kytpu_torch.core import rng as krng
+    from kytpu_torch.diff.inverse import make_train_step
+    from kytpu_torch.integrator.render import render
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels import wavefront as kwf
+    from kytpu_torch.scene import builders
+
+    t_phase = time.perf_counter()
+    scene = builders.spd_balls()
+    target = render(scene, spp=4, seed=7, cfg=kwf.KernelConfig(max_depth=5),
+                    clamp=False, engine="cuda")
+    names = ("mat_diffuse", "mat_specular", "env_radiance_")
+    start = builders.spd_balls()
+    start = dataclasses.replace(start, mat_diffuse=start.mat_diffuse * 0.8,
+                                env_radiance_=start.env_radiance_ * 1.2)
+    step, params, _ = make_train_step(start, target, spp=4, max_depth=5,
+                                      engine="cuda", names=names)
+    kprof.reset("k2", "k3", "k5", "k6", "k7")
+    key = krng.key(2**31 + 99)
+    with recording(kbs) as seen:
+        losses = [float(step(krng.fold_in(key, i))) for i in range(3)]
+    torch.cuda.synchronize()
+    got = {k: kprof.launches(k) for k in ("k2", "k3", "k5", "k6", "k7")}
+    if got["k6"] != 3 or got["k7"] != 3 or got["k2"] or got["k3"]:
+        raise AssertionError(f"the sphereflake step launched {got}")
+    step_ms, _ = wall_ms(lambda: step(krng.fold_in(key, 9)).item())
+    print(f"sphereflake: {int(scene.mat_kind.shape[0])} surfaces, 512x512, 4 "
+          f"spp, depth 5: 3 steps launched {got}, losses "
+          f"{[round(x, 6) for x in losses]}, {step_ms:.2f} ms a step; on "
+          f"{smi}", flush=True)
+    tabs, (kcfg, o, d, seed, si, pix), kw, k6 = seen["trace_lanes"]
+    btabs, (_, g, big_l, resf, resi), _, k7 = seen["bwd_res"]
+    n = 1 << 16
+    lanes = (o[:n], d[:n], seed, si, pix)
+    t0 = time.perf_counter()
+    ref = kbs.trace_lanes_plain(tabs, kcfg, *lanes, residual=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    mine = kbs.trace_lanes(tabs, kcfg, *lanes, residual=True)
+    share, err, _ = compare(mine[0], ref[0], "sphereflake K6")
+    cerr = compare_cache(mine[1], mine[2], ref[1], ref[2],
+                         "sphereflake K6 cache")
+    k6_bits = all(torch.equal(a, b) for a, b in zip(mine, ref))
+    k7_mine = kbs.bwd_res(btabs, kcfg, g[:n].contiguous(), mine[0], mine[1],
+                          mine[2])
+    k7_ref = kbs.bwd_res_plain(btabs, kcfg, g[:n].contiguous(), *ref)
+    gerr = compare_grads(k7_mine, k7_ref, "sphereflake K7")
+    k7_bits = all(torch.equal(a, b) for a, b in zip(k7_mine, k7_ref))
+    off = dataclasses.replace(kcfg, cull="off")
+    same_bits(mine, kbs.trace_lanes(tabs, off, *lanes, residual=True),
+              "sphereflake K6 culled against cull='off'")
+    kprof.reset("k6")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        kbs.trace_lanes(tabs, kcfg, *lanes, residual=True)
+        torch.cuda.synchronize()
+    counted = kprof.device_counts()
+    rows, sweeps = (counted.get("kernel.k6.rows"),
+                    counted.get("kernel.k6.sweeps"))
+    want = swept_counts(tabs, kcfg, *lanes)
+    if (rows, sweeps) != want:
+        raise AssertionError(f"sphereflake K6's row counter read {rows} rows "
+                             f"over {sweeps} lane-sweeps; the plain count "
+                             f"{want}")
+    print(f"sphereflake: the step's K6 and K7 on its first {n} lanes: K6 "
+          f"{share:.5f} of lanes outside the bound (max |err| {err:.3g}), "
+          f"cache max |err| {cerr:.3g}, bit for bit: {k6_bits}; K7 max |err| "
+          f"{gerr:.3g}, bit for bit: {k7_bits}; K6 culled = cull 'off' bit "
+          f"for bit; the row counter {rows} rows over {sweeps} lane-sweeps "
+          f"({rows / max(sweeps, 1):.1f} rows a lane-sweep of "
+          f"{sum(tabs.counts)}) = the plain count; plain K6 {plain_ms:.1f} "
+          f"ms", flush=True)
+    full = (o, d, seed, si, pix)
+    k6_ms, _ = cuda_time_ms(lambda: kbs.trace_lanes(tabs, kcfg, *full,
+                                                    residual=True), 3)
+    k7_ms, _ = cuda_time_ms(lambda: kbs.bwd_res(btabs, kcfg, g, big_l, resf,
+                                                resi), 3)
+    kprof.reset("k6")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        kbs.trace_lanes(tabs, kcfg, *full, residual=True)
+        torch.cuda.synchronize()
+    counted = kprof.device_counts()
+    print(f"sphereflake: at the step's {o.shape[0]} lanes K6 {k6_ms:.3f} ms, "
+          f"K7 with its sort and sums {k7_ms:.3f} ms; "
+          f"{counted['kernel.k6.rows'] / counted['kernel.k6.sweeps']:.1f} rows "
+          f"a lane-sweep; phase {time.perf_counter() - t_phase:.1f} s; on "
+          f"{smi}", flush=True)
+
+
 class _LastLine:
     """Standard output that remembers the last line written to it."""
 
@@ -4468,7 +4726,17 @@ class _LastLine:
 if __name__ == "__main__":
     sys.stdout = out = _LastLine(sys.stdout)
     try:
-        main()
+        if sys.argv[1:] == ["sphereflake"]:
+            # phase 16 alone, after the device and the build
+            from kytpu_torch.kernels import build as kbuild
+            kbuild.load()
+            smi_line = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.strip().splitlines()[0]
+            sphereflake(smi_line)
+        else:
+            main()
     except Exception:
         traceback.print_exc()
         out.flush()

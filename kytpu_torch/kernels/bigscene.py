@@ -649,17 +649,21 @@ def _occluded_class(name, G, rows, hp: V3, ns: V3, rays, own):
             for k, h in enumerate(out)]
 
 
-def _occluded(bt: BigTables, hp: V3, ns: V3, rays, need, robust: bool,
+def _occluded(bt: BigTables, hp: V3, ns: V3, rays, wants, robust: bool,
               own):
     """One occlusion sweep over every row for the K shadow rays [(wi,
-    tmax)] of the lanes where `need` -> K (N,) masks (False elsewhere).
-    The origin of ray k is hp offset by +-RAY_OFFSET along ns by the sign
-    of nd = ns.wi; under robust, tmax shrinks by that offset's projection
-    and ray k skips its light's own surface."""
+    tmax)], ray k of the lanes where wants[k] (the kernel's `want` bits)
+    -> K (N,) masks, False where ray k is not wanted. The origin of ray k
+    is hp offset by +-RAY_OFFSET along ns by the sign of nd = ns.wi; under
+    robust, tmax shrinks by that offset's projection and ray k skips its
+    light's own surface."""
     n = hp.x.shape[0]
     K = len(rays)
     hits = [torch.zeros(n, dtype=torch.bool, device=hp.x.device)
             for _ in range(K)]
+    need = torch.zeros(n, dtype=torch.bool, device=hp.x.device)
+    for w in wants:
+        need = need | w
     idx = need.nonzero().reshape(-1)
     if not len(idx) or not K:
         return hits
@@ -685,7 +689,7 @@ def _occluded(bt: BigTables, hp: V3, ns: V3, rays, need, robust: bool,
                 hc[k] = hc[k] | h
         for k in range(K):
             hits[k][li] = hc[k]
-    return hits
+    return [h & w for h, w in zip(hits, wants)]
 
 
 # ---------------------------------------------------------------------------
@@ -957,12 +961,9 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
             zero = torch.zeros_like(o.x)
             addc_diff = addc_spec = V3(zero, zero, zero)
             addx = zero
-        need = torch.zeros_like(alive)
-        for ok, *_ in terms:
-            need = need | ok
         occs = _occluded(tables, hp, nrm,
                          [(smp[0], smp[3] - kwf._SHADOW_EPS) for smp in smps],
-                         need, robust, own)
+                         [ok for ok, *_ in terms], robust, own)
         ld = v3_full(o.x, 0.0, 0.0, 0.0)
         for i, (ok, w, ucos, cos_aw) in enumerate(terms):
             li_s = smps[i][2]
@@ -1351,7 +1352,8 @@ def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
              ptr(resf), ptr(resi), n, *tables.counts,
              len(tables.static["mats"]["kind"]), *kwf._cfg_args(cfg, seed),
              int(cfg.trainable_exponent), int(residual), _textured(tables),
-             *_cull_args(tables, cfg))
+             *_cull_args(tables, cfg),
+             ptr(kprof.row_counter("k6" if residual else "k5", dev)))
     return (out, resf, resi) if residual else out
 
 
@@ -1452,7 +1454,8 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
              *tables.counts, len(tables.static["mats"]["kind"]),
              *kwf._cfg_args(cfg, seed), int(cfg.trainable_exponent),
              _textured(tables), *_cull_args(tables, cfg),
-             ptr(_wide(tables, k, nb, dev)))
+             ptr(_wide(tables, k, nb, dev)),
+             ptr(kprof.row_counter("k8", dev)))
     return _sums(tables, cfg, dout, tags, lane_sums, tex)
 
 

@@ -100,6 +100,16 @@
 // columns a checker, 4 texel-tagged entries a bounce for an atlas, summed
 // by texel by the segment-sum kernel) and writes 0 to its row-tagged
 // diffuse share. No atomics: the texture gradients repeat bit for bit.
+//
+// The rows swept (the counters kernel.<k>.rows and .sweeps of
+// utils/profiling.py, taken while the profiler records): each thread
+// counts in a register the rows of every block its warp enters on a sweep
+// the thread takes part in (the closest hit of a live lane, the occlusion
+// sweep of a lane with a shadow ray), and the sweeps it takes part in;
+// where a.swept is not null the warp sums both at its exit and adds them
+// there once, so the sums are rows tested per lane-sweep times the
+// lane-sweeps. Untraced launches pass null: the counts stay in registers
+// and one uniform branch skips the sums.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -145,6 +155,14 @@ struct BigArgs {
   // K8 past its local row (LOCAL_COLS): the blocks' accumulators in device
   // memory, n_cols * THREADS floats a block; else null
   float* wide;
+  // the rows swept and the lane-sweeps, added at each warp's exit; null:
+  // not counted
+  unsigned long long* swept;
+};
+
+// a thread's count of the rows its warp's sweeps entered, and of its sweeps
+struct Swept {
+  uint32_t rows = 0, sweeps = 0;
 };
 
 // K8's local row: env, each light's emission [, the checker adjoints]
@@ -227,7 +245,8 @@ constexpr int RES_PHONG = 1 << 20, RES_TO_SPEC = 1 << 21, RES_EVEN = 1 << 22;
 // blocks, and a block's rows, are skipped when no lane's ray can meet its
 // bound over [0, t_best].
 __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& t_best, int& cls,
-                               int& trow) {
+                               int& trow, Swept& sw) {
+  ++sw.sweeps;
   t_best = __int_as_float(0x7f800000);
   cls = -1;
   trow = -1;
@@ -242,7 +261,10 @@ __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& 
       if (skip(sup + sb)) continue;
       const int b1 = min(blocks_of(nr), (sb + 1) * SUPER_BLOCKS);
       for (int blk = sb * SUPER_BLOCKS; blk < b1; ++blk)
-        if (!skip(bnd + blk)) body(blk);
+        if (!skip(bnd + blk)) {
+          sw.rows += min(nr, (blk + 1) * BLOCK_ROWS) - blk * BLOCK_ROWS;
+          body(blk);
+        }
     }
   };
   for (int k = 0; k < 2; ++k) {
@@ -349,7 +371,8 @@ struct Rays {
 // whose field 2 is the emitting row that the light's ray skips (-1: none);
 // else null.
 __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, uint32_t need,
-                                    uint32_t mask, const int* lti) {
+                                    uint32_t mask, const int* lti, Swept& sw) {
+  ++sw.sweeps;
   uint32_t open = need;
   // -> the rays of `cand` that can meet bound *b (all of them without the
   // cull); any: whether a lane of the warp has one
@@ -448,6 +471,7 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
       for (int blk = sb * SUPER_BLOCKS; blk < b1; ++blk) {
         const uint32_t test = rays_of(bnd + blk, sup_test & open, any);
         if (!any) continue;
+        sw.rows += min(nr, (blk + 1) * BLOCK_ROWS) - blk * BLOCK_ROWS;
         if (c < 2)
           planar_rows(c == 0 ? T.tri : T.rect, c == 0 ? T.tri_r : T.rect_r, nr, blk, c == 0, test);
         else if (c == 2)
@@ -477,7 +501,8 @@ enum Mode { MODE_FWD = 0, MODE_RESIDUAL = 1, MODE_REPLAY = 2 };
 // lane_id < a.n, else the thread traces nothing and writes nothing.
 template <int MODE, bool SOBOL, bool TEX, class ACC = float*>
 __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, const Tables& T,
-                                           const Rays& R, int lane_id, bool in, ACC acc) {
+                                           const Rays& R, int lane_id, bool in, ACC acc,
+                                           Swept& sw) {
   const int n = a.n;
   const int L = S.L;
   const bool texp = a.texp != 0;
@@ -540,7 +565,7 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
     float t;
     int cls, trow, grow;
     V nrm;
-    closest_tables(T, o, d, mask, t, cls, trow);
+    closest_tables(T, o, d, mask, t, cls, trow, sw);
     hit_record(T, cls, trow, o, d, t, grow, nrm);
     const bool valid = cls >= 0;
     const float t_safe = valid ? t : 1.0f;
@@ -705,7 +730,7 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
       const uint32_t omask = __ballot_sync(mask, want != 0);
       const uint32_t lit =
           want ? want & ~occluded_tables(T, hp, nrm, R, want, omask,
-                                         a.robust ? S.LTI + LT_I * i0 : nullptr)
+                                         a.robust ? S.LTI + LT_I * i0 : nullptr, sw)
                : 0u;
       for (int k = 0; k < nk; ++k) {
         const int i = i0 + k;
@@ -900,23 +925,36 @@ __global__ void __launch_bounds__(THREADS) bigscene_fwd_kernel(const BigArgs a) 
   Tables T;
   T.init(a);
   const Rays R{(float*)smem4 + threadIdx.x, a.nee_rays};
+  Swept sw;
   if constexpr (MODE == MODE_REPLAY && WIDE) {
     // a row past the local array (past ROW_LIGHTS lights or ROW_TEXTURES
     // textures): this thread's column of the block's accumulator in device
     // memory, summed in the same order
     const WideAcc acc{a.wide + (size_t)blockIdx.x * a.n_cols * THREADS + threadIdx.x};
     for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
-    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, acc);
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, acc, sw);
     block_partials(acc, a.n_cols, a.partial);
   } else if constexpr (MODE == MODE_REPLAY) {
     // per-thread env, light-emission (and checker) adjoints, then the
     // fixed-order block sum
     float acc[LOCAL_COLS<TEX>];
     for (int k = 0; k < a.n_cols; ++k) acc[k] = 0.f;
-    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, acc);
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, acc, sw);
     block_partials(acc, a.n_cols, a.partial);
   } else {
-    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, static_cast<float*>(nullptr));
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, static_cast<float*>(nullptr), sw);
+  }
+  if (a.swept) {
+    // the warp's counts, added once at its exit
+    unsigned long long rows = sw.rows, sweeps = sw.sweeps;
+    for (int off = 16; off; off >>= 1) {
+      rows += __shfl_down_sync(0xffffffffu, rows, off);
+      sweeps += __shfl_down_sync(0xffffffffu, sweeps, off);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(a.swept, rows);
+      atomicAdd(a.swept + 1, sweeps);
+    }
   }
 }
 
@@ -974,7 +1012,9 @@ int launch(BigArgs& a, int textured, void* stream) {
 // the "random" sampler); out (n, 3), and under residual resf (res_n, n) and
 // resi (max_depth + 1, n), plane-major. sampler: 0 random, 1 hash, 2 sobol;
 // cull: skip the blocks no lane's ray meets (1) or sweep every row (0);
-// nee_rays: min(L, NEE_CHUNK).
+// nee_rays: min(L, NEE_CHUNK); swept: null, or 2 counts (the rows its
+// warps' sweeps entered, summed over the lanes in each sweep, and the
+// lane-sweeps) that the launch adds to.
 extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo, const int* rows,
                                   const int* mat_i, const float* mat_f, const float* diffuse,
                                   const float* specular, const float* emission,
@@ -986,7 +1026,7 @@ extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo
                                   int n_rect, int n_disk, int n_sph, int M, int seed,
                                   int max_depth, int rr_start, int rows_per_tile, int sampler,
                                   int robust, int texp, int residual, int textured, int cull,
-                                  int nee_rays, void* stream) {
+                                  int nee_rays, unsigned long long* swept, void* stream) {
   BigArgs a{};
   a.F = F; a.I = I; a.geo = geo; a.rows = rows; a.mat_i = mat_i; a.mat_f = mat_f;
   a.diffuse = diffuse; a.specular = specular; a.emission = emission; a.exponent = exponent;
@@ -996,6 +1036,7 @@ extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo
   a.n = n; a.n_tri = n_tri; a.n_rect = n_rect; a.n_disk = n_disk; a.n_sph = n_sph; a.M = M;
   a.seed = seed; a.max_depth = max_depth; a.rr_start = rr_start; a.rows_per_tile = rows_per_tile;
   a.sampler = sampler; a.robust = robust; a.texp = texp; a.cull = cull; a.nee_rays = nee_rays;
+  a.swept = swept;
   return residual ? launch<MODE_RESIDUAL>(a, textured, stream)
                   : launch<MODE_FWD>(a, textured, stream);
 }
@@ -1010,7 +1051,7 @@ extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo
 // tags tex_tags (4 max_depth, n), as K4 writes them; wide: null, or, for
 // more columns than the local row holds (past ROW_LIGHTS lights or
 // ROW_TEXTURES textures), a (blocks, n_cols, 128) scratch for the rows in
-// device memory. Returns
+// device memory; swept: as kytpu_bigscene_fwd's. Returns
 // cudaGetLastError() (or cudaErrorInvalidValue for what it does not take).
 extern "C" int kytpu_bigscene_bwd_replay(
     const float* F, const int* I, const float* geo, const int* rows, const int* mat_i,
@@ -1021,7 +1062,7 @@ extern "C" int kytpu_bigscene_bwd_replay(
     float* dout, int* tags, float* partial, float* lane_sums, float* tex_dout, int* tex_tags,
     int n, int n_cols, int n_tri, int n_rect, int n_disk, int n_sph, int M, int seed,
     int max_depth, int rr_start, int rows_per_tile, int sampler, int robust, int texp,
-    int textured, int cull, int nee_rays, float* wide, void* stream) {
+    int textured, int cull, int nee_rays, float* wide, unsigned long long* swept, void* stream) {
   if ((!wide && n_cols > (textured ? LOCAL_COLS<true> : LOCAL_COLS<false>)) || n_cols < 3)
     return (int)cudaErrorInvalidValue;
   BigArgs a{};
@@ -1035,6 +1076,6 @@ extern "C" int kytpu_bigscene_bwd_replay(
   a.n = n; a.n_cols = n_cols; a.n_tri = n_tri; a.n_rect = n_rect; a.n_disk = n_disk;
   a.n_sph = n_sph; a.M = M; a.seed = seed; a.max_depth = max_depth; a.rr_start = rr_start;
   a.rows_per_tile = rows_per_tile; a.sampler = sampler; a.robust = robust; a.texp = texp;
-  a.cull = cull; a.nee_rays = nee_rays; a.wide = wide;
+  a.cull = cull; a.nee_rays = nee_rays; a.wide = wide; a.swept = swept;
   return launch<MODE_REPLAY>(a, textured, stream);
 }

@@ -1,11 +1,13 @@
-"""Scene factories: Cornell box, Veach MIS, smallpt, random spheres and
-triangle meshes (kytpu/scene/builders.py).
+"""Scene factories: Cornell box, Veach MIS, smallpt, random spheres,
+triangle meshes and Haines' sphereflake (kytpu/scene/builders.py).
 
 Parity targets: create_cornell_box_scene (ky.cpp:3240-3432) and
 create_mis_scene (ky.cpp:3434-3533); `smallpt` is kytpu's smallpt scene;
 `random_spheres` and `mesh_scene` are kytpu's scene-scale scenes (hundreds
 to thousands of surfaces), which run on the big-scene kernels
-(kernels/bigscene.py). Geometry is assembled on the host in
+(kernels/bigscene.py); `spd_balls` is the Standard Procedural Databases'
+"balls" scene (Haines 1987), 7,382 surfaces at its default size, which
+runs there too. Geometry is assembled on the host in
 numpy and every table is float32, built with the same float32 arithmetic as
 the JAX package's builders, so both packages produce bit-identical scenes.
 
@@ -550,3 +552,126 @@ def mesh_scene(verts, faces, material: dict | None = None,
         front=(0.0, -0.3, -1.0), up=(0.0, 1.0, 0.0),
         fov_degrees=45.0, width=width, height=height)
     return a.build(cam, accel=accel)
+
+
+# the SPD "balls" scene (E. Haines, "A Proposal for Standard Graphics
+# Environments", IEEE CG&A 7(11), 1987; balls.c of the SPD)
+SPD_LIGHTS = ((4.0, 3.0, 2.0), (1.0, -4.0, 4.0), (-3.0, 1.0, 5.0))
+SPD_SKY = (0.078, 0.361, 0.753)
+# each point light's intensity (W/sr): SPD's lights are of equal
+# brightness and unitless, the three together light the flake's top to
+# about the sky's radiance
+SPD_POINT_INTENSITY = 25.0
+# the Phong exponent standing in for SPD's mirror term on the spheres
+SPD_SHININESS = 1000.0
+# the flake's float64 values this close to 0 (or an axis this close to
+# +-Z) are taken as exact (`_snap`, `_turn_z_to`)
+FLAKE_SNAP = 1e-9
+
+
+def _rotation(axis: np.ndarray, angle: float) -> np.ndarray:
+    """Rodrigues' rotation matrix about the unit `axis` by `angle`."""
+    x, y, z = axis
+    k = np.array([[0.0, -z, y], [z, 0.0, -x], [-y, x, 0.0]])
+    return np.eye(3) + np.sin(angle) * k + (1.0 - np.cos(angle)) * (k @ k)
+
+
+def _snap(x: np.ndarray) -> np.ndarray:
+    """x with every entry within FLAKE_SNAP of 0 set to 0: the flake's
+    exact zeros (the rings' equators, the coordinates that cancel) stay 0
+    whatever the rounding of the float64 that reaches them."""
+    return np.where(np.abs(x) < FLAKE_SNAP, 0.0, x)
+
+
+def _turn_z_to(w: np.ndarray) -> np.ndarray:
+    """The shortest rotation taking +Z to the unit vector w: about z x w by
+    acos(z . w); the identity within FLAKE_SNAP of +Z and a half turn about
+    +Y within FLAKE_SNAP of -Z, as balls.c takes them at +Z and -Z (many
+    of the flake's axes are -Z, where the shortest rotation has no axis)."""
+    if w[2] >= 1.0 - FLAKE_SNAP:
+        return np.eye(3)
+    if w[2] <= -1.0 + FLAKE_SNAP:
+        return _rotation(np.array([0.0, 1.0, 0.0]), np.pi)
+    axis = np.cross([0.0, 0.0, 1.0], w)
+    return _rotation(axis / np.linalg.norm(axis), float(np.arccos(w[2])))
+
+
+def _flake_ring() -> np.ndarray:
+    """SPD's nine child directions of a sphere whose outward axis is +Z,
+    (9, 3): the cuboctahedron's twelve directions (±1, ±1, 0)/√2 and
+    permutations whose dot with (1, 1, 1)/√3 is >= 0 (six on its equator,
+    three 54.7° above it), turned by the shortest rotation that takes
+    (1, 1, 1)/√3 to +Z (about (1, -1, 0)/√2 by acos(1/√3))."""
+    dirs = []
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        for si in (1.0, -1.0):
+            for sj in (1.0, -1.0):
+                v = np.zeros(3)
+                v[i], v[j] = si, sj
+                if v.sum() >= 0.0:
+                    dirs.append(v / np.sqrt(2.0))
+    a = np.ones(3) / np.sqrt(3.0)
+    axis = np.cross(a, [0.0, 0.0, 1.0])
+    turn = _rotation(axis / np.linalg.norm(axis), float(np.arccos(a[2])))
+    return _snap(np.stack(dirs) @ turn.T)
+
+
+def sphereflake(size_factor: int = 4):
+    """The flake of SPD's balls.c in float64, spheres in its output order
+    (each sphere, then its children's subtrees) -> (centres (n, 3), radii
+    (n,), parent index (n,), -1 at the root). The root sits at the origin
+    with radius 0.5 and axis +Z; each sphere of level < size_factor has
+    nine children of a third of its radius, tangent to it: centres c + (r
+    + r/3) u for u the ring (`_flake_ring`) turned onto the sphere's own
+    axis (`_turn_z_to`), each child's axis its u; every value within
+    FLAKE_SNAP of 0 is 0 (`_snap`). 1 + 9 + ... + 9^k
+    spheres: 10, 91, 820, 7,381 at factors 1-4."""
+    ring = _flake_ring()
+    centres, radii, parents = [], [], []
+
+    def grow(c, r, axis, level, parent):
+        me = len(centres)
+        centres.append(c)
+        radii.append(r)
+        parents.append(parent)
+        if level == size_factor:
+            return
+        for u in _snap(ring @ _turn_z_to(axis).T):
+            grow(_snap(c + (r + r / 3.0) * u), r / 3.0, u, level + 1, me)
+
+    grow(np.zeros(3), 0.5, np.array([0.0, 0.0, 1.0]), 0, -1)
+    return np.stack(centres), np.asarray(radii), np.asarray(parents)
+
+
+def spd_balls(size_factor: int = 4, width: int = 512,
+              height: int = 512) -> kscene.Scene:
+    """SPD's "balls" scene, the sphereflake (Haines 1987): the flake of
+    `sphereflake(size_factor)` (7,381 spheres at the default factor 4),
+    each sphere a row of its own in plastic (diffuse (1, 0.9, 0.7) x 0.5,
+    specular 0.5 grey, Phong exponent SPD_SHININESS), on a matte square
+    floor at z = -0.5 spanning ±12 in x and y (colour (1, 0.75, 0.33) x
+    0.8), which the root touches; three point lights of SPD_POINT_INTENSITY
+    at SPD_LIGHTS and SPD's sky-blue background as a constant environment
+    light; the camera at (2.1, 1.3, 1.7) looking at the origin, up +Z, a
+    45° field of view. Z is up, as in SPD. The scaled colours are taken in
+    float64 and rounded once to float32."""
+    m = _SceneAssembler
+    a = _SceneAssembler()
+    g = a.geo
+    half = 12.0
+    a.surface(g.add_rectangle((half, half, -0.5), (-half, half, -0.5),
+                              (-half, -half, -0.5), (half, -half, -0.5)),
+              m.matte(_f32(np.array([1.0, 0.75, 0.33]) * 0.8)))
+    ball = m.plastic(_f32(np.array([1.0, 0.9, 0.7]) * 0.5), _full(0.5),
+                     SPD_SHININESS)
+    centres, radii, _ = sphereflake(size_factor)
+    for c, r in zip(centres, radii):
+        a.surface(g.add_sphere(c, r), dict(ball))
+    for p in SPD_LIGHTS:
+        a.add_light(kind=klights.POINT, emit=_full(SPD_POINT_INTENSITY),
+                    position=np.asarray(p))
+    a.add_light(kind=klights.ENV, emit=_f32(SPD_SKY))
+    cam = kscene.make_camera(position=(2.1, 1.3, 1.7),
+                             front=(-2.1, -1.3, -1.7), up=(0.0, 0.0, 1.0),
+                             fov_degrees=45.0, width=width, height=height)
+    return a.build(cam)

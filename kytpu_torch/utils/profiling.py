@@ -25,6 +25,13 @@ so the launch span's device interval is the kernel's alone and the
 wrapper's also holds the host's preparation of its arguments; the camera
 rays' launch nests directly in `kytpu::rays`.
 
+`kernel.<k>.rows` and `kernel.<k>.sweeps` (k5, k6, k8: the table kernels'
+sweeps, csrc/bigscene_fwd.cu) are counted on the card, and only while
+torch.profiler records: `row_counter(k, device)` gives a launch the
+device buffer to add to (None otherwise), and `device_counts()` reads the
+buffers once, after the window. They hold the current or last profiled
+window, as `spans()` does, and `reset` clears them with the launches.
+
 `RenderTimer` accumulates per-phase wall time and ray counts (the
 reference's `timing_seconds` and per-row progress printf, ky.cpp:156-163,
 3703), each phase a span `kytpu::cli.<phase>`; `trace_to` wraps a block in
@@ -53,6 +60,9 @@ _OFF = contextlib.nullcontext()
 _SYNC = "called a synchronizing CUDA operation"
 
 counters: dict = {}
+# kernel -> int64 (2,) on the card: the rows its sweeps entered (summed
+# over the lanes in each sweep) and the lane-sweeps, while recording
+_swept: dict = {}
 
 
 def count(name: str, n: int = 1) -> None:
@@ -71,12 +81,40 @@ def launches(kernel: str) -> int:
 
 
 def reset(*kernels: str) -> None:
-    """Set the launch counts of `kernels` (of every kernel where none is
-    named) to 0."""
+    """Set the launch counts and the rows swept of `kernels` (of every
+    kernel where none is named) to 0."""
     for name in list(counters):
         if name.startswith("kernel.") and name.endswith(".launches") and (
                 not kernels or name.split(".")[1] in kernels):
             del counters[name]
+    for k in list(_swept):
+        if not kernels or k in kernels:
+            del _swept[k]
+
+
+def row_counter(kernel: str, device) -> torch.Tensor | None:
+    """The int64 (2,) buffer on `device` that a launch of `kernel` (k5,
+    k6, k8) adds its rows swept and lane-sweeps to, while torch.profiler
+    records; else None, and the launch counts nothing."""
+    if not _recording():
+        return None
+    buf = _swept.get(kernel)
+    if buf is None or buf.device != torch.device(device):
+        buf = _swept[kernel] = torch.zeros(2, dtype=torch.int64,
+                                           device=device)
+    return buf
+
+
+def device_counts() -> dict:
+    """`kernel.<k>.rows` and `kernel.<k>.sweeps` of the current or last
+    profiled window, read from the card (a sync each: call it after the
+    window, never inside a call)."""
+    out = {}
+    for k, buf in _swept.items():
+        rows, sweeps = buf.tolist()
+        out[f"kernel.{k}.rows"] = rows
+        out[f"kernel.{k}.sweeps"] = sweeps
+    return out
 
 
 @dataclass
@@ -135,6 +173,7 @@ class _Span:
         outer = not _open
         if outer and _stale:
             _store.clear()
+            _swept.clear()
             _stale = False
         i = len(_store)
         rec = SpanRecord(self.name, None if outer else _open[-1],

@@ -119,6 +119,12 @@ inline uint32_t __ballot_sync(uint32_t mask, bool pred) { return pred ? mask & 1
 inline bool __any_sync(uint32_t mask, bool pred) { return pred && (mask & 1u); }
 #endif
 inline float __shfl_down_sync(uint32_t, float, int) { abort(); }
+inline unsigned long long __shfl_down_sync(uint32_t, unsigned long long, int) { abort(); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p;
+  *p += v;
+  return old;
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

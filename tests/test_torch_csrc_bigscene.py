@@ -78,9 +78,10 @@ void save(const char* name, const std::vector<T>& v) {
   fclose(f);
 }
 
-// every lane in turn, as thread 0 of a warp of one; acc: K8's lane columns
+// every lane in turn, as thread 0 of a warp of one; acc: K8's lane columns;
+// swept: each lane's rows swept and sweeps
 template <int MODE, bool SOBOL, bool TEX>
-void run(const BigArgs& a, std::vector<float>& acc) {
+void run(const BigArgs& a, std::vector<float>& acc, std::vector<uint32_t>& swept) {
   static float rays[Rays::FIELDS * NEE_CHUNK * THREADS];
   Scene S;
   S.init(a.F, a.I);
@@ -89,20 +90,23 @@ void run(const BigArgs& a, std::vector<float>& acc) {
   const Rays R{rays, a.nee_rays};
   for (int i = 0; i < a.n; ++i) {
     float* row = acc.data() + (size_t)i * a.n_cols;
-    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, i, true, MODE == MODE_REPLAY ? row : nullptr);
+    Swept sw;
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, i, true, MODE == MODE_REPLAY ? row : nullptr, sw);
+    swept[2 * (size_t)i] = sw.rows;
+    swept[2 * (size_t)i + 1] = sw.sweeps;
   }
 }
 
 template <int MODE, bool SOBOL>
-void run_tex(const BigArgs& a, bool tex, std::vector<float>& acc) {
-  if (tex) run<MODE, SOBOL, true>(a, acc);
-  else run<MODE, SOBOL, false>(a, acc);
+void run_tex(const BigArgs& a, bool tex, std::vector<float>& acc, std::vector<uint32_t>& swept) {
+  if (tex) run<MODE, SOBOL, true>(a, acc, swept);
+  else run<MODE, SOBOL, false>(a, acc, swept);
 }
 
 template <int MODE>
-void run_sobol(const BigArgs& a, bool tex, std::vector<float>& acc) {
-  if (a.sampler == S_SOBOL) run_tex<MODE, true>(a, tex, acc);
-  else run_tex<MODE, false>(a, tex, acc);
+void run_sobol(const BigArgs& a, bool tex, std::vector<float>& acc, std::vector<uint32_t>& swept) {
+  if (a.sampler == S_SOBOL) run_tex<MODE, true>(a, tex, acc, swept);
+  else run_tex<MODE, false>(a, tex, acc, swept);
 }
 
 }  // namespace
@@ -145,12 +149,14 @@ int main(int argc, char** argv) {
   std::vector<float> out(3 * n, -1.f), resf(res_n * n, -1.f), dout((PB * B + 3) * n, -1.f),
       acc(n * (a.n_cols > 0 ? a.n_cols : 1), 0.f), tex_dout(12 * B * n, -1.f);
   std::vector<int> resi((B + 1) * n, -1), tags((B + 1) * n, -1), tex_tags(4 * B * n, -1);
+  std::vector<uint32_t> swept(2 * n, 0);
   a.out = out.data(); a.resf = resf.data(); a.resi = resi.data(); a.dout = dout.data();
   a.tags = tags.data(); a.tex_dout = tex_dout.data(); a.tex_tags = tex_tags.data();
   if (a.sampler == S_SOBOL) upload_sites();
-  if (mode == MODE_FWD) run_sobol<MODE_FWD>(a, textured, acc);
-  else if (mode == MODE_RESIDUAL) run_sobol<MODE_RESIDUAL>(a, textured, acc);
-  else run_sobol<MODE_REPLAY>(a, textured, acc);
+  if (mode == MODE_FWD) run_sobol<MODE_FWD>(a, textured, acc, swept);
+  else if (mode == MODE_RESIDUAL) run_sobol<MODE_RESIDUAL>(a, textured, acc, swept);
+  else run_sobol<MODE_REPLAY>(a, textured, acc, swept);
+  save("swept", swept);
   if (mode != MODE_REPLAY) save("out", out);
   if (mode == MODE_RESIDUAL) {
     save("resf", resf);
@@ -358,3 +364,36 @@ def test_culled_lane_body_matches_plain(big_exe, tmp_path, scene, sampler,
         assert (ref_f.numpy()[kplanes] != 0).any()
     if graze:
         assert np.isfinite(got[:graze]).all()
+
+
+@pytest.mark.parametrize("scene, cull", [("spd_balls", "cone"),
+                                         ("spd_balls", "off"),
+                                         ("spheres", "cone")])
+def test_row_counter_matches_the_plain_votes(big_exe, tmp_path, scene, cull):
+    """The lane body's row counter (each lane's rows of the blocks its warp
+    entered, and its sweeps; csrc/bigscene_fwd.cu `Swept`) summed over the
+    lanes against chip_smoke.swept_counts at warps of one, the host build's
+    votes, on the same rays: the same counts."""
+    import chip_smoke
+
+    sc = (builders.spd_balls(2, 24, 16) if scene == "spd_balls"
+          else _scene(scene))
+    cfg = kwf.KernelConfig(max_depth=3, rr_start=1, rows=2, cull=cull)
+    n, seed = 1024, 11
+    extracted = kbs.extract_tables(sc)
+    tables = kbs.pack_big_tables(sc, cfg, extracted)
+    o, d, si, pix = _lanes(sc, extracted, n, 0)
+    ref_l = kbs.trace_lanes_plain(tables, cfg, o, d, seed, si, pix)
+    for nm in kbs._TABLES:
+        getattr(tables, nm).numpy().tofile(tmp_path / nm)
+    for nm, t in (("o", o), ("d", d), ("si", si), ("pix", pix),
+                  ("g", torch.zeros(n, 3)), ("l_in", ref_l)):
+        t.contiguous().numpy().tofile(tmp_path / nm)
+    _, res_n = kbs.layout_of(tables.static, cfg)
+    _run(big_exe, tmp_path, 1, int(cull != "off"), tables, cfg, n, seed,
+         res_n, kbs._n_cols(tables))
+    swept = np.fromfile(tmp_path / "swept", np.uint32).reshape(n, 2)
+    got = tuple(int(x) for x in swept.astype(np.int64).sum(0))
+    assert got == chip_smoke.swept_counts(tables, cfg, o, d, seed, si, pix,
+                                          warp=1)
+    assert got[0] > 0 and got[1] >= n
