@@ -311,9 +311,11 @@ Phases, one line each (a few for phase 3):
      launched and K2 and K3 not; the step's own K6 and K7 on its first 64K
      lanes against their plain versions (the bounds of phase 3, and
      whether bit for bit), K6 culled against cull="off" bit for bit, K6's
-     row counter (kernel.k6.rows, .sweeps, read in a profiled
-     launch) equal to `swept_counts`, the kernel's votes worked out from
-     the plain K6's rays; K6 and K7 timed at the step's 1,048,576 lanes.
+     counters (kernel.k6.rows, .sweeps, .bounds, read in a profiled
+     launch) equal to `swept_counts`, the kernel's tree walk worked out
+     from the plain K6's rays, printed first beside `vote_counts`, the
+     warp vote over flat superblocks that the walk replaced; K6 and K7
+     timed at the step's 1,048,576 lanes.
 The line before the last is the kernels' JSON record (K1-K8, the tag
 sort, the segment sums and the camera rays, whose launches are phases 4's
 and 7's; each main path that sums by tag must launch
@@ -663,7 +665,9 @@ def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
     and by a warp of 32 lanes in lane order, for the closest-hit ("hit")
     and the occlusion ("occ") sweeps (a warp at its lanes' hits: the
     kernel's running t_best can only pass more); "plain", the plain K6's
-    (radiance, resf, resi)."""
+    (radiance, resf, resi). The superblocks are `vote_bounds`', those of
+    the flat sweep that the tree walk replaced; `swept_counts` counts the
+    walk itself."""
     from kytpu_torch.kernels import bigscene as kbs
     from kytpu_torch.kernels.v3 import V3
     st = tables.static
@@ -685,6 +689,7 @@ def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
     nb = len(rows_b)
     f64 = dict(dtype=torch.float64, device=dev)
     rows_b = torch.tensor(rows_b, **f64)
+    bnd = vote_bounds(tables)
     w_hit = rows_b * torch.tensor(c_hit, **f64)
     w_ray = rows_b * torch.tensor(c_ray, **f64)
     w_sh = rows_b * torch.tensor(c_shared, **f64)
@@ -692,7 +697,7 @@ def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
     per_sup = torch.bincount(sb_of, minlength=n_sup).double()
     n = o.shape[0]
     step = max(32, (1 << 22) // max(nb, 1) // 32 * 32)
-    ct = CullTally(tables.bnd, nb, sb_of, n_sup, n)
+    ct = CullTally(bnd, nb, sb_of, n_sup, n)
     stats, passes, tally = ct.stats, ct.passes, ct.tally
     occ_rays = []
     real_hit, real_occ = kbs._closest_hit, kbs._occluded
@@ -759,12 +764,244 @@ def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
     return ct.result(plain)
 
 
+def vote_bounds(tables) -> torch.Tensor:
+    """`kbs.cull_bounds`' (blocks + superblocks, 4) layout of a big scene's
+    tables: their padded blocks (the blocks of `tables.bnd`'s tree) and,
+    class by class, a sphere around each SUPER consecutive ones
+    (`kbs._group`), the bounds of the warp-voted sweep that the tree walk
+    replaced."""
+    from kytpu_torch.kernels import bigscene as kbs
+    nbs = [-(-c // kbs.UNROLL) for c in tables.counts]
+    # the tree's blocks, class by class in table order
+    blocks = tables.bnd[tables.links[:, 1] >= 0].cpu().numpy()
+    supers = [kbs._group(blocks[sum(nbs[:k]):sum(nbs[:k + 1])], kbs.SUPER)
+              for k in range(4)]
+    return torch.from_numpy(np.concatenate([blocks] + supers)).to(
+        tables.bnd.device)
+
+
 def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
-                 warp: int = 32) -> tuple:
-    """(rows, sweeps): what csrc/bigscene_fwd.cu's row counter adds on these
-    lanes (`kernel.<k>.rows`, `.sweeps`), worked out from the rays
-    the plain K6 traces (kbs._closest_hit and kbs._occluded wrapped while
-    it runs) with the kernel's votes: lanes in warps of `warp` in lane
+                 warp: int = 32, stats: dict | None = None) -> tuple:
+    """(rows, sweeps, bounds): what csrc/bigscene_fwd.cu's counters add on
+    these lanes (`kernel.<k>.rows`, `.sweeps`, `.bounds`), worked out from
+    the rays the plain K6 traces (kbs._closest_hit and kbs._occluded
+    wrapped while it runs) with the kernel's tree walk (`walk`): each lane
+    of a sweep (the live ones for the closest hit, those with a wanted
+    shadow ray in the chunk of NEE_CHUNK lights for occlusion) walks each
+    class's tree (`kbs.tree_bounds`) alone, in table order, going on to
+    the next entry where its rays meet an entry (`kbs.node_meets_plain`:
+    the closest hit's running t_best; the open shadow rays, a block's rows
+    then tested for those that meet it) and to its skip where they do not,
+    an occlusion walk ending once every ray is blocked. Its warp (`warp`
+    lanes in lane order; 1: the host build's warps of one) runs the walks
+    in step: a node step while some lane has no block pending, which each
+    lane with room for one more of kbs.LEAF_BUF pending blocks takes, else
+    a leaf phase, which tests each lane's first pending block. rows: the
+    rows of the largest such block of each leaf phase, bounds: the node
+    steps, both times the warp's lanes in the sweep; sweeps: the lanes in
+    each sweep. stats, where given, gets "lane_rows" and "lane_bounds" (a
+    lane's own rows and node steps, summed over its sweeps), "phases" (leaf
+    phases, summed over the warps' sweeps) and "blocks" (the distinct
+    blocks of each leaf phase, summed likewise)."""
+    from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels import wavefront as kwf
+    from kytpu_torch.kernels.v3 import V3
+    cull = cfg.cull != "off"
+    counts, U, B = tables.counts, kbs.UNROLL, kbs.LEAF_BUF
+    nbs = [-(-c // U) for c in counts]
+    bnd, links = tables.bnd, tables.links.long()
+    # each class's entries: its root is the first, its skip the class's end
+    start = [0]
+    for c in range(4):
+        start.append(start[-1] + (int(links[start[-1], 0]) - start[-1]
+                                  if nbs[c] else 0))
+    tot = {"rows": 0, "sweeps": 0, "bounds": 0}
+    st = {"lane_rows": 0, "lane_bounds": 0, "phases": 0, "blocks": 0}
+
+    def sub(v, li):
+        return V3(v.x[li], v.y[li], v.z[li])
+
+    def col(v):
+        return V3(v.x[:, None], v.y[:, None], v.z[:, None])
+
+    def rows_in(c, blk, G):
+        """The rows of each lane's block, (C, columns, U), NaN past the
+        class's last row (no row test takes NaN), and their table rows (C,
+        U)."""
+        s = blk[:, None] * U + torch.arange(U, device=blk.device)
+        ok = s < counts[c]
+        s = s.clamp(max=counts[c] - 1)
+        g = torch.where(ok[..., None], G[s], math.nan)
+        return g.permute(0, 2, 1), s
+
+    def walk(c, idx, live, node_hits, leaf):
+        """Each lane of idx (launch positions) walks class c's tree, its
+        warp in step: node_hits(pos, e) -> (whether the rays of the lanes
+        at positions pos of idx meet their entries e, each lane's rays that
+        do or None); leaf(pos, blk, rays) tests the blocks' rows -> whether
+        each lane still looks for something. Adds the warps' node steps and
+        leaf phases' rows."""
+        n, dev = len(idx), idx.device
+        wid, w = torch.unique(idx // warp, return_inverse=True)
+        nw = len(wid)
+        n_w = torch.bincount(w, minlength=nw)
+        e = torch.full((n,), start[c], dtype=torch.long, device=dev)
+        buf = torch.full((n, B), -1, dtype=torch.long, device=dev)
+        pay = [None] * B
+        done = ~live
+        nodes_w = torch.zeros(nw, dtype=torch.long, device=dev)
+        rows_w = torch.zeros_like(nodes_w)
+
+        def any_w(m):
+            return torch.zeros(nw, dtype=torch.bool, device=dev).index_put_(
+                (w[m],), torch.ones(1, dtype=torch.bool, device=dev))
+
+        while True:
+            w_node = any_w(~done & (buf[:, 0] < 0))
+            hasb = buf[:, 0] >= 0
+            w_leaf = any_w(hasb) & ~w_node
+            if not bool(w_node.any() | w_leaf.any()):
+                break
+            nodes_w += w_node.long()
+            ns = (w_node[w] & ~done & (buf[:, -1] < 0)).nonzero().reshape(-1)
+            lf = (w_leaf[w] & hasb).nonzero().reshape(-1)
+            if len(ns):
+                st["lane_bounds"] += len(ns)
+                m, rays = node_hits(ns, e[ns])
+                blk = links[e[ns], 1]
+                at_leaf = m & (blk >= 0)
+                got = ns[at_leaf]
+                slot = (buf[got] >= 0).sum(1)
+                buf[got, slot] = blk[at_leaf]
+                if rays is not None:
+                    for q in range(B):
+                        if pay[q] is None:
+                            pay[q] = torch.zeros((n, rays.shape[1]),
+                                                 dtype=torch.bool, device=dev)
+                        pay[q][got[slot == q]] = rays[at_leaf][slot == q]
+                e[ns] = torch.where(m, e[ns] + 1, links[e[ns], 0])
+                done[ns] = e[ns] >= start[c + 1]
+            if len(lf):
+                blk = buf[lf, 0]
+                r = torch.clamp(counts[c] - blk * U, max=U)
+                rows_w += torch.zeros_like(rows_w).scatter_reduce_(
+                    0, w[lf], r, "amax")
+                st["lane_rows"] += int(r.sum())
+                st["phases"] += int(w_leaf.sum())
+                st["blocks"] += int(torch.unique(
+                    w[lf] * (nbs[c] + 1) + blk).numel())
+                alive = leaf(lf, blk, None if pay[0] is None else pay[0][lf])
+                buf[lf] = torch.cat([buf[lf, 1:], torch.full_like(
+                    buf[lf, :1], -1)], 1)
+                for q in range(B - 1):
+                    if pay[q] is not None:
+                        pay[q][lf] = pay[q + 1][lf]
+                dead = lf[~alive]
+                done[dead] = True
+                buf[dead] = -1
+        tot["bounds"] += int((nodes_w * n_w).sum())
+        tot["rows"] += int((rows_w * n_w).sum())
+
+    real_hit, real_occ = kbs._closest_hit, kbs._occluded
+
+    def hit(bt, o_, d_, live):
+        idx = live.nonzero().reshape(-1)
+        tot["sweeps"] += len(idx)
+        oo, dd = sub(o_, idx), sub(d_, idx)
+        slack, inv = kbs.cull_slack_plain(oo, dd)
+        t_best = torch.full_like(oo.x, math.inf)
+        for c, name in enumerate(kbs.CLASSES):
+            if not nbs[c]:
+                continue
+            G, _ = bt.cls(name)
+
+            def node_hits(pos, e):
+                if not cull:
+                    return torch.ones_like(pos, dtype=torch.bool), None
+                return kbs.node_meets_plain(bnd[e], sub(oo, pos),
+                                            sub(dd, pos), inv[pos],
+                                            t_best[pos], slack[pos]), None
+
+            def leaf(pos, blk, rays, c=c, name=name, G=G):
+                g, _ = rows_in(c, blk, G)
+                t = kbs._closest_class(name, g, col(sub(oo, pos)),
+                                       col(sub(dd, pos))).min(1)[0]
+                t_best[pos] = torch.minimum(t, t_best[pos])
+                return torch.ones_like(pos, dtype=torch.bool)
+
+            walk(c, idx, torch.ones_like(idx, dtype=torch.bool), node_hits,
+                 leaf)
+        return real_hit(bt, o_, d_, live)
+
+    def occ(bt, hp, ns, rays, wants, robust, own):
+        for i0 in range(0, len(rays), kwf.NEE_CHUNK):
+            chunk = list(range(i0, min(len(rays), i0 + kwf.NEE_CHUNK)))
+            need = torch.zeros_like(hp.x, dtype=torch.bool)
+            for q in chunk:
+                need = need | wants[q]
+            idx = need.nonzero().reshape(-1)
+            tot["sweeps"] += len(idx)
+            hpl, nsl = sub(hp, idx), sub(ns, idx)
+            rs = []
+            for q in chunk:
+                wi, tmax = rays[q]
+                wi, tmax = sub(wi, idx), tmax[idx]
+                nd = nsl.dot(wi)
+                se = torch.where(nd < 0, -kbs._OFF, kbs._OFF)
+                og = hpl + nsl * se
+                slack, inv = kbs.cull_slack_plain(og, wi)
+                rs.append((wi, tmax - se * nd if robust else tmax, se, nd,
+                           og, slack, inv))
+            owns = [own[q] if robust else None for q in chunk]
+            open_ = torch.stack([wants[q][idx] for q in chunk], 1)
+            for c, name in enumerate(kbs.CLASSES):
+                if not nbs[c]:
+                    continue
+                G, grows = bt.cls(name)
+
+                def node_hits(pos, e):
+                    if not cull:
+                        m = open_[pos]
+                    else:
+                        b = bnd[e]
+                        m = open_[pos] & torch.stack(
+                            [kbs.node_meets_plain(b, sub(r[4], pos),
+                                                  sub(r[0], pos), r[6][pos],
+                                                  r[1][pos], r[5][pos])
+                             for r in rs], 1)
+                    return m.any(1), m
+
+                def leaf(pos, blk, test, c=c, name=name, G=G, grows=grows):
+                    g, s = rows_in(c, blk, G)
+                    crays = [(col(sub(r[0], pos)), r[1][pos, None],
+                              r[2][pos, None], r[3][pos, None]) for r in rs]
+                    hits = kbs._occluded_class(
+                        name, g, grows[s], col(sub(hpl, pos)),
+                        col(sub(nsl, pos)), crays, owns)
+                    open_[pos] &= ~(torch.stack(hits, 1) & test)
+                    return open_[pos].any(1)
+
+                walk(c, idx, open_.any(1), node_hits, leaf)
+        return real_occ(bt, hp, ns, rays, wants, robust, own)
+
+    kbs._closest_hit, kbs._occluded = hit, occ
+    try:
+        kbs.trace_lanes_plain(tables, cfg, o, d, seed, si, pix,
+                              residual=True)
+    finally:
+        kbs._closest_hit, kbs._occluded = real_hit, real_occ
+    if stats is not None:
+        stats.update(st)
+    return tot["rows"], tot["sweeps"], tot["bounds"]
+
+
+def vote_counts(tables, cfg, o, d, seed, si=None, pix=None,
+                warp: int = 32) -> tuple:
+    """(rows, sweeps, tests): what the warp-voted sweep of flat superblocks
+    that the tree walk replaced (csrc/bigscene_fwd.cu step 3) tested on
+    these lanes, worked out from the rays the plain K6 traces
+    (kbs._closest_hit and kbs._occluded wrapped while it runs) with its
+    votes, for `swept_counts`' comparison: lanes in warps of `warp` in lane
     order (1: the host build's warps of one), each sweep's lanes the live
     ones (closest hit) or those with a wanted shadow ray in the chunk of
     NEE_CHUNK lights (occlusion); a warp enters a superblock and a block
@@ -773,7 +1010,9 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
     ray while it is open), and an occlusion sweep ends once no lane of the
     warp has an open ray at a superblock's start. rows: the rows of each
     block entered, times the warp's lanes in the sweep; sweeps: the lanes
-    in each sweep."""
+    in each sweep; tests: the bounds the warp tested (the superblocks and
+    the blocks of those it entered), times its lanes in the sweep. The
+    superblocks are `vote_bounds`'."""
     from kytpu_torch.kernels import bigscene as kbs
     from kytpu_torch.kernels import wavefront as kwf
     from kytpu_torch.kernels.v3 import V3
@@ -783,8 +1022,8 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
     nss = [-(-b // kbs.SUPER) for b in nbs]
     b0 = [sum(nbs[:k]) for k in range(4)]
     s0 = [sum(nbs) + sum(nss[:k]) for k in range(4)]
-    bnd = tables.bnd
-    tot = {"rows": 0, "sweeps": 0}
+    bnd = vote_bounds(tables)
+    tot = {"rows": 0, "sweeps": 0, "tests": 0}
 
     def sub(v, li):
         return V3(v.x[li], v.y[li], v.z[li])
@@ -817,6 +1056,8 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
             for sb in range(nss[c]):
                 wsup = live if not cull else warp_any(
                     meets(s0[c] + sb, o_, d_, inv, t_best, slack) & live)
+                tot["tests"] += int(live.sum()) + int((wsup & live).sum()) * (
+                    min(nbs[c], (sb + 1) * kbs.SUPER) - sb * kbs.SUPER)
                 for blk in range(sb * kbs.SUPER,
                                  min(nbs[c], (sb + 1) * kbs.SUPER)):
                     m = wsup & live
@@ -864,6 +1105,10 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                         w_sup = warp_any(sup.any(1) & need) & running
                     else:
                         sup, w_sup = open_, running
+                    tot["tests"] += int((running & need).sum()) + int(
+                        (w_sup & need).sum()) * (min(nbs[c], (sb + 1)
+                                                     * kbs.SUPER)
+                                                 - sb * kbs.SUPER)
                     for blk in range(sb * kbs.SUPER,
                                      min(nbs[c], (sb + 1) * kbs.SUPER)):
                         test = sup & open_
@@ -896,7 +1141,7 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                               residual=True)
     finally:
         kbs._closest_hit, kbs._occluded = real_hit, real_occ
-    return tot["rows"], tot["sweeps"]
+    return tot["rows"], tot["sweeps"], tot["tests"]
 
 
 def same_as_cull_off_wf(tables, cfg, lanes, g, got, tag: str) -> None:
@@ -4614,9 +4859,10 @@ def sphereflake(smi: str) -> None:
     launches of three steps (K6 and K7 only), the step's own K6 and K7
     calls on their first 64K lanes against the plain versions (the bounds
     of phase 3, and whether bit for bit), K6 culled against cull="off" bit
-    for bit, the row counter of a recorded K6 launch against
-    `swept_counts` to the count, and K6 and K7 (with the sort and sums)
-    timed at the step's 1,048,576 lanes under CUDA events."""
+    for bit, the counters of a recorded K6 launch against `swept_counts`
+    to the count (printed first beside `vote_counts`), and K6 and K7 (with
+    the sort and sums) timed at the step's 1,048,576 lanes under CUDA
+    events."""
     from torch.profiler import ProfilerActivity, profile
 
     from kytpu_torch.core import rng as krng
@@ -4653,6 +4899,22 @@ def sphereflake(smi: str) -> None:
     btabs, (_, g, big_l, resf, resi), _, k7 = seen["bwd_res"]
     n = 1 << 16
     lanes = (o[:n], d[:n], seed, si, pix)
+    # the replaced warp vote's counts beside the tree walk's, from the plain
+    # K6's rays (the walk's prediction)
+    t0 = time.perf_counter()
+    v_rows, v_sweeps, v_tests = vote_counts(tabs, kcfg, *lanes)
+    own = {}
+    walked = swept_counts(tabs, kcfg, *lanes, stats=own)
+    print(f"sphereflake: replay of the step's first {n} lanes, a "
+          f"lane-sweep ({v_sweeps} lane-sweeps): warp vote over flat "
+          f"superblocks {v_rows / v_sweeps:.1f} rows, {v_tests / v_sweeps:.1f}"
+          f" bound tests; tree walk (arity {kbs.ARITY}, {kbs.LEAF_BUF} "
+          f"pending blocks) {walked[0] / walked[1]:.1f} rows, "
+          f"{walked[2] / walked[1]:.1f} node steps of the warp; a lane's own "
+          f"{own['lane_rows'] / walked[1]:.1f} rows, "
+          f"{own['lane_bounds'] / walked[1]:.1f} node steps; "
+          f"{own['blocks'] / max(own['phases'], 1):.2f} distinct blocks a "
+          f"leaf phase; {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     ref = kbs.trace_lanes_plain(tabs, kcfg, *lanes, residual=True)
     torch.cuda.synchronize()
@@ -4675,21 +4937,22 @@ def sphereflake(smi: str) -> None:
         kbs.trace_lanes(tabs, kcfg, *lanes, residual=True)
         torch.cuda.synchronize()
     counted = kprof.device_counts()
-    rows, sweeps = (counted.get("kernel.k6.rows"),
-                    counted.get("kernel.k6.sweeps"))
-    want = swept_counts(tabs, kcfg, *lanes)
-    if (rows, sweeps) != want:
-        raise AssertionError(f"sphereflake K6's row counter read {rows} rows "
-                             f"over {sweeps} lane-sweeps; the plain count "
-                             f"{want}")
+    rows, sweeps, bounds = (counted.get("kernel.k6.rows"),
+                            counted.get("kernel.k6.sweeps"),
+                            counted.get("kernel.k6.bounds"))
+    if (rows, sweeps, bounds) != walked:
+        raise AssertionError(f"sphereflake K6's counters read {rows} rows "
+                             f"and {bounds} node steps over {sweeps} "
+                             f"lane-sweeps; the replay {walked}")
     print(f"sphereflake: the step's K6 and K7 on its first {n} lanes: K6 "
           f"{share:.5f} of lanes outside the bound (max |err| {err:.3g}), "
           f"cache max |err| {cerr:.3g}, bit for bit: {k6_bits}; K7 max |err| "
           f"{gerr:.3g}, bit for bit: {k7_bits}; K6 culled = cull 'off' bit "
-          f"for bit; the row counter {rows} rows over {sweeps} lane-sweeps "
-          f"({rows / max(sweeps, 1):.1f} rows a lane-sweep of "
-          f"{sum(tabs.counts)}) = the plain count; plain K6 {plain_ms:.1f} "
-          f"ms", flush=True)
+          f"for bit; the counters {rows} rows and {bounds} node steps over "
+          f"{sweeps} lane-sweeps ({rows / max(sweeps, 1):.1f} rows of "
+          f"{sum(tabs.counts)} and {bounds / max(sweeps, 1):.1f} node steps "
+          f"a lane-sweep) = the replay; plain K6 {plain_ms:.1f} ms",
+          flush=True)
     full = (o, d, seed, si, pix)
     k6_ms, _ = cuda_time_ms(lambda: kbs.trace_lanes(tabs, kcfg, *full,
                                                     residual=True), 3)
@@ -4700,11 +4963,12 @@ def sphereflake(smi: str) -> None:
         kbs.trace_lanes(tabs, kcfg, *full, residual=True)
         torch.cuda.synchronize()
     counted = kprof.device_counts()
+    got = {k: counted[f"kernel.k6.{k}"] for k in ("rows", "sweeps", "bounds")}
     print(f"sphereflake: at the step's {o.shape[0]} lanes K6 {k6_ms:.3f} ms, "
           f"K7 with its sort and sums {k7_ms:.3f} ms; "
-          f"{counted['kernel.k6.rows'] / counted['kernel.k6.sweeps']:.1f} rows "
-          f"a lane-sweep; phase {time.perf_counter() - t_phase:.1f} s; on "
-          f"{smi}", flush=True)
+          f"{got['rows'] / got['sweeps']:.1f} rows and "
+          f"{got['bounds'] / got['sweeps']:.1f} node steps a lane-sweep; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; on {smi}", flush=True)
 
 
 class _LastLine:

@@ -38,11 +38,12 @@ the scalar sweep that the port runs for every cfg.sweep. cfg.cull: kytpu
 skips the 8-row blocks that a tile's ray cone cannot meet, on its primary
 sweep ("cone") and on compact lights' shadow sweeps ("cone+nee"), where its
 rays are coherent; on the card "cone" and "cone+nee" cull every sweep, each
-lane testing its own rays against the padded bounding spheres of 8
-consecutive blocks and of each block (`cull_bounds`, `block_meets_plain`)
-and a warp skipping what no lane meets, since a per-lane test does not fall apart on incoherent rays as a
-per-tile cone does; "off" sweeps every row. The cull is exact-conservative:
-the results are the full sweep's to the last bit, so the plain versions
+lane walking a tree of padded bounding spheres over the 8-row blocks on
+its own (`tree_bounds`, `block_meets_plain`) and testing the rows of the
+blocks its own rays meet, since a per-lane test does not fall apart on
+incoherent rays as a per-tile cone does; "off" sweeps every row. The cull
+is exact-conservative: the results are the full sweep's to the last bit,
+so the plain versions
 sweep every row whatever cfg.cull says. Textures as kytpu's
 table kernel evaluates them: checkers and atlases of its select chain (at
 most 64 texels, power-of-two sides) on planar rows, found by the hit's
@@ -318,8 +319,15 @@ def bigres_layout(cfg: kwf.KernelConfig, n_lights: int, has_env: bool,
 # CULL_PAD of its centre's and radius's size, and each lane adds CULL_PAD
 # of its ray origin's size (`cull_slack_plain`)
 CULL_PAD = 2.0 ** -12
-# blocks a superblock of the cull (SUPER_BLOCKS in csrc/bigscene_fwd.cu)
+# blocks a superblock of K1's, K2's and K4's cull (SUPER_BLOCKS in
+# csrc/megakernel.cuh)
 SUPER = 8
+# children of a node of K5's, K6's and K8's tree over the blocks
+# (TREE_ARITY in csrc/bigscene_fwd.cu)
+ARITY = 4
+# blocks a lane of their walk holds pending while it steps on (LEAF_BUF in
+# csrc/bigscene_fwd.cu)
+LEAF_BUF = 4
 
 
 def _padded(c, r) -> np.ndarray:
@@ -331,12 +339,30 @@ def _padded(c, r) -> np.ndarray:
     return np.concatenate([c.astype(np.float32), r32[:, None]], -1)
 
 
+def _group(pb, k: int) -> np.ndarray:
+    """(ceil(n / k), 4) float32 padded spheres, each around k consecutive
+    padded spheres of pb (n, 4) and holding them whole: the centre of their
+    float64 box, the radius to the farthest one's far side, then
+    `_padded`."""
+    out = []
+    for s0 in range(0, len(pb), k):
+        g = pb[s0:s0 + k].astype(np.float64)
+        lo = (g[:, :3] - g[:, 3:]).min(0)
+        hi = (g[:, :3] + g[:, 3:]).max(0)
+        c = (lo + hi) * 0.5
+        r = np.max(np.linalg.norm(g[:, :3] - c, axis=-1) + g[:, 3])
+        out.append(_padded(c[None], np.array([r])))
+    return np.concatenate(out + [np.zeros((0, 4), np.float32)])
+
+
 def cull_bounds(tables) -> np.ndarray:
     """The kernels' cull bounds of `extract_tables`' tables, one (blocks +
     superblocks, 4) float32 array [cx cy cz R]: each class's 8-row block
     bounds (kytpu's `_block_bounds`, r * 1.0001 + 1e-6), tri | rect | disk
     | sphere, then each class's superblock bounds, a sphere around SUPER
-    consecutive block bounds.
+    consecutive block bounds (`_group`). K1, K2 and K4 read them past 64
+    surfaces (`kwf.cull_tables`); K5, K6 and K8 read the blocks under a
+    tree (`tree_bounds`).
 
     Each R adds CULL_PAD * (|cx| + |cy| + |cz| + r) to r and is rounded up
     to a float32. Why that is enough: a row test accepts a point off its
@@ -349,19 +375,52 @@ def cull_bounds(tables) -> np.ndarray:
     the spheres' |x|, |z| <= 35.2 it is about 0.02, a few percent of a
     block's radius, so the pad costs little cull. A superblock's sphere
     holds its blocks' padded spheres whole (float64, then the same pad)."""
-    blocks, supers = [], []
+    blocks = [_padded(b[:, :3], b[:, 3]) for b in (
+        np.asarray(tables[k][2], np.float64).reshape(-1, 4)
+        for k in CLASSES)]
+    supers = [_group(pb, SUPER) for pb in blocks]
+    return np.concatenate(blocks + supers + [np.zeros((0, 4), np.float32)])
+
+
+def tree_bounds(tables) -> tuple:
+    """K5's, K6's and K8's cull bounds of `extract_tables`' tables: (bnd
+    (entries, 4) float32 [cx cy cz R], links (entries, 2) int32 [skip,
+    block]), a tree over each class's 8-row blocks, tri | rect | disk |
+    sphere, laid out depth first.
+
+    A class's tree is the implicit ARITY-ary tree over its consecutive
+    blocks: above `cull_bounds`' padded block bounds, node i of a level
+    holds nodes A i .. A i + A - 1 of the level below, up to one root.
+    Each node's sphere holds its children's padded spheres whole (`_group`:
+    float64, then the pad of `cull_bounds`), so a ray that can meet a row
+    meets every node above its block. The nodes are listed depth first,
+    children in table order, so the blocks come in table order; an entry's
+    skip is the entry after its subtree (for a block, the next entry), and
+    its block is the block's index in its class, or -1 above the blocks. A
+    walk that goes on to entry + 1 where a ray meets an entry and to its
+    skip where it does not visits the class's rows in table order
+    (csrc/bigscene_fwd.cu `walk`)."""
+    bnd, links = [], []
     for k in CLASSES:
         b = np.asarray(tables[k][2], np.float64).reshape(-1, 4)
-        pb = _padded(b[:, :3], b[:, 3])
-        blocks.append(pb)
-        for s0 in range(0, len(pb), SUPER):
-            g = pb[s0:s0 + SUPER].astype(np.float64)
-            lo = (g[:, :3] - g[:, 3:]).min(0)
-            hi = (g[:, :3] + g[:, 3:]).max(0)
-            c = (lo + hi) * 0.5
-            r = np.max(np.linalg.norm(g[:, :3] - c, axis=-1) + g[:, 3])
-            supers.append(_padded(c[None], np.array([r])))
-    return np.concatenate(blocks + supers + [np.zeros((0, 4), np.float32)])
+        levels = [_padded(b[:, :3], b[:, 3])]
+        while len(levels[-1]) > 1:
+            levels.append(_group(levels[-1], ARITY))
+
+        def emit(lv, i):
+            at = len(bnd)
+            bnd.append(levels[lv][i])
+            links.append([0, i if lv == 0 else -1])
+            if lv:
+                for j in range(ARITY * i,
+                               min(ARITY * (i + 1), len(levels[lv - 1]))):
+                    emit(lv - 1, j)
+            links[at][0] = len(bnd)
+
+        if len(levels[0]):
+            emit(len(levels) - 1, 0)
+    return (np.asarray(bnd, np.float32).reshape(-1, 4),
+            np.asarray(links, np.int32).reshape(-1, 2))
 
 
 def cull_slack_plain(o: V3, d: V3):
@@ -384,14 +443,21 @@ def block_meets_plain(bnd: torch.Tensor, o: V3, d: V3, inv, t1, slack):
     for every block, or (C, B), one a pair. The closest point's t is
     clamped to the segment; a NaN passes."""
     col = lambda x: x.reshape(-1, 1)  # noqa: E731
-    v = V3(bnd[:, 0] - col(o.x), bnd[:, 1] - col(o.y), bnd[:, 2] - col(o.z))
-    dc = V3(col(d.x), col(d.y), col(d.z))
-    tc = v.dot(dc) * col(inv)
+    return node_meets_plain(bnd, V3(col(o.x), col(o.y), col(o.z)),
+                            V3(col(d.x), col(d.y), col(d.z)), col(inv),
+                            t1 if t1.dim() == 2 else col(t1), col(slack))
+
+
+def node_meets_plain(bnd: torch.Tensor, o: V3, d: V3, inv, t1, slack):
+    """`block_meets_plain` of each ray against its own bound: (C, 4) bounds
+    and (C,) rays -> (C,) (or any shapes that broadcast, as
+    `block_meets_plain` passes them)."""
+    v = V3(bnd[..., 0] - o.x, bnd[..., 1] - o.y, bnd[..., 2] - o.z)
+    tc = v.dot(d) * inv
     tc = torch.where(tc < 0, torch.zeros_like(tc), tc)
-    t1 = (t1 if t1.dim() == 2 else col(t1)).expand_as(tc)
     tc = torch.where(tc > t1, t1, tc)
-    p = v - dc * tc
-    rl = bnd[:, 3] + col(slack)
+    p = v - d * tc
+    rl = bnd[..., 3] + slack
     return ~(p.dot(p) > rl * rl)
 
 
@@ -405,7 +471,8 @@ class BigTables:
     geometry records; mat_i (M, 2) int32: material kind, light index;
     tex_rec (M,) int32: each row's texture record (-1: none), read only by
     the textured instantiations; mat_f (M, 4) float32: eta, d_prob, s_prob,
-    0; bnd (blocks + superblocks, 4) float32: `cull_bounds`. Then the
+    0; bnd (entries, 4) float32 and links (entries, 2) int32:
+    `tree_bounds`. Then the
     tables a render may change without repacking (texa, texb, timg: one
     zero row each in an untextured scene)."""
 
@@ -419,6 +486,7 @@ class BigTables:
     tex_rec: torch.Tensor
     mat_f: torch.Tensor
     bnd: torch.Tensor
+    links: torch.Tensor
     diffuse: torch.Tensor     # (M, 3)
     specular: torch.Tensor    # (M, 3)
     emission: torch.Tensor    # (M, 3)
@@ -470,13 +538,14 @@ def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig,
                       np.asarray(mats["s_prob"], np.float32),
                       np.zeros(len(mats["kind"]), np.float32)], -1)
     ti, tf = kwf.texture_records(static)
+    bnd, links = tree_bounds(tables)
     dev = scene.device
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     return BigTables(static=static, counts=counts, geo=t(geo), rows=t(rows),
                      f=t(np.concatenate([hf, lf, tf])),
                      i=t(np.concatenate([hi, li, ti])), mat_i=t(mat_i),
-                     tex_rec=t(tex_rec), mat_f=t(mat_f),
-                     bnd=t(cull_bounds(tables)), **kwf._color_tables(scene),
+                     tex_rec=t(tex_rec), mat_f=t(mat_f), bnd=t(bnd),
+                     links=t(links), **kwf._color_tables(scene),
                      **kwf._texture_tables(scene))
 
 
@@ -1282,13 +1351,14 @@ def sums_plain(tables: BigTables, cfg: kwf.KernelConfig, dout, acc, tags,
 
 _TABLES = ("f", "i", "geo", "rows", "mat_i", "mat_f", "diffuse", "specular",
            "emission", "exponent", "light_emit", "env", "texa", "texb", "timg",
-           "tex_rec", "bnd")
+           "tex_rec", "bnd", "links")
 
 
 def _check_tables(tables: BigTables, dev):
     for name in _TABLES:
         t = getattr(tables, name)
-        want = (torch.int32 if name in ("i", "rows", "mat_i", "tex_rec")
+        want = (torch.int32 if name in ("i", "rows", "mat_i", "tex_rec",
+                                        "links")
                 else torch.float32)
         if t.device != dev:
             raise ValueError(f"table {name} is on {t.device}, the lanes on "

@@ -121,14 +121,14 @@ def load() -> ctypes.CDLL:
         lib.kytpu_wavefront_bwd_replay.argtypes = [p] * 25 + [i] * 15 + [
             p, p, i, p]
         lib.kytpu_wavefront_chunk.argtypes = [i] * 7
-        lib.kytpu_bigscene_fwd.argtypes = [p] * 24 + [i] * 17 + [p, p]
+        lib.kytpu_bigscene_fwd.argtypes = [p] * 25 + [i] * 17 + [p, p]
         lib.kytpu_bigscene_bwd_res.argtypes = [p] * 13 + [i] * 7 + [p, p]
         q = ctypes.c_longlong
         lib.kytpu_tag_sort_scratch.argtypes = [i, i]
         lib.kytpu_tag_sort_scratch.restype = q
         lib.kytpu_tag_sort.argtypes = [p, i, i, i, p, p, p, q, p]
         lib.kytpu_segment_sums.argtypes = [p] * 5 + [q, p] + [i] * 5 + [p]
-        lib.kytpu_bigscene_bwd_replay.argtypes = [p] * 29 + [i] * 17 + [
+        lib.kytpu_bigscene_bwd_replay.argtypes = [p] * 30 + [i] * 17 + [
             p, p, p]
         lib.kytpu_camera_rays.argtypes = [p] + [i] * 4 + [
             ctypes.c_uint32] * 3 + [ctypes.c_float] * 11 + [p]

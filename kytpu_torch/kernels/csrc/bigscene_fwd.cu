@@ -28,27 +28,41 @@
 // row after the sweep. Every random draw is a stateless hash of (key, lane,
 // draw counter), as in K1.
 //
-// 1. The block cull at the warp, on every sweep. Each class's rows come in
-//    blocks of 8 (kbs.extract_tables sorts them by Morton code), and each
+// 1. The tree walk, each lane alone, on every sweep. Each class's rows come
+//    in blocks of 8 (kbs.extract_tables sorts them by Morton code), each
 //    block has a bounding sphere, padded so that no row test's rounding can
 //    reach past it (kbs.cull_bounds; each lane adds CULL_PAD of its
 //    origin's size, `cull_slack`; both tests are megakernel.cuh's, which K1,
-//    K2 and K4 cull with past REFILL_MAX_ROWS surfaces). Before a block's
-//    rows, each lane tests its own ray over [0, t_best] (closest hit) or
-//    each of its open shadow rays over [0, tmax] from the offset origin
-//    (occlusion) against the block's sphere, and the warp skips the rows
-//    only when no lane's ray can meet it (__any_sync over the lanes in the
-//    sweep). A lane whose ray is not finite passes every block. The rows are visited in the same
-//    order and a skipped block holds no row that any lane would have taken,
-//    so the results are those of the full sweep to the last bit; cull = 0
-//    (cfg.cull="off") sweeps every row. kytpu culls per tile with a ray cone,
-//    and only where its rays are coherent; a per-lane test does not fall
-//    apart on incoherent rays, so here every sweep is culled. The votes
-//    need the lanes that reach them: every thread of a warp stays in the
-//    bounce loop until the warp's last lane ends (a finished lane with a
-//    false `live`), the closest sweep's mask is the ballot of the live
-//    lanes, the occlusion sweep's that of the lanes with a shadow ray, and
-//    a sweep's lanes leave it together.
+//    K2 and K4 cull with past REFILL_MAX_ROWS surfaces), and above the
+//    blocks an implicit tree of TREE_ARITY children a node holds, class by
+//    class, each node a padded sphere around its children's, laid out
+//    depth first with a skip link an entry (kbs.tree_bounds). Each lane
+//    walks the trees alone and stacklessly, in table order (`walk`): at an
+//    entry it tests its own ray over [0, t_best] (closest hit), or each of
+//    its open shadow rays over [0, tmax] from the offset origin
+//    (occlusion), against the entry's sphere, and goes on to the next entry
+//    (the first child, or after a block the next one) where it meets it,
+//    else to the entry's skip, past its subtree. There is no vote
+//    on a bound: a lane pays for its own path and not for the union of its
+//    warp's, and lanes that share a path read the same address (a
+//    broadcast), so coherent and incoherent rays take the one path. The
+//    warp runs the walk in the while-while form of Aila and Laine (HPG
+//    2009) with their speculative traversal: node steps while some lane
+//    has no block pending, each lane with room for one more of LEAF_BUF
+//    pending blocks stepping on, then a leaf phase in which each lane
+//    tests its own first pending block's rows (a gather). A lane whose ray
+//    is not finite passes every node.
+//    The rows are visited in table order and a skipped node holds no row
+//    the lane would have taken, so the results are those of the full sweep
+//    to the last bit; cull = 0 (cfg.cull="off") passes every node. kytpu
+//    culls per tile with a ray cone, and only where its rays are coherent;
+//    a per-lane test does not fall apart on incoherent rays, so here every
+//    sweep is culled. The walk's votes need the lanes that reach
+//    them: every thread of a warp stays in the bounce loop until the
+//    warp's last lane ends (a finished lane with a false `live`), the
+//    closest sweep's mask is the ballot of the live lanes, the occlusion
+//    sweep's that of the lanes with a shadow ray, and a sweep's lanes leave
+//    each class's walk together.
 // 2. The shadow rays out of local memory. The lights are sampled, swept and
 //    accumulated in chunks of min(L, NEE_CHUNK), as K1 does: each shadow
 //    ray's direction, tmax, n.wi, NEE factors, 1 / |wi|^2 and cull slack
@@ -57,15 +71,17 @@
 //    vertex (light_phit), which replaces a per-light array. A ray's
 //    occlusion is a boolean and the sums keep light order: the bits do not
 //    change.
-// 3. Superblocks: a bound around each SUPER_BLOCKS consecutive blocks is
-//    tested first, the same way, and its blocks' bounds only where a lane
-//    meets it: a warp tests about 74 bounds a sweep on random_spheres(1024)
-//    in place of 130 (K5 23% faster). Staging the bounds or the rows in
-//    shared memory gained nothing measurable (the reads are warp-uniform
-//    broadcasts that L1 serves), and neither did forcing 4, 5 or 6 blocks
-//    an SM with __launch_bounds__: the compiler's own register choice (72
-//    for K5 and K6, 96 for K8, with a few hundred bytes of spills) runs
-//    fastest.
+// 3. The tree replaced flat superblocks of 8 blocks, which every sweep
+//    tested all of before a warp entered, by vote, the superblocks and
+//    blocks that any of its lanes met: on the sphereflake's first 64K
+//    lanes 398.2 rows and 367.1 bound tests a lane-sweep, where the walk
+//    takes 204.0 rows and 285.6 node steps of the warp (a lane's own walk
+//    121.6 and 158.3; chip_smoke.swept_counts against vote_counts). Without
+//    the speculation (one pending block) the warp's node steps rose past
+//    the vote's tests, since its lanes reach their blocks at different
+//    depths; at TREE_ARITY 8 or 2 a lane takes more node steps than at 4.
+//    Both walks read the tables through L1; the walk's rows and nodes are
+//    gathers, so the rows are read 16 bytes at a time.
 //
 // What bounds K5 on the H100: FP32 issue of the sweeps (about 25-35
 // operations per row and ray, a similar count per block test), against a
@@ -101,15 +117,14 @@
 // by texel by the segment-sum kernel) and writes 0 to its row-tagged
 // diffuse share. No atomics: the texture gradients repeat bit for bit.
 //
-// The rows swept (the counters kernel.<k>.rows and .sweeps of
-// utils/profiling.py, taken while the profiler records): each thread
-// counts in a register the rows of every block its warp enters on a sweep
-// the thread takes part in (the closest hit of a live lane, the occlusion
-// sweep of a lane with a shadow ray), and the sweeps it takes part in;
-// where a.swept is not null the warp sums both at its exit and adds them
-// there once, so the sums are rows tested per lane-sweep times the
-// lane-sweeps. Untraced launches pass null: the counts stay in registers
-// and one uniform branch skips the sums.
+// The rows swept (the counters kernel.<k>.rows, .sweeps and .bounds of
+// utils/profiling.py, taken while the profiler records): on each sweep a
+// thread takes part in (the closest hit of a live lane, the occlusion sweep
+// of a lane with a shadow ray) it counts one sweep, its warp's node steps
+// and, for each leaf phase, the rows of the largest block tested in it:
+// the rows its warp tested for it; where a.swept is not null the warp sums
+// the three at its exit and adds them there once. Untraced launches pass
+// null: one uniform branch skips the counts and the maxima.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,10 +162,12 @@ struct BigArgs {
   const int* tex_rec;
   float* tex_dout;
   int* tex_tags;
-  // step 1: each class's 8-row block bounds (cx, cy, cz, padded r), tri |
-  // rect | disk | sphere, then each class's bounds of 8 blocks, and whether
-  // to cull; step 2: the shadow rays a chunk holds
+  // step 1: each class's tree over its 8-row blocks, depth first, tri |
+  // rect | disk | sphere: the entries' spheres (cx, cy, cz, padded r) and
+  // links (skip, block), and whether to cull; step 2: the shadow rays a
+  // chunk holds
   const float4* bnd;
+  const int2* link;
   int cull, nee_rays;
   // K8 past its local row (LOCAL_COLS): the blocks' accumulators in device
   // memory, n_cols * THREADS floats a block; else null
@@ -160,9 +177,10 @@ struct BigArgs {
   unsigned long long* swept;
 };
 
-// a thread's count of the rows its warp's sweeps entered, and of its sweeps
+// a thread's count of the rows its warp's leaf phases tested, of its
+// sweeps, and of its warp's node steps
 struct Swept {
-  uint32_t rows = 0, sweeps = 0;
+  uint32_t rows = 0, sweeps = 0, bounds = 0;
 };
 
 // K8's local row: env, each light's emission [, the checker adjoints]
@@ -182,17 +200,45 @@ constexpr int PG = 12, DG = 8, SG = 4;  // columns of the class tables
 constexpr int NEE_CHUNK = 8;
 constexpr int THREADS = 128;
 
-// the class tables' bases and their block and superblock bounds
+// children of a tree node (kbs.ARITY)
+constexpr int TREE_ARITY = 4;
+// blocks a lane holds pending while it walks on (kbs.LEAF_BUF)
+constexpr int LEAF_BUF = 4;
+// blocks an SM at the least (__launch_bounds__): 64 registers a thread.
+// The walk's state took the compiler's own choice to 128 registers and 4
+// blocks an SM, where the sphereflake's K6 ran at 27.19 ms; 80, 64, 56 and
+// 48 registers ran it at 24.23, 21.13, 20.90 and 21.35 ms (NVIDIA H100,
+// 700 W), K5 and K8 likewise
+constexpr int MIN_BLOCKS = 8;
+
+__device__ __forceinline__ V xyz(float4 q) { return vmk(q.x, q.y, q.z); }
+
+// the tree entries of a class of `rows` rows (kbs.tree_bounds): its blocks
+// and the levels above them up to one root
+__device__ __forceinline__ int tree_entries(int rows) {
+  int n = blocks_of(rows), e = n;
+  while (n > 1) {
+    n = (n + TREE_ARITY - 1) / TREE_ARITY;
+    e += n;
+  }
+  return e;
+}
+
+// the class tables' bases and their trees (step 1): each class's entries
+// [start[c], start[c + 1]) of node (bounds) and link (skip, block),
+// tri | rect | disk | sphere
 struct Tables {
   const float *tri, *rect, *disk, *sph;
   const int *tri_r, *rect_r, *disk_r, *sph_r;
-  const float4 *tri_b, *rect_b, *disk_b, *sph_b;
-  const float4 *tri_s, *rect_s, *disk_s, *sph_s;
+  const float4* node;
+  const int2* link;
+  int start[5];
   int n_tri, n_rect, n_disk, n_sph;
-  bool cull;
+  bool cull, count;
   __device__ void init(const BigArgs& a) {
     n_tri = a.n_tri; n_rect = a.n_rect; n_disk = a.n_disk; n_sph = a.n_sph;
     cull = a.cull != 0;
+    count = a.swept != nullptr;
     tri = a.geo;
     rect = tri + PG * n_tri;
     disk = rect + PG * n_rect;
@@ -201,16 +247,84 @@ struct Tables {
     rect_r = tri_r + n_tri;
     disk_r = rect_r + n_rect;
     sph_r = disk_r + n_disk;
-    tri_b = a.bnd;
-    rect_b = tri_b + blocks_of(n_tri);
-    disk_b = rect_b + blocks_of(n_rect);
-    sph_b = disk_b + blocks_of(n_disk);
-    tri_s = sph_b + blocks_of(n_sph);
-    rect_s = tri_s + supers_of(n_tri);
-    disk_s = rect_s + supers_of(n_rect);
-    sph_s = disk_s + supers_of(n_disk);
+    node = a.bnd;
+    link = a.link;
+    start[0] = 0;
+    start[1] = tree_entries(n_tri);
+    start[2] = start[1] + tree_entries(n_rect);
+    start[3] = start[2] + tree_entries(n_disk);
+    start[4] = start[3] + tree_entries(n_sph);
   }
 };
+
+// One sweep of class c's tree by each lane of `mask` alone (step 1), in
+// table order: at entry e a lane goes on to e + 1 where its rays meet the
+// entry's sphere (its first child, or the next entry after a block) and
+// to the entry's skip where they do not, until it passes the class's last
+// entry. In the while-while form of Aila & Laine (HPG 2009) with their
+// speculative traversal: node phases while some lane has no block
+// pending, in which each lane with room for one more of LEAF_BUF pending
+// blocks takes a step, then a leaf phase in which each lane with a pending
+// block tests the first one's rows. meets(b, rays): whether the lane's
+// rays can meet sphere b (true without the cull), and in rays which of
+// them do; leaf(blk, rays): test block blk's rows for those rays ->
+// whether the lane still looks for something; live: whether it does at
+// the start; nr: the class's rows. The votes keep the warp together; under
+// T.count every lane adds the warp's node steps and the rows of its
+// largest first pending block of each leaf phase (`Swept`).
+template <class Meets, class Leaf>
+__device__ __forceinline__ void walk(const Tables& T, int c, int nr, uint32_t mask, bool live,
+                                     Swept& sw, Meets&& meets, Leaf&& leaf) {
+  int e = T.start[c];
+  const int end = T.start[c + 1];
+  if (e == end) return;
+  bool done = !live;  // past the last entry
+  int buf[LEAF_BUF];
+  uint32_t buf_rays[LEAF_BUF];
+#pragma unroll
+  for (int q = 0; q < LEAF_BUF; ++q) {
+    buf[q] = -1;
+    buf_rays[q] = 0;
+  }
+  for (;;) {
+    while (__any_sync(mask, !done && buf[0] < 0)) {
+      if (T.count) ++sw.bounds;
+      if (!done && buf[LEAF_BUF - 1] < 0) {
+        const int2 ln = __ldg(T.link + e);
+        uint32_t rays = 0;
+        const bool hit = meets(__ldg(T.node + e), rays);
+        if (hit && ln.y >= 0) {
+          bool put = false;
+#pragma unroll
+          for (int q = 0; q < LEAF_BUF; ++q)
+            if (!put && buf[q] < 0) {
+              buf[q] = ln.y;
+              buf_rays[q] = rays;
+              put = true;
+            }
+        }
+        e = hit ? e + 1 : ln.x;
+        done = e >= end;
+      }
+    }
+    const bool any = __any_sync(mask, buf[0] >= 0);
+    if (T.count) {
+      const int rows = buf[0] >= 0 ? min(nr, (buf[0] + 1) * BLOCK_ROWS) - buf[0] * BLOCK_ROWS : 0;
+      sw.rows += __reduce_max_sync(mask, (uint32_t)rows);
+    }
+    if (!any) return;
+    if (buf[0] >= 0) {
+      const bool alive = leaf(buf[0], buf_rays[0]);
+#pragma unroll
+      for (int q = 0; q + 1 < LEAF_BUF; ++q) {
+        buf[q] = alive ? buf[q + 1] : -1;
+        buf_rays[q] = buf_rays[q + 1];
+      }
+      buf[LEAF_BUF - 1] = -1;
+      done = done || !alive;
+    }
+  }
+}
 
 __device__ __forceinline__ bool planar_inside(float a, float b, bool tri) {
   if (tri) return a >= 0.f && b >= 0.f && a + b <= 1.0f;
@@ -241,9 +355,9 @@ constexpr int RES_PHONG = 1 << 20, RES_TO_SPEC = 1 << 21, RES_EVEN = 1 << 22;
 
 // closest hit -> t, class (0 tri, 1 rect, 2 disk, 3 sphere; -1 on a miss)
 // and table row; strict t < t_best, so the first of equal rows wins. Every
-// lane of `mask` (the live lanes of the warp) calls it; a superblock's
-// blocks, and a block's rows, are skipped when no lane's ray can meet its
-// bound over [0, t_best].
+// lane of `mask` (the live lanes of the warp) calls it; each walks the
+// classes' trees alone, skipping a node that its ray cannot meet over [0,
+// t_best].
 __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& t_best, int& cls,
                                int& trow, Swept& sw) {
   ++sw.sweeps;
@@ -252,61 +366,54 @@ __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& 
   trow = -1;
   float inv_dd = 0.f, slack = 0.f;
   if (T.cull) slack = cull_slack(o, d, inv_dd);
-  auto skip = [&](const float4* b) {
-    return T.cull && !__any_sync(mask, block_meets(__ldg(b), o, d, inv_dd, t_best, slack));
-  };
-  // body(blk) for each block of a class of nr rows that a lane's ray may meet
-  auto for_blocks = [&](const float4* sup, const float4* bnd, int nr, auto&& body) {
-    for (int sb = 0; sb < supers_of(nr); ++sb) {
-      if (skip(sup + sb)) continue;
-      const int b1 = min(blocks_of(nr), (sb + 1) * SUPER_BLOCKS);
-      for (int blk = sb * SUPER_BLOCKS; blk < b1; ++blk)
-        if (!skip(bnd + blk)) {
-          sw.rows += min(nr, (blk + 1) * BLOCK_ROWS) - blk * BLOCK_ROWS;
-          body(blk);
-        }
-    }
+  auto meets = [&](float4 b, uint32_t&) {
+    return !T.cull || block_meets(b, o, d, inv_dd, t_best, slack);
   };
   for (int k = 0; k < 2; ++k) {
     const float* tab = k == 0 ? T.tri : T.rect;
     const int nr = k == 0 ? T.n_tri : T.n_rect;
-    for_blocks(k == 0 ? T.tri_s : T.rect_s, k == 0 ? T.tri_b : T.rect_b, nr, [&](int blk) {
+    walk(T, k, nr, mask, true, sw, meets, [&](int blk, uint32_t) {
       const int s1 = min(nr, (blk + 1) * BLOCK_ROWS);
       for (int s = blk * BLOCK_ROWS; s < s1; ++s) {
-        const float* P = tab + PG * s;
-        const V n = ld3(P);
-        const float t = (__ldg(P + 3) - vdot(n, o)) / vdot(n, d);
-        const V f1 = ld3(P + 4), f2 = ld3(P + 8);
-        const float a = (vdot(f1, o) - __ldg(P + 7)) + t * vdot(f1, d);
-        const float b = (vdot(f2, o) - __ldg(P + 11)) + t * vdot(f2, d);
+        // 16-byte loads: the lanes' blocks may differ
+        const float4* P = (const float4*)(tab + PG * s);
+        const float4 q0 = __ldg(P), q1 = __ldg(P + 1), q2 = __ldg(P + 2);
+        const V n = xyz(q0);
+        const float t = (q0.w - vdot(n, o)) / vdot(n, d);
+        const V f1 = xyz(q1), f2 = xyz(q2);
+        const float a = (vdot(f1, o) - q1.w) + t * vdot(f1, d);
+        const float b = (vdot(f2, o) - q2.w) + t * vdot(f2, d);
         if (planar_inside(a, b, k == 0) && t > EPS && t < t_best) {
           t_best = t;
           cls = k;
           trow = s;
         }
       }
+      return true;
     });
   }
-  for_blocks(T.disk_s, T.disk_b, T.n_disk, [&](int blk) {
+  walk(T, 2, T.n_disk, mask, true, sw, meets, [&](int blk, uint32_t) {
     const int s1 = min(T.n_disk, (blk + 1) * BLOCK_ROWS);
     for (int s = blk * BLOCK_ROWS; s < s1; ++s) {
-      const float* P = T.disk + DG * s;
-      const V n = ld3(P);
-      const float t = (__ldg(P + 3) - vdot(n, o)) / vdot(n, d);
-      const V rel = (o + d * t) - ld3(P + 4);
-      if (vdot(rel, rel) <= __ldg(P + 7) && t > EPS && t < t_best) {
+      const float4* P = (const float4*)(T.disk + DG * s);
+      const float4 q0 = __ldg(P), q1 = __ldg(P + 1);
+      const V n = xyz(q0);
+      const float t = (q0.w - vdot(n, o)) / vdot(n, d);
+      const V rel = (o + d * t) - xyz(q1);
+      if (vdot(rel, rel) <= q1.w && t > EPS && t < t_best) {
         t_best = t;
         cls = 2;
         trow = s;
       }
     }
+    return true;
   });
-  for_blocks(T.sph_s, T.sph_b, T.n_sph, [&](int blk) {
+  walk(T, 3, T.n_sph, mask, true, sw, meets, [&](int blk, uint32_t) {
     const int s1 = min(T.n_sph, (blk + 1) * BLOCK_ROWS);
     for (int s = blk * BLOCK_ROWS; s < s1; ++s) {
-      const float* P = T.sph + SG * s;
-      const float r = __ldg(P + 3);
-      const V oc = ld3(P) - o;
+      const float4 P = __ldg((const float4*)(T.sph + SG * s));
+      const float r = P.w;
+      const V oc = xyz(P) - o;
       const float neg_b = vdot(oc, d);
       const V perp = oc - d * neg_b;
       const float discr = r * r - vdot(perp, perp);
@@ -324,6 +431,7 @@ __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& 
         trow = s;
       }
     }
+    return true;
   });
 }
 
@@ -364,9 +472,10 @@ struct Rays {
 // One occlusion sweep for the rays of R whose bit is set in `need` -> the
 // bits of the blocked ones (bigscene.py::_occluded). The terms of (hp,
 // n_shade) are shared by the rays. Every lane of `mask` (those with a ray
-// to sweep) calls it; a superblock's blocks, and a block's rows, are tested
-// only for the rays that can meet its bound, and skipped when no lane has
-// one; the lanes leave together once every ray of every lane is blocked.
+// to sweep) calls it; each walks the classes' trees alone, keeping at a
+// node the mask of its open rays that can meet the node's bound, going
+// down where that mask is not 0, testing a block's rows for the rays in it
+// while they are open, and finishing once every ray is blocked.
 // lti: under robust shadows the light records of the chunk's first light,
 // whose field 2 is the emitting row that the light's ray skips (-1: none);
 // else null.
@@ -374,40 +483,39 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
                                     uint32_t mask, const int* lti, Swept& sw) {
   ++sw.sweeps;
   uint32_t open = need;
-  // -> the rays of `cand` that can meet bound *b (all of them without the
-  // cull); any: whether a lane of the warp has one
-  auto rays_of = [&](const float4* b, uint32_t cand, bool& any) -> uint32_t {
+  // the open rays that can meet bound *b (all of them without the cull)
+  auto meets = [&](float4 bb, uint32_t& test) {
     if (!T.cull) {
-      any = true;
-      return cand;
+      test = open;
+      return true;
     }
-    const float4 bb = __ldg(b);
-    uint32_t m = 0;
-    for (uint32_t q = cand; q; q &= q - 1) {
+    test = 0;
+    for (uint32_t q = open; q; q &= q - 1) {
       const int j = __ffs(q) - 1;
       if (block_meets(bb, hp + ns * R.se(j), R.wi(j), R.at(R.IWW, j), R.at(R.TMAX, j),
                       R.at(R.SLK, j)))
-        m |= 1u << j;
+        test |= 1u << j;
     }
-    any = __any_sync(mask, m != 0);
-    return m;
+    return test != 0;
   };
   auto own_ok = [&](const int* rws, int s, int j) {
     const int own = lti ? __ldg(lti + LT_I * j + 2) : -1;
     return own < 0 || __ldg(rws + s) != own;
   };
   // the rows of block blk of a class for the rays in `test`, while open
+  // -> whether a ray is still open
   auto planar_rows = [&](const float* tab, const int* rws, int nr, int blk, bool tri,
                          uint32_t test) {
     const int s1 = min(nr, (blk + 1) * BLOCK_ROWS);
     for (int s = blk * BLOCK_ROWS; s < s1 && (test & open); ++s) {
-      const float* P = tab + PG * s;
-      const V n = ld3(P), f1 = ld3(P + 4), f2 = ld3(P + 8);
-      const float num_h = __ldg(P + 3) - vdot(n, hp);
+      const float4* P = (const float4*)(tab + PG * s);
+      const float4 q0 = __ldg(P), q1 = __ldg(P + 1), q2 = __ldg(P + 2);
+      const V n = xyz(q0), f1 = xyz(q1), f2 = xyz(q2);
+      const float num_h = q0.w - vdot(n, hp);
       const float num_n = vdot(n, ns);
-      const float a_h = vdot(f1, hp) - __ldg(P + 7);
+      const float a_h = vdot(f1, hp) - q1.w;
       const float a_n = vdot(f1, ns);
-      const float b_h = vdot(f2, hp) - __ldg(P + 11);
+      const float b_h = vdot(f2, hp) - q2.w;
       const float b_n = vdot(f2, ns);
       for (uint32_t m = test & open; m; m &= m - 1) {
         const int j = __ffs(m) - 1;
@@ -420,15 +528,23 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
           open &= ~(1u << j);
       }
     }
+    return open != 0;
   };
-  auto disk_rows = [&](int blk, uint32_t test) {
+  walk(T, 0, T.n_tri, mask, open != 0, sw, meets, [&](int blk, uint32_t test) {
+    return planar_rows(T.tri, T.tri_r, T.n_tri, blk, true, test);
+  });
+  walk(T, 1, T.n_rect, mask, open != 0, sw, meets, [&](int blk, uint32_t test) {
+    return planar_rows(T.rect, T.rect_r, T.n_rect, blk, false, test);
+  });
+  walk(T, 2, T.n_disk, mask, open != 0, sw, meets, [&](int blk, uint32_t test) {
     const int s1 = min(T.n_disk, (blk + 1) * BLOCK_ROWS);
     for (int s = blk * BLOCK_ROWS; s < s1 && (test & open); ++s) {
-      const float* P = T.disk + DG * s;
-      const V n = ld3(P), p0 = ld3(P + 4);
-      const float num_h = __ldg(P + 3) - vdot(n, hp);
+      const float4* P = (const float4*)(T.disk + DG * s);
+      const float4 q0 = __ldg(P), q1 = __ldg(P + 1);
+      const V n = xyz(q0), p0 = xyz(q1);
+      const float num_h = q0.w - vdot(n, hp);
       const float num_n = vdot(n, ns);
-      const float r2 = __ldg(P + 7);
+      const float r2 = q1.w;
       for (uint32_t m = test & open; m; m &= m - 1) {
         const int j = __ffs(m) - 1;
         const V wi = R.wi(j);
@@ -439,13 +555,14 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
           open &= ~(1u << j);
       }
     }
-  };
-  auto sphere_rows = [&](int blk, uint32_t test) {
+    return open != 0;
+  });
+  walk(T, 3, T.n_sph, mask, open != 0, sw, meets, [&](int blk, uint32_t test) {
     const int s1 = min(T.n_sph, (blk + 1) * BLOCK_ROWS);
     for (int s = blk * BLOCK_ROWS; s < s1 && (test & open); ++s) {
-      const float* P = T.sph + SG * s;
-      const float rad = __ldg(P + 3);
-      const V vc = ld3(P) - hp;
+      const float4 P = __ldg((const float4*)(T.sph + SG * s));
+      const float rad = P.w;
+      const V vc = xyz(P) - hp;
       const float vc2 = vdot(vc, vc);
       const float vcn = vdot(vc, ns);
       for (uint32_t m = test & open; m; m &= m - 1) {
@@ -458,33 +575,8 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
           open &= ~(1u << j);
       }
     }
-  };
-  // class c (0 tri, 1 rect, 2 disk, 3 sphere), superblock by superblock;
-  // false once no lane of the warp has an open ray
-  auto sweep = [&](int c, const float4* sup, const float4* bnd, int nr) {
-    for (int sb = 0; sb < supers_of(nr); ++sb) {
-      if (!__any_sync(mask, open != 0)) return false;
-      bool any;
-      const uint32_t sup_test = rays_of(sup + sb, open, any);
-      if (!any) continue;
-      const int b1 = min(blocks_of(nr), (sb + 1) * SUPER_BLOCKS);
-      for (int blk = sb * SUPER_BLOCKS; blk < b1; ++blk) {
-        const uint32_t test = rays_of(bnd + blk, sup_test & open, any);
-        if (!any) continue;
-        sw.rows += min(nr, (blk + 1) * BLOCK_ROWS) - blk * BLOCK_ROWS;
-        if (c < 2)
-          planar_rows(c == 0 ? T.tri : T.rect, c == 0 ? T.tri_r : T.rect_r, nr, blk, c == 0, test);
-        else if (c == 2)
-          disk_rows(blk, test);
-        else
-          sphere_rows(blk, test);
-      }
-    }
-    return true;
-  };
-  if (sweep(0, T.tri_s, T.tri_b, T.n_tri) && sweep(1, T.rect_s, T.rect_b, T.n_rect) &&
-      sweep(2, T.disk_s, T.disk_b, T.n_disk))
-    sweep(3, T.sph_s, T.sph_b, T.n_sph);
+    return open != 0;
+  });
   return need & ~open;
 }
 
@@ -916,7 +1008,7 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
 // adjoint terms, so their draws, hits and branches are K5's by construction.
 // Dynamic shared memory: the shadow rays' block (step 2).
 template <int MODE, bool SOBOL, bool TEX, bool WIDE>
-__global__ void __launch_bounds__(THREADS) bigscene_fwd_kernel(const BigArgs a) {
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) bigscene_fwd_kernel(const BigArgs a) {
   extern __shared__ float4 smem4[];
   const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = lane_id < a.n;
@@ -946,14 +1038,16 @@ __global__ void __launch_bounds__(THREADS) bigscene_fwd_kernel(const BigArgs a) 
   }
   if (a.swept) {
     // the warp's counts, added once at its exit
-    unsigned long long rows = sw.rows, sweeps = sw.sweeps;
+    unsigned long long rows = sw.rows, sweeps = sw.sweeps, bounds = sw.bounds;
     for (int off = 16; off; off >>= 1) {
       rows += __shfl_down_sync(0xffffffffu, rows, off);
       sweeps += __shfl_down_sync(0xffffffffu, sweeps, off);
+      bounds += __shfl_down_sync(0xffffffffu, bounds, off);
     }
     if ((threadIdx.x & 31) == 0) {
       atomicAdd(a.swept, rows);
       atomicAdd(a.swept + 1, sweeps);
+      atomicAdd(a.swept + 2, bounds);
     }
   }
 }
@@ -1006,22 +1100,26 @@ int launch(BigArgs& a, int textured, void* stream) {
 // diffuse/specular/emission, the (M,) exponent, the (max(L, 1), 3) light
 // emissions, the (3,) env, the texture tables texa, texb (T, 3) and timg
 // (texels, 3) (one zero row each in an untextured scene), tex_rec (M,) and
-// bnd, each class's 8-row block bounds (kbs.cull_bounds: ceil(rows / 8)
-// float4s a class, tri | rect | disk | sphere) (textured: the scene has
-// texture records); lanes: o, d (n, 3), si and pix (n,) int32 (null under
-// the "random" sampler); out (n, 3), and under residual resf (res_n, n) and
-// resi (max_depth + 1, n), plane-major. sampler: 0 random, 1 hash, 2 sobol;
-// cull: skip the blocks no lane's ray meets (1) or sweep every row (0);
-// nee_rays: min(L, NEE_CHUNK); swept: null, or 2 counts (the rows its
-// warps' sweeps entered, summed over the lanes in each sweep, and the
-// lane-sweeps) that the launch adds to.
+// bnd and links, each class's tree over its 8-row blocks, depth first
+// (kbs.tree_bounds: the entries' spheres, (entries, 4) float, and their
+// (skip, block) links, (entries, 2) int, tri | rect | disk | sphere)
+// (textured: the scene has texture records); lanes: o, d (n, 3), si and
+// pix (n,) int32 (null under the "random" sampler); out (n, 3), and under
+// residual resf (res_n, n) and resi (max_depth + 1, n), plane-major.
+// sampler: 0 random, 1 hash, 2 sobol;
+// cull: skip the nodes a lane's rays cannot meet (1) or sweep every row
+// (0); nee_rays: min(L, NEE_CHUNK); swept: null, or 3 counts (the rows its
+// warps' leaf phases tested and the node steps its warps took, each summed
+// over the lanes in each sweep, and the lane-sweeps: rows, sweeps, node
+// steps) that the launch adds to.
 extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo, const int* rows,
                                   const int* mat_i, const float* mat_f, const float* diffuse,
                                   const float* specular, const float* emission,
                                   const float* exponent, const float* light_emit,
                                   const float* env, const float* texa, const float* texb,
                                   const float* timg, const int* tex_rec, const float* bnd,
-                                  const float* o, const float* d, const int* si, const int* pix,
+                                  const int* links, const float* o, const float* d,
+                                  const int* si, const int* pix,
                                   float* out, float* resf, int* resi, int n, int n_tri,
                                   int n_rect, int n_disk, int n_sph, int M, int seed,
                                   int max_depth, int rr_start, int rows_per_tile, int sampler,
@@ -1031,7 +1129,7 @@ extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo
   a.F = F; a.I = I; a.geo = geo; a.rows = rows; a.mat_i = mat_i; a.mat_f = mat_f;
   a.diffuse = diffuse; a.specular = specular; a.emission = emission; a.exponent = exponent;
   a.light_emit = light_emit; a.env = env; a.texa = texa; a.texb = texb; a.timg = timg;
-  a.tex_rec = tex_rec; a.bnd = (const float4*)bnd;
+  a.tex_rec = tex_rec; a.bnd = (const float4*)bnd; a.link = (const int2*)links;
   a.o = o; a.d = d; a.si = si; a.pix = pix; a.out = out; a.resf = resf; a.resi = resi;
   a.n = n; a.n_tri = n_tri; a.n_rect = n_rect; a.n_disk = n_disk; a.n_sph = n_sph; a.M = M;
   a.seed = seed; a.max_depth = max_depth; a.rr_start = rr_start; a.rows_per_tile = rows_per_tile;
@@ -1057,8 +1155,9 @@ extern "C" int kytpu_bigscene_bwd_replay(
     const float* F, const int* I, const float* geo, const int* rows, const int* mat_i,
     const float* mat_f, const float* diffuse, const float* specular, const float* emission,
     const float* exponent, const float* light_emit, const float* env, const float* texa,
-    const float* texb, const float* timg, const int* tex_rec, const float* bnd, const float* o,
-    const float* d, const int* si, const int* pix, const float* g, const float* big_l,
+    const float* texb, const float* timg, const int* tex_rec, const float* bnd, const int* links,
+    const float* o, const float* d, const int* si, const int* pix, const float* g,
+    const float* big_l,
     float* dout, int* tags, float* partial, float* lane_sums, float* tex_dout, int* tex_tags,
     int n, int n_cols, int n_tri, int n_rect, int n_disk, int n_sph, int M, int seed,
     int max_depth, int rr_start, int rows_per_tile, int sampler, int robust, int texp,
@@ -1069,7 +1168,7 @@ extern "C" int kytpu_bigscene_bwd_replay(
   a.F = F; a.I = I; a.geo = geo; a.rows = rows; a.mat_i = mat_i; a.mat_f = mat_f;
   a.diffuse = diffuse; a.specular = specular; a.emission = emission; a.exponent = exponent;
   a.light_emit = light_emit; a.env = env; a.texa = texa; a.texb = texb; a.timg = timg;
-  a.tex_rec = tex_rec; a.bnd = (const float4*)bnd;
+  a.tex_rec = tex_rec; a.bnd = (const float4*)bnd; a.link = (const int2*)links;
   a.o = o; a.d = d; a.si = si; a.pix = pix;
   a.g = g; a.l_in = big_l; a.dout = dout; a.tags = tags; a.partial = partial;
   a.lane_sums = lane_sums; a.tex_dout = tex_dout; a.tex_tags = tex_tags;

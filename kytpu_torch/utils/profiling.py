@@ -25,8 +25,10 @@ so the launch span's device interval is the kernel's alone and the
 wrapper's also holds the host's preparation of its arguments; the camera
 rays' launch nests directly in `kytpu::rays`.
 
-`kernel.<k>.rows` and `kernel.<k>.sweeps` (k5, k6, k8: the table kernels'
-sweeps, csrc/bigscene_fwd.cu) are counted on the card, and only while
+`kernel.<k>.rows`, `kernel.<k>.sweeps` and `kernel.<k>.bounds` (k5, k6,
+k8: the table kernels' sweeps, csrc/bigscene_fwd.cu: the rows each lane's
+warp tested for it, the lane-sweeps, and the node steps each lane's warp
+took in its tree walks) are counted on the card, and only while
 torch.profiler records: `row_counter(k, device)` gives a launch the
 device buffer to add to (None otherwise), and `device_counts()` reads the
 buffers once, after the window. They hold the current or last profiled
@@ -60,8 +62,9 @@ _OFF = contextlib.nullcontext()
 _SYNC = "called a synchronizing CUDA operation"
 
 counters: dict = {}
-# kernel -> int64 (2,) on the card: the rows its sweeps entered (summed
-# over the lanes in each sweep) and the lane-sweeps, while recording
+# kernel -> int64 (3,) on the card: the rows its warps' leaf phases tested
+# (summed over the lanes in each sweep), the lane-sweeps, and the node steps
+# of its warps' walks (summed likewise), while recording
 _swept: dict = {}
 
 
@@ -93,27 +96,28 @@ def reset(*kernels: str) -> None:
 
 
 def row_counter(kernel: str, device) -> torch.Tensor | None:
-    """The int64 (2,) buffer on `device` that a launch of `kernel` (k5,
-    k6, k8) adds its rows swept and lane-sweeps to, while torch.profiler
-    records; else None, and the launch counts nothing."""
+    """The int64 (3,) buffer on `device` that a launch of `kernel` (k5,
+    k6, k8) adds its rows swept, lane-sweeps and node steps to, while
+    torch.profiler records; else None, and the launch counts nothing."""
     if not _recording():
         return None
     buf = _swept.get(kernel)
     if buf is None or buf.device != torch.device(device):
-        buf = _swept[kernel] = torch.zeros(2, dtype=torch.int64,
+        buf = _swept[kernel] = torch.zeros(3, dtype=torch.int64,
                                            device=device)
     return buf
 
 
 def device_counts() -> dict:
-    """`kernel.<k>.rows` and `kernel.<k>.sweeps` of the current or last
+    """`kernel.<k>.rows`, `.sweeps` and `.bounds` of the current or last
     profiled window, read from the card (a sync each: call it after the
     window, never inside a call)."""
     out = {}
     for k, buf in _swept.items():
-        rows, sweeps = buf.tolist()
+        rows, sweeps, bounds = buf.tolist()
         out[f"kernel.{k}.rows"] = rows
         out[f"kernel.{k}.sweeps"] = sweeps
+        out[f"kernel.{k}.bounds"] = bounds
     return out
 
 

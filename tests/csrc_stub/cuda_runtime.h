@@ -7,12 +7,13 @@
 // never calls the extern "C" launchers). blockDim is 1 and threadIdx 0, so
 // a block-cooperative loop runs whole on the one thread. The votes treat
 // the calling thread as a warp of one (a lane harness that needs more
-// emulates the warp itself); the shuffle aborts. With KYTPU_WARP_EMU
+// emulates the warp itself), and so does the warp maximum
+// (__reduce_max_sync); the shuffle aborts. With KYTPU_WARP_EMU
 // defined, a harness runs a warp as 32 host threads instead: each sets its
 // own threadIdx and blockIdx (blockDim is 32, a block a warp) and
 // `warp_emu` to the warp's WarpVotes, and the votes are barriers of the
 // threads in their mask, each thread waiting until every thread of the
-// mask has cast its vote, as the card's warps vote.
+// mask has cast its vote, as the card's warps vote (and take a maximum).
 #pragma once
 
 #include <math.h>
@@ -42,6 +43,9 @@ using std::min;
 
 struct float4 {
   float x, y, z, w;
+};
+struct int2 {
+  int x, y;
 };
 struct uint3 {
   unsigned x, y, z;
@@ -92,13 +96,16 @@ struct WarpVotes {
   std::mutex m;
   std::condition_variable cv;
   std::map<uint32_t, Round> rounds;
-  uint32_t vote(uint32_t mask, bool pred) {
+  // each thread of `mask` folds its value into the round's with add(acc,
+  // bit) and waits until every thread of the mask has -> the round's value
+  template <class Add>
+  uint32_t meet(uint32_t mask, Add&& add) {
     const uint32_t bit = 1u << (threadIdx.x & 31);
     if (!(mask & bit)) abort();  // a thread votes only in its own mask
     std::unique_lock<std::mutex> lk(m);
     Round& r = rounds[mask];
     const unsigned gen = r.gen;
-    if (pred) r.ballot |= bit;
+    add(r.ballot, bit);
     if (++r.arrived == __builtin_popcount(mask)) {
       r.result = r.ballot;
       r.ballot = 0;
@@ -110,6 +117,13 @@ struct WarpVotes {
     }
     return r.result;
   }
+  uint32_t vote(uint32_t mask, bool pred) {
+    return meet(mask, [&](uint32_t& acc, uint32_t bit) { acc |= pred ? bit : 0u; });
+  }
+  // the largest v of the threads of `mask`
+  uint32_t reduce_max(uint32_t mask, uint32_t v) {
+    return meet(mask, [&](uint32_t& acc, uint32_t) { acc = std::max(acc, v); });
+  }
 };
 static thread_local WarpVotes* warp_emu = nullptr;
 inline uint32_t __ballot_sync(uint32_t mask, bool pred) { return warp_emu->vote(mask, pred); }
@@ -117,6 +131,13 @@ inline bool __any_sync(uint32_t mask, bool pred) { return warp_emu->vote(mask, p
 #else
 inline uint32_t __ballot_sync(uint32_t mask, bool pred) { return pred ? mask & 1u : 0u; }
 inline bool __any_sync(uint32_t mask, bool pred) { return pred && (mask & 1u); }
+#endif
+#ifdef KYTPU_WARP_EMU
+inline unsigned __reduce_max_sync(uint32_t mask, unsigned v) {
+  return warp_emu->reduce_max(mask, v);
+}
+#else
+inline unsigned __reduce_max_sync(uint32_t mask, unsigned v) { return (mask & 1u) ? v : 0u; }
 #endif
 inline float __shfl_down_sync(uint32_t, float, int) { abort(); }
 inline unsigned long long __shfl_down_sync(uint32_t, unsigned long long, int) { abort(); }

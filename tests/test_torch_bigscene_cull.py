@@ -1,20 +1,22 @@
 """The big-scene kernels' block cull (csrc/bigscene_fwd.cu `block_meets`,
-`cull_slack`, and the padded bounds of `kbs.cull_bounds`) is conservative:
-its plain transcription `kbs.block_meets_plain` passes every block, and the
-superblock around it, that holds a row the full sweep's row tests hit or
-find occluding.
+`cull_slack`, and the padded bounds of `kbs.tree_bounds`: the blocks and
+the tree above them) is conservative: its plain transcription
+`kbs.block_meets_plain` passes every block, and every node above it in
+its class's tree, that holds a row the full sweep's row tests hit or find
+occluding, so a lane's walk reaches every row it would take.
 
 The rows are tested by the plain sweeps' own row tests
 (`kbs._closest_class`, `kbs._occluded_class`), a class's blocks in a few
-batched calls. A block (and its superblock) that one of them hits must
+batched calls. A block (and each node above it) that one of them hits must
 pass for that ray over [0, t], t
 the nearest hit in the block (tighter than the kernels' running t_best), or
 over [0, tmax] for a shadow ray from its offset origin. Adversarial rays: rays that graze each
 sphere's silhouette within a few ulps of its radius from near and far,
-origins inside a block's bound, shading points offset by RAY_OFFSET with
-short tmax, rays in the ground's plane and just off it, on
+origins inside a block's or a node's bound, shading points offset by
+RAY_OFFSET with short tmax, rays in the ground's plane and just off it, on
 random_spheres(1024) (its ground spans |x|, |z| <= 35.2, where an ulp is
-about 4e-6) and an icosphere mesh; a NaN or inf ray passes every block.
+about 4e-6) and an icosphere mesh; a NaN or inf ray passes every block
+and node. Each node's sphere holds its children's padded spheres whole.
 """
 
 import math
@@ -38,7 +40,9 @@ def _tables(name):
         sc = {"spheres": lambda: builders.random_spheres(n=1024, width=8,
                                                          height=8),
               "mesh": lambda: builders.mesh_scene(
-                  *mesh.icosphere(subdivisions=3), width=8, height=8)}[name]()
+                  *mesh.icosphere(subdivisions=3), width=8, height=8),
+              "spd_balls": lambda: builders.spd_balls(width=8, height=8)
+              }[name]()
         _SCENES[name] = kbs.pack_big_tables(sc, kwf.KernelConfig())
     return _SCENES[name]
 
@@ -53,16 +57,32 @@ def _col(v: V3) -> V3:
 
 
 def _blocks(tables):
-    """(class name, its table, its rows, the bounds (blocks, 2, 4) of each
-    block and of its superblock, in bnd)."""
-    nb = [-(-c // kbs.UNROLL) for c in tables.counts]
-    sup = sum(nb)
+    """(class name, its table, its rows, the bounds (blocks, H + 1, 4) of
+    each block and of the entries above it, in bnd: in `kbs.tree_bounds`'
+    depth-first layout entry a is above entry b where a < b < a's skip)."""
+    links, e = tables.links.long(), 0
     for k, name in enumerate(kbs.CLASSES):
         G, rows = tables.cls(name)
-        b = torch.arange(nb[k])
-        yield name, G, rows, torch.stack(
-            [tables.bnd[sum(nb[:k]) + b], tables.bnd[sup + b // kbs.SUPER]], 1)
-        sup += -(-nb[k] // kbs.SUPER)
+        if not tables.counts[k]:
+            yield name, G, rows, tables.bnd.new_zeros((0, 1, 4))
+            continue
+        end = int(links[e, 0])
+        ix = torch.arange(e, end)
+        leaf, inner = ix[links[ix, 1] >= 0], ix[links[ix, 1] < 0]
+        assert torch.equal(links[leaf, 1], torch.arange(len(leaf)))
+        above = (inner[None] < leaf[:, None]) & (
+            links[inner, 0][None] > leaf[:, None])
+        h = int(above[0].sum())
+        assert bool((above.sum(1) == h).all())
+        anc = inner[None].expand_as(above)[above].view(len(leaf), h)
+        yield name, G, rows, tables.bnd[torch.cat([leaf[:, None], anc], 1)]
+        e = end
+
+
+def _nodes(tables):
+    """The bounds of every block and tree node of `tables`, (entries,
+    4)."""
+    return tables.bnd
 
 
 def _chunks(n_rays: int, n_blocks: int):
@@ -82,12 +102,13 @@ def _by_block(x: torch.Tensor, n_blocks: int, fill) -> torch.Tensor:
 
 def meets(bb: torch.Tensor, o: V3, d: V3, inv, t1, slack) -> torch.Tensor:
     """`kbs.block_meets_plain` of each ray against each block of bb (blocks,
-    2, 4) and that block's superblock, over [0, t1]: t1 (C,) or (C, blocks)
-    -> (C, blocks), both bounds met."""
+    L, 4) and the nodes above it, over [0, t1]: t1 (C,) or (C, blocks) ->
+    (C, blocks), every bound met."""
+    n = bb.shape[1]
     if t1.dim() == 2:
-        t1 = t1.repeat_interleave(2, dim=1)
+        t1 = t1.repeat_interleave(n, dim=1)
     return kbs.block_meets_plain(bb.reshape(-1, 4), o, d, inv, t1,
-                                 slack).view(len(o.x), -1, 2).all(-1)
+                                 slack).view(len(o.x), -1, n).all(-1)
 
 
 def _first_bad(ok, hit):
@@ -132,7 +153,7 @@ def _grazing(G, name, bnd, rng, n):
 
 
 def _inside(bnd, rng, n):
-    """Origins inside a block's bound, directions anywhere."""
+    """Origins inside a block's or a node's bound, directions anywhere."""
     b = bnd[rng.integers(0, len(bnd), n)].numpy().astype(np.float64)
     o = b[:, :3] + _unit(rng.normal(size=(n, 3))) * (
         b[:, 3] * rng.uniform(0, 1, n) ** (1 / 3))[:, None]
@@ -155,7 +176,7 @@ def _closest_cases(tables, family, rng):
         off = sum(-(-c // kbs.UNROLL) for c in tables.counts[:3])
         return _grazing(tables.cls(name)[0], name, bnd[off:], rng, 4096)
     if family == "inside":
-        return _inside(bnd, rng, 4096)
+        return _inside(_nodes(tables), rng, 4096)
     return _ground_plane(rng, 16384)
 
 
@@ -248,3 +269,97 @@ def test_nonfinite_rays_pass_every_block():
                torch.full((8,), 5.0)):
         ok = kbs.block_meets_plain(tables.bnd, o, d, inv, t1, slack)
         assert bool(ok[[0, 1, 2, 3, 4, 5, 7]].all())
+
+
+@pytest.mark.parametrize("scene", ["spheres", "mesh", "spd_balls"])
+def test_tree_nodes_hold_their_children(scene):
+    """`kbs.tree_bounds`: depth first, one root a class whose skip ends the
+    class, a block's skip the next entry, the blocks in table order and
+    `cull_bounds`' to the byte, each node's children (entry + 1, then each
+    one's skip, up to the node's skip) at most ARITY, and each node's
+    sphere holding each child's whole (float64)."""
+    tables = _tables(scene)
+    st, tabs = kbs.extract_tables(
+        {"spheres": lambda: builders.random_spheres(n=1024, width=8,
+                                                    height=8),
+         "mesh": lambda: builders.mesh_scene(*mesh.icosphere(subdivisions=3),
+                                             width=8, height=8),
+         "spd_balls": lambda: builders.spd_balls(width=8, height=8)}[scene]())
+    nb = [-(-c // kbs.UNROLL) for c in tables.counts]
+    blocks = kbs.cull_bounds(tabs)[:sum(nb)]
+    bnd = tables.bnd.numpy().astype(np.float64)
+    links = tables.links.numpy()
+    assert len(bnd) == len(links)
+    e, leaves = 0, []
+    for k in range(4):
+        if not nb[k]:
+            continue
+        end = links[e, 0]
+        for a in range(e, end):
+            skip, blk = links[a]
+            assert a < skip <= end
+            if blk >= 0:
+                assert skip == a + 1
+                leaves.append(a)
+                continue
+            kids, c = [], a + 1
+            while c < skip:
+                kids.append(c)
+                c = links[c, 0]
+            assert c == skip and 1 <= len(kids) <= kbs.ARITY
+            reach = np.linalg.norm(bnd[kids, :3] - bnd[a, :3], axis=-1) + \
+                bnd[kids, 3]
+            assert (reach <= bnd[a, 3]).all(), (scene, k, a)
+        e = end
+    assert e == len(links)
+    assert tables.bnd.numpy()[leaves].tobytes() == blocks.tobytes()
+
+
+@pytest.mark.parametrize("scene", ["spheres", "spd_balls"])
+def test_closest_hits_pass_every_node_above_them(scene):
+    """The row the full sweep's closest hit takes (`kbs._closest_hit`) on
+    camera rays, grazing rays and rays from inside the bounds: its block and
+    every node above it pass `kbs.node_meets_plain` over [0, t], t the hit
+    (the walk's running t_best is never below it), so a lane's walk reaches
+    it."""
+    tables = _tables(scene)
+    rng = np.random.default_rng(zlib.crc32(scene.encode()))
+    fams = [_closest_cases(tables, f, rng) for f in ("grazing", "inside")]
+    o = _v3(np.concatenate([f[0] for f in fams]))
+    d = _v3(np.concatenate([f[1] for f in fams]))
+    t, cls, trow = kbs._closest_hit(tables, o, d,
+                                    torch.ones_like(o.x, dtype=torch.bool))
+    slack, inv = kbs.cull_slack_plain(o, d)
+    checked = 0
+    for k, (name, _, _, bb) in enumerate(_blocks(tables)):
+        on = (cls == k).nonzero().reshape(-1)
+        if not len(on):
+            continue
+        anc = bb[trow[on] // kbs.UNROLL]          # (C, H + 1, 4)
+        for j in range(anc.shape[1]):
+            ok = kbs.node_meets_plain(
+                anc[:, j], V3(o.x[on], o.y[on], o.z[on]),
+                V3(d.x[on], d.y[on], d.z[on]), inv[on], t[on], slack[on])
+            assert bool(ok.all()), (scene, name, j, int((~ok).sum()))
+        checked += len(on)
+    assert checked > 500
+
+
+def test_nonfinite_rays_pass_every_node():
+    """A NaN or inf ray passes every block and tree node, each against its
+    own bound (`kbs.node_meets_plain`, the walk's test), whatever t1."""
+    tables = _tables("spd_balls")
+    nodes = _nodes(tables)
+    nan, inf = float("nan"), float("inf")
+    rays = [([nan, 1, 0], [0, 0, 1]), ([inf, 1, 0], [0, 0, 1]),
+            ([0, 1, 0], [nan, 0, 1]), ([0, 1, 0], [inf, 0, 0]),
+            ([0, 1, 0], [0, 0, 0]), ([0, -inf, 0], [1e-30, 1e-30, 1e-30])]
+    n = len(nodes)
+    for ro, rd in rays:
+        o = _v3(np.tile(ro, (n, 1)))
+        d = _v3(np.tile(rd, (n, 1)))
+        slack, inv = kbs.cull_slack_plain(o, d)
+        for t1 in (inf, nan, 5.0, 0.0):
+            ok = kbs.node_meets_plain(nodes, o, d, inv,
+                                      torch.full((n,), t1), slack)
+            assert bool(ok.all()), (ro, rd, t1)

@@ -52,6 +52,7 @@ HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <string>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -78,8 +79,10 @@ void save(const char* name, const std::vector<T>& v) {
   fclose(f);
 }
 
-// every lane in turn, as thread 0 of a warp of one; acc: K8's lane columns;
-// swept: each lane's rows swept and sweeps
+// every lane in turn, as thread 0 of a warp of one, or (KYTPU_WARP_EMU)
+// each 32 lanes a warp of 32 host threads that vote as the card's warps
+// vote; acc: K8's lane columns; swept: each lane's rows swept, sweeps and
+// node steps
 template <int MODE, bool SOBOL, bool TEX>
 void run(const BigArgs& a, std::vector<float>& acc, std::vector<uint32_t>& swept) {
   static float rays[Rays::FIELDS * NEE_CHUNK * THREADS];
@@ -87,14 +90,33 @@ void run(const BigArgs& a, std::vector<float>& acc, std::vector<uint32_t>& swept
   S.init(a.F, a.I);
   Tables T;
   T.init(a);
-  const Rays R{rays, a.nee_rays};
-  for (int i = 0; i < a.n; ++i) {
-    float* row = acc.data() + (size_t)i * a.n_cols;
+  auto lane = [&](int i, int t) {
+    const bool in = i < a.n;
+    float* row = in ? acc.data() + (size_t)i * a.n_cols : nullptr;
     Swept sw;
-    trace_lane<MODE, SOBOL, TEX>(a, S, T, R, i, true, MODE == MODE_REPLAY ? row : nullptr, sw);
-    swept[2 * (size_t)i] = sw.rows;
-    swept[2 * (size_t)i + 1] = sw.sweeps;
+    trace_lane<MODE, SOBOL, TEX>(a, S, T, Rays{rays + t, a.nee_rays}, i, in,
+                                 MODE == MODE_REPLAY ? row : nullptr, sw);
+    if (!in) return;
+    swept[3 * (size_t)i] = sw.rows;
+    swept[3 * (size_t)i + 1] = sw.sweeps;
+    swept[3 * (size_t)i + 2] = sw.bounds;
+  };
+#ifdef KYTPU_WARP_EMU
+  for (int w = 0; 32 * w < a.n; ++w) {
+    WarpVotes votes;
+    std::vector<std::thread> lanes;
+    for (int t = 0; t < 32; ++t)
+      lanes.emplace_back([&, t] {
+        threadIdx.x = t;
+        blockIdx.x = w;
+        warp_emu = &votes;
+        lane(32 * w + t, t);
+      });
+    for (auto& th : lanes) th.join();
   }
+#else
+  for (int i = 0; i < a.n; ++i) lane(i, 0);
+#endif
 }
 
 template <int MODE, bool SOBOL>
@@ -138,18 +160,23 @@ int main(int argc, char** argv) {
              g = load<float>("g"), l_in = load<float>("l_in");
   const auto I = load<int>("i"), rows = load<int>("rows"), mat_i = load<int>("mat_i"),
              tex_rec = load<int>("tex_rec"), si = load<int>("si"), pix = load<int>("pix");
+  const auto links = load<int>("links");
   a.F = F.data(); a.I = I.data(); a.geo = geo.data(); a.rows = rows.data();
   a.mat_i = mat_i.data(); a.mat_f = mat_f.data(); a.diffuse = diffuse.data();
   a.specular = specular.data(); a.emission = emission.data(); a.exponent = exponent.data();
   a.light_emit = light_emit.data(); a.env = env.data(); a.texa = texa.data();
   a.texb = texb.data(); a.timg = timg.data(); a.tex_rec = tex_rec.data();
-  a.bnd = (const float4*)bnd.data(); a.o = o.data(); a.d = d.data(); a.si = si.data();
+  a.bnd = (const float4*)bnd.data(); a.link = (const int2*)links.data();
+  a.o = o.data(); a.d = d.data(); a.si = si.data();
   a.pix = pix.data(); a.g = g.data(); a.l_in = l_in.data();
   const size_t n = a.n, B = a.max_depth, PB = a.texp ? 10 : 9;
   std::vector<float> out(3 * n, -1.f), resf(res_n * n, -1.f), dout((PB * B + 3) * n, -1.f),
       acc(n * (a.n_cols > 0 ? a.n_cols : 1), 0.f), tex_dout(12 * B * n, -1.f);
   std::vector<int> resi((B + 1) * n, -1), tags((B + 1) * n, -1), tex_tags(4 * B * n, -1);
-  std::vector<uint32_t> swept(2 * n, 0);
+  std::vector<uint32_t> swept(3 * n, 0);
+  // a counter buffer, so that the lanes count (the kernel's traced launch)
+  unsigned long long counted[3] = {0, 0, 0};
+  a.swept = counted;
   a.out = out.data(); a.resf = resf.data(); a.resi = resi.data(); a.dout = dout.data();
   a.tags = tags.data(); a.tex_dout = tex_dout.data(); a.tex_tags = tex_tags.data();
   if (a.sampler == S_SOBOL) upload_sites();
@@ -176,9 +203,9 @@ int main(int argc, char** argv) {
 """
 
 
-@pytest.fixture(scope="module")
-def big_exe(tmp_path_factory):
-    """The harness built from csrc/bigscene_fwd.cu; skips without g++."""
+def _build(tmp_path_factory, warps: bool):
+    """The harness built from csrc/bigscene_fwd.cu (warps: with
+    KYTPU_WARP_EMU, a warp of 32 host threads); skips without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA lane body on the host")
@@ -188,14 +215,25 @@ def big_exe(tmp_path_factory):
         text = text.replace("extern __shared__ float4 smem4[];",
                             "static float4 smem4[1 << 14];")
         (build / src.name).write_text(text)
-    (build / "harness.cpp").write_text(HARNESS)
+    (build / "harness.cpp").write_text(
+        ("#define KYTPU_WARP_EMU\n" if warps else "") + HARNESS)
     exe = build / "bigscene"
     res = subprocess.run(
-        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-w", "-I", str(STUB),
-         "-I", str(build), "-o", str(exe), str(build / "harness.cpp")],
-        capture_output=True, text=True)
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-w", "-pthread",
+         "-I", str(STUB), "-I", str(build), "-o", str(exe),
+         str(build / "harness.cpp")], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-4000:]
     return exe
+
+
+@pytest.fixture(scope="module")
+def big_exe(tmp_path_factory):
+    return _build(tmp_path_factory, False)
+
+
+@pytest.fixture(scope="module")
+def big_warp_exe(tmp_path_factory):
+    return _build(tmp_path_factory, True)
 
 
 IMG8 = np.random.default_rng(2).uniform(0.1, 0.9, (8, 8, 3)).astype(
@@ -392,8 +430,83 @@ def test_row_counter_matches_the_plain_votes(big_exe, tmp_path, scene, cull):
     _, res_n = kbs.layout_of(tables.static, cfg)
     _run(big_exe, tmp_path, 1, int(cull != "off"), tables, cfg, n, seed,
          res_n, kbs._n_cols(tables))
-    swept = np.fromfile(tmp_path / "swept", np.uint32).reshape(n, 2)
+    swept = np.fromfile(tmp_path / "swept", np.uint32).reshape(n, 3)
     got = tuple(int(x) for x in swept.astype(np.int64).sum(0))
     assert got == chip_smoke.swept_counts(tables, cfg, o, d, seed, si, pix,
                                           warp=1)
-    assert got[0] > 0 and got[1] >= n
+    assert got[0] > 0 and got[1] >= n and got[2] > 0
+
+
+def _walk_runs(exe, tmp_path, scene, cfg, n, seed, graze):
+    """K5, K6 and K8 culled and with the cull off, and K6's counters under
+    cfg.cull summed over the lanes, of one build on `scene`'s lanes."""
+    sc = (builders.spd_balls(2, 24, 16) if scene == "spd_balls"
+          else _scene(scene))
+    extracted = kbs.extract_tables(sc)
+    tables = kbs.pack_big_tables(sc, cfg, extracted)
+    lanes = _lanes(sc, extracted, n, graze)
+    ref_l = kbs.trace_lanes_plain(tables, cfg, *lanes[:2], seed, *lanes[2:])
+    for nm in kbs._TABLES:
+        getattr(tables, nm).numpy().tofile(tmp_path / nm)
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(n, 3)).astype(np.float32))
+    for nm, t in zip(("o", "d", "si", "pix", "g", "l_in"), lanes + (g, ref_l)):
+        t.contiguous().numpy().tofile(tmp_path / nm)
+    _, res_n = kbs.layout_of(tables.static, cfg)
+    runs = {}
+    for mode in (0, 1, 2):
+        for cull in (1, 0):
+            runs[(mode, cull)] = _run(exe, tmp_path, mode, cull, tables, cfg,
+                                      n, seed, res_n, kbs._n_cols(tables))
+            if (mode, cull) == (1, int(cfg.cull != "off")):
+                swept = np.fromfile(tmp_path / "swept", np.uint32)
+                counted = tuple(int(x) for x in swept.reshape(n, 3).astype(
+                    np.int64).sum(0))
+    for mode in (0, 1, 2):
+        for nm, got in runs[(mode, 1)].items():
+            np.testing.assert_array_equal(
+                got, runs[(mode, 0)][nm],
+                err_msg=f"{scene} mode {mode} {nm}: culled != cull off")
+    return tables, lanes, counted
+
+
+@pytest.mark.parametrize("scene", ["spd_balls", "spheres"])
+def test_tree_walk_in_warps_of_one(big_exe, tmp_path, scene):
+    """Each lane a warp of one (the host build's votes): the tree walk's K5,
+    K6 and K8 equal the cull off to the bit, grazing rays included, and
+    the culled K6's rows, sweeps and node steps equal
+    chip_smoke.swept_counts(warp=1)."""
+    import chip_smoke
+
+    cfg = kwf.KernelConfig(max_depth=3, rr_start=1, rows=2, shadow="robust")
+    n, seed = 1024, 23
+    tables, lanes, counted = _walk_runs(big_exe, tmp_path, scene, cfg, n,
+                                        seed, n // 4)
+    o, d, si, pix = lanes
+    assert counted == chip_smoke.swept_counts(tables, cfg, o, d, seed, si,
+                                              pix, warp=1)
+    assert counted[2] > 0
+
+
+@pytest.mark.parametrize("scene, cull", [("spd_balls", "cone"),
+                                         ("spd_balls", "off"),
+                                         ("spheres", "cone")])
+def test_tree_walk_in_warps_of_32(big_warp_exe, tmp_path, scene, cull):
+    """Each 32 lanes a warp of 32 host threads whose votes and maxima meet
+    as the card's warps' do (KYTPU_WARP_EMU): the warp's node phases, its
+    lanes' pending blocks and its leaf phases give K5, K6 and K8 equal to
+    the cull off to the bit, and K6's counters equal chip_smoke.swept_counts
+    at warps of 32, the replay phase 16 holds the card to. 1,000 lanes: the
+    last warp is partial."""
+    import chip_smoke
+
+    cfg = kwf.KernelConfig(max_depth=3, rr_start=1, rows=2, cull=cull)
+    n, seed = 1000, 17
+    tables, lanes, counted = _walk_runs(big_warp_exe, tmp_path, scene, cfg,
+                                        n, seed, 0)
+    o, d, si, pix = lanes
+    want = chip_smoke.swept_counts(tables, cfg, o, d, seed, si, pix)
+    assert counted == want
+    # the warp's phases cost more than its lanes' own walks
+    assert want[0] > chip_smoke.swept_counts(tables, cfg, o, d, seed, si,
+                                             pix, warp=1)[0]

@@ -174,7 +174,8 @@ def _traced_run(monkeypatch, work):
                  _Rec("kytpu::launch.segment_sums", p + 8, 0.25)]
     monkeypatch.setattr(profiling, "spans", lambda: list(recs))
     monkeypatch.setattr(profiling, "device_counts", lambda: {
-        "kernel.k6.rows": 9000, "kernel.k6.sweeps": 12})
+        "kernel.k6.rows": 9000, "kernel.k6.sweeps": 12,
+        "kernel.k6.bounds": 3000})
     run = harness.Run(entry="train", lanes=1, setup_s=0.0)
     run.profile = object()
     run.work = work
@@ -187,13 +188,15 @@ def test_the_cells_readers(monkeypatch):
     work = {"fwd_ops": 67e9, "fwd_bytes": 3.35e8, "bwd_bytes": 3.35e8}
     run = _traced_run(monkeypatch, work)
     read = {n: harness.reader(f"{n}.train")[0] for n in (
-        "table_fwd_roofline", "table_bwd_roofline", "rows_swept")}
+        "table_fwd_roofline", "table_bwd_roofline", "rows_swept",
+        "bounds_swept")}
     # K6's least: 1 ms of operations against 0.1 ms of bytes, over 20 ms
     assert read["table_fwd_roofline"](run, "train") == pytest.approx(5.0)
     # K7's least: 0.1 ms of bytes over 1 + 0.25 + 0.25 ms
     assert read["table_bwd_roofline"](run, "train") == pytest.approx(
         100 * 0.1 / 1.5)
     assert read["rows_swept"](run, "train") == 750.0
+    assert read["bounds_swept"](run, "train") == 250.0
     run.profile = None
     assert all(r(run, "train") is None for r in read.values())
     assert PEAKS["fp32_flop_s"] == 67e12
@@ -239,10 +242,11 @@ def test_the_row_counter_counts_only_while_recording():
     with profile(activities=[ProfilerActivity.CPU]):
         with kprof.span("kytpu::train.step"):
             buf = kprof.row_counter("k6", "cpu")
-            buf += torch.tensor([40, 5])
+            buf += torch.tensor([40, 5, 30])
             assert kprof.row_counter("k6", "cpu") is buf
     assert kprof.device_counts() == {"kernel.k6.rows": 40,
-                                     "kernel.k6.sweeps": 5}
+                                     "kernel.k6.sweeps": 5,
+                                     "kernel.k6.bounds": 30}
     with kprof.span("kytpu::train.step"):   # unrecorded: the window is over
         pass
     with profile(activities=[ProfilerActivity.CPU]):
@@ -251,3 +255,19 @@ def test_the_row_counter_counts_only_while_recording():
             kprof.row_counter("k6", "cpu")
     kprof.reset("k6")
     assert kprof.device_counts() == {}
+
+
+def test_the_node_step_reader_without_the_counter(monkeypatch):
+    """bounds_swept on a program whose counters have no kernel.k6.bounds
+    (a checkout before the tree walk) gives None and does not raise."""
+    from kytpu_torch.utils import profiling
+
+    read = harness.reader("bounds_swept.train")[0]
+    run = _traced_run(monkeypatch, {})
+    monkeypatch.setattr(profiling, "device_counts", lambda: {
+        "kernel.k6.rows": 9000, "kernel.k6.sweeps": 12})
+    assert read(run, "train") is None
+    monkeypatch.setattr(profiling, "device_counts", lambda: {})
+    assert read(run, "train") is None
+    monkeypatch.delattr(profiling, "device_counts")
+    assert read(run, "train") is None
