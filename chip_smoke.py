@@ -105,9 +105,7 @@ Phases, one line each (a few for phase 3):
         phase 3); K6's radiance against K5's, K7 and K8 against themselves,
         bit for bit; K8 against K7 (the bound of K4 against K3); K5, K6 and
         K8 under the default cull against the same build with cull="off",
-        bit for bit (`same_as_cull_off`), and the pass rates of the
-        superblocks and blocks by lane and by warp (`cull_counts`, from the
-        plain K6's rays, which the gates above use);
+        bit for bit (`same_as_cull_off`);
      b. K5 against K1 on the Cornell box (256K lanes, depth 5): the share
         of lanes within 1e-3 (at least 99.5%; K5 reads each hit's Phong
         exponent from its row, K1 folds the scene's one exponent into
@@ -125,11 +123,12 @@ Phases, one line each (a few for phase 3):
         the replay path, whose launches are counted (K5 and K8: time, peak
         memory, its gradient K8's bit for bit), and the bounds of K5, K6, K7
         and K8; K5, K6 and K8 with cull="off" timed and held to the culled
-        launches bit for bit; the culled bound (`cull_counts`: the work of
-        each sweep culled by the lane's own rays, counted from the plain
-        K6's rays) beside the full-sweep one (`k5_ops`, `k8_ops`), and the
-        pass rates of the blocks by a lane and by a warp; the mesh's K5 at
-        its 1M pixel-centre lanes, culled and not, with its culled bound;
+        launches bit for bit; the culled bound (`swept_counts`: the work of
+        each sweep culled by the lane's own tree walk, replayed on the
+        plain K6's rays) beside the full-sweep one (`k5_ops`, `k8_ops`),
+        and the walk's rows and node steps of the warp a lane-sweep; the
+        mesh's K5 at its 1M pixel-centre lanes, culled and not, with its
+        culled bound;
         the sums by tag (csrc/tag_sums.cu) on the row tags and planes K7 and
         K8 write there (`recorded_tag_sets`, `check_tag_sums`): the card's
         int32 radix sort against torch.sort(stable=True), perm and starts
@@ -313,9 +312,8 @@ Phases, one line each (a few for phase 3):
      whether bit for bit), K6 culled against cull="off" bit for bit, K6's
      counters (kernel.k6.rows, .sweeps, .bounds, read in a profiled
      launch) equal to `swept_counts`, the kernel's tree walk worked out
-     from the plain K6's rays, printed first beside `vote_counts`, the
-     warp vote over flat superblocks that the walk replaced; K6 and K7
-     timed at the step's 1,048,576 lanes.
+     from the plain K6's rays, printed first; K6 and K7 timed at the
+     step's 1,048,576 lanes.
 The line before the last is the kernels' JSON record (K1-K8, the tag
 sort, the segment sums and the camera rays, whose launches are phases 4's
 and 7's; each main path that sums by tag must launch
@@ -600,7 +598,7 @@ def same_as_cull_off(tables, cfg, lanes, g, got, tag: str) -> None:
 
 
 class CullTally:
-    """The lane-by-lane pass counts of `cull_counts` and `wf_cull_counts`:
+    """The lane-by-lane pass counts of `wf_cull_counts`:
     the (blocks + superblocks, 4) bounds `bnd` of nb blocks, each block's
     superblock `sb_of`; superblocks and blocks passed by a lane's rays and
     by a warp of 32 lanes in lane order, for the closest-hit ("hit") and
@@ -652,134 +650,6 @@ class CullTally:
         return out
 
 
-def cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
-    """What the cull leaves of K5's work on these lanes, from the rays that
-    the plain K6 traces (kbs._closest_hit and kbs._occluded wrapped while it
-    runs): "ops", the FP32 operations of `k5_ops` with each sweep culled by
-    the lane's own rays (the strictest cull: a lane-bounce tests every
-    superblock bound, the block bounds of the superblocks its ray meets over
-    [0, t], t its hit, and the rows of the blocks it meets; a shadow ray
-    that reached its light likewise over [0, tmax]; the shared terms of the
-    blocks one of a vertex's rays meets); and the pass rates of the
-    superblocks and of the blocks (both over all of them), by a lane's rays
-    and by a warp of 32 lanes in lane order, for the closest-hit ("hit")
-    and the occlusion ("occ") sweeps (a warp at its lanes' hits: the
-    kernel's running t_best can only pass more); "plain", the plain K6's
-    (radiance, resf, resi). The superblocks are `vote_bounds`', those of
-    the flat sweep that the tree walk replaced; `swept_counts` counts the
-    walk itself."""
-    from kytpu_torch.kernels import bigscene as kbs
-    from kytpu_torch.kernels.v3 import V3
-    st = tables.static
-    n_l = len(st["lights"])
-    ix, _ = kbs.layout_of(st, cfg)
-    dev = tables.bnd.device
-    rows_b, c_hit, c_ray, c_shared, sb_of = [], [], [], [], []
-    n_sup = 0
-    for c, (h, r, sh) in zip(tables.counts, (
-            (39, 27, 33), (38, 27, 33), (26, 28, 11), (34, 19, 13))):
-        nb_c = -(-c // kbs.UNROLL)
-        for b in range(nb_c):
-            rows_b.append(min(kbs.UNROLL, c - b * kbs.UNROLL))
-            c_hit.append(h)
-            c_ray.append(r)
-            c_shared.append(sh)
-            sb_of.append(n_sup + b // kbs.SUPER)
-        n_sup += -(-nb_c // kbs.SUPER)
-    nb = len(rows_b)
-    f64 = dict(dtype=torch.float64, device=dev)
-    rows_b = torch.tensor(rows_b, **f64)
-    bnd = vote_bounds(tables)
-    w_hit = rows_b * torch.tensor(c_hit, **f64)
-    w_ray = rows_b * torch.tensor(c_ray, **f64)
-    w_sh = rows_b * torch.tensor(c_shared, **f64)
-    sb_of = torch.tensor(sb_of, dtype=torch.long, device=dev)
-    per_sup = torch.bincount(sb_of, minlength=n_sup).double()
-    n = o.shape[0]
-    step = max(32, (1 << 22) // max(nb, 1) // 32 * 32)
-    ct = CullTally(bnd, nb, sb_of, n_sup, n)
-    stats, passes, tally = ct.stats, ct.passes, ct.tally
-    occ_rays = []
-    real_hit, real_occ = kbs._closest_hit, kbs._occluded
-
-    def sub(v, li):
-        return V3(v.x[li], v.y[li], v.z[li])
-
-    def hit(bt, o_, d_, live):
-        t, cls, trow = real_hit(bt, o_, d_, live)
-        idx = live.nonzero().reshape(-1)
-        for c0 in range(0, len(idx), step):
-            li = idx[c0:c0 + step]
-            oks, okb = passes(sub(o_, li), sub(d_, li), t[li])
-            stats["ops"] += float((okb.double() @ w_hit).sum()
-                                  + (oks.double() @ per_sup).sum()
-                                  * BLOCK_TEST_OPS) + len(li) * (
-                BLOCK_TEST_OPS * n_sup + SLACK_OPS + 32)
-            tally("hit", li, oks, okb)
-        return t, cls, trow
-
-    def occ(bt, hp, ns, rays, wants, robust, own):
-        hits = real_occ(bt, hp, ns, rays, wants, robust, own)
-        need = torch.zeros_like(hp.x, dtype=torch.bool)
-        for w in wants:
-            need = need | w
-        idx = need.nonzero().reshape(-1)
-        per_ray = []
-        for wi, tmax in rays:
-            nd = ns.dot(wi)
-            se = torch.where(nd < 0, -kbs._OFF, kbs._OFF)
-            tm = tmax - se * nd if robust else tmax
-            oks = torch.zeros((len(idx), n_sup), dtype=torch.bool, device=dev)
-            okb = torch.zeros((len(idx), nb), dtype=torch.bool, device=dev)
-            for c0 in range(0, len(idx), step):
-                li = idx[c0:c0 + step]
-                oks[c0:c0 + step], okb[c0:c0 + step] = passes(
-                    sub(hp, li) + sub(ns, li) * se[li], sub(wi, li), tm[li])
-            per_ray.append((oks, okb))
-        occ_rays.append((idx, per_ray))
-        return hits
-
-    kbs._closest_hit, kbs._occluded = hit, occ
-    try:
-        plain = kbs.trace_lanes_plain(tables, cfg, o, d, seed, si, pix,
-                                      residual=True)
-        resf = plain[1]
-    finally:
-        kbs._closest_hit, kbs._occluded = real_hit, real_occ
-    # only the shadow rays that reached their light (a nonzero "B" plane)
-    for b, (idx, per_ray) in enumerate(occ_rays):
-        reached = [resf[ix[("B", b, i)]][idx] != 0 for i in range(n_l)]
-        union = torch.zeros((len(idx), nb), dtype=torch.bool, device=dev)
-        for r, (oks, okb) in zip(reached, per_ray):
-            union |= okb & r[:, None]
-            stats["ops"] += float((okb[r].double() @ w_ray).sum()
-                                  + (oks[r].double() @ per_sup).sum()
-                                  * SHADOW_BLOCK_OPS) + int(r.sum()) * (
-                SHADOW_BLOCK_OPS * n_sup + SLACK_OPS + 6)
-            tally("occ", idx[r], oks[r], okb[r])
-        stats["ops"] += float((union.double() @ w_sh).sum())
-    n_b = [n] + [int((resf[ix[("tu", b)]] != 0).sum())
-                 for b in range(cfg.max_depth)]
-    stats["ops"] += sum(n_b[:-1]) * (62 + 6 + 134 * n_l + 90)
-    return ct.result(plain)
-
-
-def vote_bounds(tables) -> torch.Tensor:
-    """`kbs.cull_bounds`' (blocks + superblocks, 4) layout of a big scene's
-    tables: their padded blocks (the blocks of `tables.bnd`'s tree) and,
-    class by class, a sphere around each SUPER consecutive ones
-    (`kbs._group`), the bounds of the warp-voted sweep that the tree walk
-    replaced."""
-    from kytpu_torch.kernels import bigscene as kbs
-    nbs = [-(-c // kbs.UNROLL) for c in tables.counts]
-    # the tree's blocks, class by class in table order
-    blocks = tables.bnd[tables.links[:, 1] >= 0].cpu().numpy()
-    supers = [kbs._group(blocks[sum(nbs[:k]):sum(nbs[:k + 1])], kbs.SUPER)
-              for k in range(4)]
-    return torch.from_numpy(np.concatenate([blocks] + supers)).to(
-        tables.bnd.device)
-
-
 def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                  warp: int = 32, stats: dict | None = None) -> tuple:
     """(rows, sweeps, bounds): what csrc/bigscene_fwd.cu's counters add on
@@ -801,9 +671,16 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
     steps, both times the warp's lanes in the sweep; sweeps: the lanes in
     each sweep. stats, where given, gets "lane_rows" and "lane_bounds" (a
     lane's own rows and node steps, summed over its sweeps), "phases" (leaf
-    phases, summed over the warps' sweeps) and "blocks" (the distinct
-    blocks of each leaf phase, summed likewise)."""
+    phases, summed over the warps' sweeps), "blocks" (the distinct blocks
+    of each leaf phase, summed likewise), "ops" (the FP32 operations of
+    `k5_ops` with each sweep culled by the lane's own walk: each node test,
+    at BLOCK_TEST_OPS, or SHADOW_BLOCK_OPS a shadow ray it tests; each row
+    of its tested blocks at `k5_ops`' costs, a shadow ray's for each ray
+    tested plus the shared terms; a ray's slack and set-up; the shading of
+    each lane-bounce) and "plain" (the plain K6's (radiance, resf,
+    resi))."""
     from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels import shading as ksh
     from kytpu_torch.kernels import wavefront as kwf
     from kytpu_torch.kernels.v3 import V3
     cull = cfg.cull != "off"
@@ -816,7 +693,11 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
         start.append(start[-1] + (int(links[start[-1], 0]) - start[-1]
                                   if nbs[c] else 0))
     tot = {"rows": 0, "sweeps": 0, "bounds": 0}
-    st = {"lane_rows": 0, "lane_bounds": 0, "phases": 0, "blocks": 0}
+    st = {"lane_rows": 0, "lane_bounds": 0, "phases": 0, "blocks": 0,
+          "ops": 0.0}
+    # k5_ops' costs of a row: closest hit, shadow ray, shared terms
+    hit_row, ray_row, shared_row = (39, 38, 26, 34), (27, 27, 28, 19), (
+        33, 33, 11, 13)
 
     def sub(v, li):
         return V3(v.x[li], v.y[li], v.z[li])
@@ -907,6 +788,7 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
     def hit(bt, o_, d_, live):
         idx = live.nonzero().reshape(-1)
         tot["sweeps"] += len(idx)
+        st["ops"] += len(idx) * (SLACK_OPS + 32)
         oo, dd = sub(o_, idx), sub(d_, idx)
         slack, inv = kbs.cull_slack_plain(oo, dd)
         t_best = torch.full_like(oo.x, math.inf)
@@ -918,12 +800,15 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
             def node_hits(pos, e):
                 if not cull:
                     return torch.ones_like(pos, dtype=torch.bool), None
+                st["ops"] += len(pos) * BLOCK_TEST_OPS
                 return kbs.node_meets_plain(bnd[e], sub(oo, pos),
                                             sub(dd, pos), inv[pos],
                                             t_best[pos], slack[pos]), None
 
             def leaf(pos, blk, rays, c=c, name=name, G=G):
                 g, _ = rows_in(c, blk, G)
+                st["ops"] += float(torch.clamp(counts[c] - blk * U, max=U)
+                                   .sum()) * hit_row[c]
                 t = kbs._closest_class(name, g, col(sub(oo, pos)),
                                        col(sub(dd, pos))).min(1)[0]
                 t_best[pos] = torch.minimum(t, t_best[pos])
@@ -941,13 +826,15 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                 need = need | wants[q]
             idx = need.nonzero().reshape(-1)
             tot["sweeps"] += len(idx)
+            st["ops"] += sum(int(wants[q][idx].sum())
+                             for q in chunk) * (SLACK_OPS + 6)
             hpl, nsl = sub(hp, idx), sub(ns, idx)
             rs = []
             for q in chunk:
                 wi, tmax = rays[q]
                 wi, tmax = sub(wi, idx), tmax[idx]
                 nd = nsl.dot(wi)
-                se = torch.where(nd < 0, -kbs._OFF, kbs._OFF)
+                se = torch.where(nd < 0, -ksh.OFF, ksh.OFF)
                 og = hpl + nsl * se
                 slack, inv = kbs.cull_slack_plain(og, wi)
                 rs.append((wi, tmax - se * nd if robust else tmax, se, nd,
@@ -963,6 +850,8 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                     if not cull:
                         m = open_[pos]
                     else:
+                        st["ops"] += float(open_[pos].sum()) * \
+                            SHADOW_BLOCK_OPS
                         b = bnd[e]
                         m = open_[pos] & torch.stack(
                             [kbs.node_meets_plain(b, sub(r[4], pos),
@@ -973,6 +862,9 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
 
                 def leaf(pos, blk, test, c=c, name=name, G=G, grows=grows):
                     g, s = rows_in(c, blk, G)
+                    st["ops"] += float((torch.clamp(
+                        counts[c] - blk * U, max=U) * (
+                        test.sum(1) * ray_row[c] + shared_row[c])).sum())
                     crays = [(col(sub(r[0], pos)), r[1][pos, None],
                               r[2][pos, None], r[3][pos, None]) for r in rs]
                     hits = kbs._occluded_class(
@@ -986,162 +878,18 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
 
     kbs._closest_hit, kbs._occluded = hit, occ
     try:
-        kbs.trace_lanes_plain(tables, cfg, o, d, seed, si, pix,
-                              residual=True)
+        st["plain"] = kbs.trace_lanes_plain(tables, cfg, o, d, seed, si, pix,
+                                            residual=True)
     finally:
         kbs._closest_hit, kbs._occluded = real_hit, real_occ
+    ix, _ = kbs.layout_of(tables.static, cfg)
+    n_l = len(tables.static["lights"])
+    st["ops"] += (o.shape[0] + sum(
+        int((st["plain"][1][ix[("tu", b)]] != 0).sum())
+        for b in range(cfg.max_depth - 1))) * (62 + 6 + 134 * n_l + 90)
     if stats is not None:
         stats.update(st)
     return tot["rows"], tot["sweeps"], tot["bounds"]
-
-
-def vote_counts(tables, cfg, o, d, seed, si=None, pix=None,
-                warp: int = 32) -> tuple:
-    """(rows, sweeps, tests): what the warp-voted sweep of flat superblocks
-    that the tree walk replaced (csrc/bigscene_fwd.cu step 3) tested on
-    these lanes, worked out from the rays the plain K6 traces
-    (kbs._closest_hit and kbs._occluded wrapped while it runs) with its
-    votes, for `swept_counts`' comparison: lanes in warps of `warp` in lane
-    order (1: the host build's warps of one), each sweep's lanes the live
-    ones (closest hit) or those with a wanted shadow ray in the chunk of
-    NEE_CHUNK lights (occlusion); a warp enters a superblock and a block
-    where one of its lanes' rays meets its bound (`block_meets_plain`) at
-    that point of the sweep (the closest hit's running t_best, each shadow
-    ray while it is open), and an occlusion sweep ends once no lane of the
-    warp has an open ray at a superblock's start. rows: the rows of each
-    block entered, times the warp's lanes in the sweep; sweeps: the lanes
-    in each sweep; tests: the bounds the warp tested (the superblocks and
-    the blocks of those it entered), times its lanes in the sweep. The
-    superblocks are `vote_bounds`'."""
-    from kytpu_torch.kernels import bigscene as kbs
-    from kytpu_torch.kernels import wavefront as kwf
-    from kytpu_torch.kernels.v3 import V3
-    cull = cfg.cull != "off"
-    counts = tables.counts
-    nbs = [-(-c // kbs.UNROLL) for c in counts]
-    nss = [-(-b // kbs.SUPER) for b in nbs]
-    b0 = [sum(nbs[:k]) for k in range(4)]
-    s0 = [sum(nbs) + sum(nss[:k]) for k in range(4)]
-    bnd = vote_bounds(tables)
-    tot = {"rows": 0, "sweeps": 0, "tests": 0}
-
-    def sub(v, li):
-        return V3(v.x[li], v.y[li], v.z[li])
-
-    def col(v):
-        return V3(v.x[:, None], v.y[:, None], v.z[:, None])
-
-    def warp_any(m):
-        """(N,) lane mask -> (N,) whether a lane of the lane's warp is set."""
-        n = m.shape[0]
-        w = torch.zeros(n // warp + 1, dtype=torch.int32, device=m.device)
-        w.index_add_(0, torch.arange(n, device=m.device) // warp, m.int())
-        return (w > 0)[torch.arange(n, device=m.device) // warp]
-
-    def meets(k, o_, d_, inv, t1, slack):
-        return kbs.block_meets_plain(bnd[k:k + 1], o_, d_, inv, t1,
-                                     slack)[:, 0]
-
-    def rows_of(c, blk):
-        return min(counts[c], (blk + 1) * kbs.UNROLL) - blk * kbs.UNROLL
-
-    real_hit, real_occ = kbs._closest_hit, kbs._occluded
-
-    def hit(bt, o_, d_, live):
-        tot["sweeps"] += int(live.sum())
-        slack, inv = kbs.cull_slack_plain(o_, d_)
-        t_best = torch.full_like(o_.x, math.inf)
-        for c, name in enumerate(kbs.CLASSES):
-            G, _ = bt.cls(name)
-            for sb in range(nss[c]):
-                wsup = live if not cull else warp_any(
-                    meets(s0[c] + sb, o_, d_, inv, t_best, slack) & live)
-                tot["tests"] += int(live.sum()) + int((wsup & live).sum()) * (
-                    min(nbs[c], (sb + 1) * kbs.SUPER) - sb * kbs.SUPER)
-                for blk in range(sb * kbs.SUPER,
-                                 min(nbs[c], (sb + 1) * kbs.SUPER)):
-                    m = wsup & live
-                    if cull:
-                        m = m & warp_any(meets(b0[c] + blk, o_, d_, inv,
-                                               t_best, slack) & live)
-                    li = m.nonzero().reshape(-1)
-                    if not len(li):
-                        continue
-                    r = rows_of(c, blk)
-                    tot["rows"] += r * len(li)
-                    rows = G[blk * kbs.UNROLL:blk * kbs.UNROLL + r]
-                    tmin = kbs._closest_class(name, rows, col(sub(o_, li)),
-                                              col(sub(d_, li))).min(1)[0]
-                    t_best[li] = torch.minimum(tmin, t_best[li])
-        return real_hit(bt, o_, d_, live)
-
-    def occ(bt, hp, ns, rays, wants, robust, own):
-        for i0 in range(0, len(rays), kwf.NEE_CHUNK):
-            chunk = list(range(i0, min(len(rays), i0 + kwf.NEE_CHUNK)))
-            need = torch.zeros_like(hp.x, dtype=torch.bool)
-            for k in chunk:
-                need = need | wants[k]
-            tot["sweeps"] += int(need.sum())
-            rs = []
-            for k in chunk:
-                wi, tmax = rays[k]
-                nd = ns.dot(wi)
-                se = torch.where(nd < 0, -kbs._OFF, kbs._OFF)
-                og = hp + ns * se
-                slack, inv = kbs.cull_slack_plain(og, wi)
-                rs.append((wi, tmax - se * nd if robust else tmax, se, nd,
-                           og, slack, inv,
-                           own[k] if robust else None))
-            open_ = torch.stack([wants[k] for k in chunk], 1)
-            running = need.clone()
-            for c, name in enumerate(kbs.CLASSES):
-                G, grows = bt.cls(name)
-                for sb in range(nss[c]):
-                    running = running & warp_any(open_.any(1) & need)
-                    if cull:
-                        sup = open_ & torch.stack(
-                            [meets(s0[c] + sb, r[4], r[0], r[6], r[1], r[5])
-                             for r in rs], 1)
-                        w_sup = warp_any(sup.any(1) & need) & running
-                    else:
-                        sup, w_sup = open_, running
-                    tot["tests"] += int((running & need).sum()) + int(
-                        (w_sup & need).sum()) * (min(nbs[c], (sb + 1)
-                                                     * kbs.SUPER)
-                                                 - sb * kbs.SUPER)
-                    for blk in range(sb * kbs.SUPER,
-                                     min(nbs[c], (sb + 1) * kbs.SUPER)):
-                        test = sup & open_
-                        if cull:
-                            test = test & torch.stack(
-                                [meets(b0[c] + blk, r[4], r[0], r[6], r[1],
-                                       r[5]) for r in rs], 1)
-                            w_blk = warp_any(test.any(1) & need) & w_sup
-                        else:
-                            w_blk = w_sup
-                        li = (w_blk & need).nonzero().reshape(-1)
-                        if not len(li):
-                            continue
-                        r = rows_of(c, blk)
-                        tot["rows"] += r * len(li)
-                        sl = slice(blk * kbs.UNROLL, blk * kbs.UNROLL + r)
-                        crays = [(col(sub(q[0], li)), q[1][li, None],
-                                  q[2][li, None], q[3][li, None])
-                                 for q in rs]
-                        hits = kbs._occluded_class(
-                            name, G[sl], grows[sl], col(sub(hp, li)),
-                            col(sub(ns, li)), crays, [q[7] for q in rs])
-                        blocked = torch.stack(hits, 1) & test[li]
-                        open_[li] = open_[li] & ~blocked
-        return real_occ(bt, hp, ns, rays, wants, robust, own)
-
-    kbs._closest_hit, kbs._occluded = hit, occ
-    try:
-        kbs.trace_lanes_plain(tables, cfg, o, d, seed, si, pix,
-                              residual=True)
-    finally:
-        kbs._closest_hit, kbs._occluded = real_hit, real_occ
-    return tot["rows"], tot["sweeps"], tot["tests"]
 
 
 def same_as_cull_off_wf(tables, cfg, lanes, g, got, tag: str) -> None:
@@ -1167,7 +915,7 @@ def same_as_cull_off_wf(tables, cfg, lanes, g, got, tag: str) -> None:
 
 
 def wf_cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
-    """`cull_counts` for K1 past REFILL_MAX_ROWS surfaces
+    """What the cull leaves of K1's work past REFILL_MAX_ROWS surfaces
     (csrc/wavefront_fwd.cu step 5), from the rays that the plain K2 traces
     (kwf._closest_hit and kwf._any_hit_multi wrapped while it runs; the
     lanes that reach a bounce and the shadow rays that reach their light
@@ -1179,10 +927,11 @@ def wf_cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
     offset origin, the rows whose skip bit for its light is clear; the
     shared terms of the rows of the blocks one of a vertex's rays meets);
     the pass rates of the superblocks and blocks by a lane's rays and by a
-    warp of 32 consecutive lanes (a warp's lanes without refill), as
-    `cull_counts` gives them; "plain", the plain K2's (radiance, resf,
-    resi). nee="all" only, as `k1_ops` counts it."""
+    warp of 32 consecutive lanes (a warp's lanes without refill), for the
+    closest-hit ("hit") and occlusion ("occ") sweeps; "plain", the plain
+    K2's (radiance, resf, resi). nee="all" only, as `k1_ops` counts it."""
     from kytpu_torch.kernels import bigscene as kbs
+    from kytpu_torch.kernels import shading as ksh
     from kytpu_torch.kernels import wavefront as kwf
     from kytpu_torch.kernels.v3 import V3
     from kytpu_torch.scene import shapes as kshapes
@@ -1211,8 +960,8 @@ def wf_cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
             w_sh.append(sum((33 if fast[r] else 0) if is_pl else 13
                             for r in rs
                             if any(r not in skip[i] for i in range(n_l))))
-            sb_of.append(n_sup + b // kbs.SUPER)
-        n_sup += -(-nb_c // kbs.SUPER)
+            sb_of.append(n_sup + b // kwf.SUPER)
+        n_sup += -(-nb_c // kwf.SUPER)
     nb = len(w_hit)
     f64 = dict(dtype=torch.float64, device=dev)
     w_hit = torch.tensor(w_hit, **f64)
@@ -1275,7 +1024,7 @@ def wf_cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
                 lr = li[r]
                 wr = sub(wi, lr)
                 nd = sub(ns, lr).dot(wr)
-                se = torch.where(nd < 0, -kwf._OFF, kwf._OFF)
+                se = torch.where(nd < 0, -ksh.OFF, ksh.OFF)
                 tm = tmax[lr] - se * nd if robust else tmax[lr]
                 oks, okb = passes(sub(hp, lr) + sub(ns, lr) * se, wr, tm)
                 union[r] |= okb
@@ -1291,7 +1040,7 @@ def wf_cull_counts(tables, cfg, o, d, seed, si=None, pix=None) -> dict:
 
 
 def pass_rates(c: dict) -> str:
-    """`cull_counts`' pass rates as words."""
+    """`wf_cull_counts`' pass rates as words."""
     return ", ".join(
         f"{what} superblocks {c[f'{k}_sup']:.4f} a lane, "
         f"{c[f'{k}_sup_warp']:.4f} a warp, blocks {c[f'{k}_blk']:.4f} a lane,"
@@ -1475,70 +1224,70 @@ def kernel_split(fn, top: int = 6) -> str:
 
 
 def recorded_tag_sets(fn) -> list:
-    """fn() with kernels/wavefront.py's segment_sums recorded: the (dout,
+    """fn() with kernels/tag_sums.py's segment_sums recorded: the (dout,
     tags, m_tags, n_planes, n_cols, mask) of each call (copies), the tagged
     entries that K3, K4, K7 and K8 sum by row or texel."""
-    from kytpu_torch.kernels import wavefront as kwf
-    seen, real = [], kwf.segment_sums
+    from kytpu_torch.kernels import tag_sums as kts
+    seen, real = [], kts.segment_sums
 
     def rec(dout, tags, m_tags, n_planes, n_cols, mask=-1):
         seen.append((dout.clone(), tags.clone(), m_tags, n_planes, n_cols,
                      mask))
         return real(dout, tags, m_tags, n_planes, n_cols, mask)
 
-    kwf.segment_sums = rec
+    kts.segment_sums = rec
     try:
         fn()
         torch.cuda.synchronize()
     finally:
-        kwf.segment_sums = real
+        kts.segment_sums = real
     return seen
 
 
 def check_tag_sums(sets, what: str) -> list:
     """Each recorded set (`recorded_tag_sets`): the card's tag sort against
-    torch.sort(stable=True) (kernels/wavefront.py sort_tags), perm and
+    torch.sort(stable=True) (kernels/tag_sums.py sort_tags), perm and
     starts to the last index, the split segment sums against
     segment_sums_plain and against themselves, bit for bit; then the sort,
     its plain version, one torch.sort and the sums timed, the plain sums
     once, and the bounds: the sort reads each key once and writes perm and
     starts, the sums read each tagged entry's values and its place in perm
     and write the (M, PB) table -> a dict a set."""
-    from kytpu_torch.kernels import wavefront as kwf
+    from kytpu_torch.kernels import tag_sums as kts
     out = []
     for dout, tags, m, B, PB, mask in sets:
         tag = (f"{what}: {tags.numel()} entries of {m + 1} tags"
                f"{' (row mask)' if mask != -1 else ''}, {PB} columns")
-        perm, starts = kwf.tag_sort(tags, m, mask)
-        rp, rs = kwf.sort_tags(tags, m, mask)
+        perm, starts = kts.tag_sort(tags, m, mask)
+        rp, rs = kts.sort_tags(tags, m, mask)
         if perm.dtype != torch.int32 or starts.dtype != torch.int32:
             raise AssertionError(f"tag sort {tag}: not int32")
         if not (torch.equal(perm.long(), rp) and torch.equal(starts.long(),
                                                              rs)):
             raise AssertionError(f"tag sort {tag}: not torch.sort's order")
         n = dout.shape[1]
-        seg = kwf.seg_sums(dout, perm, starts, n, B, PB)
-        same_bits(seg, kwf.segment_sums_plain(dout, rp, rs, n, B, PB),
+        seg = kts.seg_sums(dout, perm, starts, n, B, PB)
+        same_bits(seg, kts.segment_sums_plain(dout, rp, rs, n, B, PB),
                   f"segment sums {tag} against segment_sums_plain")
-        same_bits(kwf.seg_sums(dout, perm, starts, n, B, PB), seg,
+        same_bits(kts.seg_sums(dout, perm, starts, n, B, PB), seg,
                   f"segment sums {tag} again")
         keys = (tags & mask).reshape(-1)
-        sort_ms, _ = cuda_time_ms(lambda: kwf.tag_sort(tags, m, mask), 5)
-        plain_sort_ms, _ = cuda_time_ms(lambda: kwf.sort_tags(tags, m, mask),
+        sort_ms, _ = cuda_time_ms(lambda: kts.tag_sort(tags, m, mask), 5)
+        plain_sort_ms, _ = cuda_time_ms(lambda: kts.sort_tags(tags, m, mask),
                                         5)
         lib_sort_ms, _ = cuda_time_ms(lambda: torch.sort(keys, stable=True),
                                       5)
         seg_ms, _ = cuda_time_ms(
-            lambda: kwf.seg_sums(dout, perm, starts, n, B, PB), 5)
+            lambda: kts.seg_sums(dout, perm, starts, n, B, PB), 5)
         plain_seg_ms, _ = once_ms(
-            lambda: kwf.segment_sums_plain(dout, rp, rs, n, B, PB))
+            lambda: kts.segment_sums_plain(dout, rp, rs, n, B, PB))
         # the library calls that sum the same entries by tag: index_add_
         # on the unsorted entries (float atomics), segment_reduce on the
         # sorted ones; each within 1e-3 of the table's largest entry
         ids = keys.long()
-        vals = kwf._entry_values(dout, torch.arange(ids.numel(),
-                                                    device=ids.device),
-                                 n, B, PB)
+        vals = kts.entry_values(dout, torch.arange(ids.numel(),
+                                                   device=ids.device),
+                                n, B, PB)
         lib_seg_ms, by_add = cuda_time_ms(lambda: torch.zeros(
             (m + 1, PB), device=ids.device).index_add_(0, ids, vals), 5)
         sorted_vals, lengths = vals[rp], rs[1:] - rs[:-1]
@@ -1558,8 +1307,8 @@ def check_tag_sums(sets, what: str) -> list:
         horizon = int((tags[B] & mask).ne(0).sum()) if tags.shape[0] > B \
             else 0
         values = tagged * PB - horizon * (PB - 3)
-        pieces = int(((rs[2:] - rs[1:-1] + kwf.SEG_PIECE - 1)
-                      // kwf.SEG_PIECE).sum())
+        pieces = int(((rs[2:] - rs[1:-1] + kts.SEG_PIECE - 1)
+                      // kts.SEG_PIECE).sum())
         out.append(dict(
             tag=tag, sort_ms=sort_ms, plain_sort_ms=plain_sort_ms,
             lib_sort_ms=lib_sort_ms, seg_ms=seg_ms, plain_seg_ms=plain_seg_ms,
@@ -1571,7 +1320,7 @@ def check_tag_sums(sets, what: str) -> list:
             pieces=pieces))
         print(f"tag sums: {tag} ({tagged} tagged, the longest tag "
               f"{out[-1]['longest']} entries, {pieces} pieces of "
-              f"{kwf.SEG_PIECE}): the card's sort = torch.sort(stable=True)'s "
+              f"{kts.SEG_PIECE}): the card's sort = torch.sort(stable=True)'s "
               f"perm and starts, int32; the split sums = segment_sums_plain "
               f"bit for bit, repeat; sort {sort_ms:.3f} ms (plain "
               f"{plain_sort_ms:.3f}, one torch.sort {lib_sort_ms:.3f}), sums "
@@ -3552,8 +3301,8 @@ def main() -> None:
                                  f"{tag}")
         same_as_cull_off(tables, cfg, (o, d, 21, si, pix), g,
                          (k5, (k6, resf, resi), k8), tag)
-        cull = cull_counts(tables, cfg, o, d, 21, si, pix)
-        ref_l, ref_f, ref_i = cull["plain"]
+        ref_l, ref_f, ref_i = kbs.trace_lanes_plain(
+            tables, cfg, o, d, 21, si, pix, residual=True)
         share, mabs, mdev = compare(k5, ref_l, f"K5 {tag}")
         cerr = compare_cache(resf, resi, ref_f, ref_i, f"K6 cache {tag}")
         gerr = compare_grads(grads, kbs.bwd_res_plain(
@@ -3582,10 +3331,8 @@ def main() -> None:
               f"(max |err| {gerr:.3g}), repeats bit for bit; K8 within the "
               f"bound (max |err| {rerr:.3g}), repeats bit for bit, vs K7 "
               f"within rtol={CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| "
-              f"{xerr:.3g}){extra}; pass rates {pass_rates(cull)}",
-              flush=True)
+              f"{xerr:.3g}){extra}", flush=True)
     del k5, k6, resf, resi, ref_l, ref_f, ref_i, grads, again, k8, k8_again
-    del cull
 
     # 9b. K5 against K1 where both run: the Cornell box, engine="bigscene"
     cornell = scenes["cornell"]
@@ -3727,10 +3474,12 @@ def main() -> None:
     ops5 = k5_ops(tables, resf, bcfg)
     ops8 = k8_ops(tables, resf, bcfg)
     # the culled count: K5's work with each sweep culled by the lane's own
-    # rays; K8 adds its adjoint terms to it
-    cull = cull_counts(tables, bcfg, o, d, 7)
-    del cull["plain"]   # the peaks below hold their own cache, not this
-    ops5c, ops8c = cull["ops"], cull["ops"] + (ops8 - ops5)
+    # walk; K8 adds its adjoint terms to it
+    walk = {}
+    w_rows, w_sweeps, w_bounds = swept_counts(tables, bcfg, o, d, 7,
+                                              stats=walk)
+    del walk["plain"]   # the peaks below hold their own cache, not this
+    ops5c, ops8c = walk["ops"], walk["ops"] + (ops8 - ops5)
     # the forward+backward's peak holds its own cache, not these
     del ref_l, ref_f, ref_i, ref_g, k6, resf, resi
     leaves = [t.clone().requires_grad_() for t in
@@ -3830,9 +3579,11 @@ def main() -> None:
     mk5_off_ms, mk5_off = cuda_time_ms(
         lambda: kbs.trace_lanes(mtab, off, mo, md, 7), 3)
     same_bits(mk5, mk5_off, "mesh K5 against cull='off' at 1M lanes")
-    mcull = cull_counts(mtab, bcfg, mo, md, 7)
-    del mcull["plain"]
-    m_bound = bound_ms(n_big * (24 + 12), mcull["ops"])
+    mwalk = {}
+    m_rows, m_sweeps, m_bounds = swept_counts(mtab, bcfg, mo, md, 7,
+                                              stats=mwalk)
+    del mwalk["plain"]
+    m_bound = bound_ms(n_big * (24 + 12), mwalk["ops"])
     del mk5, mk5_off, mo, md
     print(f"timing: spheres 1026 surfaces, depth 3, {n_big} pixel-centre "
           f"lanes (benchmarks/run.py): K5 {k5_ms:.3f} ms "
@@ -3864,15 +3615,15 @@ def main() -> None:
           f"with cull={bcfg.cull!r} K5 {k5_ms:.3f} ms, K6 {k6_ms:.3f} ms, K8 "
           f"{k8_ms:.3f} ms; the same build with cull='off' K5 {k5_off_ms:.3f}"
           f" ms, K6 {k6_off_ms:.3f} ms, K8 {k8_off_ms:.3f} ms, equal to the "
-          f"last bit; pass rates (from the plain run's rays, over "
-          f"{cull['supers']} superblocks and {cull['blocks']} blocks): "
-          f"{pass_rates(cull)}; on {smi}", flush=True)
+          f"last bit; the tree walk (from the plain run's rays) "
+          f"{w_rows / w_sweeps:.1f} rows and {w_bounds / w_sweeps:.1f} node "
+          f"steps of the warp a lane-sweep; on {smi}", flush=True)
     print(f"cull: mesh (1282 surfaces) {n_big} pixel-centre lanes, depth 3: "
           f"K5 {mk5_ms:.3f} ms, cull='off' {mk5_off_ms:.3f} ms, equal to "
           f"the last bit; culled bound {m_bound[0]:.4f} ms by {m_bound[1]} "
-          f"(ops {mcull['ops']:.4g}); pass rates (over {mcull['supers']} "
-          f"superblocks, {mcull['blocks']} blocks): {pass_rates(mcull)}",
-          flush=True)
+          f"(ops {mwalk['ops']:.4g}); the tree walk {m_rows / m_sweeps:.1f} "
+          f"rows and {m_bounds / m_sweeps:.1f} node steps of the warp a "
+          f"lane-sweep", flush=True)
     for k in ("K5", "K6", "K7", "K8"):
         full = (f", full sweep {full_bounds[k][0]:.4f} ms by "
                 f"{full_bounds[k][1]}" if k in full_bounds else "")
@@ -4233,8 +3984,8 @@ def main() -> None:
                 raise AssertionError(f"{tag}: {nm} does not repeat")
         same_as_cull_off(tables, cfg, (o, d, 43, si, pix), g,
                          (k5, (k6, resf, resi), k8), tag)
-        cull = cull_counts(tables, cfg, o, d, 43, si, pix)
-        ref_l, ref_f, ref_i = cull["plain"]
+        ref_l, ref_f, ref_i = kbs.trace_lanes_plain(
+            tables, cfg, o, d, 43, si, pix, residual=True)
         share, mabs, _ = compare(k5, ref_l, f"K5 {tag}")
         cerr = compare_cache(resf, resi, ref_f, ref_i, f"K6 cache {tag}")
         gerr = compare_grads(k7, kbs.bwd_res_plain(tables, cfg, g, ref_l,
@@ -4258,9 +4009,8 @@ def main() -> None:
               f"{CROSS_RTOL}/atol={CROSS_ATOL} (max |diff| {xerr:.3g}); "
               f"K5, K6 and K8 with cull={cfg.cull!r} = cull='off' bit for "
               f"bit; largest texture adjoints (dta, dtb[, dti]) "
-              f"{', '.join(f'{v:.3g}' for v in tex)}; pass rates "
-              f"{pass_rates(cull)}", flush=True)
-    del k5, k6, k7, k8, resf, resi, ref_l, ref_f, ref_i, cull
+              f"{', '.join(f'{v:.3g}' for v in tex)}", flush=True)
+    del k5, k6, k7, k8, resf, resi, ref_l, ref_f, ref_i
     # the textured K5 against K1 on the textured Cornell box
     tcorn = builders.cornell_box(width=256, height=256, floor_checker=True,
                                  back_image=rng.uniform(0.1, 0.9, (8, 8, 3))
@@ -4694,14 +4444,16 @@ def main() -> None:
                      (k5, (k6, resf, resi), k8), "textured spheres 1M lanes")
     ops5t = k5_ops(tables, resf, bcfg)
     ops8t = k8_ops(tables, resf, bcfg)
-    tcull = cull_counts(tables, bcfg, o, d, 7)
-    del tcull["plain"]
+    twalk = {}
+    t_rows, t_sweeps, t_bounds = swept_counts(tables, bcfg, o, d, 7,
+                                              stats=twalk)
+    del twalk["plain"]
     t_cache = resf.numel() * 4 + resi.numel() * 4
     PB = 9
     tex_full = {"K5": bound_ms(n_big * (24 + 12), ops5t),
                 "K8": bound_ms(n_big * (24 + 12 + 12) + m_rows * PB * 4,
                                ops8t)}
-    ops5t, ops8t = tcull["ops"], tcull["ops"] + (ops8t - ops5t)
+    ops5t, ops8t = twalk["ops"], twalk["ops"] + (ops8t - ops5t)
     tex_bounds = {
         "K5": bound_ms(n_big * (24 + 12), ops5t),
         "K7": bound_ms(t_cache + n_big * 24 + m_rows * PB * 4, float(
@@ -4717,7 +4469,9 @@ def main() -> None:
           f"K5/K6/K7/K8 {tex_big_replay}, its gradient K8's bit for bit; on "
           f"{smi}", flush=True)
     print(f"cull textured: K5, K6 and K8 = cull='off' bit for bit at 1M "
-          f"lanes; pass rates {pass_rates(tcull)}", flush=True)
+          f"lanes; the tree walk {t_rows / t_sweeps:.1f} rows and "
+          f"{t_bounds / t_sweeps:.1f} node steps of the warp a lane-sweep",
+          flush=True)
     for k, (t, by) in tex_bounds.items():
         full = (f", full sweep {tex_full[k][0]:.4f} ms by {tex_full[k][1]}"
                 if k in tex_full else "")
@@ -4860,7 +4614,7 @@ def sphereflake(smi: str) -> None:
     calls on their first 64K lanes against the plain versions (the bounds
     of phase 3, and whether bit for bit), K6 culled against cull="off" bit
     for bit, the counters of a recorded K6 launch against `swept_counts`
-    to the count (printed first beside `vote_counts`), and K6 and K7 (with
+    to the count (printed first), and K6 and K7 (with
     the sort and sums) timed at the step's 1,048,576 lanes under CUDA
     events."""
     from torch.profiler import ProfilerActivity, profile
@@ -4899,17 +4653,15 @@ def sphereflake(smi: str) -> None:
     btabs, (_, g, big_l, resf, resi), _, k7 = seen["bwd_res"]
     n = 1 << 16
     lanes = (o[:n], d[:n], seed, si, pix)
-    # the replaced warp vote's counts beside the tree walk's, from the plain
-    # K6's rays (the walk's prediction)
+    # the tree walk's counts from the plain K6's rays (the walk's
+    # prediction)
     t0 = time.perf_counter()
-    v_rows, v_sweeps, v_tests = vote_counts(tabs, kcfg, *lanes)
     own = {}
     walked = swept_counts(tabs, kcfg, *lanes, stats=own)
     print(f"sphereflake: replay of the step's first {n} lanes, a "
-          f"lane-sweep ({v_sweeps} lane-sweeps): warp vote over flat "
-          f"superblocks {v_rows / v_sweeps:.1f} rows, {v_tests / v_sweeps:.1f}"
-          f" bound tests; tree walk (arity {kbs.ARITY}, {kbs.LEAF_BUF} "
-          f"pending blocks) {walked[0] / walked[1]:.1f} rows, "
+          f"lane-sweep ({walked[1]} lane-sweeps): tree walk (arity "
+          f"{kbs.ARITY}, {kbs.LEAF_BUF} pending blocks) "
+          f"{walked[0] / walked[1]:.1f} rows, "
           f"{walked[2] / walked[1]:.1f} node steps of the warp; a lane's own "
           f"{own['lane_rows'] / walked[1]:.1f} rows, "
           f"{own['lane_bounds'] / walked[1]:.1f} node steps; "

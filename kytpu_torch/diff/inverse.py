@@ -44,8 +44,8 @@ from kytpu_torch.diff.params import TRAINABLE, get_params, make_codec, set_param
 from kytpu_torch.dist import shard as kshard
 from kytpu_torch.integrator import path as kpath
 from kytpu_torch.integrator.render import JNP_ENGINES, trace_lanes
-from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import camera as kcam
+from kytpu_torch.kernels import route as kroute
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.utils import profiling as kprof
@@ -139,17 +139,8 @@ def _kernel_loss(scene, target, spp: int, max_depth: int, loss_fn, names,
                             sampler=kernel_sampler or "random")
     kwf.check_config(kcfg)
     device = scene.device
-    # scene-scale routing (kytpu's rule, kytpu/diff/inverse.py): past 64
-    # surfaces the big-scene kernels K6 and K7 unless building their tracer
-    # refuses the scene, then K2 and K3
-    tracer = None
-    if int(scene.mat_kind.shape[0]) > kwf.TABLE_ROUTE_SURFACES:
-        try:
-            tracer = kbs.make_bigscene_diff_tracer(scene, kcfg)
-        except NotImplementedError:
-            tracer = None
-    if tracer is None:
-        tracer = kwf.make_cuda_diff_tracer(scene, kcfg)
+    # scene-scale routing (kytpu's rule, kytpu/diff/inverse.py)
+    tracer = kroute.diff_tracer(scene, kcfg)
     for n, there in (("tex_color_a", tracer.tabs.textured),
                      ("tex_color_b", tracer.tabs.textured),
                      ("tex_image", tracer.tabs.has_img)):

@@ -36,8 +36,9 @@ from kytpu_torch.core import rng as krng
 from kytpu_torch.dist.mesh import Mesh
 from kytpu_torch.integrator import path as kpath
 from kytpu_torch.integrator.render import trace_lanes
-from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import route as kroute
 from kytpu_torch.kernels import wavefront as kwf
+from kytpu_torch.kernels.launch import M32, as_i32, i32
 from kytpu_torch.scene import scene as kscene
 
 # render_sharded_pallas' engines: "auto" and "cuda" route as
@@ -227,12 +228,8 @@ def render_sharded_pallas(scene, mesh: Mesh, spp: int = 16, seed: int = 1234,
     cfg = _kernel_sampler(kernel_cfg or kwf.KernelConfig())
     kwf.check_config(cfg)
     scene = scene.to(mesh.device)
-    if engine == "bigscene":
-        tracer = kbs.make_bigscene_tracer(scene, cfg)
-    else:
-        extracted = kbs.table_route(scene)
-        tracer = (kwf.make_cuda_tracer(scene, cfg) if extracted is None
-                  else kbs.make_bigscene_tracer(scene, cfg, extracted))
+    tracer = kroute.tracer(scene, cfg, "bigscene" if engine == "bigscene"
+                           else "cuda")
     cam = scene.camera
     w, h = cam.width, cam.height
     npix = w * h
@@ -259,10 +256,10 @@ def render_sharded_pallas(scene, mesh: Mesh, spp: int = 16, seed: int = 1234,
             [(pid_k % w).to(torch.float32) + u[:, 0],
              (pid_k // w).to(torch.float32) + u[:, 1]], dim=-1))
         if cfg.sampler in ("hash", "sobol"):
-            out = tracer(scene, o, d, seed, kwf._as_i32(si & kwf._M32),
+            out = tracer(scene, o, d, seed, as_i32(si & M32),
                          pid_k.to(torch.int32))
         else:
-            out = tracer(scene, o, d, kwf._i32(
+            out = tracer(scene, o, d, i32(
                 seed + 7919 * mesh.tile + 104729 * mesh.spp
                 + 15485863 * p))
         part = out.reshape(kk, p_loc, 3).sum(dim=0)

@@ -37,13 +37,13 @@ from kytpu_torch.core import rng as krng
 from kytpu_torch.core.device import check_device
 from kytpu_torch.integrator import fast as kfast
 from kytpu_torch.integrator import path as kpath
-from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import route as kroute
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.utils import profiling as kprof
 
 JNP_ENGINES = ("jnp", "fast", "path")
-KERNEL_ENGINES = ("cuda", "bigscene")
+KERNEL_ENGINES = kroute.ENGINES
 MODES = ("path", "fast", "direct", "aov")
 
 
@@ -164,19 +164,9 @@ def render(scene, spp: int = 16, seed: int = 1234, cfg=None,
                              "run the production path transport alone")
         kcfg = _kernel_config(cfg)
         kwf.check_config(kcfg)
-        # kytpu's rule: past 64 surfaces the table kernel where its tables
-        # take the scene, else the baked one (K1)
-        extracted = kbs.table_route(scene) if engine == "cuda" else None
-        if extracted is not None:
-            engine = "bigscene"
-        scene = scene.to(check_device(device))
-        if engine == "bigscene":
-            return kbs.render_bigscene(scene, spp=spp, seed=seed, cfg=kcfg,
-                                       clamp=clamp,
-                                       rays_per_pass=rays_per_pass,
-                                       extracted=extracted)
-        return kwf.render_cuda(scene, spp=spp, seed=seed, cfg=kcfg,
-                               clamp=clamp, rays_per_pass=rays_per_pass)
+        return kroute.frame(scene, check_device(device), engine, spp=spp,
+                            seed=seed, cfg=kcfg, clamp=clamp,
+                            rays_per_pass=rays_per_pass)
     if engine not in JNP_ENGINES:
         raise ValueError(f"unknown engine {engine!r}: expected one of "
                          f"{KERNEL_ENGINES + JNP_ENGINES}")

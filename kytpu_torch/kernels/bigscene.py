@@ -49,8 +49,8 @@ table kernel evaluates them: checkers and atlases of its select chain (at
 most 64 texels, power-of-two sides) on planar rows, found by the hit's
 global row; K6 caches the textured diffuse, the checker parity (bit 22 of
 the int plane) and the texel coordinates ("tx", "ty"), and K7 and K8 route
-a textured row's diffuse adjoint to its texture (kernels/wavefront.py
-`_textures_at`, `_route_textures`).
+a textured row's diffuse adjoint to its texture (kernels/shading.py
+`textures_at`, `route_textures`).
 """
 
 from __future__ import annotations
@@ -64,16 +64,28 @@ import torch
 
 from kytpu_torch import bsdf as kbsdf
 from kytpu_torch.core import math as km
+from kytpu_torch.kernels import autodiff as kad
+from kytpu_torch.kernels import tables as ktab
+from kytpu_torch.kernels import tag_sums as kts
 from kytpu_torch.kernels import wavefront as kwf
+from kytpu_torch.kernels.cull import (CLASSES, CULL_PAD, UNROLL, block_bounds,
+                                      group, morton3, padded)
+from kytpu_torch.kernels.launch import (cfg_args, check_lane_tensor,
+                                        check_tables, lanes_checked, on_card,
+                                        run, texel_outputs)
+from kytpu_torch.kernels.shading import (
+    EPS, OFF, SHADOW_EPS, TWO_PI, bsdf_eval_pdf_dots, bsdf_sample, env_pdf,
+    hit_light_pdf, image_taps, kappa, kappa_dot, light_sample, offset_origin,
+    rng_keys, route_textures, sin_from_phi_cos, sphere_occludes, st,
+    texel_shape, textures_at, where)
+# the sums by row of K7 and K8 (and of K3's and K4's texel entries)
+from kytpu_torch.kernels.tag_sums import segment_sums_plain  # noqa: F401
 from kytpu_torch.kernels.v3 import V3, make_frame, to_local, to_world, v3_full
 from kytpu_torch.light import lights as klights
 from kytpu_torch.scene import scene as kscene
 from kytpu_torch.scene import shapes as kshapes
 from kytpu_torch.utils import profiling as kprof
 
-LANE = 128
-UNROLL = 8
-CLASSES = ("tri", "rect", "disk", "sphere")
 # planar table columns: normal, n.anchor, dual basis 1, f1.anchor, dual
 # basis 2, f2.anchor
 PG_NX, PG_NY, PG_NZ, PG_CN = 0, 1, 2, 3
@@ -105,46 +117,6 @@ def _pad_rows(a, mult=UNROLL):
         return a
     return np.concatenate([a, np.zeros((npad - n,) + a.shape[1:],
                                        a.dtype)], axis=0)
-
-
-def _morton3(points: np.ndarray, lo: np.ndarray, hi: np.ndarray):
-    """30-bit Morton keys of points quantized over [lo, hi]."""
-    span = np.maximum(hi - lo, 1e-20)
-    q = np.clip(((points - lo) / span * 1023.0), 0, 1023).astype(np.uint64)
-
-    def spread(x):
-        x = (x | (x << 16)) & np.uint64(0x030000FF)
-        x = (x | (x << 8)) & np.uint64(0x0300F00F)
-        x = (x | (x << 4)) & np.uint64(0x030C30C3)
-        x = (x | (x << 2)) & np.uint64(0x09249249)
-        return x
-
-    return (spread(q[:, 0]) << np.uint64(2)) | (spread(q[:, 1])
-                                                << np.uint64(1)) \
-        | spread(q[:, 2])
-
-
-def _block_bounds(centers, radii):
-    """Per-UNROLL-block bounding spheres of (already sorted, unpadded)
-    per-entry bounds -> (n_blocks, 4) [cx cy cz r]; blocks made entirely of
-    padding get r = -1, as kytpu's (its cone cull reads them);
-    `cull_bounds` pads them for the kernels' per-lane cull."""
-    n = len(radii)
-    npad = ((n + UNROLL - 1) // UNROLL) * UNROLL if n else 0
-    out = np.zeros((npad // UNROLL if npad else 0, 4), np.float32)
-    for b in range(out.shape[0]):
-        i0, i1 = b * UNROLL, min((b + 1) * UNROLL, n)
-        if i0 >= n:
-            out[b] = [0, 0, 0, -1.0]
-            continue
-        cs = np.asarray(centers[i0:i1], np.float64)
-        rs = np.asarray(radii[i0:i1], np.float64)
-        lo = (cs - rs[:, None]).min(axis=0)
-        hi = (cs + rs[:, None]).max(axis=0)
-        c = (lo + hi) * 0.5
-        r = float(np.max(np.linalg.norm(cs - c, axis=-1) + rs))
-        out[b] = [c[0], c[1], c[2], r * 1.0001 + 1e-6]   # conservative pad
-    return out
 
 
 @kprof.spanned("kytpu::tables.pack")
@@ -228,12 +200,12 @@ def extract_tables(scene):
         rows = np.asarray(rows, np.int32)
         if len(bounds) > 1:
             centers = np.asarray([c for c, _ in bounds], np.float64)
-            order = np.argsort(np.asarray(_morton3(centers, lo, hi)),
+            order = np.argsort(np.asarray(morton3(centers, lo, hi)),
                                kind="stable")
             geo = geo[order]
             rows = rows[order]
             bounds = [bounds[i] for i in order]
-        bnp = _block_bounds([c for c, _ in bounds], [r for _, r in bounds])
+        bnp = block_bounds([c for c, _ in bounds], [r for _, r in bounds])
         return _pad_rows(geo), _pad_rows(rows), bnp
 
     tables = {
@@ -253,20 +225,6 @@ def extract_tables(scene):
     return static, tables
 
 
-def table_route(scene):
-    """kytpu's routing rule for render(engine="cuda") and make_train_step:
-    past `kwf.TABLE_ROUTE_SURFACES` surfaces, `extract_tables(scene)` where
-    the table kernels K5-K8 take the scene; else None, the baked kernels
-    K1-K4 (which take any surface count). Only the tables' refusal is
-    caught."""
-    if int(scene.mat_kind.shape[0]) <= kwf.TABLE_ROUTE_SURFACES:
-        return None
-    try:
-        return extract_tables(scene)
-    except NotImplementedError:
-        return None
-
-
 def layout_of(static, cfg: kwf.KernelConfig):
     """`bigres_layout` of a scene's static dict: the environment planes are
     there iff one of its lights is the environment, the texel planes iff a
@@ -274,7 +232,7 @@ def layout_of(static, cfg: kwf.KernelConfig):
     return bigres_layout(cfg, len(static["lights"]),
                          any(lt["kind"] == klights.ENV
                              for lt in static["lights"]),
-                         kwf._has_img(static))
+                         ktab.has_img(static))
 
 
 def bigres_layout(cfg: kwf.KernelConfig, n_lights: int, has_env: bool,
@@ -315,71 +273,12 @@ def bigres_layout(cfg: kwf.KernelConfig, n_lights: int, has_env: bool,
     return {t: i for i, t in enumerate(tags)}, len(tags)
 
 
-# csrc/bigscene_fwd.cu's cull pad: a block's bounding radius grows by
-# CULL_PAD of its centre's and radius's size, and each lane adds CULL_PAD
-# of its ray origin's size (`cull_slack_plain`)
-CULL_PAD = 2.0 ** -12
-# blocks a superblock of K1's, K2's and K4's cull (SUPER_BLOCKS in
-# csrc/megakernel.cuh)
-SUPER = 8
 # children of a node of K5's, K6's and K8's tree over the blocks
 # (TREE_ARITY in csrc/bigscene_fwd.cu)
 ARITY = 4
 # blocks a lane of their walk holds pending while it steps on (LEAF_BUF in
 # csrc/bigscene_fwd.cu)
 LEAF_BUF = 4
-
-
-def _padded(c, r) -> np.ndarray:
-    """(n, 4) float32 [c R] of float64 centres and radii, R = r + CULL_PAD
-    * (|cx| + |cy| + |cz| + r) rounded up to a float32."""
-    r = r + CULL_PAD * (np.abs(c).sum(-1) + r)
-    r32 = r.astype(np.float32)
-    r32 = np.where(r32 < r, np.nextafter(r32, np.float32(np.inf)), r32)
-    return np.concatenate([c.astype(np.float32), r32[:, None]], -1)
-
-
-def _group(pb, k: int) -> np.ndarray:
-    """(ceil(n / k), 4) float32 padded spheres, each around k consecutive
-    padded spheres of pb (n, 4) and holding them whole: the centre of their
-    float64 box, the radius to the farthest one's far side, then
-    `_padded`."""
-    out = []
-    for s0 in range(0, len(pb), k):
-        g = pb[s0:s0 + k].astype(np.float64)
-        lo = (g[:, :3] - g[:, 3:]).min(0)
-        hi = (g[:, :3] + g[:, 3:]).max(0)
-        c = (lo + hi) * 0.5
-        r = np.max(np.linalg.norm(g[:, :3] - c, axis=-1) + g[:, 3])
-        out.append(_padded(c[None], np.array([r])))
-    return np.concatenate(out + [np.zeros((0, 4), np.float32)])
-
-
-def cull_bounds(tables) -> np.ndarray:
-    """The kernels' cull bounds of `extract_tables`' tables, one (blocks +
-    superblocks, 4) float32 array [cx cy cz R]: each class's 8-row block
-    bounds (kytpu's `_block_bounds`, r * 1.0001 + 1e-6), tri | rect | disk
-    | sphere, then each class's superblock bounds, a sphere around SUPER
-    consecutive block bounds (`_group`). K1, K2 and K4 read them past 64
-    surfaces (`kwf.cull_tables`); K5, K6 and K8 read the blocks under a
-    tree (`tree_bounds`).
-
-    Each R adds CULL_PAD * (|cx| + |cy| + |cz| + r) to r and is rounded up
-    to a float32. Why that is enough: a row test accepts a point off its
-    surface only by the rounding of a few dozen float32 operations on the
-    ray's origin, the row's constants and t |d|, each at most |o| + |c| + r
-    in size (a hit inside a block is no farther than that from the origin);
-    the block test (`block_meets_plain`) rounds as much again. That is some
-    tens of ulps of |o| + |c| + r. CULL_PAD, 2^-12, is 2^11 ulps of that
-    size, the bound's share here and the origin's added by each lane: at
-    the spheres' |x|, |z| <= 35.2 it is about 0.02, a few percent of a
-    block's radius, so the pad costs little cull. A superblock's sphere
-    holds its blocks' padded spheres whole (float64, then the same pad)."""
-    blocks = [_padded(b[:, :3], b[:, 3]) for b in (
-        np.asarray(tables[k][2], np.float64).reshape(-1, 4)
-        for k in CLASSES)]
-    supers = [_group(pb, SUPER) for pb in blocks]
-    return np.concatenate(blocks + supers + [np.zeros((0, 4), np.float32)])
 
 
 def tree_bounds(tables) -> tuple:
@@ -389,23 +288,23 @@ def tree_bounds(tables) -> tuple:
     sphere, laid out depth first.
 
     A class's tree is the implicit ARITY-ary tree over its consecutive
-    blocks: above `cull_bounds`' padded block bounds, node i of a level
-    holds nodes A i .. A i + A - 1 of the level below, up to one root.
-    Each node's sphere holds its children's padded spheres whole (`_group`:
-    float64, then the pad of `cull_bounds`), so a ray that can meet a row
-    meets every node above its block. The nodes are listed depth first,
-    children in table order, so the blocks come in table order; an entry's
-    skip is the entry after its subtree (for a block, the next entry), and
-    its block is the block's index in its class, or -1 above the blocks. A
-    walk that goes on to entry + 1 where a ray meets an entry and to its
-    skip where it does not visits the class's rows in table order
-    (csrc/bigscene_fwd.cu `walk`)."""
+    blocks: above the padded block bounds (`padded`, as `kwf.cull_bounds`
+    pads them), node i of a level holds nodes A i .. A i + A - 1 of the
+    level below, up to one root. Each node's sphere holds its children's
+    padded spheres whole (`group`: float64, then the same pad), so a ray
+    that can meet a row meets every node above its block. The nodes are
+    listed depth first, children in table order, so the blocks come in
+    table order; an entry's skip is the entry after its subtree (for a
+    block, the next entry), and its block is the block's index in its
+    class, or -1 above the blocks. A walk that goes on to entry + 1 where a
+    ray meets an entry and to its skip where it does not visits the class's
+    rows in table order (csrc/bigscene_fwd.cu `walk`)."""
     bnd, links = [], []
     for k in CLASSES:
         b = np.asarray(tables[k][2], np.float64).reshape(-1, 4)
-        levels = [_padded(b[:, :3], b[:, 3])]
+        levels = [padded(b[:, :3], b[:, 3])]
         while len(levels[-1]) > 1:
-            levels.append(_group(levels[-1], ARITY))
+            levels.append(group(levels[-1], ARITY))
 
         def emit(lv, i):
             at = len(bnd)
@@ -429,7 +328,7 @@ def cull_slack_plain(o: V3, d: V3):
     |d|^2 or its inverse is not finite or |d|^2 is 0."""
     dd = d.dot(d)
     inv = km.div(1.0, dd)
-    s = kwf._f32(CULL_PAD) * ((torch.abs(o.x) + torch.abs(o.y))
+    s = ktab.f32(CULL_PAD) * ((torch.abs(o.x) + torch.abs(o.y))
                              + torch.abs(o.z))
     ok = torch.isfinite(s) & torch.isfinite(dd) & torch.isfinite(inv) \
         & (dd > 0)
@@ -499,8 +398,8 @@ class BigTables:
 
     @kprof.spanned("kytpu::tables.colors")
     def with_colors(self, scene: kscene.Scene) -> "BigTables":
-        return dataclasses.replace(self, **kwf._color_tables(scene),
-                                   **kwf._texture_tables(scene))
+        return dataclasses.replace(self, **ktab.color_tables(scene),
+                                   **ktab.texture_tables(scene))
 
     def cls(self, name: str):
         """(geometry (R, cols), global rows (R,)) of one class."""
@@ -545,17 +444,15 @@ def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig,
                      f=t(np.concatenate([hf, lf, tf])),
                      i=t(np.concatenate([hi, li, ti])), mat_i=t(mat_i),
                      tex_rec=t(tex_rec), mat_f=t(mat_f), bnd=t(bnd),
-                     links=t(links), **kwf._color_tables(scene),
-                     **kwf._texture_tables(scene))
+                     links=t(links), **ktab.color_tables(scene),
+                     **ktab.texture_tables(scene))
 
 
 # ---------------------------------------------------------------------------
 # plain version: the sweeps, all rows of a class at once
 # ---------------------------------------------------------------------------
 
-_EPS = kwf._EPS
-_OFF = kwf._OFF
-_OFF2 = kwf._f32(km.RAY_OFFSET * km.RAY_OFFSET)
+_OFF2 = ktab.f32(km.RAY_OFFSET * km.RAY_OFFSET)
 
 
 def _chunk(dev: torch.device) -> int:
@@ -590,23 +487,23 @@ def _closest_class(name, G, o: V3, d: V3):
         discr = r * r - perp.length_squared()
         cc = oc.length_squared() - r * r
         sq = km.safe_sqrt(discr)
-        q = neg_b + kwf._where(neg_b >= 0.0, 1.0, -1.0) * sq
+        q = neg_b + where(neg_b >= 0.0, 1.0, -1.0) * sq
         tq = cc / q
         t1 = torch.minimum(q, tq)
         t2 = torch.maximum(q, tq)
-        t1_ok = t1 > _EPS
+        t1_ok = t1 > EPS
         t = torch.where(t1_ok, t1, t2)
-        ok = (discr >= 0) & (r > 0) & (t1_ok | (t2 > _EPS))
+        ok = (discr >= 0) & (r > 0) & (t1_ok | (t2 > EPS))
     elif name == "disk":
         t = (G[:, DG_CN] - _tdot(G, DG_NX, o)) / _tdot(G, DG_NX, d)
         hp = o + d * t
         rel = V3(hp.x - G[:, DG_PX], hp.y - G[:, DG_PY], hp.z - G[:, DG_PZ])
-        ok = (rel.length_squared() <= G[:, DG_R2]) & (t > _EPS)
+        ok = (rel.length_squared() <= G[:, DG_R2]) & (t > EPS)
     else:
         t = (G[:, PG_CN] - _tdot(G, PG_NX, o)) / _tdot(G, PG_NX, d)
         a = (_tdot(G, PG_F1X, o) - G[:, PG_K1]) + t * _tdot(G, PG_F1X, d)
         b = (_tdot(G, PG_F2X, o) - G[:, PG_K2]) + t * _tdot(G, PG_F2X, d)
-        ok = _planar_inside(a, b, name == "tri") & (t > _EPS)
+        ok = _planar_inside(a, b, name == "tri") & (t > EPS)
     return torch.where(ok, t, torch.full_like(t, math.inf))
 
 
@@ -689,7 +586,7 @@ def _occluded_class(name, G, rows, hp: V3, ns: V3, rays, own):
             neg_b = vc.dot(wi) - se * nd
             oc2 = vc2 - 2.0 * se * vcn + _OFF2
             discr = r * r - oc2 + neg_b * neg_b
-            out.append(kwf._sphere_occludes(neg_b, discr, tmax) & (r > 0))
+            out.append(sphere_occludes(neg_b, discr, tmax) & (r > 0))
     elif name == "disk":
         num_h = G[:, DG_CN] - _tdot(G, DG_NX, hp)
         num_n = _tdot(G, DG_NX, ns)
@@ -699,7 +596,7 @@ def _occluded_class(name, G, rows, hp: V3, ns: V3, rays, own):
             rel = o_k + wi * t
             rel = V3(rel.x - G[:, DG_PX], rel.y - G[:, DG_PY],
                      rel.z - G[:, DG_PZ])
-            out.append((rel.length_squared() <= G[:, DG_R2]) & (t > _EPS)
+            out.append((rel.length_squared() <= G[:, DG_R2]) & (t > EPS)
                        & (t < tmax))
     else:
         num_h = G[:, PG_CN] - _tdot(G, PG_NX, hp)
@@ -712,7 +609,7 @@ def _occluded_class(name, G, rows, hp: V3, ns: V3, rays, own):
             t = (num_h - se * num_n) / _tdot(G, PG_NX, wi)
             a = (a_h + se * a_n) + t * _tdot(G, PG_F1X, wi)
             b = (b_h + se * b_n) + t * _tdot(G, PG_F2X, wi)
-            out.append(_planar_inside(a, b, name == "tri") & (t > _EPS)
+            out.append(_planar_inside(a, b, name == "tri") & (t > EPS)
                        & (t < tmax))
     return [(h & (rows != own[k]) if own[k] is not None else h).any(dim=1)
             for k, h in enumerate(out)]
@@ -737,7 +634,7 @@ def _occluded(bt: BigTables, hp: V3, ns: V3, rays, wants, robust: bool,
     if not len(idx) or not K:
         return hits
     nds = [ns.dot(wi) for wi, _ in rays]
-    ses = [kwf._where(nd < 0.0, -_OFF, _OFF) for nd in nds]
+    ses = [where(nd < 0.0, -OFF, OFF) for nd in nds]
     tms = [tm - se * nd if robust else tm
            for (_, tm), se, nd in zip(rays, ses, nds)]
     own = own if robust else [None] * K
@@ -824,14 +721,14 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
                   if lt["kind"] == klights.ENV), None)
     robust = cfg.shadow == "robust"
     # per light, the global row of its first emitting surface, or None
-    own = [kwf._light_rows(static).get(i) for i in range(L)]
+    own = [ktab.light_rows(static).get(i) for i in range(L)]
     texp = cfg.trainable_exponent
     residual, replay = mode == "residual", mode == "replay"
-    textured, has_img = bool(static["textures"]), kwf._has_img(static)
+    textured, has_img = bool(static["textures"]), ktab.has_img(static)
 
     n = o.shape[0]
     dev = o.device
-    rng, _, _ = kwf._rng_keys(cfg, n, seed, si, pix, dev)
+    rng, _, _ = rng_keys(cfg, n, seed, si, pix, dev)
     kind_tab = tables.mat_i[:, 0].long()
     li_tab = tables.mat_i[:, 1].long()
     eta_tab, dprob_tab, sprob_tab = (tables.mat_f[:, k] for k in range(3))
@@ -866,26 +763,26 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
         acc_env = v3_full(o.x, 0.0, 0.0, 0.0)
         acc_le = [v3_full(o.x, 0.0, 0.0, 0.0) for _ in range(L)]
         dplanes, tags = [], []
-        T = kwf._n_tex(static)
+        T = ktab.n_tex(static)
         acc_ta, acc_tb = o.x.new_zeros((n, T, 3)), o.x.new_zeros((n, T, 3))
         entries = [] if has_img else None
 
     def where3(c, v: V3, other=0.0) -> V3:
-        return V3(*(kwf._where(c, a, other) for a in (v.x, v.y, v.z)))
+        return V3(*(where(c, a, other) for a in (v.x, v.y, v.z)))
 
     for bounce in range(cfg.max_depth + 1):
         # dead lanes are not swept: they get a miss, so every term and cache
         # entry of theirs is 0, as in K5/K6, whose dead lanes leave the loop
         t, cls, trow = _closest_hit(tables, o, d, alive)
         valid, grow, nrm = _hit_record(tables, o, d, t, cls, trow)
-        t_safe = kwf._where(valid, t, 1.0)
+        t_safe = where(valid, t, 1.0)
         hp = o + d * t_safe
         wo = -d
         facing = nrm.dot(wo) > 0.0
         emit_mask = valid & facing
         emi = row3(grow, tables.emission)
-        le = V3(*(kwf._where(emit_mask, c, 0.0) for c in (emi.x, emi.y,
-                                                          emi.z)))
+        le = V3(*(where(emit_mask, c, 0.0) for c in (emi.x, emi.y,
+                                                     emi.z)))
         if bounce == 0:
             full = True
         elif has_delta:
@@ -902,22 +799,22 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
                     pdf_l_hit = torch.where(li_idx == i, phits_prev[i],
                                             pdf_l_hit)
             else:
-                pdf_l_hit = kwf._hit_light_pdf(lights, li_idx, o, d, t_safe,
-                                               nrm)
+                pdf_l_hit = hit_light_pdf(lights, li_idx, o, d, t_safe,
+                                          nrm)
             w_emit = km.safe_div(pdf_prev, pdf_prev + pdf_l_hit)
             if full is not False:
-                w_emit = kwf._where(full, 1.0, w_emit)
-        wb = kwf._where(alive, w_emit, 0.0)
+                w_emit = where(full, 1.0, w_emit)
+        wb = where(alive, w_emit, 0.0)
         e_term = le * wb
         big_l = big_l + beta * e_term
         if replay:
             # the hit emission's adjoint, and the bounce's row tag
             gb = g * beta
-            de_b = gb * kwf._where(emit_mask, wb, 0.0)
-            tags.append(kwf._where(valid, (grow + 1).to(torch.int32),
-                                   0).to(torch.int32))
+            de_b = gb * where(emit_mask, wb, 0.0)
+            tags.append(where(valid, (grow + 1).to(torch.int32),
+                              0).to(torch.int32))
         if residual:
-            planes[res_ix[("wb", bounce)]] = kwf._where(emit_mask, wb, 0.0)
+            planes[res_ix[("wb", bounce)]] = where(emit_mask, wb, 0.0)
             for c, v in enumerate((emi.x, emi.y, emi.z)):
                 planes[res_ix[("emi", bounce, c)]] = v
 
@@ -927,10 +824,10 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
             if full is True:
                 w_env = 1.0
             else:
-                w_env = km.safe_div(pdf_prev, pdf_prev + kwf._env_pdf(d))
+                w_env = km.safe_div(pdf_prev, pdf_prev + env_pdf(d))
                 if full is not False:
-                    w_env = kwf._where(full, 1.0, w_env)
-            wenv = kwf._where(alive & ~valid, w_env, 0.0)
+                    w_env = where(full, 1.0, w_env)
+            wenv = where(alive & ~valid, w_env, 0.0)
             big_l = big_l + beta * env_v * wenv
             e_term = e_term + env_v * wenv
             if residual:
@@ -942,16 +839,16 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
             if replay:
                 dplanes.extend([de_b.x, de_b.y, de_b.z])
             if residual:
-                ints[bounce] = kwf._where(valid, (grow + 1).to(torch.int32),
-                                          0).to(torch.int32)
+                ints[bounce] = where(valid, (grow + 1).to(torch.int32),
+                                     0).to(torch.int32)
             break
         cont = alive & valid
 
         diffuse = row3(grow, tables.diffuse)
         if textured:
             # a textured row's diffuse is its texture's value at the hit
-            diffuse, tex_hits = kwf._textures_at(static, tables, grow, hp,
-                                                 diffuse)
+            diffuse, tex_hits = textures_at(static, tables, grow, hp,
+                                            diffuse)
             tex_hits = [(rec, onrow & alive, *rest)
                         for rec, onrow, *rest in tex_hits]
         specular = row3(grow, tables.specular)
@@ -967,16 +864,16 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
             s_prob = row_of(grow, sprob_tab, 0.0)
             d_prob = row_of(grow, dprob_tab, 0.0)
             pick_spec = u_lobe < s_prob
-            plastic_kind = kwf._where(
+            plastic_kind = where(
                 pick_spec, torch.full_like(mk, kbsdf.PHONG), kbsdf.LAMBERT)
             inv_sp = km.div(1.0, torch.clamp_min(s_prob, 1e-12))
             inv_dp = km.div(1.0, torch.clamp_min(d_prob, 1e-12))
             plastic_col = (specular * inv_sp).where(pick_spec,
                                                     diffuse * inv_dp)
             lobe_is_phong = is_plastic & pick_spec
-            lobe_scale = kwf._where(is_plastic,
-                                    torch.where(pick_spec, inv_sp, inv_dp),
-                                    1.0)
+            lobe_scale = where(is_plastic,
+                               torch.where(pick_spec, inv_sp, inv_dp),
+                               1.0)
         else:
             plastic_kind = torch.full_like(mk, kbsdf.LAMBERT)
             plastic_col = diffuse
@@ -1004,9 +901,9 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
         azim = None
         if any(lt["kind"] in (klights.AREA_SPHERE, klights.ENV)
                for lt in lights):
-            cphi_s = torch.cos(kwf._TWO_PI * u2)
-            azim = (cphi_s, kwf._sin_from_phi_cos(cphi_s, u2))
-        smps = [kwf._light_sample(lt, world_radius, hp, nrm, u1, u2, azim)
+            cphi_s = torch.cos(TWO_PI * u2)
+            azim = (cphi_s, sin_from_phi_cos(cphi_s, u2))
+        smps = [light_sample(lt, world_radius, hp, nrm, u1, u2, azim)
                 for lt in lights]
         nds = [nrm.dot(smp[0]) for smp in smps]
         if all(smp[4] is not None for smp in smps):
@@ -1016,7 +913,7 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
             wi, pdf_l, li_s, _dist, _ = smps[i]
             cos_aw = wr_w.dot(wi) if wr_w is not None \
                 else torch.zeros_like(o.x)
-            pdf_b, f_unit_e = kwf._bsdf_eval_pdf_dots(
+            pdf_b, f_unit_e = bsdf_eval_pdf_dots(
                 kind, exponent, wo_l.z, nds[i], cos_aw, eval_lobes, None)
             ucos = f_unit_e * torch.abs(nds[i])
             if klights.is_delta_light(lt["kind"]):
@@ -1031,14 +928,14 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
             addc_diff = addc_spec = V3(zero, zero, zero)
             addx = zero
         occs = _occluded(tables, hp, nrm,
-                         [(smp[0], smp[3] - kwf._SHADOW_EPS) for smp in smps],
+                         [(smp[0], smp[3] - SHADOW_EPS) for smp in smps],
                          [ok for ok, *_ in terms], robust, own)
         ld = v3_full(o.x, 0.0, 0.0, 0.0)
         for i, (ok, w, ucos, cos_aw) in enumerate(terms):
             li_s = smps[i][2]
             emit_l = V3(tables.light_emit[i, 0], tables.light_emit[i, 1],
                         tables.light_emit[i, 2])
-            okf = kwf._where(ok & ~occs[i], w, 0.0)
+            okf = where(ok & ~occs[i], w, 0.0)
             bp = li_s * ucos * okf * lobe_scale
             ld = ld + col_nee * emit_l * bp
             if replay:
@@ -1047,22 +944,22 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
                 addc_spec = addc_spec + where3(lobe_is_phong, addc)
                 addc_diff = addc_diff + where3(~lobe_is_phong, addc)
                 if texp:
-                    addx = addx + kwf._where(
+                    addx = addx + where(
                         lobe_is_phong,
-                        addc.dot(col_nee) * kwf._kappa_dot(exponent, cos_aw),
+                        addc.dot(col_nee) * kappa_dot(exponent, cos_aw),
                         0.0)
             if residual:
                 planes[res_ix[("B", bounce, i)]] = bp
                 if texp:
-                    planes[res_ix[("Bk", bounce, i)]] = kwf._where(
-                        lobe_is_phong, bp * kwf._kappa_dot(exponent, cos_aw),
+                    planes[res_ix[("Bk", bounce, i)]] = where(
+                        lobe_is_phong, bp * kappa_dot(exponent, cos_aw),
                         0.0)
         big_l = big_l + beta * ld
         e_term = e_term + ld
 
         # extension sample
         u1, u2 = rng.uniform2()
-        f_s, wi_l, pdf_s, delta_s, f_unit_s, refract = kwf._bsdf_sample(
+        f_s, wi_l, pdf_s, delta_s, f_unit_s, refract = bsdf_sample(
             kind, color, diffuse, eta, exponent, wo_l, u1, u2, lobes, None)
         wi_w = to_world(s_f, t_f, n_f, wi_l)
         ok = cont & ~f_s.is_black() & (pdf_s != 0.0)
@@ -1073,7 +970,7 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
         scale = 1.0
         if bounce > cfg.rr_start:
             u_rr = rng.uniform()
-            q = torch.clamp_min(1.0 - beta_new.max_component(), kwf._f32(0.05))
+            q = torch.clamp_min(1.0 - beta_new.max_component(), ktab.f32(0.05))
             kill = u_rr < q
             scale = km.safe_div(1.0, 1.0 - q)
             beta_new = beta_new * scale
@@ -1088,17 +985,17 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
                 (r_tail.x, e_term.x, t_eff.x), (r_tail.y, e_term.y, t_eff.y),
                 (r_tail.z, e_term.z, t_eff.z)))))
             t_unit = f_unit_s * km.safe_div(torch.abs(wi_l.z), pdf_s) * scale
-            addt = gb * r_next * kwf._where(alive_n, t_unit * lobe_scale, 0.0)
+            addt = gb * r_next * where(alive_n, t_unit * lobe_scale, 0.0)
             addc_spec = addc_spec + where3(to_spec, addt)
             addc_diff = addc_diff + where3(~to_spec, addt)
             if texp:
-                addx = addx + kwf._where(
+                addx = addx + where(
                     lobe_is_phong,
-                    addt.dot(col_nee) * kwf._kappa(exponent, wo_l, wi_l), 0.0)
+                    addt.dot(col_nee) * kappa(exponent, wo_l, wi_l), 0.0)
             if textured:
                 # a textured row's diffuse adjoint goes to its texture
-                addc_diff = V3(*kwf._route_textures(
-                    tex_hits, kwf._st(addc_diff), acc_ta, acc_tb,
+                addc_diff = V3(*route_textures(
+                    tex_hits, st(addc_diff), acc_ta, acc_tb,
                     entries).unbind(1))
             dplanes.extend([addc_diff.x, addc_diff.y, addc_diff.z,
                             addc_spec.x, addc_spec.y, addc_spec.z,
@@ -1106,17 +1003,17 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
             r_tail = r_next
         if residual:
             t_unit = f_unit_s * km.safe_div(torch.abs(wi_l.z), pdf_s) * scale
-            tu_plane = kwf._where(alive_n, t_unit * lobe_scale, 0.0)
+            tu_plane = where(alive_n, t_unit * lobe_scale, 0.0)
             planes[res_ix[("tu", bounce)]] = tu_plane
             if texp:
-                planes[res_ix[("tuk", bounce)]] = kwf._where(
-                    lobe_is_phong, tu_plane * kwf._kappa(exponent, wo_l, wi_l),
+                planes[res_ix[("tuk", bounce)]] = where(
+                    lobe_is_phong, tu_plane * kappa(exponent, wo_l, wi_l),
                     0.0)
             for c, v in enumerate((diffuse.x, diffuse.y, diffuse.z)):
                 planes[res_ix[("dif", bounce, c)]] = v
             for c, v in enumerate((specular.x, specular.y, specular.z)):
                 planes[res_ix[("spc", bounce, c)]] = v
-            packed = (kwf._where(valid, (grow + 1).to(torch.int32), 0)
+            packed = (where(valid, (grow + 1).to(torch.int32), 0)
                       + lobe_is_phong.to(torch.int32) * RESI_PHONG
                       + to_spec.to(torch.int32) * RESI_TO_SPEC)
             if has_img:
@@ -1132,7 +1029,7 @@ def _trace_plain(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
                 planes[res_ix[("tx", bounce)]] = tx
                 planes[res_ix[("ty", bounce)]] = ty
             ints[bounce] = packed.to(torch.int32)
-        o = kwf._offset_origin(hp, nrm, wi_w).where(alive_n, o)
+        o = offset_origin(hp, nrm, wi_w).where(alive_n, o)
         d = wi_w.where(alive_n, d)
         beta = beta_new.where(alive_n, beta)
         if has_delta:
@@ -1198,9 +1095,9 @@ def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
     acc_le = [V3(zero, zero, zero) for _ in range(L)]
     env = tables.env
     dplanes = []
-    textured, has_img = bool(static["textures"]), kwf._has_img(static)
+    textured, has_img = bool(static["textures"]), ktab.has_img(static)
     n = g.x.shape[0]
-    T = kwf._n_tex(static)
+    T = ktab.n_tex(static)
     acc_ta, acc_tb = g.x.new_zeros((n, T, 3)), g.x.new_zeros((n, T, 3))
     entries = [] if has_img else None
     for b in range(B + 1):
@@ -1231,9 +1128,9 @@ def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
             e_term = e_term + col_nee * emit_l * bp
             acc_le[i] = acc_le[i] + gb * col_nee * bp
             addc = gb * emit_l * bp
-            addc_spec = addc_spec + V3(*(kwf._where(phong, c, 0.0) for c in (
+            addc_spec = addc_spec + V3(*(where(phong, c, 0.0) for c in (
                 addc.x, addc.y, addc.z)))
-            addc_diff = addc_diff + V3(*(kwf._where(phong, 0.0, c) for c in (
+            addc_diff = addc_diff + V3(*(where(phong, 0.0, c) for c in (
                 addc.x, addc.y, addc.z)))
             if texp:
                 addx = addx + (gb.x * emit_l.x * col_nee.x
@@ -1246,9 +1143,9 @@ def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
                     km.safe_div(r_tail.y - e_term.y, t_eff.y),
                     km.safe_div(r_tail.z - e_term.z, t_eff.z))
         addt = gb * r_next * tu
-        addc_spec = addc_spec + V3(*(kwf._where(spec_t, c, 0.0) for c in (
+        addc_spec = addc_spec + V3(*(where(spec_t, c, 0.0) for c in (
             addt.x, addt.y, addt.z)))
-        addc_diff = addc_diff + V3(*(kwf._where(spec_t, 0.0, c) for c in (
+        addc_diff = addc_diff + V3(*(where(spec_t, 0.0, c) for c in (
             addt.x, addt.y, addt.z)))
         if texp:
             # tuk is 0 off phong lanes, whose extension read the specular
@@ -1262,12 +1159,12 @@ def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
             for rec in static["textures"]:
                 onrow = row1 == rec["row"] + 1
                 if rec["kind"] == "image":
-                    hits.append((rec, onrow, None, None, kwf._image_taps(
+                    hits.append((rec, onrow, None, None, image_taps(
                         rec, rf(("tx", b)), rf(("ty", b)))))
                 else:
                     hits.append((rec, onrow, even, None, None))
-            addc_diff = V3(*kwf._route_textures(
-                hits, kwf._st(addc_diff), acc_ta, acc_tb, entries).unbind(1))
+            addc_diff = V3(*route_textures(
+                hits, st(addc_diff), acc_ta, acc_tb, entries).unbind(1))
         dplanes.extend([addc_diff.x, addc_diff.y, addc_diff.z,
                         addc_spec.x, addc_spec.y, addc_spec.z,
                         de_b.x, de_b.y, de_b.z] + ([addx] if texp else []))
@@ -1282,14 +1179,10 @@ def bwd_lanes_plain(tables: BigTables, cfg: kwf.KernelConfig, g, big_l,
 
 
 def sort_rows(resi: torch.Tensor, m_rows: int):
-    """`kwf.sort_tags` of the row tags in bits 0-19 of resi (K6's int cache,
+    """`sort_tags` of the row tags in bits 0-19 of resi (K6's int cache,
     or K8's tag planes): row m's entries are perm[starts[m]:starts[m + 1]],
     row 0 being the misses and dead lanes."""
-    return kwf.sort_tags(resi, m_rows, RESI_ROW_MASK)
-
-
-# the sums by row of K7 and K8 (and of K3's and K4's texel entries)
-segment_sums_plain = kwf.segment_sums_plain
+    return kts.sort_tags(resi, m_rows, RESI_ROW_MASK)
 
 
 def _assemble(tables: BigTables, cfg: kwf.KernelConfig, seg, lane_sums):
@@ -1334,8 +1227,8 @@ def sums_plain(tables: BigTables, cfg: kwf.KernelConfig, dout, acc, tags,
     (`kwf.texel_sums_plain`) -> [, dti]."""
     M = len(tables.static["mats"]["kind"])
     perm, starts = sort_rows(tags, M)
-    seg = segment_sums_plain(dout, perm, starts, dout.shape[1], cfg.max_depth,
-                             _per_bounce(cfg))
+    seg = kts.segment_sums_plain(dout, perm, starts, dout.shape[1],
+                                 cfg.max_depth, _per_bounce(cfg))
     grads = _assemble(tables, cfg, seg, kwf.sum_lanes(acc))
     if entries is None:
         return grads
@@ -1355,23 +1248,15 @@ _TABLES = ("f", "i", "geo", "rows", "mat_i", "mat_f", "diffuse", "specular",
 
 
 def _check_tables(tables: BigTables, dev):
-    for name in _TABLES:
-        t = getattr(tables, name)
-        want = (torch.int32 if name in ("i", "rows", "mat_i", "tex_rec",
-                                        "links")
-                else torch.float32)
-        if t.device != dev:
-            raise ValueError(f"table {name} is on {t.device}, the lanes on "
-                             f"{dev}")
-        if not t.is_contiguous() or t.dtype != want:
-            raise ValueError(f"table {name} must be contiguous {want}")
+    check_tables(tables, dev, _TABLES, ("i", "rows", "mat_i", "tex_rec",
+                                        "links"))
 
 
 def _n_cols(tables: BigTables) -> int:
     """K7's and K8's lane-summed columns: env | the lights' emission | dta |
     dtb."""
     static = tables.static
-    return 3 + 3 * len(static["lights"]) + 6 * kwf._n_tex(static)
+    return 3 + 3 * len(static["lights"]) + 6 * ktab.n_tex(static)
 
 
 def _wide(tables: BigTables, k: int, nb: int, dev):
@@ -1403,7 +1288,7 @@ def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
     from kytpu_torch.kernels import build
 
     kwf.check_config(cfg)
-    o, d, si, pix = kwf._lanes_checked(o, d, si, pix, cfg)
+    o, d, si, pix = lanes_checked(o, d, si, pix, cfg)
     _check_tables(tables, o.device)
     n, dev = o.shape[0], o.device
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -1415,15 +1300,15 @@ def _launch(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si, pix,
         resi = torch.empty((cfg.max_depth + 1, n), dtype=torch.int32,
                            device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kwf._run(build.load().kytpu_bigscene_fwd, "bigscene_fwd",
-             "k6" if residual else "k5", dev,
-             *[getattr(tables, nm).data_ptr() for nm in _TABLES],
-             o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), out.data_ptr(),
-             ptr(resf), ptr(resi), n, *tables.counts,
-             len(tables.static["mats"]["kind"]), *kwf._cfg_args(cfg, seed),
-             int(cfg.trainable_exponent), int(residual), _textured(tables),
-             *_cull_args(tables, cfg),
-             ptr(kprof.row_counter("k6" if residual else "k5", dev)))
+    run(build.load().kytpu_bigscene_fwd, "bigscene_fwd",
+        "k6" if residual else "k5", dev,
+        *[getattr(tables, nm).data_ptr() for nm in _TABLES],
+        o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), out.data_ptr(),
+        ptr(resf), ptr(resi), n, *tables.counts,
+        len(tables.static["mats"]["kind"]), *cfg_args(cfg, seed),
+        int(cfg.trainable_exponent), int(residual), _textured(tables),
+        *_cull_args(tables, cfg),
+        ptr(kprof.row_counter("k6" if residual else "k5", dev)))
     return (out, resf, resi) if residual else out
 
 
@@ -1447,7 +1332,7 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
             ("L", big_l, (n, 3), torch.float32),
             ("resf", resf, (res_n, n), torch.float32),
             ("resi", resi, (B + 1, n), torch.int32)):
-        kwf._check_lane_tensor(name, t, shape, dt, dev)
+        check_lane_tensor(name, t, shape, dt, dev)
     _check_tables(tables, dev)
     g, big_l = g.contiguous(), big_l.contiguous()
     resf, resi = resf.contiguous(), resi.contiguous()
@@ -1457,16 +1342,16 @@ def _launch_bwd(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf,
     dout = torch.empty((PB * B + 3, n), dtype=torch.float32, device=dev)
     partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
     lane_sums = torch.empty((k,), dtype=torch.float32, device=dev)
-    tex = kwf._texel_outputs(tables, cfg, n, dev)
+    tex = texel_outputs(tables, cfg, n, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kwf._run(lib.kytpu_bigscene_bwd_res, "bigscene_bwd_res", "k7", dev,
-             tables.i.data_ptr(), tables.tex_rec.data_ptr(),
-             tables.light_emit.data_ptr(), tables.env.data_ptr(),
-             g.data_ptr(), big_l.data_ptr(), resf.data_ptr(),
-             resi.data_ptr(), dout.data_ptr(), partial.data_ptr(),
-             lane_sums.data_ptr(), *map(ptr, tex), n, L, int(has_env), B,
-             int(cfg.trainable_exponent), k, _textured(tables),
-             ptr(_wide(tables, k, nb, dev)))
+    run(lib.kytpu_bigscene_bwd_res, "bigscene_bwd_res", "k7", dev,
+        tables.i.data_ptr(), tables.tex_rec.data_ptr(),
+        tables.light_emit.data_ptr(), tables.env.data_ptr(),
+        g.data_ptr(), big_l.data_ptr(), resf.data_ptr(),
+        resi.data_ptr(), dout.data_ptr(), partial.data_ptr(),
+        lane_sums.data_ptr(), *map(ptr, tex), n, L, int(has_env), B,
+        int(cfg.trainable_exponent), k, _textured(tables),
+        ptr(_wide(tables, k, nb, dev)))
     return _sums(tables, cfg, dout, resi, lane_sums, tex)
 
 
@@ -1474,19 +1359,19 @@ def _sums(tables: BigTables, cfg: kwf.KernelConfig, dout, tags, lane_sums,
           tex):
     """K7's and K8's sums on the card: the row tags (bits 0-19 of the int
     planes) sorted and the row-tagged planes summed by row
-    (`kwf.segment_sums`: csrc/tag_sums.cu's kernels) -> (dd, ds, de,
+    (`segment_sums`: csrc/tag_sums.cu's kernels) -> (dd, ds, de,
     denv[, dexp][, dta, dtb]) with the lane sums (`_assemble`), and the
     texel entries tex (planes, tags) summed by texel on an image scene [,
     dti]."""
     static = tables.static
     M = len(static["mats"]["kind"])
-    grads = _assemble(tables, cfg, kwf.segment_sums(
+    grads = _assemble(tables, cfg, kts.segment_sums(
         dout, tags, M, cfg.max_depth, _per_bounce(cfg), RESI_ROW_MASK),
         lane_sums)
     if tex[1] is None:
         return grads
-    seg = kwf.segment_sums(*tex, static["n_texels"], tex[1].shape[0], 3)
-    return grads + (seg.reshape(kwf._texel_shape(static)),)
+    seg = kts.segment_sums(*tex, static["n_texels"], tex[1].shape[0], 3)
+    return grads + (seg.reshape(texel_shape(static)),)
 
 
 def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
@@ -1499,10 +1384,10 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
     from kytpu_torch.kernels import build
 
     kwf.check_config(cfg)
-    o, d, si, pix = kwf._lanes_checked(o, d, si, pix, cfg)
+    o, d, si, pix = lanes_checked(o, d, si, pix, cfg)
     n, dev = o.shape[0], o.device
-    kwf._check_lane_tensor("g", g, (n, 3), torch.float32, dev)
-    kwf._check_lane_tensor("L", big_l, (n, 3), torch.float32, dev)
+    check_lane_tensor("g", g, (n, 3), torch.float32, dev)
+    check_lane_tensor("L", big_l, (n, 3), torch.float32, dev)
     _check_tables(tables, dev)
     g, big_l = g.contiguous(), big_l.contiguous()
     lib = build.load()
@@ -1514,18 +1399,18 @@ def _launch_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed, si,
     tags = torch.empty((B + 1, n), dtype=torch.int32, device=dev)
     partial = torch.empty((nb, k), dtype=torch.float32, device=dev)
     lane_sums = torch.empty((k,), dtype=torch.float32, device=dev)
-    tex = kwf._texel_outputs(tables, cfg, n, dev)
+    tex = texel_outputs(tables, cfg, n, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kwf._run(lib.kytpu_bigscene_bwd_replay, "bigscene_bwd_replay", "k8",
-             dev, *[getattr(tables, nm).data_ptr() for nm in _TABLES],
-             o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), g.data_ptr(),
-             big_l.data_ptr(), dout.data_ptr(), tags.data_ptr(),
-             partial.data_ptr(), lane_sums.data_ptr(), *map(ptr, tex), n, k,
-             *tables.counts, len(tables.static["mats"]["kind"]),
-             *kwf._cfg_args(cfg, seed), int(cfg.trainable_exponent),
-             _textured(tables), *_cull_args(tables, cfg),
-             ptr(_wide(tables, k, nb, dev)),
-             ptr(kprof.row_counter("k8", dev)))
+    run(lib.kytpu_bigscene_bwd_replay, "bigscene_bwd_replay", "k8",
+        dev, *[getattr(tables, nm).data_ptr() for nm in _TABLES],
+        o.data_ptr(), d.data_ptr(), ptr(si), ptr(pix), g.data_ptr(),
+        big_l.data_ptr(), dout.data_ptr(), tags.data_ptr(),
+        partial.data_ptr(), lane_sums.data_ptr(), *map(ptr, tex), n, k,
+        *tables.counts, len(tables.static["mats"]["kind"]),
+        *cfg_args(cfg, seed), int(cfg.trainable_exponent),
+        _textured(tables), *_cull_args(tables, cfg),
+        ptr(_wide(tables, k, nb, dev)),
+        ptr(kprof.row_counter("k8", dev)))
     return _sums(tables, cfg, dout, tags, lane_sums, tex)
 
 
@@ -1535,7 +1420,7 @@ def trace_lanes(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int,
     returns): CUDA lanes launch the kernel or raise, CPU lanes run the
     plain version."""
     with kprof.kernel("k6" if residual else "k5"):
-        if kwf._on_card(o.device):
+        if on_card(o.device):
             return _launch(tables, cfg, o, d, seed, si, pix, residual)
         return trace_lanes_plain(tables, cfg, o, d, seed, si, pix, residual)
 
@@ -1544,7 +1429,7 @@ def bwd_res(tables: BigTables, cfg: kwf.KernelConfig, g, big_l, resf, resi):
     """K7 -> (dd, ds, de, denv[, dexp]): CUDA lanes launch the kernels or
     raise, CPU lanes run `bwd_res_plain`."""
     with kprof.kernel("k7"):
-        if kwf._on_card(g.device):
+        if on_card(g.device):
             return _launch_bwd(tables, cfg, g, big_l, resf, resi)
         return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
 
@@ -1556,7 +1441,7 @@ def bwd_replay(tables: BigTables, cfg: kwf.KernelConfig, o, d, seed: int, si,
     with K7's conventions: CUDA lanes launch the kernels or raise, CPU lanes
     run `bwd_replay_plain` and `sums_plain`."""
     with kprof.kernel("k8"):
-        if kwf._on_card(o.device):
+        if on_card(o.device):
             return _launch_replay(tables, cfg, o, d, seed, si, pix, g,
                                   big_l)
         return sums_plain(tables, cfg, *bwd_replay_plain(
@@ -1583,7 +1468,7 @@ def make_bigscene_tracer(scene: kscene.Scene,
     return trace
 
 
-class _BigDiffTables(kwf._DiffTables):
+class _BigDiffTables(kad.DiffTables):
     """The diff tracer's tables for the big-scene kernels: K5 or K6
     forward, K7 or K8 backward (looked up in this module at each call)."""
 
@@ -1625,12 +1510,9 @@ def make_bigscene_diff_tracer(scene: kscene.Scene,
     adjoint going to the texture. extracted: `extract_tables(scene)` where
     the caller has it."""
     cfg = cfg or kwf.KernelConfig()
-    fn = {"residual": kwf._ResidualTrace,
-          "replay": kwf._ReplayTrace}.get(backward)
-    if fn is None:
-        raise ValueError(f"unknown backward {backward!r}")
+    fn = kad.function_of(backward)
     kwf.check_config(cfg)
-    return kwf.diff_tracer(_BigDiffTables(scene, cfg, extracted), fn)
+    return kad.diff_tracer(_BigDiffTables(scene, cfg, extracted), fn)
 
 
 def render_bigscene(scene: kscene.Scene, spp: int = 16, seed: int = 1234,

@@ -20,22 +20,20 @@ import numpy as np
 import torch
 
 from kytpu_torch.core import rng as krng
+from kytpu_torch.kernels.launch import M32, on_card, run
 from kytpu_torch.scene import scene as kscene
 
 MODES = ("random", "hash")   # csrc/camera_rays.cu MODE_RANDOM, MODE_HASH
-_M32 = 0xFFFFFFFF
 
 
 def lane_rays(cam: kscene.Camera, words: tuple[int, int], n: int, npix: int,
               mode: str, sample_base: int = 0):
     """(o, d), each (n, 3) float32 on the camera's device: CUDA launches
     the kernel or raises, the CPU runs `lane_rays_plain`."""
-    from kytpu_torch.kernels import wavefront as kwf
-
     if mode not in MODES:
         raise ValueError(f"unknown jitter {mode!r}: expected one of {MODES}")
     dev = cam.position.device
-    if not kwf._on_card(dev):
+    if not on_card(dev):
         return lane_rays_plain(cam, words, n, npix, mode, sample_base)
     return cam.position[None].expand(n, 3), _launch(cam, words, n, npix, mode,
                                                     sample_base)
@@ -62,7 +60,6 @@ def _launch(cam: kscene.Camera, words: tuple[int, int], n: int, npix: int,
             mode: str, sample_base: int) -> torch.Tensor:
     """The kernel's d (n, 3) on the card."""
     from kytpu_torch.kernels import build
-    from kytpu_torch.kernels import wavefront as kwf
 
     if not 0 <= n < 2**31 or npix <= 0:
         raise ValueError(f"{n} lanes over {npix} pixels: the kernel takes "
@@ -71,8 +68,7 @@ def _launch(cam: kscene.Camera, words: tuple[int, int], n: int, npix: int,
     d = torch.empty((n, 3), dtype=torch.float32, device=dev)
     # float32(1/W) and float32(1/H), as generate_rays rounds them
     inv = [float(np.float32(1.0 / s)) for s in (cam.width, cam.height)]
-    kwf._run(build.load().kytpu_camera_rays, "camera_rays", "rays", dev,
-             d.data_ptr(), n, npix, cam.width, MODES.index(mode),
-             words[0] & _M32, words[1] & _M32, sample_base * npix & _M32,
-             *inv, *cam.host_basis())
+    run(build.load().kytpu_camera_rays, "camera_rays", "rays", dev,
+        d.data_ptr(), n, npix, cam.width, MODES.index(mode), words[0] & M32,
+        words[1] & M32, sample_base * npix & M32, *inv, *cam.host_basis())
     return d

@@ -24,6 +24,13 @@ Three layers, each the counterpart of one in the JAX package:
   `csrc/wavefront_fwd.cu` (K1, K2, K4) and `csrc/wavefront_bwd_res.cu`
   (K3) on CUDA tensors.
 
+What K5-K8 (kernels/bigscene.py) share with them lives in public modules
+that import neither family: the launch protocol (kernels/launch.py), the
+plain per-lane shading (kernels/shading.py), the autograd Functions
+(kernels/autodiff.py), the sums by tag (kernels/tag_sums.py), the cull
+geometry (kernels/cull.py) and the colour, texture and light records
+(kernels/tables.py).
+
 Samplers: "hash" (stateless lowbias32 streams keyed by (seed, pixel,
 sample, draw site)) is the JAX package's own. "random" on the TPU is the
 on-core PRNG, which has no counterpart; here it is the tile-keyed hash
@@ -58,10 +65,24 @@ import numpy as np
 import torch
 
 from kytpu_torch import bsdf as kbsdf
-from kytpu_torch.core import lds
 from kytpu_torch.core import math as km
 from kytpu_torch.core import rng as krng
+from kytpu_torch.kernels import autodiff as kad
 from kytpu_torch.kernels import camera as kcam
+from kytpu_torch.kernels import tables as ktab
+from kytpu_torch.kernels import tag_sums as kts
+from kytpu_torch.kernels.cull import (CLASSES, UNROLL, block_bounds, group,
+                                      morton3, padded)
+from kytpu_torch.kernels.launch import (M32, SAMPLERS, as_i32, cfg_args,
+                                        check_lane_tensor, check_tables, i32,
+                                        lanes_checked, on_card, run,
+                                        texel_outputs)
+from kytpu_torch.kernels.shading import (
+    EPS, OFF, SHADOW_EPS, TWO_PI, bsdf_eval_pdf, bsdf_eval_pdf_dots,
+    bsdf_sample, hit_light_pdf, image_color, image_taps, kappa, kappa_dot,
+    light_pdf, light_sample, mul32, offset_origin, rng_keys, route_textures,
+    sin_from_phi_cos, sphere_area_f32, sphere_consts, sphere_occludes, st,
+    texel_shape, textures_at, where, where0)
 from kytpu_torch.kernels.v3 import (V3, cv3, make_frame, to_local, to_world,
                                     v3_full, v3_zeros)
 from kytpu_torch.light import lights as klights
@@ -69,12 +90,14 @@ from kytpu_torch.scene import scene as kscene
 from kytpu_torch.scene import shapes as kshapes
 from kytpu_torch.scene import texture as ktex
 from kytpu_torch.utils import profiling as kprof
+# public names of this module that the shared layer holds
+from kytpu_torch.kernels.autodiff import diff_tracer  # noqa: F401
+from kytpu_torch.kernels.launch import MAX_SOBOL_DEPTH  # noqa: F401
+from kytpu_torch.kernels.tables import light_emit_of  # noqa: F401
+from kytpu_torch.kernels.tag_sums import (  # noqa: F401
+    SEG_PIECE, SEG_THREADS, seg_pieces, seg_sums, segment_sums,
+    segment_sums_plain, sort_tags, tag_sort)
 
-LANE = 128
-# past this many surfaces render() and make_train_step() run a scene on the
-# table kernels K5-K8 where their tables take it, as kytpu routes (K1-K4
-# take any surface count)
-TABLE_ROUTE_SURFACES = 64
 # K3 and K4 sum a scene of at most this many surfaces in a dense row of
 # adjoint columns a thread (csrc/lane_sum.cuh MAX_COLS), and a larger one
 # as row-tagged entries summed by row, as K7 and K8 do (`row_tagged`)
@@ -174,10 +197,6 @@ def check_config(cfg: KernelConfig) -> None:
 
 def _f(x):
     return np.asarray(x).reshape(-1).tolist()
-
-
-def _f32(x) -> float:
-    return float(np.float32(x))
 
 
 def _dual_basis(e1, e2):
@@ -338,17 +357,6 @@ def extract_static(scene: kscene.Scene, occl_skip: bool = True) -> dict:
                 occl_skip=skips)
 
 
-def _n_tex(static) -> int:
-    """The textures whose checker adjoints K3 and K4 keep: all of a
-    textured scene's, none of another's."""
-    return static["n_textures"] if static["textures"] else 0
-
-
-def _has_img(static) -> bool:
-    """Whether a row of the scene reads an image texture."""
-    return static["n_images"] > 0
-
-
 # kytpu's in-kernel texture limits: its select-chain fetch takes atlases of
 # at most 64 texels with power-of-two sides, its separable fetch any atlas
 # of at most 256 x 256 texels an image. The port fetches every atlas with
@@ -462,21 +470,12 @@ def _static_exponent(mats):
     return None
 
 
-def _light_rows(static) -> dict:
-    """light index -> its first emitting surface row."""
-    light_row = {}
-    for m, li in enumerate(static["mats"]["light_index"]):
-        if li >= 0 and li not in light_row:
-            light_row[li] = m
-    return light_row
-
-
 def _occl_skips(static, cfg: KernelConfig):
     """Per-light (planar rows, sphere indices) left out of the all-lights
     shadow sweep: `_occl_skip_rows`, plus under shadow="robust" the light's
     own emitting shape."""
     n_pl = len(static["planar"])
-    light_row = _light_rows(static)
+    light_row = ktab.light_rows(static)
     rows_out, sph_out = [], []
     for i in range(len(static["lights"])):
         rows = set(static["occl_skip"][i])
@@ -498,15 +497,7 @@ def _planar_consts(s):
     taken in float64 from the unrounded dual basis (wavefront.py:656,
     :863-865)."""
     anchor = np.asarray(s["anchor"], np.float64)
-    return (_f32(np.dot(s["n"], anchor)), _f32(np.dot(s["f1"], anchor)),
-            _f32(np.dot(s["f2"], anchor)))
-
-
-def _sphere_area_f32(r: float) -> float:
-    """np.float32(4.0 * np.pi * r * r) with r an np.float32: under numpy's
-    scalar promotion every product rounds to float32 (_light_sample)."""
-    r32 = np.float32(r)
-    return float(np.float32(4.0 * np.pi) * r32 * r32)
+    return tuple(ktab.f32(np.dot(s[k], anchor)) for k in ("n", "f1", "f2"))
 
 
 # ---------------------------------------------------------------------------
@@ -568,8 +559,8 @@ class SceneTables:
 
     @kprof.spanned("kytpu::tables.colors")
     def with_colors(self, scene: kscene.Scene) -> "SceneTables":
-        return dataclasses.replace(self, **_color_tables(scene),
-                                   **_texture_tables(scene))
+        return dataclasses.replace(self, **ktab.color_tables(scene),
+                                   **ktab.texture_tables(scene))
 
     @property
     def stage_bytes(self) -> int:
@@ -588,40 +579,6 @@ class SceneTables:
                      ("texa", "texb") if self.static["textures"] else ())
         n = 4 * sum(getattr(self, nm).numel() for nm in names)
         return n if n <= STAGE_BUDGET else 0
-
-
-def _color_tables(scene: kscene.Scene) -> dict:
-    dev = scene.device
-    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()  # noqa
-    emit = (scene.lights.emit if scene.n_lights
-            else torch.zeros((1, 3), device=dev))
-    env = (scene.env_radiance_ if scene.has_env
-           else torch.zeros(3, device=dev))
-    return dict(diffuse=f32(scene.mat_diffuse),
-                specular=f32(scene.mat_specular),
-                emission=f32(scene.emission),
-                exponent=f32(scene.mat_exponent), light_emit=f32(emit),
-                env=f32(env).reshape(3))
-
-
-def _texture_tables(scene: kscene.Scene, texa=None, texb=None,
-                    timg=None) -> dict:
-    """The texture tables a launch reads (`SceneTables` texa, texb, timg),
-    from the scene's textures or the given leaves; one zero row each where
-    the scene has none, so every pointer is valid."""
-    tx = scene.textures if scene.has_textures else None
-    dev = scene.device
-
-    def tab(v, name):
-        if v is None and tx is not None:
-            v = getattr(tx, name)
-        if v is None or not v.numel():
-            return torch.zeros((1, 3), dtype=torch.float32, device=dev)
-        return v.detach().to(device=dev, dtype=torch.float32).reshape(
-            -1, 3).contiguous()
-
-    return dict(texa=tab(texa, "color_a"), texb=tab(texb, "color_b"),
-                timg=tab(timg, "image"))
 
 
 def row_tagged(static) -> bool:
@@ -669,15 +626,15 @@ def pack_header(static, cfg: KernelConfig, counts, static_exp):
         int(picks_one_light(cfg, L)),
         int(cfg.trainable_exponent),
         len(static["textures"]),
-        _n_tex(static),
-        int(_has_img(static)),
+        ktab.n_tex(static),
+        int(ktab.has_img(static)),
     ]
-    hf[0] = _f32(2.0 * static["world_radius"])
+    hf[0] = ktab.f32(2.0 * static["world_radius"])
     if static_exp is not None:
-        hf[1:4] = [_f32(1.0 / (static_exp + 1.0)),
-                   _f32((static_exp + 2.0) * km.INV_2PI),
-                   _f32((static_exp + 1.0) * km.INV_2PI)]
-    light_row = _light_rows(static)
+        hf[1:4] = [ktab.f32(1.0 / (static_exp + 1.0)),
+                   ktab.f32((static_exp + 2.0) * km.INV_2PI),
+                   ktab.f32((static_exp + 1.0) * km.INV_2PI)]
+    light_row = ktab.light_rows(static)
     li = np.zeros(LT_I * L, np.int32)
     lf = np.zeros(LT_F * L, np.float32)
     for i, lt in enumerate(lights):
@@ -687,8 +644,8 @@ def pack_header(static, cfg: KernelConfig, counts, static_exp):
         lf[LT_F * i:LT_F * i + 25] = [
             *lt["position"], *lt["direction"], *lt["p0"], *lt["p1"],
             *lt["p2"], *lt["normal"], lt["area"], *lt["center"],
-            lt["radius"], _sphere_area_f32(lt["radius"]),
-            _f32(4.0 * np.pi * lt["radius"] ** 2)]
+            lt["radius"], sphere_area_f32(lt["radius"]),
+            ktab.f32(4.0 * np.pi * lt["radius"] ** 2)]
     return (hi, hf), (li, lf)
 
 
@@ -724,7 +681,7 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
         rec[0:3] = s["n"]
         for j in range(4):
             rec[3 + 3 * j:6 + 3 * j] = s[f"p{j}"]
-        rec[15] = _f32(s["radius"] ** 2)
+        rec[15] = ktab.f32(s["radius"] ** 2)
         if s.get("fast"):
             rec[16:19] = s["anchor"]
             rec[19:22] = s["f1"]
@@ -735,7 +692,7 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     for j, s in enumerate(spheres):
         it[oi] = words[n_pl + j][0]
         r32 = np.float32(s["r"])
-        ft[of:of + 6] = [*s["c"], r32, r32 * r32, _f32(1.0 / s["r"])]
+        ft[of:of + 6] = [*s["c"], r32, r32 * r32, ktab.f32(1.0 / s["r"])]
         oi += SP_I
         of += SP_F
     rec_of_row = texture_record_of_row(static)
@@ -758,8 +715,8 @@ def pack_tables(scene: kscene.Scene, cfg: KernelConfig) -> SceneTables:
     return SceneTables(static=static,
                        f=torch.from_numpy(np.concatenate([ft, tf])).to(dev),
                        i=torch.from_numpy(np.concatenate([it, ti, xm])).to(dev),
-                       **_color_tables(scene), **_texture_tables(scene),
-                       **cull)
+                       **ktab.color_tables(scene),
+                       **ktab.texture_tables(scene), **cull)
 
 
 def row_bounds(static):
@@ -800,21 +757,19 @@ def cull_tables(static):
     indices (`sid`), which the materials, the skip words and the row tags
     are keyed by. bnd (float32, (blocks + superblocks, 4)): the bounds of
     each class's 8-row blocks in the visit order, planar then sphere, then
-    of each class's superblocks of 8 blocks, padded as `kbs.cull_bounds`
-    pads K5's; a block or superblock that holds a row of infinite radius
+    of each class's superblocks of 8 blocks, padded as K5's blocks are
+    (`cull_bounds`); a block or superblock that holds a row of infinite radius
     is (0, 0, 0, inf) and passes every ray.
 
     Why the pad holds for K1's rows: a parallelogram's, triangle's or
     disk's test accepts a hit only where the point it computes, o + t d,
     lies inside the row, and a sphere's only where the ray crosses it, up
     to the rounding of a few dozen float32 operations of the size of the
-    origin, the row and t |d| (`kbs.cull_bounds`' argument, unchanged);
+    origin, the row and t |d| (`cull_bounds`' argument, unchanged);
     the ground, one huge row, is a class or a block of its own in
     random_spheres and its pad grows with its radius. The one test that
     does not look at the point it accepts, a rect that is not a
     parallelogram's, has no finite bound (`row_bounds`)."""
-    from kytpu_torch.kernels import bigscene as kbs
-
     cs, rs = row_bounds(static)
     n_pl = len(static["planar"])
     lo, hi = ((cs.min(axis=0), cs.max(axis=0)) if len(cs)
@@ -822,31 +777,63 @@ def cull_tables(static):
     vis, blocks = [], {}
     for name, sl in (("tri", slice(0, n_pl)), ("sphere", slice(n_pl, None))):
         c, r = cs[sl], rs[sl]
-        order = (np.argsort(np.asarray(kbs._morton3(c, lo, hi)),
+        order = (np.argsort(np.asarray(morton3(c, lo, hi)),
                             kind="stable") if len(c) > 1
                  else np.arange(len(c)))
         vis.append(order.astype(np.int32))
         c, r = c[order], r[order]
         inf = ~np.isfinite(r)
-        b = kbs._block_bounds(c, np.where(inf, 0.0, r)).reshape(-1, 4)
-        b[np.add.reduceat(inf, np.arange(0, len(r), kbs.UNROLL)) > 0
+        b = block_bounds(c, np.where(inf, 0.0, r)).reshape(-1, 4)
+        b[np.add.reduceat(inf, np.arange(0, len(r), UNROLL)) > 0
           if len(r) else np.zeros(0, bool)] = [0.0, 0.0, 0.0, math.inf]
         blocks[name] = (None, None, b)
     empty = (None, None, np.zeros((0, 4)))
     with np.errstate(invalid="ignore"):   # an unbounded superblock's centre
-        bnd = kbs.cull_bounds({k: blocks.get(k, empty) for k in kbs.CLASSES})
+        bnd = cull_bounds({k: blocks.get(k, empty) for k in CLASSES})
     bnd[~np.isfinite(bnd).all(axis=1)] = [0.0, 0.0, 0.0, np.inf]
     return (np.concatenate(vis + [np.zeros(0, np.int32)]),
             np.ascontiguousarray(bnd, np.float32))
+
+
+# blocks a superblock of K1's, K2's and K4's cull (SUPER_BLOCKS in
+# csrc/megakernel.cuh)
+SUPER = 8
+
+
+def cull_bounds(tables) -> np.ndarray:
+    """The flat cull bounds of class tables (`cull_tables`' blocks, or
+    `kbs.extract_tables`' tables), one (blocks + superblocks, 4) float32
+    array [cx cy cz R]: each class's 8-row block bounds (kytpu's
+    `_block_bounds`, r * 1.0001 + 1e-6), tri | rect | disk | sphere, then
+    each class's superblock bounds, a sphere around SUPER consecutive block
+    bounds (`group`). K1, K2 and K4 read them past 64 surfaces; K5, K6 and
+    K8 read the same padded blocks under a tree (`kbs.tree_bounds`).
+
+    Each R adds CULL_PAD * (|cx| + |cy| + |cz| + r) to r and is rounded up
+    to a float32. Why that is enough: a row test accepts a point off its
+    surface only by the rounding of a few dozen float32 operations on the
+    ray's origin, the row's constants and t |d|, each at most |o| + |c| + r
+    in size (a hit inside a block is no farther than that from the origin);
+    the block test (`kbs.block_meets_plain`) rounds as much again. That is some
+    tens of ulps of |o| + |c| + r. CULL_PAD, 2^-12, is 2^11 ulps of that
+    size, the bound's share here and the origin's added by each lane: at
+    the spheres' |x|, |z| <= 35.2 it is about 0.02, a few percent of a
+    block's radius, so the pad costs little cull. A superblock's sphere
+    holds its blocks' padded spheres whole (float64, then the same pad)."""
+    blocks = [padded(b[:, :3], b[:, 3]) for b in (
+        np.asarray(tables[k][2], np.float64).reshape(-1, 4)
+        for k in CLASSES)]
+    supers = [group(pb, SUPER) for pb in blocks]
+    return np.concatenate(blocks + supers + [np.zeros((0, 4), np.float32)])
 
 
 def _skip_words(skips, row: int, n_lights: int) -> list:
     """The skip bits of `row` (a planar row or a sphere) as int32 words of
     MASK_LIGHTS lights: bit k of word g set where light 32 g + k may skip
     the row (`skips`: a set of rows a light)."""
-    return [_i32(sum(1 << (k - g) for k in range(g, min(g + MASK_LIGHTS,
+    return [i32(sum(1 << (k - g) for k in range(g, min(g + MASK_LIGHTS,
                                                           n_lights))
-                     if row in skips[k]))
+                    if row in skips[k]))
             for g in range(0, max(n_lights, 1), MASK_LIGHTS)]
 
 
@@ -907,7 +894,7 @@ def residual_layout(static, cfg: KernelConfig):
     "tu" (extension throughput unit incl. lobe scale, pdf division, RR
     compensation and the alive mask). Under cfg.trainable_exponent each "B"
     is followed by its "Bk" and "tu" by its "tuk": the plane times kappa
-    (`_kappa`), 0 off phong lanes. A scene with image textures adds "tx" and
+    (`kappa`), 0 off phong lanes. A scene with image textures adds "tx" and
     "ty": the continuous texel coordinates of the hit on its image row (0
     elsewhere), from which K3 rebuilds the bilinear taps. The kernels
     compute the same offsets from the table header
@@ -919,7 +906,7 @@ def residual_layout(static, cfg: KernelConfig):
     check_config(cfg)
     lights = static["lights"]
     has_env = any(lt["kind"] == klights.ENV for lt in lights)
-    has_img = _has_img(static)
+    has_img = ktab.has_img(static)
     n_b = 1 if picks_one_light(cfg, len(lights)) else len(lights)
     texp = cfg.trainable_exponent
     tags = []
@@ -941,31 +928,10 @@ def residual_layout(static, cfg: KernelConfig):
     return {t: k for k, t in enumerate(tags)}, len(tags)
 
 
-def light_emit_of(scene: kscene.Scene, emission: torch.Tensor,
-                  env: torch.Tensor) -> torch.Tensor:
-    """(max(L, 1), 3) NEE light emissions derived from the traced
-    `emission` rows and `env` (kytpu's `_light_emit_of`): a light bound to
-    a surface takes that row's emission, the environment light `env`, the
-    others `scene.lights.emit`. The diff tracer reads these, not
-    `lights.emit`, so a train step never runs NEE with stale emission."""
-    if not scene.n_lights:
-        return emission.new_zeros((1, 3))
-    rows = scene.lights.surface_ids
-    idx = torch.tensor([max(r, 0) for r in rows], device=emission.device)
-    has = torch.tensor([r >= 0 for r in rows], device=emission.device)
-    emit = torch.where(has[:, None], emission[idx],
-                       scene.lights.emit.to(emission.device))
-    for i, kind in enumerate(scene.lights.kinds):
-        if kind == klights.ENV:
-            emit = emit.clone()
-            emit[i] = env
-    return emit
-
-
 def _phit_lights(lights) -> bool:
     """Does every light give a direction-free hit pdf at sampling time
-    (`_light_sample`'s phit), so the next bounce's emission MIS reads it
-    instead of recomputing `_hit_light_pdf`?"""
+    (`light_sample`'s phit), so the next bounce's emission MIS reads it
+    instead of recomputing `hit_light_pdf`?"""
     return all(lt["kind"] != klights.AREA_RECT
                and not (lt["kind"] == klights.AREA_SPHERE
                         and lt.get("inside_possible", True))
@@ -973,168 +939,26 @@ def _phit_lights(lights) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# plain version: integer hashes and the lane RNG
+# plain version: nee="single"'s light pick
 # ---------------------------------------------------------------------------
-
-_M32 = 0xFFFFFFFF
-
-
-def _u32(x) -> torch.Tensor:
-    """An int tensor's bits as uint32 values held in int64."""
-    return x.to(torch.int64) & _M32
-
-
-def _as_i32(x: torch.Tensor) -> torch.Tensor:
-    """uint32 values in int64 -> the int32 tensor with the same bits."""
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
-
-
-_mul32 = lds.mul32
-
-
-def _bits_to_unit(x: torch.Tensor) -> torch.Tensor:
-    """uint32 word -> float32 in [0, 1) from its top 24 bits."""
-    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
-
-
-def _pix_hash(pid: torch.Tensor, seed) -> torch.Tensor:
-    """lowbias32 of (pixel id, seed), on uint32 words (wavefront.py:477)."""
-    x = pid ^ _mul32(seed if isinstance(seed, torch.Tensor)
-                     else torch.tensor(seed & _M32), 0x9E3779B9)
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x21F0AAAD)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x735A2D97)
-    return x ^ (x >> 15)
-
-
-def _lowbias(x: torch.Tensor) -> torch.Tensor:
-    """The hash stream's finaliser (wavefront.py:574-580), with the
-    constants as written there."""
-    x = x ^ (x >> 17)
-    x = _mul32(x, -315667899)
-    x = x ^ (x >> 11)
-    x = _mul32(x, -1404298415)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 830770091)
-    return x ^ (x >> 14)
-
-
-def _superset_xor(x: torch.Tensor) -> torch.Tensor:
-    """z_j = XOR over k >= j, j a subset of k, of x_k: the GF(2) superset
-    transform in 5 word-parallel stages (wavefront.py:451); bit-reversed, a
-    (0,2)-sequence partner of the radical inverse."""
-    x = x ^ ((x >> 1) & 0x55555555)
-    x = x ^ ((x >> 2) & 0x33333333)
-    x = x ^ ((x >> 4) & 0x0F0F0F0F)
-    x = x ^ ((x >> 8) & 0x00FF00FF)
-    return x ^ ((x >> 16) & 0x0000FFFF)
-
-
-def _site_seeds(ctr: int) -> list[int]:
-    """Three decorrelated 32-bit words for draw site `ctr`: splitmix64 of
-    the counter (wavefront.py:487)."""
-    m64 = (1 << 64) - 1
-    out = []
-    x = (ctr * 0x9E3779B97F4A7C15 + 0x632BE59BD9B4E019) & m64
-    for _ in range(3):
-        x = (x + 0x9E3779B97F4A7C15) & m64
-        z = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m64
-        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m64
-        out.append((z ^ (z >> 31)) & _M32)
-    return out
-
-
-class _Rng:
-    """The JAX package's `_Rng(hw=False)` on (N,) lanes.
-
-    "random": key = tile seed, mixed with the lane's position inside its
-    rows*128 tile. "hash" (per_lane): key = a per-lane hash of (seed,
-    pixel id, sample id). "sobol" (sobol=(sample index, pixel hash)): every
-    draw shuffles and Owen-scrambles the lane's reversed sample index with
-    the words of its site; uniform2() is one point of a (0,2) pair and
-    advances the counter once. Every draw is a pure function of (key, lane,
-    draw counter), and the counter advances the same on every lane."""
-
-    def __init__(self, key: torch.Tensor | None, lane: torch.Tensor | None,
-                 sobol=None):
-        self.key = key
-        self.lane = lane
-        self.ctr = 0
-        self.sobol = sobol is not None
-        if self.sobol:
-            si, self.ph = sobol
-            self.si_rev = lds.reverse_bits(si)
-
-    def _sobol_site(self):
-        """(shuffled index i, the site's third word, dimension 0 of i)."""
-        self.ctr += 1
-        c1, c2, c3 = _site_seeds(self.ctr)
-        i = lds.reverse_bits(lds.laine_karras(self.si_rev, self.ph ^ c1))
-        u1 = _bits_to_unit(lds.reverse_bits(lds.laine_karras(i,
-                                                             self.ph ^ c2)))
-        return i, c3, u1
-
-    def uniform(self) -> torch.Tensor:
-        if self.sobol:
-            return self._sobol_site()[2]
-        self.ctr += 1
-        step = (self.ctr * 668265263) & _M32
-        if self.lane is None:
-            x = (self.key + step) & _M32
-        else:
-            x = (self.key + _mul32(self.lane, 374761393) + step) & _M32
-        return _bits_to_unit(_lowbias(x))
-
-    def uniform2(self):
-        if not self.sobol:
-            return self.uniform(), self.uniform()
-        i, c3, u1 = self._sobol_site()
-        u2 = _bits_to_unit(lds.reverse_bits(lds.laine_karras(
-            _superset_xor(i), self.ph ^ c3)))
-        return u1, u2
 
 
 def _single_pick(tile_seed: torch.Tensor, bounce: int, si0, L: int):
     """nee="single": the light picked for a whole tile at one bounce
     (wavefront.py:2213-2236); si0 is the sample index of the tile's first
     lane under the "hash" and "sobol" samplers, else None."""
-    c = (tile_seed + ((bounce * 668265263) & 0x7FFFFFFF)) & _M32
+    c = (tile_seed + ((bounce * 668265263) & 0x7FFFFFFF)) & M32
     c = c ^ (c >> 16)
-    c = _mul32(c, 0x85EBCA6B)
+    c = mul32(c, 0x85EBCA6B)
     c = c ^ (c >> 13)
     if si0 is not None:
-        c = (c + si0) & _M32
+        c = (c + si0) & M32
     return (c & 0x7FFFFFFF) % L
 
 
 # ---------------------------------------------------------------------------
 # plain version: geometry
 # ---------------------------------------------------------------------------
-
-_EPS = _f32(km.SHAPE_EPSILON)
-_OFF = _f32(km.RAY_OFFSET)
-_SHADOW_EPS = _f32(km.SHADOW_EPSILON)
-_TWO_PI = _f32(km.TWO_PI)
-_INV_PI = _f32(km.INV_PI)
-_INV_2PI = _f32(km.INV_2PI)
-_ENV_PDF = _f32(1.0 / (2.0 * np.pi * np.pi))
-
-
-def _where(c, a, b):
-    """torch.where that takes python numbers on either side (float32 when
-    both are)."""
-    if isinstance(a, torch.Tensor):
-        like = a
-    elif isinstance(b, torch.Tensor):
-        like = b
-    else:
-        like = torch.empty(c.shape, dtype=torch.float32, device=c.device)
-    if not isinstance(a, torch.Tensor):
-        a = torch.full_like(like, a)
-    if not isinstance(b, torch.Tensor):
-        b = torch.full_like(like, b)
-    return torch.where(c, a, b)
 
 
 def _planar_hit(s, o: V3, d: V3):
@@ -1146,7 +970,7 @@ def _planar_hit(s, o: V3, d: V3):
         p0 = cv3(s["p0"])
         t = km.div(nrm.dot(p0 - o), nrm.dot(d))
         hp = o + d * t
-        inside = (hp - p0).length_squared() <= _f32(s["radius"] ** 2)
+        inside = (hp - p0).length_squared() <= ktab.f32(s["radius"] ** 2)
         return t, inside
     if s.get("fast"):
         anchor = cv3(s["anchor"])
@@ -1177,11 +1001,6 @@ def _planar_hit(s, o: V3, d: V3):
     return t, inside
 
 
-def _sphere_consts(s):
-    r = _f32(s["r"])
-    return cv3(s["c"]), r, _f32(np.float32(r) * np.float32(r))
-
-
 def _closest_hit(static, o: V3, d: V3):
     """Closest hit over the scene -> (t, sid, valid, normal). The normal is
     resolved once from the winning row."""
@@ -1189,29 +1008,29 @@ def _closest_hit(static, o: V3, d: V3):
     sid = torch.full(o.x.shape, -1, dtype=torch.int32, device=o.x.device)
     for row, s in enumerate(static["planar"]):
         t, inside = _planar_hit(s, o, d)
-        accept = inside & (t > _EPS) & (t < t_best)
+        accept = inside & (t > EPS) & (t < t_best)
         t_best = torch.where(accept, t, t_best)
-        sid = _where(accept, row, sid)
+        sid = where(accept, row, sid)
     base = len(static["planar"])
     for j, s in enumerate(static["spheres"]):
-        c, _, r2 = _sphere_consts(s)
+        c, _, r2 = sphere_consts(s)
         oc = c - o
         neg_b = oc.dot(d)
         perp = oc - d * neg_b
         discr = r2 - perp.length_squared()
         sq = km.safe_sqrt(discr)
         cc = oc.length_squared() - r2
-        sgn = _where(neg_b >= 0.0, 1.0, -1.0)
+        sgn = where(neg_b >= 0.0, 1.0, -1.0)
         q = neg_b + sgn * sq
         tq = cc / q
         t1 = torch.minimum(q, tq)
         t2 = torch.maximum(q, tq)
-        t1_ok = t1 > _EPS
-        t2_ok = t2 > _EPS
+        t1_ok = t1 > EPS
+        t2_ok = t2 > EPS
         t = torch.where(t1_ok, t1, t2)
         accept = (discr >= 0) & (t1_ok | t2_ok) & (t < t_best)
         t_best = torch.where(accept, t, t_best)
-        sid = _where(accept, base + j, sid)
+        sid = where(accept, base + j, sid)
     valid = sid >= 0
 
     # normal of the winning row
@@ -1238,7 +1057,7 @@ def _closest_hit(static, o: V3, d: V3):
                 torch.where(flip, -nz, nz))
     if static["spheres"]:
         sp_tab = torch.tensor(
-            [[*map(_f32, s["c"]), _f32(1.0 / s["r"])]
+            [[*map(ktab.f32, s["c"]), ktab.f32(1.0 / s["r"])]
              for s in static["spheres"]], dtype=torch.float32, device=dev)
         on_sp = sid >= base
         sidx = (idx - base).clamp(0, len(static["spheres"]) - 1)
@@ -1251,20 +1070,6 @@ def _closest_hit(static, o: V3, d: V3):
                   (o.z + d.z * t_best - cz) * inv_r)
         n_best = n_sp.where(on_sp, n_best)
     return t_best, sid, valid, n_best
-
-
-def _sphere_occludes(neg_b, discr, tmax):
-    """Root of a sphere crossing in (eps, tmax), without the square root
-    (wavefront.py:901-916)."""
-    a_c = neg_b - _EPS
-    b_c = neg_b - tmax
-    a2 = a_c * a_c
-    b2 = b_c * b_c
-    a_pos = a_c > 0.0
-    b_neg = b_c < 0.0
-    in1 = a_pos & (discr < a2) & (b_neg | (discr > b2))
-    in2 = (a_pos | (discr > a2)) & b_neg & (discr < b2)
-    return (discr >= 0) & (in1 | in2)
 
 
 def _any_hit(static, o: V3, d: V3, tmax, skip_rows=frozenset(),
@@ -1285,14 +1090,14 @@ def _any_hit(static, o: V3, d: V3, tmax, skip_rows=frozenset(),
         if row in skip_rows:
             continue
         t, inside = _planar_hit(s, o, d)
-        hit = hit | gated(inside & (t > _EPS) & (t < tmax), row)
+        hit = hit | gated(inside & (t > EPS) & (t < tmax), row)
     for j, s in enumerate(static["spheres"]):
-        c, _, r2 = _sphere_consts(s)
+        c, _, r2 = sphere_consts(s)
         oc = c - o
         neg_b = oc.dot(d)
         perp = oc - d * neg_b
         discr = r2 - perp.length_squared()
-        hit = hit | gated(_sphere_occludes(neg_b, discr, tmax), n_pl + j)
+        hit = hit | gated(sphere_occludes(neg_b, discr, tmax), n_pl + j)
     return hit
 
 
@@ -1305,7 +1110,7 @@ def _any_hit_multi(static, hp: V3, n_shade: V3, rays, skips, robust=False,
     K = len(rays)
     if nd is None:
         nd = [n_shade.dot(wi) for wi, _ in rays]
-    se = [_where(nd[k] < 0.0, -_OFF, _OFF) for k in range(K)]
+    se = [where(nd[k] < 0.0, -OFF, OFF) for k in range(K)]
     if robust:
         rays = [(rays[k][0], rays[k][1] - se[k] * nd[k]) for k in range(K)]
     hits = [torch.zeros_like(rays[k][1], dtype=torch.bool) for k in range(K)]
@@ -1319,7 +1124,7 @@ def _any_hit_multi(static, hp: V3, n_shade: V3, rays, skips, robust=False,
                 if origins[k] is None:
                     origins[k] = hp + n_shade * se[k]
                 t, inside = _planar_hit(s, origins[k], rays[k][0])
-                hits[k] = hits[k] | (inside & (t > _EPS) & (t < rays[k][1]))
+                hits[k] = hits[k] | (inside & (t > EPS) & (t < rays[k][1]))
             continue
         nrm = cv3(s["n"])
         f1, f2 = cv3(s["f1"]), cv3(s["f2"])
@@ -1340,15 +1145,15 @@ def _any_hit_multi(static, hp: V3, n_shade: V3, rays, skips, robust=False,
                 inside = (a >= 0) & (b >= 0) & (a + b <= 1.0)
             else:
                 inside = (a >= 0) & (a <= 1.0) & (b >= 0) & (b <= 1.0)
-            hits[k] = hits[k] | (inside & (t > _EPS) & (t < tmax))
+            hits[k] = hits[k] | (inside & (t > EPS) & (t < tmax))
 
-    off2 = _f32(km.RAY_OFFSET * km.RAY_OFFSET)
+    off2 = ktab.f32(km.RAY_OFFSET * km.RAY_OFFSET)
     for j, s in enumerate(static["spheres"]):
         which = [k for k in range(K)
                  if sphere_skips is None or j not in sphere_skips[k]]
         if not which:
             continue
-        c, _, r2 = _sphere_consts(s)
+        c, _, r2 = sphere_consts(s)
         vc = c - hp
         vc2 = vc.length_squared()
         vcn = vc.dot(n_shade)
@@ -1357,619 +1162,13 @@ def _any_hit_multi(static, hp: V3, n_shade: V3, rays, skips, robust=False,
             neg_b = vc.dot(wi) - se[k] * nd[k]
             oc2 = vc2 - 2.0 * se[k] * vcn + off2
             discr = r2 - oc2 + neg_b * neg_b
-            hits[k] = hits[k] | _sphere_occludes(neg_b, discr, tmax)
+            hits[k] = hits[k] | sphere_occludes(neg_b, discr, tmax)
     return hits
-
-
-def _offset_origin(p: V3, n: V3, d: V3) -> V3:
-    return p + n * _where(n.dot(d) < 0.0, -_OFF, _OFF)
-
-
-# ---------------------------------------------------------------------------
-# plain version: BSDFs and lights
-# ---------------------------------------------------------------------------
-
-
-def _ipow(x, n: int):
-    """x**n for a static integer n >= 1 by square-and-multiply."""
-    r = None
-    while n:
-        if n & 1:
-            r = x if r is None else r * x
-        n >>= 1
-        if n:
-            x = x * x
-    return r
-
-
-def _fresnel_dielectric(ci, eta):
-    ci = torch.clamp(ci, -1.0, 1.0)
-    entering = ci > 0.0
-    ei = _where(entering, 1.0, eta)
-    et = _where(entering, eta, 1.0)
-    c = torch.abs(ci)
-    si = km.safe_sqrt(1.0 - c * c)
-    st = ei / et * si
-    tir = st >= 1.0
-    ct = km.safe_sqrt(1.0 - torch.clamp_max(st, 1.0) ** 2)
-    r_par = km.safe_div(et * c - ei * ct, et * c + ei * ct)
-    r_per = km.safe_div(ei * c - et * ct, ei * c + et * ct)
-    fr = 0.5 * (r_par * r_par + r_per * r_per)
-    return _where(tir, 1.0, fr)
-
-
-def _sin_from_phi_cos(cos_phi, u):
-    """sin(2 pi u) from cos(2 pi u): sign(sin) = +1 iff u <= 0.5."""
-    s = km.safe_sqrt(1.0 - cos_phi * cos_phi)
-    return torch.where(u <= 0.5, s, -s)
-
-
-def _concentric_disk(u1, u2):
-    x = 2.0 * u1 - 1.0
-    y = 2.0 * u2 - 1.0
-    xd = torch.abs(x) > torch.abs(y)
-    r = torch.where(xd, x, y)
-    ratio = torch.where(xd, km.safe_div(y, x), km.safe_div(x, y))
-    theta = torch.where(xd, _f32(km.PI_OVER_4) * ratio,
-                        _f32(km.PI_OVER_2) - _f32(km.PI_OVER_4) * ratio)
-    deg = (x == 0.0) & (y == 0.0)
-    ct = torch.cos(theta)
-    st = km.safe_sqrt(1.0 - ct * ct)
-    st = torch.where(theta >= 0.0, st, -st)
-    px = _where(deg, 0.0, r * ct)
-    py = _where(deg, 0.0, r * st)
-    return px, py
-
-
-def _phong_pow(cos_alpha, exponent, static_exp):
-    """(cos^e, (e+2)/2pi, (e+1)/2pi): `_ipow` and host-folded factors for
-    a static exponent, pow with the per-lane exponent otherwise."""
-    if static_exp is not None:
-        return (_ipow(cos_alpha, int(static_exp)),
-                _f32((static_exp + 2.0) * km.INV_2PI),
-                _f32((static_exp + 1.0) * km.INV_2PI))
-    return (torch.pow(cos_alpha, exponent), (exponent + 2.0) * _INV_2PI,
-            (exponent + 1.0) * _INV_2PI)
-
-
-def _bsdf_sample(kind, color: V3, color2: V3, eta, exponent, wo: V3, u1, u2,
-                 lobes=frozenset((kbsdf.LAMBERT, kbsdf.MIRROR, kbsdf.GLASS,
-                                  kbsdf.PHONG)), static_exp=None):
-    """Local-frame sample of the lobes present, selected by `kind`
-    (wavefront.py:1228-1330). Returns (f, wi, pdf, delta, f_unit,
-    glass_refract)."""
-    mirror_wi = V3(-wo.x, -wo.y, wo.z)
-    zero = torch.zeros_like(u1)
-    cand = {}
-    if kbsdf.LAMBERT in lobes:
-        px, py = _concentric_disk(u1, u2)
-        lz = km.safe_sqrt(1.0 - px * px - py * py)
-        wi_lam = V3(px, py, torch.where(wo.z < 0, -lz, lz))
-        same_lam = wo.z * wi_lam.z > 0
-        f_lam = (color * _INV_PI).where(same_lam, v3_zeros(wo.x))
-        pdf_lam = _where(same_lam, torch.abs(wi_lam.z) * _INV_PI, 0.0)
-        unit_lam = _where(same_lam, _INV_PI, 0.0)
-        cand[kbsdf.LAMBERT] = (wi_lam, f_lam, pdf_lam, unit_lam)
-    if kbsdf.MIRROR in lobes:
-        abs_cos_m = torch.clamp_min(torch.abs(mirror_wi.z), 1e-12)
-        inv_m = km.div(1.0, abs_cos_m)
-        cand[kbsdf.MIRROR] = (mirror_wi, color * inv_m,
-                              torch.ones_like(u1), inv_m)
-    take_refl = None
-    if kbsdf.GLASS in lobes:
-        fr = _fresnel_dielectric(wo.z, eta)
-        take_refl = u1 < fr
-        into = wo.z > 0
-        nz = _where(into, 1.0, -1.0)
-        n_loc = V3(torch.zeros_like(nz), torch.zeros_like(nz), nz)
-        eta_ratio = _where(into, km.div(1.0, eta), eta)
-        cos_i = n_loc.dot(wo)
-        sin2_i = torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
-        sin2_t = eta_ratio * eta_ratio * sin2_i
-        refr_ok = sin2_t < 1.0
-        cos_t = km.safe_sqrt(1.0 - torch.clamp_max(sin2_t, 1.0))
-        wt = (-wo) * eta_ratio + n_loc * (eta_ratio * cos_i - cos_t)
-        wi_gl = mirror_wi.where(take_refl, wt)
-        abs_cos_g = torch.clamp_min(torch.abs(wi_gl.z), 1e-12)
-        refl_unit = fr / abs_cos_g
-        refr_unit = (1.0 - fr) / abs_cos_g
-        unit_gl = torch.where(take_refl, refl_unit,
-                              _where(refr_ok, refr_unit, 0.0))
-        f_gl = (color * refl_unit).where(
-            take_refl, (color2 * refr_unit).where(refr_ok, v3_zeros(wo.x)))
-        pdf_gl = torch.where(take_refl, fr, _where(refr_ok, 1.0 - fr, 0.0))
-        cand[kbsdf.GLASS] = (wi_gl, f_gl, pdf_gl, unit_gl)
-    if kbsdf.PHONG in lobes:
-        phi = _TWO_PI * u1
-        if static_exp is not None:
-            cos_t_p = torch.pow(u2, _f32(1.0 / (static_exp + 1.0)))
-        else:
-            cos_t_p = torch.pow(u2, km.div(1.0, exponent + 1.0))
-        sin_t_p = km.safe_sqrt(1.0 - cos_t_p * cos_t_p)
-        cphi = torch.cos(phi)
-        lobe = V3(cphi * sin_t_p, _sin_from_phi_cos(cphi, u1) * sin_t_p,
-                  cos_t_p)
-        s_f, t_f, n_f = make_frame(mirror_wi)
-        wi_ph = to_world(s_f, t_f, n_f, lobe)
-        wi_ph = V3(wi_ph.x, wi_ph.y, torch.where(wo.z < 0, -wi_ph.z, wi_ph.z))
-        cos_alpha = torch.clamp_min(mirror_wi.dot(wi_ph), 0.0)
-        same_ph = wo.z * wi_ph.z > 0
-        powa, e2, e1 = _phong_pow(cos_alpha, exponent, static_exp)
-        ph_val = _where(same_ph, e2 * powa, 0.0)
-        pdf_ph = e1 * powa
-        cand[kbsdf.PHONG] = (wi_ph, color * ph_val, pdf_ph, ph_val)
-
-    order = [k for k in (kbsdf.LAMBERT, kbsdf.MIRROR, kbsdf.GLASS,
-                         kbsdf.PHONG) if k in cand]
-    wi, f, pdf, f_unit = cand[order[-1]]
-    for k in reversed(order[:-1]):
-        is_k = kind == k
-        wi_k, f_k, pdf_k, unit_k = cand[k]
-        wi = wi_k.where(is_k, wi)
-        f = f_k.where(is_k, f)
-        pdf = torch.where(is_k, pdf_k, pdf)
-        f_unit = torch.where(is_k, unit_k, f_unit)
-    false_mask = zero > 0
-    is_gls = (kind == kbsdf.GLASS) if kbsdf.GLASS in cand else false_mask
-    is_mir = (kind == kbsdf.MIRROR) if kbsdf.MIRROR in cand else false_mask
-    glass_refract = (is_gls & ~take_refl) if take_refl is not None \
-        else false_mask
-    return f, wi, pdf, is_mir | is_gls, f_unit, glass_refract
-
-
-def _eval_lobes(kind, same, wi_z, cos_alpha, exponent, lobes, static_exp):
-    """Lambert / Phong eval + pdf shared by the two eval entry points."""
-    has_lam = kbsdf.LAMBERT in lobes
-    has_ph = kbsdf.PHONG in lobes
-    zero = torch.zeros_like(wi_z)
-    if has_lam:
-        unit_lam = _where(same, _INV_PI, 0.0)
-        pdf_lam = _where(same, torch.abs(wi_z) * _INV_PI, 0.0)
-    if has_ph:
-        powa, e2, e1 = _phong_pow(torch.clamp_min(cos_alpha, 0.0), exponent,
-                                  static_exp)
-        ph = _where(same, e2 * powa, 0.0)
-        pdf_ph = e1 * powa
-    if has_lam and has_ph:
-        is_lam = kind == kbsdf.LAMBERT
-        is_ph = kind == kbsdf.PHONG
-        f_unit = torch.where(is_lam, unit_lam, _where(is_ph, ph, 0.0))
-        pdf = torch.where(is_lam, pdf_lam, _where(is_ph, pdf_ph, 0.0))
-    elif has_lam:
-        is_lam = kind == kbsdf.LAMBERT
-        f_unit = _where(is_lam, unit_lam, 0.0)
-        pdf = _where(is_lam, pdf_lam, 0.0)
-    elif has_ph:
-        is_ph = kind == kbsdf.PHONG
-        f_unit = _where(is_ph, ph, 0.0)
-        pdf = _where(is_ph, pdf_ph, 0.0)
-    else:
-        f_unit = pdf = zero
-    return pdf, f_unit
-
-
-def _bsdf_eval_pdf(kind, color: V3, exponent, wo: V3, wi: V3,
-                   lobes=frozenset((kbsdf.LAMBERT, kbsdf.PHONG)),
-                   static_exp=None):
-    """Local-frame eval + pdf of the non-delta lobes -> (f, pdf, f_unit)."""
-    wr = V3(-wo.x, -wo.y, wo.z)
-    cos_alpha = wr.dot(wi) if kbsdf.PHONG in lobes else None
-    pdf, f_unit = _eval_lobes(kind, wo.z * wi.z > 0, wi.z, cos_alpha,
-                              exponent, lobes, static_exp)
-    return color * f_unit, pdf, f_unit
-
-
-def _bsdf_eval_pdf_dots(kind, exponent, wo_z, wi_z, cos_alpha,
-                        lobes=frozenset((kbsdf.LAMBERT, kbsdf.PHONG)),
-                        static_exp=None):
-    """`_bsdf_eval_pdf` on the frame-invariant dots n.wo, n.wi and the
-    mirror dot -> (pdf, f_unit)."""
-    return _eval_lobes(kind, wo_z * wi_z > 0, wi_z, cos_alpha, exponent,
-                       lobes, static_exp)
-
-
-def _light_sample(lt, world_radius, p: V3, n_shade: V3, u1, u2, azim=None):
-    """sample_Li for light lt -> (wi, pdf, li_scalar, dist, phit); Li =
-    emit * li_scalar. phit is the light's direction-free solid-angle pdf
-    for a BSDF ray leaving p, or None where it depends on the direction
-    (wavefront.py:1441-1590)."""
-    kind = lt["kind"]
-    ones = torch.ones_like(u1)
-    zeros = torch.zeros_like(u1)
-    if kind == klights.POINT:
-        vec = cv3(lt["position"]) - p
-        d2 = torch.clamp_min(vec.length_squared(), 1e-20)
-        dist = km.sqrt(d2)
-        wi = vec * km.div(1.0, dist)
-        return wi, ones, km.div(1.0, d2), dist, zeros
-    if kind == klights.DIRECTION:
-        dr = cv3(lt["direction"])
-        wi = v3_full(u1, -dr.x, -dr.y, -dr.z)
-        dist = torch.full_like(u1, _f32(2.0 * world_radius))
-        return wi, ones, ones, dist, zeros
-    if kind == klights.AREA_RECT:
-        p0, p1, p2 = cv3(lt["p0"]), cv3(lt["p1"]), cv3(lt["p2"])
-        n_l = cv3(lt["normal"])
-        area = _f32(lt["area"])
-        lp = p1 + (p0 - p1) * u1 + (p2 - p1) * u2
-        vec = lp - p
-        d2 = torch.clamp_min(vec.length_squared(), 1e-20)
-        dist = km.sqrt(d2)
-        wi = vec * km.div(1.0, dist)
-        cos_l = n_l.dot(-wi)
-        pdf = km.safe_div(d2, torch.abs(cos_l) * area)
-        facing = cos_l > 0
-        li_s = _where(facing, 1.0, 0.0)
-        pdf = _where(facing & (pdf > 0) & torch.isfinite(pdf), pdf, 0.0)
-        return wi, pdf, li_s, dist, None
-    if kind == klights.AREA_SPHERE:
-        c, r, r2 = _sphere_consts(dict(c=lt["center"], r=lt["radius"]))
-        vec_c = c - p
-        d2c = torch.clamp_min(vec_c.length_squared(), 1e-20)
-        inv_dc = km.rsqrt(d2c)
-        dist_c = d2c * inv_dc
-        inv_d2c = inv_dc * inv_dc
-        sin2_max = torch.clamp_max(r2 * inv_d2c, 1.0)
-        cos_max = km.safe_sqrt(1.0 - sin2_max)
-        cos_t = (cos_max - 1.0) * u1 + 1.0
-        sin2 = 1.0 - cos_t * cos_t
-        tiny = sin2_max < _f32(0.00068523)
-        sin2 = torch.where(tiny, sin2_max * u1, sin2)
-        cos_t = torch.where(tiny, km.safe_sqrt(1.0 - sin2), cos_t)
-        sin_t = km.safe_sqrt(sin2)
-        if azim is None:
-            cphi = torch.cos(u2 * _TWO_PI)
-            sphi = _sin_from_phi_cos(cphi, u2)
-        else:
-            cphi, sphi = azim
-        to_c = vec_c * inv_dc
-        s_f, t_f, n_f = make_frame(to_c)
-        wi_cone = s_f * (-sin_t * cphi) + t_f * (-sin_t * sphi) \
-            + n_f * cos_t
-        depth2 = r2 - d2c * sin2
-        ds = dist_c * cos_t - km.safe_sqrt(depth2)
-        q_cone = _TWO_PI * (1.0 - cos_max)
-        pdf_cone = _where(q_cone > 0.0, km.div(1.0, q_cone), 0.0)
-        outside = d2c > r2
-        ok_cone = (depth2 > 0) & (q_cone > 0.0) & outside
-        if not lt.get("inside_possible", True):
-            li_s = _where(ok_cone, 1.0, 0.0)
-            phit = _where(outside, pdf_cone, 0.0)
-            return wi_cone, pdf_cone, li_s, ds, phit
-        inside = ~outside
-        z_u = 1.0 - 2.0 * u1
-        r_u = km.safe_sqrt(1.0 - z_u * z_u)
-        dir_u = V3(r_u * cphi, r_u * sphi, z_u)
-        lp_in = c + dir_u * r
-        vec_in = lp_in - p
-        d2_in = torch.clamp_min(vec_in.length_squared(), 1e-20)
-        inv_d_in = km.rsqrt(d2_in)
-        wi_in = vec_in * inv_d_in
-        area = _sphere_area_f32(lt["radius"])
-        pdf_in = km.safe_div(d2_in, area * torch.abs(n_shade.dot(-wi_in)))
-        pdf_in = _where(torch.isfinite(pdf_in), pdf_in, 0.0)
-        ok_in = (dir_u.dot(-wi_in) > 0) & (pdf_in > 0)
-        wi = wi_in.where(inside, wi_cone)
-        pdf = torch.where(inside, pdf_in, pdf_cone)
-        ok = torch.where(inside, ok_in, ok_cone)
-        dist = torch.where(inside, d2_in * inv_d_in, ds)
-        return wi, pdf, _where(ok, 1.0, 0.0), dist, None
-    if kind == klights.ENV:
-        # replicated reference quirk: uniform-sphere direction, angle-space
-        # pdf (ky.cpp:3029-3035)
-        z_u = 1.0 - 2.0 * u1
-        r_u = km.safe_sqrt(1.0 - z_u * z_u)
-        if azim is None:
-            cphi = torch.cos(_TWO_PI * u2)
-            sphi = _sin_from_phi_cos(cphi, u2)
-        else:
-            cphi, sphi = azim
-        wi = V3(r_u * cphi, r_u * sphi, z_u)
-        pdf = _env_pdf(wi)
-        dist = torch.full_like(u1, _f32(2.0 * world_radius))
-        return wi, pdf, ones, dist, zeros
-    raise ValueError(f"unknown light kind {kind}")
-
-
-def _env_pdf(wi: V3):
-    sin_theta = km.safe_sqrt(1.0 - wi.z * wi.z)
-    return _where(sin_theta == 0.0, 0.0,
-                  km.div(_ENV_PDF, torch.clamp_min(sin_theta, 1e-20)))
-
-
-def _sphere_cone_pdf(c: V3, r2, p: V3):
-    """(inside, uniform-cone pdf) of a sphere light seen from p."""
-    d2c = torch.clamp_min((c - p).length_squared(), 1e-20)
-    inside = d2c <= r2
-    sin2_max = torch.clamp_max(km.div(r2, d2c), 1.0)
-    cos_max = km.safe_sqrt(1.0 - sin2_max)
-    pdf_cone = km.safe_div(1.0, _TWO_PI * (1.0 - cos_max))
-    return inside, _where(torch.isfinite(pdf_cone), pdf_cone, 0.0)
-
-
-def _hit_light_pdf(lights, li_idx, o: V3, d: V3, t, nrm: V3):
-    """Solid-angle pdf of the area light the extension ray hit, from the
-    hit record: squared distance t^2, light cosine |nrm.d|."""
-    pdf = torch.zeros_like(t)
-    t2 = t * t
-    cos_l = torch.abs(nrm.dot(d))
-    for i, lt in enumerate(lights):
-        kind = lt["kind"]
-        if kind == klights.AREA_RECT:
-            pi = km.safe_div(t2, cos_l * _f32(lt["area"]))
-        elif kind == klights.AREA_SPHERE:
-            c, _, r2 = _sphere_consts(dict(c=lt["center"], r=lt["radius"]))
-            inside, pdf_cone = _sphere_cone_pdf(c, r2, o)
-            if not lt.get("inside_possible", True):
-                pi = _where(inside, 0.0, pdf_cone)
-            else:
-                area = _f32(4.0 * np.pi * lt["radius"] ** 2)
-                pi = torch.where(inside, km.safe_div(t2, cos_l * area),
-                                 pdf_cone)
-        else:
-            continue
-        pdf = torch.where(li_idx == i, pi, pdf)
-    return pdf
-
-
-def _light_pdf(lt, p: V3, n_shade: V3, wi: V3):
-    """pdf_Li of light lt along wi from p (lights.py:232-266)."""
-    kind = lt["kind"]
-    if kind in (klights.POINT, klights.DIRECTION):
-        return torch.zeros_like(wi.x)
-    if kind == klights.AREA_RECT:
-        p0, p1 = cv3(lt["p0"]), cv3(lt["p1"])
-        p2, p3 = cv3(lt["p2"]), cv3(lt["p3"])
-        n_l = cv3(lt["normal"])
-        area = _f32(lt["area"])
-        o = _offset_origin(p, n_shade, wi)
-        oa, ob, oc, od = p0 - o, p1 - o, p2 - o, p3 - o
-        v0d = oc.cross(ob).dot(wi)
-        v1d = ob.cross(oa).dot(wi)
-        v2d = oa.cross(od).dot(wi)
-        v3d = od.cross(oc).dot(wi)
-        inside = ((v0d < 0) & (v1d < 0) & (v2d < 0) & (v3d < 0)) | \
-                 ((v0d >= 0) & (v1d >= 0) & (v2d >= 0) & (v3d >= 0))
-        t = km.safe_div(n_l.dot(oa), n_l.dot(wi), math.inf)
-        hit = inside & (t > _EPS) & torch.isfinite(t)
-        hp = o + wi * t
-        d2 = (hp - p).length_squared()
-        pdf = km.safe_div(d2, torch.abs(n_l.dot(-wi)) * area)
-        return _where(hit & torch.isfinite(pdf), pdf, 0.0)
-    if kind == klights.AREA_SPHERE:
-        c, r, r2 = _sphere_consts(dict(c=lt["center"], r=lt["radius"]))
-        inside, pdf_cone = _sphere_cone_pdf(c, r2, p)
-        if not lt.get("inside_possible", True):
-            return _where(inside, 0.0, pdf_cone)
-        o = _offset_origin(p, n_shade, wi)
-        oc = c - o
-        neg_b = oc.dot(wi)
-        discr = neg_b * neg_b - oc.length_squared() + r2
-        sq = km.safe_sqrt(discr)
-        t1, t2 = neg_b - sq, neg_b + sq
-        t1_ok = t1 > _EPS
-        t2_ok = t2 > _EPS
-        t = torch.where(t1_ok, t1, t2)
-        hit = (discr >= 0) & (t1_ok | t2_ok)
-        hp = o + wi * t
-        n_hit = hp - c
-        n_hit = n_hit * km.rsqrt(torch.clamp_min(n_hit.length_squared(),
-                                                 1e-20))
-        area = _sphere_area_f32(lt["radius"])
-        pdf_in = km.safe_div((hp - p).length_squared(),
-                             torch.abs(n_hit.dot(-wi)) * area)
-        pdf_in = _where(hit & torch.isfinite(pdf_in), pdf_in, 0.0)
-        return torch.where(inside, pdf_in, pdf_cone)
-    if kind == klights.ENV:
-        return _env_pdf(wi)
-    raise ValueError(f"unknown light kind {kind}")
-
-
-# ---------------------------------------------------------------------------
-# plain version: textures (kytpu's wavefront.py:946-1175)
-# ---------------------------------------------------------------------------
-
-
-def _uv(static, rec, hp: V3):
-    """(u, v) of hit hp on a textured planar row, from the baked anchor and
-    dual basis (disks: frame coordinates shifted by 0.5)."""
-    s = static["planar"][rec["row"]]
-    rel = hp - cv3(s["uv_anchor"])
-    u, v = rel.dot(cv3(s["uv_f1"])), rel.dot(cv3(s["uv_f2"]))
-    if s.get("uv_disk"):
-        u, v = u + 0.5, v + 0.5
-    return u, v
-
-
-def _checker_even(static, rec, hp: V3):
-    """The checker's "even"-cell mask at hp (`_checker_parity`)."""
-    u, v = _uv(static, rec, hp)
-    pu = torch.floor(u * _f32(rec["scale"][0])).to(torch.int32)
-    pv = torch.floor(v * _f32(rec["scale"][1])).to(torch.int32)
-    return ((pu + pv) & 1) == 0
-
-
-def _image_xy(static, rec, hp: V3):
-    """Continuous texel coordinates (x, y) of hp on an image row, in
-    [-0.5, dim - 0.5) (`_image_uv_xy`): what K2 caches as "tx", "ty"."""
-    u, v = _uv(static, rec, hp)
-    su = u * _f32(rec["scale"][0])
-    sv = v * _f32(rec["scale"][1])
-    x = (su - torch.floor(su)) * float(rec["tw"]) - 0.5
-    y = (sv - torch.floor(sv)) * float(rec["th"]) - 0.5
-    return x, y
-
-
-def _image_taps(rec, x, y):
-    """The bilinear taps of texel coordinates (x, y) on an image row, as the
-    kernels list them (csrc/megakernel.cuh `image_taps`): four slots in
-    ascending texel order, slot 2a + b the a-th lowest row and the b-th
-    lowest column; a tap that coincides with another (a side of 1 texel) is
-    merged into the first slot, the others left unused. Each slot: (texel
-    index into the flattened atlas, -1 if unused; the select chain's weight,
-    kytpu's per-texel sum of tap weights in tap order; the separable
-    route's row and column weights). The tap indices and the weights are
-    kytpu's (`_image_taps_from_xy`, `_image_sep_axes`)."""
-    tw, th = rec["tw"], rec["th"]
-    x0, y0 = torch.floor(x), torch.floor(y)
-    fx, fy = x - x0, y - y0
-    xi0, yi0 = x0.to(torch.int64), y0.to(torch.int64)
-    xi0 = torch.where(xi0 < 0, tw - 1, xi0)
-    yi0 = torch.where(yi0 < 0, th - 1, yi0)
-    xi1 = torch.where(xi0 + 1 >= tw, 0, xi0 + 1)
-    yi1 = torch.where(yi0 + 1 >= th, 0, yi0 + 1)
-    a = (1.0 - fx, fx)
-    b = (1.0 - fy, fy)
-    xd, yd = xi0 == xi1, yi0 == yi1
-
-    def wt(r, c):   # tap (row r, column c): kytpu's (1-fx)(1-fy), fx(1-fy) ..
-        return a[c] * b[r]
-
-    both = ((wt(0, 0) + wt(0, 1)) + wt(1, 0)) + wt(1, 1)
-    c_hi_first = ~xd & (xi1 < xi0)   # the lower column is tap column 1
-    r_hi_first = ~yd & (yi1 < yi0)
-    base = rec["img"] * th * tw
-    slots = []
-    for ra in (0, 1):
-        r = r_hi_first if ra == 0 else ~r_hi_first
-        for cb in (0, 1):
-            c = c_hi_first if cb == 0 else ~c_hi_first
-            ok = (~yd if ra else torch.ones_like(yd)) & (
-                ~xd if cb else torch.ones_like(xd))
-            w_rc = torch.where(r, torch.where(c, wt(1, 1), wt(1, 0)),
-                               torch.where(c, wt(0, 1), wt(0, 0)))
-            w_x = torch.where(r, wt(1, 0) + wt(1, 1), wt(0, 0) + wt(0, 1))
-            w_y = torch.where(c, wt(0, 1) + wt(1, 1), wt(0, 0) + wt(1, 0))
-            w = torch.where(xd & yd, both, torch.where(
-                xd, w_x, torch.where(yd, w_y, w_rc)))
-            wr = torch.where(yd, b[0] + b[1], torch.where(r, b[1], b[0]))
-            wc = torch.where(xd, a[0] + a[1], torch.where(c, a[1], a[0]))
-            idx = base + torch.where(r, yi1, yi0) * tw + torch.where(
-                c, xi1, xi0)
-            slots.append((torch.where(ok, idx, -1), w, wr, wc))
-    return slots
-
-
-def _image_color(rec, slots, timg) -> V3:
-    """The bilinear colour of an image row in the addition order of the
-    route kytpu takes for its atlas: the select chain adds the texels in
-    texel order, the separable route each row's two columns, then the
-    rows."""
-    def texel(idx):
-        return timg[idx.clamp_min(0)]
-
-    if not rec.get("sep"):
-        col = torch.zeros((slots[0][0].shape[0], 3), device=timg.device)
-        for idx, w, _, _ in slots:
-            col = col + _where0(idx >= 0, texel(idx) * w[:, None])
-        return V3(col[:, 0], col[:, 1], col[:, 2])
-    rows = []
-    for ra in (0, 1):
-        (i0, _, wr, wc0), (i1, _, _, wc1) = slots[2 * ra], slots[2 * ra + 1]
-        rs = texel(i0) * wc0[:, None] + _where0(i1 >= 0,
-                                                texel(i1) * wc1[:, None])
-        rows.append(_where0(i0 >= 0, rs * wr[:, None]))
-    col = rows[0] + rows[1]
-    return V3(col[:, 0], col[:, 1], col[:, 2])
-
-
-def _texel_entries(rec, slots, adj: torch.Tensor, onrow):
-    """K3's and K4's texel-tagged adjoint entries of one bounce: per slot
-    (the value (N, 3), the tag: texel + 1, or 0 off the row or for an unused
-    slot). The select chain's value is adj * w, the separable route's
-    (w_row * adj) * w_col, as kytpu's scatters form them."""
-    out = []
-    for idx, w, wr, wc in slots:
-        tag = torch.where(onrow & (idx >= 0), idx + 1, 0).to(torch.int32)
-        val = (adj * w[:, None] if not rec.get("sep")
-               else (wr[:, None] * adj) * wc[:, None])
-        out.append((_where0(tag > 0, val), tag))
-    return out
-
-
-def _textures_at(static, tables, sid, hp: V3, diffuse: V3):
-    """The textured rows' diffuse at hit hp (`_apply_textures`) -> (the
-    diffuse, [(rec, onrow, checker even mask or None, image (x, y) or None,
-    image slots or None)]), the hits kept for the cache and the adjoints."""
-    hits = []
-    for rec in static["textures"]:
-        onrow = sid == rec["row"]
-        if rec["kind"] == "image":
-            x, y = _image_xy(static, rec, hp)
-            slots = _image_taps(rec, x, y)
-            col = _image_color(rec, slots, tables.timg)
-            hits.append((rec, onrow, None, (x, y), slots))
-        else:
-            even = _checker_even(static, rec, hp)
-            t = rec["tex"]
-            ca, cb = tables.texa[t], tables.texb[t]
-            col = V3(*(torch.where(even, ca[c], cb[c]) for c in range(3)))
-            hits.append((rec, onrow, even, None, None))
-        diffuse = col.where(onrow, diffuse)
-    return diffuse, hits
-
-
-def _route_textures(hits, addc_diff, acc_ta, acc_tb, entries):
-    """The diffuse-value adjoint of a textured row goes to its texture:
-    a checker's to color_a or color_b by the hit's parity (per-lane
-    accumulators acc_ta, acc_tb (N, T, 3)), an image's to the four taps
-    (appended to `entries` as 4 slots a bounce); the row's diffuse-table
-    share is zeroed. -> the remaining diffuse adjoint (N, 3)."""
-    slot_entries = None
-    for rec, onrow, even, _, slots in hits:
-        if even is not None:
-            t = rec["tex"]
-            acc_ta[:, t] += _where0(onrow & even, addc_diff)
-            acc_tb[:, t] += _where0(onrow & ~even, addc_diff)
-        else:
-            ent = _texel_entries(rec, slots, addc_diff, onrow)
-            slot_entries = ent if slot_entries is None else [
-                (torch.where((t1 > 0)[:, None], v1, v0),
-                 torch.where(t1 > 0, t1, t0))
-                for (v0, t0), (v1, t1) in zip(slot_entries, ent)]
-        addc_diff = _where0(~onrow, addc_diff)
-    if entries is not None and slot_entries is not None:
-        entries.extend(slot_entries)
-    return addc_diff
 
 
 # ---------------------------------------------------------------------------
 # plain version: the forward kernel body
 # ---------------------------------------------------------------------------
-
-
-def _rng_keys(cfg: KernelConfig, n: int, seed: int, si, pix, device):
-    """(rng, tile_seed per lane, si of each lane's tile head or None)."""
-    tile = cfg.rows * LANE
-    lane_ids = torch.arange(n, dtype=torch.int64, device=device)
-    tile_id = lane_ids // tile
-    tile_seed = (seed + _mul32(tile_id, 2654435761 & 0x7FFFFFFF)) & _M32
-    if cfg.sampler in ("hash", "sobol"):
-        si_u, pix_u = _u32(si), _u32(pix)
-        ph = _pix_hash(pix_u, seed & _M32)
-        rng = (_Rng(None, None, sobol=(si_u, ph)) if cfg.sampler == "sobol"
-               else _Rng(_pix_hash(si_u, ph), None))
-        return rng, tile_seed, si_u[tile_id * tile]
-    return _Rng(tile_seed, lane_ids % tile), tile_seed, None
-
-
-def _kappa_dot(exponent, cos_alpha):
-    """d log f_phong / d e at a fixed direction, from the mirror dot:
-    1/(e+2) + log cos_alpha, clamped (kytpu's `_kappa_dot`). The one
-    definition behind every exponent adjoint: K2's "Bk"/"tuk" planes and
-    K4's accumulators use it. Callers mask it to phong lanes."""
-    cos_a = torch.clamp_min(cos_alpha, 1e-12)
-    return km.safe_div(1.0, exponent + 2.0) + torch.log(cos_a)
-
-
-def _kappa(exponent, wo_l: V3, wi_l: V3):
-    """`_kappa_dot` of the local mirror direction of wo_l and wi_l."""
-    return _kappa_dot(exponent, V3(-wo_l.x, -wo_l.y, wo_l.z).dot(wi_l))
-
-
-def _st(v: V3) -> torch.Tensor:
-    """V3 of (N,) planes -> (N, 3)."""
-    return torch.stack([v.x, v.y, v.z], dim=-1)
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1989,13 +1188,6 @@ def _row_add(acc, ok_tab, sid, val):
     acc[lanes, sc] = torch.where(ok, acc[lanes, sc] + val, acc[lanes, sc])
 
 
-def _where0(c, v: torch.Tensor) -> torch.Tensor:
-    """c ? v : 0 for (N,) masks and (N,) or (N, 3) values."""
-    if v.dim() == 2:
-        c = c[:, None]
-    return torch.where(c, v, torch.zeros_like(v))
-
-
 def _eligible(ok_tab, sid):
     """(N,) mask: the lane hit a row that ok_tab allows (False on a miss)."""
     return (sid >= 0) & ok_tab[sid.clamp_min(0).long()]
@@ -2007,10 +1199,10 @@ def _tagged_planes(dif, spc, de, dexp, sid) -> list:
     not take it, the rows that `_row_add` leaves untouched."""
     out = []
     for ok_tab, v in (dif, spc):
-        out.extend(_where0(_eligible(ok_tab, sid), v).unbind(1))
+        out.extend(where0(_eligible(ok_tab, sid), v).unbind(1))
     out.extend(de.unbind(1))
     if dexp is not None:
-        out.append(_where0(_eligible(dexp[0], sid), dexp[1]))
+        out.append(where0(_eligible(dexp[0], sid), dexp[1]))
     return out
 
 
@@ -2080,11 +1272,11 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                   if lt["kind"] == klights.ENV), None)
     occl_skips, sph_skips = _occl_skips(static, cfg)
     robust = cfg.shadow == "robust"
-    textured, has_img = bool(static["textures"]), _has_img(static)
+    textured, has_img = bool(static["textures"]), ktab.has_img(static)
 
     n = o.shape[0]
     dev = o.device
-    rng, tile_seed, si0 = _rng_keys(cfg, n, seed, si, pix, dev)
+    rng, tile_seed, si0 = rng_keys(cfg, n, seed, si, pix, dev)
 
     # per-row tables as lane gathers (the kernel reads the same values
     # from its flat table)
@@ -2130,7 +1322,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
         g = g.to(dev, torch.float32)
         r_tail = V3(*(big_l_in[:, c].to(dev, torch.float32)
                       for c in range(3)))
-        light_row = _light_rows(static)
+        light_row = ktab.light_rows(static)
         tagged = row_tagged(static)
         if tagged:
             # per bounce the hit row's adjoint planes and its tag; the NEE
@@ -2141,19 +1333,19 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             acc_d, acc_s, acc_e = (g.new_zeros((n, M, 3)) for _ in range(3))
             acc_x = g.new_zeros((n, M))
         acc_env = g.new_zeros((n, 3))
-        T = _n_tex(static)
+        T = ktab.n_tex(static)
         acc_ta, acc_tb = g.new_zeros((n, T, 3)), g.new_zeros((n, T, 3))
         entries = [] if has_img else None
 
     for bounce in range(cfg.max_depth + 1):
         t, sid, valid, nrm = _closest_hit(static, o, d)
-        t_safe = _where(valid, t, 1.0)
+        t_safe = where(valid, t, 1.0)
         hp = o + d * t_safe
         wo = -d
         facing = nrm.dot(wo) > 0.0
         emit_v = sel3(sid, tables.emission, rows_e)
         emit_mask = valid & facing
-        le = V3(*(_where(emit_mask, c, 0.0) for c in (emit_v.x, emit_v.y,
+        le = V3(*(where(emit_mask, c, 0.0) for c in (emit_v.x, emit_v.y,
                                                        emit_v.z)))
         if bounce == 0:
             full = True
@@ -2171,21 +1363,21 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                     pdf_l_hit = torch.where(li_idx == i, phits_prev[i],
                                             pdf_l_hit)
             else:
-                pdf_l_hit = _hit_light_pdf(lights, li_idx, o, d, t_safe, nrm)
+                pdf_l_hit = hit_light_pdf(lights, li_idx, o, d, t_safe, nrm)
             w_emit = km.safe_div(pdf_prev, pdf_prev + pdf_l_hit)
             if full is not False:
-                w_emit = _where(full, 1.0, w_emit)
-        wb = _where(alive, w_emit, 0.0)
+                w_emit = where(full, 1.0, w_emit)
+        wb = where(alive, w_emit, 0.0)
         e_term = le * wb
         big_l = big_l + beta * e_term
         if residual:
-            planes[res_ix[("wb", bounce)]] = _where(emit_mask, wb, 0.0)
+            planes[res_ix[("wb", bounce)]] = where(emit_mask, wb, 0.0)
         if replay:
-            gb = g * _st(beta)
-            de_b = gb * _where(emit_mask, wb, 0.0)[:, None]
+            gb = g * st(beta)
+            de_b = gb * where(emit_mask, wb, 0.0)[:, None]
             if tagged:
-                de_b = _where0(_eligible(rows_e, sid), de_b)
-                tags.append(_where(alive & valid, sid + 1, 0))
+                de_b = where0(_eligible(rows_e, sid), de_b)
+                tags.append(where(alive & valid, sid + 1, 0))
             else:
                 _row_add(acc_e, rows_e, sid, de_b)
 
@@ -2195,11 +1387,11 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             if full is True:
                 w_env = 1.0
             else:
-                pdf_env = _light_pdf(lights[env_i], o, nrm, d)
+                pdf_env = light_pdf(lights[env_i], o, nrm, d)
                 w_env = km.safe_div(pdf_prev, pdf_prev + pdf_env)
                 if full is not False:
-                    w_env = _where(full, 1.0, w_env)
-            wenv = _where(alive & ~valid, w_env, 0.0)
+                    w_env = where(full, 1.0, w_env)
+            wenv = where(alive & ~valid, w_env, 0.0)
             big_l = big_l + beta * env_v * wenv
             e_term = e_term + env_v * wenv
             if residual:
@@ -2209,7 +1401,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
 
         if bounce == cfg.max_depth:
             if residual:
-                ints[bounce] = _where(alive, pack_row(sid + 1), 0)
+                ints[bounce] = where(alive, pack_row(sid + 1), 0)
             if replay and tagged:
                 dplanes.extend(de_b.unbind(1))
             break
@@ -2220,8 +1412,8 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
         eta = row_of(sid, eta_tab, 0.0) if has_glass else 1.0
         diffuse = sel3(sid, tables.diffuse, rows_d)
         if textured:
-            diffuse, tex_hits = _textures_at(static, tables, sid, hp,
-                                             diffuse)
+            diffuse, tex_hits = textures_at(static, tables, sid, hp,
+                                            diffuse)
             # the live lanes' textured hits, for the cache and the adjoints
             tex_hits = [(rec, onrow & alive, *rest)
                         for rec, onrow, *rest in tex_hits]
@@ -2236,15 +1428,15 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             s_prob = row_of(sid, sprob_tab, 0.0)
             d_prob = row_of(sid, dprob_tab, 0.0)
             pick_spec = u_lobe < s_prob
-            plastic_kind = _where(pick_spec, torch.full_like(mk, kbsdf.PHONG),
-                                  kbsdf.LAMBERT)
+            plastic_kind = where(pick_spec, torch.full_like(mk, kbsdf.PHONG),
+                                 kbsdf.LAMBERT)
             inv_sp = km.div(1.0, torch.clamp_min(s_prob, 1e-12))
             inv_dp = km.div(1.0, torch.clamp_min(d_prob, 1e-12))
             plastic_col = (specular * inv_sp).where(pick_spec,
                                                     diffuse * inv_dp)
             lobe_is_phong = is_plastic & pick_spec
-            lobe_scale = _where(is_plastic,
-                                torch.where(pick_spec, inv_sp, inv_dp), 1.0)
+            lobe_scale = where(is_plastic,
+                               torch.where(pick_spec, inv_sp, inv_dp), 1.0)
         else:
             plastic_kind = torch.full_like(mk, kbsdf.LAMBERT)
             plastic_col = diffuse
@@ -2266,7 +1458,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             if kbsdf.PHONG in eval_lobes else None
         col_nee_tbl = specular.where(lobe_is_phong, diffuse) \
             if has_plastic else diffuse
-        col_nee = _st(col_nee_tbl)
+        col_nee = st(col_nee_tbl)
         nee_base = nee_act & ~color.is_black()
         ld = v3_zeros(o.x)
         if replay:
@@ -2280,18 +1472,18 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             routes its emission adjoint)."""
             nonlocal addc_diff, addc_spec, addx
             if has_plastic:
-                addc_spec = addc_spec + _where0(lobe_is_phong, addc)
-                addc_diff = addc_diff + _where0(~lobe_is_phong, addc)
+                addc_spec = addc_spec + where0(lobe_is_phong, addc)
+                addc_diff = addc_diff + where0(~lobe_is_phong, addc)
             else:
                 addc_diff = addc_diff + addc
             if texp:
-                addx = addx + _where0(lobe_is_phong,
-                                      _dot3(addc, col_nee) * kap)
+                addx = addx + where0(lobe_is_phong,
+                                     _dot3(addc, col_nee) * kap)
 
         if picks_one_light(cfg, L):
             u1, u2 = rng.uniform2()
             pick = _single_pick(tile_seed, bounce, si0, L)
-            smps = [_light_sample(lt, world_radius, hp, nrm, u1, u2)
+            smps = [light_sample(lt, world_radius, hp, nrm, u1, u2)
                     for lt in lights]
             sel = [pick == i for i in range(L)]
             wi, pdf_l, li_s, dist = smps[-1][0], smps[-1][1], \
@@ -2308,32 +1500,32 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             emit_pick = tables.light_emit[pick.long()]
             emit_l = V3(emit_pick[:, 0], emit_pick[:, 1], emit_pick[:, 2])
             wi_l = to_local(s_f, t_f, n_f, wi)
-            _, pdf_b, f_unit_e = _bsdf_eval_pdf(kind, color, exponent, wo_l,
-                                                wi_l, eval_lobes, static_exp)
+            _, pdf_b, f_unit_e = bsdf_eval_pdf(kind, color, exponent, wo_l,
+                                               wi_l, eval_lobes, static_exp)
             ucos = f_unit_e * torch.abs(wi_l.z)
             w = torch.where(is_delta_l, km.safe_div(1.0, pdf_l),
                             km.safe_div(1.0, pdf_l + pdf_b))
             ok = nee_base & (pdf_l > 0.0)
-            tm = dist - _SHADOW_EPS
+            tm = dist - SHADOW_EPS
             if robust:
-                tm = tm - _OFF * torch.abs(nrm.dot(wi))
-            occ = _any_hit(static, _offset_origin(hp, nrm, wi), wi, tm,
+                tm = tm - OFF * torch.abs(nrm.dot(wi))
+            occ = _any_hit(static, offset_origin(hp, nrm, wi), wi, tm,
                            skip_rows=frozenset.intersection(
                                *[frozenset(s) for s in static["occl_skip"]]),
                            skip_light=pick if robust else None)
-            okf = _where(ok & ~occ, w * _f32(L), 0.0)
+            okf = where(ok & ~occ, w * ktab.f32(L), 0.0)
             bp = li_s * ucos * okf * lobe_scale
             ld = col_nee_tbl * emit_l * bp
-            kap = _kappa(exponent, wo_l, wi_l) if texp else None
+            kap = kappa(exponent, wo_l, wi_l) if texp else None
             if residual:
                 planes[res_ix[("B", bounce, 0)]] = bp
                 if texp:
-                    planes[res_ix[("Bk", bounce, 0)]] = _where(
+                    planes[res_ix[("Bk", bounce, 0)]] = where(
                         lobe_is_phong, bp * kap, 0.0)
             if replay:
                 add = gb * col_nee * bp[:, None]
                 for i in range(L):
-                    val = _where0(sel[i], add)
+                    val = where0(sel[i], add)
                     if tagged:
                         acc_le[:, i] += val
                     elif i in light_row:
@@ -2346,16 +1538,16 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             azim = None
             if any(lt["kind"] in (klights.AREA_SPHERE, klights.ENV)
                    for lt in lights):
-                cphi_s = torch.cos(_TWO_PI * u2)
-                azim = (cphi_s, _sin_from_phi_cos(cphi_s, u2))
-            smps = [_light_sample(lt, world_radius, hp, nrm, u1, u2, azim)
+                cphi_s = torch.cos(TWO_PI * u2)
+                azim = (cphi_s, sin_from_phi_cos(cphi_s, u2))
+            smps = [light_sample(lt, world_radius, hp, nrm, u1, u2, azim)
                     for lt in lights]
             nds = [nrm.dot(smp[0]) for smp in smps]
             if all(smp[4] is not None for smp in smps):
                 phits_prev = [smp[4] for smp in smps]
             occs = _any_hit_multi(
                 static, hp, nrm,
-                [(smp[0], smp[3] - _SHADOW_EPS) for smp in smps],
+                [(smp[0], smp[3] - SHADOW_EPS) for smp in smps],
                 occl_skips, robust=robust, sphere_skips=sph_skips if robust
                 else None, nd=nds)
             for i, lt in enumerate(lights):
@@ -2364,7 +1556,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                             tables.light_emit[i, 2])
                 cos_aw = wr_w.dot(wi) if wr_w is not None \
                     else torch.zeros_like(o.x)
-                pdf_b, f_unit_e = _bsdf_eval_pdf_dots(
+                pdf_b, f_unit_e = bsdf_eval_pdf_dots(
                     kind, exponent, wo_l.z, nds[i], cos_aw, eval_lobes,
                     static_exp)
                 ucos = f_unit_e * torch.abs(nds[i])
@@ -2373,14 +1565,14 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                 else:
                     w = km.div(1.0, pdf_l + pdf_b)
                 ok = nee_base & (pdf_l > 0.0)
-                okf = _where(ok & ~occs[i], w * 1.0, 0.0)
+                okf = where(ok & ~occs[i], w * 1.0, 0.0)
                 bp = li_s * ucos * okf * lobe_scale
                 ld = ld + col_nee_tbl * emit_l * bp
-                kap = _kappa_dot(exponent, cos_aw) if texp else None
+                kap = kappa_dot(exponent, cos_aw) if texp else None
                 if residual:
                     planes[res_ix[("B", bounce, i)]] = bp
                     if texp:
-                        planes[res_ix[("Bk", bounce, i)]] = _where(
+                        planes[res_ix[("Bk", bounce, i)]] = where(
                             lobe_is_phong, bp * kap, 0.0)
                 if replay:
                     add = gb * col_nee * bp[:, None]
@@ -2397,7 +1589,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
 
         # extension sample
         u1, u2 = rng.uniform2()
-        f_s, wi_l, pdf_s, delta_s, f_unit_s, refract = _bsdf_sample(
+        f_s, wi_l, pdf_s, delta_s, f_unit_s, refract = bsdf_sample(
             kind, color, color2, eta, exponent, wo_l, u1, u2, lobes,
             static_exp)
         wi_w = to_world(s_f, t_f, n_f, wi_l)
@@ -2409,7 +1601,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
         scale = 1.0
         if bounce > cfg.rr_start:
             u_rr = rng.uniform()
-            q = torch.clamp_min(1.0 - beta_new.max_component(), _f32(0.05))
+            q = torch.clamp_min(1.0 - beta_new.max_component(), ktab.f32(0.05))
             kill = u_rr < q
             scale = km.safe_div(1.0, 1.0 - q)
             beta_new = beta_new * scale
@@ -2419,17 +1611,17 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
         to_spec_t = is_mirror | (is_glass & ~refract) | lobe_is_phong
         if residual or replay:
             t_unit = f_unit_s * km.safe_div(torch.abs(wi_l.z), pdf_s) * scale
-            tu_plane = _where(alive_n, t_unit * lobe_scale, 0.0)
-            kap_s = _kappa(exponent, wo_l, wi_l) if texp else None
+            tu_plane = where(alive_n, t_unit * lobe_scale, 0.0)
+            kap_s = kappa(exponent, wo_l, wi_l) if texp else None
         if residual:
             planes[res_ix[("tu", bounce)]] = tu_plane
             if texp:
-                planes[res_ix[("tuk", bounce)]] = _where(
+                planes[res_ix[("tuk", bounce)]] = where(
                     lobe_is_phong, tu_plane * kap_s, 0.0)
             packed = pack_row(sid + 1) + lobe_is_phong.to(torch.int32) * 256 \
                 + to_spec_t.to(torch.int32) * 512
             if pick_plane(cfg, L):
-                ints[cfg.max_depth + 1 + bounce] = _where(
+                ints[cfg.max_depth + 1 + bounce] = where(
                     alive, pick.to(torch.int32), 0)
             elif picks_one_light(cfg, L):
                 packed = packed + pick.to(torch.int32) * 2048
@@ -2444,21 +1636,21 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
             if has_img:
                 planes[res_ix[("tx", bounce)]] = tx
                 planes[res_ix[("ty", bounce)]] = ty
-            ints[bounce] = _where(alive, packed, 0)
+            ints[bounce] = where(alive, packed, 0)
         if replay:
             # R_{b+1} = (R_b - E_b) / T_b per channel, 0 where the path ends
-            t_eff = _where0(alive_n, _st(thr * scale))
-            r_next = _where0(alive_n, km.safe_div(_st(r_tail) - _st(e_term),
-                                                  t_eff))
+            t_eff = where0(alive_n, st(thr * scale))
+            r_next = where0(alive_n, km.safe_div(st(r_tail) - st(e_term),
+                                                 t_eff))
             addt = gb * r_next * tu_plane[:, None]
-            addc_spec = addc_spec + _where0(to_spec_t, addt)
-            addc_diff = addc_diff + _where0(~to_spec_t, addt)
+            addc_spec = addc_spec + where0(to_spec_t, addt)
+            addc_diff = addc_diff + where0(~to_spec_t, addt)
             if texp:
-                addx = addx + _where0(lobe_is_phong,
-                                      _dot3(addt, col_nee) * kap_s)
+                addx = addx + where0(lobe_is_phong,
+                                     _dot3(addt, col_nee) * kap_s)
             if textured:
-                addc_diff = _route_textures(tex_hits, addc_diff, acc_ta,
-                                            acc_tb, entries)
+                addc_diff = route_textures(tex_hits, addc_diff, acc_ta,
+                                           acc_tb, entries)
             if tagged:
                 dplanes.extend(_tagged_planes(
                     (rows_d, addc_diff), (rows_s, addc_spec), de_b,
@@ -2469,7 +1661,7 @@ def _trace_plain(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                 if texp:
                     _row_add(acc_x, rows_x, sid, addx)
             r_tail = V3(r_next[:, 0], r_next[:, 1], r_next[:, 2])
-        o = _offset_origin(hp, nrm, wi_w).where(alive_n, o)
+        o = offset_origin(hp, nrm, wi_w).where(alive_n, o)
         d = wi_w.where(alive_n, d)
         beta = beta_new.where(alive_n, beta)
         if has_delta:
@@ -2587,100 +1779,6 @@ def split_grads(vec: torch.Tensor, m_rows: int, texp: bool = False,
     return out
 
 
-# the segment sums' block and piece (csrc/tag_sums.cu SEG_THREADS, SEG_PIECE):
-# a block sums SEG_PIECE sorted entries of one tag, and a tag's pieces are
-# added in order
-SEG_THREADS = 512
-SEG_PIECE = 4096
-
-
-def sort_tags(tags: torch.Tensor, m_rows: int, mask: int = -1):
-    """The entries (plane j, lane i) of (J, N) integer tags, numbered
-    j * N + i, sorted by tag & mask (a stable sort of integer keys: each
-    tag's entries stay in plane, then lane order) -> (perm, starts): tag m's
-    entries are perm[starts[m]:starts[m + 1]], tag 0 the entries that go
-    nowhere. K7 and K8 tag by row + 1 (bits 0-19 of the int plane), K3's
-    and K4's texel entries by texel + 1. The plain version of `tag_sort`'s
-    kernel: torch.sort(stable=True), whose permutation the kernel gives to
-    the last index."""
-    ids = tags.reshape(-1).long() & mask
-    _, perm = torch.sort(ids, stable=True)
-    counts = torch.bincount(ids, minlength=m_rows + 1)
-    starts = torch.zeros(m_rows + 2, dtype=torch.int64, device=ids.device)
-    starts[1:] = torch.cumsum(counts, 0)
-    return perm, starts
-
-
-def _entry_values(dout, ent, n: int, B: int, PB: int):
-    """The PB adjoint columns of entries `ent` (any shape): dout's planes
-    PB*b .. PB*b+PB-1 at lane i for b < B; for b = B (K7's and K8's
-    horizon) 0, except de (columns 6-8) from its three planes."""
-    b = ent // n
-    lane = ent - b * n
-    col = torch.arange(PB, device=dout.device)
-    plane = torch.where(b[..., None] < B, PB * b[..., None] + col,
-                        PB * B + (col - 6).clamp(0, 2))
-    v = dout[plane, lane[..., None]]
-    keep = (b[..., None] < B) | ((col >= 6) & (col < 9))
-    return torch.where(keep, v, torch.zeros_like(v))
-
-
-def seg_pieces(starts):
-    """The segment sums' pieces of the sorted entries (csrc/tag_sums.cu):
-    tag m >= 1's entries cut into pieces of SEG_PIECE -> (piece_start (M +
-    1,): tag m's pieces start at piece_start[m - 1], piece_start[M] the
-    pieces in all; each piece's first sorted place and length)."""
-    S = SEG_PIECE
-    starts = starts.long()
-    lens = starts[2:] - starts[1:-1]
-    n_pc = (lens + S - 1) // S
-    piece_start = torch.zeros(len(lens) + 1, dtype=torch.int64,
-                              device=starts.device)
-    piece_start[1:] = torch.cumsum(n_pc, 0)
-    tag = torch.repeat_interleave(torch.arange(len(lens), device=starts.device),
-                                  n_pc)
-    first = starts[1 + tag] + (torch.arange(len(tag), device=starts.device)
-                               - piece_start[tag]) * S
-    return piece_start, first, torch.minimum(first + S, starts[2 + tag]) - first
-
-
-def segment_sums_plain(dout, perm, starts, n: int, B: int, PB: int):
-    """(M, PB) sums by tag, in the segment-sum kernels' order: each tag's
-    sorted entries (m >= 1) cut into pieces of SEG_PIECE (`seg_pieces`); in
-    each piece, thread t of a SEG_THREADS block adds its entries t, t +
-    SEG_THREADS, ... in turn (from 0.0), then the threads reduce as a tree
-    (off = SEG_THREADS/2 .. 1); then each tag's pieces are added in order
-    from 0.0. The same float additions in the same order as
-    csrc/tag_sums.cu."""
-    T = SEG_THREADS
-    M = len(starts) - 2
-    piece_start, first, plen = seg_pieces(starts)
-    perm = perm.long()
-    acc = dout.new_zeros((len(first), T, PB))
-    tid = torch.arange(T, device=dout.device)
-    for s0 in range(0, SEG_PIECE, T):
-        rows = (plen > s0).nonzero().reshape(-1)
-        if not len(rows):
-            break
-        pos = first[rows][:, None] + s0 + tid
-        valid = (s0 + tid) < plen[rows][:, None]
-        ent = perm[pos.clamp_max(len(perm) - 1)]
-        vals = _entry_values(dout, ent, n, B, PB)
-        acc[rows] = acc[rows] + torch.where(valid[..., None], vals,
-                                            torch.zeros_like(vals))
-    off = T // 2
-    while off:
-        acc[:, :off] = acc[:, :off] + acc[:, off:2 * off]
-        off //= 2
-    part = acc[:, 0]
-    n_pc = piece_start[1:] - piece_start[:-1]
-    out = dout.new_zeros((M, PB))
-    for j in range(int(n_pc.max()) if M else 0):
-        rows = (n_pc > j).nonzero().reshape(-1)
-        out[rows] = out[rows] + part[piece_start[rows] + j]
-    return out
-
-
 def per_bounce(cfg: KernelConfig) -> int:
     """Row-tagged adjoint planes a bounce below the horizon: dd, ds, de [,
     dexp]."""
@@ -2691,9 +1789,9 @@ def row_sums_plain(dout, tags, m_rows: int, cfg: KernelConfig):
     """Row-tagged planes dout (PB*max_depth + 3, N) summed by the row tags
     (max_depth + 1, N) (row + 1, 0 for none) in the segment-sum kernels'
     order -> (M, PB)."""
-    perm, starts = sort_tags(tags, m_rows)
-    return segment_sums_plain(dout, perm, starts, dout.shape[1],
-                              cfg.max_depth, per_bounce(cfg))
+    perm, starts = kts.sort_tags(tags, m_rows)
+    return kts.segment_sums_plain(dout, perm, starts, dout.shape[1],
+                                  cfg.max_depth, per_bounce(cfg))
 
 
 def tagged_grads(static, cfg: KernelConfig, seg, lane_sums,
@@ -2701,11 +1799,11 @@ def tagged_grads(static, cfg: KernelConfig, seg, lane_sums,
     """(M, PB) row sums and the lane sums env (3) | per-light emission (3L)
     [| dta | dtb (3T each)] -> (dd, ds, de, denv[, dexp][, dta, dtb]), the
     tables of `split_grads`: each light's NEE emission adjoint goes to its
-    emitting row (`light_rows`, default `_light_rows`), or to env for the
+    emitting row (`light_rows`, default `ktab.light_rows`), or to env for the
     environment light; point and directional lights get none. K3 and K4
     past DENSE_MAX_ROWS surfaces, K7 and K8."""
     L = len(static["lights"])
-    rows = _light_rows(static) if light_rows is None else light_rows
+    rows = ktab.light_rows(static) if light_rows is None else light_rows
     dd, ds, de = seg[:, 0:3], seg[:, 3:6], seg[:, 6:9].clone()
     denv = lane_sums[0:3]
     for i, lt in enumerate(static["lights"]):
@@ -2716,18 +1814,12 @@ def tagged_grads(static, cfg: KernelConfig, seg, lane_sums,
             denv = denv + dle
     out = (dd, ds, de, denv) + ((seg[:, 9],) if cfg.trainable_exponent
                                 else ())
-    T = _n_tex(static)
+    T = ktab.n_tex(static)
     if T:
         k = 3 + 3 * L
         out += (lane_sums[k:k + 3 * T].reshape(T, 3),
                 lane_sums[k + 3 * T:k + 6 * T].reshape(T, 3))
     return out
-
-
-def _texel_shape(static) -> tuple:
-    rec = next(r for r in static["textures"] if r["kind"] == "image")
-    return (static["n_texels"] // (rec["th"] * rec["tw"]), rec["th"],
-            rec["tw"], 3)
 
 
 def texel_sums_plain(static, entries, n: int) -> torch.Tensor:
@@ -2737,10 +1829,10 @@ def texel_sums_plain(static, entries, n: int) -> torch.Tensor:
     J = len(entries)
     dout = torch.stack([v for v, _ in entries]).permute(0, 2, 1).reshape(
         3 * J, n)
-    perm, starts = sort_tags(torch.stack([t for _, t in entries]),
-                             static["n_texels"])
-    return segment_sums_plain(dout, perm, starts, n, J, 3).reshape(
-        _texel_shape(static))
+    perm, starts = kts.sort_tags(torch.stack([t for _, t in entries]),
+                                 static["n_texels"])
+    return kts.segment_sums_plain(dout, perm, starts, n, J, 3).reshape(
+        texel_shape(static))
 
 
 def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
@@ -2784,7 +1876,7 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
                          f"take {res_n} and {n_int}")
     single = picks_one_light(cfg, L)
     has_env = any(lt["kind"] == klights.ENV for lt in lights)
-    light_row = _light_rows(static)
+    light_row = ktab.light_rows(static)
     texp = cfg.trainable_exponent
     n = g.shape[0]
     dev = g.device
@@ -2804,8 +1896,8 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         acc_e = g.new_zeros((n, M, 3))
         acc_x = g.new_zeros((n, M))
     acc_env = g.new_zeros((n, 3))
-    textured, has_img = bool(static["textures"]), _has_img(static)
-    T = _n_tex(static)
+    textured, has_img = bool(static["textures"]), ktab.has_img(static)
+    T = ktab.n_tex(static)
     acc_ta, acc_tb = g.new_zeros((n, T, 3)), g.new_zeros((n, T, 3))
     entries = [] if has_img else None
     emit_l = tables.light_emit
@@ -2824,7 +1916,7 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         wb = resf[res_ix[("wb", b)]][:, None]
         gb = g * beta
         if tagged:
-            de_b = _where0(_eligible(ok_e, sid), gb * wb)
+            de_b = where0(_eligible(ok_e, sid), gb * wb)
             tags.append(sid + 1)
         else:
             _row_add(acc_e, ok_e, sid, gb * wb)
@@ -2842,9 +1934,9 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         for rec in static["textures"]:
             onrow = sid == rec["row"]
             if rec["kind"] == "image":
-                slots = _image_taps(rec, resf[res_ix[("tx", b)]],
-                                    resf[res_ix[("ty", b)]])
-                col = _st(_image_color(rec, slots, tables.timg))
+                slots = image_taps(rec, resf[res_ix[("tx", b)]],
+                                   resf[res_ix[("ty", b)]])
+                col = st(image_color(rec, slots, tables.timg))
                 tex_hits.append((rec, onrow, None, None, slots))
             else:
                 even = (ib & 1024) != 0
@@ -2893,8 +1985,8 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
         addc_diff = torch.where(phong, 0.0, addc) + torch.where(to_spec, 0.0,
                                                                 addt)
         if textured:
-            addc_diff = _route_textures(tex_hits, addc_diff, acc_ta, acc_tb,
-                                        entries)
+            addc_diff = route_textures(tex_hits, addc_diff, acc_ta, acc_tb,
+                                       entries)
         addc_spec = torch.where(phong, addc, 0.0) \
             + torch.where(to_spec, addt, 0.0)
         if texp:
@@ -2936,35 +2028,14 @@ def bwd_res_plain(tables: SceneTables, cfg: KernelConfig, g: torch.Tensor,
 # the plain version
 # ---------------------------------------------------------------------------
 
-SAMPLERS = {"random": 0, "hash": 1, "sobol": 2}
-# the kernel keeps the sobol words of at most 4 draw sites a bounce in a
-# constant table (csrc/wavefront_fwd.cu MAX_SITES)
-MAX_SOBOL_DEPTH = 64
-
-
-def _i32(v: int) -> int:
-    return ((int(v) + (1 << 31)) % (1 << 32)) - (1 << 31)
-
 
 _TABLES = ("f", "i", "diffuse", "specular", "emission", "exponent",
            "light_emit", "env", "texa", "texb", "timg")
 
 
 def _check_tables(tables: SceneTables, dev):
-    for name in _TABLES + (("vis", "bnd") if tables.vis is not None else ()):
-        t = getattr(tables, name)
-        if t.device != dev:
-            raise ValueError(f"table {name} is on {t.device}, the lanes on "
-                             f"{dev}")
-        want = torch.int32 if name in ("i", "vis") else torch.float32
-        if not t.is_contiguous() or t.dtype != want:
-            raise ValueError(f"table {name} must be contiguous {want}")
-
-
-def _check_lane_tensor(name, t, shape, dtype, dev):
-    if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype:
-        raise ValueError(f"{name}: expected {shape} {dtype} on {dev}, got "
-                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    check_tables(tables, dev, _TABLES + (("vis", "bnd") if tables.vis
+                                         is not None else ()), ("i", "vis"))
 
 
 def _n_cols(tables: SceneTables, cfg: KernelConfig) -> int:
@@ -2973,10 +2044,10 @@ def _n_cols(tables: SceneTables, cfg: KernelConfig) -> int:
     lights' emission | dta | dtb (`tagged_grads`)."""
     static = tables.static
     if row_tagged(static):
-        return 3 + 3 * len(static["lights"]) + 6 * _n_tex(static)
+        return 3 + 3 * len(static["lights"]) + 6 * ktab.n_tex(static)
     m_rows = len(static["mats"]["kind"])
     return ((10 if cfg.trainable_exponent else 9) * m_rows + 3
-            + 6 * _n_tex(static))
+            + 6 * ktab.n_tex(static))
 
 
 def acc_columns(static, cfg: KernelConfig) -> np.ndarray:
@@ -2988,7 +2059,7 @@ def acc_columns(static, cfg: KernelConfig) -> np.ndarray:
     mats = static["mats"]
     kind = np.asarray(mats["kind"])
     light = np.asarray(mats["light_index"])
-    M, T = len(kind), _n_tex(static)
+    M, T = len(kind), ktab.n_tex(static)
 
     def rows(ok):
         return (3 * np.nonzero(ok)[0][:, None] + np.arange(3)).ravel()
@@ -3107,88 +2178,6 @@ def _row_outputs(tables: SceneTables, cfg: KernelConfig, n: int, dev):
             torch.empty((B + 1, n), dtype=torch.int32, device=dev))
 
 
-def _texel_outputs(tables: SceneTables, cfg: KernelConfig, n: int, dev):
-    """K3's and K4's texel entries (12 max_depth, n) and tags (4 max_depth,
-    n) where the scene has image textures, else (None, None)."""
-    if not _has_img(tables.static):
-        return None, None
-    J = 4 * cfg.max_depth
-    return (torch.empty((3 * J, n), dtype=torch.float32, device=dev),
-            torch.empty((J, n), dtype=torch.int32, device=dev))
-
-
-def tag_sort(tags: torch.Tensor, m_tags: int, mask: int = -1):
-    """`sort_tags`' stable sort of the int32 tags & mask, each in [0,
-    m_tags]: CUDA tags launch csrc/tag_sums.cu's radix sort -> (perm, starts)
-    int32, or raise; CPU tags run `sort_tags`."""
-    with kprof.kernel("tag_sort"):
-        if not _on_card(tags.device):
-            return sort_tags(tags, m_tags, mask)
-        return _launch_sort(tags, m_tags, mask)
-
-
-def _launch_sort(tags: torch.Tensor, m_tags: int, mask: int):
-    """`tag_sort` on CUDA tags."""
-    from kytpu_torch.kernels import build
-
-    if tags.dtype != torch.int32:
-        raise ValueError(f"tags must be int32, got {tags.dtype}")
-    tags = tags.contiguous()
-    dev, E = tags.device, tags.numel()
-    lib = build.load()
-    perm = torch.empty((E,), dtype=torch.int32, device=dev)
-    starts = torch.empty((m_tags + 2,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((max(1, lib.kytpu_tag_sort_scratch(E, m_tags)),),
-                          dtype=torch.int32, device=dev)
-    _run(lib.kytpu_tag_sort, "tag_sort", "tag_sort", dev, tags.data_ptr(),
-         mask, E, m_tags, perm.data_ptr(), starts.data_ptr(),
-         scratch.data_ptr(), scratch.numel())
-    return perm, starts
-
-
-def seg_sums(dout, perm, starts, n: int, B: int, PB: int):
-    """`segment_sums_plain`'s (M, PB) sums by tag of the entries of dout's
-    planes: CUDA tensors (int32 perm and starts from `tag_sort`) launch
-    csrc/tag_sums.cu's segment sums, the same bits, or raise; CPU tensors
-    run `segment_sums_plain`."""
-    with kprof.kernel("segment_sums"):
-        if not _on_card(dout.device):
-            return segment_sums_plain(dout, perm, starts, n, B, PB)
-        return _launch_seg(dout, perm, starts, n, B, PB)
-
-
-def _launch_seg(dout, perm, starts, n: int, B: int, PB: int):
-    """`seg_sums` on CUDA tensors."""
-    from kytpu_torch.kernels import build
-
-    for name, t, dt in (("dout", dout, torch.float32),
-                        ("perm", perm, torch.int32),
-                        ("starts", starts, torch.int32)):
-        if t.dtype != dt or t.device != dout.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dt} on "
-                             f"{dout.device}")
-    dev, E, M = dout.device, perm.numel(), len(starts) - 2
-    pieces = -(-E // SEG_PIECE) + M
-    piece_start = torch.empty((M + 1,), dtype=torch.int32, device=dev)
-    part = torch.empty((max(1, pieces), PB), dtype=torch.float32, device=dev)
-    out = torch.empty((M, PB), dtype=torch.float32, device=dev)
-    _run(build.load().kytpu_segment_sums, "segment_sums", "segment_sums",
-         dev, dout.data_ptr(), perm.data_ptr(), starts.data_ptr(),
-         piece_start.data_ptr(), part.data_ptr(), max(1, pieces),
-         out.data_ptr(), n, E, M, B, PB)
-    return out
-
-
-def segment_sums(dout, tags, m_tags: int, n_planes: int, n_cols: int,
-                 mask: int = -1):
-    """Tagged entries summed by tag & mask: the stable sort of the
-    (n_planes [+ 1], n) tags (`tag_sort`), then the segment sums
-    (`seg_sums`) -> (m_tags, n_cols), in `segment_sums_plain`'s order; on
-    the card, kernels only."""
-    perm, starts = tag_sort(tags, m_tags, mask)
-    return seg_sums(dout, perm, starts, dout.shape[1], n_planes, n_cols)
-
-
 def _grads_of(tables: SceneTables, cfg: KernelConfig, vec, tex, rows):
     """K3's or K4's outputs on the card -> (dd, ds, de, denv[, dexp][, dta,
     dtb][, dti]): the lane-summed vector split (`split_grads`), or past
@@ -3198,49 +2187,22 @@ def _grads_of(tables: SceneTables, cfg: KernelConfig, vec, tex, rows):
     static = tables.static
     if rows[1] is None:
         grads = split_grads(vec, len(static["mats"]["kind"]),
-                            cfg.trainable_exponent, _n_tex(static))
+                            cfg.trainable_exponent, ktab.n_tex(static))
     else:
-        grads = tagged_grads(static, cfg, segment_sums(
+        grads = tagged_grads(static, cfg, kts.segment_sums(
             *rows, len(static["mats"]["kind"]), cfg.max_depth,
             per_bounce(cfg)), vec)
     if tex[1] is None:
         return grads
-    seg = segment_sums(*tex, static["n_texels"], tex[1].shape[0], 3)
-    return grads + (seg.reshape(_texel_shape(static)),)
+    seg = kts.segment_sums(*tex, static["n_texels"], tex[1].shape[0], 3)
+    return grads + (seg.reshape(texel_shape(static)),)
 
 
 def _lanes(tables: SceneTables, cfg: KernelConfig, o, d, si, pix):
     """One launch's lanes, checked -> contiguous (o, d, si, pix) on o's
     device; si and pix are None under the "random" sampler."""
     _check_tables(tables, o.device)
-    return _lanes_checked(o, d, si, pix, cfg)
-
-
-def _lanes_checked(o, d, si, pix, cfg: KernelConfig):
-    """`_lanes` without the tables: the rays and lane ids of a launch."""
-    dev = o.device
-    n = o.shape[0]
-    if o.shape != (n, 3) or d.shape != (n, 3):
-        raise ValueError(f"rays must be (N, 3), got {tuple(o.shape)} and "
-                         f"{tuple(d.shape)}")
-    if d.device != dev:
-        raise ValueError(f"d is on {d.device}, o on {dev}")
-    if cfg.sampler == "sobol" and cfg.max_depth > MAX_SOBOL_DEPTH:
-        raise ValueError(f'sampler="sobol" takes max_depth <= '
-                         f"{MAX_SOBOL_DEPTH} on the card")
-    o = o.to(torch.float32).contiguous()
-    d = d.to(torch.float32).contiguous()
-    if cfg.sampler == "random":
-        return o, d, None, None
-    if si is None or pix is None:
-        raise ValueError(f'sampler="{cfg.sampler}" needs si and pix lane '
-                         'arrays')
-    si = si.to(device=dev, dtype=torch.int32).contiguous()
-    pix = pix.to(device=dev, dtype=torch.int32).contiguous()
-    if si.shape != (n,) or pix.shape != (n,):
-        raise ValueError(f"si and pix must be ({n},), got {tuple(si.shape)} "
-                         f"and {tuple(pix.shape)}")
-    return o, d, si, pix
+    return lanes_checked(o, d, si, pix, cfg)
 
 
 def _lane_ptrs(tables: SceneTables, o, d, si, pix) -> list:
@@ -3248,11 +2210,6 @@ def _lane_ptrs(tables: SceneTables, o, d, si, pix) -> list:
     return [getattr(tables, nm).data_ptr() for nm in _TABLES] + [
         o.data_ptr(), d.data_ptr(), None if si is None else si.data_ptr(),
         None if pix is None else pix.data_ptr()]
-
-
-def _cfg_args(cfg: KernelConfig, seed: int) -> list:
-    return [_i32(seed), cfg.max_depth, cfg.rr_start, cfg.rows,
-            SAMPLERS[cfg.sampler], int(cfg.shadow == "robust")]
 
 
 def _scene_args(tables: SceneTables, cfg: KernelConfig) -> list:
@@ -3294,17 +2251,6 @@ def refill_chunk(tables: SceneTables, cfg: KernelConfig, n: int,
     return chunk
 
 
-def _run(fn, name: str, kernel: str, dev, *args):
-    """fn(*args, stream) on dev's current stream, in the span
-    `kytpu::launch.<kernel>`; raises on a CUDA error, else counts the
-    launch of `kernel` (k1 ... k8, tag_sort, segment_sums, rays)."""
-    with torch.cuda.device(dev), kprof.span(f"kytpu::launch.{kernel}"):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    kprof.launched(kernel)
-
-
 def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
             residual: bool = False):
     """K1 (or K2 with residual=True) on CUDA lanes -> radiance (or
@@ -3325,9 +2271,9 @@ def _launch(tables: SceneTables, cfg: KernelConfig, o, d, seed, si, pix,
         args += [resf.data_ptr(), resi.data_ptr()]
     lib = build.load()
     name = "wavefront_fwd_res" if residual else "wavefront_fwd"
-    _run(getattr(lib, "kytpu_" + name), name, "k2" if residual else "k1",
-         dev, *args, n, *_cfg_args(cfg, seed), *_scene_args(tables, cfg),
-         *_cull_args(tables, cfg))
+    run(getattr(lib, "kytpu_" + name), name, "k2" if residual else "k1",
+        dev, *args, n, *cfg_args(cfg, seed), *_scene_args(tables, cfg),
+        *_cull_args(tables, cfg))
     return (out, resf, resi) if residual else out
 
 
@@ -3347,7 +2293,7 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
             ("resf", resf, (res_n, n), torch.float32),
             ("resi", resi, (int_planes(tables.static, cfg), n),
              torch.int32)):
-        _check_lane_tensor(name, t, shape, dt, dev)
+        check_lane_tensor(name, t, shape, dt, dev)
     _check_tables(tables, dev)
     g, big_l = g.contiguous(), big_l.contiguous()
     resf, resi = resf.contiguous(), resi.contiguous()
@@ -3355,22 +2301,22 @@ def _launch_bwd(tables: SceneTables, cfg: KernelConfig, g, big_l, resf,
     nb = max(1, -(-n // BWD_THREADS))
     partial = torch.empty((k, nb), dtype=torch.float32, device=dev)
     out = torch.empty((k_out,), dtype=torch.float32, device=dev)
-    tex = _texel_outputs(tables, cfg, n, dev)
+    tex = texel_outputs(tables, cfg, n, dev)
     rows = _row_outputs(tables, cfg, n, dev)
     route = acc_route(tables, cfg)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = build.load()
-    _run(lib.kytpu_wavefront_bwd_res, "wavefront_bwd_res", "k3", dev,
-         tables.i.data_ptr(), tables.diffuse.data_ptr(),
-         tables.specular.data_ptr(), tables.emission.data_ptr(),
-         tables.light_emit.data_ptr(), tables.env.data_ptr(),
-         tables.texa.data_ptr(), tables.texb.data_ptr(),
-         tables.timg.data_ptr(), g.data_ptr(), big_l.data_ptr(),
-         resf.data_ptr(), resi.data_ptr(), partial.data_ptr(),
-         ptr(_wide(tables, cfg, route, nb, dev)),
-         out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
-         acc_map(tables, cfg).data_ptr(), n, m_rows, k, k_out, cfg.max_depth,
-         int(bool(tables.static["textures"])), ACC_ROUTES.index(route))
+    run(lib.kytpu_wavefront_bwd_res, "wavefront_bwd_res", "k3", dev,
+        tables.i.data_ptr(), tables.diffuse.data_ptr(),
+        tables.specular.data_ptr(), tables.emission.data_ptr(),
+        tables.light_emit.data_ptr(), tables.env.data_ptr(),
+        tables.texa.data_ptr(), tables.texb.data_ptr(),
+        tables.timg.data_ptr(), g.data_ptr(), big_l.data_ptr(),
+        resf.data_ptr(), resi.data_ptr(), partial.data_ptr(),
+        ptr(_wide(tables, cfg, route, nb, dev)),
+        out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
+        acc_map(tables, cfg).data_ptr(), n, m_rows, k, k_out, cfg.max_depth,
+        int(bool(tables.static["textures"])), ACC_ROUTES.index(route))
     return _grads_of(tables, cfg, out, tex, rows)
 
 
@@ -3382,8 +2328,8 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
 
     o, d, si, pix = _lanes(tables, cfg, o, d, si, pix)
     n, dev = o.shape[0], o.device
-    _check_lane_tensor("g", g, (n, 3), torch.float32, dev)
-    _check_lane_tensor("L", big_l, (n, 3), torch.float32, dev)
+    check_lane_tensor("g", g, (n, 3), torch.float32, dev)
+    check_lane_tensor("L", big_l, (n, 3), torch.float32, dev)
     g, big_l = g.contiguous(), big_l.contiguous()
     k, k_out = _row_cols(tables, cfg), _n_cols(tables, cfg)
     # the launch's blocks: 4 warps each, a warp's chunk of lanes apiece
@@ -3392,19 +2338,19 @@ def _launch_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed, si,
     nb = max(1, -(-n // (chunk * BWD_THREADS // 32)))
     partial = torch.empty((k, nb), dtype=torch.float32, device=dev)
     out = torch.empty((k_out,), dtype=torch.float32, device=dev)
-    tex = _texel_outputs(tables, cfg, n, dev)
+    tex = texel_outputs(tables, cfg, n, dev)
     rows = _row_outputs(tables, cfg, n, dev)
     route = acc_route(tables, cfg, replay=True)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = build.load()
-    _run(lib.kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", "k4",
-         dev, *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(),
-         big_l.data_ptr(), partial.data_ptr(),
-         ptr(_wide(tables, cfg, route, nb, dev)),
-         out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
-         acc_map(tables, cfg).data_ptr(), n, k, k_out, *_cfg_args(cfg, seed),
-         *_scene_args(tables, cfg), ACC_ROUTES.index(route), nb,
-         *_cull_args(tables, cfg))
+    run(lib.kytpu_wavefront_bwd_replay, "wavefront_bwd_replay", "k4",
+        dev, *_lane_ptrs(tables, o, d, si, pix), g.data_ptr(),
+        big_l.data_ptr(), partial.data_ptr(),
+        ptr(_wide(tables, cfg, route, nb, dev)),
+        out.data_ptr(), *map(ptr, tex), *map(ptr, rows),
+        acc_map(tables, cfg).data_ptr(), n, k, k_out, *cfg_args(cfg, seed),
+        *_scene_args(tables, cfg), ACC_ROUTES.index(route), nb,
+        *_cull_args(tables, cfg))
     return _grads_of(tables, cfg, out, tex, rows)
 
 
@@ -3426,19 +2372,13 @@ def make_cuda_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None):
     return trace
 
 
-def _on_card(dev: torch.device) -> bool:
-    if dev.type in ("cuda", "cpu"):
-        return dev.type == "cuda"
-    raise ValueError(f"no kernel for device {dev}")
-
-
 def trace_lanes(tables: SceneTables, cfg: KernelConfig, o, d, seed: int,
                 si=None, pix=None, residual: bool = False):
     """K1 (K2 with residual=True, see `trace_lanes_plain` for what it
     returns): CUDA lanes launch the kernel or raise, CPU lanes run the
     plain version."""
     with kprof.kernel("k2" if residual else "k1"):
-        if _on_card(o.device):
+        if on_card(o.device):
             return _launch(tables, cfg, o, d, seed, si, pix, residual)
         return trace_lanes_plain(tables, cfg, o, d, seed, si, pix, residual)
 
@@ -3447,7 +2387,7 @@ def bwd_res(tables: SceneTables, cfg: KernelConfig, g, big_l, resf, resi):
     """K3 -> (dd, ds, de, denv[, dexp][, dta, dtb][, dti]): CUDA lanes
     launch the kernels or raise, CPU lanes run `bwd_res_plain`."""
     with kprof.kernel("k3"):
-        if _on_card(g.device):
+        if on_card(g.device):
             return _launch_bwd(tables, cfg, g, big_l, resf, resi)
         return bwd_res_plain(tables, cfg, g, big_l, resf, resi)
 
@@ -3459,7 +2399,7 @@ def bwd_replay(tables: SceneTables, cfg: KernelConfig, o, d, seed: int, si,
     upstream gradient g: CUDA lanes launch the kernels or raise, CPU lanes
     run `bwd_replay_plain`."""
     with kprof.kernel("k4"):
-        if _on_card(o.device):
+        if on_card(o.device):
             return _launch_replay(tables, cfg, o, d, seed, si, pix, g, big_l)
         return bwd_replay_plain(tables, cfg, o, d, seed, si, pix, g, big_l)
 
@@ -3471,45 +2411,11 @@ def render_lanes_cuda(scene, o, d, seed: int, cfg: KernelConfig | None = None,
     return make_cuda_tracer(scene, cfg)(scene, o, d, seed, si, pix)
 
 
-class _DiffTables:
-    """A diff tracer's scene: the geometry tables packed once, and the
-    colour (exponent, texture) tables of each call, NEE light emissions
-    derived from them; and the kernels the autograd Functions run on them
-    (looked up in this module at each call, so a caller may wrap them)."""
-
-    def __init__(self, scene: kscene.Scene, cfg: KernelConfig):
-        self.scene = scene
-        self.cfg = cfg
-        self.geo = self.pack(scene, cfg)
-        static = self.geo.static
-        self.textured = bool(static["textures"])
-        self.has_img = _has_img(static)
+class _DiffTables(kad.DiffTables):
+    """A diff tracer's tables for K1-K4: K1 or K2 forward, K3 or K4
+    backward (looked up in this module at each call)."""
 
     pack = staticmethod(pack_tables)
-
-    @kprof.spanned("kytpu::tables.colors")
-    def __call__(self, diffuse, specular, emission, env, exponent=None,
-                 texa=None, texb=None, timg=None):
-        dev = self.geo.f.device
-        f32 = lambda t: t.detach().to(device=dev,  # noqa: E731
-                                      dtype=torch.float32).contiguous()
-        emission = f32(emission)
-        env = f32(env).reshape(3)
-        tex = (_texture_tables(self.scene, texa, texb, timg) if self.textured
-               else {})
-        return dataclasses.replace(
-            self.geo, diffuse=f32(diffuse), specular=f32(specular),
-            emission=emission, env=env,
-            exponent=self.geo.exponent if exponent is None else f32(exponent),
-            light_emit=light_emit_of(self.scene, emission, env).contiguous(),
-            **tex)
-
-    def grad_names(self) -> tuple:
-        """The names of the backwards' outputs, in order."""
-        return (("dd", "ds", "de", "denv")
-                + (("dexp",) if self.cfg.trainable_exponent else ())
-                + (("dta", "dtb") if self.textured else ())
-                + (("dti",) if self.has_img else ()))
 
     def trace(self, tables, o, d, seed, si, pix, residual=False):
         return trace_lanes(tables, self.cfg, o, d, seed, si, pix,
@@ -3520,109 +2426,6 @@ class _DiffTables:
 
     def bwd_replay(self, tables, o, d, seed, si, pix, g, big_l):
         return bwd_replay(tables, self.cfg, o, d, seed, si, pix, g, big_l)
-
-
-# the Functions' table inputs after `tabs`, and the gradient of each
-_INPUT_GRADS = ("dd", "ds", "de", "dexp", "dta", "dtb", "dti", "denv")
-
-
-def _table_grads(ctx, grads):
-    """The backwards' outputs (`_DiffTables.grad_names`) -> the gradients
-    of the Functions' inputs (tabs, diffuse, specular, emission, exponent,
-    texa, texb, timg, env, o, d, seed, si, pix), None where no gradient
-    was asked for; the atlas gradient in the shape of the timg given."""
-    got = dict(zip(ctx.tabs.grad_names(), grads))
-    if "dti" in got:
-        got["dti"] = got["dti"].reshape(ctx.timg_shape)
-    need = ctx.needs_input_grad
-    return (None, *(got.get(nm) if need[1 + k] else None
-                    for k, nm in enumerate(_INPUT_GRADS)),
-            None, None, None, None, None)
-
-
-def _keep(ctx, tabs, tables, timg):
-    ctx.tables = tables
-    ctx.tabs = tabs
-    ctx.timg_shape = None if timg is None else timg.shape
-
-
-class _ResidualTrace(torch.autograd.Function):
-    """The forward launches the residual forward (K2, or the big-scene K6)
-    and keeps its cache when a table needs a gradient (K1 or K5 otherwise);
-    the backward launches the cache backward (K3 or K7): `tabs` says which.
-    Rays, seed and the lane ids get no gradient (geometry derivatives are
-    out of scope, as in the JAX package's detached-sampling estimator)."""
-
-    @staticmethod
-    def forward(ctx, tabs, diffuse, specular, emission, exponent, texa, texb,
-                timg, env, o, d, seed, si, pix):
-        tables = tabs(diffuse, specular, emission, env, exponent, texa, texb,
-                      timg)
-        if not any(ctx.needs_input_grad[1:9]):
-            return tabs.trace(tables, o, d, seed, si, pix)
-        big_l, resf, resi = tabs.trace(tables, o, d, seed, si, pix,
-                                       residual=True)
-        _keep(ctx, tabs, tables, timg)
-        ctx.save_for_backward(big_l, resf, resi)
-        return big_l
-
-    @staticmethod
-    def backward(ctx, g):
-        big_l, resf, resi = ctx.saved_tensors
-        return _table_grads(ctx, ctx.tabs.bwd_res(
-            ctx.tables, g.to(torch.float32).contiguous(), big_l, resf, resi))
-
-
-class _ReplayTrace(torch.autograd.Function):
-    """The forward launches K1 and, when a table needs a gradient, keeps
-    the lanes and the radiance (no cache: O(1) memory a lane beyond the
-    inputs); the backward launches K4, which re-traces the lanes."""
-
-    @staticmethod
-    def forward(ctx, tabs, diffuse, specular, emission, exponent, texa, texb,
-                timg, env, o, d, seed, si, pix):
-        tables = tabs(diffuse, specular, emission, env, exponent, texa, texb,
-                      timg)
-        big_l = tabs.trace(tables, o, d, seed, si, pix)
-        if any(ctx.needs_input_grad[1:9]):
-            _keep(ctx, tabs, tables, timg)
-            ctx.seed = seed
-            ctx.save_for_backward(o, d, si, pix, big_l)
-        return big_l
-
-    @staticmethod
-    def backward(ctx, g):
-        o, d, si, pix, big_l = ctx.saved_tensors
-        return _table_grads(ctx, ctx.tabs.bwd_replay(
-            ctx.tables, o, d, ctx.seed, si, pix,
-            g.to(torch.float32).contiguous(), big_l))
-
-
-def diff_tracer(tabs: _DiffTables, fn):
-    """fn(diffuse, specular, emission, [exponent,] [texa, texb,] [timg,]
-    env, o, d, seed[, si, pix]) over the autograd Function `fn` and the
-    tables `tabs` (kytpu's public argument order): the exponent is there
-    iff tabs.cfg.trainable_exponent, the checker colours texa, texb (T, 3)
-    iff the scene has texture records, the atlas timg (Ti, H, W, 3) iff it
-    has image textures."""
-    def trace(diffuse, specular, emission, *rest):
-        rest = list(rest)
-        exponent = (rest.pop(0) if tabs.cfg.trainable_exponent and rest
-                    else None)
-        texa = texb = timg = None
-        if tabs.textured and len(rest) > 1:
-            texa, texb = rest.pop(0), rest.pop(0)
-        if tabs.has_img and rest:
-            timg = rest.pop(0)
-        if len(rest) not in (4, 6):
-            raise TypeError("expected (env, o, d, seed[, si, pix]) after the "
-                            "tables")
-        env, o, d, seed, si, pix = rest + [None] * (6 - len(rest))
-        return fn.apply(tabs, diffuse, specular, emission, exponent, texa,
-                        texb, timg, env, o, d, seed, si, pix)
-
-    trace.tabs = tabs
-    return trace
 
 
 def make_cuda_diff_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None,
@@ -3653,11 +2456,9 @@ def make_cuda_diff_tracer(scene: kscene.Scene, cfg: KernelConfig | None = None,
     (no cache). CUDA tensors launch the kernels or raise, CPU tensors run
     their plain versions."""
     cfg = cfg or KernelConfig()
-    fn = {"residual": _ResidualTrace, "replay": _ReplayTrace}.get(backward)
-    if fn is None:
-        raise ValueError(f"unknown backward {backward!r}")
+    fn = kad.function_of(backward)
     check_config(cfg)
-    return diff_tracer(_DiffTables(scene, cfg), fn)
+    return kad.diff_tracer(_DiffTables(scene, cfg), fn)
 
 
 def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
@@ -3684,7 +2485,7 @@ def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
     k = max(1, min(spp, rays_per_pass // max(npix, 1)))
     # the key's words, krng.key(seed), stay on the host: "random" and
     # "hash" draw from them with one launch a pass (kernels/camera.py)
-    key = (0, seed & _M32)
+    key = (0, seed & M32)
     if cfg.sampler in ("hash", "sobol"):
         pid = torch.arange(npix, dtype=torch.int64, device=dev)
         pid_k = pid.repeat(k)
@@ -3709,11 +2510,11 @@ def render_cuda(scene: kscene.Scene, spp: int = 16, seed: int = 1234,
                     else:
                         o, d = kcam.lane_rays(cam, key, k * npix, npix,
                                               "hash", p * k)
-                    args = (seed, _as_i32(si & _M32), pid_k.to(torch.int32))
+                    args = (seed, as_i32(si & M32), pid_k.to(torch.int32))
                 else:
                     o, d = kcam.lane_rays(cam, krng.fold_in_words(key, p),
                                           k * npix, npix, "random")
-                    args = (_i32(seed + 7919 * p),)
+                    args = (i32(seed + 7919 * p),)
             out = tracer(scene, o, d, *args)
             accum = accum + out.reshape(k, npix, 3).sum(dim=0)
         s0 += k

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import shading as ksh
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.kernels.v3 import V3
 from kytpu_torch.scene import builders, mesh
@@ -230,7 +231,7 @@ def test_occluding_rows_pass_their_block(scene, robust):
         [0.002, 0.05, 1.0, 40.0], n)
     hp_t, ns_t, wi_t = _v3(hp), _v3(ns), _v3(wi)
     nd = ns_t.dot(wi_t)
-    se = kwf._where(nd < 0.0, -kbs._OFF, kbs._OFF)
+    se = ksh.where(nd < 0.0, -ksh.OFF, ksh.OFF)
     tm = torch.as_tensor(tmax.astype(np.float32))
     if robust:
         tm = tm - se * nd
@@ -286,7 +287,7 @@ def test_tree_nodes_hold_their_children(scene):
                                              width=8, height=8),
          "spd_balls": lambda: builders.spd_balls(width=8, height=8)}[scene]())
     nb = [-(-c // kbs.UNROLL) for c in tables.counts]
-    blocks = kbs.cull_bounds(tabs)[:sum(nb)]
+    blocks = kwf.cull_bounds(tabs)[:sum(nb)]
     bnd = tables.bnd.numpy().astype(np.float64)
     links = tables.links.numpy()
     assert len(bnd) == len(links)

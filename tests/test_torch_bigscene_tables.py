@@ -32,6 +32,8 @@ from kytpu_torch.core import rng as trng
 from kytpu_torch.diff import inverse as tinv
 from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import route as kroute
+from kytpu_torch.kernels import cull as kcull
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene import mesh as tm
@@ -127,10 +129,10 @@ def test_morton_and_block_bounds_match_kytpu():
     pts = rng.normal(size=(37, 3))
     lo, hi = pts.min(0), pts.max(0)
     np.testing.assert_array_equal(jbs._morton3(pts, lo, hi),
-                                  kbs._morton3(pts, lo, hi))
+                                  kcull.morton3(pts, lo, hi))
     radii = rng.random(37)
     np.testing.assert_array_equal(jbs._block_bounds(pts, radii),
-                                  kbs._block_bounds(pts, radii))
+                                  kcull.block_bounds(pts, radii))
     a = rng.random((13, 4)).astype(np.float32)
     np.testing.assert_array_equal(jbs._pad_rows(a), kbs._pad_rows(a))
 
@@ -241,6 +243,41 @@ def test_routing_matches_kytpu(name, monkeypatch):
     assert seen == (["render_cuda", "render_bigscene",
                      "make_bigscene_diff_tracer"] if tables
                     else ["render_cuda", "make_cuda_diff_tracer"])
+
+
+@pytest.mark.parametrize("engine", ["cuda", "bigscene"])
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_router_matches_kytpu(name, engine, monkeypatch):
+    """kernels/route.py picks the family kytpu's rule picks, the constructors
+    it calls looked up on their modules: under engine="cuda" the table
+    kernels past 64 surfaces where kytpu's `extract_tables` takes the scene
+    (no extraction at or below 64 surfaces), else K1-K4; under
+    engine="bigscene" the table kernels wherever `extract_tables` takes
+    the scene, and its refusal raised."""
+    jsc, tsc = ROUTES[name](jb), ROUTES[name](tb)
+    try:
+        jbs.extract_tables(jsc)
+        takes = True
+    except NotImplementedError:
+        takes = False
+    past = int(jsc.mat_kind.shape[0]) > 64
+    seen = []
+    for mod, nm in ((kbs, "extract_tables"), (kbs, "make_bigscene_tracer"),
+                    (kwf, "make_cuda_tracer")):
+        real = getattr(mod, nm)
+        monkeypatch.setattr(mod, nm, lambda *a, real=real, nm=nm, **k: (
+            seen.append(nm), real(*a, **k))[1])
+    cfg = kwf.KernelConfig(max_depth=1)
+    if engine == "bigscene" and not takes:
+        with pytest.raises(NotImplementedError):
+            kroute.tracer(tsc, cfg, engine)
+        return
+    kroute.tracer(tsc, cfg, engine)
+    if engine == "bigscene" or (takes and past):
+        assert seen == ["extract_tables", "make_bigscene_tracer"]
+    else:
+        assert seen == (["extract_tables"] if past else []) + [
+            "make_cuda_tracer"]
 
 
 def _lanes(sc, n, seed=0):

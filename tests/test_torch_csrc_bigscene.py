@@ -37,6 +37,8 @@ import pytest
 import torch
 
 from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import launch as klaunch
+from kytpu_torch.kernels import tables as ktab
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders, mesh
 from kytpu_torch.scene.scene import generate_rays
@@ -314,14 +316,15 @@ def _run(exe, path, mode, cull, tables, cfg, n, seed, res_n, n_cols):
         [str(exe), str(path), str(mode), str(int(bool(st["textures"]))),
          str(cull), str(n), *map(str, tables.counts),
          str(len(st["mats"]["kind"])), str(seed), str(cfg.max_depth),
-         str(cfg.rr_start), str(cfg.rows), str(kwf.SAMPLERS[cfg.sampler]),
-         str(int(cfg.shadow == "robust")), str(int(cfg.trainable_exponent)),
+         str(cfg.rr_start), str(cfg.rows),
+         str(klaunch.SAMPLERS[cfg.sampler]), str(int(cfg.shadow == "robust")),
+         str(int(cfg.trainable_exponent)),
          str(res_n), str(kbs._cull_args(tables, cfg)[1]), str(n_cols),
-         str(int(kwf._has_img(st)))], capture_output=True, text=True)
+         str(int(ktab.has_img(st)))], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     names = {0: ("out",), 1: ("out", "resf", "resi"),
              2: ("dout", "tags", "acc") + (
-                 ("tex_dout", "tex_tags") if kwf._has_img(st) else ())}[mode]
+                 ("tex_dout", "tex_tags") if ktab.has_img(st) else ())}[mode]
     return {nm: np.fromfile(path / nm, np.int32 if nm in (
         "resi", "tags", "tex_tags") else np.float32) for nm in names}
 
@@ -394,7 +397,7 @@ def test_culled_lane_body_matches_plain(big_exe, tmp_path, scene, sampler,
     _share_off(dout.T, ref[0].numpy().T, "K8 planes")
     _share_off(r8["acc"].reshape(n, n_cols), ref[1].numpy(), "K8 lane columns")
     assert (tags != ref[2].numpy()).any(0).mean() <= 0.005
-    if kwf._has_img(tables.static):
+    if ktab.has_img(tables.static):
         assert (r8["tex_tags"].reshape(-1, n) != 0).any()
     if texp:
         ix, _ = kbs.layout_of(tables.static, cfg)

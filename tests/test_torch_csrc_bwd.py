@@ -27,6 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+from kytpu_torch.kernels import shading as ksh
+from kytpu_torch.kernels import tables as ktab
+from kytpu_torch.kernels import tag_sums as kts
 from kytpu_torch.kernels import wavefront as kwf
 from tests.test_torch_csrc_lane import _lanes, _scene
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
@@ -145,7 +148,7 @@ def write_tables(tables, cfg, path: Path) -> None:
 def outputs(tables, cfg, n: int):
     """The per-bounce planes K3 and K4 write: (texel planes, row-tagged
     planes), 0 where the scene has none."""
-    tex = 4 * cfg.max_depth if kwf._has_img(tables.static) else 0
+    tex = 4 * cfg.max_depth if ktab.has_img(tables.static) else 0
     rows = (kwf.per_bounce(cfg) * cfg.max_depth + 3
             if kwf.row_tagged(tables.static) else 0)
     return tex, rows
@@ -173,15 +176,15 @@ def grads_of(tables, cfg, rows, path: Path, n: int):
             dout, tags, len(static["mats"]["kind"]), cfg), vec)
     else:
         grads = kwf.split_grads(vec, len(static["mats"]["kind"]),
-                                cfg.trainable_exponent, kwf._n_tex(static))
+                                cfg.trainable_exponent, ktab.n_tex(static))
     if not tex_planes:
         return grads
     dout = torch.from_numpy(np.fromfile(path / "tex_dout", np.float32)
                             .reshape(3 * tex_planes, n))
     tags = np.fromfile(path / "tex_tags", np.int32).reshape(tex_planes, n)
-    perm, starts = kwf.sort_tags(torch.from_numpy(tags), static["n_texels"])
-    seg = kwf.segment_sums_plain(dout, perm, starts, n, tex_planes, 3)
-    return grads + (seg.reshape(kwf._texel_shape(static)),)
+    perm, starts = kts.sort_tags(torch.from_numpy(tags), static["n_texels"])
+    seg = kts.segment_sums_plain(dout, perm, starts, n, tex_planes, 3)
+    return grads + (seg.reshape(ksh.texel_shape(static)),)
 
 
 def check_grads(got, ref, what: str, rtol=GRAD_RTOL, atol=GRAD_ATOL) -> None:

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from kytpu_torch.kernels import launch as klaunch
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.kernels.v3 import V3
 from kytpu_torch.scene import builders
@@ -254,8 +255,9 @@ class Run:
             [str(self.exe), str(self.path), str(self.mode),
              str(int(bool(st["textures"]))), str(self.n), str(self.seed),
              str(cfg.max_depth), str(cfg.rr_start), str(cfg.rows),
-             str(kwf.SAMPLERS[cfg.sampler]), str(int(cfg.shadow == "robust")),
-             str(self.res_n), str(kwf._scene_args(self.tables, cfg)[2]),
+             str(klaunch.SAMPLERS[cfg.sampler]),
+             str(int(cfg.shadow == "robust")), str(self.res_n),
+             str(kwf._scene_args(self.tables, cfg)[2]),
              str(int(cull)), str(self.k), *map(str, self.planes),
              str(int(warp))],
             capture_output=True, text=True)

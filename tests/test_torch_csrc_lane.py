@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from kytpu_torch.kernels import launch as klaunch
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
 from kytpu_torch.scene.scene import generate_rays
@@ -279,8 +280,9 @@ def test_lane_body_matches_plain(lane_exe, tmp_path, scene, sampler, nee,
         [str(lane_exe), str(tmp_path), str(int(residual)),
          str(int(bool(tables.static["textures"]))), str(int(shared)), str(n),
          str(seed), str(cfg.max_depth), str(cfg.rr_start), str(cfg.rows),
-         str(kwf.SAMPLERS[sampler]), str(int(shadow == "robust")),
-         str(res_n), str(chunk), str(kwf._scene_args(tables, cfg)[2])],
+         str(klaunch.SAMPLERS[sampler]),
+         str(int(shadow == "robust")), str(res_n), str(chunk),
+         str(kwf._scene_args(tables, cfg)[2])],
         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     got = np.fromfile(tmp_path / "out", np.float32).reshape(n, 3)

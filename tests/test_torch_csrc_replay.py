@@ -40,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from kytpu_torch.kernels import launch as klaunch
 from kytpu_torch.kernels import wavefront as kwf
 from tests.test_torch_csrc_bwd import (build_harness, check_grads, grads_of,
                                        outputs, write_tables)
@@ -251,8 +252,9 @@ def test_replay_lane_body_matches_plain(replay_exe, tmp_path, monkeypatch,
             [str(replay_exe), str(tmp_path),
              str(int(bool(tables.static["textures"]))), str(int(rowtag)),
              str(int(shared)), str(n), str(seed), str(cfg.max_depth),
-             str(cfg.rr_start), str(cfg.rows), str(kwf.SAMPLERS[sampler]),
-             str(int(shadow == "robust")), str(lanes_a_warp),
+             str(cfg.rr_start), str(cfg.rows),
+             str(klaunch.SAMPLERS[sampler]), str(int(shadow == "robust")),
+             str(lanes_a_warp),
              str(kwf._scene_args(tables, cfg)[2]), str(k), str(tex_planes),
              str(row_planes)],
             capture_output=True, text=True)

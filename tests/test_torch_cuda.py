@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from kytpu_torch.kernels import tag_sums as kts
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
 from kytpu_torch.scene.scene import generate_rays
@@ -607,8 +608,8 @@ def test_tag_sort_and_sums_on_card(cuda, kind):
     from tests.test_torch_tag_sums import tag_set
     tags, m_tags, mask, _ = tag_set(kind)
     tags = torch.from_numpy(tags).to(cuda)
-    perm, starts = kwf.tag_sort(tags, m_tags, mask)
-    want_perm, want_starts = kwf.sort_tags(tags, m_tags, mask)
+    perm, starts = kts.tag_sort(tags, m_tags, mask)
+    want_perm, want_starts = kts.sort_tags(tags, m_tags, mask)
     assert perm.dtype == starts.dtype == torch.int32
     assert torch.equal(perm.long(), want_perm)
     assert torch.equal(starts.long(), want_starts)
@@ -617,10 +618,10 @@ def test_tag_sort_and_sums_on_card(cuda, kind):
     planes = PB * J if PB == 3 else PB * B + 3
     dout = torch.randn((planes, n), device=cuda,
                        generator=torch.Generator(cuda).manual_seed(2))
-    got = kwf.seg_sums(dout, perm, starts, n, B, PB)
-    assert torch.equal(got, kwf.segment_sums_plain(dout, want_perm,
+    got = kts.seg_sums(dout, perm, starts, n, B, PB)
+    assert torch.equal(got, kts.segment_sums_plain(dout, want_perm,
                                                    want_starts, n, B, PB))
-    assert torch.equal(got, kwf.seg_sums(dout, perm, starts, n, B, PB))
+    assert torch.equal(got, kts.seg_sums(dout, perm, starts, n, B, PB))
 
 
 @pytest.mark.cuda

@@ -33,6 +33,7 @@ import torch
 
 from kytpu_torch.cli.inverse import demo_texture
 from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import shading as ksh
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
 from kytpu_torch.scene import shapes as kshapes
@@ -131,14 +132,14 @@ def _classes(static, vis, bnd):
     in the visit order: the planar rows, then the spheres."""
     n_pl, n_sp = len(static["planar"]), len(static["spheres"])
     nb = [-(-n_pl // kbs.UNROLL), -(-n_sp // kbs.UNROLL)]
-    sup0 = [sum(nb), sum(nb) + -(-nb[0] // kbs.SUPER)]
+    sup0 = [sum(nb), sum(nb) + -(-nb[0] // kwf.SUPER)]
     out = []
     for k, (name, n, off) in enumerate((("planar", n_pl, 0),
                                         ("sphere", n_sp, n_pl))):
         order = vis[off:off + n]
         blocks = []
         for b in range(nb[k]):
-            s = sup0[k] + b // kbs.SUPER
+            s = sup0[k] + b // kwf.SUPER
             blocks.append((b, order[b * kbs.UNROLL:(b + 1) * kbs.UNROLL],
                            torch.cat([bnd[sum(nb[:k]) + b:sum(nb[:k]) + b + 1],
                                       bnd[s:s + 1]])))
@@ -266,7 +267,7 @@ def test_occluding_rows_pass_their_block(scene, robust):
         [0.002, 0.05, 1.0, 40.0], n)
     hp_t, ns_t, wi_t = _v3(hp), _v3(ns), _v3(wi)
     nd = ns_t.dot(wi_t)
-    se = kwf._where(nd < 0.0, -kwf._OFF, kwf._OFF)
+    se = ksh.where(nd < 0.0, -ksh.OFF, ksh.OFF)
     tm = torch.as_tensor(tmax.astype(np.float32))
     # the kernels' tmax: robust shadows shorten it by the offset
     tm_k = tm - se * nd if robust else tm

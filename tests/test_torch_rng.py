@@ -12,7 +12,7 @@ import torch
 
 from kytpu.kernels import wavefront as jwf
 from kytpu_torch.core import rng as trng
-from kytpu_torch.kernels import wavefront as twf
+from kytpu_torch.kernels import shading as ksh
 from kytpu_torch.scene.scene import generate_rays
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
@@ -69,15 +69,15 @@ def test_pix_hash(seed):
     pid, si = _rand_i32(4096, 1), _rand_i32(4096, 2)
     ref = jwf._pix_hash(jnp.asarray(si),
                         jwf._pix_hash(jnp.asarray(pid), jnp.int32(seed)))
-    got = twf._pix_hash(twf._u32(torch.from_numpy(si)),
-                        twf._pix_hash(twf._u32(torch.from_numpy(pid)), seed))
+    got = ksh.pix_hash(ksh.u32(torch.from_numpy(si)),
+                       ksh.pix_hash(ksh.u32(torch.from_numpy(pid)), seed))
     np.testing.assert_array_equal(_u32(ref), got.numpy())
 
 
 def test_bits_to_unit():
     x = _rand_i32(4096, 3)
     ref = np.asarray(jwf._bits_to_unit(jnp.asarray(x)))
-    got = twf._bits_to_unit(twf._u32(torch.from_numpy(x))).numpy()
+    got = ksh.bits_to_unit(ksh.u32(torch.from_numpy(x))).numpy()
     np.testing.assert_array_equal(ref, got)
 
 
@@ -87,8 +87,8 @@ def test_tile_keyed_stream(seed):
     position, five draws of one 8x128 tile."""
     r = jwf._Rng(jnp.int32(seed), False)
     ref = [np.asarray(r.uniform((8, 128))).reshape(-1) for _ in range(5)]
-    t = twf._Rng(torch.full((1024,), seed & 0xFFFFFFFF, dtype=torch.int64),
-                 torch.arange(1024))
+    t = ksh.Rng(torch.full((1024,), seed & 0xFFFFFFFF, dtype=torch.int64),
+                torch.arange(1024))
     for a in ref:
         np.testing.assert_array_equal(a, t.uniform().numpy())
 
@@ -97,7 +97,7 @@ def test_per_lane_stream():
     """sampler="hash": the lowbias chain keyed per lane."""
     key = _rand_i32(1024, 4)
     r = jwf._Rng(jnp.asarray(key.reshape(8, 128)), False, per_lane=True)
-    t = twf._Rng(twf._u32(torch.from_numpy(key)), None)
+    t = ksh.Rng(ksh.u32(torch.from_numpy(key)), None)
     for _ in range(5):
         np.testing.assert_array_equal(
             np.asarray(r.uniform((8, 128))).reshape(-1), t.uniform().numpy())

@@ -3,9 +3,9 @@
 Bit for bit: core/lds.py's uint32 maps, rng.bits (jax.random.bits),
 rng.uniform/uniform2(..., "sobol", index) (kytpu's camera draw), and the
 in-kernel word maps (_rev_bits, _lk_hash, _superset_xor, _site_seeds) and
-the lane stream of the plain `_Rng` against kytpu's `_Rng(sobol=...)`. The
-(0,2) property of the in-kernel pair as tests/test_kernel.py:390-434
-states it, on the port's own maps.
+the lane stream of the plain `Rng` (kernels/shading.py) against kytpu's
+`_Rng(sobol=...)`. The (0,2) property of the in-kernel pair as
+tests/test_kernel.py:390-434 states it, on the port's own maps.
 
 Lane by lane: the plain K1 and K2 under sobol against kytpu's kernels in
 interpret mode (tolerance of test_torch_wavefront.py and
@@ -34,6 +34,7 @@ from kytpu_torch.core import lds as tlds
 from kytpu_torch.core import rng as trng
 from kytpu_torch.diff import inverse as tinv
 from kytpu_torch.integrator.render import render
+from kytpu_torch.kernels import shading as ksh
 from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.scene import builders as tb
 from tests.test_torch_wavefront import lanes_agree, trace_both
@@ -112,7 +113,7 @@ def test_in_kernel_word_maps_match_kytpu():
     x = _u32(4096, 5).view(np.int32)
     s = np.int32(-1234567)
     jx = jnp.asarray(x)
-    tx = twf._u32(torch.from_numpy(x))
+    tx = ksh.u32(torch.from_numpy(x))
     u32 = lambda a: np.asarray(a).astype(np.int64) & 0xFFFFFFFF  # noqa
     np.testing.assert_array_equal(u32(jwf._rev_bits(jx)),
                                   tlds.reverse_bits(tx).numpy())
@@ -120,20 +121,20 @@ def test_in_kernel_word_maps_match_kytpu():
                                   tlds.laine_karras(tx, int(s) & 0xFFFFFFFF)
                                   .numpy())
     np.testing.assert_array_equal(u32(jwf._superset_xor(jx)),
-                                  twf._superset_xor(tx).numpy())
+                                  ksh.superset_xor(tx).numpy())
     for ctr in range(64):
-        assert twf._site_seeds(ctr) == jwf._site_seeds(ctr)
+        assert ksh.site_seeds(ctr) == jwf._site_seeds(ctr)
 
 
 def test_in_kernel_stream_matches_kytpu():
-    """The plain `_Rng` sobol branch draws kytpu's values: uniform() and
+    """The plain `Rng` sobol branch draws kytpu's values: uniform() and
     uniform2() in a mixed order, 1024 lanes."""
     si = np.random.default_rng(1).integers(0, 5000, 1024).astype(np.int32)
     ph = _u32(1024, 2).view(np.int32)
     ref = jwf._Rng(np.int32(42), False, sobol=(jnp.asarray(si.reshape(8, 128)),
                                               jnp.asarray(ph.reshape(8, 128))))
-    got = twf._Rng(None, None, sobol=(twf._u32(torch.from_numpy(si)),
-                                      twf._u32(torch.from_numpy(ph))))
+    got = ksh.Rng(None, None, sobol=(ksh.u32(torch.from_numpy(si)),
+                                     ksh.u32(torch.from_numpy(ph))))
     for op in ("uniform", "uniform2", "uniform2", "uniform", "uniform2"):
         if op == "uniform":
             pairs = [(ref.uniform((8, 128)), got.uniform())]
@@ -159,10 +160,10 @@ def _assert_02(x, y, total):
 def test_in_kernel_pair_is_a_02_sequence():
     i = torch.arange(256, dtype=torch.int64)
     d0 = tlds.reverse_bits(i).numpy() / 2**32
-    d1 = tlds.reverse_bits(twf._superset_xor(i)).numpy() / 2**32
+    d1 = tlds.reverse_bits(ksh.superset_xor(i)).numpy() / 2**32
     _assert_02(d0, d1, 256)
-    rng = twf._Rng(None, None, sobol=(i, torch.full((256,), -1234567
-                                                    & 0xFFFFFFFF)))
+    rng = ksh.Rng(None, None, sobol=(i, torch.full((256,), -1234567
+                                                   & 0xFFFFFFFF)))
     u1, u2 = rng.uniform2()
     _assert_02(u1.numpy(), u2.numpy(), 256)
     # 1D sites are stratified too

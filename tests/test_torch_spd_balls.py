@@ -20,6 +20,7 @@ import torch
 
 from kytpu_torch.diff import inverse
 from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import route as kroute
 from kytpu_torch.light import lights as klights
 from kytpu_torch.scene import builders
 from perfbench import faults_table, harness
@@ -80,7 +81,7 @@ def test_floor_lights_and_camera():
 
 def test_the_step_takes_the_table_kernels(monkeypatch):
     scene = builders.spd_balls(2, 16, 12)
-    assert kbs.table_route(scene) is not None
+    assert kroute.tables_of(scene) is not None
     made = []
     real = kbs.make_bigscene_diff_tracer
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from kytpu_torch.kernels import bigscene as kbs
+from kytpu_torch.kernels import tag_sums as kts
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
@@ -91,7 +92,7 @@ def segment_sums_scalar(dout, perm, starts, n: int, B: int, PB: int):
     f32 = np.float32
     dn = dout.numpy()
     perm, starts = perm.tolist(), starts.tolist()
-    M, T, S = len(starts) - 2, kwf.SEG_THREADS, kwf.SEG_PIECE
+    M, T, S = len(starts) - 2, kts.SEG_THREADS, kts.SEG_PIECE
     ps = [0]
     for m in range(M):
         ps.append(ps[-1] + (starts[m + 2] - starts[m + 1] + S - 1) // S)
@@ -181,12 +182,12 @@ def test_radix_sort_is_torch_sort(kind):
     tags, m_tags, mask, n_pass = tag_set(kind)
     tags = torch.from_numpy(tags)
     perm, starts, passes = radix_sort_transcribed(tags, m_tags, mask)
-    want_perm, want_starts = kwf.sort_tags(tags, m_tags, mask)
+    want_perm, want_starts = kts.sort_tags(tags, m_tags, mask)
     assert passes == n_pass
     assert torch.equal(perm, want_perm)
     assert torch.equal(starts, want_starts)
     # the CPU wrapper is the plain version
-    got = kwf.tag_sort(tags, m_tags, mask)
+    got = kts.tag_sort(tags, m_tags, mask)
     assert all(torch.equal(a, b) for a, b in zip(got, (want_perm,
                                                          want_starts)))
 
@@ -204,14 +205,14 @@ def test_split_segment_sums(kind, B, PB):
     dout = torch.tensor(rng.standard_normal((planes, n)), dtype=torch.float32)
     tags = torch.from_numpy(tags)
     B = B if PB >= 9 else J
-    perm, starts = kwf.sort_tags(tags, m_tags, mask)
-    got = kwf.seg_sums(dout, perm, starts, n, B, PB)
+    perm, starts = kts.sort_tags(tags, m_tags, mask)
+    got = kts.seg_sums(dout, perm, starts, n, B, PB)
     want = segment_sums_scalar(dout, perm, starts, n, B, PB)
     assert np.array_equal(got.numpy(), want)
     ref = sums_f64(dout, tags & mask, m_tags, n, B, PB)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-4)
     if kind == "ground":
-        piece_start, _, _ = kwf.seg_pieces(starts)
+        piece_start, _, _ = kts.seg_pieces(starts)
         assert int(piece_start[7] - piece_start[6]) > 10
 
 
@@ -223,16 +224,16 @@ def test_segment_sums_one_piece_as_one_block():
     dout = torch.tensor(rng.standard_normal((9 * 2 + 3, n)),
                         dtype=torch.float32)
     tags = torch.from_numpy(rng.integers(0, 3, (3, n)).astype(np.int32))
-    perm, starts = kwf.sort_tags(tags, 2)
-    got = kwf.segment_sums_plain(dout, perm, starts, n, 2, 9)
-    vals = kwf._entry_values(dout, perm, n, 2, 9)
+    perm, starts = kts.sort_tags(tags, 2)
+    got = kts.segment_sums_plain(dout, perm, starts, n, 2, 9)
+    vals = kts.entry_values(dout, perm, n, 2, 9)
     for m in (1, 2):
         seg = vals[starts[m]:starts[m + 1]]
-        acc = torch.zeros(kwf.SEG_THREADS, 9)
-        for k in range(0, len(seg), kwf.SEG_THREADS):
-            chunk = seg[k:k + kwf.SEG_THREADS]
+        acc = torch.zeros(kts.SEG_THREADS, 9)
+        for k in range(0, len(seg), kts.SEG_THREADS):
+            chunk = seg[k:k + kts.SEG_THREADS]
             acc[:len(chunk)] = acc[:len(chunk)] + chunk
-        off = kwf.SEG_THREADS // 2
+        off = kts.SEG_THREADS // 2
         while off:
             acc[:off] = acc[:off] + acc[off:2 * off]
             off //= 2

@@ -8,7 +8,7 @@ which kytpu fetches through its select chain (at most 64 texels,
 power-of-two sides), and a 16x16 one, past the chain's cap, which it
 fetches through its separable matmul route. The port fetches both with one
 four-tap gather and keeps each route's addition order
-(kernels/wavefront.py `_image_color`).
+(kernels/shading.py `image_color`).
 
 - scene/texture.py: tables bit-identical to kytpu's; `eval_texture`
   within 1e-6 of kytpu's on random uv (two products and sums a texel);

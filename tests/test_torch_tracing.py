@@ -16,7 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 from kytpu_torch.core import rng as krng
 from kytpu_torch.diff.inverse import make_train_step
 from kytpu_torch.integrator.render import render
-from kytpu_torch.kernels import wavefront as kwf
+from kytpu_torch.kernels import launch as klaunch
 from kytpu_torch.scene import builders
 from kytpu_torch.utils import profiling as kprof
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
@@ -137,8 +137,8 @@ class _Stream:
 
 
 def test_launches_counted_where_launched(monkeypatch):
-    """A plain version on the CPU launches nothing; `_run`, the card's one
-    launch site (its CUDA context stood in for), counts a launch that
+    """A plain version on the CPU launches nothing; `launch.run`, the card's
+    one launch site (its CUDA context stood in for), counts a launch that
     returned no error, in its span `kytpu::launch.<k>`, and none that
     failed; `reset` clears the named kernels' counts."""
     before = dict(kprof.counters)
@@ -150,10 +150,10 @@ def test_launches_counted_where_launched(monkeypatch):
     kprof.reset()
     with _cpu_profile():
         with kprof.kernel("k1"):
-            kwf._run(lambda *a: 0, "wavefront_fwd", "k1", "cpu", 1, 2)
+            klaunch.run(lambda *a: 0, "wavefront_fwd", "k1", "cpu", 1, 2)
         with pytest.raises(RuntimeError, match="CUDA error 700"):
-            kwf._run(lambda *a: 700, "wavefront_bwd_res", "k3", "cpu")
-        kwf._run(lambda *a: 0, "tag_sort", "tag_sort", "cpu")
+            klaunch.run(lambda *a: 700, "wavefront_bwd_res", "k3", "cpu")
+        klaunch.run(lambda *a: 0, "tag_sort", "tag_sort", "cpu")
     assert _tree(kprof.spans()) == [
         ("kytpu::kernel.k1", None),
         ("kytpu::launch.k1", "kytpu::kernel.k1"),

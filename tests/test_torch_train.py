@@ -36,6 +36,7 @@ from kytpu_torch.diff import inverse as tinv
 from kytpu_torch.diff import params as tparams
 from kytpu_torch.integrator import path as tpath
 from kytpu_torch.integrator.render import render
+from kytpu_torch.kernels import bigscene as tbs
 from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.scene import builders as tb
 from kytpu_torch.scene.scene import generate_rays
@@ -171,10 +172,10 @@ def test_train_step_refuses_big_scenes(monkeypatch):
     plain versions here), and the loss falls."""
     sc = many_lights(tb, 64, 8, 6)   # 65 surfaces
     calls = []
-    real = tinv.kbs.make_bigscene_diff_tracer
-    monkeypatch.setattr(tinv.kbs, "make_bigscene_diff_tracer",
+    real = tbs.make_bigscene_diff_tracer
+    monkeypatch.setattr(tbs, "make_bigscene_diff_tracer",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    monkeypatch.setattr(tinv.kwf, "make_cuda_diff_tracer",
+    monkeypatch.setattr(twf, "make_cuda_diff_tracer",
                         lambda *a, **k: pytest.fail("routed to K2/K3"))
     target = tinv.render_once(sc, trng.key(3), 2, tpath.PathConfig(
         max_depth=2), device="cpu").detach()

@@ -24,6 +24,7 @@ from kytpu.kernels import wavefront as jwf
 from kytpu.kernels.v3 import V3 as JV3
 from kytpu.scene import builders as jb
 from kytpu.scene import scene as jscene
+from kytpu_torch.kernels import shading as ksh
 from kytpu_torch.kernels import wavefront as twf
 from kytpu_torch.kernels.v3 import V3 as TV3
 from kytpu_torch.scene import builders as tb
@@ -156,7 +157,7 @@ def test_shadow_masks(scene_pair, robust):
     # the single-light sweep from the offset origin
     if rays_j:
         o_j = jwf._offset_origin(_jv(hp), _jv(nrm), rays_j[0][0])
-        o_t = twf._offset_origin(_tv(hp), _tv(nrm), rays_t[0][0])
+        o_t = ksh.offset_origin(_tv(hp), _tv(nrm), rays_t[0][0])
         np.testing.assert_array_equal(
             np.asarray(jwf._any_hit(static, o_j, rays_j[0][0], rays_j[0][1])),
             twf._any_hit(ts, o_t, rays_t[0][0], rays_t[0][1]).numpy())
@@ -173,8 +174,8 @@ def test_light_samples(scene_pair):
     for lj, lt in zip(static["lights"], ts["lights"]):
         sj = jwf._light_sample(lj, static["world_radius"], _jv(p), _jv(n),
                                jnp.asarray(u1), jnp.asarray(u2))
-        st = twf._light_sample(lt, ts["world_radius"], _tv(p), _tv(n),
-                               torch.from_numpy(u1), torch.from_numpy(u2))
+        st = ksh.light_sample(lt, ts["world_radius"], _tv(p), _tv(n),
+                              torch.from_numpy(u1), torch.from_numpy(u2))
         np.testing.assert_allclose(_np(sj[0]), _np(st[0]), atol=2e-5)
         for k in (1, 2, 3):
             np.testing.assert_allclose(
@@ -187,12 +188,12 @@ def test_light_samples(scene_pair):
             np.asarray(jwf._hit_light_pdf(static["lights"], jnp.asarray(li),
                                           _jv(p), _jv(n), jnp.asarray(t),
                                           _jv(n))),
-            twf._hit_light_pdf(ts["lights"], torch.from_numpy(li), _tv(p),
-                               _tv(n), torch.from_numpy(t), _tv(n)).numpy(),
+            ksh.hit_light_pdf(ts["lights"], torch.from_numpy(li), _tv(p),
+                              _tv(n), torch.from_numpy(t), _tv(n)).numpy(),
             rtol=2e-3, atol=1e-5)
         np.testing.assert_allclose(
             np.asarray(jwf._light_pdf(lj, _jv(p), _jv(n), sj[0])),
-            twf._light_pdf(lt, _tv(p), _tv(n), st[0]).numpy(),
+            ksh.light_pdf(lt, _tv(p), _tv(n), st[0]).numpy(),
             rtol=2e-3, atol=1e-5)
 
 
@@ -212,10 +213,10 @@ def test_bsdf_sample(kind, static_exp):
                            jnp.asarray(eta), jnp.asarray(expo), _jv(wo),
                            jnp.asarray(u1), jnp.asarray(u2),
                            static_exp=static_exp)
-    got = twf._bsdf_sample(torch.full((N,), kind), _tv(col), _tv(col2),
-                           torch.from_numpy(eta), torch.from_numpy(expo),
-                           _tv(wo), torch.from_numpy(u1), torch.from_numpy(u2),
-                           static_exp=static_exp)
+    got = ksh.bsdf_sample(torch.full((N,), kind), _tv(col), _tv(col2),
+                          torch.from_numpy(eta), torch.from_numpy(expo),
+                          _tv(wo), torch.from_numpy(u1), torch.from_numpy(u2),
+                          static_exp=static_exp)
     np.testing.assert_allclose(_np(ref[0]), _np(got[0]), rtol=2e-4, atol=1e-5)
     np.testing.assert_allclose(_np(ref[1]), _np(got[1]), atol=2e-5)
     np.testing.assert_allclose(np.broadcast_to(np.asarray(ref[2]), (N,)),
@@ -233,8 +234,8 @@ def test_bsdf_eval():
     for kind in (jbsdf.LAMBERT, jbsdf.PHONG):
         ref = jwf._bsdf_eval_pdf(jnp.full(N, kind, jnp.int32), _jv(col),
                                  jnp.asarray(expo), _jv(wo), _jv(wi))
-        got = twf._bsdf_eval_pdf(torch.full((N,), kind), _tv(col),
-                                 torch.from_numpy(expo), _tv(wo), _tv(wi))
+        got = ksh.bsdf_eval_pdf(torch.full((N,), kind), _tv(col),
+                                torch.from_numpy(expo), _tv(wo), _tv(wi))
         np.testing.assert_allclose(_np(ref[0]), _np(got[0]), rtol=2e-4,
                                    atol=1e-6)
         np.testing.assert_allclose(np.asarray(ref[1]), got[1].numpy(),
