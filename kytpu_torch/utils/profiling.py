@@ -23,7 +23,10 @@ launch itself runs in the span `kytpu::launch.<k>`, nested in the span
 `kytpu::kernel.<k>` of the dispatch wrapper that chose it (`kernel(k)`),
 so the launch span's device interval is the kernel's alone and the
 wrapper's also holds the host's preparation of its arguments; the camera
-rays' launch nests directly in `kytpu::rays`.
+rays' launch nests directly in `kytpu::rays`. `tables.frame.reused` and
+`tables.frame.packed` (kernels/route.py `frame`, always on, the CPU's
+frames too) count the frames that reused a kept tracer and those that
+packed their tables; `reset` leaves them.
 
 `kernel.<k>.rows`, `kernel.<k>.sweeps` and `kernel.<k>.bounds` (k5, k6,
 k8: the table kernels' sweeps, csrc/bigscene_fwd.cu: the rows each lane's

@@ -230,7 +230,8 @@ def test_routing_matches_kytpu(name, monkeypatch):
     seen = []
     for mod, nm in ((kbs, "make_bigscene_diff_tracer"),
                     (kwf, "make_cuda_diff_tracer"),
-                    (kbs, "render_bigscene"), (kwf, "render_cuda")):
+                    (kbs, "make_bigscene_tracer"),
+                    (kwf, "make_cuda_tracer"), (kwf, "render_cuda")):
         real = getattr(mod, nm)
         monkeypatch.setattr(mod, nm, lambda *a, real=real, nm=nm, **k: (
             real(*a, **k), seen.append(nm))[0])
@@ -239,10 +240,11 @@ def test_routing_matches_kytpu(name, monkeypatch):
              else ("mat_diffuse",))
     tinv.make_train_step(tsc, np.zeros((8, 8, 3), np.float32), max_depth=1,
                          device="cpu", names=names)
-    # render_bigscene runs its passes through render_cuda with K5's tracer
-    assert seen == (["render_cuda", "render_bigscene",
+    # a frame runs its passes through render_cuda with its family's tracer
+    assert seen == (["make_bigscene_tracer", "render_cuda",
                      "make_bigscene_diff_tracer"] if tables
-                    else ["render_cuda", "make_cuda_diff_tracer"])
+                    else ["make_cuda_tracer", "render_cuda",
+                          "make_cuda_diff_tracer"])
 
 
 @pytest.mark.parametrize("engine", ["cuda", "bigscene"])

@@ -676,3 +676,43 @@ def test_camera_rays_launches_on_card(cuda):
         for i in range(3):
             step(krng.fold_in(krng.key(0), i))
         assert kprof.launches("rays") == 3 * per_step, sampler
+
+
+@pytest.mark.cuda
+def test_frame_reuses_its_tables_on_card(cuda, monkeypatch):
+    """Veach's second frame on the card (the scene on the card, as the
+    benchmark renders it) reads the key of its tables in one synchronising
+    copy and packs nothing, launches K1 as often as the first frame, which
+    packed, and gives that frame's bits; a frame with an empty cache, too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kytpu_torch.integrator.render import render
+    from kytpu_torch.kernels import route as kroute
+
+    monkeypatch.setattr(kroute, "_frames", [])
+    sc = builders.veach_mis(128, 77).to(cuda)
+    frame = dict(spp=8, seed=9, rays_per_pass=128 * 77 * 2, device=cuda)
+    k1 = kprof.launches("k1")
+    first = render(sc, **frame)
+    per_frame = kprof.launches("k1") - k1
+    assert per_frame == 4
+    with kprof.span("kytpu::unrecorded"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        second = render(sc, **frame)
+    assert kprof.launches("k1") - k1 == 2 * per_frame
+    recs = kprof.spans()
+    tables = {i for i, r in enumerate(recs)
+              if r.name.startswith("kytpu::tables.")}
+    assert "kytpu::tables.pack" not in {recs[i].name for i in tables}
+    syncs = 0
+    for i, r in enumerate(recs):
+        up, p = {i}, r.parent
+        while p is not None:
+            up.add(p)
+            p = recs[p].parent
+        syncs += r.syncs if up & tables else 0
+    assert syncs <= 1
+    assert torch.equal(second, first)
+    kroute._frames.clear()
+    assert torch.equal(render(sc, **frame), first)

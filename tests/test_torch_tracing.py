@@ -17,6 +17,7 @@ from kytpu_torch.core import rng as krng
 from kytpu_torch.diff.inverse import make_train_step
 from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import launch as klaunch
+from kytpu_torch.kernels import route as kroute
 from kytpu_torch.scene import builders
 from kytpu_torch.utils import profiling as kprof
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
@@ -80,18 +81,24 @@ def test_train_step_span_tree():
     assert recs[0].host_ms > 0
 
 
-def test_frame_span_tree():
-    with _cpu_profile():
-        render(SCENE, **FRAME)
-    recs = kprof.spans()
+def test_frame_span_tree(monkeypatch):
+    """A frame of a scene not seen before packs its tables; the next frame
+    of the same scene reuses them, its lookup alone in the tables' spans."""
+    monkeypatch.setattr(kroute, "_frames", [])
     one_pass = [("kytpu::pass", "kytpu::render.frame"),
                 ("kytpu::rays", "kytpu::pass"),
                 ("kytpu::tables.colors", "kytpu::pass"),
                 ("kytpu::kernel.k1", "kytpu::pass")]
-    assert _tree(recs) == [("kytpu::render.frame", None),
-                           ("kytpu::tables.pack", "kytpu::render.frame")
-                           ] + one_pass + one_pass
-    assert {r.call for r in recs} == {0}
+    for packs in (True, False):
+        with _cpu_profile():
+            render(SCENE, **FRAME)
+        recs = kprof.spans()
+        assert _tree(recs) == [
+            ("kytpu::render.frame", None),
+            ("kytpu::tables.frame", "kytpu::render.frame")] + (
+                [("kytpu::tables.pack", "kytpu::render.frame")] if packs
+                else []) + one_pass + one_pass
+        assert {r.call for r in recs} == {0}
 
 
 def test_spans_are_the_profilers_user_annotations():
@@ -141,10 +148,14 @@ def test_launches_counted_where_launched(monkeypatch):
     one launch site (its CUDA context stood in for), counts a launch that
     returned no error, in its span `kytpu::launch.<k>`, and none that
     failed; `reset` clears the named kernels' counts."""
-    before = dict(kprof.counters)
+    def launch_counts():
+        return {k: v for k, v in kprof.counters.items()
+                if k.startswith("kernel.")}
+
+    before = launch_counts()
     render(SCENE, **FRAME)
     _step()(krng.key(6))
-    assert kprof.counters == before
+    assert launch_counts() == before
     monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream)
     kprof.reset()
