@@ -310,10 +310,15 @@ Phases, one line each (a few for phase 3):
      launched and K2 and K3 not; the step's own K6 and K7 on its first 64K
      lanes against their plain versions (the bounds of phase 3, and
      whether bit for bit), K6 culled against cull="off" bit for bit, K6's
-     counters (kernel.k6.rows, .sweeps, .bounds, read in a profiled
-     launch) equal to `swept_counts`, the kernel's tree walk worked out
-     from the plain K6's rays, printed first; K6 and K7 timed at the
-     step's 1,048,576 lanes.
+     counters (kernel.k6.rows, .sweeps, .bounds, .rows.tri, .bounds.tri,
+     read in a profiled launch) equal to `swept_counts`, the kernel's tree
+     walk worked out from the plain K6's rays, printed first; K6 and K7
+     timed at the step's 1,048,576 lanes.
+  17. SPD's tetrahedral pyramid (`tetra`; builders.spd_tetra at factors 4
+     and 6: 256 and 4,096 matte triangles and a floor, 512x512, the
+     benchmark's spd_tetra.tri_train4 step), run alone by `python3
+     chip_smoke.py tetra`: phase 16's checks at each factor, the
+     counters' tri class share equal to the replay's.
 The line before the last is the kernels' JSON record (K1-K8, the tag
 sort, the segment sums and the camera rays, whose launches are phases 4's
 and 7's; each main path that sums by tag must launch
@@ -652,8 +657,9 @@ class CullTally:
 
 def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                  warp: int = 32, stats: dict | None = None) -> tuple:
-    """(rows, sweeps, bounds): what csrc/bigscene_fwd.cu's counters add on
-    these lanes (`kernel.<k>.rows`, `.sweeps`, `.bounds`), worked out from
+    """(rows, sweeps, bounds, tri rows, tri bounds): what
+    csrc/bigscene_fwd.cu's counters add on these lanes (`kernel.<k>.rows`,
+    `.sweeps`, `.bounds`, `.rows.tri`, `.bounds.tri`), worked out from
     the rays the plain K6 traces (kbs._closest_hit and kbs._occluded
     wrapped while it runs) with the kernel's tree walk (`walk`): each lane
     of a sweep (the live ones for the closest hit, those with a wanted
@@ -669,7 +675,8 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
     a leaf phase, which tests each lane's first pending block. rows: the
     rows of the largest such block of each leaf phase, bounds: the node
     steps, both times the warp's lanes in the sweep; sweeps: the lanes in
-    each sweep. stats, where given, gets "lane_rows" and "lane_bounds" (a
+    each sweep; tri rows and tri bounds: rows and bounds of the walks of
+    the tri class's tree alone. stats, where given, gets "lane_rows" and "lane_bounds" (a
     lane's own rows and node steps, summed over its sweeps), "phases" (leaf
     phases, summed over the warps' sweeps), "blocks" (the distinct blocks
     of each leaf phase, summed likewise), "ops" (the FP32 operations of
@@ -692,7 +699,8 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
     for c in range(4):
         start.append(start[-1] + (int(links[start[-1], 0]) - start[-1]
                                   if nbs[c] else 0))
-    tot = {"rows": 0, "sweeps": 0, "bounds": 0}
+    tot = {"rows": 0, "sweeps": 0, "bounds": 0, "tri_rows": 0,
+           "tri_bounds": 0}
     st = {"lane_rows": 0, "lane_bounds": 0, "phases": 0, "blocks": 0,
           "ops": 0.0}
     # k5_ops' costs of a row: closest hit, shadow ray, shared terms
@@ -780,8 +788,12 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                 dead = lf[~alive]
                 done[dead] = True
                 buf[dead] = -1
-        tot["bounds"] += int((nodes_w * n_w).sum())
-        tot["rows"] += int((rows_w * n_w).sum())
+        bounds, rows = int((nodes_w * n_w).sum()), int((rows_w * n_w).sum())
+        tot["bounds"] += bounds
+        tot["rows"] += rows
+        if c == 0:
+            tot["tri_bounds"] += bounds
+            tot["tri_rows"] += rows
 
     real_hit, real_occ = kbs._closest_hit, kbs._occluded
 
@@ -889,7 +901,8 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
         for b in range(cfg.max_depth - 1))) * (62 + 6 + 134 * n_l + 90)
     if stats is not None:
         stats.update(st)
-    return tot["rows"], tot["sweeps"], tot["bounds"]
+    return (tot["rows"], tot["sweeps"], tot["bounds"], tot["tri_rows"],
+            tot["tri_bounds"])
 
 
 def same_as_cull_off_wf(tables, cfg, lanes, g, got, tag: str) -> None:
@@ -3476,8 +3489,8 @@ def main() -> None:
     # the culled count: K5's work with each sweep culled by the lane's own
     # walk; K8 adds its adjoint terms to it
     walk = {}
-    w_rows, w_sweeps, w_bounds = swept_counts(tables, bcfg, o, d, 7,
-                                              stats=walk)
+    w_rows, w_sweeps, w_bounds, *_ = swept_counts(tables, bcfg, o, d, 7,
+                                                  stats=walk)
     del walk["plain"]   # the peaks below hold their own cache, not this
     ops5c, ops8c = walk["ops"], walk["ops"] + (ops8 - ops5)
     # the forward+backward's peak holds its own cache, not these
@@ -3580,8 +3593,8 @@ def main() -> None:
         lambda: kbs.trace_lanes(mtab, off, mo, md, 7), 3)
     same_bits(mk5, mk5_off, "mesh K5 against cull='off' at 1M lanes")
     mwalk = {}
-    m_rows, m_sweeps, m_bounds = swept_counts(mtab, bcfg, mo, md, 7,
-                                              stats=mwalk)
+    m_rows, m_sweeps, m_bounds, *_ = swept_counts(mtab, bcfg, mo, md, 7,
+                                                  stats=mwalk)
     del mwalk["plain"]
     m_bound = bound_ms(n_big * (24 + 12), mwalk["ops"])
     del mk5, mk5_off, mo, md
@@ -4445,8 +4458,8 @@ def main() -> None:
     ops5t = k5_ops(tables, resf, bcfg)
     ops8t = k8_ops(tables, resf, bcfg)
     twalk = {}
-    t_rows, t_sweeps, t_bounds = swept_counts(tables, bcfg, o, d, 7,
-                                              stats=twalk)
+    t_rows, t_sweeps, t_bounds, *_ = swept_counts(tables, bcfg, o, d, 7,
+                                                  stats=twalk)
     del twalk["plain"]
     t_cache = resf.numel() * 4 + resi.numel() * 4
     PB = 9
@@ -4523,6 +4536,9 @@ def main() -> None:
 
     # 16. the sphereflake at its published size
     sphereflake(smi)
+
+    # 17. the tetrahedral pyramid: the triangle rows past 64 surfaces
+    tetra(smi)
 
     src = "kytpu_torch/kernels/csrc/"
     tex_steps = [sum(tl[k] for tl in tex_train.values()) for k in (1, 2)]
@@ -4607,16 +4623,41 @@ def main() -> None:
 
 def sphereflake(smi: str) -> None:
     """Phase 16: SPD's sphereflake (builders.spd_balls(), 7,382 surfaces)
-    at its published 512x512 through make_train_step(engine="cuda") at its
-    default 4 spp, depth 5, names ("mat_diffuse", "mat_specular",
-    "env_radiance_"), the benchmark's spd_balls.table_train4 step: the
-    launches of three steps (K6 and K7 only), the step's own K6 and K7
-    calls on their first 64K lanes against the plain versions (the bounds
-    of phase 3, and whether bit for bit), K6 culled against cull="off" bit
-    for bit, the counters of a recorded K6 launch against `swept_counts`
-    to the count (printed first), and K6 and K7 (with
-    the sort and sums) timed at the step's 1,048,576 lanes under CUDA
-    events."""
+    at its published 512x512, the benchmark's spd_balls.table_train4 step
+    (`table_step` with names ("mat_diffuse", "mat_specular",
+    "env_radiance_"))."""
+    from kytpu_torch.scene import builders
+
+    table_step(smi, "sphereflake", builders.spd_balls,
+               ("mat_diffuse", "mat_specular", "env_radiance_"))
+
+
+def tetra(smi: str) -> None:
+    """Phase 17: SPD's tetrahedral pyramid (builders.spd_tetra), 4,096 matte
+    triangles of the tri class and a floor at its published size factor 6,
+    and 256 at factor 4 (257 surfaces), at 512x512: the benchmark's
+    spd_tetra.tri_train4 step (`table_step` with names ("mat_diffuse",
+    "env_radiance_")), the triangle rows of K6's walk and K7's sums into
+    Lambertian rows."""
+    from kytpu_torch.scene import builders
+
+    for factor in (4, 6):
+        table_step(smi, f"tetra {factor}",
+                   lambda f=factor: builders.spd_tetra(f),
+                   ("mat_diffuse", "env_radiance_"))
+
+
+def table_step(smi: str, label: str, build, names) -> None:
+    """A scene past 64 surfaces (`build()` at 512x512) through
+    make_train_step(engine="cuda") at its default 4 spp, depth 5, training
+    `names` from the scene's diffuse x0.8 and sky x1.2 towards its own
+    4-spp frame: the launches of three steps (K6 and K7 only), the step's
+    own K6 and K7 calls on their first 64K lanes against the plain
+    versions (the bounds of phase 3, and whether bit for bit), K6 culled
+    against cull="off" bit for bit, the counters of a recorded K6 launch,
+    the tri class's share included, against `swept_counts` to the count
+    (printed first), and K6 and K7 (with the sort and sums) timed at the
+    step's 1,048,576 lanes under CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
     from kytpu_torch.core import rng as krng
@@ -4624,14 +4665,12 @@ def sphereflake(smi: str) -> None:
     from kytpu_torch.integrator.render import render
     from kytpu_torch.kernels import bigscene as kbs
     from kytpu_torch.kernels import wavefront as kwf
-    from kytpu_torch.scene import builders
 
     t_phase = time.perf_counter()
-    scene = builders.spd_balls()
+    scene = build()
     target = render(scene, spp=4, seed=7, cfg=kwf.KernelConfig(max_depth=5),
                     clamp=False, engine="cuda")
-    names = ("mat_diffuse", "mat_specular", "env_radiance_")
-    start = builders.spd_balls()
+    start = build()
     start = dataclasses.replace(start, mat_diffuse=start.mat_diffuse * 0.8,
                                 env_radiance_=start.env_radiance_ * 1.2)
     step, params, _ = make_train_step(start, target, spp=4, max_depth=5,
@@ -4643,10 +4682,11 @@ def sphereflake(smi: str) -> None:
     torch.cuda.synchronize()
     got = {k: kprof.launches(k) for k in ("k2", "k3", "k5", "k6", "k7")}
     if got["k6"] != 3 or got["k7"] != 3 or got["k2"] or got["k3"]:
-        raise AssertionError(f"the sphereflake step launched {got}")
+        raise AssertionError(f"the {label} step launched {got}")
     step_ms, _ = wall_ms(lambda: step(krng.fold_in(key, 9)).item())
-    print(f"sphereflake: {int(scene.mat_kind.shape[0])} surfaces, 512x512, 4 "
-          f"spp, depth 5: 3 steps launched {got}, losses "
+    print(f"{label}: {int(scene.mat_kind.shape[0])} surfaces, "
+          f"{scene.camera.width}x{scene.camera.height}, 4 spp, depth 5: 3 "
+          f"steps launched {got}, losses "
           f"{[round(x, 6) for x in losses]}, {step_ms:.2f} ms a step; on "
           f"{smi}", flush=True)
     tabs, (kcfg, o, d, seed, si, pix), kw, k6 = seen["trace_lanes"]
@@ -4658,11 +4698,12 @@ def sphereflake(smi: str) -> None:
     t0 = time.perf_counter()
     own = {}
     walked = swept_counts(tabs, kcfg, *lanes, stats=own)
-    print(f"sphereflake: replay of the step's first {n} lanes, a "
+    print(f"{label}: replay of the step's first {n} lanes, a "
           f"lane-sweep ({walked[1]} lane-sweeps): tree walk (arity "
           f"{kbs.ARITY}, {kbs.LEAF_BUF} pending blocks) "
-          f"{walked[0] / walked[1]:.1f} rows, "
-          f"{walked[2] / walked[1]:.1f} node steps of the warp; a lane's own "
+          f"{walked[0] / walked[1]:.1f} rows ({walked[3] / walked[1]:.1f} "
+          f"of the tri class), {walked[2] / walked[1]:.1f} node steps "
+          f"({walked[4] / walked[1]:.1f}) of the warp; a lane's own "
           f"{own['lane_rows'] / walked[1]:.1f} rows, "
           f"{own['lane_bounds'] / walked[1]:.1f} node steps; "
           f"{own['blocks'] / max(own['phases'], 1):.2f} distinct blocks a "
@@ -4672,39 +4713,37 @@ def sphereflake(smi: str) -> None:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     mine = kbs.trace_lanes(tabs, kcfg, *lanes, residual=True)
-    share, err, _ = compare(mine[0], ref[0], "sphereflake K6")
+    share, err, _ = compare(mine[0], ref[0], f"{label} K6")
     cerr = compare_cache(mine[1], mine[2], ref[1], ref[2],
-                         "sphereflake K6 cache")
+                         f"{label} K6 cache")
     k6_bits = all(torch.equal(a, b) for a, b in zip(mine, ref))
     k7_mine = kbs.bwd_res(btabs, kcfg, g[:n].contiguous(), mine[0], mine[1],
                           mine[2])
     k7_ref = kbs.bwd_res_plain(btabs, kcfg, g[:n].contiguous(), *ref)
-    gerr = compare_grads(k7_mine, k7_ref, "sphereflake K7")
+    gerr = compare_grads(k7_mine, k7_ref, f"{label} K7")
     k7_bits = all(torch.equal(a, b) for a, b in zip(k7_mine, k7_ref))
     off = dataclasses.replace(kcfg, cull="off")
     same_bits(mine, kbs.trace_lanes(tabs, off, *lanes, residual=True),
-              "sphereflake K6 culled against cull='off'")
+              f"{label} K6 culled against cull='off'")
     kprof.reset("k6")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         kbs.trace_lanes(tabs, kcfg, *lanes, residual=True)
         torch.cuda.synchronize()
     counted = kprof.device_counts()
-    rows, sweeps, bounds = (counted.get("kernel.k6.rows"),
-                            counted.get("kernel.k6.sweeps"),
-                            counted.get("kernel.k6.bounds"))
-    if (rows, sweeps, bounds) != walked:
-        raise AssertionError(f"sphereflake K6's counters read {rows} rows "
-                             f"and {bounds} node steps over {sweeps} "
-                             f"lane-sweeps; the replay {walked}")
-    print(f"sphereflake: the step's K6 and K7 on its first {n} lanes: K6 "
+    counts = tuple(counted.get(f"kernel.k6.{k}") for k in kprof.SWEPT)
+    if counts != walked:
+        raise AssertionError(f"{label} K6's counters {kprof.SWEPT} read "
+                             f"{counts}; the replay {walked}")
+    rows, sweeps, bounds, tri_rows, tri_bounds = counts
+    print(f"{label}: the step's K6 and K7 on its first {n} lanes: K6 "
           f"{share:.5f} of lanes outside the bound (max |err| {err:.3g}), "
           f"cache max |err| {cerr:.3g}, bit for bit: {k6_bits}; K7 max |err| "
           f"{gerr:.3g}, bit for bit: {k7_bits}; K6 culled = cull 'off' bit "
-          f"for bit; the counters {rows} rows and {bounds} node steps over "
-          f"{sweeps} lane-sweeps ({rows / max(sweeps, 1):.1f} rows of "
-          f"{sum(tabs.counts)} and {bounds / max(sweeps, 1):.1f} node steps "
-          f"a lane-sweep) = the replay; plain K6 {plain_ms:.1f} ms",
-          flush=True)
+          f"for bit; the counters {rows} rows ({tri_rows} tri) and {bounds} "
+          f"node steps ({tri_bounds} tri) over {sweeps} lane-sweeps "
+          f"({rows / max(sweeps, 1):.1f} rows of {sum(tabs.counts)} and "
+          f"{bounds / max(sweeps, 1):.1f} node steps a lane-sweep) = the "
+          f"replay; plain K6 {plain_ms:.1f} ms", flush=True)
     full = (o, d, seed, si, pix)
     k6_ms, _ = cuda_time_ms(lambda: kbs.trace_lanes(tabs, kcfg, *full,
                                                     residual=True), 3)
@@ -4715,12 +4754,15 @@ def sphereflake(smi: str) -> None:
         kbs.trace_lanes(tabs, kcfg, *full, residual=True)
         torch.cuda.synchronize()
     counted = kprof.device_counts()
-    got = {k: counted[f"kernel.k6.{k}"] for k in ("rows", "sweeps", "bounds")}
-    print(f"sphereflake: at the step's {o.shape[0]} lanes K6 {k6_ms:.3f} ms, "
+    got = {k: counted[f"kernel.k6.{k}"] for k in kprof.SWEPT}
+    print(f"{label}: at the step's {o.shape[0]} lanes K6 {k6_ms:.3f} ms, "
           f"K7 with its sort and sums {k7_ms:.3f} ms; "
-          f"{got['rows'] / got['sweeps']:.1f} rows and "
-          f"{got['bounds'] / got['sweeps']:.1f} node steps a lane-sweep; phase "
-          f"{time.perf_counter() - t_phase:.1f} s; on {smi}", flush=True)
+          f"{got['rows'] / got['sweeps']:.1f} rows "
+          f"({got['rows.tri'] / got['sweeps']:.1f} tri) and "
+          f"{got['bounds'] / got['sweeps']:.1f} node steps "
+          f"({got['bounds.tri'] / got['sweeps']:.1f} tri) a lane-sweep; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; on {smi}",
+          flush=True)
 
 
 class _LastLine:
@@ -4742,15 +4784,16 @@ class _LastLine:
 if __name__ == "__main__":
     sys.stdout = out = _LastLine(sys.stdout)
     try:
-        if sys.argv[1:] == ["sphereflake"]:
-            # phase 16 alone, after the device and the build
+        if sys.argv[1:] in (["sphereflake"], ["tetra"]):
+            # phase 16 or 17 alone, after the device and the build
             from kytpu_torch.kernels import build as kbuild
             kbuild.load()
             smi_line = subprocess.run(
                 ["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"], capture_output=True, text=True,
                 check=True).stdout.strip().splitlines()[0]
-            sphereflake(smi_line)
+            {"sphereflake": sphereflake, "tetra": tetra}[sys.argv[1]](
+                smi_line)
         else:
             main()
     except Exception:

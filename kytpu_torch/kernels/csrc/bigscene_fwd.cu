@@ -122,9 +122,12 @@
 // thread takes part in (the closest hit of a live lane, the occlusion sweep
 // of a lane with a shadow ray) it counts one sweep, its warp's node steps
 // and, for each leaf phase, the rows of the largest block tested in it:
-// the rows its warp tested for it; where a.swept is not null the warp sums
-// the three at its exit and adds them there once. Untraced launches pass
-// null: one uniform branch skips the counts and the maxima.
+// the rows its warp tested for it; of those, the tri class's share
+// (kernel.<k>.rows.tri, .bounds.tri: the rows and node steps of the walks
+// of the tri tree). Where a.swept is not null the launch runs the kernel's
+// counting instance (COUNT), whose warps sum the five counts at their exit
+// and add them there once; an untraced launch passes null and runs the
+// instance that holds no count.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -172,15 +175,18 @@ struct BigArgs {
   // K8 past its local row (LOCAL_COLS): the blocks' accumulators in device
   // memory, n_cols * THREADS floats a block; else null
   float* wide;
-  // the rows swept and the lane-sweeps, added at each warp's exit; null:
-  // not counted
+  // the rows swept, the lane-sweeps, the node steps and the tri class's
+  // rows and node steps, added at each warp's exit; null: not counted
   unsigned long long* swept;
 };
 
 // a thread's count of the rows its warp's leaf phases tested, of its
-// sweeps, and of its warp's node steps
+// sweeps, of its warp's node steps, and of the rows and node steps of
+// those in the tri tree; COUNT: a traced launch's instance (an untraced
+// one keeps no count, and the compiler drops its fields)
+template <bool COUNT>
 struct Swept {
-  uint32_t rows = 0, sweeps = 0, bounds = 0;
+  uint32_t rows = 0, sweeps = 0, bounds = 0, tri_rows = 0, tri_bounds = 0;
 };
 
 // K8's local row: env, each light's emission [, the checker adjoints]
@@ -234,11 +240,10 @@ struct Tables {
   const int2* link;
   int start[5];
   int n_tri, n_rect, n_disk, n_sph;
-  bool cull, count;
+  bool cull;
   __device__ void init(const BigArgs& a) {
     n_tri = a.n_tri; n_rect = a.n_rect; n_disk = a.n_disk; n_sph = a.n_sph;
     cull = a.cull != 0;
-    count = a.swept != nullptr;
     tri = a.geo;
     rect = tri + PG * n_tri;
     disk = rect + PG * n_rect;
@@ -270,11 +275,12 @@ struct Tables {
 // them do; leaf(blk, rays): test block blk's rows for those rays ->
 // whether the lane still looks for something; live: whether it does at
 // the start; nr: the class's rows. The votes keep the warp together; under
-// T.count every lane adds the warp's node steps and the rows of its
-// largest first pending block of each leaf phase (`Swept`).
-template <class Meets, class Leaf>
+// COUNT every lane adds the warp's node steps and the rows of its largest
+// first pending block of each leaf phase (`Swept`), in the tri tree (c 0)
+// to the tri counts too.
+template <bool COUNT, class Meets, class Leaf>
 __device__ __forceinline__ void walk(const Tables& T, int c, int nr, uint32_t mask, bool live,
-                                     Swept& sw, Meets&& meets, Leaf&& leaf) {
+                                     Swept<COUNT>& sw, Meets&& meets, Leaf&& leaf) {
   int e = T.start[c];
   const int end = T.start[c + 1];
   if (e == end) return;
@@ -288,7 +294,10 @@ __device__ __forceinline__ void walk(const Tables& T, int c, int nr, uint32_t ma
   }
   for (;;) {
     while (__any_sync(mask, !done && buf[0] < 0)) {
-      if (T.count) ++sw.bounds;
+      if constexpr (COUNT) {
+        ++sw.bounds;
+        if (c == 0) ++sw.tri_bounds;
+      }
       if (!done && buf[LEAF_BUF - 1] < 0) {
         const int2 ln = __ldg(T.link + e);
         uint32_t rays = 0;
@@ -308,9 +317,11 @@ __device__ __forceinline__ void walk(const Tables& T, int c, int nr, uint32_t ma
       }
     }
     const bool any = __any_sync(mask, buf[0] >= 0);
-    if (T.count) {
+    if constexpr (COUNT) {
       const int rows = buf[0] >= 0 ? min(nr, (buf[0] + 1) * BLOCK_ROWS) - buf[0] * BLOCK_ROWS : 0;
-      sw.rows += __reduce_max_sync(mask, (uint32_t)rows);
+      const uint32_t most = __reduce_max_sync(mask, (uint32_t)rows);
+      sw.rows += most;
+      if (c == 0) sw.tri_rows += most;
     }
     if (!any) return;
     if (buf[0] >= 0) {
@@ -358,8 +369,9 @@ constexpr int RES_PHONG = 1 << 20, RES_TO_SPEC = 1 << 21, RES_EVEN = 1 << 22;
 // lane of `mask` (the live lanes of the warp) calls it; each walks the
 // classes' trees alone, skipping a node that its ray cannot meet over [0,
 // t_best].
+template <bool COUNT>
 __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& t_best, int& cls,
-                               int& trow, Swept& sw) {
+                               int& trow, Swept<COUNT>& sw) {
   ++sw.sweeps;
   t_best = __int_as_float(0x7f800000);
   cls = -1;
@@ -479,8 +491,9 @@ struct Rays {
 // lti: under robust shadows the light records of the chunk's first light,
 // whose field 2 is the emitting row that the light's ray skips (-1: none);
 // else null.
+template <bool COUNT>
 __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, uint32_t need,
-                                    uint32_t mask, const int* lti, Swept& sw) {
+                                    uint32_t mask, const int* lti, Swept<COUNT>& sw) {
   ++sw.sweeps;
   uint32_t open = need;
   // the open rays that can meet bound *b (all of them without the cull)
@@ -591,10 +604,10 @@ enum Mode { MODE_FWD = 0, MODE_RESIDUAL = 1, MODE_REPLAY = 2 };
 // TEX are compile-time switches, as in K1.
 // Every thread of the warp calls it (step 1: the sweeps' votes); `in`:
 // lane_id < a.n, else the thread traces nothing and writes nothing.
-template <int MODE, bool SOBOL, bool TEX, class ACC = float*>
+template <int MODE, bool SOBOL, bool TEX, class ACC = float*, bool COUNT>
 __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, const Tables& T,
                                            const Rays& R, int lane_id, bool in, ACC acc,
-                                           Swept& sw) {
+                                           Swept<COUNT>& sw) {
   const int n = a.n;
   const int L = S.L;
   const bool texp = a.texp != 0;
@@ -1006,8 +1019,9 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
 
 // K5, K6 and K8 are this one template: K6 adds the cache stores and K8 the
 // adjoint terms, so their draws, hits and branches are K5's by construction.
-// Dynamic shared memory: the shadow rays' block (step 2).
-template <int MODE, bool SOBOL, bool TEX, bool WIDE>
+// Dynamic shared memory: the shadow rays' block (step 2). COUNT: a.swept is
+// not null.
+template <int MODE, bool SOBOL, bool TEX, bool WIDE, bool COUNT>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) bigscene_fwd_kernel(const BigArgs a) {
   extern __shared__ float4 smem4[];
   const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1017,7 +1031,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) bigscene_fwd_kernel(const
   Tables T;
   T.init(a);
   const Rays R{(float*)smem4 + threadIdx.x, a.nee_rays};
-  Swept sw;
+  Swept<COUNT> sw;
   if constexpr (MODE == MODE_REPLAY && WIDE) {
     // a row past the local array (past ROW_LIGHTS lights or ROW_TEXTURES
     // textures): this thread's column of the block's accumulator in device
@@ -1036,36 +1050,39 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) bigscene_fwd_kernel(const
   } else {
     trace_lane<MODE, SOBOL, TEX>(a, S, T, R, lane_id, in, static_cast<float*>(nullptr), sw);
   }
-  if (a.swept) {
+  if constexpr (COUNT) {
     // the warp's counts, added once at its exit
-    unsigned long long rows = sw.rows, sweeps = sw.sweeps, bounds = sw.bounds;
-    for (int off = 16; off; off >>= 1) {
-      rows += __shfl_down_sync(0xffffffffu, rows, off);
-      sweeps += __shfl_down_sync(0xffffffffu, sweeps, off);
-      bounds += __shfl_down_sync(0xffffffffu, bounds, off);
-    }
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(a.swept, rows);
-      atomicAdd(a.swept + 1, sweeps);
-      atomicAdd(a.swept + 2, bounds);
-    }
+    unsigned long long c[5] = {sw.rows, sw.sweeps, sw.bounds, sw.tri_rows, sw.tri_bounds};
+    for (int off = 16; off; off >>= 1)
+      for (int k = 0; k < 5; ++k) c[k] += __shfl_down_sync(0xffffffffu, c[k], off);
+    if ((threadIdx.x & 31) == 0)
+      for (int k = 0; k < 5; ++k) atomicAdd(a.swept + k, c[k]);
   }
 }
 
-template <int MODE, bool TEX, bool WIDE>
+template <int MODE, bool TEX, bool WIDE, bool COUNT>
 void launch_sampler(const BigArgs& a, int blocks, int smem, void* stream) {
   if (a.sampler == S_SOBOL)
-    bigscene_fwd_kernel<MODE, true, TEX, WIDE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
+    bigscene_fwd_kernel<MODE, true, TEX, WIDE, COUNT>
+        <<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
   else
-    bigscene_fwd_kernel<MODE, false, TEX, WIDE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
+    bigscene_fwd_kernel<MODE, false, TEX, WIDE, COUNT>
+        <<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
+}
+
+// the counting instance where a.swept is not null (a traced launch)
+template <int MODE, bool TEX, bool WIDE>
+void launch_count(const BigArgs& a, int blocks, int smem, void* stream) {
+  if (a.swept) return launch_sampler<MODE, TEX, WIDE, true>(a, blocks, smem, stream);
+  launch_sampler<MODE, TEX, WIDE, false>(a, blocks, smem, stream);
 }
 
 // K8's rows past the local array (a.wide) only
 template <int MODE, bool TEX>
 void launch_kernel(const BigArgs& a, int blocks, int smem, void* stream) {
   if constexpr (MODE == MODE_REPLAY)
-    if (a.wide) return launch_sampler<MODE, TEX, true>(a, blocks, smem, stream);
-  launch_sampler<MODE, TEX, false>(a, blocks, smem, stream);
+    if (a.wide) return launch_count<MODE, TEX, true>(a, blocks, smem, stream);
+  launch_count<MODE, TEX, false>(a, blocks, smem, stream);
 }
 
 // textured: the scene has texture records (texa, texb and timg are then its
@@ -1108,10 +1125,11 @@ int launch(BigArgs& a, int textured, void* stream) {
 // residual resf (res_n, n) and resi (max_depth + 1, n), plane-major.
 // sampler: 0 random, 1 hash, 2 sobol;
 // cull: skip the nodes a lane's rays cannot meet (1) or sweep every row
-// (0); nee_rays: min(L, NEE_CHUNK); swept: null, or 3 counts (the rows its
+// (0); nee_rays: min(L, NEE_CHUNK); swept: null, or 5 counts (the rows its
 // warps' leaf phases tested and the node steps its warps took, each summed
 // over the lanes in each sweep, and the lane-sweeps: rows, sweeps, node
-// steps) that the launch adds to.
+// steps, then the rows and node steps of the tri tree's walks) that the
+// launch adds to.
 extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo, const int* rows,
                                   const int* mat_i, const float* mat_f, const float* diffuse,
                                   const float* specular, const float* emission,

@@ -1,13 +1,14 @@
 """Scene factories: Cornell box, Veach MIS, smallpt, random spheres,
-triangle meshes and Haines' sphereflake (kytpu/scene/builders.py).
+triangle meshes and Haines' sphereflake and tetrahedral pyramid
+(kytpu/scene/builders.py).
 
 Parity targets: create_cornell_box_scene (ky.cpp:3240-3432) and
 create_mis_scene (ky.cpp:3434-3533); `smallpt` is kytpu's smallpt scene;
 `random_spheres` and `mesh_scene` are kytpu's scene-scale scenes (hundreds
 to thousands of surfaces), which run on the big-scene kernels
-(kernels/bigscene.py); `spd_balls` is the Standard Procedural Databases'
-"balls" scene (Haines 1987), 7,382 surfaces at its default size, which
-runs there too. Geometry is assembled on the host in
+(kernels/bigscene.py); `spd_balls` and `spd_tetra` are the Standard
+Procedural Databases' "balls" and "tetra" scenes (Haines 1987), 7,382 and
+4,097 surfaces at their default sizes, which run there too. Geometry is assembled on the host in
 numpy and every table is float32, built with the same float32 arithmetic as
 the JAX package's builders, so both packages produce bit-identical scenes.
 
@@ -673,5 +674,83 @@ def spd_balls(size_factor: int = 4, width: int = 512,
     a.add_light(kind=klights.ENV, emit=_f32(SPD_SKY))
     cam = kscene.make_camera(position=(2.1, 1.3, 1.7),
                              front=(-2.1, -1.3, -1.7), up=(0.0, 0.0, 1.0),
+                             fov_degrees=45.0, width=width, height=height)
+    return a.build(cam)
+
+
+# the SPD "tetra" scene (Haines 1987; tetra.c of the SPD, after the pyramid
+# of Glassner, "Space Subdivision for Fast Ray Tracing", IEEE CG&A 4(10),
+# 1984): the root tetrahedron's vertices in units of TETRA_SCALE, in which
+# every midpoint of the subdivision is exact
+TETRA_UNITS = np.array([[1.0, -1.0, 0.0], [-1.0, -1.0, 0.0],
+                        [0.0, 2.0, 0.0], [0.0, 0.0, 1.0]])
+TETRA_SCALE = np.array([1.0, 1.0 / np.sqrt(3.0), 2.0 * np.sqrt(2.0 / 3.0)])
+# the floor's height, the point light (W/sr) and its position
+TETRA_FLOOR = -0.25
+TETRA_LIGHT, TETRA_LIGHT_POS = 60.0, (4.0, -3.0, 6.0)
+
+
+def sierpinski(size_factor: int = 6) -> np.ndarray:
+    """The triangles of SPD's tetra.c in float64, (4**size_factor, 3, 3):
+    the regular tetrahedron of edge 2 with its base on z = 0, vertices (1,
+    -1/√3, 0), (-1, -1/√3, 0), (0, 2/√3, 0) and its apex (0, 0, 2√(2/3)),
+    each tetrahedron (v0, v1, v2, v3) above level size_factor - 1 replaced
+    by its four half-size corner tetrahedra, k = 0..3, child k's vertex j
+    (vk + vj) / 2; the leaves depth first, each giving its four faces in
+    the order of the vertex it lies opposite: the other three in ascending
+    order, the last two swapped where that winding's normal points towards
+    the opposite vertex, so every face is wound outward. The subdivision
+    runs on TETRA_UNITS, where each midpoint is exact, and each coordinate
+    is scaled by TETRA_SCALE once at the end: the vertices round once, in
+    any order of evaluation. 4, 16, 64, 256, 1,024, 4,096 triangles at
+    factors 1-6."""
+    if size_factor < 1:
+        raise ValueError(f"size_factor must be >= 1, got {size_factor}")
+    leaves = []
+
+    def split(v, level):
+        if level == size_factor - 1:
+            leaves.append(v)
+            return
+        for k in range(4):
+            split((v[k] + v) / 2.0, level + 1)
+
+    split(TETRA_UNITS, 0)
+    verts = np.stack(leaves) * TETRA_SCALE                  # (n, 4, 3)
+    tris = []
+    for i in range(4):
+        a, b, c = (verts[:, j] for j in range(4) if j != i)
+        inward = np.einsum("nk,nk->n", np.cross(b - a, c - a),
+                           a - verts[:, i]) < 0.0
+        tris.append(np.stack([a, np.where(inward[:, None], c, b),
+                              np.where(inward[:, None], b, c)], 1))
+    return np.stack(tris, 1).reshape(-1, 3, 3)
+
+
+def spd_tetra(size_factor: int = 6, width: int = 512,
+              height: int = 512) -> kscene.Scene:
+    """SPD's "tetra" scene, the tetrahedral pyramid (Haines 1987): the
+    triangles of `sierpinski(size_factor)` (4,096 at the default factor
+    6), each a one-sided row of its own in matte grey 0.8, on a matte
+    square floor at z = TETRA_FLOOR spanning ±12 in x and y (colour (1,
+    0.75, 0.33) x 0.8, the floor row first); one point light of
+    TETRA_LIGHT W/sr at TETRA_LIGHT_POS and SPD's sky-blue background as a
+    constant environment light; the camera at (2.4, -3.0, 2.0) looking at
+    (0, 0, 0.55), up +Z, a 45° field of view. 4**size_factor + 1 surfaces:
+    past 64 from factor 3, so the table kernels take it."""
+    m = _SceneAssembler
+    a = _SceneAssembler()
+    g = a.geo
+    half, z = 12.0, TETRA_FLOOR
+    a.surface(g.add_rectangle((half, half, z), (-half, half, z),
+                              (-half, -half, z), (half, -half, z)),
+              m.matte(_f32(np.array([1.0, 0.75, 0.33]) * 0.8)))
+    for tri in sierpinski(size_factor):
+        a.surface(g.add_triangle(tri[0], tri[1], tri[2]), m.matte(_full(0.8)))
+    a.add_light(kind=klights.POINT, emit=_full(TETRA_LIGHT),
+                position=np.asarray(TETRA_LIGHT_POS))
+    a.add_light(kind=klights.ENV, emit=_f32(SPD_SKY))
+    cam = kscene.make_camera(position=(2.4, -3.0, 2.0),
+                             front=(-2.4, 3.0, -1.45), up=(0.0, 0.0, 1.0),
                              fov_degrees=45.0, width=width, height=height)
     return a.build(cam)

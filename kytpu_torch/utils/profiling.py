@@ -31,7 +31,9 @@ packed their tables; `reset` leaves them.
 `kernel.<k>.rows`, `kernel.<k>.sweeps` and `kernel.<k>.bounds` (k5, k6,
 k8: the table kernels' sweeps, csrc/bigscene_fwd.cu: the rows each lane's
 warp tested for it, the lane-sweeps, and the node steps each lane's warp
-took in its tree walks) are counted on the card, and only while
+took in its tree walks) and `kernel.<k>.rows.tri` and
+`kernel.<k>.bounds.tri` (the rows and node steps of those in the tri
+class's tree) are counted on the card, and only while
 torch.profiler records: `row_counter(k, device)` gives a launch the
 device buffer to add to (None otherwise), and `device_counts()` reads the
 buffers once, after the window. They hold the current or last profiled
@@ -65,10 +67,12 @@ _OFF = contextlib.nullcontext()
 _SYNC = "called a synchronizing CUDA operation"
 
 counters: dict = {}
-# kernel -> int64 (3,) on the card: the rows its warps' leaf phases tested
-# (summed over the lanes in each sweep), the lane-sweeps, and the node steps
-# of its warps' walks (summed likewise), while recording
+# kernel -> int64 (5,) on the card: the rows its warps' leaf phases tested
+# (summed over the lanes in each sweep), the lane-sweeps, the node steps of
+# its warps' walks (summed likewise), and the rows and node steps of the
+# tri class's tree among them, while recording
 _swept: dict = {}
+SWEPT = ("rows", "sweeps", "bounds", "rows.tri", "bounds.tri")
 
 
 def count(name: str, n: int = 1) -> None:
@@ -99,29 +103,25 @@ def reset(*kernels: str) -> None:
 
 
 def row_counter(kernel: str, device) -> torch.Tensor | None:
-    """The int64 (3,) buffer on `device` that a launch of `kernel` (k5,
-    k6, k8) adds its rows swept, lane-sweeps and node steps to, while
-    torch.profiler records; else None, and the launch counts nothing."""
+    """The int64 (5,) buffer on `device` that a launch of `kernel` (k5,
+    k6, k8) adds its rows swept, lane-sweeps, node steps and the tri
+    class's rows and node steps to (SWEPT), while torch.profiler records;
+    else None, and the launch counts nothing."""
     if not _recording():
         return None
     buf = _swept.get(kernel)
     if buf is None or buf.device != torch.device(device):
-        buf = _swept[kernel] = torch.zeros(3, dtype=torch.int64,
+        buf = _swept[kernel] = torch.zeros(len(SWEPT), dtype=torch.int64,
                                            device=device)
     return buf
 
 
 def device_counts() -> dict:
-    """`kernel.<k>.rows`, `.sweeps` and `.bounds` of the current or last
-    profiled window, read from the card (a sync each: call it after the
-    window, never inside a call)."""
-    out = {}
-    for k, buf in _swept.items():
-        rows, sweeps, bounds = buf.tolist()
-        out[f"kernel.{k}.rows"] = rows
-        out[f"kernel.{k}.sweeps"] = sweeps
-        out[f"kernel.{k}.bounds"] = bounds
-    return out
+    """`kernel.<k>.rows`, `.sweeps`, `.bounds`, `.rows.tri` and
+    `.bounds.tri` of the current or last profiled window, read from the
+    card (a sync each: call it after the window, never inside a call)."""
+    return {f"kernel.{k}.{name}": v for k, buf in _swept.items()
+            for name, v in zip(SWEPT, buf.tolist())}
 
 
 @dataclass

@@ -40,8 +40,9 @@ from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import launch as klaunch
 from kytpu_torch.kernels import tables as ktab
 from kytpu_torch.kernels import wavefront as kwf
+from kytpu_torch.light import lights as klights
 from kytpu_torch.scene import builders, mesh
-from kytpu_torch.scene.scene import generate_rays
+from kytpu_torch.scene.scene import generate_rays, make_camera
 from tests.test_torch_cuda import many_lights
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
@@ -83,8 +84,8 @@ void save(const char* name, const std::vector<T>& v) {
 
 // every lane in turn, as thread 0 of a warp of one, or (KYTPU_WARP_EMU)
 // each 32 lanes a warp of 32 host threads that vote as the card's warps
-// vote; acc: K8's lane columns; swept: each lane's rows swept, sweeps and
-// node steps
+// vote; acc: K8's lane columns; swept: each lane's rows swept, sweeps,
+// node steps, and the tri class's rows and node steps
 template <int MODE, bool SOBOL, bool TEX>
 void run(const BigArgs& a, std::vector<float>& acc, std::vector<uint32_t>& swept) {
   static float rays[Rays::FIELDS * NEE_CHUNK * THREADS];
@@ -95,13 +96,12 @@ void run(const BigArgs& a, std::vector<float>& acc, std::vector<uint32_t>& swept
   auto lane = [&](int i, int t) {
     const bool in = i < a.n;
     float* row = in ? acc.data() + (size_t)i * a.n_cols : nullptr;
-    Swept sw;
+    Swept<true> sw;
     trace_lane<MODE, SOBOL, TEX>(a, S, T, Rays{rays + t, a.nee_rays}, i, in,
                                  MODE == MODE_REPLAY ? row : nullptr, sw);
     if (!in) return;
-    swept[3 * (size_t)i] = sw.rows;
-    swept[3 * (size_t)i + 1] = sw.sweeps;
-    swept[3 * (size_t)i + 2] = sw.bounds;
+    const uint32_t got[5] = {sw.rows, sw.sweeps, sw.bounds, sw.tri_rows, sw.tri_bounds};
+    for (int k = 0; k < 5; ++k) swept[5 * (size_t)i + k] = got[k];
   };
 #ifdef KYTPU_WARP_EMU
   for (int w = 0; 32 * w < a.n; ++w) {
@@ -175,9 +175,9 @@ int main(int argc, char** argv) {
   std::vector<float> out(3 * n, -1.f), resf(res_n * n, -1.f), dout((PB * B + 3) * n, -1.f),
       acc(n * (a.n_cols > 0 ? a.n_cols : 1), 0.f), tex_dout(12 * B * n, -1.f);
   std::vector<int> resi((B + 1) * n, -1), tags((B + 1) * n, -1), tex_tags(4 * B * n, -1);
-  std::vector<uint32_t> swept(3 * n, 0);
+  std::vector<uint32_t> swept(5 * n, 0);
   // a counter buffer, so that the lanes count (the kernel's traced launch)
-  unsigned long long counted[3] = {0, 0, 0};
+  unsigned long long counted[5] = {0, 0, 0, 0, 0};
   a.swept = counted;
   a.out = out.data(); a.resf = resf.data(); a.resi = resi.data(); a.dout = dout.data();
   a.tags = tags.data(); a.tex_dout = tex_dout.data(); a.tex_tags = tex_tags.data();
@@ -242,8 +242,26 @@ IMG8 = np.random.default_rng(2).uniform(0.1, 0.9, (8, 8, 3)).astype(
     np.float32)
 
 
+def _triangles_only():
+    """The tetrahedral pyramid's 64 triangles at factor 3 with no floor:
+    every row of the tri class."""
+    a = builders._SceneAssembler()
+    for tri in builders.sierpinski(3):
+        a.surface(a.geo.add_triangle(*tri), a.matte(torch.full((3,), 0.8)))
+    a.add_light(kind=klights.POINT, emit=torch.full((3,), 60.0),
+                position=np.array(builders.TETRA_LIGHT_POS))
+    a.add_light(kind=klights.ENV, emit=torch.tensor(builders.SPD_SKY))
+    cam = make_camera(position=(2.4, -3.0, 2.0), front=(-2.4, 3.0, -1.45),
+                      up=(0.0, 0.0, 1.0), fov_degrees=45.0, width=24,
+                      height=16)
+    return a.build(cam)
+
+
 def _scene(name):
     return {
+        "spd_balls": lambda: builders.spd_balls(2, 24, 16),
+        "tetra": lambda: builders.spd_tetra(3, 24, 16),
+        "triangles": _triangles_only,
         "spheres": lambda: builders.random_spheres(n=96, width=24, height=16),
         "mesh": lambda: builders.mesh_scene(*mesh.icosphere(subdivisions=2),
                                             width=24, height=16),
@@ -417,8 +435,7 @@ def test_row_counter_matches_the_plain_votes(big_exe, tmp_path, scene, cull):
     votes, on the same rays: the same counts."""
     import chip_smoke
 
-    sc = (builders.spd_balls(2, 24, 16) if scene == "spd_balls"
-          else _scene(scene))
+    sc = _scene(scene)
     cfg = kwf.KernelConfig(max_depth=3, rr_start=1, rows=2, cull=cull)
     n, seed = 1024, 11
     extracted = kbs.extract_tables(sc)
@@ -433,7 +450,7 @@ def test_row_counter_matches_the_plain_votes(big_exe, tmp_path, scene, cull):
     _, res_n = kbs.layout_of(tables.static, cfg)
     _run(big_exe, tmp_path, 1, int(cull != "off"), tables, cfg, n, seed,
          res_n, kbs._n_cols(tables))
-    swept = np.fromfile(tmp_path / "swept", np.uint32).reshape(n, 3)
+    swept = np.fromfile(tmp_path / "swept", np.uint32).reshape(n, 5)
     got = tuple(int(x) for x in swept.astype(np.int64).sum(0))
     assert got == chip_smoke.swept_counts(tables, cfg, o, d, seed, si, pix,
                                           warp=1)
@@ -443,8 +460,7 @@ def test_row_counter_matches_the_plain_votes(big_exe, tmp_path, scene, cull):
 def _walk_runs(exe, tmp_path, scene, cfg, n, seed, graze):
     """K5, K6 and K8 culled and with the cull off, and K6's counters under
     cfg.cull summed over the lanes, of one build on `scene`'s lanes."""
-    sc = (builders.spd_balls(2, 24, 16) if scene == "spd_balls"
-          else _scene(scene))
+    sc = _scene(scene)
     extracted = kbs.extract_tables(sc)
     tables = kbs.pack_big_tables(sc, cfg, extracted)
     lanes = _lanes(sc, extracted, n, graze)
@@ -463,7 +479,7 @@ def _walk_runs(exe, tmp_path, scene, cfg, n, seed, graze):
                                       n, seed, res_n, kbs._n_cols(tables))
             if (mode, cull) == (1, int(cfg.cull != "off")):
                 swept = np.fromfile(tmp_path / "swept", np.uint32)
-                counted = tuple(int(x) for x in swept.reshape(n, 3).astype(
+                counted = tuple(int(x) for x in swept.reshape(n, 5).astype(
                     np.int64).sum(0))
     for mode in (0, 1, 2):
         for nm, got in runs[(mode, 1)].items():
@@ -473,34 +489,54 @@ def _walk_runs(exe, tmp_path, scene, cfg, n, seed, graze):
     return tables, lanes, counted
 
 
-@pytest.mark.parametrize("scene", ["spd_balls", "spheres"])
+def _class_split(scene, counted):
+    """The tri class's rows and node steps (counted[3:]) within the totals
+    (counted[0], counted[2]): all of them on a scene of triangles alone,
+    none where the scene has no triangle."""
+    rows, _, bounds, tri_rows, tri_bounds = counted
+    assert 0 <= tri_rows <= rows and 0 <= tri_bounds <= bounds
+    if scene == "triangles":
+        assert (tri_rows, tri_bounds) == (rows, bounds)
+    elif scene in ("spheres", "spd_balls"):
+        assert (tri_rows, tri_bounds) == (0, 0)
+    else:
+        assert 0 < tri_rows < rows and 0 < tri_bounds < bounds
+
+
+@pytest.mark.parametrize("scene", ["spd_balls", "spheres", "tetra",
+                                   "triangles"])
 def test_tree_walk_in_warps_of_one(big_exe, tmp_path, scene):
     """Each lane a warp of one (the host build's votes): the tree walk's K5,
-    K6 and K8 equal the cull off to the bit, grazing rays included, and
-    the culled K6's rows, sweeps and node steps equal
+    K6 and K8 equal the cull off to the bit, grazing rays included (on the
+    scenes with spheres), and the culled K6's rows, sweeps and node steps,
+    and the tri class's rows and node steps, equal
     chip_smoke.swept_counts(warp=1)."""
     import chip_smoke
 
     cfg = kwf.KernelConfig(max_depth=3, rr_start=1, rows=2, shadow="robust")
     n, seed = 1024, 23
+    graze = n // 4 if scene in ("spd_balls", "spheres") else 0
     tables, lanes, counted = _walk_runs(big_exe, tmp_path, scene, cfg, n,
-                                        seed, n // 4)
+                                        seed, graze)
     o, d, si, pix = lanes
     assert counted == chip_smoke.swept_counts(tables, cfg, o, d, seed, si,
                                               pix, warp=1)
     assert counted[2] > 0
+    _class_split(scene, counted)
 
 
 @pytest.mark.parametrize("scene, cull", [("spd_balls", "cone"),
                                          ("spd_balls", "off"),
-                                         ("spheres", "cone")])
+                                         ("spheres", "cone"),
+                                         ("tetra", "cone"),
+                                         ("triangles", "cone")])
 def test_tree_walk_in_warps_of_32(big_warp_exe, tmp_path, scene, cull):
     """Each 32 lanes a warp of 32 host threads whose votes and maxima meet
     as the card's warps' do (KYTPU_WARP_EMU): the warp's node phases, its
     lanes' pending blocks and its leaf phases give K5, K6 and K8 equal to
     the cull off to the bit, and K6's counters equal chip_smoke.swept_counts
-    at warps of 32, the replay phase 16 holds the card to. 1,000 lanes: the
-    last warp is partial."""
+    at warps of 32, the tri class's share included, the replay phases 16
+    and 17 hold the card to. 1,000 lanes: the last warp is partial."""
     import chip_smoke
 
     cfg = kwf.KernelConfig(max_depth=3, rr_start=1, rows=2, cull=cull)
@@ -510,6 +546,7 @@ def test_tree_walk_in_warps_of_32(big_warp_exe, tmp_path, scene, cull):
     o, d, si, pix = lanes
     want = chip_smoke.swept_counts(tables, cfg, o, d, seed, si, pix)
     assert counted == want
+    _class_split(scene, counted)
     # the warp's phases cost more than its lanes' own walks
     assert want[0] > chip_smoke.swept_counts(tables, cfg, o, d, seed, si,
                                              pix, warp=1)[0]

@@ -243,11 +243,13 @@ def test_the_row_counter_counts_only_while_recording():
     with profile(activities=[ProfilerActivity.CPU]):
         with kprof.span("kytpu::train.step"):
             buf = kprof.row_counter("k6", "cpu")
-            buf += torch.tensor([40, 5, 30])
+            buf += torch.tensor([40, 5, 30, 24, 12])
             assert kprof.row_counter("k6", "cpu") is buf
     assert kprof.device_counts() == {"kernel.k6.rows": 40,
                                      "kernel.k6.sweeps": 5,
-                                     "kernel.k6.bounds": 30}
+                                     "kernel.k6.bounds": 30,
+                                     "kernel.k6.rows.tri": 24,
+                                     "kernel.k6.bounds.tri": 12}
     with kprof.span("kytpu::train.step"):   # unrecorded: the window is over
         pass
     with profile(activities=[ProfilerActivity.CPU]):
