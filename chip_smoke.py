@@ -578,16 +578,21 @@ def k8_ops(tables, cache, cfg) -> float:
     return k5_ops(tables, cache, cfg) + float(adj)
 
 
-# FP32 operations of csrc/bigscene_fwd.cu's cull, counted from the source:
-# a closest-hit block test (`block_meets`), a ray's slack (`cull_slack`), a
-# shadow ray's block test with its offset origin
+# FP32 operations of the culls, counted from the source: a closest-hit
+# block test of csrc/wavefront_fwd.cu past 64 surfaces (megakernel.cuh
+# `block_meets`), a ray's slack (`cull_slack`), a shadow ray's block test
+# with its offset origin; for csrc/bigscene_fwd.cu's trees a ray's slab
+# set-up (`slab` and 1 / d: 3 divisions, 6 additions, 3 comparisons), and
+# what a shadow ray's box test adds to `box_meets` (kbs.BOX_TEST_OPS): its
+# offset origin, 6, and `slab` without the divisions, 9
 BLOCK_TEST_OPS, SLACK_OPS, SHADOW_BLOCK_OPS = 25, 14, 32
+SLAB_OPS, SHADOW_SLAB_OPS = 12, 15
 
 
 def same_as_cull_off(tables, cfg, lanes, g, got, tag: str) -> None:
     """K5's radiance, K6's (radiance, resf, resi) and K8's gradient `got`
     under cfg.cull against the same build's launches with cull "off", to
-    the last bit (the cull skips only blocks no lane's ray can meet)."""
+    the last bit (the cull skips only nodes no lane's ray can meet)."""
     from kytpu_torch.kernels import bigscene as kbs
     off = dataclasses.replace(cfg, cull="off")
     o, d, seed, si, pix = lanes
@@ -665,46 +670,46 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
     of a sweep (the live ones for the closest hit, those with a wanted
     shadow ray in the chunk of NEE_CHUNK lights for occlusion) walks each
     class's tree (`kbs.tree_bounds`) alone, in table order, going on to
-    the next entry where its rays meet an entry (`kbs.node_meets_plain`:
-    the closest hit's running t_best; the open shadow rays, a block's rows
-    then tested for those that meet it) and to its skip where they do not,
-    an occlusion walk ending once every ray is blocked. Its warp (`warp`
-    lanes in lane order; 1: the host build's warps of one) runs the walks
-    in step: a node step while some lane has no block pending, which each
-    lane with room for one more of kbs.LEAF_BUF pending blocks takes, else
-    a leaf phase, which tests each lane's first pending block. rows: the
-    rows of the largest such block of each leaf phase, bounds: the node
-    steps, both times the warp's lanes in the sweep; sweeps: the lanes in
-    each sweep; tri rows and tri bounds: rows and bounds of the walks of
-    the tri class's tree alone. stats, where given, gets "lane_rows" and "lane_bounds" (a
-    lane's own rows and node steps, summed over its sweeps), "phases" (leaf
-    phases, summed over the warps' sweeps), "blocks" (the distinct blocks
-    of each leaf phase, summed likewise), "ops" (the FP32 operations of
-    `k5_ops` with each sweep culled by the lane's own walk: each node test,
-    at BLOCK_TEST_OPS, or SHADOW_BLOCK_OPS a shadow ray it tests; each row
-    of its tested blocks at `k5_ops`' costs, a shadow ray's for each ray
-    tested plus the shared terms; a ray's slack and set-up; the shading of
-    each lane-bounce) and "plain" (the plain K6's (radiance, resf,
-    resi))."""
+    the next entry where its rays meet an entry's box
+    (`kbs.node_meets_plain`: the closest hit's running t_best; the open
+    shadow rays, a leaf's rows then tested for those that meet it) and to
+    its skip where they do not, an occlusion walk ending once every ray is
+    blocked. Its warp (`warp` lanes in lane order; 1: the host build's
+    warps of one) runs the walks in step: a node step while some lane has
+    no leaf pending, which each lane with room for one more of
+    kbs.LEAF_BUF pending leaves takes, else a leaf phase, which tests each
+    lane's first pending leaf. rows: the rows of the largest such leaf of
+    each leaf phase, bounds: the node steps, both times the warp's lanes
+    in the sweep; sweeps: the lanes in each sweep; tri rows and tri
+    bounds: rows and bounds of the walks of the tri class's tree alone.
+    stats, where given, gets "lane_rows" and "lane_bounds" (a lane's own
+    rows and node steps, summed over its sweeps), "phases" (leaf phases,
+    summed over the warps' sweeps), "leaves" (the distinct leaves of each
+    leaf phase, summed likewise), "ops" (the FP32 operations of `k5_ops`
+    with each sweep culled by the lane's own walk: each node test at
+    kbs.BOX_TEST_OPS, SHADOW_SLAB_OPS more for a shadow ray; each row of
+    its tested leaves at `k5_ops`' costs, a shadow ray's for each ray
+    tested plus the shared terms; a ray's slack, slab and set-up; the
+    shading of each lane-bounce) and "plain" (the plain K6's (radiance,
+    resf, resi))."""
     from kytpu_torch.kernels import bigscene as kbs
     from kytpu_torch.kernels import shading as ksh
     from kytpu_torch.kernels import wavefront as kwf
     from kytpu_torch.kernels.v3 import V3
     cull = cfg.cull != "off"
     counts, U, B = tables.counts, kbs.UNROLL, kbs.LEAF_BUF
-    nbs = [-(-c // U) for c in counts]
-    bnd, links = tables.bnd, tables.links.long()
+    bnd = tables.bnd
+    links = kbs.tree_links(bnd)
     # each class's entries: its root is the first, its skip the class's end
     start = [0]
     for c in range(4):
-        start.append(start[-1] + (int(links[start[-1], 0]) - start[-1]
-                                  if nbs[c] else 0))
+        start.append(int(links[start[-1], 0]) if counts[c] else start[-1])
     tot = {"rows": 0, "sweeps": 0, "bounds": 0, "tri_rows": 0,
            "tri_bounds": 0}
-    st = {"lane_rows": 0, "lane_bounds": 0, "phases": 0, "blocks": 0,
+    st = {"lane_rows": 0, "lane_bounds": 0, "phases": 0, "leaves": 0,
           "ops": 0.0}
     # k5_ops' costs of a row: closest hit, shadow ray, shared terms
-    hit_row, ray_row, shared_row = (39, 38, 26, 34), (27, 27, 28, 19), (
+    hit_row, ray_row, shared_row = kbs.ROW_TEST_OPS, (27, 27, 28, 19), (
         33, 33, 11, 13)
 
     def sub(v, li):
@@ -713,12 +718,13 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
     def col(v):
         return V3(v.x[:, None], v.y[:, None], v.z[:, None])
 
-    def rows_in(c, blk, G):
-        """The rows of each lane's block, (C, columns, U), NaN past the
-        class's last row (no row test takes NaN), and their table rows (C,
+    def rows_in(c, leaf, G):
+        """The rows of each lane's leaf, (C, columns, U), NaN past the
+        leaf's last row (no row test takes NaN), and their table rows (C,
         U)."""
-        s = blk[:, None] * U + torch.arange(U, device=blk.device)
-        ok = s < counts[c]
+        k = torch.arange(U, device=leaf.device)
+        s = (leaf[:, None] >> 3) + k
+        ok = k < (leaf[:, None] & 7) + 1
         s = s.clamp(max=counts[c] - 1)
         g = torch.where(ok[..., None], G[s], math.nan)
         return g.permute(0, 2, 1), s
@@ -727,7 +733,7 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
         """Each lane of idx (launch positions) walks class c's tree, its
         warp in step: node_hits(pos, e) -> (whether the rays of the lanes
         at positions pos of idx meet their entries e, each lane's rays that
-        do or None); leaf(pos, blk, rays) tests the blocks' rows -> whether
+        do or None); leaf(pos, word, rays) tests the leaves' rows -> whether
         each lane still looks for something. Adds the warps' node steps and
         leaf phases' rows."""
         n, dev = len(idx), idx.device
@@ -772,13 +778,13 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                 done[ns] = e[ns] >= start[c + 1]
             if len(lf):
                 blk = buf[lf, 0]
-                r = torch.clamp(counts[c] - blk * U, max=U)
+                r = (blk & 7) + 1
                 rows_w += torch.zeros_like(rows_w).scatter_reduce_(
                     0, w[lf], r, "amax")
                 st["lane_rows"] += int(r.sum())
                 st["phases"] += int(w_leaf.sum())
-                st["blocks"] += int(torch.unique(
-                    w[lf] * (nbs[c] + 1) + blk).numel())
+                st["leaves"] += int(torch.unique(
+                    w[lf] * (counts[c] * U + 1) + blk).numel())
                 alive = leaf(lf, blk, None if pay[0] is None else pay[0][lf])
                 buf[lf] = torch.cat([buf[lf, 1:], torch.full_like(
                     buf[lf, :1], -1)], 1)
@@ -800,27 +806,26 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
     def hit(bt, o_, d_, live):
         idx = live.nonzero().reshape(-1)
         tot["sweeps"] += len(idx)
-        st["ops"] += len(idx) * (SLACK_OPS + 32)
+        st["ops"] += len(idx) * (SLACK_OPS + SLAB_OPS + 32)
         oo, dd = sub(o_, idx), sub(d_, idx)
-        slack, inv = kbs.cull_slack_plain(oo, dd)
+        slack, _ = kbs.cull_slack_plain(oo, dd)
         t_best = torch.full_like(oo.x, math.inf)
         for c, name in enumerate(kbs.CLASSES):
-            if not nbs[c]:
+            if not counts[c]:
                 continue
             G, _ = bt.cls(name)
 
             def node_hits(pos, e):
                 if not cull:
                     return torch.ones_like(pos, dtype=torch.bool), None
-                st["ops"] += len(pos) * BLOCK_TEST_OPS
+                st["ops"] += len(pos) * kbs.BOX_TEST_OPS
                 return kbs.node_meets_plain(bnd[e], sub(oo, pos),
-                                            sub(dd, pos), inv[pos],
-                                            t_best[pos], slack[pos]), None
+                                            sub(dd, pos), t_best[pos],
+                                            slack[pos]), None
 
             def leaf(pos, blk, rays, c=c, name=name, G=G):
                 g, _ = rows_in(c, blk, G)
-                st["ops"] += float(torch.clamp(counts[c] - blk * U, max=U)
-                                   .sum()) * hit_row[c]
+                st["ops"] += float(((blk & 7) + 1).sum()) * hit_row[c]
                 t = kbs._closest_class(name, g, col(sub(oo, pos)),
                                        col(sub(dd, pos))).min(1)[0]
                 t_best[pos] = torch.minimum(t, t_best[pos])
@@ -839,7 +844,7 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
             idx = need.nonzero().reshape(-1)
             tot["sweeps"] += len(idx)
             st["ops"] += sum(int(wants[q][idx].sum())
-                             for q in chunk) * (SLACK_OPS + 6)
+                             for q in chunk) * (SLACK_OPS + 6 + 3)
             hpl, nsl = sub(hp, idx), sub(ns, idx)
             rs = []
             for q in chunk:
@@ -848,13 +853,13 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                 nd = nsl.dot(wi)
                 se = torch.where(nd < 0, -ksh.OFF, ksh.OFF)
                 og = hpl + nsl * se
-                slack, inv = kbs.cull_slack_plain(og, wi)
+                slack, _ = kbs.cull_slack_plain(og, wi)
                 rs.append((wi, tmax - se * nd if robust else tmax, se, nd,
-                           og, slack, inv))
+                           og, slack))
             owns = [own[q] if robust else None for q in chunk]
             open_ = torch.stack([wants[q][idx] for q in chunk], 1)
             for c, name in enumerate(kbs.CLASSES):
-                if not nbs[c]:
+                if not counts[c]:
                     continue
                 G, grows = bt.cls(name)
 
@@ -862,20 +867,19 @@ def swept_counts(tables, cfg, o, d, seed, si=None, pix=None,
                     if not cull:
                         m = open_[pos]
                     else:
-                        st["ops"] += float(open_[pos].sum()) * \
-                            SHADOW_BLOCK_OPS
+                        st["ops"] += float(open_[pos].sum()) * (
+                            SHADOW_SLAB_OPS + kbs.BOX_TEST_OPS)
                         b = bnd[e]
                         m = open_[pos] & torch.stack(
                             [kbs.node_meets_plain(b, sub(r[4], pos),
-                                                  sub(r[0], pos), r[6][pos],
-                                                  r[1][pos], r[5][pos])
+                                                  sub(r[0], pos), r[1][pos],
+                                                  r[5][pos])
                              for r in rs], 1)
                     return m.any(1), m
 
                 def leaf(pos, blk, test, c=c, name=name, G=G, grows=grows):
                     g, s = rows_in(c, blk, G)
-                    st["ops"] += float((torch.clamp(
-                        counts[c] - blk * U, max=U) * (
+                    st["ops"] += float((((blk & 7) + 1) * (
                         test.sum(1) * ray_row[c] + shared_row[c])).sum())
                     crays = [(col(sub(r[0], pos)), r[1][pos, None],
                               r[2][pos, None], r[3][pos, None]) for r in rs]
@@ -4691,6 +4695,14 @@ def table_step(smi: str, label: str, build, names) -> None:
           f"{smi}", flush=True)
     tabs, (kcfg, o, d, seed, si, pix), kw, k6 = seen["trace_lanes"]
     btabs, (_, g, big_l, resf, resi), _, k7 = seen["bwd_res"]
+    # the host's build of the class tables and their SAH trees, which a
+    # step packs once
+    t0 = time.perf_counter()
+    kbs.extract_tables(scene)
+    print(f"{label}: extract_tables, the class tables and their cull "
+          f"trees ({len(tabs.bnd)} entries), "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms on the host",
+          flush=True)
     n = 1 << 16
     lanes = (o[:n], d[:n], seed, si, pix)
     # the tree walk's counts from the plain K6's rays (the walk's
@@ -4700,13 +4712,13 @@ def table_step(smi: str, label: str, build, names) -> None:
     walked = swept_counts(tabs, kcfg, *lanes, stats=own)
     print(f"{label}: replay of the step's first {n} lanes, a "
           f"lane-sweep ({walked[1]} lane-sweeps): tree walk (arity "
-          f"{kbs.ARITY}, {kbs.LEAF_BUF} pending blocks) "
+          f"{kbs.ARITY}, {kbs.LEAF_BUF} pending leaves) "
           f"{walked[0] / walked[1]:.1f} rows ({walked[3] / walked[1]:.1f} "
           f"of the tri class), {walked[2] / walked[1]:.1f} node steps "
           f"({walked[4] / walked[1]:.1f}) of the warp; a lane's own "
           f"{own['lane_rows'] / walked[1]:.1f} rows, "
           f"{own['lane_bounds'] / walked[1]:.1f} node steps; "
-          f"{own['blocks'] / max(own['phases'], 1):.2f} distinct blocks a "
+          f"{own['leaves'] / max(own['phases'], 1):.2f} distinct leaves a "
           f"leaf phase; {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     ref = kbs.trace_lanes_plain(tabs, kcfg, *lanes, residual=True)

@@ -6,8 +6,9 @@ path-replay backward K8, for scenes past 64 surfaces, where K1-K4
 Three layers, each the counterpart of one in the JAX package:
 
 - host side: `extract_tables` (the scene's geometry as one SoA table per
-  shape class, tri / rect / disk / sphere, rows sorted by the Morton code of
-  their bound centres, with the global surface row of each table row),
+  shape class, tri / rect / disk / sphere, rows in the order of the leaves
+  of the class's cull tree, with the global surface row of each table
+  row),
   `bigres_layout` (K6's cache planes) and `pack_big_tables`, which puts the
   class tables, the material rows and the lights (kernels/wavefront.py's
   header and light records, so csrc/megakernel.cuh's light and BSDF code
@@ -38,10 +39,10 @@ the scalar sweep that the port runs for every cfg.sweep. cfg.cull: kytpu
 skips the 8-row blocks that a tile's ray cone cannot meet, on its primary
 sweep ("cone") and on compact lights' shadow sweeps ("cone+nee"), where its
 rays are coherent; on the card "cone" and "cone+nee" cull every sweep, each
-lane walking a tree of padded bounding spheres over the 8-row blocks on
-its own (`tree_bounds`, `block_meets_plain`) and testing the rows of the
-blocks its own rays meet, since a per-lane test does not fall apart on
-incoherent rays as a per-tile cone does; "off" sweeps every row. The cull
+lane walking a tree of padded boxes on its own (`tree_bounds`,
+`node_meets_plain`) and testing the rows of the leaves its own rays meet,
+since a per-lane test does not fall apart on incoherent rays as a
+per-tile cone does; "off" sweeps every row. The cull
 is exact-conservative: the results are the full sweep's to the last bit,
 so the plain versions
 sweep every row whatever cfg.cull says. Textures as kytpu's
@@ -68,8 +69,8 @@ from kytpu_torch.kernels import autodiff as kad
 from kytpu_torch.kernels import tables as ktab
 from kytpu_torch.kernels import tag_sums as kts
 from kytpu_torch.kernels import wavefront as kwf
-from kytpu_torch.kernels.cull import (CLASSES, CULL_PAD, UNROLL, block_bounds,
-                                      group, morton3, padded)
+from kytpu_torch.kernels.cull import (CLASSES, CULL_PAD, UNROLL, box_tree,
+                                      morton3)
 from kytpu_torch.kernels.launch import (cfg_args, check_lane_tensor,
                                         check_tables, lanes_checked, on_card,
                                         run, texel_outputs)
@@ -119,6 +120,20 @@ def _pad_rows(a, mult=UNROLL):
                                        a.dtype)], axis=0)
 
 
+# children of a node of K5's, K6's and K8's cull trees at most (TREE_ARITY
+# in csrc/bigscene_fwd.cu)
+ARITY = 4
+# leaves a lane of their walk holds pending while it steps on (LEAF_BUF in
+# csrc/bigscene_fwd.cu)
+LEAF_BUF = 4
+# FP32 operations of csrc/bigscene_fwd.cu, counted from the source: a
+# closest-hit row test of each class, tri | rect | disk | sphere, and a box
+# test of the tree (`box_meets`: 6 subtractions, 6 products, 6 min / max, a
+# comparison); `extract_tables`' SAH weighs its trees by them
+ROW_TEST_OPS = (39, 38, 26, 34)
+BOX_TEST_OPS = 19
+
+
 @kprof.spanned("kytpu::tables.pack")
 def extract_tables(scene):
     """Host-side extraction (kytpu's `extract_tables`) -> (static, tables):
@@ -126,13 +141,22 @@ def extract_tables(scene):
     occlusion-skip proofs) plus "table_of_row" (global surface row ->
     (class, table row)); tables maps each class to (geometry (rows padded
     to 8, cols) float32, global row of each table row (int32, padded with
-    0), per-8-row-block bounding spheres). Rows of a class are sorted by
-    the Morton code of their bound centres (a stable sort). Raises
-    NotImplementedError, as kytpu's does, for what the tables do not take:
-    a texture the kernels do not evaluate (`kwf.kernel_texture_support`),
-    an atlas past the select chain (over 64 texels, or a side that is not a
-    power of two) and a rect that is not a parallelogram; render() and
-    make_train_step() run such a scene on K1-K4."""
+    0), the class's cull tree (`cull.box_tree`: (entries, 8) float32, skips
+    class-local), each table row's rank in kytpu's Morton order of the
+    class (int32, padded with 0)). Each class's cull tree is a binned SAH
+    over the float64 boxes of its rows (a sphere's c +- r, a triangle's or
+    rect's box of its vertices, a disk's exact box), weighing a box test at
+    BOX_TEST_OPS and a row test at the class's ROW_TEST_OPS, with leaves of
+    1 to 8 rows; the class's rows are stored in the depth-first order of
+    its leaves (kytpu sorts them by the Morton code of their bound centres
+    instead), so a leaf is a run of table rows. Of two rows of a class that
+    a ray hits at the same t, the closest hit takes the one of lower rank,
+    as kytpu's sweep does. Raises NotImplementedError, as kytpu's does, for
+    what the tables do not take: a texture the kernels do not evaluate
+    (`kwf.kernel_texture_support`), an atlas past the select chain (over 64
+    texels, or a side that is not a power of two) and a rect that is not a
+    parallelogram; render() and make_train_step() run such a scene on
+    K1-K4."""
     err = kwf.kernel_texture_support(scene)
     if err:
         raise NotImplementedError(err)
@@ -144,12 +168,13 @@ def extract_tables(scene):
             "atlases run on K1-K4 (kernels/wavefront.py)")
     tris, rects, disks = [], [], []
     tri_rows, rect_rows, disk_rows = [], [], []
-    tri_b, rect_b, disk_b = [], [], []   # per-entry (center, radius)
+    # per row, float64: its box (lo, hi) and the centre of kytpu's bound
+    tri_b, rect_b, disk_b = [], [], []
 
-    def vert_bound(verts):
+    def vert_box(verts):
         v = np.asarray(verts, np.float64)
-        c = (v.min(axis=0) + v.max(axis=0)) * 0.5
-        return c, float(np.max(np.linalg.norm(v - c, axis=-1)))
+        lo, hi = v.min(axis=0), v.max(axis=0)
+        return lo, hi, (lo + hi) * 0.5
 
     for row, s in enumerate(static["planar"]):
         if s["kind"] == kshapes.DISK:
@@ -158,7 +183,10 @@ def extract_tables(scene):
             disks.append(list(n) + [float(np.dot(n, p0))] + list(p0)
                          + [s["radius"] ** 2])
             disk_rows.append(row)
-            disk_b.append((p0, float(s["radius"])))
+            # the disk's exact box: r sqrt(1 - n_a^2) about p0 on axis a
+            u = n / np.linalg.norm(n)
+            e = abs(s["radius"]) * np.sqrt(np.maximum(1.0 - u * u, 0.0))
+            disk_b.append((p0 - e, p0 + e, p0))
             continue
         if not s.get("fast"):
             raise NotImplementedError(
@@ -176,43 +204,44 @@ def extract_tables(scene):
         if s["kind"] == kshapes.TRI:
             tris.append(rec)
             tri_rows.append(row)
-            tri_b.append(vert_bound([s["p0"], s["p1"], s["p2"]]))
+            tri_b.append(vert_box([s["p0"], s["p1"], s["p2"]]))
         else:
             rects.append(rec)
             rect_rows.append(row)
-            rect_b.append(vert_bound([s["p0"], s["p1"], s["p2"], s["p3"]]))
+            rect_b.append(vert_box([s["p0"], s["p1"], s["p2"], s["p3"]]))
     spheres = [list(np.asarray(s["c"], np.float64)) + [s["r"]]
                for s in static["spheres"]]
     sph_rows = [len(static["planar"]) + j for j in range(len(spheres))]
-    sph_b = [(np.asarray(s["c"], np.float64), float(s["r"]))
-             for s in static["spheres"]]
+    sph_b = [(np.asarray(s["c"], np.float64) - abs(s["r"]),
+              np.asarray(s["c"], np.float64) + abs(s["r"]),
+              np.asarray(s["c"], np.float64)) for s in static["spheres"]]
 
     # scene-wide AABB of bound centres for the Morton quantization
-    all_c = [c for bs in (tri_b, rect_b, disk_b, sph_b) for c, _ in bs]
+    all_c = [b[2] for bs in (tri_b, rect_b, disk_b, sph_b) for b in bs]
     if all_c:
         allc = np.asarray(all_c, np.float64)
-        lo, hi = allc.min(axis=0), allc.max(axis=0)
+        m_lo, m_hi = allc.min(axis=0), allc.max(axis=0)
     else:
-        lo = hi = np.zeros(3)
+        m_lo = m_hi = np.zeros(3)
 
-    def blk(lst, rows, bounds, cols):
+    def blk(lst, rows, boxes, cols, k):
         geo = np.asarray(lst, np.float32).reshape(len(lst), cols)
         rows = np.asarray(rows, np.int32)
-        if len(bounds) > 1:
-            centers = np.asarray([c for c, _ in bounds], np.float64)
-            order = np.argsort(np.asarray(morton3(centers, lo, hi)),
-                               kind="stable")
-            geo = geo[order]
-            rows = rows[order]
-            bounds = [bounds[i] for i in order]
-        bnp = block_bounds([c for c, _ in bounds], [r for _, r in bounds])
-        return _pad_rows(geo), _pad_rows(rows), bnp
+        lo, hi, cen = (np.asarray([b[i] for b in boxes], np.float64)
+                       .reshape(-1, 3) for i in range(3))
+        rank = np.arange(len(boxes), dtype=np.int32)
+        if len(boxes) > 1:
+            rank[np.argsort(np.asarray(morton3(cen, m_lo, m_hi)),
+                            kind="stable")] = np.arange(len(boxes))
+        order, tree = box_tree(lo, hi, ROW_TEST_OPS[k], BOX_TEST_OPS, ARITY)
+        return (_pad_rows(geo[order]), _pad_rows(rows[order]), tree,
+                _pad_rows(rank[order]))
 
     tables = {
-        "tri": blk(tris, tri_rows, tri_b, PLANAR_GEO_COLS),
-        "rect": blk(rects, rect_rows, rect_b, PLANAR_GEO_COLS),
-        "disk": blk(disks, disk_rows, disk_b, DISK_GEO_COLS),
-        "sphere": blk(spheres, sph_rows, sph_b, SPHERE_GEO_COLS),
+        "tri": blk(tris, tri_rows, tri_b, PLANAR_GEO_COLS, 0),
+        "rect": blk(rects, rect_rows, rect_b, PLANAR_GEO_COLS, 1),
+        "disk": blk(disks, disk_rows, disk_b, DISK_GEO_COLS, 2),
+        "sphere": blk(spheres, sph_rows, sph_b, SPHERE_GEO_COLS, 3),
     }
     n_real = {"tri": len(tris), "rect": len(rects), "disk": len(disks),
               "sphere": len(spheres)}
@@ -273,58 +302,38 @@ def bigres_layout(cfg: kwf.KernelConfig, n_lights: int, has_env: bool,
     return {t: i for i, t in enumerate(tags)}, len(tags)
 
 
-# children of a node of K5's, K6's and K8's tree over the blocks
-# (TREE_ARITY in csrc/bigscene_fwd.cu)
-ARITY = 4
-# blocks a lane of their walk holds pending while it steps on (LEAF_BUF in
-# csrc/bigscene_fwd.cu)
-LEAF_BUF = 4
-
-
-def tree_bounds(tables) -> tuple:
-    """K5's, K6's and K8's cull bounds of `extract_tables`' tables: (bnd
-    (entries, 4) float32 [cx cy cz R], links (entries, 2) int32 [skip,
-    block]), a tree over each class's 8-row blocks, tri | rect | disk |
-    sphere, laid out depth first.
-
-    A class's tree is the implicit ARITY-ary tree over its consecutive
-    blocks: above the padded block bounds (`padded`, as `kwf.cull_bounds`
-    pads them), node i of a level holds nodes A i .. A i + A - 1 of the
-    level below, up to one root. Each node's sphere holds its children's
-    padded spheres whole (`group`: float64, then the same pad), so a ray
-    that can meet a row meets every node above its block. The nodes are
-    listed depth first, children in table order, so the blocks come in
-    table order; an entry's skip is the entry after its subtree (for a
-    block, the next entry), and its block is the block's index in its
-    class, or -1 above the blocks. A walk that goes on to entry + 1 where a
-    ray meets an entry and to its skip where it does not visits the class's
-    rows in table order (csrc/bigscene_fwd.cu `walk`)."""
-    bnd, links = [], []
+def tree_bounds(tables) -> np.ndarray:
+    """K5's, K6's and K8's cull trees of `extract_tables`' tables as one
+    (entries, 8) float32 array, tri | rect | disk | sphere, each class's
+    tree (`cull.box_tree`) laid out depth first with its skips moved past
+    the classes before it. An entry is [lo.x lo.y lo.z skip hi.x hi.y hi.z
+    leaf], skip and leaf int32 bits: skip the entry after the entry's
+    subtree (for a leaf, the next entry), leaf first row * 8 + rows - 1 of
+    the leaf's run of rows in its class's table, or -1 above the leaves;
+    a class's first entry is its root, whose skip ends the class. The box
+    of a leaf is its rows' float64 box padded by CULL_PAD of its size and
+    rounded outward to float32 (`cull.padded_boxes`), a node's the float32
+    union of its children's. A walk that goes on to entry + 1 where a ray
+    meets an entry's box and to its skip where it does not visits the
+    class's rows in table order (csrc/bigscene_fwd.cu `walk`)."""
+    out, off = [], 0
     for k in CLASSES:
-        b = np.asarray(tables[k][2], np.float64).reshape(-1, 4)
-        levels = [padded(b[:, :3], b[:, 3])]
-        while len(levels[-1]) > 1:
-            levels.append(group(levels[-1], ARITY))
+        rec = np.array(tables[k][2], np.float32).reshape(-1, 8)
+        rec.view(np.int32)[:, 3] += off
+        out.append(rec)
+        off += len(rec)
+    return np.concatenate(out)
 
-        def emit(lv, i):
-            at = len(bnd)
-            bnd.append(levels[lv][i])
-            links.append([0, i if lv == 0 else -1])
-            if lv:
-                for j in range(ARITY * i,
-                               min(ARITY * (i + 1), len(levels[lv - 1]))):
-                    emit(lv - 1, j)
-            links[at][0] = len(bnd)
 
-        if len(levels[0]):
-            emit(len(levels) - 1, 0)
-    return (np.asarray(bnd, np.float32).reshape(-1, 4),
-            np.asarray(links, np.int32).reshape(-1, 2))
+def tree_links(bnd: torch.Tensor) -> torch.Tensor:
+    """(skip, leaf) of each entry of `tree_bounds`' array, (entries, 2)
+    int64."""
+    return bnd.contiguous().view(torch.int32)[:, [3, 7]].long()
 
 
 def cull_slack_plain(o: V3, d: V3):
-    """csrc/bigscene_fwd.cu `cull_slack`: (a ray's slack, 1 / |d|^2); the
-    slack is CULL_PAD * |o|_1, or inf (every block passes) where the ray,
+    """megakernel.cuh `cull_slack`: (a ray's slack, 1 / |d|^2); the slack
+    is CULL_PAD * |o|_1, or inf (every block and box passes) where the ray,
     |d|^2 or its inverse is not finite or |d|^2 is 0."""
     dd = d.dot(d)
     inv = km.div(1.0, dd)
@@ -336,28 +345,42 @@ def cull_slack_plain(o: V3, d: V3):
 
 
 def block_meets_plain(bnd: torch.Tensor, o: V3, d: V3, inv, t1, slack):
-    """csrc/bigscene_fwd.cu `block_meets`, the kernels' per-lane block test,
-    on (C,) rays against (B, 4) bounds -> (C, B): can o + t d, t in [0,
-    t1], come within R + slack of the block's centre? t1 is (C,), a ray's
-    for every block, or (C, B), one a pair. The closest point's t is
-    clamped to the segment; a NaN passes."""
+    """megakernel.cuh `block_meets`, K1's, K2's and K4's per-lane block test
+    past 64 surfaces (`kwf.cull_tables`), on (C,) rays against (B, 4)
+    bounds [cx cy cz R] -> (C, B): can o + t d, t in [0, t1], come within R
+    + slack of the block's centre? inv: 1 / |d|^2 (`cull_slack_plain`); t1
+    is (C,), a ray's for every block, or (C, B), one a pair. The closest
+    point's t is clamped to the segment; a NaN passes."""
     col = lambda x: x.reshape(-1, 1)  # noqa: E731
-    return node_meets_plain(bnd, V3(col(o.x), col(o.y), col(o.z)),
-                            V3(col(d.x), col(d.y), col(d.z)), col(inv),
-                            t1 if t1.dim() == 2 else col(t1), col(slack))
-
-
-def node_meets_plain(bnd: torch.Tensor, o: V3, d: V3, inv, t1, slack):
-    """`block_meets_plain` of each ray against its own bound: (C, 4) bounds
-    and (C,) rays -> (C,) (or any shapes that broadcast, as
-    `block_meets_plain` passes them)."""
-    v = V3(bnd[..., 0] - o.x, bnd[..., 1] - o.y, bnd[..., 2] - o.z)
-    tc = v.dot(d) * inv
+    o, d = V3(col(o.x), col(o.y), col(o.z)), V3(col(d.x), col(d.y), col(d.z))
+    t1 = t1 if t1.dim() == 2 else col(t1)
+    v = V3(bnd[:, 0] - o.x, bnd[:, 1] - o.y, bnd[:, 2] - o.z)
+    tc = v.dot(d) * col(inv)
     tc = torch.where(tc < 0, torch.zeros_like(tc), tc)
     tc = torch.where(tc > t1, t1, tc)
     p = v - d * tc
-    rl = bnd[..., 3] + slack
+    rl = bnd[:, 3] + col(slack)
     return ~(p.dot(p) > rl * rl)
+
+
+def node_meets_plain(bnd: torch.Tensor, o: V3, d: V3, t1, slack):
+    """csrc/bigscene_fwd.cu `box_meets` (with `slab`), the walk's test of a
+    ray against a box of `tree_bounds`: can o + t d, t in [0, t1], meet the
+    box [lo - slack, hi + slack]? bnd (..., 8) entries and rays o, d, t1,
+    slack (`cull_slack_plain`) of shapes that broadcast with bnd[..., 0] ->
+    their shape. Each axis's t runs from the face the sign of 1 / d puts
+    first to the other, the origin moved by the slack; a NaN among them is
+    dropped (fmax / fmin), so a NaN never culls."""
+    inv = V3(km.div(1.0, d.x), km.div(1.0, d.y), km.div(1.0, d.z))
+    tn, tf = torch.zeros((), dtype=bnd.dtype), t1
+    for a, (oa, ia) in enumerate(((o.x, inv.x), (o.y, inv.y), (o.z, inv.z))):
+        neg = ia < 0
+        pn = torch.where(neg, oa - slack, oa + slack)
+        pf = torch.where(neg, oa + slack, oa - slack)
+        lo, hi = bnd[..., a], bnd[..., 4 + a]
+        tn = torch.fmax(tn, (torch.where(neg, hi, lo) - pn) * ia)
+        tf = torch.fmin(tf, (torch.where(neg, lo, hi) - pf) * ia)
+    return ~(tn > tf)
 
 
 @dataclass(frozen=True)
@@ -365,13 +388,14 @@ class BigTables:
     """What one big-scene launch reads. geo: the class tables' real rows
     (no padding), tri | rect | disk | sphere, each row-major with its
     class's column count, one float32 tensor; rows: the global surface row
-    of each, one int32 tensor; counts: rows per class. f, i: the header,
+    of each, and rank: its rank in kytpu's Morton order of its class (the
+    closest hit's tie-break), one int32 tensor each; counts: rows per
+    class. f, i: the header,
     light and texture records of kernels/wavefront.py's tables with no
     geometry records; mat_i (M, 2) int32: material kind, light index;
     tex_rec (M,) int32: each row's texture record (-1: none), read only by
     the textured instantiations; mat_f (M, 4) float32: eta, d_prob, s_prob,
-    0; bnd (entries, 4) float32 and links (entries, 2) int32:
-    `tree_bounds`. Then the
+    0; bnd (entries, 8) float32: `tree_bounds`. Then the
     tables a render may change without repacking (texa, texb, timg: one
     zero row each in an untextured scene)."""
 
@@ -379,13 +403,13 @@ class BigTables:
     counts: tuple
     geo: torch.Tensor
     rows: torch.Tensor
+    rank: torch.Tensor
     f: torch.Tensor
     i: torch.Tensor
     mat_i: torch.Tensor
     tex_rec: torch.Tensor
     mat_f: torch.Tensor
     bnd: torch.Tensor
-    links: torch.Tensor
     diffuse: torch.Tensor     # (M, 3)
     specular: torch.Tensor    # (M, 3)
     emission: torch.Tensor    # (M, 3)
@@ -421,8 +445,9 @@ def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig,
     geo = np.concatenate([tables[k][0][:c].reshape(-1)
                           for k, c in zip(CLASSES, counts)]
                          + [np.zeros(0, np.float32)])
-    rows = np.concatenate([tables[k][1][:c] for k, c in zip(CLASSES, counts)]
-                          + [np.zeros(0, np.int32)])
+    rows, rank = (np.concatenate([tables[k][j][:c]
+                                  for k, c in zip(CLASSES, counts)]
+                                 + [np.zeros(0, np.int32)]) for j in (1, 3))
     # the header of K1's tables with no geometry or material records: the
     # exponent is per hit (never static) and every light is sampled
     (hi, hf), (li, lf) = kwf.pack_header(
@@ -437,14 +462,15 @@ def pack_big_tables(scene: kscene.Scene, cfg: kwf.KernelConfig,
                       np.asarray(mats["s_prob"], np.float32),
                       np.zeros(len(mats["kind"]), np.float32)], -1)
     ti, tf = kwf.texture_records(static)
-    bnd, links = tree_bounds(tables)
+    bnd = tree_bounds(tables)
     dev = scene.device
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     return BigTables(static=static, counts=counts, geo=t(geo), rows=t(rows),
+                     rank=t(rank),
                      f=t(np.concatenate([hf, lf, tf])),
                      i=t(np.concatenate([hi, li, ti])), mat_i=t(mat_i),
                      tex_rec=t(tex_rec), mat_f=t(mat_f), bnd=t(bnd),
-                     links=t(links), **ktab.color_tables(scene),
+                     **ktab.color_tables(scene),
                      **ktab.texture_tables(scene))
 
 
@@ -510,9 +536,9 @@ def _closest_class(name, G, o: V3, d: V3):
 def _closest_hit(bt: BigTables, o: V3, d: V3, live):
     """Closest hit of the `live` lanes -> (t, class index, table row), with
     (inf, -1, -1) on a miss and on every other lane. The classes are swept
-    tri, rect, disk, sphere; within a class the first of the nearest rows
-    wins (argmin's first index), across classes a strictly nearer hit:
-    the sequential sweep's strict `t < t_best`."""
+    tri, rect, disk, sphere; within a class the nearest row of least rank
+    wins (the first in kytpu's order), across classes a strictly nearer
+    hit: the sequential sweep's strict `t < t_best`."""
     n = o.x.shape[0]
     t_best = torch.full((n,), math.inf, device=o.x.device)
     cls = torch.full((n,), -1, dtype=torch.int64, device=o.x.device)
@@ -531,7 +557,11 @@ def _closest_hit(bt: BigTables, o: V3, d: V3, live):
             G, _ = bt.cls(name)
             if not len(G):
                 continue
-            tmin, arg = _closest_class(name, G, oc, dc).min(dim=1)
+            r0 = sum(bt.counts[:k])
+            t = _closest_class(name, G, oc, dc)
+            tmin = t.min(dim=1)[0]
+            arg = torch.where(t == tmin[:, None], bt.rank[r0:r0 + len(G)],
+                              len(G)).argmin(dim=1)
             upd = tmin < tb
             tb = torch.where(upd, tmin, tb)
             cb = torch.where(upd, torch.full_like(cb, k), cb)
@@ -1244,12 +1274,12 @@ def sums_plain(tables: BigTables, cfg: kwf.KernelConfig, dout, acc, tags,
 
 _TABLES = ("f", "i", "geo", "rows", "mat_i", "mat_f", "diffuse", "specular",
            "emission", "exponent", "light_emit", "env", "texa", "texb", "timg",
-           "tex_rec", "bnd", "links")
+           "tex_rec", "bnd", "rank")
 
 
 def _check_tables(tables: BigTables, dev):
     check_tables(tables, dev, _TABLES, ("i", "rows", "mat_i", "tex_rec",
-                                        "links"))
+                                        "rank"))
 
 
 def _n_cols(tables: BigTables) -> int:

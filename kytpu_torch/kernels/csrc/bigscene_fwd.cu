@@ -21,67 +21,98 @@
 // Design (PR 8's redesign; PERF.md has each step's times). One thread
 // runs one lane's whole path (128 threads a block), lanes in pixel order;
 // the path state lives in registers. The geometry is one table per shape
-// class (tri, rect: 12 floats a row; disk: 8; sphere: 4), rows in Morton
-// order, read through __ldg: every lane of a warp reads the same row at the
-// same step, so each read is one broadcast. The closest-hit sweep carries
-// only (t, class, table row); the material is gathered by the hit's global
-// row after the sweep. Every random draw is a stateless hash of (key, lane,
-// draw counter), as in K1.
+// class (tri, rect: 12 floats a row; disk: 8; sphere: 4), rows in the
+// order of their cull tree's leaves, read through __ldg. The closest-hit
+// sweep carries only (t, class, table row); the material is gathered by
+// the hit's global row after the sweep. Every random draw is a stateless
+// hash of (key, lane, draw counter), as in K1.
 //
-// 1. The tree walk, each lane alone, on every sweep. Each class's rows come
-//    in blocks of 8 (kbs.extract_tables sorts them by Morton code), each
-//    block has a bounding sphere, padded so that no row test's rounding can
-//    reach past it (kbs.cull_bounds; each lane adds CULL_PAD of its
-//    origin's size, `cull_slack`; both tests are megakernel.cuh's, which K1,
-//    K2 and K4 cull with past REFILL_MAX_ROWS surfaces), and above the
-//    blocks an implicit tree of TREE_ARITY children a node holds, class by
-//    class, each node a padded sphere around its children's, laid out
-//    depth first with a skip link an entry (kbs.tree_bounds). Each lane
-//    walks the trees alone and stacklessly, in table order (`walk`): at an
-//    entry it tests its own ray over [0, t_best] (closest hit), or each of
-//    its open shadow rays over [0, tmax] from the offset origin
-//    (occlusion), against the entry's sphere, and goes on to the next entry
-//    (the first child, or after a block the next one) where it meets it,
-//    else to the entry's skip, past its subtree. There is no vote
-//    on a bound: a lane pays for its own path and not for the union of its
-//    warp's, and lanes that share a path read the same address (a
-//    broadcast), so coherent and incoherent rays take the one path. The
-//    warp runs the walk in the while-while form of Aila and Laine (HPG
-//    2009) with their speculative traversal: node steps while some lane
-//    has no block pending, each lane with room for one more of LEAF_BUF
-//    pending blocks stepping on, then a leaf phase in which each lane
-//    tests its own first pending block's rows (a gather). A lane whose ray
-//    is not finite passes every node.
-//    The rows are visited in table order and a skipped node holds no row
-//    the lane would have taken, so the results are those of the full sweep
-//    to the last bit; cull = 0 (cfg.cull="off") passes every node. kytpu
-//    culls per tile with a ray cone, and only where its rays are coherent;
-//    a per-lane test does not fall apart on incoherent rays, so here every
-//    sweep is culled. The walk's votes need the lanes that reach
-//    them: every thread of a warp stays in the bounce loop until the
-//    warp's last lane ends (a finished lane with a false `live`), the
-//    closest sweep's mask is the ballot of the live lanes, the occlusion
-//    sweep's that of the lanes with a shadow ray, and a sweep's lanes leave
-//    each class's walk together.
+// 1. The tree walk, each lane alone, on every sweep. Each class has a tree
+//    of boxes (kbs.extract_tables, cull.box_tree): a binned SAH over the
+//    float64 boxes of its rows (a sphere's c +- r, a planar row's box of
+//    its vertices, a disk's exact box), weighing a box test at
+//    kbs.BOX_TEST_OPS and a row test at the class's kbs.ROW_TEST_OPS,
+//    built binary down to single rows, then collapsed into the tree of
+//    least SAH cost with up to TREE_ARITY children a node and leaves of 1
+//    to 8 rows (after Ylitie, Karras and Laine, HPG 2017) and laid out
+//    depth first; the class's
+//    rows are stored in the order of its leaves, so a leaf is a run of
+//    rows. An entry is two float4s, one 32-byte sector: (lo.xyz, skip)
+//    and (hi.xyz, leaf), skip the entry after its subtree and leaf the
+//    word first row * 8 + rows - 1 of a leaf, or -1 above the leaves (int
+//    bits). Each lane walks the trees alone and stacklessly, in table
+//    order (`walk`): at an entry it tests its own ray over [0, t_best]
+//    (closest hit), or each of its open shadow rays over [0, tmax] from
+//    the offset origin (occlusion), against the entry's box (`box_meets`,
+//    a slab test), and goes on to the next entry (the first child, or
+//    after a leaf the next one) where it meets it, else to the entry's
+//    skip, past its subtree. There is no vote on a bound: a lane pays for
+//    its own path and not for the union of its warp's, and lanes that
+//    share a path read the same address (a broadcast). The warp runs the
+//    walk in the while-while form of Aila and Laine (HPG 2009) with their
+//    speculative traversal: node steps while some lane has no leaf
+//    pending, each lane with room for one more of LEAF_BUF pending leaves
+//    stepping on, then a leaf phase in which each lane tests its own first
+//    pending leaf's rows (a gather). A lane whose ray is not finite passes
+//    every node.
+//    Why the cull is exact. A leaf's box is its rows' float64 box padded
+//    by CULL_PAD of its size (the sum over the axes of the larger of |lo|
+//    and |hi|, which is no less than a sphere's |c|_1 + r) and rounded
+//    outward to a float32 (cull.padded_boxes); each lane adds CULL_PAD of
+//    its origin's size to every face (`cull_slack`, megakernel.cuh). A row
+//    test accepts a point off its surface only by the rounding of a few
+//    dozen float32 operations on the ray's origin, the row's constants and
+//    t |d|, each no larger than the origin's size plus the box's (a hit in
+//    the box is no farther than that from the origin); the slab test's
+//    own rounding, of a subtraction and a product an axis, is a few ulps
+//    of the same sizes. CULL_PAD, 2^-12, is 2^11 ulps of them, so the
+//    exact point o + t d of a row's accepted t lies inside the padded box
+//    with room to spare on every axis, and the slab test over [0, t1],
+//    t1 no less than that t, passes. A node's box is the float32 union of
+//    its children's, which holds them exactly, and the slab test is
+//    monotone in a box's faces (each step rounds monotonically; no FMA,
+//    --fmad=false), so a ray that passes a box passes every box above it.
+//    A NaN never culls: each axis's near and far t come from the faces the
+//    ray's direction sign picks, a NaN among them is dropped by fmaxf and
+//    fminf, and a ray that is not finite gets an infinite slack, which
+//    makes every axis's span the whole line or NaN. A skipped node holds
+//    no row the lane would have taken, and of two rows of a class that a
+//    ray hits at the same t the closest hit takes the one first in kytpu's
+//    Morton order of the class (`rank`, read only at such a tie; kytpu
+//    sweeps its rows in that order, the walk in the leaves' order, and a
+//    triangle mesh's faces tie where a ray meets their shared edge), so
+//    the results are those of the full sweep, and kytpu's, to the last
+//    bit; cull = 0 (cfg.cull="off") passes every node. kytpu culls per tile
+//    with a ray cone, and only where its rays are coherent; a per-lane test
+//    does not fall apart on incoherent rays, so here every sweep is culled.
+//    The walk's votes need the lanes that reach them: every thread of a
+//    warp stays in the bounce loop until the warp's last lane ends (a
+//    finished lane with a false `live`), the closest sweep's mask is the
+//    ballot of the live lanes, the occlusion sweep's that of the lanes
+//    with a shadow ray, and a sweep's lanes leave each class's walk
+//    together.
 // 2. The shadow rays out of local memory. The lights are sampled, swept and
 //    accumulated in chunks of min(L, NEE_CHUNK), as K1 does: each shadow
-//    ray's direction, tmax, n.wi, NEE factors, 1 / |wi|^2 and cull slack
-//    sit in this thread's column of a shared-memory block (`Rays`), and the
-//    next bounce's hit pdf of a sphere light is recomputed from the previous
-//    vertex (light_phit), which replaces a per-light array. A ray's
-//    occlusion is a boolean and the sums keep light order: the bits do not
-//    change.
-// 3. The tree replaced flat superblocks of 8 blocks, which every sweep
-//    tested all of before a warp entered, by vote, the superblocks and
-//    blocks that any of its lanes met: on the sphereflake's first 64K
-//    lanes 398.2 rows and 367.1 bound tests a lane-sweep, where the walk
-//    takes 204.0 rows and 285.6 node steps of the warp (a lane's own walk
-//    121.6 and 158.3; chip_smoke.swept_counts against vote_counts). Without
-//    the speculation (one pending block) the warp's node steps rose past
-//    the vote's tests, since its lanes reach their blocks at different
-//    depths; at TREE_ARITY 8 or 2 a lane takes more node steps than at 4.
-//    Both walks read the tables through L1; the walk's rows and nodes are
-//    gathers, so the rows are read 16 bytes at a time.
+//    ray's direction, tmax, n.wi, NEE factors, 1 / wi a component and cull
+//    slack sit in this thread's column of a shared-memory block (`Rays`),
+//    and the next bounce's hit pdf of a sphere light is recomputed from the
+//    previous vertex (light_phit), which replaces a per-light array. A
+//    ray's occlusion is a boolean and the sums keep light order: the bits
+//    do not change.
+// 3. The tree. The first design tested flat superblocks of 8 blocks (8
+//    Morton-ordered rows each under a padded sphere) before a warp entered
+//    them, by vote; the next had each lane walk an implicit 4-ary tree of
+//    padded spheres over those blocks: on the sphereflake's first 64K
+//    lanes the vote took
+//    398.2 rows and 367.1 bound tests a lane-sweep, the walk 204.0 rows and
+//    285.6 node steps of the warp (a lane's own walk 121.6 and 158.3;
+//    chip_smoke.swept_counts), and without the speculation (one pending
+//    block) the warp's node steps rose past the vote's tests. The blocks
+//    grouped 8 rows by Morton order whatever their sizes, and each level of
+//    spheres around spheres was looser than the last; the SAH's boxes
+//    group rows by where they are and how large (PERF.md has the counts).
+//    The walk reads its entries and rows through L1; both are gathers, so
+//    the rows are read 16 bytes at a time.
 //
 // What bounds K5 on the H100: FP32 issue of the sweeps (about 25-35
 // operations per row and ray, a similar count per block test), against a
@@ -121,7 +152,7 @@
 // utils/profiling.py, taken while the profiler records): on each sweep a
 // thread takes part in (the closest hit of a live lane, the occlusion sweep
 // of a lane with a shadow ray) it counts one sweep, its warp's node steps
-// and, for each leaf phase, the rows of the largest block tested in it:
+// and, for each leaf phase, the rows of the largest leaf tested in it:
 // the rows its warp tested for it; of those, the tri class's share
 // (kernel.<k>.rows.tri, .bounds.tri: the rows and node steps of the walks
 // of the tri tree). Where a.swept is not null the launch runs the kernel's
@@ -165,12 +196,12 @@ struct BigArgs {
   const int* tex_rec;
   float* tex_dout;
   int* tex_tags;
-  // step 1: each class's tree over its 8-row blocks, depth first, tri |
-  // rect | disk | sphere: the entries' spheres (cx, cy, cz, padded r) and
-  // links (skip, block), and whether to cull; step 2: the shadow rays a
-  // chunk holds
-  const float4* bnd;
-  const int2* link;
+  // step 1: each class's tree of boxes, depth first, tri | rect | disk |
+  // sphere, two float4s an entry: (lo.xyz, skip) and (hi.xyz, leaf), skip
+  // and leaf as int bits; each table row's rank in kytpu's Morton order of
+  // its class; and whether to cull; step 2: the shadow rays a chunk holds
+  const float4* node;
+  const int* rank;
   int cull, nee_rays;
   // K8 past its local row (LOCAL_COLS): the blocks' accumulators in device
   // memory, n_cols * THREADS floats a block; else null
@@ -206,9 +237,9 @@ constexpr int PG = 12, DG = 8, SG = 4;  // columns of the class tables
 constexpr int NEE_CHUNK = 8;
 constexpr int THREADS = 128;
 
-// children of a tree node (kbs.ARITY)
+// children of a tree node at most (kbs.ARITY)
 constexpr int TREE_ARITY = 4;
-// blocks a lane holds pending while it walks on (kbs.LEAF_BUF)
+// leaves a lane holds pending while it walks on (kbs.LEAF_BUF)
 constexpr int LEAF_BUF = 4;
 // blocks an SM at the least (__launch_bounds__): 64 registers a thread.
 // The walk's state took the compiler's own choice to 128 registers and 4
@@ -219,25 +250,18 @@ constexpr int MIN_BLOCKS = 8;
 
 __device__ __forceinline__ V xyz(float4 q) { return vmk(q.x, q.y, q.z); }
 
-// the tree entries of a class of `rows` rows (kbs.tree_bounds): its blocks
-// and the levels above them up to one root
-__device__ __forceinline__ int tree_entries(int rows) {
-  int n = blocks_of(rows), e = n;
-  while (n > 1) {
-    n = (n + TREE_ARITY - 1) / TREE_ARITY;
-    e += n;
-  }
-  return e;
-}
+// a leaf word's rows (step 1): [first, end)
+__device__ __forceinline__ int leaf_first(int leaf) { return leaf >> 3; }
+__device__ __forceinline__ int leaf_end(int leaf) { return (leaf >> 3) + (leaf & 7) + 1; }
 
 // the class tables' bases and their trees (step 1): each class's entries
-// [start[c], start[c + 1]) of node (bounds) and link (skip, block),
-// tri | rect | disk | sphere
+// [start[c], start[c + 1]) of node (two float4s an entry), tri | rect |
+// disk | sphere; a class's first entry is its root, whose skip ends it
 struct Tables {
   const float *tri, *rect, *disk, *sph;
   const int *tri_r, *rect_r, *disk_r, *sph_r;
   const float4* node;
-  const int2* link;
+  const int* rank;
   int start[5];
   int n_tri, n_rect, n_disk, n_sph;
   bool cull;
@@ -252,34 +276,73 @@ struct Tables {
     rect_r = tri_r + n_tri;
     disk_r = rect_r + n_rect;
     sph_r = disk_r + n_disk;
-    node = a.bnd;
-    link = a.link;
+    node = a.node;
+    rank = a.rank;
+    const int n[4] = {n_tri, n_rect, n_disk, n_sph};
     start[0] = 0;
-    start[1] = tree_entries(n_tri);
-    start[2] = start[1] + tree_entries(n_rect);
-    start[3] = start[2] + tree_entries(n_disk);
-    start[4] = start[3] + tree_entries(n_sph);
+    for (int c = 0; c < 4; ++c)
+      start[c + 1] = n[c] ? __float_as_int(__ldg(node + 2 * start[c]).w) : start[c];
+  }
+  // whether table row s of class c comes before its row r in kytpu's Morton
+  // order (step 1: the closest hit's tie-break)
+  __device__ __forceinline__ bool before(int c, int s, int r) const {
+    const int off = c == 0 ? 0 : c == 1 ? n_tri : c == 2 ? n_tri + n_rect : n_tri + n_rect + n_disk;
+    return __ldg(rank + off + s) < __ldg(rank + off + r);
   }
 };
 
+// A ray's slab test set-up (step 1, kbs.node_meets_plain): 1 / d a component,
+// and the origin moved by the ray's slack toward the face it meets first
+// (pn) and last (pf) on each axis, which the sign of 1 / d picks
+struct Slab {
+  V inv, pn, pf;
+};
+
+__device__ __forceinline__ Slab slab(V o, V inv, float slack) {
+  Slab r;
+  r.inv = inv;
+  r.pn = vmk(inv.x < 0.f ? o.x - slack : o.x + slack, inv.y < 0.f ? o.y - slack : o.y + slack,
+             inv.z < 0.f ? o.z - slack : o.z + slack);
+  r.pf = vmk(inv.x < 0.f ? o.x + slack : o.x - slack, inv.y < 0.f ? o.y + slack : o.y - slack,
+             inv.z < 0.f ? o.z + slack : o.z - slack);
+  return r;
+}
+
+// Can the segment o + t d, t in [0, t1], meet box [lo, hi] grown by the
+// ray's slack on every face (kbs.node_meets_plain)? Each axis's span of t
+// runs from its near face to its far face, which the sign of 1 / d picks;
+// fmaxf and fminf drop a NaN, so a NaN never culls (step 1).
+__device__ __forceinline__ bool box_meets(float4 lo, float4 hi, const Slab& r, float t1) {
+  const bool nx = r.inv.x < 0.f, ny = r.inv.y < 0.f, nz = r.inv.z < 0.f;
+  const float ax = ((nx ? hi.x : lo.x) - r.pn.x) * r.inv.x;
+  const float ay = ((ny ? hi.y : lo.y) - r.pn.y) * r.inv.y;
+  const float az = ((nz ? hi.z : lo.z) - r.pn.z) * r.inv.z;
+  const float bx = ((nx ? lo.x : hi.x) - r.pf.x) * r.inv.x;
+  const float by = ((ny ? lo.y : hi.y) - r.pf.y) * r.inv.y;
+  const float bz = ((nz ? lo.z : hi.z) - r.pf.z) * r.inv.z;
+  const float tn = fmaxf(fmaxf(ax, ay), fmaxf(az, 0.f));
+  const float tf = fminf(fminf(bx, by), fminf(bz, t1));
+  return !(tn > tf);
+}
+
 // One sweep of class c's tree by each lane of `mask` alone (step 1), in
 // table order: at entry e a lane goes on to e + 1 where its rays meet the
-// entry's sphere (its first child, or the next entry after a block) and
-// to the entry's skip where they do not, until it passes the class's last
+// entry's box (its first child, or the next entry after a leaf) and to
+// the entry's skip where they do not, until it passes the class's last
 // entry. In the while-while form of Aila & Laine (HPG 2009) with their
-// speculative traversal: node phases while some lane has no block
-// pending, in which each lane with room for one more of LEAF_BUF pending
-// blocks takes a step, then a leaf phase in which each lane with a pending
-// block tests the first one's rows. meets(b, rays): whether the lane's
-// rays can meet sphere b (true without the cull), and in rays which of
-// them do; leaf(blk, rays): test block blk's rows for those rays ->
+// speculative traversal: node phases while some lane has no leaf pending,
+// in which each lane with room for one more of LEAF_BUF pending leaves
+// takes a step, then a leaf phase in which each lane with a pending leaf
+// tests the first one's rows. meets(lo, hi, rays): whether the lane's
+// rays can meet the box (true without the cull), and in rays which of
+// them do; leaf(word, rays): test the leaf's rows for those rays ->
 // whether the lane still looks for something; live: whether it does at
-// the start; nr: the class's rows. The votes keep the warp together; under
-// COUNT every lane adds the warp's node steps and the rows of its largest
-// first pending block of each leaf phase (`Swept`), in the tri tree (c 0)
-// to the tri counts too.
+// the start. The votes keep the warp together; under COUNT every lane
+// adds the warp's node steps and the rows of its largest first pending
+// leaf of each leaf phase (`Swept`), in the tri tree (c 0) to the tri
+// counts too.
 template <bool COUNT, class Meets, class Leaf>
-__device__ __forceinline__ void walk(const Tables& T, int c, int nr, uint32_t mask, bool live,
+__device__ __forceinline__ void walk(const Tables& T, int c, uint32_t mask, bool live,
                                      Swept<COUNT>& sw, Meets&& meets, Leaf&& leaf) {
   int e = T.start[c];
   const int end = T.start[c + 1];
@@ -299,26 +362,27 @@ __device__ __forceinline__ void walk(const Tables& T, int c, int nr, uint32_t ma
         if (c == 0) ++sw.tri_bounds;
       }
       if (!done && buf[LEAF_BUF - 1] < 0) {
-        const int2 ln = __ldg(T.link + e);
+        const float4 lo = __ldg(T.node + 2 * e), hi = __ldg(T.node + 2 * e + 1);
+        const int word = __float_as_int(hi.w);
         uint32_t rays = 0;
-        const bool hit = meets(__ldg(T.node + e), rays);
-        if (hit && ln.y >= 0) {
+        const bool hit = meets(lo, hi, rays);
+        if (hit && word >= 0) {
           bool put = false;
 #pragma unroll
           for (int q = 0; q < LEAF_BUF; ++q)
             if (!put && buf[q] < 0) {
-              buf[q] = ln.y;
+              buf[q] = word;
               buf_rays[q] = rays;
               put = true;
             }
         }
-        e = hit ? e + 1 : ln.x;
+        e = hit ? e + 1 : __float_as_int(lo.w);
         done = e >= end;
       }
     }
     const bool any = __any_sync(mask, buf[0] >= 0);
     if constexpr (COUNT) {
-      const int rows = buf[0] >= 0 ? min(nr, (buf[0] + 1) * BLOCK_ROWS) - buf[0] * BLOCK_ROWS : 0;
+      const int rows = buf[0] >= 0 ? (buf[0] & 7) + 1 : 0;
       const uint32_t most = __reduce_max_sync(mask, (uint32_t)rows);
       sw.rows += most;
       if (c == 0) sw.tri_rows += most;
@@ -376,18 +440,25 @@ __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& 
   t_best = __int_as_float(0x7f800000);
   cls = -1;
   trow = -1;
-  float inv_dd = 0.f, slack = 0.f;
-  if (T.cull) slack = cull_slack(o, d, inv_dd);
-  auto meets = [&](float4 b, uint32_t&) {
-    return !T.cull || block_meets(b, o, d, inv_dd, t_best, slack);
+  Slab sl{};
+  if (T.cull) {
+    float inv_dd;
+    const float slack = cull_slack(o, d, inv_dd);
+    sl = slab(o, vmk(1.0f / d.x, 1.0f / d.y, 1.0f / d.z), slack);
+  }
+  auto meets = [&](float4 lo, float4 hi, uint32_t&) {
+    return !T.cull || box_meets(lo, hi, sl, t_best);
+  };
+  // a nearer hit, or one as near in the same class that comes first in
+  // kytpu's order: the full sweep's hit whatever order the walk takes
+  auto takes = [&](float t, int c, int s) {
+    return t < t_best || (t == t_best && cls == c && T.before(c, s, trow));
   };
   for (int k = 0; k < 2; ++k) {
     const float* tab = k == 0 ? T.tri : T.rect;
-    const int nr = k == 0 ? T.n_tri : T.n_rect;
-    walk(T, k, nr, mask, true, sw, meets, [&](int blk, uint32_t) {
-      const int s1 = min(nr, (blk + 1) * BLOCK_ROWS);
-      for (int s = blk * BLOCK_ROWS; s < s1; ++s) {
-        // 16-byte loads: the lanes' blocks may differ
+    walk(T, k, mask, true, sw, meets, [&](int leaf, uint32_t) {
+      for (int s = leaf_first(leaf); s < leaf_end(leaf); ++s) {
+        // 16-byte loads: the lanes' leaves may differ
         const float4* P = (const float4*)(tab + PG * s);
         const float4 q0 = __ldg(P), q1 = __ldg(P + 1), q2 = __ldg(P + 2);
         const V n = xyz(q0);
@@ -395,7 +466,7 @@ __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& 
         const V f1 = xyz(q1), f2 = xyz(q2);
         const float a = (vdot(f1, o) - q1.w) + t * vdot(f1, d);
         const float b = (vdot(f2, o) - q2.w) + t * vdot(f2, d);
-        if (planar_inside(a, b, k == 0) && t > EPS && t < t_best) {
+        if (planar_inside(a, b, k == 0) && t > EPS && takes(t, k, s)) {
           t_best = t;
           cls = k;
           trow = s;
@@ -404,15 +475,14 @@ __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& 
       return true;
     });
   }
-  walk(T, 2, T.n_disk, mask, true, sw, meets, [&](int blk, uint32_t) {
-    const int s1 = min(T.n_disk, (blk + 1) * BLOCK_ROWS);
-    for (int s = blk * BLOCK_ROWS; s < s1; ++s) {
+  walk(T, 2, mask, true, sw, meets, [&](int leaf, uint32_t) {
+    for (int s = leaf_first(leaf); s < leaf_end(leaf); ++s) {
       const float4* P = (const float4*)(T.disk + DG * s);
       const float4 q0 = __ldg(P), q1 = __ldg(P + 1);
       const V n = xyz(q0);
       const float t = (q0.w - vdot(n, o)) / vdot(n, d);
       const V rel = (o + d * t) - xyz(q1);
-      if (vdot(rel, rel) <= q1.w && t > EPS && t < t_best) {
+      if (vdot(rel, rel) <= q1.w && t > EPS && takes(t, 2, s)) {
         t_best = t;
         cls = 2;
         trow = s;
@@ -420,9 +490,8 @@ __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& 
     }
     return true;
   });
-  walk(T, 3, T.n_sph, mask, true, sw, meets, [&](int blk, uint32_t) {
-    const int s1 = min(T.n_sph, (blk + 1) * BLOCK_ROWS);
-    for (int s = blk * BLOCK_ROWS; s < s1; ++s) {
+  walk(T, 3, mask, true, sw, meets, [&](int leaf, uint32_t) {
+    for (int s = leaf_first(leaf); s < leaf_end(leaf); ++s) {
       const float4 P = __ldg((const float4*)(T.sph + SG * s));
       const float r = P.w;
       const V oc = xyz(P) - o;
@@ -437,7 +506,7 @@ __device__ void closest_tables(const Tables& T, V o, V d, uint32_t mask, float& 
       const float t1 = jmin(q, tq), t2 = jmax(q, tq);
       const bool t1_ok = t1 > EPS;
       const float t = t1_ok ? t1 : t2;
-      if (discr >= 0.f && r > 0.f && (t1_ok || t2 > EPS) && t < t_best) {
+      if (discr >= 0.f && r > 0.f && (t1_ok || t2 > EPS) && takes(t, 3, s)) {
         t_best = t;
         cls = 3;
         trow = s;
@@ -468,25 +537,26 @@ __device__ void hit_record(const Tables& T, int cls, int trow, V o, V d, float t
 
 // The shadow rays of one vertex, lights i0 .. i0 + chunk - 1 (step 2): each
 // leaves hp offset by se = +-OFF along n_shade (the sign of nd = n_shade .
-// wi) up to tmax; val and wgt are its NEE factors, iww 1 / |wi|^2 and slk
-// its cull slack. They live in this thread's column of a shared-memory
+// wi) up to tmax; val and wgt are its NEE factors, ix, iy, iz 1 / wi a
+// component and slk its cull slack. They live in this thread's column of a shared-memory
 // block, field f of ray k at p[(k * FIELDS + f) * THREADS] (the block's
 // threads side by side: no bank conflicts).
 struct Rays {
-  enum { WX, WY, WZ, TMAX, ND, VAL, WGT, IWW, SLK, FIELDS };
+  enum { WX, WY, WZ, TMAX, ND, VAL, WGT, IX, IY, IZ, SLK, FIELDS };
   float* p;
   int chunk;
   __device__ __forceinline__ float& at(int f, int k) const { return p[(k * FIELDS + f) * THREADS]; }
   __device__ __forceinline__ V wi(int k) const { return vmk(at(WX, k), at(WY, k), at(WZ, k)); }
   __device__ __forceinline__ float se(int k) const { return at(ND, k) < 0.f ? -OFF : OFF; }
+  __device__ __forceinline__ V inv(int k) const { return vmk(at(IX, k), at(IY, k), at(IZ, k)); }
 };
 
 // One occlusion sweep for the rays of R whose bit is set in `need` -> the
 // bits of the blocked ones (bigscene.py::_occluded). The terms of (hp,
 // n_shade) are shared by the rays. Every lane of `mask` (those with a ray
 // to sweep) calls it; each walks the classes' trees alone, keeping at a
-// node the mask of its open rays that can meet the node's bound, going
-// down where that mask is not 0, testing a block's rows for the rays in it
+// node the mask of its open rays that can meet the node's box, going
+// down where that mask is not 0, testing a leaf's rows for the rays in it
 // while they are open, and finishing once every ray is blocked.
 // lti: under robust shadows the light records of the chunk's first light,
 // whose field 2 is the emitting row that the light's ray skips (-1: none);
@@ -496,8 +566,9 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
                                     uint32_t mask, const int* lti, Swept<COUNT>& sw) {
   ++sw.sweeps;
   uint32_t open = need;
-  // the open rays that can meet bound *b (all of them without the cull)
-  auto meets = [&](float4 bb, uint32_t& test) {
+  // the open rays that can meet box [lo, hi] (all of them without the
+  // cull)
+  auto meets = [&](float4 lo, float4 hi, uint32_t& test) {
     if (!T.cull) {
       test = open;
       return true;
@@ -505,8 +576,7 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
     test = 0;
     for (uint32_t q = open; q; q &= q - 1) {
       const int j = __ffs(q) - 1;
-      if (block_meets(bb, hp + ns * R.se(j), R.wi(j), R.at(R.IWW, j), R.at(R.TMAX, j),
-                      R.at(R.SLK, j)))
+      if (box_meets(lo, hi, slab(hp + ns * R.se(j), R.inv(j), R.at(R.SLK, j)), R.at(R.TMAX, j)))
         test |= 1u << j;
     }
     return test != 0;
@@ -515,12 +585,10 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
     const int own = lti ? __ldg(lti + LT_I * j + 2) : -1;
     return own < 0 || __ldg(rws + s) != own;
   };
-  // the rows of block blk of a class for the rays in `test`, while open
-  // -> whether a ray is still open
-  auto planar_rows = [&](const float* tab, const int* rws, int nr, int blk, bool tri,
-                         uint32_t test) {
-    const int s1 = min(nr, (blk + 1) * BLOCK_ROWS);
-    for (int s = blk * BLOCK_ROWS; s < s1 && (test & open); ++s) {
+  // the rows of a class's leaf for the rays in `test`, while open ->
+  // whether a ray is still open
+  auto planar_rows = [&](const float* tab, const int* rws, int leaf, bool tri, uint32_t test) {
+    for (int s = leaf_first(leaf); s < leaf_end(leaf) && (test & open); ++s) {
       const float4* P = (const float4*)(tab + PG * s);
       const float4 q0 = __ldg(P), q1 = __ldg(P + 1), q2 = __ldg(P + 2);
       const V n = xyz(q0), f1 = xyz(q1), f2 = xyz(q2);
@@ -543,15 +611,14 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
     }
     return open != 0;
   };
-  walk(T, 0, T.n_tri, mask, open != 0, sw, meets, [&](int blk, uint32_t test) {
-    return planar_rows(T.tri, T.tri_r, T.n_tri, blk, true, test);
+  walk(T, 0, mask, open != 0, sw, meets, [&](int leaf, uint32_t test) {
+    return planar_rows(T.tri, T.tri_r, leaf, true, test);
   });
-  walk(T, 1, T.n_rect, mask, open != 0, sw, meets, [&](int blk, uint32_t test) {
-    return planar_rows(T.rect, T.rect_r, T.n_rect, blk, false, test);
+  walk(T, 1, mask, open != 0, sw, meets, [&](int leaf, uint32_t test) {
+    return planar_rows(T.rect, T.rect_r, leaf, false, test);
   });
-  walk(T, 2, T.n_disk, mask, open != 0, sw, meets, [&](int blk, uint32_t test) {
-    const int s1 = min(T.n_disk, (blk + 1) * BLOCK_ROWS);
-    for (int s = blk * BLOCK_ROWS; s < s1 && (test & open); ++s) {
+  walk(T, 2, mask, open != 0, sw, meets, [&](int leaf, uint32_t test) {
+    for (int s = leaf_first(leaf); s < leaf_end(leaf) && (test & open); ++s) {
       const float4* P = (const float4*)(T.disk + DG * s);
       const float4 q0 = __ldg(P), q1 = __ldg(P + 1);
       const V n = xyz(q0), p0 = xyz(q1);
@@ -570,9 +637,8 @@ __device__ uint32_t occluded_tables(const Tables& T, V hp, V ns, const Rays& R, 
     }
     return open != 0;
   });
-  walk(T, 3, T.n_sph, mask, open != 0, sw, meets, [&](int blk, uint32_t test) {
-    const int s1 = min(T.n_sph, (blk + 1) * BLOCK_ROWS);
-    for (int s = blk * BLOCK_ROWS; s < s1 && (test & open); ++s) {
+  walk(T, 3, mask, open != 0, sw, meets, [&](int leaf, uint32_t test) {
+    for (int s = leaf_first(leaf); s < leaf_end(leaf) && (test & open); ++s) {
       const float4 P = __ldg((const float4*)(T.sph + SG * s));
       const float rad = P.w;
       const V vc = xyz(P) - hp;
@@ -829,7 +895,9 @@ __device__ __forceinline__ void trace_lane(const BigArgs& a, const Scene& S, con
         if (T.cull) {
           float iww;
           R.at(R.SLK, k) = cull_slack(hp + nrm * se, sm.wi, iww);
-          R.at(R.IWW, k) = iww;
+          R.at(R.IX, k) = 1.0f / sm.wi.x;
+          R.at(R.IY, k) = 1.0f / sm.wi.y;
+          R.at(R.IZ, k) = 1.0f / sm.wi.z;
         }
       }
       const uint32_t omask = __ballot_sync(mask, want != 0);
@@ -1116,10 +1184,11 @@ int launch(BigArgs& a, int textured, void* stream) {
 // n_disk, n_sph of each), mat_i (M, 2), mat_f (M, 4), the (M, 3)
 // diffuse/specular/emission, the (M,) exponent, the (max(L, 1), 3) light
 // emissions, the (3,) env, the texture tables texa, texb (T, 3) and timg
-// (texels, 3) (one zero row each in an untextured scene), tex_rec (M,) and
-// bnd and links, each class's tree over its 8-row blocks, depth first
-// (kbs.tree_bounds: the entries' spheres, (entries, 4) float, and their
-// (skip, block) links, (entries, 2) int, tri | rect | disk | sphere)
+// (texels, 3) (one zero row each in an untextured scene), tex_rec (M,),
+// bnd, each class's tree of boxes, depth first (kbs.tree_bounds: (entries,
+// 8) float, an entry lo.xyz, skip, hi.xyz, leaf, skip and leaf int bits;
+// tri | rect | disk | sphere), and rank, each table row's rank in kytpu's
+// Morton order of its class (as rows)
 // (textured: the scene has texture records); lanes: o, d (n, 3), si and
 // pix (n,) int32 (null under the "random" sampler); out (n, 3), and under
 // residual resf (res_n, n) and resi (max_depth + 1, n), plane-major.
@@ -1136,7 +1205,7 @@ extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo
                                   const float* exponent, const float* light_emit,
                                   const float* env, const float* texa, const float* texb,
                                   const float* timg, const int* tex_rec, const float* bnd,
-                                  const int* links, const float* o, const float* d,
+                                  const int* rank, const float* o, const float* d,
                                   const int* si, const int* pix,
                                   float* out, float* resf, int* resi, int n, int n_tri,
                                   int n_rect, int n_disk, int n_sph, int M, int seed,
@@ -1147,7 +1216,7 @@ extern "C" int kytpu_bigscene_fwd(const float* F, const int* I, const float* geo
   a.F = F; a.I = I; a.geo = geo; a.rows = rows; a.mat_i = mat_i; a.mat_f = mat_f;
   a.diffuse = diffuse; a.specular = specular; a.emission = emission; a.exponent = exponent;
   a.light_emit = light_emit; a.env = env; a.texa = texa; a.texb = texb; a.timg = timg;
-  a.tex_rec = tex_rec; a.bnd = (const float4*)bnd; a.link = (const int2*)links;
+  a.tex_rec = tex_rec; a.node = (const float4*)bnd; a.rank = rank;
   a.o = o; a.d = d; a.si = si; a.pix = pix; a.out = out; a.resf = resf; a.resi = resi;
   a.n = n; a.n_tri = n_tri; a.n_rect = n_rect; a.n_disk = n_disk; a.n_sph = n_sph; a.M = M;
   a.seed = seed; a.max_depth = max_depth; a.rr_start = rr_start; a.rows_per_tile = rows_per_tile;
@@ -1173,8 +1242,8 @@ extern "C" int kytpu_bigscene_bwd_replay(
     const float* F, const int* I, const float* geo, const int* rows, const int* mat_i,
     const float* mat_f, const float* diffuse, const float* specular, const float* emission,
     const float* exponent, const float* light_emit, const float* env, const float* texa,
-    const float* texb, const float* timg, const int* tex_rec, const float* bnd, const int* links,
-    const float* o, const float* d, const int* si, const int* pix, const float* g,
+    const float* texb, const float* timg, const int* tex_rec, const float* bnd,
+    const int* rank, const float* o, const float* d, const int* si, const int* pix, const float* g,
     const float* big_l,
     float* dout, int* tags, float* partial, float* lane_sums, float* tex_dout, int* tex_tags,
     int n, int n_cols, int n_tri, int n_rect, int n_disk, int n_sph, int M, int seed,
@@ -1186,7 +1255,7 @@ extern "C" int kytpu_bigscene_bwd_replay(
   a.F = F; a.I = I; a.geo = geo; a.rows = rows; a.mat_i = mat_i; a.mat_f = mat_f;
   a.diffuse = diffuse; a.specular = specular; a.emission = emission; a.exponent = exponent;
   a.light_emit = light_emit; a.env = env; a.texa = texa; a.texb = texb; a.timg = timg;
-  a.tex_rec = tex_rec; a.bnd = (const float4*)bnd; a.link = (const int2*)links;
+  a.tex_rec = tex_rec; a.node = (const float4*)bnd; a.rank = rank;
   a.o = o; a.d = d; a.si = si; a.pix = pix;
   a.g = g; a.l_in = big_l; a.dout = dout; a.tags = tags; a.partial = partial;
   a.lane_sums = lane_sums; a.tex_dout = tex_dout; a.tex_tags = tex_tags;

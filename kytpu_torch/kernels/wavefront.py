@@ -806,8 +806,8 @@ def cull_bounds(tables) -> np.ndarray:
     array [cx cy cz R]: each class's 8-row block bounds (kytpu's
     `_block_bounds`, r * 1.0001 + 1e-6), tri | rect | disk | sphere, then
     each class's superblock bounds, a sphere around SUPER consecutive block
-    bounds (`group`). K1, K2 and K4 read them past 64 surfaces; K5, K6 and
-    K8 read the same padded blocks under a tree (`kbs.tree_bounds`).
+    bounds (`group`). K1, K2 and K4 read them past 64 surfaces (K5, K6 and
+    K8 walk trees of boxes instead, `kbs.tree_bounds`).
 
     Each R adds CULL_PAD * (|cx| + |cy| + |cz| + r) to r and is rounded up
     to a float32. Why that is enough: a row test accepts a point off its

@@ -70,6 +70,11 @@ inline float __uint_as_float(uint32_t u) {
   memcpy(&f, &u, 4);
   return f;
 }
+inline int __float_as_int(float f) {
+  int i;
+  memcpy(&i, &f, 4);
+  return i;
+}
 // the high word of (hi:lo) << (shift & 31)
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t shift) {
   return (uint32_t)(((((uint64_t)hi << 32) | lo) << (shift & 31)) >> 32);

@@ -3,9 +3,11 @@ plain versions' routing and algebra on the CPU (kernels/bigscene.py).
 
 - scene/mesh.py and the builders random_spheres / mesh_scene: bit-identical
   arrays and scene tables;
-- extract_tables (Morton order, block bounds, global rows, table_of_row)
-  and the cache layout: equal to kytpu's on random spheres, an icosphere
-  mesh and the Cornell box;
+- extract_tables (each class's rows with their global rows, in the port's
+  order of its cull trees' leaves where kytpu's is the Morton order;
+  table_of_row) and the cache layout: kytpu's on random spheres, an
+  icosphere mesh and the Cornell box; the Morton keys and block bounds that
+  K1-K4's cull reads past 64 surfaces: kytpu's;
 - routing, kytpu's rule: render() and make_train_step() past 64 surfaces
   take the big-scene tracers where the tables take the scene (textured
   ones included) and K1-K4 where they do not (a rect that is not a
@@ -88,6 +90,31 @@ def test_mesh_module_matches_kytpu(name):
             tm.transform_mesh(tv, 1.5, 0.3, (1, 0, -1)))
 
 
+def same_class_rows(jstatic, jtab, tstatic, ttab):
+    """The port's class tables hold kytpu's rows, each with its global row,
+    in the port's own order (its cull trees' leaves; kytpu's is the Morton
+    order of the rows' bound centres): the same shapes, dtypes and zero
+    padding, each real row's geometry the same bytes, each row's rank its
+    place in kytpu's table, and table_of_row naming each row's class and
+    its place in the port's table."""
+    for k in kbs.CLASSES:
+        (jg, jr, _), (tg, tr, _, rank) = jtab[k], ttab[k]
+        for a, b in ((jg, tg), (jr, tr), (jr, rank)):
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+        n = tstatic["n_real"][k]
+        assert not tg[n:].any() and not tr[n:].any() and not rank[n:].any()
+        np.testing.assert_array_equal(jr[:n][rank[:n]], tr[:n], err_msg=k)
+        jo, to = np.argsort(jr[:n], kind="stable"), np.argsort(
+            tr[:n], kind="stable")
+        np.testing.assert_array_equal(jr[:n][jo], tr[:n][to], err_msg=k)
+        np.testing.assert_array_equal(jg[:n][jo], tg[:n][to], err_msg=k)
+        for ti, row in enumerate(tr[:n].tolist()):
+            assert tstatic["table_of_row"][row] == (k, ti)
+    assert sorted(jstatic["table_of_row"]) == sorted(tstatic["table_of_row"])
+    assert all(jstatic["table_of_row"][r][0] == c
+               for r, (c, _) in tstatic["table_of_row"].items())
+
+
 @pytest.mark.parametrize("name", sorted(BUILDS))
 def test_builders_and_tables_match_kytpu(name):
     jsc, tsc = BUILDS[name](jb), BUILDS[name](tb)
@@ -109,11 +136,7 @@ def test_builders_and_tables_match_kytpu(name):
                                       getattr(tsc.camera, f).numpy())
     jstatic, jtab = jbs.extract_tables(jsc)
     tstatic, ttab = kbs.extract_tables(tsc)
-    for k in kbs.CLASSES:
-        for a, b in zip(jtab[k], ttab[k]):
-            assert a.dtype == b.dtype and a.shape == b.shape, k
-            np.testing.assert_array_equal(a, b, err_msg=k)
-    assert jstatic["table_of_row"] == tstatic["table_of_row"]
+    same_class_rows(jstatic, jtab, tstatic, ttab)
     if name == "degenerate":
         assert len(tsc.mat_kind) == len(_FACES) - 1 + 2   # + ground, light
     for texp in (False, True):

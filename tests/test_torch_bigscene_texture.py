@@ -1,9 +1,9 @@
 """Textures in the port's big-scene kernels K5-K8 against kytpu's table
 kernel (kernels/bigscene.py; ROADMAP item M9b).
 
-- the textured scene's tables: `extract_tables` and the cache layout with
-  the "tx"/"ty" planes equal to kytpu's, and its refusal of an atlas past
-  the select chain, as kytpu's;
+- the textured scene's tables: `extract_tables` (kytpu's rows in the
+  port's order) and the cache layout with the "tx"/"ty" planes equal to
+  kytpu's, and its refusal of an atlas past the select chain, as kytpu's;
 - the plain textured K5, lane by lane, against kytpu's table kernel in
   interpret mode (sweep="scalar") at the size of kytpu's own check
   (tests/test_bigscene.py:423): a 16x16 Cornell box with a checker floor
@@ -28,6 +28,7 @@ from kytpu_torch.integrator.render import render
 from kytpu_torch.kernels import bigscene as kbs
 from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders as tb
+from tests.test_torch_bigscene_tables import same_class_rows
 from tests.test_torch_wavefront import camera_rays, lanes_agree
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
@@ -45,9 +46,7 @@ def test_textured_tables_match_kytpu():
     jsc, tsc = textured(jb), textured(tb)
     jstatic, jtab = jbs.extract_tables(jsc)
     tstatic, ttab = kbs.extract_tables(tsc)
-    for k in kbs.CLASSES:
-        for a, b in zip(jtab[k], ttab[k]):
-            np.testing.assert_array_equal(a, b, err_msg=k)
+    same_class_rows(jstatic, jtab, tstatic, ttab)
     assert tstatic["textures"] == jstatic["textures"]
     for texp in (False, True):
         cfg = kwf.KernelConfig(max_depth=3, trainable_exponent=texp)

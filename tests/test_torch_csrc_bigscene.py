@@ -1,5 +1,5 @@
 """The big-scene lane body of K5, K6 and K8 (csrc/bigscene_fwd.cu
-`trace_lane`, with its block cull) compiled with g++ and run on the CPU:
+`trace_lane`, with its tree cull) compiled with g++ and run on the CPU:
 against the plain versions `trace_lanes_plain` and `bwd_replay_plain`, and
 culled against the same build with the cull off.
 
@@ -7,13 +7,13 @@ The source compiles on the host as in tests/test_torch_csrc_lane.py
 (tests/csrc_stub/cuda_runtime.h, the <<<...>>> launch configurations
 stripped, the dynamic shared-memory array a static one, -ffp-contract=off).
 The stub's votes treat each lane as a warp of one, so each lane skips every
-block that its own rays cannot meet: the strictest cull the kernel can run.
+node that its own rays cannot meet: the strictest cull the kernel can run.
 A harness runs the lanes one after another, each with the shadow-ray
 column of thread 0.
 
 Tolerances:
 - culled against the cull off: every output equal bit for bit (one build,
-  one host libm: a skipped block that held a row some lane would take
+  one host libm: a skipped node that held a row some lane would take
   changes that lane);
 - against the plain versions, the plain-vs-kytpu bound
   (tests/test_torch_wavefront.py): at most 0.5% of lanes outside
@@ -22,9 +22,9 @@ Tolerances:
   flip a branch), the radiance's means within 3 standard errors; the row
   tags and int planes of at most 0.5% of lanes differ.
 
-A quarter of the lanes graze the sphere that sets a block's bounding
-radius, at the bound itself, so a block bound without its pad loses rows
-that the row tests take (the culled run then differs from the cull off).
+A quarter of the lanes graze a sphere where it sets a face of its leaf's
+box, at the face itself, so a box without its pad loses rows that the row
+tests take (the culled run then differs from the cull off).
 """
 
 import re
@@ -43,6 +43,7 @@ from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.light import lights as klights
 from kytpu_torch.scene import builders, mesh
 from kytpu_torch.scene.scene import generate_rays, make_camera
+from tests.test_torch_bigscene_cull import coplanar
 from tests.test_torch_cuda import many_lights
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
@@ -161,14 +162,14 @@ int main(int argc, char** argv) {
              bnd = load<float>("bnd"), o = load<float>("o"), d = load<float>("d"),
              g = load<float>("g"), l_in = load<float>("l_in");
   const auto I = load<int>("i"), rows = load<int>("rows"), mat_i = load<int>("mat_i"),
-             tex_rec = load<int>("tex_rec"), si = load<int>("si"), pix = load<int>("pix");
-  const auto links = load<int>("links");
+             tex_rec = load<int>("tex_rec"), si = load<int>("si"), pix = load<int>("pix"),
+             rank = load<int>("rank");
   a.F = F.data(); a.I = I.data(); a.geo = geo.data(); a.rows = rows.data();
   a.mat_i = mat_i.data(); a.mat_f = mat_f.data(); a.diffuse = diffuse.data();
   a.specular = specular.data(); a.emission = emission.data(); a.exponent = exponent.data();
   a.light_emit = light_emit.data(); a.env = env.data(); a.texa = texa.data();
   a.texb = texb.data(); a.timg = timg.data(); a.tex_rec = tex_rec.data();
-  a.bnd = (const float4*)bnd.data(); a.link = (const int2*)links.data();
+  a.node = (const float4*)bnd.data(); a.rank = rank.data();
   a.o = o.data(); a.d = d.data(); a.si = si.data();
   a.pix = pix.data(); a.g = g.data(); a.l_in = l_in.data();
   const size_t n = a.n, B = a.max_depth, PB = a.texp ? 10 : 9;
@@ -262,6 +263,7 @@ def _scene(name):
         "spd_balls": lambda: builders.spd_balls(2, 24, 16),
         "tetra": lambda: builders.spd_tetra(3, 24, 16),
         "triangles": _triangles_only,
+        "coplanar": lambda: coplanar(24, 16),
         "spheres": lambda: builders.random_spheres(n=96, width=24, height=16),
         "mesh": lambda: builders.mesh_scene(*mesh.icosphere(subdivisions=2),
                                             width=24, height=16),
@@ -272,24 +274,23 @@ def _scene(name):
 
 
 def _grazing(tables, n, rng):
-    """n rays, each tangent to the sphere that sets its block's bounding
-    radius, at the block's bound (without its pad): the row test and the
-    unpadded block test both sit at their rounding edge there."""
+    """n rays, each tangent to the sphere of a leaf that reaches farthest
+    along a random axis, where it touches that face of the leaf's box
+    (without its pad): the row test and the unpadded box test both sit at
+    their rounding edge there."""
     static, tabs = tables
-    geo, _, bnd = tabs["sphere"]
+    geo, _, tree, _ = tabs["sphere"]
+    words = tree.view(np.int32)[:, 7]
     o, d = [], []
-    for b in range(len(bnd)):
-        rows = geo[b * kbs.UNROLL:(b + 1) * kbs.UNROLL].astype(np.float64)
+    for w in words[words >= 0]:
+        rows = geo[w >> 3:(w >> 3) + (w & 7) + 1].astype(np.float64)
         rows = rows[rows[:, 3] > 0]
         if not len(rows):
             continue
-        c = bnd[b, :3].astype(np.float64)
-        far = np.linalg.norm(rows[:, :3] - c, axis=-1) + rows[:, 3]
-        s = rows[int(np.argmax(far))]
-        u = s[:3] - c
-        if np.linalg.norm(u) < 1e-6 * s[3]:   # one sphere: any side
-            u = rng.normal(size=3)
-        u = u / np.linalg.norm(u)
+        a, sgn = rng.integers(0, 3), rng.choice([-1.0, 1.0])
+        s = rows[int(np.argmax(sgn * rows[:, a] + rows[:, 3]))]
+        u = np.zeros(3)
+        u[a] = sgn
         p = s[:3] + u * s[3]
         w = np.cross(u, rng.normal(size=3))
         w = w / np.linalg.norm(w)
@@ -350,8 +351,10 @@ def _run(exe, path, mode, cull, tables, cfg, n, seed, res_n, n_cols):
 # scene, sampler, shadow, trainable exponent, depth: each sampler and both
 # shadow modes on each scene kind, a textured table scene (checker floor,
 # 8x8 atlas: K8's texel entries), 33 lights (102 lane columns, past the
-# kernel's local row)
+# kernel's local row), overlapping rows of one plane (ties in t, which the
+# camera rays' first hits must break as the plain K6 does, lane for lane)
 CASES = [
+    ("coplanar", "random", "parity", False, 2),
     ("spheres", "random", "parity", False, 3),
     ("spheres", "hash", "robust", True, 3),
     ("spheres", "sobol", "parity", False, 2),
@@ -405,6 +408,8 @@ def test_culled_lane_body_matches_plain(big_exe, tmp_path, scene, sampler,
     resi = runs[(1, 1)]["resi"].reshape(-1, n)
     _share_off(resf.T, ref_f.numpy().T, "cache planes")
     assert (resi != ref_i.numpy()).any(0).mean() <= 0.005
+    if scene == "coplanar":
+        np.testing.assert_array_equal(resi[0], ref_i[0].numpy())
 
     # K8's row-tagged planes, tags and lane columns against the plain K8
     ref = kbs.bwd_replay_plain(tables, cfg, o, d, seed, si, pix, g, ref_l)
@@ -429,7 +434,7 @@ def test_culled_lane_body_matches_plain(big_exe, tmp_path, scene, sampler,
                                          ("spd_balls", "off"),
                                          ("spheres", "cone")])
 def test_row_counter_matches_the_plain_votes(big_exe, tmp_path, scene, cull):
-    """The lane body's row counter (each lane's rows of the blocks its warp
+    """The lane body's row counter (each lane's rows of the leaves its warp
     entered, and its sweeps; csrc/bigscene_fwd.cu `Swept`) summed over the
     lanes against chip_smoke.swept_counts at warps of one, the host build's
     votes, on the same rays: the same counts."""
@@ -533,7 +538,7 @@ def test_tree_walk_in_warps_of_one(big_exe, tmp_path, scene):
 def test_tree_walk_in_warps_of_32(big_warp_exe, tmp_path, scene, cull):
     """Each 32 lanes a warp of 32 host threads whose votes and maxima meet
     as the card's warps' do (KYTPU_WARP_EMU): the warp's node phases, its
-    lanes' pending blocks and its leaf phases give K5, K6 and K8 equal to
+    lanes' pending leaves and its leaf phases give K5, K6 and K8 equal to
     the cull off to the bit, and K6's counters equal chip_smoke.swept_counts
     at warps of 32, the tri class's share included, the replay phases 16
     and 17 hold the card to. 1,000 lanes: the last warp is partial."""

@@ -38,8 +38,7 @@ from kytpu_torch.kernels import wavefront as kwf
 from kytpu_torch.scene import builders
 from kytpu_torch.scene import shapes as kshapes
 from kytpu_torch.scene import texture as ktex
-from tests.test_torch_bigscene_cull import (_grazing, _ground_plane,
-                                            _inside, _perp, _unit, _v3)
+from tests.test_torch_bigscene_cull import _ground_plane, _perp, _unit, _v3
 import tests.torch_threads  # noqa: F401  (one torch thread a process)
 
 
@@ -145,6 +144,42 @@ def _classes(static, vis, bnd):
                                       bnd[s:s + 1]])))
         out.append((name, blocks))
     return out
+
+
+def _grazing(G, name, bnd, rng, n):
+    """Rays tangent to random rows' silhouettes, at the radius times 1 +
+    k * 2^-23 (k in -8..8), from 0.3 to 80 units away; half of those on a
+    sphere table graze a block's farthest sphere where it touches the
+    block's bound."""
+    k = rng.integers(0, len(G), n)
+    g = G[k].numpy().astype(np.float64)
+    if name == "sphere":
+        c, r = g[:, :3], g[:, 3]
+    else:   # a planar row's vertices are not in its table: its plane point
+        c, r = g[:, :3] * g[:, 3:4], np.zeros(n)
+    u = _unit(rng.normal(size=(n, 3)))
+    if name == "sphere":
+        Gn = G.numpy().astype(np.float64)
+        bc = bnd.numpy().astype(np.float64)[k // kbs.UNROLL, :3]
+        for i in range(0, n, 2):
+            blk = Gn[(k[i] // kbs.UNROLL) * kbs.UNROLL:][:kbs.UNROLL]
+            far = np.linalg.norm(blk[:, :3] - bc[i], axis=-1) + blk[:, 3]
+            c[i], r[i] = blk[np.argmax(far), :3], blk[np.argmax(far), 3]
+            if np.linalg.norm(c[i] - bc[i]) > 1e-6:
+                u[i] = _unit(c[i] - bc[i])
+    w = _perp(u, rng)
+    p = c + u * (r * (1 + rng.integers(-8, 9, n) * 2.0 ** -23))[:, None]
+    far = 10.0 ** rng.uniform(-0.5, 1.9, n)
+    return p - w * far[:, None], w
+
+
+def _inside(bnd, rng, n):
+    """Origins inside a block's or a superblock's bound, directions
+    anywhere."""
+    b = bnd[rng.integers(0, len(bnd), n)].numpy().astype(np.float64)
+    o = b[:, :3] + _unit(rng.normal(size=(n, 3))) * (
+        b[:, 3] * rng.uniform(0, 1, n) ** (1 / 3))[:, None]
+    return o, _unit(rng.normal(size=(n, 3)))
 
 
 def _one_row(static, name, r):
